@@ -1,0 +1,147 @@
+"""User-facing ``Dataset`` and ``Booster`` (python-package basic.py
+semantics, as in ``lightgbm_tpu/basic.py:76`` and :671).
+
+Both run on the CUDA device unless the caller passes ``device="cpu"``
+(as a keyword or in ``params``); with no card and no such request they
+raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from . import data as data_mod
+from .boosting import GBDT
+from .config import (Config, _unsupported, config_from_params,
+                     resolve_device)
+from .objectives import create_objective
+from .utils import log
+
+
+def _to_matrix(data) -> np.ndarray:
+    if isinstance(data, (str, bytes)) or hasattr(data, "columns"):
+        _unsupported("file and pandas inputs",
+                     "checkpoints, serving, observability, CLI, sklearn and "
+                     "plotting")
+    mat = np.asarray(data, dtype=np.float64)
+    return mat.reshape(1, -1) if mat.ndim == 1 else mat
+
+
+class Dataset:
+    """Lazily-constructed dataset: binned on the host, then moved to the
+    device once."""
+
+    def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
+                 weight=None, group=None, init_score=None,
+                 feature_name: Union[str, List[str]] = "auto",
+                 categorical_feature: Union[str, List] = "auto",
+                 params: Optional[Dict[str, Any]] = None):
+        if group is not None:
+            _unsupported("query groups", "training breadth (ranking)")
+        if init_score is not None:
+            _unsupported("init_score",
+                         "training breadth (init scores and continued "
+                         "training)")
+        if categorical_feature not in ("auto", None, []):
+            _unsupported("categorical features",
+                         "training breadth (categorical splits)")
+        self.data = data
+        self.label = label
+        self.reference = reference
+        self.weight = weight
+        self.feature_name = feature_name
+        self.params = dict(params or {})
+        self.constructed: Optional[data_mod.TrainingData] = None
+        self.bins: Optional[torch.Tensor] = None     # [N, F] uint8, on device
+
+    def construct(self, config: Optional[Config] = None,
+                  device: Optional[str] = None) -> "Dataset":
+        """Bin on the host (dataset.py:92 ``construct``) and move the bin
+        matrix to ``device`` (default: ``params['device']``, else cuda)."""
+        cfg = config or config_from_params(self.params)
+        dev = resolve_device(device or cfg.device)
+        if self.constructed is None:
+            ref = (self.reference.construct(cfg, str(dev)).constructed
+                   if self.reference is not None else None)
+            names = (list(self.feature_name)
+                     if isinstance(self.feature_name, (list, tuple)) else None)
+            self.constructed = data_mod.construct(
+                _to_matrix(self.data), cfg,
+                label=(None if self.label is None
+                       else np.asarray(self.label, np.float32).ravel()),
+                weight=(None if self.weight is None
+                        else np.asarray(self.weight)),
+                feature_names=names, reference=ref)
+        if self.bins is None or self.bins.device.type != dev.type:
+            self.bins = torch.from_numpy(self.constructed.binned).to(dev)
+        return self
+
+
+class Booster:
+    """Training/prediction handle (basic.py:1213+ semantics)."""
+
+    def __init__(self, params: Optional[Dict[str, Any]] = None,
+                 train_set: Optional[Dataset] = None,
+                 model_file: Optional[str] = None,
+                 model_str: Optional[str] = None):
+        self.params = dict(params or {})
+        self.best_iteration = -1
+        self.best_score: Dict = {}
+        cfg = config_from_params(self.params)
+        self.device = resolve_device(cfg.device)
+        log.set_verbosity(cfg.verbose)
+        if train_set is not None:
+            train_set.construct(cfg, str(self.device))
+            self.inner = GBDT(cfg, train_set.constructed,
+                              create_objective(cfg), train_set.bins)
+        elif model_file is not None:
+            with open(model_file) as f:
+                self.inner = GBDT.load_from_string(f.read(), cfg)
+        elif model_str is not None:
+            self.inner = GBDT.load_from_string(model_str, cfg)
+        else:
+            raise ValueError("Booster needs train_set, model_file or model_str")
+        self._predictor = None
+        self._predictor_key = None
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        data.construct(self.inner.config, str(self.device))
+        self.inner.add_valid_set(data.constructed, data.bins, name)
+        return self
+
+    def update(self) -> bool:
+        """One boosting iteration; True when training should stop."""
+        return self.inner.train_one_iter()
+
+    def eval_train(self):
+        return self.inner.eval_train()
+
+    def eval_valid(self):
+        return self.inner.eval_valid()
+
+    def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
+                device: Optional[str] = None) -> np.ndarray:
+        """Raw or transformed scores of ``data`` ``[N, F]``, computed on
+        ``device`` (default: this booster's)."""
+        dev = resolve_device(device) if device else self.device
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = (self.best_iteration if self.best_iteration > 0
+                             else -1)
+        key = (len(self.inner.models), num_iteration, str(dev))
+        if self._predictor_key != key:
+            self._predictor = self.inner.predictor(dev, num_iteration)
+            self._predictor_key = key
+        return self._predictor.predict(_to_matrix(data), raw_score=raw_score)
+
+    def save_model(self, filename: str, num_iteration: int = -1) -> "Booster":
+        with open(filename, "w") as f:
+            f.write(self.model_to_string(num_iteration))
+        return self
+
+    def model_to_string(self, num_iteration: int = -1) -> str:
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = (self.best_iteration if self.best_iteration > 0
+                             else -1)
+        return self.inner.save_model_to_string(num_iteration)

@@ -1,0 +1,233 @@
+"""Parameter system of the port.
+
+The reference's config surface (``include/LightGBM/config.h``) as one flat
+dataclass, cut to the fields this port reads: the alias table
+(``config.h:353-483``) resolves onto them, unknown parameters are rejected
+as the reference rejects them, and a value this port cannot honour yet
+raises ``NotImplementedError`` naming the ROADMAP.md port-queue item that
+brings it, instead of being ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from .utils import log
+
+# Alias -> canonical name (reference config.h:353-483, KeyAliasTransform),
+# for the canonical names this Config carries.
+PARAM_ALIASES: Dict[str, str] = {
+    "boosting": "boosting_type",
+    "boost": "boosting_type",
+    "application": "objective",
+    "app": "objective",
+    "bin_packing": "enable_bin_packing",
+    "min_data_per_leaf": "min_data_in_leaf",
+    "min_data": "min_data_in_leaf",
+    "min_child_samples": "min_data_in_leaf",
+    "min_sum_hessian_per_leaf": "min_sum_hessian_in_leaf",
+    "min_sum_hessian": "min_sum_hessian_in_leaf",
+    "min_hessian": "min_sum_hessian_in_leaf",
+    "min_child_weight": "min_sum_hessian_in_leaf",
+    "num_leaf": "num_leaves",
+    "sub_feature": "feature_fraction",
+    "colsample_bytree": "feature_fraction",
+    "num_iteration": "num_iterations",
+    "num_tree": "num_iterations",
+    "num_round": "num_iterations",
+    "num_trees": "num_iterations",
+    "num_rounds": "num_iterations",
+    "num_boost_round": "num_iterations",
+    "sub_row": "bagging_fraction",
+    "subsample": "bagging_fraction",
+    "subsample_freq": "bagging_freq",
+    "shrinkage_rate": "learning_rate",
+    "tree": "tree_learner",
+    "early_stopping_rounds": "early_stopping_round",
+    "early_stopping": "early_stopping_round",
+    "verbosity": "verbose",
+    "categorical_feature": "categorical_column",
+    "cat_column": "categorical_column",
+    "cat_feature": "categorical_column",
+    "min_split_gain": "min_gain_to_split",
+    "reg_alpha": "lambda_l1",
+    "reg_lambda": "lambda_l2",
+    "num_classes": "num_class",
+    "unbalanced_sets": "is_unbalance",
+}
+
+
+@dataclasses.dataclass
+class Config:
+    """Flat parameter set with reference defaults (config.h:94-295)."""
+
+    device: str = "cuda"           # cuda | cpu; cpu only when asked for
+    verbose: int = 1
+
+    # objective / boosting
+    objective: str = "regression"
+    boosting_type: str = "gbdt"
+    num_iterations: int = 100
+    learning_rate: float = 0.1
+    num_class: int = 1
+    tree_learner: str = "serial"
+
+    # tree
+    num_leaves: int = 31
+    max_depth: int = -1
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_gain_to_split: float = 0.0
+    feature_fraction: float = 1.0
+    bagging_fraction: float = 1.0
+    bagging_freq: int = 0
+
+    # binning
+    max_bin: int = 255
+    min_data_in_bin: int = 5
+    bin_construct_sample_cnt: int = 200000
+    data_random_seed: int = 1
+    use_missing: bool = True
+    zero_as_missing: bool = False
+    enable_bundle: bool = True
+    enable_bin_packing: bool = True
+    max_conflict_rate: float = 0.0
+    categorical_column: str = ""
+    data_stream: str = "auto"
+
+    # objectives' knobs
+    sigmoid: float = 1.0
+    scale_pos_weight: float = 1.0
+    is_unbalance: bool = False
+    boost_from_average: bool = True
+
+    # metric / eval
+    metric: List[str] = dataclasses.field(default_factory=list)
+    early_stopping_round: int = 0
+
+    def copy(self) -> "Config":
+        return dataclasses.replace(self)
+
+
+_FIELD_TYPES = {f.name: f.type for f in dataclasses.fields(Config)}
+_BOOL_TRUE = {"true", "1", "yes", "on", "+"}
+_BOOL_FALSE = {"false", "0", "no", "off", "-"}
+
+# objective names of the slice (objectives.py registry)
+SUPPORTED_OBJECTIVES = ("regression", "regression_l2", "mean_squared_error",
+                        "mse", "l2", "binary")
+
+
+def _parse_value(name: str, value: Any) -> Any:
+    """Coerce a raw (possibly string) value to the field's declared type."""
+    ftype = str(_FIELD_TYPES[name])
+    if name == "metric":
+        if isinstance(value, str):
+            return [p for p in value.replace(",", " ").split() if p]
+        if isinstance(value, (set, frozenset)):
+            return sorted(str(p) for p in value)
+        if isinstance(value, (list, tuple)):
+            return [str(p) for p in value]
+        return [str(value)]
+    if "bool" in ftype:
+        if isinstance(value, bool):
+            return value
+        s = str(value).strip().lower()
+        if s in _BOOL_TRUE:
+            return True
+        if s in _BOOL_FALSE:
+            return False
+        raise ValueError(f"cannot parse bool parameter {name}={value!r}")
+    if "int" in ftype:
+        return int(float(value)) if isinstance(value, str) else int(value)
+    if "float" in ftype:
+        return float(value)
+    return str(value)
+
+
+def canonicalize_params(params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """Alias-resolve a raw param dict; reject unknown keys (config.h:478-481).
+
+    Explicit canonical keys win over aliased ones, as in the reference."""
+    out: Dict[str, Any] = {}
+    aliased: Dict[str, Any] = {}
+    for key, value in dict(params or {}).items():
+        k = key.strip().lower()
+        if k in PARAM_ALIASES:
+            aliased[PARAM_ALIASES[k]] = value
+        elif k in _FIELD_TYPES:
+            out[k] = value
+        else:
+            raise ValueError(f"Unknown parameter: {key}")
+    for k, v in aliased.items():
+        out.setdefault(k, v)
+    return out
+
+
+def config_from_params(params: Optional[Dict[str, Any]] = None,
+                       base: Optional[Config] = None) -> Config:
+    cfg = base.copy() if base is not None else Config()
+    for k, v in canonicalize_params(params).items():
+        setattr(cfg, k, _parse_value(k, v))
+    check_params(cfg)
+    return cfg
+
+
+def _unsupported(what: str, item: str) -> None:
+    raise NotImplementedError(
+        f"{what} is not ported to lightgbm_tpu_torch yet "
+        f"(ROADMAP.md, port queue: {item})")
+
+
+def check_params(cfg: Config) -> None:
+    """Cross-field checks (src/io/config.cpp:188-240) plus the slice's
+    limits: every value outside the slice raises."""
+    if cfg.device not in ("cuda", "cpu"):
+        log.fatal("device must be cuda or cpu; got %r", cfg.device)
+    if cfg.num_class != 1:
+        _unsupported(f"num_class={cfg.num_class}",
+                     "training breadth (multiclass)")
+    if cfg.objective.lower() not in SUPPORTED_OBJECTIVES:
+        _unsupported(f"objective={cfg.objective}",
+                     "training breadth (other objectives)")
+    if cfg.boosting_type not in ("gbdt", "gbrt"):
+        _unsupported(f"boosting_type={cfg.boosting_type}",
+                     "boosting variants and sampling (DART/GOSS/RF)")
+    if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0:
+        _unsupported("bagging", "boosting variants and sampling")
+    if cfg.feature_fraction < 1.0:
+        _unsupported("feature_fraction < 1", "boosting variants and sampling")
+    if cfg.tree_learner != "serial":
+        _unsupported(f"tree_learner={cfg.tree_learner}",
+                     "multi-device learners")
+    if cfg.data_stream not in ("auto", "resident"):
+        _unsupported(f"data_stream={cfg.data_stream}",
+                     "streamed out-of-core training")
+    if cfg.categorical_column:
+        _unsupported("categorical features",
+                     "training breadth (categorical splits)")
+    if cfg.max_bin > 256:
+        # the bin matrix is uint8 and the histogram kernel is 256 bins wide
+        _unsupported(f"max_bin={cfg.max_bin} (> 256)",
+                     "training breadth (uint16 bin matrix)")
+    if cfg.num_leaves < 2:
+        log.fatal("num_leaves must be >= 2; got %d", cfg.num_leaves)
+
+
+def resolve_device(name: Optional[str]) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asked
+    for ``cpu``.  A missing card raises; it never falls back to the CPU."""
+    name = name or "cuda"
+    if name == "cpu":
+        return torch.device("cpu")
+    if name != "cuda":
+        raise ValueError(f"device must be cuda or cpu; got {name!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "lightgbm_tpu_torch runs on a CUDA device by default and none "
+            "is available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")

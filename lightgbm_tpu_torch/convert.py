@@ -1,0 +1,103 @@
+"""Carry state built by the JAX package across into the port, as numpy
+arrays or model text, so both packages compute on the same state.
+
+* :func:`dataset_from_arrays` takes a constructed dataset (bin matrix,
+  per-feature ``num_bin`` / ``missing_type`` / ``default_bin`` / bin upper
+  bounds, label) and returns the port's :class:`~.basic.Dataset`.
+* :func:`booster_from_arrays` takes trees as model text or as the
+  ``Tree`` fields and returns the port's :class:`~.basic.Booster`.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from .basic import Booster, Dataset
+from .data.binning import BinMapper
+from .data.dataset import TrainingData
+from .data.metadata import Metadata
+from .tree import Tree
+
+_TREE_FIELDS = ("split_feature", "split_gain", "threshold", "decision_type",
+                "left_child", "right_child", "leaf_parent", "leaf_value",
+                "leaf_count", "internal_value", "internal_count")
+
+
+def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
+                        missing_type: Sequence[int],
+                        default_bin: Sequence[int],
+                        bin_upper_bound: Sequence[np.ndarray],
+                        label: np.ndarray,
+                        used_features: Optional[Sequence[int]] = None,
+                        num_total_features: Optional[int] = None,
+                        min_max: Optional[Sequence[Sequence[float]]] = None,
+                        feature_names: Optional[List[str]] = None,
+                        weight: Optional[np.ndarray] = None,
+                        params: Optional[Dict] = None,
+                        device: Optional[str] = None) -> Dataset:
+    """A constructed port Dataset from the arrays of a constructed one.
+
+    ``binned`` is ``[N, F_used]`` uint8; the per-feature arrays describe
+    its columns, which are the original features ``used_features``
+    (default: all of them) of ``num_total_features``.  ``min_max`` gives
+    each used feature's (min, max) for the model's ``feature_infos``."""
+    binned = np.ascontiguousarray(binned, dtype=np.uint8)
+    n, f = binned.shape
+    used = list(range(f)) if used_features is None else list(used_features)
+    total = num_total_features if num_total_features is not None else f
+    mappers = [BinMapper() for _ in range(total)]      # trivial by default
+    for k, j in enumerate(used):
+        lo, hi = min_max[k] if min_max is not None else (0.0, 0.0)
+        mappers[j] = BinMapper(
+            num_bin=int(num_bin[k]), missing_type=int(missing_type[k]),
+            is_trivial=False,
+            bin_upper_bound=np.asarray(bin_upper_bound[k], np.float64),
+            min_val=float(lo), max_val=float(hi),
+            default_bin=int(default_bin[k]))
+    td = TrainingData()
+    td.num_data = n
+    td.num_total_features = total
+    td.bin_mappers = mappers
+    td.used_features = used
+    td.binned = binned
+    td.feature_names = (list(feature_names) if feature_names
+                        else [f"Column_{i}" for i in range(total)])
+    td.metadata = Metadata(n)
+    td.metadata.set_label(label)
+    td.metadata.set_weight(weight)
+    ds = Dataset(None, label=label, params=params)
+    ds.constructed = td
+    return ds.construct(device=device)
+
+
+def booster_from_arrays(model_str: Optional[str] = None,
+                        trees: Optional[List[Dict[str, np.ndarray]]] = None,
+                        objective: str = "regression",
+                        max_feature_idx: int = 0,
+                        boost_from_average: bool = False,
+                        params: Optional[Dict] = None) -> Booster:
+    """A port Booster from model text, or from trees given as dicts of the
+    ``Tree`` fields (``num_leaves``, ``split_feature``, ``threshold``,
+    ``decision_type``, ``left_child``, ``right_child``, ``leaf_value``, ...)
+    with the model's objective string (e.g. ``"binary sigmoid:1"``)."""
+    if model_str is not None:
+        return Booster(params=params, model_str=model_str)
+    names = " ".join(f"Column_{i}" for i in range(max_feature_idx + 1))
+    header = ["tree", "num_class=1", "num_tree_per_iteration=1",
+              "label_index=0", f"max_feature_idx={max_feature_idx}",
+              f"objective={objective}"]
+    if boost_from_average:
+        header.append("boost_from_average")
+    header += [f"feature_names={names}", ""]
+    blocks = []
+    for i, fields in enumerate(trees or []):
+        t = Tree(int(fields["num_leaves"]))
+        for name in _TREE_FIELDS:
+            if name in fields:
+                setattr(t, name, np.asarray(fields[name],
+                                            getattr(t, name).dtype))
+        t.shrinkage = float(fields.get("shrinkage", 1.0))
+        blocks.append(t.to_string(i))
+    return Booster(params=params,
+                   model_str="\n".join(header) + "\n" + "\n".join(blocks))

@@ -1,0 +1,162 @@
+"""Binned dataset container: the dense path of the reference ``Dataset``.
+
+The reference (``include/LightGBM/dataset.h:280-570``,
+``src/io/dataset.cpp``) stores per-group ``Bin`` columns; the port keeps one
+dense row-major ``[N, F]`` uint8 matrix of bin indices (its GPU learner's
+``sparse_threshold=1`` recipe), built on the host and moved to the device
+once by :class:`~lightgbm_tpu_torch.basic.Dataset`.
+
+Construction samples ``bin_construct_sample_cnt`` rows, fits a
+:class:`~.binning.BinMapper` per feature and bins every column
+(``DatasetLoader::CostructFromSampleData``, dataset_loader.cpp:482+).
+Valid datasets reuse their training dataset's mappers.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..config import Config, _unsupported
+from ..utils import log
+from ..utils.random import make_rng, sample_k
+from .binning import BinMapper
+from .bundling import find_bundles
+from .metadata import Metadata
+
+# features per block in the construction loops: a bounded transpose
+# working set (~2 MB of float64 at 64 columns)
+_COL_BLOCK = 64
+
+
+class TrainingData:
+    """Fully constructed binned dataset (host side)."""
+
+    def __init__(self):
+        self.num_data: int = 0
+        self.num_total_features: int = 0
+        self.bin_mappers: List[BinMapper] = []
+        self.used_features: List[int] = []   # original feature index per column
+        self.binned: Optional[np.ndarray] = None   # [N, F] uint8
+        self.metadata: Metadata = Metadata()
+        self.feature_names: List[str] = []
+
+    def feature_meta(self) -> Dict[str, np.ndarray]:
+        """Per-column meta arrays consumed by the grower."""
+        mappers = [self.bin_mappers[i] for i in self.used_features]
+        return {
+            "num_bin": np.asarray([m.num_bin for m in mappers], np.int32),
+            "missing_type": np.asarray([m.missing_type for m in mappers],
+                                       np.int32),
+            "default_bin": np.asarray([m.default_bin for m in mappers],
+                                      np.int32),
+        }
+
+    def max_num_bin(self) -> int:
+        """Histogram width: max bins over the used columns."""
+        if not self.used_features:
+            return 1
+        return max(self.bin_mappers[i].num_bin for i in self.used_features)
+
+
+def construct(data: np.ndarray, config: Config,
+              label: Optional[np.ndarray] = None,
+              weight: Optional[np.ndarray] = None,
+              feature_names: Optional[Sequence[str]] = None,
+              reference: Optional[TrainingData] = None) -> TrainingData:
+    """Build a TrainingData from a raw ``[N, F]`` feature matrix (dataset.py:92)."""
+    data = np.asarray(data)
+    if data.ndim != 2:
+        log.fatal("Training data must be 2-dimensional")
+    num_data, num_features = data.shape
+    ds = TrainingData()
+    ds.num_data = num_data
+    ds.num_total_features = num_features
+    ds.feature_names = (list(feature_names) if feature_names
+                        else [f"Column_{i}" for i in range(num_features)])
+    if reference is not None:
+        ds.bin_mappers = reference.bin_mappers
+        ds.used_features = reference.used_features
+        ds.feature_names = reference.feature_names
+        if num_features != reference.num_total_features:
+            log.fatal("Validation data has %d features, training data has %d",
+                      num_features, reference.num_total_features)
+    else:
+        sample_cnt = min(config.bin_construct_sample_cnt, num_data)
+        if sample_cnt < num_data:
+            rng = make_rng(config.data_random_seed)
+            sample = np.asarray(data[sample_k(rng, num_data, sample_cnt)],
+                                dtype=np.float64)
+        else:
+            sample = np.asarray(data, dtype=np.float64)
+        _fit_from_sample(ds, sample, config)
+
+    ds.binned = np.empty((num_data, len(ds.used_features)), dtype=np.uint8)
+    _bin_rows(ds, data, ds.binned)
+    ds.metadata = Metadata(num_data)
+    ds.metadata.set_label(label if label is not None
+                          else np.zeros(num_data, dtype=np.float32))
+    ds.metadata.set_weight(weight)
+    return ds
+
+
+def _columns_T(data: np.ndarray, cols, chunk_rows: int = 4096) -> np.ndarray:
+    """Contiguous ``[len(cols), N]`` float64 transpose of ``data[:, cols]``,
+    copied in row chunks so every read stays sequential."""
+    cols = np.asarray(cols, dtype=np.intp)
+    n = data.shape[0]
+    out = np.empty((len(cols), n), dtype=np.float64)
+    for r0 in range(0, n, chunk_rows):
+        r1 = min(n, r0 + chunk_rows)
+        out[:, r0:r1] = data[r0:r1, cols].T
+    return out
+
+
+def _fit_from_sample(ds: TrainingData, sample: np.ndarray,
+                     config: Config) -> None:
+    """Fit per-feature BinMappers from the sampled rows and filter trivial
+    features (FindBin); a dataset the EFB search would bundle raises."""
+    num_features = ds.num_total_features
+    min_split_data = int(config.min_data_in_leaf * len(sample)
+                         / max(ds.num_data, 1))
+    mappers: List[BinMapper] = []
+    for b0 in range(0, num_features, _COL_BLOCK):
+        cols_t = _columns_T(sample, range(b0, min(num_features,
+                                                  b0 + _COL_BLOCK)))
+        for col in cols_t:
+            # sparse convention: pass non-zero values; zeros implied by total count
+            nz = col[(col != 0) | np.isnan(col)]
+            mappers.append(BinMapper.fit(
+                nz, total_sample_cnt=len(col), max_bin=config.max_bin,
+                min_data_in_bin=config.min_data_in_bin,
+                min_split_data=min_split_data,
+                use_missing=config.use_missing,
+                zero_as_missing=config.zero_as_missing))
+    ds.bin_mappers = mappers
+    ds.used_features = [j for j, m in enumerate(mappers) if not m.is_trivial]
+    if not ds.used_features:
+        log.fatal("Cannot construct Dataset: all features are trivial (constant)")
+    if config.enable_bundle and len(ds.used_features) > 1:
+        bs = sample[:min(len(sample), 20000)]
+        nonzero = np.zeros((bs.shape[0], len(ds.used_features)), dtype=bool)
+        for b0 in range(0, len(ds.used_features), _COL_BLOCK):
+            chunk = ds.used_features[b0:b0 + _COL_BLOCK]
+            cols_t = _columns_T(bs, chunk)
+            nonzero[:, b0:b0 + len(chunk)] = ((cols_t != 0)
+                                              | np.isnan(cols_t)).T
+        bundles = find_bundles(
+            nonzero, [mappers[j].num_bin for j in ds.used_features],
+            config.max_conflict_rate)
+        if any(len(b) > 1 for b in bundles):
+            _unsupported("enable_bundle=true on a dataset with bundleable "
+                         "features (pass enable_bundle=false)",
+                         "EFB and bin packing")
+
+
+def _bin_rows(ds: TrainingData, data: np.ndarray, out: np.ndarray) -> None:
+    """Bin raw rows into ``out`` (same row count) with the fitted mappers."""
+    for b0 in range(0, len(ds.used_features), _COL_BLOCK):
+        chunk = ds.used_features[b0:b0 + _COL_BLOCK]
+        cols_t = _columns_T(data, chunk)
+        for k, j in enumerate(chunk):
+            out[:, b0 + k] = ds.bin_mappers[j].value_to_bin(cols_t[k])

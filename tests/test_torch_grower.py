@@ -1,0 +1,76 @@
+"""The port's serial grower against lightgbm_tpu's ``make_grower`` (CPU
+segment rung) under integer-valued gradients and hessians, whose
+histogram sums are exact in any order: the TreeArrays must be identical
+field by field, and the row -> leaf maps identical, at 31 and 255 leaves."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from lightgbm_tpu.grower import FeatureMeta as JaxMeta
+from lightgbm_tpu.grower import GrowerConfig as JaxGrowerConfig
+from lightgbm_tpu.grower import make_grower
+from lightgbm_tpu_torch.grower import FeatureMeta, GrowerConfig, grow_tree
+
+
+def _problem(n, seed):
+    rng = np.random.default_rng(seed)
+    num_bin = np.asarray([63, 2, 17, 63, 40, 5, 63, 30, 3, 63], np.int32)
+    missing = np.asarray([0, 2, 1, 2, 0, 1, 0, 2, 0, 1], np.int32)
+    default_bin = np.asarray([rng.integers(0, nb) for nb in num_bin],
+                             np.int32)
+    bins = np.stack([rng.integers(0, nb, n) for nb in num_bin],
+                    1).astype(np.uint8)
+    g = (rng.integers(-6, 7, n) - 3 * (bins[:, 0] > 31)
+         + 2 * (bins[:, 7] % 3 == 0)).astype(np.float32)
+    h = rng.integers(1, 4, n).astype(np.float32)
+    c = np.ones(n, np.float32)
+    return bins, g, h, c, num_bin, missing, default_bin
+
+
+@pytest.mark.parametrize("num_leaves,min_data,max_depth", [
+    (31, 20, -1), (255, 1, -1), (63, 5, 6)])
+def test_tree_identical_to_jax(num_leaves, min_data, max_depth):
+    n = 4000
+    bins, g, h, c, nb, mt, db = _problem(n, seed=num_leaves)
+    kw = dict(num_leaves=num_leaves, min_data_in_leaf=min_data,
+              min_sum_hessian_in_leaf=1.0, lambda_l2=1.0, max_depth=max_depth,
+              max_bin=63)
+    jcfg = JaxGrowerConfig(hist_method="segment", **kw)
+    jmeta = JaxMeta(num_bin=jnp.asarray(nb), missing_type=jnp.asarray(mt),
+                    default_bin=jnp.asarray(db),
+                    is_categorical=jnp.zeros(len(nb), bool))
+    grow = jax.jit(make_grower(jcfg))
+    jtree, jrow = grow(jnp.asarray(bins), jnp.asarray(g), jnp.asarray(h),
+                       jnp.asarray(c), jmeta, jnp.ones(len(nb), bool))
+    jtree = jax.tree_util.tree_map(np.asarray, jtree)
+
+    t = torch.from_numpy
+    tree, row_leaf = grow_tree(
+        t(bins), t(g), t(h), t(c),
+        FeatureMeta(t(nb), t(mt), t(db)), torch.ones(len(nb), dtype=bool),
+        GrowerConfig(**kw))
+    assert int(tree.num_leaves) == int(jtree.num_leaves)
+    if max_depth < 0:
+        assert int(tree.num_leaves) > num_leaves // 2
+    for name in tree._fields:
+        if name == "num_leaves":
+            continue
+        np.testing.assert_array_equal(getattr(tree, name).numpy(),
+                                      getattr(jtree, name), err_msg=name)
+    np.testing.assert_array_equal(row_leaf.numpy(), np.asarray(jrow))
+
+
+def test_stats_count_one_sync_per_split_plus_stop():
+    bins, g, h, c, nb, mt, db = _problem(2000, seed=3)
+    t = torch.from_numpy
+    stats = {}
+    tree, _ = grow_tree(t(bins), t(g), t(h), t(c),
+                        FeatureMeta(t(nb), t(mt), t(db)),
+                        torch.ones(len(nb), dtype=bool),
+                        GrowerConfig(num_leaves=15, max_bin=63), stats)
+    assert stats["splits"] == tree.num_leaves - 1
+    # the loop reads once per split, plus once more when it stops early
+    assert stats["host_syncs"] in (stats["splits"], stats["splits"] + 1)

@@ -1,0 +1,125 @@
+"""The PyTorch port stands alone: no JAX, nothing of lightgbm_tpu; its
+entry points run on the card unless asked for the CPU, and parameters
+outside the ported slice raise instead of being ignored."""
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lt
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "lightgbm_tpu_torch")
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|lightgbm_tpu(?!_torch))(\W|$)",
+    re.MULTILINE)
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_sources_import_no_jax():
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            for m in _FORBIDDEN.finditer(f.read()):
+                bad.append(f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}")
+    assert not bad, bad
+
+
+def test_import_loads_no_jax_module():
+    modules = sorted(
+        f"lightgbm_tpu_torch.{os.path.relpath(os.path.join(d, f), PKG)[:-3]}"
+        .replace(os.sep, ".").replace(".__init__", "")
+        for d, _, files in os.walk(PKG) for f in files if f.endswith(".py"))
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'lightgbm_tpu')]\n"
+            "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((300, 4))
+    return x, (x[:, 0] > 0).astype(np.float32)
+
+
+def test_dataset_construct_raises_without_card(no_card):
+    x, y = _small()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lt.Dataset(x, y).construct()
+
+
+def test_train_raises_without_card(no_card):
+    x, y = _small()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lt.train({"objective": "binary"}, lt.Dataset(x, y), 1)
+
+
+def test_predict_raises_without_card(no_card):
+    x, y = _small()
+    params = {"objective": "binary", "device": "cpu", "verbose": -1}
+    bst = lt.train(params, lt.Dataset(x, y, params=params), 2)
+    np.testing.assert_array_equal(bst.predict(x).shape, (300,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bst.predict(x, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lt.Booster(model_str=bst.model_to_string())
+
+
+@pytest.mark.parametrize("params", [
+    {"boosting_type": "dart"},
+    {"objective": "multiclass", "num_class": 3},
+    {"objective": "lambdarank"},
+    {"tree_learner": "data"},
+    {"bagging_fraction": 0.5, "bagging_freq": 1},
+    {"feature_fraction": 0.5},
+    {"data_stream": "chunked"},
+    {"categorical_feature": "0"},
+])
+def test_unsupported_params_raise(params):
+    x, y = _small()
+    p = dict({"objective": "binary", "device": "cpu"}, **params)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lt.train(p, lt.Dataset(x, y, params=p), 1)
+
+
+def test_bundleable_dataset_raises_unless_bundling_off():
+    rng = np.random.default_rng(1)
+    x = np.zeros((400, 3))
+    x[:100, 0] = rng.standard_normal(100)      # mutually exclusive sparse
+    x[100:200, 1] = rng.standard_normal(100)
+    x[:, 2] = rng.standard_normal(400)
+    y = (x.sum(1) > 0).astype(np.float32)
+    p = {"objective": "binary", "device": "cpu", "enable_bin_packing": False}
+    with pytest.raises(NotImplementedError, match="EFB"):
+        lt.Dataset(x, y, params=p).construct()
+    p["enable_bundle"] = False
+    assert lt.Dataset(x, y, params=p).construct().bins.shape == (400, 3)
+
+
+def test_unknown_parameter_rejected():
+    x, y = _small()
+    with pytest.raises(ValueError, match="Unknown parameter"):
+        lt.train({"objective": "binary", "device": "cpu", "nonsense": 3},
+                 lt.Dataset(x, y), 1)
