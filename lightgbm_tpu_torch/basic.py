@@ -44,17 +44,34 @@ class Dataset:
             _unsupported("init_score",
                          "training breadth (init scores and continued "
                          "training)")
-        if categorical_feature not in ("auto", None, []):
-            _unsupported("categorical features",
-                         "training breadth (categorical splits)")
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = dict(params or {})
         self.constructed: Optional[data_mod.TrainingData] = None
         self.bins: Optional[torch.Tensor] = None     # [N, F] uint8, on device
+
+    def _categorical_indices(self, cfg: Config,
+                             names: Optional[List[str]]) -> List[int]:
+        """Column indices of the categorical features: this Dataset's
+        ``categorical_feature`` (indices, or names of ``feature_name``),
+        else the ``categorical_feature`` parameter (comma-separated)."""
+        cats = self.categorical_feature
+        if cats in ("auto", None):
+            cats = [c for c in cfg.categorical_column.split(",") if c.strip()]
+        out = []
+        for c in cats:
+            if isinstance(c, str) and not c.strip().lstrip("-").isdigit():
+                if not names or c not in names:
+                    raise ValueError(f"categorical feature {c!r} is not a "
+                                     f"feature name")
+                out.append(names.index(c))
+            else:
+                out.append(int(c))
+        return out
 
     def construct(self, config: Optional[Config] = None,
                   device: Optional[str] = None) -> "Dataset":
@@ -73,7 +90,9 @@ class Dataset:
                        else np.asarray(self.label, np.float32).ravel()),
                 weight=(None if self.weight is None
                         else np.asarray(self.weight)),
-                feature_names=names, reference=ref)
+                feature_names=names,
+                categorical_features=self._categorical_indices(cfg, names),
+                reference=ref)
         if self.bins is None or self.bins.device.type != dev.type:
             self.bins = torch.from_numpy(self.constructed.binned).to(dev)
         return self

@@ -97,7 +97,8 @@ class GBDT:
         put = lambda a: torch.from_numpy(a).to(self.device)
         self.meta = FeatureMeta(num_bin=put(fm["num_bin"]),
                                 missing_type=put(fm["missing_type"]),
-                                default_bin=put(fm["default_bin"]))
+                                default_bin=put(fm["default_bin"]),
+                                is_categorical=put(fm["is_categorical"]))
         self.num_data = train.num_data
         self.grower_cfg = GrowerConfig(
             num_leaves=cfg.num_leaves,
@@ -108,7 +109,17 @@ class GBDT:
             lambda_l2=cfg.lambda_l2,
             min_gain_to_split=cfg.min_gain_to_split,
             max_bin=train.max_num_bin(),
-            has_missing=bool((fm["missing_type"] != 0).any()))
+            has_missing=bool((fm["missing_type"] != 0).any()),
+            has_categorical=bool(fm["is_categorical"].any()),
+            max_cat_threshold=cfg.max_cat_threshold,
+            max_cat_group=cfg.max_cat_group,
+            cat_smooth_ratio=cfg.cat_smooth_ratio,
+            min_cat_smooth=cfg.min_cat_smooth,
+            max_cat_smooth=cfg.max_cat_smooth,
+            partition_impl=("scatter" if cfg.partition_impl == "auto"
+                            else cfg.partition_impl),
+            ordered_bins=("off" if cfg.ordered_bins == "auto"
+                          else cfg.ordered_bins))
         self.objective.init(train.metadata, self.num_data, self.device)
         self.scores = torch.zeros((1, self.num_data), dtype=torch.float32,
                                   device=self.device)

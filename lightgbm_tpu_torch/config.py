@@ -86,6 +86,19 @@ class Config:
     bagging_fraction: float = 1.0
     bagging_freq: int = 0
 
+    # categorical splits (feature_histogram.hpp:113-223)
+    max_cat_group: int = 64
+    max_cat_threshold: int = 256
+    cat_smooth_ratio: float = 0.01
+    min_cat_smooth: float = 5.0
+    max_cat_smooth: float = 100.0
+
+    # the grower's layout
+    ordered_bins: str = "auto"     # leaf-ordered copy of the bins and
+    #                                weights: auto (= off) | on | off
+    partition_impl: str = "auto"   # window partition: auto (= scatter) |
+    #                                scatter | sort | compact (the kernel)
+
     # binning
     max_bin: int = 255
     min_data_in_bin: int = 5
@@ -125,6 +138,8 @@ SUPPORTED_OBJECTIVES = ("regression", "regression_l2", "mean_squared_error",
 def _parse_value(name: str, value: Any) -> Any:
     """Coerce a raw (possibly string) value to the field's declared type."""
     ftype = str(_FIELD_TYPES[name])
+    if name == "categorical_column" and isinstance(value, (list, tuple)):
+        return ",".join(str(v) for v in value)
     if name == "metric":
         if isinstance(value, str):
             return [p for p in value.replace(",", " ").split() if p]
@@ -207,9 +222,12 @@ def check_params(cfg: Config) -> None:
     if cfg.data_stream not in ("auto", "resident"):
         _unsupported(f"data_stream={cfg.data_stream}",
                      "streamed out-of-core training")
-    if cfg.categorical_column:
-        _unsupported("categorical features",
-                     "training breadth (categorical splits)")
+    if cfg.ordered_bins not in ("auto", "on", "off"):
+        log.fatal("ordered_bins must be auto, on, or off; got %r",
+                  cfg.ordered_bins)
+    if cfg.partition_impl not in ("auto", "scatter", "sort", "compact"):
+        log.fatal("partition_impl must be auto, scatter, sort, or compact; "
+                  "got %r", cfg.partition_impl)
     if cfg.max_bin > 256:
         # the bin matrix is uint8 and the histogram kernel is 256 bins wide
         _unsupported(f"max_bin={cfg.max_bin} (> 256)",

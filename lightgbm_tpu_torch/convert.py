@@ -3,7 +3,8 @@ arrays or model text, so both packages compute on the same state.
 
 * :func:`dataset_from_arrays` takes a constructed dataset (bin matrix,
   per-feature ``num_bin`` / ``missing_type`` / ``default_bin`` / bin upper
-  bounds, label) and returns the port's :class:`~.basic.Dataset`.
+  bounds or, for a categorical feature, its bins' categories, label) and
+  returns the port's :class:`~.basic.Dataset`.
 * :func:`booster_from_arrays` takes trees as model text or as the
   ``Tree`` fields and returns the port's :class:`~.basic.Booster`.
 """
@@ -14,14 +15,15 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .basic import Booster, Dataset
-from .data.binning import BinMapper
+from .data.binning import BIN_TYPE_CATEGORICAL, BinMapper
 from .data.dataset import TrainingData
 from .data.metadata import Metadata
 from .tree import Tree
 
 _TREE_FIELDS = ("split_feature", "split_gain", "threshold", "decision_type",
                 "left_child", "right_child", "leaf_parent", "leaf_value",
-                "leaf_count", "internal_value", "internal_count")
+                "leaf_count", "internal_value", "internal_count",
+                "cat_boundaries", "cat_threshold")
 
 
 def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
@@ -35,13 +37,18 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
                         feature_names: Optional[List[str]] = None,
                         weight: Optional[np.ndarray] = None,
                         params: Optional[Dict] = None,
-                        device: Optional[str] = None) -> Dataset:
+                        device: Optional[str] = None,
+                        bin_2_categorical: Optional[
+                            Sequence[Optional[Sequence[int]]]] = None
+                        ) -> Dataset:
     """A constructed port Dataset from the arrays of a constructed one.
 
     ``binned`` is ``[N, F_used]`` uint8; the per-feature arrays describe
     its columns, which are the original features ``used_features``
     (default: all of them) of ``num_total_features``.  ``min_max`` gives
-    each used feature's (min, max) for the model's ``feature_infos``."""
+    each used feature's (min, max) for the model's ``feature_infos``.
+    ``bin_2_categorical`` gives, per used feature, the category of each
+    bin of a categorical feature, or None for a numerical one."""
     binned = np.ascontiguousarray(binned, dtype=np.uint8)
     n, f = binned.shape
     used = list(range(f)) if used_features is None else list(used_features)
@@ -49,12 +56,19 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
     mappers = [BinMapper() for _ in range(total)]      # trivial by default
     for k, j in enumerate(used):
         lo, hi = min_max[k] if min_max is not None else (0.0, 0.0)
+        cats = bin_2_categorical[k] if bin_2_categorical is not None else None
         mappers[j] = BinMapper(
             num_bin=int(num_bin[k]), missing_type=int(missing_type[k]),
             is_trivial=False,
-            bin_upper_bound=np.asarray(bin_upper_bound[k], np.float64),
+            bin_upper_bound=(None if cats is not None else np.asarray(
+                bin_upper_bound[k], np.float64)),
             min_val=float(lo), max_val=float(hi),
             default_bin=int(default_bin[k]))
+        if cats is not None:
+            mappers[j].bin_type = BIN_TYPE_CATEGORICAL
+            mappers[j].bin_2_categorical = [int(c) for c in cats]
+            mappers[j].categorical_2_bin = {int(c): b
+                                            for b, c in enumerate(cats)}
     td = TrainingData()
     td.num_data = n
     td.num_total_features = total
@@ -79,8 +93,9 @@ def booster_from_arrays(model_str: Optional[str] = None,
                         params: Optional[Dict] = None) -> Booster:
     """A port Booster from model text, or from trees given as dicts of the
     ``Tree`` fields (``num_leaves``, ``split_feature``, ``threshold``,
-    ``decision_type``, ``left_child``, ``right_child``, ``leaf_value``, ...)
-    with the model's objective string (e.g. ``"binary sigmoid:1"``)."""
+    ``decision_type``, ``left_child``, ``right_child``, ``leaf_value``, ...;
+    ``num_cat``, ``cat_boundaries`` and ``cat_threshold`` for categorical
+    nodes) with the model's objective string (e.g. ``"binary sigmoid:1"``)."""
     if model_str is not None:
         return Booster(params=params, model_str=model_str)
     names = " ".join(f"Column_{i}" for i in range(max_feature_idx + 1))
@@ -97,6 +112,7 @@ def booster_from_arrays(model_str: Optional[str] = None,
             if name in fields:
                 setattr(t, name, np.asarray(fields[name],
                                             getattr(t, name).dtype))
+        t.num_cat = int(fields.get("num_cat", 0))
         t.shrinkage = float(fields.get("shrinkage", 1.0))
         blocks.append(t.to_string(i))
     return Booster(params=params,

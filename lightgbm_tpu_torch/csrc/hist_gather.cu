@@ -26,7 +26,7 @@
 // grid, and blocks past the window return at once.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (lightgbm_tpu_torch/ops/histogram.py does this).
+//        -Xcompiler -fPIC (lightgbm_tpu_torch/ops/build.py does this).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -20,7 +20,7 @@ import numpy as np
 from ..config import Config, _unsupported
 from ..utils import log
 from ..utils.random import make_rng, sample_k
-from .binning import BinMapper
+from .binning import BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper
 from .bundling import find_bundles
 from .metadata import Metadata
 
@@ -50,6 +50,8 @@ class TrainingData:
                                        np.int32),
             "default_bin": np.asarray([m.default_bin for m in mappers],
                                       np.int32),
+            "is_categorical": np.asarray(
+                [m.bin_type == BIN_TYPE_CATEGORICAL for m in mappers], bool),
         }
 
     def max_num_bin(self) -> int:
@@ -63,8 +65,10 @@ def construct(data: np.ndarray, config: Config,
               label: Optional[np.ndarray] = None,
               weight: Optional[np.ndarray] = None,
               feature_names: Optional[Sequence[str]] = None,
+              categorical_features: Optional[Sequence[int]] = None,
               reference: Optional[TrainingData] = None) -> TrainingData:
-    """Build a TrainingData from a raw ``[N, F]`` feature matrix (dataset.py:92)."""
+    """Build a TrainingData from a raw ``[N, F]`` feature matrix
+    (dataset.py:92); ``categorical_features`` are column indices."""
     data = np.asarray(data)
     if data.ndim != 2:
         log.fatal("Training data must be 2-dimensional")
@@ -89,7 +93,13 @@ def construct(data: np.ndarray, config: Config,
                                 dtype=np.float64)
         else:
             sample = np.asarray(data, dtype=np.float64)
-        _fit_from_sample(ds, sample, config)
+        _fit_from_sample(ds, sample, config,
+                         set(int(c) for c in (categorical_features or [])))
+    if ds.max_num_bin() > 256:
+        # a categorical column keeps categories past max_bin until they
+        # cover 99 % of the rows; the bin matrix here is uint8
+        _unsupported(f"a column of {ds.max_num_bin()} bins (> 256)",
+                     "training breadth (uint16 bin matrix)")
 
     ds.binned = np.empty((num_data, len(ds.used_features)), dtype=np.uint8)
     _bin_rows(ds, data, ds.binned)
@@ -113,7 +123,7 @@ def _columns_T(data: np.ndarray, cols, chunk_rows: int = 4096) -> np.ndarray:
 
 
 def _fit_from_sample(ds: TrainingData, sample: np.ndarray,
-                     config: Config) -> None:
+                     config: Config, cat_set) -> None:
     """Fit per-feature BinMappers from the sampled rows and filter trivial
     features (FindBin); a dataset the EFB search would bundle raises."""
     num_features = ds.num_total_features
@@ -123,13 +133,15 @@ def _fit_from_sample(ds: TrainingData, sample: np.ndarray,
     for b0 in range(0, num_features, _COL_BLOCK):
         cols_t = _columns_T(sample, range(b0, min(num_features,
                                                   b0 + _COL_BLOCK)))
-        for col in cols_t:
+        for k, col in enumerate(cols_t):
             # sparse convention: pass non-zero values; zeros implied by total count
             nz = col[(col != 0) | np.isnan(col)]
             mappers.append(BinMapper.fit(
                 nz, total_sample_cnt=len(col), max_bin=config.max_bin,
                 min_data_in_bin=config.min_data_in_bin,
                 min_split_data=min_split_data,
+                bin_type=(BIN_TYPE_CATEGORICAL if b0 + k in cat_set
+                          else BIN_TYPE_NUMERICAL),
                 use_missing=config.use_missing,
                 zero_as_missing=config.zero_as_missing))
     ds.bin_mappers = mappers

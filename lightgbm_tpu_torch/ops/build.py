@@ -22,6 +22,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> source, relative to the package
 KERNEL_SOURCES: Dict[str, str] = {
     "hist_gather": "csrc/hist_gather.cu",
+    "partition": "csrc/partition.cu",
+    "cat_group": "csrc/cat_group.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -16,7 +16,7 @@ reference ``Tree`` (``include/LightGBM/tree.h:20-370``,
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -76,16 +76,39 @@ class Tree:
         t.internal_count = np.asarray(np.round(arrays.internal_count[:n]),
                                       dtype=np.int64)
         default_left = np.asarray(arrays.default_left[:n], dtype=bool)
+        is_cat = np.asarray(arrays.is_cat[:n], dtype=bool)
+        cat_bins = np.asarray(arrays.cat_bins[:n], dtype=bool)
         thresholds = np.zeros(n, dtype=np.float64)
         dtypes = np.zeros(n, dtype=np.int8)
+        cat_boundaries = [0]
+        cat_threshold: List[int] = []
         for i in range(n):
             mapper = bin_mappers[t.split_feature[i]]
-            thresholds[i] = mapper.bin_to_value(int(t.threshold_bin[i]))
-            dt = K_DEFAULT_LEFT_MASK if default_left[i] else 0
+            if is_cat[i]:
+                # Tree::SplitCategorical (tree.h:347-370): bitset over the
+                # raw category values of the bins routed left
+                cats = [mapper.bin_2_categorical[b]
+                        for b in np.nonzero(cat_bins[i][:mapper.num_bin])[0]]
+                size = (max(cats) // 32 + 1) if cats else 1
+                bs = np.zeros(size, dtype=np.uint32)
+                for cval in cats:
+                    bs[cval // 32] |= np.uint32(1 << (cval % 32))
+                thresholds[i] = float(t.num_cat)
+                t.threshold_bin[i] = t.num_cat
+                cat_threshold.extend(int(v) for v in bs)
+                cat_boundaries.append(len(cat_threshold))
+                t.num_cat += 1
+                dt = K_CATEGORICAL_MASK
+            else:
+                thresholds[i] = mapper.bin_to_value(int(t.threshold_bin[i]))
+                dt = K_DEFAULT_LEFT_MASK if default_left[i] else 0
             dt |= (mapper.missing_type & 3) << 2
             dtypes[i] = dt
         t.threshold = thresholds
         t.decision_type = dtypes
+        if t.num_cat > 0:
+            t.cat_boundaries = np.asarray(cat_boundaries, dtype=np.int32)
+            t.cat_threshold = np.asarray(cat_threshold, dtype=np.uint32)
         return t
 
     # ---------------------------------------------------------------- helpers
@@ -98,6 +121,36 @@ class Tree:
 
     def is_categorical(self, node: int) -> bool:
         return bool(self.decision_type[node] & K_CATEGORICAL_MASK)
+
+    def cat_bitset(self, node: int) -> np.ndarray:
+        """The uint32 bitset of raw category values a categorical node
+        routes left."""
+        ci = int(self.threshold[node])
+        return self.cat_threshold[self.cat_boundaries[ci]:
+                                  self.cat_boundaries[ci + 1]]
+
+    def cat_value_mask(self, node: int, width: int) -> np.ndarray:
+        """bool[width]: which raw category VALUES route left at a
+        categorical node (the bitset unpacked); values at or beyond the
+        node's bitset stay False, like CategoricalDecision."""
+        bits = np.unpackbits(self.cat_bitset(node).astype("<u4").view(
+            np.uint8), bitorder="little")
+        out = np.zeros(width, dtype=bool)
+        k = min(width, len(bits))
+        out[:k] = bits[:k].astype(bool)
+        return out
+
+    def cat_bin_mask(self, node: int, mapper, width: int) -> np.ndarray:
+        """bool[width]: which *bins* of the split feature route left at a
+        categorical node (inverse of the value bitset, for binned
+        prediction)."""
+        mask = np.zeros(width, dtype=bool)
+        bs = self.cat_bitset(node)
+        for b, cval in enumerate(mapper.bin_2_categorical or []):
+            i1, i2 = cval // 32, cval % 32
+            if i1 < len(bs) and (int(bs[i1]) >> i2) & 1:
+                mask[b] = True
+        return mask
 
     def shrink(self, rate: float) -> None:
         """Tree::Shrinkage (tree.h:130-137)."""

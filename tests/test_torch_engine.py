@@ -199,3 +199,29 @@ def test_early_stopping_matches_jax():
     np.testing.assert_allclose(
         bt.best_score["valid_0"]["binary_logloss"],
         bj.best_score["valid_0"]["binary_logloss"], atol=1e-5)
+
+
+@pytest.mark.parametrize("impl,ordered", [("sort", "off"), ("scatter", "on"),
+                                          ("compact", "on")])
+def test_partition_modes_give_the_same_model(trained, impl, ordered):
+    """``partition_impl`` and ``ordered_bins`` change how a split moves its
+    rows, not which rows go where: the model text is identical."""
+    obj, _, xv, _, bt, _, _, _ = trained
+    x, y, _, _ = _task(obj)
+    params = dict(COMMON, objective=obj, device="cpu", partition_impl=impl,
+                  ordered_bins=ordered,
+                  metric=["binary_logloss", "auc"] if obj == "binary"
+                  else ["l2"])
+    other = lt.train(params, lt.Dataset(x, y, params=params), 5)
+    assert other.model_to_string() == bt.model_to_string()
+    np.testing.assert_array_equal(other.predict(xv, raw_score=True),
+                                  bt.predict(xv, raw_score=True))
+
+
+@pytest.mark.parametrize("params", [{"partition_impl": "fast"},
+                                    {"ordered_bins": "maybe"}])
+def test_layout_parameters_are_checked(params):
+    x, y, _, _ = _task("binary")
+    p = dict(COMMON, objective="binary", device="cpu", **params)
+    with pytest.raises(RuntimeError, match="must be"):
+        lt.train(p, lt.Dataset(x[:200], y[:200], params=p), 1)

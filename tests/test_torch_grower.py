@@ -1,7 +1,9 @@
 """The port's serial grower against lightgbm_tpu's ``make_grower`` (CPU
 segment rung) under integer-valued gradients and hessians, whose
 histogram sums are exact in any order: the TreeArrays must be identical
-field by field, and the row -> leaf maps identical, at 31 and 255 leaves."""
+field by field, and the row -> leaf maps identical, at 31 and 255 leaves;
+with categorical columns, under every ``partition_impl`` x
+``ordered_bins`` combination."""
 import numpy as np
 import pytest
 import torch
@@ -74,3 +76,64 @@ def test_stats_count_one_sync_per_split_plus_stop():
     assert stats["splits"] == tree.num_leaves - 1
     # the loop reads once per split, plus once more when it stops early
     assert stats["host_syncs"] in (stats["splits"], stats["splits"] + 1)
+
+
+def _cat_problem(n, seed):
+    """Four categorical columns (one past 32 categories, one with its
+    overflow bin) beside three numerical ones, integer gradients."""
+    rng = np.random.default_rng(seed)
+    num_bin = np.asarray([12, 40, 63, 7, 63, 30, 5], np.int32)
+    is_cat = np.asarray([True, True, False, True, False, True, False])
+    missing = np.asarray([0, 1, 2, 0, 0, 2, 1], np.int32)
+    default_bin = np.where(is_cat, 0, [rng.integers(0, nb)
+                                       for nb in num_bin]).astype(np.int32)
+    bins = np.stack([rng.integers(0, nb, n) for nb in num_bin],
+                    1).astype(np.uint8)
+    effect = rng.integers(-3, 4, 64)
+    g = (rng.integers(-4, 5, n) + effect[bins[:, 1]]
+         - 2 * (bins[:, 0] % 3 == 0) + (bins[:, 2] > 30)).astype(np.float32)
+    h = rng.integers(1, 4, n).astype(np.float32)
+    c = np.ones(n, np.float32)
+    return bins, g, h, c, num_bin, missing, default_bin, is_cat
+
+
+_CAT_KW = dict(min_sum_hessian_in_leaf=1.0, lambda_l2=1.0, max_bin=63,
+               has_categorical=True, max_cat_threshold=24, max_cat_group=16,
+               cat_smooth_ratio=0.02, min_cat_smooth=2.0)
+
+
+@pytest.fixture(scope="module", params=[(31, 20), (255, 1)],
+                ids=["31-leaves", "255-leaves"])
+def jax_cat_tree(request):
+    num_leaves, min_data = request.param
+    prob = _cat_problem(4000, seed=num_leaves)
+    bins, g, h, c, nb, mt, db, ic = prob
+    kw = dict(_CAT_KW, num_leaves=num_leaves, min_data_in_leaf=min_data)
+    jmeta = JaxMeta(num_bin=jnp.asarray(nb), missing_type=jnp.asarray(mt),
+                    default_bin=jnp.asarray(db),
+                    is_categorical=jnp.asarray(ic))
+    grow = jax.jit(make_grower(JaxGrowerConfig(hist_method="segment", **kw)))
+    jtree, jrow = grow(jnp.asarray(bins), jnp.asarray(g), jnp.asarray(h),
+                       jnp.asarray(c), jmeta, jnp.ones(len(nb), bool))
+    return (prob, kw, jax.tree_util.tree_map(np.asarray, jtree),
+            np.asarray(jrow))
+
+
+@pytest.mark.parametrize("impl,ordered", [
+    ("scatter", "off"), ("scatter", "on"), ("sort", "off"), ("sort", "on"),
+    ("compact", "off"), ("compact", "on")])
+def test_partition_modes_identical_to_jax(jax_cat_tree, impl, ordered):
+    (bins, g, h, c, nb, mt, db, ic), kw, jtree, jrow = jax_cat_tree
+    t = torch.from_numpy
+    tree, row_leaf = grow_tree(
+        t(bins), t(g), t(h), t(c), FeatureMeta(t(nb), t(mt), t(db), t(ic)),
+        torch.ones(len(nb), dtype=bool),
+        GrowerConfig(partition_impl=impl, ordered_bins=ordered, **kw))
+    assert int(tree.num_leaves) == int(jtree.num_leaves)
+    assert bool(tree.is_cat.any())
+    for name in tree._fields:
+        if name == "num_leaves":
+            continue
+        np.testing.assert_array_equal(getattr(tree, name).numpy(),
+                                      getattr(jtree, name), err_msg=name)
+    np.testing.assert_array_equal(row_leaf.numpy(), jrow)

@@ -95,7 +95,7 @@ def test_predict_raises_without_card(no_card):
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"feature_fraction": 0.5},
     {"data_stream": "chunked"},
-    {"categorical_feature": "0"},
+    {"max_bin": 511},
 ])
 def test_unsupported_params_raise(params):
     x, y = _small()
