@@ -19,6 +19,11 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    and left count identical bit for bit; with times;
 2c. the max_cat_group kernel of the categorical split scan against its
    plain loop at the Expo-shaped path's shape: accepts identical;
+2d. the shard-local histogram kernel against its plain version at the
+   row-shard shapes of the data-parallel paths (250,000 x 28 and
+   500,000 x 14 uint8 bins), with a row -> leaf map of 255 skewed leaves:
+   all rows, a mid-sized leaf, a leaf of about 1,000 rows and an absent
+   leaf, exact under integer weights; with times;
 3. the Higgs path at full width: seeded synthetic Higgs-shaped data
    (1,000,000 x 28 float32, binary label from a fixed nonlinear rule plus
    noise, 100,000 held-out rows), ``train`` 10 rounds with 255 leaves and
@@ -37,7 +42,17 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 4b. the card against the CPU on a 50,000-row subset of the Expo-shaped
    task: one tree under integer-valued gradients identical field by
    field, and 3 rounds of ``train`` with the first tree identical and the
-   held-out AUC within 5e-3.
+   held-out AUC within 5e-3;
+6. (run right after phase 4, on its data) the data-parallel learner on
+   the Higgs path at full width:
+   ``tree_learner=data, gspmd_hist=fused`` over a 4x1 mesh of four slots
+   on the card, 10 rounds; the shard-local kernel must have launched 4 x
+   (trees + splits) times and the gather kernel never; held-out AUC
+   against phase 3's;
+6b. the same over a 2x2 mesh (14 columns a feature slice), 3 rounds;
+6c. one tree under integer-valued gradients grown on both meshes and by
+   the serial grower, identical field by field; and ``gspmd_hist=flat``
+   against ``fused`` on a 50,000-row subset, 3 rounds.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -59,6 +74,7 @@ N_ROWS, N_FEAT, N_BINS = 1_000_000, 28, 255
 N_HELDOUT = 100_000
 N_EXPO = 11_000_000           # training rows of the Expo-shaped path
 EXPO_CATEGORICAL = [0, 1, 2, 4, 5, 6]
+MESH_SLOTS = 4                # mesh slots of the data-parallel paths
 SEED = 20240611
 
 
@@ -67,9 +83,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, **numbers) -> None:
-    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in numbers.items()),
-          flush=True)
+    """One line of numbers, led by the seconds since the script started."""
+    print(f"[{name}] t={time.perf_counter() - _T0:.1f}s " +
+          " ".join(f"{k}={v}" for k, v in numbers.items()), flush=True)
 
 
 def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -319,13 +339,98 @@ def check_cat_group(dev, rng):
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms)
 
 
+def local_bound_ms(n_loc: int, cnt: int, fc: int) -> float:
+    """Least time of a shard-local histogram call: row_leaf read for every
+    local row, the matching rows' bin bytes and three weights read, the
+    leaf id read and the [Fc, 255, 3] f32 output written, over the memory
+    rate; or 3 * Fc f32 adds a matching row over the f32 rate."""
+    nbytes = 4 * n_loc + cnt * (fc + 12) + 4 + fc * N_BINS * 3 * 4
+    return max(nbytes / H100_BYTES_PER_S,
+               3 * fc * cnt / H100_F32_OPS_PER_S) * 1e3
+
+
+def check_hist_local(dev, rng):
+    """Phase 2d: the shard-local histogram kernel against its plain
+    version at the row-shard shapes of the 4x1 and 2x2 meshes."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import hist_local, hist_local_plain
+    n_leaves = 255
+    p = 1.0 / np.arange(1, n_leaves + 1) ** 1.1
+    timing, max_err = {}, 0.0
+    for n_loc, fc in ((N_ROWS // 4, N_FEAT), (N_ROWS // 2, N_FEAT // 2)):
+        bins = torch.from_numpy(rng.integers(0, N_BINS, (n_loc, fc),
+                                             dtype=np.uint8)).to(dev)
+        skewed = rng.choice(n_leaves, n_loc, p=p / p.sum()).astype(np.int32)
+        counts = np.bincount(skewed, minlength=n_leaves)
+        small = int(np.argmin(np.abs(counts - 1000)))
+        maps = {"all": (torch.zeros(n_loc, dtype=torch.int32, device=dev),
+                        0, n_loc)}
+        skewed_d = torch.from_numpy(skewed).to(dev)
+        for name, leaf in (("mid", 0), ("small", small), ("absent", 300)):
+            maps[name] = (skewed_d, leaf,
+                          int(counts[leaf]) if leaf < n_leaves else 0)
+        w_int = [torch.from_numpy(a).to(dev) for a in (
+            rng.integers(-8, 9, n_loc).astype(np.float32),
+            rng.integers(0, 5, n_loc).astype(np.float32),
+            np.ones(n_loc, np.float32))]
+        w_f32 = [torch.from_numpy(a).to(dev) for a in (
+            rng.standard_normal(n_loc).astype(np.float32),
+            rng.uniform(0.0, 0.25, n_loc).astype(np.float32),
+            np.ones(n_loc, np.float32))]
+        for name, (row_leaf, leaf, cnt) in maps.items():
+            lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
+            k = hist_local(row_leaf, lid, bins, *w_int, N_BINS)
+            pl = hist_local_plain(row_leaf, lid, bins, *w_int, N_BINS)
+            torch.cuda.synchronize()
+            if not torch.equal(k, pl):
+                fail(f"hist_local != plain under integer weights at "
+                     f"{n_loc}x{fc}, leaf {name}")
+            k = hist_local(row_leaf, lid, bins, *w_f32, N_BINS)
+            pl = hist_local_plain(row_leaf, lid, bins, *w_f32, N_BINS)
+            mag = hist_local_plain(row_leaf, lid, bins,
+                                   *[w.abs() for w in w_f32], N_BINS)
+            err = (k - pl).abs()
+            if bool((err > 1e-5 * mag).any()):
+                fail(f"hist_local vs plain beyond 1e-5 of sum |w| at "
+                     f"{n_loc}x{fc}, leaf {name}")
+            max_err = max(max_err, err.max().item())
+            phase("hist_local_vs_plain", shard=f"{n_loc}x{fc}", leaf=name,
+                  rows=cnt, exact_int=True,
+                  f32_max_abs_err=f"{err.max().item():.3e}")
+        for name in ("all", "small"):
+            row_leaf, leaf, cnt = maps[name]
+            lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
+            k_ms = cuda_ms(lambda: hist_local(row_leaf, lid, bins, *w_f32,
+                                              N_BINS))
+            p_ms = cuda_ms(lambda: hist_local_plain(row_leaf, lid, bins,
+                                                    *w_f32, N_BINS), reps=3)
+            idx = torch.nonzero(row_leaf == leaf).view(-1)
+            flat = (bins.index_select(0, idx).long() + torch.arange(
+                fc, device=dev) * N_BINS).reshape(-1)
+            vals = torch.stack([w[idx] for w in w_f32], -1)[:, None, :
+                                                            ].expand(
+                -1, fc, 3).reshape(-1, 3).contiguous()
+            acc = torch.zeros((fc * N_BINS, 3), device=dev)
+            lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, vals))
+            bound_ms = local_bound_ms(n_loc, cnt, fc)
+            timing[(n_loc, name)] = dict(ms=k_ms, plain_ms=p_ms,
+                                         library_ms=lib_ms,
+                                         bound_ms=bound_ms)
+            phase("hist_local_time", shard=f"{n_loc}x{fc}", leaf=name,
+                  rows=cnt, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+                  index_add_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+                  bound_share=f"{bound_ms / k_ms:.3f}")
+        del bins, maps, skewed_d, w_int, w_f32, idx, flat, vals, acc
+    return timing, max_err
+
+
 def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     """Drive one path through ``train`` and ``predict`` with the kernel
     counts set to 0 just before and read just after; returns its numbers
     and the booster."""
     import torch
     from lightgbm_tpu_torch import Dataset, train
-    from lightgbm_tpu_torch.ops.histogram import hist_window
+    from lightgbm_tpu_torch.ops.histogram import hist_local, hist_window
     from lightgbm_tpu_torch.ops.partition import partition_window
     from lightgbm_tpu_torch.ops.split import cat_group_accept
     t0 = time.perf_counter()
@@ -334,6 +439,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     t_data = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     hist_window.launches = 0
+    hist_local.launches = 0
     partition_window.launches = 0
     cat_group_accept.launches = 0
     t0 = time.perf_counter()
@@ -341,6 +447,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     hist_calls = hist_window.launches
+    local_calls = hist_local.launches
     part_calls = partition_window.launches
     group_calls = cat_group_accept.launches
     stats = dict(bst.inner.stats)
@@ -349,9 +456,23 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     pred = bst.predict(x_te)
     t_pred = time.perf_counter() - t0
     expected = stats["trees"] + stats["splits"]
-    if hist_calls != expected or hist_calls == 0:
-        fail(f"{name}: histogram kernel launched {hist_calls} times, "
-             f"expected trees + splits = {expected}")
+    # the data-parallel learner measures every leaf on each mesh slot with
+    # the shard-local kernel; the serial grower with the gather kernel
+    mesh = bst.inner.mesh
+    shards = 0 if mesh is None else len(sum(mesh.devices, []))
+    if (bst.inner.parallel_impl == "gspmd") != (
+            params.get("tree_learner", "serial") != "serial"):
+        fail(f"{name}: learner resolved to {bst.inner.parallel_impl}")
+    if shards and bst.inner.gspmd_hist != params.get("gspmd_hist"):
+        fail(f"{name}: gspmd_hist resolved to {bst.inner.gspmd_hist}")
+    want_gather = 0 if shards else expected
+    want_local = shards * expected if bst.inner.gspmd_hist == "fused" else 0
+    if hist_calls != want_gather or local_calls != want_local or (
+            hist_calls + local_calls == 0):
+        fail(f"{name}: histogram kernels launched {hist_calls} (gather) and "
+             f"{local_calls} (shard-local) times, expected {want_gather} "
+             f"and {want_local} ({shards} mesh slots, trees + splits = "
+             f"{expected})")
     compact = params.get("partition_impl") == "compact"
     if part_calls != (stats["splits"] if compact else 0):
         fail(f"{name}: partition kernel called {part_calls} times with "
@@ -370,16 +491,17 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
         fail(f"{name}: held-out AUC {test_auc} is not that of a learned "
              f"model")
 
-    # device time of the kernels over two more trees
-    prof_bst = train(params, ds, num_boost_round=2, verbose_eval=False)
-    wall, per, all_ms, host = device_ms(
-        lambda: [prof_bst.update() for _ in range(2)], dev_names)
+    # device time of the kernels over one more tree (profiling two made
+    # the script take more than half its time limit)
+    prof_bst = train(params, ds, num_boost_round=1, verbose_eval=False)
+    wall, per, all_ms, host = device_ms(prof_bst.update, dev_names)
     phase(f"{name}_host_ops", profiled_s=f"{wall:.3f}", **{
-        key.replace(" ", "_"): f"{ms / 2:.1f}ms/tree,{count // 2}calls/tree"
+        key.replace(" ", "_"): f"{ms:.1f}ms/tree,{count}calls/tree"
         for ms, key, count in host})
     trees = stats["trees"]
     out = dict(rows=len(y_tr), features=x_tr.shape[1], trees=trees,
                splits=stats["splits"], hist_launches=hist_calls,
+               hist_local_launches=local_calls,
                partition_calls=part_calls, cat_group_launches=group_calls,
                construct_s=f"{t_data:.3f}",
                ms_per_tree=f"{t_train * 1e3 / trees:.2f}",
@@ -388,7 +510,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
                peak_mem_bytes=peak, predict_s=f"{t_pred:.3f}",
                heldout_auc=f"{test_auc:.6f}")
     for n, ms in per.items():   # 0 for a kernel this path does not run
-        out[f"{n}_device_ms_per_tree"] = (f"{ms / 2:.3f}" if all_ms
+        out[f"{n}_device_ms_per_tree"] = (f"{ms:.3f}" if all_ms
                                           else "not measured")
     out["device_busy_share"] = (f"{all_ms / (wall * 1e3):.4f}" if all_ms
                                 else "not measured")
@@ -487,6 +609,73 @@ def grower_card_vs_cpu(params, x, y):
     if bad or lc != lg or not np.array_equal(rc, rg):
         fail(f"grower under integer weights: card != CPU in "
              f"{bad or 'row_leaf'}")
+
+
+def gspmd_trees_identical(ds, y):
+    """Phase 6c: one tree of the Higgs path under integer-valued gradients
+    and hessians, whose sums are exact in any order, grown on the 4x1 and
+    2x2 meshes with the shard-local kernel and by the serial grower with
+    the gather kernel: identical field by field, row -> leaf maps too."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta, GrowerConfig, grow_tree
+    from lightgbm_tpu_torch.parallel.gspmd import GspmdGrower
+    from lightgbm_tpu_torch.parallel.mesh import make_named_mesh, mesh_slots
+    dev = ds.bins.device
+    td = ds.constructed
+    fm = td.feature_meta()
+    n = len(y)
+    rng = np.random.default_rng(SEED + 5)
+    put = lambda a: torch.from_numpy(a).to(dev)
+    g = put((np.where(y > 0, -3, 2) + rng.integers(-2, 3, n)).astype(
+        np.float32))
+    h = put(rng.integers(1, 4, n).astype(np.float32))
+    c = torch.ones(n, dtype=torch.float32, device=dev)
+    meta = FeatureMeta(put(fm["num_bin"]), put(fm["missing_type"]),
+                       put(fm["default_bin"]), put(fm["is_categorical"]))
+    fv = torch.ones(len(fm["num_bin"]), dtype=torch.bool, device=dev)
+    cfg = GrowerConfig(num_leaves=255, min_data_in_leaf=1,
+                       min_sum_hessian_in_leaf=10.0, max_bin=td.max_num_bin(),
+                       has_missing=bool((fm["missing_type"] != 0).any()))
+
+    def host(tree, row_leaf):
+        return ({k: v.cpu().numpy() for k, v in tree._asdict().items()
+                 if isinstance(v, torch.Tensor)}, row_leaf.cpu().numpy(),
+                tree.num_leaves)
+
+    want = host(*grow_tree(ds.bins, g, h, c, meta, fv, cfg))
+    slots = mesh_slots(MESH_SLOTS, dev)
+    for shape in ((4, 1), (2, 2)):
+        grower = GspmdGrower(cfg, make_named_mesh(*shape, slots), ds.bins)
+        got = host(*grower(g, h, c, meta, fv))
+        bad = [k for k in want[0] if not np.array_equal(want[0][k],
+                                                        got[0][k])]
+        same = not bad and want[2] == got[2] and np.array_equal(want[1],
+                                                                got[1])
+        phase("gspmd_tree_vs_serial", mesh=f"{shape[0]}x{shape[1]}", rows=n,
+              leaves=got[2], identical=same)
+        if not same:
+            fail(f"integer-gradient tree on the {shape} mesh != serial in "
+                 f"{bad or 'num_leaves/row_leaf'}")
+
+
+def flat_vs_fused(params, x, y, x_te):
+    """Phase 6c: ``gspmd_hist=flat`` against ``fused`` on one subset, 3
+    rounds: predictions within rtol 2e-5 (tests/test_gspmd.py:276)."""
+    from lightgbm_tpu_torch import Dataset, train
+    pred = {}
+    for hist in ("flat", "fused"):
+        p = dict(params, gspmd_hist=hist)
+        b = train(p, Dataset(x, y, params=p), num_boost_round=3,
+                  verbose_eval=False)
+        if b.inner.gspmd_hist != hist:
+            fail(f"flat_vs_fused: {hist} resolved to {b.inner.gspmd_hist}")
+        pred[hist] = b.predict(x_te)
+    rel = float((np.abs(pred["flat"] - pred["fused"])
+                 / np.abs(pred["fused"])).max())
+    phase("gspmd_flat_vs_fused", rows=len(y), rounds=3,
+          max_rel_pred_diff=f"{rel:.3e}")
+    if not np.allclose(pred["flat"], pred["fused"], rtol=2e-5, atol=0):
+        fail(f"gspmd flat vs fused predictions differ by {rel} (rtol 2e-5)")
 
 
 def main() -> None:
@@ -601,6 +790,10 @@ def main() -> None:
     # ---- phase 2c: max_cat_group kernel vs plain on the card --------------
     group_timing = check_cat_group(dev, rng)
 
+    # ---- phase 2d: shard-local histogram kernel vs plain on the card ------
+    local_timing, local_err = check_hist_local(dev, rng)
+    torch.cuda.empty_cache()
+
     # ---- phase 3: the Higgs path at full width ----------------------------
     rng = np.random.default_rng(SEED + 1)
     x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
@@ -609,9 +802,9 @@ def main() -> None:
     params = dict(objective="binary", num_leaves=255, max_bin=N_BINS,
                   min_data_in_leaf=1, min_sum_hessian_in_leaf=100,
                   learning_rate=0.1, verbose=0, device="cuda")
-    names = ("hist_gather", "lgbt_partition", "lgbt_cat_group")
-    higgs, _, _ = train_path("higgs", params, x_tr, y_tr, x_te, y_te, 10,
-                             names)
+    names = ("hist_gather", "hist_local", "lgbt_partition", "lgbt_cat_group")
+    higgs, _, higgs_ds = train_path("higgs", params, x_tr, y_tr, x_te, y_te,
+                                    10, names)
     phase("main_path", **higgs)
     higgs_launches = higgs["hist_launches"]
 
@@ -627,7 +820,31 @@ def main() -> None:
     sub = 50_000
     card_vs_cpu("card_vs_cpu", params, x_tr[:sub], y_tr[:sub], x_te[:sub],
                 y_te[:sub], ("split_feature", "threshold"), 1e-4, 1e-4)
+
+    # ---- phases 6, 6b: the data-parallel learner at full width ------------
+    # four mesh slots on the one card: four row shards (4x1), or two row
+    # shards of two 14-column slices (2x2)
+    dp_params = dict(params, tree_learner="data", gspmd_hist="fused",
+                     mesh_devices=MESH_SLOTS)
+    dp, _, _ = train_path("dp_4x1", dict(dp_params, mesh_shape="4x1"),
+                          x_tr, y_tr, x_te, y_te, 10, names)
+    auc_gap = abs(float(dp["heldout_auc"]) - float(higgs["heldout_auc"]))
+    phase("dp_path_4x1", auc_gap_vs_serial=f"{auc_gap:.3e}", **dp)
+    if auc_gap > 1e-4:
+        fail(f"4x1 data-parallel AUC {dp['heldout_auc']} is more than 1e-4 "
+             f"from the serial path's {higgs['heldout_auc']}")
+    dp22, _, _ = train_path("dp_2x2", dict(dp_params, mesh_shape="2x2"),
+                            x_tr, y_tr, x_te, y_te, 3, names)
+    phase("dp_path_2x2", **dp22)
+    torch.cuda.empty_cache()
+
+    # ---- phase 6c: the data-parallel trees against the serial tree --------
+    gspmd_trees_identical(higgs_ds, y_tr)
+    del higgs_ds
+    flat_vs_fused(dict(dp_params, mesh_shape="4x1"), x_tr[:sub], y_tr[:sub],
+                  x_te[:sub])
     del x_all, y_all, x_tr, y_tr, x_te, y_te
+    torch.cuda.empty_cache()
 
     # ---- phase 5: the Expo-shaped categorical path at full width ----------
     rng = np.random.default_rng(SEED + 3)
@@ -670,10 +887,12 @@ def main() -> None:
                  "cat_boundaries", "cat_threshold"), float("inf"), 5e-3)
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}",
           higgs_ms_per_tree_scatter=higgs["ms_per_tree"],
-          higgs_ms_per_tree_compact=compact["ms_per_tree"])
+          higgs_ms_per_tree_compact=compact["ms_per_tree"],
+          higgs_ms_per_tree_dp_4x1=dp["ms_per_tree"])
 
     root = timing[N_ROWS]
     proot = part_timing[N_EXPO]
+    lroot = local_timing[(N_ROWS // 4, "all")]
     print(json.dumps({"kernels": [{
         "name": "hist_gather", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/hist_gather.cu",
@@ -682,6 +901,13 @@ def main() -> None:
         "ms": root["ms"], "plain_ms": root["plain_ms"],
         "bound_ms": root["bound_ms"], "bound_by": "bytes",
         "library_ms": root["library_ms"]}, {
+        "name": "hist_local", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/hist_local.cu",
+        "replaces": "lightgbm_tpu/ops/pallas_hist.py:284",
+        "launches": dp["hist_local_launches"], "max_abs_err": local_err,
+        "ms": lroot["ms"], "plain_ms": lroot["plain_ms"],
+        "bound_ms": lroot["bound_ms"], "bound_by": "bytes",
+        "library_ms": lroot["library_ms"]}, {
         "name": "partition", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",
         "replaces": "lightgbm_tpu/ops/pallas_compact.py:98",

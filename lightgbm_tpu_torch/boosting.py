@@ -1,7 +1,8 @@
-"""The GBDT driver (``src/boosting/gbdt.cpp:67-581``) for one device.
+"""The GBDT boosting loop (``src/boosting/gbdt.cpp:67-581``).
 
 Boost-from-average init tree, gradients, one tree per iteration through the
-serial grower, shrinkage, the O(N) training-score update through the
+serial grower or the data-parallel learner (``parallel/gspmd.py``) over a
+mesh of device slots, shrinkage, the O(N) training-score update through the
 grower's ``row_leaf`` map, valid-set scores by routing their binned rows
 through the fresh tree on the device, and the model text of the
 reference (``SaveModelToString``, gbdt.cpp:948-997) and its parser.
@@ -16,9 +17,11 @@ import torch
 
 from .config import Config, _unsupported
 from .data.dataset import TrainingData
-from .grower import FeatureMeta, GrowerConfig, grow_tree
+from .grower import FeatureMeta, GrowerConfig, fused_gate_reason, grow_tree
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .objectives import Objective, parse_objective_string
+from .parallel import mesh as mesh_mod
+from .parallel.gspmd import GspmdGrower
 from .predictor import Predictor, predict_binned_leaf
 from .tree import Tree
 from .utils import log
@@ -77,6 +80,13 @@ class GBDT:
         # per-training counters: host reads of the grow loop, splits, trees
         self.stats: Dict[str, int] = {"host_syncs": 0, "splits": 0,
                                       "trees": 0}
+        # the learner as resolved, and every loud downgrade on the way
+        self.parallel_impl = "serial"
+        self.gspmd_hist: Optional[str] = None
+        self.mesh: Optional[mesh_mod.Mesh] = None
+        self.downgrades: List[Dict[str, str]] = []
+        self._gspmd: Optional[GspmdGrower] = None
+        self._row_pad = 0
         if train_set is not None:
             self._setup_device(train_set, bins)
 
@@ -90,7 +100,16 @@ class GBDT:
         self.device = bins.device
         self.bins = bins
         fm = train.feature_meta()
-        if cfg.enable_bin_packing and _would_pack(fm["num_bin"]):
+        # the learner (boosting.py:443-445): distributed when a parallel
+        # tree_learner has more than one mesh slot
+        slots = (mesh_mod.mesh_slots(cfg.mesh_devices, bins.device)
+                 if cfg.tree_learner != "serial" else [bins.device])
+        use_dist = cfg.tree_learner != "serial" and (
+            cfg.mesh_devices != 1 and len(slots) > 1)
+        # the JAX package packs no columns for the feature-sliced learners
+        packs = not (use_dist and cfg.tree_learner in ("feature",
+                                                       "data_feature"))
+        if cfg.enable_bin_packing and packs and _would_pack(fm["num_bin"]):
             _unsupported("enable_bin_packing=true on a dataset with "
                          "nibble-packable columns (pass "
                          "enable_bin_packing=false)", "EFB and bin packing")
@@ -130,6 +149,83 @@ class GBDT:
         self.metric_names = (cfg.metric
                              or [default_metric_for_objective(cfg.objective)])
         self.train_metrics = self._make_metrics(train)
+        if use_dist:
+            self._setup_gspmd(cfg, slots)
+        elif cfg.tree_learner != "serial":
+            self._downgrade(
+                f"tree_learner={cfg.tree_learner}", "serial",
+                "only one device is in use",
+                f"tree_learner={cfg.tree_learner} requested but only one "
+                f"mesh slot is in use (slots={len(slots)}, "
+                f"mesh_devices={cfg.mesh_devices}); falling back to serial")
+
+    def _downgrade(self, requested: str, resolved: str, reason: str,
+                   message: str) -> None:
+        """A loud change from what the caller asked for: a warning, and a
+        record in ``self.downgrades``."""
+        log.warning(message)
+        self.downgrades.append({"requested": requested,
+                                "resolved": resolved, "reason": reason})
+
+    def _setup_gspmd(self, cfg: Config, slots) -> None:
+        """The data-parallel learner (lightgbm_tpu/boosting.py:830-1049,
+        single-process with an explicit mesh): resolve the histogram
+        formulation, size the mesh, pad the rows to whole shards and build
+        the grower.  ``parallel_impl`` auto resolves to gspmd; shardmap and
+        voting raise in the config checks."""
+        gspmd_hist = "flat" if cfg.gspmd_hist == "auto" else cfg.gspmd_hist
+        width = self.grower_cfg.max_bin
+        ncols = self.bins.shape[1]
+
+        def gate(n_cols: int, feature_shards: int) -> str:
+            reason = fused_gate_reason(self.bins.dtype, width, n_cols,
+                                       feature_shards)
+            if reason is None:
+                return "fused"
+            self._downgrade("gspmd_hist=fused", "flat", reason,
+                            f"gspmd_hist=fused unavailable ({reason}); "
+                            f"using the flat scatter-add histogram")
+            return "flat"
+
+        if gspmd_hist == "fused":    # the shape-independent half
+            gspmd_hist = gate(1, 1)
+        prefer = {"data": "data", "feature": "feature",
+                  "data_feature": "square"}.get(cfg.tree_learner, "data")
+        explicit = mesh_mod.parse_mesh_shape(cfg.mesh_shape, len(slots),
+                                             prefer)
+        if explicit is None:
+            _unsupported("mesh_shape=auto over more than one mesh slot",
+                         "multi-device learners (the memory-driven mesh "
+                         "planner)")
+        d, fs = explicit
+        if gspmd_hist == "fused":    # the half that needs the mesh extents
+            gspmd_hist = gate(ncols, fs)
+        if cfg.ordered_bins == "on" or cfg.partition_impl not in ("auto",
+                                                                  "scatter"):
+            log.warning("ordered_bins and partition_impl act on the serial "
+                        "grower's order window; the data-parallel learner "
+                        "keeps a row -> leaf map and ignores them")
+        self.parallel_impl = "gspmd"
+        self.gspmd_hist = gspmd_hist
+        self.mesh = mesh_mod.make_named_mesh(d, fs, slots)
+        # rows padded to whole shards with zero weights (:1026-1031)
+        self._row_pad = mesh_mod.pad_rows(self.num_data, d)
+        bins = self.bins
+        if self._row_pad:
+            bins = torch.cat([bins, bins.new_zeros((self._row_pad, ncols))])
+            self._count_weight = self._dist_row_vec(self._count_weight)
+        log.info("Using the data-parallel %s learner over a %dx%d (batch, "
+                 "feature) mesh, %s histogram", cfg.tree_learner, d, fs,
+                 gspmd_hist)
+        self._gspmd = GspmdGrower(self.grower_cfg, self.mesh, bins,
+                                  gspmd_hist)
+
+    def _dist_row_vec(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-row vector ``[N]`` -> the learner's ``[N + pad]``, the
+        padding rows zero (boosting.py:1443)."""
+        if not self._row_pad:
+            return x
+        return torch.cat([x, x.new_zeros(self._row_pad)])
 
     def _make_metrics(self, data: TrainingData) -> List[Metric]:
         out = []
@@ -173,10 +269,16 @@ class GBDT:
             self._boost_from_average()
         g, h = self.objective.get_gradients(self.scores)
         lr = self.config.learning_rate
-        arrays, row_leaf = grow_tree(self.bins, g[0], h[0],
-                                     self._count_weight, self.meta,
-                                     self._feat_valid, self.grower_cfg,
-                                     self.stats)
+        if self._gspmd is not None:
+            arrays, row_leaf = self._gspmd(
+                self._dist_row_vec(g[0]), self._dist_row_vec(h[0]),
+                self._count_weight, self.meta, self._feat_valid, self.stats)
+            row_leaf = row_leaf[:self.num_data]     # the local rows
+        else:
+            arrays, row_leaf = grow_tree(self.bins, g[0], h[0],
+                                         self._count_weight, self.meta,
+                                         self._feat_valid, self.grower_cfg,
+                                         self.stats)
         self.stats["trees"] += 1
         host = arrays._replace(**{
             k: v.cpu().numpy() for k, v in arrays._asdict().items()

@@ -45,6 +45,7 @@ PARAM_ALIASES: Dict[str, str] = {
     "subsample_freq": "bagging_freq",
     "shrinkage_rate": "learning_rate",
     "tree": "tree_learner",
+    "num_machine": "num_machines",
     "early_stopping_rounds": "early_stopping_round",
     "early_stopping": "early_stopping_round",
     "verbosity": "verbose",
@@ -98,6 +99,17 @@ class Config:
     #                                weights: auto (= off) | on | off
     partition_impl: str = "auto"   # window partition: auto (= scatter) |
     #                                scatter | sort | compact (the kernel)
+
+    # distributed: the data-parallel learner over a (batch, feature) mesh
+    # of device slots (parallel/mesh.py)
+    num_machines: int = 1
+    mesh_devices: int = 0          # mesh slots; 0 = one per visible card
+    #                                (cuda) or one (cpu)
+    parallel_impl: str = "auto"    # auto (= gspmd) | gspmd | shardmap
+    mesh_shape: str = "auto"       # DxF | data | feature | auto (planner)
+    shard_axes: str = "auto"       # auto | batch | batch,feature
+    gspmd_hist: str = "auto"       # fused (the shard-local kernel) | flat
+    #                                (masked scatter-add) | auto (= flat)
 
     # binning
     max_bin: int = 255
@@ -198,6 +210,52 @@ def _unsupported(what: str, item: str) -> None:
         f"(ROADMAP.md, port queue: {item})")
 
 
+def _check_distributed(cfg: Config) -> None:
+    """The distributed knobs (lightgbm_tpu/config.py:653-711): syntax
+    checks, and a raise for every value outside the ported data-parallel
+    learner.  ``mesh_shape=auto`` raises later, at learner setup, where
+    the number of mesh slots is known."""
+    if cfg.tree_learner not in ("serial", "feature", "data", "voting",
+                                "data_feature"):
+        log.fatal("Unknown tree learner type %s", cfg.tree_learner)
+    if cfg.tree_learner == "serial" and cfg.num_machines > 1:
+        log.warning("tree_learner=serial forces num_machines=1 "
+                    "(config.cpp:222-225 semantics)")
+        cfg.num_machines = 1
+    if cfg.parallel_impl not in ("auto", "gspmd", "shardmap"):
+        log.fatal("parallel_impl must be auto, gspmd, or shardmap; got %r",
+                  cfg.parallel_impl)
+    ms = str(cfg.mesh_shape or "auto").strip().lower()
+    if ms not in ("auto", "data", "feature"):
+        parts = ms.replace("*", "x").split("x")
+        if len(parts) != 2 or not all(p.strip().isdigit() for p in parts) \
+                or any(int(p) < 1 for p in parts):
+            log.fatal("mesh_shape must be auto, data, feature, or DxF "
+                      "(e.g. 2x4); got %r", cfg.mesh_shape)
+    sa = str(cfg.shard_axes or "auto").strip().lower().replace(" ", "")
+    if sa not in ("auto", "batch", "batch,feature", "feature,batch"):
+        log.fatal("shard_axes must be auto, batch, or batch,feature; "
+                  "got %r", cfg.shard_axes)
+    if cfg.gspmd_hist not in ("auto", "fused", "flat"):
+        log.fatal("gspmd_hist must be auto, fused, or flat; got %r",
+                  cfg.gspmd_hist)
+    if cfg.mesh_devices < 0:
+        log.fatal("mesh_devices must be >= 0; got %d", cfg.mesh_devices)
+    if cfg.tree_learner == "voting":
+        _unsupported("tree_learner=voting",
+                     "multi-device learners (the shard_map learners)")
+    if cfg.parallel_impl == "shardmap":
+        _unsupported("parallel_impl=shardmap",
+                     "multi-device learners (the shard_map learners)")
+    if cfg.num_machines > 1:
+        _unsupported(f"num_machines={cfg.num_machines}",
+                     "multi-device learners (multi-process over "
+                     "torch.distributed)")
+    if sa in ("batch,feature", "feature,batch"):
+        _unsupported(f"shard_axes={cfg.shard_axes}",
+                     "multi-device learners (block-sharded bins)")
+
+
 def check_params(cfg: Config) -> None:
     """Cross-field checks (src/io/config.cpp:188-240) plus the slice's
     limits: every value outside the slice raises."""
@@ -216,9 +274,7 @@ def check_params(cfg: Config) -> None:
         _unsupported("bagging", "boosting variants and sampling")
     if cfg.feature_fraction < 1.0:
         _unsupported("feature_fraction < 1", "boosting variants and sampling")
-    if cfg.tree_learner != "serial":
-        _unsupported(f"tree_learner={cfg.tree_learner}",
-                     "multi-device learners")
+    _check_distributed(cfg)
     if cfg.data_stream not in ("auto", "resident"):
         _unsupported(f"data_stream={cfg.data_stream}",
                      "streamed out-of-core training")

@@ -32,6 +32,10 @@ loop's only host synchronization; everything else stays on the device,
 and the histogram kernel reads its window (start, cnt) from device memory.
 The tree's topology (parents, children, depths) depends only on which
 leaf splits, so it is kept on the host.
+
+The histogram store, the split pool and the node records are a
+:class:`LeafPool`, which the data-parallel learner
+(``parallel/gspmd.py``) shares.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .ops.histogram import hist_window
+from .ops.histogram import MAX_BINS, MAX_COLS, hist_window
 from .ops.partition import (partition_scratch, partition_window,
                             partition_window_plain, partition_window_sort)
 from .ops.split import (MISSING_NAN, MISSING_ZERO, SplitConfig, SplitResult,
@@ -125,6 +129,28 @@ def route_goes_left(binf: torch.Tensor, meta: FeatureMeta,
     return goes_left
 
 
+def fused_gate_reason(bins_dtype: torch.dtype, hist_width: int,
+                      n_hist_cols: int, feature_shards: int = 1
+                      ) -> Optional[str]:
+    """None when the shard-local histogram kernel can serve this layout,
+    else the reason it cannot (``lightgbm_tpu/grower.py:167`` and the
+    even-split gate of ``boosting.py:966``, cut to the gates of the port's
+    layout: uint8 bins, 256 bins, columns that split evenly over the
+    feature shards, 512 columns a slice)."""
+    if bins_dtype != torch.uint8:
+        return f"bin dtype {bins_dtype} is not uint8"
+    if hist_width > MAX_BINS:
+        return (f"histogram width {hist_width} exceeds the kernel's "
+                f"{MAX_BINS} bins")
+    if n_hist_cols % feature_shards:
+        return (f"{n_hist_cols} histogram columns do not split evenly "
+                f"over {feature_shards} feature shards")
+    if n_hist_cols // feature_shards > MAX_COLS:
+        return (f"{n_hist_cols // feature_shards} histogram columns exceed "
+                f"the kernel ceiling {MAX_COLS}")
+    return None
+
+
 def _depth_gate(res: SplitResult, leaf_depth: int,
                 max_depth: int) -> SplitResult:
     """A leaf at depth d (root = 0) may split iff d < max_depth
@@ -201,6 +227,144 @@ def _partition(impl: str, order: torch.Tensor, lsc_row: torch.Tensor,
     return partition_window_plain(order, start, cnt, goes_left, payload)
 
 
+class LeafPool:
+    """The per-tree bookkeeping both growers share: every leaf's histogram
+    (an ``[L, F, B, 3]`` store), the best split of each leaf waiting in a
+    pool, the node and leaf records, and the host-side topology.
+
+    ``next_leaf`` makes the split's one host read; ``record`` writes the
+    node (``Tree::Split``, tree.h:319-345); ``children`` turns the smaller
+    child's histogram into both children's (the larger is the parent
+    minus it, serial_tree_learner.cpp:482-488) and scans them for their
+    best splits in one batched scan."""
+
+    def __init__(self, cfg: GrowerConfig, meta: FeatureMeta,
+                 feat_valid: torch.Tensor, hist_root: torch.Tensor,
+                 root_g: torch.Tensor, root_h: torch.Tensor,
+                 root_c: torch.Tensor):
+        f = hist_root.shape[0]
+        dev = hist_root.device
+        dtype = hist_root.dtype
+        L, B = cfg.num_leaves, cfg.max_bin
+        self.cfg = cfg
+        self.f = f
+        self.feat_valid = feat_valid
+        self.scfg = cfg.split_config()
+        self.ctx = make_fused_ctx(meta.num_bin, meta.missing_type,
+                                  meta.default_bin, B, self.scfg,
+                                  meta.is_categorical)
+        self.has_cat = cfg.has_categorical
+        res_root, fok_root = best_split(
+            hist_root[None], root_g[None], root_h[None], root_c[None],
+            feat_valid[None], self.scfg, self.ctx)
+        res_root = _depth_gate(res_root, 0, cfg.max_depth)
+
+        self.hist_store = torch.zeros((L, f, B, 3), dtype=dtype, device=dev)
+        self.hist_store[0] = hist_root
+        self.feat_ok = torch.zeros((L, f), dtype=torch.bool, device=dev)
+        self.feat_ok[0] = fok_root[0]
+        self.sgain = torch.full((L,), float("-inf"), dtype=dtype, device=dev)
+        self.sgain[0] = res_root.gain[0]
+        self.sf32 = torch.zeros((L, 8), dtype=dtype, device=dev)
+        self.si32 = torch.zeros((L, 3), dtype=torch.int32, device=dev)
+        self.sf32[:1], self.si32[:1] = pool_rows(res_root)
+        if self.has_cat:   # the pool's categorical half: is_cat, bins-left
+            self.scat = torch.zeros(L, dtype=torch.bool, device=dev)
+            self.scatb = torch.zeros((L, B), dtype=torch.bool, device=dev)
+            self.scat[:1], self.scatb[:1] = res_root.is_cat, res_root.cat_bins
+
+        self.node_f = torch.zeros((L - 1, 3), dtype=dtype, device=dev)
+        self.node_i = torch.zeros((L - 1, 3), dtype=torch.int32, device=dev)
+        self.node_cat = torch.zeros(L - 1, dtype=torch.bool, device=dev)
+        self.node_catb = torch.zeros((L - 1, B), dtype=torch.bool,
+                                     device=dev)
+        self.leaf_f = torch.zeros((L, 2), dtype=dtype, device=dev)
+        self.leaf_f[0, 1] = root_c
+        self.left_child = np.zeros(L - 1, np.int32)
+        self.right_child = np.zeros(L - 1, np.int32)
+        self.leaf_parent = np.full(L, -1, np.int32)
+        self.leaf_depth = np.zeros(L, np.int32)
+
+    def next_leaf(self, extra: Optional[torch.Tensor] = None):
+        """The split's one host read: the leaf with the largest gain, the
+        ``extra`` row of that leaf (the serial grower's window), and
+        whether its gain is above 0."""
+        l_t = torch.argmax(self.sgain).view(1)
+        parts = [l_t] + ([extra.index_select(0, l_t)[0]]
+                         if extra is not None else [])
+        return torch.cat(parts + [(self.sgain.index_select(0, l_t) > 0)
+                                  .long()]).tolist()
+
+    def split_args(self, l: int):
+        """The pooled split of leaf ``l``: its int and float rows, and
+        ``(feat, thr, dleft, is_cat_l, cat_row)`` for routing."""
+        irow = self.si32[l].clone()
+        frow = self.sf32[l].clone()
+        route = (irow[0:1].long(), irow[1:2].long(), irow[2:3].bool(),
+                 self.scat[l:l + 1] if self.has_cat else None,
+                 self.scatb[l] if self.has_cat else None)
+        return irow, frow, route
+
+    def record(self, l: int, new: int, node: int, irow: torch.Tensor,
+               frow: torch.Tensor, is_cat_l, cat_row) -> int:
+        """Write node ``node`` splitting leaf ``l`` into (``l``, ``new``);
+        returns the children's depth."""
+        parent = self.leaf_parent[l]
+        if parent >= 0:
+            if self.left_child[parent] == ~l:
+                self.left_child[parent] = node
+            else:
+                self.right_child[parent] = node
+        self.left_child[node], self.right_child[node] = ~l, ~new
+        child_depth = int(self.leaf_depth[l]) + 1
+        self.leaf_parent[[l, new]] = node
+        self.leaf_depth[[l, new]] = child_depth
+        self.node_i[node] = irow
+        self.node_f[node] = torch.stack([
+            self.sgain[l], leaf_output(frow[0] + frow[3], frow[1] + frow[4],
+                                       self.cfg.lambda_l1,
+                                       self.cfg.lambda_l2),
+            self.leaf_f[l, 1]])
+        if self.has_cat:
+            self.node_cat[node:node + 1] = is_cat_l
+            self.node_catb[node] = cat_row
+        self.leaf_f[l] = torch.stack([frow[6], frow[2]])
+        self.leaf_f[new] = torch.stack([frow[7], frow[5]])
+        return child_depth
+
+    def children(self, l: int, new: int, frow: torch.Tensor,
+                 small_left: torch.Tensor, hist_small: torch.Tensor,
+                 child_depth: int) -> None:
+        """Both children's histograms and best splits into the pool."""
+        hist_large = self.hist_store[l] - hist_small
+        hist2 = torch.stack([hist_small, hist_large])
+        # the (smaller, larger) pair's leaf ids
+        pair = torch.stack([torch.where(small_left, l, new),
+                            torch.where(small_left, new, l)])
+        self.hist_store[pair] = hist2
+
+        # both children scan the features the PARENT found splittable
+        # (serial_tree_learner.cpp:406-417), in one batched scan
+        fok_parent = self.feat_ok[l].clone()
+        lr3 = frow[:6].view(2, 3)
+        sl3 = torch.where(small_left, lr3, lr3.flip(0))
+        res2, fok2 = best_split(hist2, sl3[:, 0], sl3[:, 1], sl3[:, 2],
+                                (self.feat_valid & fok_parent).expand(
+                                    2, self.f), self.scfg, self.ctx)
+        res2 = _depth_gate(res2, child_depth, self.cfg.max_depth)
+        self.feat_ok[pair] = fok2 & fok_parent
+        self.sgain[pair] = res2.gain
+        self.sf32[pair], self.si32[pair] = pool_rows(res2)
+        if self.has_cat:
+            self.scat[pair], self.scatb[pair] = res2.is_cat, res2.cat_bins
+
+    def tree(self, splits: int) -> TreeArrays:
+        return unpack_tree(splits + 1, self.node_i, self.node_f, self.leaf_f,
+                           self.node_cat, self.node_catb, self.left_child,
+                           self.right_child, self.leaf_parent,
+                           self.leaf_depth)
+
+
 def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               cw: torch.Tensor, meta: FeatureMeta, feat_valid: torch.Tensor,
               cfg: GrowerConfig, stats: Optional[Dict[str, int]] = None):
@@ -214,14 +378,9 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
     dev = bins.device
     L = cfg.num_leaves
     B = cfg.max_bin
-    dtype = gw.dtype
-    scfg = cfg.split_config()
-    ctx = make_fused_ctx(meta.num_bin, meta.missing_type, meta.default_bin,
-                         B, scfg, meta.is_categorical)
     stats = stats if stats is not None else {}
     stats.setdefault("host_syncs", 0)
     stats.setdefault("splits", 0)
-    has_cat = cfg.has_categorical
 
     # ---- root -----------------------------------------------------------
     iota = torch.arange(n, dtype=torch.int32, device=dev)
@@ -238,60 +397,22 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
         payload = ()
     scratch = (partition_scratch(order, payload)
                if cfg.partition_impl == "compact" else None)
-    root_g, root_h, root_c = gw.sum(), hw.sum(), cw.sum()
     sc_root = torch.tensor([0, n], dtype=torch.int32, device=dev)
     hist_root = hist_window(iota, sc_root, bins, gw, hw, cw, B,
                             rows_upper_bound=n)
-    res_root, fok_root = best_split(
-        hist_root[None], root_g[None], root_h[None], root_c[None],
-        feat_valid[None], scfg, ctx)
-    res_root = _depth_gate(res_root, 0, cfg.max_depth)
-
-    hist_store = torch.zeros((L, f, B, 3), dtype=dtype, device=dev)
-    hist_store[0] = hist_root
-    feat_ok = torch.zeros((L, f), dtype=torch.bool, device=dev)
-    feat_ok[0] = fok_root[0]
-    sgain = torch.full((L,), float("-inf"), dtype=dtype, device=dev)
-    sgain[0] = res_root.gain[0]
-    sf32 = torch.zeros((L, 8), dtype=dtype, device=dev)
-    si32 = torch.zeros((L, 3), dtype=torch.int32, device=dev)
-    sf32[:1], si32[:1] = pool_rows(res_root)
-    if has_cat:     # the pool's categorical half: is_cat and bins-left
-        scat = torch.zeros(L, dtype=torch.bool, device=dev)
-        scatb = torch.zeros((L, B), dtype=torch.bool, device=dev)
-        scat[:1], scatb[:1] = res_root.is_cat, res_root.cat_bins
+    pool = LeafPool(cfg, meta, feat_valid, hist_root, gw.sum(), hw.sum(),
+                    cw.sum())
     lsc = torch.zeros((L, 2), dtype=torch.int64, device=dev)  # (start, cnt)
     lsc[0, 1] = n
 
-    node_f = torch.zeros((L - 1, 3), dtype=dtype, device=dev)  # gain, value, count
-    node_i = torch.zeros((L - 1, 3), dtype=torch.int32, device=dev)  # feat, thr, dleft
-    node_cat = torch.zeros(L - 1, dtype=torch.bool, device=dev)
-    node_catb = torch.zeros((L - 1, B), dtype=torch.bool, device=dev)
-    leaf_f = torch.zeros((L, 2), dtype=dtype, device=dev)     # value, count
-    leaf_f[0, 1] = root_c
-    left_child = np.zeros(L - 1, np.int32)
-    right_child = np.zeros(L - 1, np.int32)
-    leaf_parent = np.full(L, -1, np.int32)
-    leaf_depth = np.zeros(L, np.int32)
-    l1, l2 = cfg.lambda_l1, cfg.lambda_l2
-
     step = 0
     for i in range(L - 1):
-        # the split's one host read: leaf, window, and the stop test
-        l_t = torch.argmax(sgain).view(1)
-        pk = torch.cat([l_t, lsc.index_select(0, l_t)[0],
-                        (sgain.index_select(0, l_t) > 0).long()]).tolist()
+        l, start, cnt, positive = pool.next_leaf(lsc)
         stats["host_syncs"] += 1
-        l, start, cnt, positive = pk
         if not positive:
             break
         new, node = i + 1, i
-        irow = si32[l].clone()
-        frow = sf32[l].clone()
-        feat, thr = irow[0:1].long(), irow[1:2].long()
-        dleft = irow[2:3].bool()
-        is_cat_l = scat[l:l + 1] if has_cat else None
-        cat_row = scatb[l] if has_cat else None
+        irow, frow, (feat, thr, dleft, is_cat_l, cat_row) = pool.split_args(l)
 
         # --- route the leaf's window and partition it stably in place ----
         if ordered:     # the split column of the ordered window: no gather
@@ -307,29 +428,10 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
         lsc[l, 1] = nl
         lsc[new, 0] = start + nl
         lsc[new, 1] = nr
+        child_depth = pool.record(l, new, node, irow, frow, is_cat_l,
+                                  cat_row)
 
-        # --- record the node (Tree::Split, tree.h:319-345) ---------------
-        parent = leaf_parent[l]
-        if parent >= 0:
-            if left_child[parent] == ~l:
-                left_child[parent] = node
-            else:
-                right_child[parent] = node
-        left_child[node], right_child[node] = ~l, ~new
-        child_depth = int(leaf_depth[l]) + 1
-        leaf_parent[[l, new]] = node
-        leaf_depth[[l, new]] = child_depth
-        node_i[node] = irow
-        node_f[node] = torch.stack([
-            sgain[l], leaf_output(frow[0] + frow[3], frow[1] + frow[4],
-                                  l1, l2), leaf_f[l, 1]])
-        if has_cat:
-            node_cat[node:node + 1] = is_cat_l
-            node_catb[node] = cat_row
-        leaf_f[l] = torch.stack([frow[6], frow[2]])
-        leaf_f[new] = torch.stack([frow[7], frow[5]])
-
-        # --- smaller-child histogram + parent subtraction ----------------
+        # --- smaller-child histogram; the pool derives the larger --------
         small_left = frow[2] <= frow[5]
         sc = torch.stack([torch.where(small_left, start, start + nl),
                           torch.where(small_left, nl, nr)]).int()
@@ -339,33 +441,10 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
         else:
             hist_small = hist_window(order, sc, bins, gw, hw, cw, B,
                                      rows_upper_bound=cnt)
-        hist_large = hist_store[l] - hist_small
-        hist2 = torch.stack([hist_small, hist_large])
-        # the (smaller, larger) pair's leaf ids
-        pair = torch.stack([torch.where(small_left, l, new),
-                            torch.where(small_left, new, l)])
-        hist_store[pair] = hist2
-
-        # both children scan the features the PARENT found splittable
-        # (serial_tree_learner.cpp:406-417), in one batched scan
-        fok_parent = feat_ok[l].clone()
-        lr3 = frow[:6].view(2, 3)
-        sl3 = torch.where(small_left, lr3, lr3.flip(0))
-        res2, fok2 = best_split(hist2, sl3[:, 0], sl3[:, 1], sl3[:, 2],
-                                (feat_valid & fok_parent).expand(2, f),
-                                scfg, ctx)
-        res2 = _depth_gate(res2, child_depth, cfg.max_depth)
-        feat_ok[pair] = fok2 & fok_parent
-        sgain[pair] = res2.gain
-        sf32[pair], si32[pair] = pool_rows(res2)
-        if has_cat:
-            scat[pair], scatb[pair] = res2.is_cat, res2.cat_bins
+        pool.children(l, new, frow, small_left, hist_small, child_depth)
         step += 1
     stats["splits"] += step
 
-    tree = unpack_tree(step + 1, node_i, node_f, leaf_f, node_cat,
-                       node_catb, left_child, right_child, leaf_parent,
-                       leaf_depth)
     row_leaf = _row_leaf_from_intervals(order, lsc[:step + 1, 0],
                                         lsc[:step + 1, 1], n)
-    return tree, row_leaf
+    return pool.tree(step), row_leaf

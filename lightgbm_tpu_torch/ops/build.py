@@ -22,6 +22,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> source, relative to the package
 KERNEL_SOURCES: Dict[str, str] = {
     "hist_gather": "csrc/hist_gather.cu",
+    "hist_local": "csrc/hist_local.cu",
     "partition": "csrc/partition.cu",
     "cat_group": "csrc/cat_group.cu",
 }

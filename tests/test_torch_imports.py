@@ -91,7 +91,7 @@ def test_predict_raises_without_card(no_card):
     {"boosting_type": "dart"},
     {"objective": "multiclass", "num_class": 3},
     {"objective": "lambdarank"},
-    {"tree_learner": "data"},
+    {"tree_learner": "voting"},
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"feature_fraction": 0.5},
     {"data_stream": "chunked"},
