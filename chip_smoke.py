@@ -2,6 +2,7 @@
 """Smoke run of lightgbm_tpu_torch on one CUDA card (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi-card     # on a machine with four cards
 
 Phases, each printing one line of numbers; any failure exits non-zero:
 
@@ -45,14 +46,18 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    held-out AUC within 5e-3;
 6. (run right after phase 4, on its data) the data-parallel learner on
    the Higgs path at full width:
-   ``tree_learner=data, gspmd_hist=fused`` over a 4x1 mesh of four slots
-   on the card, 10 rounds; the shard-local kernel must have launched 4 x
-   (trees + splits) times and the gather kernel never; held-out AUC
-   against phase 3's;
+   ``tree_learner=data`` (``gspmd_hist=auto``, on a card the shard-local
+   kernel) over a 4x1 mesh of four slots on the card, 10 rounds; the
+   shard-local kernel must have launched 4 x (trees + splits) times and
+   the gather kernel never; held-out AUC against phase 3's;
 6b. the same over a 2x2 mesh (14 columns a feature slice), 3 rounds;
-6c. one tree under integer-valued gradients grown on both meshes and by
-   the serial grower, identical field by field; and ``gspmd_hist=flat``
-   against ``fused`` on a 50,000-row subset, 3 rounds.
+6c. one tree under integer-valued gradients grown on both meshes, on a
+   1x3 mesh of uneven column slices (10, 9 and 9) and by the serial
+   grower, identical field by field; and ``gspmd_hist=flat`` against
+   ``fused`` on a 50,000-row subset, 3 rounds.
+
+With ``--multi-card`` it runs only the build and, with the four mesh
+slots on four cards, phase 6c's trees and 3 rounds of phase 6's path.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -463,7 +468,8 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     if (bst.inner.parallel_impl == "gspmd") != (
             params.get("tree_learner", "serial") != "serial"):
         fail(f"{name}: learner resolved to {bst.inner.parallel_impl}")
-    if shards and bst.inner.gspmd_hist != params.get("gspmd_hist"):
+    # on a card gspmd_hist=auto is the shard-local kernel
+    if shards and bst.inner.gspmd_hist != params.get("gspmd_hist", "fused"):
         fail(f"{name}: gspmd_hist resolved to {bst.inner.gspmd_hist}")
     want_gather = 0 if shards else expected
     want_local = shards * expected if bst.inner.gspmd_hist == "fused" else 0
@@ -613,9 +619,10 @@ def grower_card_vs_cpu(params, x, y):
 
 def gspmd_trees_identical(ds, y):
     """Phase 6c: one tree of the Higgs path under integer-valued gradients
-    and hessians, whose sums are exact in any order, grown on the 4x1 and
-    2x2 meshes with the shard-local kernel and by the serial grower with
-    the gather kernel: identical field by field, row -> leaf maps too."""
+    and hessians, whose sums are exact in any order, grown on the 4x1, 2x2
+    and 1x3 meshes (1x3: uneven slices of 10, 9 and 9 columns) with the
+    shard-local kernel and by the serial grower with the gather kernel:
+    identical field by field, row -> leaf maps too."""
     import torch
     from lightgbm_tpu_torch.grower import FeatureMeta, GrowerConfig, grow_tree
     from lightgbm_tpu_torch.parallel.gspmd import GspmdGrower
@@ -644,15 +651,18 @@ def gspmd_trees_identical(ds, y):
 
     want = host(*grow_tree(ds.bins, g, h, c, meta, fv, cfg))
     slots = mesh_slots(MESH_SLOTS, dev)
-    for shape in ((4, 1), (2, 2)):
-        grower = GspmdGrower(cfg, make_named_mesh(*shape, slots), ds.bins)
+    for shape in ((4, 1), (2, 2), (1, 3)):
+        mesh = make_named_mesh(*shape, slots)
+        grower = GspmdGrower(cfg, mesh, ds.bins)
         got = host(*grower(g, h, c, meta, fv))
         bad = [k for k in want[0] if not np.array_equal(want[0][k],
                                                         got[0][k])]
         same = not bad and want[2] == got[2] and np.array_equal(want[1],
                                                                 got[1])
         phase("gspmd_tree_vs_serial", mesh=f"{shape[0]}x{shape[1]}", rows=n,
-              leaves=got[2], identical=same)
+              slice_cols=":".join(str(len(c)) for c in grower.cols),
+              cards=len(set(sum(mesh.devices, []))), leaves=got[2],
+              identical=same)
         if not same:
             fail(f"integer-gradient tree on the {shape} mesh != serial in "
                  f"{bad or 'num_leaves/row_leaf'}")
@@ -678,11 +688,41 @@ def flat_vs_fused(params, x, y, x_te):
         fail(f"gspmd flat vs fused predictions differ by {rel} (rtol 2e-5)")
 
 
+def multi_card(params) -> None:
+    """``--multi-card``: the data-parallel learner with its four mesh slots
+    on four cards (slot s on card s) instead of one: phase 6c's
+    integer-gradient trees against the serial tree, and the 4x1 path for
+    3 rounds with its launch count.  Needs four cards."""
+    import torch
+    if torch.cuda.device_count() < MESH_SLOTS:
+        fail(f"--multi-card needs {MESH_SLOTS} cards; "
+             f"{torch.cuda.device_count()} visible")
+    rng = np.random.default_rng(SEED + 1)
+    x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
+    x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
+    x_te, y_te = x_all[N_ROWS:], y_all[N_ROWS:]
+    from lightgbm_tpu_torch import Dataset
+    ds = Dataset(x_tr, y_tr, params=params).construct()
+    gspmd_trees_identical(ds, y_tr)
+    dp, bst, _ = train_path(
+        "dp_4x1_four_cards", dict(params, tree_learner="data",
+                                  mesh_devices=MESH_SLOTS, mesh_shape="4x1"),
+        x_tr, y_tr, x_te, y_te, 3, ("hist_local",))
+    cards = {d.index for d in sum(bst.inner.mesh.devices, [])}
+    if len(cards) != MESH_SLOTS:
+        fail(f"the 4x1 mesh sits on cards {sorted(cards)}, not on four")
+    phase("dp_path_4x1_four_cards", **dp)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
+    multi = sys.argv[1:] == ["--multi-card"]
+    if sys.argv[1:] and not multi:
+        fail(f"unknown arguments {sys.argv[1:]}; the one option is "
+             f"--multi-card")
     from lightgbm_tpu_torch.ops import build
     from lightgbm_tpu_torch.ops.histogram import (hist_window,
                                                   hist_window_plain)
@@ -711,6 +751,16 @@ def main() -> None:
                        for line in text.splitlines() if "Used" in line)
     phase("build", seconds=f"{time.perf_counter() - t0:.3f}",
           kernels=",".join(build.KERNEL_SOURCES), ptxas=repr(ptxas))
+    params = dict(objective="binary", num_leaves=255, max_bin=N_BINS,
+                  min_data_in_leaf=1, min_sum_hessian_in_leaf=100,
+                  learning_rate=0.1, verbose=0, device="cuda")
+    if multi:
+        multi_card(params)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # ---- phase 2: histogram kernel vs plain on the card -------------------
     rng = np.random.default_rng(SEED)
@@ -799,9 +849,6 @@ def main() -> None:
     x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
     x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
     x_te, y_te = x_all[N_ROWS:], y_all[N_ROWS:]
-    params = dict(objective="binary", num_leaves=255, max_bin=N_BINS,
-                  min_data_in_leaf=1, min_sum_hessian_in_leaf=100,
-                  learning_rate=0.1, verbose=0, device="cuda")
     names = ("hist_gather", "hist_local", "lgbt_partition", "lgbt_cat_group")
     higgs, _, higgs_ds = train_path("higgs", params, x_tr, y_tr, x_te, y_te,
                                     10, names)
@@ -823,9 +870,9 @@ def main() -> None:
 
     # ---- phases 6, 6b: the data-parallel learner at full width ------------
     # four mesh slots on the one card: four row shards (4x1), or two row
-    # shards of two 14-column slices (2x2)
-    dp_params = dict(params, tree_learner="data", gspmd_hist="fused",
-                     mesh_devices=MESH_SLOTS)
+    # shards of two 14-column slices (2x2); gspmd_hist is left at auto,
+    # which on a card is the shard-local kernel
+    dp_params = dict(params, tree_learner="data", mesh_devices=MESH_SLOTS)
     dp, _, _ = train_path("dp_4x1", dict(dp_params, mesh_shape="4x1"),
                           x_tr, y_tr, x_te, y_te, 10, names)
     auc_gap = abs(float(dp["heldout_auc"]) - float(higgs["heldout_auc"]))

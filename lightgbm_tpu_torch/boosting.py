@@ -17,11 +17,11 @@ import torch
 
 from .config import Config, _unsupported
 from .data.dataset import TrainingData
-from .grower import FeatureMeta, GrowerConfig, fused_gate_reason, grow_tree
+from .grower import FeatureMeta, GrowerConfig, grow_tree
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .objectives import Objective, parse_objective_string
 from .parallel import mesh as mesh_mod
-from .parallel.gspmd import GspmdGrower
+from .parallel.gspmd import GspmdGrower, resolve_gspmd_hist
 from .predictor import Predictor, predict_binned_leaf
 from .tree import Tree
 from .utils import log
@@ -80,7 +80,7 @@ class GBDT:
         # per-training counters: host reads of the grow loop, splits, trees
         self.stats: Dict[str, int] = {"host_syncs": 0, "splits": 0,
                                       "trees": 0}
-        # the learner as resolved, and every loud downgrade on the way
+        # the learner as resolved, and a record of a loud fallback to serial
         self.parallel_impl = "serial"
         self.gspmd_hist: Optional[str] = None
         self.mesh: Optional[mesh_mod.Mesh] = None
@@ -151,21 +151,14 @@ class GBDT:
         self.train_metrics = self._make_metrics(train)
         if use_dist:
             self._setup_gspmd(cfg, slots)
-        elif cfg.tree_learner != "serial":
-            self._downgrade(
-                f"tree_learner={cfg.tree_learner}", "serial",
-                "only one device is in use",
-                f"tree_learner={cfg.tree_learner} requested but only one "
-                f"mesh slot is in use (slots={len(slots)}, "
-                f"mesh_devices={cfg.mesh_devices}); falling back to serial")
-
-    def _downgrade(self, requested: str, resolved: str, reason: str,
-                   message: str) -> None:
-        """A loud change from what the caller asked for: a warning, and a
-        record in ``self.downgrades``."""
-        log.warning(message)
-        self.downgrades.append({"requested": requested,
-                                "resolved": resolved, "reason": reason})
+        elif cfg.tree_learner != "serial":      # loud fallback (:555-565)
+            log.warning(f"tree_learner={cfg.tree_learner} requested but only "
+                        f"one mesh slot is in use (slots={len(slots)}, "
+                        f"mesh_devices={cfg.mesh_devices}); falling back to "
+                        f"serial")
+            self.downgrades.append({
+                "requested": f"tree_learner={cfg.tree_learner}",
+                "resolved": "serial", "reason": "only one device is in use"})
 
     def _setup_gspmd(self, cfg: Config, slots) -> None:
         """The data-parallel learner (lightgbm_tpu/boosting.py:830-1049,
@@ -173,33 +166,14 @@ class GBDT:
         formulation, size the mesh, pad the rows to whole shards and build
         the grower.  ``parallel_impl`` auto resolves to gspmd; shardmap and
         voting raise in the config checks."""
-        gspmd_hist = "flat" if cfg.gspmd_hist == "auto" else cfg.gspmd_hist
-        width = self.grower_cfg.max_bin
+        gspmd_hist = resolve_gspmd_hist(cfg.gspmd_hist, self.device)
         ncols = self.bins.shape[1]
-
-        def gate(n_cols: int, feature_shards: int) -> str:
-            reason = fused_gate_reason(self.bins.dtype, width, n_cols,
-                                       feature_shards)
-            if reason is None:
-                return "fused"
-            self._downgrade("gspmd_hist=fused", "flat", reason,
-                            f"gspmd_hist=fused unavailable ({reason}); "
-                            f"using the flat scatter-add histogram")
-            return "flat"
-
-        if gspmd_hist == "fused":    # the shape-independent half
-            gspmd_hist = gate(1, 1)
-        prefer = {"data": "data", "feature": "feature",
-                  "data_feature": "square"}.get(cfg.tree_learner, "data")
-        explicit = mesh_mod.parse_mesh_shape(cfg.mesh_shape, len(slots),
-                                             prefer)
+        explicit = mesh_mod.parse_mesh_shape(cfg.mesh_shape, len(slots))
         if explicit is None:
             _unsupported("mesh_shape=auto over more than one mesh slot",
                          "multi-device learners (the memory-driven mesh "
                          "planner)")
         d, fs = explicit
-        if gspmd_hist == "fused":    # the half that needs the mesh extents
-            gspmd_hist = gate(ncols, fs)
         if cfg.ordered_bins == "on" or cfg.partition_impl not in ("auto",
                                                                   "scatter"):
             log.warning("ordered_bins and partition_impl act on the serial "

@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from .parallel.mesh import mesh_shape_extents
 from .utils import log
 
 # Alias -> canonical name (reference config.h:353-483, KeyAliasTransform),
@@ -225,13 +226,10 @@ def _check_distributed(cfg: Config) -> None:
     if cfg.parallel_impl not in ("auto", "gspmd", "shardmap"):
         log.fatal("parallel_impl must be auto, gspmd, or shardmap; got %r",
                   cfg.parallel_impl)
-    ms = str(cfg.mesh_shape or "auto").strip().lower()
-    if ms not in ("auto", "data", "feature"):
-        parts = ms.replace("*", "x").split("x")
-        if len(parts) != 2 or not all(p.strip().isdigit() for p in parts) \
-                or any(int(p) < 1 for p in parts):
-            log.fatal("mesh_shape must be auto, data, feature, or DxF "
-                      "(e.g. 2x4); got %r", cfg.mesh_shape)
+    try:
+        mesh_shape_extents(cfg.mesh_shape)
+    except ValueError as e:
+        log.fatal("%s", e)
     sa = str(cfg.shard_axes or "auto").strip().lower().replace(" ", "")
     if sa not in ("auto", "batch", "batch,feature", "feature,batch"):
         log.fatal("shard_axes must be auto, batch, or batch,feature; "

@@ -44,7 +44,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .ops.histogram import MAX_BINS, MAX_COLS, hist_window
+from .ops.histogram import hist_window
 from .ops.partition import (partition_scratch, partition_window,
                             partition_window_plain, partition_window_sort)
 from .ops.split import (MISSING_NAN, MISSING_ZERO, SplitConfig, SplitResult,
@@ -127,28 +127,6 @@ def route_goes_left(binf: torch.Tensor, meta: FeatureMeta,
         cat_go_left = cat_row[torch.clamp(binf, 0, cat_row.shape[0] - 1)]
         goes_left = torch.where(is_cat_l, cat_go_left, goes_left)
     return goes_left
-
-
-def fused_gate_reason(bins_dtype: torch.dtype, hist_width: int,
-                      n_hist_cols: int, feature_shards: int = 1
-                      ) -> Optional[str]:
-    """None when the shard-local histogram kernel can serve this layout,
-    else the reason it cannot (``lightgbm_tpu/grower.py:167`` and the
-    even-split gate of ``boosting.py:966``, cut to the gates of the port's
-    layout: uint8 bins, 256 bins, columns that split evenly over the
-    feature shards, 512 columns a slice)."""
-    if bins_dtype != torch.uint8:
-        return f"bin dtype {bins_dtype} is not uint8"
-    if hist_width > MAX_BINS:
-        return (f"histogram width {hist_width} exceeds the kernel's "
-                f"{MAX_BINS} bins")
-    if n_hist_cols % feature_shards:
-        return (f"{n_hist_cols} histogram columns do not split evenly "
-                f"over {feature_shards} feature shards")
-    if n_hist_cols // feature_shards > MAX_COLS:
-        return (f"{n_hist_cols // feature_shards} histogram columns exceed "
-                f"the kernel ceiling {MAX_COLS}")
-    return None
 
 
 def _depth_gate(res: SplitResult, leaf_depth: int,

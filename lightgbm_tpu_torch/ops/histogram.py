@@ -39,7 +39,6 @@ from . import build
 
 NUM_STATS = 3        # (sum_grad, sum_hess, count)
 MAX_BINS = 256       # uint8 bins
-MAX_COLS = 512       # the JAX kernel's FUSED_MAX_COLS
 SEGMENT_CHUNK = 2048  # rows per scatter-add chunk of the plain version
 
 
@@ -91,9 +90,9 @@ def _check_cuda_args(fn: str, idx, bins, gw, hw, cw, num_bins) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
     n, f = bins.shape
-    if not 1 <= num_bins <= MAX_BINS or not 1 <= f <= MAX_COLS:
-        raise ValueError(f"{fn}: {f} columns x {num_bins} bins is "
-                         f"outside the kernel's {MAX_COLS} x {MAX_BINS}")
+    if not 1 <= num_bins <= MAX_BINS or f < 1:
+        raise ValueError(f"{fn}: {f} columns x {num_bins} bins; the kernel "
+                         f"takes at least one column and 1 to {MAX_BINS} bins")
     if gw.numel() != n or hw.numel() != n or cw.numel() != n:
         raise ValueError(f"{fn}: weights must have one entry per row")
 
@@ -121,10 +120,11 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
     out = torch.zeros((f, num_bins, NUM_STATS), dtype=torch.float32,
                       device=bins.device)
     bound = n if rows_upper_bound is None else int(rows_upper_bound)
-    err = _kernel_fn()(
-        order.data_ptr(), sc.data_ptr(), bins.data_ptr(), gw.data_ptr(),
-        hw.data_ptr(), cw.data_ptr(), out.data_ptr(), f, num_bins, bound,
-        torch.cuda.current_stream(bins.device).cuda_stream)
+    with torch.cuda.device(bins.device):     # launch on the tensors' card
+        err = _kernel_fn()(
+            order.data_ptr(), sc.data_ptr(), bins.data_ptr(), gw.data_ptr(),
+            hw.data_ptr(), cw.data_ptr(), out.data_ptr(), f, num_bins, bound,
+            torch.cuda.current_stream(bins.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hist_gather kernel launch failed: CUDA error "
                            f"{err}")
@@ -177,8 +177,9 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
     """``[Fc, num_bins, 3]`` partial histogram of a shard's rows ``r``
     with ``row_leaf[r] == leaf_id``: row_leaf ``[n_loc]`` i32, leaf_id a
     device ``int32[1]`` (no host read), bins ``[n_loc, Fc]`` uint8 (the
-    shard's column slice), weights ``[n_loc]`` f32.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    shard's column slice, any width), weights ``[n_loc]`` f32.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, on
+    their own card, or raise."""
     if bins.device.type == "cpu":
         return hist_local_plain(row_leaf, leaf_id, bins, gw, hw, cw,
                                 num_bins)
@@ -193,10 +194,12 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
                          "and leaf_id one element")
     out = torch.zeros((f, num_bins, NUM_STATS), dtype=torch.float32,
                       device=bins.device)
-    err = _local_kernel_fn()(
-        row_leaf.data_ptr(), leaf_id.data_ptr(), bins.data_ptr(),
-        gw.data_ptr(), hw.data_ptr(), cw.data_ptr(), out.data_ptr(), n, f,
-        num_bins, torch.cuda.current_stream(bins.device).cuda_stream)
+    # a mesh slot may sit on any visible card: launch on the tensors' card
+    with torch.cuda.device(bins.device):
+        err = _local_kernel_fn()(
+            row_leaf.data_ptr(), leaf_id.data_ptr(), bins.data_ptr(),
+            gw.data_ptr(), hw.data_ptr(), cw.data_ptr(), out.data_ptr(), n,
+            f, num_bins, torch.cuda.current_stream(bins.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hist_local kernel launch failed: CUDA error "
                            f"{err}")

@@ -179,10 +179,11 @@ def partition_window(order: torch.Tensor, sc: torch.Tensor,
         *[p.data_ptr() for p in payload])
     widths = (ctypes.c_longlong * max(n_pay, 1))(
         *[_row_bytes(p) for p in payload])
-    err = _lib().lgbt_partition(
-        order.data_ptr(), sc.data_ptr(), goes_left.data_ptr(), n_pay, ptrs,
-        widths, scratch.data_ptr(), nl.data_ptr(), bound,
-        torch.cuda.current_stream(order.device).cuda_stream)
+    with torch.cuda.device(order.device):    # launch on the tensors' card
+        err = _lib().lgbt_partition(
+            order.data_ptr(), sc.data_ptr(), goes_left.data_ptr(), n_pay,
+            ptrs, widths, scratch.data_ptr(), nl.data_ptr(), bound,
+            torch.cuda.current_stream(order.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"partition kernel launch failed: CUDA error "
                            f"{err}")

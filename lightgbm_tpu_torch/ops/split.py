@@ -160,10 +160,11 @@ def cat_group_accept(step: torch.Tensor, ok: torch.Tensor,
                          "share a shape, mdpg0 that shape without its last "
                          "axis")
     accept = torch.empty_like(ok8)
-    err = _cat_group_fn()(
-        step.data_ptr(), ok8.data_ptr(), rc.data_ptr(), m0.data_ptr(),
-        accept.data_ptr(), lanes, positions, float(max_cat_group),
-        torch.cuda.current_stream(ok.device).cuda_stream)
+    with torch.cuda.device(ok.device):       # launch on the tensors' card
+        err = _cat_group_fn()(
+            step.data_ptr(), ok8.data_ptr(), rc.data_ptr(), m0.data_ptr(),
+            accept.data_ptr(), lanes, positions, float(max_cat_group),
+            torch.cuda.current_stream(ok.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cat_group kernel launch failed: CUDA error "
                            f"{err}")

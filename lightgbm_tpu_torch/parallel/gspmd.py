@@ -11,7 +11,7 @@ the collectives; here the loop itself walks the shards of a
   zero weights, so they reach no histogram sum and no leaf count);
 * each ``(i, j)`` slot holds its batch shard's bins cut to column slice
   ``j`` as one contiguous tensor, made once per training (the port's
-  counterpart of ``pack_island``, :186);
+  counterpart of ``pack_island``, :186); the slices need not be equal;
 * the partition is the direct row -> leaf map, not an ``order`` window:
   each device keeps one ``row_leaf`` over the rows of the batch shards it
   holds, and routing a split is one elementwise update of it (:302-320),
@@ -45,10 +45,22 @@ from ..ops.histogram import hist_flat, hist_local
 from .mesh import BATCH_AXIS, FEATURE_AXIS, Mesh
 
 
+def resolve_gspmd_hist(requested: str, device: torch.device) -> str:
+    """``gspmd_hist`` as the learner runs it.  ``auto`` is the shard-local
+    kernel on a card and, on the CPU, the flat scatter-add that ``auto``
+    picks in the JAX package (``lightgbm_tpu/boosting.py:854``).  Neither
+    formulation has a gate: the kernel takes each slot's column slice at
+    its own width, so the even column split and the 512-column ceiling of
+    the JAX package's fused layout do not apply."""
+    if requested != "auto":
+        return requested
+    return "fused" if device.type == "cuda" else "flat"
+
+
 def column_slices(n_cols: int, feature_shards: int) -> List[range]:
     """The columns of each feature slice, split as ``np.array_split``
-    splits them (evenly where the count divides, as the fused layout
-    needs)."""
+    splits them: the first ``n_cols % feature_shards`` slices hold one
+    column more."""
     edges = np.cumsum([0] + [len(a) for a in np.array_split(
         np.arange(n_cols), feature_shards)])
     return [range(int(a), int(b)) for a, b in zip(edges[:-1], edges[1:])]
@@ -75,9 +87,6 @@ class GspmdGrower:
         self.cfg, self.mesh, self.hist = cfg, mesh, hist
         self.n_loc = n_pad // d
         self.cols = column_slices(f, fs)
-        if hist == "fused" and len({len(c) for c in self.cols}) != 1:
-            raise ValueError(f"{f} columns do not split evenly over {fs} "
-                             f"feature shards")
         # the batch shards each device holds, in shard order; a device's
         # row -> leaf map and routing cover all of them at once
         self.held = {dv: [i for i in range(d) if dv in mesh.devices[i]]

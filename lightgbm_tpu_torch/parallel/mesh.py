@@ -2,8 +2,8 @@
 
 The port of the subset of ``lightgbm_tpu/parallel/mesh.py`` that the
 GSPMD learner uses: the axis names (:20-26), ``make_named_mesh`` (:65),
-``MeshPlanError`` (:90), ``parse_mesh_shape`` (:377) and
-``pad_rows``/``pad_features`` (:609-615).  A :class:`Mesh` is a
+``MeshPlanError`` (:90), ``parse_mesh_shape`` (:377) and ``pad_rows``
+(:609).  A :class:`Mesh` is a
 ``(data, feature)`` grid of ``torch.device``s: rows shard over ``batch``,
 the histogram's columns over ``feature``.
 
@@ -85,38 +85,45 @@ def make_named_mesh(data: int, feature: int,
     return Mesh([devs[i * feature:(i + 1) * feature] for i in range(data)])
 
 
-def parse_mesh_shape(spec: str, n_devices: int, prefer: str = "data"):
-    """``mesh_shape`` parameter -> (data, feature) extents, or None for
-    ``auto``.  Accepts ``DxF`` (``2x4``), ``data`` (all slots on the batch
-    axis) and ``feature`` (all on the feature axis); rejects shapes the
-    slot count cannot serve.  ``prefer`` is the planner's preference,
-    which ``auto`` would use."""
+def mesh_shape_extents(spec: str):
+    """The syntax of the ``mesh_shape`` parameter: ``None`` for ``auto``,
+    ``"data"`` or ``"feature"`` (all slots on that axis), or the ``(data,
+    feature)`` extents of ``DxF`` (``2x4``, or ``2*4``); ValueError for
+    anything else."""
     s = str(spec or "auto").strip().lower()
     if s in ("", "auto"):
         return None
-    if s == "data":
-        return (n_devices, 1)
-    if s == "feature":
-        return (1, n_devices)
+    if s in ("data", "feature"):
+        return s
     m = s.replace("*", "x").split("x")
     if len(m) == 2 and all(p.strip().isdigit() for p in m):
         d, f = int(m[0]), int(m[1])
         if d < 1 or f < 1:
             raise ValueError(f"mesh_shape extents must be >= 1; got {spec!r}")
-        if d * f > n_devices:
-            raise ValueError(
-                f"mesh_shape {d}x{f} needs {d * f} devices; only "
-                f"{n_devices} available")
         return (d, f)
     raise ValueError(
         f"mesh_shape must be 'auto', 'data', 'feature', or 'DxF' "
         f"(e.g. 2x4); got {spec!r}")
 
 
+def parse_mesh_shape(spec: str, n_devices: int):
+    """``mesh_shape`` parameter -> (data, feature) extents over
+    ``n_devices`` slots, or None for ``auto``; rejects shapes the slot
+    count cannot serve."""
+    ext = mesh_shape_extents(spec)
+    if ext is None:
+        return None
+    if ext == "data":
+        return (n_devices, 1)
+    if ext == "feature":
+        return (1, n_devices)
+    d, f = ext
+    if d * f > n_devices:
+        raise ValueError(f"mesh_shape {d}x{f} needs {d * f} devices; only "
+                         f"{n_devices} available")
+    return (d, f)
+
+
 def pad_rows(n: int, shards: int) -> int:
     """Rows padded so every shard gets an equal slice."""
     return (-n) % shards
-
-
-def pad_features(f: int, shards: int) -> int:
-    return (-f) % shards

@@ -15,9 +15,12 @@ on the JAX side, ``mesh_devices=8`` CPU slots on the port's.
 * ``train`` with ``tree_learner=data, gspmd_hist=fused`` on a 2x4 mesh
   against ``lightgbm_tpu.train`` with the same parameters: predictions
   within 1e-4 (as in test_torch_engine.py); fused against flat within
-  rtol 2e-5 / atol 2e-6 (tests/test_gspmd.py:276); ``auto`` resolves flat.
-* Downgrades and raises: columns that do not split over the feature
-  shards downgrade loudly to flat, one slot falls back to serial with a
+  rtol 2e-5 / atol 2e-6 (tests/test_gspmd.py:276); ``auto`` resolves flat
+  on the CPU and fused on a card.
+* Uneven column slices, fallbacks and raises: columns that do not split
+  evenly over the feature shards stay on the fused histogram (the JAX
+  package downgrades them to flat; its TPU layout needs equal slices)
+  and agree with the JAX learner, one slot falls back to serial with a
   warning, and every value outside the slice raises NotImplementedError.
 """
 import numpy as np
@@ -30,6 +33,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.config import config_from_params
 from lightgbm_tpu.data.packing import pack_fused_panel
 from lightgbm_tpu.grower import FeatureMeta as JaxMeta
 from lightgbm_tpu.grower import GrowerConfig as JaxGrowerConfig
@@ -39,9 +43,11 @@ from lightgbm_tpu.parallel import mesh as jax_mesh
 from lightgbm_tpu_torch.grower import FeatureMeta, GrowerConfig, grow_tree
 from lightgbm_tpu_torch.ops.histogram import (hist_flat, hist_local,
                                               hist_local_plain)
-from lightgbm_tpu_torch.parallel.gspmd import GspmdGrower, column_slices
+from lightgbm_tpu_torch.parallel.gspmd import (GspmdGrower, column_slices,
+                                               resolve_gspmd_hist)
 from lightgbm_tpu_torch.parallel.mesh import (MeshPlanError, make_named_mesh,
-                                              mesh_slots, parse_mesh_shape)
+                                              mesh_shape_extents, mesh_slots,
+                                              parse_mesh_shape)
 
 N, F, B, L = 4096, 8, 32, 15
 SHAPES = [(8, 1), (1, 8), (2, 4)]
@@ -214,8 +220,12 @@ def test_gspmd_tree_identical_to_jax_fused(jax_plain_tree):
     assert stats["host_syncs"] in (stats["splits"], stats["splits"] + 1)
 
 
-@pytest.mark.parametrize("shape", SHAPES,
-                         ids=[f"{d}x{f}" for d, f in SHAPES])
+# 8 columns over 3 feature shards: slices of 3, 3 and 2 columns
+UNEVEN = [(1, 3), (2, 3)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + UNEVEN,
+                         ids=[f"{d}x{f}" for d, f in SHAPES + UNEVEN])
 @pytest.mark.parametrize("hist", ["fused", "flat"])
 def test_gspmd_tree_identical_to_serial(shape, hist):
     tree, row_leaf = _port("plain", shape, hist)
@@ -314,6 +324,14 @@ def test_train_fused_matches_jax_and_flat():
     assert _train_port(x, y, rounds=1).inner.gspmd_hist == "flat"   # auto
 
 
+def test_auto_resolves_to_the_kernel_on_a_card():
+    assert resolve_gspmd_hist("auto", torch.device("cuda")) == "fused"
+    assert resolve_gspmd_hist("auto", torch.device("cuda", 1)) == "fused"
+    assert resolve_gspmd_hist("auto", torch.device("cpu")) == "flat"
+    for hist in ("fused", "flat"):
+        assert resolve_gspmd_hist(hist, torch.device("cuda")) == hist
+
+
 def test_train_pads_rows_and_matches_serial_first_tree():
     """3001 rows over 2 batch shards; the first tree's sums are exact
     (gradients +-0.5, hessians 0.25), so its text equals the serial
@@ -348,17 +366,28 @@ def test_parallel_learners_take_the_mesh(learner, shape):
 
 
 def test_fused_downgrades_loudly_on_uneven_columns(caplog):
+    """30 columns over 8 feature shards (slices of 4 and 3 columns): the
+    JAX package downgrades fused to flat, since its TPU layout needs equal
+    slices; the port's kernel takes each slice at its own width, so it
+    stays fused, with no downgrade, and agrees with the JAX learner and
+    with its own flat histogram."""
     x, y = _task(n=1500, f=30)
+    p = dict(COMMON, mesh_shape="1x8", gspmd_hist="fused")
+    bj = lj.train(p, lj.Dataset(x, y, params=p), 2, verbose_eval=False)
     with caplog.at_level("WARNING", logger="lightgbm_tpu_torch"):
-        bst = _train_port(x, y, rounds=2, gspmd_hist="fused",
-                          mesh_shape="1x8", verbose=0)
-    assert bst.inner.gspmd_hist == "flat"
-    (ev,) = bst.inner.downgrades
-    assert (ev["requested"], ev["resolved"]) == ("gspmd_hist=fused", "flat")
-    assert "feature shards" in ev["reason"]
-    assert "gspmd_hist=fused unavailable" in caplog.text
+        bst = _train_port(x, y, rounds=2, mesh_shape="1x8",
+                          gspmd_hist="fused", verbose=0)
+    assert bst.inner.gspmd_hist == "fused" and not bst.inner.downgrades
+    assert "unavailable" not in caplog.text
     assert [len(c) for c in column_slices(30, 8)] == [4] * 6 + [3] * 2
-    assert np.isfinite(bst.predict(x[:10])).all()
+    widths = [s.shape[1] for s in bst.inner._gspmd.slices[0]]
+    assert widths == [4] * 6 + [3] * 2
+    np.testing.assert_allclose(bst.predict(x, raw_score=True),
+                               bj.predict(x, raw_score=True), rtol=0,
+                               atol=1e-4)
+    flat = _train_port(x, y, rounds=2, mesh_shape="1x8", gspmd_hist="flat")
+    np.testing.assert_allclose(bst.predict(x), flat.predict(x), rtol=2e-5,
+                               atol=2e-6)
 
 
 def test_one_slot_falls_back_to_serial(caplog):
@@ -389,8 +418,15 @@ def test_mesh_helpers():
     assert parse_mesh_shape("data", 8) == (8, 1)
     assert parse_mesh_shape("feature", 8) == (1, 8)
     assert parse_mesh_shape("auto", 8) is None
+    assert mesh_shape_extents("2*4") == (2, 4)
+    assert mesh_shape_extents(" Data ") == "data"
     with pytest.raises(ValueError):
         parse_mesh_shape("4x4", 8)
+    for bad in ("0x2", "2x", "abc", "2x2x2"):
+        with pytest.raises(ValueError):
+            mesh_shape_extents(bad)
+        with pytest.raises(RuntimeError, match="mesh_shape"):
+            config_from_params(dict(mesh_shape=bad, device="cpu"))
     with pytest.raises(MeshPlanError):
         make_named_mesh(4, 4, CPU8)
     mesh = make_named_mesh(2, 4, CPU8)
