@@ -362,7 +362,7 @@ def test_parallel_learners_take_the_mesh(learner, shape):
     assert bt.model_to_string() == bs.model_to_string()
 
 
-# ---- downgrades and raises ---------------------------------------------------
+# ---- uneven slices, fallbacks and raises -------------------------------------
 
 
 def test_fused_downgrades_loudly_on_uneven_columns(caplog):
