@@ -10,9 +10,12 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 1. build every kernel from ``lightgbm_tpu_torch/csrc`` (one nvcc per
    source, all started together);
 2. the histogram kernel against its plain PyTorch version on the card, at
-   the Higgs path's shapes (1,000,000 x 28 uint8 bins): exact under
-   integer-valued weights, a stated tolerance under float weights; with
-   times;
+   the Higgs path's shapes (1,000,000 x 28 uint8 bins), on windows of 0 to
+   1,000,000 rows and on both sides of the regime threshold, each in both
+   regimes: exact under integer-valued weights, a stated tolerance under
+   float weights; with times (single call, back-to-back calls and the
+   profiler's device time, beside ``index_add_``) at the root, 65,536 and
+   4,097 rows;
 2b. the partition kernel against its plain version: windows of 0 to
    1,000,000 rows of a shuffled 1,000,000-row ``order`` with the
    ordered-mode payload of 28 bin columns, and the full root window of
@@ -23,8 +26,10 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 2d. the shard-local histogram kernel against its plain version at the
    row-shard shapes of the data-parallel paths (250,000 x 28 and
    500,000 x 14 uint8 bins), with a row -> leaf map of 255 skewed leaves:
-   all rows, a mid-sized leaf, a leaf of about 1,000 rows and an absent
-   leaf, exact under integer weights; with times;
+   all rows, a mid-sized leaf, a leaf of about 1,000 rows, an absent leaf
+   and leaves of the regime threshold's rows and one more, each in both
+   regimes, exact under integer weights; with times at all rows and the
+   1,000-row leaf;
 3. the Higgs path at full width: seeded synthetic Higgs-shaped data
    (1,000,000 x 28 float32, binary label from a fixed nonlinear rule plus
    noise, 100,000 held-out rows), ``train`` 10 rounds with 255 leaves and
@@ -112,6 +117,93 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_ms_many(fn, calls: int = 200, warmup: int = 5) -> float:
+    """Time per call of ``fn`` in ms, by CUDA events around ``calls``
+    back-to-back calls: the host enqueues while the card runs, so this is
+    the device time unless the host's work per call is longer."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def profiled_ms(fn, calls: int = 50, tries: int = 3):
+    """Device time per call of ``fn`` in ms from ``torch.profiler``: every
+    device-side event of ``calls`` calls (kernels, memsets, copies), and the
+    kernels alone.  A window in which the profiler saw no device event is
+    taken again, up to ``tries`` windows; then None, None."""
+    import torch
+    import torch.profiler as tp
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                    tp.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev = [(e.key, getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(us for _, us in dev)
+        if total:
+            kernels = sum(us for k, us in dev if "memset" not in k.lower()
+                          and "memcpy" not in k.lower())
+            return total / 1e3 / calls, kernels / 1e3 / calls
+    return None, None
+
+
+def window_bound_ms(cnt: int, f: int) -> float:
+    """Least time of a window histogram: each row's order entry, bins and
+    three weights read, (start, cnt) read and the [F, 255, 3] f32 output
+    written, over the memory rate; or 3 * F f32 adds a row over the f32
+    rate."""
+    nbytes = cnt * (4 + f + 3 * 4) + 8 + f * N_BINS * 3 * 4
+    return max(nbytes / H100_BYTES_PER_S,
+               3 * f * cnt / H100_F32_OPS_PER_S) * 1e3
+
+
+def time_kernel(kernel, plain, library, bound_ms: float) -> dict:
+    """A kernel beside its plain version and its one-call PyTorch
+    yardstick, on the same inputs: the single-call median of ``cuda_ms``
+    (``ms``, ``plain_ms``, ``library_ms``), CUDA events around back-to-back
+    calls (``ms_many``, ``library_ms_many``) and the profiler's device time
+    per call (``device_ms`` with the output's zeroing,
+    ``device_kernel_ms`` without it, ``library_device_ms``)."""
+    dev_ms, dev_kernel_ms = profiled_ms(kernel)
+    lib_dev_ms, _ = profiled_ms(library)
+    return dict(ms=cuda_ms(kernel), ms_many=cuda_ms_many(kernel),
+                device_ms=dev_ms, device_kernel_ms=dev_kernel_ms,
+                plain_ms=cuda_ms(plain, reps=3), library_ms=cuda_ms(library),
+                library_ms_many=cuda_ms_many(library),
+                library_device_ms=lib_dev_ms, bound_ms=bound_ms)
+
+
+def small_window_fields(main: dict, small: dict) -> dict:
+    """The kernels line's extra fields of a histogram kernel: the other
+    measures at its main shape, and all of them at its small shape (the
+    4,097-row window, the 1,000-row leaf)."""
+    out = {k: main[k] for k in ("ms_many", "device_ms", "device_kernel_ms",
+                                "library_ms_many", "library_device_ms")}
+    out.update(ms_small=small["ms"], ms_small_many=small["ms_many"],
+               device_ms_small=small["device_ms"],
+               device_kernel_ms_small=small["device_kernel_ms"],
+               library_ms_small=small["library_ms"],
+               library_ms_small_many=small["library_ms_many"],
+               library_device_ms_small=small["library_device_ms"],
+               bound_ms_small=small["bound_ms"])
+    return out
 
 
 def higgs_like(n: int, rng: np.random.Generator):
@@ -344,6 +436,92 @@ def check_cat_group(dev, rng):
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms)
 
 
+def check_hist_window(dev, rng):
+    """Phase 2: the window histogram kernel against its plain version at
+    the Higgs path's shapes, every window in both regimes."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (SMALL_MAX_ROWS,
+                                                  hist_window,
+                                                  hist_window_plain,
+                                                  plan_launch)
+    bins = torch.from_numpy(rng.integers(0, N_BINS, (N_ROWS, N_FEAT),
+                                         dtype=np.uint8)).to(dev)
+    order = torch.from_numpy(rng.permutation(N_ROWS).astype(np.int32)).to(dev)
+    w_int = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-8, 9, N_ROWS).astype(np.float32),
+        rng.integers(0, 5, N_ROWS).astype(np.float32),
+        np.ones(N_ROWS, np.float32))]
+    w_f32 = [torch.from_numpy(a).to(dev) for a in (
+        rng.standard_normal(N_ROWS).astype(np.float32),
+        rng.uniform(0.0, 0.25, N_ROWS).astype(np.float32),
+        np.ones(N_ROWS, np.float32))]
+    # windows on both sides of the regime threshold; each in both regimes
+    # (the small and the large forced, the large under the root's bound as
+    # for a small child of a large parent) and under its own plan
+    windows = [(12345, 0), (777, 1), (5000, 511), (40000, 4097),
+               (100000, SMALL_MAX_ROWS), (200000, SMALL_MAX_ROWS + 1),
+               (600000, 65536), (300000, 100000), (0, N_ROWS)]
+    max_err_f32 = 0.0
+    for start, cnt in windows:
+        sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+        p_int = hist_window_plain(order, sc, bins, *w_int, N_BINS)
+        plans = {"own": plan_launch(cnt, N_FEAT, N_BINS),
+                 "small": plan_launch(cnt, N_FEAT, N_BINS,
+                                      small_max_rows=N_ROWS),
+                 "large": plan_launch(cnt, N_FEAT, N_BINS,
+                                      small_max_rows=-1),
+                 "large_root_bound": plan_launch(N_ROWS, N_FEAT, N_BINS)}
+        for name, plan in plans.items():
+            k_int = hist_window(order, sc, bins, *w_int, N_BINS, cnt, plan)
+            torch.cuda.synchronize()
+            if not torch.equal(k_int, p_int):
+                fail(f"kernel != plain under integer weights at window "
+                     f"({start}, {cnt}), {name} plan {plan}: max |diff| "
+                     f"{(k_int - p_int).abs().max().item()}")
+        k = hist_window(order, sc, bins, *w_f32, N_BINS, cnt)
+        p = hist_window_plain(order, sc, bins, *w_f32, N_BINS)
+        # tolerance: 1e-5 of the bin's sum of magnitudes (float atomics
+        # add in a run-dependent order; the error scales with sum |w|)
+        mag = hist_window_plain(order, sc, bins,
+                                *[w.abs() for w in w_f32], N_BINS)
+        err = (k - p).abs()
+        rel = (err / mag.clamp(min=1e-30)).max().item() if cnt else 0.0
+        if rel > 1e-5:
+            fail(f"kernel vs plain beyond 1e-5 of sum |w| at window "
+                 f"({start}, {cnt}): {rel}")
+        max_err_f32 = max(max_err_f32, err.max().item())
+        phase("kernel_vs_plain", window=f"{start}+{cnt}",
+              own_regime=plans["own"].regime,
+              exact_int=",".join(plans),
+              f32_max_abs_err=f"{err.max().item():.3e}",
+              f32_max_rel_to_sum_abs=f"{rel:.3e}")
+
+    # times at the root window (the Higgs path's largest call, N rows), at
+    # a 65,536-row window (large regime) and a 4,097-row one (small regime)
+    timing = {}
+    for start, cnt in ((0, N_ROWS), (600000, 65536), (40000, 4097)):
+        sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+        idx = order[start:start + cnt].long()
+        rows = bins.index_select(0, idx).long() + (
+            torch.arange(N_FEAT, device=dev) * N_BINS)
+        vals = torch.stack([w[idx] for w in w_f32], -1)[:, None, :].expand(
+            -1, N_FEAT, 3).reshape(-1, 3).contiguous()
+        flat = rows.reshape(-1)
+        acc = torch.zeros((N_FEAT * N_BINS, 3), device=dev)
+        timing[cnt] = t = time_kernel(
+            lambda: hist_window(order, sc, bins, *w_f32, N_BINS, cnt),
+            lambda: hist_window_plain(order, sc, bins, *w_f32, N_BINS),
+            lambda: acc.index_add_(0, flat, vals),
+            window_bound_ms(cnt, N_FEAT))
+        phase("kernel_time", window_rows=cnt,
+              regime=plan_launch(cnt, N_FEAT, N_BINS).regime,
+              **{k: f"{v:.4f}" if isinstance(v, float) else v
+                 for k, v in t.items()},
+              bound_share=f"{t['bound_ms'] / t['device_ms']:.4f}"
+              if t["device_ms"] else "not measured")
+    return timing, max_err_f32
+
+
 def local_bound_ms(n_loc: int, cnt: int, fc: int) -> float:
     """Least time of a shard-local histogram call: row_leaf read for every
     local row, the matching rows' bin bytes and three weights read, the
@@ -356,9 +534,13 @@ def local_bound_ms(n_loc: int, cnt: int, fc: int) -> float:
 
 def check_hist_local(dev, rng):
     """Phase 2d: the shard-local histogram kernel against its plain
-    version at the row-shard shapes of the 4x1 and 2x2 meshes."""
+    version at the row-shard shapes of the 4x1 and 2x2 meshes, every leaf
+    in both regimes."""
     import torch
-    from lightgbm_tpu_torch.ops.histogram import hist_local, hist_local_plain
+    from lightgbm_tpu_torch.ops.histogram import (SMALL_MAX_ROWS_LOCAL,
+                                                  hist_local,
+                                                  hist_local_plain,
+                                                  plan_launch)
     n_leaves = 255
     p = 1.0 / np.arange(1, n_leaves + 1) ** 1.1
     timing, max_err = {}, 0.0
@@ -374,6 +556,14 @@ def check_hist_local(dev, rng):
         for name, leaf in (("mid", 0), ("small", small), ("absent", 300)):
             maps[name] = (skewed_d, leaf,
                           int(counts[leaf]) if leaf < n_leaves else 0)
+        # leaves of exactly the regime threshold and one row more
+        t = SMALL_MAX_ROWS_LOCAL
+        edge = np.zeros(n_loc, np.int32)
+        perm = rng.permutation(n_loc)
+        edge[perm[:t]], edge[perm[t:2 * t + 1]] = 1, 2
+        edge_d = torch.from_numpy(edge).to(dev)
+        maps["threshold"] = (edge_d, 1, t)
+        maps["threshold+1"] = (edge_d, 2, t + 1)
         w_int = [torch.from_numpy(a).to(dev) for a in (
             rng.integers(-8, 9, n_loc).astype(np.float32),
             rng.integers(0, 5, n_loc).astype(np.float32),
@@ -384,13 +574,22 @@ def check_hist_local(dev, rng):
             np.ones(n_loc, np.float32))]
         for name, (row_leaf, leaf, cnt) in maps.items():
             lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
-            k = hist_local(row_leaf, lid, bins, *w_int, N_BINS)
             pl = hist_local_plain(row_leaf, lid, bins, *w_int, N_BINS)
-            torch.cuda.synchronize()
-            if not torch.equal(k, pl):
-                fail(f"hist_local != plain under integer weights at "
-                     f"{n_loc}x{fc}, leaf {name}")
-            k = hist_local(row_leaf, lid, bins, *w_f32, N_BINS)
+            # its own plan at the leaf's count, both regimes forced, and
+            # the plan under the shard's bound
+            plans = {"own": plan_launch(cnt, fc, N_BINS, n_loc),
+                     "small": plan_launch(cnt, fc, N_BINS, n_loc,
+                                          small_max_rows=n_loc),
+                     "large": plan_launch(cnt, fc, N_BINS, n_loc,
+                                          small_max_rows=-1),
+                     "shard_bound": plan_launch(n_loc, fc, N_BINS, n_loc)}
+            for pname, plan in plans.items():
+                k = hist_local(row_leaf, lid, bins, *w_int, N_BINS, cnt, plan)
+                torch.cuda.synchronize()
+                if not torch.equal(k, pl):
+                    fail(f"hist_local != plain under integer weights at "
+                         f"{n_loc}x{fc}, leaf {name}, {pname} plan {plan}")
+            k = hist_local(row_leaf, lid, bins, *w_f32, N_BINS, cnt)
             pl = hist_local_plain(row_leaf, lid, bins, *w_f32, N_BINS)
             mag = hist_local_plain(row_leaf, lid, bins,
                                    *[w.abs() for w in w_f32], N_BINS)
@@ -400,15 +599,12 @@ def check_hist_local(dev, rng):
                      f"{n_loc}x{fc}, leaf {name}")
             max_err = max(max_err, err.max().item())
             phase("hist_local_vs_plain", shard=f"{n_loc}x{fc}", leaf=name,
-                  rows=cnt, exact_int=True,
+                  rows=cnt, own_regime=plans["own"].regime,
+                  exact_int=",".join(plans),
                   f32_max_abs_err=f"{err.max().item():.3e}")
         for name in ("all", "small"):
             row_leaf, leaf, cnt = maps[name]
             lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
-            k_ms = cuda_ms(lambda: hist_local(row_leaf, lid, bins, *w_f32,
-                                              N_BINS))
-            p_ms = cuda_ms(lambda: hist_local_plain(row_leaf, lid, bins,
-                                                    *w_f32, N_BINS), reps=3)
             idx = torch.nonzero(row_leaf == leaf).view(-1)
             flat = (bins.index_select(0, idx).long() + torch.arange(
                 fc, device=dev) * N_BINS).reshape(-1)
@@ -416,16 +612,20 @@ def check_hist_local(dev, rng):
                                                             ].expand(
                 -1, fc, 3).reshape(-1, 3).contiguous()
             acc = torch.zeros((fc * N_BINS, 3), device=dev)
-            lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, vals))
-            bound_ms = local_bound_ms(n_loc, cnt, fc)
-            timing[(n_loc, name)] = dict(ms=k_ms, plain_ms=p_ms,
-                                         library_ms=lib_ms,
-                                         bound_ms=bound_ms)
+            timing[(n_loc, name)] = t = time_kernel(
+                lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS, cnt),
+                lambda: hist_local_plain(row_leaf, lid, bins, *w_f32,
+                                         N_BINS),
+                lambda: acc.index_add_(0, flat, vals),
+                local_bound_ms(n_loc, cnt, fc))
             phase("hist_local_time", shard=f"{n_loc}x{fc}", leaf=name,
-                  rows=cnt, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
-                  index_add_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
-                  bound_share=f"{bound_ms / k_ms:.3f}")
-        del bins, maps, skewed_d, w_int, w_f32, idx, flat, vals, acc
+                  rows=cnt,
+                  regime=plan_launch(cnt, fc, N_BINS, n_loc).regime,
+                  **{k: f"{v:.4f}" if isinstance(v, float) else v
+                     for k, v in t.items()},
+                  bound_share=f"{t['bound_ms'] / t['device_ms']:.4f}"
+                  if t["device_ms"] else "not measured")
+        del bins, maps, skewed_d, edge_d, w_int, w_f32, idx, flat, vals, acc
     return timing, max_err
 
 
@@ -724,8 +924,6 @@ def main() -> None:
         fail(f"unknown arguments {sys.argv[1:]}; the one option is "
              f"--multi-card")
     from lightgbm_tpu_torch.ops import build
-    from lightgbm_tpu_torch.ops.histogram import (hist_window,
-                                                  hist_window_plain)
 
     # ---- phase 0: the card ---------------------------------------------
     smi = subprocess.run(
@@ -764,73 +962,7 @@ def main() -> None:
 
     # ---- phase 2: histogram kernel vs plain on the card -------------------
     rng = np.random.default_rng(SEED)
-    bins = torch.from_numpy(rng.integers(0, N_BINS, (N_ROWS, N_FEAT),
-                                         dtype=np.uint8)).to(dev)
-    order = torch.from_numpy(rng.permutation(N_ROWS).astype(np.int32)).to(dev)
-    w_int = [torch.from_numpy(a).to(dev) for a in (
-        rng.integers(-8, 9, N_ROWS).astype(np.float32),
-        rng.integers(0, 5, N_ROWS).astype(np.float32),
-        np.ones(N_ROWS, np.float32))]
-    w_f32 = [torch.from_numpy(a).to(dev) for a in (
-        rng.standard_normal(N_ROWS).astype(np.float32),
-        rng.uniform(0.0, 0.25, N_ROWS).astype(np.float32),
-        np.ones(N_ROWS, np.float32))]
-    windows = [(12345, 0), (777, 1), (5000, 511), (40000, 4097),
-               (300000, 100000), (0, N_ROWS)]
-    max_err_f32 = 0.0
-    for start, cnt in windows:
-        sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
-        k_int = hist_window(order, sc, bins, *w_int, N_BINS, cnt)
-        p_int = hist_window_plain(order, sc, bins, *w_int, N_BINS)
-        torch.cuda.synchronize()
-        if not torch.equal(k_int, p_int):
-            fail(f"kernel != plain under integer weights at window "
-                 f"({start}, {cnt}): max |diff| "
-                 f"{(k_int - p_int).abs().max().item()}")
-        k = hist_window(order, sc, bins, *w_f32, N_BINS, cnt)
-        p = hist_window_plain(order, sc, bins, *w_f32, N_BINS)
-        # tolerance: 1e-5 of the bin's sum of magnitudes (float atomics
-        # add in a run-dependent order; the error scales with sum |w|)
-        mag = hist_window_plain(order, sc, bins,
-                                *[w.abs() for w in w_f32], N_BINS)
-        err = (k - p).abs()
-        rel = (err / mag.clamp(min=1e-30)).max().item() if cnt else 0.0
-        if rel > 1e-5:
-            fail(f"kernel vs plain beyond 1e-5 of sum |w| at window "
-                 f"({start}, {cnt}): {rel}")
-        max_err_f32 = max(max_err_f32, err.max().item())
-        phase("kernel_vs_plain", window=f"{start}+{cnt}", exact_int=True,
-              f32_max_abs_err=f"{err.max().item():.3e}",
-              f32_max_rel_to_sum_abs=f"{rel:.3e}")
-
-    # times at the root window (the Higgs path's largest call, N rows) and
-    # at a 4,097-row split window
-    timing = {}
-    for start, cnt in ((0, N_ROWS), (40000, 4097)):
-        sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
-        k_ms = cuda_ms(lambda: hist_window(order, sc, bins, *w_f32, N_BINS,
-                                           cnt))
-        p_ms = cuda_ms(lambda: hist_window_plain(order, sc, bins, *w_f32,
-                                                 N_BINS), reps=3)
-        idx = order[start:start + cnt].long()
-        rows = bins.index_select(0, idx).long() + (
-            torch.arange(N_FEAT, device=dev) * N_BINS)
-        vals = torch.stack([w[idx] for w in w_f32], -1)[:, None, :].expand(
-            -1, N_FEAT, 3).reshape(-1, 3).contiguous()
-        flat = rows.reshape(-1)
-        acc = torch.zeros((N_FEAT * N_BINS, 3), device=dev)
-        lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, vals))
-        nbytes = cnt * (4 + N_FEAT + 3 * 4) + 8 + N_FEAT * N_BINS * 3 * 4
-        ops = 3 * N_FEAT * cnt
-        bound_ms = max(nbytes / H100_BYTES_PER_S,
-                       ops / H100_F32_OPS_PER_S) * 1e3
-        timing[cnt] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bytes=nbytes)
-        phase("kernel_time", window_rows=cnt, kernel_ms=f"{k_ms:.4f}",
-              plain_ms=f"{p_ms:.4f}", index_add_ms=f"{lib_ms:.4f}",
-              bound_ms=f"{bound_ms:.5f}", bytes=nbytes,
-              bound_share=f"{bound_ms / k_ms:.3f}")
-    del bins, order, w_int, w_f32, rows, vals, flat, acc, idx
+    timing, max_err_f32 = check_hist_window(dev, rng)
     torch.cuda.empty_cache()
 
     # ---- phase 2b: partition kernel vs plain on the card ------------------
@@ -947,14 +1079,17 @@ def main() -> None:
         "launches": higgs_launches, "max_abs_err": max_err_f32,
         "ms": root["ms"], "plain_ms": root["plain_ms"],
         "bound_ms": root["bound_ms"], "bound_by": "bytes",
-        "library_ms": root["library_ms"]}, {
+        "library_ms": root["library_ms"],
+        **small_window_fields(root, timing[4097])}, {
         "name": "hist_local", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/hist_local.cu",
         "replaces": "lightgbm_tpu/ops/pallas_hist.py:284",
         "launches": dp["hist_local_launches"], "max_abs_err": local_err,
         "ms": lroot["ms"], "plain_ms": lroot["plain_ms"],
         "bound_ms": lroot["bound_ms"], "bound_by": "bytes",
-        "library_ms": lroot["library_ms"]}, {
+        "library_ms": lroot["library_ms"],
+        **small_window_fields(lroot, local_timing[(N_ROWS // 4, "small")])
+    }, {
         "name": "partition", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",
         "replaces": "lightgbm_tpu/ops/pallas_compact.py:98",

@@ -265,8 +265,9 @@ class LeafPool:
 
     def next_leaf(self, extra: Optional[torch.Tensor] = None):
         """The split's one host read: the leaf with the largest gain, the
-        ``extra`` row of that leaf (the serial grower's window), and
-        whether its gain is above 0."""
+        ``extra`` row of that leaf (the serial grower's window, the
+        data-parallel grower's row count), and whether its gain is above
+        0."""
         l_t = torch.argmax(self.sgain).view(1)
         parts = [l_t] + ([extra.index_select(0, l_t)[0]]
                          if extra is not None else [])

@@ -4,17 +4,19 @@ Each source under ``lightgbm_tpu_torch/csrc/`` is compiled at first use,
 on the machine with the card, by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, and loaded with ``ctypes``.  Libraries go
 to ``lightgbm_tpu_torch/_build/`` under a name that carries a hash of the
-source, so an edited source is rebuilt and a stale library is never loaded.
+source and of every header it includes from ``csrc/``, so an edited source
+or header is rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Callable, Dict, List, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -30,8 +32,11 @@ KERNEL_SOURCES: Dict[str, str] = {
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -43,12 +48,28 @@ def _nvcc() -> str:
     return path
 
 
+def _source_files(src: str) -> List[str]:
+    """``src`` and every file it includes with ``#include "..."``, found
+    beside the file that includes it, each once, in the order reached."""
+    files, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        todo += [os.path.join(os.path.dirname(path), inc.decode())
+                 for inc in _INCLUDE.findall(text)]
+    return files
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(_PKG, KERNEL_SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _source_files(os.path.join(_PKG, KERNEL_SOURCES[name])):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:12]}.so")
 
 
 def _start_build(name: str):
@@ -97,3 +118,16 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(path)
                 _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str,
+             argtypes: Sequence) -> Callable[..., int]:
+    """C entry point ``symbol`` of kernel ``name`` with its argument types
+    declared and an ``int`` result, set up once per process."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn

@@ -15,6 +15,13 @@ the plain PyTorch version of the same function (the JAX package's
 (feature, bin) index in 2048-row chunks).  Nothing else picks between the
 two.
 
+Both CUDA kernels share one core (``csrc/hist_core.cuh``) with two
+regimes, which :func:`plan_launch` picks on the host from a bound on the
+rows that the caller already holds: a small window adds straight into the
+output with global reductions, a large one into shared-memory histograms
+of a few columns.  The wrappers zero the output inside the C entry point
+(on the kernel's stream) and set up each ``ctypes`` entry point once.
+
 The data-parallel learner (``parallel/gspmd.py``) keeps a row -> leaf map
 per row shard instead of an ``order`` window, and measures a leaf with
 one of two formulations:
@@ -31,7 +38,9 @@ one of two formulations:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import struct
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -63,14 +72,122 @@ def hist_window_plain(order: torch.Tensor, sc: torch.Tensor,
     return hist.view(f, num_bins, NUM_STATS)
 
 
-def _kernel_fn():
-    """The kernel's C entry point with its argument types declared (built
-    and loaded at first use)."""
-    fn = build.load("hist_gather").lgbt_hist_gather
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# ---- the launch plan of both kernels ---------------------------------------
+
+NUM_SMS = 132              # H100 SXM
+THREADS = 256              # threads a block (hist_core.cuh kThreads)
+# the small regime takes a row bound of at most this many rows: K1's bound
+# is the parent's count, and its smaller child holds at most about half of
+# it; K3's is the parent's count over all shards
+SMALL_MAX_ROWS = 32_768
+SMALL_MAX_ROWS_LOCAL = 65_536
+GROUP_COLS = 4             # columns of a large-regime shared histogram
+LARGE_BLOCKS_PER_SM = 4    # large-regime blocks the grid aims at per SM
+LARGE_MIN_ROWS = 1024      # positions a large-regime block takes at least
+SMALL_MAX_BLOCKS = 16 * NUM_SMS   # small-regime grid; threads stride beyond
+MAX_SMEM = 232_448         # dynamic shared memory a block may use
+MAX_GRID_Y = 65_535
+MAX_CLUSTER = 8            # portable thread block cluster size
+
+
+class LaunchPlan(NamedTuple):
+    """How a histogram kernel is launched (``csrc/hist_core.cuh``)."""
+    regime: str        # "small": global reductions; "large": shared memory
+    grid_x: int        # blocks over the positions
+    grid_y: int        # column groups (large regime, groups form)
+    group_width: int   # columns a block's shared histogram holds
+    cluster: int       # 1: groups on blockIdx.y; 2..8: cluster form
+    smem_bytes: int    # dynamic shared memory a block
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_launch(bound: int, n_feat: int, num_bins: int,
+                n_loc: Optional[int] = None, *,
+                small_max_rows: Optional[int] = None,
+                blocks_per_sm: int = LARGE_BLOCKS_PER_SM,
+                cluster: int = 1) -> LaunchPlan:
+    """The launch of ``hist_window`` (``n_loc`` None: a window of at most
+    ``bound`` rows) or of ``hist_local`` (a masked scan of ``n_loc`` local
+    rows, at most ``bound`` of them in the leaf).  A pure function of what
+    the host knows; the kernel reads the true count from the device.
+
+    A bound of at most ``small_max_rows`` rows (``SMALL_MAX_ROWS`` for a
+    window, ``SMALL_MAX_ROWS_LOCAL`` for a scan; the H100's crossover,
+    PERF.md) takes the small regime: a thread per (row, 4-column group,
+    statistic) of the window, or per local row of the scan, and no shared
+    memory.  More take the large regime: shared histograms of
+    ``GROUP_COLS`` columns on ``grid_y``, or with ``cluster > 1`` one
+    histogram in column slices over the blocks of a cluster; ``grid_x``
+    aims at ``blocks_per_sm`` blocks on each SM, each over at least
+    ``LARGE_MIN_ROWS`` positions."""
+    if n_feat < 1 or not 1 <= num_bins <= MAX_BINS or bound < 0:
+        raise ValueError(f"plan_launch: {n_feat} columns, {num_bins} bins, "
+                         f"bound {bound}")
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"plan_launch: cluster size {cluster} is not 1 to "
+                         f"{MAX_CLUSTER}")
+    if n_loc is None:
+        rows = positions = bound
+        limit = SMALL_MAX_ROWS if small_max_rows is None else small_max_rows
+    else:
+        rows, positions = min(bound, n_loc), n_loc
+        limit = (SMALL_MAX_ROWS_LOCAL if small_max_rows is None
+                 else small_max_rows)
+    if rows <= limit:
+        # a thread per local row, or per (row, 4-column group, statistic)
+        work = positions if n_loc is not None else (
+            positions * 3 * _cdiv(n_feat, 4))
+        return LaunchPlan("small", max(1, min(_cdiv(work, THREADS),
+                                              SMALL_MAX_BLOCKS)),
+                          1, 4, 1, 0)
+    if cluster == 1:
+        width = min(n_feat, max(GROUP_COLS,
+                                4 * _cdiv(_cdiv(n_feat, MAX_GRID_Y), 4)))
+        grid_y = _cdiv(n_feat, width)
+    else:
+        width, grid_y = 4 * _cdiv(_cdiv(n_feat, cluster), 4), 1
+    smem = width * num_bins * NUM_STATS * 4
+    if smem > MAX_SMEM:
+        raise ValueError(f"plan_launch: {n_feat} columns x {num_bins} bins "
+                         f"need {smem} bytes of shared memory a block")
+    target = max(1, NUM_SMS * blocks_per_sm // grid_y)
+    grid_x = max(1, min(_cdiv(positions, LARGE_MIN_ROWS), target))
+    grid_x = cluster * _cdiv(grid_x, cluster)
+    return LaunchPlan("large", grid_x, grid_y, width, cluster, smem)
+
+
+# the wrappers' plans: a split's bound recurs across trees and shards
+_plan = functools.lru_cache(maxsize=4096)(plan_launch)
+
+
+# ---- the CUDA kernels ----------------------------------------------------
+
+# the C entry points' one argument (csrc/hist_core.cuh: Args): 7 pointers,
+# the local rows, 9 ints (sizes, plan, card) and the stream, packed at once
+_ARGS = struct.Struct("@7Pq9iP")
+_ARG_TYPES = (torch.int32, torch.int32, torch.uint8, torch.float32,
+              torch.float32, torch.float32)
+
+
+def _args_ok(a, b, bins, gw, hw, cw, num_bins) -> bool:
+    """True when :func:`_check_cuda_args` would pass for the int32 index
+    tensors ``a`` and ``b``: the same checks, without building messages
+    (the wrappers run once per split)."""
+    dev, n = bins.get_device(), bins.shape[0]
+    return (a.get_device() == dev and b.get_device() == dev
+            and gw.get_device() == dev and hw.get_device() == dev
+            and cw.get_device() == dev
+            and (a.dtype, b.dtype, bins.dtype, gw.dtype, hw.dtype,
+                 cw.dtype) == _ARG_TYPES
+            and a.is_contiguous() and b.is_contiguous()
+            and bins.is_contiguous() and gw.is_contiguous()
+            and hw.is_contiguous() and cw.is_contiguous()
+            and bins.dim() == 2 and bins.shape[1] >= 1
+            and 1 <= num_bins <= MAX_BINS
+            and gw.numel() == n and hw.numel() == n and cw.numel() == n)
 
 
 def _check_cuda_args(fn: str, idx, bins, gw, hw, cw, num_bins) -> None:
@@ -99,32 +216,41 @@ def _check_cuda_args(fn: str, idx, bins, gw, hw, cw, num_bins) -> None:
 
 def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
                 gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
-                num_bins: int,
-                rows_upper_bound: Optional[int] = None) -> torch.Tensor:
+                num_bins: int, rows_upper_bound: Optional[int] = None,
+                plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     """``[F, num_bins, 3]`` histogram of rows ``order[start:start+cnt]``,
     (start, cnt) = ``sc`` (device ``int32[2]``).
 
     ``rows_upper_bound`` is a host-known bound on cnt (the parent leaf's
-    count in the grower) that sizes the kernel's grid; the kernel reads the
-    true cnt from ``sc``.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
-    if bins.device.type == "cpu":
-        return hist_window_plain(order, sc, bins, gw, hw, cw, num_bins)
-    if bins.device.type != "cuda":
+    count in the grower) from which :func:`plan_launch` picks the kernel's
+    regime and grid; the kernel reads the true cnt from ``sc``.  ``plan``
+    replaces that plan (to time the designs against each other).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, on
+    their own card, or raise."""
+    if not bins.is_cuda:
+        if bins.device.type == "cpu":
+            return hist_window_plain(order, sc, bins, gw, hw, cw, num_bins)
         raise ValueError(f"hist_window: unsupported device {bins.device}")
-    _check_cuda_args("hist_window", {"order": order, "sc": sc}, bins, gw,
-                     hw, cw, num_bins)
-    if sc.numel() != 2:
+    if not (_args_ok(order, sc, bins, gw, hw, cw, num_bins)
+            and sc.numel() == 2):
+        _check_cuda_args("hist_window", {"order": order, "sc": sc}, bins,
+                         gw, hw, cw, num_bins)
         raise ValueError("hist_window: sc must hold (start, cnt)")
     n, f = bins.shape
-    out = torch.zeros((f, num_bins, NUM_STATS), dtype=torch.float32,
+    if plan is None:
+        plan = _plan(n if rows_upper_bound is None
+                     else int(rows_upper_bound), f, num_bins)
+    dev = bins.get_device()
+    out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
-    bound = n if rows_upper_bound is None else int(rows_upper_bound)
-    with torch.cuda.device(bins.device):     # launch on the tensors' card
-        err = _kernel_fn()(
-            order.data_ptr(), sc.data_ptr(), bins.data_ptr(), gw.data_ptr(),
-            hw.data_ptr(), cw.data_ptr(), out.data_ptr(), f, num_bins, bound,
-            torch.cuda.current_stream(bins.device).cuda_stream)
+    # the C side makes the tensors' card current only if it is not
+    err = build.function("hist_gather", "lgbt_hist_gather",
+                         [ctypes.c_char_p])(_ARGS.pack(
+                             order.data_ptr(), sc.data_ptr(), bins.data_ptr(),
+                             gw.data_ptr(), hw.data_ptr(), cw.data_ptr(),
+                             out.data_ptr(), n, f, num_bins,
+                             plan.regime == "large", *plan[1:], dev,
+                             torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"hist_gather kernel launch failed: CUDA error "
                            f"{err}")
@@ -163,43 +289,49 @@ def hist_local_plain(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
     return hist_window_plain(order, sc, bins, gw, hw, cw, num_bins)
 
 
-def _local_kernel_fn():
-    fn = build.load("hist_local").lgbt_hist_local
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
                bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
-               cw: torch.Tensor, num_bins: int) -> torch.Tensor:
+               cw: torch.Tensor, num_bins: int,
+               rows_upper_bound: Optional[int] = None,
+               plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     """``[Fc, num_bins, 3]`` partial histogram of a shard's rows ``r``
     with ``row_leaf[r] == leaf_id``: row_leaf ``[n_loc]`` i32, leaf_id a
     device ``int32[1]`` (no host read), bins ``[n_loc, Fc]`` uint8 (the
-    shard's column slice, any width), weights ``[n_loc]`` f32.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel, on
-    their own card, or raise."""
-    if bins.device.type == "cpu":
-        return hist_local_plain(row_leaf, leaf_id, bins, gw, hw, cw,
-                                num_bins)
-    if bins.device.type != "cuda":
+    shard's column slice, any width), weights ``[n_loc]`` f32.
+
+    ``rows_upper_bound`` is a host-known bound on the leaf's rows in the
+    shard (the parent leaf's global count in the data-parallel grower) from
+    which :func:`plan_launch` picks the kernel's regime; ``plan`` replaces
+    that plan.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel, on their own card, or raise."""
+    if not bins.is_cuda:
+        if bins.device.type == "cpu":
+            return hist_local_plain(row_leaf, leaf_id, bins, gw, hw, cw,
+                                    num_bins)
         raise ValueError(f"hist_local: unsupported device {bins.device}")
-    _check_cuda_args("hist_local", {"row_leaf": row_leaf,
-                                    "leaf_id": leaf_id}, bins, gw, hw, cw,
-                     num_bins)
-    n, f = bins.shape
-    if row_leaf.numel() != n or leaf_id.numel() != 1:
+    n = bins.shape[0]
+    if not (_args_ok(row_leaf, leaf_id, bins, gw, hw, cw, num_bins)
+            and row_leaf.numel() == n and leaf_id.numel() == 1):
+        _check_cuda_args("hist_local", {"row_leaf": row_leaf,
+                                        "leaf_id": leaf_id}, bins, gw, hw,
+                         cw, num_bins)
         raise ValueError("hist_local: row_leaf must have one entry per row "
                          "and leaf_id one element")
-    out = torch.zeros((f, num_bins, NUM_STATS), dtype=torch.float32,
+    f = bins.shape[1]
+    if plan is None:
+        plan = _plan(n if rows_upper_bound is None
+                     else int(rows_upper_bound), f, num_bins, n)
+    dev = bins.get_device()
+    out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
-    # a mesh slot may sit on any visible card: launch on the tensors' card
-    with torch.cuda.device(bins.device):
-        err = _local_kernel_fn()(
-            row_leaf.data_ptr(), leaf_id.data_ptr(), bins.data_ptr(),
-            gw.data_ptr(), hw.data_ptr(), cw.data_ptr(), out.data_ptr(), n,
-            f, num_bins, torch.cuda.current_stream(bins.device).cuda_stream)
+    # the C side makes the tensors' card current only if it is not
+    err = build.function("hist_local", "lgbt_hist_local",
+                         [ctypes.c_char_p])(_ARGS.pack(
+                             row_leaf.data_ptr(), leaf_id.data_ptr(),
+                             bins.data_ptr(), gw.data_ptr(), hw.data_ptr(),
+                             cw.data_ptr(), out.data_ptr(), n, f, num_bins,
+                             plan.regime == "large", *plan[1:], dev,
+                             torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"hist_local kernel launch failed: CUDA error "
                            f"{err}")

@@ -29,9 +29,11 @@ the collectives; here the loop itself walks the shards of a
   integer-valued weights, whose sums are exact in any order, the trees
   are the serial grower's trees.
 
-Each split makes one host read (the chosen leaf and the stop test); the
-kernel takes the leaf id from device memory.  A slot's ``row_leaf`` and
-weights are views of its device's.
+Each split makes one host read (the chosen leaf, its row count over all
+shards and the stop test); the kernel takes the leaf id from device
+memory, and the count bounds the smaller child's rows in every shard,
+which picks the kernel's launch (``ops/histogram.py:plan_launch``).  A
+slot's ``row_leaf`` and weights are views of its device's.
 """
 from __future__ import annotations
 
@@ -112,10 +114,12 @@ class GspmdGrower:
         k = self.held[dv].index(i) * self.n_loc
         return t[k:k + self.n_loc]
 
-    def _measure(self, row_leaf, leaf_id: torch.Tensor, w) -> torch.Tensor:
+    def _measure(self, row_leaf, leaf_id: torch.Tensor, w,
+                 bound: int) -> torch.Tensor:
         """The leaf's ``[F, B, 3]`` histogram on the primary device:
         per-slot partials, summed over the batch shards in shard order,
-        column slices concatenated."""
+        column slices concatenated.  ``bound`` bounds the leaf's rows in
+        every shard and sizes the kernel's launch."""
         B = self.cfg.max_bin
         primary = self.mesh.primary
         leaf_on = {dv: leaf_id.to(dv) for dv in self.held}
@@ -132,7 +136,7 @@ class GspmdGrower:
                 if self.hist == "fused":
                     part = hist_local(self._shard(row_leaf[dv], i, dv),
                                       leaf_on[dv], self.slices[i][j], gw, hw,
-                                      cw, B)
+                                      cw, B, rows_upper_bound=bound)
                 else:
                     part = hist_flat(self.slices[i][j], gw, hw, cw, B)
                 part = part.to(primary)
@@ -159,14 +163,22 @@ class GspmdGrower:
                                     dtype=torch.int32, device=dv)
                     for dv, held in self.held.items()}
         metas = {dv: FeatureMeta(*_to(dv, *meta)) for dv in self.held}
-        zero = torch.zeros(1, dtype=torch.int32, device=self.mesh.primary)
+        primary = self.mesh.primary
+        zero = torch.zeros(1, dtype=torch.int32, device=primary)
+        n_pad = len(self.slices) * self.n_loc
         pool = LeafPool(cfg, meta, feat_valid,
-                        self._measure(row_leaf, zero, w),
+                        self._measure(row_leaf, zero, w, n_pad),
                         gw.sum(), hw.sum(), cw.sum())
+        # every leaf's rows over all shards, padding rows included: the
+        # chosen leaf's count comes back with the split's one host read and
+        # bounds its children's rows in any shard
+        leaf_rows = torch.zeros((cfg.num_leaves, 1), dtype=torch.int64,
+                                device=primary)
+        leaf_rows[0] = n_pad
 
         step = 0
         for i in range(cfg.num_leaves - 1):
-            l, positive = pool.next_leaf()
+            l, cnt, positive = pool.next_leaf(leaf_rows)
             stats["host_syncs"] += 1
             if not positive:
                 break
@@ -174,13 +186,19 @@ class GspmdGrower:
             irow, frow, route = pool.split_args(l)
 
             # --- routing: one elementwise update of each device's map ----
+            moved = None
             for dv, binsT in self.route_bins.items():
                 feat, thr, dleft, is_cat_l, cat_row = _to(dv, *route)
                 goes_left = route_goes_left(
                     binsT.index_select(0, feat)[0].long(), metas[dv], feat,
                     thr, dleft, is_cat_l, cat_row)
                 rl = row_leaf[dv]           # updated in place
-                rl.masked_fill_((rl == l) & ~goes_left, new)
+                right = (rl == l) & ~goes_left
+                rl.masked_fill_(right, new)
+                n_right = right.sum().to(primary)
+                moved = n_right if moved is None else moved + n_right
+            leaf_rows[new] = moved
+            leaf_rows[l] -= moved
             child_depth = pool.record(l, new, node, irow, frow, route[3],
                                       route[4])
 
@@ -188,11 +206,11 @@ class GspmdGrower:
             small_left = frow[2] <= frow[5]
             small_id = torch.where(small_left, l, new).int().view(1)
             pool.children(l, new, frow, small_left,
-                          self._measure(row_leaf, small_id, w), child_depth)
+                          self._measure(row_leaf, small_id, w, cnt),
+                          child_depth)
             step += 1
         stats["splits"] += step
 
-        primary = self.mesh.primary
         out = torch.cat([
             self._shard(row_leaf[devs[0]], i, devs[0]).to(primary)
             for i, devs in enumerate(self.mesh.devices)])

@@ -281,6 +281,85 @@ def test_padded_rows_reach_no_leaf_count():
     assert float(tree.leaf_count.sum()) == n
 
 
+READS = ("tolist", "item", "numpy", "cpu", "__bool__", "__int__",
+         "__float__", "__index__")
+
+
+@pytest.mark.parametrize("shape,pad", [((8, 1), 0), ((2, 4), 0), ((8, 1), 3)],
+                         ids=["8x1", "2x4", "8x1-padded"])
+def test_one_host_read_per_split_carries_the_bound(monkeypatch, shape, pad):
+    """Every read of a tensor to the host during the grower's call is the
+    split's one read (``LeafPool.next_leaf``), which now also returns the
+    chosen leaf's rows over all shards; that count is the
+    ``rows_upper_bound`` of each of the split's ``hist_local`` calls, and
+    it bounds the smaller child's rows in every shard."""
+    import lightgbm_tpu_torch.parallel.gspmd as gspmd_mod
+    from lightgbm_tpu_torch.grower import LeafPool
+    bins, g, h, c = _int_args()
+    n = N - pad
+    if pad:
+        bins[n:], g[n:], h[n:], c[n:] = 0, 0, 0, 0
+    cfg = GrowerConfig(**_kw("plain"))
+    grower = GspmdGrower(cfg, make_named_mesh(*shape, CPU8), t(bins))
+    reads, picks, calls, inside = [0], [], [], [False]
+
+    def counted(name):
+        orig = getattr(torch.Tensor, name)
+
+        def read(self, *a, **k):
+            reads[0] += not inside[0]
+            return orig(self, *a, **k)
+        return read
+    for name in READS:
+        monkeypatch.setattr(torch.Tensor, name, counted(name))
+    next_leaf = LeafPool.next_leaf
+
+    def picked(self, extra=None):
+        out = next_leaf(self, extra)
+        picks.append(list(out))
+        return out
+    monkeypatch.setattr(LeafPool, "next_leaf", picked)
+    local = gspmd_mod.hist_local
+
+    def recorded(row_leaf, leaf_id, *a, rows_upper_bound=None, **k):
+        # the plain version that a CPU tensor takes reads its window to
+        # the host; the kernel on a card does not
+        calls.append((row_leaf.clone(), leaf_id.clone(), rows_upper_bound))
+        inside[0] = True
+        try:
+            return local(row_leaf, leaf_id, *a,
+                         rows_upper_bound=rows_upper_bound, **k)
+        finally:
+            inside[0] = False
+    monkeypatch.setattr(gspmd_mod, "hist_local", recorded)
+    stats = {}
+    tree, row_leaf = grower(t(g), t(h), t(c), FeatureMeta(
+        *[t(a) for a in _meta_np()]), torch.ones(F, dtype=torch.bool), stats)
+    monkeypatch.undo()
+
+    assert reads[0] == stats["host_syncs"] == len(picks)
+    assert stats["splits"] == int(tree.num_leaves) - 1 > 1
+    # one call a (column slice, row shard), the row shards inner
+    n_shards, per_split = shape
+    assert len(calls) == n_shards * per_split * (stats["splits"] + 1)
+    assert {b for _, _, b in calls[:n_shards * per_split]} == {N}
+    for k, (leaf, cnt, positive) in enumerate(picks[:stats["splits"]]):
+        assert positive
+        split = calls[n_shards * per_split * (k + 1):
+                      n_shards * per_split * (k + 2)]
+        # the chosen leaf's rows, padding rows included, over all shards:
+        # after routing they are the rows of its two children
+        parent = sum(int(((rl == leaf) | (rl == k + 1)).sum())
+                     for rl, _, _ in split[:n_shards])
+        assert parent == cnt
+        for rl, lid, bound in split:
+            assert bound == cnt
+            assert int((rl == lid).sum()) <= bound
+        small = sum(int((rl == lid).sum()) for rl, lid, _ in
+                    split[:n_shards])
+        assert small <= cnt - small + pad
+
+
 # ---- train() ----------------------------------------------------------------
 
 

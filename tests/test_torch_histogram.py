@@ -6,8 +6,12 @@ Tolerances: counts exact everywhere; g/h exact against the segment
 reference, whose 2048-row chunked accumulation order the plain version
 keeps; against the fused kernel, whose bf16 hi/lo weight split leaves
 about 2^-16 of each term, 2^-16 of the bin's sum of |terms| plus atol
-1e-6; integer-valued g/h exact against both.  The CUDA kernel itself is held against the plain version on the
-card by chip_smoke.py."""
+1e-6; integer-valued g/h exact against both.  The CUDA kernel itself is
+held against the plain version on the card by chip_smoke.py; here the
+launch plan that picks its regime and grid is checked for every bound, and
+the build's library name for every header a source includes."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +22,12 @@ from lightgbm_tpu.data.packing import pack_fused_panel
 from lightgbm_tpu.ops.histogram import (subset_histogram_fused,
                                         subset_histogram_segment)
 from lightgbm_tpu.ops.pallas_hist import fused_idx_fetch
-from lightgbm_tpu_torch.ops.histogram import hist_window, hist_window_plain
+from lightgbm_tpu_torch.ops import build
+from lightgbm_tpu_torch.ops.histogram import (MAX_CLUSTER, MAX_GRID_Y,
+                                              MAX_SMEM, SMALL_MAX_ROWS,
+                                              SMALL_MAX_ROWS_LOCAL,
+                                              hist_local, hist_window,
+                                              hist_window_plain, plan_launch)
 
 ROW_TILE = 512
 N, F = 5000, 12
@@ -116,3 +125,123 @@ def test_kernel_matches_plain_on_card():
         k = hist_window(t(perm), sc, t(bins), t(g), t(h), t(c), 255)
         p = hist_window_plain(t(perm), sc, t(bins), t(g), t(h), t(c), 255)
         assert torch.equal(k, p)
+
+
+# ---- the launch plan of both kernels ---------------------------------------
+
+GRID_X_MAX = 2 ** 31 - 1
+
+
+def _assert_valid(plan, n_feat, num_bins):
+    assert plan.regime in ("small", "large")
+    assert 1 <= plan.grid_x <= GRID_X_MAX and 1 <= plan.grid_y <= MAX_GRID_Y
+    assert 1 <= plan.cluster <= MAX_CLUSTER and 0 <= plan.smem_bytes
+    assert plan.smem_bytes <= MAX_SMEM
+    if plan.regime == "small":
+        assert (plan.grid_y, plan.cluster, plan.smem_bytes) == (1, 1, 0)
+        return
+    assert plan.smem_bytes >= plan.group_width * num_bins * 3 * 4
+    assert plan.group_width * plan.grid_y * plan.cluster >= n_feat
+    assert plan.grid_x % plan.cluster == 0
+    if plan.cluster > 1:
+        assert plan.grid_y == 1 and plan.group_width % 4 == 0
+
+
+# (columns, bins, local rows or None for a window of order): the Higgs
+# window and its 4x1 and 2x2 shards, the Expo window, narrow and wide ones
+SHAPES = [(28, 255, None), (28, 255, 250_000), (14, 255, 500_000),
+          (8, 255, None), (12, 63, 5000), (1, 2, None), (3, 256, 7),
+          (300, 255, None), (70_000, 255, 1000)]
+
+
+@pytest.mark.parametrize("n_feat,num_bins,n_loc", SHAPES)
+def test_every_bound_gets_a_valid_plan(n_feat, num_bins, n_loc):
+    top = n_loc if n_loc is not None else 5000
+    bounds = list(range(0, top + 1)) + [
+        SMALL_MAX_ROWS, SMALL_MAX_ROWS + 1, SMALL_MAX_ROWS_LOCAL,
+        SMALL_MAX_ROWS_LOCAL + 1, 1_000_000, 11_000_000, 2 ** 31 - 1]
+    for bound in bounds:
+        _assert_valid(plan_launch(bound, n_feat, num_bins, n_loc), n_feat,
+                      num_bins)
+    for cluster in range(2, MAX_CLUSTER + 1):
+        width = 4 * -(-(-(-n_feat // cluster)) // 4)
+        if width * num_bins * 3 * 4 <= MAX_SMEM:   # a slice fits a block
+            _assert_valid(plan_launch(top, n_feat, num_bins, n_loc,
+                                      small_max_rows=-1, cluster=cluster),
+                          n_feat, num_bins)
+
+
+@pytest.mark.parametrize("n_loc,limit", [(None, SMALL_MAX_ROWS),
+                                         (250_000, SMALL_MAX_ROWS_LOCAL),
+                                         (500_000, SMALL_MAX_ROWS_LOCAL)])
+def test_regime_switches_at_the_threshold(n_loc, limit):
+    plan = lambda bound: plan_launch(bound, 28, 255, n_loc)
+    assert plan(0).regime == plan(1).regime == plan(limit).regime == "small"
+    assert plan(limit + 1).regime == plan(10 ** 7).regime == "large"
+    # the small regime spreads a window's (row, column group, statistic)
+    # lanes, or a shard's rows, over the card; the large one fills it
+    assert plan(4097).grid_x > 100
+    assert plan(10 ** 6).grid_x * plan(10 ** 6).grid_y >= 2 * 132
+    if n_loc is not None:      # a shard of at most `limit` rows is small
+        assert plan_launch(10 ** 7, 28, 255, limit).regime == "small"
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((-1, 28, 255), {}), ((10, 0, 255), {}), ((10, 28, 257), {}),
+    ((10, 28, 0), {}), ((10, 28, 255), dict(cluster=9)),
+    ((10, 28, 255), dict(cluster=0)),
+    ((10, 1000, 255), dict(small_max_rows=-1, cluster=2))])
+def test_plan_raises_outside_the_kernels_limits(args, kw):
+    with pytest.raises(ValueError):
+        plan_launch(*args, **kw)
+
+
+def test_cpu_tensors_take_the_plain_version_whatever_the_plan():
+    bins, g, h, c, perm = _problem(63, seed=3, integer=True)
+    sc = torch.tensor([40, 700], dtype=torch.int32)
+    want = _port(bins, g, h, c, perm, 40, 700, 63)
+    t = torch.from_numpy
+    for plan in (None, plan_launch(700, F, 63),
+                 plan_launch(700, F, 63, small_max_rows=-1)):
+        got = hist_window(t(perm), sc, t(bins), t(g), t(h), t(c), 63,
+                          rows_upper_bound=N, plan=plan)
+        np.testing.assert_array_equal(got.numpy(), want)
+        row_leaf = t((np.arange(N) % 3).astype(np.int32))
+        lid = torch.tensor([1], dtype=torch.int32)
+        got = hist_local(row_leaf, lid, t(bins), t(g), t(h), t(c), 63,
+                         rows_upper_bound=N, plan=plan)
+        np.testing.assert_array_equal(got.numpy(), hist_local(
+            row_leaf, lid, t(bins), t(g), t(h), t(c), 63).numpy())
+    assert hist_window.launches == hist_local.launches == 0
+
+
+# ---- the build: a library's name hashes its source and its headers --------
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "hist_gather.cu").write_text(
+        '#include "hist_core.cuh"\n#include <cuda_runtime.h>\n')
+    (csrc / "hist_core.cuh").write_text('#include "detail.cuh"\nint a;\n')
+    (csrc / "detail.cuh").write_text("int b;\n")
+    (csrc / "unrelated.cuh").write_text("int c;\n")
+    monkeypatch.setattr(build, "_PKG", str(tmp_path))
+    monkeypatch.setitem(build.KERNEL_SOURCES, "hist_gather",
+                        "csrc/hist_gather.cu")
+    first = build.library_path("hist_gather")
+    assert first == build.library_path("hist_gather")
+    (csrc / "unrelated.cuh").write_text("int c2;\n")
+    assert build.library_path("hist_gather") == first
+    (csrc / "hist_core.cuh").write_text('#include "detail.cuh"\nint a2;\n')
+    second = build.library_path("hist_gather")
+    assert second != first
+    (csrc / "detail.cuh").write_text("int b2;\n")   # included by a header
+    assert build.library_path("hist_gather") not in (first, second)
+
+
+@pytest.mark.parametrize("name", ["hist_gather", "hist_local"])
+def test_histogram_sources_include_the_shared_core(name):
+    files = [os.path.basename(p) for p in build._source_files(
+        os.path.join(build._PKG, build.KERNEL_SOURCES[name]))]
+    assert files == [f"{name}.cu", "hist_core.cuh"]
