@@ -70,6 +70,7 @@ card's ``nvidia-smi`` name and power limit; the last line is
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -174,17 +175,22 @@ def window_bound_ms(cnt: int, f: int) -> float:
                3 * f * cnt / H100_F32_OPS_PER_S) * 1e3
 
 
-def time_kernel(kernel, plain, library, bound_ms: float) -> dict:
+def time_kernel(kernel, plain, library, bound_ms: float, large) -> dict:
     """A kernel beside its plain version and its one-call PyTorch
     yardstick, on the same inputs: the single-call median of ``cuda_ms``
     (``ms``, ``plain_ms``, ``library_ms``), CUDA events around back-to-back
     calls (``ms_many``, ``library_ms_many``) and the profiler's device time
     per call (``device_ms`` with the output's zeroing,
-    ``device_kernel_ms`` without it, ``library_device_ms``)."""
+    ``device_kernel_ms`` without it, ``library_device_ms``).  ``large`` is
+    the kernel under the large regime's plan that a path call of this
+    shape takes below a parent above the threshold (``large_ms_many``,
+    ``large_device_ms``)."""
     dev_ms, dev_kernel_ms = profiled_ms(kernel)
     lib_dev_ms, _ = profiled_ms(library)
     return dict(ms=cuda_ms(kernel), ms_many=cuda_ms_many(kernel),
                 device_ms=dev_ms, device_kernel_ms=dev_kernel_ms,
+                large_ms_many=cuda_ms_many(large),
+                large_device_ms=profiled_ms(large)[0],
                 plain_ms=cuda_ms(plain, reps=3), library_ms=cuda_ms(library),
                 library_ms_many=cuda_ms_many(library),
                 library_device_ms=lib_dev_ms, bound_ms=bound_ms)
@@ -193,7 +199,8 @@ def time_kernel(kernel, plain, library, bound_ms: float) -> dict:
 def small_window_fields(main: dict, small: dict) -> dict:
     """The kernels line's extra fields of a histogram kernel: the other
     measures at its main shape, and all of them at its small shape (the
-    4,097-row window, the 1,000-row leaf)."""
+    4,097-row window, the 1,000-row leaf), where also in the large regime
+    that the main path's calls of that size take under a large parent."""
     out = {k: main[k] for k in ("ms_many", "device_ms", "device_kernel_ms",
                                 "library_ms_many", "library_device_ms")}
     out.update(ms_small=small["ms"], ms_small_many=small["ms_many"],
@@ -202,7 +209,9 @@ def small_window_fields(main: dict, small: dict) -> dict:
                library_ms_small=small["library_ms"],
                library_ms_small_many=small["library_ms_many"],
                library_device_ms_small=small["library_device_ms"],
-               bound_ms_small=small["bound_ms"])
+               bound_ms_small=small["bound_ms"],
+               ms_small_large_regime_many=small["large_ms_many"],
+               device_ms_small_large_regime=small["large_device_ms"])
     return out
 
 
@@ -443,7 +452,10 @@ def check_hist_window(dev, rng):
     from lightgbm_tpu_torch.ops.histogram import (SMALL_MAX_ROWS,
                                                   hist_window,
                                                   hist_window_plain,
-                                                  plan_launch)
+                                                  plan_launch, sm_count)
+    sms = sm_count(torch.cuda.current_device())
+    plan = lambda bound, **kw: plan_launch(bound, N_FEAT, N_BINS,
+                                           num_sms=sms, **kw)
     bins = torch.from_numpy(rng.integers(0, N_BINS, (N_ROWS, N_FEAT),
                                          dtype=np.uint8)).to(dev)
     order = torch.from_numpy(rng.permutation(N_ROWS).astype(np.int32)).to(dev)
@@ -465,18 +477,15 @@ def check_hist_window(dev, rng):
     for start, cnt in windows:
         sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
         p_int = hist_window_plain(order, sc, bins, *w_int, N_BINS)
-        plans = {"own": plan_launch(cnt, N_FEAT, N_BINS),
-                 "small": plan_launch(cnt, N_FEAT, N_BINS,
-                                      small_max_rows=N_ROWS),
-                 "large": plan_launch(cnt, N_FEAT, N_BINS,
-                                      small_max_rows=-1),
-                 "large_root_bound": plan_launch(N_ROWS, N_FEAT, N_BINS)}
-        for name, plan in plans.items():
-            k_int = hist_window(order, sc, bins, *w_int, N_BINS, cnt, plan)
+        plans = {"own": plan(cnt), "small": plan(cnt, small_max_rows=N_ROWS),
+                 "large": plan(cnt, small_max_rows=-1),
+                 "large_root_bound": plan(N_ROWS)}
+        for name, pl in plans.items():
+            k_int = hist_window(order, sc, bins, *w_int, N_BINS, cnt, pl)
             torch.cuda.synchronize()
             if not torch.equal(k_int, p_int):
                 fail(f"kernel != plain under integer weights at window "
-                     f"({start}, {cnt}), {name} plan {plan}: max |diff| "
+                     f"({start}, {cnt}), {name} plan {pl}: max |diff| "
                      f"{(k_int - p_int).abs().max().item()}")
         k = hist_window(order, sc, bins, *w_f32, N_BINS, cnt)
         p = hist_window_plain(order, sc, bins, *w_f32, N_BINS)
@@ -497,7 +506,9 @@ def check_hist_window(dev, rng):
               f32_max_rel_to_sum_abs=f"{rel:.3e}")
 
     # times at the root window (the Higgs path's largest call, N rows), at
-    # a 65,536-row window (large regime) and a 4,097-row one (small regime)
+    # a 65,536-row window (large regime) and a 4,097-row one (small regime;
+    # and in the large regime, which the path's calls take when the
+    # parent's count is above the threshold)
     timing = {}
     for start, cnt in ((0, N_ROWS), (600000, 65536), (40000, 4097)):
         sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
@@ -512,9 +523,10 @@ def check_hist_window(dev, rng):
             lambda: hist_window(order, sc, bins, *w_f32, N_BINS, cnt),
             lambda: hist_window_plain(order, sc, bins, *w_f32, N_BINS),
             lambda: acc.index_add_(0, flat, vals),
-            window_bound_ms(cnt, N_FEAT))
-        phase("kernel_time", window_rows=cnt,
-              regime=plan_launch(cnt, N_FEAT, N_BINS).regime,
+            window_bound_ms(cnt, N_FEAT),
+            lambda: hist_window(order, sc, bins, *w_f32, N_BINS, cnt,
+                                plan(N_ROWS)))
+        phase("kernel_time", window_rows=cnt, regime=plan(cnt).regime,
               **{k: f"{v:.4f}" if isinstance(v, float) else v
                  for k, v in t.items()},
               bound_share=f"{t['bound_ms'] / t['device_ms']:.4f}"
@@ -540,11 +552,14 @@ def check_hist_local(dev, rng):
     from lightgbm_tpu_torch.ops.histogram import (SMALL_MAX_ROWS_LOCAL,
                                                   hist_local,
                                                   hist_local_plain,
-                                                  plan_launch)
+                                                  plan_launch, sm_count)
+    sms = sm_count(torch.cuda.current_device())
     n_leaves = 255
     p = 1.0 / np.arange(1, n_leaves + 1) ** 1.1
     timing, max_err = {}, 0.0
     for n_loc, fc in ((N_ROWS // 4, N_FEAT), (N_ROWS // 2, N_FEAT // 2)):
+        plan = functools.partial(plan_launch, n_feat=fc, num_bins=N_BINS,
+                                 n_loc=n_loc, num_sms=sms)
         bins = torch.from_numpy(rng.integers(0, N_BINS, (n_loc, fc),
                                              dtype=np.uint8)).to(dev)
         skewed = rng.choice(n_leaves, n_loc, p=p / p.sum()).astype(np.int32)
@@ -577,18 +592,16 @@ def check_hist_local(dev, rng):
             pl = hist_local_plain(row_leaf, lid, bins, *w_int, N_BINS)
             # its own plan at the leaf's count, both regimes forced, and
             # the plan under the shard's bound
-            plans = {"own": plan_launch(cnt, fc, N_BINS, n_loc),
-                     "small": plan_launch(cnt, fc, N_BINS, n_loc,
-                                          small_max_rows=n_loc),
-                     "large": plan_launch(cnt, fc, N_BINS, n_loc,
-                                          small_max_rows=-1),
-                     "shard_bound": plan_launch(n_loc, fc, N_BINS, n_loc)}
-            for pname, plan in plans.items():
-                k = hist_local(row_leaf, lid, bins, *w_int, N_BINS, cnt, plan)
+            plans = {"own": plan(cnt),
+                     "small": plan(cnt, small_max_rows=n_loc),
+                     "large": plan(cnt, small_max_rows=-1),
+                     "shard_bound": plan(n_loc)}
+            for pname, lp in plans.items():
+                k = hist_local(row_leaf, lid, bins, *w_int, N_BINS, cnt, lp)
                 torch.cuda.synchronize()
                 if not torch.equal(k, pl):
                     fail(f"hist_local != plain under integer weights at "
-                         f"{n_loc}x{fc}, leaf {name}, {pname} plan {plan}")
+                         f"{n_loc}x{fc}, leaf {name}, {pname} plan {lp}")
             k = hist_local(row_leaf, lid, bins, *w_f32, N_BINS, cnt)
             pl = hist_local_plain(row_leaf, lid, bins, *w_f32, N_BINS)
             mag = hist_local_plain(row_leaf, lid, bins,
@@ -617,10 +630,12 @@ def check_hist_local(dev, rng):
                 lambda: hist_local_plain(row_leaf, lid, bins, *w_f32,
                                          N_BINS),
                 lambda: acc.index_add_(0, flat, vals),
-                local_bound_ms(n_loc, cnt, fc))
+                local_bound_ms(n_loc, cnt, fc),
+                lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS, cnt,
+                                   plan(n_loc)))
             phase("hist_local_time", shard=f"{n_loc}x{fc}", leaf=name,
                   rows=cnt,
-                  regime=plan_launch(cnt, fc, N_BINS, n_loc).regime,
+                  regime=plan(cnt).regime,
                   **{k: f"{v:.4f}" if isinstance(v, float) else v
                      for k, v in t.items()},
                   bound_share=f"{t['bound_ms'] / t['device_ms']:.4f}"
@@ -645,6 +660,8 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     torch.cuda.reset_peak_memory_stats()
     hist_window.launches = 0
     hist_local.launches = 0
+    for k in hist_window.regime_launches:
+        hist_window.regime_launches[k] = hist_local.regime_launches[k] = 0
     partition_window.launches = 0
     cat_group_accept.launches = 0
     t0 = time.perf_counter()
@@ -653,6 +670,10 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     t_train = time.perf_counter() - t0
     hist_calls = hist_window.launches
     local_calls = hist_local.launches
+    # the same launches by the regime of their plan
+    by_regime = {f"{kernel}_{k}_launches": v for kernel, fn in (
+        ("hist", hist_window), ("hist_local", hist_local))
+        for k, v in fn.regime_launches.items()}
     part_calls = partition_window.launches
     group_calls = cat_group_accept.launches
     stats = dict(bst.inner.stats)
@@ -673,6 +694,10 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
         fail(f"{name}: gspmd_hist resolved to {bst.inner.gspmd_hist}")
     want_gather = 0 if shards else expected
     want_local = shards * expected if bst.inner.gspmd_hist == "fused" else 0
+    if sum(hist_window.regime_launches.values()) != hist_calls or sum(
+            hist_local.regime_launches.values()) != local_calls:
+        fail(f"{name}: launches by regime {by_regime} do not add up to "
+             f"{hist_calls} and {local_calls}")
     if hist_calls != want_gather or local_calls != want_local or (
             hist_calls + local_calls == 0):
         fail(f"{name}: histogram kernels launched {hist_calls} (gather) and "
@@ -707,7 +732,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     trees = stats["trees"]
     out = dict(rows=len(y_tr), features=x_tr.shape[1], trees=trees,
                splits=stats["splits"], hist_launches=hist_calls,
-               hist_local_launches=local_calls,
+               hist_local_launches=local_calls, **by_regime,
                partition_calls=part_calls, cat_group_launches=group_calls,
                construct_s=f"{t_data:.3f}",
                ms_per_tree=f"{t_train * 1e3 / trees:.2f}",

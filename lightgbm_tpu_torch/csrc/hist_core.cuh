@@ -26,26 +26,20 @@
 //           reductions.  Groups are narrow (4 columns, 12 KB at 255 bins),
 //           so several blocks stay resident on an SM and a small window
 //           under a large bound zeroes and flushes little.
-//   The large regime also has a cluster form (cluster > 1): the blocks of
-//   a thread block cluster each hold a column slice of one histogram, read
-//   each row's bins once, and add into each other's slices through
-//   distributed shared memory.  On an H100 it lost to the groups form at
-//   every window (hist_gather.cu says why); it stays for the bench that
-//   times the two in turns (scripts/torch_hist_bench.py), and the launch
-//   plan picks groups.
+//   The large regime's groups were timed on an H100 against a thread block
+//   cluster form, whose blocks each held a column slice of one histogram
+//   and added into each other's slices through distributed shared memory;
+//   the groups won at every window (hist_gather.cu says why).
 //
 // `out` is zeroed by the C entry point (cudaMemsetAsync on the kernel's
 // stream) before the launch.
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hist {
-
-namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kRegimeSmall = 0;
@@ -243,48 +237,9 @@ __device__ void large_groups(Rows rows, const Weights& a, int group_w) {
   }
 }
 
-// Large regime, cluster form: cluster rank q holds columns
-// [q * slice_w, (q + 1) * slice_w) of one histogram (slice_w a multiple of
-// 4, so a bins word has one owner); every block reads its rows' bins once
-// and adds each column into its owner's shared memory.
-template <class Rows>
-__device__ void large_cluster(Rows rows, const Weights& a, int slice_w) {
-  extern __shared__ float sh[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int q = (int)cluster.block_rank();
-  const long long n = rows.begin();
-  const int fq = q * slice_w;
-  const int nq = max(0, min(slice_w, a.n_feat - fq));
-  const int nsh = nq * a.num_bins * 3;
-  for (int i = threadIdx.x; i < nsh; i += kThreads) sh[i] = 0.f;
-  cluster.sync();  // every slice zeroed before any block adds into it
-  const long long len = slice_len(n, gridDim.x);
-  const long long lo = (long long)blockIdx.x * len;
-  const long long hi = min(n, lo + len);
-  for (long long p = lo + threadIdx.x; p < hi; p += kThreads) {
-    long long r;
-    if (!rows.row(p, &r)) continue;
-    const float g = a.gw[r], h = a.hw[r], c = a.cw[r];
-    const uint8_t* rb = a.bins + r * a.n_feat;
-    for (int w = 0; w < a.n_feat; w += 4) {
-      const int owner = w / slice_w;
-      const int k = min(4, a.n_feat - w);
-      float* dst = cluster.map_shared_rank(sh, owner);
-      add_word(dst, w - owner * slice_w, load_bins4(rb + w, k), k,
-               a.num_bins, g, h, c);
-    }
-  }
-  cluster.sync();  // every add landed before the slices are read
-  float* o = a.out + (long long)fq * a.num_bins * 3;
-  for (int i = threadIdx.x; i < nsh; i += kThreads) {
-    const float v = sh[i];
-    if (v != 0.f) atomicAdd(o + i, v);
-  }
-}
-
 // The argument block of both C entry points, packed by the Python wrapper
-// (ops/histogram.py:_ARGS, struct format "@7Pq9iP"): one ctypes argument
-// instead of seventeen, each of which costs the host a conversion per call.
+// (ops/histogram.py:_ARGS, struct format "@7Pq8iP"): one ctypes argument
+// instead of sixteen, each of which costs the host a conversion per call.
 struct Args {
   const void* rows_a;  // order (hist_gather) or row_leaf (hist_local)
   const void* rows_b;  // (start, cnt) or leaf_id, in device memory
@@ -300,7 +255,6 @@ struct Args {
   int grid_x;
   int grid_y;
   int group_w;
-  int cluster;
   int smem;
   int device;
   void* stream;
@@ -312,91 +266,49 @@ struct Plan {
   int grid_x;
   int grid_y;
   int group_w;   // columns per shared-memory group (large regime)
-  int cluster;   // 1: groups form; 2..8: cluster form
   int smem;      // dynamic shared memory per block, bytes
 };
 
-// cudaFuncSetAttribute for dynamic shared memory above the 48 KB default,
-// once per (kernel, device, size): the largest size set so far is kept.
-template <class K>
-cudaError_t ensure_smem(K kernel, int bytes, int* set_bytes, int n_dev) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < n_dev && set_bytes[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess && dev < n_dev) set_bytes[dev] = bytes;
-  return err;
-}
+// Dynamic shared memory a block may take without cudaFuncSetAttribute; a
+// 4-column group at 256 bins takes 12 KB.
+constexpr int kMaxSmem = 48 * 1024;
 
 inline bool plan_ok(const Plan& p, int n_feat, int num_bins) {
   if (p.grid_x < 1 || p.grid_y < 1 || p.grid_y > 65535 || p.smem < 0 ||
-      p.smem > 232448 || p.cluster < 1 || p.cluster > 8)
+      p.smem > kMaxSmem)
     return false;
-  if (p.regime == kRegimeSmall) return p.grid_y == 1 && p.cluster == 1;
-  if (p.regime != kRegimeLarge || p.group_w < 1) return false;
-  const int need = p.group_w * num_bins * 3 * (int)sizeof(float);
-  if (p.cluster == 1)
-    return p.smem >= need && (long long)p.grid_y * p.group_w >= n_feat;
-  return p.group_w % 4 == 0 && p.grid_y == 1 && p.grid_x % p.cluster == 0 &&
-         p.smem >= need && (long long)p.cluster * p.group_w >= n_feat;
+  if (p.regime == kRegimeSmall) return p.grid_y == 1;
+  return p.regime == kRegimeLarge && p.group_w >= 1 &&
+         p.smem >= p.group_w * num_bins * 3 * (int)sizeof(float) &&
+         (long long)p.grid_y * p.group_w >= n_feat;
 }
 
-// Zeroes `out` and launches the kernel of the plan's regime and form on
-// `stream` of the current card; returns the cudaError_t (0 on success).
+// Zeroes `out` and launches the kernel of the plan's regime on `stream` of
+// the current card; returns the cudaError_t (0 on success).
 template <class Rows>
 int launch_on(void (*small)(Rows, Weights),
-              void (*groups)(Rows, Weights, int),
-              void (*cluster)(Rows, Weights, int), int* smem_groups,
-              int* smem_cluster, int n_dev, Rows rows, Weights a,
+              void (*groups)(Rows, Weights, int), Rows rows, Weights a,
               const Plan& p, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(
       a.out, 0, (size_t)a.n_feat * a.num_bins * 3 * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
-  if (p.regime == kRegimeSmall) {
+  if (p.regime == kRegimeSmall)
     small<<<p.grid_x, kThreads, 0, stream>>>(rows, a);
-    return (int)cudaGetLastError();
-  }
-  if (p.cluster == 1) {
-    err = ensure_smem(groups, p.smem, smem_groups, n_dev);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(p.grid_x, p.grid_y);
-    groups<<<grid, kThreads, p.smem, stream>>>(rows, a, p.group_w);
-    return (int)cudaGetLastError();
-  }
-  err = ensure_smem(cluster, p.smem, smem_cluster, n_dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.grid_x, 1);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, cluster, rows, a, p.group_w);
-  if (err != cudaSuccess) return (int)err;
+  else
+    groups<<<dim3(p.grid_x, p.grid_y), kThreads, p.smem, stream>>>(
+        rows, a, p.group_w);
   return (int)cudaGetLastError();
 }
 
 // launch_on with card `device` current, made so for the launch only when
 // it is not (a mesh slot may sit on any visible card).
 template <class Rows>
-int launch(void (*small)(Rows, Weights),
-           void (*groups)(Rows, Weights, int),
-           void (*cluster)(Rows, Weights, int), int* smem_groups,
-           int* smem_cluster, int n_dev, Rows rows, const Args& x) {
+int launch(void (*small)(Rows, Weights), void (*groups)(Rows, Weights, int),
+           Rows rows, const Args& x) {
   const Weights a{(const uint8_t*)x.bins, (const float*)x.gw,
                   (const float*)x.hw, (const float*)x.cw, (float*)x.out,
                   x.n_feat, x.num_bins};
-  const Plan p{x.regime, x.grid_x, x.grid_y, x.group_w, x.cluster, x.smem};
+  const Plan p{x.regime, x.grid_x, x.grid_y, x.group_w, x.smem};
   const int device = x.device;
   const cudaStream_t stream = (cudaStream_t)x.stream;
   if (!plan_ok(p, a.n_feat, a.num_bins)) return (int)cudaErrorInvalidValue;
@@ -404,8 +316,7 @@ int launch(void (*small)(Rows, Weights),
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int rc = launch_on(small, groups, cluster, smem_groups, smem_cluster,
-                           n_dev, rows, a, p, stream);
+  const int rc = launch_on(small, groups, rows, a, p, stream);
   if (prev != device) {
     err = cudaSetDevice(prev);
     if (rc == 0 && err != cudaSuccess) return (int)err;

@@ -23,12 +23,13 @@
 //     The true count is spread over all the blocks.
 //
 // Large-window design kept: the feature groups.  Timed in turns against
-// the thread block cluster form on an H100 (scripts/torch_hist_bench.py),
-// the groups took 0.24 ms at the 1,000,000-row root, clusters of 2 to 7
-// blocks 1.3 to 3.0 ms.  A cluster reads each row once, but most of its
-// adds land in another block's slice through distributed shared memory,
+// a thread block cluster form (each block of a cluster holding a column
+// slice of one histogram, adding into the others' slices through
+// distributed shared memory) on an H100, the groups took 0.24 ms at the
+// 1,000,000-row root, clusters of 2 to 7 blocks 1.3 to 3.0 ms.  A cluster
+// reads each row once, but most of its adds land in another block's slice,
 // where a float atomicAdd on the mapped address is a compare-and-swap loop
-// (ATOM.E.CAST.SPIN in the SASS).
+// (ATOM.E.CAST.SPIN in the SASS).  PERF.md holds the timings.
 //
 // What bounds it on the H100: not the bytes (each row's order entry, bins
 // and three weights, each a random 32-byte sector; the kernel reaches
@@ -54,15 +55,6 @@ hist_gather_large(hist::GatherRows rows, hist::Weights a, int group_w) {
   hist::large_groups(rows, a, group_w);
 }
 
-__global__ void __launch_bounds__(hist::kThreads)
-hist_gather_cluster(hist::GatherRows rows, hist::Weights a, int slice_w) {
-  hist::large_cluster(rows, a, slice_w);
-}
-
-constexpr int kMaxDevices = 64;
-int smem_large[kMaxDevices];
-int smem_cluster[kMaxDevices];
-
 }  // namespace
 
 // Zeroes out (n_feat * num_bins * 3 floats) and launches the plan on
@@ -71,7 +63,5 @@ int smem_cluster[kMaxDevices];
 extern "C" int lgbt_hist_gather(const hist::Args* x) {
   const hist::GatherRows rows{(const int32_t*)x->rows_a,
                               (const int32_t*)x->rows_b, 0};
-  return hist::launch(hist_gather_small, hist_gather_large,
-                      hist_gather_cluster, smem_large, smem_cluster,
-                      kMaxDevices, rows, *x);
+  return hist::launch(hist_gather_small, hist_gather_large, rows, *x);
 }

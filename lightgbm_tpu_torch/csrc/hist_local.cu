@@ -51,15 +51,6 @@ hist_local_large(hist::MaskedRows rows, hist::Weights a, int group_w) {
   hist::large_groups(rows, a, group_w);
 }
 
-__global__ void __launch_bounds__(hist::kThreads)
-hist_local_cluster(hist::MaskedRows rows, hist::Weights a, int slice_w) {
-  hist::large_cluster(rows, a, slice_w);
-}
-
-constexpr int kMaxDevices = 64;
-int smem_large[kMaxDevices];
-int smem_cluster[kMaxDevices];
-
 }  // namespace
 
 // Zeroes out (n_feat * num_bins * 3 floats) and launches the plan on
@@ -69,6 +60,5 @@ extern "C" int lgbt_hist_local(const hist::Args* x) {
   if (x->n_loc < 0) return (int)cudaErrorInvalidValue;
   const hist::MaskedRows rows{(const int32_t*)x->rows_a,
                               (const int32_t*)x->rows_b, x->n_loc, 0};
-  return hist::launch(hist_local_small, hist_local_large, hist_local_cluster,
-                      smem_large, smem_cluster, kMaxDevices, rows, *x);
+  return hist::launch(hist_local_small, hist_local_large, rows, *x);
 }

@@ -74,7 +74,6 @@ def hist_window_plain(order: torch.Tensor, sc: torch.Tensor,
 
 # ---- the launch plan of both kernels ---------------------------------------
 
-NUM_SMS = 132              # H100 SXM
 THREADS = 256              # threads a block (hist_core.cuh kThreads)
 # the small regime takes a row bound of at most this many rows: K1's bound
 # is the parent's count, and its smaller child holds at most about half of
@@ -84,19 +83,17 @@ SMALL_MAX_ROWS_LOCAL = 65_536
 GROUP_COLS = 4             # columns of a large-regime shared histogram
 LARGE_BLOCKS_PER_SM = 4    # large-regime blocks the grid aims at per SM
 LARGE_MIN_ROWS = 1024      # positions a large-regime block takes at least
-SMALL_MAX_BLOCKS = 16 * NUM_SMS   # small-regime grid; threads stride beyond
-MAX_SMEM = 232_448         # dynamic shared memory a block may use
+SMALL_BLOCKS_PER_SM = 16   # small-regime grid; threads stride beyond it
+MAX_SMEM = 48 * 1024       # dynamic shared memory without an opt-in
 MAX_GRID_Y = 65_535
-MAX_CLUSTER = 8            # portable thread block cluster size
 
 
 class LaunchPlan(NamedTuple):
     """How a histogram kernel is launched (``csrc/hist_core.cuh``)."""
     regime: str        # "small": global reductions; "large": shared memory
     grid_x: int        # blocks over the positions
-    grid_y: int        # column groups (large regime, groups form)
+    grid_y: int        # column groups (large regime)
     group_width: int   # columns a block's shared histogram holds
-    cluster: int       # 1: groups on blockIdx.y; 2..8: cluster form
     smem_bytes: int    # dynamic shared memory a block
 
 
@@ -105,30 +102,26 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def plan_launch(bound: int, n_feat: int, num_bins: int,
-                n_loc: Optional[int] = None, *,
-                small_max_rows: Optional[int] = None,
-                blocks_per_sm: int = LARGE_BLOCKS_PER_SM,
-                cluster: int = 1) -> LaunchPlan:
+                n_loc: Optional[int] = None, *, num_sms: int,
+                small_max_rows: Optional[int] = None) -> LaunchPlan:
     """The launch of ``hist_window`` (``n_loc`` None: a window of at most
     ``bound`` rows) or of ``hist_local`` (a masked scan of ``n_loc`` local
-    rows, at most ``bound`` of them in the leaf).  A pure function of what
-    the host knows; the kernel reads the true count from the device.
+    rows, at most ``bound`` of them in the leaf) on a card of ``num_sms``
+    SMs.  A pure function of what the host knows; the kernel reads the
+    true count from the device.
 
     A bound of at most ``small_max_rows`` rows (``SMALL_MAX_ROWS`` for a
     window, ``SMALL_MAX_ROWS_LOCAL`` for a scan; the H100's crossover,
     PERF.md) takes the small regime: a thread per (row, 4-column group,
     statistic) of the window, or per local row of the scan, and no shared
     memory.  More take the large regime: shared histograms of
-    ``GROUP_COLS`` columns on ``grid_y``, or with ``cluster > 1`` one
-    histogram in column slices over the blocks of a cluster; ``grid_x``
-    aims at ``blocks_per_sm`` blocks on each SM, each over at least
+    ``GROUP_COLS`` columns on ``grid_y``; ``grid_x`` aims at
+    ``LARGE_BLOCKS_PER_SM`` blocks on each SM, each over at least
     ``LARGE_MIN_ROWS`` positions."""
-    if n_feat < 1 or not 1 <= num_bins <= MAX_BINS or bound < 0:
+    if (n_feat < 1 or not 1 <= num_bins <= MAX_BINS or bound < 0
+            or num_sms < 1):
         raise ValueError(f"plan_launch: {n_feat} columns, {num_bins} bins, "
-                         f"bound {bound}")
-    if not 1 <= cluster <= MAX_CLUSTER:
-        raise ValueError(f"plan_launch: cluster size {cluster} is not 1 to "
-                         f"{MAX_CLUSTER}")
+                         f"bound {bound}, {num_sms} SMs")
     if n_loc is None:
         rows = positions = bound
         limit = SMALL_MAX_ROWS if small_max_rows is None else small_max_rows
@@ -140,78 +133,65 @@ def plan_launch(bound: int, n_feat: int, num_bins: int,
         # a thread per local row, or per (row, 4-column group, statistic)
         work = positions if n_loc is not None else (
             positions * 3 * _cdiv(n_feat, 4))
-        return LaunchPlan("small", max(1, min(_cdiv(work, THREADS),
-                                              SMALL_MAX_BLOCKS)),
-                          1, 4, 1, 0)
-    if cluster == 1:
-        width = min(n_feat, max(GROUP_COLS,
-                                4 * _cdiv(_cdiv(n_feat, MAX_GRID_Y), 4)))
-        grid_y = _cdiv(n_feat, width)
-    else:
-        width, grid_y = 4 * _cdiv(_cdiv(n_feat, cluster), 4), 1
+        return LaunchPlan("small", max(1, min(
+            _cdiv(work, THREADS), SMALL_BLOCKS_PER_SM * num_sms)), 1, 4, 0)
+    width = min(n_feat, max(GROUP_COLS,
+                            4 * _cdiv(_cdiv(n_feat, MAX_GRID_Y), 4)))
+    grid_y = _cdiv(n_feat, width)
     smem = width * num_bins * NUM_STATS * 4
     if smem > MAX_SMEM:
         raise ValueError(f"plan_launch: {n_feat} columns x {num_bins} bins "
                          f"need {smem} bytes of shared memory a block")
-    target = max(1, NUM_SMS * blocks_per_sm // grid_y)
+    target = max(1, num_sms * LARGE_BLOCKS_PER_SM // grid_y)
     grid_x = max(1, min(_cdiv(positions, LARGE_MIN_ROWS), target))
-    grid_x = cluster * _cdiv(grid_x, cluster)
-    return LaunchPlan("large", grid_x, grid_y, width, cluster, smem)
+    return LaunchPlan("large", grid_x, grid_y, width, smem)
 
 
 # the wrappers' plans: a split's bound recurs across trees and shards
 _plan = functools.lru_cache(maxsize=4096)(plan_launch)
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """The SMs of CUDA card ``device``, which size the launch plan."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 # ---- the CUDA kernels ----------------------------------------------------
 
 # the C entry points' one argument (csrc/hist_core.cuh: Args): 7 pointers,
-# the local rows, 9 ints (sizes, plan, card) and the stream, packed at once
-_ARGS = struct.Struct("@7Pq9iP")
+# the local rows, 8 ints (sizes, plan, card) and the stream, packed at once
+_ARGS = struct.Struct("@7Pq8iP")
 _ARG_TYPES = (torch.int32, torch.int32, torch.uint8, torch.float32,
               torch.float32, torch.float32)
 
 
-def _args_ok(a, b, bins, gw, hw, cw, num_bins) -> bool:
-    """True when :func:`_check_cuda_args` would pass for the int32 index
-    tensors ``a`` and ``b``: the same checks, without building messages
-    (the wrappers run once per split)."""
-    dev, n = bins.get_device(), bins.shape[0]
-    return (a.get_device() == dev and b.get_device() == dev
-            and gw.get_device() == dev and hw.get_device() == dev
-            and cw.get_device() == dev
-            and (a.dtype, b.dtype, bins.dtype, gw.dtype, hw.dtype,
-                 cw.dtype) == _ARG_TYPES
-            and a.is_contiguous() and b.is_contiguous()
-            and bins.is_contiguous() and gw.is_contiguous()
-            and hw.is_contiguous() and cw.is_contiguous()
-            and bins.dim() == 2 and bins.shape[1] >= 1
-            and 1 <= num_bins <= MAX_BINS
-            and gw.numel() == n and hw.numel() == n and cw.numel() == n)
-
-
-def _check_cuda_args(fn: str, idx, bins, gw, hw, cw, num_bins) -> None:
-    """Device, type and contiguity of a histogram kernel's arguments;
-    ``idx`` names its int32 index tensors."""
-    dev = bins.device
-    for name, t, dtype in (*[(k, v, torch.int32) for k, v in idx.items()],
-                           ("bins", bins, torch.uint8),
-                           ("gw", gw, torch.float32),
-                           ("hw", hw, torch.float32),
-                           ("cw", cw, torch.float32)):
-        if t.device != dev:
+def _check_cuda_args(fn: str, names, tensors, num_bins: int) -> None:
+    """Device, type and contiguity of a histogram kernel's arguments, the
+    two int32 index tensors then bins, gw, hw and cw, named ``names``; and
+    the shapes they share.  Messages are built only on failure: the
+    wrappers run once per split."""
+    bins = tensors[2]
+    dev = bins.get_device()
+    for name, t, dtype in zip(names, tensors, _ARG_TYPES):
+        if t.get_device() != dev:
             raise ValueError(f"{fn}: {name} is on {t.device}, "
-                             f"bins on {dev}")
+                             f"bins on {bins.device}")
         if t.dtype != dtype:
             raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
-    n, f = bins.shape
-    if not 1 <= num_bins <= MAX_BINS or f < 1:
-        raise ValueError(f"{fn}: {f} columns x {num_bins} bins; the kernel "
-                         f"takes at least one column and 1 to {MAX_BINS} bins")
-    if gw.numel() != n or hw.numel() != n or cw.numel() != n:
+    if bins.dim() != 2 or bins.shape[1] < 1 or not 1 <= num_bins <= MAX_BINS:
+        raise ValueError(f"{fn}: bins of shape {tuple(bins.shape)} x "
+                         f"{num_bins} bins; the kernel takes [N, F >= 1] "
+                         f"and 1 to {MAX_BINS} bins")
+    n = bins.shape[0]
+    if any(w.numel() != n for w in tensors[3:]):
         raise ValueError(f"{fn}: weights must have one entry per row")
+
+
+_WINDOW_ARGS = ("order", "sc", "bins", "gw", "hw", "cw")
+_LOCAL_ARGS = ("row_leaf", "leaf_id", "bins", "gw", "hw", "cw")
 
 
 def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
@@ -231,16 +211,16 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
         if bins.device.type == "cpu":
             return hist_window_plain(order, sc, bins, gw, hw, cw, num_bins)
         raise ValueError(f"hist_window: unsupported device {bins.device}")
-    if not (_args_ok(order, sc, bins, gw, hw, cw, num_bins)
-            and sc.numel() == 2):
-        _check_cuda_args("hist_window", {"order": order, "sc": sc}, bins,
-                         gw, hw, cw, num_bins)
+    _check_cuda_args("hist_window", _WINDOW_ARGS,
+                     (order, sc, bins, gw, hw, cw), num_bins)
+    if sc.numel() != 2:
         raise ValueError("hist_window: sc must hold (start, cnt)")
     n, f = bins.shape
+    dev = bins.get_device()
     if plan is None:
         plan = _plan(n if rows_upper_bound is None
-                     else int(rows_upper_bound), f, num_bins)
-    dev = bins.get_device()
+                     else int(rows_upper_bound), f, num_bins,
+                     num_sms=sm_count(dev))
     out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
     # the C side makes the tensors' card current only if it is not
@@ -255,11 +235,14 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
         raise RuntimeError(f"hist_gather kernel launch failed: CUDA error "
                            f"{err}")
     hist_window.launches += 1
+    hist_window.regime_launches[plan.regime] += 1
     return out
 
 
-# kernel launches, counted where the kernel is launched and nowhere else
+# kernel launches, counted where the kernel is launched and nowhere else;
+# and the same launches by the regime their plan took
 hist_window.launches = 0
+hist_window.regime_launches = {"small": 0, "large": 0}
 
 
 def hist_flat(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
@@ -309,19 +292,17 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
             return hist_local_plain(row_leaf, leaf_id, bins, gw, hw, cw,
                                     num_bins)
         raise ValueError(f"hist_local: unsupported device {bins.device}")
-    n = bins.shape[0]
-    if not (_args_ok(row_leaf, leaf_id, bins, gw, hw, cw, num_bins)
-            and row_leaf.numel() == n and leaf_id.numel() == 1):
-        _check_cuda_args("hist_local", {"row_leaf": row_leaf,
-                                        "leaf_id": leaf_id}, bins, gw, hw,
-                         cw, num_bins)
+    _check_cuda_args("hist_local", _LOCAL_ARGS,
+                     (row_leaf, leaf_id, bins, gw, hw, cw), num_bins)
+    n, f = bins.shape
+    if row_leaf.numel() != n or leaf_id.numel() != 1:
         raise ValueError("hist_local: row_leaf must have one entry per row "
                          "and leaf_id one element")
-    f = bins.shape[1]
+    dev = bins.get_device()
     if plan is None:
         plan = _plan(n if rows_upper_bound is None
-                     else int(rows_upper_bound), f, num_bins, n)
-    dev = bins.get_device()
+                     else int(rows_upper_bound), f, num_bins, n,
+                     num_sms=sm_count(dev))
     out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
     # the C side makes the tensors' card current only if it is not
@@ -336,8 +317,11 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
         raise RuntimeError(f"hist_local kernel launch failed: CUDA error "
                            f"{err}")
     hist_local.launches += 1
+    hist_local.regime_launches[plan.regime] += 1
     return out
 
 
-# kernel launches, counted where the kernel is launched and nowhere else
+# kernel launches, counted where the kernel is launched and nowhere else;
+# and the same launches by the regime their plan took
 hist_local.launches = 0
+hist_local.regime_launches = {"small": 0, "large": 0}

@@ -93,6 +93,13 @@ class GspmdGrower:
         # row -> leaf map and routing cover all of them at once
         self.held = {dv: [i for i in range(d) if dv in mesh.devices[i]]
                      for dv in dict.fromkeys(sum(mesh.devices, []))}
+        # the positions, within a device's held shards, of those whose
+        # routed rows it counts: a batch shard over several devices (a
+        # feature extent above 1 over several cards) is counted once, on
+        # the first device of its mesh row
+        self.counted = {dv: [k for k, i in enumerate(held)
+                             if mesh.devices[i][0] == dv]
+                        for dv, held in self.held.items()}
         # column-major bins of each device's shards, for routing
         self.route_bins = {dv: self._rows(bins, dv).t().contiguous().to(dv)
                            for dv in self.held}
@@ -113,6 +120,16 @@ class GspmdGrower:
         """Batch shard ``i``'s part of a tensor over ``dv``'s rows."""
         k = self.held[dv].index(i) * self.n_loc
         return t[k:k + self.n_loc]
+
+    def _count(self, mask: torch.Tensor, dv: torch.device):
+        """The set rows of ``mask`` (over ``dv``'s held shards) in the
+        shards that ``dv`` counts; None when it counts none."""
+        ks, n = self.counted[dv], self.n_loc
+        if len(ks) == len(self.held[dv]):
+            return mask.sum()
+        if not ks:
+            return None
+        return sum(mask[k * n:(k + 1) * n].sum() for k in ks)
 
     def _measure(self, row_leaf, leaf_id: torch.Tensor, w,
                  bound: int) -> torch.Tensor:
@@ -195,8 +212,10 @@ class GspmdGrower:
                 rl = row_leaf[dv]           # updated in place
                 right = (rl == l) & ~goes_left
                 rl.masked_fill_(right, new)
-                n_right = right.sum().to(primary)
-                moved = n_right if moved is None else moved + n_right
+                n_right = self._count(right, dv)
+                if n_right is not None:
+                    n_right = n_right.to(primary)
+                    moved = n_right if moved is None else moved + n_right
             leaf_rows[new] = moved
             leaf_rows[l] -= moved
             child_depth = pool.record(l, new, node, irow, frow, route[3],

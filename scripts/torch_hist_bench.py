@@ -8,16 +8,16 @@ design below against the plain version (exact under integer weights), and
 times, in turns within one process, at the main paths' shapes:
 
 * K1 on windows of 1,024 to 1,000,000 rows of a shuffled 1,000,000 x 28
-  ``order``: the small regime, the large regime (feature groups at 2, 4
-  and 8 blocks an SM, and the cluster form at cluster sizes 2, 4 and 7),
-  the launch plan's own choice, the small regime on a quarter of its grid,
+  ``order``: the small regime, the large regime, the large regime under
+  the root's bound (a small child of a large parent, as in a tree), the
+  launch plan's own choice, the small regime on a quarter of its grid,
   and ``index_add_`` over the pre-gathered rows;
 * K3 on 250,000 x 28 and 500,000 x 14 row shards, at leaves of about 1,000
   to 45,000 rows and at all rows, with the same designs.
 
 Each number is CUDA events around 200 back-to-back calls, divided by
 their count (``chip_smoke.cuda_ms_many``), and for the plan's choice, the
-small regime, the groups form at 4 blocks an SM, the baseline and
+small regime, the large regime, the baseline and
 ``index_add_`` also the profiler's device time per call
 (``chip_smoke.profiled_ms``).  At 4,097 rows and at the 1,000-row leaves
 it also gives the host's time per call.  With ``--baseline DIR``, a
@@ -53,8 +53,8 @@ from chip_smoke import (N_BINS, cuda_ms_many, local_bound_ms,  # noqa: E402
 SEED = 20240611
 WINDOWS = (1024, 4097, 8192, 16384, 32768, 65536, 131072, 262144, 1_000_000)
 LEAF_ROWS = (1000, 4000, 16000, 32000, 45000)
-PROFILED = ("plan", "small", "small_grid4", "groups_bps4", "baseline",
-            "index_add_")
+PROFILED = ("plan", "small", "small_grid4", "large", "large_bound_1M",
+            "baseline", "index_add_")
 
 
 def time_calls(calls: dict) -> dict:
@@ -135,7 +135,7 @@ def main() -> None:
                                                   hist_local_plain,
                                                   hist_window,
                                                   hist_window_plain,
-                                                  plan_launch)
+                                                  plan_launch, sm_count)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     sink = open(args.out, "w")
 
@@ -169,21 +169,20 @@ def main() -> None:
         rng.uniform(0.0, 0.25, n).astype(np.float32),
         np.ones(n, np.float32))]
 
+    sms = sm_count(torch.cuda.current_device())
+
     def designs(bound, fc, n_loc=None):
         """name -> launch plan (None: the wrapper's own)."""
-        small = plan_launch(bound, fc, N_BINS, n_loc, small_max_rows=1 << 62)
+        plan = lambda b, **kw: plan_launch(b, fc, N_BINS, n_loc,
+                                           num_sms=sms, **kw)
+        small = plan(bound, small_max_rows=1 << 62)
         d = {"plan": None, "small": small,
              # the small regime's grid-stride loops on a quarter of its grid
-             "small_grid4": small._replace(grid_x=-(-small.grid_x // 4))}
-        for bps in (2, 4, 8):
-            d[f"groups_bps{bps}"] = plan_launch(bound, fc, N_BINS, n_loc,
-                                                small_max_rows=-1,
-                                                blocks_per_sm=bps)
-        for c in (2, 4, 7):
-            d[f"cluster{c}"] = plan_launch(bound, fc, N_BINS, n_loc,
-                                           small_max_rows=-1, cluster=c)
+             "small_grid4": small._replace(grid_x=-(-small.grid_x // 4)),
+             # a shard's large grid does not depend on the bound
+             "large": plan(bound, small_max_rows=-1)}
         if n_loc is None:   # a small child of a large parent, as in a tree
-            d["groups_bound_1M"] = plan_launch(n, fc, N_BINS)
+            d["large_bound_1M"] = plan(n)
         return d
 
     # ---- K1 ---------------------------------------------------------------
@@ -216,7 +215,7 @@ def main() -> None:
                  empty_us=host_us(lambda: torch.empty(
                      (f, N_BINS, 3), device=dev)), rows=cnt)
         emit(kernel="hist_gather", rows=cnt, features=f,
-             plan=plan_launch(cnt, f, N_BINS)._asdict(),
+             plan=plan_launch(cnt, f, N_BINS, num_sms=sms)._asdict(),
              bound_ms=window_bound_ms(cnt, f), **time_calls(calls))
         del flat, vals, acc, idx
 
@@ -269,8 +268,8 @@ def main() -> None:
                     "plan", "baseline", "index_add_") if k in calls},
                      shard=f"{n_loc}x{fc}", leaf=name)
             emit(kernel="hist_local", shard=f"{n_loc}x{fc}", leaf=name,
-                 rows=cnt, plan=plan_launch(cnt, fc, N_BINS,
-                                            n_loc)._asdict(),
+                 rows=cnt, plan=plan_launch(cnt, fc, N_BINS, n_loc,
+                                            num_sms=sms)._asdict(),
                  bound_ms=local_bound_ms(n_loc, cnt, fc),
                  **time_calls(calls))
     sink.close()

@@ -285,14 +285,28 @@ READS = ("tolist", "item", "numpy", "cpu", "__bool__", "__int__",
          "__float__", "__index__")
 
 
-@pytest.mark.parametrize("shape,pad", [((8, 1), 0), ((2, 4), 0), ((8, 1), 3)],
-                         ids=["8x1", "2x4", "8x1-padded"])
-def test_one_host_read_per_split_carries_the_bound(monkeypatch, shape, pad):
+# a batch shard held by several devices, as a feature extent above 1 over
+# several cards: two CPU device names stand in for two cards, three for
+# three (2x2 over three: the primary holds both batch shards, and counts
+# only the first)
+TWO = [torch.device("cpu"), torch.device("cpu", 0)] * 4
+THREE = [torch.device("cpu"), torch.device("cpu", 0),
+         torch.device("cpu", 1)] * 3
+
+
+@pytest.mark.parametrize("shape,pad,slots", [
+    ((8, 1), 0, CPU8), ((2, 4), 0, CPU8), ((8, 1), 3, CPU8),
+    ((2, 2), 0, TWO), ((2, 2), 3, THREE), ((1, 3), 0, THREE)],
+    ids=["8x1", "2x4", "8x1-padded", "2x2-two-devices",
+         "2x2-three-devices-padded", "1x3-three-devices"])
+def test_one_host_read_per_split_carries_the_bound(monkeypatch, shape, pad,
+                                                   slots):
     """Every read of a tensor to the host during the grower's call is the
     split's one read (``LeafPool.next_leaf``), which now also returns the
     chosen leaf's rows over all shards; that count is the
     ``rows_upper_bound`` of each of the split's ``hist_local`` calls, and
-    it bounds the smaller child's rows in every shard."""
+    it bounds the smaller child's rows in every shard.  A batch shard that
+    several devices hold counts once."""
     import lightgbm_tpu_torch.parallel.gspmd as gspmd_mod
     from lightgbm_tpu_torch.grower import LeafPool
     bins, g, h, c = _int_args()
@@ -300,7 +314,7 @@ def test_one_host_read_per_split_carries_the_bound(monkeypatch, shape, pad):
     if pad:
         bins[n:], g[n:], h[n:], c[n:] = 0, 0, 0, 0
     cfg = GrowerConfig(**_kw("plain"))
-    grower = GspmdGrower(cfg, make_named_mesh(*shape, CPU8), t(bins))
+    grower = GspmdGrower(cfg, make_named_mesh(*shape, slots), t(bins))
     reads, picks, calls, inside = [0], [], [], [False]
 
     def counted(name):

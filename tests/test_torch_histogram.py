@@ -23,8 +23,10 @@ from lightgbm_tpu.ops.histogram import (subset_histogram_fused,
                                         subset_histogram_segment)
 from lightgbm_tpu.ops.pallas_hist import fused_idx_fetch
 from lightgbm_tpu_torch.ops import build
-from lightgbm_tpu_torch.ops.histogram import (MAX_CLUSTER, MAX_GRID_Y,
-                                              MAX_SMEM, SMALL_MAX_ROWS,
+from lightgbm_tpu_torch.ops.histogram import (LARGE_BLOCKS_PER_SM,
+                                              MAX_GRID_Y, MAX_SMEM,
+                                              SMALL_BLOCKS_PER_SM,
+                                              SMALL_MAX_ROWS,
                                               SMALL_MAX_ROWS_LOCAL,
                                               hist_local, hist_window,
                                               hist_window_plain, plan_launch)
@@ -130,21 +132,18 @@ def test_kernel_matches_plain_on_card():
 # ---- the launch plan of both kernels ---------------------------------------
 
 GRID_X_MAX = 2 ** 31 - 1
+H100_SMS = 132             # the H100 SXM; on a card the wrapper reads it
 
 
 def _assert_valid(plan, n_feat, num_bins):
     assert plan.regime in ("small", "large")
     assert 1 <= plan.grid_x <= GRID_X_MAX and 1 <= plan.grid_y <= MAX_GRID_Y
-    assert 1 <= plan.cluster <= MAX_CLUSTER and 0 <= plan.smem_bytes
-    assert plan.smem_bytes <= MAX_SMEM
+    assert 0 <= plan.smem_bytes <= MAX_SMEM
     if plan.regime == "small":
-        assert (plan.grid_y, plan.cluster, plan.smem_bytes) == (1, 1, 0)
+        assert (plan.grid_y, plan.smem_bytes) == (1, 0)
         return
     assert plan.smem_bytes >= plan.group_width * num_bins * 3 * 4
-    assert plan.group_width * plan.grid_y * plan.cluster >= n_feat
-    assert plan.grid_x % plan.cluster == 0
-    if plan.cluster > 1:
-        assert plan.grid_y == 1 and plan.group_width % 4 == 0
+    assert plan.group_width * plan.grid_y >= n_feat
 
 
 # (columns, bins, local rows or None for a window of order): the Higgs
@@ -157,43 +156,57 @@ SHAPES = [(28, 255, None), (28, 255, 250_000), (14, 255, 500_000),
 @pytest.mark.parametrize("n_feat,num_bins,n_loc", SHAPES)
 def test_every_bound_gets_a_valid_plan(n_feat, num_bins, n_loc):
     top = n_loc if n_loc is not None else 5000
-    bounds = list(range(0, top + 1)) + [
-        SMALL_MAX_ROWS, SMALL_MAX_ROWS + 1, SMALL_MAX_ROWS_LOCAL,
-        SMALL_MAX_ROWS_LOCAL + 1, 1_000_000, 11_000_000, 2 ** 31 - 1]
-    for bound in bounds:
-        _assert_valid(plan_launch(bound, n_feat, num_bins, n_loc), n_feat,
-                      num_bins)
-    for cluster in range(2, MAX_CLUSTER + 1):
-        width = 4 * -(-(-(-n_feat // cluster)) // 4)
-        if width * num_bins * 3 * 4 <= MAX_SMEM:   # a slice fits a block
-            _assert_valid(plan_launch(top, n_feat, num_bins, n_loc,
-                                      small_max_rows=-1, cluster=cluster),
-                          n_feat, num_bins)
+    edges = [SMALL_MAX_ROWS, SMALL_MAX_ROWS + 1, SMALL_MAX_ROWS_LOCAL,
+             SMALL_MAX_ROWS_LOCAL + 1, 1_000_000, 11_000_000, 2 ** 31 - 1]
+    for bound in list(range(0, top + 1)) + edges:
+        _assert_valid(plan_launch(bound, n_feat, num_bins, n_loc,
+                                  num_sms=H100_SMS), n_feat, num_bins)
+    for num_sms in (1, 114, 144):      # other cards
+        for bound in [0, 1, top] + edges:
+            _assert_valid(plan_launch(bound, n_feat, num_bins, n_loc,
+                                      num_sms=num_sms), n_feat, num_bins)
 
 
 @pytest.mark.parametrize("n_loc,limit", [(None, SMALL_MAX_ROWS),
                                          (250_000, SMALL_MAX_ROWS_LOCAL),
                                          (500_000, SMALL_MAX_ROWS_LOCAL)])
 def test_regime_switches_at_the_threshold(n_loc, limit):
-    plan = lambda bound: plan_launch(bound, 28, 255, n_loc)
+    plan = lambda bound: plan_launch(bound, 28, 255, n_loc,
+                                     num_sms=H100_SMS)
     assert plan(0).regime == plan(1).regime == plan(limit).regime == "small"
     assert plan(limit + 1).regime == plan(10 ** 7).regime == "large"
     # the small regime spreads a window's (row, column group, statistic)
     # lanes, or a shard's rows, over the card; the large one fills it
     assert plan(4097).grid_x > 100
-    assert plan(10 ** 6).grid_x * plan(10 ** 6).grid_y >= 2 * 132
+    assert plan(10 ** 6).grid_x * plan(10 ** 6).grid_y >= 2 * H100_SMS
     if n_loc is not None:      # a shard of at most `limit` rows is small
-        assert plan_launch(10 ** 7, 28, 255, limit).regime == "small"
+        assert plan_launch(10 ** 7, 28, 255, limit,
+                           num_sms=H100_SMS).regime == "small"
+
+
+@pytest.mark.parametrize("num_sms", [132, 114, 1])
+def test_grid_follows_the_sm_count(num_sms):
+    """The large regime aims at LARGE_BLOCKS_PER_SM blocks on each SM of
+    the card it is given, the small one at most SMALL_BLOCKS_PER_SM."""
+    for n_loc in (None, 10 ** 7):   # a window; a scan of a large shard
+        big = plan_launch(10 ** 6, 28, 255, n_loc, num_sms=num_sms)
+        assert big.regime == "large" and big.grid_y == 7
+        assert big.grid_x == max(1, num_sms * LARGE_BLOCKS_PER_SM // 7)
+        small = plan_launch(10 ** 6, 28, 255, n_loc, num_sms=num_sms,
+                            small_max_rows=10 ** 6)
+        assert small.regime == "small"
+        assert small.grid_x == SMALL_BLOCKS_PER_SM * num_sms
 
 
 @pytest.mark.parametrize("args,kw", [
     ((-1, 28, 255), {}), ((10, 0, 255), {}), ((10, 28, 257), {}),
-    ((10, 28, 0), {}), ((10, 28, 255), dict(cluster=9)),
-    ((10, 28, 255), dict(cluster=0)),
-    ((10, 1000, 255), dict(small_max_rows=-1, cluster=2))])
+    ((10, 28, 0), {}), ((10, 28, 255), dict(num_sms=0)),
+    ((10, 28, 255), dict(num_sms=-4)),
+    # 32-column groups at 255 bins need 97,920 bytes of shared memory
+    ((10, 2_000_000, 255), dict(small_max_rows=-1))])
 def test_plan_raises_outside_the_kernels_limits(args, kw):
     with pytest.raises(ValueError):
-        plan_launch(*args, **kw)
+        plan_launch(*args, **{"num_sms": H100_SMS, **kw})
 
 
 def test_cpu_tensors_take_the_plain_version_whatever_the_plan():
@@ -201,8 +214,9 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_plan():
     sc = torch.tensor([40, 700], dtype=torch.int32)
     want = _port(bins, g, h, c, perm, 40, 700, 63)
     t = torch.from_numpy
-    for plan in (None, plan_launch(700, F, 63),
-                 plan_launch(700, F, 63, small_max_rows=-1)):
+    for plan in (None, plan_launch(700, F, 63, num_sms=H100_SMS),
+                 plan_launch(700, F, 63, num_sms=H100_SMS,
+                             small_max_rows=-1)):
         got = hist_window(t(perm), sc, t(bins), t(g), t(h), t(c), 63,
                           rows_upper_bound=N, plan=plan)
         np.testing.assert_array_equal(got.numpy(), want)
@@ -213,6 +227,8 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_plan():
         np.testing.assert_array_equal(got.numpy(), hist_local(
             row_leaf, lid, t(bins), t(g), t(h), t(c), 63).numpy())
     assert hist_window.launches == hist_local.launches == 0
+    assert sum(hist_window.regime_launches.values()) == 0
+    assert sum(hist_local.regime_launches.values()) == 0
 
 
 # ---- the build: a library's name hashes its source and its headers --------
