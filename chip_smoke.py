@@ -16,13 +16,23 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    float weights; with times (single call, back-to-back calls and the
    profiler's device time, beside ``index_add_``) at the root, 65,536 and
    4,097 rows;
-2b. the partition kernel against its plain version: windows of 0 to
-   1,000,000 rows of a shuffled 1,000,000-row ``order`` with the
-   ordered-mode payload of 28 bin columns, and the full root window of
-   the Expo-shaped path, all left, all right and random: window, payload
-   and left count identical bit for bit; with times;
+2b. the partition kernel (out of place, ``src -> dst``) against its plain
+   version: windows of 0 to 1,000,000 rows of a shuffled 1,000,000-row
+   ``order`` with the ordered-mode payload of 28 bin columns, windows at
+   the small form's threshold and one either side, and the full root
+   window of the Expo-shaped path, all left, all right and random, with
+   and without the payload, in both forms where a form can take the
+   window, into a destination full of garbage: window, payload and left
+   count identical bit for bit; with times (single call, back-to-back
+   calls and the profiler's device time, beside a stable ``torch.sort``
+   of the 0/1 key and ``partition_window_sort``) at the root and 4,097
+   rows;
 2c. the max_cat_group kernel of the categorical split scan against its
-   plain loop at the Expo-shaped path's shape: accepts identical;
+   plain loop at the Expo-shaped path's shape, at one position, with no
+   position ok, at 42 lanes, past one 256-position chunk and with one
+   minimum group size a leaf: accepts identical, ``torch.bool`` in and
+   out; with the same three times and the latency bound from the
+   kernel's SASS (:func:`cat_group_latency`);
 2d. the shard-local histogram kernel against its plain version at the
    row-shard shapes of the data-parallel paths (250,000 x 28 and
    500,000 x 14 uint8 bins), with a row -> leaf map of 255 skewed leaves:
@@ -36,7 +46,10 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    255 bins, ``predict`` the held-out rows; the histogram kernel must have
    launched once per tree plus once per split;
 3b. the same with ``partition_impl=compact``: the partition kernel must
-   have been called once per split;
+   have been called once per split; this phase and phase 5 print, for
+   one profiled tree, the partition's calls by form and launches, its
+   device ms beside the sum of its calls' bounds, and cat_group's
+   launches and device ms, with the run's peak device memory;
 3c. scatter and compact in turns on one dataset, ms per tree;
 4. the card against the CPU on a 50,000-row Higgs subset, 3 rounds;
 5. the Expo-shaped categorical path at full width: seeded synthetic
@@ -72,6 +85,9 @@ from __future__ import annotations
 
 import functools
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -319,21 +335,157 @@ def device_ms(fn, names):
 
 
 def part_bound_bytes(cnt: int, widths) -> int:
-    """Least bytes a partition call moves: each window entry's order (4)
-    and mask (1) read and order written (4), each payload row read and
-    written once."""
-    return cnt * (4 + 1 + 4) + 2 * cnt * sum(widths)
+    """Least bytes a partition call moves: each window position's mask
+    (1 B) read, and each matrix row (``widths`` in bytes, ``order``'s 4
+    among them) read once and written once."""
+    return cnt * (1 + 2 * sum(widths))
+
+
+_SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;\s*/\*\s*(0x[0-9a-f]+)")
+_SASS_HI = re.compile(r"^\s*/\*\s*(0x[0-9a-f]{16})\s*\*/\s*$")
+_FADD = re.compile(r"(?:@!?P\w+\s+)?FADD\s+(R\d+), (R\d+), (R\d+)")
+
+
+def sass_instructions(text: str, kernel: str):
+    """(address, instruction, stall cycles) of each instruction of the
+    function whose name holds ``kernel`` in ``cuobjdump -sass`` output.
+    The stall count is the 4-bit field that the compiler sets in each
+    instruction's control bits (bits 105-108 of the 128-bit word, the
+    second 64-bit word's bits 41-44): the cycles the warp waits before it
+    issues its next instruction."""
+    out, inside, pending = [], False, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        if not inside:
+            continue
+        m = _SASS_LINE.search(line)
+        if m:
+            pending = (int(m.group(1), 16), m.group(2).strip())
+            continue
+        m = _SASS_HI.match(line)
+        if m and pending:
+            out.append((*pending, (int(m.group(1), 16) >> 41) & 0xF))
+            pending = None
+    return out
+
+
+def chain_cycles(ins) -> dict:
+    """The cycles of a cat_group kernel's chain from its SASS
+    (:func:`sass_instructions`).  Its step loop is the backward branch's
+    body with the most register ``FADD``s.  There:
+
+    * ``cycles_per_add``: the running count is one chain of dependent
+      ``FADD``s (each reads the one before); the longest such chain's
+      issue distance in stall cycles, on the path where no position
+      accepts (the accept blocks that forward branches skip left out),
+      over its links is what a position costs;
+    * ``cycles_per_accept``: the block that a forward branch skips when a
+      position does not accept and that holds the division (``MUFU``), in
+      stall cycles, without the division's slow path (the block skipped
+      around its ``CALL``)."""
+    addr = [a for a, _, _ in ins]
+    target = lambda op: re.search(r"\bBRA\S*\s+`?\(?(0x[0-9a-f]+)", op)
+    loops = []
+    for i, (a, op, _) in enumerate(ins):
+        m = target(op)
+        if m and int(m.group(1), 16) <= a and int(m.group(1), 16) in addr:
+            loops.append((addr.index(int(m.group(1), 16)), i))
+    fadds = lambda l: sum(bool(_FADD.match(ins[k][1]))
+                          for k in range(l[0], l[1] + 1))
+    if not loops or not max(fadds(l) for l in loops):
+        return {"error": "no step loop found", "instructions": len(ins)}
+    lo, hi = max(loops, key=fadds)
+    body = ins[lo:hi + 1]
+    chain = {}     # register -> (links, index of the chain's first FADD)
+    best = (0, 0, 0)
+    for k, (_, op, _) in enumerate(body):
+        m = _FADD.match(op)
+        if not m:
+            continue
+        prev = [chain[r] for r in m.groups()[1:] if r in chain]
+        links, first = max(prev) if prev else (0, k)
+        chain[m.group(1)] = (links + 1, first)
+        if links + 1 > best[0]:
+            best = (links + 1, first, k)
+    regions = []
+    for k, (a, op, _) in enumerate(body):
+        m = target(op)
+        if m and op.startswith("@") and a < int(m.group(1), 16) <= body[-1][0]:
+            regions.append({j for j in range(k + 1, len(body))
+                            if body[j][0] < int(m.group(1), 16)})
+    skipped = set().union(*regions) if regions else set()
+    links, first, last = best
+    per_add = (sum(body[j][2] for j in range(first, last)
+                   if j not in skipped) / (links - 1)
+               if links > 1 else float("nan"))
+    has = lambda reg, name: any(name in body[j][1] for j in reg)
+    slow = set().union(*[r for r in regions
+                         if has(r, "CALL") and not has(r, "MUFU")])
+    accept = [r for r in regions if has(r, "MUFU")]
+    per_accept = (min(sum(body[j][2] for j in r - slow) for r in accept)
+                  if accept else float("nan"))
+    return {"loop_instructions": len(body), "count_chain_adds": links,
+            "cycles_per_add": per_add, "cycles_per_accept": per_accept}
+
+
+def cat_group_latency(lib_path: str, kernel: str = "cat_group",
+                      sass_out: str = None) -> dict:
+    """:func:`chain_cycles` of the kernel whose name holds ``kernel`` in
+    the library at ``lib_path`` (``cuobjdump -sass``), with the card's top
+    SM clock from ``nvidia-smi``; ``sass_out`` keeps the listing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {"error": "cuobjdump not found"}
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120).stdout
+    if sass_out:
+        with open(sass_out, "w") as f:
+            f.write(text)
+    out = chain_cycles(sass_instructions(text, kernel))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    out["sm_clock_max_mhz"] = (float(smi.split()[0]) if smi.strip()
+                               else float("nan"))
+    return out
+
+
+def cat_group_bound_ms(lat: dict, positions: int, accepts: int) -> float:
+    """Latency bound of a cat_group call: the longest lane's chain, a
+    dependent add for each of its ``positions`` and an accept block for
+    each of its ``accepts`` (what this call's data needs), at the SASS
+    cycles of :func:`cat_group_latency` and the card's top SM clock."""
+    return ((positions * lat["cycles_per_add"]
+             + accepts * lat["cycles_per_accept"])
+            / (lat["sm_clock_max_mhz"] * 1e3))
+
+
+def three_times(fn) -> dict:
+    """A kernel's or a yardstick's time three ways: the single-call median
+    (``ms``), CUDA events around back-to-back calls (``ms_many``) and the
+    profiler's device time per call (``device_ms``)."""
+    return dict(ms=cuda_ms(fn), ms_many=cuda_ms_many(fn),
+                device_ms=profiled_ms(fn)[0])
 
 
 def check_partition(dev, rng):
-    """Phase 2b: the partition kernel against its plain version."""
+    """Phase 2b: the partition kernel (out of place, src -> dst) against
+    its plain version, bit for bit, into a destination full of garbage."""
     import torch
-    from lightgbm_tpu_torch.ops.partition import (partition_scratch,
+    from lightgbm_tpu_torch.ops.partition import (SMALL_MAX_ROWS,
+                                                  partition_scratch,
                                                   partition_window,
-                                                  partition_window_plain)
+                                                  partition_window_plain,
+                                                  partition_window_sort,
+                                                  plan_launch)
 
-    def payload(n, f, gen):
-        return [torch.randint(0, 256, (n, f), dtype=torch.uint8,
+    def matrices(n, f, gen):
+        """order and the ordered-mode payload: [n, f] bins, 3 weights"""
+        return [torch.randperm(n, device=dev, generator=gen).int(),
+                torch.randint(0, 256, (n, f), dtype=torch.uint8,
                               device=dev, generator=gen),
                 *[torch.randn(n, device=dev, generator=gen)
                   for _ in range(3)]]
@@ -341,108 +493,164 @@ def check_partition(dev, rng):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 2)
     n1 = N_ROWS
+    t = SMALL_MAX_ROWS
     sets = {
-        "1M": (torch.randperm(n1, device=dev, generator=gen).int(),
-               payload(n1, N_FEAT, gen),
+        "1M": (matrices(n1, N_FEAT, gen),
                [(12345, 0), (777, 1), (5000, 511), (40000, 4097),
-                (300000, 100000), (0, n1), (n1 - 4097, 4097)]),
-        "root": (torch.randperm(N_EXPO, device=dev, generator=gen).int(),
-                 payload(N_EXPO, len(EXPO_CATEGORICAL) + 2, gen),
+                (300000, 100000), (0, n1), (n1 - 4097, 4097),
+                (3, t - 1), (101, t), (7, t + 1)]),
+        "root": (matrices(N_EXPO, len(EXPO_CATEGORICAL) + 2, gen),
                  [(0, N_EXPO)]),
     }
     checked = 0
-    for label, (order, pay, windows) in sets.items():
-        scratch = partition_scratch(order, pay)
+    for label, (src, windows) in sets.items():
+        scratch = partition_scratch(src[0].numel(), dev)
+        ref = [torch.empty_like(x) for x in src]
+        out = [torch.empty_like(x) for x in src]
         for start, cnt in windows:
+            sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
+            # its own form, and the other one where it takes the window
+            # in reasonable time
+            forms = {plan_launch(cnt).form}
+            if 0 < cnt <= 1_000_000:
+                forms = {"small", "large"}
             for frac in (0.0, 1.0, 0.43):
-                gl = (torch.rand(cnt, device=dev, generator=gen)
-                      < frac).to(torch.uint8)
+                gl = torch.rand(cnt, device=dev, generator=gen) < frac
                 for with_pay in (False, True):
-                    k = [order.clone()] + ([p.clone() for p in pay]
-                                           if with_pay else [])
-                    p = [t.clone() for t in k]
-                    sc = torch.tensor([start, cnt], dtype=torch.int32,
-                                      device=dev)
-                    nk = partition_window(k[0], sc, gl, k[1:],
-                                          rows_upper_bound=cnt,
-                                          scratch=scratch)
-                    npl = partition_window_plain(p[0], start, cnt, gl, p[1:])
-                    torch.cuda.synchronize()
-                    if not torch.equal(nk, npl) or not all(
-                            torch.equal(a, b) for a, b in zip(k, p)):
-                        fail(f"partition kernel != plain at window "
-                             f"({start}, {cnt}) of {label}, left fraction "
-                             f"{frac}, payload {with_pay}")
-                    checked += 1
-                    del k, p
-        phase("partition_vs_plain", set=label, rows=order.numel(),
-              windows=len(windows), calls_checked=checked, exact=True)
+                    k = len(src) if with_pay else 1
+                    npl = partition_window_plain(src[:k], ref[:k], start, cnt,
+                                                 gl)
+                    for form in sorted(forms):
+                        for x in out[:k]:      # garbage before the call
+                            x.view(torch.uint8).random_(generator=gen)
+                        nk = partition_window(src[:k], out[:k], sc, gl, cnt,
+                                              scratch, form)
+                        torch.cuda.synchronize()
+                        w = slice(start, start + cnt)
+                        if not torch.equal(nk, npl) or not all(
+                                torch.equal(a[w], b[w])
+                                for a, b in zip(out[:k], ref[:k])):
+                            fail(f"partition kernel != plain at window "
+                                 f"({start}, {cnt}) of {label}, left "
+                                 f"fraction {frac}, payload {with_pay}, "
+                                 f"{form} form")
+                        checked += 1
+        phase("partition_vs_plain", set=label, rows=src[0].numel(),
+              windows=len(windows), small_max_rows=t, calls_checked=checked,
+              exact=True)
+        del ref, out
 
     # times at the main path's largest call (the root window of the
-    # Expo-shaped path, with its ordered payload) and at a 4,097-row window
-    order, pay, _ = sets["root"]
+    # Expo-shaped path, with its ordered payload) and at a 4,097-row window:
+    # the kernel, the stable sort of the 0/1 key (a yardstick of one
+    # PyTorch call), and partition_window_sort (the whole function in
+    # PyTorch calls: the key sort and each matrix's index_select)
+    src, _ = sets["root"]
     del sets["1M"]
-    scratch = partition_scratch(order, pay)
-    widths = [p[0].numel() * p.element_size() for p in pay]
+    dst = [torch.empty_like(x) for x in src]
+    scratch = partition_scratch(N_EXPO, dev)
+    widths = [x[0].numel() * x.element_size() for x in src]
     timing = {}
     for start, cnt in ((0, N_EXPO), (40000, 4097)):
-        gl = (torch.rand(cnt, device=dev, generator=gen) < 0.43).to(
-            torch.uint8)
-        sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
-        k_ms = cuda_ms(lambda: partition_window(
-            order, sc, gl, pay, rows_upper_bound=cnt, scratch=scratch))
-        p_ms = cuda_ms(lambda: partition_window_plain(order, start, cnt, gl,
-                                                      pay), reps=3)
-        key = (1 - gl).contiguous()
-        lib_ms = cuda_ms(lambda: torch.sort(key, stable=True))
+        sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
+        gl = torch.rand(cnt, device=dev, generator=gen) < 0.43
+        key = (~gl).to(torch.uint8)
+        k = three_times(lambda: partition_window(src, dst, sc, gl, cnt,
+                                                 scratch))
+        lib = three_times(lambda: torch.sort(key, stable=True))
+        srt = three_times(lambda: partition_window_sort(src, dst, start, cnt,
+                                                        gl))
+        p_ms = cuda_ms(lambda: partition_window_plain(src, dst, start, cnt,
+                                                      gl), reps=3)
         nbytes = part_bound_bytes(cnt, widths)
         bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-        timing[cnt] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms)
-        phase("partition_time", window_rows=cnt,
-              payload_row_bytes=sum(widths), kernel_ms=f"{k_ms:.4f}",
-              plain_ms=f"{p_ms:.4f}", sort_ms=f"{lib_ms:.4f}",
+        timing[cnt] = dict(k, plain_ms=p_ms, library_ms=lib["ms"],
+                           library_ms_many=lib["ms_many"],
+                           library_device_ms=lib["device_ms"],
+                           sort_form_ms=srt["ms"],
+                           sort_form_ms_many=srt["ms_many"],
+                           sort_form_device_ms=srt["device_ms"],
+                           bound_ms=bound_ms,
+                           launches_a_call=plan_launch(cnt).launches)
+        phase("partition_time", window_rows=cnt, form=plan_launch(cnt).form,
+              launches_a_call=plan_launch(cnt).launches,
+              row_bytes=sum(widths), **{
+                  key_: f"{v:.4f}" for key_, v in timing[cnt].items()
+                  if isinstance(v, float) and key_ != "bound_ms"},
               bound_bytes=nbytes, bound_ms=f"{bound_ms:.5f}",
-              bound_share=f"{bound_ms / k_ms:.3f}")
+              bound_share=f"{bound_ms / k['device_ms']:.3f}"
+              if k["device_ms"] else "not measured")
     return timing
 
 
 def check_cat_group(dev, rng):
-    """Phase 2c: the max_cat_group kernel against its plain loop at the
+    """Phase 2c: the max_cat_group kernel against its plain loop: at the
     Expo-shaped path's shape (2 leaves x 8 features x 2 directions x 255
-    positions)."""
+    positions) at three count scales, at one position, with no position
+    ok, at 42 lanes (not a multiple of a block's lanes), past one
+    256-position chunk and with one minimum group size a leaf; accepts
+    identical, ``torch.bool`` in and out.  Times at the path's shape, and
+    the latency bound from the kernel's SASS."""
     import torch
+    from lightgbm_tpu_torch.ops import build
     from lightgbm_tpu_torch.ops.split import (cat_group_accept,
                                               cat_group_accept_plain)
     shape = (2, len(EXPO_CATEGORICAL) + 2, 2, N_BINS)
-    cases = []
-    for mean_cnt in (1.0, 40.0, 4000.0):
+
+    def inputs(shape, mean_cnt, none_ok=False, per_leaf=False):
         step = torch.from_numpy(rng.poisson(mean_cnt, shape).astype(
             np.float32)).to(dev)
         ok = torch.from_numpy(rng.random(shape) < 0.8).to(dev)
         rc = torch.from_numpy(rng.integers(0, 10 ** 6, shape).astype(
             np.float32)).to(dev)
-        m0 = torch.from_numpy(np.maximum(1.0, np.floor(
-            rng.integers(1, 10 ** 6, shape[:-1]) / 64.0)).astype(
-                np.float32)).to(dev)
-        k = cat_group_accept(step, ok, rc, m0, 64)
-        p = cat_group_accept_plain(step, ok, rc, m0, 64)
+        m0 = np.maximum(1.0, np.floor(rng.integers(1, 10 ** 6, shape[:-1])
+                                      / 64.0)).astype(np.float32)
+        if per_leaf:
+            m0 = np.ascontiguousarray(m0[:, :1, :1])
+        return step, ok & (not none_ok), rc, torch.from_numpy(m0).to(dev)
+
+    cases = {f"mean_count_{m:g}": inputs(shape, m)
+             for m in (1.0, 40.0, 4000.0)}
+    cases["one_position"] = inputs(shape[:-1] + (1,), 40.0)
+    cases["none_ok"] = inputs(shape, 40.0, none_ok=True)
+    cases["42_lanes"] = inputs((3, 7, 2, N_BINS), 40.0)
+    cases["300_positions"] = inputs((1, 3, 2, 300), 4000.0)
+    cases["mdpg0_per_leaf"] = inputs(shape, 40.0, per_leaf=True)
+    for name, args in cases.items():
+        k = cat_group_accept(*args, 64)
+        p = cat_group_accept_plain(*args, 64)
         torch.cuda.synchronize()
-        if not torch.equal(k, p):
-            fail(f"cat_group kernel != plain loop at mean count {mean_cnt}")
-        cases.append((step, ok, rc, m0))
-    step, ok, rc, m0 = cases[1]
-    k_ms = cuda_ms(lambda: cat_group_accept(step, ok, rc, m0, 64))
-    p_ms = cuda_ms(lambda: cat_group_accept_plain(step, ok, rc, m0, 64),
-                   reps=3)
-    lanes = ok.numel() // shape[-1]
-    nbytes = ok.numel() * (4 + 1 + 4 + 1) + lanes * 4
+        if k.dtype != torch.bool or not torch.equal(k, p):
+            fail(f"cat_group kernel != plain loop in case {name}")
+    size = int(np.prod(shape))
+    nbytes = size * (4 + 1 + 4 + 1) + size // shape[-1] * 4
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    phase("cat_group_vs_plain", shape="x".join(map(str, shape)),
-          cases=len(cases), exact=True, kernel_ms=f"{k_ms:.4f}",
-          plain_ms=f"{p_ms:.4f}", bound_bytes=nbytes,
-          bound_ms=f"{bound_ms:.6f}", bound_share=f"{bound_ms / k_ms:.4f}")
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms)
+    lat = cat_group_latency(build.library_path("cat_group"))
+    timing = {}
+    # a lane of the Expo-shaped path accepts about every fourth position,
+    # as the mean count 4000 case does; the mean count 40 case rarely
+    for name in ("mean_count_4000", "mean_count_40"):
+        step, ok, rc, m0 = cases[name]
+        t = three_times(lambda: cat_group_accept(step, ok, rc, m0, 64))
+        p_ms = cuda_ms(lambda: cat_group_accept_plain(step, ok, rc, m0, 64),
+                       reps=3)
+        accepts = int(cat_group_accept_plain(step, ok, rc, m0, 64).view(
+            -1, shape[-1]).sum(1).max())
+        lat_ms = (cat_group_bound_ms(lat, shape[-1], accepts)
+                  if "cycles_per_add" in lat else None)
+        timing[name] = dict(t, plain_ms=p_ms, bound_ms=bound_ms,
+                            latency_bound_ms=lat_ms,
+                            max_accepts_a_lane=accepts)
+        phase("cat_group_time", case=name, shape="x".join(map(str, shape)),
+              **{k_: f"{v:.4f}" for k_, v in t.items() if v is not None},
+              plain_ms=f"{p_ms:.4f}", bound_bytes=nbytes,
+              bound_ms=f"{bound_ms:.6f}", max_accepts_a_lane=accepts,
+              **{f"sass_{k_}": v for k_, v in lat.items()},
+              latency_bound_ms=lat_ms,
+              latency_share=f"{lat_ms / t['device_ms']:.3f}"
+              if t["device_ms"] and lat_ms else "not measured")
+    phase("cat_group_vs_plain", cases=",".join(cases), exact=True)
+    return timing["mean_count_4000"], lat
 
 
 def check_hist_window(dev, rng):
@@ -725,7 +933,28 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     # device time of the kernels over one more tree (profiling two made
     # the script take more than half its time limit)
     prof_bst = train(params, ds, num_boost_round=1, verbose_eval=False)
+    partition_window.launches = cat_group_accept.launches = 0
+    for k in partition_window.form_launches:
+        partition_window.form_launches[k] = 0
+    positions0 = prof_bst.inner.stats.get("partition_positions", 0)
     wall, per, all_ms, host = device_ms(prof_bst.update, dev_names)
+    forms = dict(partition_window.form_launches)
+    # that tree's kernel calls; a small partition call is one launch, a
+    # large one two
+    tree_kernels = dict(
+        partition_calls_per_tree=partition_window.launches,
+        partition_small_calls_per_tree=forms["small"],
+        partition_large_calls_per_tree=forms["large"],
+        partition_launches_per_tree=forms["small"] + 2 * forms["large"],
+        cat_group_launches_per_tree=cat_group_accept.launches)
+    windows = prof_bst.inner._windows
+    if partition_window.launches and windows is not None:
+        # the sum of the tree's per-call bounds: every partitioned position
+        # moves its mask and every matrix's row
+        widths = [x[0].numel() * x.element_size() for x in windows.bufs[0]]
+        positions = prof_bst.inner.stats["partition_positions"] - positions0
+        tree_kernels["partition_bound_ms_per_tree"] = (
+            f"{part_bound_bytes(positions, widths) / H100_BYTES_PER_S * 1e3:.4f}")
     phase(f"{name}_host_ops", profiled_s=f"{wall:.3f}", **{
         key.replace(" ", "_"): f"{ms:.1f}ms/tree,{count}calls/tree"
         for ms, key, count in host})
@@ -739,7 +968,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
                host_syncs_per_split=(
                    f"{stats['host_syncs'] / stats['splits']:.4f}"),
                peak_mem_bytes=peak, predict_s=f"{t_pred:.3f}",
-               heldout_auc=f"{test_auc:.6f}")
+               heldout_auc=f"{test_auc:.6f}", **tree_kernels)
     for n, ms in per.items():   # 0 for a kernel this path does not run
         out[f"{n}_device_ms_per_tree"] = (f"{ms:.3f}" if all_ms
                                           else "not measured")
@@ -995,7 +1224,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phase 2c: max_cat_group kernel vs plain on the card --------------
-    group_timing = check_cat_group(dev, rng)
+    group_timing, group_lat = check_cat_group(dev, rng)
 
     # ---- phase 2d: shard-local histogram kernel vs plain on the card ------
     local_timing, local_err = check_hist_local(dev, rng)
@@ -1073,6 +1302,19 @@ def main() -> None:
           label_rate=f"{float(y_tr.mean()):.4f}",
           num_bin=":".join(str(b) for b in num_bins),
           categorical_splits=n_cat, **expo)
+    # the parent design's device ms per tree on this path (four-launch
+    # in-place partition, one thread a lane for cat_group), PERF.md section 5
+    phase("expo_partition_cat_group", parent_design_partition_device_ms=10.166,
+          parent_design_cat_group_device_ms=24.886,
+          partition_device_ms=expo["lgbt_partition_device_ms_per_tree"],
+          partition_bound_ms=expo.get("partition_bound_ms_per_tree"),
+          partition_small_calls=expo["partition_small_calls_per_tree"],
+          partition_large_calls=expo["partition_large_calls_per_tree"],
+          partition_launches=expo["partition_launches_per_tree"],
+          cat_group_launches=expo["cat_group_launches_per_tree"],
+          cat_group_device_ms=expo["lgbt_cat_group_device_ms_per_tree"],
+          ms_per_tree=expo["ms_per_tree"],
+          peak_mem_bytes=expo["peak_mem_bytes"])
     expo_launches = (expo["partition_calls"], expo["cat_group_launches"])
     del ds, bst
     torch.cuda.empty_cache()
@@ -1121,14 +1363,25 @@ def main() -> None:
         "launches": expo_launches[0], "max_abs_err": 0.0,
         "ms": proot["ms"], "plain_ms": proot["plain_ms"],
         "bound_ms": proot["bound_ms"], "bound_by": "bytes",
-        "library_ms": proot["library_ms"]}, {
+        "library_ms": proot["library_ms"],
+        **{k: v for k, v in proot.items() if k in (
+            "ms_many", "device_ms", "library_ms_many", "library_device_ms",
+            "sort_form_ms", "sort_form_ms_many", "sort_form_device_ms",
+            "launches_a_call")},
+        **{f"{k}_4097": v for k, v in part_timing[4097].items()}}, {
         "name": "cat_group", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/cat_group.cu",
         "replaces": "lightgbm_tpu/ops/split.py:300",
         "launches": expo_launches[1], "max_abs_err": 0.0,
         "ms": group_timing["ms"], "plain_ms": group_timing["plain_ms"],
         "bound_ms": group_timing["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]}), flush=True)
+        "library_ms": None, "ms_many": group_timing["ms_many"],
+        "device_ms": group_timing["device_ms"],
+        "latency_bound_ms": group_timing["latency_bound_ms"],
+        "max_accepts_a_lane": group_timing["max_accepts_a_lane"],
+        "sass_cycles_per_add": group_lat.get("cycles_per_add"),
+        "sass_cycles_per_accept": group_lat.get("cycles_per_accept")}]}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,7 +17,7 @@ import torch
 
 from .config import Config, _unsupported
 from .data.dataset import TrainingData
-from .grower import FeatureMeta, GrowerConfig, grow_tree
+from .grower import FeatureMeta, GrowerConfig, WindowBuffers, grow_tree
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .objectives import Objective, parse_objective_string
 from .parallel import mesh as mesh_mod
@@ -86,6 +86,8 @@ class GBDT:
         self.mesh: Optional[mesh_mod.Mesh] = None
         self.downgrades: List[Dict[str, str]] = []
         self._gspmd: Optional[GspmdGrower] = None
+        # the serial grower's partition buffers, made at the first tree
+        self._windows: Optional[WindowBuffers] = None
         self._row_pad = 0
         if train_set is not None:
             self._setup_device(train_set, bins)
@@ -249,10 +251,13 @@ class GBDT:
                 self._count_weight, self.meta, self._feat_valid, self.stats)
             row_leaf = row_leaf[:self.num_data]     # the local rows
         else:
+            if self._windows is None:   # the partition's buffers, once
+                self._windows = WindowBuffers(*self.bins.shape,
+                                              self.grower_cfg, self.device)
             arrays, row_leaf = grow_tree(self.bins, g[0], h[0],
                                          self._count_weight, self.meta,
                                          self._feat_valid, self.grower_cfg,
-                                         self.stats)
+                                         self.stats, self._windows)
         self.stats["trees"] += 1
         host = arrays._replace(**{
             k: v.cpu().numpy() for k, v in arrays._asdict().items()

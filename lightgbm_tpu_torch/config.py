@@ -110,7 +110,8 @@ class Config:
     mesh_shape: str = "auto"       # DxF | data | feature | auto (planner)
     shard_axes: str = "auto"       # auto | batch | batch,feature
     gspmd_hist: str = "auto"       # fused (the shard-local kernel) | flat
-    #                                (masked scatter-add) | auto (= flat)
+    #                                (masked scatter-add) | auto (= fused
+    #                                on a card, flat on the CPU)
 
     # binning
     max_bin: int = 255

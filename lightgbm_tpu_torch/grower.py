@@ -6,11 +6,14 @@ The port of ``lightgbm_tpu/grower.py:make_grower`` with ``SerialStrategy``
 
 * an index array ``order`` keeps every leaf's rows contiguous
   (``data_partition.hpp:94-146``); a split routes only the splitting
-  leaf's window and stably partitions it in place (lefts first), so a
-  split costs O(leaf rows).  ``partition_impl`` picks how
-  (``ops/partition.py``): ``scatter`` (a cumsum rank and one scatter),
-  ``sort`` (a stable sort on the 0/1 key) or ``compact`` (the
-  hand-written kernel);
+  leaf's window and stably partitions it (lefts first), so a split costs
+  O(leaf rows).  ``partition_impl`` picks how (``ops/partition.py``):
+  ``scatter`` (a cumsum rank and one scatter), ``sort`` (a stable sort on
+  the 0/1 key) or ``compact`` (the hand-written kernel).  Partitions are
+  out of place: :class:`WindowBuffers` holds two buffers of ``order`` (and
+  of the ordered copies below), allocated once per training, and a leaf
+  at depth d keeps its window in buffer ``d % 2``; its split writes both
+  children into the same positions of the other buffer;
 * with ``ordered_bins=on`` a leaf-ordered copy of the bins and of the
   three weight vectors (the reference's ``OrderedBin``) rides along: the
   partition moves their rows with ``order``, the split column is read
@@ -149,14 +152,18 @@ def pool_rows(res: SplitResult):
     return f32, i32
 
 
-def _row_leaf_from_intervals(order: torch.Tensor, leaf_start: torch.Tensor,
-                             leaf_cnt: torch.Tensor, n: int) -> torch.Tensor:
-    """row -> leaf map from the final leaf intervals of ``order``: the
-    intervals partition positions [0, n), so the leaf of each position is
-    its interval's, pushed through the ``order`` permutation."""
+def _row_leaf_from_intervals(orders, leaf_start: torch.Tensor,
+                             leaf_cnt: torch.Tensor, leaf_odd: torch.Tensor,
+                             n: int) -> torch.Tensor:
+    """row -> leaf map from the final leaf intervals: the intervals
+    partition positions [0, n), so the leaf of each position is its
+    interval's, pushed through the ``order`` buffer of that leaf's depth
+    parity (``orders[0]`` for even depths, ``orders[1]`` for odd,
+    ``leaf_odd`` per leaf)."""
     by_start = torch.argsort(leaf_start, stable=True)
     leaf_of_pos = torch.repeat_interleave(by_start, leaf_cnt[by_start],
                                           output_size=n)
+    order = torch.where(leaf_odd[leaf_of_pos], orders[1], orders[0])
     return torch.empty(n, dtype=torch.int32, device=order.device).scatter_(
         0, order.long(), leaf_of_pos.int())
 
@@ -190,19 +197,65 @@ def unpack_tree(num_leaves: int, node_i: torch.Tensor, node_f: torch.Tensor,
         cat_bins=node_catb)
 
 
-def _partition(impl: str, order: torch.Tensor, lsc_row: torch.Tensor,
-               start: int, cnt: int, goes_left: torch.Tensor, payload,
+def _partition(impl: str, src, dst, lsc_row: torch.Tensor, start: int,
+               cnt: int, goes_left: torch.Tensor,
                scratch: Optional[torch.Tensor]) -> torch.Tensor:
-    """Stable partition of the window (start, cnt) = ``lsc_row`` by
-    ``partition_impl``; returns the left count as a device ``int32[1]``."""
+    """Stable partition of the window (start, cnt) = ``lsc_row`` of the
+    ``src`` buffer into ``dst`` by ``partition_impl``; returns the left
+    count as a device ``int32[1]``.  The kernel reads the window from the
+    device row and the bool mask as they are."""
     if impl == "compact":
-        return partition_window(order, lsc_row.int(),
-                                goes_left.to(torch.uint8),
-                                payload, rows_upper_bound=cnt,
-                                scratch=scratch)
+        return partition_window(src, dst, lsc_row, goes_left, cnt, scratch)
     if impl == "sort":
-        return partition_window_sort(order, start, cnt, goes_left, payload)
-    return partition_window_plain(order, start, cnt, goes_left, payload)
+        return partition_window_sort(src, dst, start, cnt, goes_left)
+    return partition_window_plain(src, dst, start, cnt, goes_left)
+
+
+class WindowBuffers:
+    """The serial grower's two buffers of every matrix that the partition
+    moves: ``order`` and, with ``ordered_bins=on``, the leaf-ordered bins
+    and weights.  A leaf at depth d keeps its window in ``bufs[d % 2]``.
+    Allocated once per training (``rows`` x ``n_feat`` bins on
+    ``device``), with the kernel's scratch when ``partition_impl`` is
+    ``compact``; :meth:`reset` starts a tree."""
+
+    def __init__(self, rows: int, n_feat: int, cfg: GrowerConfig, device):
+        self.ordered = cfg.ordered_bins == "on"
+        self.iota = torch.arange(rows, dtype=torch.int32, device=device)
+
+        def one():
+            if not self.ordered:
+                return (torch.empty_like(self.iota),)
+            return (torch.empty_like(self.iota),
+                    torch.empty((rows, n_feat), dtype=torch.uint8,
+                                device=device),
+                    *[torch.empty(rows, dtype=torch.float32, device=device)
+                      for _ in range(3)])
+
+        self.bufs = (one(), one())
+        self.scratch = (partition_scratch(rows, device)
+                        if cfg.partition_impl == "compact"
+                        and torch.device(device).type == "cuda" else None)
+
+    def fits(self, rows: int, n_feat: int, cfg: GrowerConfig, device) -> bool:
+        """Whether these buffers serve a tree of these shapes and ``cfg``."""
+        b = self.bufs[0]
+        return (b[0].shape[0] == rows and b[0].device == torch.device(device)
+                and self.ordered == (cfg.ordered_bins == "on")
+                and (not self.ordered or b[1].shape[1] == n_feat)
+                and (self.scratch is not None) == (
+                    cfg.partition_impl == "compact"
+                    and b[0].device.type == "cuda"))
+
+    def reset(self, bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
+              cw: torch.Tensor) -> None:
+        """The root's window in buffer 0: rows in natural order, so the
+        ordered copies are the inputs."""
+        b0 = self.bufs[0]
+        b0[0].copy_(self.iota)
+        if self.ordered:
+            for dst, src in zip(b0[1:], (bins, gw, hw, cw)):
+                dst.copy_(src)
 
 
 class LeafPool:
@@ -346,13 +399,16 @@ class LeafPool:
 
 def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               cw: torch.Tensor, meta: FeatureMeta, feat_valid: torch.Tensor,
-              cfg: GrowerConfig, stats: Optional[Dict[str, int]] = None):
+              cfg: GrowerConfig, stats: Optional[Dict[str, int]] = None,
+              buffers: Optional[WindowBuffers] = None):
     """Grow one tree.
 
     bins ``[N, F]`` uint8; gw/hw/cw ``[N]`` f32 (gradient, hessian, count
     weight); feat_valid ``[F]`` bool.  Returns ``(TreeArrays, row_leaf
-    [N] i32)``.  ``stats`` (optional) counts ``host_syncs`` and
-    ``splits``."""
+    [N] i32)``.  ``stats`` (optional) counts ``host_syncs``, ``splits``
+    and ``partition_positions`` (the windows' positions partitioned).
+    ``buffers`` (a :class:`WindowBuffers` for these shapes and ``cfg``,
+    reused across trees) is allocated when not given."""
     n, f = bins.shape
     dev = bins.device
     L = cfg.num_leaves
@@ -360,22 +416,20 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
     stats = stats if stats is not None else {}
     stats.setdefault("host_syncs", 0)
     stats.setdefault("splits", 0)
+    stats.setdefault("partition_positions", 0)
 
     # ---- root -----------------------------------------------------------
-    iota = torch.arange(n, dtype=torch.int32, device=dev)
-    order = iota.clone()
-    ordered = cfg.ordered_bins == "on"
-    if ordered:
-        # leaf-ordered copies (the reference's OrderedBin): rows start in
-        # natural order, so the copies are the inputs; every partition
-        # moves their rows with ``order``, and a leaf's histogram then
-        # reads a contiguous window of them
-        payload = (bins.clone(), gw.clone(), hw.clone(), cw.clone())
-        obins, ogw, ohw, ocw = payload
-    else:
-        payload = ()
-    scratch = (partition_scratch(order, payload)
-               if cfg.partition_impl == "compact" else None)
+    # leaf-ordered copies (the reference's OrderedBin) ride in the buffers
+    # with ``order``: rows start in natural order, so the copies are the
+    # inputs; every partition moves their rows with ``order``, and a leaf's
+    # histogram then reads a contiguous window of them
+    if buffers is None:
+        buffers = WindowBuffers(n, f, cfg, dev)
+    elif not buffers.fits(n, f, cfg, dev):
+        raise ValueError("grow_tree: the window buffers were made for other "
+                         "shapes or another partition_impl/ordered_bins")
+    buffers.reset(bins, gw, hw, cw)
+    ordered, bufs, iota = buffers.ordered, buffers.bufs, buffers.iota
     sc_root = torch.tensor([0, n], dtype=torch.int32, device=dev)
     hist_root = hist_window(iota, sc_root, bins, gw, hw, cw, B,
                             rows_upper_bound=n)
@@ -392,17 +446,22 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
             break
         new, node = i + 1, i
         irow, frow, (feat, thr, dleft, is_cat_l, cat_row) = pool.split_args(l)
+        # the leaf's window is in the buffer of its depth parity; its
+        # children go to the same positions of the other one
+        odd = int(pool.leaf_depth[l]) % 2
+        cur, nxt = bufs[odd], bufs[1 - odd]
 
-        # --- route the leaf's window and partition it stably in place ----
+        # --- route the leaf's window and partition it stably ------------
         if ordered:     # the split column of the ordered window: no gather
-            binf = obins[start:start + cnt].index_select(1, feat)[:, 0]
+            binf = cur[1][start:start + cnt].index_select(1, feat)[:, 0]
         else:
-            win = order[start:start + cnt]
+            win = cur[0][start:start + cnt]
             binf = bins.view(-1).index_select(0, win.long() * f + feat)
         goes_left = route_goes_left(binf.long(), meta, feat, thr, dleft,
                                     is_cat_l, cat_row)
-        nl = _partition(cfg.partition_impl, order, lsc[l], start, cnt,
-                        goes_left, payload, scratch)[0].long()
+        nl = _partition(cfg.partition_impl, cur, nxt, lsc[l], start, cnt,
+                        goes_left, buffers.scratch)[0].long()
+        stats["partition_positions"] += cnt
         nr = cnt - nl
         lsc[l, 1] = nl
         lsc[new, 0] = start + nl
@@ -415,15 +474,17 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
         sc = torch.stack([torch.where(small_left, start, start + nl),
                           torch.where(small_left, nl, nr)]).int()
         if ordered:     # a contiguous window of the ordered copies
-            hist_small = hist_window(iota, sc, obins, ogw, ohw, ocw, B,
+            hist_small = hist_window(iota, sc, *nxt[1:], B,
                                      rows_upper_bound=cnt)
         else:
-            hist_small = hist_window(order, sc, bins, gw, hw, cw, B,
+            hist_small = hist_window(nxt[0], sc, bins, gw, hw, cw, B,
                                      rows_upper_bound=cnt)
         pool.children(l, new, frow, small_left, hist_small, child_depth)
         step += 1
     stats["splits"] += step
 
-    row_leaf = _row_leaf_from_intervals(order, lsc[:step + 1, 0],
-                                        lsc[:step + 1, 1], n)
+    leaf_odd = torch.from_numpy(pool.leaf_depth[:step + 1] % 2 == 1).to(dev)
+    row_leaf = _row_leaf_from_intervals((bufs[0][0], bufs[1][0]),
+                                        lsc[:step + 1, 0], lsc[:step + 1, 1],
+                                        leaf_odd, n)
     return pool.tree(step), row_leaf

@@ -1,44 +1,61 @@
 """Stable partition of a leaf's window: the grower's split step.
 
 ``partition_window`` is the port of ``lightgbm_tpu/ops/pallas_compact.py:
-compact_window`` (the Pallas kernel ``compact_pallas``): given the
-leaf-contiguous ``order`` array, a device ``int32[2]`` holding (start,
-cnt) and a ``uint8`` ``goes_left`` mask over the window's positions, it
-reorders ``order[start:start + cnt]`` in place so that the rows going left
-come first and both sides keep their original order (the reference's
-``DataPartition::Split``, ``data_partition.hpp:94-146``).  Payload
-matrices whose rows follow ``order`` (the leaf-ordered bins and weights
-of ``ordered_bins=on``) move the same way.  It returns the left count
-``nl`` as a device ``int32[1]``.
+compact_window`` (the Pallas kernel ``compact_pallas``): given a list of
+row-major matrices whose rows follow the leaf-contiguous ``order``
+(``order`` itself first, then the leaf-ordered bins and weights of
+``ordered_bins=on``), the window ``[start, start + cnt)`` and a 1-byte
+``goes_left`` mask over its positions (``bool`` or ``uint8``, nonzero =
+left), it writes each matrix's window, stably partitioned (lefts first,
+both sides in their original order; the reference's
+``DataPartition::Split``, ``data_partition.hpp:94-146``), into the same
+positions of a second matrix.  It returns the left count ``nl`` as a
+device ``int32[1]``.
 
-On a CUDA tensor it launches the hand-written kernel ``csrc/partition.cu``
-(four launches: count, scan, write, copy back; one call in the counter);
-on a CPU tensor it runs :func:`partition_window_plain`, the plain PyTorch
-version (the grower's cumsum-rank scatter).  :func:`partition_window_sort`
-is the ``partition_impl=sort`` form: a stable sort on the 0/1 key, which
-the JAX package computes outside Pallas with ``lax.sort``.
+Out of place, ``src -> dst``: the grower keeps two buffers of every matrix
+and alternates them by the leaf's depth parity, so no pass copies the
+window back.  The three forms share that interface:
+
+* :func:`partition_window` takes the window as a device ``int64[2]``
+  (start, cnt), as the grower holds it, and a host bound on cnt.  It
+  launches the hand-written kernel ``csrc/partition.cu`` on a CUDA tensor
+  (one launch for a bound of at most ``SMALL_MAX_ROWS`` positions, two
+  above; none for a bound of 0) and runs :func:`partition_window_plain`
+  on a CPU tensor;
+* :func:`partition_window_plain`, the plain PyTorch version (a
+  cumulative-sum rank and one scatter a matrix), on host (start, cnt);
+* :func:`partition_window_sort`, ``partition_impl=sort``: a stable sort
+  on the 0/1 key, which the JAX package computes outside Pallas with
+  ``lax.sort``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import struct
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from . import build
 
-MAX_PAYLOAD = 8       # payload matrices per call (the kernel's kMaxPayload)
+MAX_MATS = 9          # matrices a call moves: order + 8 payload matrices
+# the small form (one launch: each tile sums the window's mask itself)
+# takes windows of at most this many positions (the H100's crossover,
+# PERF.md); larger windows take the large form (a count pass and a write
+# pass with look-back)
+SMALL_MAX_ROWS = 196_608
+TILE = 2048           # positions a block and a status word cover (kTile)
+MAX_GRID_X = 2 ** 31 - 1
+_FORMS = {"small": 0, "large": 1}
 
 
-def partition_window_plain(order: torch.Tensor, start: int, cnt: int,
-                           goes_left: torch.Tensor,
-                           payload: Sequence[torch.Tensor] = ()
-                           ) -> torch.Tensor:
-    """Plain PyTorch partition of the window ``[start, start + cnt)``
-    (host ints): stable ranks from one cumulative sum, then one scatter of
-    the window and of each payload's rows.  Returns ``nl`` as ``int32[1]``
-    on ``order``'s device."""
-    dev = order.device
+def partition_window_plain(src: Sequence[torch.Tensor],
+                           dst: Sequence[torch.Tensor], start: int, cnt: int,
+                           goes_left: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch partition of the window ``[start, start + cnt)`` of
+    each ``src`` matrix into ``dst``: stable ranks from one cumulative sum,
+    then one scatter a matrix.  Returns ``nl`` as ``int32[1]``."""
+    dev = src[0].device
     if cnt == 0:
         return torch.zeros(1, dtype=torch.int32, device=dev)
     gl = goes_left[:cnt].bool()
@@ -46,151 +63,158 @@ def partition_window_plain(order: torch.Tensor, start: int, cnt: int,
     nl = c1[-1:]
     c0 = torch.arange(1, cnt + 1, device=dev) - c1
     rank = torch.where(gl, c1 - 1, nl + c0 - 1)
-    for t in (order, *payload):
-        win = t[start:start + cnt]
-        win.copy_(torch.empty_like(win).index_copy_(0, rank, win))
+    for s, d in zip(src, dst):
+        d[start:start + cnt].index_copy_(0, rank, s[start:start + cnt])
     return nl.int()
 
 
-def partition_window_sort(order: torch.Tensor, start: int, cnt: int,
-                          goes_left: torch.Tensor,
-                          payload: Sequence[torch.Tensor] = ()
-                          ) -> torch.Tensor:
+def partition_window_sort(src: Sequence[torch.Tensor],
+                          dst: Sequence[torch.Tensor], start: int, cnt: int,
+                          goes_left: torch.Tensor) -> torch.Tensor:
     """``partition_impl=sort``: a stable sort of the window on the key
-    (0 left, 1 right) and the same permutation applied to the payload
-    rows.  Returns ``nl`` as ``int32[1]``."""
-    dev = order.device
+    (0 left, 1 right), the permutation gathered from each ``src`` matrix
+    into ``dst``.  Returns ``nl`` as ``int32[1]``."""
+    dev = src[0].device
     if cnt == 0:
         return torch.zeros(1, dtype=torch.int32, device=dev)
     gl = goes_left[:cnt].bool()
     perm = torch.sort((~gl).to(torch.uint8), stable=True).indices
-    for t in (order, *payload):
-        win = t[start:start + cnt]
-        win.copy_(win.index_select(0, perm))
+    for s, d in zip(src, dst):
+        torch.index_select(s[start:start + cnt], 0, perm,
+                           out=d[start:start + cnt])
     return gl.sum(dtype=torch.int32).view(1)
 
 
+class LaunchPlan(NamedTuple):
+    """How the partition kernel is launched for a window bound."""
+    form: str          # "small": one launch; "large": count + write
+    grid: int          # blocks of each launch: one a tile of TILE positions
+    launches: int      # kernel launches of the call
+
+
+def plan_launch(bound: int, form: Optional[str] = None) -> LaunchPlan:
+    """The launch of a call over at most ``bound`` positions: a pure
+    function of what the host knows (the grower's exact cnt).  ``form``
+    replaces the choice by ``SMALL_MAX_ROWS`` (to time the forms)."""
+    if bound < 0:
+        raise ValueError(f"plan_launch: bound {bound}")
+    if form is None:
+        form = "small" if bound <= SMALL_MAX_ROWS else "large"
+    grid = max(1, -(-bound // TILE))
+    if form not in _FORMS or grid > MAX_GRID_X:
+        raise ValueError(f"plan_launch: form {form!r} over {bound} "
+                         f"positions")
+    launches = 0 if bound == 0 else {"small": 1, "large": 2}[form]
+    return LaunchPlan(form, grid, launches)
+
+
+def partition_scratch(rows: int, device) -> torch.Tensor:
+    """Zeroed scratch for kernel calls over windows of up to ``rows``
+    positions on ``device``: the large form's status word of 8 bytes a
+    tile of ``TILE`` positions and a ticket, which the kernel leaves at 0.
+    Allocate once and reuse."""
+    words = -(-max(rows, 1) // TILE) + 1
+    return torch.zeros(words, dtype=torch.int64, device=device)
+
+
+# the C entry point's one argument (csrc/partition.cu: Args): the source,
+# destination and row width of MAX_MATS matrices, 4 pointers, 3 sizes, 4
+# ints and the stream
+_ARGS = struct.Struct(f"@{MAX_MATS}P{MAX_MATS}P{MAX_MATS}q4P3q4iP")
+_NULLS = (0,) * MAX_MATS
+
+
 def _row_bytes(t: torch.Tensor) -> int:
-    return (t[0].numel() if t.dim() > 1 else 1) * t.element_size()
+    return (t.shape[1] if t.dim() > 1 else 1) * t.element_size()
 
 
-def _lib():
-    """The kernel's C entry points with their argument types declared
-    (built and loaded at first use)."""
-    lib = build.load("partition")
-    fn = lib.lgbt_partition
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        sz = lib.lgbt_partition_scratch_bytes
-        sz.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        sz.restype = ctypes.c_longlong
-    return lib
+def _check_cuda_args(src, dst, sc, goes_left, bound: int, scratch) -> None:
+    """Device, type, contiguity and shapes of the kernel's arguments.
+    Messages are built only on failure: the grower calls once per split."""
+    if not 1 <= len(src) <= MAX_MATS or len(dst) != len(src):
+        raise ValueError(f"partition_window: 1 to {MAX_MATS} source "
+                         f"matrices and as many destinations, got "
+                         f"{len(src)} and {len(dst)}")
+    dev = src[0].get_device()
+    n = src[0].shape[0]
+    for s, d in zip(src, dst):
+        if (s.get_device() != dev or d.get_device() != dev
+                or not s.is_contiguous() or not d.is_contiguous()
+                or s.dim() > 2 or s.shape != d.shape or s.dtype != d.dtype
+                or s.shape[0] != n):
+            raise ValueError("partition_window: each source and its "
+                             "destination must be contiguous vectors or "
+                             "matrices of one shape and type, with one row "
+                             "per entry of order, on one card")
+    if (sc.get_device() != dev or sc.dtype != torch.int64
+            or sc.numel() != 2 or not sc.is_contiguous()):
+        raise ValueError("partition_window: sc must be a contiguous int64 "
+                         "(start, cnt) on order's card")
+    if (goes_left.get_device() != dev or goes_left.element_size() != 1
+            or not goes_left.is_contiguous() or goes_left.numel() < bound
+            or not 0 <= bound <= n):
+        raise ValueError(f"partition_window: goes_left must be a contiguous "
+                         f"1-byte mask on order's card covering the bound "
+                         f"{bound} (at most {n} rows)")
+    if scratch.get_device() != dev or scratch.dtype != torch.int64:
+        raise ValueError("partition_window: scratch must be int64 on "
+                         "order's card (partition_scratch)")
 
 
-def _scratch_bytes(rows: int, payload: Sequence[torch.Tensor] = ()) -> int:
-    """Bytes of scratch a kernel call over up to ``rows`` window positions
-    with this payload needs (the grower allocates it once per tree)."""
-    widths = (ctypes.c_longlong * max(len(payload), 1))(
-        *[_row_bytes(p) for p in payload])
-    return int(_lib().lgbt_partition_scratch_bytes(rows, len(payload),
-                                                   widths))
+def partition_window(src: Sequence[torch.Tensor],
+                     dst: Sequence[torch.Tensor], sc: torch.Tensor,
+                     goes_left: torch.Tensor, rows_upper_bound: int,
+                     scratch: Optional[torch.Tensor] = None,
+                     form: Optional[str] = None) -> torch.Tensor:
+    """Stably partition the window (start, cnt) = ``sc`` (an ``int64[2]``
+    on the matrices' device) of each ``src`` matrix (``src[0]`` is
+    ``order``) by ``goes_left[:cnt]`` into the same positions of ``dst``;
+    returns ``nl`` (``int32[1]``).
 
-
-def partition_scratch(order: torch.Tensor,
-                      payload: Sequence[torch.Tensor] = ()
-                      ) -> Optional[torch.Tensor]:
-    """Scratch for kernel calls over any window of ``order`` with this
-    payload, to allocate once and reuse; None for CPU tensors, whose plain
-    version needs none."""
-    if order.device.type != "cuda":
-        return None
-    return torch.empty(_scratch_bytes(order.numel(), payload),
-                       dtype=torch.uint8, device=order.device)
-
-
-def _check_cuda_args(order, sc, goes_left, payload, bound) -> None:
-    dev = order.device
-    for name, t, dtype in (("order", order, torch.int32),
-                           ("sc", sc, torch.int32),
-                           ("goes_left", goes_left, torch.uint8)):
-        if t.device != dev:
-            raise ValueError(f"partition_window: {name} is on {t.device}, "
-                             f"order on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"partition_window: {name} must be {dtype}, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"partition_window: {name} must be contiguous")
-    if sc.numel() != 2:
-        raise ValueError("partition_window: sc must hold (start, cnt)")
-    if goes_left.numel() < bound or bound > order.numel():
-        raise ValueError(f"partition_window: the grid bound {bound} exceeds "
-                         f"goes_left ({goes_left.numel()}) or order "
-                         f"({order.numel()})")
-    if len(payload) > MAX_PAYLOAD:
-        raise ValueError(f"partition_window: at most {MAX_PAYLOAD} payload "
-                         f"matrices, got {len(payload)}")
-    for p in payload:
-        if p.device != dev or not p.is_contiguous() or (
-                p.shape[0] != order.numel()):
-            raise ValueError("partition_window: each payload must be a "
-                             "contiguous matrix on order's device with one "
-                             "row per entry of order")
-
-
-def partition_window(order: torch.Tensor, sc: torch.Tensor,
-                     goes_left: torch.Tensor,
-                     payload: Sequence[torch.Tensor] = (),
-                     rows_upper_bound: Optional[int] = None,
-                     scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stably partition ``order[start:start+cnt]`` in place by
-    ``goes_left[:cnt]`` (``uint8``), (start, cnt) = ``sc`` (device
-    ``int32[2]``), moving each payload's rows with it; returns ``nl``
-    (``int32[1]``).
-
-    ``rows_upper_bound`` is a host-known bound on cnt that sizes the
-    kernel's grid and scratch; the kernel reads the true cnt from ``sc``.
-    ``scratch`` (``uint8``, from :func:`partition_scratch`) is allocated
-    when not given.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if order.device.type == "cpu":
-        start, cnt = (int(v) for v in sc.tolist())
-        return partition_window_plain(order, start, cnt, goes_left, payload)
-    if order.device.type != "cuda":
+    ``rows_upper_bound`` is a host-known bound on cnt (the grower passes
+    the exact count) from which :func:`plan_launch` picks the form and the
+    grid; the kernel reads the true window from ``sc``.  ``scratch`` (from
+    :func:`partition_scratch`, sized for at least the bound) is allocated
+    when not given.  ``form`` replaces the plan's form (to time the forms
+    against each other).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel, on their own card, or raise."""
+    if not src[0].is_cuda:
+        if src[0].device.type == "cpu":
+            start, cnt = (int(v) for v in sc.tolist())
+            return partition_window_plain(src, dst, start, cnt, goes_left)
         raise ValueError(f"partition_window: unsupported device "
-                         f"{order.device}")
-    bound = order.numel() if rows_upper_bound is None else int(
-        rows_upper_bound)
-    _check_cuda_args(order, sc, goes_left, payload, bound)
-    need = _scratch_bytes(bound, payload)
+                         f"{src[0].device}")
+    bound = int(rows_upper_bound)
     if scratch is None:
-        scratch = torch.empty(need, dtype=torch.uint8, device=order.device)
-    elif (scratch.device != order.device or scratch.dtype != torch.uint8
-          or scratch.numel() < need):
-        raise ValueError(f"partition_window: scratch must be {need} uint8 "
-                         f"bytes on {order.device}")
-    nl = torch.empty(1, dtype=torch.int32, device=order.device)
-    n_pay = len(payload)
-    ptrs = (ctypes.c_void_p * max(n_pay, 1))(
-        *[p.data_ptr() for p in payload])
-    widths = (ctypes.c_longlong * max(n_pay, 1))(
-        *[_row_bytes(p) for p in payload])
-    with torch.cuda.device(order.device):    # launch on the tensors' card
-        err = _lib().lgbt_partition(
-            order.data_ptr(), sc.data_ptr(), goes_left.data_ptr(), n_pay,
-            ptrs, widths, scratch.data_ptr(), nl.data_ptr(), bound,
-            torch.cuda.current_stream(order.device).cuda_stream)
+        scratch = partition_scratch(bound, src[0].device)
+    _check_cuda_args(src, dst, sc, goes_left, bound, scratch)
+    plan = plan_launch(bound, form)
+    if plan.launches == 0:     # an empty window: nothing to move
+        return torch.zeros(1, dtype=torch.int32, device=src[0].device)
+    if plan.form != "small" and plan.grid >= scratch.numel():
+        raise ValueError(f"partition_window: scratch of {scratch.numel()} "
+                         f"words is too small for {bound} positions")
+    dev = src[0].get_device()
+    nl = torch.empty(1, dtype=torch.int32, device=src[0].device)
+    pad = MAX_MATS - len(src)
+    # the C side makes the tensors' card current only if it is not
+    err = build.function("partition", "lgbt_partition", [ctypes.c_char_p])(
+        _ARGS.pack(*[t.data_ptr() for t in src], *_NULLS[:pad],
+                   *[t.data_ptr() for t in dst], *_NULLS[:pad],
+                   *[_row_bytes(t) for t in src], *_NULLS[:pad],
+                   goes_left.data_ptr(), sc.data_ptr(), nl.data_ptr(),
+                   scratch.data_ptr(), src[0].shape[0], bound,
+                   scratch.numel() - 1, len(src), _FORMS[plan.form], dev, 0,
+                   torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"partition kernel launch failed: CUDA error "
                            f"{err}")
     partition_window.launches += 1
+    partition_window.form_launches[plan.form] += 1
     return nl
 
 
-# kernel calls (four launches each), counted where the kernel is launched
-# and nowhere else
+# kernel calls, counted where the kernel is launched and nowhere else; and
+# the same calls by form (a small call is one launch, a large call two)
 partition_window.launches = 0
+partition_window.form_launches = {"small": 0, "large": 0}

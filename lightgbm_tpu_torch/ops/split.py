@@ -36,6 +36,7 @@ histograms whose sums are exact give equal results.
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import NamedTuple, Optional
 
 import torch
@@ -123,53 +124,69 @@ def cat_group_accept_plain(step: torch.Tensor, ok: torch.Tensor,
     return accept
 
 
-def _cat_group_fn():
-    """The kernel's C entry point with its argument types declared (built
-    and loaded at first use)."""
-    fn = build.load("cat_group").lgbt_cat_group
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# the C entry point's one argument (csrc/cat_group.cu: Args): 5 pointers,
+# the lanes, 3 ints, max_cat_group, padding and the stream
+_GROUP_ARGS = struct.Struct("@5Pq3ifiP")
+
+
+def _mdpg_group(m0: torch.Tensor, ok: torch.Tensor) -> int:
+    """Lanes that share one entry of ``m0``: its shape must be ``ok``'s
+    without the last axis, or a prefix of it followed by 1s (one value a
+    leaf, ``[K, 1, 1]``).  0 when it is neither."""
+    lead = ok.shape[:-1]
+    if m0.dim() != len(lead):
+        return 0
+    d = len(lead)
+    while d and m0.shape[d - 1] == 1 and lead[d - 1] != 1:
+        d -= 1
+    if m0.shape[:d] != lead[:d] or any(s != 1 for s in m0.shape[d:]):
+        return 0
+    return max(1, ok.numel() // max(ok.shape[-1], 1) // max(m0.numel(), 1))
 
 
 def cat_group_accept(step: torch.Tensor, ok: torch.Tensor,
                      right_count: torch.Tensor, mdpg0: torch.Tensor,
                      max_cat_group: int) -> torch.Tensor:
-    """:func:`cat_group_accept_plain` for ``[..., T]`` inputs: CPU tensors
-    take the plain loop; CUDA tensors launch the kernel or raise."""
-    if ok.device.type == "cpu":
-        return cat_group_accept_plain(step, ok, right_count, mdpg0,
-                                      max_cat_group)
-    if ok.device.type != "cuda":
+    """:func:`cat_group_accept_plain` for ``[..., T]`` inputs (``ok`` and
+    the result ``torch.bool``; ``mdpg0`` shaped like ``ok`` without its
+    last axis, or broadcast along its trailing axes, as ``[K, 1, 1]``):
+    CPU tensors take the plain loop; CUDA tensors launch the kernel, on
+    their own card, or raise."""
+    if not ok.is_cuda:
+        if ok.device.type == "cpu":
+            return cat_group_accept_plain(step, ok, right_count, mdpg0,
+                                          max_cat_group)
         raise ValueError(f"cat_group_accept: unsupported device {ok.device}")
-    for name, t in (("step", step), ("right_count", right_count),
-                    ("mdpg0", mdpg0)):
-        if t.dtype != torch.float32 or t.device != ok.device:
-            raise TypeError(f"cat_group_accept: {name} must be float32 on "
-                            f"{ok.device}")
+    dev = ok.get_device()
+    for t in (step, right_count, mdpg0):
+        if t.dtype != torch.float32 or t.get_device() != dev:
+            raise TypeError("cat_group_accept: step, right_count and mdpg0 "
+                            "must be float32 on ok's card")
+    group = _mdpg_group(mdpg0, ok)
+    if (ok.dtype != torch.bool or step.shape != ok.shape
+            or right_count.shape != ok.shape or not group
+            or not (step.is_contiguous() and ok.is_contiguous()
+                    and right_count.is_contiguous()
+                    and mdpg0.is_contiguous())):
+        raise ValueError("cat_group_accept: step, ok (bool) and right_count "
+                         "must be contiguous of one shape, mdpg0 that shape "
+                         "without its last axis or broadcast along its "
+                         "trailing axes")
     positions = ok.shape[-1]
     lanes = ok.numel() // max(positions, 1)
-    step = step.contiguous()
-    ok8 = ok.to(torch.uint8).contiguous()
-    rc = right_count.contiguous()
-    m0 = mdpg0.contiguous()
-    if step.shape != ok.shape or rc.shape != ok.shape or (
-            m0.shape != ok.shape[:-1]):
-        raise ValueError("cat_group_accept: step, ok and right_count must "
-                         "share a shape, mdpg0 that shape without its last "
-                         "axis")
-    accept = torch.empty_like(ok8)
-    with torch.cuda.device(ok.device):       # launch on the tensors' card
-        err = _cat_group_fn()(
-            step.data_ptr(), ok8.data_ptr(), rc.data_ptr(), m0.data_ptr(),
-            accept.data_ptr(), lanes, positions, float(max_cat_group),
-            torch.cuda.current_stream(ok.device).cuda_stream)
+    accept = torch.empty_like(ok)
+    # the C side makes the tensors' card current only if it is not
+    err = build.function("cat_group", "lgbt_cat_group", [ctypes.c_char_p])(
+        _GROUP_ARGS.pack(step.data_ptr(), ok.data_ptr(),
+                         right_count.data_ptr(), mdpg0.data_ptr(),
+                         accept.data_ptr(), lanes, positions, group, dev,
+                         float(max_cat_group), 0,
+                         torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"cat_group kernel launch failed: CUDA error "
                            f"{err}")
     cat_group_accept.launches += 1
-    return accept.bool()
+    return accept
 
 
 # kernel launches, counted where the kernel is launched and nowhere else
@@ -449,7 +466,7 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, feat_valid,
     # positions (feature_histogram.hpp:142-147,169-177)
     both_ok = cont_ok & right_ok
     mdpg0 = torch.clamp(torch.floor(pc / cfg.max_cat_group),
-                        min=1.0)[..., None].expand(k, f, 2)
+                        min=1.0)[..., None]                     # [K, 1, 1]
     accept = cat_group_accept(step_c, both_ok, rc2, mdpg0,
                               cfg.max_cat_group)
 

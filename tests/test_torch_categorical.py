@@ -163,6 +163,7 @@ SCAN_CASES = [
     dict(min_data_in_leaf=200, min_sum_hessian_in_leaf=50.0),
     dict(lambda_l1=2.0, lambda_l2=3.0, min_gain_to_split=1.0),
     dict(min_data_in_leaf=3000),                         # nothing splits
+    dict(max_cat_threshold=1),                           # one position
 ]
 
 
@@ -234,24 +235,67 @@ def _group_inputs(seed, shape=(2, 6, 2, 40)):
                                        / 8.0)).astype(np.float32)))
 
 
-def test_group_loop_matches_scalar_reference():
-    """The plain group loop equals the reference's accounting written out
-    one lane at a time (feature_histogram.hpp:142-147,169-177)."""
-    step, ok, rc, m0 = _group_inputs(3)
-    got = cat_group_accept_plain(step, ok, rc, m0, 8).numpy()
-    s, o, r, m = (a.numpy() for a in (step, ok, rc, m0))
+def _scalar_accepts(step, ok, rc, m0, max_cat_group):
+    """The reference's accounting written out one lane at a time
+    (feature_histogram.hpp:142-147,169-177), in float32; ``m0``
+    broadcasts over the lanes as numpy broadcasts it."""
+    s, o, r = (a.numpy() for a in (step, ok, rc))
+    m = np.broadcast_to(m0.numpy(), o.shape[:-1])
+    out = np.zeros(o.shape, bool)
     for lane in np.ndindex(o.shape[:-1]):
-        cnt, rest, mdpg = np.float32(0), np.float32(8), m[lane]
+        cnt, rest, mdpg = np.float32(0), np.float32(max_cat_group), m[lane]
         for j in range(o.shape[-1]):
             cnt = np.float32(cnt + s[lane][j])
             acc = bool(o[lane][j]) and cnt >= mdpg
-            assert got[lane][j] == acc, (lane, j)
+            out[lane][j] = acc
             if acc:
                 rest = np.float32(rest - 1)
                 if rest > 0:
                     mdpg = np.float32(max(1.0, np.floor(
                         np.float32(r[lane][j] / max(rest, np.float32(1))))))
                 cnt = np.float32(0)
+    return out
+
+
+def test_group_loop_matches_scalar_reference():
+    """The plain group loop equals the reference's accounting written out
+    one lane at a time."""
+    step, ok, rc, m0 = _group_inputs(3)
+    got = cat_group_accept_plain(step, ok, rc, m0, 8).numpy()
+    np.testing.assert_array_equal(got, _scalar_accepts(step, ok, rc, m0, 8))
+
+
+def _group_edge_case(case):
+    """Inputs of the group loop at its edges: one position (T = 1), no
+    position ok, 42 lanes (not a multiple of a kernel block's lanes), 300
+    positions (past one 256-position chunk) and one minimum group size a
+    leaf (``[K, 1, 1]``, the form the split scan passes)."""
+    if case == "one_position":
+        return _group_inputs(4, (2, 6, 2, 1))
+    if case == "42_lanes":
+        return _group_inputs(6, (3, 7, 2, 40))
+    if case == "300_positions":
+        return _group_inputs(7, (1, 3, 2, 300))
+    step, ok, rc, m0 = _group_inputs(5, (3, 5, 2, 37))
+    if case == "all_false":
+        return step, torch.zeros_like(ok), rc, m0
+    return step, ok, rc, m0[:, :1, :1].contiguous()
+
+
+GROUP_EDGE_CASES = ["one_position", "all_false", "42_lanes",
+                    "300_positions", "mdpg0_per_leaf"]
+
+
+@pytest.mark.parametrize("case", GROUP_EDGE_CASES)
+def test_group_loop_edge_cases(case):
+    """bool in, bool out, equal to the scalar accounting."""
+    step, ok, rc, m0 = _group_edge_case(case)
+    got = cat_group_accept_plain(step, ok, rc, m0, 4)
+    assert got.dtype == torch.bool and got.shape == ok.shape
+    np.testing.assert_array_equal(got.numpy(),
+                                  _scalar_accepts(step, ok, rc, m0, 4))
+    if case == "all_false":
+        assert not got.any()
 
 
 @pytest.mark.gpu
@@ -259,12 +303,14 @@ def test_group_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison "
                     "at the main path's shapes")
-    for seed in range(3):
-        args = [a.cuda() for a in _group_inputs(seed, (2, 8, 2, 255))]
+    cases = [_group_inputs(seed, (2, 8, 2, 255)) for seed in range(3)]
+    cases += [_group_edge_case(c) for c in GROUP_EDGE_CASES]
+    for args in cases:
+        args = [a.cuda() for a in args]
         k = cat_group_accept(*args, 64)
         p = cat_group_accept_plain(*args, 64)
         torch.cuda.synchronize()
-        assert torch.equal(k, p)
+        assert k.dtype == torch.bool and torch.equal(k, p)
 
 
 # ---------------------------------------------------------------- end to end

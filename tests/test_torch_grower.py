@@ -14,7 +14,8 @@ import jax.numpy as jnp
 from lightgbm_tpu.grower import FeatureMeta as JaxMeta
 from lightgbm_tpu.grower import GrowerConfig as JaxGrowerConfig
 from lightgbm_tpu.grower import make_grower
-from lightgbm_tpu_torch.grower import FeatureMeta, GrowerConfig, grow_tree
+from lightgbm_tpu_torch.grower import (FeatureMeta, GrowerConfig, WindowBuffers,
+                                      grow_tree)
 
 
 def _problem(n, seed):
@@ -137,3 +138,63 @@ def test_partition_modes_identical_to_jax(jax_cat_tree, impl, ordered):
         np.testing.assert_array_equal(getattr(tree, name).numpy(),
                                       getattr(jtree, name), err_msg=name)
     np.testing.assert_array_equal(row_leaf.numpy(), jrow)
+
+
+@pytest.mark.parametrize("impl,ordered", [
+    ("scatter", "off"), ("scatter", "on"), ("sort", "off"), ("sort", "on"),
+    ("compact", "off"), ("compact", "on")])
+def test_leaf_windows_lie_in_their_depth_parity_buffer(impl, ordered):
+    """Out-of-place partition: each final leaf's rows sit as one
+    contiguous, ascending window of the ``order`` buffer of its depth
+    parity (and, ordered, the bins and weights there are those rows'),
+    with the buffers reused across two trees, whose trees equal those of
+    fresh buffers."""
+    bins, g, h, c, nb, mt, db, ic = _cat_problem(3000, seed=4)
+    t = torch.from_numpy
+    cfg = GrowerConfig(partition_impl=impl, ordered_bins=ordered,
+                       num_leaves=31, min_data_in_leaf=5, **_CAT_KW)
+    buffers = WindowBuffers(len(g), bins.shape[1], cfg, "cpu")
+    meta = FeatureMeta(t(nb), t(mt), t(db), t(ic))
+    valid = torch.ones(len(nb), dtype=bool)
+    for seed in (4, 5):     # the second tree starts from used buffers
+        g = np.random.default_rng(seed).permutation(g)
+        tree, row_leaf = grow_tree(t(bins), t(g), t(h), t(c), meta, valid,
+                                   cfg, buffers=buffers)
+        fresh, fresh_rows = grow_tree(t(bins), t(g), t(h), t(c), meta, valid,
+                                      cfg)
+        for name in tree._fields[1:]:
+            assert torch.equal(getattr(tree, name), getattr(fresh, name))
+        assert torch.equal(row_leaf, fresh_rows)
+        row_leaf = row_leaf.numpy()
+        depth = tree.leaf_depth.numpy()
+        assert len(set(depth[:tree.num_leaves] % 2)) == 2
+        # every split puts its left child first, so the leaves' windows
+        # follow the tree's in-order leaf sequence
+        lc, rc = tree.left_child.numpy(), tree.right_child.numpy()
+
+        def leaves(node):
+            if node < 0:
+                return [~node]
+            return leaves(lc[node]) + leaves(rc[node])
+
+        start = 0
+        for leaf in leaves(0):
+            rows = np.flatnonzero(row_leaf == leaf)
+            pos = np.arange(start, start + len(rows))
+            start += len(rows)
+            buf = buffers.bufs[depth[leaf] % 2]
+            np.testing.assert_array_equal(buf[0].numpy()[pos], rows)
+            if ordered == "on":
+                np.testing.assert_array_equal(buf[1].numpy()[pos], bins[rows])
+                np.testing.assert_array_equal(buf[2].numpy()[pos], g[rows])
+        assert start == len(g)
+
+
+def test_buffers_of_other_shapes_are_refused():
+    bins, g, h, c, nb, mt, db = _problem(500, seed=2)
+    t = torch.from_numpy
+    cfg = GrowerConfig(num_leaves=7, max_bin=63, ordered_bins="on")
+    with pytest.raises(ValueError):
+        grow_tree(t(bins), t(g), t(h), t(c), FeatureMeta(t(nb), t(mt), t(db)),
+                  torch.ones(len(nb), dtype=bool), cfg,
+                  buffers=WindowBuffers(400, bins.shape[1], cfg, "cpu"))

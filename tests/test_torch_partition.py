@@ -1,7 +1,9 @@
 """The port's window partition (``ops/partition.py``) against lightgbm_tpu's
 ``compact_window`` (the Pallas kernel, run in interpret mode) and against
 a numpy stable-partition oracle.  A permutation is exact, so the window,
-every payload and the left count must be identical."""
+every payload and the left count must be identical.  The port partitions
+out of place (``src -> dst``); positions of ``dst`` outside the window
+keep what they held."""
 import numpy as np
 import pytest
 import torch
@@ -9,9 +11,12 @@ import torch
 import jax.numpy as jnp
 
 from lightgbm_tpu.ops.pallas_compact import compact_window
-from lightgbm_tpu_torch.ops.partition import (partition_window,
+from lightgbm_tpu_torch.ops.partition import (MAX_GRID_X, SMALL_MAX_ROWS,
+                                              TILE, partition_scratch,
+                                              partition_window,
                                               partition_window_plain,
-                                              partition_window_sort)
+                                              partition_window_sort,
+                                              plan_launch)
 
 
 def _oracle(win, gl, cnt):
@@ -23,18 +28,34 @@ def _oracle(win, gl, cnt):
     return out
 
 
-def _port(win, gl, cnt, payload_u32, start=0):
-    """Partition ``win[:cnt]`` with the port (CPU: the plain version);
-    u32 payload columns travel as int32 rows, bit for bit."""
-    order = torch.from_numpy(win.copy())
-    pay = [torch.from_numpy(p.view(np.int32).copy()) for p in payload_u32]
-    sc = torch.tensor([start, cnt], dtype=torch.int32)
-    nl = partition_window(order, sc, torch.from_numpy(gl.astype(np.uint8)),
-                          pay)
-    return order.numpy(), [p.numpy().view(np.uint32) for p in pay], int(nl[0])
+def _sc(start, cnt):
+    """The window as the grower holds it: a device int64 (start, cnt)."""
+    return torch.tensor([start, cnt], dtype=torch.int64)
 
 
-def _check_against_jax(size, cnt, frac, npay, seed):
+def _port(win, gl, cnt, payload_u32, start=0, garbage_seed=None):
+    """Partition ``win[:cnt]`` with the port (CPU: the plain version) into
+    a second buffer, zeroed or full of garbage; u32 payload columns travel
+    as int32 rows, bit for bit.  Returns the destination, with the
+    source's entries outside the window."""
+    src = [torch.from_numpy(win.copy())] + [
+        torch.from_numpy(p.view(np.int32).copy()) for p in payload_u32]
+    if garbage_seed is None:
+        dst = [torch.zeros_like(t) for t in src]
+    else:
+        g = torch.Generator().manual_seed(garbage_seed)
+        dst = [torch.randint(-2 ** 31, 2 ** 31 - 1, t.shape, generator=g,
+                             dtype=torch.int32) for t in src]
+    nl = partition_window(src, dst, _sc(start, cnt),
+                          torch.from_numpy(gl.astype(np.uint8)), cnt)
+    out = [d.numpy().copy() for d in dst]
+    for o, s_ in zip(out, src):      # outside the window: the source's
+        o[start + cnt:] = s_.numpy()[start + cnt:]
+        o[:start] = s_.numpy()[:start]
+    return out[0], [p.view(np.uint32) for p in out[1:]], int(nl[0])
+
+
+def _check_against_jax(size, cnt, frac, npay, seed, garbage_seed=None):
     rng = np.random.RandomState(seed)
     win = rng.randint(0, 1 << 24, size).astype(np.int32)
     valid = np.arange(size) < cnt
@@ -45,7 +66,7 @@ def _check_against_jax(size, cnt, frac, npay, seed):
                                    jnp.asarray(valid),
                                    tuple(jnp.asarray(p) for p in pay),
                                    interpret=True)
-    tw, tpay, tnl = _port(win, gl, cnt, pay)
+    tw, tpay, tnl = _port(win, gl, cnt, pay, garbage_seed=garbage_seed)
     assert tnl == int(jnl) == int(gl.sum())
     np.testing.assert_array_equal(tw, np.asarray(jw))
     np.testing.assert_array_equal(tw, _oracle(win, gl, cnt))
@@ -75,6 +96,15 @@ def test_plain_matches_jax_compact_sweep(trial):
                            seed=int(rng.randint(1 << 30)))
 
 
+@pytest.mark.parametrize("size,cnt,npay", [(1024, 1024, 2), (1536, 1300, 1),
+                                            (512, 0, 0)])
+def test_garbage_destination_matches_jax_compact(size, cnt, npay):
+    """A destination full of garbage gets exactly the JAX compaction's
+    window: every position of it is written."""
+    _check_against_jax(size, cnt, 0.43, npay, seed=size + 3 * cnt,
+                       garbage_seed=cnt + 1)
+
+
 def _ordered_problem(n, seed):
     """The ordered-mode payload: ``[N, 28]`` uint8 bins and three f32
     weight vectors, rows following ``order``."""
@@ -89,23 +119,24 @@ def _ordered_problem(n, seed):
 @pytest.mark.parametrize("frac", [0.0, 1.0, 0.37])
 def test_plain_matches_oracle_with_ordered_payload(cnt, frac):
     """Window sizes that are not multiples of 512, at an offset, with the
-    ordered-mode payload; rows outside the window are untouched."""
+    ordered-mode payload; rows of dst outside the window are untouched and
+    the source is only read."""
     n, start = 6000, 1234
     order, bins, w = _ordered_problem(n, seed=cnt)
     rng = np.random.default_rng(cnt + 7)
     gl = rng.random(cnt) < frac
     t = torch.from_numpy
-    o, b = t(order.copy()), t(bins.copy())
-    ws = [t(a.copy()) for a in w]
-    sc = torch.tensor([start, cnt], dtype=torch.int32)
-    nl = partition_window(o, sc, t(gl.astype(np.uint8)), [b, *ws])
+    src = [t(order.copy()), t(bins.copy()), *[t(a.copy()) for a in w]]
+    dst = [torch.full_like(x, 7) for x in src]
+    nl = partition_window(src, dst, _sc(start, cnt), t(gl.astype(np.uint8)),
+                          cnt)
     assert nl.dtype == torch.int32 and int(nl[0]) == int(gl.sum())
-    perm = np.arange(n)
-    perm[start:start + cnt] = start + _oracle(np.arange(cnt), gl, cnt)
-    np.testing.assert_array_equal(o.numpy(), order[perm])
-    np.testing.assert_array_equal(b.numpy(), bins[perm])
-    for a, ref in zip(ws, w):
-        np.testing.assert_array_equal(a.numpy(), ref[perm])
+    perm = start + _oracle(np.arange(cnt), gl, cnt)
+    for d, s_, ref in zip(dst, src, (order, bins, *w)):
+        d = d.numpy()
+        np.testing.assert_array_equal(d[start:start + cnt], ref[perm])
+        assert (d[:start] == 7).all() and (d[start + cnt:] == 7).all()
+        np.testing.assert_array_equal(s_.numpy(), ref)
 
 
 def test_window_ending_at_last_row():
@@ -113,11 +144,12 @@ def test_window_ending_at_last_row():
     order, bins, w = _ordered_problem(n, seed=3)
     gl = np.random.default_rng(4).random(700) < 0.5
     t = torch.from_numpy
-    o, b = t(order.copy()), t(bins.copy())
-    nl = partition_window_plain(o, n - 700, 700, t(gl), [b])
+    src = [t(order.copy()), t(bins.copy())]
+    dst = [x.clone() for x in src]
+    nl = partition_window_plain(src, dst, n - 700, 700, t(gl))
     ref = _oracle(order[n - 700:], gl, 700)
-    np.testing.assert_array_equal(o.numpy()[n - 700:], ref)
-    np.testing.assert_array_equal(o.numpy()[:n - 700], order[:n - 700])
+    np.testing.assert_array_equal(dst[0].numpy()[n - 700:], ref)
+    np.testing.assert_array_equal(dst[0].numpy()[:n - 700], order[:n - 700])
     assert int(nl[0]) == int(gl.sum())
 
 
@@ -128,10 +160,11 @@ def test_sort_form_equals_plain(cnt):
     order, bins, w = _ordered_problem(5000, seed=11)
     gl = torch.from_numpy(np.random.default_rng(cnt).random(cnt) < 0.3)
     t = torch.from_numpy
-    a = [t(order.copy()), t(bins.copy()), t(w[0].copy())]
-    b = [t(order.copy()), t(bins.copy()), t(w[0].copy())]
-    na = partition_window_plain(a[0], 300, cnt, gl, a[1:])
-    nb = partition_window_sort(b[0], 300, cnt, gl, b[1:])
+    src = [t(order.copy()), t(bins.copy()), t(w[0].copy())]
+    a = [torch.zeros_like(x) for x in src]
+    b = [torch.zeros_like(x) for x in src]
+    na = partition_window_plain(src, a, 300, cnt, gl)
+    nb = partition_window_sort(src, b, 300, cnt, gl)
     assert torch.equal(na, nb)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
@@ -142,12 +175,55 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     gl = (np.random.default_rng(6).random(900) < 0.5).astype(np.uint8)
     before = partition_window.launches
     t = torch.from_numpy
-    a, b = t(order.copy()), t(order.copy())
-    na = partition_window(a, torch.tensor([100, 900], dtype=torch.int32),
-                          t(gl))
-    nb = partition_window_plain(b, 100, 900, t(gl))
-    assert torch.equal(a, b) and torch.equal(na, nb)
+    src = [t(order.copy())]
+    a, b = [torch.zeros_like(src[0])], [torch.zeros_like(src[0])]
+    na = partition_window(src, a, _sc(100, 900), t(gl), 900)
+    nb = partition_window_plain(src, b, 100, 900, t(gl))
+    assert torch.equal(a[0], b[0]) and torch.equal(na, nb)
     assert partition_window.launches == before
+
+
+@pytest.mark.parametrize("cnt,form,launches", [
+    (0, "small", 0), (1, "small", 1), (4097, "small", 1),
+    (SMALL_MAX_ROWS - 1, "small", 1), (SMALL_MAX_ROWS, "small", 1),
+    (SMALL_MAX_ROWS + 1, "large", 2), (11_000_000, "large", 2)])
+def test_launch_plan_at_its_edges(cnt, form, launches):
+    """One launch (the small form) up to SMALL_MAX_ROWS positions, the
+    two-launch large form above, none for an empty window; a block a tile
+    of TILE positions, within the grid's limit; the scratch holds a status
+    word for every tile and the ticket, zeroed."""
+    plan = plan_launch(cnt)
+    assert (plan.form, plan.launches) == (form, launches)
+    assert plan.grid == max(1, -(-cnt // TILE)) <= MAX_GRID_X
+    assert (plan.grid - 1) * TILE < max(cnt, 1) <= plan.grid * TILE
+    scratch = partition_scratch(cnt, "cpu")
+    assert scratch.numel() == plan.grid + 1 and scratch.eq(0).all()
+
+
+def test_launch_plan_rejects_what_no_kernel_takes():
+    with pytest.raises(ValueError):
+        plan_launch(-1)
+    with pytest.raises(ValueError):
+        plan_launch(10, form="other")
+    assert plan_launch(10, form="large") == (
+        "large", 1, 2)
+
+
+@pytest.mark.parametrize("cnt", [SMALL_MAX_ROWS - 1, SMALL_MAX_ROWS,
+                                 SMALL_MAX_ROWS + 1])
+def test_plain_at_the_small_form_threshold(cnt):
+    """The windows at the form threshold and one either side."""
+    n = SMALL_MAX_ROWS + 50
+    order, bins, w = _ordered_problem(n, seed=cnt)
+    gl = np.random.default_rng(cnt).random(cnt) < 0.43
+    t = torch.from_numpy
+    src = [t(order.copy()), t(bins.copy()), t(w[1].copy())]
+    dst = [torch.zeros_like(x) for x in src]
+    nl = partition_window(src, dst, _sc(20, cnt), t(gl), cnt)
+    perm = 20 + _oracle(np.arange(cnt), gl, cnt)
+    assert int(nl[0]) == int(gl.sum())
+    for d, ref in zip(dst, (order, bins, w[1])):
+        np.testing.assert_array_equal(d.numpy()[20:20 + cnt], ref[perm])
 
 
 @pytest.mark.gpu
@@ -159,17 +235,20 @@ def test_kernel_matches_plain_on_card():
     n = 200_000
     order, bins, w = _ordered_problem(n, seed=8)
     rng = np.random.default_rng(9)
-    for start, cnt in ((0, 0), (5, 1), (77, 511), (1000, 4097), (0, n),
+    scratch = partition_scratch(n, dev)
+    src = [torch.from_numpy(a.copy()).to(dev) for a in (order, bins, *w)]
+    for start, cnt in ((0, 0), (5, 1), (77, 511), (1000, 4097),
+                       (3, SMALL_MAX_ROWS), (9, SMALL_MAX_ROWS + 1), (0, n),
                        (n - 4097, 4097)):
         for frac in (0.0, 1.0, 0.41):
-            gl = torch.from_numpy(
-                (rng.random(cnt) < frac).astype(np.uint8)).to(dev)
-            k = [torch.from_numpy(a.copy()).to(dev) for a in (order, bins, *w)]
-            p = [x.clone() for x in k]
-            sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
-            nk = partition_window(k[0], sc, gl, k[1:], rows_upper_bound=cnt)
-            npl = partition_window_plain(p[0], start, cnt, gl, p[1:])
-            torch.cuda.synchronize()
-            assert torch.equal(nk, npl)
-            for x, y in zip(k, p):
-                assert torch.equal(x, y)
+            gl = torch.from_numpy(rng.random(cnt) < frac).to(dev)
+            sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
+            for form in ("small", "large") if cnt else ("small",):
+                k = [torch.randint_like(x, 0, 100) for x in src]
+                p = [x.clone() for x in k]
+                nk = partition_window(src, k, sc, gl, cnt, scratch, form)
+                npl = partition_window_plain(src, p, start, cnt, gl)
+                torch.cuda.synchronize()
+                assert torch.equal(nk, npl)
+                for x, y in zip(k, p):
+                    assert torch.equal(x, y)
