@@ -461,7 +461,6 @@ lgbt_partition_small(Args a, int stage_words) {
   const long long lo = (long long)blockIdx.x * kTile;
   const int n = (int)max(0ll, min((long long)kTile, win.cnt - lo));
   if (n == 0 && blockIdx.x > 0) return;
-  // the rows are on their way while the tile counts and ranks
   long long lbase, nl;
   count_lefts(gl, win.cnt, lo, &lbase, &nl, red);
   const int L = rank_tile(gl, lo, n, sm);
@@ -485,7 +484,6 @@ lgbt_partition_write(Args a, int stage_words) {
   const long long lo = t * kTile;
   if (lo >= win.cnt) return;   // past the window: no later tile reads it
   const int n = (int)min((long long)kTile, win.cnt - lo);
-  // the rows are on their way while the tile ranks and looks back
   const int L = rank_tile(gl, lo, n, sm);
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
