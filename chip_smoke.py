@@ -40,17 +40,40 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    and leaves of the regime threshold's rows and one more, each in both
    regimes, exact under integer weights; with times at all rows and the
    1,000-row leaf;
+2e. the route kernel (the split column of the chosen leaf's window,
+   routed left or right) against its plain version, bit for bit: windows
+   of 0 to 1,000,000 rows gathered through either of two ``order``
+   buffers of the Higgs path's bins, and the Expo path's 11,000,000-row
+   root in either buffer of its leaf-ordered bins, on splits of each
+   missing type and a categorical one; with times beside the PyTorch
+   gather + ``where`` of the eager loop;
+2f. what the captured split step's gated launches cost at the Expo
+   path's size: the partition's device form and the histogram's device
+   regime (every form or regime launched, the true count's taking the
+   work) against the host-picked ones, at an empty window, 4,097 and
+   1,000,000 rows;
 3. the Higgs path at full width: seeded synthetic Higgs-shaped data
    (1,000,000 x 28 float32, binary label from a fixed nonlinear rule plus
    noise, 100,000 held-out rows), ``train`` 10 rounds with 255 leaves and
-   255 bins, ``predict`` the held-out rows; the histogram kernel must have
-   launched once per tree plus once per split;
-3b. the same with ``partition_impl=compact``: the partition kernel must
-   have been called once per split; this phase and phase 5 print, for
-   one profiled tree, the partition's calls by form and launches, its
-   device ms beside the sum of its calls' bounds, and cat_group's
-   launches and device ms, with the run's peak device memory;
-3c. scatter and compact in turns on one dataset, ms per tree;
+   255 bins and ``partition_impl=scatter`` (the eager loop, one host read
+   a split), ``predict`` the held-out rows; the histogram kernel must have
+   launched once per tree plus once per split, the route kernel once per
+   split;
+3b. the same with ``partition_impl=auto``, which on a card is
+   ``compact``: the split step is captured once and replayed as a CUDA
+   graph.  A capture counts each kernel once without launching it and a
+   replay launches without counting, so the launches are the counts plus
+   (replays - 1) times the captured step's: once a step taken for the
+   step's kernels (the steps after a tree's stop included, at most 31 a
+   tree), plus once a tree for the root's histogram and categorical scan;
+   splits exact, at most ceil(254 / 32) + 1 host reads a tree.  This phase
+   and phase 5 print, for one profiled tree, the partition's calls,
+   launches and windows by the form that took them, its device ms beside
+   the sum of its calls' bounds, route's and cat_group's launches and
+   device ms, the runtime's launch calls, with the run's peak device
+   memory;
+3c. scatter (eager loop) and compact (graph loop) in turns on one
+   dataset, ms per tree;
 4. the card against the CPU on a 50,000-row Higgs subset, 3 rounds;
 5. the Expo-shaped categorical path at full width: seeded synthetic
    airline-delay data (8 columns, 6 of them categorical, 11,000,000
@@ -72,7 +95,15 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 6c. one tree under integer-valued gradients grown on both meshes, on a
    1x3 mesh of uneven column slices (10, 9 and 9) and by the serial
    grower, identical field by field; and ``gspmd_hist=flat`` against
-   ``fused`` on a 50,000-row subset, 3 rounds.
+   ``fused`` on a 50,000-row subset, 3 rounds;
+7. (after phase 3c on the Higgs path and after phase 5 on the Expo path,
+   on their data) one tree under integer-valued gradients grown by the
+   graph loop and by the eager loop (and on Higgs by ``scatter``):
+   identical field by field; the graph loop's trees after its capture run
+   under ``torch.cuda.set_sync_debug_mode("error")``, so any read to the
+   host but the counted stop reads raises; ms a tree in turns (graph,
+   eager, eager, graph), and one profiled tree of each loop: device-busy
+   share, launch calls, host reads.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards, phase 6c's trees and 3 rounds of phase 6's path.
@@ -306,12 +337,17 @@ def auc(score: np.ndarray, label: np.ndarray) -> float:
     return m.eval(np.asarray(score, np.float64)[None], None)
 
 
+RUNTIME_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemsetAsync",
+                 "cudaMemcpyAsync", "cudaEventSynchronize",
+                 "cudaStreamSynchronize")
+
+
 def device_ms(fn, names):
     """Run ``fn`` under ``torch.profiler``; returns its wall seconds, the
     device ms of kernels whose name holds each of ``names``, the device ms
     of every kernel and copy (device-side events only: CPU ops would count
-    their kernels' time a second time), and the five host operations with
-    the most self CPU ms."""
+    their kernels' time a second time), the five host operations with the
+    most self CPU ms, and the calls of each of ``RUNTIME_CALLS``."""
     import torch
     import torch.profiler as tp
     with tp.profile(activities=[tp.ProfilerActivity.CPU,
@@ -331,7 +367,9 @@ def device_ms(fn, names):
                    for e in events
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   reverse=True)[:5]
-    return wall, per, sum(dev_us.values()) / 1e3, host
+    calls = {k: sum(e.count for e in events if e.key == k)
+             for k in RUNTIME_CALLS}
+    return wall, per, sum(dev_us.values()) / 1e3, host, calls
 
 
 def part_bound_bytes(cnt: int, widths) -> int:
@@ -852,44 +890,354 @@ def check_hist_local(dev, rng):
     return timing, max_err
 
 
+def route_bound_ms(cnt: int, gathered: bool) -> float:
+    """Least time of a route call: each window position's order entry
+    (4 B, gathered windows only), its bin byte and its output byte, and the
+    window, parity, leaf and split row, over the memory rate."""
+    nbytes = cnt * ((4 if gathered else 0) + 2) + 16 + 4 + 8 + 12 + 1 + N_BINS
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def check_route(dev, rng):
+    """Phase 2e: the route kernel against its plain version, bit for bit:
+    the Higgs path's 1,000,000 x 28 bins gathered through either of two
+    ``order`` buffers on windows of 0 to 1,000,000 rows, and the Expo
+    path's 11,000,000 x 8 leaf-ordered bins of either buffer at the root
+    window; splits on a column without missing values, with zero and with
+    NaN as missing, and a categorical split.  Times at the Expo root, the
+    Higgs root and 4,097 gathered rows, beside the plain version and the
+    PyTorch gather + ``where`` that the eager loop ran before (the split
+    column's gather and ``route_goes_left``, given the window on the
+    host)."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta
+    from lightgbm_tpu_torch.ops.route import (route_goes_left, route_window,
+                                              route_window_plain)
+
+    def meta_for(f):
+        return FeatureMeta(
+            torch.full((f,), N_BINS, dtype=torch.int32, device=dev),
+            torch.tensor([k % 3 for k in range(f)], dtype=torch.int32,
+                         device=dev),
+            torch.tensor([(37 * k) % N_BINS for k in range(f)],
+                         dtype=torch.int32, device=dev))
+
+    # pool rows: (feature, threshold, default_left) on columns of missing
+    # type none, zero and NaN, and a categorical split
+    splits = [(0, 100, 1, False), (1, 50, 0, False), (2, 200, 1, False),
+              (4, 0, 0, True)]
+    si32 = torch.tensor([s[:3] for s in splits], dtype=torch.int32,
+                        device=dev)
+    scat = torch.tensor([s[3] for s in splits], device=dev)
+    scatb = torch.from_numpy(rng.random((len(splits), N_BINS)) < 0.5).to(dev)
+    bins = lambda n, f: torch.from_numpy(rng.integers(
+        0, N_BINS, (n, f), dtype=np.uint8)).to(dev)
+    higgs = bins(N_ROWS, N_FEAT)
+    orders = [torch.from_numpy(rng.permutation(N_ROWS).astype(np.int32)).to(
+        dev) for _ in range(2)]
+    f_expo = len(EXPO_CATEGORICAL) + 2
+    expo = [bins(N_EXPO, f_expo) for _ in range(2)]
+    sets = {
+        "higgs_gathered": (meta_for(N_FEAT), (higgs, higgs), orders,
+                           [(12345, 0), (777, 1), (5000, 511), (40000, 4097),
+                            (300000, 100000), (0, N_ROWS),
+                            (N_ROWS - 4097, 4097)]),
+        "expo_ordered_root": (meta_for(f_expo), expo, (None, None),
+                              [(0, N_EXPO)]),
+    }
+    out = torch.empty(N_EXPO, dtype=torch.bool, device=dev)
+    ref = torch.empty_like(out)
+    checked = 0
+    for label, (meta, b2, o2, windows) in sets.items():
+        for start, cnt in windows:
+            sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
+            for par in (0, 1):
+                odd = torch.tensor([par], dtype=torch.int32, device=dev)
+                for leaf in range(len(splits)):
+                    lt = torch.tensor([leaf], device=dev)
+                    out.fill_(True)
+                    ref.fill_(True)
+                    route_window(sc, odd, lt, si32, scat, scatb, meta, b2, o2,
+                                 out)
+                    route_window_plain(sc, odd, lt, si32, scat, scatb, meta,
+                                       b2, o2, ref)
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, ref):
+                        fail(f"route kernel != plain at window ({start}, "
+                             f"{cnt}) of {label}, buffer {par}, split "
+                             f"{splits[leaf]}")
+                    checked += 1
+        phase("route_vs_plain", set=label, windows=len(windows),
+              calls_checked=checked, exact=True)
+
+    timing = {}
+    for label, (meta, b2, o2, _), start, cnt in (
+            ("expo_root", sets["expo_ordered_root"], 0, N_EXPO),
+            ("higgs_root", sets["higgs_gathered"], 0, N_ROWS),
+            ("higgs_4097", sets["higgs_gathered"], 40000, 4097)):
+        sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
+        odd = torch.tensor([1], dtype=torch.int32, device=dev)
+        lt = torch.tensor([2], device=dev)
+        feat, thr, dleft = si32[2, 0:1].long(), si32[2, 1:2].long(), \
+            si32[2, 2:3].bool()
+        gathered = o2[0] is not None
+        f = b2[1].shape[1]
+
+        def replaced():
+            if gathered:
+                win = o2[1][start:start + cnt]
+                binf = b2[1].view(-1).index_select(0, win.long() * f + feat)
+            else:
+                binf = b2[1][start:start + cnt].index_select(1, feat)[:, 0]
+            return route_goes_left(binf.long(), meta, feat, thr, dleft,
+                                   scat[2:3], scatb[2])
+
+        k = three_times(lambda: route_window(sc, odd, lt, si32, scat, scatb,
+                                             meta, b2, o2, out))
+        old = three_times(replaced)
+        p_ms = cuda_ms(lambda: route_window_plain(sc, odd, lt, si32, scat,
+                                                  scatb, meta, b2, o2, ref),
+                       reps=3)
+        bound_ms = route_bound_ms(cnt, gathered)
+        timing[label] = dict(k, plain_ms=p_ms, replaced_ms=old["ms"],
+                             replaced_ms_many=old["ms_many"],
+                             replaced_device_ms=old["device_ms"],
+                             bound_ms=bound_ms)
+        phase("route_time", window=label, rows=cnt,
+              **{k_: f"{v:.4f}" for k_, v in timing[label].items()
+                 if isinstance(v, float) and k_ != "bound_ms"},
+              bound_ms=f"{bound_ms:.5f}",
+              bound_share=f"{bound_ms / k['device_ms']:.3f}"
+              if k["device_ms"] else "not measured")
+    del higgs, orders, expo, out, ref
+    return timing
+
+
+def empty_launch_cost(dev, rng):
+    """Phase 2f: what the captured step's gated launches cost at the Expo
+    path's 11,000,000 rows and 8 columns.  The step cannot pick the
+    partition's form nor the histogram's regime on the host, so it launches
+    all of them over the grid of the largest window, and those that the
+    window's count does not take return at once.  Against that, the
+    host-picked form and plan the eager loop used: at an empty window (a
+    step after the stop), 4,097 and 1,000,000 rows; device time a call
+    (profiler, every kernel and memset) and CUDA events around back-to-back
+    calls."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (hist_window, plan_device,
+                                                  sm_count)
+    from lightgbm_tpu_torch.ops.partition import (partition_scratch,
+                                                  partition_window)
+    n, f = N_EXPO, len(EXPO_CATEGORICAL) + 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    src = [torch.randperm(n, device=dev, generator=gen).int(),
+           torch.randint(0, N_BINS, (n, f), dtype=torch.uint8, device=dev,
+                         generator=gen),
+           *[torch.rand(n, device=dev, generator=gen) for _ in range(3)]]
+    dst = [torch.empty_like(x) for x in src]
+    scratch = partition_scratch(n, dev)
+    gl = torch.rand(n, device=dev, generator=gen) < 0.43
+    odd = torch.zeros(1, dtype=torch.int32, device=dev)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    plan = plan_device(n, f, N_BINS, num_sms=sm_count(dev.index or 0))
+    out = {}
+    for cnt in (0, 4097, 1_000_000):
+        sc = torch.tensor([1000, cnt], dtype=torch.int64, device=dev)
+        sc32 = sc.int()
+        cases = {
+            "partition_device": lambda: partition_window(
+                src, dst, sc, gl, n, scratch, "device", odd),
+            "partition_host": lambda: partition_window(
+                src, dst, sc, gl, cnt, scratch),
+            "hist_device": lambda: hist_window(
+                iota, sc32, *src[1:], N_BINS, plan=plan),
+            "hist_host": lambda: hist_window(
+                iota, sc32, *src[1:], N_BINS, rows_upper_bound=cnt),
+        }
+        for name, fn in cases.items():
+            t = dict(ms_many=cuda_ms_many(fn), device_ms=profiled_ms(fn)[0])
+            out[(name, cnt)] = t
+        phase("gated_launches", window_rows=cnt, **{
+            f"{name}_{k}": f"{out[(name, cnt)][k]:.4f}"
+            if out[(name, cnt)][k] is not None else "not measured"
+            for name in cases for k in ("ms_many", "device_ms")})
+    del src, dst, scratch, gl, iota
+    return out
+
+
+def real_launches(raw: dict, windows, replays: int, captures: int) -> dict:
+    """Each wrapper's launches on the card from its counts ``raw``: a
+    capture counts the split step's launches without making them, and a
+    replay makes them without counting (``WindowBuffers.graph_launches``,
+    the counts of one capture)."""
+    per = windows.graph_launches if windows is not None else {}
+    return {k: v + (replays - captures) * per.get(k, 0)
+            for k, v in raw.items()}
+
+
+def graph_vs_eager(name, ds, y, dev_names, **cfg_kw):
+    """Phase 7: one tree of a path under integer-valued gradients and
+    hessians, whose sums are exact in any order, grown by the graph loop
+    (the split step captured once and replayed), by the eager loop (the
+    same step run as it is) and, with ``ordered_bins=off``, by the
+    ``scatter`` partition: identical field by field, row -> leaf maps too.
+    The graph loop's trees after its capture run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so any read back to the
+    host but its counted stop reads (an event wait) raises.  Then ms a
+    tree in turns (graph, eager, eager, graph) and one profiled tree of
+    each loop: device-busy share, kernel and graph launch calls, host
+    reads and the kernels' device ms."""
+    import torch
+    from lightgbm_tpu_torch.grower import (FeatureMeta, GrowerConfig,
+                                           WindowBuffers, grow_tree)
+    dev = ds.bins.device
+    td = ds.constructed
+    fm = td.feature_meta()
+    n, f = ds.bins.shape
+    rng = np.random.default_rng(SEED + 6)
+    put = lambda a: torch.from_numpy(a).to(dev)
+    g = put((np.where(y > 0, -3, 2) + rng.integers(-2, 3, n)).astype(
+        np.float32))
+    h = put(rng.integers(1, 4, n).astype(np.float32))
+    c = torch.ones(n, dtype=torch.float32, device=dev)
+    meta = FeatureMeta(put(fm["num_bin"]), put(fm["missing_type"]),
+                       put(fm["default_bin"]), put(fm["is_categorical"]))
+    fv = torch.ones(f, dtype=torch.bool, device=dev)
+    cfg = GrowerConfig(
+        num_leaves=255, min_data_in_leaf=1, min_sum_hessian_in_leaf=10.0,
+        max_bin=td.max_num_bin(),
+        has_missing=bool((fm["missing_type"] != 0).any()),
+        has_categorical=bool(fm["is_categorical"].any()),
+        partition_impl="compact", **cfg_kw)
+    loops = {"graph": WindowBuffers(n, f, cfg, dev),
+             "eager": WindowBuffers(n, f, cfg, dev)}
+    stats = {k: {} for k in loops}
+    grown = {k: 0 for k in loops}
+
+    def grow(loop, sync_check=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            tree, rl = grow_tree(ds.bins, g, h, c, meta, fv, cfg, stats[loop],
+                                 loops[loop], loop)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        grown[loop] += 1
+        return (time.perf_counter() - t0) * 1e3, tree, rl
+
+    def host(tree, rl):
+        return ({k: v.cpu().numpy() for k, v in tree._asdict().items()
+                 if isinstance(v, torch.Tensor)}, rl.cpu().numpy(),
+                tree.num_leaves)
+
+    want = host(*grow("eager")[1:])
+    got = {"graph_capture": host(*grow("graph")[1:]),
+           "graph_replay": host(*grow("graph", sync_check=True)[1:])}
+    if cfg.ordered_bins == "off":
+        scatter = cfg._replace(partition_impl="scatter")
+        got["scatter"] = host(*grow_tree(ds.bins, g, h, c, meta, fv, scatter,
+                                         loop="eager"))
+    for k, other in got.items():
+        bad = [x for x in want[0] if not np.array_equal(want[0][x],
+                                                        other[0][x])]
+        if bad or want[2] != other[2] or not np.array_equal(want[1],
+                                                            other[1]):
+            fail(f"{name}: the {k} tree != the eager tree in "
+                 f"{bad or 'num_leaves/row_leaf'}")
+    ms = {"graph": [], "eager": []}
+    for loop in ("graph", "eager", "eager", "graph"):
+        ms[loop].append(grow(loop, sync_check=loop == "graph")[0])
+    prof = {}
+    for loop in ("graph", "eager"):
+        syncs0 = stats[loop]["host_syncs"]
+        wall, per, all_ms, _, calls = device_ms(lambda: grow(loop), dev_names)
+        prof[loop] = dict(
+            profiled_ms=f"{wall * 1e3:.2f}",
+            device_busy_share=f"{all_ms / (wall * 1e3):.4f}" if all_ms
+            else "not measured",
+            host_reads=stats[loop]["host_syncs"] - syncs0,
+            **{f"{k}_calls": v for k, v in calls.items()},
+            **{f"{k}_device_ms": f"{v:.3f}" if all_ms else "not measured"
+               for k, v in per.items()})
+    st = stats["graph"]
+    if st["host_syncs"] > grown["graph"] * (
+            -(-(cfg.num_leaves - 1) // 32) + 1):
+        fail(f"{name}: {st['host_syncs']} host reads in {grown['graph']} "
+             f"graph trees")
+    out = dict(rows=n, leaves=want[2], identical=",".join(["eager", *got]),
+               sync_checked_replay_trees=grown["graph"] - 1,
+               captured_launches_per_step=loops["graph"].graph_launches,
+               graph_ms_per_tree=",".join(f"{v:.2f}" for v in ms["graph"]),
+               eager_ms_per_tree=",".join(f"{v:.2f}" for v in ms["eager"]),
+               host_syncs_per_tree_graph=(
+                   f"{st['host_syncs'] / grown['graph']:.3f}"),
+               host_syncs_per_tree_eager=(
+                   f"{stats['eager']['host_syncs'] / grown['eager']:.3f}"),
+               **{f"{loop}_{k}": v for loop, d in prof.items()
+                  for k, v in d.items()})
+    phase(f"{name}_graph_vs_eager", **out)
+    del loops
+    return out
+
+
+def _kernel_wrappers():
+    """Every kernel wrapper of the paths, by name."""
+    from lightgbm_tpu_torch.ops.histogram import hist_local, hist_window
+    from lightgbm_tpu_torch.ops.partition import partition_window
+    from lightgbm_tpu_torch.ops.route import route_window
+    from lightgbm_tpu_torch.ops.split import cat_group_accept
+    return {f.__name__: f for f in (hist_window, hist_local, partition_window,
+                                    route_window, cat_group_accept)}
+
+
 def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     """Drive one path through ``train`` and ``predict`` with the kernel
     counts set to 0 just before and read just after; returns its numbers
-    and the booster."""
+    and the booster.
+
+    On the graph loop a wrapper counts once at the capture, which launches
+    nothing, and never at a replay, which launches: the launches are the
+    counts plus (replays - captures) times the captured step's counts
+    (:func:`real_launches`), and the split step's kernels run once a step
+    taken, the steps after a tree's stop included."""
     import torch
     from lightgbm_tpu_torch import Dataset, train
-    from lightgbm_tpu_torch.ops.histogram import hist_local, hist_window
-    from lightgbm_tpu_torch.ops.partition import partition_window
-    from lightgbm_tpu_torch.ops.split import cat_group_accept
+    fns = _kernel_wrappers()
     t0 = time.perf_counter()
     ds = Dataset(x_tr, y_tr, params=params).construct()
     torch.cuda.synchronize()
     t_data = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    hist_window.launches = 0
-    hist_local.launches = 0
-    for k in hist_window.regime_launches:
-        hist_window.regime_launches[k] = hist_local.regime_launches[k] = 0
-    partition_window.launches = 0
-    cat_group_accept.launches = 0
+    for fn in fns.values():
+        fn.launches = 0
+        for k in getattr(fn, "regime_launches", {}):
+            fn.regime_launches[k] = 0
     t0 = time.perf_counter()
     bst = train(params, ds, num_boost_round=rounds, verbose_eval=False)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
-    hist_calls = hist_window.launches
-    local_calls = hist_local.launches
-    # the same launches by the regime of their plan
-    by_regime = {f"{kernel}_{k}_launches": v for kernel, fn in (
-        ("hist", hist_window), ("hist_local", hist_local))
+    raw = {k: fn.launches for k, fn in fns.items()}
+    # the same counts by the regime of their plan
+    by_regime = {f"{kernel}_{k}_count": v for kernel, fn in (
+        ("hist", fns["hist_window"]), ("hist_local", fns["hist_local"]))
         for k, v in fn.regime_launches.items()}
-    part_calls = partition_window.launches
-    group_calls = cat_group_accept.launches
     stats = dict(bst.inner.stats)
+    windows = bst.inner._windows
+    graph = windows is not None and windows.graph is not None
+    launches = real_launches(raw, windows, stats.get("graph_replays", 0),
+                             int(graph))
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     pred = bst.predict(x_te)
     t_pred = time.perf_counter() - t0
-    expected = stats["trees"] + stats["splits"]
+    trees, splits = stats["trees"], stats["splits"]
+    if splits != sum(m.num_leaves - 1 for m in bst.inner.models):
+        fail(f"{name}: {splits} splits counted, the models hold "
+             f"{sum(m.num_leaves - 1 for m in bst.inner.models)}")
     # the data-parallel learner measures every leaf on each mesh slot with
     # the shard-local kernel; the serial grower with the gather kernel
     mesh = bst.inner.mesh
@@ -900,28 +1248,40 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     # on a card gspmd_hist=auto is the shard-local kernel
     if shards and bst.inner.gspmd_hist != params.get("gspmd_hist", "fused"):
         fail(f"{name}: gspmd_hist resolved to {bst.inner.gspmd_hist}")
-    want_gather = 0 if shards else expected
-    want_local = shards * expected if bst.inner.gspmd_hist == "fused" else 0
-    if sum(hist_window.regime_launches.values()) != hist_calls or sum(
-            hist_local.regime_launches.values()) != local_calls:
-        fail(f"{name}: launches by regime {by_regime} do not add up to "
-             f"{hist_calls} and {local_calls}")
-    if hist_calls != want_gather or local_calls != want_local or (
-            hist_calls + local_calls == 0):
-        fail(f"{name}: histogram kernels launched {hist_calls} (gather) and "
-             f"{local_calls} (shard-local) times, expected {want_gather} "
-             f"and {want_local} ({shards} mesh slots, trees + splits = "
-             f"{expected})")
-    compact = params.get("partition_impl") == "compact"
-    if part_calls != (stats["splits"] if compact else 0):
-        fail(f"{name}: partition kernel called {part_calls} times with "
-             f"partition_impl={params.get('partition_impl', 'auto')}, "
-             f"{stats['splits']} splits")
-    # one split scan per tree (the root) and per split (both children)
+    compact = bst.inner.grower_cfg.partition_impl == "compact"
+    if not shards and graph != compact:
+        fail(f"{name}: partition_impl={bst.inner.grower_cfg.partition_impl} "
+             f"took the {'graph' if graph else 'eager'} loop")
+    # steps that ran the split step's kernels: every step of the graph
+    # loop; a step of the eager scatter/sort loop that found the tree
+    # stopped returns before its first kernel
+    steps = (stats["steps"] if compact else splits) if not shards else splits
+    if not shards and not splits <= stats["steps"] <= splits + 32 * trees:
+        fail(f"{name}: {stats['steps']} steps for {splits} splits in "
+             f"{trees} trees")
     categorical = bool(ds.constructed.feature_meta()["is_categorical"].any())
-    if group_calls != (expected if categorical else 0):
-        fail(f"{name}: cat_group kernel launched {group_calls} times, "
-             f"expected {expected if categorical else 0}")
+    want = {"hist_window": 0 if shards else trees + steps,
+            "hist_local": (shards * (trees + splits)
+                           if bst.inner.gspmd_hist == "fused" else 0),
+            "partition_window": steps if compact and not shards else 0,
+            "route_window": 0 if shards else steps,
+            "cat_group_accept": trees + steps if categorical else 0}
+    if launches != want or sum(launches.values()) == 0:
+        fail(f"{name}: kernel launches {launches} (counted {raw}), "
+             f"expected {want} ({shards} mesh slots, {trees} trees, "
+             f"{splits} splits, {stats.get('steps')} steps, "
+             f"{stats.get('graph_replays', 0)} replays)")
+    for kernel, fn in (("hist", fns["hist_window"]),
+                       ("hist_local", fns["hist_local"])):
+        if sum(fn.regime_launches.values()) != fn.launches:
+            fail(f"{name}: {kernel} counts by regime {by_regime} do not add "
+                 f"up to {fn.launches}")
+    syncs_per_tree = stats["host_syncs"] / trees
+    if graph and syncs_per_tree > -(-(bst.inner.grower_cfg.num_leaves - 1)
+                                    // 32) + 1:
+        fail(f"{name}: {syncs_per_tree} host reads a tree on the graph loop")
+    if graph and not stats["graph_replays"]:
+        fail(f"{name}: the graph loop replayed no step")
     if pred.shape != (len(y_te),) or not np.isfinite(pred).all():
         fail(f"{name}: held-out predictions are not finite of the expected "
              f"shape")
@@ -933,40 +1293,57 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     # device time of the kernels over one more tree (profiling two made
     # the script take more than half its time limit)
     prof_bst = train(params, ds, num_boost_round=1, verbose_eval=False)
-    partition_window.launches = cat_group_accept.launches = 0
-    for k in partition_window.form_launches:
-        partition_window.form_launches[k] = 0
-    positions0 = prof_bst.inner.stats.get("partition_positions", 0)
-    wall, per, all_ms, host = device_ms(prof_bst.update, dev_names)
-    forms = dict(partition_window.form_launches)
-    # that tree's kernel calls; a small partition call is one launch, a
-    # large one two
+    raw0 = {k: fn.launches for k, fn in fns.items()}
+    forms0 = dict(fns["partition_window"].form_launches)
+    st0 = dict(prof_bst.inner.stats)
+    wall, per, all_ms, host, calls = device_ms(prof_bst.update, dev_names)
+    st1 = prof_bst.inner.stats
+    tree_launches = {k: fn.launches - raw0[k] + (
+        st1.get("graph_replays", 0) - st0.get("graph_replays", 0))
+        * (prof_bst.inner._windows.graph_launches.get(k, 0)
+           if prof_bst.inner._windows is not None else 0)
+        for k, fn in fns.items()}
+    forms = {k: v - forms0[k]
+             for k, v in fns["partition_window"].form_launches.items()}
     tree_kernels = dict(
-        partition_calls_per_tree=partition_window.launches,
-        partition_small_calls_per_tree=forms["small"],
-        partition_large_calls_per_tree=forms["large"],
-        partition_launches_per_tree=forms["small"] + 2 * forms["large"],
-        cat_group_launches_per_tree=cat_group_accept.launches)
-    windows = prof_bst.inner._windows
-    if partition_window.launches and windows is not None:
+        partition_calls_per_tree=tree_launches["partition_window"],
+        route_launches_per_tree=tree_launches["route_window"],
+        cat_group_launches_per_tree=tree_launches["cat_group_accept"],
+        host_syncs_in_profiled_tree=st1["host_syncs"] - st0["host_syncs"],
+        **{f"{k}_calls_per_tree": v for k, v in calls.items()})
+    if tree_launches["partition_window"]:
+        # the device form is three launches a call; which windows did the
+        # small form's work and which the large's, from the tree's node
+        # counts (each node's count is its window)
+        last = prof_bst.inner.models[-1]
+        counts = last.internal_count[:last.num_leaves - 1]
+        small = int((counts <= 196_608).sum())
+        tree_kernels.update(
+            partition_launches_per_tree=(
+                3 * tree_launches["partition_window"] if graph
+                else forms["small"] + 2 * forms["large"]),
+            partition_small_windows_per_tree=small,
+            partition_large_windows_per_tree=len(counts) - small)
         # the sum of the tree's per-call bounds: every partitioned position
         # moves its mask and every matrix's row
-        widths = [x[0].numel() * x.element_size() for x in windows.bufs[0]]
-        positions = prof_bst.inner.stats["partition_positions"] - positions0
-        tree_kernels["partition_bound_ms_per_tree"] = (
-            f"{part_bound_bytes(positions, widths) / H100_BYTES_PER_S * 1e3:.4f}")
+        widths = [x[0].numel() * x.element_size()
+                  for x in prof_bst.inner._windows.bufs[0]]
+        positions = (st1["partition_positions"]
+                     - st0.get("partition_positions", 0))
+        bound = part_bound_bytes(positions, widths) / H100_BYTES_PER_S
+        tree_kernels["partition_bound_ms_per_tree"] = f"{bound * 1e3:.4f}"
     phase(f"{name}_host_ops", profiled_s=f"{wall:.3f}", **{
         key.replace(" ", "_"): f"{ms:.1f}ms/tree,{count}calls/tree"
         for ms, key, count in host})
-    trees = stats["trees"]
     out = dict(rows=len(y_tr), features=x_tr.shape[1], trees=trees,
-               splits=stats["splits"], hist_launches=hist_calls,
-               hist_local_launches=local_calls, **by_regime,
-               partition_calls=part_calls, cat_group_launches=group_calls,
-               construct_s=f"{t_data:.3f}",
+               splits=splits, steps=stats.get("steps", splits),
+               graph_replays=stats.get("graph_replays", 0),
+               loop="graph" if graph else "eager",
+               **{f"{k}_launches": v for k, v in launches.items()},
+               **by_regime, construct_s=f"{t_data:.3f}",
                ms_per_tree=f"{t_train * 1e3 / trees:.2f}",
-               host_syncs_per_split=(
-                   f"{stats['host_syncs'] / stats['splits']:.4f}"),
+               host_syncs_per_split=f"{stats['host_syncs'] / splits:.4f}",
+               host_syncs_per_tree=f"{syncs_per_tree:.3f}",
                peak_mem_bytes=peak, predict_s=f"{t_pred:.3f}",
                heldout_auc=f"{test_auc:.6f}", **tree_kernels)
     for n, ms in per.items():   # 0 for a kernel this path does not run
@@ -1230,23 +1607,40 @@ def main() -> None:
     local_timing, local_err = check_hist_local(dev, rng)
     torch.cuda.empty_cache()
 
+    # ---- phase 2e: route kernel vs plain on the card ----------------------
+    route_timing = check_route(dev, rng)
+    torch.cuda.empty_cache()
+
+    # ---- phase 2f: the cost of the split step's gated launches ------------
+    empty_launch_cost(dev, rng)
+    torch.cuda.empty_cache()
+
     # ---- phase 3: the Higgs path at full width ----------------------------
     rng = np.random.default_rng(SEED + 1)
     x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
     x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
     x_te, y_te = x_all[N_ROWS:], y_all[N_ROWS:]
-    names = ("hist_gather", "hist_local", "lgbt_partition", "lgbt_cat_group")
-    higgs, _, higgs_ds = train_path("higgs", params, x_tr, y_tr, x_te, y_te,
-                                    10, names)
+    names = ("hist_gather", "hist_local", "lgbt_partition", "lgbt_cat_group",
+             "lgbt_route")
+    # scatter: the eager loop, one host read a split
+    higgs, _, higgs_ds = train_path(
+        "higgs", dict(params, partition_impl="scatter"), x_tr, y_tr, x_te,
+        y_te, 10, names)
     phase("main_path", **higgs)
-    higgs_launches = higgs["hist_launches"]
+    higgs_launches = higgs["hist_window_launches"]
 
     # ---- phase 3b: the Higgs path through the partition kernel ------------
-    compact, _, _ = train_path("higgs_compact",
-                               dict(params, partition_impl="compact"),
-                               x_tr, y_tr, x_te, y_te, 10, names)
+    # partition_impl=auto: compact on a card, the split step replayed as a
+    # CUDA graph
+    compact, _, _ = train_path("higgs_compact", params, x_tr, y_tr, x_te,
+                               y_te, 10, names)
     phase("main_path_compact", **compact)
     partition_ab(params, x_tr, y_tr)
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the graph loop against the eager loop, Higgs ------------
+    higgs_loops = graph_vs_eager("higgs", higgs_ds, y_tr, names,
+                                 ordered_bins="off")
     torch.cuda.empty_cache()
 
     # ---- phase 4: card against CPU ----------------------------------------
@@ -1302,21 +1696,28 @@ def main() -> None:
           label_rate=f"{float(y_tr.mean()):.4f}",
           num_bin=":".join(str(b) for b in num_bins),
           categorical_splits=n_cat, **expo)
-    # the parent design's device ms per tree on this path (four-launch
-    # in-place partition, one thread a lane for cat_group), PERF.md section 5
-    phase("expo_partition_cat_group", parent_design_partition_device_ms=10.166,
-          parent_design_cat_group_device_ms=24.886,
+    # PR 6's eager loop on this path (call 5, PERF.md section 5): partition
+    # and cat_group device ms per tree
+    phase("expo_partition_cat_group", eager_loop_partition_device_ms=4.143,
+          eager_loop_cat_group_device_ms=3.272,
           partition_device_ms=expo["lgbt_partition_device_ms_per_tree"],
           partition_bound_ms=expo.get("partition_bound_ms_per_tree"),
-          partition_small_calls=expo["partition_small_calls_per_tree"],
-          partition_large_calls=expo["partition_large_calls_per_tree"],
+          partition_small_windows=expo["partition_small_windows_per_tree"],
+          partition_large_windows=expo["partition_large_windows_per_tree"],
           partition_launches=expo["partition_launches_per_tree"],
           cat_group_launches=expo["cat_group_launches_per_tree"],
           cat_group_device_ms=expo["lgbt_cat_group_device_ms_per_tree"],
+          route_device_ms=expo["lgbt_route_device_ms_per_tree"],
           ms_per_tree=expo["ms_per_tree"],
           peak_mem_bytes=expo["peak_mem_bytes"])
-    expo_launches = (expo["partition_calls"], expo["cat_group_launches"])
-    del ds, bst
+    expo_launches = {k: expo[f"{k}_launches"] for k in (
+        "partition_window", "cat_group_accept", "route_window")}
+    del bst
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the graph loop against the eager loop, Expo -------------
+    expo_loops = graph_vs_eager("expo", ds, y_tr, names, ordered_bins="on")
+    del ds
     torch.cuda.empty_cache()
 
     # ---- phase 4b: card against CPU on the Expo-shaped task ---------------
@@ -1334,10 +1735,15 @@ def main() -> None:
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}",
           higgs_ms_per_tree_scatter=higgs["ms_per_tree"],
           higgs_ms_per_tree_compact=compact["ms_per_tree"],
+          higgs_graph_ms_per_tree=higgs_loops["graph_ms_per_tree"],
+          higgs_eager_ms_per_tree=higgs_loops["eager_ms_per_tree"],
+          expo_graph_ms_per_tree=expo_loops["graph_ms_per_tree"],
+          expo_eager_ms_per_tree=expo_loops["eager_ms_per_tree"],
           higgs_ms_per_tree_dp_4x1=dp["ms_per_tree"])
 
     root = timing[N_ROWS]
     proot = part_timing[N_EXPO]
+    rroot = route_timing["expo_root"]
     lroot = local_timing[(N_ROWS // 4, "all")]
     print(json.dumps({"kernels": [{
         "name": "hist_gather", "route": "cuda",
@@ -1360,7 +1766,7 @@ def main() -> None:
         "name": "partition", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",
         "replaces": "lightgbm_tpu/ops/pallas_compact.py:98",
-        "launches": expo_launches[0], "max_abs_err": 0.0,
+        "launches": expo_launches["partition_window"], "max_abs_err": 0.0,
         "ms": proot["ms"], "plain_ms": proot["plain_ms"],
         "bound_ms": proot["bound_ms"], "bound_by": "bytes",
         "library_ms": proot["library_ms"],
@@ -1372,7 +1778,7 @@ def main() -> None:
         "name": "cat_group", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/cat_group.cu",
         "replaces": "lightgbm_tpu/ops/split.py:300",
-        "launches": expo_launches[1], "max_abs_err": 0.0,
+        "launches": expo_launches["cat_group_accept"], "max_abs_err": 0.0,
         "ms": group_timing["ms"], "plain_ms": group_timing["plain_ms"],
         "bound_ms": group_timing["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "ms_many": group_timing["ms_many"],
@@ -1380,7 +1786,19 @@ def main() -> None:
         "latency_bound_ms": group_timing["latency_bound_ms"],
         "max_accepts_a_lane": group_timing["max_accepts_a_lane"],
         "sass_cycles_per_add": group_lat.get("cycles_per_add"),
-        "sass_cycles_per_accept": group_lat.get("cycles_per_accept")}]}),
+        "sass_cycles_per_accept": group_lat.get("cycles_per_accept")}, {
+        "name": "route", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/route.cu",
+        "replaces": "lightgbm_tpu/grower.py:372",
+        "launches": expo_launches["route_window"], "max_abs_err": 0.0,
+        "ms": rroot["ms"], "plain_ms": rroot["plain_ms"],
+        "bound_ms": rroot["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "ms_many": rroot["ms_many"],
+        "device_ms": rroot["device_ms"],
+        "replaced_ms": rroot["replaced_ms"],
+        "replaced_device_ms": rroot["replaced_device_ms"],
+        **{f"{k}_{w}": v for w in ("higgs_root", "higgs_4097")
+           for k, v in route_timing[w].items()}}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

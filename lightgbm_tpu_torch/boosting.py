@@ -17,7 +17,8 @@ import torch
 
 from .config import Config, _unsupported
 from .data.dataset import TrainingData
-from .grower import FeatureMeta, GrowerConfig, WindowBuffers, grow_tree
+from .grower import (FeatureMeta, GrowerConfig, WindowBuffers, grow_tree,
+                     resolve_partition_impl)
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .objectives import Objective, parse_objective_string
 from .parallel import mesh as mesh_mod
@@ -86,7 +87,7 @@ class GBDT:
         self.mesh: Optional[mesh_mod.Mesh] = None
         self.downgrades: List[Dict[str, str]] = []
         self._gspmd: Optional[GspmdGrower] = None
-        # the serial grower's partition buffers, made at the first tree
+        # the serial grower's device state, made at the first tree
         self._windows: Optional[WindowBuffers] = None
         self._row_pad = 0
         if train_set is not None:
@@ -137,8 +138,8 @@ class GBDT:
             cat_smooth_ratio=cfg.cat_smooth_ratio,
             min_cat_smooth=cfg.min_cat_smooth,
             max_cat_smooth=cfg.max_cat_smooth,
-            partition_impl=("scatter" if cfg.partition_impl == "auto"
-                            else cfg.partition_impl),
+            partition_impl=resolve_partition_impl(cfg.partition_impl,
+                                                  self.device),
             ordered_bins=("off" if cfg.ordered_bins == "auto"
                           else cfg.ordered_bins))
         self.objective.init(train.metadata, self.num_data, self.device)
@@ -251,7 +252,10 @@ class GBDT:
                 self._count_weight, self.meta, self._feat_valid, self.stats)
             row_leaf = row_leaf[:self.num_data]     # the local rows
         else:
-            if self._windows is None:   # the partition's buffers, once
+            if self._windows is None:
+                # the grower's device state, made once per training: the
+                # partition's buffers, the leaf pool and, on a card with
+                # compact, the split step captured at the first split
                 self._windows = WindowBuffers(*self.bins.shape,
                                               self.grower_cfg, self.device)
             arrays, row_leaf = grow_tree(self.bins, g[0], h[0],

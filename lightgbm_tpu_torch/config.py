@@ -98,8 +98,10 @@ class Config:
     # the grower's layout
     ordered_bins: str = "auto"     # leaf-ordered copy of the bins and
     #                                weights: auto (= off) | on | off
-    partition_impl: str = "auto"   # window partition: auto (= scatter) |
-    #                                scatter | sort | compact (the kernel)
+    partition_impl: str = "auto"   # window partition: scatter | sort |
+    #                                compact (the kernel; the split step
+    #                                replayed as a CUDA graph) | auto (=
+    #                                compact on a card, scatter on the CPU)
 
     # distributed: the data-parallel learner over a (batch, feature) mesh
     # of device slots (parallel/mesh.py)

@@ -10,7 +10,11 @@
 //                row_leaf; p is a row of the leaf iff row_leaf[p] == leaf.
 //
 // Two regimes, chosen on the host from a bound it already holds (the
-// launch plan, lightgbm_tpu_torch/ops/histogram.py:plan_launch):
+// launch plan, lightgbm_tpu_torch/ops/histogram.py:plan_launch), or on the
+// device from the true count (the "device" regime of the serial grower's
+// captured split step, plan_device: both kernels are launched, each over
+// the grid of the largest window it can take, and each returns at once
+// unless the count lies in its range):
 //   small - no shared-memory histogram.  Each matching row reads its bins
 //           four columns at a time with one 32-bit load and adds its three
 //           weights straight into `out` with global reductions
@@ -31,6 +35,11 @@
 //   and added into each other's slices through distributed shared memory;
 //   the groups won at every window (hist_gather.cu says why).
 //
+// A second set of row source and weights may be given with a selector in
+// device memory (`sel`, odd: the second set): the serial grower keeps a
+// leaf's window in one of two buffers by its depth parity, which only the
+// device knows inside the captured step.
+//
 // `out` is zeroed by the C entry point (cudaMemsetAsync on the kernel's
 // stream) before the launch.
 
@@ -44,6 +53,7 @@ namespace hist {
 constexpr int kThreads = 256;
 constexpr int kRegimeSmall = 0;
 constexpr int kRegimeLarge = 1;
+constexpr int kRegimeDevice = 2;   // both kernels, each gated by the count
 
 // The k <= 4 bins at p (any alignment) in the low bytes of one word: one
 // 32-bit load, two when the k bytes straddle a word.  Only words that hold
@@ -90,6 +100,9 @@ struct GatherRows {
   const int32_t* order;
   const int32_t* sc;  // (start, cnt) in device memory
   long long start;
+  __device__ void rebase(const void* p) {
+    order = static_cast<const int32_t*>(p);
+  }
   __device__ long long begin() {  // number of positions; call once
     start = sc[0];
     return sc[1];
@@ -106,6 +119,9 @@ struct MaskedRows {
   const int32_t* leaf_id;  // in device memory
   long long n_loc;
   int32_t leaf;
+  __device__ void rebase(const void* p) {
+    row_leaf = static_cast<const int32_t*>(p);
+  }
   __device__ long long begin() {
     leaf = *leaf_id;
     return n_loc;
@@ -124,7 +140,38 @@ struct Weights {
   float* out;
   int n_feat;
   int num_bins;
+  // the kernel returns at once unless the row source's count lies in
+  // [min_rows, max_rows] (the device regime's gate; 0 and the maximum
+  // when the host picked the regime)
+  long long min_rows;
+  long long max_rows;
+  // positions a large-regime block takes at least, by the true count: a
+  // grid sized for a larger bound than the count leaves its surplus
+  // blocks idle (the device regime); 0: every block of the grid works
+  int block_rows;
+  // the second set (null sel: none): rows, bins and weights
+  const int32_t* sel;
+  const void* alt_rows;
+  const uint8_t* alt_bins;
+  const float* alt_gw;
+  const float* alt_hw;
+  const float* alt_cw;
 };
+
+// The set the selector picks, then the count of positions, or -1 when the
+// kernel's gate excludes it.  Call once, at the top of a kernel.
+template <class Rows>
+__device__ __forceinline__ long long open_rows(Rows& rows, Weights& a) {
+  if (a.sel && (*a.sel & 1)) {
+    rows.rebase(a.alt_rows);
+    a.bins = a.alt_bins;
+    a.gw = a.alt_gw;
+    a.hw = a.alt_hw;
+    a.cw = a.alt_cw;
+  }
+  const long long n = rows.begin();
+  return n < a.min_rows || n > a.max_rows ? -1 : n;
+}
 
 // Positions per block when nb blocks cover n of them in contiguous slices,
 // a multiple of the block size.
@@ -166,8 +213,9 @@ __device__ __forceinline__ void red_lane(const Weights& a, long long r,
 // statistic), so even a window of a few thousand rows spreads over the
 // card.
 template <class Rows>
-__device__ void small_gather(Rows rows, const Weights& a) {
-  const long long n = rows.begin();
+__device__ void small_gather(Rows rows, Weights a) {
+  const long long n = open_rows(rows, a);
+  if (n < 0) return;
   const int lanes = 3 * ((a.n_feat + 3) / 4);
   const long long total = n * lanes;
   const long long stride = (long long)gridDim.x * kThreads;
@@ -183,8 +231,9 @@ __device__ void small_gather(Rows rows, const Weights& a) {
 // the warp adds each of its matching rows together, a lane per (4-column
 // group, statistic).
 template <class Rows>
-__device__ void small_scan(Rows rows, const Weights& a) {
-  const long long n = rows.begin();
+__device__ void small_scan(Rows rows, Weights a) {
+  const long long n = open_rows(rows, a);
+  if (n < 0) return;
   const int lane = threadIdx.x & 31;
   const int lanes = 3 * ((a.n_feat + 3) / 4);
   const long long stride = (long long)gridDim.x * kThreads;
@@ -204,10 +253,16 @@ __device__ void small_scan(Rows rows, const Weights& a) {
 // Large regime, groups form: blockIdx.y is the column group of width
 // group_w, blockIdx.x the slice of positions.
 template <class Rows>
-__device__ void large_groups(Rows rows, const Weights& a, int group_w) {
+__device__ void large_groups(Rows rows, Weights a, int group_w) {
   extern __shared__ float sh[];
-  const long long n = rows.begin();
-  const long long len = slice_len(n, gridDim.x);
+  const long long n = open_rows(rows, a);
+  if (n < 0) return;
+  const long long want =
+      a.block_rows > 0 ? (n + a.block_rows - 1) / a.block_rows : gridDim.x;
+  const int nb = want < (long long)gridDim.x ? (int)max(want, 1ll)
+                                             : (int)gridDim.x;
+  if ((int)blockIdx.x >= nb) return;
+  const long long len = slice_len(n, nb);
   const long long lo = (long long)blockIdx.x * len;
   if (lo >= n) return;  // no position: no zeroing, no flush
   const long long hi = min(n, lo + len);
@@ -238,8 +293,9 @@ __device__ void large_groups(Rows rows, const Weights& a, int group_w) {
 }
 
 // The argument block of both C entry points, packed by the Python wrapper
-// (ops/histogram.py:_ARGS, struct format "@7Pq8iP"): one ctypes argument
-// instead of sixteen, each of which costs the host a conversion per call.
+// (ops/histogram.py:_ARGS, struct format "@13Pq11iP"): one ctypes argument
+// instead of twenty-five, each of which costs the host a conversion per
+// call.
 struct Args {
   const void* rows_a;  // order (hist_gather) or row_leaf (hist_local)
   const void* rows_b;  // (start, cnt) or leaf_id, in device memory
@@ -248,6 +304,12 @@ struct Args {
   const void* hw;
   const void* cw;
   void* out;
+  const void* sel;     // int32[1] in device memory, or null: no second set
+  const void* alt_rows;
+  const void* alt_bins;
+  const void* alt_gw;
+  const void* alt_hw;
+  const void* alt_cw;
   long long n_loc;     // local rows of the masked scan (hist_local)
   int n_feat;
   int num_bins;
@@ -257,16 +319,22 @@ struct Args {
   int group_w;
   int smem;
   int device;
+  int small_grid_x;    // device regime: the small kernel's grid
+  int split_rows;      // device regime: the small kernel's largest count
+  int block_rows;      // device regime: rows a large-regime block takes
   void* stream;
 };
 
 // Launch parameters from the host's plan; the C entry points check them.
 struct Plan {
   int regime;
-  int grid_x;
+  int grid_x;        // large regime (device regime: its large kernel)
   int grid_y;
   int group_w;   // columns per shared-memory group (large regime)
   int smem;      // dynamic shared memory per block, bytes
+  int small_grid_x;
+  int split_rows;
+  int block_rows;
 };
 
 // Dynamic shared memory a block may take without cudaFuncSetAttribute; a
@@ -278,13 +346,18 @@ inline bool plan_ok(const Plan& p, int n_feat, int num_bins) {
       p.smem > kMaxSmem)
     return false;
   if (p.regime == kRegimeSmall) return p.grid_y == 1;
-  return p.regime == kRegimeLarge && p.group_w >= 1 &&
+  if (p.regime == kRegimeDevice &&
+      (p.small_grid_x < 1 || p.split_rows < 0 || p.block_rows < 0))
+    return false;
+  return (p.regime == kRegimeLarge || p.regime == kRegimeDevice) &&
+         p.group_w >= 1 &&
          p.smem >= p.group_w * num_bins * 3 * (int)sizeof(float) &&
          (long long)p.grid_y * p.group_w >= n_feat;
 }
 
-// Zeroes `out` and launches the kernel of the plan's regime on `stream` of
-// the current card; returns the cudaError_t (0 on success).
+// Zeroes `out` and launches the kernel of the plan's regime (both kernels,
+// each gated by the count, in the device regime) on `stream` of the
+// current card; returns the cudaError_t (0 on success).
 template <class Rows>
 int launch_on(void (*small)(Rows, Weights),
               void (*groups)(Rows, Weights, int), Rows rows, Weights a,
@@ -292,11 +365,22 @@ int launch_on(void (*small)(Rows, Weights),
   cudaError_t err = cudaMemsetAsync(
       a.out, 0, (size_t)a.n_feat * a.num_bins * 3 * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
-  if (p.regime == kRegimeSmall)
+  if (p.regime == kRegimeSmall) {
     small<<<p.grid_x, kThreads, 0, stream>>>(rows, a);
-  else
+  } else if (p.regime == kRegimeLarge) {
     groups<<<dim3(p.grid_x, p.grid_y), kThreads, p.smem, stream>>>(
         rows, a, p.group_w);
+  } else {
+    Weights s = a, l = a;
+    s.max_rows = p.split_rows;
+    l.min_rows = (long long)p.split_rows + 1;
+    l.block_rows = p.block_rows;
+    small<<<p.small_grid_x, kThreads, 0, stream>>>(rows, s);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    groups<<<dim3(p.grid_x, p.grid_y), kThreads, p.smem, stream>>>(
+        rows, l, p.group_w);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -307,11 +391,18 @@ int launch(void (*small)(Rows, Weights), void (*groups)(Rows, Weights, int),
            Rows rows, const Args& x) {
   const Weights a{(const uint8_t*)x.bins, (const float*)x.gw,
                   (const float*)x.hw, (const float*)x.cw, (float*)x.out,
-                  x.n_feat, x.num_bins};
-  const Plan p{x.regime, x.grid_x, x.grid_y, x.group_w, x.smem};
+                  x.n_feat, x.num_bins, 0, 0x7fffffffffffffffll, 0,
+                  (const int32_t*)x.sel, x.alt_rows,
+                  (const uint8_t*)x.alt_bins, (const float*)x.alt_gw,
+                  (const float*)x.alt_hw, (const float*)x.alt_cw};
+  const Plan p{x.regime, x.grid_x, x.grid_y, x.group_w, x.smem,
+               x.small_grid_x, x.split_rows, x.block_rows};
   const int device = x.device;
   const cudaStream_t stream = (cudaStream_t)x.stream;
-  if (!plan_ok(p, a.n_feat, a.num_bins)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(p, a.n_feat, a.num_bins) ||
+      (a.sel && !(a.alt_rows && a.alt_bins && a.alt_gw && a.alt_hw &&
+                  a.alt_cw)))
+    return (int)cudaErrorInvalidValue;
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);

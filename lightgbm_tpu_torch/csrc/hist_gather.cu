@@ -21,6 +21,13 @@
 //     12 KB shared-memory histogram, and slices of the window on
 //     blockIdx.x, sized so that four blocks are resident on every SM.
 //     The true count is spread over all the blocks.
+// Inside the serial grower's captured split step the host holds no bound
+// but the rows; there the "device" regime launches both kernels, the small
+// one over the grid of a 16,384-row window and the large one over the
+// rows' grid, of which it takes a block for every 512 rows of the true
+// count; each returns at once unless the window's count falls in its
+// range.  The window's buffer (one of two, by the leaf's
+// depth parity) is picked in the kernel as well (hist_core.cuh).
 //
 // Large-window design kept: the feature groups.  Timed in turns against
 // a thread block cluster form (each block of a cluster holding a column

@@ -15,7 +15,13 @@
 // depth parity).  Windows of different leaves never overlap, so no block
 // reads a position that another block writes, and no pass copies the
 // window back.  (start, cnt) are read on the device from an int64[2]; the
-// host passes a bound on cnt that sizes the grid, and the form.
+// host passes a bound on cnt that sizes the grid, and the form.  Inside
+// the serial grower's captured split step the host knows neither the
+// count nor which buffer holds the window: there it passes the rows as
+// the bound, both forms are launched ("device" form), each returning at
+// once unless the true count falls in its range, and an int32 parity in
+// device memory swaps src and dst when it is odd.  Tiles past the count
+// return at once; the empty launches' cost is in PERF.md.
 //
 // What bounds it on the H100: bytes.  Per window position it reads the
 // mask (1 B) and each matrix row, and writes each row once; there is no
@@ -28,8 +34,8 @@
 //     run and its right run as two contiguous ranges of each matrix in
 //     `dst`, 16 bytes a store where the rows are whole words: each run is
 //     staged at the same address modulo 16 as its destination;
-//   - a tile needs its left base (the lefts before it) and nl.  The host
-//     knows cnt and picks one of two forms from it:
+//   - a tile needs its left base (the lefts before it) and nl.  One of two
+//     forms, by cnt:
 //     small, one launch: every tile sums the whole window's mask itself
 //       (a byte a position, read from L2 16 bytes at a time), which gives
 //       both numbers with no other pass; a window of one tile is one block;
@@ -63,7 +69,7 @@
 constexpr int kMaxMats = 9;            // order + 8 payload matrices
 
 // The argument block of the C entry point, packed by the Python wrapper
-// (ops/partition.py:_ARGS, struct format "@9P9P9q4P3q4iP").
+// (ops/partition.py:_ARGS, struct format "@9P9P9q5P4q4iP").
 struct Args {
   const void* src[kMaxMats];
   void* dst[kMaxMats];
@@ -72,9 +78,13 @@ struct Args {
   const void* sc;              // int64[2] (start, cnt) on the device
   void* nl_out;                // int32[1]
   void* scratch;               // uint64 status[tiles], then a uint32 ticket
+  const void* odd;             // int32[1] on the device, or null: when odd,
+                               // src and dst swap
   long long rows;              // rows of every matrix
   long long bound;             // host bound on cnt: the grid's positions
   long long scratch_tiles;     // status words the scratch holds
+  long long small_max;         // the small form takes cnt <= small_max,
+                               // the large form the rest
   int n_mats;
   int form;
   int device;
@@ -86,6 +96,7 @@ namespace {
 
 constexpr int kFormSmall = 0;
 constexpr int kFormLarge = 1;
+constexpr int kFormDevice = 2;   // both forms, each gated by cnt
 
 // tile geometry: a block of either form takes one tile of positions
 constexpr int kThreads = 256;
@@ -127,6 +138,21 @@ __device__ __forceinline__ Window window(const Args& a) {
 
 __device__ __forceinline__ bool left_at(const uint8_t* gl, long long p) {
   return __ldg(gl + p) != 0;
+}
+
+// Whether src and dst swap: the parity in device memory is odd.
+__device__ __forceinline__ bool swapped(const Args& a) {
+  return a.odd != nullptr && (*static_cast<const int32_t*>(a.odd) & 1);
+}
+
+// Matrix j's source and destination after the parity's swap.
+__device__ __forceinline__ const void* src_of(const Args& a, int j,
+                                              bool swap) {
+  return swap ? a.dst[j] : a.src[j];
+}
+
+__device__ __forceinline__ void* dst_of(const Args& a, int j, bool swap) {
+  return swap ? const_cast<void*>(a.src[j]) : a.dst[j];
 }
 
 // Exclusive block scan of one int a thread; returns the thread's prefix
@@ -258,10 +284,10 @@ __device__ __forceinline__ Runs runs_at(int off, const uint32_t* dst,
 // phase of asynchronous copies into rank order, one wait, then each
 // matrix's two runs stored.  A matrix too wide for the stage moves in
 // column slabs, and one whose rows are not whole words byte by byte.
-__device__ void move_tile(const Args& a, long long start, long long lo,
-                          int n, int L, long long lbase, long long rbase,
-                          long long nl, const TileSmem& sm, uint32_t* stage,
-                          int stage_words) {
+__device__ void move_tile(const Args& a, bool swap, long long start,
+                          long long lo, int n, int L, long long lbase,
+                          long long rbase, long long nl, const TileSmem& sm,
+                          uint32_t* stage, int stage_words) {
   const long long row0 = start + lo;
   const long long dl = start + lbase;        // dst row of the left run
   const long long dr = start + nl + rbase;   // dst row of the right run
@@ -278,10 +304,11 @@ __device__ void move_tile(const Args& a, long long start, long long lo,
       int off = 0;
       for (int m = j; m < j1; ++m) {
         const int wpr = (int)(a.width[m] >> 2);
-        const Runs r = runs_at(off, static_cast<const uint32_t*>(a.dst[m]),
+        const Runs r = runs_at(off, static_cast<const uint32_t*>(
+                                        dst_of(a, m, swap)),
                                dl, dr, wpr, wpr, L);
-        const uint32_t* s32 = static_cast<const uint32_t*>(a.src[m]) +
-                              row0 * wpr;
+        const uint32_t* s32 =
+            static_cast<const uint32_t*>(src_of(a, m, swap)) + row0 * wpr;
         for (int k = threadIdx.x; k < n * wpr; k += kThreads) {
           const int p = div_small(k, wpr);
           const int q = sm.rank[p];
@@ -296,7 +323,7 @@ __device__ void move_tile(const Args& a, long long start, long long lo,
       off = 0;
       for (int m = j; m < j1; ++m) {
         const int wpr = (int)(a.width[m] >> 2);
-        uint32_t* d32 = static_cast<uint32_t*>(a.dst[m]);
+        uint32_t* d32 = static_cast<uint32_t*>(dst_of(a, m, swap));
         const Runs r = runs_at(off, d32, dl, dr, wpr, wpr, L);
         store_run(d32 + dl * wpr, stage + r.offl, L * wpr);
         store_run(d32 + dr * wpr, stage + r.offr, (n - L) * wpr);
@@ -309,8 +336,8 @@ __device__ void move_tile(const Args& a, long long start, long long lo,
     const long long w = a.width[j];
     if (word_rows(a, j)) {   // too wide: column slabs of s words
       const int wpr = (int)(w >> 2);
-      const uint32_t* s32 = static_cast<const uint32_t*>(a.src[j]);
-      uint32_t* d32 = static_cast<uint32_t*>(a.dst[j]);
+      const uint32_t* s32 = static_cast<const uint32_t*>(src_of(a, j, swap));
+      uint32_t* d32 = static_cast<uint32_t*>(dst_of(a, j, swap));
       const int slab = max(1, (stage_words - kRunPad) / max(n, 1));
       for (int c0 = 0; c0 < wpr; c0 += slab) {
         const int s = min(slab, wpr - c0);
@@ -335,8 +362,8 @@ __device__ void move_tile(const Args& a, long long start, long long lo,
         __syncthreads();
       }
     } else {   // rows of bytes: the same staging, a byte at a time
-      const uint8_t* src = static_cast<const uint8_t*>(a.src[j]);
-      uint8_t* dst = static_cast<uint8_t*>(a.dst[j]);
+      const uint8_t* src = static_cast<const uint8_t*>(src_of(a, j, swap));
+      uint8_t* dst = static_cast<uint8_t*>(dst_of(a, j, swap));
       uint8_t* st = reinterpret_cast<uint8_t*>(stage);
       const int wb = (int)w;
       const int slab = max(1, min(wb, 4 * stage_words / max(n, 1)));
@@ -362,7 +389,8 @@ __device__ void move_tile(const Args& a, long long start, long long lo,
 }
 
 // The large form's count pass: tile t's left count into status[t]; the
-// last block to finish sums them into nl and resets the ticket.
+// last block to finish sums them into nl and resets the ticket.  Only the
+// window's tiles (at least one) take part; the others return at once.
 __global__ void __launch_bounds__(kThreads)
 lgbt_partition_count(Args a) {
   __shared__ bool last;
@@ -371,6 +399,9 @@ lgbt_partition_count(Args a) {
   unsigned int* ticket =
       reinterpret_cast<unsigned int*>(status + a.scratch_tiles);
   const Window win = window(a);
+  if (win.cnt <= a.small_max) return;   // the small form's window
+  const long long tiles = win.cnt > 0 ? (win.cnt + kTile - 1) / kTile : 1;
+  if ((long long)blockIdx.x >= tiles) return;
   const uint8_t* gl = static_cast<const uint8_t*>(a.goes_left);
   const long long lo = (long long)blockIdx.x * kTile;
   int total = 0;
@@ -381,13 +412,13 @@ lgbt_partition_count(Args a) {
   if (threadIdx.x == 0) {
     status[blockIdx.x] = kAggregate | (unsigned long long)total;
     __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    last = atomicAdd(ticket, 1u) == (unsigned)(tiles - 1);
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
   long long sum = 0;
-  for (unsigned t = threadIdx.x; t < gridDim.x; t += kThreads)
+  for (long long t = threadIdx.x; t < tiles; t += kThreads)
     sum += (long long)(((volatile unsigned long long*)status)[t] & kValue);
   for (int o = 16; o > 0; o >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, o);
   if ((threadIdx.x & 31) == 0) warp_total[threadIdx.x >> 5] = sum;
@@ -457,6 +488,7 @@ lgbt_partition_small(Args a, int stage_words) {
   __shared__ long long red[2 * kThreads / 32];
   extern __shared__ __align__(16) uint32_t stage[];
   const Window win = window(a);
+  if (win.cnt > a.small_max) return;    // the large form's window
   const uint8_t* gl = static_cast<const uint8_t*>(a.goes_left);
   const long long lo = (long long)blockIdx.x * kTile;
   const int n = (int)max(0ll, min((long long)kTile, win.cnt - lo));
@@ -466,8 +498,8 @@ lgbt_partition_small(Args a, int stage_words) {
   const int L = rank_tile(gl, lo, n, sm);
   if (blockIdx.x == 0 && threadIdx.x == 0)
     *static_cast<int32_t*>(a.nl_out) = (int32_t)nl;
-  move_tile(a, win.start, lo, n, L, lbase, lo - lbase, nl, sm, stage,
-            stage_words);
+  move_tile(a, swapped(a), win.start, lo, n, L, lbase, lo - lbase, nl, sm,
+            stage, stage_words);
 }
 
 // The large form's write pass: rank the tile, find its left base by
@@ -479,6 +511,7 @@ lgbt_partition_write(Args a, int stage_words) {
   volatile unsigned long long* status =
       static_cast<volatile unsigned long long*>(a.scratch);
   const Window win = window(a);
+  if (win.cnt <= a.small_max) return;   // the small form's window
   const uint8_t* gl = static_cast<const uint8_t*>(a.goes_left);
   const long long t = blockIdx.x;
   const long long lo = t * kTile;
@@ -507,8 +540,8 @@ lgbt_partition_write(Args a, int stage_words) {
   __syncthreads();
   const long long lbase = sm.base;
   const long long nl = *static_cast<const volatile int32_t*>(a.nl_out);
-  move_tile(a, win.start, lo, n, L, lbase, lo - lbase, nl, sm, stage,
-            stage_words);
+  move_tile(a, swapped(a), win.start, lo, n, L, lbase, lo - lbase, nl, sm,
+            stage, stage_words);
 }
 
 // Staged words a block of `tile` positions uses: every matrix's rows whole
@@ -540,13 +573,17 @@ int launch_on(const Args& a) {
   const long long tiles = a.bound > 0 ? (a.bound + kTile - 1) / kTile : 1;
   const int words =
       stage_words(a, (int)(a.bound < kTile ? a.bound : kTile), kStageWords);
-  if (a.form == kFormSmall) {
+  if (a.form != kFormLarge) {   // small, or the device form's small launch
+    const long long most = a.bound < a.small_max ? a.bound : a.small_max;
+    const long long small_tiles = most > 0 ? (most + kTile - 1) / kTile : 1;
     int rc = allow_smem((const void*)lgbt_partition_small, words * 4,
                         a.device, g_small_smem);
     if (rc) return rc;
-    lgbt_partition_small<<<(unsigned)tiles, kThreads, words * 4, s>>>(a,
-                                                                      words);
-    return (int)cudaGetLastError();
+    lgbt_partition_small<<<(unsigned)small_tiles, kThreads, words * 4, s>>>(
+        a, words);
+    if (a.form == kFormSmall) return (int)cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
   int rc = allow_smem((const void*)lgbt_partition_write, words * 4, a.device,
                       g_large_smem);
@@ -562,18 +599,20 @@ int launch_on(const Args& a) {
 }  // namespace
 
 // Partitions the window (start, cnt) = x->sc (device int64[2], cnt at most
-// x->bound) of each of the x->n_mats matrices from src into dst and writes
-// nl to x->nl_out: one launch (small form) or two (large) on stream
-// x->stream of card x->device, which is made current only if it is not.
+// x->bound) of each of the x->n_mats matrices from src into dst (dst into
+// src when x->odd is given and odd) and writes nl to x->nl_out: one launch
+// (small form), two (large) or three (device form) on stream x->stream of
+// card x->device, which is made current only if it is not.
 // The scratch starts zeroed and is left so (its ticket) for the next call.
 // Returns the cudaError_t (0 on success).
 extern "C" int lgbt_partition(const Args* x) {
   const Args& a = *x;
   if (a.n_mats < 1 || a.n_mats > kMaxMats || a.bound < 0 ||
       a.device < 0 || a.device >= kMaxDevices ||
-      (a.form != kFormSmall && a.form != kFormLarge))
+      (a.form != kFormSmall && a.form != kFormLarge &&
+       a.form != kFormDevice))
     return (int)cudaErrorInvalidValue;
-  if (a.form == kFormLarge &&
+  if (a.form != kFormSmall &&
       (a.bound < 1 || (a.bound + kTile - 1) / kTile > a.scratch_tiles))
     return (int)cudaErrorInvalidValue;
   int prev = a.device;

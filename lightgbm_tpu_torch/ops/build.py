@@ -27,6 +27,7 @@ KERNEL_SOURCES: Dict[str, str] = {
     "hist_local": "csrc/hist_local.cu",
     "partition": "csrc/partition.cu",
     "cat_group": "csrc/cat_group.cu",
+    "route": "csrc/route.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

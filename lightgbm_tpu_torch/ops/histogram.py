@@ -19,8 +19,13 @@ Both CUDA kernels share one core (``csrc/hist_core.cuh``) with two
 regimes, which :func:`plan_launch` picks on the host from a bound on the
 rows that the caller already holds: a small window adds straight into the
 output with global reductions, a large one into shared-memory histograms
-of a few columns.  The wrappers zero the output inside the C entry point
-(on the kernel's stream) and set up each ``ctypes`` entry point once.
+of a few columns.  Inside the serial grower's captured split step the host
+holds no bound but the rows: :func:`plan_device` launches both kernels,
+each gated on the device by the window's true count, and ``alt``/``sel``
+let the kernel pick the window's buffer (one of two, by the leaf's depth
+parity) from device memory.  The wrappers zero the output inside the C
+entry point (on the kernel's stream) and set up each ``ctypes`` entry point
+once.
 
 The data-parallel learner (``parallel/gspmd.py``) keeps a row -> leaf map
 per row shard instead of an ``order`` window, and measures a leaf with
@@ -40,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,6 +85,14 @@ THREADS = 256              # threads a block (hist_core.cuh kThreads)
 # it; K3's is the parent's count over all shards
 SMALL_MAX_ROWS = 32_768
 SMALL_MAX_ROWS_LOCAL = 65_536
+# the device regime's small kernel takes windows of at most this many rows:
+# the smaller child under SMALL_MAX_ROWS, where the small regime won
+# (PERF.md)
+SMALL_MAX_WINDOW = SMALL_MAX_ROWS // 2
+# and its large kernel, over the grid of the rows, takes a block for every
+# this many rows of the true count: about LARGE_MIN_ROWS of a parent's
+# bound, as the host plan spreads a child of about half the parent
+DEVICE_BLOCK_ROWS = 512
 GROUP_COLS = 4             # columns of a large-regime shared histogram
 LARGE_BLOCKS_PER_SM = 4    # large-regime blocks the grid aims at per SM
 LARGE_MIN_ROWS = 1024      # positions a large-regime block takes at least
@@ -90,11 +103,15 @@ MAX_GRID_Y = 65_535
 
 class LaunchPlan(NamedTuple):
     """How a histogram kernel is launched (``csrc/hist_core.cuh``)."""
-    regime: str        # "small": global reductions; "large": shared memory
+    regime: str        # "small": global reductions; "large": shared
+    #                    memory; "device": both, gated by the true count
     grid_x: int        # blocks over the positions
     grid_y: int        # column groups (large regime)
     group_width: int   # columns a block's shared histogram holds
     smem_bytes: int    # dynamic shared memory a block
+    small_grid_x: int = 0   # device regime: the small kernel's blocks
+    split_rows: int = 0     # device regime: the small kernel's largest count
+    block_rows: int = 0     # device regime: rows a large-regime block takes
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -147,6 +164,23 @@ def plan_launch(bound: int, n_feat: int, num_bins: int,
     return LaunchPlan("large", grid_x, grid_y, width, smem)
 
 
+def plan_device(bound: int, n_feat: int, num_bins: int, *,
+                num_sms: int) -> LaunchPlan:
+    """The launch of ``hist_window`` over a window of at most ``bound``
+    rows whose count only the device knows: the small kernel over the grid
+    of a ``SMALL_MAX_WINDOW``-row window, taking counts up to it, and the
+    large kernel over the grid of ``bound`` rows, taking the larger ones.
+    The large kernel leaves idle the blocks that its true count does not
+    need (``DEVICE_BLOCK_ROWS`` positions a block)."""
+    large = plan_launch(bound, n_feat, num_bins, num_sms=num_sms,
+                        small_max_rows=-1)
+    small = plan_launch(min(bound, SMALL_MAX_WINDOW), n_feat, num_bins,
+                        num_sms=num_sms, small_max_rows=SMALL_MAX_WINDOW)
+    return large._replace(regime="device", small_grid_x=small.grid_x,
+                          split_rows=SMALL_MAX_WINDOW,
+                          block_rows=DEVICE_BLOCK_ROWS)
+
+
 # the wrappers' plans: a split's bound recurs across trees and shards
 _plan = functools.lru_cache(maxsize=4096)(plan_launch)
 
@@ -160,10 +194,13 @@ def sm_count(device: int) -> int:
 # ---- the CUDA kernels ----------------------------------------------------
 
 # the C entry points' one argument (csrc/hist_core.cuh: Args): 7 pointers,
-# the local rows, 8 ints (sizes, plan, card) and the stream, packed at once
-_ARGS = struct.Struct("@7Pq8iP")
+# the selector and the 5 of the second set, the local rows, 11 ints (sizes,
+# plan, card) and the stream, packed at once
+_ARGS = struct.Struct("@13Pq11iP")
 _ARG_TYPES = (torch.int32, torch.int32, torch.uint8, torch.float32,
               torch.float32, torch.float32)
+_REGIMES = {"small": 0, "large": 1, "device": 2}
+_NO_ALT = (0,) * 6
 
 
 def _check_cuda_args(fn: str, names, tensors, num_bins: int) -> None:
@@ -194,25 +231,47 @@ _WINDOW_ARGS = ("order", "sc", "bins", "gw", "hw", "cw")
 _LOCAL_ARGS = ("row_leaf", "leaf_id", "bins", "gw", "hw", "cw")
 
 
+def _pick(sel: Optional[torch.Tensor], first, alt):
+    """The plain versions' buffer set: ``alt`` when ``sel`` is odd."""
+    return first if sel is None or not int(sel.reshape(-1)[0]) & 1 else alt
+
+
 def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
                 gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
                 num_bins: int, rows_upper_bound: Optional[int] = None,
-                plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+                plan: Optional[LaunchPlan] = None,
+                alt: Optional[Tuple[torch.Tensor, ...]] = None,
+                sel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[F, num_bins, 3]`` histogram of rows ``order[start:start+cnt]``,
     (start, cnt) = ``sc`` (device ``int32[2]``).
 
     ``rows_upper_bound`` is a host-known bound on cnt (the parent leaf's
     count in the grower) from which :func:`plan_launch` picks the kernel's
     regime and grid; the kernel reads the true cnt from ``sc``.  ``plan``
-    replaces that plan (to time the designs against each other).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel, on
-    their own card, or raise."""
+    replaces that plan (to time the designs against each other;
+    :func:`plan_device` leaves the regime to the device).  ``alt`` is a
+    second ``(order, bins, gw, hw, cw)`` of the same shapes, taken when the
+    device ``int32[1]`` ``sel`` is odd.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel, on their own card, or
+    raise."""
+    if (alt is None) != (sel is None):
+        raise ValueError("hist_window: alt and sel go together")
     if not bins.is_cuda:
         if bins.device.type == "cpu":
-            return hist_window_plain(order, sc, bins, gw, hw, cw, num_bins)
+            return hist_window_plain(
+                *_pick(sel, (order, sc, bins, gw, hw, cw),
+                       (alt[0], sc, *alt[1:]) if alt else None), num_bins)
         raise ValueError(f"hist_window: unsupported device {bins.device}")
     _check_cuda_args("hist_window", _WINDOW_ARGS,
                      (order, sc, bins, gw, hw, cw), num_bins)
+    if alt is not None:
+        _check_cuda_args("hist_window", _WINDOW_ARGS,
+                         (alt[0], sc, *alt[1:]), num_bins)
+        if (alt[1].shape != bins.shape or alt[0].shape != order.shape
+                or sel.get_device() != bins.get_device()
+                or sel.dtype != torch.int32 or sel.numel() != 1):
+            raise ValueError("hist_window: the second set must match the "
+                             "first, sel be an int32[1] on its card")
     if sc.numel() != 2:
         raise ValueError("hist_window: sc must hold (start, cnt)")
     n, f = bins.shape
@@ -223,14 +282,17 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
                      num_sms=sm_count(dev))
     out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
+    alt_ptrs = (_NO_ALT if alt is None else
+                (sel.data_ptr(), *[t.data_ptr() for t in alt]))
     # the C side makes the tensors' card current only if it is not
     err = build.function("hist_gather", "lgbt_hist_gather",
                          [ctypes.c_char_p])(_ARGS.pack(
                              order.data_ptr(), sc.data_ptr(), bins.data_ptr(),
                              gw.data_ptr(), hw.data_ptr(), cw.data_ptr(),
-                             out.data_ptr(), n, f, num_bins,
-                             plan.regime == "large", *plan[1:], dev,
-                             torch._C._cuda_getCurrentRawStream(dev)))
+                             out.data_ptr(), *alt_ptrs, n, f, num_bins,
+                             _REGIMES[plan.regime], *plan[1:5], dev,
+                             *plan[5:], torch._C._cuda_getCurrentRawStream(
+                                 dev)))
     if err != 0:
         raise RuntimeError(f"hist_gather kernel launch failed: CUDA error "
                            f"{err}")
@@ -242,7 +304,7 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
 # kernel launches, counted where the kernel is launched and nowhere else;
 # and the same launches by the regime their plan took
 hist_window.launches = 0
-hist_window.regime_launches = {"small": 0, "large": 0}
+hist_window.regime_launches = {"small": 0, "large": 0, "device": 0}
 
 
 def hist_flat(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
@@ -303,6 +365,9 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
         plan = _plan(n if rows_upper_bound is None
                      else int(rows_upper_bound), f, num_bins, n,
                      num_sms=sm_count(dev))
+    elif plan.regime == "device":
+        raise ValueError("hist_local: the device regime gates a window's "
+                         "count, not a shard's")
     out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
     # the C side makes the tensors' card current only if it is not
@@ -310,8 +375,9 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
                          [ctypes.c_char_p])(_ARGS.pack(
                              row_leaf.data_ptr(), leaf_id.data_ptr(),
                              bins.data_ptr(), gw.data_ptr(), hw.data_ptr(),
-                             cw.data_ptr(), out.data_ptr(), n, f, num_bins,
-                             plan.regime == "large", *plan[1:], dev,
+                             cw.data_ptr(), out.data_ptr(), *_NO_ALT, n, f,
+                             num_bins, _REGIMES[plan.regime], *plan[1:5],
+                             dev, *plan[5:],
                              torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"hist_local kernel launch failed: CUDA error "

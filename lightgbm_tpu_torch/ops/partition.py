@@ -21,7 +21,11 @@ window back.  The three forms share that interface:
   launches the hand-written kernel ``csrc/partition.cu`` on a CUDA tensor
   (one launch for a bound of at most ``SMALL_MAX_ROWS`` positions, two
   above; none for a bound of 0) and runs :func:`partition_window_plain`
-  on a CPU tensor;
+  on a CPU tensor.  The serial grower's captured split step knows neither
+  cnt nor which buffer holds the window on the host: it passes the rows as
+  the bound with ``form="device"`` (both forms launched, each gated on the
+  device by the true cnt) and the leaf's depth parity as a device
+  ``int32[1]`` ``odd``, which swaps ``src`` and ``dst`` when odd;
 * :func:`partition_window_plain`, the plain PyTorch version (a
   cumulative-sum rank and one scatter a matrix), on host (start, cnt);
 * :func:`partition_window_sort`, ``partition_impl=sort``: a stable sort
@@ -46,7 +50,9 @@ MAX_MATS = 9          # matrices a call moves: order + 8 payload matrices
 SMALL_MAX_ROWS = 196_608
 TILE = 2048           # positions a block and a status word cover (kTile)
 MAX_GRID_X = 2 ** 31 - 1
-_FORMS = {"small": 0, "large": 1}
+_FORMS = {"small": 0, "large": 1, "device": 2}
+_LAUNCHES = {"small": 1, "large": 2, "device": 3}
+_NO_GATE = {"small": 2 ** 63 - 1, "large": -1}
 
 
 def partition_window_plain(src: Sequence[torch.Tensor],
@@ -87,15 +93,19 @@ def partition_window_sort(src: Sequence[torch.Tensor],
 
 class LaunchPlan(NamedTuple):
     """How the partition kernel is launched for a window bound."""
-    form: str          # "small": one launch; "large": count + write
+    form: str          # "small": one launch; "large": count + write;
+    #                    "device": all three, each gated by the true cnt
     grid: int          # blocks of each launch: one a tile of TILE positions
+    #                    (the device form's small launch: of at most
+    #                    SMALL_MAX_ROWS positions)
     launches: int      # kernel launches of the call
 
 
 def plan_launch(bound: int, form: Optional[str] = None) -> LaunchPlan:
     """The launch of a call over at most ``bound`` positions: a pure
     function of what the host knows (the grower's exact cnt).  ``form``
-    replaces the choice by ``SMALL_MAX_ROWS`` (to time the forms)."""
+    replaces the choice by ``SMALL_MAX_ROWS`` (to time the forms), or
+    leaves it to the device (``"device"``)."""
     if bound < 0:
         raise ValueError(f"plan_launch: bound {bound}")
     if form is None:
@@ -104,7 +114,7 @@ def plan_launch(bound: int, form: Optional[str] = None) -> LaunchPlan:
     if form not in _FORMS or grid > MAX_GRID_X:
         raise ValueError(f"plan_launch: form {form!r} over {bound} "
                          f"positions")
-    launches = 0 if bound == 0 else {"small": 1, "large": 2}[form]
+    launches = 0 if bound == 0 else _LAUNCHES[form]
     return LaunchPlan(form, grid, launches)
 
 
@@ -118,9 +128,9 @@ def partition_scratch(rows: int, device) -> torch.Tensor:
 
 
 # the C entry point's one argument (csrc/partition.cu: Args): the source,
-# destination and row width of MAX_MATS matrices, 4 pointers, 3 sizes, 4
+# destination and row width of MAX_MATS matrices, 5 pointers, 4 sizes, 4
 # ints and the stream
-_ARGS = struct.Struct(f"@{MAX_MATS}P{MAX_MATS}P{MAX_MATS}q4P3q4iP")
+_ARGS = struct.Struct(f"@{MAX_MATS}P{MAX_MATS}P{MAX_MATS}q5P4q4iP")
 _NULLS = (0,) * MAX_MATS
 
 
@@ -128,7 +138,8 @@ def _row_bytes(t: torch.Tensor) -> int:
     return (t.shape[1] if t.dim() > 1 else 1) * t.element_size()
 
 
-def _check_cuda_args(src, dst, sc, goes_left, bound: int, scratch) -> None:
+def _check_cuda_args(src, dst, sc, goes_left, bound: int, scratch,
+                     odd) -> None:
     """Device, type, contiguity and shapes of the kernel's arguments.
     Messages are built only on failure: the grower calls once per split."""
     if not 1 <= len(src) <= MAX_MATS or len(dst) != len(src):
@@ -159,13 +170,18 @@ def _check_cuda_args(src, dst, sc, goes_left, bound: int, scratch) -> None:
     if scratch.get_device() != dev or scratch.dtype != torch.int64:
         raise ValueError("partition_window: scratch must be int64 on "
                          "order's card (partition_scratch)")
+    if odd is not None and (odd.get_device() != dev or odd.numel() != 1
+                            or odd.dtype != torch.int32):
+        raise ValueError("partition_window: odd must be an int32[1] on "
+                         "order's card")
 
 
 def partition_window(src: Sequence[torch.Tensor],
                      dst: Sequence[torch.Tensor], sc: torch.Tensor,
                      goes_left: torch.Tensor, rows_upper_bound: int,
                      scratch: Optional[torch.Tensor] = None,
-                     form: Optional[str] = None) -> torch.Tensor:
+                     form: Optional[str] = None,
+                     odd: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stably partition the window (start, cnt) = ``sc`` (an ``int64[2]``
     on the matrices' device) of each ``src`` matrix (``src[0]`` is
     ``order``) by ``goes_left[:cnt]`` into the same positions of ``dst``;
@@ -176,18 +192,22 @@ def partition_window(src: Sequence[torch.Tensor],
     grid; the kernel reads the true window from ``sc``.  ``scratch`` (from
     :func:`partition_scratch`, sized for at least the bound) is allocated
     when not given.  ``form`` replaces the plan's form (to time the forms
-    against each other).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel, on their own card, or raise."""
+    against each other; ``"device"`` launches both, gated by the true cnt).
+    ``odd`` (a device ``int32[1]``) swaps ``src`` and ``dst`` when odd.
+    CPU tensors take the plain version; CUDA tensors launch the kernel, on
+    their own card, or raise."""
     if not src[0].is_cuda:
         if src[0].device.type == "cpu":
             start, cnt = (int(v) for v in sc.tolist())
+            if odd is not None and int(odd.reshape(-1)[0]) & 1:
+                src, dst = dst, src
             return partition_window_plain(src, dst, start, cnt, goes_left)
         raise ValueError(f"partition_window: unsupported device "
                          f"{src[0].device}")
     bound = int(rows_upper_bound)
     if scratch is None:
         scratch = partition_scratch(bound, src[0].device)
-    _check_cuda_args(src, dst, sc, goes_left, bound, scratch)
+    _check_cuda_args(src, dst, sc, goes_left, bound, scratch, odd)
     plan = plan_launch(bound, form)
     if plan.launches == 0:     # an empty window: nothing to move
         return torch.zeros(1, dtype=torch.int32, device=src[0].device)
@@ -203,8 +223,10 @@ def partition_window(src: Sequence[torch.Tensor],
                    *[t.data_ptr() for t in dst], *_NULLS[:pad],
                    *[_row_bytes(t) for t in src], *_NULLS[:pad],
                    goes_left.data_ptr(), sc.data_ptr(), nl.data_ptr(),
-                   scratch.data_ptr(), src[0].shape[0], bound,
-                   scratch.numel() - 1, len(src), _FORMS[plan.form], dev, 0,
+                   scratch.data_ptr(), 0 if odd is None else odd.data_ptr(),
+                   src[0].shape[0], bound, scratch.numel() - 1,
+                   _NO_GATE.get(plan.form, SMALL_MAX_ROWS), len(src),
+                   _FORMS[plan.form], dev, 0,
                    torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"partition kernel launch failed: CUDA error "
@@ -215,6 +237,7 @@ def partition_window(src: Sequence[torch.Tensor],
 
 
 # kernel calls, counted where the kernel is launched and nowhere else; and
-# the same calls by form (a small call is one launch, a large call two)
+# the same calls by form (a small call is one launch, a large call two, a
+# device call three)
 partition_window.launches = 0
-partition_window.form_launches = {"small": 0, "large": 0}
+partition_window.form_launches = {"small": 0, "large": 0, "device": 0}

@@ -247,6 +247,16 @@ def _numerical_ctx(num_bin, missing_type, default_bin, num_bins: int,
     return FusedSplitCtx(keep_m1, cand_m1, keep_p1, cand_p1, force_right)
 
 
+def _constants(cfg: SplitConfig):
+    """The scan's scalar constants as Python floats: ``(l1, l2, min_data,
+    min_hess, -inf)``.  A float32 tensor meets them in float32, as it meets
+    a 0-dim float32 tensor, and they reach a kernel as its arguments: no
+    host-to-device copy, so the scan can be captured in a CUDA graph."""
+    return (float(cfg.lambda_l1), float(cfg.lambda_l2),
+            float(cfg.min_data_in_leaf), float(cfg.min_sum_hessian_in_leaf),
+            float("-inf"))
+
+
 def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                parent_h: torch.Tensor, parent_c: torch.Tensor,
                feat_valid: torch.Tensor, cfg: SplitConfig,
@@ -260,22 +270,16 @@ def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     where feat_ok flags the features that produced any candidate beating
     the gain shift (the reference's subtree feature pruning,
     serial_tree_learner.cpp:406-417)."""
-    dtype = hist.dtype
     k, f, b, _ = hist.shape
     dev = hist.device
     pg = parent_g.view(k, 1, 1)
     pc = parent_c.view(k, 1, 1)
-    l1 = torch.tensor(cfg.lambda_l1, dtype=dtype, device=dev)
-    l2 = torch.tensor(cfg.lambda_l2, dtype=dtype, device=dev)
-    min_data = torch.tensor(cfg.min_data_in_leaf, dtype=dtype, device=dev)
-    min_hess = torch.tensor(cfg.min_sum_hessian_in_leaf, dtype=dtype,
-                            device=dev)
+    l1, l2, min_data, min_hess, neg_inf = _constants(cfg)
     tot_h_k = parent_h + 2.0 * K_EPSILON                       # [K]
     tot_h = tot_h_k.view(k, 1, 1)
     min_gain_shift_k = (leaf_split_gain(parent_g, tot_h_k, l1, l2)
                         + cfg.min_gain_to_split)               # [K]
     min_gain_shift = min_gain_shift_k.view(k, 1, 1)
-    neg_inf = torch.tensor(float("-inf"), dtype=dtype, device=dev)
     use_cat = cfg.has_categorical and ctx.is_cat is not None
     num_valid = feat_valid & ~ctx.is_cat if use_cat else feat_valid
     valid = num_valid.view(k, f, 1)
@@ -392,16 +396,10 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, feat_valid,
     Candidate order per feature: dir=+1 positions ascending, then dir=-1
     positions ascending (the reference's ``dirs = {1, -1}`` loop); the
     first maximum wins."""
-    dtype = hist.dtype
     k, f, b, _ = hist.shape
     dev = hist.device
     t_max = min(int(cfg.max_cat_threshold), b)
-    l1 = torch.tensor(cfg.lambda_l1, dtype=dtype, device=dev)
-    l2 = torch.tensor(cfg.lambda_l2, dtype=dtype, device=dev)
-    min_data = torch.tensor(cfg.min_data_in_leaf, dtype=dtype, device=dev)
-    min_hess = torch.tensor(cfg.min_sum_hessian_in_leaf, dtype=dtype,
-                            device=dev)
-    neg_inf = torch.tensor(float("-inf"), dtype=dtype, device=dev)
+    l1, l2, min_data, min_hess, neg_inf = _constants(cfg)
     used_bin = ctx.cat_used_bin                                 # [F]
     pg = parent_g.view(k, 1)
     ph = parent_h.view(k, 1)

@@ -25,15 +25,19 @@ the collectives; here the loop itself walks the shards of a
   concatenated into the ``[F, B, 3]`` histogram.  The larger child is
   the parent minus it;
 * split choice, depth gate, node records and the tree's unpacking are the
-  serial grower's (``grower.LeafPool``, ``route_goes_left``), so under
-  integer-valued weights, whose sums are exact in any order, the trees
-  are the serial grower's trees.
+  serial grower's (``grower.LeafPool``,
+  ``ops/route.py:route_goes_left``), so under integer-valued weights,
+  whose sums are exact in any order, the trees are the serial grower's
+  trees.
 
 Each split makes one host read (the chosen leaf, its row count over all
 shards and the stop test); the kernel takes the leaf id from device
 memory, and the count bounds the smaller child's rows in every shard,
-which picks the kernel's launch (``ops/histogram.py:plan_launch``).  A
-slot's ``row_leaf`` and weights are views of its device's.
+which picks the kernel's launch (``ops/histogram.py:plan_launch``).  The
+serial grower's loop runs on the device (``grower.WindowBuffers``); this
+learner keeps its host loop over the same device-side pool, allocated once
+per training and handed the chosen leaf as a device index.  A slot's
+``row_leaf`` and weights are views of its device's.
 """
 from __future__ import annotations
 
@@ -42,8 +46,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..grower import FeatureMeta, GrowerConfig, LeafPool, route_goes_left
+from ..grower import FeatureMeta, GrowerConfig, LeafPool
 from ..ops.histogram import hist_flat, hist_local
+from ..ops.route import route_goes_left
 from .mesh import BATCH_AXIS, FEATURE_AXIS, Mesh
 
 
@@ -108,6 +113,8 @@ class GspmdGrower:
                              c.start:c.stop].contiguous().to(
                                  mesh.devices[i][j])
                         for j, c in enumerate(self.cols)] for i in range(d)]
+        # the histogram store, split pool and records, reset per tree
+        self.pool = LeafPool(cfg, f, mesh.primary)
 
     def _rows(self, t: torch.Tensor, dv: torch.device) -> torch.Tensor:
         """The rows of ``t`` (global order) that ``dv``'s shards hold."""
@@ -183,9 +190,9 @@ class GspmdGrower:
         primary = self.mesh.primary
         zero = torch.zeros(1, dtype=torch.int32, device=primary)
         n_pad = len(self.slices) * self.n_loc
-        pool = LeafPool(cfg, meta, feat_valid,
-                        self._measure(row_leaf, zero, w, n_pad),
-                        gw.sum(), hw.sum(), cw.sum())
+        pool = self.pool
+        pool.reset(meta, feat_valid, self._measure(row_leaf, zero, w, n_pad),
+                   gw.sum(), hw.sum(), cw.sum())
         # every leaf's rows over all shards, padding rows included: the
         # chosen leaf's count comes back with the split's one host read and
         # bounds its children's rows in any shard
@@ -200,7 +207,11 @@ class GspmdGrower:
             if not positive:
                 break
             new, node = i + 1, i
-            irow, frow, route = pool.split_args(l)
+            # the pool's indices on the device, filled without a copy
+            l_t, new_t, node_t = (torch.full((1,), v, dtype=torch.int64,
+                                             device=primary)
+                                  for v in (l, new, node))
+            irow, frow, route = pool.split_args(l_t)
 
             # --- routing: one elementwise update of each device's map ----
             moved = None
@@ -218,13 +229,13 @@ class GspmdGrower:
                     moved = n_right if moved is None else moved + n_right
             leaf_rows[new] = moved
             leaf_rows[l] -= moved
-            child_depth = pool.record(l, new, node, irow, frow, route[3],
-                                      route[4])
+            child_depth = pool.record(l_t, new_t, node_t, irow, frow,
+                                      route[3], route[4])
 
             # --- smaller-child histogram; the pool derives the larger ----
             small_left = frow[2] <= frow[5]
             small_id = torch.where(small_left, l, new).int().view(1)
-            pool.children(l, new, frow, small_left,
+            pool.children(l_t, new_t, frow, small_left,
                           self._measure(row_leaf, small_id, w, cnt),
                           child_depth)
             step += 1

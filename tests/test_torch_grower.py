@@ -1,9 +1,13 @@
 """The port's serial grower against lightgbm_tpu's ``make_grower`` (CPU
 segment rung) under integer-valued gradients and hessians, whose
 histogram sums are exact in any order: the TreeArrays must be identical
-field by field, and the row -> leaf maps identical, at 31 and 255 leaves;
-with categorical columns, under every ``partition_impl`` x
-``ordered_bins`` combination."""
+field by field, and the row -> leaf maps identical, at 31, 63 and 255
+leaves, numerical and categorical, under every ``partition_impl`` x
+``ordered_bins`` combination.  On the CPU every combination runs the split
+step eagerly (the graph loop is a card's); the step's stop flag, its host
+reads and the steps taken after the stop are checked here too."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -14,8 +18,9 @@ import jax.numpy as jnp
 from lightgbm_tpu.grower import FeatureMeta as JaxMeta
 from lightgbm_tpu.grower import GrowerConfig as JaxGrowerConfig
 from lightgbm_tpu.grower import make_grower
-from lightgbm_tpu_torch.grower import (FeatureMeta, GrowerConfig, WindowBuffers,
-                                      grow_tree)
+from lightgbm_tpu_torch.grower import (STOP_CHECK_STEPS, FeatureMeta,
+                                      GrowerConfig, WindowBuffers, grow_tree,
+                                      resolve_partition_impl)
 
 
 def _problem(n, seed):
@@ -33,28 +38,59 @@ def _problem(n, seed):
     return bins, g, h, c, num_bin, missing, default_bin
 
 
-@pytest.mark.parametrize("num_leaves,min_data,max_depth", [
-    (31, 20, -1), (255, 1, -1), (63, 5, 6)])
-def test_tree_identical_to_jax(num_leaves, min_data, max_depth):
+_MODES = [("scatter", "off"), ("scatter", "on"), ("sort", "off"),
+          ("sort", "on"), ("compact", "off"), ("compact", "on")]
+_TREES = [(31, 20, -1), (255, 1, -1), (63, 5, 6)]
+
+
+@pytest.fixture(scope="module")
+def jax_trees():
+    """lightgbm_tpu's tree of each ``_TREES`` case, compiled once."""
+    out = {}
+
+    def get(num_leaves, min_data, max_depth):
+        key = (num_leaves, min_data, max_depth)
+        if key not in out:
+            bins, g, h, c, nb, mt, db = _problem(4000, seed=num_leaves)
+            jcfg = JaxGrowerConfig(hist_method="segment", **_kw(*key))
+            jmeta = JaxMeta(num_bin=jnp.asarray(nb),
+                            missing_type=jnp.asarray(mt),
+                            default_bin=jnp.asarray(db),
+                            is_categorical=jnp.zeros(len(nb), bool))
+            grow = jax.jit(make_grower(jcfg))
+            jtree, jrow = grow(jnp.asarray(bins), jnp.asarray(g),
+                               jnp.asarray(h), jnp.asarray(c), jmeta,
+                               jnp.ones(len(nb), bool))
+            out[key] = (jax.tree_util.tree_map(np.asarray, jtree),
+                        np.asarray(jrow))
+        return out[key]
+    return get
+
+
+def _kw(num_leaves, min_data, max_depth):
+    return dict(num_leaves=num_leaves, min_data_in_leaf=min_data,
+                min_sum_hessian_in_leaf=1.0, lambda_l2=1.0,
+                max_depth=max_depth, max_bin=63)
+
+
+# the scatter / ordered-off case of each tree keeps its original id
+@pytest.mark.parametrize("num_leaves,min_data,max_depth,impl,ordered", [
+    pytest.param(*tree, impl, ordered, id="-".join(
+        map(str, tree if (impl, ordered) == ("scatter", "off")
+            else tree + (impl, ordered))))
+    for tree in _TREES for impl, ordered in _MODES])
+def test_tree_identical_to_jax(jax_trees, num_leaves, min_data, max_depth,
+                               impl, ordered):
     n = 4000
     bins, g, h, c, nb, mt, db = _problem(n, seed=num_leaves)
-    kw = dict(num_leaves=num_leaves, min_data_in_leaf=min_data,
-              min_sum_hessian_in_leaf=1.0, lambda_l2=1.0, max_depth=max_depth,
-              max_bin=63)
-    jcfg = JaxGrowerConfig(hist_method="segment", **kw)
-    jmeta = JaxMeta(num_bin=jnp.asarray(nb), missing_type=jnp.asarray(mt),
-                    default_bin=jnp.asarray(db),
-                    is_categorical=jnp.zeros(len(nb), bool))
-    grow = jax.jit(make_grower(jcfg))
-    jtree, jrow = grow(jnp.asarray(bins), jnp.asarray(g), jnp.asarray(h),
-                       jnp.asarray(c), jmeta, jnp.ones(len(nb), bool))
-    jtree = jax.tree_util.tree_map(np.asarray, jtree)
+    kw = _kw(num_leaves, min_data, max_depth)
+    jtree, jrow = jax_trees(num_leaves, min_data, max_depth)
 
     t = torch.from_numpy
     tree, row_leaf = grow_tree(
         t(bins), t(g), t(h), t(c),
         FeatureMeta(t(nb), t(mt), t(db)), torch.ones(len(nb), dtype=bool),
-        GrowerConfig(**kw))
+        GrowerConfig(partition_impl=impl, ordered_bins=ordered, **kw))
     assert int(tree.num_leaves) == int(jtree.num_leaves)
     if max_depth < 0:
         assert int(tree.num_leaves) > num_leaves // 2
@@ -63,20 +99,119 @@ def test_tree_identical_to_jax(num_leaves, min_data, max_depth):
             continue
         np.testing.assert_array_equal(getattr(tree, name).numpy(),
                                       getattr(jtree, name), err_msg=name)
-    np.testing.assert_array_equal(row_leaf.numpy(), np.asarray(jrow))
+    np.testing.assert_array_equal(row_leaf.numpy(), jrow)
 
 
 def test_stats_count_one_sync_per_split_plus_stop():
+    """Host reads a tree.  scatter and sort slice the window on the host:
+    one read a split, plus one when the tree stops before ``L - 1``
+    splits, which carries the stop.  compact reads nothing a split: its
+    loop reads the counters once every ``STOP_CHECK_STEPS`` steps, so
+    ``ceil((L - 1) / 32)`` reads at most, and the steps after the stop up
+    to the next read change nothing."""
     bins, g, h, c, nb, mt, db = _problem(2000, seed=3)
     t = torch.from_numpy
-    stats = {}
-    tree, _ = grow_tree(t(bins), t(g), t(h), t(c),
-                        FeatureMeta(t(nb), t(mt), t(db)),
-                        torch.ones(len(nb), dtype=bool),
-                        GrowerConfig(num_leaves=15, max_bin=63), stats)
-    assert stats["splits"] == tree.num_leaves - 1
-    # the loop reads once per split, plus once more when it stops early
-    assert stats["host_syncs"] in (stats["splits"], stats["splits"] + 1)
+    meta = FeatureMeta(t(nb), t(mt), t(db))
+    for leaves in (15, 255):      # a tree that fills up, one that stops
+        splits = {}
+        for impl in ("scatter", "sort", "compact"):
+            stats = {}
+            tree, _ = grow_tree(t(bins), t(g), t(h), t(c), meta,
+                                torch.ones(len(nb), dtype=bool),
+                                GrowerConfig(num_leaves=leaves, max_bin=63,
+                                             partition_impl=impl), stats)
+            s = splits[impl] = stats["splits"]
+            assert s == tree.num_leaves - 1
+            stopped = s < leaves - 1
+            if impl != "compact":
+                assert stats["host_syncs"] == s + stopped
+                assert stats["steps"] == s + stopped
+            else:
+                assert stats["host_syncs"] == (
+                    s // STOP_CHECK_STEPS + 1 if stopped
+                    else math.ceil((leaves - 1) / STOP_CHECK_STEPS))
+                assert stats["steps"] == min(
+                    leaves - 1, STOP_CHECK_STEPS * stats["host_syncs"])
+                assert stats["host_syncs"] <= math.ceil(
+                    (leaves - 1) / STOP_CHECK_STEPS) + 1
+            assert stats["graph_replays"] == 0      # no graph on the CPU
+        assert len(set(splits.values())) == 1
+        assert (splits["scatter"] < leaves - 1) == (leaves == 255)
+
+
+def _pool_state(buffers):
+    """Every live tensor of the step's state: the buffers, the windows and
+    counters, the mask and the pool without its sink rows."""
+    L = buffers.cfg.num_leaves
+    pool = buffers.pool
+    live = {f"buf{k}_{j}": x.clone() for k, b in enumerate(buffers.bufs)
+            for j, x in enumerate(b)}
+    live.update(lsc=buffers.lsc[:L].clone(),
+                splits_positions=buffers.counters[[0, 2]].clone(),
+                goes_left=buffers.goes_left.clone())
+    for name in ("hist_store", "feat_ok", "sgain", "sf32", "si32", "scat",
+                 "scatb", "leaf_f", "leaf_parent", "leaf_depth"):
+        if getattr(pool, name) is not None:
+            live[name] = getattr(pool, name)[:L].clone()
+    for name in ("node_f", "node_i", "node_cat", "node_catb", "left_child",
+                 "right_child"):
+        live[name] = getattr(pool, name)[:L - 1].clone()
+    return live
+
+
+@pytest.mark.parametrize("leaves", [7, 255], ids=["full", "stopped"])
+@pytest.mark.parametrize("ordered", ["off", "on"])
+def test_steps_after_the_stop_change_nothing(leaves, ordered):
+    """Once the tree has stopped (no gain above 0, or ``L - 1`` splits),
+    further steps write only the sink rows: every buffer, window, counter
+    and pool tensor, and the tree they unpack to, stay as they were."""
+    bins, g, h, c, nb, mt, db, ic = _cat_problem(3000, seed=6)
+    t = torch.from_numpy
+    cfg = GrowerConfig(partition_impl="compact", ordered_bins=ordered,
+                       num_leaves=leaves, min_data_in_leaf=20, **_CAT_KW)
+    buffers = WindowBuffers(len(g), bins.shape[1], cfg, "cpu")
+    tree, row_leaf = grow_tree(t(bins), t(g), t(h), t(c),
+                               FeatureMeta(t(nb), t(mt), t(db), t(ic)),
+                               torch.ones(len(nb), dtype=bool), cfg,
+                               buffers=buffers)
+    assert (tree.num_leaves == leaves) == (leaves == 7)
+    # a stopped tree's loop read the flag down; a full one stops at its
+    # next step, which finds L - 1 splits made
+    assert int(buffers.counters[1]) == (leaves == 7)
+    before = _pool_state(buffers)
+    for _ in range(3):
+        assert buffers.step()
+    assert int(buffers.counters[1]) == 0
+    after = _pool_state(buffers)
+    for name, x in before.items():
+        assert torch.equal(x, after[name]), name
+    again = buffers.pool.tree(tree.num_leaves - 1)
+    for name in tree._fields[1:]:
+        assert torch.equal(getattr(tree, name), getattr(again, name)), name
+
+
+def test_auto_partition_is_the_kernel_on_a_card():
+    """``partition_impl=auto`` is compact for a card (the graph loop) and
+    scatter for the CPU; an explicit choice stands."""
+    assert resolve_partition_impl("auto", "cuda") == "compact"
+    assert resolve_partition_impl("auto", "cuda:1") == "compact"
+    assert resolve_partition_impl("auto", torch.device("cuda")) == "compact"
+    assert resolve_partition_impl("auto", "cpu") == "scatter"
+    for impl in ("scatter", "sort", "compact"):
+        assert resolve_partition_impl(impl, "cuda") == impl
+        assert resolve_partition_impl(impl, "cpu") == impl
+
+
+def test_graph_loop_needs_a_card_and_the_kernel():
+    bins, g, h, c, nb, mt, db = _problem(500, seed=2)
+    t = torch.from_numpy
+    for impl in ("scatter", "compact"):
+        with pytest.raises(ValueError):
+            grow_tree(t(bins), t(g), t(h), t(c),
+                      FeatureMeta(t(nb), t(mt), t(db)),
+                      torch.ones(len(nb), dtype=bool),
+                      GrowerConfig(num_leaves=7, max_bin=63,
+                                   partition_impl=impl), loop="graph")
 
 
 def _cat_problem(n, seed):

@@ -261,3 +261,51 @@ def test_histogram_sources_include_the_shared_core(name):
     files = [os.path.basename(p) for p in build._source_files(
         os.path.join(build._PKG, build.KERNEL_SOURCES[name]))]
     assert files == [f"{name}.cu", "hist_core.cuh"]
+
+
+# ---- the captured split step: the device regime and the second buffer ------
+
+@pytest.mark.parametrize("n_feat,num_bins", [(28, 255), (8, 255), (12, 63)])
+def test_device_plan_launches_both_regimes(n_feat, num_bins):
+    """The split step's plan: the large regime's grid for the bound, the
+    small regime's for a window of at most SMALL_MAX_WINDOW rows, which
+    the small kernel takes; the device picks by the true count."""
+    from lightgbm_tpu_torch.ops.histogram import (DEVICE_BLOCK_ROWS,
+                                                  SMALL_MAX_WINDOW,
+                                                  plan_device)
+    assert SMALL_MAX_WINDOW == SMALL_MAX_ROWS // 2
+    for bound in (0, 1, SMALL_MAX_WINDOW, SMALL_MAX_WINDOW + 1, 10 ** 6,
+                  11_000_000):
+        plan = plan_device(bound, n_feat, num_bins, num_sms=H100_SMS)
+        large = plan_launch(bound, n_feat, num_bins, num_sms=H100_SMS,
+                            small_max_rows=-1)
+        small = plan_launch(min(bound, SMALL_MAX_WINDOW), n_feat, num_bins,
+                            num_sms=H100_SMS,
+                            small_max_rows=SMALL_MAX_WINDOW)
+        assert plan.regime == "device" and large.regime == "large"
+        assert plan[1:5] == large[1:5]
+        assert plan.small_grid_x == small.grid_x >= 1
+        assert plan.split_rows == SMALL_MAX_WINDOW
+        assert plan.block_rows == DEVICE_BLOCK_ROWS > 0
+        assert large.block_rows == small.block_rows == 0
+
+
+def test_selector_picks_the_second_set_on_cpu():
+    """``alt``/``sel``: the window of the second (order, bins, weights)
+    when the selector is odd, of the first when even; the plain version
+    reads the selector, and nothing launches."""
+    a = _problem(63, seed=11, integer=True)
+    b = _problem(63, seed=12, integer=True)
+    t = torch.from_numpy
+    sc = torch.tensor([100, 3000], dtype=torch.int32)
+    first = [t(x) for x in (a[4], *a[:4])]
+    second = [t(x) for x in (b[4], *b[:4])]
+    before = hist_window.launches
+    for sel, want in ((0, a), (1, b), (3, b), (2, a)):
+        got = hist_window(first[0], sc, *first[1:], 63, alt=tuple(second),
+                          sel=torch.tensor([sel], dtype=torch.int32))
+        np.testing.assert_array_equal(
+            got.numpy(), _port(*want[:4], want[4], 100, 3000, 63))
+    assert hist_window.launches == before
+    with pytest.raises(ValueError):
+        hist_window(first[0], sc, *first[1:], 63, alt=tuple(second))

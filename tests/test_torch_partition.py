@@ -252,3 +252,37 @@ def test_kernel_matches_plain_on_card():
                 assert torch.equal(nk, npl)
                 for x, y in zip(k, p):
                     assert torch.equal(x, y)
+
+
+def test_device_form_launches_all_three():
+    """The captured split step's form: every launch of both forms over the
+    tiles of the bound, gated on the device by the true cnt."""
+    for bound in (1, 4097, SMALL_MAX_ROWS + 1, 11_000_000):
+        plan = plan_launch(bound, form="device")
+        assert plan == ("device", -(-bound // TILE), 3)
+    assert plan_launch(0, form="device").launches == 0
+
+
+@pytest.mark.parametrize("odd", [0, 1, 2, 3])
+def test_parity_swaps_source_and_destination(odd):
+    """``odd`` in device memory picks the direction: an odd value
+    partitions the second buffer set into the first."""
+    n, cnt, start = 3000, 1700, 250
+    order, bins, w = _ordered_problem(n, seed=odd + 20)
+    gl = np.random.default_rng(odd).random(cnt) < 0.37
+    t = torch.from_numpy
+    one = [t(order.copy()), t(bins.copy())]
+    two = [t(np.random.default_rng(odd).permutation(n).astype(np.int32)),
+           t(np.ascontiguousarray(bins[::-1]))]
+    src, dst = (two, one) if odd % 2 else (one, two)
+    ref = [x.clone() for x in dst]
+    want = partition_window_plain(src, ref, start, cnt, t(gl))
+    keep = [x.clone() for x in src]
+    nl = partition_window(one, two, _sc(start, cnt), t(gl), n,
+                          form="device", odd=torch.tensor([odd],
+                                                          dtype=torch.int32))
+    assert torch.equal(nl, want)
+    for x, y in zip(dst, ref):
+        assert torch.equal(x, y)
+    for x, y in zip(src, keep):     # the source is left as it was
+        assert torch.equal(x, y)

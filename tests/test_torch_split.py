@@ -108,3 +108,31 @@ def test_batched_scan_equals_single_scans():
                             valid[:1], cfg, ctx)
         for a, b in zip(pair, one):
             assert torch.equal(a[k], b[0])
+
+
+@pytest.mark.parametrize("categorical", [False, True])
+def test_scan_builds_no_tensor_from_host_values(monkeypatch, categorical):
+    """The grower captures the scan in a CUDA graph, where a tensor made
+    from host values (``torch.tensor``) is a host-to-device copy: the scan
+    takes its constants as Python numbers and makes none."""
+    hist, nb, mt, db, (pg, ph, pc) = _problem(3, True)
+    t = torch.from_numpy
+    is_cat = torch.zeros(len(nb), dtype=torch.bool)
+    is_cat[[2, 6]] = categorical
+    cfg = SplitConfig(lambda_l1=0.5, lambda_l2=2.0,
+                      has_categorical=categorical)
+    ctx = make_fused_ctx(t(nb), t(mt), t(db), B, cfg, is_cat)
+    args = (t(hist)[None], torch.tensor([pg]), torch.tensor([ph]),
+            torch.tensor([pc]), torch.ones((1, len(nb)), dtype=torch.bool),
+            cfg, ctx)
+    want, want_ok = best_split(*args)
+
+    def refused(*a, **k):
+        raise AssertionError("torch.tensor inside the scan")
+    monkeypatch.setattr(torch, "tensor", refused)
+    got, got_ok = best_split(*args)
+    monkeypatch.undo()
+    assert torch.equal(got_ok, want_ok)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got.found[0])
