@@ -145,10 +145,6 @@ struct Weights {
   // when the host picked the regime)
   long long min_rows;
   long long max_rows;
-  // positions a large-regime block takes at least, by the true count: a
-  // grid sized for a larger bound than the count leaves its surplus
-  // blocks idle (the device regime); 0: every block of the grid works
-  int block_rows;
   // the second set (null sel: none): rows, bins and weights
   const int32_t* sel;
   const void* alt_rows;
@@ -257,12 +253,7 @@ __device__ void large_groups(Rows rows, Weights a, int group_w) {
   extern __shared__ float sh[];
   const long long n = open_rows(rows, a);
   if (n < 0) return;
-  const long long want =
-      a.block_rows > 0 ? (n + a.block_rows - 1) / a.block_rows : gridDim.x;
-  const int nb = want < (long long)gridDim.x ? (int)max(want, 1ll)
-                                             : (int)gridDim.x;
-  if ((int)blockIdx.x >= nb) return;
-  const long long len = slice_len(n, nb);
+  const long long len = slice_len(n, gridDim.x);
   const long long lo = (long long)blockIdx.x * len;
   if (lo >= n) return;  // no position: no zeroing, no flush
   const long long hi = min(n, lo + len);
@@ -293,7 +284,7 @@ __device__ void large_groups(Rows rows, Weights a, int group_w) {
 }
 
 // The argument block of both C entry points, packed by the Python wrapper
-// (ops/histogram.py:_ARGS, struct format "@13Pq11iP"): one ctypes argument
+// (ops/histogram.py:_ARGS, struct format "@13Pq10iP"): one ctypes argument
 // instead of twenty-five, each of which costs the host a conversion per
 // call.
 struct Args {
@@ -321,7 +312,6 @@ struct Args {
   int device;
   int small_grid_x;    // device regime: the small kernel's grid
   int split_rows;      // device regime: the small kernel's largest count
-  int block_rows;      // device regime: rows a large-regime block takes
   void* stream;
 };
 
@@ -334,7 +324,6 @@ struct Plan {
   int smem;      // dynamic shared memory per block, bytes
   int small_grid_x;
   int split_rows;
-  int block_rows;
 };
 
 // Dynamic shared memory a block may take without cudaFuncSetAttribute; a
@@ -347,7 +336,7 @@ inline bool plan_ok(const Plan& p, int n_feat, int num_bins) {
     return false;
   if (p.regime == kRegimeSmall) return p.grid_y == 1;
   if (p.regime == kRegimeDevice &&
-      (p.small_grid_x < 1 || p.split_rows < 0 || p.block_rows < 0))
+      (p.small_grid_x < 1 || p.split_rows < 0))
     return false;
   return (p.regime == kRegimeLarge || p.regime == kRegimeDevice) &&
          p.group_w >= 1 &&
@@ -374,7 +363,6 @@ int launch_on(void (*small)(Rows, Weights),
     Weights s = a, l = a;
     s.max_rows = p.split_rows;
     l.min_rows = (long long)p.split_rows + 1;
-    l.block_rows = p.block_rows;
     small<<<p.small_grid_x, kThreads, 0, stream>>>(rows, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -391,12 +379,12 @@ int launch(void (*small)(Rows, Weights), void (*groups)(Rows, Weights, int),
            Rows rows, const Args& x) {
   const Weights a{(const uint8_t*)x.bins, (const float*)x.gw,
                   (const float*)x.hw, (const float*)x.cw, (float*)x.out,
-                  x.n_feat, x.num_bins, 0, 0x7fffffffffffffffll, 0,
+                  x.n_feat, x.num_bins, 0, 0x7fffffffffffffffll,
                   (const int32_t*)x.sel, x.alt_rows,
                   (const uint8_t*)x.alt_bins, (const float*)x.alt_gw,
                   (const float*)x.alt_hw, (const float*)x.alt_cw};
   const Plan p{x.regime, x.grid_x, x.grid_y, x.group_w, x.smem,
-               x.small_grid_x, x.split_rows, x.block_rows};
+               x.small_grid_x, x.split_rows};
   const int device = x.device;
   const cudaStream_t stream = (cudaStream_t)x.stream;
   if (!plan_ok(p, a.n_feat, a.num_bins) ||

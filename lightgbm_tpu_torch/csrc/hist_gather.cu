@@ -24,9 +24,10 @@
 // Inside the serial grower's captured split step the host holds no bound
 // but the rows; there the "device" regime launches both kernels, the small
 // one over the grid of a 16,384-row window and the large one over the
-// rows' grid, of which it takes a block for every 512 rows of the true
-// count; each returns at once unless the window's count falls in its
-// range.  The window's buffer (one of two, by the leaf's
+// rows' grid, and each returns at once unless the window's true count
+// falls in its range.  The large kernel spreads the count over all its
+// blocks: a cap of one block for every 512 or 1,024 rows of the count
+// took 1.2-1.6x the device time on the Expo-shaped task (PERF.md).  The window's buffer (one of two, by the leaf's
 // depth parity) is picked in the kernel as well (hist_core.cuh).
 //
 // Large-window design kept: the feature groups.  Timed in turns against

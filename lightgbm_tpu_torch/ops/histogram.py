@@ -89,10 +89,6 @@ SMALL_MAX_ROWS_LOCAL = 65_536
 # the smaller child under SMALL_MAX_ROWS, where the small regime won
 # (PERF.md)
 SMALL_MAX_WINDOW = SMALL_MAX_ROWS // 2
-# and its large kernel, over the grid of the rows, takes a block for every
-# this many rows of the true count: about LARGE_MIN_ROWS of a parent's
-# bound, as the host plan spreads a child of about half the parent
-DEVICE_BLOCK_ROWS = 512
 GROUP_COLS = 4             # columns of a large-regime shared histogram
 LARGE_BLOCKS_PER_SM = 4    # large-regime blocks the grid aims at per SM
 LARGE_MIN_ROWS = 1024      # positions a large-regime block takes at least
@@ -111,7 +107,6 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int    # dynamic shared memory a block
     small_grid_x: int = 0   # device regime: the small kernel's blocks
     split_rows: int = 0     # device regime: the small kernel's largest count
-    block_rows: int = 0     # device regime: rows a large-regime block takes
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -169,16 +164,14 @@ def plan_device(bound: int, n_feat: int, num_bins: int, *,
     """The launch of ``hist_window`` over a window of at most ``bound``
     rows whose count only the device knows: the small kernel over the grid
     of a ``SMALL_MAX_WINDOW``-row window, taking counts up to it, and the
-    large kernel over the grid of ``bound`` rows, taking the larger ones.
-    The large kernel leaves idle the blocks that its true count does not
-    need (``DEVICE_BLOCK_ROWS`` positions a block)."""
+    large kernel over the grid of ``bound`` rows, taking the larger ones
+    and spreading the true count over all its blocks."""
     large = plan_launch(bound, n_feat, num_bins, num_sms=num_sms,
                         small_max_rows=-1)
     small = plan_launch(min(bound, SMALL_MAX_WINDOW), n_feat, num_bins,
                         num_sms=num_sms, small_max_rows=SMALL_MAX_WINDOW)
     return large._replace(regime="device", small_grid_x=small.grid_x,
-                          split_rows=SMALL_MAX_WINDOW,
-                          block_rows=DEVICE_BLOCK_ROWS)
+                          split_rows=SMALL_MAX_WINDOW)
 
 
 # the wrappers' plans: a split's bound recurs across trees and shards
@@ -194,9 +187,9 @@ def sm_count(device: int) -> int:
 # ---- the CUDA kernels ----------------------------------------------------
 
 # the C entry points' one argument (csrc/hist_core.cuh: Args): 7 pointers,
-# the selector and the 5 of the second set, the local rows, 11 ints (sizes,
+# the selector and the 5 of the second set, the local rows, 10 ints (sizes,
 # plan, card) and the stream, packed at once
-_ARGS = struct.Struct("@13Pq11iP")
+_ARGS = struct.Struct("@13Pq10iP")
 _ARG_TYPES = (torch.int32, torch.int32, torch.uint8, torch.float32,
               torch.float32, torch.float32)
 _REGIMES = {"small": 0, "large": 1, "device": 2}

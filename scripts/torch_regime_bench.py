@@ -1,10 +1,8 @@
 #!/usr/bin/env python3
-"""Times the serial grower's graph loop on one card for several settings
-of the histogram's device regime (``ops/histogram.py``):
-``SMALL_MAX_WINDOW`` (windows of at most that many rows take the small
-regime, the rest the large) and ``DEVICE_BLOCK_ROWS`` (the large kernel,
-launched over the grid of all the rows, takes a block for every that many
-rows of the true count; 0: every block of the grid).
+"""Times the serial grower's graph loop on one card for several values of
+the histogram's device-regime threshold (``ops/histogram.py:
+SMALL_MAX_WINDOW``: windows of at most that many rows take the small
+regime, the rest the large).
 
     python3 scripts/torch_regime_bench.py [--out FILE]
 
@@ -31,9 +29,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-# (SMALL_MAX_WINDOW, DEVICE_BLOCK_ROWS)
-SETTINGS = ((16_384, 1_024), (16_384, 512), (16_384, 256), (16_384, 0),
-            (32_768, 512))
+SETTINGS = (16_384, 32_768, 4_096)
 
 
 def main() -> None:
@@ -81,9 +77,8 @@ def main() -> None:
             partition_impl="compact", ordered_bins=ordered)
         del x
         first = None
-        for thr, rows in SETTINGS + SETTINGS[::-1]:
+        for thr in SETTINGS + SETTINGS[::-1]:
             histogram.SMALL_MAX_WINDOW = thr
-            histogram.DEVICE_BLOCK_ROWS = rows
             wb = WindowBuffers(*ds.bins.shape, cfg, dev)
             grow_tree(ds.bins, g, h, c, meta, fv, cfg, buffers=wb)
             torch.cuda.synchronize()
@@ -110,8 +105,7 @@ def main() -> None:
                 first = tree
             same = all(torch.equal(getattr(tree, f), getattr(first, f))
                        for f in tree._fields[1:])
-            rec = dict(task=task, threshold=thr, block_rows=rows,
-                       ms_per_tree=round(ms, 3),
+            rec = dict(task=task, threshold=thr, ms_per_tree=round(ms, 3),
                        hist_device_ms_per_tree=round(per["hist_gather"], 4),
                        device_busy_share=round(all_ms / (wall * 1e3), 4),
                        small_windows=int(sum(s <= thr for s in small)),
@@ -120,7 +114,7 @@ def main() -> None:
             lines.append(rec)
             print(json.dumps(rec), flush=True)
             if not same:
-                sys.exit(f"{task}: the tree at {thr}, {rows} differs")
+                sys.exit(f"{task}: the tree at threshold {thr} differs")
             del wb
             torch.cuda.empty_cache()
         del ds, g, h, c
@@ -132,7 +126,7 @@ def main() -> None:
                 f.write(json.dumps(rec) + "\n")
     summary = {}
     for rec in lines:
-        key = f"{rec['task']}_{rec['threshold']}_{rec['block_rows']}"
+        key = f"{rec['task']}_{rec['threshold']}"
         summary.setdefault(key, []).append(rec["hist_device_ms_per_tree"])
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()

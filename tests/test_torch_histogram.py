@@ -270,8 +270,7 @@ def test_device_plan_launches_both_regimes(n_feat, num_bins):
     """The split step's plan: the large regime's grid for the bound, the
     small regime's for a window of at most SMALL_MAX_WINDOW rows, which
     the small kernel takes; the device picks by the true count."""
-    from lightgbm_tpu_torch.ops.histogram import (DEVICE_BLOCK_ROWS,
-                                                  SMALL_MAX_WINDOW,
+    from lightgbm_tpu_torch.ops.histogram import (SMALL_MAX_WINDOW,
                                                   plan_device)
     assert SMALL_MAX_WINDOW == SMALL_MAX_ROWS // 2
     for bound in (0, 1, SMALL_MAX_WINDOW, SMALL_MAX_WINDOW + 1, 10 ** 6,
@@ -286,8 +285,6 @@ def test_device_plan_launches_both_regimes(n_feat, num_bins):
         assert plan[1:5] == large[1:5]
         assert plan.small_grid_x == small.grid_x >= 1
         assert plan.split_rows == SMALL_MAX_WINDOW
-        assert plan.block_rows == DEVICE_BLOCK_ROWS > 0
-        assert large.block_rows == small.block_rows == 0
 
 
 def test_selector_picks_the_second_set_on_cpu():
