@@ -1114,6 +1114,7 @@ def graph_vs_eager(name, ds, y, dev_names, **cfg_kw):
              "eager": WindowBuffers(n, f, cfg, dev)}
     stats = {k: {} for k in loops}
     grown = {k: 0 for k in loops}
+    checked = [0]      # graph trees grown under the sync check
 
     def grow(loop, sync_check=False):
         torch.cuda.synchronize()
@@ -1127,6 +1128,7 @@ def graph_vs_eager(name, ds, y, dev_names, **cfg_kw):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         grown[loop] += 1
+        checked[0] += sync_check
         return (time.perf_counter() - t0) * 1e3, tree, rl
 
     def host(tree, rl):
@@ -1169,7 +1171,7 @@ def graph_vs_eager(name, ds, y, dev_names, **cfg_kw):
         fail(f"{name}: {st['host_syncs']} host reads in {grown['graph']} "
              f"graph trees")
     out = dict(rows=n, leaves=want[2], identical=",".join(["eager", *got]),
-               sync_checked_replay_trees=grown["graph"] - 1,
+               sync_checked_replay_trees=checked[0],
                captured_launches_per_step=loops["graph"].graph_launches,
                graph_ms_per_tree=",".join(f"{v:.2f}" for v in ms["graph"]),
                eager_ms_per_tree=",".join(f"{v:.2f}" for v in ms["eager"]),
