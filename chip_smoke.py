@@ -1698,8 +1698,8 @@ def main() -> None:
           label_rate=f"{float(y_tr.mean()):.4f}",
           num_bin=":".join(str(b) for b in num_bins),
           categorical_splits=n_cat, **expo)
-    # PR 6's eager loop on this path (call 5, PERF.md section 5): partition
-    # and cat_group device ms per tree
+    # the host loop's partition and cat_group device ms per tree on this
+    # path, with host-picked partition forms (PERF.md section 6)
     phase("expo_partition_cat_group", eager_loop_partition_device_ms=4.143,
           eager_loop_cat_group_device_ms=3.272,
           partition_device_ms=expo["lgbt_partition_device_ms_per_tree"],
