@@ -15,18 +15,27 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    regimes: exact under integer-valued weights, a stated tolerance under
    float weights; with times (single call, back-to-back calls and the
    profiler's device time, beside ``index_add_``) at the root, 65,536 and
-   4,097 rows;
-2b. the partition kernel (out of place, ``src -> dst``) against its plain
-   version: windows of 0 to 1,000,000 rows of a shuffled 1,000,000-row
-   ``order`` with the ordered-mode payload of 28 bin columns, windows at
-   the small form's threshold and one either side, and the full root
-   window of the Expo-shaped path, all left, all right and random, with
-   and without the payload, in both forms where a form can take the
-   window, into a destination full of garbage: window, payload and left
-   count identical bit for bit; with times (single call, back-to-back
-   calls and the profiler's device time, beside a stable ``torch.sort``
-   of the 0/1 key and ``partition_window_sort``) at the root and 4,097
-   rows;
+   4,097 rows.  Then the device regime as the split step launches it
+   (both kernels over the grid of all rows, each gated by the true count,
+   and the buffer set picked by a parity in device memory), at both
+   parities, exact under integer weights: on the Higgs shapes gathered
+   through ``order`` and on the Expo path's 11,000,000 x 8 leaf-ordered
+   layout, at 0 to all rows and on both sides of the small kernel's
+   largest count;
+2b. the partition kernel (out of place) against its plain version as the
+   split step calls it: over the grid of all rows (and over the window's
+   own tiles), with the depth parity in device memory at 0 (first buffer
+   set into the second) and 1 (second into first); windows of 0 to
+   1,000,000 rows of a shuffled 1,000,000-row ``order`` with the
+   ordered-mode payload of 28 bin columns, windows at the small launch's
+   threshold and one either side, and the full root window of the
+   Expo-shaped path with its 20-byte payload; all left, all right and
+   random, with and without the payload, into a destination full of
+   garbage: window, payload and left count identical bit for bit, the
+   destination outside the window and the source unchanged; with times
+   over the grid of all rows (single call, back-to-back calls and the
+   profiler's device time, beside a stable ``torch.sort`` of the 0/1 key
+   and ``partition_window_sort``) at the root and 4,097 rows;
 2c. the max_cat_group kernel of the categorical split scan against its
    plain loop at the Expo-shaped path's shape, at one position, with no
    position ok, at 42 lanes, past one 256-position chunk and with one
@@ -48,10 +57,10 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    missing type and a categorical one; with times beside the PyTorch
    gather + ``where`` of the eager loop;
 2f. what the captured split step's gated launches cost at the Expo
-   path's size: the partition's device form and the histogram's device
-   regime (every form or regime launched, the true count's taking the
-   work) against the host-picked ones, at an empty window, 4,097 and
-   1,000,000 rows;
+   path's size: the partition over the grid of all rows and the
+   histogram's device regime, against the partition over the window's own
+   tiles and the histogram's host-picked plan, at an empty window, 4,097
+   and 1,000,000 rows;
 3. the Higgs path at full width: seeded synthetic Higgs-shaped data
    (1,000,000 x 28 float32, binary label from a fixed nonlinear rule plus
    noise, 100,000 held-out rows), ``train`` 10 rounds with 255 leaves and
@@ -68,10 +77,12 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    tree), plus once a tree for the root's histogram and categorical scan;
    splits exact, at most ceil(254 / 32) + 1 host reads a tree.  This phase
    and phase 5 print, for one profiled tree, the partition's calls,
-   launches and windows by the form that took them, its device ms beside
-   the sum of its calls' bounds, route's and cat_group's launches and
-   device ms, the runtime's launch calls, with the run's peak device
-   memory;
+   launches and windows by the launch that did their work, its device ms
+   beside the sum of its calls' bounds, route's and cat_group's launches
+   and device ms, the runtime's launch calls, with the run's peak device
+   memory.  In every profiled tree of phases 3 to 7 the kernels that the
+   profiler saw run on the card, by name, must equal those that the
+   counts give;
 3c. scatter (eager loop) and compact (graph loop) in turns on one
    dataset, ms per tree;
 4. the card against the CPU on a 50,000-row Higgs subset, 3 rounds;
@@ -337,6 +348,7 @@ def auc(score: np.ndarray, label: np.ndarray) -> float:
     return m.eval(np.asarray(score, np.float64)[None], None)
 
 
+MARKERS = 32          # spin kernels that open a profiled window
 RUNTIME_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemsetAsync",
                  "cudaMemcpyAsync", "cudaEventSynchronize",
                  "cudaStreamSynchronize")
@@ -347,11 +359,19 @@ def device_ms(fn, names):
     device ms of kernels whose name holds each of ``names``, the device ms
     of every kernel and copy (device-side events only: CPU ops would count
     their kernels' time a second time), the five host operations with the
-    most self CPU ms, and the calls of each of ``RUNTIME_CALLS``."""
+    most self CPU ms, the calls of each of ``RUNTIME_CALLS``, and how
+    many times each kernel of :data:`KERNELS` ran on the card (those of a
+    replayed CUDA graph among them)."""
     import torch
     import torch.profiler as tp
     with tp.profile(activities=[tp.ProfilerActivity.CPU,
                                 tp.ProfilerActivity.CUDA]) as prof:
+        # the profiler can lose the first kernel records of a window (seen
+        # on the H100: a root histogram of a tree missing): spin kernels
+        # take that place, and are left out of every number below
+        for _ in range(MARKERS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -360,7 +380,8 @@ def device_ms(fn, names):
     dev_us = {e.key: (getattr(e, "self_device_time_total", 0)
                       or getattr(e, "self_cuda_time_total", 0))
               for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA}
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.key}
     per = {n: sum(v for k, v in dev_us.items() if n in k) / 1e3
            for n in names}
     host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
@@ -369,7 +390,76 @@ def device_ms(fn, names):
                   reverse=True)[:5]
     calls = {k: sum(e.count for e in events if e.key == k)
              for k in RUNTIME_CALLS}
-    return wall, per, sum(dev_us.values()) / 1e3, host, calls
+    calls["cudaLaunchKernel"] -= MARKERS
+    ran = {n: sum(e.count for e in events if n in e.key and e.device_type
+                  == torch.autograd.DeviceType.CUDA)
+           for n in sum(KERNELS.values(), ())}
+    return wall, per, sum(dev_us.values()) / 1e3, host, calls, ran
+
+
+# each wrapper's kernels, by a part of their profiler names: a histogram
+# call of a host-picked regime launches its small or its large kernel, one
+# of the device regime both; a partition call launches all three
+KERNELS = {"hist_window": ("hist_gather_small", "hist_gather_large"),
+           "hist_local": ("hist_local_small", "hist_local_large"),
+           "partition_window": ("lgbt_partition_small",
+                                "lgbt_partition_count",
+                                "lgbt_partition_write"),
+           "route_window": ("lgbt_route",),
+           "cat_group_accept": ("lgbt_cat_group",)}
+
+
+def count_snapshot(fns) -> tuple:
+    """Each wrapper's count and its counts by regime, now."""
+    return ({k: fn.launches for k, fn in fns.items()},
+            {k: dict(getattr(fn, "regime_launches", {}))
+             for k, fn in fns.items()})
+
+
+def kernels_launched(fns, snap, replays: int, per_step: dict) -> dict:
+    """How many times each kernel of :data:`KERNELS` was launched on the
+    card since ``snap`` (:func:`count_snapshot`): each wrapper's calls
+    counted since then, plus ``replays`` times the calls ``per_step`` of
+    the captured step (a replay launches without counting, and the step's
+    histogram calls take the device regime)."""
+    counts, regimes = snap
+    out = {}
+    for k, fn in fns.items():
+        calls = fn.launches - counts[k] + replays * per_step.get(k, 0)
+        if hasattr(fn, "regime_launches"):
+            host = {r: v - regimes[k][r]
+                    for r, v in fn.regime_launches.items()}
+            both = calls - host["small"] - host["large"]
+            small, large = KERNELS[k]
+            out[small] = host["small"] + both
+            out[large] = host["large"] + both
+        else:
+            out.update({kernel: calls for kernel in KERNELS[k]})
+    return out
+
+
+def profile_checked(name, fns, grow_one, stats, per_step, dev_names,
+                    tries: int = 2):
+    """Profile one tree, ``grow_one()``, with :func:`device_ms`, and hold
+    the kernels that the profiler saw run on the card against those that
+    the counts give (:func:`kernels_launched`; ``stats()`` returns the
+    grower's stats so far, ``per_step`` is the captured step's counts).
+    The profiler can lose a record, so a tree whose kernels differ is
+    profiled again, up to ``tries`` trees; the run fails if each of them
+    differs.  Returns the last tree's :func:`device_ms` result, the
+    counts and the stats before it, and the trees that differed."""
+    missed = []
+    for _ in range(tries):
+        snap, st0 = count_snapshot(fns), dict(stats())
+        res = device_ms(grow_one, dev_names)
+        want = kernels_launched(fns, snap, stats().get("graph_replays", 0)
+                                - st0.get("graph_replays", 0), per_step)
+        if res[5] == want:
+            return res, snap, st0, missed
+        missed.append({k: f"{res[5][k]}/{v}" for k, v in want.items()
+                       if res[5][k] != v})
+    fail(f"{name}: in {tries} profiled trees the kernels that ran on the "
+         f"card differ from those the counts give (ran/counted): {missed}")
 
 
 def part_bound_bytes(cnt: int, widths) -> int:
@@ -511,7 +601,11 @@ def three_times(fn) -> dict:
 
 def check_partition(dev, rng):
     """Phase 2b: the partition kernel (out of place, src -> dst) against
-    its plain version, bit for bit, into a destination full of garbage."""
+    its plain version, bit for bit, as the split step calls it: over the
+    grid of all rows (and over the window's own tiles), with the depth
+    parity in device memory at 0 (first set -> second) and 1 (second ->
+    first), into a destination full of garbage.  Outside the window the
+    destination keeps its garbage, and the source is left as it was."""
     import torch
     from lightgbm_tpu_torch.ops.partition import (SMALL_MAX_ROWS,
                                                   partition_scratch,
@@ -528,72 +622,93 @@ def check_partition(dev, rng):
                 *[torch.randn(n, device=dev, generator=gen)
                   for _ in range(3)]]
 
+    def bits(x):
+        return x.view(torch.uint8)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 2)
     n1 = N_ROWS
     t = SMALL_MAX_ROWS
     sets = {
-        "1M": (matrices(n1, N_FEAT, gen),
+        "1M": (n1, N_FEAT,
                [(12345, 0), (777, 1), (5000, 511), (40000, 4097),
                 (300000, 100000), (0, n1), (n1 - 4097, 4097),
                 (3, t - 1), (101, t), (7, t + 1)]),
-        "root": (matrices(N_EXPO, len(EXPO_CATEGORICAL) + 2, gen),
-                 [(0, N_EXPO)]),
+        "root": (N_EXPO, len(EXPO_CATEGORICAL) + 2, [(0, N_EXPO)]),
     }
     checked = 0
-    for label, (src, windows) in sets.items():
-        scratch = partition_scratch(src[0].numel(), dev)
-        ref = [torch.empty_like(x) for x in src]
-        out = [torch.empty_like(x) for x in src]
+    for label, (n, f, windows) in sets.items():
+        pair = (matrices(n, f, gen), matrices(n, f, gen))
+        keep = [[x.clone() for x in m] for m in pair]
+        scratch = partition_scratch(n, dev)
+        ref = [torch.empty_like(x) for x in pair[0]]
+        odd = [torch.tensor([p], dtype=torch.int32, device=dev)
+               for p in (0, 1)]
         for start, cnt in windows:
             sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
-            # its own form, and the other one where it takes the window
-            # in reasonable time
-            forms = {plan_launch(cnt).form}
-            if 0 < cnt <= 1_000_000:
-                forms = {"small", "large"}
+            w = slice(start, start + cnt)
+            # the step's grid (every row) at both parities, and the
+            # window's own grid
+            calls = [(0, n), (1, n)] + ([(0, cnt)] if cnt < n else [])
             for frac in (0.0, 1.0, 0.43):
-                gl = torch.rand(cnt, device=dev, generator=gen) < frac
+                # the step's mask covers every row; the window's first cnt
+                gl = torch.rand(n, device=dev, generator=gen) < frac
                 for with_pay in (False, True):
-                    k = len(src) if with_pay else 1
-                    npl = partition_window_plain(src[:k], ref[:k], start, cnt,
-                                                 gl)
-                    for form in sorted(forms):
-                        for x in out[:k]:      # garbage before the call
+                    k = len(ref) if with_pay else 1
+                    for par, bound in calls:
+                        src, dst = pair[par][:k], pair[1 - par][:k]
+                        for a, b in zip(src, keep[par]):  # the last call's
+                            a.copy_(b)                    # destination
+                        npl = partition_window_plain(src, ref[:k], start,
+                                                     cnt, gl)
+                        for x in dst:      # garbage before the call
                             x.view(torch.uint8).random_(generator=gen)
-                        nk = partition_window(src[:k], out[:k], sc, gl, cnt,
-                                              scratch, form)
+                        before = [x.clone() for x in dst]
+                        nk = partition_window(pair[0][:k], pair[1][:k], sc,
+                                              gl, bound, scratch, odd[par])
                         torch.cuda.synchronize()
-                        w = slice(start, start + cnt)
+                        where = (f"window ({start}, {cnt}) of {label}, left "
+                                 f"fraction {frac}, payload {with_pay}, "
+                                 f"parity {par}, bound {bound}")
                         if not torch.equal(nk, npl) or not all(
                                 torch.equal(a[w], b[w])
-                                for a, b in zip(out[:k], ref[:k])):
-                            fail(f"partition kernel != plain at window "
-                                 f"({start}, {cnt}) of {label}, left "
-                                 f"fraction {frac}, payload {with_pay}, "
-                                 f"{form} form")
+                                for a, b in zip(dst, ref)):
+                            fail(f"partition kernel != plain at {where}")
+                        # bit for bit: the garbage holds NaNs
+                        if not all(torch.equal(bits(a[:start]),
+                                               bits(b[:start]))
+                                   and torch.equal(bits(a[start + cnt:]),
+                                                   bits(b[start + cnt:]))
+                                   for a, b in zip(dst, before)):
+                            fail(f"partition kernel wrote outside the "
+                                 f"window at {where}")
+                        if not all(torch.equal(a, b) for a, b in
+                                   zip(src, keep[par])):
+                            fail(f"partition kernel wrote its source at "
+                                 f"{where}")
+                        del before
                         checked += 1
-        phase("partition_vs_plain", set=label, rows=src[0].numel(),
-              windows=len(windows), small_max_rows=t, calls_checked=checked,
+        phase("partition_vs_plain", set=label, rows=n, windows=len(windows),
+              small_max_rows=t, parities="0,1", calls_checked=checked,
               exact=True)
-        del ref, out
+        del pair, keep, ref
 
     # times at the main path's largest call (the root window of the
-    # Expo-shaped path, with its ordered payload) and at a 4,097-row window:
-    # the kernel, the stable sort of the 0/1 key (a yardstick of one
+    # Expo-shaped path, with its ordered payload) and at a 4,097-row
+    # window, both over the grid of all rows as the split step launches
+    # them: the kernel, the stable sort of the 0/1 key (a yardstick of one
     # PyTorch call), and partition_window_sort (the whole function in
     # PyTorch calls: the key sort and each matrix's index_select)
-    src, _ = sets["root"]
-    del sets["1M"]
+    src = matrices(N_EXPO, len(EXPO_CATEGORICAL) + 2, gen)
     dst = [torch.empty_like(x) for x in src]
     scratch = partition_scratch(N_EXPO, dev)
     widths = [x[0].numel() * x.element_size() for x in src]
     timing = {}
     for start, cnt in ((0, N_EXPO), (40000, 4097)):
         sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
-        gl = torch.rand(cnt, device=dev, generator=gen) < 0.43
-        key = (~gl).to(torch.uint8)
-        k = three_times(lambda: partition_window(src, dst, sc, gl, cnt,
+        gl = torch.rand(N_EXPO, device=dev, generator=gen) < 0.43
+        key = (~gl[:cnt]).to(torch.uint8)
+        k = three_times(lambda: partition_window(src, dst, sc, gl, N_EXPO,
                                                  scratch))
         lib = three_times(lambda: torch.sort(key, stable=True))
         srt = three_times(lambda: partition_window_sort(src, dst, start, cnt,
@@ -609,9 +724,9 @@ def check_partition(dev, rng):
                            sort_form_ms_many=srt["ms_many"],
                            sort_form_device_ms=srt["device_ms"],
                            bound_ms=bound_ms,
-                           launches_a_call=plan_launch(cnt).launches)
-        phase("partition_time", window_rows=cnt, form=plan_launch(cnt).form,
-              launches_a_call=plan_launch(cnt).launches,
+                           launches_a_call=plan_launch(N_EXPO).launches)
+        phase("partition_time", window_rows=cnt, grid_rows=N_EXPO,
+              launches_a_call=plan_launch(N_EXPO).launches,
               row_bytes=sum(widths), **{
                   key_: f"{v:.4f}" for key_, v in timing[cnt].items()
                   if isinstance(v, float) and key_ != "bound_ms"},
@@ -778,6 +893,70 @@ def check_hist_window(dev, rng):
               bound_share=f"{t['bound_ms'] / t['device_ms']:.4f}"
               if t["device_ms"] else "not measured")
     return timing, max_err_f32
+
+
+def check_hist_device(dev, rng):
+    """Phase 2, the device regime: the window histogram as the split step
+    calls it (both kernels over the grid of all rows, each gated by the
+    true count, and the buffer set picked by the depth parity in device
+    memory) against its plain version on the set that the parity picks,
+    exact under integer weights: the Higgs path's shapes, gathered
+    through ``order`` (two sets of order, bins and weights), and the Expo
+    path's 11,000,000 x 8 leaf-ordered layout (``order`` the identity, two
+    sets of bins and weights); at 0 to all rows and on both sides of the
+    small kernel's largest count."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (SMALL_MAX_WINDOW,
+                                                  hist_window,
+                                                  hist_window_plain,
+                                                  plan_device, sm_count)
+    sms = sm_count(torch.cuda.current_device())
+    put = lambda a: torch.from_numpy(a).to(dev)
+    t = SMALL_MAX_WINDOW
+    layouts = {
+        "higgs_gathered": (N_ROWS, N_FEAT, False,
+                           [(12345, 0), (777, 1), (5000, 511),
+                            (40000, 4097), (3, t - 1), (101, t),
+                            (7, t + 1), (600000, 65536), (300000, 100000),
+                            (0, N_ROWS)]),
+        "expo_ordered": (N_EXPO, len(EXPO_CATEGORICAL) + 2, True,
+                         [(12345, 0), (40000, 4097), (101, t), (7, t + 1),
+                          (123457, 1_000_000), (N_EXPO - 5_500_001,
+                                                5_500_001), (0, N_EXPO)]),
+    }
+    checked = 0
+    for label, (n, f, ordered, windows) in layouts.items():
+        iota = torch.arange(n, dtype=torch.int32, device=dev)
+
+        def one_set():
+            order = iota if ordered else put(
+                rng.permutation(n).astype(np.int32))
+            return (order, put(rng.integers(0, N_BINS, (n, f),
+                                            dtype=np.uint8)),
+                    put(rng.integers(-8, 9, n).astype(np.float32)),
+                    put(rng.integers(0, 5, n).astype(np.float32)),
+                    torch.ones(n, dtype=torch.float32, device=dev))
+
+        sets = (one_set(), one_set())
+        plan = plan_device(n, f, N_BINS, num_sms=sms)
+        for start, cnt in windows:
+            sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+            for par in (0, 1):
+                sel = torch.tensor([par], dtype=torch.int32, device=dev)
+                want = hist_window_plain(sets[par][0], sc, *sets[par][1:],
+                                         N_BINS)
+                got = hist_window(*sets[0][:1], sc, *sets[0][1:], N_BINS,
+                                  plan=plan, alt=sets[1], sel=sel)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"device-regime histogram != plain at window "
+                         f"({start}, {cnt}) of {label}, parity {par}: max "
+                         f"|diff| {(got - want).abs().max().item()}")
+                checked += 1
+        phase("hist_device_vs_plain", layout=label, rows=n, features=f,
+              windows=len(windows), small_max_window=t, parities="0,1",
+              calls_checked=checked, exact_int=True)
+        del sets, iota
 
 
 def local_bound_ms(n_loc: int, cnt: int, fc: int) -> float:
@@ -1015,14 +1194,15 @@ def check_route(dev, rng):
 
 def empty_launch_cost(dev, rng):
     """Phase 2f: what the captured step's gated launches cost at the Expo
-    path's 11,000,000 rows and 8 columns.  The step cannot pick the
-    partition's form nor the histogram's regime on the host, so it launches
-    all of them over the grid of the largest window, and those that the
-    window's count does not take return at once.  Against that, the
-    host-picked form and plan the eager loop used: at an empty window (a
-    step after the stop), 4,097 and 1,000,000 rows; device time a call
-    (profiler, every kernel and memset) and CUDA events around back-to-back
-    calls."""
+    path's 11,000,000 rows and 8 columns.  The step knows the window's
+    count only on the device, so it launches the partition's three kernels
+    and the histogram's two over the grid of the largest window, and those
+    that the window's count does not take return at once.  Against that,
+    what a host that knows the count would launch: the partition over the
+    window's own tiles (its three launches still gated by the count) and
+    the histogram's host-picked plan; at an empty window (a step after the
+    stop), 4,097 and 1,000,000 rows; device time a call (profiler, every
+    kernel and memset) and CUDA events around back-to-back calls."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import (hist_window, plan_device,
                                                   sm_count)
@@ -1047,7 +1227,7 @@ def empty_launch_cost(dev, rng):
         sc32 = sc.int()
         cases = {
             "partition_device": lambda: partition_window(
-                src, dst, sc, gl, n, scratch, "device", odd),
+                src, dst, sc, gl, n, scratch, odd),
             "partition_host": lambda: partition_window(
                 src, dst, sc, gl, cnt, scratch),
             "hist_device": lambda: hist_window(
@@ -1154,15 +1334,20 @@ def graph_vs_eager(name, ds, y, dev_names, **cfg_kw):
     for loop in ("graph", "eager", "eager", "graph"):
         ms[loop].append(grow(loop, sync_check=loop == "graph")[0])
     prof = {}
+    fns = _kernel_wrappers()
     for loop in ("graph", "eager"):
-        syncs0 = stats[loop]["host_syncs"]
-        wall, per, all_ms, _, calls = device_ms(lambda: grow(loop), dev_names)
+        res, _, st0, missed = profile_checked(
+            f"{name} {loop} loop", fns, lambda: grow(loop),
+            lambda: stats[loop], loops[loop].graph_launches, dev_names)
+        wall, per, all_ms, _, calls, ran = res
         prof[loop] = dict(
             profiled_ms=f"{wall * 1e3:.2f}",
             device_busy_share=f"{all_ms / (wall * 1e3):.4f}" if all_ms
             else "not measured",
-            host_reads=stats[loop]["host_syncs"] - syncs0,
+            host_reads=stats[loop]["host_syncs"] - st0["host_syncs"],
             **{f"{k}_calls": v for k, v in calls.items()},
+            **{f"{k}_ran": v for k, v in ran.items()},
+            trees_profiled_again=len(missed),
             **{f"{k}_device_ms": f"{v:.3f}" if all_ms else "not measured"
                for k, v in per.items()})
     st = stats["graph"]
@@ -1208,6 +1393,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     taken, the steps after a tree's stop included."""
     import torch
     from lightgbm_tpu_torch import Dataset, train
+    from lightgbm_tpu_torch.ops.partition import SMALL_MAX_ROWS
     fns = _kernel_wrappers()
     t0 = time.perf_counter()
     ds = Dataset(x_tr, y_tr, params=params).construct()
@@ -1295,35 +1481,34 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     # device time of the kernels over one more tree (profiling two made
     # the script take more than half its time limit)
     prof_bst = train(params, ds, num_boost_round=1, verbose_eval=False)
-    raw0 = {k: fn.launches for k, fn in fns.items()}
-    forms0 = dict(fns["partition_window"].form_launches)
-    st0 = dict(prof_bst.inner.stats)
-    wall, per, all_ms, host, calls = device_ms(prof_bst.update, dev_names)
+    per_step = (prof_bst.inner._windows.graph_launches
+                if prof_bst.inner._windows is not None else {})
+    res, snap, st0, missed = profile_checked(
+        name, fns, prof_bst.update, lambda: prof_bst.inner.stats, per_step,
+        dev_names)
+    wall, per, all_ms, host, calls, ran = res
     st1 = prof_bst.inner.stats
-    tree_launches = {k: fn.launches - raw0[k] + (
-        st1.get("graph_replays", 0) - st0.get("graph_replays", 0))
-        * (prof_bst.inner._windows.graph_launches.get(k, 0)
-           if prof_bst.inner._windows is not None else 0)
-        for k, fn in fns.items()}
-    forms = {k: v - forms0[k]
-             for k, v in fns["partition_window"].form_launches.items()}
+    replays = st1.get("graph_replays", 0) - st0.get("graph_replays", 0)
+    tree_launches = {k: fn.launches - snap[0][k] + replays
+                     * per_step.get(k, 0) for k, fn in fns.items()}
     tree_kernels = dict(
         partition_calls_per_tree=tree_launches["partition_window"],
         route_launches_per_tree=tree_launches["route_window"],
         cat_group_launches_per_tree=tree_launches["cat_group_accept"],
         host_syncs_in_profiled_tree=st1["host_syncs"] - st0["host_syncs"],
+        **{f"{k}_ran_in_profiled_tree": v for k, v in ran.items()},
+        trees_profiled_again=len(missed),
         **{f"{k}_calls_per_tree": v for k, v in calls.items()})
     if tree_launches["partition_window"]:
-        # the device form is three launches a call; which windows did the
-        # small form's work and which the large's, from the tree's node
-        # counts (each node's count is its window)
+        # three launches a call; which windows did the small launch's
+        # work and which the count and write launches', from the tree's
+        # node counts (each node's count is its window)
         last = prof_bst.inner.models[-1]
         counts = last.internal_count[:last.num_leaves - 1]
-        small = int((counts <= 196_608).sum())
+        small = int((counts <= SMALL_MAX_ROWS).sum())
         tree_kernels.update(
-            partition_launches_per_tree=(
-                3 * tree_launches["partition_window"] if graph
-                else forms["small"] + 2 * forms["large"]),
+            partition_launches_per_tree=sum(
+                ran[k] for k in KERNELS["partition_window"]),
             partition_small_windows_per_tree=small,
             partition_large_windows_per_tree=len(counts) - small)
         # the sum of the tree's per-call bounds: every partitioned position
@@ -1557,6 +1742,7 @@ def main() -> None:
         fail(f"unknown arguments {sys.argv[1:]}; the one option is "
              f"--multi-card")
     from lightgbm_tpu_torch.ops import build
+    from lightgbm_tpu_torch.ops.partition import LAUNCHES
 
     # ---- phase 0: the card ---------------------------------------------
     smi = subprocess.run(
@@ -1596,6 +1782,7 @@ def main() -> None:
     # ---- phase 2: histogram kernel vs plain on the card -------------------
     rng = np.random.default_rng(SEED)
     timing, max_err_f32 = check_hist_window(dev, rng)
+    check_hist_device(dev, rng)
     torch.cuda.empty_cache()
 
     # ---- phase 2b: partition kernel vs plain on the card ------------------
@@ -1698,10 +1885,7 @@ def main() -> None:
           label_rate=f"{float(y_tr.mean()):.4f}",
           num_bin=":".join(str(b) for b in num_bins),
           categorical_splits=n_cat, **expo)
-    # the host loop's partition and cat_group device ms per tree on this
-    # path, with host-picked partition forms (PERF.md section 6)
-    phase("expo_partition_cat_group", eager_loop_partition_device_ms=4.143,
-          eager_loop_cat_group_device_ms=3.272,
+    phase("expo_partition_cat_group",
           partition_device_ms=expo["lgbt_partition_device_ms_per_tree"],
           partition_bound_ms=expo.get("partition_bound_ms_per_tree"),
           partition_small_windows=expo["partition_small_windows_per_tree"],
@@ -1768,7 +1952,8 @@ def main() -> None:
         "name": "partition", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",
         "replaces": "lightgbm_tpu/ops/pallas_compact.py:98",
-        "launches": expo_launches["partition_window"], "max_abs_err": 0.0,
+        "launches": LAUNCHES * expo_launches["partition_window"],
+        "calls": expo_launches["partition_window"], "max_abs_err": 0.0,
         "ms": proot["ms"], "plain_ms": proot["plain_ms"],
         "bound_ms": proot["bound_ms"], "bound_by": "bytes",
         "library_ms": proot["library_ms"],

@@ -14,14 +14,13 @@
 // positions of `dst` (the grower keeps two buffers and alternates them by
 // depth parity).  Windows of different leaves never overlap, so no block
 // reads a position that another block writes, and no pass copies the
-// window back.  (start, cnt) are read on the device from an int64[2]; the
-// host passes a bound on cnt that sizes the grid, and the form.  Inside
-// the serial grower's captured split step the host knows neither the
-// count nor which buffer holds the window: there it passes the rows as
-// the bound, both forms are launched ("device" form), each returning at
-// once unless the true count falls in its range, and an int32 parity in
-// device memory swaps src and dst when it is odd.  Tiles past the count
-// return at once; the empty launches' cost is in PERF.md.
+// window back.  (start, cnt) and the parity are read from device memory,
+// so the serial grower's captured split step, which knows neither the
+// count nor which buffer holds the window, calls it as it is: the host
+// passes only a bound on cnt that sizes the grid (the step passes the
+// rows), and an int32 parity in device memory swaps src and dst when it
+// is odd.  Tiles past the count return at once; the cost of the empty
+// launches is in PERF.md.
 //
 // What bounds it on the H100: bytes.  Per window position it reads the
 // mask (1 B) and each matrix row, and writes each row once; there is no
@@ -34,27 +33,29 @@
 //     run and its right run as two contiguous ranges of each matrix in
 //     `dst`, 16 bytes a store where the rows are whole words: each run is
 //     staged at the same address modulo 16 as its destination;
-//   - a tile needs its left base (the lefts before it) and nl.  One of two
-//     forms, by cnt:
-//     small, one launch: every tile sums the whole window's mask itself
-//       (a byte a position, read from L2 16 bytes at a time), which gives
-//       both numbers with no other pass; a window of one tile is one block;
-//     large, two launches: a count pass (the mask only) writes each tile's
-//       left count as its status word, and its last block writes nl; the
-//       write pass then finds each tile's left base by decoupled look-back
-//       (Merrill and Garland): a tile reads its predecessors' status
-//       words, 32 at a time, back to the nearest one that has published
-//       its inclusive prefix, and publishes its own.  Every status word
-//       already holds its tile's count when the write pass starts, so no
-//       tile ever waits on another, in whatever order the tiles are
-//       scheduled: the look-back is short when the predecessors ran first,
-//       and correct in any order.  The count pass rewrites every status
-//       word on the stream, so a stale word of an earlier call is never
-//       read.
-//   Timed in turns on an H100 (PERF.md), the small form wins up to some
+//   - a tile needs its left base (the lefts before it) and nl.  Every
+//     call makes three launches, and the true cnt picks which of them do
+//     the work (each of the others returns at once):
+//     small (cnt <= kSmallMax), one launch: every tile sums the whole
+//       window's mask itself (a byte a position, read from L2 16 bytes at
+//       a time), which gives both numbers with no other pass; a window of
+//       one tile is one block;
+//     large (the rest), two launches: a count pass (the mask only) writes
+//       each tile's left count as its status word, and its last block
+//       writes nl; the write pass then finds each tile's left base by
+//       decoupled look-back (Merrill and Garland): a tile reads its
+//       predecessors' status words, 32 at a time, back to the nearest one
+//       that has published its inclusive prefix, and publishes its own.
+//       Every status word already holds its tile's count when the write
+//       pass starts, so no tile ever waits on another, in whatever order
+//       the tiles are scheduled: the look-back is short when the
+//       predecessors ran first, and correct in any order.  The count pass
+//       rewrites every status word on the stream, so a stale word of an
+//       earlier call is never read.
+//   Timed in turns on an H100 (PERF.md), the small launch wins up to some
 //   two hundred thousand positions, where summing the whole mask in every
-//   tile starts to cost more than the second launch.  A three-launch
-//   large form (count, a one-block scan of the tile counts, write) lost
+//   tile starts to cost more than the second launch.  Three passes for
+//   the large windows (count, a one-block scan of the tile counts, write) lost
 //   to the look-back at every window, and a tile that issued its row
 //   copies in the rows' own order before ranking (16-byte copies, stores
 //   gathered through a rank -> position map) lost to staging at the
@@ -69,7 +70,7 @@
 constexpr int kMaxMats = 9;            // order + 8 payload matrices
 
 // The argument block of the C entry point, packed by the Python wrapper
-// (ops/partition.py:_ARGS, struct format "@9P9P9q5P4q4iP").
+// (ops/partition.py:_ARGS, struct format "@9P9P9q5P3q2iP").
 struct Args {
   const void* src[kMaxMats];
   void* dst[kMaxMats];
@@ -83,22 +84,19 @@ struct Args {
   long long rows;              // rows of every matrix
   long long bound;             // host bound on cnt: the grid's positions
   long long scratch_tiles;     // status words the scratch holds
-  long long small_max;         // the small form takes cnt <= small_max,
-                               // the large form the rest
   int n_mats;
-  int form;
   int device;
-  int pad_;
   void* stream;
 };
 
 namespace {
 
-constexpr int kFormSmall = 0;
-constexpr int kFormLarge = 1;
-constexpr int kFormDevice = 2;   // both forms, each gated by cnt
+// the small launch takes windows of at most this many positions, the
+// count and write launches the larger ones (ops/partition.py
+// SMALL_MAX_ROWS, the H100's crossover)
+constexpr long long kSmallMax = 196608;
 
-// tile geometry: a block of either form takes one tile of positions
+// tile geometry: a block of any launch takes one tile of positions
 constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;   // 2,048 positions
@@ -388,7 +386,7 @@ __device__ void move_tile(const Args& a, bool swap, long long start,
   }
 }
 
-// The large form's count pass: tile t's left count into status[t]; the
+// The large windows' count pass: tile t's left count into status[t]; the
 // last block to finish sums them into nl and resets the ticket.  Only the
 // window's tiles (at least one) take part; the others return at once.
 __global__ void __launch_bounds__(kThreads)
@@ -399,7 +397,7 @@ lgbt_partition_count(Args a) {
   unsigned int* ticket =
       reinterpret_cast<unsigned int*>(status + a.scratch_tiles);
   const Window win = window(a);
-  if (win.cnt <= a.small_max) return;   // the small form's window
+  if (win.cnt <= kSmallMax) return;   // the small launch's window
   const long long tiles = win.cnt > 0 ? (win.cnt + kTile - 1) / kTile : 1;
   if ((long long)blockIdx.x >= tiles) return;
   const uint8_t* gl = static_cast<const uint8_t*>(a.goes_left);
@@ -478,7 +476,7 @@ __device__ void count_lefts(const uint8_t* gl, long long cnt, long long lo,
   __syncthreads();
 }
 
-// The small form, one launch: each tile sums the window's mask itself for
+// The small windows' one launch: each tile sums the window's mask itself for
 // its left base and nl (the mask is a byte a position and sits in L2),
 // then ranks and moves its rows; tile 0 writes nl, also of an empty
 // window.
@@ -488,7 +486,7 @@ lgbt_partition_small(Args a, int stage_words) {
   __shared__ long long red[2 * kThreads / 32];
   extern __shared__ __align__(16) uint32_t stage[];
   const Window win = window(a);
-  if (win.cnt > a.small_max) return;    // the large form's window
+  if (win.cnt > kSmallMax) return;    // the large windows'
   const uint8_t* gl = static_cast<const uint8_t*>(a.goes_left);
   const long long lo = (long long)blockIdx.x * kTile;
   const int n = (int)max(0ll, min((long long)kTile, win.cnt - lo));
@@ -502,7 +500,7 @@ lgbt_partition_small(Args a, int stage_words) {
             stage, stage_words);
 }
 
-// The large form's write pass: rank the tile, find its left base by
+// The large windows' write pass: rank the tile, find its left base by
 // look-back over the status words, publish its inclusive prefix, move.
 __global__ void __launch_bounds__(kThreads)
 lgbt_partition_write(Args a, int stage_words) {
@@ -511,7 +509,7 @@ lgbt_partition_write(Args a, int stage_words) {
   volatile unsigned long long* status =
       static_cast<volatile unsigned long long*>(a.scratch);
   const Window win = window(a);
-  if (win.cnt <= a.small_max) return;   // the small form's window
+  if (win.cnt <= kSmallMax) return;   // the small launch's window
   const uint8_t* gl = static_cast<const uint8_t*>(a.goes_left);
   const long long t = blockIdx.x;
   const long long lo = t * kTile;
@@ -570,26 +568,23 @@ int allow_smem(const void* kernel, int bytes, int device, bool* done) {
 
 int launch_on(const Args& a) {
   const cudaStream_t s = static_cast<cudaStream_t>(a.stream);
-  const long long tiles = a.bound > 0 ? (a.bound + kTile - 1) / kTile : 1;
+  const long long tiles = (a.bound + kTile - 1) / kTile;
+  const long long most = a.bound < kSmallMax ? a.bound : kSmallMax;
+  const long long small_tiles = (most + kTile - 1) / kTile;
   const int words =
       stage_words(a, (int)(a.bound < kTile ? a.bound : kTile), kStageWords);
-  if (a.form != kFormLarge) {   // small, or the device form's small launch
-    const long long most = a.bound < a.small_max ? a.bound : a.small_max;
-    const long long small_tiles = most > 0 ? (most + kTile - 1) / kTile : 1;
-    int rc = allow_smem((const void*)lgbt_partition_small, words * 4,
-                        a.device, g_small_smem);
-    if (rc) return rc;
-    lgbt_partition_small<<<(unsigned)small_tiles, kThreads, words * 4, s>>>(
-        a, words);
-    if (a.form == kFormSmall) return (int)cudaGetLastError();
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  int rc = allow_smem((const void*)lgbt_partition_write, words * 4, a.device,
-                      g_large_smem);
+  int rc = allow_smem((const void*)lgbt_partition_small, words * 4, a.device,
+                      g_small_smem);
   if (rc) return rc;
-  lgbt_partition_count<<<(unsigned)tiles, kThreads, 0, s>>>(a);
+  rc = allow_smem((const void*)lgbt_partition_write, words * 4, a.device,
+                  g_large_smem);
+  if (rc) return rc;
+  lgbt_partition_small<<<(unsigned)small_tiles, kThreads, words * 4, s>>>(
+      a, words);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lgbt_partition_count<<<(unsigned)tiles, kThreads, 0, s>>>(a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   lgbt_partition_write<<<(unsigned)tiles, kThreads, words * 4, s>>>(a,
                                                                     words);
@@ -600,20 +595,15 @@ int launch_on(const Args& a) {
 
 // Partitions the window (start, cnt) = x->sc (device int64[2], cnt at most
 // x->bound) of each of the x->n_mats matrices from src into dst (dst into
-// src when x->odd is given and odd) and writes nl to x->nl_out: one launch
-// (small form), two (large) or three (device form) on stream x->stream of
-// card x->device, which is made current only if it is not.
-// The scratch starts zeroed and is left so (its ticket) for the next call.
-// Returns the cudaError_t (0 on success).
+// src when x->odd is given and odd) and writes nl to x->nl_out: three
+// launches on stream x->stream of card x->device, which is made current
+// only if it is not.  The scratch starts zeroed and is left so (its
+// ticket) for the next call.  Returns the cudaError_t (0 on success).
 extern "C" int lgbt_partition(const Args* x) {
   const Args& a = *x;
-  if (a.n_mats < 1 || a.n_mats > kMaxMats || a.bound < 0 ||
+  if (a.n_mats < 1 || a.n_mats > kMaxMats || a.bound < 1 ||
       a.device < 0 || a.device >= kMaxDevices ||
-      (a.form != kFormSmall && a.form != kFormLarge &&
-       a.form != kFormDevice))
-    return (int)cudaErrorInvalidValue;
-  if (a.form != kFormSmall &&
-      (a.bound < 1 || (a.bound + kTile - 1) / kTile > a.scratch_tiles))
+      (a.bound + kTile - 1) / kTile > a.scratch_tiles)
     return (int)cudaErrorInvalidValue;
   int prev = a.device;
   cudaError_t err = cudaGetDevice(&prev);

@@ -14,18 +14,19 @@ device ``int32[1]``.
 
 Out of place, ``src -> dst``: the grower keeps two buffers of every matrix
 and alternates them by the leaf's depth parity, so no pass copies the
-window back.  The three forms share that interface:
+window back.  The three versions share that interface:
 
 * :func:`partition_window` takes the window as a device ``int64[2]``
-  (start, cnt), as the grower holds it, and a host bound on cnt.  It
-  launches the hand-written kernel ``csrc/partition.cu`` on a CUDA tensor
-  (one launch for a bound of at most ``SMALL_MAX_ROWS`` positions, two
-  above; none for a bound of 0) and runs :func:`partition_window_plain`
-  on a CPU tensor.  The serial grower's captured split step knows neither
-  cnt nor which buffer holds the window on the host: it passes the rows as
-  the bound with ``form="device"`` (both forms launched, each gated on the
-  device by the true cnt) and the leaf's depth parity as a device
-  ``int32[1]`` ``odd``, which swaps ``src`` and ``dst`` when odd;
+  (start, cnt), as the grower holds it, a host bound on cnt that sizes the
+  grid, and optionally the leaf's depth parity as a device ``int32[1]``
+  ``odd``, which swaps ``src`` and ``dst`` when odd.  The serial grower's
+  captured split step knows neither cnt nor which buffer holds the
+  window: it passes the rows as the bound.  On a CUDA tensor it launches
+  the hand-written kernel ``csrc/partition.cu``: three launches a call
+  (none for a bound of 0), of which the true cnt picks the one that does
+  the work up to ``SMALL_MAX_ROWS`` positions or the two that do it
+  above; the others return at once.  On a CPU tensor it runs
+  :func:`partition_window_plain`;
 * :func:`partition_window_plain`, the plain PyTorch version (a
   cumulative-sum rank and one scatter a matrix), on host (start, cnt);
 * :func:`partition_window_sort`, ``partition_impl=sort``: a stable sort
@@ -43,16 +44,14 @@ import torch
 from . import build
 
 MAX_MATS = 9          # matrices a call moves: order + 8 payload matrices
-# the small form (one launch: each tile sums the window's mask itself)
-# takes windows of at most this many positions (the H100's crossover,
-# PERF.md); larger windows take the large form (a count pass and a write
-# pass with look-back)
+# the small launch (each tile sums the window's mask itself) takes windows
+# of at most this many positions (the H100's crossover, PERF.md), the
+# count and write launches (look-back) the larger ones; csrc/partition.cu
+# kSmallMax
 SMALL_MAX_ROWS = 196_608
 TILE = 2048           # positions a block and a status word cover (kTile)
 MAX_GRID_X = 2 ** 31 - 1
-_FORMS = {"small": 0, "large": 1, "device": 2}
-_LAUNCHES = {"small": 1, "large": 2, "device": 3}
-_NO_GATE = {"small": 2 ** 63 - 1, "large": -1}
+LAUNCHES = 3          # kernel launches a call: small, count, write
 
 
 def partition_window_plain(src: Sequence[torch.Tensor],
@@ -93,44 +92,38 @@ def partition_window_sort(src: Sequence[torch.Tensor],
 
 class LaunchPlan(NamedTuple):
     """How the partition kernel is launched for a window bound."""
-    form: str          # "small": one launch; "large": count + write;
-    #                    "device": all three, each gated by the true cnt
-    grid: int          # blocks of each launch: one a tile of TILE positions
-    #                    (the device form's small launch: of at most
-    #                    SMALL_MAX_ROWS positions)
+    grid: int          # blocks of the count and write launches: one a
+    #                    tile of TILE positions of the bound
+    small_grid: int    # blocks of the small launch: the tiles of at most
+    #                    SMALL_MAX_ROWS positions
     launches: int      # kernel launches of the call
 
 
-def plan_launch(bound: int, form: Optional[str] = None) -> LaunchPlan:
+def plan_launch(bound: int) -> LaunchPlan:
     """The launch of a call over at most ``bound`` positions: a pure
-    function of what the host knows (the grower's exact cnt).  ``form``
-    replaces the choice by ``SMALL_MAX_ROWS`` (to time the forms), or
-    leaves it to the device (``"device"``)."""
+    function of what the host knows; the kernel reads the true cnt."""
     if bound < 0:
         raise ValueError(f"plan_launch: bound {bound}")
-    if form is None:
-        form = "small" if bound <= SMALL_MAX_ROWS else "large"
     grid = max(1, -(-bound // TILE))
-    if form not in _FORMS or grid > MAX_GRID_X:
-        raise ValueError(f"plan_launch: form {form!r} over {bound} "
-                         f"positions")
-    launches = 0 if bound == 0 else _LAUNCHES[form]
-    return LaunchPlan(form, grid, launches)
+    if grid > MAX_GRID_X:
+        raise ValueError(f"plan_launch: {bound} positions")
+    return LaunchPlan(grid, max(1, -(-min(bound, SMALL_MAX_ROWS) // TILE)),
+                      0 if bound == 0 else LAUNCHES)
 
 
 def partition_scratch(rows: int, device) -> torch.Tensor:
     """Zeroed scratch for kernel calls over windows of up to ``rows``
-    positions on ``device``: the large form's status word of 8 bytes a
-    tile of ``TILE`` positions and a ticket, which the kernel leaves at 0.
-    Allocate once and reuse."""
+    positions on ``device``: the count and write launches' status word of
+    8 bytes a tile of ``TILE`` positions and a ticket, which the kernel
+    leaves at 0.  Allocate once and reuse."""
     words = -(-max(rows, 1) // TILE) + 1
     return torch.zeros(words, dtype=torch.int64, device=device)
 
 
 # the C entry point's one argument (csrc/partition.cu: Args): the source,
-# destination and row width of MAX_MATS matrices, 5 pointers, 4 sizes, 4
+# destination and row width of MAX_MATS matrices, 5 pointers, 3 sizes, 2
 # ints and the stream
-_ARGS = struct.Struct(f"@{MAX_MATS}P{MAX_MATS}P{MAX_MATS}q5P4q4iP")
+_ARGS = struct.Struct(f"@{MAX_MATS}P{MAX_MATS}P{MAX_MATS}q5P3q2iP")
 _NULLS = (0,) * MAX_MATS
 
 
@@ -180,22 +173,19 @@ def partition_window(src: Sequence[torch.Tensor],
                      dst: Sequence[torch.Tensor], sc: torch.Tensor,
                      goes_left: torch.Tensor, rows_upper_bound: int,
                      scratch: Optional[torch.Tensor] = None,
-                     form: Optional[str] = None,
                      odd: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stably partition the window (start, cnt) = ``sc`` (an ``int64[2]``
     on the matrices' device) of each ``src`` matrix (``src[0]`` is
     ``order``) by ``goes_left[:cnt]`` into the same positions of ``dst``;
     returns ``nl`` (``int32[1]``).
 
-    ``rows_upper_bound`` is a host-known bound on cnt (the grower passes
-    the exact count) from which :func:`plan_launch` picks the form and the
-    grid; the kernel reads the true window from ``sc``.  ``scratch`` (from
-    :func:`partition_scratch`, sized for at least the bound) is allocated
-    when not given.  ``form`` replaces the plan's form (to time the forms
-    against each other; ``"device"`` launches both, gated by the true cnt).
-    ``odd`` (a device ``int32[1]``) swaps ``src`` and ``dst`` when odd.
-    CPU tensors take the plain version; CUDA tensors launch the kernel, on
-    their own card, or raise."""
+    ``rows_upper_bound`` is a host-known bound on cnt that sizes the grid
+    (:func:`plan_launch`); the kernel reads the true window from ``sc``.
+    ``scratch`` (from :func:`partition_scratch`, sized for at least the
+    bound) is allocated when not given.  ``odd`` (a device ``int32[1]``)
+    swaps ``src`` and ``dst`` when odd.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel, on their own card, or
+    raise."""
     if not src[0].is_cuda:
         if src[0].device.type == "cpu":
             start, cnt = (int(v) for v in sc.tolist())
@@ -208,10 +198,10 @@ def partition_window(src: Sequence[torch.Tensor],
     if scratch is None:
         scratch = partition_scratch(bound, src[0].device)
     _check_cuda_args(src, dst, sc, goes_left, bound, scratch, odd)
-    plan = plan_launch(bound, form)
+    plan = plan_launch(bound)
     if plan.launches == 0:     # an empty window: nothing to move
         return torch.zeros(1, dtype=torch.int32, device=src[0].device)
-    if plan.form != "small" and plan.grid >= scratch.numel():
+    if plan.grid >= scratch.numel():
         raise ValueError(f"partition_window: scratch of {scratch.numel()} "
                          f"words is too small for {bound} positions")
     dev = src[0].get_device()
@@ -224,20 +214,15 @@ def partition_window(src: Sequence[torch.Tensor],
                    *[_row_bytes(t) for t in src], *_NULLS[:pad],
                    goes_left.data_ptr(), sc.data_ptr(), nl.data_ptr(),
                    scratch.data_ptr(), 0 if odd is None else odd.data_ptr(),
-                   src[0].shape[0], bound, scratch.numel() - 1,
-                   _NO_GATE.get(plan.form, SMALL_MAX_ROWS), len(src),
-                   _FORMS[plan.form], dev, 0,
-                   torch._C._cuda_getCurrentRawStream(dev)))
+                   src[0].shape[0], bound, scratch.numel() - 1, len(src),
+                   dev, torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"partition kernel launch failed: CUDA error "
                            f"{err}")
     partition_window.launches += 1
-    partition_window.form_launches[plan.form] += 1
     return nl
 
 
-# kernel calls, counted where the kernel is launched and nowhere else; and
-# the same calls by form (a small call is one launch, a large call two, a
-# device call three)
+# kernel calls, counted where the kernel is launched and nowhere else (a
+# call is LAUNCHES kernel launches)
 partition_window.launches = 0
-partition_window.form_launches = {"small": 0, "large": 0, "device": 0}

@@ -6,8 +6,10 @@ lightgbm_tpu_torch on one CUDA card.
                                              [--out FILE] [--check-only]
 
 Builds ``partition`` and ``cat_group`` and checks them, bit for bit,
-against their plain versions: the partition in each of its forms on
-windows of 0 to 11,000,000 rows of the Expo-shaped path's matrices
+against their plain versions: the partition over a grid of the window's
+own tiles (``tight``) and over the grid of all rows that the serial
+grower's split step launches (``step``), on windows of 0 to 11,000,000
+rows of the Expo-shaped path's matrices
 (``order``, ``[N, 8]`` uint8 bins and three f32 weights), with left
 fractions 0, 1 and 0.43, into a destination full of garbage, and with
 payloads of 7 and 28 byte columns; cat_group on the Expo-shaped shape (2 x 8 x 2 x 255) at three count scales, at one
@@ -15,7 +17,7 @@ position, with no position ok, with 42 lanes, past 256 positions and with
 one minimum group size a leaf.  ``--check-only`` stops there.
 
 Then it times, in turns within one process, at the Expo-shaped path's
-shapes: the partition's forms on windows of 1,024 rows to the
+shapes: the partition on both grids on windows of 1,024 rows to the
 11,000,000-row root, beside a stable ``torch.sort`` of the 0/1 key (one
 PyTorch call) and ``partition_window_sort`` (the whole function in
 PyTorch calls: the key sort and each matrix's ``index_select``); and
@@ -59,7 +61,6 @@ N_ROOT = 11_000_000
 WINDOWS = (1024, 2048, 4097, 16384, 65536, 98304, 131072, 131073, 196608,
            262144, 524288, 1_048_576, N_ROOT)
 SINGLE = (4097, N_ROOT)
-SMALL_UP_TO = 1_048_576      # the small form is timed up to this window
 
 
 def load_baseline_ops(root: str, name: str = "baseline_ops"):
@@ -139,7 +140,7 @@ def main() -> None:
         sys.exit("torch.cuda.is_available() is false: this bench needs a "
                  "CUDA card")
     from lightgbm_tpu_torch.ops import build
-    from lightgbm_tpu_torch.ops.partition import (SMALL_MAX_ROWS, _FORMS,
+    from lightgbm_tpu_torch.ops.partition import (SMALL_MAX_ROWS,
                                                   partition_scratch,
                                                   partition_window,
                                                   partition_window_plain,
@@ -185,13 +186,11 @@ def main() -> None:
            *[torch.randn(n, device=dev, generator=gen) for _ in range(3)]]
     dst = [torch.empty_like(t) for t in src]
     scratch = partition_scratch(n, dev)
-    forms = tuple(_FORMS)
+    # the grid's bound: the window's own count, or every row as in the
+    # split step
+    grids = {"tight": lambda cnt: cnt, "step": lambda cnt: n}
     sc_of = lambda start, cnt: torch.tensor([start, cnt], dtype=torch.int64,
                                             device=dev)
-
-    def takes(form, cnt):
-        return not (form == "small" and cnt > SMALL_UP_TO
-                    or form != "small" and cnt == 0)
 
     # ---- checks -------------------------------------------------------------
     windows = [(0, 0), (5, 1), (77, 511), (1000, 4096), (40000, 4097),
@@ -203,14 +202,12 @@ def main() -> None:
     for start, cnt in windows:
         sc = sc_of(start, cnt)
         for frac in (0.0, 1.0, 0.43):
-            gl = torch.rand(cnt, device=dev, generator=gen) < frac
+            gl = torch.rand(n, device=dev, generator=gen) < frac
             npl = partition_window_plain(src, ref, start, cnt, gl)
-            for form in forms:
-                if not takes(form, cnt):
-                    continue
+            for grid, bound in grids.items():
                 for t in dst:   # garbage
                     t.view(torch.uint8).random_(generator=gen)
-                nk = partition_window(src, dst, sc, gl, cnt, scratch, form)
+                nk = partition_window(src, dst, sc, gl, bound(cnt), scratch)
                 torch.cuda.synchronize()
                 same = torch.equal(nk, npl) and all(
                     torch.equal(a[start:start + cnt], b[start:start + cnt])
@@ -218,7 +215,7 @@ def main() -> None:
                 checked += 1
                 if not same:
                     emit(error="partition differs from the plain version",
-                         window=[start, cnt], frac=frac, form=form)
+                         window=[start, cnt], frac=frac, grid=grid)
                     sys.exit(1)
     # rows that are not whole words (7 bytes), and wide rows (28 bytes)
     for f in (7, 28):
@@ -227,19 +224,19 @@ def main() -> None:
               torch.randint(0, 256, (m, f), dtype=torch.uint8, device=dev,
                             generator=gen)]
         for start, cnt in ((3, 4097), (1, SMALL_MAX_ROWS + 1), (0, m)):
-            gl = torch.rand(cnt, device=dev, generator=gen) < 0.43
+            gl = torch.rand(m, device=dev, generator=gen) < 0.43
             r2 = [torch.empty_like(t) for t in s2]
             npl = partition_window_plain(s2, r2, start, cnt, gl)
-            for form in forms:
+            for grid, bound in (("tight", cnt), ("step", m)):
                 d2 = [torch.full_like(t, 3) for t in s2]
-                nk = partition_window(s2, d2, sc_of(start, cnt), gl, cnt,
-                                      scratch, form)
+                nk = partition_window(s2, d2, sc_of(start, cnt), gl, bound,
+                                      scratch)
                 torch.cuda.synchronize()
                 if not torch.equal(nk, npl) or not all(
                         torch.equal(a[start:start + cnt], b[start:start + cnt])
                         for a, b in zip(d2, r2)):
                     emit(error="partition differs from the plain version",
-                         width=f, window=[start, cnt], form=form)
+                         width=f, window=[start, cnt], grid=grid)
                     sys.exit(1)
                 checked += 1
     emit(partition_checked=checked, exact=True)
@@ -287,11 +284,11 @@ def main() -> None:
     for cnt in WINDOWS:
         start = 0 if cnt == n else 40000
         sc = sc_of(start, cnt)
-        gl = torch.rand(cnt, device=dev, generator=gen) < 0.43
-        key = (~gl).to(torch.uint8)
-        calls = {f: (lambda f=f: partition_window(src, dst, sc, gl, cnt,
-                                                  scratch, f))
-                 for f in forms if takes(f, cnt)}
+        gl = torch.rand(n, device=dev, generator=gen) < 0.43
+        key = (~gl[:cnt]).to(torch.uint8)
+        calls = {g: (lambda b=b(cnt): partition_window(src, dst, sc, gl, b,
+                                                       scratch))
+                 for g, b in grids.items()}
         if dev_part is not None:
             calls["dev"] = lambda: dev_part.partition_window(
                 src, dst, sc, gl, cnt, scratch)

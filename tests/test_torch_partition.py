@@ -183,19 +183,21 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     assert partition_window.launches == before
 
 
-@pytest.mark.parametrize("cnt,form,launches", [
-    (0, "small", 0), (1, "small", 1), (4097, "small", 1),
-    (SMALL_MAX_ROWS - 1, "small", 1), (SMALL_MAX_ROWS, "small", 1),
-    (SMALL_MAX_ROWS + 1, "large", 2), (11_000_000, "large", 2)])
-def test_launch_plan_at_its_edges(cnt, form, launches):
-    """One launch (the small form) up to SMALL_MAX_ROWS positions, the
-    two-launch large form above, none for an empty window; a block a tile
-    of TILE positions, within the grid's limit; the scratch holds a status
-    word for every tile and the ticket, zeroed."""
+@pytest.mark.parametrize("cnt,small_grid,launches", [
+    (0, 1, 0), (1, 1, 3), (4097, 3, 3),
+    (SMALL_MAX_ROWS - 1, 96, 3), (SMALL_MAX_ROWS, 96, 3),
+    (SMALL_MAX_ROWS + 1, 96, 3), (11_000_000, 96, 3)])
+def test_launch_plan_at_its_edges(cnt, small_grid, launches):
+    """Three launches a call, none for an empty bound: the small launch
+    over the tiles of at most SMALL_MAX_ROWS positions of the bound, the
+    count and write launches over all its tiles, a block a tile of TILE
+    positions, within the grid's limit; the scratch holds a status word
+    for every tile and the ticket, zeroed."""
     plan = plan_launch(cnt)
-    assert (plan.form, plan.launches) == (form, launches)
+    assert (plan.small_grid, plan.launches) == (small_grid, launches)
     assert plan.grid == max(1, -(-cnt // TILE)) <= MAX_GRID_X
     assert (plan.grid - 1) * TILE < max(cnt, 1) <= plan.grid * TILE
+    assert plan.small_grid * TILE >= min(cnt, SMALL_MAX_ROWS)
     scratch = partition_scratch(cnt, "cpu")
     assert scratch.numel() == plan.grid + 1 and scratch.eq(0).all()
 
@@ -204,9 +206,8 @@ def test_launch_plan_rejects_what_no_kernel_takes():
     with pytest.raises(ValueError):
         plan_launch(-1)
     with pytest.raises(ValueError):
-        plan_launch(10, form="other")
-    assert plan_launch(10, form="large") == (
-        "large", 1, 2)
+        plan_launch((MAX_GRID_X + 1) * TILE)
+    assert plan_launch(10) == (1, 1, 3)
 
 
 @pytest.mark.parametrize("cnt", [SMALL_MAX_ROWS - 1, SMALL_MAX_ROWS,
@@ -236,17 +237,22 @@ def test_kernel_matches_plain_on_card():
     order, bins, w = _ordered_problem(n, seed=8)
     rng = np.random.default_rng(9)
     scratch = partition_scratch(n, dev)
-    src = [torch.from_numpy(a.copy()).to(dev) for a in (order, bins, *w)]
+    one = [torch.from_numpy(a.copy()).to(dev) for a in (order, bins, *w)]
+    two = [x.flip(0).contiguous() for x in one]
     for start, cnt in ((0, 0), (5, 1), (77, 511), (1000, 4097),
-                       (3, SMALL_MAX_ROWS), (9, SMALL_MAX_ROWS + 1), (0, n),
+                       (3, SMALL_MAX_ROWS), (9, n - 9), (0, n),
                        (n - 4097, 4097)):
         for frac in (0.0, 1.0, 0.41):
-            gl = torch.from_numpy(rng.random(cnt) < frac).to(dev)
+            gl = torch.from_numpy(rng.random(n) < frac).to(dev)
             sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
-            for form in ("small", "large") if cnt else ("small",):
+            for odd, bound in ((0, cnt), (0, n), (1, n)):
+                src = two if odd else one
                 k = [torch.randint_like(x, 0, 100) for x in src]
                 p = [x.clone() for x in k]
-                nk = partition_window(src, k, sc, gl, cnt, scratch, form)
+                pair = (k, src) if odd else (src, k)
+                nk = partition_window(*pair, sc, gl, bound, scratch,
+                                      torch.tensor([odd], dtype=torch.int32,
+                                                   device=dev))
                 npl = partition_window_plain(src, p, start, cnt, gl)
                 torch.cuda.synchronize()
                 assert torch.equal(nk, npl)
@@ -255,12 +261,13 @@ def test_kernel_matches_plain_on_card():
 
 
 def test_device_form_launches_all_three():
-    """The captured split step's form: every launch of both forms over the
-    tiles of the bound, gated on the device by the true cnt."""
+    """The captured split step's call over the rows: all three launches
+    over the tiles of the bound, gated on the device by the true cnt."""
     for bound in (1, 4097, SMALL_MAX_ROWS + 1, 11_000_000):
-        plan = plan_launch(bound, form="device")
-        assert plan == ("device", -(-bound // TILE), 3)
-    assert plan_launch(0, form="device").launches == 0
+        plan = plan_launch(bound)
+        assert plan == (-(-bound // TILE),
+                        -(-min(bound, SMALL_MAX_ROWS) // TILE), 3)
+    assert plan_launch(0).launches == 0
 
 
 @pytest.mark.parametrize("odd", [0, 1, 2, 3])
@@ -279,8 +286,7 @@ def test_parity_swaps_source_and_destination(odd):
     want = partition_window_plain(src, ref, start, cnt, t(gl))
     keep = [x.clone() for x in src]
     nl = partition_window(one, two, _sc(start, cnt), t(gl), n,
-                          form="device", odd=torch.tensor([odd],
-                                                          dtype=torch.int32))
+                          odd=torch.tensor([odd], dtype=torch.int32))
     assert torch.equal(nl, want)
     for x, y in zip(dst, ref):
         assert torch.equal(x, y)
