@@ -46,9 +46,12 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    row-shard shapes of the data-parallel paths (250,000 x 28 and
    500,000 x 14 uint8 bins), with a row -> leaf map of 255 skewed leaves:
    all rows, a mid-sized leaf, a leaf of about 1,000 rows, an absent leaf
-   and leaves of the regime threshold's rows and one more, each in both
-   regimes, exact under integer weights; with times at all rows and the
-   1,000-row leaf;
+   and leaves of the regime threshold's rows, one less and one more, each
+   in both regimes and in the device regime of the data-parallel split
+   step (both kernels, each gated by the leaf's count, read from a
+   per-leaf count in device memory), exact under integer weights; with
+   times at all rows and the 1,000-row leaf, the device regime beside the
+   host's plans;
 2e. the route kernel (the split column of the chosen leaf's window,
    routed left or right) against its plain version, bit for bit: windows
    of 0 to 1,000,000 rows gathered through either of two ``order``
@@ -61,6 +64,13 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    histogram's device regime, against the partition over the window's own
    tiles and the histogram's host-picked plan, at an empty window, 4,097
    and 1,000,000 rows;
+2g. the data-parallel route kernel (a device's row -> leaf map updated in
+   place, and each row shard's count of every leaf) against its plain
+   version, bit for bit in the map and exact in the counts: 1,000,000
+   rows of 28 columns held as four shards, splits of each missing type and
+   a categorical one from a large leaf, a leaf of about 1,000 rows and the
+   root, and the sink after a tree's stop, which moves nothing; with
+   times at the root and the 1,000-row leaf beside the byte bound;
 3. the Higgs path at full width: seeded synthetic Higgs-shaped data
    (1,000,000 x 28 float32, binary label from a fixed nonlinear rule plus
    noise, 100,000 held-out rows), ``train`` 10 rounds with 255 leaves and
@@ -99,14 +109,23 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 6. (run right after phase 4, on its data) the data-parallel learner on
    the Higgs path at full width:
    ``tree_learner=data`` (``gspmd_hist=auto``, on a card the shard-local
-   kernel) over a 4x1 mesh of four slots on the card, 10 rounds; the
-   shard-local kernel must have launched 4 x (trees + splits) times and
-   the gather kernel never; held-out AUC against phase 3's;
+   kernel) over a 4x1 mesh of four slots on the card, 10 rounds, by the
+   graph loop (every slot on one card: the split step captured once and
+   replayed); launches = counts + (replays - 1) x the captured step's:
+   the shard-local kernel 4 x (trees + steps) (two kernels a call, each
+   gated by the count), the route kernel once a step, the gather kernel
+   never; at most ceil(254 / 32) + 1 host reads a tree; held-out AUC
+   within 1e-4 of phase 3's.  For one profiled tree: the runtime's launch
+   calls, the busy share, the shard-local kernel's device ms and its
+   calls by the kernel that did the work, and the route kernel's;
 6b. the same over a 2x2 mesh (14 columns a feature slice), 3 rounds;
-6c. one tree under integer-valued gradients grown on both meshes, on a
-   1x3 mesh of uneven column slices (10, 9 and 9) and by the serial
-   grower, identical field by field; and ``gspmd_hist=flat`` against
-   ``fused`` on a 50,000-row subset, 3 rounds;
+6c. one tree under integer-valued gradients grown on both meshes and on
+   a 1x3 mesh of uneven column slices (10, 9 and 9) by the data-parallel
+   eager loop and graph loop (three replayed trees under
+   ``torch.cuda.set_sync_debug_mode("error")``, timed in turns with the
+   eager ones), and by the serial grower: identical field by field; and
+   ``gspmd_hist=flat`` against ``fused`` on a 50,000-row subset, 3
+   rounds;
 7. (after phase 3c on the Higgs path and after phase 5 on the Expo path,
    on their data) one tree under integer-valued gradients grown by the
    graph loop and by the eager loop (and on Higgs by ``scatter``):
@@ -117,7 +136,8 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    share, launch calls, host reads.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
-slots on four cards, phase 6c's trees and 3 rounds of phase 6's path.
+slots on four cards (where the split step runs eagerly), phase 6c's trees
+and 3 rounds of phase 6's path.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -405,7 +425,8 @@ KERNELS = {"hist_window": ("hist_gather_small", "hist_gather_large"),
            "partition_window": ("lgbt_partition_small",
                                 "lgbt_partition_count",
                                 "lgbt_partition_write"),
-           "route_window": ("lgbt_route",),
+           "route_window": ("lgbt_route_kernel",),
+           "route_rows": ("lgbt_route_rows",),
            "cat_group_accept": ("lgbt_cat_group",)}
 
 
@@ -972,11 +993,18 @@ def local_bound_ms(n_loc: int, cnt: int, fc: int) -> float:
 def check_hist_local(dev, rng):
     """Phase 2d: the shard-local histogram kernel against its plain
     version at the row-shard shapes of the 4x1 and 2x2 meshes, every leaf
-    in both regimes."""
+    in both regimes and in the device regime of the data-parallel split
+    step (both kernels over the shard, each gated by the leaf's count,
+    which the kernel reads from a per-leaf count in device memory): all
+    rows, a leaf of about 1,000 rows, an absent leaf (count 0), and
+    leaves of 65,535, 65,536 and 65,537 rows either side of the gate.
+    Times at all rows and at the 1,000-row leaf, the device regime beside
+    the host's plans."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import (SMALL_MAX_ROWS_LOCAL,
-                                                  hist_local,
+                                                  device_kernel, hist_local,
                                                   hist_local_plain,
+                                                  plan_device_local,
                                                   plan_launch, sm_count)
     sms = sm_count(torch.cuda.current_device())
     n_leaves = 255
@@ -996,14 +1024,21 @@ def check_hist_local(dev, rng):
         for name, leaf in (("mid", 0), ("small", small), ("absent", 300)):
             maps[name] = (skewed_d, leaf,
                           int(counts[leaf]) if leaf < n_leaves else 0)
-        # leaves of exactly the regime threshold and one row more
+        # leaves of exactly the regime threshold, one row more and one less
         t = SMALL_MAX_ROWS_LOCAL
         edge = np.zeros(n_loc, np.int32)
         perm = rng.permutation(n_loc)
         edge[perm[:t]], edge[perm[t:2 * t + 1]] = 1, 2
+        edge[perm[2 * t + 1:3 * t]] = 3
         edge_d = torch.from_numpy(edge).to(dev)
+        maps["threshold-1"] = (edge_d, 3, t - 1)
         maps["threshold"] = (edge_d, 1, t)
         maps["threshold+1"] = (edge_d, 2, t + 1)
+        # every leaf's rows in the shard, as the split step keeps them
+        # (the absent leaf, 300, among them)
+        leaf_rows = {id(m): torch.bincount(m.long(), minlength=301).int()
+                     for m in (maps["all"][0], skewed_d, edge_d)}
+        dplan = plan_device_local(n_loc, fc, N_BINS, num_sms=sms)
         w_int = [torch.from_numpy(a).to(dev) for a in (
             rng.integers(-8, 9, n_loc).astype(np.float32),
             rng.integers(0, 5, n_loc).astype(np.float32),
@@ -1014,15 +1049,21 @@ def check_hist_local(dev, rng):
             np.ones(n_loc, np.float32))]
         for name, (row_leaf, leaf, cnt) in maps.items():
             lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
+            lrows = leaf_rows[id(row_leaf)]
+            if int(lrows[leaf]) != cnt:
+                fail(f"phase 2d: leaf {name} holds {int(lrows[leaf])} rows, "
+                     f"not {cnt}")
             pl = hist_local_plain(row_leaf, lid, bins, *w_int, N_BINS)
-            # its own plan at the leaf's count, both regimes forced, and
-            # the plan under the shard's bound
+            # its own plan at the leaf's count, both regimes forced, the
+            # plan under the shard's bound, and the device regime
             plans = {"own": plan(cnt),
                      "small": plan(cnt, small_max_rows=n_loc),
                      "large": plan(cnt, small_max_rows=-1),
-                     "shard_bound": plan(n_loc)}
+                     "shard_bound": plan(n_loc), "device": dplan}
             for pname, lp in plans.items():
-                k = hist_local(row_leaf, lid, bins, *w_int, N_BINS, cnt, lp)
+                k = hist_local(row_leaf, lid, bins, *w_int, N_BINS, cnt, lp,
+                               leaf_rows=lrows if pname == "device"
+                               else None)
                 torch.cuda.synchronize()
                 if not torch.equal(k, pl):
                     fail(f"hist_local != plain under integer weights at "
@@ -1038,6 +1079,7 @@ def check_hist_local(dev, rng):
             max_err = max(max_err, err.max().item())
             phase("hist_local_vs_plain", shard=f"{n_loc}x{fc}", leaf=name,
                   rows=cnt, own_regime=plans["own"].regime,
+                  device_regime_kernel=device_kernel(dplan, cnt),
                   exact_int=",".join(plans),
                   f32_max_abs_err=f"{err.max().item():.3e}")
         for name in ("all", "small"):
@@ -1058,14 +1100,23 @@ def check_hist_local(dev, rng):
                 local_bound_ms(n_loc, cnt, fc),
                 lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS, cnt,
                                    plan(n_loc)))
+            # the device regime as the split step launches it
+            lrows = leaf_rows[id(row_leaf)]
+            in_step = lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS,
+                                         plan=dplan, leaf_rows=lrows)
+            t["device_regime_ms"] = cuda_ms(in_step)
+            t["device_regime_ms_many"] = cuda_ms_many(in_step)
+            t["device_regime_device_ms"] = profiled_ms(in_step)[0]
             phase("hist_local_time", shard=f"{n_loc}x{fc}", leaf=name,
                   rows=cnt,
                   regime=plan(cnt).regime,
+                  device_regime_kernel=device_kernel(dplan, cnt),
                   **{k: f"{v:.4f}" if isinstance(v, float) else v
                      for k, v in t.items()},
                   bound_share=f"{t['bound_ms'] / t['device_ms']:.4f}"
                   if t["device_ms"] else "not measured")
         del bins, maps, skewed_d, edge_d, w_int, w_f32, idx, flat, vals, acc
+        del leaf_rows
     return timing, max_err
 
 
@@ -1192,6 +1243,128 @@ def check_route(dev, rng):
     return timing
 
 
+def route_rows_bound_ms(n: int, moved: int) -> float:
+    """Least time of a route_rows call over ``n`` rows: each row's
+    row_leaf entry (4 B) and split-column byte read, each moved row's
+    entry (4 B) written, and the leaf, new leaf and split row read, over
+    the memory rate."""
+    return (5 * n + 4 * moved + 8 + 8 + 12 + 1 + N_BINS) / H100_BYTES_PER_S \
+        * 1e3
+
+
+def check_route_rows(dev, rng):
+    """Phase 2g: the data-parallel routing kernel against its plain
+    version, bit for bit in the row -> leaf map and exact in the
+    per-shard counts: 1,000,000 rows of the Higgs path's 28 columns held
+    as four row shards (the 4x1 mesh's one card), a map of 255 skewed
+    leaves, splits on a column without missing values, with zero and
+    with NaN as missing, and a categorical split, each from a leaf of many
+    rows and of about 1,000; the root (every row in leaf 0); and the sink
+    after the tree's stop, which moves nothing.  Times at the root and at
+    the 1,000-row leaf, where new = leaf makes a call repeatable (the
+    same reads and writes, the counts unchanged)."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta
+    from lightgbm_tpu_torch.ops.route import route_rows, route_rows_plain
+    n, shards, L = N_ROWS, MESH_SLOTS, 255
+    meta = FeatureMeta(
+        torch.full((N_FEAT,), N_BINS, dtype=torch.int32, device=dev),
+        torch.tensor([k % 3 for k in range(N_FEAT)], dtype=torch.int32,
+                     device=dev),
+        torch.tensor([(37 * k) % N_BINS for k in range(N_FEAT)],
+                     dtype=torch.int32, device=dev))
+    bins_t = torch.from_numpy(rng.integers(0, N_BINS, (N_FEAT, n),
+                                           dtype=np.uint8)).to(dev)
+    p = 1.0 / np.arange(1, L) ** 1.1
+    skewed = rng.choice(L - 1, n, p=p / p.sum()).astype(np.int32)
+    sizes = np.bincount(skewed, minlength=L)
+    small = int(np.argmin(np.abs(sizes - 1000)))
+    # the pool: splits of each missing type and a categorical one at
+    # leaves 0 (many rows) and `small`, the sink row L without a column
+    si32 = np.zeros((L + 1, 3), np.int32)
+    si32[:, 0] = 5
+    scat = np.zeros(L + 1, bool)
+    splits = {"none": (0, 100, 1, False), "zero": (1, 50, 0, False),
+              "nan": (2, 200, 1, False), "categorical": (4, 0, 0, True)}
+    scatb = torch.from_numpy(rng.random((L + 1, N_BINS)) < 0.5).to(dev)
+    maps = {"skewed": torch.from_numpy(skewed).to(dev),
+            "root": torch.zeros(n, dtype=torch.int32, device=dev)}
+
+    def counts_of(rl):
+        return torch.stack([torch.bincount(r.long(), minlength=L + 1)
+                            for r in rl.view(shards, -1)]).int()
+
+    def pool(split, leaf):
+        i32, cat = si32.copy(), scat.copy()
+        i32[leaf] = split[:3]
+        cat[leaf] = split[3]
+        i32[L] = (-1, 0, 0)
+        return (torch.from_numpy(i32).to(dev), torch.from_numpy(cat).to(dev))
+
+    cases = [(f"{name}_{where}", maps[m], leaf, new, split)
+             for name, split in splits.items()
+             for where, m, leaf, new in (("many", "skewed", 0, L - 1),
+                                         ("1000", "skewed", small, L - 1),
+                                         ("root", "root", 0, 1))]
+    cases.append(("sink", maps["skewed"], L, L, splits["none"]))
+    checked = moved_total = 0
+    for label, rl0, leaf, new, split in cases:
+        i32, cat = pool(split, leaf)
+        lt = torch.tensor([leaf], device=dev)
+        nt = torch.tensor([new], device=dev)
+        out = {}
+        for name, fn in (("kernel", route_rows), ("plain", route_rows_plain)):
+            rl, cnt = rl0.clone(), counts_of(rl0)
+            fn(rl, bins_t, lt, nt, i32, cat, scatb, meta, cnt)
+            out[name] = (rl, cnt)
+        torch.cuda.synchronize()
+        (rk, ck), (rp, cp) = out["kernel"], out["plain"]
+        if not (torch.equal(rk, rp) and torch.equal(ck, cp)):
+            fail(f"route_rows != plain at {label}: "
+                 f"{int((rk != rp).sum())} rows of the map differ, counts "
+                 f"{'equal' if torch.equal(ck, cp) else 'differ'}")
+        if not torch.equal(ck, counts_of(rk)):
+            fail(f"route_rows counts != the map's at {label}")
+        moved = int((rk != rl0).sum())
+        if (label == "sink") != (moved == 0):
+            fail(f"route_rows moved {moved} rows at {label}")
+        moved_total += moved
+        checked += 1
+    phase("route_rows_vs_plain", rows=n, shards=shards, cases=checked,
+          rows_moved=moved_total, exact=True)
+
+    timing = {}
+    for label, m, leaf in (("root", "root", 0), ("leaf_1000", "skewed",
+                                                 small)):
+        rl = maps[m].clone()
+        i32, cat = pool(splits["nan"], leaf)
+        lt = torch.tensor([leaf], device=dev)
+        cnt = counts_of(rl)
+        probe = rl.clone()
+        route_rows_plain(probe, bins_t, lt, torch.tensor([L - 1], device=dev),
+                         i32, cat, scatb, meta, cnt.clone())
+        moved = int((probe != rl).sum())
+        k = three_times(lambda: route_rows(rl, bins_t, lt, lt, i32, cat,
+                                           scatb, meta, cnt))
+        p_ms = cuda_ms(lambda: route_rows_plain(rl, bins_t, lt, lt, i32, cat,
+                                                scatb, meta, cnt), reps=3)
+        if not torch.equal(rl, maps[m]) or not torch.equal(cnt,
+                                                           counts_of(rl)):
+            fail(f"route_rows with new = leaf changed the map at {label}")
+        bound_ms = route_rows_bound_ms(n, moved)
+        timing[label] = dict(k, plain_ms=p_ms, bound_ms=bound_ms,
+                             leaf_rows=int((rl == leaf).sum()), moved=moved)
+        phase("route_rows_time", leaf=label, rows=n,
+              leaf_rows=timing[label]["leaf_rows"], moved=moved,
+              **{k_: f"{v:.4f}" for k_, v in timing[label].items()
+                 if isinstance(v, float) and k_ != "bound_ms"},
+              bound_ms=f"{bound_ms:.5f}",
+              bound_share=f"{bound_ms / k['device_ms']:.3f}"
+              if k["device_ms"] else "not measured")
+    del bins_t, maps
+    return timing
+
+
 def empty_launch_cost(dev, rng):
     """Phase 2f: what the captured step's gated launches cost at the Expo
     path's 11,000,000 rows and 8 columns.  The step knows the window's
@@ -1246,14 +1419,62 @@ def empty_launch_cost(dev, rng):
     return out
 
 
-def real_launches(raw: dict, windows, replays: int, captures: int) -> dict:
+def loop_state(inner):
+    """The split loop's state of a booster: the data-parallel learner's or
+    the serial grower's (``grower.SplitLoop``), or None before a tree."""
+    return inner._gspmd if inner._gspmd is not None else inner._windows
+
+
+def real_launches(raw: dict, state, replays: int, captures: int) -> dict:
     """Each wrapper's launches on the card from its counts ``raw``: a
     capture counts the split step's launches without making them, and a
-    replay makes them without counting (``WindowBuffers.graph_launches``,
-    the counts of one capture)."""
-    per = windows.graph_launches if windows is not None else {}
+    replay makes them without counting (``SplitLoop.graph_launches``, the
+    counts of one capture)."""
+    per = state.graph_launches if state is not None else {}
     return {k: v + (replays - captures) * per.get(k, 0)
             for k, v in raw.items()}
+
+
+def k3_work(grower, steps: int) -> dict:
+    """Which kernel of the data-parallel step's device-regime K3 calls did
+    the work in the tree the learner just grew: a call whose leaf holds at
+    most ``SMALL_MAX_ROWS_LOCAL`` rows in its shard is the small kernel's,
+    a larger one the large kernel's, and a call on a leaf of no rows (a
+    step after the stop) neither's.  The rows a child held when it was
+    measured are those of its subtree at the end: from the learner's final
+    row -> leaf maps, node records and leaf counts, the smaller child
+    picked as the step picks it (by count weight)."""
+    from lightgbm_tpu_torch.ops.histogram import SMALL_MAX_ROWS_LOCAL
+    pool, L = grower.pool, grower.cfg.num_leaves
+    splits = int(grower.counters[0])
+    per_leaf = np.stack([np.bincount(
+        grower._shard(grower.row_leaf[devs[0]], i, devs[0]).cpu().numpy(),
+        minlength=L + 1) for i, devs in enumerate(grower.mesh.devices)])
+    left, right = (t.cpu().numpy() for t in (pool.left_child,
+                                             pool.right_child))
+    weight = pool.leaf_f[:, 1].cpu().numpy()
+
+    def subtree(child):
+        """The rows in each shard and the count weight of a subtree."""
+        if child < 0:
+            return per_leaf[:, ~child], weight[~child]
+        (a, wa), (b, wb) = subtree(left[child]), subtree(right[child])
+        return a + b, wa + wb
+
+    rows = [per_leaf.sum(1)]      # the root's calls
+    for node in range(splits):
+        (a, wa), (b, wb) = subtree(left[node]), subtree(right[node])
+        rows.append(a if wa <= wb else b)
+    rows = np.concatenate(rows)
+    slices = len(grower.cols)
+    empty = slices * ((steps - splits) * len(grower.mesh.devices)
+                      + int((rows == 0).sum()))
+    return dict(
+        hist_local_small_work_calls_per_tree=slices * int(
+            ((rows > 0) & (rows <= SMALL_MAX_ROWS_LOCAL)).sum()),
+        hist_local_large_work_calls_per_tree=slices * int(
+            (rows > SMALL_MAX_ROWS_LOCAL).sum()),
+        hist_local_empty_calls_per_tree=empty)
 
 
 def graph_vs_eager(name, ds, y, dev_names, **cfg_kw):
@@ -1375,10 +1596,11 @@ def _kernel_wrappers():
     """Every kernel wrapper of the paths, by name."""
     from lightgbm_tpu_torch.ops.histogram import hist_local, hist_window
     from lightgbm_tpu_torch.ops.partition import partition_window
-    from lightgbm_tpu_torch.ops.route import route_window
+    from lightgbm_tpu_torch.ops.route import route_rows, route_window
     from lightgbm_tpu_torch.ops.split import cat_group_accept
     return {f.__name__: f for f in (hist_window, hist_local, partition_window,
-                                    route_window, cat_group_accept)}
+                                    route_window, route_rows,
+                                    cat_group_accept)}
 
 
 def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
@@ -1414,9 +1636,9 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
         ("hist", fns["hist_window"]), ("hist_local", fns["hist_local"]))
         for k, v in fn.regime_launches.items()}
     stats = dict(bst.inner.stats)
-    windows = bst.inner._windows
-    graph = windows is not None and windows.graph is not None
-    launches = real_launches(raw, windows, stats.get("graph_replays", 0),
+    state = loop_state(bst.inner)
+    graph = state is not None and state.graph is not None
+    launches = real_launches(raw, state, stats.get("graph_replays", 0),
                              int(graph))
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
@@ -1437,22 +1659,28 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     if shards and bst.inner.gspmd_hist != params.get("gspmd_hist", "fused"):
         fail(f"{name}: gspmd_hist resolved to {bst.inner.gspmd_hist}")
     compact = bst.inner.grower_cfg.partition_impl == "compact"
-    if not shards and graph != compact:
-        fail(f"{name}: partition_impl={bst.inner.grower_cfg.partition_impl} "
-             f"took the {'graph' if graph else 'eager'} loop")
-    # steps that ran the split step's kernels: every step of the graph
-    # loop; a step of the eager scatter/sort loop that found the tree
+    # the graph loop: the serial grower's with compact, the data-parallel
+    # learner's with the shard-local kernel and every slot on one card
+    holders = len(bst.inner._gspmd.held) if shards else 0
+    can_graph = (compact if not shards else
+                 bst.inner.gspmd_hist == "fused" and holders == 1)
+    if graph != can_graph:
+        fail(f"{name}: took the {'graph' if graph else 'eager'} loop")
+    # steps that ran the split step's kernels: every step of the device
+    # loops; a step of the eager scatter/sort loop that found the tree
     # stopped returns before its first kernel
-    steps = (stats["steps"] if compact else splits) if not shards else splits
-    if not shards and not splits <= stats["steps"] <= splits + 32 * trees:
+    steps = stats["steps"] if compact or shards else splits
+    if (compact or shards) and not (splits <= stats["steps"]
+                                    <= splits + 32 * trees):
         fail(f"{name}: {stats['steps']} steps for {splits} splits in "
              f"{trees} trees")
     categorical = bool(ds.constructed.feature_meta()["is_categorical"].any())
     want = {"hist_window": 0 if shards else trees + steps,
-            "hist_local": (shards * (trees + splits)
+            "hist_local": (shards * (trees + steps)
                            if bst.inner.gspmd_hist == "fused" else 0),
             "partition_window": steps if compact and not shards else 0,
             "route_window": 0 if shards else steps,
+            "route_rows": holders * steps,
             "cat_group_accept": trees + steps if categorical else 0}
     if launches != want or sum(launches.values()) == 0:
         fail(f"{name}: kernel launches {launches} (counted {raw}), "
@@ -1481,8 +1709,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     # device time of the kernels over one more tree (profiling two made
     # the script take more than half its time limit)
     prof_bst = train(params, ds, num_boost_round=1, verbose_eval=False)
-    per_step = (prof_bst.inner._windows.graph_launches
-                if prof_bst.inner._windows is not None else {})
+    per_step = loop_state(prof_bst.inner).graph_launches
     res, snap, st0, missed = profile_checked(
         name, fns, prof_bst.update, lambda: prof_bst.inner.stats, per_step,
         dev_names)
@@ -1494,6 +1721,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     tree_kernels = dict(
         partition_calls_per_tree=tree_launches["partition_window"],
         route_launches_per_tree=tree_launches["route_window"],
+        route_rows_launches_per_tree=tree_launches["route_rows"],
         cat_group_launches_per_tree=tree_launches["cat_group_accept"],
         host_syncs_in_profiled_tree=st1["host_syncs"] - st0["host_syncs"],
         **{f"{k}_ran_in_profiled_tree": v for k, v in ran.items()},
@@ -1519,6 +1747,10 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
                      - st0.get("partition_positions", 0))
         bound = part_bound_bytes(positions, widths) / H100_BYTES_PER_S
         tree_kernels["partition_bound_ms_per_tree"] = f"{bound * 1e3:.4f}"
+    if shards and tree_launches["hist_local"]:
+        # which kernel of each device-regime call did the work
+        tree_kernels.update(k3_work(prof_bst.inner._gspmd,
+                                    st1["steps"] - st0["steps"]))
     phase(f"{name}_host_ops", profiled_s=f"{wall:.3f}", **{
         key.replace(" ", "_"): f"{ms:.1f}ms/tree,{count}calls/tree"
         for ms, key, count in host})
@@ -1635,12 +1867,17 @@ def grower_card_vs_cpu(params, x, y):
              f"{bad or 'row_leaf'}")
 
 
-def gspmd_trees_identical(ds, y):
+def gspmd_trees_identical(ds, y, graph: bool = True):
     """Phase 6c: one tree of the Higgs path under integer-valued gradients
     and hessians, whose sums are exact in any order, grown on the 4x1, 2x2
     and 1x3 meshes (1x3: uneven slices of 10, 9 and 9 columns) with the
-    shard-local kernel and by the serial grower with the gather kernel:
-    identical field by field, row -> leaf maps too."""
+    shard-local kernel, by the data-parallel eager loop and (``graph``)
+    its graph loop, and by the serial grower with the gather kernel:
+    identical field by field, row -> leaf maps too.  The graph loop's
+    three trees after its capture run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so any read to the host
+    but the counted stop reads raises, and are timed beside two eager
+    trees (in turns: eager, graph x 3, eager)."""
     import torch
     from lightgbm_tpu_torch.grower import FeatureMeta, GrowerConfig, grow_tree
     from lightgbm_tpu_torch.parallel.gspmd import GspmdGrower
@@ -1669,21 +1906,62 @@ def gspmd_trees_identical(ds, y):
 
     want = host(*grow_tree(ds.bins, g, h, c, meta, fv, cfg))
     slots = mesh_slots(MESH_SLOTS, dev)
+    max_reads = -(-(cfg.num_leaves - 1) // 32) + 1
     for shape in ((4, 1), (2, 2), (1, 3)):
         mesh = make_named_mesh(*shape, slots)
-        grower = GspmdGrower(cfg, mesh, ds.bins)
-        got = host(*grower(g, h, c, meta, fv))
-        bad = [k for k in want[0] if not np.array_equal(want[0][k],
-                                                        got[0][k])]
-        same = not bad and want[2] == got[2] and np.array_equal(want[1],
-                                                                got[1])
-        phase("gspmd_tree_vs_serial", mesh=f"{shape[0]}x{shape[1]}", rows=n,
-              slice_cols=":".join(str(len(c)) for c in grower.cols),
-              cards=len(set(sum(mesh.devices, []))), leaves=got[2],
-              identical=same)
-        if not same:
-            fail(f"integer-gradient tree on the {shape} mesh != serial in "
-                 f"{bad or 'num_leaves/row_leaf'}")
+        growers = {loop: GspmdGrower(cfg, mesh, ds.bins)
+                   for loop in (("eager", "graph") if graph else ("eager",))}
+        stats = {loop: {} for loop in growers}
+        ms = {loop: [] for loop in growers}
+        got = []
+
+        def grow(loop, sync_check=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if sync_check:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = growers[loop](g, h, c, meta, fv, stats[loop], loop)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms[loop].append((time.perf_counter() - t0) * 1e3)
+            got.append((loop, host(*res)))
+
+        turns = ["eager"] + (["graph"] * 4 if graph else []) + ["eager"]
+        for k, loop in enumerate(turns):
+            # the graph loop's first tree captures the step
+            grow(loop, sync_check=loop == "graph" and turns[k - 1] == loop)
+        bad = [(loop, k) for loop, other in got for k in want[0]
+               if not np.array_equal(want[0][k], other[0][k])]
+        bad += [(loop, "num_leaves/row_leaf") for loop, other in got
+                if want[2] != other[2] or not np.array_equal(want[1],
+                                                             other[1])]
+        out = dict(mesh=f"{shape[0]}x{shape[1]}", rows=n,
+                   slice_cols=":".join(str(len(col)) for col in
+                                       growers["eager"].cols),
+                   cards=len(set(sum(mesh.devices, []))), leaves=want[2],
+                   identical=not bad, trees=",".join(l for l, _ in got))
+        for loop in growers:
+            trees = len(ms[loop])
+            out[f"{loop}_host_reads_per_tree"] = (
+                f"{stats[loop]['host_syncs'] / trees:.3f}")
+            out[f"{loop}_ms_per_tree"] = ",".join(
+                f"{v:.2f}" for v in ms[loop][1 if loop == "graph" else 0:])
+        if graph:
+            out["sync_checked_replay_trees"] = 3
+            out["graph_replays"] = stats["graph"]["graph_replays"]
+        phase("gspmd_tree_vs_serial", **out)
+        if bad:
+            fail(f"integer-gradient tree on the {shape} mesh != serial: "
+                 f"{bad[:5]}")
+        for loop in growers:
+            if stats[loop]["host_syncs"] > max_reads * len(ms[loop]):
+                fail(f"{shape} {loop} loop: {stats[loop]['host_syncs']} "
+                     f"host reads in {len(ms[loop])} trees")
+        if graph and growers["graph"].graph is None:
+            fail(f"{shape}: the graph loop captured no step")
+        del growers
 
 
 def flat_vs_fused(params, x, y, x_te):
@@ -1708,9 +1986,11 @@ def flat_vs_fused(params, x, y, x_te):
 
 def multi_card(params) -> None:
     """``--multi-card``: the data-parallel learner with its four mesh slots
-    on four cards (slot s on card s) instead of one: phase 6c's
-    integer-gradient trees against the serial tree, and the 4x1 path for
-    3 rounds with its launch count.  Needs four cards."""
+    on four cards (slot s on card s) instead of one, so its split step
+    runs eagerly, the split row copied to each card and the partials to
+    the first: phase 6c's integer-gradient trees against the serial tree,
+    and the 4x1 path for 3 rounds with its launch count.  Needs four
+    cards."""
     import torch
     if torch.cuda.device_count() < MESH_SLOTS:
         fail(f"--multi-card needs {MESH_SLOTS} cards; "
@@ -1721,11 +2001,12 @@ def multi_card(params) -> None:
     x_te, y_te = x_all[N_ROWS:], y_all[N_ROWS:]
     from lightgbm_tpu_torch import Dataset
     ds = Dataset(x_tr, y_tr, params=params).construct()
-    gspmd_trees_identical(ds, y_tr)
+    # slots on several cards take the eager loop
+    gspmd_trees_identical(ds, y_tr, graph=False)
     dp, bst, _ = train_path(
         "dp_4x1_four_cards", dict(params, tree_learner="data",
                                   mesh_devices=MESH_SLOTS, mesh_shape="4x1"),
-        x_tr, y_tr, x_te, y_te, 3, ("hist_local",))
+        x_tr, y_tr, x_te, y_te, 3, ("hist_local", "lgbt_route_rows"))
     cards = {d.index for d in sum(bst.inner.mesh.devices, [])}
     if len(cards) != MESH_SLOTS:
         fail(f"the 4x1 mesh sits on cards {sorted(cards)}, not on four")
@@ -1804,13 +2085,17 @@ def main() -> None:
     empty_launch_cost(dev, rng)
     torch.cuda.empty_cache()
 
+    # ---- phase 2g: data-parallel route kernel vs plain on the card --------
+    rows_timing = check_route_rows(dev, rng)
+    torch.cuda.empty_cache()
+
     # ---- phase 3: the Higgs path at full width ----------------------------
     rng = np.random.default_rng(SEED + 1)
     x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
     x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
     x_te, y_te = x_all[N_ROWS:], y_all[N_ROWS:]
     names = ("hist_gather", "hist_local", "lgbt_partition", "lgbt_cat_group",
-             "lgbt_route")
+             "lgbt_route_kernel", "lgbt_route_rows")
     # scatter: the eager loop, one host read a split
     higgs, _, higgs_ds = train_path(
         "higgs", dict(params, partition_impl="scatter"), x_tr, y_tr, x_te,
@@ -1840,7 +2125,8 @@ def main() -> None:
     # ---- phases 6, 6b: the data-parallel learner at full width ------------
     # four mesh slots on the one card: four row shards (4x1), or two row
     # shards of two 14-column slices (2x2); gspmd_hist is left at auto,
-    # which on a card is the shard-local kernel
+    # which on a card is the shard-local kernel, and the split loop at
+    # auto, which with every slot on one card is the graph loop
     dp_params = dict(params, tree_learner="data", mesh_devices=MESH_SLOTS)
     dp, _, _ = train_path("dp_4x1", dict(dp_params, mesh_shape="4x1"),
                           x_tr, y_tr, x_te, y_te, 10, names)
@@ -1893,7 +2179,7 @@ def main() -> None:
           partition_launches=expo["partition_launches_per_tree"],
           cat_group_launches=expo["cat_group_launches_per_tree"],
           cat_group_device_ms=expo["lgbt_cat_group_device_ms_per_tree"],
-          route_device_ms=expo["lgbt_route_device_ms_per_tree"],
+          route_device_ms=expo["lgbt_route_kernel_device_ms_per_tree"],
           ms_per_tree=expo["ms_per_tree"],
           peak_mem_bytes=expo["peak_mem_bytes"])
     expo_launches = {k: expo[f"{k}_launches"] for k in (
@@ -1925,12 +2211,14 @@ def main() -> None:
           higgs_eager_ms_per_tree=higgs_loops["eager_ms_per_tree"],
           expo_graph_ms_per_tree=expo_loops["graph_ms_per_tree"],
           expo_eager_ms_per_tree=expo_loops["eager_ms_per_tree"],
-          higgs_ms_per_tree_dp_4x1=dp["ms_per_tree"])
+          higgs_ms_per_tree_dp_4x1=dp["ms_per_tree"],
+          higgs_ms_per_tree_dp_2x2=dp22["ms_per_tree"])
 
     root = timing[N_ROWS]
     proot = part_timing[N_EXPO]
     rroot = route_timing["expo_root"]
     lroot = local_timing[(N_ROWS // 4, "all")]
+    lsmall = local_timing[(N_ROWS // 4, "small")]
     print(json.dumps({"kernels": [{
         "name": "hist_gather", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/hist_gather.cu",
@@ -1947,8 +2235,11 @@ def main() -> None:
         "ms": lroot["ms"], "plain_ms": lroot["plain_ms"],
         "bound_ms": lroot["bound_ms"], "bound_by": "bytes",
         "library_ms": lroot["library_ms"],
-        **small_window_fields(lroot, local_timing[(N_ROWS // 4, "small")])
-    }, {
+        **small_window_fields(lroot, lsmall),
+        # the data-parallel split step's device regime, gated by the count
+        **{f"{k}{w}": d[k] for w, d in (("", lroot), ("_small", lsmall))
+           for k in ("device_regime_ms", "device_regime_ms_many",
+                     "device_regime_device_ms")}}, {
         "name": "partition", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",
         "replaces": "lightgbm_tpu/ops/pallas_compact.py:98",
@@ -1985,7 +2276,18 @@ def main() -> None:
         "replaced_ms": rroot["replaced_ms"],
         "replaced_device_ms": rroot["replaced_device_ms"],
         **{f"{k}_{w}": v for w in ("higgs_root", "higgs_4097")
-           for k, v in route_timing[w].items()}}]}),
+           for k, v in route_timing[w].items()}}, {
+        "name": "route_rows", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/route.cu",
+        "replaces": "lightgbm_tpu/parallel/gspmd.py:305",
+        "launches": dp["route_rows_launches"], "max_abs_err": 0.0,
+        "ms": rows_timing["root"]["ms"],
+        "plain_ms": rows_timing["root"]["plain_ms"],
+        "bound_ms": rows_timing["root"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "ms_many": rows_timing["root"]["ms_many"],
+        "device_ms": rows_timing["root"]["device_ms"],
+        **{f"{k}_leaf_1000": v
+           for k, v in rows_timing["leaf_1000"].items()}}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,13 +8,17 @@
 //                order[start + p]; (start, cnt) are read from device memory;
 //   MaskedRows - positions p of the row shard, a coalesced scan of
 //                row_leaf; p is a row of the leaf iff row_leaf[p] == leaf.
+//                Given the shard's per-leaf row counts in device memory
+//                (leaf_rows), the leaf's count is read there: the scan
+//                still covers every position, but the gate below compares
+//                the true count, and a leaf of no rows scans nothing.
 //
 // Two regimes, chosen on the host from a bound it already holds (the
 // launch plan, lightgbm_tpu_torch/ops/histogram.py:plan_launch), or on the
-// device from the true count (the "device" regime of the serial grower's
-// captured split step, plan_device: both kernels are launched, each over
-// the grid of the largest window it can take, and each returns at once
-// unless the count lies in its range):
+// device from the true count (the "device" regime of the growers' split
+// steps, plan_device and plan_device_local: both kernels are launched,
+// each over the grid of the largest count it can take, and each returns
+// at once unless the count lies in its range):
 //   small - no shared-memory histogram.  Each matching row reads its bins
 //           four columns at a time with one 32-bit load and adds its three
 //           weights straight into `out` with global reductions
@@ -103,8 +107,10 @@ struct GatherRows {
   __device__ void rebase(const void* p) {
     order = static_cast<const int32_t*>(p);
   }
-  __device__ long long begin() {  // number of positions; call once
+  // number of positions, and the count the gate compares; call once
+  __device__ long long begin(long long* count) {
     start = sc[0];
+    *count = sc[1];
     return sc[1];
   }
   __device__ bool row(long long p, long long* r) const {
@@ -116,15 +122,21 @@ struct GatherRows {
 struct MaskedRows {
   static constexpr bool kMasked = true;
   const int32_t* row_leaf;
-  const int32_t* leaf_id;  // in device memory
+  const int32_t* leaf_id;    // in device memory
+  const int32_t* leaf_rows;  // every leaf's rows in the shard, or null
   long long n_loc;
   int32_t leaf;
   __device__ void rebase(const void* p) {
     row_leaf = static_cast<const int32_t*>(p);
   }
-  __device__ long long begin() {
+  __device__ long long begin(long long* count) {
     leaf = *leaf_id;
-    return n_loc;
+    if (!leaf_rows) {  // the host's plan: the scan's positions
+      *count = n_loc;
+      return n_loc;
+    }
+    *count = leaf_rows[leaf];
+    return *count > 0 ? n_loc : 0;
   }
   __device__ bool row(long long p, long long* r) const {
     *r = p;
@@ -155,7 +167,8 @@ struct Weights {
 };
 
 // The set the selector picks, then the count of positions, or -1 when the
-// kernel's gate excludes it.  Call once, at the top of a kernel.
+// kernel's gate excludes the row source's count.  Call once, at the top of
+// a kernel.
 template <class Rows>
 __device__ __forceinline__ long long open_rows(Rows& rows, Weights& a) {
   if (a.sel && (*a.sel & 1)) {
@@ -165,8 +178,9 @@ __device__ __forceinline__ long long open_rows(Rows& rows, Weights& a) {
     a.hw = a.alt_hw;
     a.cw = a.alt_cw;
   }
-  const long long n = rows.begin();
-  return n < a.min_rows || n > a.max_rows ? -1 : n;
+  long long count;
+  const long long n = rows.begin(&count);
+  return count < a.min_rows || count > a.max_rows ? -1 : n;
 }
 
 // Positions per block when nb blocks cover n of them in contiguous slices,
@@ -284,8 +298,8 @@ __device__ void large_groups(Rows rows, Weights a, int group_w) {
 }
 
 // The argument block of both C entry points, packed by the Python wrapper
-// (ops/histogram.py:_ARGS, struct format "@13Pq10iP"): one ctypes argument
-// instead of twenty-five, each of which costs the host a conversion per
+// (ops/histogram.py:_ARGS, struct format "@14Pq10iP"): one ctypes argument
+// instead of twenty-six, each of which costs the host a conversion per
 // call.
 struct Args {
   const void* rows_a;  // order (hist_gather) or row_leaf (hist_local)
@@ -301,6 +315,8 @@ struct Args {
   const void* alt_gw;
   const void* alt_hw;
   const void* alt_cw;
+  const void* leaf_rows;  // hist_local: int32 per-leaf rows of the shard,
+                          // or null (the scan's gate takes n_loc)
   long long n_loc;     // local rows of the masked scan (hist_local)
   int n_feat;
   int num_bins;

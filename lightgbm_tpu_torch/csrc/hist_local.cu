@@ -12,8 +12,13 @@
 // that is a coalesced, masked scan of row_leaf in place of a gather.
 //
 // leaf_id is read from device memory, so the launch needs no host copy of
-// it.  The host passes a bound on the leaf's rows in the shard (the parent
-// leaf's count over all shards) from which its launch plan picks:
+// it.  Inside the data-parallel learner's split step the host knows no
+// count: the step keeps every leaf's rows in each shard in device memory
+// (leaf_rows), and the "device" regime launches both kernels below, each
+// gated by the leaf's true count there (the small one up to 65,536 rows,
+// the large one above; a leaf of no rows, as after the tree's stop, scans
+// nothing).  Otherwise the host passes a bound on the leaf's rows in the
+// shard, from which its launch plan picks:
 //   - the small regime at a bound of at most 65,536 rows: a thread per
 //     local row reads row_leaf, and the warp adds each matching row's
 //     columns with global reductions.  A block whose rows hold none of the
@@ -59,6 +64,7 @@ hist_local_large(hist::MaskedRows rows, hist::Weights a, int group_w) {
 extern "C" int lgbt_hist_local(const hist::Args* x) {
   if (x->n_loc < 0) return (int)cudaErrorInvalidValue;
   const hist::MaskedRows rows{(const int32_t*)x->rows_a,
-                              (const int32_t*)x->rows_b, x->n_loc, 0};
+                              (const int32_t*)x->rows_b,
+                              (const int32_t*)x->leaf_rows, x->n_loc, 0};
   return hist::launch(hist_local_small, hist_local_large, rows, *x);
 }

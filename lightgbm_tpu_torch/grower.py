@@ -47,9 +47,10 @@ know when the tree stopped:
   there the step makes one host read a split, which also carries the stop.
 
 All per-tree state (the histogram store, the split pool, the node records
-and the topology) is a :class:`LeafPool` of device tensors, which the
-data-parallel learner (``parallel/gspmd.py``) shares with its own host
-loop.
+and the topology) is a :class:`LeafPool` of device tensors.  The loop
+itself (the leaf choice and the stop flag, the capture, the replays and
+the counter reads) is a :class:`SplitLoop`, which the data-parallel
+learner (``parallel/gspmd.py``) shares with its own step.
 """
 from __future__ import annotations
 
@@ -65,7 +66,7 @@ from .ops.route import route_window
 from .ops.split import (SplitConfig, SplitResult, best_split,
                         cat_group_accept, leaf_output, make_fused_ctx)
 
-# steps the graph loop replays between two reads of the stop flag: at most
+# steps the split loop takes between two reads of the stop flag: at most
 # ceil((L - 1) / 32) reads a tree, 8 at 255 leaves
 STOP_CHECK_STEPS = 32
 
@@ -198,8 +199,7 @@ class LeafPool:
     :meth:`children` turns the smaller child's histogram into both
     children's (the larger is the parent minus it,
     serial_tree_learner.cpp:482-488) and scans them for their best splits
-    in one batched scan; :meth:`next_leaf` is the data-parallel grower's
-    one host read a split."""
+    in one batched scan."""
 
     def __init__(self, cfg: GrowerConfig, n_feat: int, device,
                  dtype: torch.dtype = torch.float32):
@@ -261,16 +261,6 @@ class LeafPool:
             self.scat[:1], self.scatb[:1] = res.is_cat, res.cat_bins
         self.leaf_f[0, 1] = root_c
         self.leaf_parent.fill_(-1)
-
-    def next_leaf(self, extra: Optional[torch.Tensor] = None):
-        """The data-parallel grower's one host read a split: the leaf with
-        the largest gain, the ``extra`` row of that leaf (its row count),
-        and whether its gain is above 0."""
-        l_t = torch.argmax(self.sgain[:self.cfg.num_leaves]).view(1)
-        parts = [l_t] + ([extra.index_select(0, l_t)[0]]
-                         if extra is not None else [])
-        return torch.cat(parts + [(self.sgain.index_select(0, l_t) > 0)
-                                  .long()]).tolist()
 
     def split_args(self, l: torch.Tensor):
         """The pooled split of leaf ``l``: its int and float rows, and
@@ -372,13 +362,140 @@ class LeafPool:
             cat_bins=self.node_catb[:L - 1].clone())
 
 
-def _launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count that the split step reaches."""
-    return {f.__name__: f.launches for f in (
-        hist_window, partition_window, route_window, cat_group_accept)}
+class SplitLoop:
+    """What both growers' split loops share: the step counter and the
+    ``active`` flag in device memory (``counters[0]`` and ``[1]``, after
+    which a grower may keep its own), the choice of the leaf that splits
+    (:meth:`pick`), and the driver: the step taken eagerly or captured
+    once as a CUDA graph and replayed, the counters read back every
+    ``STOP_CHECK_STEPS`` steps (:meth:`run_steps`).  A subclass supplies
+    :meth:`step` and ``wrappers``, the kernel wrappers its step reaches."""
+
+    wrappers: tuple = ()
+
+    def __init__(self, cfg: GrowerConfig, device: torch.device,
+                 n_counters: int):
+        cuda = device.type == "cuda"
+        self.cfg, self.device = cfg, device
+        self.counters = torch.zeros(n_counters, dtype=torch.int64,
+                                    device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        # each wrapper's count at the capture, which launches nothing: the
+        # captured step's launches, which every replay makes
+        self.graph_launches: Dict[str, int] = {}
+        self.replays = 0
+        self.host = (torch.empty(n_counters, dtype=torch.int64,
+                                 pin_memory=True) if cuda else None)
+        self.event = torch.cuda.Event() if cuda else None
+
+    def choose_loop(self, loop: Optional[str], can_graph: bool,
+                    why: str) -> str:
+        """The loop a tree takes: ``graph`` where ``can_graph`` (``why``
+        says where that is) or ``eager``; None takes the graph where it
+        can, and ``graph`` where it cannot raises."""
+        if loop is None:
+            return "graph" if can_graph else "eager"
+        if loop not in ("graph", "eager") or (loop == "graph"
+                                              and not can_graph):
+            raise ValueError(f"loop={loop!r}; the graph loop runs {why}, "
+                             f"the eager loop everywhere")
+        return loop
+
+    def start_counters(self) -> None:
+        """A tree's counters: no split made, ``active`` up.  ``fill_``,
+        not item assignment: assigning a Python number copies it from the
+        host."""
+        self.counters.zero_()
+        self.counters[1].fill_(1)
+
+    def pick(self, pool: LeafPool):
+        """The step's leaf choice, from device memory: the leaf with the
+        largest gain splits while ``active`` holds; the step that finds no
+        gain above 0, or ``L - 1`` splits made, lowers ``active``, and from
+        then on the leaf is the sink ``L``, the new leaf ``L`` and the node
+        ``L - 1``.  Returns ``(act, leaf, new, node)``, each ``[1]`` on the
+        device; ``act`` is what :meth:`end_step` adds to the splits."""
+        L = self.cfg.num_leaves
+        i = self.counters[0:1]
+        best = torch.argmax(pool.sgain[:L]).view(1)
+        act = ((self.counters[1:2] > 0)
+               & (pool.sgain.index_select(0, best) > 0) & (i < L - 1))
+        self.counters[1:2] = act
+        return (act, torch.where(act, best, L), torch.where(act, i + 1, L),
+                torch.where(act, i, L - 1))
+
+    def end_step(self, act: torch.Tensor) -> None:
+        self.counters[0:1] += act
+
+    def step(self) -> bool:
+        raise NotImplementedError
+
+    def launch_counts(self) -> Dict[str, int]:
+        """Every kernel wrapper's launch count that the step reaches."""
+        return {f.__name__: f.launches for f in self.wrappers}
+
+    def capture(self) -> None:
+        """The graph loop's first step: the step eagerly on a side stream
+        (the warm-up that capture asks for, which builds and sets up every
+        kernel, and a real step of the tree), then the step captured once.
+        A capture launches nothing, though each wrapper counts it:
+        ``graph_launches`` keeps those counts, the launches of every
+        replay."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.step()
+        cur.wait_stream(side)
+        before = self.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.step()
+        self.graph_launches = {k: v - before[k]
+                               for k, v in self.launch_counts().items()}
+        self.graph = graph
+
+    def replay(self) -> None:
+        """One step of the graph loop."""
+        if self.graph is None:
+            self.capture()
+            return
+        self.graph.replay()
+        self.replays += 1
+
+    def read_counters(self):
+        """The loop's read of the counters. On a card through pinned
+        memory and an event: the one wait on the device, which
+        ``torch.cuda.set_sync_debug_mode`` does not flag, so a run under
+        ``"error"`` finds any other read."""
+        if self.host is None:
+            return self.counters.tolist()
+        self.host.copy_(self.counters, non_blocking=True)
+        self.event.record()
+        self.event.synchronize()
+        return self.host.tolist()
+
+    def run_steps(self, loop: str):
+        """Take a tree's steps, ``STOP_CHECK_STEPS`` between two reads of
+        the counters, until ``active`` is down or ``L - 1`` steps are
+        taken; returns (the last counters read, steps taken, host
+        reads)."""
+        L = self.cfg.num_leaves
+        step = self.replay if loop == "graph" else self.step
+        done = reads = 0
+        while done < L - 1:
+            k = min(STOP_CHECK_STEPS, L - 1 - done)
+            for _ in range(k):
+                step()
+            done += k
+            counters = self.read_counters()
+            reads += 1
+            if not counters[1]:
+                break
+        return counters, done, reads
 
 
-class WindowBuffers:
+class WindowBuffers(SplitLoop):
     """The serial grower's device state that lives across trees, allocated
     once per training for ``rows`` x ``n_feat`` bins, ``cfg`` and
     ``device``:
@@ -398,12 +515,17 @@ class WindowBuffers:
 
     :meth:`start` starts a tree and :meth:`run` takes its steps."""
 
+    wrappers = (hist_window, partition_window, route_window,
+                cat_group_accept)
+
     def __init__(self, rows: int, n_feat: int, cfg: GrowerConfig, device):
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         cuda = dev.type == "cuda"
-        self.cfg, self.rows, self.n_feat, self.device = cfg, rows, n_feat, dev
+        # counters: splits made, the active flag, positions partitioned
+        super().__init__(cfg, dev, 3)
+        self.rows, self.n_feat = rows, n_feat
         self.ordered = cfg.ordered_bins == "on"
         # the PyTorch partitions slice the window on the host
         self.read_window = cfg.partition_impl in ("scatter", "sort")
@@ -424,7 +546,6 @@ class WindowBuffers:
         L = cfg.num_leaves
         self.goes_left = torch.zeros(rows, dtype=torch.bool, device=dev)
         self.lsc = torch.zeros((L + 1, 2), dtype=torch.int64, device=dev)
-        self.counters = torch.zeros(3, dtype=torch.int64, device=dev)
         self.sc_root = torch.tensor([0, rows], dtype=torch.int32, device=dev)
         self.pool = LeafPool(cfg, n_feat, dev)
         self.weights = None if self.ordered else tuple(
@@ -435,14 +556,6 @@ class WindowBuffers:
                           if cuda else None)
         self.bins = self.meta = self.bound = None
         self.route_bins = self.route_order = None
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        # each wrapper's count at the capture, which launches nothing: the
-        # captured step's launches, which every replay makes
-        self.graph_launches: Dict[str, int] = {}
-        self.replays = 0
-        self.host = (torch.empty(3, dtype=torch.int64, pin_memory=True)
-                     if cuda else None)
-        self.event = torch.cuda.Event() if cuda else None
         self.reads = self.host_positions = 0
 
     def fits(self, rows: int, n_feat: int, cfg: GrowerConfig, device) -> bool:
@@ -455,15 +568,10 @@ class WindowBuffers:
         """The split loop a tree takes: ``graph`` (replay the captured
         step; a card with ``compact``) or ``eager``; None takes the graph
         where it can."""
-        can = self.device.type == "cuda" and self.cfg.partition_impl == \
-            "compact"
-        if loop is None:
-            return "graph" if can else "eager"
-        if loop not in ("graph", "eager") or (loop == "graph" and not can):
-            raise ValueError(f"grow_tree: loop={loop!r}; the graph loop "
-                             f"runs on a card with partition_impl=compact, "
-                             f"the eager loop everywhere")
-        return loop
+        return self.choose_loop(
+            loop, self.device.type == "cuda"
+            and self.cfg.partition_impl == "compact",
+            "on a card with partition_impl=compact")
 
     def start(self, bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               cw: torch.Tensor, meta: FeatureMeta,
@@ -493,8 +601,7 @@ class WindowBuffers:
         # from the host
         self.lsc.zero_()
         self.lsc[0, 1].fill_(self.rows)
-        self.counters.zero_()
-        self.counters[1].fill_(1)
+        self.start_counters()
         hist_root = hist_window(self.iota, self.sc_root, bins, gw, hw, cw,
                                 self.cfg.max_bin, rows_upper_bound=self.rows)
         self.pool.reset(meta, feat_valid, hist_root, gw.sum(), hw.sum(),
@@ -510,15 +617,8 @@ class WindowBuffers:
         window to the host (``scatter``, ``sort``) and finds the tree
         stopped; it then returns before changing anything else."""
         cfg, pool, meta = self.cfg, self.pool, self.meta
-        L, B = cfg.num_leaves, cfg.max_bin
-        i = self.counters[0:1]
-        best = torch.argmax(pool.sgain[:L]).view(1)
-        act = ((self.counters[1:2] > 0)
-               & (pool.sgain.index_select(0, best) > 0) & (i < L - 1))
-        self.counters[1:2] = act
-        l = torch.where(act, best, L)
-        new = torch.where(act, i + 1, L)
-        node = torch.where(act, i, L - 1)
+        B = cfg.max_bin
+        act, l, new, node = self.pick(pool)
         sc = self.lsc.index_select(0, l)[0] * act    # (start, cnt)
         odd = pool.leaf_depth.index_select(0, l) & 1  # its buffer
         bound = None
@@ -569,49 +669,8 @@ class WindowBuffers:
                 bound, plan, alt=(self.bufs[1][0], self.bins, *self.weights),
                 sel=kids)
         pool.children(l, new, frow, small_left, hist_small, child_depth)
-        self.counters[0:1] += act
+        self.end_step(act)
         return True
-
-    def capture(self) -> None:
-        """The graph loop's first step: the step eagerly on a side stream
-        (the warm-up that capture asks for, which builds and sets up every
-        kernel, and a real step of the tree), then the step captured once.
-        A capture launches nothing, though each wrapper counts it:
-        ``graph_launches`` keeps those counts, the launches of every
-        replay."""
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self.step()
-        cur.wait_stream(side)
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.step()
-        self.graph_launches = {k: v - before[k]
-                               for k, v in _launch_counts().items()}
-        self.graph = graph
-
-    def replay(self) -> None:
-        """One step of the graph loop."""
-        if self.graph is None:
-            self.capture()
-            return
-        self.graph.replay()
-        self.replays += 1
-
-    def read_counters(self):
-        """The loop's read of (splits, active, positions partitioned). On
-        a card through pinned memory and an event: the one wait on the
-        device, which ``torch.cuda.set_sync_debug_mode`` does not flag, so
-        a run under ``"error"`` finds any other read."""
-        if self.host is None:
-            return self.counters.tolist()
-        self.host.copy_(self.counters, non_blocking=True)
-        self.event.record()
-        self.event.synchronize()
-        return self.host.tolist()
 
     def run(self, loop: str):
         """Take the tree's steps; returns (splits, steps taken, host reads,
@@ -624,17 +683,7 @@ class WindowBuffers:
                 splits += 1
             return (splits, splits + (splits < L - 1), self.reads,
                     self.host_positions)
-        step = self.replay if loop == "graph" else self.step
-        done = reads = 0
-        while done < L - 1:
-            k = min(STOP_CHECK_STEPS, L - 1 - done)
-            for _ in range(k):
-                step()
-            done += k
-            splits, active, positions = self.read_counters()
-            reads += 1
-            if not active:
-                break
+        (splits, _, positions), done, reads = self.run_steps(loop)
         return splits, done, reads, positions
 
 

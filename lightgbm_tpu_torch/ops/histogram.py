@@ -19,11 +19,13 @@ Both CUDA kernels share one core (``csrc/hist_core.cuh``) with two
 regimes, which :func:`plan_launch` picks on the host from a bound on the
 rows that the caller already holds: a small window adds straight into the
 output with global reductions, a large one into shared-memory histograms
-of a few columns.  Inside the serial grower's captured split step the host
-holds no bound but the rows: :func:`plan_device` launches both kernels,
-each gated on the device by the window's true count, and ``alt``/``sel``
-let the kernel pick the window's buffer (one of two, by the leaf's depth
-parity) from device memory.  The wrappers zero the output inside the C
+of a few columns.  Inside the growers' split steps the host holds no
+bound but the rows: :func:`plan_device` (a window) and
+:func:`plan_device_local` (a shard's masked scan, whose count the
+data-parallel step keeps per leaf and shard in device memory) launch
+both kernels, each gated on the device by the true count, and
+``alt``/``sel`` let the window kernel pick the window's buffer (one of
+two, by the leaf's depth parity) from device memory.  The wrappers zero the output inside the C
 entry point (on the kernel's stream) and set up each ``ctypes`` entry point
 once.
 
@@ -174,8 +176,32 @@ def plan_device(bound: int, n_feat: int, num_bins: int, *,
                           split_rows=SMALL_MAX_WINDOW)
 
 
+def plan_device_local(n_loc: int, n_feat: int, num_bins: int, *,
+                      num_sms: int) -> LaunchPlan:
+    """The launch of ``hist_local`` over a shard of ``n_loc`` rows whose
+    leaf count only the device knows (``hist_local``'s ``leaf_rows``): the
+    small kernel's scan takes counts up to ``SMALL_MAX_ROWS_LOCAL``, the
+    large kernel, over the grid of a leaf of ``n_loc`` rows, the larger
+    ones.  Both scan every local row, so the host's bound is ``n_loc``."""
+    large = plan_launch(n_loc, n_feat, num_bins, n_loc, num_sms=num_sms,
+                        small_max_rows=-1)
+    small = plan_launch(min(n_loc, SMALL_MAX_ROWS_LOCAL), n_feat, num_bins,
+                        n_loc, num_sms=num_sms)
+    return large._replace(regime="device", small_grid_x=small.grid_x,
+                          split_rows=SMALL_MAX_ROWS_LOCAL)
+
+
+def device_kernel(plan: LaunchPlan, count: int) -> str:
+    """The kernel of a device-regime plan whose gate takes ``count`` rows:
+    ``small`` up to ``plan.split_rows``, ``large`` above."""
+    if plan.regime != "device":
+        raise ValueError(f"device_kernel: a {plan.regime} plan has no gate")
+    return "small" if count <= plan.split_rows else "large"
+
+
 # the wrappers' plans: a split's bound recurs across trees and shards
 _plan = functools.lru_cache(maxsize=4096)(plan_launch)
+_plan_local = functools.lru_cache(maxsize=64)(plan_device_local)
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,9 +213,9 @@ def sm_count(device: int) -> int:
 # ---- the CUDA kernels ----------------------------------------------------
 
 # the C entry points' one argument (csrc/hist_core.cuh: Args): 7 pointers,
-# the selector and the 5 of the second set, the local rows, 10 ints (sizes,
-# plan, card) and the stream, packed at once
-_ARGS = struct.Struct("@13Pq10iP")
+# the selector and the 5 of the second set, the per-leaf rows, the local
+# rows, 10 ints (sizes, plan, card) and the stream, packed at once
+_ARGS = struct.Struct("@14Pq10iP")
 _ARG_TYPES = (torch.int32, torch.int32, torch.uint8, torch.float32,
               torch.float32, torch.float32)
 _REGIMES = {"small": 0, "large": 1, "device": 2}
@@ -282,7 +308,7 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
                          [ctypes.c_char_p])(_ARGS.pack(
                              order.data_ptr(), sc.data_ptr(), bins.data_ptr(),
                              gw.data_ptr(), hw.data_ptr(), cw.data_ptr(),
-                             out.data_ptr(), *alt_ptrs, n, f, num_bins,
+                             out.data_ptr(), *alt_ptrs, 0, n, f, num_bins,
                              _REGIMES[plan.regime], *plan[1:5], dev,
                              *plan[5:], torch._C._cuda_getCurrentRawStream(
                                  dev)))
@@ -331,17 +357,23 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
                bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
                cw: torch.Tensor, num_bins: int,
                rows_upper_bound: Optional[int] = None,
-               plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+               plan: Optional[LaunchPlan] = None,
+               leaf_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[Fc, num_bins, 3]`` partial histogram of a shard's rows ``r``
     with ``row_leaf[r] == leaf_id``: row_leaf ``[n_loc]`` i32, leaf_id a
     device ``int32[1]`` (no host read), bins ``[n_loc, Fc]`` uint8 (the
     shard's column slice, any width), weights ``[n_loc]`` f32.
 
-    ``rows_upper_bound`` is a host-known bound on the leaf's rows in the
-    shard (the parent leaf's global count in the data-parallel grower) from
-    which :func:`plan_launch` picks the kernel's regime; ``plan`` replaces
-    that plan.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel, on their own card, or raise."""
+    ``leaf_rows`` (int32, one entry per leaf id) holds every leaf's rows
+    in the shard in device memory, as the data-parallel split step keeps
+    them; then :func:`plan_device_local` leaves the regime to the device,
+    which reads the leaf's count there.  Without it ``rows_upper_bound``
+    is a host-known bound on the leaf's rows in the shard (the rows when
+    not given) from which :func:`plan_launch` picks the kernel's regime.
+    ``plan`` replaces either plan; a device-regime plan needs
+    ``leaf_rows``.  CPU tensors take the plain version, which needs
+    neither; CUDA tensors launch the kernel, on their own card, or
+    raise."""
     if not bins.is_cuda:
         if bins.device.type == "cpu":
             return hist_local_plain(row_leaf, leaf_id, bins, gw, hw, cw,
@@ -354,13 +386,20 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
         raise ValueError("hist_local: row_leaf must have one entry per row "
                          "and leaf_id one element")
     dev = bins.get_device()
+    if leaf_rows is not None and (
+            leaf_rows.get_device() != dev or leaf_rows.dtype != torch.int32
+            or leaf_rows.dim() != 1 or not leaf_rows.is_contiguous()):
+        raise ValueError("hist_local: leaf_rows must be a contiguous int32 "
+                         "vector on the card of bins")
     if plan is None:
-        plan = _plan(n if rows_upper_bound is None
-                     else int(rows_upper_bound), f, num_bins, n,
-                     num_sms=sm_count(dev))
-    elif plan.regime == "device":
-        raise ValueError("hist_local: the device regime gates a window's "
-                         "count, not a shard's")
+        plan = (_plan_local(n, f, num_bins, num_sms=sm_count(dev))
+                if leaf_rows is not None else
+                _plan(n if rows_upper_bound is None
+                      else int(rows_upper_bound), f, num_bins, n,
+                      num_sms=sm_count(dev)))
+    elif plan.regime == "device" and leaf_rows is None:
+        raise ValueError("hist_local: the device regime gates the leaf's "
+                         "count in leaf_rows, which was not given")
     out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
     # the C side makes the tensors' card current only if it is not
@@ -368,7 +407,9 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
                          [ctypes.c_char_p])(_ARGS.pack(
                              row_leaf.data_ptr(), leaf_id.data_ptr(),
                              bins.data_ptr(), gw.data_ptr(), hw.data_ptr(),
-                             cw.data_ptr(), out.data_ptr(), *_NO_ALT, n, f,
+                             cw.data_ptr(), out.data_ptr(), *_NO_ALT,
+                             0 if leaf_rows is None else leaf_rows.data_ptr(),
+                             n, f,
                              num_bins, _REGIMES[plan.regime], *plan[1:5],
                              dev, *plan[5:],
                              torch._C._cuda_getCurrentRawStream(dev)))
@@ -383,4 +424,4 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
 # kernel launches, counted where the kernel is launched and nowhere else;
 # and the same launches by the regime their plan took
 hist_local.launches = 0
-hist_local.regime_launches = {"small": 0, "large": 0}
+hist_local.regime_launches = {"small": 0, "large": 0, "device": 0}

@@ -1,4 +1,4 @@
-"""Routing a split's window: which of its rows go left.
+"""Routing a split: which rows of the splitting leaf go left.
 
 :func:`route_goes_left` is the port of ``lightgbm_tpu/grower.py:372
 route_goes_left`` (tree.h:257-313), which the JAX package computes in XLA:
@@ -15,6 +15,17 @@ in which the host knows none of these.  On a CUDA tensor it launches the
 hand-written kernel ``csrc/route.cu``; on a CPU tensor it runs
 :func:`route_window_plain`, the plain PyTorch version (a slice of the
 window, a gather of the split column and :func:`route_goes_left`).
+
+:func:`route_rows` is the data-parallel learner's routing
+(``lightgbm_tpu/parallel/gspmd.py:305-320``): one update in place of a
+device's row -> leaf map over the row shards it holds, the rows of the
+leaf that go right moving to the new leaf, with the split read through
+the leaf from the pool and the column from column-major bins.  It also
+moves those rows' counts in a per-shard count of every leaf, which the
+shard-local histogram's device regime reads.  On a CUDA tensor it
+launches the second kernel of ``csrc/route.cu``; on a CPU tensor it runs
+:func:`route_rows_plain` (:func:`route_goes_left`, ``masked_fill_`` and a
+per-shard ``sum``).  Neither reads anything back to the host.
 """
 from __future__ import annotations
 
@@ -169,3 +180,114 @@ def route_window(sc: torch.Tensor, odd: torch.Tensor, leaf: torch.Tensor,
 
 # kernel launches, counted where the kernel is launched and nowhere else
 route_window.launches = 0
+
+
+def route_rows_plain(row_leaf: torch.Tensor, bins_t: torch.Tensor,
+                     leaf: torch.Tensor, new: torch.Tensor,
+                     split_i32: torch.Tensor,
+                     split_cat: Optional[torch.Tensor],
+                     split_catb: Optional[torch.Tensor], meta,
+                     counts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`route_rows`: the split column's
+    rows routed by :func:`route_goes_left`, the leaf's right rows set to
+    ``new`` with ``masked_fill_``, and their number in each shard moved
+    from the leaf's count to the new leaf's."""
+    split = split_i32.index_select(0, leaf)[0].long()
+    # the sink row of a step after the stop may hold no valid column; no
+    # row is in the sink leaf, so any column routes the same
+    feat = split[0:1].clamp(0, bins_t.shape[0] - 1)
+    goes_left = route_goes_left(
+        bins_t.index_select(0, feat)[0].long(), meta, feat, split[1:2],
+        split[2:3].bool(),
+        split_cat.index_select(0, leaf) if split_cat is not None else None,
+        split_catb.index_select(0, leaf)[0]
+        if split_catb is not None else None)
+    right = (row_leaf == leaf) & ~goes_left
+    row_leaf.masked_fill_(right, new.to(row_leaf.dtype).view(()))
+    moved = right.view(counts.shape[0], -1).sum(1, dtype=counts.dtype)
+    counts.index_add_(1, new, moved[:, None])
+    counts.index_add_(1, leaf, -moved[:, None])
+    return row_leaf
+
+
+# the C entry point's one argument (csrc/route.cu: RowsArgs): 11 pointers,
+# the shard's rows, 6 ints and the stream
+_ROWS_ARGS = struct.Struct("@11Pq6iP")
+
+
+def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
+               leaf: torch.Tensor, new: torch.Tensor,
+               split_i32: torch.Tensor, split_cat: Optional[torch.Tensor],
+               split_catb: Optional[torch.Tensor], meta,
+               counts: torch.Tensor) -> torch.Tensor:
+    """Route leaf ``leaf``'s rows of a device's row -> leaf map in place
+    and return it: ``row_leaf`` (int32 ``[S * n_loc]``, the ``S`` row
+    shards the device holds, in order) gets ``new`` at every row of the
+    leaf that goes right, and ``counts`` (int32 ``[S, leaves]``, every
+    leaf's rows in each shard) moves their number in each shard from
+    column ``leaf`` to column ``new``.
+
+    ``leaf`` and ``new`` are device ``int64[1]``; the split is row
+    ``leaf`` of the pool's ``split_i32`` (int32 ``[leaves, 3]``: feature,
+    threshold, default_left) and, when the data has categorical columns,
+    of ``split_cat`` (bool ``[leaves]``) and ``split_catb`` (bool
+    ``[leaves, B]``); ``bins_t`` is the column-major uint8 ``[F, S *
+    n_loc]`` copy of the device's rows; ``meta`` a ``grower.FeatureMeta``
+    of int32 tensors.  A leaf that holds no row (the sink after the tree's
+    stop) moves nothing.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel, on their own card, or raise."""
+    if not row_leaf.is_cuda:
+        if row_leaf.device.type == "cpu":
+            return route_rows_plain(row_leaf, bins_t, leaf, new, split_i32,
+                                    split_cat, split_catb, meta, counts)
+        raise ValueError(f"route_rows: unsupported device {row_leaf.device}")
+    dev = row_leaf.get_device()
+    n = row_leaf.numel()
+    shards = counts.shape[0] if counts.dim() == 2 else 0
+    tensors = [row_leaf, bins_t, leaf, new, split_i32, meta.num_bin,
+               meta.missing_type, meta.default_bin, counts,
+               *[t for t in (split_cat, split_catb) if t is not None]]
+    if (any(t.get_device() != dev or not t.is_contiguous() for t in tensors)
+            or row_leaf.dtype != torch.int32 or row_leaf.dim() != 1
+            or bins_t.dtype != torch.uint8 or bins_t.dim() != 2
+            or bins_t.shape[1] != n
+            or any(t.dtype != torch.int64 or t.numel() != 1
+                   for t in (leaf, new))
+            or split_i32.dtype != torch.int32 or split_i32.dim() != 2
+            or split_i32.shape[1] != 3
+            or any(m.dtype != torch.int32 for m in meta[:3])
+            or counts.dtype != torch.int32 or shards < 1 or n % shards
+            or counts.shape[1] != split_i32.shape[0]
+            or (split_cat is None) != (split_catb is None)
+            or (split_cat is not None and (
+                split_cat.dtype != torch.bool or split_catb.dtype != torch.bool
+                or split_catb.dim() != 2))):
+        raise ValueError("route_rows: contiguous tensors on one card: int32 "
+                         "row_leaf [S * n_loc], uint8 bins_t [F, S * n_loc], "
+                         "leaf and new int64[1], split_i32 int32 [leaves, "
+                         "3], int32 meta, int32 counts [S, leaves], and bool "
+                         "split_cat and split_catb together")
+    n_loc = n // shards
+    grid = max(1, min(-(-n_loc // THREADS),
+                      MAX_BLOCKS_PER_SM * sm_count(dev) // shards))
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    err = build.function("route", "lgbt_route_rows", [ctypes.c_char_p])(
+        _ROWS_ARGS.pack(row_leaf.data_ptr(), bins_t.data_ptr(),
+                        leaf.data_ptr(), new.data_ptr(),
+                        split_i32.data_ptr(), ptr(split_cat),
+                        ptr(split_catb), meta.num_bin.data_ptr(),
+                        meta.missing_type.data_ptr(),
+                        meta.default_bin.data_ptr(), counts.data_ptr(),
+                        n_loc, shards, bins_t.shape[0],
+                        0 if split_catb is None else split_catb.shape[1],
+                        counts.shape[1], grid, dev,
+                        torch._C._cuda_getCurrentRawStream(dev)))
+    if err != 0:
+        raise RuntimeError(f"route_rows kernel launch failed: CUDA error "
+                           f"{err}")
+    route_rows.launches += 1
+    return row_leaf
+
+
+# kernel launches, counted where the kernel is launched and nowhere else
+route_rows.launches = 0

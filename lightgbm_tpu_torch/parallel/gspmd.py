@@ -1,9 +1,8 @@
 """The data-parallel learner: tree growing over a (batch, feature) mesh.
 
-The port of ``lightgbm_tpu/parallel/gspmd.py:make_gspmd_grower`` as a host
-loop like the serial grower (``grower.py:grow_tree``).  The JAX package
-writes one program over global arrays and lets the XLA partitioner insert
-the collectives; here the loop itself walks the shards of a
+The port of ``lightgbm_tpu/parallel/gspmd.py:make_gspmd_grower``.  The JAX
+package writes one program over global arrays and lets the XLA partitioner
+insert the collectives; here the split step itself walks the shards of a
 :class:`~.mesh.Mesh`:
 
 * rows shard over ``batch``: batch shard ``i`` holds rows
@@ -14,41 +13,53 @@ the collectives; here the loop itself walks the shards of a
   counterpart of ``pack_island``, :186); the slices need not be equal;
 * the partition is the direct row -> leaf map, not an ``order`` window:
   each device keeps one ``row_leaf`` over the rows of the batch shards it
-  holds, and routing a split is one elementwise update of it (:302-320),
-  reading the split column from a column-major copy of those rows' bins;
+  holds, and routing a split is one kernel over it (:305-320,
+  ``ops/route.py:route_rows``), reading the split column from a
+  column-major copy of those rows' bins.  Routing also keeps, per device,
+  every leaf's rows in each batch shard it holds (``counts``, int32
+  ``[shards held, L + 1]``, padding rows included).  A shard that several
+  devices hold is routed and counted by each of them alike, and each
+  reads its own copy: no count is summed across devices;
 * the smaller child is measured on every ``(i, j)`` slot over its column
   slice (:204-240) by ``hist_local`` (the shard-local kernel, K3) with
-  ``hist="fused"``, or by the masked scatter-add ``hist_flat`` with
-  ``hist="flat"``.  The partials are summed over the batch shards in
-  shard order on the primary device, never with atomics across shards,
-  so the sum does not change from run to run; the column slices are
-  concatenated into the ``[F, B, 3]`` histogram.  The larger child is
-  the parent minus it;
+  ``hist="fused"``, which reads the child's count in the shard from
+  ``counts`` and picks its regime on the device, or by the masked
+  scatter-add ``hist_flat`` with ``hist="flat"``.  The partials are
+  summed over the batch shards in shard order on the primary device
+  (:233), never with atomics across shards, so the sum does not change
+  from run to run; the column slices are concatenated into the
+  ``[F, B, 3]`` histogram.  The larger child is the parent minus it;
 * split choice, depth gate, node records and the tree's unpacking are the
-  serial grower's (``grower.LeafPool``,
-  ``ops/route.py:route_goes_left``), so under integer-valued weights,
+  serial grower's (``grower.LeafPool``), so under integer-valued weights,
   whose sums are exact in any order, the trees are the serial grower's
   trees.
 
-Each split makes one host read (the chosen leaf, its row count over all
-shards and the stop test); the kernel takes the leaf id from device
-memory, and the count bounds the smaller child's rows in every shard,
-which picks the kernel's launch (``ops/histogram.py:plan_launch``).  The
-serial grower's loop runs on the device (``grower.WindowBuffers``); this
-learner keeps its host loop over the same device-side pool, allocated once
-per training and handed the chosen leaf as a device index.  A slot's
-``row_leaf`` and weights are views of its device's.
+The loop is the JAX package's ``lax.while_loop`` (:404, ``cond`` :284,
+``body`` :289) as the serial grower runs it (``grower.SplitLoop``): one
+split is one step over fixed-shape device tensors that reads the chosen
+leaf, the step counter and the ``active`` flag from device memory, and
+after the stop writes only to the pool's sink rows and moves no row.
+With every mesh slot on one card and ``hist="fused"`` the step is
+captured once per training as a CUDA graph and replayed; elsewhere (the
+CPU, ``hist="flat"``, slots on several cards) it runs eagerly, the split
+row copied to each card and the partials to the primary device to
+device.  Either way the host reads the counters once every
+``STOP_CHECK_STEPS`` steps and nothing else.  The learner's state lives
+across trees, allocated once per training.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..grower import FeatureMeta, GrowerConfig, LeafPool
-from ..ops.histogram import hist_flat, hist_local
-from ..ops.route import route_goes_left
+from ..grower import (FeatureMeta, GrowerConfig, LeafPool, SplitLoop,
+                      _tensor_key)
+from ..ops.histogram import hist_flat, hist_local, plan_device_local, sm_count
+from ..ops.route import route_rows
+from ..ops.split import cat_group_accept
 from .mesh import BATCH_AXIS, FEATURE_AXIS, Mesh
 
 
@@ -77,10 +88,16 @@ def _to(dev: torch.device, *ts):
     return [None if t is None else t.to(dev) for t in ts]
 
 
-class GspmdGrower:
+class GspmdGrower(SplitLoop):
     """Grows trees over ``mesh`` from the padded bin matrix ``bins``
     ``[n_pad, F]`` uint8, ``n_pad`` a multiple of the batch extent.  Call
-    it with the global padded weights on ``mesh.primary``."""
+    it with the global padded weights on ``mesh.primary``.  Made once per
+    training: it holds the learner's device state (each device's row ->
+    leaf map, per-shard leaf counts and weights, the :class:`LeafPool`,
+    the counters) and, once a tree has taken the graph loop, the captured
+    step."""
+
+    wrappers = (hist_local, route_rows, cat_group_accept)
 
     def __init__(self, cfg: GrowerConfig, mesh: Mesh, bins: torch.Tensor,
                  hist: str = "fused"):
@@ -91,30 +108,46 @@ class GspmdGrower:
         if n_pad % d:
             raise ValueError(f"{n_pad} rows do not split evenly over {d} "
                              f"batch shards")
-        self.cfg, self.mesh, self.hist = cfg, mesh, hist
-        self.n_loc = n_pad // d
+        # counters: splits made, the active flag
+        super().__init__(cfg, mesh.primary, 2)
+        self.mesh, self.hist = mesh, hist
+        self.n_loc = n_loc = n_pad // d
         self.cols = column_slices(f, fs)
+        L = cfg.num_leaves
         # the batch shards each device holds, in shard order; a device's
-        # row -> leaf map and routing cover all of them at once
+        # row -> leaf map, counts and routing cover all of them at once
         self.held = {dv: [i for i in range(d) if dv in mesh.devices[i]]
                      for dv in dict.fromkeys(sum(mesh.devices, []))}
-        # the positions, within a device's held shards, of those whose
-        # routed rows it counts: a batch shard over several devices (a
-        # feature extent above 1 over several cards) is counted once, on
-        # the first device of its mesh row
-        self.counted = {dv: [k for k, i in enumerate(held)
-                             if mesh.devices[i][0] == dv]
-                        for dv, held in self.held.items()}
         # column-major bins of each device's shards, for routing
         self.route_bins = {dv: self._rows(bins, dv).t().contiguous().to(dv)
                            for dv in self.held}
-        # each slot's shard cut to its column slice, for the histogram
-        self.slices = [[bins[i * self.n_loc:(i + 1) * self.n_loc,
+        self.row_leaf = {dv: torch.zeros(len(held) * n_loc,
+                                         dtype=torch.int32, device=dv)
+                         for dv, held in self.held.items()}
+        self.counts = {dv: torch.zeros((len(held), L + 1),
+                                       dtype=torch.int32, device=dv)
+                       for dv, held in self.held.items()}
+        # the weights the step reads, copied in per tree
+        self.weights = {dv: tuple(torch.empty(len(held) * n_loc,
+                                              dtype=torch.float32, device=dv)
+                                  for _ in range(3))
+                        for dv, held in self.held.items()}
+        # each slot's shard cut to its column slice, for the histogram,
+        # and the launch that leaves the regime to the device
+        self.slices = [[bins[i * n_loc:(i + 1) * n_loc,
                              c.start:c.stop].contiguous().to(
                                  mesh.devices[i][j])
                         for j, c in enumerate(self.cols)] for i in range(d)]
+        self.plans = [[plan_device_local(n_loc, len(c), cfg.max_bin,
+                                         num_sms=sm_count(dv.index))
+                       if dv.type == "cuda" and hist == "fused" else None
+                       for c, dv in zip(self.cols, mesh.devices[i])]
+                      for i in range(d)]
+        self.root_id = torch.zeros(1, dtype=torch.int32, device=self.device)
         # the histogram store, split pool and records, reset per tree
-        self.pool = LeafPool(cfg, f, mesh.primary)
+        self.pool = LeafPool(cfg, f, self.device)
+        self.metas: Optional[Dict[torch.device, FeatureMeta]] = None
+        self.bound = None
 
     def _rows(self, t: torch.Tensor, dv: torch.device) -> torch.Tensor:
         """The rows of ``t`` (global order) that ``dv``'s shards hold."""
@@ -128,120 +161,117 @@ class GspmdGrower:
         k = self.held[dv].index(i) * self.n_loc
         return t[k:k + self.n_loc]
 
-    def _count(self, mask: torch.Tensor, dv: torch.device):
-        """The set rows of ``mask`` (over ``dv``'s held shards) in the
-        shards that ``dv`` counts; None when it counts none."""
-        ks, n = self.counted[dv], self.n_loc
-        if len(ks) == len(self.held[dv]):
-            return mask.sum()
-        if not ks:
-            return None
-        return sum(mask[k * n:(k + 1) * n].sum() for k in ks)
-
-    def _measure(self, row_leaf, leaf_id: torch.Tensor, w,
-                 bound: int) -> torch.Tensor:
+    def _measure(self, leaf_id: torch.Tensor) -> torch.Tensor:
         """The leaf's ``[F, B, 3]`` histogram on the primary device:
         per-slot partials, summed over the batch shards in shard order,
-        column slices concatenated.  ``bound`` bounds the leaf's rows in
-        every shard and sizes the kernel's launch."""
+        column slices concatenated.  ``leaf_id`` is an int32[1] on the
+        primary device."""
         B = self.cfg.max_bin
-        primary = self.mesh.primary
         leaf_on = {dv: leaf_id.to(dv) for dv in self.held}
+        w = self.weights
         if self.hist == "flat":     # weights masked to the leaf
             w = {dv: [x * m for x in w[dv]] for dv, m in (
-                (dv, (row_leaf[dv] == leaf_on[dv]).to(w[dv][0].dtype))
+                (dv, (self.row_leaf[dv] == leaf_on[dv]).to(torch.float32))
                 for dv in self.held)}
         cols = []
         for j in range(len(self.cols)):
             acc = None
-            for i in range(len(self.slices)):
-                dv = self.mesh.devices[i][j]
+            for i, devs in enumerate(self.mesh.devices):
+                dv = devs[j]
                 gw, hw, cw = (self._shard(x, i, dv) for x in w[dv])
                 if self.hist == "fused":
-                    part = hist_local(self._shard(row_leaf[dv], i, dv),
-                                      leaf_on[dv], self.slices[i][j], gw, hw,
-                                      cw, B, rows_upper_bound=bound)
+                    part = hist_local(
+                        self._shard(self.row_leaf[dv], i, dv), leaf_on[dv],
+                        self.slices[i][j], gw, hw, cw, B,
+                        plan=self.plans[i][j],
+                        leaf_rows=self.counts[dv][self.held[dv].index(i)])
                 else:
                     part = hist_flat(self.slices[i][j], gw, hw, cw, B)
-                part = part.to(primary)
+                part = part.to(self.device)
                 acc = part if acc is None else acc + part
             cols.append(acc)
         return cols[0] if len(cols) == 1 else torch.cat(cols)
 
+    def start(self, gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
+              meta: FeatureMeta, feat_valid: torch.Tensor) -> None:
+        """Start a tree: the weights copied where the step reads them,
+        every row in leaf 0 and every shard's count there, the counters
+        cleared, and the pool reset with the root's histogram."""
+        key = _tensor_key(*meta, feat_valid)
+        if self.graph is not None and key != self.bound:
+            raise ValueError("GspmdGrower: the split step was captured on "
+                             "other metadata or feature mask")
+        if key != self.bound:
+            self.metas = {dv: FeatureMeta(*_to(dv, *meta))
+                          for dv in self.held}
+            self.bound = key
+        for dv in self.held:
+            for dst, src in zip(self.weights[dv], (gw, hw, cw)):
+                dst.copy_(self._rows(src, dv))
+            self.row_leaf[dv].zero_()
+            self.counts[dv].zero_()
+            self.counts[dv][:, 0].fill_(self.n_loc)
+        self.start_counters()
+        self.pool.reset(meta, feat_valid, self._measure(self.root_id),
+                        gw.sum(), hw.sum(), cw.sum())
+
+    def step(self) -> bool:
+        """One split: the body of ``make_gspmd_grower``'s loop (:289) over
+        fixed-shape device tensors, with no host read.  The chosen leaf's
+        rows are routed on each device by its pooled split, the node is
+        recorded, and the smaller child is measured on every slot, its
+        count in each shard read by the kernel from ``counts``."""
+        pool = self.pool
+        act, l, new, node = self.pick(pool)
+        irow, frow, route = pool.split_args(l)
+        for dv, rl in self.row_leaf.items():
+            route_rows(rl, self.route_bins[dv],
+                       *_to(dv, l, new, pool.si32, pool.scat, pool.scatb),
+                       self.metas[dv], self.counts[dv])
+        child_depth = pool.record(l, new, node, irow, frow, route[3],
+                                  route[4])
+        small_left = frow[2] <= frow[5]
+        small_id = torch.where(small_left, l, new).int()
+        pool.children(l, new, frow, small_left, self._measure(small_id),
+                      child_depth)
+        self.end_step(act)
+        return True
+
+    def loop(self, loop: Optional[str]) -> str:
+        """The split loop a tree takes: ``graph`` (every mesh slot on one
+        card, ``hist="fused"``) or ``eager``; None takes the graph where
+        it can."""
+        return self.choose_loop(
+            loop, self.device.type == "cuda" and len(self.held) == 1
+            and self.hist == "fused",
+            "with every mesh slot on one card and gspmd_hist=fused")
+
     def __call__(self, gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
                  meta: FeatureMeta, feat_valid: torch.Tensor,
-                 stats: Optional[Dict[str, int]] = None):
+                 stats: Optional[Dict[str, int]] = None,
+                 loop: Optional[str] = None):
         """Grow one tree from the global padded weights ``[n_pad]`` f32 on
         the primary device.  Returns ``(TreeArrays, row_leaf [n_pad] i32)``
-        on the primary device; ``stats`` counts ``host_syncs`` and
-        ``splits``."""
-        cfg = self.cfg
+        on the primary device.  ``loop`` is ``"graph"``, ``"eager"`` or
+        None (:meth:`loop`); both grow the same tree.  ``stats`` counts
+        ``host_syncs`` (reads of device state back to the host),
+        ``splits``, ``steps`` (those after the stop included) and
+        ``graph_replays``."""
         stats = stats if stats is not None else {}
-        stats.setdefault("host_syncs", 0)
-        stats.setdefault("splits", 0)
-        # each device's weights and row -> leaf map over its shards' rows
-        # (views of the inputs where the rows are contiguous and local)
-        w = {dv: _to(dv, *(self._rows(x, dv) for x in (gw, hw, cw)))
-             for dv in self.held}
-        row_leaf = {dv: torch.zeros(len(held) * self.n_loc,
-                                    dtype=torch.int32, device=dv)
-                    for dv, held in self.held.items()}
-        metas = {dv: FeatureMeta(*_to(dv, *meta)) for dv in self.held}
-        primary = self.mesh.primary
-        zero = torch.zeros(1, dtype=torch.int32, device=primary)
-        n_pad = len(self.slices) * self.n_loc
-        pool = self.pool
-        pool.reset(meta, feat_valid, self._measure(row_leaf, zero, w, n_pad),
-                   gw.sum(), hw.sum(), cw.sum())
-        # every leaf's rows over all shards, padding rows included: the
-        # chosen leaf's count comes back with the split's one host read and
-        # bounds its children's rows in any shard
-        leaf_rows = torch.zeros((cfg.num_leaves, 1), dtype=torch.int64,
-                                device=primary)
-        leaf_rows[0] = n_pad
-
-        step = 0
-        for i in range(cfg.num_leaves - 1):
-            l, cnt, positive = pool.next_leaf(leaf_rows)
-            stats["host_syncs"] += 1
-            if not positive:
-                break
-            new, node = i + 1, i
-            # the pool's indices on the device, filled without a copy
-            l_t, new_t, node_t = (torch.full((1,), v, dtype=torch.int64,
-                                             device=primary)
-                                  for v in (l, new, node))
-            irow, frow, route = pool.split_args(l_t)
-
-            # --- routing: one elementwise update of each device's map ----
-            moved = None
-            for dv, binsT in self.route_bins.items():
-                feat, thr, dleft, is_cat_l, cat_row = _to(dv, *route)
-                goes_left = route_goes_left(
-                    binsT.index_select(0, feat)[0].long(), metas[dv], feat,
-                    thr, dleft, is_cat_l, cat_row)
-                rl = row_leaf[dv]           # updated in place
-                right = (rl == l) & ~goes_left
-                rl.masked_fill_(right, new)
-                n_right = self._count(right, dv)
-                if n_right is not None:
-                    n_right = n_right.to(primary)
-                    moved = n_right if moved is None else moved + n_right
-            leaf_rows[new] = moved
-            leaf_rows[l] -= moved
-            child_depth = pool.record(l_t, new_t, node_t, irow, frow,
-                                      route[3], route[4])
-
-            # --- smaller-child histogram; the pool derives the larger ----
-            small_left = frow[2] <= frow[5]
-            small_id = torch.where(small_left, l, new).int().view(1)
-            pool.children(l_t, new_t, frow, small_left,
-                          self._measure(row_leaf, small_id, w, cnt),
-                          child_depth)
-            step += 1
-        stats["splits"] += step
-
+        for k in ("host_syncs", "splits", "steps", "graph_replays"):
+            stats.setdefault(k, 0)
+        loop = self.loop(loop)
+        replays = self.replays
+        # the capture and the replays take the primary card's streams
+        with (torch.cuda.device(self.device) if self.device.type == "cuda"
+              else nullcontext()):
+            self.start(gw, hw, cw, meta, feat_valid)
+            (splits, _), steps, reads = self.run_steps(loop)
+        stats["host_syncs"] += reads
+        stats["splits"] += splits
+        stats["steps"] += steps
+        stats["graph_replays"] += self.replays - replays
         out = torch.cat([
-            self._shard(row_leaf[devs[0]], i, devs[0]).to(primary)
+            self._shard(self.row_leaf[devs[0]], i, devs[0]).to(self.device)
             for i, devs in enumerate(self.mesh.devices)])
-        return pool.tree(step), out
+        return self.pool.tree(splits), out

@@ -8,10 +8,16 @@ on the JAX side, ``mesh_devices=8`` CPU slots on the port's.
   |w|, since the Pallas kernel splits each weight into bf16 hi/lo halves
   and loses at most 2^-18 of it.
 * The grower on the 8x1, 1x8 and 2x4 meshes against ``make_gspmd_grower``
-  with the fused kernel, and against the port's serial grower, under
-  integer weights whose sums are exact in any order: every TreeArrays
-  field and the row -> leaf map identical.  Also with missing values and
-  with categorical columns.
+  with the fused kernel (on the uneven 1x3 and 2x3 meshes with the flat
+  histogram, which the JAX package's fused layout cannot slice), and
+  against the port's serial grower, under integer weights whose sums are
+  exact in any order: every TreeArrays field and the row -> leaf map
+  identical.  Also with missing values and with categorical columns.
+* The split step: the host reads the counters once every
+  ``STOP_CHECK_STEPS`` steps and nothing else, every ``hist_local`` call
+  is given the per-shard leaf counts, which are exact after every step
+  (padding rows and shards held by several devices included), and steps
+  taken after the stop write only to the sink rows.
 * ``train`` with ``tree_learner=data, gspmd_hist=fused`` on a 2x4 mesh
   against ``lightgbm_tpu.train`` with the same parameters: predictions
   within 1e-4 (as in test_torch_engine.py); fused against flat within
@@ -40,7 +46,8 @@ from lightgbm_tpu.grower import GrowerConfig as JaxGrowerConfig
 from lightgbm_tpu.ops.histogram import subset_histogram_fused_local
 from lightgbm_tpu.parallel.gspmd import make_gspmd_grower
 from lightgbm_tpu.parallel import mesh as jax_mesh
-from lightgbm_tpu_torch.grower import FeatureMeta, GrowerConfig, grow_tree
+from lightgbm_tpu_torch.grower import (STOP_CHECK_STEPS, FeatureMeta,
+                                       GrowerConfig, grow_tree)
 from lightgbm_tpu_torch.ops.histogram import (hist_flat, hist_local,
                                               hist_local_plain)
 from lightgbm_tpu_torch.parallel.gspmd import (GspmdGrower, column_slices,
@@ -161,10 +168,10 @@ def _kw(case):
                      has_missing=False), **CASES[case][0])
 
 
-def _jax_gspmd(case, shape):
+def _jax_gspmd(case, shape, hist="fused"):
     bins, g, h, c = _int_args(CASES[case][2])
     mesh = jax_mesh.make_named_mesh(*shape)
-    grow = make_gspmd_grower(JaxGrowerConfig(hist_method="fused",
+    grow = make_gspmd_grower(JaxGrowerConfig(hist_method=hist,
                                              hist_interpret=True,
                                              **_kw(case)), mesh)
     rs = NamedSharding(mesh, P(jax_mesh.BATCH_AXIS))
@@ -216,12 +223,27 @@ def test_gspmd_tree_identical_to_jax_fused(jax_plain_tree):
     stats = {}
     tree, row_leaf = _port("plain", shape, stats=stats)
     _assert_same(tree, row_leaf, jtree, jrow, f"{shape} vs JAX")
-    # one host read per split, plus the stop test when it stops early
-    assert stats["host_syncs"] in (stats["splits"], stats["splits"] + 1)
+    # the counters read once every STOP_CHECK_STEPS steps, nothing else
+    assert 1 <= stats["host_syncs"] <= MAX_READS
+    assert stats["splits"] == int(tree.num_leaves) - 1
 
 
+# at most this many host reads a tree: ceil((L - 1) / 32) + 1
+MAX_READS = -(-(L - 1) // STOP_CHECK_STEPS) + 1
 # 8 columns over 3 feature shards: slices of 3, 3 and 2 columns
 UNEVEN = [(1, 3), (2, 3)]
+
+
+@pytest.mark.parametrize("shape", UNEVEN, ids=["1x3", "2x3"])
+def test_uneven_slices_identical_to_jax_and_serial(shape):
+    """Uneven column slices: the port's fused step against the JAX
+    learner's flat histogram (its fused layout needs equal slices) and
+    against the serial grower."""
+    jtree, jrow = _jax_gspmd("plain", shape, hist="flat")
+    tree, row_leaf = _port("plain", shape)
+    _assert_same(tree, row_leaf, jtree, jrow, f"{shape} vs JAX")
+    stree, srow = _port("plain")
+    _assert_same(tree, row_leaf, stree, srow, f"{shape} vs serial")
 
 
 @pytest.mark.parametrize("shape", SHAPES + UNEVEN,
@@ -294,28 +316,52 @@ THREE = [torch.device("cpu"), torch.device("cpu", 0),
          torch.device("cpu", 1)] * 3
 
 
-@pytest.mark.parametrize("shape,pad,slots", [
-    ((8, 1), 0, CPU8), ((2, 4), 0, CPU8), ((8, 1), 3, CPU8),
-    ((2, 2), 0, TWO), ((2, 2), 3, THREE), ((1, 3), 0, THREE)],
-    ids=["8x1", "2x4", "8x1-padded", "2x2-two-devices",
-         "2x2-three-devices-padded", "1x3-three-devices"])
-def test_one_host_read_per_split_carries_the_bound(monkeypatch, shape, pad,
-                                                   slots):
-    """Every read of a tensor to the host during the grower's call is the
-    split's one read (``LeafPool.next_leaf``), which now also returns the
-    chosen leaf's rows over all shards; that count is the
-    ``rows_upper_bound`` of each of the split's ``hist_local`` calls, and
-    it bounds the smaller child's rows in every shard.  A batch shard that
-    several devices hold counts once."""
-    import lightgbm_tpu_torch.parallel.gspmd as gspmd_mod
-    from lightgbm_tpu_torch.grower import LeafPool
+SLOT_CASES = [((8, 1), 0, CPU8), ((2, 4), 0, CPU8), ((8, 1), 3, CPU8),
+              ((2, 2), 0, TWO), ((2, 2), 3, THREE), ((1, 3), 0, THREE)]
+SLOT_IDS = ["8x1", "2x4", "8x1-padded", "2x2-two-devices",
+            "2x2-three-devices-padded", "1x3-three-devices"]
+
+
+def _padded(pad):
+    """The integer-weight inputs, the last ``pad`` rows padding (zero bins
+    and weights)."""
     bins, g, h, c = _int_args()
-    n = N - pad
     if pad:
+        n = N - pad
         bins[n:], g[n:], h[n:], c[n:] = 0, 0, 0, 0
+    return bins, g, h, c
+
+
+def _true_counts(grower):
+    """Every leaf's rows in each batch shard, from the row -> leaf maps."""
+    d, n_loc = len(grower.mesh.devices), grower.n_loc
+    out = np.zeros((d, L + 1), np.int64)
+    for i, devs in enumerate(grower.mesh.devices):
+        for dv in devs:    # every device that holds the shard agrees
+            rl = grower._shard(grower.row_leaf[dv], i, dv).numpy()
+            got = np.bincount(rl, minlength=L + 1)
+            k = grower.held[dv].index(i)
+            np.testing.assert_array_equal(grower.counts[dv][k].numpy(), got)
+        out[i] = got
+    assert out.sum() == d * n_loc
+    return out
+
+
+@pytest.mark.parametrize("shape,pad,slots", SLOT_CASES, ids=SLOT_IDS)
+def test_stop_reads_bound_host_reads_and_k3_reads_true_counts(
+        monkeypatch, shape, pad, slots):
+    """Every read of a tensor to the host during the grower's call, the
+    plain histogram's own reads aside, is a read of the counters: at most
+    ceil((L - 1) / 32) + 1 a tree.  Every ``hist_local`` call (one a slot
+    and step, the root's and the steps after the stop included) is given
+    its shard's per-leaf row counts, whose entry for the measured leaf
+    equals that leaf's rows in the shard; a batch shard that several
+    devices hold is counted by each of them alike."""
+    import lightgbm_tpu_torch.parallel.gspmd as gspmd_mod
+    bins, g, h, c = _padded(pad)
     cfg = GrowerConfig(**_kw("plain"))
     grower = GspmdGrower(cfg, make_named_mesh(*shape, slots), t(bins))
-    reads, picks, calls, inside = [0], [], [], [False]
+    reads, calls, inside = [0], [], [False]
 
     def counted(name):
         orig = getattr(torch.Tensor, name)
@@ -326,23 +372,16 @@ def test_one_host_read_per_split_carries_the_bound(monkeypatch, shape, pad,
         return read
     for name in READS:
         monkeypatch.setattr(torch.Tensor, name, counted(name))
-    next_leaf = LeafPool.next_leaf
-
-    def picked(self, extra=None):
-        out = next_leaf(self, extra)
-        picks.append(list(out))
-        return out
-    monkeypatch.setattr(LeafPool, "next_leaf", picked)
     local = gspmd_mod.hist_local
 
-    def recorded(row_leaf, leaf_id, *a, rows_upper_bound=None, **k):
-        # the plain version that a CPU tensor takes reads its window to
-        # the host; the kernel on a card does not
-        calls.append((row_leaf.clone(), leaf_id.clone(), rows_upper_bound))
+    def recorded(row_leaf, leaf_id, *a, leaf_rows=None, **k):
+        # the plain version that a CPU tensor takes reads the leaf's rows
+        # to the host; the kernel on a card does not
         inside[0] = True
         try:
-            return local(row_leaf, leaf_id, *a,
-                         rows_upper_bound=rows_upper_bound, **k)
+            calls.append((row_leaf.clone(), leaf_id.clone(),
+                          None if leaf_rows is None else leaf_rows.clone()))
+            return local(row_leaf, leaf_id, *a, leaf_rows=leaf_rows, **k)
         finally:
             inside[0] = False
     monkeypatch.setattr(gspmd_mod, "hist_local", recorded)
@@ -351,27 +390,132 @@ def test_one_host_read_per_split_carries_the_bound(monkeypatch, shape, pad,
         *[t(a) for a in _meta_np()]), torch.ones(F, dtype=torch.bool), stats)
     monkeypatch.undo()
 
-    assert reads[0] == stats["host_syncs"] == len(picks)
+    assert reads[0] == stats["host_syncs"]
+    assert 1 <= stats["host_syncs"] <= MAX_READS
     assert stats["splits"] == int(tree.num_leaves) - 1 > 1
-    # one call a (column slice, row shard), the row shards inner
+    assert stats["splits"] <= stats["steps"] <= L - 1
     n_shards, per_split = shape
-    assert len(calls) == n_shards * per_split * (stats["splits"] + 1)
-    assert {b for _, _, b in calls[:n_shards * per_split]} == {N}
-    for k, (leaf, cnt, positive) in enumerate(picks[:stats["splits"]]):
-        assert positive
-        split = calls[n_shards * per_split * (k + 1):
-                      n_shards * per_split * (k + 2)]
-        # the chosen leaf's rows, padding rows included, over all shards:
-        # after routing they are the rows of its two children
-        parent = sum(int(((rl == leaf) | (rl == k + 1)).sum())
-                     for rl, _, _ in split[:n_shards])
-        assert parent == cnt
-        for rl, lid, bound in split:
-            assert bound == cnt
-            assert int((rl == lid).sum()) <= bound
-        small = sum(int((rl == lid).sum()) for rl, lid, _ in
-                    split[:n_shards])
-        assert small <= cnt - small + pad
+    assert len(calls) == n_shards * per_split * (stats["steps"] + 1)
+    for rl, lid, leaf_rows in calls:
+        assert leaf_rows is not None and leaf_rows.shape == (L + 1,)
+        assert int(leaf_rows[int(lid)]) == int((rl == lid).sum())
+    # the root's calls see every row of the shard in leaf 0
+    assert {int(r[0]) for _, _, r in calls[:n_shards * per_split]} == {
+        N // n_shards}
+    # the counts after the tree are the map's, on every device
+    np.testing.assert_array_equal(
+        _true_counts(grower).sum(0),
+        np.bincount(row_leaf.numpy(), minlength=L + 1))
+
+
+@pytest.mark.parametrize("shape,pad,slots", SLOT_CASES[2:], ids=SLOT_IDS[2:])
+def test_counts_equal_the_row_map_after_every_step(shape, pad, slots):
+    """Stepping the learner by hand: after the root and after every step,
+    each device's per-shard count of every leaf (sinks included) equals
+    ``(row_leaf == leaf).sum()`` over that shard, padding rows included,
+    and the moved rows are those the serial tree sends right."""
+    bins, g, h, c = _padded(pad)
+    cfg = GrowerConfig(**_kw("plain"))
+    grower = GspmdGrower(cfg, make_named_mesh(*shape, slots), t(bins))
+    meta = FeatureMeta(*[t(a) for a in _meta_np()])
+    grower.start(t(g), t(h), t(c), meta, torch.ones(F, dtype=torch.bool))
+    _true_counts(grower)
+    for _ in range(L - 1):
+        grower.step()
+        _true_counts(grower)
+    splits = int(grower.counters[0])
+    stree, srow = grow_tree(t(bins), t(g), t(h), t(c), meta,
+                            torch.ones(F, dtype=torch.bool), cfg)
+    assert splits == int(stree.num_leaves) - 1
+    full = torch.cat([grower._shard(grower.row_leaf[devs[0]], i, devs[0])
+                      for i, devs in enumerate(grower.mesh.devices)])
+    np.testing.assert_array_equal(full.numpy(), srow.numpy())
+
+
+def _state(grower):
+    """Every tensor of the learner's state, by name."""
+    pool = grower.pool
+    out = {k: v.clone() for k, v in vars(pool).items()
+           if isinstance(v, torch.Tensor)}
+    for dv in grower.held:
+        out[f"row_leaf{dv}"] = grower.row_leaf[dv].clone()
+        out[f"counts{dv}"] = grower.counts[dv].clone()
+    out["counters"] = grower.counters.clone()
+    return out
+
+
+@pytest.mark.parametrize("shape,slots", [((8, 1), CPU8), ((2, 4), CPU8),
+                                         ((2, 2), TWO)],
+                         ids=["8x1", "2x4", "2x2-two-devices"])
+def test_steps_after_the_stop_change_nothing_but_sinks(shape, slots):
+    """A tree that stops early (at depth 2: four leaves, then no leaf
+    may split), then more steps: the pool's leaf
+    rows but the sink ``L``, its node rows but ``L - 1``, the row -> leaf
+    maps, the counts of every real leaf and the counters stay as they
+    were."""
+    bins, g, h, c = _int_args()
+    cfg = GrowerConfig(**dict(_kw("plain"), max_depth=2))
+    grower = GspmdGrower(cfg, make_named_mesh(*shape, slots), t(bins))
+    stats = {}
+    tree, _ = grower(t(g), t(h), t(c), FeatureMeta(
+        *[t(a) for a in _meta_np()]), torch.ones(F, dtype=torch.bool), stats)
+    assert int(tree.num_leaves) == 4 and stats["steps"] == L - 1
+    before = _state(grower)
+    for _ in range(5):
+        grower.step()
+    after = _state(grower)
+    sink_leaf = {"hist_store", "feat_ok", "sgain", "sf32", "si32", "scat",
+                 "scatb", "leaf_f", "leaf_parent", "leaf_depth"}
+    for k, v in before.items():
+        w = after[k]
+        if k in sink_leaf:
+            v, w = v[:L], w[:L]
+        elif k in ("node_f", "node_i", "node_cat", "node_catb",
+                   "left_child", "right_child"):
+            v, w = v[:L - 1], w[:L - 1]
+        elif k.startswith("counts"):
+            v, w = v[:, :L], w[:, :L]
+        assert torch.equal(v, w), k
+
+
+def test_booster_passes_its_split_loop():
+    """``train`` holds one learner across trees and hands it the
+    booster's ``split_loop``: the eager loop on the CPU, where asking for
+    the graph raises."""
+    x, y = _task(n=1000)
+    bst = _train_port(x, y, rounds=2, gspmd_hist="fused")
+    inner = bst.inner
+    learner = inner._gspmd
+    assert inner.split_loop is None and learner.graph is None
+    assert inner.stats["steps"] >= inner.stats["splits"] > 0
+    inner.split_loop = "eager"
+    bst.update()
+    assert inner._gspmd is learner
+    inner.split_loop = "graph"
+    with pytest.raises(ValueError, match="loop='graph'"):
+        bst.update()
+
+
+def test_loop_choice_and_captured_inputs():
+    """On the CPU the learner takes the eager loop; asking for the graph
+    raises, and so does a tree on other metadata once a step is
+    captured."""
+    bins, g, h, c = _int_args()
+    cfg = GrowerConfig(**_kw("plain"))
+    grower = GspmdGrower(cfg, make_named_mesh(2, 4, CPU8), t(bins))
+    assert grower.loop(None) == "eager" == grower.loop("eager")
+    for bad in ("graph", "replay"):
+        with pytest.raises(ValueError, match="loop="):
+            grower.loop(bad)
+    meta = FeatureMeta(*[t(a) for a in _meta_np()])
+    ones = torch.ones(F, dtype=torch.bool)
+    tree, _ = grower(t(g), t(h), t(c), meta, ones, loop="eager")
+    grower.graph = object()     # as after a capture on a card
+    with pytest.raises(ValueError, match="captured"):
+        grower(t(g), t(h), t(c), FeatureMeta(*[t(a) for a in _meta_np()]),
+               ones)
+    with pytest.raises(ValueError, match="captured"):
+        grower(t(g), t(h), t(c), meta, ones.clone())
 
 
 # ---- train() ----------------------------------------------------------------

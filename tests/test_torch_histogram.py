@@ -306,3 +306,67 @@ def test_selector_picks_the_second_set_on_cpu():
     assert hist_window.launches == before
     with pytest.raises(ValueError):
         hist_window(first[0], sc, *first[1:], 63, alt=tuple(second))
+
+
+# ---- the data-parallel split step: K3's device regime ----------------------
+
+
+@pytest.mark.parametrize("n_loc,n_feat", [(250_000, 28), (500_000, 14),
+                                          (100_000, 10), (65_536, 28)])
+def test_local_device_plan_gates_at_the_threshold(n_loc, n_feat):
+    """``plan_device_local``: the large kernel's grid for a leaf of all
+    ``n_loc`` rows (the host's bound), the small kernel's scan grid, and a
+    gate that gives counts up to SMALL_MAX_ROWS_LOCAL to the small kernel
+    and larger ones to the large kernel."""
+    from lightgbm_tpu_torch.ops.histogram import (device_kernel,
+                                                  plan_device_local)
+    plan = plan_device_local(n_loc, n_feat, 255, num_sms=H100_SMS)
+    large = plan_launch(n_loc, n_feat, 255, n_loc, num_sms=H100_SMS,
+                        small_max_rows=-1)
+    small = plan_launch(min(n_loc, SMALL_MAX_ROWS_LOCAL), n_feat, 255, n_loc,
+                        num_sms=H100_SMS)
+    assert plan.regime == "device" and large.regime == "large"
+    assert small.regime == "small"
+    assert plan[1:5] == large[1:5]
+    assert plan.small_grid_x == small.grid_x >= 1
+    assert plan.split_rows == SMALL_MAX_ROWS_LOCAL == 65_536
+    for count, kernel in ((0, "small"), (1000, "small"),
+                          (65_535, "small"), (65_536, "small"),
+                          (65_537, "large"), (n_loc, "small" if n_loc <=
+                                               65_536 else "large")):
+        assert device_kernel(plan, count) == kernel, count
+    with pytest.raises(ValueError):
+        device_kernel(large, 10)
+
+
+@pytest.mark.parametrize("cnt", [0, 1000, 65_535, 65_536, 65_537, 140_000])
+def test_local_leaf_rows_on_cpu_take_the_plain_version(cnt):
+    """With the per-leaf counts and the device plan, a CPU tensor still
+    takes the plain version, which ignores both: at counts either side of
+    the gate the histogram is the masked scatter-add's, and nothing
+    launches."""
+    from lightgbm_tpu_torch.ops.histogram import (hist_flat,
+                                                  hist_local_plain,
+                                                  plan_device_local)
+    n_loc, f, b = 140_000, 3, 15
+    rng = np.random.default_rng(cnt)
+    bins = torch.from_numpy(rng.integers(0, b, (n_loc, f)).astype(np.uint8))
+    row_leaf = np.zeros(n_loc, np.int32)
+    row_leaf[rng.permutation(n_loc)[:cnt]] = 1
+    g = torch.from_numpy(rng.integers(-8, 9, n_loc).astype(np.float32))
+    h = torch.from_numpy(rng.integers(0, 5, n_loc).astype(np.float32))
+    c = torch.ones(n_loc)
+    leaf_rows = torch.from_numpy(np.bincount(row_leaf, minlength=4)
+                                 .astype(np.int32))
+    rl, lid = torch.from_numpy(row_leaf), torch.tensor([1], dtype=torch.int32)
+    before = hist_local.launches
+    got = hist_local(rl, lid, bins, g, h, c, b,
+                     plan=plan_device_local(n_loc, f, b, num_sms=H100_SMS),
+                     leaf_rows=leaf_rows)
+    assert hist_local.launches == before
+    np.testing.assert_array_equal(
+        got.numpy(), hist_local_plain(rl, lid, bins, g, h, c, b).numpy())
+    m = (rl == 1).float()
+    np.testing.assert_array_equal(got.numpy(), hist_flat(
+        bins, g * m, h * m, c * m, b).numpy())
+    assert float(got[..., 2].sum()) == f * cnt

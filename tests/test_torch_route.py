@@ -4,7 +4,13 @@ and column metadata must send the same rows left, on numerical splits over
 columns without missing values, with zero as missing and with NaN as
 missing, and on categorical splits.  ``route_window`` reads the window, the
 parity of its buffer and the splitting leaf from tensors, as the grower's
-captured step holds them; on the CPU it takes the plain version."""
+captured step holds them; on the CPU it takes the plain version.
+
+``route_rows_plain`` (the data-parallel learner's routing) against the JAX
+learner's update of its row -> leaf map (``lightgbm_tpu/parallel/
+gspmd.py:305-320``): ``jnp.where(row_leaf == l, jnp.where(goes_left, l,
+new), row_leaf)``, equal row for row, rows of other leaves untouched, and
+each shard's count of every leaf moved exactly."""
 import numpy as np
 import pytest
 import torch
@@ -14,7 +20,8 @@ import jax.numpy as jnp
 from lightgbm_tpu.grower import FeatureMeta as JaxMeta
 from lightgbm_tpu.grower import route_goes_left as jax_route_goes_left
 from lightgbm_tpu_torch.grower import FeatureMeta
-from lightgbm_tpu_torch.ops.route import (route_goes_left, route_window,
+from lightgbm_tpu_torch.ops.route import (route_goes_left, route_rows,
+                                          route_rows_plain, route_window,
                                           route_window_plain)
 
 N, F, B = 3000, 5, 40
@@ -157,3 +164,94 @@ def test_kernel_matches_plain_on_card():
                     N, dtype=torch.bool, device=dev))
                 torch.cuda.synchronize()
                 assert torch.equal(k, p)
+
+
+SHARDS = 3      # N rows as three row shards of 1,000
+
+
+def _rows_case(seed, split, leaf=4, new=3):
+    """A row -> leaf map over leaves 0, 1, 2 and ``leaf`` (``new`` holds no
+    row, as the new leaf of a step), the pool with ``split`` in row
+    ``leaf``, and every leaf's rows in each shard."""
+    bins, _, cat_rows = _data(seed)
+    rng = np.random.default_rng(seed + 10)
+    row_leaf = rng.choice([0, 1, 2, leaf], N).astype(np.int32)
+    si32, scat = _pool(split, leaf)
+    scatb = np.zeros((6, B), bool)
+    scatb[leaf] = cat_rows[0]
+    counts = np.stack([np.bincount(r, minlength=6) for r in
+                       row_leaf.reshape(SHARDS, -1)]).astype(np.int32)
+    return bins, row_leaf, si32, scat, scatb, counts
+
+
+def _rows_args(bins, row_leaf, si32, scat, scatb, counts, leaf, new,
+               dev="cpu"):
+    put = lambda a: torch.as_tensor(a).to(dev)
+    meta = FeatureMeta(*[put(a) for a in (NUM_BIN, MISSING, DEFAULT,
+                                          IS_CAT)])
+    return (put(row_leaf.copy()), put(np.ascontiguousarray(bins.T)),
+            torch.tensor([leaf], device=dev), torch.tensor([new], device=dev),
+            si32.to(dev), scat.to(dev), put(scatb), meta,
+            put(counts.copy()))
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+def test_route_rows_matches_the_jax_update(split):
+    """The leaf's right rows move to the new leaf as the JAX learner moves
+    them; every other row keeps its leaf; each shard's counts of the leaf
+    and of the new leaf move by the rows moved in that shard, exactly."""
+    leaf, new = 4, 3
+    bins, row_leaf, si32, scat, scatb, counts = _rows_case(7, split)
+    feat, thr, dleft, is_cat = SPLITS[split]
+    goes_left = _jax_left(bins[:, feat], feat, thr, bool(dleft), is_cat,
+                          scatb[leaf])
+    want = np.asarray(jnp.where(
+        jnp.asarray(row_leaf) == leaf,
+        jnp.where(jnp.asarray(goes_left), leaf, new), jnp.asarray(row_leaf)))
+    args = _rows_args(bins, row_leaf, si32, scat, scatb, counts, leaf, new)
+    got = route_rows_plain(*args)
+    assert got is args[0]       # in place
+    np.testing.assert_array_equal(got.numpy(), want)
+    moved = (want == new).reshape(SHARDS, -1).sum(1)
+    assert moved.sum() > 0 and (row_leaf == leaf).sum() > moved.sum()
+    np.testing.assert_array_equal(
+        args[-1].numpy(), np.stack([np.bincount(r, minlength=6)
+                                    for r in want.reshape(SHARDS, -1)]))
+    np.testing.assert_array_equal(args[-1][:, new].numpy(), moved)
+
+
+def test_route_rows_moves_nothing_from_the_sink():
+    """A step after the stop routes the sink leaf, which holds no row and
+    whose pool row may hold no valid column: nothing changes."""
+    bins, row_leaf, si32, scat, scatb, counts = _rows_case(8, "numerical")
+    si32[5] = torch.tensor([-1, 0, 0], dtype=torch.int32)
+    args = _rows_args(bins, row_leaf, si32, scat, scatb, counts, 5, 5)
+    route_rows(*args)
+    np.testing.assert_array_equal(args[0].numpy(), row_leaf)
+    np.testing.assert_array_equal(args[-1].numpy(), counts)
+
+
+def test_route_rows_cpu_tensors_take_the_plain_version():
+    bins, row_leaf, si32, scat, scatb, counts = _rows_case(9, "categorical")
+    a = _rows_args(bins, row_leaf, si32, scat, scatb, counts, 4, 3)
+    b = _rows_args(bins, row_leaf, si32, scat, scatb, counts, 4, 3)
+    before = route_rows.launches
+    route_rows(*a)
+    route_rows_plain(*b)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[-1], b[-1])
+    assert route_rows.launches == before
+
+
+@pytest.mark.gpu
+def test_route_rows_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison "
+                    "at the main path's shapes")
+    for split in SPLITS:
+        case = _rows_case(11, split)
+        k = _rows_args(*case, 4, 3, dev="cuda")
+        p = _rows_args(*case, 4, 3, dev="cuda")
+        route_rows(*k)
+        route_rows_plain(*p)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[-1], p[-1]), split
