@@ -42,8 +42,8 @@ after the stop writes only to the pool's sink rows and moves no row.
 With every mesh slot on one card and ``hist="fused"`` the step is
 captured once per training as a CUDA graph and replayed; elsewhere (the
 CPU, ``hist="flat"``, slots on several cards) it runs eagerly, the split
-row copied to each card and the partials to the primary device to
-device.  Either way the host reads the counters once every
+row copied to each card and the partials to the primary device, device
+to device.  Either way the host reads the counters once every
 ``STOP_CHECK_STEPS`` steps and nothing else.  The learner's state lives
 across trees, allocated once per training.
 """
