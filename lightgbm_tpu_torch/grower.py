@@ -366,7 +366,7 @@ class SplitLoop:
     """What both growers' split loops share: the step counter and the
     ``active`` flag in device memory (``counters[0]`` and ``[1]``, after
     which a grower may keep its own), the choice of the leaf that splits
-    (:meth:`pick`), and the driver: the step taken eagerly or captured
+    (:meth:`pick`), and the loop that takes the steps: eagerly, or captured
     once as a CUDA graph and replayed, the counters read back every
     ``STOP_CHECK_STEPS`` steps (:meth:`run_steps`).  A subclass supplies
     :meth:`step` and ``wrappers``, the kernel wrappers its step reaches."""
