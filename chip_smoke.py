@@ -998,15 +998,19 @@ def check_hist_local(dev, rng):
     which the kernel reads from a per-leaf count in device memory): all
     rows, a leaf of about 1,000 rows, an absent leaf (count 0), and
     leaves of 65,535, 65,536 and 65,537 rows either side of the gate.
-    Times at all rows and at the 1,000-row leaf, the device regime beside
-    the host's plans."""
+    Times at all rows and at the 1,000-row leaf: the device regime as the
+    split step launches it, beside the host's plan at the leaf's count
+    (``host_plan_*``) and the large regime under the shard's bound
+    (``large_*``)."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import (SMALL_MAX_ROWS_LOCAL,
-                                                  device_kernel, hist_local,
+                                                  hist_local,
                                                   hist_local_plain,
                                                   plan_device_local,
                                                   plan_launch, sm_count)
     sms = sm_count(torch.cuda.current_device())
+    # the kernel of the device regime's two whose gate takes a leaf
+    gated = lambda cnt: "small" if cnt <= SMALL_MAX_ROWS_LOCAL else "large"
     n_leaves = 255
     p = 1.0 / np.arange(1, n_leaves + 1) ** 1.1
     timing, max_err = {}, 0.0
@@ -1061,14 +1065,15 @@ def check_hist_local(dev, rng):
                      "large": plan(cnt, small_max_rows=-1),
                      "shard_bound": plan(n_loc), "device": dplan}
             for pname, lp in plans.items():
-                k = hist_local(row_leaf, lid, bins, *w_int, N_BINS, cnt, lp,
+                k = hist_local(row_leaf, lid, bins, *w_int, N_BINS, plan=lp,
                                leaf_rows=lrows if pname == "device"
                                else None)
                 torch.cuda.synchronize()
                 if not torch.equal(k, pl):
                     fail(f"hist_local != plain under integer weights at "
                          f"{n_loc}x{fc}, leaf {name}, {pname} plan {lp}")
-            k = hist_local(row_leaf, lid, bins, *w_f32, N_BINS, cnt)
+            k = hist_local(row_leaf, lid, bins, *w_f32, N_BINS,
+                           leaf_rows=lrows)
             pl = hist_local_plain(row_leaf, lid, bins, *w_f32, N_BINS)
             mag = hist_local_plain(row_leaf, lid, bins,
                                    *[w.abs() for w in w_f32], N_BINS)
@@ -1079,7 +1084,7 @@ def check_hist_local(dev, rng):
             max_err = max(max_err, err.max().item())
             phase("hist_local_vs_plain", shard=f"{n_loc}x{fc}", leaf=name,
                   rows=cnt, own_regime=plans["own"].regime,
-                  device_regime_kernel=device_kernel(dplan, cnt),
+                  device_regime_kernel=gated(cnt),
                   exact_int=",".join(plans),
                   f32_max_abs_err=f"{err.max().item():.3e}")
         for name in ("all", "small"):
@@ -1092,25 +1097,25 @@ def check_hist_local(dev, rng):
                                                             ].expand(
                 -1, fc, 3).reshape(-1, 3).contiguous()
             acc = torch.zeros((fc * N_BINS, 3), device=dev)
+            lrows = leaf_rows[id(row_leaf)]
+            # the device regime as the split step launches it
             timing[(n_loc, name)] = t = time_kernel(
-                lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS, cnt),
+                lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS,
+                                   leaf_rows=lrows),
                 lambda: hist_local_plain(row_leaf, lid, bins, *w_f32,
                                          N_BINS),
                 lambda: acc.index_add_(0, flat, vals),
                 local_bound_ms(n_loc, cnt, fc),
-                lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS, cnt,
-                                   plan(n_loc)))
-            # the device regime as the split step launches it
-            lrows = leaf_rows[id(row_leaf)]
-            in_step = lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS,
-                                         plan=dplan, leaf_rows=lrows)
-            t["device_regime_ms"] = cuda_ms(in_step)
-            t["device_regime_ms_many"] = cuda_ms_many(in_step)
-            t["device_regime_device_ms"] = profiled_ms(in_step)[0]
+                lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS,
+                                   plan=plan(n_loc)))
+            host = lambda: hist_local(row_leaf, lid, bins, *w_f32, N_BINS,
+                                      plan=plan(cnt))
+            t["host_plan_ms"] = cuda_ms(host)
+            t["host_plan_ms_many"] = cuda_ms_many(host)
+            t["host_plan_device_ms"] = profiled_ms(host)[0]
             phase("hist_local_time", shard=f"{n_loc}x{fc}", leaf=name,
-                  rows=cnt,
-                  regime=plan(cnt).regime,
-                  device_regime_kernel=device_kernel(dplan, cnt),
+                  rows=cnt, host_plan_regime=plan(cnt).regime,
+                  device_regime_kernel=gated(cnt),
                   **{k: f"{v:.4f}" if isinstance(v, float) else v
                      for k, v in t.items()},
                   bound_share=f"{t['bound_ms'] / t['device_ms']:.4f}"
@@ -1243,13 +1248,16 @@ def check_route(dev, rng):
     return timing
 
 
-def route_rows_bound_ms(n: int, moved: int) -> float:
+def route_rows_bound_ms(n: int, leaf_rows: int, moved: int) -> float:
     """Least time of a route_rows call over ``n`` rows: each row's
-    row_leaf entry (4 B) and split-column byte read, each moved row's
-    entry (4 B) written, and the leaf, new leaf and split row read, over
+    row_leaf entry (4 B) read; the split column's bytes of the leaf's
+    ``leaf_rows`` rows only, the kernel's one column read, a 32-byte
+    sector a scattered row and at most the whole column; each moved row's
+    entry (4 B) written; and the leaf, new leaf and split row read; over
     the memory rate."""
-    return (5 * n + 4 * moved + 8 + 8 + 12 + 1 + N_BINS) / H100_BYTES_PER_S \
-        * 1e3
+    column = min(32 * leaf_rows, n)
+    return (4 * n + column + 4 * moved + 8 + 8 + 12 + 1 + N_BINS) \
+        / H100_BYTES_PER_S * 1e3
 
 
 def check_route_rows(dev, rng):
@@ -1340,6 +1348,7 @@ def check_route_rows(dev, rng):
         i32, cat = pool(splits["nan"], leaf)
         lt = torch.tensor([leaf], device=dev)
         cnt = counts_of(rl)
+        leaf_rows = int((rl == leaf).sum())
         probe = rl.clone()
         route_rows_plain(probe, bins_t, lt, torch.tensor([L - 1], device=dev),
                          i32, cat, scatb, meta, cnt.clone())
@@ -1351,9 +1360,9 @@ def check_route_rows(dev, rng):
         if not torch.equal(rl, maps[m]) or not torch.equal(cnt,
                                                            counts_of(rl)):
             fail(f"route_rows with new = leaf changed the map at {label}")
-        bound_ms = route_rows_bound_ms(n, moved)
+        bound_ms = route_rows_bound_ms(n, leaf_rows, moved)
         timing[label] = dict(k, plain_ms=p_ms, bound_ms=bound_ms,
-                             leaf_rows=int((rl == leaf).sum()), moved=moved)
+                             leaf_rows=leaf_rows, moved=moved)
         phase("route_rows_time", leaf=label, rows=n,
               leaf_rows=timing[label]["leaf_rows"], moved=moved,
               **{k_: f"{v:.4f}" for k_, v in timing[label].items()
@@ -1692,6 +1701,10 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
         if sum(fn.regime_launches.values()) != fn.launches:
             fail(f"{name}: {kernel} counts by regime {by_regime} do not add "
                  f"up to {fn.launches}")
+    if by_regime["hist_local_small_count"] or by_regime[
+            "hist_local_large_count"]:
+        fail(f"{name}: a hist_local call took a host-picked regime "
+             f"({by_regime}); the split step leaves it to the device")
     syncs_per_tree = stats["host_syncs"] / trees
     if graph and syncs_per_tree > -(-(bst.inner.grower_cfg.num_leaves - 1)
                                     // 32) + 1:
@@ -2231,15 +2244,17 @@ def main() -> None:
         "name": "hist_local", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/hist_local.cu",
         "replaces": "lightgbm_tpu/ops/pallas_hist.py:284",
-        "launches": dp["hist_local_launches"], "max_abs_err": local_err,
+        # every call of the path takes the device regime: two kernels
+        "launches": 2 * dp["hist_local_launches"],
+        "calls": dp["hist_local_launches"], "max_abs_err": local_err,
         "ms": lroot["ms"], "plain_ms": lroot["plain_ms"],
         "bound_ms": lroot["bound_ms"], "bound_by": "bytes",
         "library_ms": lroot["library_ms"],
         **small_window_fields(lroot, lsmall),
-        # the data-parallel split step's device regime, gated by the count
+        # the host's plan at the leaf's count, for comparison
         **{f"{k}{w}": d[k] for w, d in (("", lroot), ("_small", lsmall))
-           for k in ("device_regime_ms", "device_regime_ms_many",
-                     "device_regime_device_ms")}}, {
+           for k in ("host_plan_ms", "host_plan_ms_many",
+                     "host_plan_device_ms")}}, {
         "name": "partition", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",
         "replaces": "lightgbm_tpu/ops/pallas_compact.py:98",

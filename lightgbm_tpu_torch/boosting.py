@@ -90,9 +90,6 @@ class GBDT:
         # device state across trees (and, with every mesh slot on one card,
         # its split step captured as a CUDA graph)
         self._gspmd: Optional[GspmdGrower] = None
-        # the split loop both learners take: "graph", "eager" or None (the
-        # graph where it can run)
-        self.split_loop: Optional[str] = None
         # the serial grower's device state, made at the first tree
         self._windows: Optional[WindowBuffers] = None
         self._row_pad = 0
@@ -255,8 +252,7 @@ class GBDT:
         if self._gspmd is not None:
             arrays, row_leaf = self._gspmd(
                 self._dist_row_vec(g[0]), self._dist_row_vec(h[0]),
-                self._count_weight, self.meta, self._feat_valid, self.stats,
-                self.split_loop)
+                self._count_weight, self.meta, self._feat_valid, self.stats)
             row_leaf = row_leaf[:self.num_data]     # the local rows
         else:
             if self._windows is None:
@@ -268,8 +264,7 @@ class GBDT:
             arrays, row_leaf = grow_tree(self.bins, g[0], h[0],
                                          self._count_weight, self.meta,
                                          self._feat_valid, self.grower_cfg,
-                                         self.stats, self._windows,
-                                         self.split_loop)
+                                         self.stats, self._windows)
         self.stats["trees"] += 1
         host = arrays._replace(**{
             k: v.cpu().numpy() for k, v in arrays._asdict().items()

@@ -42,9 +42,10 @@
 // of `new` and takes them from that of `leaf` (counts, int32
 // [shards, leaves]) with one integer atomicAdd each: exact, whatever the
 // order, so every run gives the same counts.  What bounds it on the H100:
-// bytes, 4 of row_leaf and 1 of the column a row read and 4 a moved row
-// written; after the tree's stop no row holds the sink leaf and nothing is
-// written.
+// bytes, 4 of row_leaf a row read, the column read only at the leaf's rows
+// (a 32-byte sector each where they are scattered, the whole column at the
+// root) and 4 a moved row written; after the tree's stop no row holds the
+// sink leaf and nothing is written.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (lightgbm_tpu_torch/ops/build.py does this).

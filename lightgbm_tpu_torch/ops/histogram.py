@@ -191,14 +191,6 @@ def plan_device_local(n_loc: int, n_feat: int, num_bins: int, *,
                           split_rows=SMALL_MAX_ROWS_LOCAL)
 
 
-def device_kernel(plan: LaunchPlan, count: int) -> str:
-    """The kernel of a device-regime plan whose gate takes ``count`` rows:
-    ``small`` up to ``plan.split_rows``, ``large`` above."""
-    if plan.regime != "device":
-        raise ValueError(f"device_kernel: a {plan.regime} plan has no gate")
-    return "small" if count <= plan.split_rows else "large"
-
-
 # the wrappers' plans: a split's bound recurs across trees and shards
 _plan = functools.lru_cache(maxsize=4096)(plan_launch)
 _plan_local = functools.lru_cache(maxsize=64)(plan_device_local)
@@ -356,7 +348,6 @@ def hist_local_plain(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
 def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
                bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
                cw: torch.Tensor, num_bins: int,
-               rows_upper_bound: Optional[int] = None,
                plan: Optional[LaunchPlan] = None,
                leaf_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[Fc, num_bins, 3]`` partial histogram of a shard's rows ``r``
@@ -367,13 +358,11 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
     ``leaf_rows`` (int32, one entry per leaf id) holds every leaf's rows
     in the shard in device memory, as the data-parallel split step keeps
     them; then :func:`plan_device_local` leaves the regime to the device,
-    which reads the leaf's count there.  Without it ``rows_upper_bound``
-    is a host-known bound on the leaf's rows in the shard (the rows when
-    not given) from which :func:`plan_launch` picks the kernel's regime.
-    ``plan`` replaces either plan; a device-regime plan needs
-    ``leaf_rows``.  CPU tensors take the plain version, which needs
-    neither; CUDA tensors launch the kernel, on their own card, or
-    raise."""
+    which reads the leaf's count there.  ``plan`` replaces that plan (a
+    host-picked :func:`plan_launch`, to time the regimes against each
+    other); a device-regime plan needs ``leaf_rows``.  CPU tensors take
+    the plain version, which needs neither; CUDA tensors launch the
+    kernel, on their own card, or raise."""
     if not bins.is_cuda:
         if bins.device.type == "cpu":
             return hist_local_plain(row_leaf, leaf_id, bins, gw, hw, cw,
@@ -391,15 +380,11 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
             or leaf_rows.dim() != 1 or not leaf_rows.is_contiguous()):
         raise ValueError("hist_local: leaf_rows must be a contiguous int32 "
                          "vector on the card of bins")
-    if plan is None:
-        plan = (_plan_local(n, f, num_bins, num_sms=sm_count(dev))
-                if leaf_rows is not None else
-                _plan(n if rows_upper_bound is None
-                      else int(rows_upper_bound), f, num_bins, n,
-                      num_sms=sm_count(dev)))
-    elif plan.regime == "device" and leaf_rows is None:
+    if (plan is None or plan.regime == "device") and leaf_rows is None:
         raise ValueError("hist_local: the device regime gates the leaf's "
                          "count in leaf_rows, which was not given")
+    if plan is None:
+        plan = _plan_local(n, f, num_bins, num_sms=sm_count(dev))
     out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
     # the C side makes the tensors' card current only if it is not

@@ -57,7 +57,7 @@ import torch
 
 from ..grower import (FeatureMeta, GrowerConfig, LeafPool, SplitLoop,
                       _tensor_key)
-from ..ops.histogram import hist_flat, hist_local, plan_device_local, sm_count
+from ..ops.histogram import hist_flat, hist_local
 from ..ops.route import route_rows
 from ..ops.split import cat_group_accept
 from .mesh import BATCH_AXIS, FEATURE_AXIS, Mesh
@@ -132,17 +132,11 @@ class GspmdGrower(SplitLoop):
                                               dtype=torch.float32, device=dv)
                                   for _ in range(3))
                         for dv, held in self.held.items()}
-        # each slot's shard cut to its column slice, for the histogram,
-        # and the launch that leaves the regime to the device
+        # each slot's shard cut to its column slice, for the histogram
         self.slices = [[bins[i * n_loc:(i + 1) * n_loc,
                              c.start:c.stop].contiguous().to(
                                  mesh.devices[i][j])
                         for j, c in enumerate(self.cols)] for i in range(d)]
-        self.plans = [[plan_device_local(n_loc, len(c), cfg.max_bin,
-                                         num_sms=sm_count(dv.index))
-                       if dv.type == "cuda" and hist == "fused" else None
-                       for c, dv in zip(self.cols, mesh.devices[i])]
-                      for i in range(d)]
         self.root_id = torch.zeros(1, dtype=torch.int32, device=self.device)
         # the histogram store, split pool and records, reset per tree
         self.pool = LeafPool(cfg, f, self.device)
@@ -183,7 +177,6 @@ class GspmdGrower(SplitLoop):
                     part = hist_local(
                         self._shard(self.row_leaf[dv], i, dv), leaf_on[dv],
                         self.slices[i][j], gw, hw, cw, B,
-                        plan=self.plans[i][j],
                         leaf_rows=self.counts[dv][self.held[dv].index(i)])
                 else:
                     part = hist_flat(self.slices[i][j], gw, hw, cw, B)

@@ -172,11 +172,12 @@ def main() -> None:
     sms = sm_count(torch.cuda.current_device())
 
     def designs(bound, fc, n_loc=None):
-        """name -> launch plan (None: the wrapper's own)."""
+        """name -> launch plan ("plan": the host's plan at the bound, which
+        hist_window picks itself and hist_local is given)."""
         plan = lambda b, **kw: plan_launch(b, fc, N_BINS, n_loc,
                                            num_sms=sms, **kw)
         small = plan(bound, small_max_rows=1 << 62)
-        d = {"plan": None, "small": small,
+        d = {"plan": None if n_loc is None else plan(bound), "small": small,
              # the small regime's grid-stride loops on a quarter of its grid
              "small_grid4": small._replace(grid_x=-(-small.grid_x // 4)),
              # a shard's large grid does not depend on the bound
@@ -239,15 +240,15 @@ def main() -> None:
             plain = hist_local_plain(row_leaf, lid, sbins, *sw_int, N_BINS)
             calls = {}
             for dname, plan in designs(cnt, fc, n_loc).items():
-                got = hist_local(row_leaf, lid, sbins, *sw_int, N_BINS, cnt,
-                                 plan)
+                got = hist_local(row_leaf, lid, sbins, *sw_int, N_BINS,
+                                 plan=plan)
                 if not torch.equal(got, plain):
                     emit(kernel="hist_local", shard=f"{n_loc}x{fc}",
                          leaf=name, design=dname,
                          error="differs from the plain version")
                     continue
                 calls[dname] = (lambda pl=plan: hist_local(
-                    row_leaf, lid, sbins, *sw_f32, N_BINS, cnt, pl))
+                    row_leaf, lid, sbins, *sw_f32, N_BINS, plan=pl))
             if base is not None:
                 # a baseline that takes the leaf's bound gets it, as the
                 # grower gives it

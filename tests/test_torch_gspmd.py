@@ -478,22 +478,17 @@ def test_steps_after_the_stop_change_nothing_but_sinks(shape, slots):
         assert torch.equal(v, w), k
 
 
-def test_booster_passes_its_split_loop():
-    """``train`` holds one learner across trees and hands it the
-    booster's ``split_loop``: the eager loop on the CPU, where asking for
-    the graph raises."""
+def test_booster_holds_one_learner_across_trees():
+    """``train`` makes the learner once and grows every tree with it, on
+    the loop it picks: the eager loop on the CPU, with no graph."""
     x, y = _task(n=1000)
     bst = _train_port(x, y, rounds=2, gspmd_hist="fused")
     inner = bst.inner
     learner = inner._gspmd
-    assert inner.split_loop is None and learner.graph is None
+    assert learner.graph is None and learner.loop(None) == "eager"
     assert inner.stats["steps"] >= inner.stats["splits"] > 0
-    inner.split_loop = "eager"
     bst.update()
-    assert inner._gspmd is learner
-    inner.split_loop = "graph"
-    with pytest.raises(ValueError, match="loop='graph'"):
-        bst.update()
+    assert inner._gspmd is learner and inner.stats["trees"] == 3
 
 
 def test_loop_choice_and_captured_inputs():

@@ -223,7 +223,7 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_plan():
         row_leaf = t((np.arange(N) % 3).astype(np.int32))
         lid = torch.tensor([1], dtype=torch.int32)
         got = hist_local(row_leaf, lid, t(bins), t(g), t(h), t(c), 63,
-                         rows_upper_bound=N, plan=plan)
+                         plan=plan)
         np.testing.assert_array_equal(got.numpy(), hist_local(
             row_leaf, lid, t(bins), t(g), t(h), t(c), 63).numpy())
     assert hist_window.launches == hist_local.launches == 0
@@ -318,8 +318,7 @@ def test_local_device_plan_gates_at_the_threshold(n_loc, n_feat):
     ``n_loc`` rows (the host's bound), the small kernel's scan grid, and a
     gate that gives counts up to SMALL_MAX_ROWS_LOCAL to the small kernel
     and larger ones to the large kernel."""
-    from lightgbm_tpu_torch.ops.histogram import (device_kernel,
-                                                  plan_device_local)
+    from lightgbm_tpu_torch.ops.histogram import plan_device_local
     plan = plan_device_local(n_loc, n_feat, 255, num_sms=H100_SMS)
     large = plan_launch(n_loc, n_feat, 255, n_loc, num_sms=H100_SMS,
                         small_max_rows=-1)
@@ -334,9 +333,7 @@ def test_local_device_plan_gates_at_the_threshold(n_loc, n_feat):
                           (65_535, "small"), (65_536, "small"),
                           (65_537, "large"), (n_loc, "small" if n_loc <=
                                                65_536 else "large")):
-        assert device_kernel(plan, count) == kernel, count
-    with pytest.raises(ValueError):
-        device_kernel(large, 10)
+        assert ("small" if count <= plan.split_rows else "large") == kernel
 
 
 @pytest.mark.parametrize("cnt", [0, 1000, 65_535, 65_536, 65_537, 140_000])
