@@ -135,6 +135,43 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    eager, eager, graph), and one profiled tree of each loop: device-busy
    share, launch calls, host reads.
 
+2h. (before phase 8, on its labels) the lambdarank kernel against its
+   plain version on the card, float32: per document |dg| <= 1e-5 x the
+   sum of |lam| over its pairs + 1e-7, and the same for h with |hes|, on
+   queries of 1, 2, 31, 120, 1,251 and 10,000 documents (the last past the
+   kernel's shared-memory staging), all-equal scores, all-zero labels and
+   tied scores, with and without weights, and on the whole MS-LTR-shaped
+   training set at random scores; with its times there (single,
+   back-to-back, device), the plain version's, and the bound (bytes, or
+   each pair's exp and reciprocals at the special-function rate);
+8. the MS-LTR-shaped lambdarank task at full width: seeded synthetic
+   MSLR-WEB30K-like data (2,270,296 x 137 float32 in 18,919 queries of
+   mean length 120, the longest 1,251; labels 0-4 in MSLR's shares;
+   750,000 held-out rows in 6,000 queries), ``train`` 10 rounds with 255
+   leaves and 255 bins, ``ndcg_eval_at=1,3,5,10``; the kernels of phase
+   3b plus one lambdarank launch a round, at most 9 host reads a tree,
+   held-out NDCG@1/3/5/10 above round 1's, and the gradient's ms a round
+   by the kernel and by the plain version on the card;
+8b. the card against the CPU on 200,000 rows of the same generator, 3
+   rounds: the first tree identical in structure up to its first
+   near-tie (the gradients are real-valued and the card adds them in
+   another order, so a split whose float64 gain differs from the other
+   choice's by less than the float32 sums' rounding may go either way;
+   :func:`near_tie` checks that in float64), NDCG on phase 8's 6,000
+   held-out queries within 1e-3, and the
+   card's model saved beside the script, reloaded predicting the same,
+   and removed;
+9. the Covertype-shaped multiclass task: 581,012 x 54 (10 continuous, 4
+   wilderness and 40 soil one-hot columns), 7 classes in Covertype's
+   shares, an 80/20 split, ``multiclass`` 3 rounds (21 trees) with 255
+   leaves: one capture of the split step, every later step of every tree
+   a replay;
+9b. one round of ``multiclassova`` on the same data;
+9c. one round over the 4x1 data-parallel mesh on the one card: held-out
+   multi_logloss within 1e-4 of phase 9's first round;
+9d. the card against the CPU at 100,000 rows, 2 rounds: the first
+   round's 7 trees identical in structure up to their first near-ties.
+
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
 and 3 rounds of phase 6's path.
@@ -165,6 +202,16 @@ N_EXPO = 11_000_000           # training rows of the Expo-shaped path
 EXPO_CATEGORICAL = [0, 1, 2, 4, 5, 6]
 MESH_SLOTS = 4                # mesh slots of the data-parallel paths
 SEED = 20240611
+H100_SFU_OPS_PER_S = 132 * 16 * 1.98e9   # 132 SMs x 16 MUFU results a
+#   clock (exp2, reciprocal: CUDA C programming guide, compute capability
+#   9.0 throughput table) x the 1.98 GHz boost clock behind the data
+#   sheet's 67 TFLOP/s float32
+N_MSLR, Q_MSLR = 2_270_296, 18_919    # MSLR-WEB30K fold 1 (LightGBM's
+#                                       Experiments page)
+MSLR_LONGEST = 1_251
+Q_MSLR_HELDOUT, N_MSLR_HELDOUT = 6_000, 750_000
+N_COVTYPE = 581_012
+COVTYPE_SHARES = (0.365, 0.488, 0.062, 0.005, 0.016, 0.030, 0.035)
 
 
 def fail(msg: str) -> None:
@@ -365,7 +412,7 @@ def auc(score: np.ndarray, label: np.ndarray) -> float:
     md = Metadata(len(label))
     md.set_label(label)
     m.init(md, len(label))
-    return m.eval(np.asarray(score, np.float64)[None], None)
+    return m.eval(np.asarray(score, np.float64)[None], None)[0]
 
 
 MARKERS = 32          # spin kernels that open a profiled window
@@ -421,6 +468,7 @@ def device_ms(fn, names):
 # call of a host-picked regime launches its small or its large kernel, one
 # of the device regime both; a partition call launches all three
 KERNELS = {"hist_window": ("hist_gather_small", "hist_gather_large"),
+           "lambdarank_grad": ("lgbt_lambdarank",),
            "hist_local": ("hist_local_small", "hist_local_large"),
            "partition_window": ("lgbt_partition_small",
                                 "lgbt_partition_count",
@@ -1604,18 +1652,31 @@ def graph_vs_eager(name, ds, y, dev_names, **cfg_kw):
 def _kernel_wrappers():
     """Every kernel wrapper of the paths, by name."""
     from lightgbm_tpu_torch.ops.histogram import hist_local, hist_window
+    from lightgbm_tpu_torch.ops.lambdarank import lambdarank_grad
     from lightgbm_tpu_torch.ops.partition import partition_window
     from lightgbm_tpu_torch.ops.route import route_rows, route_window
     from lightgbm_tpu_torch.ops.split import cat_group_accept
     return {f.__name__: f for f in (hist_window, hist_local, partition_window,
                                     route_window, route_rows,
-                                    cat_group_accept)}
+                                    cat_group_accept, lambdarank_grad)}
 
 
-def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
+def auc_quality(bst, pred, x_te, y_te) -> dict:
+    """The binary paths' held-out check: an AUC of a learned model."""
+    test_auc = auc(pred, y_te)
+    if not 0.6 < test_auc <= 1.0:
+        fail(f"held-out AUC {test_auc} is not that of a learned model")
+    return {"heldout_auc": f"{test_auc:.6f}"}
+
+
+def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
+               group=None, quality=auc_quality):
     """Drive one path through ``train`` and ``predict`` with the kernel
     counts set to 0 just before and read just after; returns its numbers
-    and the booster.
+    and the booster.  ``group`` gives the training queries' sizes;
+    ``quality(bst, pred, x_te, y_te)`` checks the held-out predictions and
+    returns its numbers.  With K trees a round, the profiled update grows
+    K trees, and its numbers "a tree" are the round's over K.
 
     On the graph loop a wrapper counts once at the capture, which launches
     nothing, and never at a replay, which launches: the launches are the
@@ -1627,7 +1688,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     from lightgbm_tpu_torch.ops.partition import SMALL_MAX_ROWS
     fns = _kernel_wrappers()
     t0 = time.perf_counter()
-    ds = Dataset(x_tr, y_tr, params=params).construct()
+    ds = Dataset(x_tr, y_tr, group=group, params=params).construct()
     torch.cuda.synchronize()
     t_data = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -1654,6 +1715,8 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     pred = bst.predict(x_te)
     t_pred = time.perf_counter() - t0
     trees, splits = stats["trees"], stats["splits"]
+    K = bst.inner.num_class
+    rounds_run = trees // K
     if splits != sum(m.num_leaves - 1 for m in bst.inner.models):
         fail(f"{name}: {splits} splits counted, the models hold "
              f"{sum(m.num_leaves - 1 for m in bst.inner.models)}")
@@ -1690,7 +1753,9 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
             "partition_window": steps if compact and not shards else 0,
             "route_window": 0 if shards else steps,
             "route_rows": holders * steps,
-            "cat_group_accept": trees + steps if categorical else 0}
+            "cat_group_accept": trees + steps if categorical else 0,
+            "lambdarank_grad": (rounds_run if params["objective"]
+                                == "lambdarank" else 0)}
     if launches != want or sum(launches.values()) == 0:
         fail(f"{name}: kernel launches {launches} (counted {raw}), "
              f"expected {want} ({shards} mesh slots, {trees} trees, "
@@ -1711,13 +1776,11 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
         fail(f"{name}: {syncs_per_tree} host reads a tree on the graph loop")
     if graph and not stats["graph_replays"]:
         fail(f"{name}: the graph loop replayed no step")
-    if pred.shape != (len(y_te),) or not np.isfinite(pred).all():
+    if (pred.shape != ((len(y_te),) if K == 1 else (len(y_te), K))
+            or not np.isfinite(pred).all()):
         fail(f"{name}: held-out predictions are not finite of the expected "
              f"shape")
-    test_auc = auc(pred, y_te)
-    if not 0.6 < test_auc <= 1.0:
-        fail(f"{name}: held-out AUC {test_auc} is not that of a learned "
-             f"model")
+    held_out = quality(bst, pred, x_te, y_te)
 
     # device time of the kernels over one more tree (profiling two made
     # the script take more than half its time limit)
@@ -1729,17 +1792,20 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
     wall, per, all_ms, host, calls, ran = res
     st1 = prof_bst.inner.stats
     replays = st1.get("graph_replays", 0) - st0.get("graph_replays", 0)
-    tree_launches = {k: fn.launches - snap[0][k] + replays
-                     * per_step.get(k, 0) for k, fn in fns.items()}
+    tree_launches = {k: (fn.launches - snap[0][k] + replays
+                         * per_step.get(k, 0)) / K for k, fn in fns.items()}
     tree_kernels = dict(
-        partition_calls_per_tree=tree_launches["partition_window"],
-        route_launches_per_tree=tree_launches["route_window"],
-        route_rows_launches_per_tree=tree_launches["route_rows"],
-        cat_group_launches_per_tree=tree_launches["cat_group_accept"],
-        host_syncs_in_profiled_tree=st1["host_syncs"] - st0["host_syncs"],
-        **{f"{k}_ran_in_profiled_tree": v for k, v in ran.items()},
+        partition_calls_per_tree=f"{tree_launches['partition_window']:g}",
+        route_launches_per_tree=f"{tree_launches['route_window']:g}",
+        route_rows_launches_per_tree=f"{tree_launches['route_rows']:g}",
+        cat_group_launches_per_tree=f"{tree_launches['cat_group_accept']:g}",
+        lambdarank_launches_per_round=round(
+            tree_launches["lambdarank_grad"] * K),
+        trees_in_profiled_round=K,
+        host_syncs_in_profiled_tree=f"{(st1['host_syncs'] - st0['host_syncs']) / K:g}",
+        **{f"{k}_ran_in_profiled_round": v for k, v in ran.items()},
         trees_profiled_again=len(missed),
-        **{f"{k}_calls_per_tree": v for k, v in calls.items()})
+        **{f"{k}_calls_per_tree": f"{v / K:g}" for k, v in calls.items()})
     if tree_launches["partition_window"]:
         # three launches a call; which windows did the small launch's
         # work and which the count and write launches', from the tree's
@@ -1748,8 +1814,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
         counts = last.internal_count[:last.num_leaves - 1]
         small = int((counts <= SMALL_MAX_ROWS).sum())
         tree_kernels.update(
-            partition_launches_per_tree=sum(
-                ran[k] for k in KERNELS["partition_window"]),
+            partition_launches_per_tree=f"{sum(ran[k] for k in KERNELS['partition_window']) / K:g}",
             partition_small_windows_per_tree=small,
             partition_large_windows_per_tree=len(counts) - small)
         # the sum of the tree's per-call bounds: every partitioned position
@@ -1759,15 +1824,17 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
         positions = (st1["partition_positions"]
                      - st0.get("partition_positions", 0))
         bound = part_bound_bytes(positions, widths) / H100_BYTES_PER_S
-        tree_kernels["partition_bound_ms_per_tree"] = f"{bound * 1e3:.4f}"
+        tree_kernels["partition_bound_ms_per_tree"] = (
+            f"{bound * 1e3 / K:.4f}")
     if shards and tree_launches["hist_local"]:
         # which kernel of each device-regime call did the work
         tree_kernels.update(k3_work(prof_bst.inner._gspmd,
                                     st1["steps"] - st0["steps"]))
-    phase(f"{name}_host_ops", profiled_s=f"{wall:.3f}", **{
-        key.replace(" ", "_"): f"{ms:.1f}ms/tree,{count}calls/tree"
+    phase(f"{name}_host_ops", profiled_s=f"{wall:.3f}", trees=K, **{
+        key.replace(" ", "_"): f"{ms / K:.1f}ms/tree,{count / K:g}calls/tree"
         for ms, key, count in host})
     out = dict(rows=len(y_tr), features=x_tr.shape[1], trees=trees,
+               rounds=rounds_run, trees_per_round=K,
                splits=splits, steps=stats.get("steps", splits),
                graph_replays=stats.get("graph_replays", 0),
                loop="graph" if graph else "eager",
@@ -1777,9 +1844,9 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names):
                host_syncs_per_split=f"{stats['host_syncs'] / splits:.4f}",
                host_syncs_per_tree=f"{syncs_per_tree:.3f}",
                peak_mem_bytes=peak, predict_s=f"{t_pred:.3f}",
-               heldout_auc=f"{test_auc:.6f}", **tree_kernels)
+               **held_out, **tree_kernels)
     for n, ms in per.items():   # 0 for a kernel this path does not run
-        out[f"{n}_device_ms_per_tree"] = (f"{ms:.3f}" if all_ms
+        out[f"{n}_device_ms_per_tree"] = (f"{ms / K:.3f}" if all_ms
                                           else "not measured")
     out["device_busy_share"] = (f"{all_ms / (wall * 1e3):.4f}" if all_ms
                                 else "not measured")
@@ -1997,6 +2064,543 @@ def flat_vs_fused(params, x, y, x_te):
         fail(f"gspmd flat vs fused predictions differ by {rel} (rtol 2e-5)")
 
 
+def query_sizes(nq: int, total: int, longest: int,
+                rng: np.random.Generator) -> np.ndarray:
+    """``nq`` query lengths summing to ``total``, the largest ``longest``:
+    a lognormal body (most queries near the mean, a long tail) rounded and
+    clipped to [1, longest], then one document added to (or taken from)
+    each of as many random queries as the sum is off, until it is exact."""
+    mean = total / nq
+    sizes = rng.lognormal(np.log(mean) - 0.5 * 0.8 ** 2, 0.8, nq)
+    sizes = np.clip(np.rint(sizes), 1, longest).astype(np.int64)
+    sizes[int(np.argmax(sizes))] = longest
+    top = int(np.argmax(sizes))
+    while sizes.sum() != total:
+        step = 1 if sizes.sum() < total else -1
+        can = np.nonzero((sizes + step >= 1) & (sizes + step < longest))[0]
+        can = can[can != top]
+        k = min(abs(int(total - sizes.sum())), len(can))
+        sizes[rng.choice(can, k, replace=False)] += step
+    return sizes
+
+
+def mslr_like(sizes: np.ndarray, rng: np.random.Generator):
+    """MS-LTR-shaped ranking data for queries of ``sizes``: 137 float32
+    columns as MSLR-WEB30K's ranker features are (70 dense continuous
+    scores, 40 integer counts, 27 mostly-zero), and labels 0-4 in about
+    MSLR's shares (51 / 33 / 12 / 3 / 1 %) from a per-query latent
+    relevance plus a rule on ten of the columns plus noise, cut at the
+    shares' quantiles."""
+    n = int(sizes.sum())
+    x = np.empty((n, 137), np.float32)
+    x[:, :70] = rng.standard_normal((n, 70), dtype=np.float32)
+    x[:, 70:110] = rng.poisson(3.0, (n, 40)).astype(np.float32)
+    sparse = rng.lognormal(0.0, 1.0, (n, 27)).astype(np.float32)
+    sparse[rng.random((n, 27), dtype=np.float32) < 0.9] = 0.0
+    x[:, 110:] = sparse
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    latent = rng.normal(0.0, 0.7, len(sizes)).astype(np.float32)[qid]
+    z = (0.9 * x[:, 0] + 0.6 * x[:, 3] - 0.5 * x[:, 7] * x[:, 8]
+         + 0.4 * np.tanh(x[:, 11]) + 0.15 * x[:, 70] - 0.1 * x[:, 75]
+         + 0.3 * np.log1p(x[:, 110]) + 0.2 * (x[:, 20] > 1.0) + latent
+         + rng.standard_normal(n, dtype=np.float32) * 0.8)
+    cuts = np.quantile(z, [0.51, 0.84, 0.96, 0.99])
+    y = np.searchsorted(cuts, z).astype(np.float32)
+    return x, y
+
+
+def covtype_like(n: int, rng: np.random.Generator):
+    """Covertype-shaped multiclass data: 10 continuous columns (elevation,
+    aspect, slope, four distances, three hillshades), 4 wilderness-area and
+    40 soil-type one-hot columns, and 7 cover types in Covertype's shares,
+    cut from an elevation-led score (lowest: Cottonwood, Ponderosa, then
+    Douglas-fir, Aspen, Lodgepole, Spruce/Fir, highest Krummholz)."""
+    area = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    soil = (rng.choice(40, n, p=np.r_[np.full(10, 0.01),
+                                      np.full(10, 0.05),
+                                      np.full(20, 0.02)])
+            + area * 3) % 40
+    elev = (2950 + np.asarray([120, 60, -90, -420])[area]
+            + rng.normal(0, 40, 40)[soil] + rng.normal(0, 230, n))
+    aspect = rng.uniform(0, 360, n)
+    slope = np.clip(rng.gamma(3.0, 4.7, n), 0, 66)
+    hyd_h = rng.gamma(1.7, 160, n)
+    hyd_v = rng.normal(46, 58, n)
+    road = rng.gamma(1.6, 1450, n)
+    fire = rng.gamma(1.7, 1170, n)
+    hill = np.clip(np.stack([
+        212 + 27 * np.cos(np.radians(aspect - 60)) - slope,
+        223 + 20 * np.sin(np.radians(aspect)) - 0.3 * slope,
+        142 - 38 * np.cos(np.radians(aspect - 60)) + 0.5 * slope], 1)
+        + rng.normal(0, 12, (n, 3)), 0, 254)
+    x = np.zeros((n, 54), np.float32)
+    x[:, :10] = np.column_stack([elev, aspect, slope, hyd_h, hyd_v, road,
+                                 hill, fire])
+    x[np.arange(n), 10 + area] = 1.0
+    x[np.arange(n), 14 + soil] = 1.0
+    score = (elev + 0.05 * road - 0.03 * fire - 1.5 * slope
+             + rng.normal(0, 25, 40)[soil] + rng.normal(0, 60, n))
+    by_height = [3, 2, 5, 4, 1, 0, 6]        # cover types, lowest first
+    shares = np.asarray(COVTYPE_SHARES)[by_height]
+    cuts = np.quantile(score, np.cumsum(shares)[:-1])
+    y = np.asarray(by_height)[np.searchsorted(cuts, score)]
+    return x, y.astype(np.float32)
+
+
+def ndcg_at(pred: np.ndarray, y: np.ndarray, sizes, eval_at) -> list:
+    """The port's NDCG@k of ``pred`` on queries ``sizes``."""
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.data.metadata import Metadata
+    from lightgbm_tpu_torch.metrics import NDCGMetric
+    m = NDCGMetric(config_from_params({"ndcg_eval_at": list(eval_at),
+                                       "device": "cpu"}))
+    md = Metadata(len(y))
+    md.set_label(y)
+    md.set_query(sizes)
+    m.init(md, len(y))
+    return m.eval(np.asarray(pred, np.float64)[None], None)
+
+
+def lambdarank_pairs(y: np.ndarray, bounds: np.ndarray) -> np.ndarray:
+    """Each query's pairs of unequal labels: (n^2 - sum of squared label
+    counts) / 2."""
+    sizes = np.diff(bounds)
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    counts = np.zeros((len(sizes), int(y.max()) + 1), np.int64)
+    np.add.at(counts, (qid, y.astype(np.int64)), 1)
+    return (sizes.astype(np.int64) ** 2 - (counts ** 2).sum(1)) // 2
+
+
+def lambdarank_bound_ms(y, bounds, degenerate, weighted: bool):
+    """Least time of one gradient call: each row's score, label, g, h (and
+    weight) and each query's bound and inverse max DCG over the memory
+    rate, or each pair's exp and reciprocals (three; two in a degenerate
+    query, which divides by no score gap) over the special-function rate,
+    counted from these queries' labels.  Returns (ms, "bytes" or
+    "operations")."""
+    n, q = len(y), len(bounds) - 1
+    nbytes = n * (16 + 4 * weighted) + 8 * q + 4
+    pairs = lambdarank_pairs(y, bounds)
+    ops = int((pairs * np.where(degenerate, 2, 3)).sum())
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_SFU_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def check_lambdarank(dev, rng, mslr_x_y=None):
+    """Phase 2h: the lambdarank kernel against its plain version on the
+    card, float32.  Per document |dg| <= 1e-5 * (its pairs' sum of |lam|)
+    + 1e-7, and the same for h with |hes|, over: queries of 1, 2, 31, 120
+    and 1,251 documents and one of 10,000 (past the kernel's shared-memory
+    staging), all-equal scores (degenerate), all-zero labels (inverse max
+    DCG 0), tied scores, with and without weights; and the whole MS-LTR
+    training set at random scores.  Times of the whole set: single, b2b,
+    device, the plain version's, and the bound."""
+    import torch
+    from lightgbm_tpu_torch.ops.lambdarank import (STAGE_MAX,
+                                                   lambdarank_grad,
+                                                   lambdarank_grad_plain,
+                                                   lambdarank_tables)
+
+    def case(sizes, y, s, w=None):
+        bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+        inv, gains, disc = lambdarank_tables(y, bounds, None, 20)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        args = (put(s.astype(np.float32)), put(y.astype(np.int32)),
+                put(bounds), put(inv), put(gains), put(disc), 1.0)
+        wt = None if w is None else put(w.astype(np.float32))
+        return args, wt, int(np.max(sizes)), bounds
+
+    def held(label, args, wt, max_len):
+        g, h = lambdarank_grad(*args, max_len=max_len, weight=wt)
+        pg, ph, la, ha = lambdarank_grad_plain(*args, weight=wt,
+                                               abs_sums=True)
+        torch.cuda.synchronize()
+        wscale = 1.0 if wt is None else wt.abs()
+        eg, eh = (g - pg).abs(), (h - ph).abs()
+        ok = bool(((eg <= 1e-5 * la * wscale + 1e-7).all()
+                   & (eh <= 1e-5 * ha * wscale + 1e-7).all()).item())
+        err = float(torch.maximum(eg.max(), eh.max()))
+        if not ok or not torch.isfinite(g).all() or not torch.isfinite(h).all():
+            fail(f"lambdarank kernel vs plain ({label}): beyond |d| <= 1e-5 "
+                 f"* sum|lam| + 1e-7, max abs err {err}")
+        return err, g
+
+    sizes = np.asarray([1, 2, 31, 120, MSLR_LONGEST, 10_000, 50, 40, 200])
+    n = int(sizes.sum())
+    y = rng.integers(0, 5, n).astype(np.float32)
+    s = rng.standard_normal(n).astype(np.float32)
+    b = np.concatenate([[0], np.cumsum(sizes)])
+    s[b[6]:b[7]] = 0.375                       # all-equal scores
+    y[b[7]:b[8]] = 0                           # all-zero labels
+    s[b[8]:b[9]] = np.round(s[b[8]:b[9]] * 2) / 2   # tied scores
+    w = rng.uniform(0.5, 2.0, n)
+    if sizes.max() <= STAGE_MAX:
+        fail("lambdarank: no case past the shared-memory staging")
+    errs = {}
+    for label, wt_host in (("cases", None), ("cases_weighted", w)):
+        args, wt, max_len, bounds = case(sizes, y, s, wt_host)
+        errs[label], g = held(label, args, wt, max_len)
+        gq = g.cpu().numpy()
+        if gq[0] != 0 or gq[b[7]:b[8]].any():
+            fail("lambdarank: a lone or all-zero-label document has a "
+                 "gradient")
+    x_, y_all, sizes_all = mslr_x_y
+    s_all = rng.standard_normal(len(y_all)).astype(np.float32)
+    args, wt, max_len, bounds = case(sizes_all, y_all, s_all)
+    errs["mslr_train"], _ = held("mslr_train", args, None, max_len)
+    kernel = lambda: lambdarank_grad(*args, max_len=max_len)
+    dev_ms, _ = profiled_ms(kernel, calls=20)
+    out = dict(ms=cuda_ms(kernel), ms_many=cuda_ms_many(kernel, calls=50),
+               device_ms=dev_ms,
+               plain_ms=cuda_ms(lambda: lambdarank_grad_plain(*args),
+                                reps=1, warmup=1),
+               max_abs_err=max(errs.values()))
+    # random scores: no query of two or more documents is degenerate
+    out["bound_ms"], out["bound_by"] = lambdarank_bound_ms(
+        y_all, bounds, sizes_all < 2, False)
+    phase("lambdarank_vs_plain", cases=":".join(map(str, sizes)),
+          stage_max=STAGE_MAX, tolerance="1e-5*sum|lam|+1e-7",
+          mslr_rows=len(y_all), mslr_queries=len(sizes_all),
+          **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
+          **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+             for k, v in out.items()})
+    return out
+
+
+MSLR_EVAL_AT = (1, 3, 5, 10)
+
+
+def mslr_quality(sizes_te):
+    """Phase 8's held-out check: NDCG@1/3/5/10 of the model above those
+    of its first round."""
+    def check(bst, pred, x_te, y_te) -> dict:
+        first = ndcg_at(bst.predict(x_te, num_iteration=1), y_te, sizes_te,
+                        MSLR_EVAL_AT)
+        last = ndcg_at(pred, y_te, sizes_te, MSLR_EVAL_AT)
+        if not all(b > a for a, b in zip(first, last)):
+            fail(f"held-out NDCG@{MSLR_EVAL_AT} {last} not above the first "
+                 f"round's {first}")
+        return {**{f"heldout_ndcg@{k}": f"{v:.6f}"
+                   for k, v in zip(MSLR_EVAL_AT, last)},
+                **{f"round1_ndcg@{k}": f"{v:.6f}"
+                   for k, v in zip(MSLR_EVAL_AT, first)}}
+    return check
+
+
+def multi_metrics(prob: np.ndarray, y: np.ndarray):
+    """multi_logloss and multi_error of ``[N, K]`` probabilities."""
+    p = np.clip(prob[np.arange(len(y)), y.astype(np.int64)], 1e-15, None)
+    return (float(-np.log(p).mean()),
+            float((prob.argmax(1) != y.astype(np.int64)).mean()))
+
+
+def covtype_quality(bst, pred, x_te, y_te) -> dict:
+    """Phase 9's held-out check: multi_logloss below the first round's
+    and below log(7), the error below 0.5."""
+    first = multi_metrics(bst.predict(x_te, num_iteration=1), y_te)
+    last = multi_metrics(pred, y_te)
+    if not (last[0] <= first[0] < np.log(7.0) and last[1] < 0.5):
+        fail(f"held-out multi_logloss/multi_error {last} (first round "
+             f"{first}) are not those of a learned model")
+    return {"heldout_multi_logloss": f"{last[0]:.6f}",
+            "heldout_multi_error": f"{last[1]:.6f}",
+            "round1_multi_logloss": f"{first[0]:.8f}",
+            "round1_multi_error": f"{first[1]:.6f}"}
+
+
+TREE_STRUCTURE = ("split_feature", "threshold", "decision_type",
+                  "left_child", "right_child", "leaf_count")
+# float32's unit roundoff: a sum of n float32 values in any order is off
+# by at most (n - 1) of it times the sum of their magnitudes
+F32_U = 2.0 ** -24
+
+
+def first_split_difference(a, b):
+    """The first split (in the order the grower made them) at which trees
+    ``a`` and ``b`` differ in ``TREE_STRUCTURE``, or None; the split
+    records of a leaf-wise grower up to there are the same splits of the
+    same rows."""
+    for k in range(min(a.num_leaves, b.num_leaves) - 1):
+        if any(getattr(a, f)[k] != getattr(b, f)[k]
+               for f in ("split_feature", "threshold", "decision_type")):
+            return k
+    if a.num_leaves != b.num_leaves:
+        return min(a.num_leaves, b.num_leaves) - 1
+    if not all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in TREE_STRUCTURE):
+        return 0
+    return None
+
+
+def node_rows(tree, bins, col_of, k):
+    """The rows of uint8 ``bins`` that reach node ``k`` of ``tree``: every
+    row routed through the nodes before k in their order (a node is made
+    after its parent), ``bin <= threshold_bin`` going left (these tasks
+    have no missing values)."""
+    cur = np.zeros(len(bins), np.int64)
+    for nd in range(k):
+        sel = np.nonzero(cur == nd)[0]
+        left = (bins[sel, col_of[int(tree.split_feature[nd])]]
+                <= tree.threshold_bin[nd])
+        cur[sel] = np.where(left, tree.left_child[nd], tree.right_child[nd])
+    return cur == k
+
+
+def split_gain64(g, h, rows, left):
+    """A split's gain sum(G^2 / H) over its children less its leaf's, in
+    float64 (lambda 0); its sensitivity to the sums (each term G^2 / H
+    moves by 2 |G| / H dG + G^2 / H^2 dH, for dG and dH the sums of |g|
+    and |h| times a relative error); its children's hessian sums and their
+    sums of |h|."""
+    gain = scale = 0.0
+    hs, habs = [], []
+    for sign, m in ((1.0, rows & left), (1.0, rows & ~left), (-1.0, rows)):
+        gm, hm = g[m], h[m]
+        G, H = gm.sum(), hm.sum()
+        gain += sign * G * G / H
+        scale += (2.0 * abs(G) / H * np.abs(gm).sum()
+                  + G * G / (H * H) * np.abs(hm).sum())
+        hs.append(H)
+        habs.append(np.abs(hm).sum())
+    return gain, scale, hs[:2], habs[:2]
+
+
+def near_tie(tc, tg, k, bins, col_of, g, h, min_hess):
+    """Whether the first difference of trees ``tc`` and ``tg`` (the CPU's
+    and the card's, identical before split ``k``) is a choice that the
+    float32 sums' rounding can decide: both trees' split ``k`` evaluated
+    in float64 on the same gradients ``g``, ``h`` (their leaves' rows
+    checked against the trees' own counts), their gains closer than the
+    worst float32 error of the sums behind them, a histogram bin's rows
+    and the split scan's 256 bins added in any order ((n + 256) x
+    ``F32_U`` of the sums of magnitudes, n the larger leaf's rows), or a
+    child's hessian sum that close to ``min_hess``.  A tree that stops
+    first has a split of gain 0 there.  Returns (near, the float64 gap
+    over its allowance)."""
+    evals, n = [], 0
+    for t in (tc, tg):
+        if k >= t.num_leaves - 1:
+            evals.append((0.0, 0.0, [], []))
+            continue
+        rows = node_rows(t, bins, col_of, k)
+        if int(rows.sum()) != int(t.internal_count[k]):
+            fail(f"near_tie: {int(rows.sum())} rows reach node {k}, the "
+                 f"tree counts {int(t.internal_count[k])}")
+        n = max(n, int(rows.sum()))
+        left = (bins[:, col_of[int(t.split_feature[k])]]
+                <= t.threshold_bin[k])
+        evals.append(split_gain64(g, h, rows, left))
+    (ga, sa, ha, aa), (gb, sb, hb, ab) = evals
+    u = (n + 256) * F32_U
+    gap = abs(ga - gb) / max(u * max(sa, sb), 1e-300)
+    on_bound = any(abs(x - min_hess) <= u * a
+                   for x, a in zip(ha + hb, aa + ab))
+    return gap <= 1.0 or on_bound, gap
+
+
+def card_vs_cpu_trees(name, params, x, y, x_te, rounds, first_trees,
+                      group=None):
+    """The card against the CPU on the same data: the first round's
+    ``first_trees`` trees identical in structure (``TREE_STRUCTURE``: the
+    same splits of the same rows).  Their gradients are real-valued and
+    the card adds them in another order, so two candidate splits whose
+    gains differ by less than the sums' rounding are taken in either
+    order: a tree that differs passes only where its first differing split
+    is such a near-tie in float64 (:func:`near_tie`), identical before it.
+    Returns both boosters with their held-out predictions, and the
+    numbers."""
+    import torch
+    from lightgbm_tpu_torch import Dataset, train
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = dict(params, device=device)
+        b = train(p, Dataset(x, y, group=group, params=p),
+                  num_boost_round=rounds, verbose_eval=False)
+        out[device] = (b, b.predict(x_te))
+    cpu = out["cpu"][0].inner
+    bins = cpu.train_set.binned
+    col_of = {f: i for i, f in enumerate(cpu.train_set.used_features)}
+    # the first round's gradients, from scores of 0 (no init score, no
+    # boost from average for these objectives)
+    g, h = (a.double().numpy() for a in cpu.objective.get_gradients(
+        torch.zeros((cpu.num_class, cpu.num_data))))
+    pairs = list(zip(cpu.models[:first_trees],
+                     out["cuda"][0].inner.models[:first_trees]))
+    identical, ties, bad = 0, [], []
+    for i, (tc, tg) in enumerate(pairs):
+        k = first_split_difference(tc, tg)
+        if k is None:
+            identical += 1
+            continue
+        near, rel = near_tie(tc, tg, k, bins, col_of, g[i], h[i],
+                             cpu.config.min_sum_hessian_in_leaf)
+        where = f"{i}:{k}:f{tc.split_feature[k] if k < tc.num_leaves - 1 else '-'}" \
+                f"/f{tg.split_feature[k] if k < tg.num_leaves - 1 else '-'}:{rel:.2e}"
+        (ties if near else bad).append(where)
+    same = [first_split_difference(tc, tg) is None for tc, tg in pairs]
+    dv = max((float(np.abs(tc.leaf_value - tg.leaf_value).max())
+              for (tc, tg), s in zip(pairs, same) if s), default=float("nan"))
+    numbers = {"first_trees": first_trees, "identical_trees": identical,
+               "near_tie_trees": ",".join(ties) or "none",
+               "max_leaf_value_diff_identical": f"{dv:.3e}"}
+    if bad:
+        fail(f"{name}: trees differ between the card and the CPU beyond a "
+             f"near-tie (tree:split:features:float64 gap over the float32 "
+             f"sums' worst error): {bad}")
+    return out, numbers
+
+
+def rank_card_vs_cpu(params, rng, run_dir, heldout):
+    """Phase 8b: the MS-LTR-shaped generator at 200,000 rows (1,650
+    queries), 3 rounds on the card and on the CPU: the first tree
+    identical in structure (up to a near-tie, :func:`card_vs_cpu_trees`),
+    NDCG@1/3/5/10 within 1e-3 on phase 8's held-out queries ``heldout``
+    (x, y, sizes: 6,000 queries, so that one query's reordered top
+    documents move an NDCG by under 2e-4), and the card's model saved,
+    reloaded and predicting the same."""
+    from lightgbm_tpu_torch import Booster
+    x_te, y_te, sizes_te = heldout
+    sizes = query_sizes(1_650, 200_000, MSLR_LONGEST, rng)
+    x, y = mslr_like(sizes, rng)
+    n = int(sizes.sum())
+    out, same = card_vs_cpu_trees("rank_card_vs_cpu", params, x, y, x_te, 3,
+                                  1, group=sizes)
+    nd = {d: ndcg_at(out[d][1], y_te, sizes_te, MSLR_EVAL_AT) for d in out}
+    gap = max(abs(a - b) for a, b in zip(nd["cpu"], nd["cuda"]))
+    path = os.path.join(run_dir, "rank_model.txt.tmp")
+    out["cuda"][0].save_model(path)
+    again = Booster(model_file=path, params={"device": "cuda"}).predict(x_te)
+    os.remove(path)
+    reload_same = bool(np.array_equal(again, out["cuda"][1]))
+    phase("rank_card_vs_cpu", rows=n, queries=len(sizes), rounds=3,
+          heldout_queries=len(sizes_te), **same,
+          ndcg_gap=f"{gap:.3e}", reload_predicts_same=reload_same,
+          **{f"{d}_ndcg@{k}": f"{v:.6f}" for d in nd
+             for k, v in zip(MSLR_EVAL_AT, nd[d])})
+    if gap > 1e-3:
+        fail(f"rank card vs CPU: held-out NDCG differ by {gap} (limit 1e-3)")
+    if not reload_same:
+        fail("rank: the saved model predicts otherwise after reloading")
+
+
+def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
+              q_te=Q_MSLR_HELDOUT, n_te=N_MSLR_HELDOUT, rounds=10):
+    """Phases 2h and 8: the MS-LTR-shaped lambdarank task at full width
+    (2,270,296 x 137 in 18,919 queries, 750,000 held-out rows in 6,000),
+    the lambdarank kernel checked on its labels first; returns phase 8's
+    numbers, phase 2h's timing and the held-out (x, y, query sizes)."""
+    import torch
+    from lightgbm_tpu_torch.ops.lambdarank import lambdarank_grad_plain
+    t0 = time.perf_counter()
+    sizes = query_sizes(q_train, n_train, MSLR_LONGEST, rng)
+    sizes_te = query_sizes(q_te, n_te, MSLR_LONGEST, rng)
+    x_all, y_all = mslr_like(np.concatenate([sizes, sizes_te]), rng)
+    t_gen = time.perf_counter() - t0
+    n = int(sizes.sum())
+    x_tr, y_tr, x_te, y_te = x_all[:n], y_all[:n], x_all[n:], y_all[n:]
+
+    # ---- phase 2h: the lambdarank kernel against its plain version -------
+    lam = check_lambdarank(torch.device("cuda"), rng, (x_tr, y_tr, sizes))
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: train at full width -------------------------------------
+    rank_params = dict(params, objective="lambdarank", metric="ndcg",
+                       ndcg_eval_at=list(MSLR_EVAL_AT),
+                       enable_bundle=False, enable_bin_packing=False)
+    rank, bst, ds = train_path("mslr", rank_params, x_tr, y_tr, x_te, y_te,
+                               rounds, names, group=sizes,
+                               quality=mslr_quality(sizes_te))
+    obj, sc = bst.inner.objective, bst.inner.scores
+    grad_ms = cuda_ms(lambda: obj.get_gradients(sc))
+    plain_ms = cuda_ms(lambda: lambdarank_grad_plain(
+        sc[0], obj._label_i32, obj._bounds, obj._inv_max_dcg, obj._gains,
+        obj._discount, obj.config.sigmoid, obj.weights), reps=1, warmup=1)
+    phase("mslr_path", generate_s=f"{t_gen:.3f}", queries=len(sizes),
+          longest_query=int(sizes.max()), heldout_rows=len(y_te),
+          heldout_queries=len(sizes_te),
+          label_shares=":".join(f"{v:.3f}" for v in np.bincount(
+              y_tr.astype(np.int64), minlength=5) / n),
+          bins_bytes=ds.bins.numel(),
+          reduced="num_iterations 500->10;enable_bundle=false (EFB not "
+                  "ported);enable_bin_packing=false (not ported)",
+          gradient_kernel_ms_per_round=f"{grad_ms:.4f}",
+          gradient_plain_ms_per_round=f"{plain_ms:.2f}", **rank)
+    if rank["host_syncs_per_tree"] and float(rank["host_syncs_per_tree"]) > 9:
+        fail(f"mslr: {rank['host_syncs_per_tree']} host reads a tree")
+    del bst, ds, obj, sc
+    torch.cuda.empty_cache()
+    return rank, lam, (x_te, y_te, sizes_te)
+
+
+def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
+    """Phases 9, 9b, 9c and 9d: the Covertype-shaped multiclass task
+    (581,012 x 54, 7 classes, an 80/20 split): 3 rounds of multiclass
+    through the serial graph loop (one capture, its graph replayed for
+    every tree of every round), 1 round of multiclassova, 1 round of the
+    data-parallel learner over 4x1 held to the serial first round's
+    multi_logloss within 1e-4, and the card against the CPU at
+    ``cpu_rows`` rows, 2 rounds, the first round's 7 trees identical in
+    structure."""
+    import torch
+    x_all, y_all = covtype_like(n, rng)
+    n_tr = int(0.8 * n)
+    x_tr, y_tr, x_te, y_te = (x_all[:n_tr], y_all[:n_tr], x_all[n_tr:],
+                              y_all[n_tr:])
+    cov_params = dict(params, objective="multiclass", num_class=7,
+                      metric="multi_logloss,multi_error", min_data_in_leaf=20,
+                      min_sum_hessian_in_leaf=1e-3, enable_bundle=False,
+                      enable_bin_packing=False)
+    reduced = ("num_iterations 3 (21 trees);enable_bundle=false (EFB not "
+               "ported);enable_bin_packing=false (not ported)")
+    # ---- phase 9: multiclass, 3 rounds of 7 trees -------------------------
+    cov, bst, _ = train_path("covtype", cov_params, x_tr, y_tr, x_te, y_te,
+                             3, names, quality=covtype_quality)
+    state = loop_state(bst.inner)
+    st = bst.inner.stats
+    one_graph = (state.graph is not None and state.captures == 1
+                 and st["graph_replays"] == st["steps"] - 1)
+    phase("covtype_path", classes=7, train_rows=n_tr, heldout_rows=len(y_te),
+          label_shares=":".join(f"{v:.3f}" for v in np.bincount(
+              y_tr.astype(np.int64), minlength=7) / n_tr),
+          captures=state.captures, graph_trees_per_round=(
+              7 if one_graph else 0), reduced=reduced, **cov)
+    if not one_graph:
+        fail(f"covtype: {state.captures} captures, {st['graph_replays']} "
+             f"replays for {st['steps']} steps: not one graph for every tree")
+    del bst, state
+    torch.cuda.empty_cache()
+    # ---- phase 9b: multiclassova, 1 round ---------------------------------
+    ova, _, _ = train_path("covtype_ova",
+                           dict(cov_params, objective="multiclassova"),
+                           x_tr, y_tr, x_te, y_te, 1, names,
+                           quality=covtype_quality)
+    phase("covtype_ova", **ova)
+    # ---- phase 9c: the data-parallel learner over 4x1, 1 round ------------
+    dp, _, _ = train_path("covtype_dp_4x1",
+                          dict(cov_params, tree_learner="data",
+                               mesh_devices=MESH_SLOTS, mesh_shape="4x1"),
+                          x_tr, y_tr, x_te, y_te, 1, names,
+                          quality=covtype_quality)
+    gap = abs(float(dp["heldout_multi_logloss"])
+              - float(cov["round1_multi_logloss"]))
+    phase("covtype_dp_4x1", logloss_gap_vs_serial_round1=f"{gap:.3e}", **dp)
+    if gap > 1e-4:
+        fail(f"covtype 4x1: held-out multi_logloss "
+             f"{dp['heldout_multi_logloss']} is more than 1e-4 from the "
+             f"serial first round's {cov['round1_multi_logloss']}")
+    torch.cuda.empty_cache()
+    # ---- phase 9d: card against CPU ---------------------------------------
+    out, same = card_vs_cpu_trees("covtype_card_vs_cpu", cov_params,
+                                  x_tr[:cpu_rows], y_tr[:cpu_rows], x_te,
+                                  2, 7)
+    ll = {d: multi_metrics(out[d][1], y_te)[0] for d in out}
+    phase("covtype_card_vs_cpu", rows=cpu_rows, rounds=2, **same,
+          cpu_multi_logloss=f"{ll['cpu']:.6f}",
+          cuda_multi_logloss=f"{ll['cuda']:.6f}")
+    return cov
+
+
 def multi_card(params) -> None:
     """``--multi-card``: the data-parallel learner with its four mesh slots
     on four cards (slot s on card s) instead of one, so its split step
@@ -2108,7 +2712,7 @@ def main() -> None:
     x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
     x_te, y_te = x_all[N_ROWS:], y_all[N_ROWS:]
     names = ("hist_gather", "hist_local", "lgbt_partition", "lgbt_cat_group",
-             "lgbt_route_kernel", "lgbt_route_rows")
+             "lgbt_route_kernel", "lgbt_route_rows", "lgbt_lambdarank")
     # scatter: the eager loop, one host read a split
     higgs, _, higgs_ds = train_path(
         "higgs", dict(params, partition_impl="scatter"), x_tr, y_tr, x_te,
@@ -2217,6 +2821,23 @@ def main() -> None:
                 ("split_feature", "threshold", "decision_type",
                  "left_child", "right_child", "leaf_value",
                  "cat_boundaries", "cat_threshold"), float("inf"), 5e-3)
+    del x_all, y_all, x_tr, y_tr, x_te, y_te
+    torch.cuda.empty_cache()
+
+    # ---- phases 2h and 8: lambdarank on the MS-LTR-shaped task ------------
+    rng = np.random.default_rng(SEED + 7)
+    run_dir = os.path.dirname(os.path.abspath(__file__))
+    mslr, lam, heldout = rank_path(params, names, rng)
+    # ---- phase 8b: card against CPU on the ranking task -------------------
+    rank_card_vs_cpu(dict(params, objective="lambdarank", metric="ndcg",
+                          ndcg_eval_at=list(MSLR_EVAL_AT),
+                          enable_bundle=False, enable_bin_packing=False),
+                     rng, run_dir, heldout)
+    del heldout
+    torch.cuda.empty_cache()
+
+    # ---- phases 9-9d: multiclass on the Covertype-shaped task -------------
+    cov = covtype_path(params, names, np.random.default_rng(SEED + 9))
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}",
           higgs_ms_per_tree_scatter=higgs["ms_per_tree"],
           higgs_ms_per_tree_compact=compact["ms_per_tree"],
@@ -2225,7 +2846,9 @@ def main() -> None:
           expo_graph_ms_per_tree=expo_loops["graph_ms_per_tree"],
           expo_eager_ms_per_tree=expo_loops["eager_ms_per_tree"],
           higgs_ms_per_tree_dp_4x1=dp["ms_per_tree"],
-          higgs_ms_per_tree_dp_2x2=dp22["ms_per_tree"])
+          higgs_ms_per_tree_dp_2x2=dp22["ms_per_tree"],
+          mslr_ms_per_tree=mslr["ms_per_tree"],
+          covtype_ms_per_tree=cov["ms_per_tree"])
 
     root = timing[N_ROWS]
     proot = part_timing[N_EXPO]
@@ -2302,7 +2925,15 @@ def main() -> None:
         "library_ms": None, "ms_many": rows_timing["root"]["ms_many"],
         "device_ms": rows_timing["root"]["device_ms"],
         **{f"{k}_leaf_1000": v
-           for k, v in rows_timing["leaf_1000"].items()}}]}),
+           for k, v in rows_timing["leaf_1000"].items()}}, {
+        "name": "lambdarank", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",
+        "replaces": "lightgbm_tpu/objectives.py:405",
+        "launches": mslr["lambdarank_grad_launches"],
+        "max_abs_err": lam["max_abs_err"], "ms": lam["ms"],
+        "plain_ms": lam["plain_ms"], "bound_ms": lam["bound_ms"],
+        "bound_by": lam["bound_by"], "library_ms": None,
+        "ms_many": lam["ms_many"], "device_ms": lam["device_ms"]}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

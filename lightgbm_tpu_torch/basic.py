@@ -38,16 +38,12 @@ class Dataset:
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None):
-        if group is not None:
-            _unsupported("query groups", "training breadth (ranking)")
-        if init_score is not None:
-            _unsupported("init_score",
-                         "training breadth (init scores and continued "
-                         "training)")
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group                # each query's size
+        self.init_score = init_score      # [N * num_class] raw scores
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
@@ -90,12 +86,22 @@ class Dataset:
                        else np.asarray(self.label, np.float32).ravel()),
                 weight=(None if self.weight is None
                         else np.asarray(self.weight)),
+                group=None if self.group is None else np.asarray(self.group),
+                init_score=(None if self.init_score is None
+                            else np.asarray(self.init_score)),
                 feature_names=names,
                 categorical_features=self._categorical_indices(cfg, names),
                 reference=ref)
         if self.bins is None or self.bins.device.type != dev.type:
             self.bins = torch.from_numpy(self.constructed.binned).to(dev)
         return self
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation set binned with this dataset's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       params=params or self.params)
 
 
 class Booster:
@@ -127,7 +133,9 @@ class Booster:
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         data.construct(self.inner.config, str(self.device))
-        self.inner.add_valid_set(data.constructed, data.bins, name)
+        self.inner.add_valid_set(
+            data.constructed, data.bins, name,
+            _to_matrix(data.data) if self.inner.models else None)
         return self
 
     def update(self) -> bool:
@@ -143,7 +151,8 @@ class Booster:
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
                 device: Optional[str] = None) -> np.ndarray:
         """Raw or transformed scores of ``data`` ``[N, F]``, computed on
-        ``device`` (default: this booster's)."""
+        ``device`` (default: this booster's): ``[N]``, or ``[N, K]`` for K
+        classes."""
         dev = resolve_device(device) if device else self.device
         if num_iteration is None or num_iteration <= 0:
             num_iteration = (self.best_iteration if self.best_iteration > 0

@@ -1,11 +1,14 @@
 """The GBDT boosting loop (``src/boosting/gbdt.cpp:67-581``).
 
-Boost-from-average init tree, gradients, one tree per iteration through the
+Boost-from-average init tree, init scores, gradients, K trees per
+iteration (one per class, tree k from ``g[k]``, ``h[k]``) through the
 serial grower or the data-parallel learner (``parallel/gspmd.py``) over a
 mesh of device slots, shrinkage, the O(N) training-score update through the
 grower's ``row_leaf`` map, valid-set scores by routing their binned rows
 through the fresh tree on the device, and the model text of the
 reference (``SaveModelToString``, gbdt.cpp:948-997) and its parser.
+Scores are ``[K, N]`` on the training device, as in
+``lightgbm_tpu/boosting.py:292-298``.
 """
 from __future__ import annotations
 
@@ -43,15 +46,28 @@ def _would_pack(col_num_bins) -> bool:
     return n_storage * _PACK_JOINT_BINS <= len(nb) * int(nb.max())
 
 
+def _init_scores(data: TrainingData, num_class: int,
+                 device: torch.device) -> torch.Tensor:
+    """``[K, N]`` f32 scores, from the dataset's init scores or 0."""
+    n = data.num_data
+    init = data.metadata.init_score
+    if init is None:
+        return torch.zeros((num_class, n), dtype=torch.float32, device=device)
+    if init.size != num_class * n:
+        raise ValueError(f"init_score has {init.size} values; the data needs "
+                         f"{num_class} x {n}")
+    return torch.from_numpy(np.asarray(init, np.float32).reshape(
+        num_class, n)).to(device)
+
+
 class _ValidSet:
     def __init__(self, data: TrainingData, bins: torch.Tensor, name: str,
-                 metrics: List[Metric]):
+                 num_class: int, metrics: List[Metric]):
         self.data = data
         self.name = name
         self.bins = bins
         self.metrics = metrics
-        self.scores = torch.zeros((1, data.num_data), dtype=torch.float32,
-                                  device=bins.device)
+        self.scores = _init_scores(data, num_class, bins.device)
 
 
 class GBDT:
@@ -146,8 +162,9 @@ class GBDT:
             ordered_bins=("off" if cfg.ordered_bins == "auto"
                           else cfg.ordered_bins))
         self.objective.init(train.metadata, self.num_data, self.device)
-        self.scores = torch.zeros((1, self.num_data), dtype=torch.float32,
-                                  device=self.device)
+        self.num_class = self.objective.num_tree_per_iteration
+        self.scores = _init_scores(train, self.num_class, self.device)
+        self._has_init_score = train.metadata.init_score is not None
         self._feat_valid = torch.ones(len(fm["num_bin"]), dtype=torch.bool,
                                       device=self.device)
         self._count_weight = torch.ones(self.num_data, dtype=torch.float32,
@@ -217,12 +234,20 @@ class GBDT:
         return out
 
     def add_valid_set(self, data: TrainingData, bins: torch.Tensor,
-                      name: str) -> None:
+                      name: str, raw: Optional[np.ndarray] = None) -> None:
+        """A valid set; the trees already held (continued training) are
+        replayed onto its scores from its raw rows ``raw``."""
+        vs = _ValidSet(data, bins, name, self.num_class,
+                       self._make_metrics(data))
         if self.models:
-            _unsupported("adding a valid set after training started",
-                         "training breadth (continued training)")
-        self.valid_sets.append(
-            _ValidSet(data, bins, name, self._make_metrics(data)))
+            if raw is None:
+                raise ValueError("a valid set added after the model holds "
+                                 "trees needs its raw rows")
+            pred = Predictor(self.models, self.num_class, None,
+                             bins.device).predict_raw(raw)
+            vs.scores += torch.from_numpy(pred.astype(np.float32)).to(
+                bins.device)
+        self.valid_sets.append(vs)
 
     # --------------------------------------------------------------- training
 
@@ -244,47 +269,64 @@ class GBDT:
         (gbdt.cpp:465-581 TrainOneIter)."""
         if (self.iter_ == 0 and self.num_init_iteration == 0
                 and self.objective.boost_from_average
+                and not self._has_init_score
+                and self.num_class == 1
                 and self.config.boost_from_average
                 and not self.boost_from_average_):
             self._boost_from_average()
         g, h = self.objective.get_gradients(self.scores)
         lr = self.config.learning_rate
-        if self._gspmd is not None:
-            arrays, row_leaf = self._gspmd(
-                self._dist_row_vec(g[0]), self._dist_row_vec(h[0]),
-                self._count_weight, self.meta, self._feat_valid, self.stats)
-            row_leaf = row_leaf[:self.num_data]     # the local rows
-        else:
-            if self._windows is None:
-                # the grower's device state, made once per training: the
-                # partition's buffers, the leaf pool and, on a card with
-                # compact, the split step captured at the first split
-                self._windows = WindowBuffers(*self.bins.shape,
-                                              self.grower_cfg, self.device)
-            arrays, row_leaf = grow_tree(self.bins, g[0], h[0],
-                                         self._count_weight, self.meta,
-                                         self._feat_valid, self.grower_cfg,
-                                         self.stats, self._windows)
-        self.stats["trees"] += 1
-        host = arrays._replace(**{
-            k: v.cpu().numpy() for k, v in arrays._asdict().items()
-            if isinstance(v, torch.Tensor)})
-        tree = Tree.from_arrays(host, self.train_set.used_features,
-                                self.train_set.bin_mappers)
-        tree.shrink(lr)
-        if tree.num_leaves <= 1:
+        lr_t = torch.tensor(lr, dtype=torch.float32, device=self.device)
+        any_split = False
+        for k in range(self.num_class):
+            # tree k from class k's gradients, through the one grower made
+            # for the training (on the graph loop, the same captured step)
+            arrays, row_leaf = self._grow(g[k], h[k])
+            self.stats["trees"] += 1
+            host = arrays._replace(**{
+                f: v.cpu().numpy() for f, v in arrays._asdict().items()
+                if isinstance(v, torch.Tensor)})
+            tree = Tree.from_arrays(host, self.train_set.used_features,
+                                    self.train_set.bin_mappers)
+            tree.shrink(lr)
+            self.models.append(tree)
+            if tree.num_leaves <= 1:
+                continue
+            any_split = True
+            self.scores[k] = (self.scores[k]
+                              + lr_t * arrays.leaf_value[row_leaf.long()])
+            depth = int(host.leaf_depth[:tree.num_leaves].max())
+            for vs in self.valid_sets:
+                vleaf = predict_binned_leaf(vs.bins, arrays, self.meta, depth)
+                vs.scores[k] = vs.scores[k] + lr_t * arrays.leaf_value[vleaf]
+        if not any_split:
             log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
+            del self.models[-self.num_class:]
             return True
-        self.models.append(tree)
-        lr_t = torch.tensor(lr, dtype=torch.float32, device=self.device)
-        self.scores[0] = self.scores[0] + lr_t * arrays.leaf_value[row_leaf.long()]
-        depth = int(host.leaf_depth[:tree.num_leaves].max())
-        for vs in self.valid_sets:
-            vleaf = predict_binned_leaf(vs.bins, arrays, self.meta, depth)
-            vs.scores[0] = vs.scores[0] + lr_t * arrays.leaf_value[vleaf]
         self.iter_ += 1
         return False
+
+    def _grow(self, g: torch.Tensor, h: torch.Tensor):
+        """One tree from gradients ``g`` and hessians ``h`` ``[N]``:
+        ``(TreeArrays, row_leaf [N])``."""
+        if self._gspmd is not None:
+            arrays, row_leaf = self._gspmd(
+                self._dist_row_vec(g), self._dist_row_vec(h),
+                self._count_weight, self.meta, self._feat_valid, self.stats)
+            return arrays, row_leaf[:self.num_data]     # the local rows
+        if self._windows is None:
+            # the grower's device state, made once per training: the
+            # partition's buffers, the leaf pool and, on a card with
+            # compact, the split step captured at the first split
+            self._windows = WindowBuffers(*self.bins.shape, self.grower_cfg,
+                                          self.device)
+        return grow_tree(self.bins, g, h, self._count_weight, self.meta,
+                         self._feat_valid, self.grower_cfg, self.stats,
+                         self._windows)
+
+    def current_iteration(self) -> int:
+        return self.iter_ + self.num_init_iteration
 
     # ------------------------------------------------------------------- eval
 
@@ -299,18 +341,23 @@ class GBDT:
 
     def _eval(self, name, metrics, scores) -> List[Tuple[str, str, float, bool]]:
         host = scores.double().cpu().numpy()
-        return [(name, m.name, float(m.eval(host, self.objective)),
-                 m.is_higher_better) for m in metrics]
+        return [(name, mn, float(v), m.is_higher_better) for m in metrics
+                for mn, v in zip(m.names(), m.eval(host, self.objective))]
 
     # ---------------------------------------------------------------- predict
 
+    def _kept_trees(self, num_iteration: int) -> List[Tree]:
+        """The trees of the first ``num_iteration`` iterations (all when
+        not positive), the boost-from-average tree included."""
+        if num_iteration <= 0:
+            return self.models
+        return self.models[:(num_iteration + (1 if self.boost_from_average_
+                                              else 0)) * self.num_class]
+
     def predictor(self, device: torch.device,
                   num_iteration: int = -1) -> Predictor:
-        trees = self.models
-        if num_iteration > 0:
-            trees = trees[:num_iteration + (1 if self.boost_from_average_
-                                            else 0)]
-        return Predictor(trees, self.objective, device)
+        return Predictor(self._kept_trees(num_iteration), self.num_class,
+                         self.objective, device)
 
     # ------------------------------------------------------------- model file
 
@@ -318,10 +365,7 @@ class GBDT:
         """Split-count importance over the kept trees (gbdt.cpp
         FeatureImportance), written to the model file."""
         n_feat = self.max_feature_idx + 1
-        trees = self.models
-        if num_iteration > 0:
-            trees = trees[:num_iteration + (1 if self.boost_from_average_
-                                            else 0)]
+        trees = self._kept_trees(num_iteration)
         split_trees = [t for t in trees if t.num_leaves > 1]
         if not split_trees:
             return np.zeros(n_feat, dtype=np.float64)
@@ -350,12 +394,8 @@ class GBDT:
                  if self.train_set else self.feature_infos)
         buf.write("feature_infos=" + infos + "\n")
         buf.write("\n")
-        num_used = len(self.models)
-        if num_iteration > 0:
-            ni = num_iteration + (1 if self.boost_from_average_ else 0)
-            num_used = min(ni * self.num_class, num_used)
-        for i in range(num_used):
-            buf.write(self.models[i].to_string(i))
+        for i, tree in enumerate(self._kept_trees(num_iteration)):
+            buf.write(tree.to_string(i))
             buf.write("\n")
         buf.write("\nfeature importances:\n")
         imp = self.feature_importance(num_iteration)
@@ -390,8 +430,6 @@ class GBDT:
             i += 1
         booster.num_class = int(header.get("num_tree_per_iteration",
                                            header.get("num_class", "1")))
-        if booster.num_class != 1:
-            _unsupported("multiclass models", "training breadth (multiclass)")
         booster.label_idx = int(header.get("label_index", "0"))
         booster.max_feature_idx = int(header.get("max_feature_idx", "0"))
         booster.feature_names = header.get("feature_names", "").split()
@@ -409,5 +447,6 @@ class GBDT:
             elif s and blocks:
                 blocks[-1].append(s)
         booster.models = [Tree.from_string("\n".join(b)) for b in blocks]
-        booster.num_init_iteration = len(booster.models)
+        booster.num_init_iteration = (len(booster.models)
+                                      // max(booster.num_class, 1))
         return booster

@@ -58,6 +58,8 @@ PARAM_ALIASES: Dict[str, str] = {
     "reg_lambda": "lambda_l2",
     "num_classes": "num_class",
     "unbalanced_sets": "is_unbalance",
+    "ndcg_at": "ndcg_eval_at",
+    "eval_at": "ndcg_eval_at",
 }
 
 
@@ -130,12 +132,20 @@ class Config:
 
     # objectives' knobs
     sigmoid: float = 1.0
+    huber_delta: float = 1.0
+    fair_c: float = 1.0
+    poisson_max_delta_step: float = 0.7
+    gaussian_eta: float = 1.0
     scale_pos_weight: float = 1.0
     is_unbalance: bool = False
     boost_from_average: bool = True
+    max_position: int = 20
+    label_gain: Optional[List[float]] = None
 
     # metric / eval
     metric: List[str] = dataclasses.field(default_factory=list)
+    ndcg_eval_at: List[int] = dataclasses.field(
+        default_factory=lambda: [1, 2, 3, 4, 5])
     early_stopping_round: int = 0
 
     def copy(self) -> "Config":
@@ -143,12 +153,20 @@ class Config:
 
 
 _FIELD_TYPES = {f.name: f.type for f in dataclasses.fields(Config)}
+_LIST_FIELDS = {"metric", "ndcg_eval_at", "label_gain"}
 _BOOL_TRUE = {"true", "1", "yes", "on", "+"}
 _BOOL_FALSE = {"false", "0", "no", "off", "-"}
 
-# objective names of the slice (objectives.py registry)
-SUPPORTED_OBJECTIVES = ("regression", "regression_l2", "mean_squared_error",
-                        "mse", "l2", "binary")
+# every objective name of the registry (objectives.py:_REGISTRY, as
+# lightgbm_tpu/objectives.py:466-491)
+SUPPORTED_OBJECTIVES = (
+    "regression", "regression_l2", "mean_squared_error", "mse", "l2",
+    "regression_l1", "l1", "mean_absolute_error", "mae", "huber", "fair",
+    "poisson", "binary", "multiclass", "softmax", "multiclassova",
+    "multiclass_ova", "ova", "ovr", "xentropy", "cross_entropy",
+    "xentlambda", "cross_entropy_lambda", "lambdarank")
+MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova", "softmax",
+                         "multiclass_ova", "ova", "ovr")
 
 
 def _parse_value(name: str, value: Any) -> Any:
@@ -156,14 +174,28 @@ def _parse_value(name: str, value: Any) -> Any:
     ftype = str(_FIELD_TYPES[name])
     if name == "categorical_column" and isinstance(value, (list, tuple)):
         return ",".join(str(v) for v in value)
-    if name == "metric":
+    if name in _LIST_FIELDS:
+        if value is None:
+            return None
         if isinstance(value, str):
-            return [p for p in value.replace(",", " ").split() if p]
-        if isinstance(value, (set, frozenset)):
-            return sorted(str(p) for p in value)
-        if isinstance(value, (list, tuple)):
-            return [str(p) for p in value]
-        return [str(value)]
+            parts = [p for p in value.replace(",", " ").split() if p]
+        elif isinstance(value, (set, frozenset)):
+            # metric={'l2', 'auc'}: ordered for a fixed eval-log order
+            parts = sorted(value, key=str)
+        elif isinstance(value, (list, tuple)):
+            parts = list(value)
+        else:
+            parts = [value]
+        if name == "ndcg_eval_at":
+            ks = sorted(int(p) for p in parts)   # ascending (config.cpp:341)
+            for k in ks:
+                if k <= 0:
+                    log.fatal("eval_at positions must be positive; got %d",
+                              k)
+            return ks
+        if name == "label_gain":
+            return [float(p) for p in parts]
+        return [str(p) for p in parts]
     if "bool" in ftype:
         if isinstance(value, bool):
             return value
@@ -262,12 +294,16 @@ def check_params(cfg: Config) -> None:
     limits: every value outside the slice raises."""
     if cfg.device not in ("cuda", "cpu"):
         log.fatal("device must be cuda or cpu; got %r", cfg.device)
-    if cfg.num_class != 1:
-        _unsupported(f"num_class={cfg.num_class}",
-                     "training breadth (multiclass)")
+    if cfg.num_class <= 0:
+        log.fatal("num_class must be positive")
     if cfg.objective.lower() not in SUPPORTED_OBJECTIVES:
-        _unsupported(f"objective={cfg.objective}",
-                     "training breadth (other objectives)")
+        log.fatal("Unknown objective type name: %s", cfg.objective)
+    is_multiclass = cfg.objective.lower() in MULTICLASS_OBJECTIVES
+    if is_multiclass and cfg.num_class <= 1:
+        log.fatal("Number of classes should be specified and greater than 1 "
+                  "for multiclass training")
+    if not is_multiclass and cfg.num_class != 1:
+        log.fatal("Number of classes must be 1 for non-multiclass training")
     if cfg.boosting_type not in ("gbdt", "gbrt"):
         _unsupported(f"boosting_type={cfg.boosting_type}",
                      "boosting variants and sampling (DART/GOSS/RF)")

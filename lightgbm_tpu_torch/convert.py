@@ -3,10 +3,12 @@ arrays or model text, so both packages compute on the same state.
 
 * :func:`dataset_from_arrays` takes a constructed dataset (bin matrix,
   per-feature ``num_bin`` / ``missing_type`` / ``default_bin`` / bin upper
-  bounds or, for a categorical feature, its bins' categories, label) and
-  returns the port's :class:`~.basic.Dataset`.
+  bounds or, for a categorical feature, its bins' categories, label, and
+  optionally weights, query boundaries and init scores) and returns the
+  port's :class:`~.basic.Dataset`.
 * :func:`booster_from_arrays` takes trees as model text or as the
-  ``Tree`` fields and returns the port's :class:`~.basic.Booster`.
+  ``Tree`` fields (``num_class`` trees an iteration) and returns the
+  port's :class:`~.basic.Booster`.
 """
 from __future__ import annotations
 
@@ -39,7 +41,9 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
                         params: Optional[Dict] = None,
                         device: Optional[str] = None,
                         bin_2_categorical: Optional[
-                            Sequence[Optional[Sequence[int]]]] = None
+                            Sequence[Optional[Sequence[int]]]] = None,
+                        query_boundaries: Optional[np.ndarray] = None,
+                        init_score: Optional[np.ndarray] = None
                         ) -> Dataset:
     """A constructed port Dataset from the arrays of a constructed one.
 
@@ -48,7 +52,9 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
     (default: all of them) of ``num_total_features``.  ``min_max`` gives
     each used feature's (min, max) for the model's ``feature_infos``.
     ``bin_2_categorical`` gives, per used feature, the category of each
-    bin of a categorical feature, or None for a numerical one."""
+    bin of a categorical feature, or None for a numerical one.
+    ``query_boundaries`` (``[Q + 1]``, as the JAX metadata keeps them) and
+    ``init_score`` (``[N * num_class]``) go to the metadata."""
     binned = np.ascontiguousarray(binned, dtype=np.uint8)
     n, f = binned.shape
     used = list(range(f)) if used_features is None else list(used_features)
@@ -80,6 +86,9 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
     td.metadata = Metadata(n)
     td.metadata.set_label(label)
     td.metadata.set_weight(weight)
+    if query_boundaries is not None:
+        td.metadata.set_query(np.diff(np.asarray(query_boundaries)))
+    td.metadata.set_init_score(init_score)
     ds = Dataset(None, label=label, params=params)
     ds.constructed = td
     return ds.construct(device=device)
@@ -90,16 +99,19 @@ def booster_from_arrays(model_str: Optional[str] = None,
                         objective: str = "regression",
                         max_feature_idx: int = 0,
                         boost_from_average: bool = False,
-                        params: Optional[Dict] = None) -> Booster:
+                        params: Optional[Dict] = None,
+                        num_class: int = 1) -> Booster:
     """A port Booster from model text, or from trees given as dicts of the
     ``Tree`` fields (``num_leaves``, ``split_feature``, ``threshold``,
     ``decision_type``, ``left_child``, ``right_child``, ``leaf_value``, ...;
     ``num_cat``, ``cat_boundaries`` and ``cat_threshold`` for categorical
-    nodes) with the model's objective string (e.g. ``"binary sigmoid:1"``)."""
+    nodes) with the model's objective string (e.g. ``"binary sigmoid:1"``),
+    ``num_class`` trees an iteration, tree i of class ``i % num_class``."""
     if model_str is not None:
         return Booster(params=params, model_str=model_str)
     names = " ".join(f"Column_{i}" for i in range(max_feature_idx + 1))
-    header = ["tree", "num_class=1", "num_tree_per_iteration=1",
+    header = ["tree", f"num_class={num_class}",
+              f"num_tree_per_iteration={num_class}",
               "label_index=0", f"max_feature_idx={max_feature_idx}",
               f"objective={objective}"]
     if boost_from_average:

@@ -64,11 +64,14 @@ class TrainingData:
 def construct(data: np.ndarray, config: Config,
               label: Optional[np.ndarray] = None,
               weight: Optional[np.ndarray] = None,
+              group: Optional[np.ndarray] = None,
+              init_score: Optional[np.ndarray] = None,
               feature_names: Optional[Sequence[str]] = None,
               categorical_features: Optional[Sequence[int]] = None,
               reference: Optional[TrainingData] = None) -> TrainingData:
     """Build a TrainingData from a raw ``[N, F]`` feature matrix
-    (dataset.py:92); ``categorical_features`` are column indices."""
+    (dataset.py:92); ``categorical_features`` are column indices, ``group``
+    each query's size, ``init_score`` ``[N * num_class]`` raw scores."""
     data = np.asarray(data)
     if data.ndim != 2:
         log.fatal("Training data must be 2-dimensional")
@@ -107,6 +110,8 @@ def construct(data: np.ndarray, config: Config,
     ds.metadata.set_label(label if label is not None
                           else np.zeros(num_data, dtype=np.float32))
     ds.metadata.set_weight(weight)
+    ds.metadata.set_query(group)
+    ds.metadata.set_init_score(init_score)
     return ds
 
 

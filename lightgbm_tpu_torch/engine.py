@@ -1,11 +1,15 @@
 """Training entry point ``train`` (python-package engine.py:18-229, as
-``lightgbm_tpu/engine.py:24``): the boosting loop with valid-set
-evaluation, ``evals_result`` recording and early stopping."""
+``lightgbm_tpu/engine.py:24``): continued training from ``init_model``, the
+boosting loop with valid-set evaluation, ``evals_result`` recording and
+early stopping over every value of every metric."""
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
-from .basic import Booster, Dataset
+import numpy as np
+import torch
+
+from .basic import Booster, Dataset, _to_matrix
 from .config import canonicalize_params
 from .utils import log
 
@@ -16,15 +20,30 @@ def train(params: Dict[str, Any], train_set: Dataset,
           valid_names: Optional[List[str]] = None,
           early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[Dict] = None,
-          verbose_eval: bool = True) -> Booster:
+          verbose_eval: bool = True,
+          init_model: Optional[Union[str, Booster]] = None) -> Booster:
     """Train a booster; runs on the CUDA device unless ``params`` has
-    ``device="cpu"``."""
+    ``device="cpu"``.  ``init_model`` (a ``Booster`` or a model file)
+    continues training (``lightgbm_tpu/engine.py:145-157``): its raw
+    predictions of the training rows are added to the training scores, its
+    trees come first in the model and its iterations count as done."""
     params = canonicalize_params(params)
     if "num_iterations" in params:
         num_boost_round = int(params.pop("num_iterations"))
     if params.get("early_stopping_round"):
         early_stopping_rounds = int(params.pop("early_stopping_round"))
     booster = Booster(params=params, train_set=train_set)
+    if init_model is not None:
+        prev = (init_model if isinstance(init_model, Booster)
+                else Booster(model_file=str(init_model), params=params))
+        inner = booster.inner
+        raw = prev.inner.predictor(inner.device).predict_raw(
+            _to_matrix(train_set.data))
+        inner.scores += torch.from_numpy(raw.astype(np.float32)).to(
+            inner.device)
+        inner.num_init_iteration = prev.inner.current_iteration()
+        inner.models = list(prev.inner.models) + inner.models
+        inner.boost_from_average_ = prev.inner.boost_from_average_
 
     valid_sets = valid_sets or []
     if isinstance(valid_sets, Dataset):

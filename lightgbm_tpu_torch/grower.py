@@ -383,7 +383,7 @@ class SplitLoop:
         # each wrapper's count at the capture, which launches nothing: the
         # captured step's launches, which every replay makes
         self.graph_launches: Dict[str, int] = {}
-        self.replays = 0
+        self.replays = self.captures = 0
         self.host = (torch.empty(n_counters, dtype=torch.int64,
                                  pin_memory=True) if cuda else None)
         self.event = torch.cuda.Event() if cuda else None
@@ -454,6 +454,7 @@ class SplitLoop:
         self.graph_launches = {k: v - before[k]
                                for k, v in self.launch_counts().items()}
         self.graph = graph
+        self.captures += 1
 
     def replay(self) -> None:
         """One step of the graph loop."""

@@ -28,6 +28,7 @@ KERNEL_SOURCES: Dict[str, str] = {
     "partition": "csrc/partition.cu",
     "cat_group": "csrc/cat_group.cu",
     "route": "csrc/route.cu",
+    "lambdarank": "csrc/lambdarank.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

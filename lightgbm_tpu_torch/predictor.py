@@ -37,8 +37,13 @@ class SoABundle:
     """The ensemble flattened once: node tables and leaf values on the
     device."""
 
-    def __init__(self, trees: Sequence[Tree], device: torch.device):
+    def __init__(self, trees: Sequence[Tree], device: torch.device,
+                 num_class: int = 1):
         t_count = len(trees)
+        self.num_class = max(num_class, 1)
+        if t_count % self.num_class:
+            raise ValueError(f"{t_count} trees are no whole number of "
+                             f"iterations of {self.num_class}")
         p = max([t.num_leaves - 1 for t in trees] + [1])
         used = {}
         cat_bits, cat_rows = 1, 0
@@ -116,25 +121,29 @@ class SoABundle:
         return bins, cats, nanm, zerom
 
     def raw_scores(self, x: np.ndarray) -> np.ndarray:
-        """Sum of the trees' leaf values per row, float64 ``[N]``."""
-        n = x.shape[0]
-        out = torch.zeros(n, dtype=torch.float64, device=self.device)
+        """Each class's sum of its trees' leaf values per row, float64
+        ``[K, N]``: tree i adds to class ``i % K``."""
+        n, k = x.shape[0], self.num_class
+        out = torch.zeros((k, n), dtype=torch.float64, device=self.device)
         if not len(self.cols):          # stumps only: one leaf per tree
-            out += self.leaf_value[:, 0].sum()
+            out += self.leaf_value[:, 0].view(-1, k).sum(0)[:, None]
             return out.cpu().numpy()
+        # whole iterations a pass, so a pass's trees fold into [K, rows]
+        per_pass = max(TREES_PER_PASS // k, 1) * k
         for r0 in range(0, n, ROWS_PER_PASS):
             bins, cats, nanm, zerom = self.bin_rows(
                 x[r0:r0 + ROWS_PER_PASS])
-            for t0 in range(0, self.num_trees, TREES_PER_PASS):
-                ts = slice(t0, t0 + TREES_PER_PASS)
+            for t0 in range(0, self.num_trees, per_pass):
+                ts = slice(t0, t0 + per_pass)
                 leaf = traverse(bins, cats, nanm, zerom, self.feat[ts],
                                 self.thr[ts], self.default_left[ts],
                                 self.miss[ts], self.left[ts],
                                 self.right[ts], self.is_cat[ts],
                                 self.cat_ref[ts], self.cat_mask,
                                 self.max_depth)
-                out[r0:r0 + ROWS_PER_PASS] += self.leaf_value[ts].gather(
-                    1, leaf).sum(0)
+                vals = self.leaf_value[ts].gather(1, leaf)
+                out[:, r0:r0 + ROWS_PER_PASS] += vals.view(
+                    -1, k, vals.shape[1]).sum(0)
         return out.cpu().numpy()
 
 
@@ -197,17 +206,24 @@ def predict_binned_leaf(bins: torch.Tensor, tree: TreeArrays,
 
 
 class Predictor:
-    """Raw and transformed predictions of a list of trees."""
+    """Raw and transformed predictions of a list of trees, ``num_class``
+    a round (``lightgbm_tpu/predictor.py:Predictor``)."""
 
-    def __init__(self, trees: List[Tree], objective, device: torch.device):
+    def __init__(self, trees: List[Tree], num_class: int, objective,
+                 device: torch.device):
         self.objective = objective
-        self.bundle = SoABundle(trees, device)
+        self.bundle = SoABundle(trees, device, num_class)
 
     def predict_raw(self, x: np.ndarray) -> np.ndarray:
+        """Raw scores ``[K, N]`` float64."""
         return self.bundle.raw_scores(np.atleast_2d(x))
 
     def predict(self, x: np.ndarray, raw_score: bool = False) -> np.ndarray:
-        raw = self.predict_raw(x)
-        if raw_score or self.objective is None:
-            return raw
-        return np.asarray(self.objective.convert_output(raw))
+        """``[N]`` for one class, else ``[N, K]``, as the reference's
+        python package returns them; transformed by the objective unless
+        ``raw_score``."""
+        out = self.predict_raw(x)
+        if not raw_score and self.objective is not None:
+            out = np.asarray(self.objective.convert_output(out),
+                             dtype=np.float64)
+        return out[0] if out.shape[0] == 1 else out.T

@@ -89,8 +89,8 @@ def test_predict_raises_without_card(no_card):
 
 @pytest.mark.parametrize("params", [
     {"boosting_type": "dart"},
-    {"objective": "multiclass", "num_class": 3},
-    {"objective": "lambdarank"},
+    {"boosting_type": "goss"},
+    {"shard_axes": "batch,feature"},
     {"tree_learner": "voting"},
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"feature_fraction": 0.5},
@@ -101,6 +101,21 @@ def test_unsupported_params_raise(params):
     x, y = _small()
     p = dict({"objective": "binary", "device": "cpu"}, **params)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lt.train(p, lt.Dataset(x, y, params=p), 1)
+
+
+@pytest.mark.parametrize("params,message", [
+    ({"objective": "multiclass", "num_class": 1}, "greater than 1"),
+    ({"objective": "multiclassova"}, "greater than 1"),
+    ({"objective": "binary", "num_class": 3}, "must be 1"),
+    ({"objective": "binary", "num_class": 0}, "positive"),
+])
+def test_num_class_checked_as_jax(params, message):
+    """lightgbm_tpu/config.py:645-652: multiclass needs num_class > 1,
+    every other objective num_class == 1."""
+    x, y = _small()
+    p = dict({"device": "cpu"}, **params)
+    with pytest.raises(RuntimeError, match=message):
         lt.train(p, lt.Dataset(x, y, params=p), 1)
 
 
