@@ -170,7 +170,42 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 9c. one round over the 4x1 data-parallel mesh on the one card: held-out
    multi_logloss within 1e-4 of phase 9's first round;
 9d. the card against the CPU at 100,000 rows, 2 rounds: the first
-   round's 7 trees identical in structure up to their first near-ties.
+   round's 7 trees identical in structure up to their first near-ties;
+10. (phases 10 to 14 on phase 3's Higgs-shaped data and one Dataset)
+   bagging in the subset regime (``bagging_fraction=0.5``,
+   ``bagging_freq=1``, 10 rounds, the graph loop): each tree's root window
+   holds its 500,000 bag rows, the step is captured once for the
+   training, and the training scores the loop kept (its out-of-bag rows
+   routed through each tree) equal ``predict(raw_score=True)`` of the
+   training rows within ``SCORE_LIMIT``; one profiled tree as in phase 3;
+10b. bagging by weights (0.8) with ``feature_fraction=0.8``, 10 rounds:
+   the bags' sizes and each tree's feature mask redrawn on the host from
+   the seeds, every split inside its tree's mask, one capture;
+10c. (after phase 14) the Expo-shaped task's Dataset of phase 5 in the
+   subset regime with ``ordered_bins=on``, 3 rounds: root counts of
+   5,500,000, one capture, scores equal to predict;
+10d. phase 10b's settings over the 4x1 data-parallel mesh on the one
+   card, 3 rounds: the same bags, held-out AUC within 1e-4 of phase 10b's
+   at 3 rounds;
+11. GOSS (``top_rate=0.2``, ``other_rate=0.1``), 13 rounds: 10 warm-up
+   trees of every row, then 200,000 top rows plus about 100,000 others as
+   the root window, one host read of the gradients a sampled round, one
+   capture, scores equal to predict;
+12. DART at its default rates (``drop_seed=3``: the default seed drops
+   nothing in 10 rounds) with the held-out rows as a valid set, 10 rounds:
+   rounds 3, 7, 8 and 10 drop trees, and the training and valid scores the
+   loop kept equal the normalised model's predictions;
+13. RF (bagging 0.5, ``feature_fraction=0.6``), 10 rounds: the model file
+   carries ``average_output``, and its reload predicts the same;
+14. the training API: a ``reset_parameter`` callback changing the
+   learning rate and switching bagging off after round 2 (no new
+   capture), ``rollback_one_iter`` restoring the training and valid
+   scores bit for bit, a custom binary log loss growing the built-in
+   objective's first tree, and ``cv`` with 3 folds of 200,000 rows and
+   early stopping (its means and deviations);
+14b. the card against the CPU on 200,000 rows, 3 rounds, for bagging,
+   GOSS (learning rate 0.5, so round 3 samples) and DART: the first tree
+   identical up to a near-tie.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
@@ -1670,13 +1705,16 @@ def auc_quality(bst, pred, x_te, y_te) -> dict:
 
 
 def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
-               group=None, quality=auc_quality):
+               group=None, quality=auc_quality, ds=None, valid=False,
+               train_kw=None):
     """Drive one path through ``train`` and ``predict`` with the kernel
     counts set to 0 just before and read just after; returns its numbers
     and the booster.  ``group`` gives the training queries' sizes;
     ``quality(bst, pred, x_te, y_te)`` checks the held-out predictions and
     returns its numbers.  With K trees a round, the profiled update grows
-    K trees, and its numbers "a tree" are the round's over K.
+    K trees, and its numbers "a tree" are the round's over K.  ``ds`` is
+    the training rows' Dataset when it is already built; ``valid`` adds
+    the held-out rows as a valid set; ``train_kw`` goes to ``train``.
 
     On the graph loop a wrapper counts once at the capture, which launches
     nothing, and never at a replay, which launches: the launches are the
@@ -1688,16 +1726,20 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
     from lightgbm_tpu_torch.ops.partition import SMALL_MAX_ROWS
     fns = _kernel_wrappers()
     t0 = time.perf_counter()
-    ds = Dataset(x_tr, y_tr, group=group, params=params).construct()
+    if ds is None:
+        ds = Dataset(x_tr, y_tr, group=group, params=params).construct()
     torch.cuda.synchronize()
     t_data = time.perf_counter() - t0
+    kw = dict(train_kw or {})
+    if valid:
+        kw["valid_sets"] = [ds.create_valid(x_te, y_te)]
     torch.cuda.reset_peak_memory_stats()
     for fn in fns.values():
         fn.launches = 0
         for k in getattr(fn, "regime_launches", {}):
             fn.regime_launches[k] = 0
     t0 = time.perf_counter()
-    bst = train(params, ds, num_boost_round=rounds, verbose_eval=False)
+    bst = train(params, ds, num_boost_round=rounds, verbose_eval=False, **kw)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     raw = {k: fn.launches for k, fn in fns.items()}
@@ -2601,6 +2643,352 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
     return cov
 
 
+# ---- phases 10 to 14b: sampling, the boosting variants, the training API --
+
+# training scores (float32, one add a tree) against the model's float64
+# raw prediction of the same rows: 1e-4 is some 400 float32 roundings of
+# a score of 1 and far below one tree's output, which a row the loop did
+# not score would miss by
+SCORE_LIMIT = 1e-4
+
+
+def root_counts(bst) -> list:
+    """Each grown tree's root count: the rows it grew on (count weights
+    1), as the tree records them."""
+    return [int(t.internal_count[0]) for t in bst.inner.models
+            if t.num_leaves > 1]
+
+
+def one_capture(name, bst) -> int:
+    """The graph loop of a training captured its step once and replayed
+    it for every other step of every tree, sampling included."""
+    state = loop_state(bst.inner)
+    st = bst.inner.stats
+    if not (state is not None and state.captures == 1
+            and st["graph_replays"] == st["steps"] - 1):
+        fail(f"{name}: {getattr(state, 'captures', None)} captures, "
+             f"{st.get('graph_replays')} replays for {st.get('steps')} "
+             f"steps: not one graph for the training")
+    return state.captures
+
+
+def scores_vs_predict(name, scores, x, bst) -> str:
+    """The largest gap between float32 scores ``[1, N]`` the loop kept and
+    ``predict(raw_score=True)`` of the same rows; fails past
+    ``SCORE_LIMIT``."""
+    raw = bst.predict(x, raw_score=True)
+    gap = float(np.abs(scores[0].double().cpu().numpy() - raw).max())
+    if not gap <= SCORE_LIMIT:
+        fail(f"{name}: scores kept by the loop differ from the model's "
+             f"predictions by {gap} (limit {SCORE_LIMIT})")
+    return f"{gap:.3e}"
+
+
+def bag_draw_ms(n: int, fraction: float, seed: int = 3) -> str:
+    """Host milliseconds of one subset-regime bag draw of ``fraction * n``
+    rows, as the booster draws it (the JAX package's ``sample_k``: numpy's
+    ``choice`` without replacement, then a sort)."""
+    from lightgbm_tpu_torch.utils.random import make_rng, sample_k
+    rng = make_rng(seed)
+    t0 = time.perf_counter()
+    sample_k(rng, n, max(1, int(n * fraction)))
+    return f"{(time.perf_counter() - t0) * 1e3:.2f}"
+
+
+def bag_counts(n: int, fraction: float, rounds: int, seed: int = 3) -> list:
+    """The mask regime's bag sizes, drawn on the host from the bagging
+    stream as the booster draws them (a Bernoulli draw of every row a
+    round)."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    return [int((rng.random(n) < fraction).sum()) for _ in range(rounds)]
+
+
+def feature_masks(f: int, fraction: float, trees: int,
+                  seed: int = 2) -> list:
+    """Each tree's feature mask, drawn on the host from the
+    feature_fraction stream as the booster draws them."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    out = []
+    for _ in range(trees):
+        m = np.zeros(f, bool)
+        m[rng.choice(f, size=max(1, int(f * fraction)), replace=False)] = True
+        out.append(m)
+    return out
+
+
+def sampling_paths(params, names, x_tr, y_tr, x_te, y_te):
+    """Phases 10, 10b, 10d, 11, 12, 13 and 14 on the Higgs-shaped task
+    (one Dataset for all); returns their numbers by phase."""
+    import torch
+    from lightgbm_tpu_torch import Dataset, cv, reset_parameter, train
+    run_dir = os.path.dirname(os.path.abspath(__file__))
+    n = len(y_tr)
+    ds = Dataset(x_tr, y_tr, params=params).construct()
+    col_of = {f: i for i, f in enumerate(ds.constructed.used_features)}
+    out = {}
+
+    # ---- phase 10: bagging, the subset regime ------------------------------
+    p10 = dict(params, bagging_fraction=0.5, bagging_freq=1)
+    res, bst, _ = train_path("bag_subset", p10, x_tr, y_tr, x_te, y_te, 10,
+                             names, ds=ds)
+    roots = root_counts(bst)
+    if roots != [n // 2] * 10:
+        fail(f"bag_subset: root counts {roots}, not {n // 2} each")
+    out["10"] = dict(captures=one_capture("bag_subset", bst),
+                     root_counts=":".join(map(str, roots)),
+                     host_bag_draw_ms=bag_draw_ms(n, 0.5),
+                     train_scores_vs_predict=scores_vs_predict(
+                         "bag_subset", bst.inner.scores, x_tr, bst), **res)
+    phase("bagging_subset", **out["10"])
+    del bst
+    torch.cuda.empty_cache()
+
+    # ---- phase 10b: bagging by weights, with feature sampling -------------
+    p10b = dict(params, bagging_fraction=0.8, bagging_freq=1,
+                feature_fraction=0.8)
+    res, bst10b, _ = train_path("bag_mask_ff", p10b, x_tr, y_tr, x_te, y_te,
+                                10, names, ds=ds)
+    roots = root_counts(bst10b)
+    want = bag_counts(n, 0.8, 10)
+    if roots != want:
+        fail(f"bag_mask_ff: root counts {roots}, the host's bags {want}")
+    masks = feature_masks(len(col_of), 0.8, 10)
+    outside = [i for i, (t, m) in enumerate(zip(bst10b.inner.models, masks))
+               if not m[[col_of[int(f)] for f in
+                         t.split_feature[:t.num_leaves - 1]]].all()]
+    if outside:
+        fail(f"bag_mask_ff: trees {outside} split on a feature outside "
+             f"their sampled mask")
+    out["10b"] = dict(captures=one_capture("bag_mask_ff", bst10b),
+                      root_counts=":".join(map(str, roots)),
+                      features_per_tree=int(masks[0].sum()),
+                      trees_within_mask=len(masks),
+                      train_scores_vs_predict=scores_vs_predict(
+                          "bag_mask_ff", bst10b.inner.scores, x_tr, bst10b),
+                      **res)
+    phase("bagging_mask_feature_fraction", **out["10b"])
+    serial3 = auc(bst10b.predict(x_te, num_iteration=3), y_te)
+    del bst10b
+    torch.cuda.empty_cache()
+
+    # ---- phase 10d: the same over the 4x1 data-parallel mesh --------------
+    res, bst, _ = train_path(
+        "dp_bag_mask_ff", dict(p10b, tree_learner="data",
+                               mesh_devices=MESH_SLOTS, mesh_shape="4x1"),
+        x_tr, y_tr, x_te, y_te, 3, names, ds=ds)
+    gap = abs(float(res["heldout_auc"]) - serial3)
+    if bst.inner._subset is not None or root_counts(bst) != want[:3]:
+        fail(f"dp_bag_mask_ff: not the serial path's bags "
+             f"({root_counts(bst)} against {want[:3]})")
+    out["10d"] = dict(auc_gap_vs_serial_3_rounds=f"{gap:.3e}",
+                      captures=one_capture("dp_bag_mask_ff", bst),
+                      root_counts=":".join(map(str, root_counts(bst))),
+                      **res)
+    phase("dp_bagging_mask_feature_fraction", **out["10d"])
+    if gap > 1e-4:
+        fail(f"dp_bag_mask_ff: held-out AUC {res['heldout_auc']} is more "
+             f"than 1e-4 from the serial path's {serial3:.6f} at 3 rounds")
+    del bst
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: GOSS ---------------------------------------------------
+    p11 = dict(params, boosting_type="goss", top_rate=0.2, other_rate=0.1)
+    res, bst, _ = train_path("goss", p11, x_tr, y_tr, x_te, y_te, 13, names,
+                             ds=ds)
+    roots = root_counts(bst)
+    top, other = int(n * 0.2), int(n * 0.1)
+    if roots[:10] != [n] * 10 or not all(
+            top + 0.9 * other <= r <= top + 1.2 * other for r in roots[10:]):
+        fail(f"goss: root counts {roots}: not {n} in the 10 warm-up rounds "
+             f"and {top} plus about {other} kept others after")
+    reads = bst.inner.stats["sample_host_reads"]
+    if reads != 3:
+        fail(f"goss: {reads} host reads of the gradients for 3 sampled "
+             f"rounds")
+    out["11"] = dict(captures=one_capture("goss", bst),
+                     root_counts=":".join(map(str, roots)),
+                     sample_host_reads=reads,
+                     train_scores_vs_predict=scores_vs_predict(
+                         "goss", bst.inner.scores, x_tr, bst), **res)
+    phase("goss", **out["11"])
+    del bst
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: DART, with the held-out rows as a valid set ------------
+    # the default rates (drop_rate 0.1, skip_drop 0.5, max_drop 50); the
+    # default drop_seed 4 drops no tree in 10 rounds, seed 3 drops in
+    # rounds 3, 7, 8 and 10 (the drop stream does not depend on the data)
+    res, bst, _ = train_path("dart", dict(params, boosting_type="dart",
+                                          drop_seed=3),
+                             x_tr, y_tr, x_te, y_te, 10, names, ds=ds,
+                             valid=True)
+    weights = bst.inner.tree_weight
+    out["12"] = dict(
+        captures=one_capture("dart", bst),
+        tree_weights=":".join(f"{w:.6g}" for w in weights),
+        valid_scores_vs_predict=scores_vs_predict(
+            "dart valid", bst.inner.valid_sets[0].scores, x_te, bst),
+        train_scores_vs_predict=scores_vs_predict(
+            "dart", bst.inner.scores, x_tr, bst), **res)
+    phase("dart", **out["12"])
+    if all(w == params["learning_rate"] for w in weights):
+        fail("dart: no iteration dropped a tree")
+    del bst
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: RF, its model file saved and loaded ---------------------
+    p13 = dict(params, boosting_type="rf", bagging_fraction=0.5,
+               bagging_freq=1, feature_fraction=0.6)
+    res, bst, _ = train_path("rf", p13, x_tr, y_tr, x_te, y_te, 10, names,
+                             ds=ds)
+    from lightgbm_tpu_torch import Booster
+    path = os.path.join(run_dir, "rf_model.txt.tmp")
+    bst.save_model(path)
+    with open(path) as f:
+        text = f.read()
+    again = Booster(model_file=path, params={"device": params["device"]})
+    os.remove(path)
+    same = bool(np.array_equal(again.predict(x_te), bst.predict(x_te)))
+    roots = root_counts(bst)
+    out["13"] = dict(captures=one_capture("rf", bst),
+                     root_counts=":".join(map(str, roots)),
+                     average_output_line="\naverage_output\n" in text,
+                     reload_predicts_same=same,
+                     train_scores_vs_predict=scores_vs_predict(
+                         "rf", bst.inner.scores, x_tr, bst), **res)
+    phase("rf", **out["13"])
+    if not out["13"]["average_output_line"] or not same or \
+            roots != [n // 2] * 10:
+        fail(f"rf: average_output in the file "
+             f"{out['13']['average_output_line']}, the reloaded model "
+             f"predicts the same {same}, root counts {roots}")
+    del bst, again
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: the training API on the card ----------------------------
+    rounds = 6
+    fracs = [0.5, 0.5] + [1.0] * (rounds - 2)
+    rates = [0.1, 0.1] + [0.05] * (rounds - 2)
+    res, bst, _ = train_path(
+        "reset_bagging", p10, x_tr, y_tr, x_te, y_te, rounds, names, ds=ds,
+        valid=True, train_kw=dict(callbacks=[reset_parameter(
+            learning_rate=rates, bagging_fraction=fracs)]))
+    roots = root_counts(bst)
+    if roots != [n // 2] * 2 + [n] * (rounds - 2) or bst.inner._bagging_on:
+        fail(f"reset_bagging: root counts {roots}: bagging not switched "
+             f"off after round 2")
+    captures = one_capture("reset_bagging", bst)
+    # rollback of the last iteration: the scores cloned at its start
+    inner = bst.inner
+    t0, v0 = inner.scores.clone(), inner.valid_sets[0].scores.clone()
+    text = bst.model_to_string()
+    bst.update()
+    bst.rollback_one_iter()
+    rollback_exact = (torch.equal(inner.scores, t0)
+                      and torch.equal(inner.valid_sets[0].scores, v0)
+                      and bst.model_to_string() == text)
+    if not rollback_exact:
+        fail("rollback_one_iter did not restore the scores and the model "
+             "bit for bit")
+    del bst, inner, t0, v0
+    # a custom binary log loss grows the built-in objective's first tree
+
+    def logloss(preds, data):
+        p = 1.0 / (1.0 + np.exp(-preds))
+        return p - data.get_label(), p * (1.0 - p)
+    first = lambda b: b.model_to_string().split("Tree=")[1]
+    fobj_same = (first(train(params, ds, 1, fobj=logloss,
+                             verbose_eval=False))
+                 == first(train(params, ds, 1, verbose_eval=False)))
+    if not fobj_same:
+        fail("a custom binary log loss grew another first tree than the "
+             "built-in objective")
+    # cv, 3 folds of 200,000 rows, with early stopping
+    fns = _kernel_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    cv_params = dict(params, metric=["binary_logloss", "auc"])
+    sub = 200_000
+    t_cv = time.perf_counter()
+    result = cv(cv_params, Dataset(x_tr[:sub], y_tr[:sub], params=cv_params),
+                3, nfold=3, early_stopping_rounds=2)
+    t_cv = time.perf_counter() - t_cv
+    cv_launches = {k: fn.launches for k, fn in fns.items()}
+    if not all(cv_launches[k] for k in ("hist_window", "partition_window",
+                                         "route_window")):
+        fail(f"cv: kernel counts {cv_launches}")
+    if sorted(result) != ["auc-mean", "auc-stdv", "binary_logloss-mean",
+                          "binary_logloss-stdv"] or not np.isfinite(
+            sum(result.values(), [])).all():
+        fail(f"cv: {result}")
+    out["14"] = dict(captures=captures,
+                     root_counts=":".join(map(str, roots)),
+                     rollback_bit_exact=rollback_exact,
+                     fobj_first_tree_identical=fobj_same,
+                     cv_rows=min(sub, n), cv_folds=3, cv_s=f"{t_cv:.3f}",
+                     **{f"cv_{k}": ":".join(f"{v:.6f}" for v in vals)
+                        for k, vals in result.items()},
+                     **{f"cv_{k}_counted": v for k, v in cv_launches.items()
+                        if v},
+                     **{f"reset_{k}": v for k, v in res.items()})
+    phase("training_api", **out["14"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def expo_subset_path(params, names, ds, x_tr, y_tr, x_te, y_te):
+    """Phase 10c: the Expo-shaped task at full width (11,000,000 rows) in
+    the bagging subset regime with ``ordered_bins=on``, 3 rounds: the root
+    window holds the 5,500,000 bag rows, whose bins and weights start each
+    tree in the ordered copies."""
+    import torch
+    n = len(y_tr)
+    res, bst, _ = train_path(
+        "expo_bag_subset", dict(params, bagging_fraction=0.5,
+                                bagging_freq=1),
+        x_tr, y_tr, x_te, y_te, 3, names, ds=ds)
+    roots = root_counts(bst)
+    if roots != [n // 2] * 3:
+        fail(f"expo_bag_subset: root counts {roots}, not {n // 2} each")
+    out = dict(captures=one_capture("expo_bag_subset", bst),
+               root_counts=":".join(map(str, roots)),
+               host_bag_draw_ms=bag_draw_ms(n, 0.5),
+               train_scores_vs_predict=scores_vs_predict(
+                   "expo_bag_subset", bst.inner.scores, x_tr, bst), **res)
+    phase("expo_bagging_subset", **out)
+    del bst
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampling_card_vs_cpu(params, x, y, x_te, y_te):
+    """Phase 14b: the card against the CPU on 200,000 rows, 3 rounds, for
+    bagging (subset regime), GOSS (learning_rate 0.5, so round 3 samples)
+    and DART: the same sampling streams on both, the first tree identical
+    (round 1's gradients are +-0.5 and 0.25, whose sums are exact) up to a
+    float64-checked near-tie (:func:`card_vs_cpu_trees`)."""
+    out = {}
+    for name, p in (
+            ("bagging", dict(params, bagging_fraction=0.5, bagging_freq=1)),
+            ("goss", dict(params, boosting_type="goss", learning_rate=0.5)),
+            ("dart", dict(params, boosting_type="dart", drop_rate=0.5,
+                          skip_drop=0.0))):
+        boosters, same = card_vs_cpu_trees(f"{name}_card_vs_cpu", p, x, y,
+                                           x_te, 3, 1)
+        a = {d: auc(boosters[d][1], y_te) for d in boosters}
+        reads = {d: boosters[d][0].inner.stats["sample_host_reads"]
+                 for d in boosters}
+        out[name] = dict(rows=len(y), rounds=3, **same,
+                         cpu_auc=f"{a['cpu']:.6f}", cuda_auc=f"{a['cuda']:.6f}",
+                         sample_host_reads=":".join(
+                             str(reads[d]) for d in ("cpu", "cuda")))
+        phase(f"{name}_card_vs_cpu", **out[name])
+        if name == "goss" and reads != {"cpu": 1, "cuda": 1}:
+            fail(f"goss card vs CPU: sampled rounds {reads}, not round 3 "
+                 f"on both")
+    return out
+
+
 def multi_card(params) -> None:
     """``--multi-card``: the data-parallel learner with its four mesh slots
     on four cards (slot s on card s) instead of one, so its split step
@@ -2806,7 +3194,6 @@ def main() -> None:
 
     # ---- phase 7: the graph loop against the eager loop, Expo -------------
     expo_loops = graph_vs_eager("expo", ds, y_tr, names, ordered_bins="on")
-    del ds
     torch.cuda.empty_cache()
 
     # ---- phase 4b: card against CPU on the Expo-shaped task ---------------
@@ -2821,7 +3208,9 @@ def main() -> None:
                 ("split_feature", "threshold", "decision_type",
                  "left_child", "right_child", "leaf_value",
                  "cat_boundaries", "cat_threshold"), float("inf"), 5e-3)
-    del x_all, y_all, x_tr, y_tr, x_te, y_te
+    # phase 10c trains on this Dataset again after the other paths
+    expo_kept = (ds, x_tr, y_tr, x_te, y_te)
+    del ds, x_all, y_all, x_tr, y_tr, x_te, y_te
     torch.cuda.empty_cache()
 
     # ---- phases 2h and 8: lambdarank on the MS-LTR-shaped task ------------
@@ -2838,6 +3227,21 @@ def main() -> None:
 
     # ---- phases 9-9d: multiclass on the Covertype-shaped task -------------
     cov = covtype_path(params, names, np.random.default_rng(SEED + 9))
+    torch.cuda.empty_cache()
+
+    # ---- phases 10-14: sampling, the boosting variants, the training API --
+    rng = np.random.default_rng(SEED + 1)
+    x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
+    x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
+    x_te, y_te = x_all[N_ROWS:], y_all[N_ROWS:]
+    samp = sampling_paths(params, names, x_tr, y_tr, x_te, y_te)
+    # ---- phase 10c: the bagging subset regime on the Expo-shaped task ----
+    expo_bag = expo_subset_path(expo_params, names, *expo_kept)
+    del expo_kept
+    torch.cuda.empty_cache()
+    # ---- phase 14b: card against CPU for bagging, GOSS and DART ----------
+    sampling_card_vs_cpu(params, x_tr[:200_000], y_tr[:200_000], x_te, y_te)
+    del x_all, y_all, x_tr, y_tr, x_te, y_te
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}",
           higgs_ms_per_tree_scatter=higgs["ms_per_tree"],
           higgs_ms_per_tree_compact=compact["ms_per_tree"],
@@ -2848,7 +3252,11 @@ def main() -> None:
           higgs_ms_per_tree_dp_4x1=dp["ms_per_tree"],
           higgs_ms_per_tree_dp_2x2=dp22["ms_per_tree"],
           mslr_ms_per_tree=mslr["ms_per_tree"],
-          covtype_ms_per_tree=cov["ms_per_tree"])
+          covtype_ms_per_tree=cov["ms_per_tree"],
+          expo_bagging_subset_ms_per_tree=expo_bag["ms_per_tree"],
+          **{f"phase_{k}_ms_per_tree": v["ms_per_tree"]
+             for k, v in samp.items() if "ms_per_tree" in v},
+          training_api_ms_per_tree=samp["14"]["reset_ms_per_tree"])
 
     root = timing[N_ROWS]
     proot = part_timing[N_EXPO]

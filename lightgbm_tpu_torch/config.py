@@ -60,6 +60,7 @@ PARAM_ALIASES: Dict[str, str] = {
     "unbalanced_sets": "is_unbalance",
     "ndcg_at": "ndcg_eval_at",
     "eval_at": "ndcg_eval_at",
+    "bagging_fraction_seed": "bagging_seed",
 }
 
 
@@ -87,8 +88,20 @@ class Config:
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
     feature_fraction: float = 1.0
+    feature_fraction_seed: int = 2
     bagging_fraction: float = 1.0
     bagging_freq: int = 0
+    bagging_seed: int = 3
+    top_rate: float = 0.2          # GOSS
+    other_rate: float = 0.1        # GOSS
+
+    # DART
+    drop_rate: float = 0.1
+    max_drop: int = 50
+    skip_drop: float = 0.5
+    xgboost_dart_mode: bool = False
+    uniform_drop: bool = False
+    drop_seed: int = 4
 
     # categorical splits (feature_histogram.hpp:113-223)
     max_cat_group: int = 64
@@ -165,6 +178,8 @@ SUPPORTED_OBJECTIVES = (
     "poisson", "binary", "multiclass", "softmax", "multiclassova",
     "multiclass_ova", "ova", "ovr", "xentropy", "cross_entropy",
     "xentlambda", "cross_entropy_lambda", "lambdarank")
+# lightgbm_tpu/config.py:656 and boosting.py:2247 create_boosting
+BOOSTING_TYPES = ("gbdt", "gbrt", "dart", "goss", "rf", "random_forest")
 MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova", "softmax",
                          "multiclass_ova", "ova", "ovr")
 
@@ -304,13 +319,12 @@ def check_params(cfg: Config) -> None:
                   "for multiclass training")
     if not is_multiclass and cfg.num_class != 1:
         log.fatal("Number of classes must be 1 for non-multiclass training")
-    if cfg.boosting_type not in ("gbdt", "gbrt"):
-        _unsupported(f"boosting_type={cfg.boosting_type}",
-                     "boosting variants and sampling (DART/GOSS/RF)")
-    if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0:
-        _unsupported("bagging", "boosting variants and sampling")
-    if cfg.feature_fraction < 1.0:
-        _unsupported("feature_fraction < 1", "boosting variants and sampling")
+    if cfg.boosting_type not in BOOSTING_TYPES:
+        log.fatal("Unknown boosting type %s", cfg.boosting_type)
+    if cfg.boosting_type in ("rf", "random_forest"):
+        if not (cfg.bagging_freq > 0 and 0.0 < cfg.bagging_fraction < 1.0):
+            log.fatal("Random forest needs bagging (bagging_freq > 0 and "
+                      "0 < bagging_fraction < 1)")
     _check_distributed(cfg)
     if cfg.data_stream not in ("auto", "resident"):
         _unsupported(f"data_stream={cfg.data_stream}",

@@ -100,13 +100,17 @@ def booster_from_arrays(model_str: Optional[str] = None,
                         max_feature_idx: int = 0,
                         boost_from_average: bool = False,
                         params: Optional[Dict] = None,
-                        num_class: int = 1) -> Booster:
+                        num_class: int = 1,
+                        average_output: bool = False) -> Booster:
     """A port Booster from model text, or from trees given as dicts of the
     ``Tree`` fields (``num_leaves``, ``split_feature``, ``threshold``,
     ``decision_type``, ``left_child``, ``right_child``, ``leaf_value``, ...;
     ``num_cat``, ``cat_boundaries`` and ``cat_threshold`` for categorical
     nodes) with the model's objective string (e.g. ``"binary sigmoid:1"``),
-    ``num_class`` trees an iteration, tree i of class ``i % num_class``."""
+    ``num_class`` trees an iteration, tree i of class ``i % num_class``.
+    ``average_output`` marks a random forest's trees (their outputs
+    averaged); a DART booster's trees are already normalised and need
+    nothing more.  Model text carries both kinds as it is."""
     if model_str is not None:
         return Booster(params=params, model_str=model_str)
     names = " ".join(f"Column_{i}" for i in range(max_feature_idx + 1))
@@ -116,6 +120,8 @@ def booster_from_arrays(model_str: Optional[str] = None,
               f"objective={objective}"]
     if boost_from_average:
         header.append("boost_from_average")
+    if average_output:
+        header.append("average_output")
     header += [f"feature_names={names}", ""]
     blocks = []
     for i, fields in enumerate(trees or []):

@@ -165,18 +165,21 @@ def pool_rows(res: SplitResult):
 
 def _row_leaf_from_intervals(orders, leaf_start: torch.Tensor,
                              leaf_cnt: torch.Tensor, leaf_odd: torch.Tensor,
-                             n: int) -> torch.Tensor:
-    """row -> leaf map from the final leaf intervals: the intervals
-    partition positions [0, n), so the leaf of each position is its
-    interval's, pushed through the ``order`` buffer of that leaf's depth
-    parity (``orders[0]`` for even depths, ``orders[1]`` for odd,
-    ``leaf_odd`` per leaf)."""
+                             n: int, m: int) -> torch.Tensor:
+    """row -> leaf map ``[n]`` from the final leaf intervals: the
+    intervals partition positions [0, m) (``m`` the root window's rows,
+    ``n`` unless the tree grew on a bag), so the leaf of each position is
+    its interval's, pushed through the ``order`` buffer of that leaf's
+    depth parity (``orders[0]`` for even depths, ``orders[1]`` for odd,
+    ``leaf_odd`` per leaf).  Rows outside the root window get -1."""
     by_start = torch.argsort(leaf_start, stable=True)
     leaf_of_pos = torch.repeat_interleave(by_start, leaf_cnt[by_start],
-                                          output_size=n)
-    order = torch.where(leaf_odd[leaf_of_pos], orders[1], orders[0])
-    return torch.empty(n, dtype=torch.int32, device=order.device).scatter_(
-        0, order.long(), leaf_of_pos.int())
+                                          output_size=m)
+    order = torch.where(leaf_odd[leaf_of_pos], orders[1][:m], orders[0][:m])
+    dev = order.device
+    out = (torch.empty(n, dtype=torch.int32, device=dev) if m == n
+           else torch.full((n,), -1, dtype=torch.int32, device=dev))
+    return out.scatter_(0, order.long(), leaf_of_pos.int())
 
 
 def _tensor_key(*tensors):
@@ -548,6 +551,7 @@ class WindowBuffers(SplitLoop):
         self.goes_left = torch.zeros(rows, dtype=torch.bool, device=dev)
         self.lsc = torch.zeros((L + 1, 2), dtype=torch.int64, device=dev)
         self.sc_root = torch.tensor([0, rows], dtype=torch.int32, device=dev)
+        self.sc_bag = torch.zeros(2, dtype=torch.int32, device=dev)
         self.pool = LeafPool(cfg, n_feat, dev)
         self.weights = None if self.ordered else tuple(
             torch.empty(rows, dtype=torch.float32, device=dev)
@@ -575,12 +579,19 @@ class WindowBuffers(SplitLoop):
             "on a card with partition_impl=compact")
 
     def start(self, bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
-              cw: torch.Tensor, meta: FeatureMeta,
-              feat_valid: torch.Tensor) -> None:
-        """Start a tree: the root's window in buffer 0 (rows in natural
-        order, so the ordered copies are the inputs), the weights copied
+              cw: torch.Tensor, meta: FeatureMeta, feat_valid: torch.Tensor,
+              rows: Optional[torch.Tensor] = None) -> int:
+        """Start a tree: the root's window in buffer 0, the weights copied
         where the step reads them, the counters and windows cleared, and
-        the pool reset with the root's histogram."""
+        the pool reset with the root's histogram.  The root window holds
+        every row in natural order (so the ordered copies are the inputs),
+        or only ``rows`` (sorted int32 row ids: a bag), whose bins and
+        weights are then gathered into the ordered copies' first ``m``
+        positions.  Nothing in the captured step depends on the window's
+        size, so a bag of any size replays the same graph.  The feature
+        mask is read where it lies at every step: a new mask is copied
+        into the captured tensor, never passed as another.  Returns ``m``,
+        the root window's rows."""
         key = _tensor_key(bins, *meta, feat_valid)
         if self.graph is not None and key != self.bound:
             raise ValueError("grow_tree: the split step was captured on "
@@ -593,20 +604,40 @@ class WindowBuffers(SplitLoop):
             self.route_bins, self.route_order = (
                 (bins, bins), (self.bufs[0][0], self.bufs[1][0]))
         b0 = self.bufs[0]
-        b0[0].copy_(self.iota)
-        for dst, src in zip(b0[1:] if self.ordered else self.weights,
-                            (bins, gw, hw, cw) if self.ordered
-                            else (gw, hw, cw)):
-            dst.copy_(src)
+        m = self.rows if rows is None else rows.numel()
+        if rows is None:
+            b0[0].copy_(self.iota)
+        else:
+            b0[0][:m].copy_(rows)
+        if self.ordered:
+            if rows is None:
+                for dst, src in zip(b0[1:], (bins, gw, hw, cw)):
+                    dst.copy_(src)
+            else:
+                idx = rows.long()
+                for dst, src in zip(b0[1:], (bins, gw, hw, cw)):
+                    torch.index_select(src, 0, idx, out=dst[:m])
+        else:
+            for dst, src in zip(self.weights, (gw, hw, cw)):
+                dst.copy_(src)
         # fill_, not item assignment: assigning a Python number copies it
         # from the host
         self.lsc.zero_()
-        self.lsc[0, 1].fill_(self.rows)
+        self.lsc[0, 1].fill_(m)
         self.start_counters()
-        hist_root = hist_window(self.iota, self.sc_root, bins, gw, hw, cw,
-                                self.cfg.max_bin, rows_upper_bound=self.rows)
+        if rows is None:
+            hist_root = hist_window(self.iota, self.sc_root, bins, gw, hw,
+                                    cw, self.cfg.max_bin,
+                                    rows_upper_bound=self.rows)
+        else:   # the bag's window, through the kernel like any window
+            self.sc_bag[1].fill_(m)
+            src = ((self.iota, *b0[1:]) if self.ordered
+                   else (b0[0], bins, gw, hw, cw))
+            hist_root = hist_window(src[0], self.sc_bag, *src[1:],
+                                    self.cfg.max_bin, rows_upper_bound=m)
         self.pool.reset(meta, feat_valid, hist_root, gw.sum(), hw.sum(),
                         cw.sum())
+        return m
 
     def step(self) -> bool:
         """One split: the body of ``make_grower``'s loop
@@ -692,13 +723,17 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               cw: torch.Tensor, meta: FeatureMeta, feat_valid: torch.Tensor,
               cfg: GrowerConfig, stats: Optional[Dict[str, int]] = None,
               buffers: Optional[WindowBuffers] = None,
-              loop: Optional[str] = None):
+              loop: Optional[str] = None,
+              rows: Optional[torch.Tensor] = None):
     """Grow one tree.
 
     bins ``[N, F]`` uint8; gw/hw/cw ``[N]`` f32 (gradient, hessian, count
     weight); feat_valid ``[F]`` bool.  Returns ``(TreeArrays, row_leaf
-    [N] i32)``.  ``buffers`` (a :class:`WindowBuffers` for these shapes
-    and ``cfg``, reused across trees, with its captured step) is allocated
+    [N] i32)``.  ``rows`` (sorted int32 row ids, a bag) grows the tree on
+    those rows only, the root window holding them (the weights of other
+    rows must be 0: the root's sums run over all rows); their row_leaf is
+    -1.  ``buffers`` (a :class:`WindowBuffers` for these shapes and
+    ``cfg``, reused across trees, with its captured step) is allocated
     when not given.  ``loop`` is ``"graph"`` (replay the captured split
     step: a card with ``partition_impl=compact``) or ``"eager"``; None
     takes the graph where it can.  Both grow the same tree.
@@ -719,7 +754,7 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
         raise ValueError("grow_tree: the window buffers were made for other "
                          "shapes or another grower config")
     loop = buffers.loop(loop)
-    buffers.start(bins, gw, hw, cw, meta, feat_valid)
+    m = buffers.start(bins, gw, hw, cw, meta, feat_valid, rows)
     replays = buffers.replays
     # the capture and the replays take the current card's streams
     with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
@@ -734,5 +769,5 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
     row_leaf = _row_leaf_from_intervals(
         (buffers.bufs[0][0], buffers.bufs[1][0]),
         buffers.lsc[:splits + 1, 0], buffers.lsc[:splits + 1, 1],
-        (pool.leaf_depth[:splits + 1] & 1) == 1, n)
+        (pool.leaf_depth[:splits + 1] & 1) == 1, n, m)
     return pool.tree(splits), row_leaf

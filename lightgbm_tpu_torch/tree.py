@@ -44,6 +44,10 @@ class Tree:
         self.cat_boundaries = np.zeros(1, dtype=np.int32)
         self.cat_threshold = np.zeros(0, dtype=np.uint32)
         self.shrinkage = 1.0
+        # True when threshold_bin matches the real thresholds under the
+        # training data's bin mappers (set by from_arrays; rebuilt for a
+        # tree read from text by ensure_binned)
+        self._binned_ok = False
 
     # ------------------------------------------------------------------ build
 
@@ -109,7 +113,23 @@ class Tree:
         if t.num_cat > 0:
             t.cat_boundaries = np.asarray(cat_boundaries, dtype=np.int32)
             t.cat_threshold = np.asarray(cat_threshold, dtype=np.uint32)
+        t._binned_ok = True
         return t
+
+    def ensure_binned(self, bin_mappers) -> None:
+        """Rebuild ``threshold_bin`` from the real thresholds of a tree read
+        from text, so that it routes binned rows (a loaded model's trees
+        replayed on the device: rollback and DART)."""
+        if self._binned_ok or self.num_leaves <= 1:
+            return
+        for i in range(self.num_leaves - 1):
+            if self.is_categorical(i):
+                self.threshold_bin[i] = int(self.threshold[i])
+            else:
+                mapper = bin_mappers[self.split_feature[i]]
+                self.threshold_bin[i] = int(mapper.value_to_bin(
+                    np.asarray([self.threshold[i]]))[0])
+        self._binned_ok = True
 
     # ---------------------------------------------------------------- helpers
 
@@ -229,6 +249,40 @@ class Tree:
             t.cat_threshold = _parse_arr(kv["cat_threshold"], np.uint32, -1)
         t.shrinkage = float(kv.get("shrinkage", "1"))
         return t
+
+    def to_json(self, index: int) -> Dict:
+        """Tree::ToJSON (tree.cpp:229+) as a python dict."""
+        def node_json(node: int) -> Dict:
+            if node < 0:
+                leaf = ~node
+                return {"leaf_index": int(leaf),
+                        "leaf_value": float(self.leaf_value[leaf]),
+                        "leaf_count": int(self.leaf_count[leaf])}
+            return {
+                "split_index": int(node),
+                "split_feature": int(self.split_feature[node]),
+                "split_gain": float(self.split_gain[node]),
+                "threshold": float(self.threshold[node]),
+                "decision_type": ("categorical" if self.is_categorical(node)
+                                  else "<="),
+                "default_left": self.default_left(node),
+                "missing_type": ["None", "Zero", "NaN"][
+                    self.missing_type(node)],
+                "internal_value": float(self.internal_value[node]),
+                "internal_count": int(self.internal_count[node]),
+                "left_child": node_json(int(self.left_child[node])),
+                "right_child": node_json(int(self.right_child[node])),
+            }
+        root = node_json(0) if self.num_leaves > 1 else {
+            "leaf_index": 0,
+            "leaf_value": (float(self.leaf_value[0]) if len(self.leaf_value)
+                           else 0.0),
+            "leaf_count": (int(self.leaf_count[0]) if len(self.leaf_count)
+                           else 0)}
+        return {"tree_index": index, "num_leaves": int(self.num_leaves),
+                "num_cat": int(self.num_cat),
+                "shrinkage": float(self.shrinkage), "tree_structure": root}
+
 
 def _join_int(arr) -> str:
     return " ".join(str(int(v)) for v in arr)

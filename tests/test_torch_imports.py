@@ -88,12 +88,12 @@ def test_predict_raises_without_card(no_card):
 
 
 @pytest.mark.parametrize("params", [
-    {"boosting_type": "dart"},
-    {"boosting_type": "goss"},
+    {"parallel_impl": "shardmap"},
+    {"tree_learner": "data", "num_machines": 2},
     {"shard_axes": "batch,feature"},
     {"tree_learner": "voting"},
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"feature_fraction": 0.5},
+    {"tree_learner": "data", "mesh_devices": 2},
+    {"max_bin": 300},
     {"data_stream": "chunked"},
     {"max_bin": 511},
 ])
