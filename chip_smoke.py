@@ -58,7 +58,13 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    buffers of the Higgs path's bins, and the Expo path's 11,000,000-row
    root in either buffer of its leaf-ordered bins, on splits of each
    missing type and a categorical one; with times beside the PyTorch
-   gather + ``where`` of the eager loop;
+   gather + ``where`` of the eager loop.  Then on a bundled column: the
+   Covertype-shaped task's 464,809 x 12 bins in its EFB layout (the 41-slot
+   soil bundle, the 5-slot wilderness bundle), gathered through either
+   ``order`` buffer at the root and a 4,000-row window, on two soil
+   features (one zero-missing), a wilderness feature, a numeric column
+   and a categorical split on a soil feature, the slot decoded in the
+   kernel; with times at both windows;
 2f. what the captured split step's gated launches cost at the Expo
    path's size: the partition over the grid of all rows and the
    histogram's device regime, against the partition over the window's own
@@ -70,7 +76,10 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    rows of 28 columns held as four shards, splits of each missing type and
    a categorical one from a large leaf, a leaf of about 1,000 rows and the
    root, and the sink after a tree's stop, which moves nothing; with
-   times at the root and the 1,000-row leaf beside the byte bound;
+   times at the root and the 1,000-row leaf beside the byte bound.  Then
+   the same splits as 2e's on the bundled Covertype layout (464,808 rows
+   as four shards), from the root and from a leaf of about 4,000 rows,
+   with times at both;
 3. the Higgs path at full width: seeded synthetic Higgs-shaped data
    (1,000,000 x 28 float32, binary label from a fixed nonlinear rule plus
    noise, 100,000 held-out rows), ``train`` 10 rounds with 255 leaves and
@@ -144,33 +153,58 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    training set at random scores; with its times there (single,
    back-to-back, device), the plain version's, and the bound (bytes, or
    each pair's exp and reciprocals at the special-function rate);
-8. the MS-LTR-shaped lambdarank task at full width: seeded synthetic
-   MSLR-WEB30K-like data (2,270,296 x 137 float32 in 18,919 queries of
-   mean length 120, the longest 1,251; labels 0-4 in MSLR's shares;
-   750,000 held-out rows in 6,000 queries), ``train`` 10 rounds with 255
-   leaves and 255 bins, ``ndcg_eval_at=1,3,5,10``; the kernels of phase
-   3b plus one lambdarank launch a round, at most 9 host reads a tree,
-   held-out NDCG@1/3/5/10 above round 1's, and the gradient's ms a round
-   by the kernel and by the plain version on the card;
+8. the MS-LTR-shaped lambdarank task at full width and at the defaults:
+   seeded synthetic MSLR-WEB30K-like data (2,270,296 x 137 float32 in
+   18,919 queries of mean length 120, the longest 1,251; labels 0-4 in
+   MSLR's shares; 750,000 held-out rows in 6,000 queries), ``train`` 10
+   rounds with 255 leaves and 255 bins, ``ndcg_eval_at=1,3,5,10``: no
+   column bundles, and the count columns of at most 16 bins pack two a
+   byte, so K1 reads the packed storage matrix; the kernels of phase 3b
+   plus one lambdarank launch a round, at most 8 host reads a tree, one
+   capture, held-out NDCG@1/3/5/10 above round 1's, the gradient's ms a
+   round by the kernel and by the plain version on the card, and K1's
+   bytes a tree.  Then the cut run (``enable_bin_packing=false``) on the
+   same Dataset, 10 rounds, with the same numbers: NDCG@10 within 1e-3,
+   the first trees compared (identical, or where they first differ and
+   by how much), and one round under integer-valued gradients identical
+   in both layouts;
 8b. the card against the CPU on 200,000 rows of the same generator, 3
-   rounds: the first tree identical in structure up to its first
-   near-tie (the gradients are real-valued and the card adds them in
-   another order, so a split whose float64 gain differs from the other
-   choice's by less than the float32 sums' rounding may go either way;
+   rounds, at the defaults: the first tree identical in structure up to
+   its first near-tie (the gradients are real-valued and the card adds
+   them in another order, so a split whose float64 gain differs from the
+   other choice's by less than the float32 sums' rounding may go either
+   way;
    :func:`near_tie` checks that in float64), NDCG on phase 8's 6,000
    held-out queries within 1e-3, and the
    card's model saved beside the script, reloaded predicting the same,
    and removed;
-9. the Covertype-shaped multiclass task: 581,012 x 54 (10 continuous, 4
-   wilderness and 40 soil one-hot columns), 7 classes in Covertype's
-   shares, an 80/20 split, ``multiclass`` 3 rounds (21 trees) with 255
-   leaves: one capture of the split step, every later step of every tree
-   a replay;
-9b. one round of ``multiclassova`` on the same data;
-9c. one round over the 4x1 data-parallel mesh on the one card: held-out
-   multi_logloss within 1e-4 of phase 9's first round;
-9d. the card against the CPU at 100,000 rows, 2 rounds: the first
-   round's 7 trees identical in structure up to their first near-ties;
+9. the Covertype-shaped multiclass task at the defaults: 581,012 x 54 (10
+   continuous, 4 wilderness and 40 soil one-hot columns), 7 classes in
+   Covertype's shares, an 80/20 split, which EFB bundles into 12 columns
+   (nothing packs); ``multiclass`` 3 rounds (21 trees) with 255 leaves:
+   one capture of the split step, every later step of every tree a
+   replay, at most 8 host reads a tree.  Then the cut run
+   (``enable_bundle=false``, ``enable_bin_packing=false``) on its own
+   Dataset, 3 rounds: held-out multi_logloss within 1e-4, the first
+   round's trees compared (identical, or where they first differ and by
+   how much), and one round under integer-valued gradients identical in
+   both layouts;
+9b. one round of ``multiclassova`` on the bundled Dataset (not
+   profiled);
+9c. one round over the 4x1 data-parallel mesh on the one card, bundled:
+   held-out multi_logloss within 1e-4 of phase 9's first round;
+9e. one integer-gradient tree over the 1x4 mesh of
+   ``tree_learner=feature`` (three bundled columns a slice) by the eager
+   and graph loops, identical to the serial tree, as phase 6c;
+9f, 9g. bagging in the subset regime (0.5) and DART (``drop_rate=0.5``,
+   ``skip_drop=0``) on the bundled Dataset, 3 rounds each (not
+   profiled): one capture,
+   the training scores within 1e-5 of ``predict(raw_score=True)`` (the
+   out-of-bag rows and DART's re-scoring through the decoded
+   ``trees_scores_binned``), every bag's root 232,404 rows;
+9d. the card against the CPU at 100,000 rows, 2 rounds, at the defaults:
+   the first round's 7 trees identical in structure up to their first
+   near-ties;
 10. (phases 10 to 14 on phase 3's Higgs-shaped data and one Dataset)
    bagging in the subset regime (``bagging_fraction=0.5``,
    ``bagging_freq=1``, 10 rounds, the graph loop): each tree's root window
@@ -205,7 +239,12 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    early stopping (its means and deviations);
 14b. the card against the CPU on 200,000 rows, 3 rounds, for bagging,
    GOSS (learning rate 0.5, so round 3 samples) and DART: the first tree
-   identical up to a near-tie.
+   identical up to a near-tie;
+15. the non-finite guard on 200,000 of those rows (L2 regression): each
+   policy tripped once (``raise`` by a NaN label, ``rollback`` and
+   ``clamp`` by a custom objective with one NaN gradient at its third
+   call), a clean run tripping nothing; one capture and at most 8 host
+   reads a tree each.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
@@ -1208,11 +1247,13 @@ def check_hist_local(dev, rng):
     return timing, max_err
 
 
-def route_bound_ms(cnt: int, gathered: bool) -> float:
+def route_bound_ms(cnt: int, gathered: bool, bundled: bool = False) -> float:
     """Least time of a route call: each window position's order entry
     (4 B, gathered windows only), its bin byte and its output byte, and the
-    window, parity, leaf and split row, over the memory rate."""
-    nbytes = cnt * ((4 if gathered else 0) + 2) + 16 + 4 + 8 + 12 + 1 + N_BINS
+    window, parity, leaf and split row (and, on a bundled column, the
+    feature's column and first slot), over the memory rate."""
+    nbytes = (cnt * ((4 if gathered else 0) + 2) + 16 + 4 + 8 + 12 + 1
+              + N_BINS + (8 if bundled else 0))
     return nbytes / H100_BYTES_PER_S * 1e3
 
 
@@ -1331,16 +1372,18 @@ def check_route(dev, rng):
     return timing
 
 
-def route_rows_bound_ms(n: int, leaf_rows: int, moved: int) -> float:
+def route_rows_bound_ms(n: int, leaf_rows: int, moved: int,
+                        bundled: bool = False) -> float:
     """Least time of a route_rows call over ``n`` rows: each row's
     row_leaf entry (4 B) read; the split column's bytes of the leaf's
     ``leaf_rows`` rows only, the kernel's one column read, a 32-byte
     sector a scattered row and at most the whole column; each moved row's
-    entry (4 B) written; and the leaf, new leaf and split row read; over
-    the memory rate."""
+    entry (4 B) written; and the leaf, new leaf and split row read (and,
+    on a bundled column, the feature's column and first slot); over the
+    memory rate."""
     column = min(32 * leaf_rows, n)
-    return (4 * n + column + 4 * moved + 8 + 8 + 12 + 1 + N_BINS) \
-        / H100_BYTES_PER_S * 1e3
+    return (4 * n + column + 4 * moved + 8 + 8 + 12 + 1 + N_BINS
+            + (8 if bundled else 0)) / H100_BYTES_PER_S * 1e3
 
 
 def check_route_rows(dev, rng):
@@ -1448,6 +1491,199 @@ def check_route_rows(dev, rng):
                              leaf_rows=leaf_rows, moved=moved)
         phase("route_rows_time", leaf=label, rows=n,
               leaf_rows=timing[label]["leaf_rows"], moved=moved,
+              **{k_: f"{v:.4f}" for k_, v in timing[label].items()
+                 if isinstance(v, float) and k_ != "bound_ms"},
+              bound_ms=f"{bound_ms:.5f}",
+              bound_share=f"{bound_ms / k['device_ms']:.3f}"
+              if k["device_ms"] else "not measured")
+    del bins_t, maps
+    return timing
+
+
+# the Covertype-shaped task's training rows (an 80/20 split) and, at the
+# defaults, its EFB layout: 10 numeric columns, the 4 wilderness columns
+# in one bundle of 5 slots and the 40 soil columns in one of 41
+N_COVTYPE_TRAIN = int(0.8 * N_COVTYPE)
+COVTYPE_COLS = 12
+# pool rows (logical feature, threshold, default_left, categorical) on the
+# bundled layout: two soil features (one zero-missing), a wilderness
+# feature, a numeric column, and a categorical split on a soil feature
+BUNDLED_SPLITS = {"soil": (14 + 17, 0, 1, False),
+                  "soil_zero_missing": (14 + 5, 0, 1, False),
+                  "wilderness": (11, 0, 0, False),
+                  "numeric": (3, 100, 1, False),
+                  "soil_categorical": (14 + 22, 0, 0, True)}
+
+
+def covtype_bundle_meta(dev):
+    """The Covertype layout's feature meta with its decode maps: 54
+    logical features over 12 columns (``col``), each one-hot feature of 2
+    bins owning one slot of its bundle (``offset``)."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta
+    put = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    missing = [0] * 54
+    missing[14 + 5] = 1
+    return FeatureMeta(
+        put([N_BINS] * 10 + [2] * 44), put(missing),
+        put([(37 * k) % N_BINS for k in range(10)] + [0] * 44), None,
+        put(list(range(10)) + [10] * 4 + [11] * 40),
+        put([-1] * 10 + list(range(1, 5)) + list(range(1, 41))))
+
+
+def covtype_bundled_bins(n: int, rng) -> np.ndarray:
+    """``[n, 12]`` uint8 bins in the Covertype layout: random numeric bins,
+    one active wilderness and soil slot a row, and 5 % of the rows with
+    every soil feature at its default (slot 0)."""
+    b = np.empty((n, COVTYPE_COLS), np.uint8)
+    b[:, :10] = rng.integers(0, N_BINS, (n, 10))
+    b[:, 10] = rng.integers(1, 5, n)
+    b[:, 11] = rng.integers(1, 41, n)
+    b[rng.random(n) < 0.05, 11] = 0
+    return b
+
+
+def check_route_bundled(dev, rng):
+    """Phase 2e on a bundled column: the route kernel against its plain
+    version, bit for bit, on the Covertype-shaped task's 464,809 x 12
+    bundled bins gathered through either of two ``order`` buffers, at the
+    root window and a window of 4,000 rows, on each of
+    :data:`BUNDLED_SPLITS` (the 41-slot soil bundle decoded in the
+    kernel); times at both windows on the soil split."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import route_window, route_window_plain
+    n = N_COVTYPE_TRAIN
+    meta = covtype_bundle_meta(dev)
+    bins = torch.from_numpy(covtype_bundled_bins(n, rng)).to(dev)
+    orders = [torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+              for _ in range(2)]
+    splits = list(BUNDLED_SPLITS.values())
+    si32 = torch.tensor([s[:3] for s in splits], dtype=torch.int32,
+                        device=dev)
+    scat = torch.tensor([s[3] for s in splits], device=dev)
+    scatb = torch.from_numpy(rng.random((len(splits), N_BINS)) < 0.5).to(dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    ref = torch.empty_like(out)
+    windows = {"bundled_root": (0, n), "bundled_4000": (100_000, 4_000)}
+    checked = 0
+    for label, (start, cnt) in windows.items():
+        sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
+        for par in (0, 1):
+            odd = torch.tensor([par], dtype=torch.int32, device=dev)
+            for leaf, name in enumerate(BUNDLED_SPLITS):
+                lt = torch.tensor([leaf], device=dev)
+                out.fill_(True)
+                ref.fill_(True)
+                args = (sc, odd, lt, si32, scat, scatb, meta, (bins, bins),
+                        orders)
+                route_window(*args, out)
+                route_window_plain(*args, ref)
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    fail(f"route kernel != plain on the bundled column at "
+                         f"{label}, buffer {par}, split {name}")
+                checked += 1
+    phase("route_vs_plain", set="covtype_bundled", windows=len(windows),
+          splits=",".join(BUNDLED_SPLITS), calls_checked=checked,
+          exact=True)
+    timing = {}
+    soil = torch.tensor([0], device=dev)
+    odd = torch.tensor([1], dtype=torch.int32, device=dev)
+    for label, (start, cnt) in windows.items():
+        sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
+        args = (sc, odd, soil, si32, scat, scatb, meta, (bins, bins), orders)
+        k = three_times(lambda: route_window(*args, out))
+        p_ms = cuda_ms(lambda: route_window_plain(*args, ref), reps=3)
+        bound_ms = route_bound_ms(cnt, True, bundled=True)
+        timing[label] = dict(k, plain_ms=p_ms, bound_ms=bound_ms)
+        phase("route_time", window=label, rows=cnt,
+              **{k_: f"{v:.4f}" for k_, v in timing[label].items()
+                 if isinstance(v, float) and k_ != "bound_ms"},
+              bound_ms=f"{bound_ms:.5f}",
+              bound_share=f"{bound_ms / k['device_ms']:.3f}"
+              if k["device_ms"] else "not measured")
+    del bins, orders, out, ref
+    return timing
+
+
+def check_route_rows_bundled(dev, rng):
+    """Phase 2g on a bundled column: the data-parallel route kernel
+    against its plain version, bit for bit in the map and exact in the
+    counts, on the Covertype layout's bundled bins (464,808 rows as four
+    row shards, column-major), from the root and from a leaf of about
+    4,000 rows of a map of 255 skewed leaves, on each of
+    :data:`BUNDLED_SPLITS`; times at both on the soil split (new = leaf,
+    so that a call repeats)."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import route_rows, route_rows_plain
+    shards, L = MESH_SLOTS, 255
+    n = N_COVTYPE_TRAIN // shards * shards
+    meta = covtype_bundle_meta(dev)
+    bins_t = torch.from_numpy(np.ascontiguousarray(
+        covtype_bundled_bins(n, rng).T)).to(dev)
+    p = 1.0 / np.arange(1, L) ** 1.1
+    skewed = rng.choice(L - 1, n, p=p / p.sum()).astype(np.int32)
+    sizes = np.bincount(skewed, minlength=L)
+    small = int(np.argmin(np.abs(sizes - 4000)))
+    maps = {"root": torch.zeros(n, dtype=torch.int32, device=dev),
+            "skewed": torch.from_numpy(skewed).to(dev)}
+    scatb = torch.from_numpy(rng.random((L + 1, N_BINS)) < 0.5).to(dev)
+
+    def counts_of(rl):
+        return torch.stack([torch.bincount(r.long(), minlength=L + 1)
+                            for r in rl.view(shards, -1)]).int()
+
+    def pool(split, leaf):
+        i32 = np.zeros((L + 1, 3), np.int32)
+        cat = np.zeros(L + 1, bool)
+        i32[leaf], cat[leaf] = split[:3], split[3]
+        return (torch.from_numpy(i32).to(dev), torch.from_numpy(cat).to(dev))
+
+    checked = 0
+    for name, split in BUNDLED_SPLITS.items():
+        for where, m, leaf in (("root", "root", 0),
+                               ("leaf_4000", "skewed", small)):
+            i32, cat = pool(split, leaf)
+            lt = torch.tensor([leaf], device=dev)
+            nt = torch.tensor([L - 1], device=dev)
+            got = {}
+            for kind, fn in (("kernel", route_rows),
+                             ("plain", route_rows_plain)):
+                rl = maps[m].clone()
+                cnt = counts_of(rl)
+                fn(rl, bins_t, lt, nt, i32, cat, scatb, meta, cnt)
+                got[kind] = (rl, cnt)
+            torch.cuda.synchronize()
+            (rk, ck), (rp, cp) = got["kernel"], got["plain"]
+            if not (torch.equal(rk, rp) and torch.equal(ck, cp)
+                    and torch.equal(ck, counts_of(rk))):
+                fail(f"route_rows != plain on the bundled column at {name} "
+                     f"from {where}")
+            checked += 1
+    phase("route_rows_vs_plain", set="covtype_bundled", rows=n,
+          shards=shards, splits=",".join(BUNDLED_SPLITS), cases=checked,
+          leaf_4000_rows=int(sizes[small]), exact=True)
+    timing = {}
+    for label, m, leaf in (("bundled_root", "root", 0),
+                           ("bundled_leaf_4000", "skewed", small)):
+        rl = maps[m].clone()
+        i32, cat = pool(BUNDLED_SPLITS["soil"], leaf)
+        lt = torch.tensor([leaf], device=dev)
+        cnt = counts_of(rl)
+        leaf_rows = int((rl == leaf).sum())
+        probe = rl.clone()
+        route_rows_plain(probe, bins_t, lt, torch.tensor([L - 1], device=dev),
+                         i32, cat, scatb, meta, cnt.clone())
+        moved = int((probe != rl).sum())
+        k = three_times(lambda: route_rows(rl, bins_t, lt, lt, i32, cat,
+                                           scatb, meta, cnt))
+        p_ms = cuda_ms(lambda: route_rows_plain(rl, bins_t, lt, lt, i32, cat,
+                                                scatb, meta, cnt), reps=3)
+        bound_ms = route_rows_bound_ms(n, leaf_rows, moved, bundled=True)
+        timing[label] = dict(k, plain_ms=p_ms, bound_ms=bound_ms,
+                             leaf_rows=leaf_rows, moved=moved)
+        phase("route_rows_time", leaf=label, rows=n, leaf_rows=leaf_rows,
+              moved=moved,
               **{k_: f"{v:.4f}" for k_, v in timing[label].items()
                  if isinstance(v, float) and k_ != "bound_ms"},
               bound_ms=f"{bound_ms:.5f}",
@@ -1706,7 +1942,7 @@ def auc_quality(bst, pred, x_te, y_te) -> dict:
 
 def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
                group=None, quality=auc_quality, ds=None, valid=False,
-               train_kw=None):
+               train_kw=None, profile=True):
     """Drive one path through ``train`` and ``predict`` with the kernel
     counts set to 0 just before and read just after; returns its numbers
     and the booster.  ``group`` gives the training queries' sizes;
@@ -1714,7 +1950,8 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
     returns its numbers.  With K trees a round, the profiled update grows
     K trees, and its numbers "a tree" are the round's over K.  ``ds`` is
     the training rows' Dataset when it is already built; ``valid`` adds
-    the held-out rows as a valid set; ``train_kw`` goes to ``train``.
+    the held-out rows as a valid set; ``train_kw`` goes to ``train``;
+    ``profile=False`` leaves out the profiled tree and its numbers.
 
     On the graph loop a wrapper counts once at the capture, which launches
     nothing, and never at a replay, which launches: the launches are the
@@ -1823,6 +2060,20 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
         fail(f"{name}: held-out predictions are not finite of the expected "
              f"shape")
     held_out = quality(bst, pred, x_te, y_te)
+    out = dict(rows=len(y_tr), features=x_tr.shape[1], trees=trees,
+               rounds=rounds_run, trees_per_round=K,
+               splits=splits, steps=stats.get("steps", splits),
+               graph_replays=stats.get("graph_replays", 0),
+               loop="graph" if graph else "eager",
+               **{f"{k}_launches": v for k, v in launches.items()},
+               **by_regime, construct_s=f"{t_data:.3f}",
+               ms_per_tree=f"{t_train * 1e3 / trees:.2f}",
+               host_syncs_per_split=f"{stats['host_syncs'] / splits:.4f}",
+               host_syncs_per_tree=f"{syncs_per_tree:.3f}",
+               peak_mem_bytes=peak, predict_s=f"{t_pred:.3f}",
+               **held_out)
+    if not profile:
+        return out, bst, ds
 
     # device time of the kernels over one more tree (profiling two made
     # the script take more than half its time limit)
@@ -1875,18 +2126,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
     phase(f"{name}_host_ops", profiled_s=f"{wall:.3f}", trees=K, **{
         key.replace(" ", "_"): f"{ms / K:.1f}ms/tree,{count / K:g}calls/tree"
         for ms, key, count in host})
-    out = dict(rows=len(y_tr), features=x_tr.shape[1], trees=trees,
-               rounds=rounds_run, trees_per_round=K,
-               splits=splits, steps=stats.get("steps", splits),
-               graph_replays=stats.get("graph_replays", 0),
-               loop="graph" if graph else "eager",
-               **{f"{k}_launches": v for k, v in launches.items()},
-               **by_regime, construct_s=f"{t_data:.3f}",
-               ms_per_tree=f"{t_train * 1e3 / trees:.2f}",
-               host_syncs_per_split=f"{stats['host_syncs'] / splits:.4f}",
-               host_syncs_per_tree=f"{syncs_per_tree:.3f}",
-               peak_mem_bytes=peak, predict_s=f"{t_pred:.3f}",
-               **held_out, **tree_kernels)
+    out.update(tree_kernels)
     for n, ms in per.items():   # 0 for a kernel this path does not run
         out[f"{n}_device_ms_per_tree"] = (f"{ms / K:.3f}" if all_ms
                                           else "not measured")
@@ -1989,13 +2229,16 @@ def grower_card_vs_cpu(params, x, y):
              f"{bad or 'row_leaf'}")
 
 
-def gspmd_trees_identical(ds, y, graph: bool = True):
+def gspmd_trees_identical(ds, y, graph: bool = True,
+                          shapes=((4, 1), (2, 2), (1, 3))):
     """Phase 6c: one tree of the Higgs path under integer-valued gradients
     and hessians, whose sums are exact in any order, grown on the 4x1, 2x2
     and 1x3 meshes (1x3: uneven slices of 10, 9 and 9 columns) with the
     shard-local kernel, by the data-parallel eager loop and (``graph``)
     its graph loop, and by the serial grower with the gather kernel:
-    identical field by field, row -> leaf maps too.  The graph loop's
+    identical field by field, row -> leaf maps too.  Phase 9e runs the
+    same on the Covertype-shaped task's bundled columns over ``shapes``
+    1x4, ``tree_learner=feature``'s mesh.  The graph loop's
     three trees after its capture run under
     ``torch.cuda.set_sync_debug_mode("error")``, so any read to the host
     but the counted stop reads raises, and are timed beside two eager
@@ -2015,8 +2258,11 @@ def gspmd_trees_identical(ds, y, graph: bool = True):
     h = put(rng.integers(1, 4, n).astype(np.float32))
     c = torch.ones(n, dtype=torch.float32, device=dev)
     meta = FeatureMeta(put(fm["num_bin"]), put(fm["missing_type"]),
-                       put(fm["default_bin"]), put(fm["is_categorical"]))
-    fv = torch.ones(len(fm["num_bin"]), dtype=torch.bool, device=dev)
+                       put(fm["default_bin"]), put(fm["is_categorical"]),
+                       *(put(fm[k]) if k in fm else None
+                         for k in ("col", "offset")))
+    n_logical = len(fm["num_bin"])
+    fv = torch.ones(n_logical, dtype=torch.bool, device=dev)
     cfg = GrowerConfig(num_leaves=255, min_data_in_leaf=1,
                        min_sum_hessian_in_leaf=10.0, max_bin=td.max_num_bin(),
                        has_missing=bool((fm["missing_type"] != 0).any()))
@@ -2029,9 +2275,10 @@ def gspmd_trees_identical(ds, y, graph: bool = True):
     want = host(*grow_tree(ds.bins, g, h, c, meta, fv, cfg))
     slots = mesh_slots(MESH_SLOTS, dev)
     max_reads = -(-(cfg.num_leaves - 1) // 32) + 1
-    for shape in ((4, 1), (2, 2), (1, 3)):
+    for shape in shapes:
         mesh = make_named_mesh(*shape, slots)
-        growers = {loop: GspmdGrower(cfg, mesh, ds.bins)
+        growers = {loop: GspmdGrower(cfg, mesh, ds.bins,
+                                     n_logical=n_logical)
                    for loop in (("eager", "graph") if graph else ("eager",))}
         stats = {loop: {} for loop in growers}
         ms = {loop: [] for loop in growers}
@@ -2060,6 +2307,7 @@ def gspmd_trees_identical(ds, y, graph: bool = True):
                 if want[2] != other[2] or not np.array_equal(want[1],
                                                              other[1])]
         out = dict(mesh=f"{shape[0]}x{shape[1]}", rows=n,
+                   bundled="col" in fm,
                    slice_cols=":".join(str(len(col)) for col in
                                        growers["eager"].cols),
                    cards=len(set(sum(mesh.devices, []))), leaves=want[2],
@@ -2441,6 +2689,108 @@ def near_tie(tc, tg, k, bins, col_of, g, h, min_hess):
     return gap <= 1.0 or on_bound, gap
 
 
+def logical_bins(td) -> np.ndarray:
+    """A constructed dataset's bins by logical feature ``[N, E]``: its
+    columns, with each bundle's slots decoded into its features' bins
+    (``ops/route.py:decode_bundle_bin``), so that column ``e`` is feature
+    ``used_features[e]``'s."""
+    fm = td.feature_meta()
+    if "col" not in fm:
+        return td.binned
+    out = np.empty((td.num_data, len(fm["col"])), np.uint8)
+    for e, (c, off, nb, db) in enumerate(zip(fm["col"], fm["offset"],
+                                             fm["num_bin"],
+                                             fm["default_bin"])):
+        raw = td.binned[:, c].astype(np.int32)
+        if off < 0:
+            out[:, e] = raw
+            continue
+        local = raw - off
+        out[:, e] = np.where((local >= 0) & (local < nb - 1),
+                             local + (local >= db), db)
+    return out
+
+
+def k1_rows(tree) -> int:
+    """Rows the serial grower's histogram kernel reads for a tree: the
+    root's, then the smaller child's of every split."""
+    if tree.num_leaves <= 1:
+        return int(tree.leaf_count[0])
+
+    def rows(child):
+        return int(tree.internal_count[child] if child >= 0
+                   else tree.leaf_count[~child])
+    return int(tree.internal_count[0]) + sum(
+        min(rows(tree.left_child[k]), rows(tree.right_child[k]))
+        for k in range(tree.num_leaves - 1))
+
+
+def k1_bytes_per_tree(bst) -> int:
+    """K1's bytes a tree of a training, as the kernel reads them: each
+    measured row's storage bytes (the packed matrix's columns, or the
+    bins'), its ``order`` entry and its three float32 weights."""
+    inner = bst.inner
+    width = (inner._hist_bins if inner._hist_bins is not None
+             else inner.bins).shape[1]
+    trees = [t for t in inner.models if t.num_leaves > 1]
+    rows = sum(k1_rows(t) for t in trees) / max(len(trees), 1)
+    return int(rows * (width + 4 + 12))
+
+
+def first_round_vs(a, b, first_trees):
+    """Two trainings' first ``first_trees`` trees on the same rows (``a``
+    and ``b`` their boosters) under the built-in objective: how many are
+    identical in structure, and where each other first differs with its
+    float64 gap over :func:`near_tie`'s allowance (on ``a``'s gradients
+    at score 0).  A bundled or packed layout adds the same rows' values in
+    another order (a bundle's default bin is its leaf's sum less its
+    slots), so a split whose gain differs from another's by about the
+    float32 sums' rounding may go either way; these numbers are recorded,
+    and :func:`integer_round_identical` holds the layouts to identical
+    trees."""
+    import torch
+    ia, ib = a.inner, b.inner
+    bins = logical_bins(ia.train_set)
+    col_of = {f: i for i, f in enumerate(ia.train_set.used_features)}
+    g, h = (t.double().cpu().numpy() for t in ia.objective.get_gradients(
+        torch.zeros_like(ia.scores)))
+    ma = [m for m in ia.models if m.num_leaves > 1][:first_trees]
+    mb = [m for m in ib.models if m.num_leaves > 1][:first_trees]
+    identical, diffs = 0, []
+    for i, (ta, tb) in enumerate(zip(ma, mb)):
+        k = first_split_difference(ta, tb)
+        if k is None:
+            identical += 1
+            continue
+        _, rel = near_tie(ta, tb, k, bins, col_of, g[i], h[i],
+                          ia.config.min_sum_hessian_in_leaf)
+        diffs.append(f"{i}:{k}:{rel:.2e}")
+    return {"first_round_trees": len(ma), "identical_trees": identical,
+            "first_differences": ",".join(diffs) or "none"}
+
+
+def integer_round_identical(name, runs) -> bool:
+    """One round under integer-valued gradients and hessians (every sum
+    exact in any order) for each ``(params, Dataset)`` of ``runs``: the
+    same rows in other layouts (bundled or not, packed or not) must grow
+    identical trees, model text and all."""
+    from lightgbm_tpu_torch import train
+    texts = []
+    for params, ds in runs:
+        rng = np.random.default_rng(SEED + 11)
+
+        def fobj(preds, data):
+            n = len(preds)
+            return (rng.integers(-3, 4, n).astype(np.float64),
+                    rng.integers(1, 4, n).astype(np.float64))
+        texts.append(train(params, ds, num_boost_round=1, fobj=fobj,
+                           verbose_eval=False).model_to_string())
+    if any(t != texts[0] for t in texts[1:]):
+        fail(f"{name}: one integer-gradient round grows other trees in "
+             f"another layout")
+    return True
+
+
 def card_vs_cpu_trees(name, params, x, y, x_te, rounds, first_trees,
                       group=None):
     """The card against the CPU on the same data: the first round's
@@ -2461,7 +2811,7 @@ def card_vs_cpu_trees(name, params, x, y, x_te, rounds, first_trees,
                   num_boost_round=rounds, verbose_eval=False)
         out[device] = (b, b.predict(x_te))
     cpu = out["cpu"][0].inner
-    bins = cpu.train_set.binned
+    bins = logical_bins(cpu.train_set)
     col_of = {f: i for i, f in enumerate(cpu.train_set.used_features)}
     # the first round's gradients, from scores of 0 (no init score, no
     # boost from average for these objectives)
@@ -2546,84 +2896,146 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     lam = check_lambdarank(torch.device("cuda"), rng, (x_tr, y_tr, sizes))
     torch.cuda.empty_cache()
 
-    # ---- phase 8: train at full width -------------------------------------
+    # ---- phase 8: train at full width, at the defaults --------------------
     rank_params = dict(params, objective="lambdarank", metric="ndcg",
-                       ndcg_eval_at=list(MSLR_EVAL_AT),
-                       enable_bundle=False, enable_bin_packing=False)
+                       ndcg_eval_at=list(MSLR_EVAL_AT))
     rank, bst, ds = train_path("mslr", rank_params, x_tr, y_tr, x_te, y_te,
                                rounds, names, group=sizes,
                                quality=mslr_quality(sizes_te))
+    plan = bst.inner.pack_plan
+    if ds.constructed.layout is not None or plan is None:
+        fail("mslr: at the defaults the columns should pack and none "
+             "bundle")
     obj, sc = bst.inner.objective, bst.inner.scores
     grad_ms = cuda_ms(lambda: obj.get_gradients(sc))
     plain_ms = cuda_ms(lambda: lambdarank_grad_plain(
         sc[0], obj._label_i32, obj._bounds, obj._inv_max_dcg, obj._gains,
         obj._discount, obj.config.sigmoid, obj.weights), reps=1, warmup=1)
+    rank_ds = {"storage_cols": plan.num_storage_cols,
+               "packed_cols": plan.num_packed,
+               "bins_bytes": ds.bins.numel(),
+               "storage_bytes": bst.inner._hist_bins.numel(),
+               "k1_bytes_per_tree": k1_bytes_per_tree(bst),
+               "captures": one_capture("mslr", bst)}
+    del obj, sc
+    # ---- phase 8, cut: the same Dataset (nothing bundles) unpacked --------
+    cut, cut_bst, _ = train_path(
+        "mslr_cut", dict(rank_params, enable_bundle=False,
+                         enable_bin_packing=False), x_tr, y_tr, x_te, y_te,
+        rounds, names, group=sizes, quality=mslr_quality(sizes_te), ds=ds)
+    if cut_bst.inner.pack_plan is not None:
+        fail("mslr_cut: packed with enable_bin_packing=false")
+    cut_ds = {"storage_cols": ds.bins.shape[1],
+              "k1_bytes_per_tree": k1_bytes_per_tree(cut_bst),
+              "captures": one_capture("mslr_cut", cut_bst)}
+    same = first_round_vs(cut_bst, bst, 1)
+    same["integer_round_identical"] = integer_round_identical(
+        "mslr_packed_vs_cut", [(rank_params, ds), (dict(
+            rank_params, enable_bin_packing=False), ds)])
+    gap = abs(float(rank["heldout_ndcg@10"]) - float(cut["heldout_ndcg@10"]))
     phase("mslr_path", generate_s=f"{t_gen:.3f}", queries=len(sizes),
           longest_query=int(sizes.max()), heldout_rows=len(y_te),
           heldout_queries=len(sizes_te),
           label_shares=":".join(f"{v:.3f}" for v in np.bincount(
               y_tr.astype(np.int64), minlength=5) / n),
-          bins_bytes=ds.bins.numel(),
-          reduced="num_iterations 500->10;enable_bundle=false (EFB not "
-                  "ported);enable_bin_packing=false (not ported)",
+          reduced="num_iterations 500->10",
           gradient_kernel_ms_per_round=f"{grad_ms:.4f}",
-          gradient_plain_ms_per_round=f"{plain_ms:.2f}", **rank)
-    if rank["host_syncs_per_tree"] and float(rank["host_syncs_per_tree"]) > 9:
-        fail(f"mslr: {rank['host_syncs_per_tree']} host reads a tree")
-    del bst, ds, obj, sc
+          gradient_plain_ms_per_round=f"{plain_ms:.2f}", **rank_ds, **rank)
+    phase("mslr_cut_path", layout="enable_bundle=false;"
+          "enable_bin_packing=false", ndcg10_gap_vs_defaults=f"{gap:.3e}",
+          **same, **cut_ds, **cut)
+    for name, r in (("mslr", rank), ("mslr_cut", cut)):
+        if float(r["host_syncs_per_tree"]) > 8:
+            fail(f"{name}: {r['host_syncs_per_tree']} host reads a tree")
+    if gap > 1e-3:
+        fail(f"mslr: held-out NDCG@10 at the defaults is {gap} from the "
+             f"unpacked run's (limit 1e-3)")
+    rank = dict(rank, **rank_ds, cut=dict(cut, **cut_ds))
+    del bst, cut_bst, ds
     torch.cuda.empty_cache()
     return rank, lam, (x_te, y_te, sizes_te)
 
 
 def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
-    """Phases 9, 9b, 9c and 9d: the Covertype-shaped multiclass task
-    (581,012 x 54, 7 classes, an 80/20 split): 3 rounds of multiclass
+    """Phases 9 to 9g: the Covertype-shaped multiclass task (581,012 x 54,
+    7 classes, an 80/20 split) at the defaults, where EFB bundles the 54
+    features into 12 columns and nothing packs: 3 rounds of multiclass
     through the serial graph loop (one capture, its graph replayed for
-    every tree of every round), 1 round of multiclassova, 1 round of the
+    every tree of every round); the cut run (``enable_bundle=false``,
+    ``enable_bin_packing=false``) on its own Dataset for the same rounds,
+    its held-out multi_logloss within 1e-4 and one integer-gradient round
+    identical in both layouts; 1 round of multiclassova; 1 round of the
     data-parallel learner over 4x1 held to the serial first round's
-    multi_logloss within 1e-4, and the card against the CPU at
-    ``cpu_rows`` rows, 2 rounds, the first round's 7 trees identical in
-    structure."""
+    multi_logloss within 1e-4; the card against the CPU at ``cpu_rows``
+    rows, 2 rounds, the first round's 7 trees identical in structure; one
+    integer-gradient tree of ``tree_learner=feature`` over a 1x4 mesh on
+    the bundled columns, identical to the serial tree; and bagging in the
+    subset regime and DART over the bundles, 3 rounds each, their
+    training scores within 1e-5 of ``predict(raw_score=True)``."""
     import torch
+    from lightgbm_tpu_torch import Dataset
     x_all, y_all = covtype_like(n, rng)
     n_tr = int(0.8 * n)
     x_tr, y_tr, x_te, y_te = (x_all[:n_tr], y_all[:n_tr], x_all[n_tr:],
                               y_all[n_tr:])
     cov_params = dict(params, objective="multiclass", num_class=7,
                       metric="multi_logloss,multi_error", min_data_in_leaf=20,
-                      min_sum_hessian_in_leaf=1e-3, enable_bundle=False,
+                      min_sum_hessian_in_leaf=1e-3)
+    cut_params = dict(cov_params, enable_bundle=False,
                       enable_bin_packing=False)
-    reduced = ("num_iterations 3 (21 trees);enable_bundle=false (EFB not "
-               "ported);enable_bin_packing=false (not ported)")
-    # ---- phase 9: multiclass, 3 rounds of 7 trees -------------------------
-    cov, bst, _ = train_path("covtype", cov_params, x_tr, y_tr, x_te, y_te,
-                             3, names, quality=covtype_quality)
-    state = loop_state(bst.inner)
-    st = bst.inner.stats
-    one_graph = (state.graph is not None and state.captures == 1
-                 and st["graph_replays"] == st["steps"] - 1)
+    reduced = "num_iterations 3 (21 trees)"
+    # ---- phase 9: multiclass at the defaults, 3 rounds of 7 trees ---------
+    cov, bst, ds = train_path("covtype", cov_params, x_tr, y_tr, x_te, y_te,
+                              3, names, quality=covtype_quality)
+    lay = ds.constructed.layout
+    if (lay is None or ds.bins.shape[1] != COVTYPE_COLS
+            or bst.inner.pack_plan is not None):
+        fail(f"covtype: at the defaults {ds.bins.shape[1]} columns, "
+             f"packing {bst.inner.pack_plan is not None}; expected "
+             f"{COVTYPE_COLS} bundled columns and no packing")
+    cov.update(columns=ds.bins.shape[1],
+               bundle_slots=":".join(map(str, lay.col_num_bin[10:])),
+               captures=one_capture("covtype", bst),
+               k1_bytes_per_tree=k1_bytes_per_tree(bst))
     phase("covtype_path", classes=7, train_rows=n_tr, heldout_rows=len(y_te),
           label_shares=":".join(f"{v:.3f}" for v in np.bincount(
               y_tr.astype(np.int64), minlength=7) / n_tr),
-          captures=state.captures, graph_trees_per_round=(
-              7 if one_graph else 0), reduced=reduced, **cov)
-    if not one_graph:
-        fail(f"covtype: {state.captures} captures, {st['graph_replays']} "
-             f"replays for {st['steps']} steps: not one graph for every tree")
-    del bst, state
+          reduced=reduced, **cov)
+    # ---- phase 9, cut: no EFB, no packing, its own Dataset ----------------
+    cut, cut_bst, cut_ds = train_path("covtype_cut", cut_params, x_tr,
+                                      y_tr, x_te, y_te, 3, names,
+                                      quality=covtype_quality)
+    cut.update(columns=cut_bst.inner.bins.shape[1],
+               captures=one_capture("covtype_cut", cut_bst),
+               k1_bytes_per_tree=k1_bytes_per_tree(cut_bst))
+    same = first_round_vs(cut_bst, bst, 7)
+    same["integer_round_identical"] = integer_round_identical(
+        "covtype_bundled_vs_cut", [(cov_params, ds), (cut_params, cut_ds)])
+    gap = abs(float(cov["heldout_multi_logloss"])
+              - float(cut["heldout_multi_logloss"]))
+    phase("covtype_cut_path", layout="enable_bundle=false;"
+          "enable_bin_packing=false", logloss_gap_vs_defaults=f"{gap:.3e}",
+          **same, **cut)
+    for name, r in (("covtype", cov), ("covtype_cut", cut)):
+        if float(r["host_syncs_per_tree"]) > 8:
+            fail(f"{name}: {r['host_syncs_per_tree']} host reads a tree")
+    if gap > 1e-4:
+        fail(f"covtype: held-out multi_logloss at the defaults is {gap} "
+             f"from the cut run's (limit 1e-4)")
+    del bst, cut_bst, cut_ds
     torch.cuda.empty_cache()
     # ---- phase 9b: multiclassova, 1 round ---------------------------------
     ova, _, _ = train_path("covtype_ova",
                            dict(cov_params, objective="multiclassova"),
                            x_tr, y_tr, x_te, y_te, 1, names,
-                           quality=covtype_quality)
+                           quality=covtype_quality, ds=ds, profile=False)
     phase("covtype_ova", **ova)
     # ---- phase 9c: the data-parallel learner over 4x1, 1 round ------------
     dp, _, _ = train_path("covtype_dp_4x1",
                           dict(cov_params, tree_learner="data",
                                mesh_devices=MESH_SLOTS, mesh_shape="4x1"),
                           x_tr, y_tr, x_te, y_te, 1, names,
-                          quality=covtype_quality)
+                          quality=covtype_quality, ds=ds)
     gap = abs(float(dp["heldout_multi_logloss"])
               - float(cov["round1_multi_logloss"]))
     phase("covtype_dp_4x1", logloss_gap_vs_serial_round1=f"{gap:.3e}", **dp)
@@ -2632,15 +3044,45 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
              f"{dp['heldout_multi_logloss']} is more than 1e-4 from the "
              f"serial first round's {cov['round1_multi_logloss']}")
     torch.cuda.empty_cache()
-    # ---- phase 9d: card against CPU ---------------------------------------
+    # ---- phase 9e: tree_learner=feature over 1x4 on the bundles -----------
+    gspmd_trees_identical(ds, y_tr, shapes=((1, 4),))
+    # ---- phases 9f, 9g: bagging (subset regime) and DART over bundles -----
+    for name, extra in (("covtype_bagging", dict(bagging_fraction=0.5,
+                                                 bagging_freq=1)),
+                        ("covtype_dart", dict(boosting_type="dart",
+                                              drop_seed=3, drop_rate=0.5,
+                                              skip_drop=0.0))):
+        out, b, _ = train_path(name, dict(cov_params, **extra), x_tr, y_tr,
+                               x_te, y_te, 3, names, quality=covtype_quality,
+                               ds=ds, profile=False)
+        raw = b.predict(x_tr, raw_score=True)
+        gap = float(np.abs(b.inner.scores.double().cpu().numpy().T
+                           - raw).max())
+        roots = root_counts(b)
+        phase(name, captures=one_capture(name, b),
+              scores_vs_predict=f"{gap:.3e}",
+              root_counts=":".join(map(str, sorted(set(roots)))), **out)
+        if not gap <= 1e-5:
+            fail(f"{name}: training scores differ from predict by {gap} "
+                 f"(limit 1e-5)")
+        if "bagging_fraction" in extra and set(roots) != {n_tr // 2}:
+            fail(f"{name}: root counts {sorted(set(roots))}, not the bag "
+                 f"of {n_tr // 2}")
+        del b
+    del ds
+    torch.cuda.empty_cache()
+    # ---- phase 9d: card against CPU, at the defaults ----------------------
     out, same = card_vs_cpu_trees("covtype_card_vs_cpu", cov_params,
                                   x_tr[:cpu_rows], y_tr[:cpu_rows], x_te,
                                   2, 7)
     ll = {d: multi_metrics(out[d][1], y_te)[0] for d in out}
-    phase("covtype_card_vs_cpu", rows=cpu_rows, rounds=2, **same,
-          cpu_multi_logloss=f"{ll['cpu']:.6f}",
+    cols = out["cuda"][0].inner.bins.shape[1]
+    phase("covtype_card_vs_cpu", rows=cpu_rows, rounds=2, columns=cols,
+          **same, cpu_multi_logloss=f"{ll['cpu']:.6f}",
           cuda_multi_logloss=f"{ll['cuda']:.6f}")
-    return cov
+    if cols != COVTYPE_COLS:
+        fail(f"covtype card vs CPU: {cols} columns at the defaults")
+    return dict(cov, cut=cut)
 
 
 # ---- phases 10 to 14b: sampling, the boosting variants, the training API --
@@ -2989,6 +3431,71 @@ def sampling_card_vs_cpu(params, x, y, x_te, y_te):
     return out
 
 
+def nonfinite_guard(params, x, y):
+    """Phase 15: the non-finite guard on the card, on 200,000 Higgs-shaped
+    rows of L2 regression, each policy tripped once: ``raise`` by a NaN
+    label (the first tree's gradients), ``rollback`` and ``clamp`` by a
+    custom objective of integer gradients that returns a NaN at its third
+    call only (rollback retries the iteration, clamp sets the gradient to
+    0 and its hessian to 1); then a clean run, which trips nothing.  Each
+    run takes the graph loop with one capture and at most 8 host reads a
+    tree, its flags read with the tree's copy to the host; the models
+    that train predict finite values.  Returns the trips by policy."""
+    from lightgbm_tpu_torch import Booster, Dataset, NonFiniteError
+
+    def fobj_with_nan(nan_at):
+        calls = [0]
+
+        def fobj(preds, data):
+            rng = np.random.default_rng(SEED + calls[0])
+            calls[0] += 1
+            g = rng.integers(-3, 4, len(preds)).astype(np.float64)
+            h = rng.integers(1, 3, len(preds)).astype(np.float64)
+            if calls[0] == nan_at:
+                g[5] = np.nan
+            return g, h
+        return fobj
+
+    y_nan = y.astype(np.float64)
+    y_nan[17] = np.nan
+    runs = (("raise", y_nan, None), ("rollback", y, fobj_with_nan(3)),
+            ("clamp", y, fobj_with_nan(3)), ("clean", y, fobj_with_nan(0)))
+    trips = {}
+    for policy, label, fobj in runs:
+        p = dict(params, objective="regression", nonfinite_policy=(
+            "rollback" if policy == "clean" else policy))
+        bst = Booster(params=p, train_set=Dataset(x, label, params=p))
+        raised = None
+        for _ in range(5):
+            try:
+                bst.update(fobj=fobj)
+            except NonFiniteError as e:
+                raised = str(e)
+                break
+        st = bst.inner.stats
+        reads = st["host_syncs"] / max(st["trees"], 1)
+        trips[policy] = st["nonfinite_trips"]
+        want_trips = 0 if policy == "clean" else 1
+        out = dict(policy=policy, trips=trips[policy], trees=st["trees"],
+                   iterations=bst.current_iteration(),
+                   host_syncs_per_tree=f"{reads:.3f}",
+                   captures=one_capture(f"nonfinite_{policy}", bst),
+                   raised=repr(raised))
+        if (trips[policy] != want_trips or reads > 8
+                or (raised is not None) != (policy == "raise")):
+            fail(f"nonfinite guard, {policy}: {out}")
+        if policy != "raise":
+            pred = bst.predict(x[:1000])
+            if not np.isfinite(pred).all():
+                fail(f"nonfinite guard, {policy}: non-finite predictions")
+            if bst.current_iteration() != (4 if policy == "rollback"
+                                           else 5):
+                fail(f"nonfinite guard, {policy}: "
+                     f"{bst.current_iteration()} iterations")
+        phase("nonfinite_guard", **out)
+    return ":".join(f"{k}={v}" for k, v in trips.items())
+
+
 def multi_card(params) -> None:
     """``--multi-card``: the data-parallel learner with its four mesh slots
     on four cards (slot s on card s) instead of one, so its split step
@@ -3084,6 +3591,7 @@ def main() -> None:
 
     # ---- phase 2e: route kernel vs plain on the card ----------------------
     route_timing = check_route(dev, rng)
+    route_timing.update(check_route_bundled(dev, rng))
     torch.cuda.empty_cache()
 
     # ---- phase 2f: the cost of the split step's gated launches ------------
@@ -3092,6 +3600,7 @@ def main() -> None:
 
     # ---- phase 2g: data-parallel route kernel vs plain on the card --------
     rows_timing = check_route_rows(dev, rng)
+    rows_timing.update(check_route_rows_bundled(dev, rng))
     torch.cuda.empty_cache()
 
     # ---- phase 3: the Higgs path at full width ----------------------------
@@ -3219,13 +3728,12 @@ def main() -> None:
     mslr, lam, heldout = rank_path(params, names, rng)
     # ---- phase 8b: card against CPU on the ranking task -------------------
     rank_card_vs_cpu(dict(params, objective="lambdarank", metric="ndcg",
-                          ndcg_eval_at=list(MSLR_EVAL_AT),
-                          enable_bundle=False, enable_bin_packing=False),
+                          ndcg_eval_at=list(MSLR_EVAL_AT)),
                      rng, run_dir, heldout)
     del heldout
     torch.cuda.empty_cache()
 
-    # ---- phases 9-9d: multiclass on the Covertype-shaped task -------------
+    # ---- phases 9-9g: multiclass on the Covertype-shaped task -------------
     cov = covtype_path(params, names, np.random.default_rng(SEED + 9))
     torch.cuda.empty_cache()
 
@@ -3241,6 +3749,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     # ---- phase 14b: card against CPU for bagging, GOSS and DART ----------
     sampling_card_vs_cpu(params, x_tr[:200_000], y_tr[:200_000], x_te, y_te)
+    # ---- phase 15: the non-finite guard, each policy tripped once ---------
+    guard = nonfinite_guard(params, x_tr[:200_000], y_tr[:200_000])
     del x_all, y_all, x_tr, y_tr, x_te, y_te
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}",
           higgs_ms_per_tree_scatter=higgs["ms_per_tree"],
@@ -3252,7 +3762,10 @@ def main() -> None:
           higgs_ms_per_tree_dp_4x1=dp["ms_per_tree"],
           higgs_ms_per_tree_dp_2x2=dp22["ms_per_tree"],
           mslr_ms_per_tree=mslr["ms_per_tree"],
+          mslr_cut_ms_per_tree=mslr["cut"]["ms_per_tree"],
           covtype_ms_per_tree=cov["ms_per_tree"],
+          covtype_cut_ms_per_tree=cov["cut"]["ms_per_tree"],
+          nonfinite_trips=guard,
           expo_bagging_subset_ms_per_tree=expo_bag["ms_per_tree"],
           **{f"phase_{k}_ms_per_tree": v["ms_per_tree"]
              for k, v in samp.items() if "ms_per_tree" in v},
@@ -3321,7 +3834,8 @@ def main() -> None:
         "device_ms": rroot["device_ms"],
         "replaced_ms": rroot["replaced_ms"],
         "replaced_device_ms": rroot["replaced_device_ms"],
-        **{f"{k}_{w}": v for w in ("higgs_root", "higgs_4097")
+        **{f"{k}_{w}": v for w in ("higgs_root", "higgs_4097",
+                                   "bundled_root", "bundled_4000")
            for k, v in route_timing[w].items()}}, {
         "name": "route_rows", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/route.cu",
@@ -3332,8 +3846,9 @@ def main() -> None:
         "bound_ms": rows_timing["root"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "ms_many": rows_timing["root"]["ms_many"],
         "device_ms": rows_timing["root"]["device_ms"],
-        **{f"{k}_leaf_1000": v
-           for k, v in rows_timing["leaf_1000"].items()}}, {
+        **{f"{k}_{w}": v for w in ("leaf_1000", "bundled_root",
+                                   "bundled_leaf_4000")
+           for k, v in rows_timing[w].items()}}, {
         "name": "lambdarank", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",
         "replaces": "lightgbm_tpu/objectives.py:405",

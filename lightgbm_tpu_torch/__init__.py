@@ -5,10 +5,12 @@ Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that request they raise.
 """
 from .basic import Booster, Dataset
+from .boosting import NonFiniteError
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation, reset_parameter)
 from .engine import CVBooster, cv, train
 
-__all__ = ["Booster", "CVBooster", "Dataset", "EarlyStopException", "cv",
+__all__ = ["Booster", "CVBooster", "Dataset", "EarlyStopException",
+           "NonFiniteError", "cv",
            "early_stopping", "print_evaluation", "record_evaluation",
            "reset_parameter", "train"]

@@ -4,8 +4,8 @@ arrays or model text, so both packages compute on the same state.
 * :func:`dataset_from_arrays` takes a constructed dataset (bin matrix,
   per-feature ``num_bin`` / ``missing_type`` / ``default_bin`` / bin upper
   bounds or, for a categorical feature, its bins' categories, label, and
-  optionally weights, query boundaries and init scores) and returns the
-  port's :class:`~.basic.Dataset`.
+  optionally weights, query boundaries, init scores and the EFB bundles of
+  a bundled matrix) and returns the port's :class:`~.basic.Dataset`.
 * :func:`booster_from_arrays` takes trees as model text or as the
   ``Tree`` fields (``num_class`` trees an iteration) and returns the
   port's :class:`~.basic.Booster`.
@@ -18,6 +18,7 @@ import numpy as np
 
 from .basic import Booster, Dataset
 from .data.binning import BIN_TYPE_CATEGORICAL, BinMapper
+from .data.bundling import BundleLayout
 from .data.dataset import TrainingData
 from .data.metadata import Metadata
 from .tree import Tree
@@ -43,7 +44,8 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
                         bin_2_categorical: Optional[
                             Sequence[Optional[Sequence[int]]]] = None,
                         query_boundaries: Optional[np.ndarray] = None,
-                        init_score: Optional[np.ndarray] = None
+                        init_score: Optional[np.ndarray] = None,
+                        bundles: Optional[Sequence[Sequence[int]]] = None
                         ) -> Dataset:
     """A constructed port Dataset from the arrays of a constructed one.
 
@@ -54,10 +56,18 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
     ``bin_2_categorical`` gives, per used feature, the category of each
     bin of a categorical feature, or None for a numerical one.
     ``query_boundaries`` (``[Q + 1]``, as the JAX metadata keeps them) and
-    ``init_score`` (``[N * num_class]``) go to the metadata."""
+    ``init_score`` (``[N * num_class]``) go to the metadata.
+
+    ``bundles`` (the JAX dataset's ``layout.bundles``: original feature ids
+    a physical column) marks ``binned`` as EFB-bundled: its columns are
+    the bundles, and ``used_features`` must then list the features in
+    bundle order, as the JAX dataset's ``used_features`` does."""
     binned = np.ascontiguousarray(binned, dtype=np.uint8)
     n, f = binned.shape
-    used = list(range(f)) if used_features is None else list(used_features)
+    if used_features is None:
+        used_features = (range(f) if bundles is None
+                         else [j for b in bundles for j in b])
+    used = list(used_features)
     total = num_total_features if num_total_features is not None else f
     mappers = [BinMapper() for _ in range(total)]      # trivial by default
     for k, j in enumerate(used):
@@ -80,6 +90,12 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
     td.num_total_features = total
     td.bin_mappers = mappers
     td.used_features = used
+    if bundles is not None:
+        td.layout = BundleLayout([list(map(int, b)) for b in bundles],
+                                 mappers)
+        if td.layout.sub_features != used or td.layout.num_columns != f:
+            raise ValueError("bundles must cover used_features in bundle "
+                             "order, one bundle a column of binned")
     td.binned = binned
     td.feature_names = (list(feature_names) if feature_names
                         else [f"Column_{i}" for i in range(total)])

@@ -22,7 +22,14 @@ The port of ``lightgbm_tpu/grower.py:make_grower`` with ``SerialStrategy``
 * only the smaller child is histogrammed, by the hand-written gather
   kernel over its window (``ops/histogram.py:hist_window``); the larger
   child is the parent minus it (``serial_tree_learner.cpp:482-488``), and
-  every leaf's histogram stays in an ``[L, F, B, 3]`` store;
+  every leaf's histogram stays in an ``[L, F, B, 3]`` store of physical
+  columns.  With EFB a column is a bundle of features: the scan sees each
+  histogram expanded into one per logical feature
+  (:func:`expand_bundle_hist`), and routing decodes the bundle's slot.
+  With nibble packing the kernel reads the packed storage matrix and its
+  histogram is unfolded into physical columns right away
+  (``data/packing.py:unfold_packed_hist``), so the store, the parent
+  subtraction and the expansion never see a packed column;
 * the best split of each leaf waits in a per-leaf pool; the leaf with the
   largest gain splits next.  A categorical split carries the set of bins
   it routes left (``is_cat``/``cat_bins``) in the pool and in the node
@@ -59,6 +66,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from .data.packing import PACK_JOINT_BINS, PackPlan, unfold_packed_hist
 from .ops.histogram import hist_window, plan_device, sm_count
 from .ops.partition import (partition_scratch, partition_window,
                             partition_window_plain, partition_window_sort)
@@ -121,13 +129,78 @@ class TreeArrays(NamedTuple):
 
 
 class FeatureMeta(NamedTuple):
-    """Per-column metadata as device tensors."""
-    num_bin: torch.Tensor       # [F] i32
-    missing_type: torch.Tensor  # [F] i32 (0 none / 1 zero / 2 nan)
-    default_bin: torch.Tensor   # [F] i32
-    is_categorical: Optional[torch.Tensor] = None   # [F] bool
+    """Per-logical-feature metadata as device tensors
+    (``lightgbm_tpu/grower.py:123-128``).  With EFB several logical
+    features share one physical column: ``col`` and ``offset`` are the
+    decode maps (both None when columns and features are 1:1)."""
+    num_bin: torch.Tensor       # [E] i32
+    missing_type: torch.Tensor  # [E] i32 (0 none / 1 zero / 2 nan)
+    default_bin: torch.Tensor   # [E] i32
+    is_categorical: Optional[torch.Tensor] = None   # [E] bool
+    col: Optional[torch.Tensor] = None      # [E] i32 physical column
+    offset: Optional[torch.Tensor] = None   # [E] i32 first slot (-1: alone)
 
 
+class ExpandMaps(NamedTuple):
+    """Gather and reconstruction maps from physical (bundle) histograms
+    to logical ones, made once a training (:func:`make_expand_maps`)."""
+    src: torch.Tensor        # [E, B] i64: flat physical bin of each bin
+    valid: torch.Tensor      # [E, B] bool: a bin of the feature
+    recon: torch.Tensor      # [E, B] bool: the default bin, rebuilt
+    in_window: Optional[torch.Tensor] = None   # [E] bool (windowed maps)
+
+
+def make_expand_maps(meta: FeatureMeta, num_bins: int,
+                     col_start: Optional[int] = None,
+                     col_count: Optional[int] = None) -> ExpandMaps:
+    """The maps that expand physical histograms ``[Fp, B, 3]`` into
+    per-logical-feature ones (``lightgbm_tpu/grower.py:310-349``, the
+    reference's ``FixHistogram`` in tensor form), as tensors on the
+    meta's device.  ``col_start``/``col_count`` restrict them to a window
+    of physical columns (a feature slice's): sources rebased to the
+    window, features outside it masked."""
+    dev = meta.num_bin.device
+    b = torch.arange(num_bins, dtype=torch.int64, device=dev)[None, :]
+    off, nb, db, c = (t.long()[:, None] for t in (
+        meta.offset, meta.num_bin, meta.default_bin, meta.col))
+    in_win = None
+    if col_start is not None:
+        in_win = (c >= col_start) & (c < col_start + col_count)
+        c = c - col_start
+    slot = off + b - (b > db).long()
+    src = torch.where(off < 0, c * num_bins + b,
+                      c * num_bins + slot.clamp(0, num_bins - 1))
+    valid = b < nb
+    recon = (off >= 0) & (b == db) & valid
+    if in_win is not None:
+        valid = valid & in_win
+        recon = recon & in_win
+        src = src.clamp(0, col_count * num_bins - 1)
+        in_win = in_win[:, 0]
+    return ExpandMaps(src, valid, recon, in_win)
+
+
+def expand_bundle_hist(hist: torch.Tensor, pg: torch.Tensor,
+                       ph: torch.Tensor, pc: torch.Tensor,
+                       maps: ExpandMaps) -> torch.Tensor:
+    """``[K, Fp, B, 3]`` physical histograms of K leaves with sums ``pg``,
+    ``ph``, ``pc`` ``[K]`` -> ``[K, E, B, 3]`` logical ones
+    (``lightgbm_tpu/grower.py:351-367``): each bundled feature's slots
+    gathered into its own bins, its default bin rebuilt as the leaf's sum
+    minus the sum of its slots.  The JAX package takes that sum as a
+    difference of two prefix sums over the whole flat histogram; here it
+    is the sum of the gathered slots, as the reference's FixHistogram
+    adds them (the same rows; under integer weights the same value)."""
+    k, s = hist.shape[0], hist.shape[-1]
+    e, b = maps.src.shape
+    flat = hist.reshape(k, -1, s)                           # [K, Fp*B, 3]
+    out = flat.index_select(1, maps.src.reshape(-1)).view(k, e, b, s)
+    out = torch.where(maps.valid[None, :, :, None], out, 0.0)
+    recon = maps.recon[None, :, :, None]
+    slots = torch.where(recon, 0.0, out).sum(dim=2)         # [K, E, 3]
+    parent = torch.stack([pg, ph, pc], dim=-1).to(flat.dtype)   # [K, 3]
+    return torch.where(recon, (parent[:, None, :] - slots)[:, :, None, :],
+                       out)
 
 
 def resolve_partition_impl(requested: str, device) -> str:
@@ -205,8 +278,12 @@ class LeafPool:
     in one batched scan."""
 
     def __init__(self, cfg: GrowerConfig, n_feat: int, device,
-                 dtype: torch.dtype = torch.float32):
-        L, B, f = cfg.num_leaves, cfg.max_bin, n_feat
+                 dtype: torch.dtype = torch.float32,
+                 n_logical: Optional[int] = None):
+        # histograms of n_feat physical columns; the scan's flags and the
+        # feature mask over n_logical features (n_feat unless bundled)
+        L, B = cfg.num_leaves, cfg.max_bin
+        f = n_feat if n_logical is None else n_logical
         self.cfg, self.f = cfg, f
         self.scfg = cfg.split_config()
         self.has_cat = cfg.has_categorical
@@ -214,7 +291,7 @@ class LeafPool:
         def z(*shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=device)
 
-        self.hist_store = z(L + 1, f, B, 3)
+        self.hist_store = z(L + 1, n_feat, B, 3)
         self.feat_ok = z(L + 1, f, dt=torch.bool)
         self.sgain = z(L + 1)
         self.sf32 = z(L + 1, 8)
@@ -231,24 +308,29 @@ class LeafPool:
         self.right_child = z(L, dt=torch.int32)
         self.leaf_parent = z(L + 1, dt=torch.int32)
         self.leaf_depth = z(L + 1, dt=torch.int32)
-        self.ctx = self.meta_key = self.feat_valid = None
+        self.ctx = self.meta_key = self.feat_valid = self.maps = None
 
     def reset(self, meta: FeatureMeta, feat_valid: torch.Tensor,
               hist_root: torch.Tensor, root_g: torch.Tensor,
               root_h: torch.Tensor, root_c: torch.Tensor) -> None:
         """Start a tree: the root's histogram, sums and best split in row
-        0, every other record cleared.  The scan's masks are rebuilt only
-        when ``meta`` holds other tensors than the last tree's."""
+        0, every other record cleared.  The scan's masks (and, bundled,
+        the expansion's maps) are rebuilt only when ``meta`` holds other
+        tensors than the last tree's."""
         key = _tensor_key(*meta)
         if key != self.meta_key:
             self.ctx = make_fused_ctx(meta.num_bin, meta.missing_type,
                                       meta.default_bin, self.cfg.max_bin,
                                       self.scfg, meta.is_categorical)
+            self.maps = (None if meta.col is None
+                         else make_expand_maps(meta, self.cfg.max_bin))
             self.meta_key = key
         self.feat_valid = feat_valid
-        res, fok = best_split(hist_root[None], root_g.reshape(1),
-                              root_h.reshape(1), root_c.reshape(1),
-                              feat_valid[None], self.scfg, self.ctx)
+        res, fok = best_split(
+            self.scan_hist(hist_root[None], root_g.reshape(1),
+                           root_h.reshape(1), root_c.reshape(1)),
+            root_g.reshape(1), root_h.reshape(1), root_c.reshape(1),
+            feat_valid[None], self.scfg, self.ctx)
         self.hist_store[0] = hist_root
         self.feat_ok[0] = fok[0]
         self.sgain.fill_(float("-inf"))
@@ -264,6 +346,14 @@ class LeafPool:
             self.scat[:1], self.scatb[:1] = res.is_cat, res.cat_bins
         self.leaf_f[0, 1] = root_c
         self.leaf_parent.fill_(-1)
+
+    def scan_hist(self, hist: torch.Tensor, pg: torch.Tensor,
+                  ph: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
+        """The histograms ``[K, Fp, B, 3]`` as the split scan reads them:
+        expanded into logical features when bundled."""
+        if self.maps is None:
+            return hist
+        return expand_bundle_hist(hist, pg, ph, pc, self.maps)
 
     def split_args(self, l: torch.Tensor):
         """The pooled split of leaf ``l``: its int and float rows, and
@@ -327,7 +417,9 @@ class LeafPool:
         fok_parent = self.feat_ok.index_select(0, l)
         lr3 = frow[:6].view(2, 3)
         sl3 = torch.where(small_left, lr3, lr3.flip(0))
-        res2, fok2 = best_split(hist2, sl3[:, 0], sl3[:, 1], sl3[:, 2],
+        res2, fok2 = best_split(self.scan_hist(hist2, sl3[:, 0], sl3[:, 1],
+                                               sl3[:, 2]),
+                                sl3[:, 0], sl3[:, 1], sl3[:, 2],
                                 (self.feat_valid & fok_parent).expand(
                                     2, self.f), self.scfg, self.ctx)
         res2 = _depth_gate(res2, child_depth.expand(2), self.cfg.max_depth)
@@ -517,12 +609,19 @@ class WindowBuffers(SplitLoop):
       holds the addresses of all of the above, and of the bins, metadata
       and feature mask it was captured on.
 
+    ``n_logical`` is the features the scan sees (``n_feat`` unless EFB
+    bundled); ``pack`` a nibble :class:`~.data.packing.PackPlan` over the
+    ``n_feat`` columns, whose storage matrix the histogram then reads at
+    width ``max(256, B)`` (not with ``ordered_bins=on``).
+
     :meth:`start` starts a tree and :meth:`run` takes its steps."""
 
     wrappers = (hist_window, partition_window, route_window,
                 cat_group_accept)
 
-    def __init__(self, rows: int, n_feat: int, cfg: GrowerConfig, device):
+    def __init__(self, rows: int, n_feat: int, cfg: GrowerConfig, device,
+                 n_logical: Optional[int] = None,
+                 pack: Optional[PackPlan] = None):
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -531,6 +630,15 @@ class WindowBuffers(SplitLoop):
         super().__init__(cfg, dev, 3)
         self.rows, self.n_feat = rows, n_feat
         self.ordered = cfg.ordered_bins == "on"
+        if pack is not None and (self.ordered
+                                 or pack.num_phys_cols != n_feat):
+            raise ValueError("WindowBuffers: a pack plan over the n_feat "
+                             "columns, and not with ordered_bins=on")
+        self.pack = None if pack is None else pack.to(dev)
+        # the matrix the histogram reads: its columns and width
+        self.hist_cols = n_feat if pack is None else pack.num_storage_cols
+        self.hist_width = (cfg.max_bin if pack is None
+                           else max(PACK_JOINT_BINS, cfg.max_bin))
         # the PyTorch partitions slice the window on the host
         self.read_window = cfg.partition_impl in ("scatter", "sort")
         self.iota = torch.arange(rows, dtype=torch.int32, device=dev)
@@ -552,22 +660,32 @@ class WindowBuffers(SplitLoop):
         self.lsc = torch.zeros((L + 1, 2), dtype=torch.int64, device=dev)
         self.sc_root = torch.tensor([0, rows], dtype=torch.int32, device=dev)
         self.sc_bag = torch.zeros(2, dtype=torch.int32, device=dev)
-        self.pool = LeafPool(cfg, n_feat, dev)
+        self.pool = LeafPool(cfg, n_feat, dev, n_logical=n_logical)
         self.weights = None if self.ordered else tuple(
             torch.empty(rows, dtype=torch.float32, device=dev)
             for _ in range(3))
-        self.hist_plan = (plan_device(rows, n_feat, cfg.max_bin,
+        self.hist_plan = (plan_device(rows, self.hist_cols, self.hist_width,
                                       num_sms=sm_count(dev.index))
                           if cuda else None)
-        self.bins = self.meta = self.bound = None
+        self.bins = self.hist_bins = self.meta = self.bound = None
         self.route_bins = self.route_order = None
         self.reads = self.host_positions = 0
 
-    def fits(self, rows: int, n_feat: int, cfg: GrowerConfig, device) -> bool:
+    def fits(self, rows: int, n_feat: int, cfg: GrowerConfig, device,
+             n_logical: int, packed: bool) -> bool:
         """Whether this state serves a tree of these shapes and ``cfg``."""
         return (rows == self.rows and n_feat == self.n_feat
-                and cfg == self.cfg
+                and cfg == self.cfg and n_logical == self.pool.f
+                and packed == (self.pack is not None)
                 and self.bufs[0][0].device == torch.device(device))
+
+    def histogram(self, *args, **kwargs) -> torch.Tensor:
+        """``hist_window`` over the matrix the histogram reads, unfolded
+        into physical columns when it is the packed storage matrix."""
+        hist = hist_window(*args, **kwargs)
+        if self.pack is None:
+            return hist
+        return unfold_packed_hist(hist, self.pack, self.cfg.max_bin)
 
     def loop(self, loop: Optional[str]) -> str:
         """The split loop a tree takes: ``graph`` (replay the captured
@@ -580,7 +698,8 @@ class WindowBuffers(SplitLoop):
 
     def start(self, bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               cw: torch.Tensor, meta: FeatureMeta, feat_valid: torch.Tensor,
-              rows: Optional[torch.Tensor] = None) -> int:
+              rows: Optional[torch.Tensor] = None,
+              hist_bins: Optional[torch.Tensor] = None) -> int:
         """Start a tree: the root's window in buffer 0, the weights copied
         where the step reads them, the counters and windows cleared, and
         the pool reset with the root's histogram.  The root window holds
@@ -590,13 +709,17 @@ class WindowBuffers(SplitLoop):
         positions.  Nothing in the captured step depends on the window's
         size, so a bag of any size replays the same graph.  The feature
         mask is read where it lies at every step: a new mask is copied
-        into the captured tensor, never passed as another.  Returns ``m``,
-        the root window's rows."""
-        key = _tensor_key(bins, *meta, feat_valid)
+        into the captured tensor, never passed as another.  ``hist_bins``
+        is the packed storage matrix ``[rows, C]`` (given iff the buffers
+        hold a pack plan).  Returns ``m``, the root window's rows."""
+        if (hist_bins is None) != (self.pack is None):
+            raise ValueError("grow_tree: hist_bins goes with a pack plan")
+        key = _tensor_key(bins, hist_bins, *meta, feat_valid)
         if self.graph is not None and key != self.bound:
             raise ValueError("grow_tree: the split step was captured on "
                              "other bins, metadata or feature mask")
         self.bound, self.bins, self.meta = key, bins, meta
+        self.hist_bins = bins if hist_bins is None else hist_bins
         if self.ordered:
             self.route_bins, self.route_order = (
                 (self.bufs[0][1], self.bufs[1][1]), (None, None))
@@ -626,15 +749,16 @@ class WindowBuffers(SplitLoop):
         self.lsc[0, 1].fill_(m)
         self.start_counters()
         if rows is None:
-            hist_root = hist_window(self.iota, self.sc_root, bins, gw, hw,
-                                    cw, self.cfg.max_bin,
-                                    rows_upper_bound=self.rows)
+            hist_root = self.histogram(self.iota, self.sc_root,
+                                       self.hist_bins, gw, hw, cw,
+                                       self.hist_width,
+                                       rows_upper_bound=self.rows)
         else:   # the bag's window, through the kernel like any window
             self.sc_bag[1].fill_(m)
             src = ((self.iota, *b0[1:]) if self.ordered
-                   else (b0[0], bins, gw, hw, cw))
-            hist_root = hist_window(src[0], self.sc_bag, *src[1:],
-                                    self.cfg.max_bin, rows_upper_bound=m)
+                   else (b0[0], self.hist_bins, gw, hw, cw))
+            hist_root = self.histogram(src[0], self.sc_bag, *src[1:],
+                                       self.hist_width, rows_upper_bound=m)
         self.pool.reset(meta, feat_valid, hist_root, gw.sum(), hw.sum(),
                         cw.sum())
         return m
@@ -649,7 +773,7 @@ class WindowBuffers(SplitLoop):
         window to the host (``scatter``, ``sort``) and finds the tree
         stopped; it then returns before changing anything else."""
         cfg, pool, meta = self.cfg, self.pool, self.meta
-        B = cfg.max_bin
+        B = self.hist_width
         act, l, new, node = self.pick(pool)
         sc = self.lsc.index_select(0, l)[0] * act    # (start, cnt)
         odd = pool.leaf_depth.index_select(0, l) & 1  # its buffer
@@ -692,13 +816,14 @@ class WindowBuffers(SplitLoop):
         kids = odd ^ 1
         plan = None if bound is not None else self.hist_plan
         if self.ordered:     # a contiguous window of the ordered copies
-            hist_small = hist_window(
+            hist_small = self.histogram(
                 self.iota, sc_small, *self.bufs[0][1:], B, bound, plan,
                 alt=(self.iota, *self.bufs[1][1:]), sel=kids)
         else:
-            hist_small = hist_window(
-                self.bufs[0][0], sc_small, self.bins, *self.weights, B,
-                bound, plan, alt=(self.bufs[1][0], self.bins, *self.weights),
+            hist_small = self.histogram(
+                self.bufs[0][0], sc_small, self.hist_bins, *self.weights, B,
+                bound, plan,
+                alt=(self.bufs[1][0], self.hist_bins, *self.weights),
                 sel=kids)
         pool.children(l, new, frow, small_left, hist_small, child_depth)
         self.end_step(act)
@@ -724,17 +849,22 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               cfg: GrowerConfig, stats: Optional[Dict[str, int]] = None,
               buffers: Optional[WindowBuffers] = None,
               loop: Optional[str] = None,
-              rows: Optional[torch.Tensor] = None):
+              rows: Optional[torch.Tensor] = None,
+              hist_bins: Optional[torch.Tensor] = None,
+              pack: Optional[PackPlan] = None):
     """Grow one tree.
 
-    bins ``[N, F]`` uint8; gw/hw/cw ``[N]`` f32 (gradient, hessian, count
-    weight); feat_valid ``[F]`` bool.  Returns ``(TreeArrays, row_leaf
-    [N] i32)``.  ``rows`` (sorted int32 row ids, a bag) grows the tree on
-    those rows only, the root window holding them (the weights of other
-    rows must be 0: the root's sums run over all rows); their row_leaf is
-    -1.  ``buffers`` (a :class:`WindowBuffers` for these shapes and
-    ``cfg``, reused across trees, with its captured step) is allocated
-    when not given.  ``loop`` is ``"graph"`` (replay the captured split
+    bins ``[N, F]`` uint8 (F physical columns); gw/hw/cw ``[N]`` f32
+    (gradient, hessian, count weight); feat_valid ``[E]`` bool over the
+    logical features of ``meta``.  Returns ``(TreeArrays, row_leaf [N]
+    i32)``; the tree's split features are logical.  ``hist_bins`` (the
+    packed storage matrix ``[N, C]``) goes with ``pack``, its plan.
+    ``rows`` (sorted int32 row ids, a bag) grows the tree on those rows
+    only, the root window holding them (the weights of other rows must be
+    0: the root's sums run over all rows); their row_leaf is -1.
+    ``buffers`` (a :class:`WindowBuffers` for these shapes and ``cfg``,
+    reused across trees, with its captured step) is allocated when not
+    given.  ``loop`` is ``"graph"`` (replay the captured split
     step: a card with ``partition_impl=compact``) or ``"eager"``; None
     takes the graph where it can.  Both grow the same tree.
 
@@ -748,13 +878,14 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
     for k in ("host_syncs", "splits", "steps", "graph_replays",
               "partition_positions"):
         stats.setdefault(k, 0)
+    e = meta.num_bin.numel()
     if buffers is None:
-        buffers = WindowBuffers(n, f, cfg, dev)
-    elif not buffers.fits(n, f, cfg, dev):
+        buffers = WindowBuffers(n, f, cfg, dev, n_logical=e, pack=pack)
+    elif not buffers.fits(n, f, cfg, dev, e, hist_bins is not None):
         raise ValueError("grow_tree: the window buffers were made for other "
                          "shapes or another grower config")
     loop = buffers.loop(loop)
-    m = buffers.start(bins, gw, hw, cw, meta, feat_valid, rows)
+    m = buffers.start(bins, gw, hw, cw, meta, feat_valid, rows, hist_bins)
     replays = buffers.replays
     # the capture and the replays take the current card's streams
     with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():

@@ -32,7 +32,19 @@ insert the collectives; here the split step itself walks the shards of a
 * split choice, depth gate, node records and the tree's unpacking are the
   serial grower's (``grower.LeafPool``), so under integer-valued weights,
   whose sums are exact in any order, the trees are the serial grower's
-  trees.
+  trees;
+* with EFB the histograms stay physical through the shard sum and the
+  column concatenation, and the pool expands them into logical features
+  before its scan: globally, as the JAX package's data-parallel learner
+  does after its shard sum (:127).  A feature slice owns whole physical
+  columns, so a bundle is never split across slices, and since the
+  slices are concatenated before the scan the global expansion serves
+  the feature-sliced learners too;
+* with nibble packing (not for ``tree_learner=feature`` or
+  ``data_feature``, as in the JAX package) each slot's histogram reads
+  its shard of the packed storage matrix at width ``max(256, B)``, and
+  the summed, concatenated histogram is unfolded into physical columns
+  (:238) before the pool sees it; routing reads the unpacked bins.
 
 The loop is the JAX package's ``lax.while_loop`` (:404, ``cond`` :284,
 ``body`` :289) as the serial grower runs it (``grower.SplitLoop``): one
@@ -55,6 +67,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..data.packing import PACK_JOINT_BINS, PackPlan, unfold_packed_hist
 from ..grower import (FeatureMeta, GrowerConfig, LeafPool, SplitLoop,
                       _tensor_key)
 from ..ops.histogram import hist_flat, hist_local
@@ -91,7 +104,10 @@ def _to(dev: torch.device, *ts):
 class GspmdGrower(SplitLoop):
     """Grows trees over ``mesh`` from the padded bin matrix ``bins``
     ``[n_pad, F]`` uint8, ``n_pad`` a multiple of the batch extent.  Call
-    it with the global padded weights on ``mesh.primary``.  Made once per
+    it with the global padded weights on ``mesh.primary``.  ``n_logical``
+    is the features of the meta (F unless EFB bundled); ``hist_bins``
+    (the padded packed storage matrix ``[n_pad, C]``) goes with ``pack``,
+    its plan.  Made once per
     training: it holds the learner's device state (each device's row ->
     leaf map, per-shard leaf counts and weights, the :class:`LeafPool`,
     the counters) and, once a tree has taken the graph loop, the captured
@@ -100,7 +116,9 @@ class GspmdGrower(SplitLoop):
     wrappers = (hist_local, route_rows, cat_group_accept)
 
     def __init__(self, cfg: GrowerConfig, mesh: Mesh, bins: torch.Tensor,
-                 hist: str = "fused"):
+                 hist: str = "fused", n_logical: Optional[int] = None,
+                 hist_bins: Optional[torch.Tensor] = None,
+                 pack: Optional[PackPlan] = None):
         if hist not in ("fused", "flat"):
             raise ValueError(f"hist must be fused or flat; got {hist!r}")
         d, fs = mesh.shape[BATCH_AXIS], mesh.shape[FEATURE_AXIS]
@@ -108,11 +126,20 @@ class GspmdGrower(SplitLoop):
         if n_pad % d:
             raise ValueError(f"{n_pad} rows do not split evenly over {d} "
                              f"batch shards")
+        if (hist_bins is None) != (pack is None) or (
+                pack is not None and (pack.num_phys_cols != f
+                                      or hist_bins.shape[0] != n_pad)):
+            raise ValueError("GspmdGrower: hist_bins goes with a pack plan "
+                             "over the columns of bins")
         # counters: splits made, the active flag
         super().__init__(cfg, mesh.primary, 2)
         self.mesh, self.hist = mesh, hist
         self.n_loc = n_loc = n_pad // d
-        self.cols = column_slices(f, fs)
+        self.pack = None if pack is None else pack.to(mesh.primary)
+        hsrc = bins if hist_bins is None else hist_bins
+        self.hist_width = (cfg.max_bin if pack is None
+                           else max(PACK_JOINT_BINS, cfg.max_bin))
+        self.cols = column_slices(hsrc.shape[1], fs)
         L = cfg.num_leaves
         # the batch shards each device holds, in shard order; a device's
         # row -> leaf map, counts and routing cover all of them at once
@@ -133,13 +160,13 @@ class GspmdGrower(SplitLoop):
                                   for _ in range(3))
                         for dv, held in self.held.items()}
         # each slot's shard cut to its column slice, for the histogram
-        self.slices = [[bins[i * n_loc:(i + 1) * n_loc,
+        self.slices = [[hsrc[i * n_loc:(i + 1) * n_loc,
                              c.start:c.stop].contiguous().to(
                                  mesh.devices[i][j])
                         for j, c in enumerate(self.cols)] for i in range(d)]
         self.root_id = torch.zeros(1, dtype=torch.int32, device=self.device)
         # the histogram store, split pool and records, reset per tree
-        self.pool = LeafPool(cfg, f, self.device)
+        self.pool = LeafPool(cfg, f, self.device, n_logical=n_logical)
         self.metas: Optional[Dict[torch.device, FeatureMeta]] = None
         self.bound = None
 
@@ -158,9 +185,9 @@ class GspmdGrower(SplitLoop):
     def _measure(self, leaf_id: torch.Tensor) -> torch.Tensor:
         """The leaf's ``[F, B, 3]`` histogram on the primary device:
         per-slot partials, summed over the batch shards in shard order,
-        column slices concatenated.  ``leaf_id`` is an int32[1] on the
-        primary device."""
-        B = self.cfg.max_bin
+        column slices concatenated, packed columns unfolded.  ``leaf_id``
+        is an int32[1] on the primary device."""
+        B = self.hist_width
         leaf_on = {dv: leaf_id.to(dv) for dv in self.held}
         w = self.weights
         if self.hist == "flat":     # weights masked to the leaf
@@ -183,7 +210,10 @@ class GspmdGrower(SplitLoop):
                 part = part.to(self.device)
                 acc = part if acc is None else acc + part
             cols.append(acc)
-        return cols[0] if len(cols) == 1 else torch.cat(cols)
+        hist = cols[0] if len(cols) == 1 else torch.cat(cols)
+        if self.pack is None:
+            return hist
+        return unfold_packed_hist(hist, self.pack, self.cfg.max_bin)
 
     def start(self, gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
               meta: FeatureMeta, feat_valid: torch.Tensor) -> None:

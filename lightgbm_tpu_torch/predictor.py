@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .grower import FeatureMeta, TreeArrays
+from .ops.route import decode_slot
 from .tree import K_DEFAULT_LEFT_MASK, Tree
 
 MISSING_NONE, MISSING_ZERO, MISSING_NAN = 0, 1, 2
@@ -191,7 +192,10 @@ def binned_leaves(bins: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     tables: the column, threshold bin, default-left flag, children (``~leaf``
     below 0) and categorical flag of each node, and ``cat`` ``[T, P, W]``
     the bins a categorical node routes left (None where no tree has one).
-    The loop runs ``depth`` levels, the trees' longest path."""
+    Node features are logical: with EFB's ``meta.col``/``meta.offset`` a
+    node reads its feature's bundle column and decodes the slot
+    (``ops/route.py:decode_bundle_bin``).  The loop runs ``depth`` levels,
+    the trees' longest path."""
     t, p = feat.shape
     n, dev = bins.shape[0], bins.device
     flat = bins.reshape(-1)
@@ -206,9 +210,13 @@ def binned_leaves(bins: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
         active = node >= 0
         nd = node.clamp(min=0)
         f = feat.gather(1, nd)
-        b = flat[row_off + f].long()
         mt, nb, db = (meta.missing_type[f], meta.num_bin[f],
                       meta.default_bin[f])
+        if meta.col is None:
+            b = flat[row_off + f].long()
+        else:
+            b = decode_slot(flat[row_off + meta.col[f]].long(),
+                            meta.offset[f], nb, db)
         missing = (((mt == MISSING_NAN) & (b == nb - 1))
                    | ((mt == MISSING_ZERO) & (b == db)))
         go = torch.where(missing, dl.gather(1, nd), b <= thr.gather(1, nd))

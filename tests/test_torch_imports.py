@@ -120,17 +120,31 @@ def test_num_class_checked_as_jax(params, message):
 
 
 def test_bundleable_dataset_raises_unless_bundling_off():
+    """The data that once raised at the default ``enable_bundle=true``
+    now trains bundled (two exclusive columns share one) and grows the
+    trees it grows unbundled with ``enable_bundle=false``."""
     rng = np.random.default_rng(1)
     x = np.zeros((400, 3))
     x[:100, 0] = rng.standard_normal(100)      # mutually exclusive sparse
     x[100:200, 1] = rng.standard_normal(100)
     x[:, 2] = rng.standard_normal(400)
     y = (x.sum(1) > 0).astype(np.float32)
-    p = {"objective": "binary", "device": "cpu", "enable_bin_packing": False}
-    with pytest.raises(NotImplementedError, match="EFB"):
-        lt.Dataset(x, y, params=p).construct()
-    p["enable_bundle"] = False
-    assert lt.Dataset(x, y, params=p).construct().bins.shape == (400, 3)
+    p = {"objective": "binary", "device": "cpu", "min_data_in_leaf": 5,
+         "num_leaves": 7, "verbose": -1}
+    bundled = lt.Dataset(x, y, params=p).construct()
+    assert bundled.bins.shape == (400, 2)
+    q = dict(p, enable_bundle=False)
+    plain = lt.Dataset(x, y, params=q).construct()
+    assert plain.bins.shape == (400, 3)
+
+    def fobj(preds, data):      # integer gradients: exact sums either way
+        r = np.random.default_rng(int(np.abs(preds).sum() * 1e3) % 997)
+        return (r.integers(-3, 4, len(preds)).astype(np.float64),
+                r.integers(1, 3, len(preds)).astype(np.float64))
+    a = lt.train(p, bundled, 3, fobj=fobj)
+    b = lt.train(q, plain, 3, fobj=fobj)
+    assert a.num_trees() == 3
+    assert a.model_to_string() == b.model_to_string()
 
 
 def test_unknown_parameter_rejected():
