@@ -165,9 +165,24 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    round by the kernel and by the plain version on the card, and K1's
    bytes a tree.  Then the cut run (``enable_bin_packing=false``) on the
    same Dataset, 10 rounds, with the same numbers: NDCG@10 within 1e-3,
-   the first trees compared (identical, or where they first differ and
-   by how much), and one round under integer-valued gradients identical
-   in both layouts;
+   the first trees compared (identical, or where they first differ, by
+   how much, and which choice has the higher float64 gain; a difference
+   beyond the float32 rounding of its histogram subtraction chain fails,
+   :func:`chain_tie`), and one round under integer-valued gradients
+   identical in both layouts and on the 4x1 data-parallel learner;
+8a. (on phase 8's packed storage matrix, 2,270,296 x 117 at width 256)
+   K1 at the root and a 4,000-row window, in both regimes and the device
+   regime (and at the root once more with joint bin 255, both nibbles
+   15, forced into 10,000 rows), and K3 on the matrix cut into 4 row
+   shards, at a leaf of 4,000 rows and the rest, in both regimes and
+   the device regime, against their plain versions: exact under integer
+   weights, within 1e-5 of sum |w| of the float64 sum under float32;
+   both unfolded (K3's after the shard sum) equal to the plain histogram
+   of the unpacked bins; K1's times and bounds on the packed matrix
+   beside the unpacked bins;
+8c. one round of the data-parallel learner over 4x1 on the one card at
+   the defaults (K3 reads each shard's packed slice, unfolded after the
+   shard sum): held-out NDCG@10 within 1e-3 of phase 8's first round;
 8b. the card against the CPU on 200,000 rows of the same generator, 3
    rounds, at the defaults: the first tree identical in structure up to
    its first near-tie (the gradients are real-valued and the card adds
@@ -186,9 +201,10 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    replay, at most 8 host reads a tree.  Then the cut run
    (``enable_bundle=false``, ``enable_bin_packing=false``) on its own
    Dataset, 3 rounds: held-out multi_logloss within 1e-4, the first
-   round's trees compared (identical, or where they first differ and by
-   how much), and one round under integer-valued gradients identical in
-   both layouts;
+   round's trees compared as phase 8's and, as the witness of the card's
+   summation order alone, the bundled first round trained again and
+   compared with the first run's; one round under integer-valued
+   gradients identical in both layouts;
 9b. one round of ``multiclassova`` on the bundled Dataset (not
    profiled);
 9c. one round over the 4x1 data-parallel mesh on the one card, bundled:
@@ -204,7 +220,9 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    ``trees_scores_binned``), every bag's root 232,404 rows;
 9d. the card against the CPU at 100,000 rows, 2 rounds, at the defaults:
    the first round's 7 trees identical in structure up to their first
-   near-ties;
+   near-ties; and on the CPU's plain path, whose sums run in one fixed
+   order, the bundled first round against the cut one's, compared as
+   phase 9's;
 10. (phases 10 to 14 on phase 3's Higgs-shaped data and one Dataset)
    bagging in the subset regime (``bagging_fraction=0.5``,
    ``bagging_freq=1``, 10 rounds, the graph loop): each tree's root window
@@ -364,12 +382,12 @@ def profiled_ms(fn, calls: int = 50, tries: int = 3):
     return None, None
 
 
-def window_bound_ms(cnt: int, f: int) -> float:
+def window_bound_ms(cnt: int, f: int, num_bins: int = N_BINS) -> float:
     """Least time of a window histogram: each row's order entry, bins and
-    three weights read, (start, cnt) read and the [F, 255, 3] f32 output
-    written, over the memory rate; or 3 * F f32 adds a row over the f32
-    rate."""
-    nbytes = cnt * (4 + f + 3 * 4) + 8 + f * N_BINS * 3 * 4
+    three weights read, (start, cnt) read and the [F, num_bins, 3] f32
+    output written, over the memory rate; or 3 * F f32 adds a row over the
+    f32 rate."""
+    nbytes = cnt * (4 + f + 3 * 4) + 8 + f * num_bins * 3 * 4
     return max(nbytes / H100_BYTES_PER_S,
                3 * f * cnt / H100_F32_OPS_PER_S) * 1e3
 
@@ -1245,6 +1263,201 @@ def check_hist_local(dev, rng):
         del bins, maps, skewed_d, edge_d, w_int, w_f32, idx, flat, vals, acc
         del leaf_rows
     return timing, max_err
+
+
+def hist64(rows, bins, ws, num_bins, chunk=1 << 18):
+    """The ``[F, num_bins, 3]`` histogram of ``bins``' rows ``rows`` (a
+    1-D index tensor) under weights ``ws``, summed in float64: the
+    reference of a float32 check where a bin holds so many rows that a
+    float32 plain sum's own rounding would exceed the tolerance."""
+    import torch
+    f = bins.shape[1]
+    out = torch.zeros((f * num_bins, 3), dtype=torch.float64,
+                      device=bins.device)
+    base = torch.arange(f, device=bins.device) * num_bins
+    for a in range(0, rows.numel(), chunk):
+        idx = rows[a:a + chunk].long()
+        flat = (bins.index_select(0, idx).long() + base).reshape(-1)
+        vals = torch.stack([w[idx].double() for w in ws], -1)
+        out.index_add_(0, flat, vals[:, None, :].expand(-1, f, 3)
+                       .reshape(-1, 3))
+    return out.view(f, num_bins, 3)
+
+
+def check_hist_packed(inner, rng, window=4_000, shards=4):
+    """Phase 8a: K1 (``hist_window``) and K3 (``hist_local``) on phase 8's
+    packed storage matrix as the main path reads it (2,270,296 x 117 at
+    width 256, where joint bin 255, both nibbles 15, is a possible bin
+    that no unpacked 255-bin column holds; the phase counts the cells that
+    reach it, and checks K1 at the root once more on a copy whose first
+    packed byte is 255 in 10,000 rows), against their plain versions: exact
+    under integer weights and within 1e-5 of sum |w| under float32 of the
+    float64 sum (:func:`hist64`; a joint bin here holds up to some two
+    million rows, where the float32 plain version's own sequential
+    rounding is above that tolerance).  K1 at
+    the root and at a ``window``-row window of a shuffled ``order``, in
+    its own plan, both regimes forced and the split step's device regime
+    at both parities; its result unfolded equal to the plain histogram of
+    the unpacked bins.  K3 on the matrix cut into ``shards`` row shards,
+    at all rows and at a leaf of about ``window`` rows in all, in its own
+    plan, both regimes and the device regime; the shards' partials summed
+    in shard order and unfolded equal to the plain histogram of the
+    unpacked bins, as the data-parallel learner unfolds after its shard
+    sum.  With K1's times at both windows on the packed matrix and on the
+    unpacked bins."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (hist_local,
+                                                  hist_local_plain,
+                                                  hist_window,
+                                                  hist_window_plain,
+                                                  plan_device,
+                                                  plan_device_local,
+                                                  plan_launch, sm_count)
+    packed, bins = inner.packed, inner.bins
+    mat, max_bin = packed.matrix, inner.grower_cfg.max_bin
+    W = packed.hist_width(max_bin)
+    n, c = mat.shape
+    dev = mat.device
+    sms = sm_count(torch.cuda.current_device())
+    put = lambda a: torch.from_numpy(a).to(dev)
+    w_int = [put(rng.integers(-8, 9, n).astype(np.float32)),
+             put(rng.integers(0, 5, n).astype(np.float32)),
+             torch.ones(n, dtype=torch.float32, device=dev)]
+    w_f32 = [put(rng.standard_normal(n).astype(np.float32)),
+             put(rng.uniform(0.0, 0.25, n).astype(np.float32)),
+             torch.ones(n, dtype=torch.float32, device=dev)]
+    w_abs = [w.abs() for w in w_f32]
+    cols_packed = torch.nonzero(packed.plan.is_packed).view(-1)
+    joint255 = int((mat.index_select(1, packed.plan.byte_col[cols_packed]
+                                     .unique()) == 255).sum())
+
+    def held(name, got, want, mag=None):
+        if mag is None:
+            if not torch.equal(got, want):
+                fail(f"phase 8a: {name} != plain under integer weights: "
+                     f"max |diff| {(got - want).abs().max().item()}")
+            return 0.0
+        err = (got.double() - want).abs()
+        rel = (err / mag.clamp(min=1e-300)).max().item()
+        if rel > 1e-5:
+            fail(f"phase 8a: {name} is {rel:.3e} of sum |w| from the "
+                 f"float64 sum under float32 (limit 1e-5)")
+        return err.max().item()
+
+    # ---- K1 over a shuffled order: the root and a small window ------------
+    order = put(rng.permutation(n).astype(np.int32))
+    alt = (put(rng.permutation(n).astype(np.int32)), mat, *w_int)
+    out, f32_err, times = {}, 0.0, {}
+    for start, cnt in ((0, n), (n // 3, window)):
+        sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+        want = hist_window_plain(order, sc, mat, *w_int, W)
+        plans = {"own": plan_launch(cnt, c, W, num_sms=sms),
+                 "small": plan_launch(cnt, c, W, num_sms=sms,
+                                      small_max_rows=n),
+                 "large": plan_launch(cnt, c, W, num_sms=sms,
+                                      small_max_rows=-1)}
+        for pname, pl in plans.items():
+            held(f"K1 {pname} plan at ({start}, {cnt})",
+                 hist_window(order, sc, mat, *w_int, W, cnt, pl), want)
+        dplan = plan_device(n, c, W, num_sms=sms)
+        for par, src in ((0, (order, mat, *w_int)), (1, alt)):
+            sel = torch.tensor([par], dtype=torch.int32, device=dev)
+            held(f"K1 device regime at ({start}, {cnt}), parity {par}",
+                 hist_window(order, sc, mat, *w_int, W, plan=dplan,
+                             alt=alt, sel=sel),
+                 hist_window_plain(src[0], sc, *src[1:], W))
+        held(f"K1 unfolded at ({start}, {cnt})",
+             packed.unfold(hist_window(order, sc, mat, *w_int, W, cnt),
+                           max_bin),
+             hist_window_plain(order, sc, bins, *w_int, max_bin))
+        idx = order[start:start + cnt]
+        f32_err = max(f32_err, held(
+            f"K1 at ({start}, {cnt})",
+            hist_window(order, sc, mat, *w_f32, W, cnt),
+            hist64(idx, mat, w_f32, W), hist64(idx, mat, w_abs, W)))
+        times[cnt] = (
+            cuda_ms(lambda: hist_window(order, sc, mat, *w_f32, W, cnt)),
+            cuda_ms(lambda: hist_window(order, sc, bins, *w_f32, max_bin,
+                                        cnt)),
+            window_bound_ms(cnt, c, W),
+            window_bound_ms(cnt, bins.shape[1], max_bin))
+    # joint bin 255 forced into 10,000 rows of the first packed byte
+    forced = mat.clone()
+    forced[put(rng.choice(n, 10_000, replace=False)),
+           packed.plan.byte_col[cols_packed[0]]] = 255
+    sc = torch.tensor([0, n], dtype=torch.int32, device=dev)
+    order = alt[0]
+    want = hist_window_plain(order, sc, forced, *w_int, W)
+    held("K1 at the root with joint bin 255 forced",
+         hist_window(order, sc, forced, *w_int, W, n), want)
+    held("K1's device regime at the root with joint bin 255 forced",
+         hist_window(order, sc, forced, *w_int, W,
+                     plan=plan_device(n, c, W, num_sms=sms)), want)
+    del forced
+    out.update(k1_windows=f"0+{n},{n // 3}+{window}",
+               k1_joint_bin_255_forced_exact=True,
+               k1_exact_int="own,small,large,device_parity0,"
+               "device_parity1,unfolded",
+               k1_f32_max_abs_err=f"{f32_err:.3e}",
+               k1_root_ms_packed=f"{times[n][0]:.4f}",
+               k1_root_ms_unpacked=f"{times[n][1]:.4f}",
+               k1_root_bound_ms_packed=f"{times[n][2]:.5f}",
+               k1_root_bound_ms_unpacked=f"{times[n][3]:.5f}",
+               k1_window_ms_packed=f"{times[window][0]:.4f}",
+               k1_window_ms_unpacked=f"{times[window][1]:.4f}",
+               k1_window_bound_ms_packed=f"{times[window][2]:.5f}",
+               k1_window_bound_ms_unpacked=f"{times[window][3]:.5f}")
+    del order, alt
+
+    # ---- K3 on row shards: all rows and a leaf of about `window` rows -----
+    n_loc = n // shards
+    leaf_map = np.zeros(n, np.int32)
+    leaf_map[rng.choice(n_loc * shards, window, replace=False)] = 1
+    leaf_map = put(leaf_map)
+    f32_err = 0.0
+    for leaf in (0, 1):
+        lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
+        parts = []
+        for i in range(shards):
+            rows = slice(i * n_loc, (i + 1) * n_loc)
+            rl, m = leaf_map[rows], mat[rows].contiguous()
+            wi = [w[rows] for w in w_int]
+            wf = [w[rows] for w in w_f32]
+            cnt = int((rl == leaf).sum())
+            lrows = torch.bincount(rl.long(), minlength=2).int()
+            want = hist_local_plain(rl, lid, m, *wi, W)
+            plans = {"own": plan_launch(cnt, c, W, n_loc, num_sms=sms),
+                     "small": plan_launch(cnt, c, W, n_loc, num_sms=sms,
+                                          small_max_rows=n_loc),
+                     "large": plan_launch(cnt, c, W, n_loc, num_sms=sms,
+                                          small_max_rows=-1),
+                     "device": plan_device_local(n_loc, c, W, num_sms=sms)}
+            for pname, pl in plans.items():
+                held(f"K3 {pname} plan, shard {i}, leaf {leaf}",
+                     hist_local(rl, lid, m, *wi, W, plan=pl,
+                                leaf_rows=lrows if pname == "device"
+                                else None), want)
+            parts.append(hist_local(rl, lid, m, *wi, W, leaf_rows=lrows))
+            idx = torch.nonzero(rl == leaf).view(-1)
+            f32_err = max(f32_err, held(
+                f"K3 shard {i}, leaf {leaf}",
+                hist_local(rl, lid, m, *wf, W, leaf_rows=lrows),
+                hist64(idx, m, wf, W),
+                hist64(idx, m, [w.abs() for w in wf], W)))
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        held(f"K3 shard sum unfolded, leaf {leaf}",
+             packed.unfold(total, max_bin),
+             hist_local_plain(leaf_map, lid, bins, *w_int, max_bin))
+    out.update(k3_shards=f"{shards}x{n_loc}x{c}",
+               k3_leaf_rows=f"{n - window},{window}",
+               k3_exact_int="own,small,large,device,shard_sum_unfolded",
+               k3_f32_max_abs_err=f"{f32_err:.3e}")
+    phase("packed_hist_vs_plain", storage=f"{n}x{c}", width=W,
+          packed_cols=packed.plan.num_packed,
+          joint_bin_255_cells=joint255, **out)
+    return out
 
 
 def route_bound_ms(cnt: int, gathered: bool, bundled: bool = False) -> float:
@@ -2689,6 +2902,81 @@ def near_tie(tc, tg, k, bins, col_of, g, h, min_hess):
     return gap <= 1.0 or on_bound, gap
 
 
+def path_rows(tree, bins, col_of, k) -> list:
+    """The rows of ``bins`` at each node on the path from the root to node
+    ``k`` of ``tree``, root first: a child's rows are those of its parent
+    that the parent's split sends its way (``bin <= threshold_bin`` left;
+    these tasks have no missing values)."""
+    parent = {}
+    for nd in range(k):
+        for child, left in ((tree.left_child[nd], True),
+                            (tree.right_child[nd], False)):
+            if child >= 0:
+                parent[int(child)] = (nd, left)
+    path = [k]
+    while path[-1] in parent:
+        path.append(parent[path[-1]][0])
+    rows = np.ones(len(bins), bool)
+    out = [rows]
+    for child in reversed(path[:-1]):
+        nd, left = parent[child]
+        goes = (bins[:, col_of[int(tree.split_feature[nd])]]
+                <= tree.threshold_bin[nd])
+        rows = rows & (goes if left else ~goes)
+        out.append(rows)
+    return out
+
+
+def chain_tie(ta, tb, k, bins, col_of, g, h, min_hess):
+    """Whether the first difference of trees ``ta`` and ``tb`` (identical
+    before split ``k``, grown on the same rows in two layouts) is a choice
+    that float32 rounding can decide, with the rounding bounded along the
+    histogram subtraction chain behind each choice.  The grower measures
+    the smaller child and takes the larger as its parent less it, so a
+    histogram at node k carries the rounding of every ancestor's measured
+    sums: at most ``F32_U * (n_a + 512) * S_a`` for each node ``a`` on the
+    path from the root, n_a its rows and S_a their sum of |g| (or |h|),
+    512 for the split scan's prefix sums over 256 bins and a bundle's
+    default bin rebuilt from its slots.  Each layer is counted twice:
+    once in the bins, once in the leaf sum that a rebuilt default bin
+    subtracts its slots from.  A split's float64 gain then moves by at
+    most the sum over its three terms of 2 |G| / H dG + G^2 / H^2 dH.  A
+    tree that stops first has a split of gain 0 there.  Returns (each
+    tree's float64 gain at k, their gap over the sum of both allowances,
+    whether a child's hessian sum lies within dH of ``min_hess``)."""
+    gains, errs, on_bound = [], [], False
+    for t in (ta, tb):
+        if k >= t.num_leaves - 1:
+            gains.append(0.0)
+            errs.append(0.0)
+            continue
+        path = path_rows(t, bins, col_of, k)
+        rows = path[-1]
+        if int(rows.sum()) != int(t.internal_count[k]):
+            fail(f"chain_tie: {int(rows.sum())} rows reach node {k}, the "
+                 f"tree counts {int(t.internal_count[k])}")
+        dg = dh = 0.0
+        for r in path:
+            m = float(r.sum()) + 512.0
+            dg += m * np.abs(g[r]).sum()
+            dh += m * np.abs(h[r]).sum()
+        dg, dh = 2.0 * F32_U * dg, 2.0 * F32_U * dh
+        left = (bins[:, col_of[int(t.split_feature[k])]]
+                <= t.threshold_bin[k])
+        gain = err = 0.0
+        for sign, m in ((1.0, rows & left), (1.0, rows & ~left),
+                        (-1.0, rows)):
+            G, H = g[m].sum(), h[m].sum()
+            gain += sign * G * G / H
+            err += 2.0 * abs(G) / H * dg + G * G / (H * H) * dh
+            if sign > 0 and abs(H - min_hess) <= dh:
+                on_bound = True
+        gains.append(gain)
+        errs.append(err)
+    gap = abs(gains[0] - gains[1]) / max(errs[0] + errs[1], 1e-300)
+    return gains, gap, on_bound
+
+
 def logical_bins(td) -> np.ndarray:
     """A constructed dataset's bins by logical feature ``[N, E]``: its
     columns, with each bundle's slots decoded into its features' bins
@@ -2730,8 +3018,8 @@ def k1_bytes_per_tree(bst) -> int:
     measured row's storage bytes (the packed matrix's columns, or the
     bins'), its ``order`` entry and its three float32 weights."""
     inner = bst.inner
-    width = (inner._hist_bins if inner._hist_bins is not None
-             else inner.bins).shape[1]
+    width = (inner.bins if inner.packed is None
+             else inner.packed.matrix).shape[1]
     trees = [t for t in inner.models if t.num_leaves > 1]
     rows = sum(k1_rows(t) for t in trees) / max(len(trees), 1)
     return int(rows * (width + 4 + 12))
@@ -2740,14 +3028,17 @@ def k1_bytes_per_tree(bst) -> int:
 def first_round_vs(a, b, first_trees):
     """Two trainings' first ``first_trees`` trees on the same rows (``a``
     and ``b`` their boosters) under the built-in objective: how many are
-    identical in structure, and where each other first differs with its
-    float64 gap over :func:`near_tie`'s allowance (on ``a``'s gradients
-    at score 0).  A bundled or packed layout adds the same rows' values in
-    another order (a bundle's default bin is its leaf's sum less its
-    slots), so a split whose gain differs from another's by about the
-    float32 sums' rounding may go either way; these numbers are recorded,
-    and :func:`integer_round_identical` holds the layouts to identical
-    trees."""
+    identical in structure, and where each other first differs (on
+    ``a``'s gradients at score 0).  A bundled or packed layout adds the
+    same rows' values in another order (a bundle's default bin is its
+    leaf's sum less its slots), so a split whose gain differs from
+    another's by about the float32 sums' rounding may go either way.  Each
+    difference is recorded as tree:split:its float64 gap over
+    :func:`near_tie`'s one-sum allowance:its gap over :func:`chain_tie`'s
+    subtraction-chain allowance:the layout whose choice has the higher
+    float64 gain (a, b or = when equal), and held: a gap beyond the chain
+    allowance, off the hessian bound, fails.  :func:`integer_round_identical`
+    holds the layouts to identical trees where every sum is exact."""
     import torch
     ia, ib = a.inner, b.inner
     bins = logical_bins(ia.train_set)
@@ -2756,17 +3047,29 @@ def first_round_vs(a, b, first_trees):
         torch.zeros_like(ia.scores)))
     ma = [m for m in ia.models if m.num_leaves > 1][:first_trees]
     mb = [m for m in ib.models if m.num_leaves > 1][:first_trees]
-    identical, diffs = 0, []
+    identical, diffs, bad = 0, [], []
+    better = {"a": 0, "b": 0, "=": 0}
+    min_hess = ia.config.min_sum_hessian_in_leaf
     for i, (ta, tb) in enumerate(zip(ma, mb)):
         k = first_split_difference(ta, tb)
         if k is None:
             identical += 1
             continue
-        _, rel = near_tie(ta, tb, k, bins, col_of, g[i], h[i],
-                          ia.config.min_sum_hessian_in_leaf)
-        diffs.append(f"{i}:{k}:{rel:.2e}")
+        _, rel = near_tie(ta, tb, k, bins, col_of, g[i], h[i], min_hess)
+        (ga, gb), chain, on_bound = chain_tie(ta, tb, k, bins, col_of, g[i],
+                                              h[i], min_hess)
+        won = "a" if ga > gb else "b" if gb > ga else "="
+        better[won] += 1
+        diffs.append(f"{i}:{k}:{rel:.2e}:{chain:.2e}:{won}")
+        if chain > 1.0 and not on_bound:
+            bad.append(diffs[-1])
+    if bad:
+        fail(f"first round in two layouts: trees differ beyond the float32 "
+             f"rounding of their subtraction chains (tree:split:one-sum "
+             f"gap:chain gap:higher gain): {bad}")
     return {"first_round_trees": len(ma), "identical_trees": identical,
-            "first_differences": ",".join(diffs) or "none"}
+            "first_differences": ",".join(diffs) or "none",
+            "higher_float64_gain_a_b_equal": "{a}:{b}:{=}".format(**better)}
 
 
 def integer_round_identical(name, runs) -> bool:
@@ -2878,9 +3181,11 @@ def rank_card_vs_cpu(params, rng, run_dir, heldout):
 
 def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
               q_te=Q_MSLR_HELDOUT, n_te=N_MSLR_HELDOUT, rounds=10):
-    """Phases 2h and 8: the MS-LTR-shaped lambdarank task at full width
-    (2,270,296 x 137 in 18,919 queries, 750,000 held-out rows in 6,000),
-    the lambdarank kernel checked on its labels first; returns phase 8's
+    """Phases 2h, 8, 8a and 8c: the MS-LTR-shaped lambdarank task at full
+    width (2,270,296 x 137 in 18,919 queries, 750,000 held-out rows in
+    6,000), the lambdarank kernel checked on its labels first, K1 and K3
+    on the packed storage matrix after phase 8's training, the cut run and
+    the data-parallel learner on the same Dataset; returns phase 8's
     numbers, phase 2h's timing and the held-out (x, y, query sizes)."""
     import torch
     from lightgbm_tpu_torch.ops.lambdarank import lambdarank_grad_plain
@@ -2902,10 +3207,10 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     rank, bst, ds = train_path("mslr", rank_params, x_tr, y_tr, x_te, y_te,
                                rounds, names, group=sizes,
                                quality=mslr_quality(sizes_te))
-    plan = bst.inner.pack_plan
-    if ds.constructed.layout is not None or plan is None:
+    if ds.constructed.layout is not None or bst.inner.packed is None:
         fail("mslr: at the defaults the columns should pack and none "
              "bundle")
+    plan = bst.inner.packed.plan
     obj, sc = bst.inner.objective, bst.inner.scores
     grad_ms = cuda_ms(lambda: obj.get_gradients(sc))
     plain_ms = cuda_ms(lambda: lambdarank_grad_plain(
@@ -2914,24 +3219,42 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     rank_ds = {"storage_cols": plan.num_storage_cols,
                "packed_cols": plan.num_packed,
                "bins_bytes": ds.bins.numel(),
-               "storage_bytes": bst.inner._hist_bins.numel(),
+               "storage_bytes": bst.inner.packed.matrix.numel(),
                "k1_bytes_per_tree": k1_bytes_per_tree(bst),
                "captures": one_capture("mslr", bst)}
     del obj, sc
+    # ---- phase 8a: K1 and K3 on the packed storage matrix -----------------
+    packed_check = check_hist_packed(bst.inner, rng)
+    torch.cuda.empty_cache()
     # ---- phase 8, cut: the same Dataset (nothing bundles) unpacked --------
     cut, cut_bst, _ = train_path(
         "mslr_cut", dict(rank_params, enable_bundle=False,
                          enable_bin_packing=False), x_tr, y_tr, x_te, y_te,
         rounds, names, group=sizes, quality=mslr_quality(sizes_te), ds=ds)
-    if cut_bst.inner.pack_plan is not None:
+    if cut_bst.inner.packed is not None:
         fail("mslr_cut: packed with enable_bin_packing=false")
     cut_ds = {"storage_cols": ds.bins.shape[1],
               "k1_bytes_per_tree": k1_bytes_per_tree(cut_bst),
               "captures": one_capture("mslr_cut", cut_bst)}
     same = first_round_vs(cut_bst, bst, 1)
+    # ---- phase 8c: the data-parallel learner over 4x1 on the packed ------
+    # storage matrix, 1 round (K3 reads each shard's packed slice and the
+    # unfold follows the shard sum)
+    dp_params = dict(rank_params, tree_learner="data",
+                     mesh_devices=MESH_SLOTS, mesh_shape="4x1")
+    dp, dp_bst, _ = train_path(
+        "mslr_dp_4x1", dp_params, x_tr, y_tr, x_te, y_te, 1, names,
+        group=sizes, quality=lambda b, pred, x, y: {
+            "heldout_ndcg@10": f"{ndcg_at(pred, y, sizes_te, [10])[0]:.6f}"},
+        ds=ds, profile=False)
+    if dp_bst.inner.packed is None:
+        fail("mslr_dp_4x1: the data-parallel learner did not pack")
+    dp_gap = abs(float(dp["heldout_ndcg@10"])
+                 - float(rank["round1_ndcg@10"]))
+    del dp_bst
     same["integer_round_identical"] = integer_round_identical(
         "mslr_packed_vs_cut", [(rank_params, ds), (dict(
-            rank_params, enable_bin_packing=False), ds)])
+            rank_params, enable_bin_packing=False), ds), (dp_params, ds)])
     gap = abs(float(rank["heldout_ndcg@10"]) - float(cut["heldout_ndcg@10"]))
     phase("mslr_path", generate_s=f"{t_gen:.3f}", queries=len(sizes),
           longest_query=int(sizes.max()), heldout_rows=len(y_te),
@@ -2944,13 +3267,21 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     phase("mslr_cut_path", layout="enable_bundle=false;"
           "enable_bin_packing=false", ndcg10_gap_vs_defaults=f"{gap:.3e}",
           **same, **cut_ds, **cut)
+    phase("mslr_dp_4x1", storage_cols=plan.num_storage_cols,
+          ndcg10_gap_vs_serial_round1=f"{dp_gap:.3e}",
+          integer_round_identical_to_serial=same["integer_round_identical"],
+          **dp)
     for name, r in (("mslr", rank), ("mslr_cut", cut)):
         if float(r["host_syncs_per_tree"]) > 8:
             fail(f"{name}: {r['host_syncs_per_tree']} host reads a tree")
     if gap > 1e-3:
         fail(f"mslr: held-out NDCG@10 at the defaults is {gap} from the "
              f"unpacked run's (limit 1e-3)")
-    rank = dict(rank, **rank_ds, cut=dict(cut, **cut_ds))
+    if dp_gap > 1e-3:
+        fail(f"mslr 4x1: held-out NDCG@10 is {dp_gap} from the serial "
+             f"first round's (limit 1e-3)")
+    rank = dict(rank, **rank_ds, packed_check=packed_check,
+                cut=dict(cut, **cut_ds), dp_4x1=dp)
     del bst, cut_bst, ds
     torch.cuda.empty_cache()
     return rank, lam, (x_te, y_te, sizes_te)
@@ -2963,17 +3294,21 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
     through the serial graph loop (one capture, its graph replayed for
     every tree of every round); the cut run (``enable_bundle=false``,
     ``enable_bin_packing=false``) on its own Dataset for the same rounds,
-    its held-out multi_logloss within 1e-4 and one integer-gradient round
-    identical in both layouts; 1 round of multiclassova; 1 round of the
+    its held-out multi_logloss within 1e-4, its first round compared with
+    the bundled one's (:func:`first_round_vs`), and one integer-gradient
+    round identical in both layouts; the bundled first round again,
+    compared with the first run's; 1 round of multiclassova; 1 round of the
     data-parallel learner over 4x1 held to the serial first round's
     multi_logloss within 1e-4; the card against the CPU at ``cpu_rows``
-    rows, 2 rounds, the first round's 7 trees identical in structure; one
+    rows, 2 rounds, the first round's 7 trees identical in structure,
+    and there on the CPU the bundled first round against the cut one's;
+    one
     integer-gradient tree of ``tree_learner=feature`` over a 1x4 mesh on
     the bundled columns, identical to the serial tree; and bagging in the
     subset regime and DART over the bundles, 3 rounds each, their
     training scores within 1e-5 of ``predict(raw_score=True)``."""
     import torch
-    from lightgbm_tpu_torch import Dataset
+    from lightgbm_tpu_torch import Dataset, train
     x_all, y_all = covtype_like(n, rng)
     n_tr = int(0.8 * n)
     x_tr, y_tr, x_te, y_te = (x_all[:n_tr], y_all[:n_tr], x_all[n_tr:],
@@ -2989,9 +3324,9 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
                               3, names, quality=covtype_quality)
     lay = ds.constructed.layout
     if (lay is None or ds.bins.shape[1] != COVTYPE_COLS
-            or bst.inner.pack_plan is not None):
+            or bst.inner.packed is not None):
         fail(f"covtype: at the defaults {ds.bins.shape[1]} columns, "
-             f"packing {bst.inner.pack_plan is not None}; expected "
+             f"packing {bst.inner.packed is not None}; expected "
              f"{COVTYPE_COLS} bundled columns and no packing")
     cov.update(columns=ds.bins.shape[1],
                bundle_slots=":".join(map(str, lay.col_num_bin[10:])),
@@ -3009,6 +3344,12 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
                captures=one_capture("covtype_cut", cut_bst),
                k1_bytes_per_tree=k1_bytes_per_tree(cut_bst))
     same = first_round_vs(cut_bst, bst, 7)
+    # the witness of the card's own summation order: the bundled layout's
+    # first round again, against the first run's
+    again = train(cov_params, ds, num_boost_round=1, verbose_eval=False)
+    same.update({f"rerun_{k}": v for k, v in
+                 first_round_vs(bst, again, 7).items()})
+    del again
     same["integer_round_identical"] = integer_round_identical(
         "covtype_bundled_vs_cut", [(cov_params, ds), (cut_params, cut_ds)])
     gap = abs(float(cov["heldout_multi_logloss"])
@@ -3075,6 +3416,16 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
     out, same = card_vs_cpu_trees("covtype_card_vs_cpu", cov_params,
                                   x_tr[:cpu_rows], y_tr[:cpu_rows], x_te,
                                   2, 7)
+    # the bundled-vs-cut comparison on the CPU's plain path, whose sums
+    # run in one fixed order: its differences are the layouts' arithmetic
+    # alone, without the card's atomics
+    p_cpu = dict(cut_params, device="cpu")
+    cut_cpu = train(p_cpu, Dataset(x_tr[:cpu_rows], y_tr[:cpu_rows],
+                                   params=p_cpu),
+                    num_boost_round=1, verbose_eval=False)
+    same.update({f"cpu_bundled_vs_cut_{k}": v for k, v in
+                 first_round_vs(cut_cpu, out["cpu"][0], 7).items()})
+    del cut_cpu
     ll = {d: multi_metrics(out[d][1], y_te)[0] for d in out}
     cols = out["cuda"][0].inner.bins.shape[1]
     phase("covtype_card_vs_cpu", rows=cpu_rows, rounds=2, columns=cols,

@@ -43,9 +43,9 @@ import torch
 
 from .config import Config, _unsupported
 from .data.dataset import TrainingData
-from .data.packing import PackPlan, build_pack_plan, pack_columns
-from .grower import (FeatureMeta, GrowerConfig, WindowBuffers, grow_tree,
-                     resolve_partition_impl)
+from .data.packing import PackedBins, build_pack_plan, pack_bins
+from .grower import (FeatureMeta, GrowerConfig, TreeArrays, WindowBuffers,
+                     grow_tree, resolve_partition_impl)
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .objectives import Objective, parse_objective_string
 from .parallel import mesh as mesh_mod
@@ -73,6 +73,26 @@ def _init_scores(data: TrainingData, num_class: int,
                          f"{num_class} x {n}")
     return torch.from_numpy(np.asarray(init, np.float32).reshape(
         num_class, n)).to(device)
+
+
+def _tree_to_host(arrays: TreeArrays, *flags: torch.Tensor):
+    """A tree's arrays, and the scalar bool ``flags`` beside them, in one
+    copy to the host: every field's bytes concatenated on the device,
+    copied, and cut into numpy arrays of the fields' types and shapes.
+    Returns (the arrays with numpy fields, the flags as Python bools)."""
+    fields = {f: v for f, v in arrays._asdict().items()
+              if isinstance(v, torch.Tensor)}
+    parts = [*fields.values(), *(f.reshape(1) for f in flags)]
+    raw = torch.cat([t.contiguous().view(-1).view(torch.uint8)
+                     for t in parts]).cpu().numpy()
+    out, at = [], 0
+    for t in parts:
+        dt = np.dtype(str(t.dtype).replace("torch.", ""))
+        n = t.numel() * dt.itemsize
+        out.append(raw[at:at + n].view(dt).reshape(tuple(t.shape)).copy())
+        at += n
+    host = arrays._replace(**dict(zip(fields, out)))
+    return host, [bool(a[0]) for a in out[len(fields):]]
 
 
 class _ValidSet:
@@ -140,10 +160,9 @@ class GBDT:
         # the serial grower's device state, made at the first tree
         self._windows: Optional[WindowBuffers] = None
         self._row_pad = 0
-        # nibble packing: the plan and the packed storage matrix the
-        # histogram reads (None: the histogram reads the bins)
-        self.pack_plan: Optional[PackPlan] = None
-        self._hist_bins: Optional[torch.Tensor] = None
+        # nibble packing: the packed storage matrix the histogram reads,
+        # with its plan (None: the histogram reads the bins)
+        self.packed: Optional[PackedBins] = None
         # the non-finite guard: the iteration whose trip was logged, and
         # the iteration rolled back once (a second trip there raises)
         self._nf_event_iter: Optional[int] = None
@@ -170,10 +189,11 @@ class GBDT:
         # nibble packing over the physical columns (boosting.py:497-528);
         # the feature-sliced learners keep the 1:1 layout
         ordered = "off" if cfg.ordered_bins == "auto" else cfg.ordered_bins
+        plan = None
         if cfg.enable_bin_packing and not (
                 use_dist and cfg.tree_learner in ("feature", "data_feature")):
-            self.pack_plan = build_pack_plan(train.col_num_bins())
-        if self.pack_plan is not None:
+            plan = build_pack_plan(train.col_num_bins())
+        if plan is not None:
             if ordered == "on":
                 log.warning("ordered_bins=on is ignored while nibble bin "
                             "packing is active (the packed storage matrix "
@@ -181,11 +201,10 @@ class GBDT:
                             "enable_bin_packing=false to use the "
                             "leaf-ordered path")
                 ordered = "off"
-            self._hist_bins = pack_columns(bins, self.pack_plan)
+            self.packed = pack_bins(bins, plan)
             log.info("Bin packing: %d of %d columns nibble-packed into %d "
-                     "bytes/row (histogram path)", self.pack_plan.num_packed,
-                     self.pack_plan.num_phys_cols,
-                     self.pack_plan.num_storage_cols)
+                     "bytes/row (histogram path)", plan.num_packed,
+                     plan.num_phys_cols, plan.num_storage_cols)
         put = lambda a: torch.from_numpy(a).to(self.device)
         self.meta = FeatureMeta(
             num_bin=put(fm["num_bin"]), missing_type=put(fm["missing_type"]),
@@ -279,9 +298,11 @@ class GBDT:
         log.info("Using the data-parallel %s learner over a %dx%d (batch, "
                  "feature) mesh, %s histogram", cfg.tree_learner, d, fs,
                  gspmd_hist)
+        packed = (None if self.packed is None else
+                  self.packed._replace(matrix=pad(self.packed.matrix)))
         self._gspmd = GspmdGrower(self.grower_cfg, self.mesh, pad(self.bins),
                                   gspmd_hist, self.meta.num_bin.numel(),
-                                  pad(self._hist_bins), self.pack_plan)
+                                  packed)
 
     def _dist_row_vec(self, x: torch.Tensor) -> torch.Tensor:
         """A per-row vector ``[N]`` -> the learner's ``[N + pad]``, the
@@ -457,12 +478,11 @@ class GBDT:
                     g[k] if bw is None else g[k] * bw,
                     h[k] if bw is None else h[k] * bw, cnt)
             self.stats["trees"] += 1
-            nf_ok = gh_ok & torch.isfinite(arrays.leaf_value).all()
-            host = arrays._replace(**{
-                f: v.cpu().numpy() for f, v in arrays._asdict().items()
-                if isinstance(v, torch.Tensor)})
-            flags = torch.stack([nf_ok, gh_ok]).cpu().tolist()
-            if not flags[0] and self._handle_nonfinite(k, flags[1]):
+            # the flags ride the tree's one copy to the host
+            host, (tree_ok, grads_ok) = _tree_to_host(
+                arrays, gh_ok & torch.isfinite(arrays.leaf_value).all(),
+                gh_ok)
+            if not tree_ok and self._handle_nonfinite(k, grads_ok):
                 return False    # the iteration rolled back; retried next
             tree = Tree.from_arrays(host, self.train_set.used_features,
                                     self.train_set.bin_mappers)
@@ -499,9 +519,10 @@ class GBDT:
         it = self.iter_
         policy = self.config.nonfinite_policy
         stage = "leaf_value" if gh_ok else "grad/hess"
-        self.stats["nonfinite_trips"] += 1
+        # one trip an iteration, however many of its class trees see it
         if self._nf_event_iter != it:
             self._nf_event_iter = it
+            self.stats["nonfinite_trips"] += 1
             log.warning("Non-finite %s detected at iteration %d "
                         "(nonfinite_policy=%s)", stage, it, policy)
         if policy == "clamp":
@@ -559,10 +580,10 @@ class GBDT:
             # compact, the split step captured at the first split
             self._windows = WindowBuffers(
                 *self.bins.shape, self.grower_cfg, self.device,
-                n_logical=self.meta.num_bin.numel(), pack=self.pack_plan)
+                n_logical=self.meta.num_bin.numel(), packed=self.packed)
         return grow_tree(self.bins, g, h, c, self.meta, self._feat_valid,
                          self.grower_cfg, self.stats, self._windows,
-                         rows=rows, hist_bins=self._hist_bins)
+                         rows=rows)
 
     def _shrinkage_rate(self) -> float:
         return self.config.learning_rate

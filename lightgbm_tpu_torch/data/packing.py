@@ -10,7 +10,8 @@ A packed pair is one byte a row for the histogram instead of two.
 The packed matrix is a second device copy beside the unpacked one, read
 only by the histogram; routing, the partition's payload and the binned
 traversals keep reading the unpacked columns.  The plan is built over
-physical columns, after EFB.
+physical columns, after EFB.  :class:`PackedBins` carries the matrix and
+its plan together to the growers.
 """
 from __future__ import annotations
 
@@ -37,12 +38,12 @@ class PackPlan(NamedTuple):
 
     @property
     def num_packed(self) -> int:
-        return int(np.asarray(self.is_packed).sum())
+        return int(self.is_packed.sum())
 
     def to(self, device) -> "PackPlan":
         """The plan with its arrays as tensors on ``device``, as the
         captured split steps read them."""
-        put = lambda a: torch.as_tensor(np.asarray(a), device=device)
+        put = lambda a: torch.as_tensor(a, device=device)
         return self._replace(byte_col=put(self.byte_col).long(),
                              shift=put(self.shift),
                              is_packed=put(self.is_packed))
@@ -123,3 +124,25 @@ def unfold_packed_hist(hist_c: torch.Tensor, plan: PackPlan,
     if out_bins > bj:
         wide = torch.nn.functional.pad(wide, (0, 0, 0, out_bins - bj))
     return torch.where(plan.is_packed[:, None, None], nib, wide)
+
+
+class PackedBins(NamedTuple):
+    """The packed storage matrix ``[N, C]`` uint8 and its plan, whose
+    arrays are tensors on the matrix's device (:func:`pack_bins`): what a
+    grower's histogram reads, at width ``max(256, B)``
+    (:meth:`hist_width`), and how it unfolds the result."""
+    matrix: torch.Tensor
+    plan: PackPlan
+
+    @staticmethod
+    def hist_width(max_bin: int) -> int:
+        return max(PACK_JOINT_BINS, max_bin)
+
+    def unfold(self, hist_c: torch.Tensor, out_bins: int) -> torch.Tensor:
+        return unfold_packed_hist(hist_c, self.plan, out_bins)
+
+
+def pack_bins(binned: torch.Tensor, plan: PackPlan) -> PackedBins:
+    """The storage matrix of ``binned`` under ``plan``, beside the plan
+    moved to its device."""
+    return PackedBins(pack_columns(binned, plan), plan.to(binned.device))

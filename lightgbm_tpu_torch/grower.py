@@ -66,7 +66,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from .data.packing import PACK_JOINT_BINS, PackPlan, unfold_packed_hist
+from .data.packing import PackedBins
 from .ops.histogram import hist_window, plan_device, sm_count
 from .ops.partition import (partition_scratch, partition_window,
                             partition_window_plain, partition_window_sort)
@@ -147,37 +147,24 @@ class ExpandMaps(NamedTuple):
     src: torch.Tensor        # [E, B] i64: flat physical bin of each bin
     valid: torch.Tensor      # [E, B] bool: a bin of the feature
     recon: torch.Tensor      # [E, B] bool: the default bin, rebuilt
-    in_window: Optional[torch.Tensor] = None   # [E] bool (windowed maps)
 
 
-def make_expand_maps(meta: FeatureMeta, num_bins: int,
-                     col_start: Optional[int] = None,
-                     col_count: Optional[int] = None) -> ExpandMaps:
+def make_expand_maps(meta: FeatureMeta, num_bins: int) -> ExpandMaps:
     """The maps that expand physical histograms ``[Fp, B, 3]`` into
     per-logical-feature ones (``lightgbm_tpu/grower.py:310-349``, the
     reference's ``FixHistogram`` in tensor form), as tensors on the
-    meta's device.  ``col_start``/``col_count`` restrict them to a window
-    of physical columns (a feature slice's): sources rebased to the
-    window, features outside it masked."""
+    meta's device.  Both learners expand the whole histogram: the
+    data-parallel one after its shard sum and column concatenation."""
     dev = meta.num_bin.device
     b = torch.arange(num_bins, dtype=torch.int64, device=dev)[None, :]
     off, nb, db, c = (t.long()[:, None] for t in (
         meta.offset, meta.num_bin, meta.default_bin, meta.col))
-    in_win = None
-    if col_start is not None:
-        in_win = (c >= col_start) & (c < col_start + col_count)
-        c = c - col_start
     slot = off + b - (b > db).long()
     src = torch.where(off < 0, c * num_bins + b,
                       c * num_bins + slot.clamp(0, num_bins - 1))
     valid = b < nb
     recon = (off >= 0) & (b == db) & valid
-    if in_win is not None:
-        valid = valid & in_win
-        recon = recon & in_win
-        src = src.clamp(0, col_count * num_bins - 1)
-        in_win = in_win[:, 0]
-    return ExpandMaps(src, valid, recon, in_win)
+    return ExpandMaps(src, valid, recon)
 
 
 def expand_bundle_hist(hist: torch.Tensor, pg: torch.Tensor,
@@ -610,9 +597,10 @@ class WindowBuffers(SplitLoop):
       and feature mask it was captured on.
 
     ``n_logical`` is the features the scan sees (``n_feat`` unless EFB
-    bundled); ``pack`` a nibble :class:`~.data.packing.PackPlan` over the
-    ``n_feat`` columns, whose storage matrix the histogram then reads at
-    width ``max(256, B)`` (not with ``ordered_bins=on``).
+    bundled); ``packed`` the nibble-packed storage matrix of the ``rows``
+    x ``n_feat`` bins with its plan (:class:`~.data.packing.PackedBins`),
+    which the histogram then reads instead of the bins (not with
+    ``ordered_bins=on``).
 
     :meth:`start` starts a tree and :meth:`run` takes its steps."""
 
@@ -621,7 +609,7 @@ class WindowBuffers(SplitLoop):
 
     def __init__(self, rows: int, n_feat: int, cfg: GrowerConfig, device,
                  n_logical: Optional[int] = None,
-                 pack: Optional[PackPlan] = None):
+                 packed: Optional[PackedBins] = None):
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -630,15 +618,17 @@ class WindowBuffers(SplitLoop):
         super().__init__(cfg, dev, 3)
         self.rows, self.n_feat = rows, n_feat
         self.ordered = cfg.ordered_bins == "on"
-        if pack is not None and (self.ordered
-                                 or pack.num_phys_cols != n_feat):
-            raise ValueError("WindowBuffers: a pack plan over the n_feat "
+        if packed is not None and (
+                self.ordered or packed.plan.num_phys_cols != n_feat
+                or packed.matrix.shape[0] != rows):
+            raise ValueError("WindowBuffers: packed bins of rows x n_feat "
                              "columns, and not with ordered_bins=on")
-        self.pack = None if pack is None else pack.to(dev)
+        self.packed = packed
         # the matrix the histogram reads: its columns and width
-        self.hist_cols = n_feat if pack is None else pack.num_storage_cols
-        self.hist_width = (cfg.max_bin if pack is None
-                           else max(PACK_JOINT_BINS, cfg.max_bin))
+        self.hist_cols = (n_feat if packed is None
+                          else packed.plan.num_storage_cols)
+        self.hist_width = (cfg.max_bin if packed is None
+                           else packed.hist_width(cfg.max_bin))
         # the PyTorch partitions slice the window on the host
         self.read_window = cfg.partition_impl in ("scatter", "sort")
         self.iota = torch.arange(rows, dtype=torch.int32, device=dev)
@@ -672,20 +662,19 @@ class WindowBuffers(SplitLoop):
         self.reads = self.host_positions = 0
 
     def fits(self, rows: int, n_feat: int, cfg: GrowerConfig, device,
-             n_logical: int, packed: bool) -> bool:
+             n_logical: int) -> bool:
         """Whether this state serves a tree of these shapes and ``cfg``."""
         return (rows == self.rows and n_feat == self.n_feat
                 and cfg == self.cfg and n_logical == self.pool.f
-                and packed == (self.pack is not None)
                 and self.bufs[0][0].device == torch.device(device))
 
     def histogram(self, *args, **kwargs) -> torch.Tensor:
         """``hist_window`` over the matrix the histogram reads, unfolded
         into physical columns when it is the packed storage matrix."""
         hist = hist_window(*args, **kwargs)
-        if self.pack is None:
+        if self.packed is None:
             return hist
-        return unfold_packed_hist(hist, self.pack, self.cfg.max_bin)
+        return self.packed.unfold(hist, self.cfg.max_bin)
 
     def loop(self, loop: Optional[str]) -> str:
         """The split loop a tree takes: ``graph`` (replay the captured
@@ -698,8 +687,7 @@ class WindowBuffers(SplitLoop):
 
     def start(self, bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               cw: torch.Tensor, meta: FeatureMeta, feat_valid: torch.Tensor,
-              rows: Optional[torch.Tensor] = None,
-              hist_bins: Optional[torch.Tensor] = None) -> int:
+              rows: Optional[torch.Tensor] = None) -> int:
         """Start a tree: the root's window in buffer 0, the weights copied
         where the step reads them, the counters and windows cleared, and
         the pool reset with the root's histogram.  The root window holds
@@ -709,17 +697,15 @@ class WindowBuffers(SplitLoop):
         positions.  Nothing in the captured step depends on the window's
         size, so a bag of any size replays the same graph.  The feature
         mask is read where it lies at every step: a new mask is copied
-        into the captured tensor, never passed as another.  ``hist_bins``
-        is the packed storage matrix ``[rows, C]`` (given iff the buffers
-        hold a pack plan).  Returns ``m``, the root window's rows."""
-        if (hist_bins is None) != (self.pack is None):
-            raise ValueError("grow_tree: hist_bins goes with a pack plan")
-        key = _tensor_key(bins, hist_bins, *meta, feat_valid)
+        into the captured tensor, never passed as another.  Returns ``m``,
+        the root window's rows."""
+        key = _tensor_key(bins, *meta, feat_valid)
         if self.graph is not None and key != self.bound:
             raise ValueError("grow_tree: the split step was captured on "
                              "other bins, metadata or feature mask")
         self.bound, self.bins, self.meta = key, bins, meta
-        self.hist_bins = bins if hist_bins is None else hist_bins
+        self.hist_bins = (bins if self.packed is None
+                          else self.packed.matrix)
         if self.ordered:
             self.route_bins, self.route_order = (
                 (self.bufs[0][1], self.bufs[1][1]), (None, None))
@@ -849,24 +835,22 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               cfg: GrowerConfig, stats: Optional[Dict[str, int]] = None,
               buffers: Optional[WindowBuffers] = None,
               loop: Optional[str] = None,
-              rows: Optional[torch.Tensor] = None,
-              hist_bins: Optional[torch.Tensor] = None,
-              pack: Optional[PackPlan] = None):
+              rows: Optional[torch.Tensor] = None):
     """Grow one tree.
 
     bins ``[N, F]`` uint8 (F physical columns); gw/hw/cw ``[N]`` f32
     (gradient, hessian, count weight); feat_valid ``[E]`` bool over the
     logical features of ``meta``.  Returns ``(TreeArrays, row_leaf [N]
-    i32)``; the tree's split features are logical.  ``hist_bins`` (the
-    packed storage matrix ``[N, C]``) goes with ``pack``, its plan.
+    i32)``; the tree's split features are logical.
     ``rows`` (sorted int32 row ids, a bag) grows the tree on those rows
     only, the root window holding them (the weights of other rows must be
     0: the root's sums run over all rows); their row_leaf is -1.
     ``buffers`` (a :class:`WindowBuffers` for these shapes and ``cfg``,
-    reused across trees, with its captured step) is allocated when not
-    given.  ``loop`` is ``"graph"`` (replay the captured split
-    step: a card with ``partition_impl=compact``) or ``"eager"``; None
-    takes the graph where it can.  Both grow the same tree.
+    reused across trees, with its captured step and, packed, the storage
+    matrix its histogram reads) is allocated unpacked when not given.
+    ``loop`` is ``"graph"`` (replay the captured split step: a card with
+    ``partition_impl=compact``) or ``"eager"``; None takes the graph where
+    it can.  Both grow the same tree.
 
     ``stats`` (optional) counts ``host_syncs`` (reads of device state back
     to the host), ``splits``, ``steps`` (steps taken, those after the stop
@@ -880,12 +864,12 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
         stats.setdefault(k, 0)
     e = meta.num_bin.numel()
     if buffers is None:
-        buffers = WindowBuffers(n, f, cfg, dev, n_logical=e, pack=pack)
-    elif not buffers.fits(n, f, cfg, dev, e, hist_bins is not None):
+        buffers = WindowBuffers(n, f, cfg, dev, n_logical=e)
+    elif not buffers.fits(n, f, cfg, dev, e):
         raise ValueError("grow_tree: the window buffers were made for other "
                          "shapes or another grower config")
     loop = buffers.loop(loop)
-    m = buffers.start(bins, gw, hw, cw, meta, feat_valid, rows, hist_bins)
+    m = buffers.start(bins, gw, hw, cw, meta, feat_valid, rows)
     replays = buffers.replays
     # the capture and the replays take the current card's streams
     with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():

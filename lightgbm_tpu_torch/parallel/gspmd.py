@@ -67,7 +67,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..data.packing import PACK_JOINT_BINS, PackPlan, unfold_packed_hist
+from ..data.packing import PackedBins, unfold_packed_hist
 from ..grower import (FeatureMeta, GrowerConfig, LeafPool, SplitLoop,
                       _tensor_key)
 from ..ops.histogram import hist_flat, hist_local
@@ -105,20 +105,18 @@ class GspmdGrower(SplitLoop):
     """Grows trees over ``mesh`` from the padded bin matrix ``bins``
     ``[n_pad, F]`` uint8, ``n_pad`` a multiple of the batch extent.  Call
     it with the global padded weights on ``mesh.primary``.  ``n_logical``
-    is the features of the meta (F unless EFB bundled); ``hist_bins``
-    (the padded packed storage matrix ``[n_pad, C]``) goes with ``pack``,
-    its plan.  Made once per
-    training: it holds the learner's device state (each device's row ->
-    leaf map, per-shard leaf counts and weights, the :class:`LeafPool`,
-    the counters) and, once a tree has taken the graph loop, the captured
-    step."""
+    is the features of the meta (F unless EFB bundled); ``packed`` the
+    nibble-packed storage matrix of ``bins`` with its plan, which the
+    histogram then reads instead.  Made once per training: it holds the
+    learner's device state (each device's row -> leaf map, per-shard leaf
+    counts and weights, the :class:`LeafPool`, the counters) and, once a
+    tree has taken the graph loop, the captured step."""
 
     wrappers = (hist_local, route_rows, cat_group_accept)
 
     def __init__(self, cfg: GrowerConfig, mesh: Mesh, bins: torch.Tensor,
                  hist: str = "fused", n_logical: Optional[int] = None,
-                 hist_bins: Optional[torch.Tensor] = None,
-                 pack: Optional[PackPlan] = None):
+                 packed: Optional[PackedBins] = None):
         if hist not in ("fused", "flat"):
             raise ValueError(f"hist must be fused or flat; got {hist!r}")
         d, fs = mesh.shape[BATCH_AXIS], mesh.shape[FEATURE_AXIS]
@@ -126,19 +124,20 @@ class GspmdGrower(SplitLoop):
         if n_pad % d:
             raise ValueError(f"{n_pad} rows do not split evenly over {d} "
                              f"batch shards")
-        if (hist_bins is None) != (pack is None) or (
-                pack is not None and (pack.num_phys_cols != f
-                                      or hist_bins.shape[0] != n_pad)):
-            raise ValueError("GspmdGrower: hist_bins goes with a pack plan "
-                             "over the columns of bins")
+        if packed is not None and (packed.plan.num_phys_cols != f
+                                   or packed.matrix.shape[0] != n_pad):
+            raise ValueError("GspmdGrower: packed bins of the rows and "
+                             "columns of bins")
         # counters: splits made, the active flag
         super().__init__(cfg, mesh.primary, 2)
         self.mesh, self.hist = mesh, hist
         self.n_loc = n_loc = n_pad // d
-        self.pack = None if pack is None else pack.to(mesh.primary)
-        hsrc = bins if hist_bins is None else hist_bins
-        self.hist_width = (cfg.max_bin if pack is None
-                           else max(PACK_JOINT_BINS, cfg.max_bin))
+        # the plan of the unfold, where the partials are summed (the
+        # slices below hold the storage matrix)
+        self.pack = None if packed is None else packed.plan.to(mesh.primary)
+        hsrc = bins if packed is None else packed.matrix
+        self.hist_width = (cfg.max_bin if packed is None
+                           else packed.hist_width(cfg.max_bin))
         self.cols = column_slices(hsrc.shape[1], fs)
         L = cfg.num_leaves
         # the batch shards each device holds, in shard order; a device's

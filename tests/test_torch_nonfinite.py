@@ -115,3 +115,69 @@ def test_policy_checked_as_jax():
     p = dict(objective="regression", device="cpu", nonfinite_policy="skip")
     with pytest.raises(RuntimeError, match="nonfinite_policy must be"):
         lt.train(p, lt.Dataset(x, y, params=p), 1)
+
+
+def _multiclass_nan_fobj(k=3):
+    """Integer-valued gradients for ``k`` classes with a NaN in every
+    class's rows at the second and third calls."""
+    calls = [0]
+
+    def fobj(preds, data):
+        rng = np.random.default_rng(60 + calls[0])
+        calls[0] += 1
+        n = len(preds)
+        g = rng.integers(-3, 4, n).astype(np.float64)
+        h = rng.integers(1, 3, n).astype(np.float64)
+        if calls[0] in (2, 3):
+            g[5::n // k] = np.nan
+        return g, h
+    return fobj
+
+
+def test_trips_counted_once_an_iteration():
+    """Under clamp a multiclass iteration whose every class tree sees the
+    NaN gradients is one trip, as the JAX package counts it
+    (``_nf_event``): two tripped iterations, not six tripped trees."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((900, 3))
+    y = rng.integers(0, 3, 900).astype(float)
+    p = dict(objective="multiclass", num_class=3, num_leaves=7, verbose=-1,
+             device="cpu", nonfinite_policy="clamp")
+    bst = lt.train(p, lt.Dataset(x, y, params=p), 4,
+                   fobj=_multiclass_nan_fobj(), verbose_eval=False)
+    assert bst.inner.stats["trees"] == 12
+    assert bst.inner.stats["nonfinite_trips"] == 2
+    assert bst.inner._nf_event_iter == 2
+
+
+def test_tree_and_flags_leave_in_one_copy(monkeypatch):
+    """A tree's arrays and the guard's flags reach the host in one copy,
+    field for field as their own copies would (odd lengths, so the fields
+    lie unaligned in the one buffer)."""
+    import torch
+    from lightgbm_tpu_torch.boosting import _tree_to_host
+    from lightgbm_tpu_torch.grower import TreeArrays
+    rng = np.random.default_rng(4)
+    L, B = 6, 7
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    i32 = lambda *s: torch.from_numpy(rng.integers(-9, 9, s).astype(
+        np.int32))
+    b8 = lambda *s: torch.from_numpy(rng.integers(0, 2, s).astype(bool))
+    arrays = TreeArrays(L, i32(L - 1), i32(L - 1), b8(L - 1), i32(L - 1),
+                        i32(L - 1), f32(L - 1), f32(L - 1), f32(L - 1),
+                        f32(L), f32(L), i32(L), i32(L), b8(L - 1),
+                        b8(L - 1, B))
+    copies = []
+    real_cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: (
+        copies.append(t.numel()), real_cpu(t, *a, **k))[1])
+    host, flags = _tree_to_host(arrays, torch.tensor(False),
+                                torch.tensor(True))
+    assert len(copies) == 1 and flags == [False, True]
+    assert host.num_leaves == L
+    for name, v in arrays._asdict().items():
+        if isinstance(v, torch.Tensor):
+            got = getattr(host, name)
+            assert got.dtype == v.numpy().dtype and got.shape == v.shape
+            np.testing.assert_array_equal(got, v.numpy(), err_msg=name)

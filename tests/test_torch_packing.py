@@ -110,11 +110,11 @@ def test_packed_trees_equal_unpacked_and_jax(extra):
     x, y = _rank_like()
     p = dict(BASE, **extra)
     packed = _train(lt, x, y, p)
-    assert packed.inner.pack_plan is not None
-    assert packed.inner._hist_bins.shape[1] == \
-        packed.inner.pack_plan.num_storage_cols < x.shape[1]
+    assert packed.inner.packed is not None
+    assert packed.inner.packed.matrix.shape[1] == \
+        packed.inner.packed.plan.num_storage_cols < x.shape[1]
     unpacked = _train(lt, x, y, dict(p, enable_bin_packing=False))
-    assert unpacked.inner.pack_plan is None
+    assert unpacked.inner.packed is None
     assert packed.model_to_string() == unpacked.model_to_string()
     jax_p = {k: v for k, v in p.items() if k != "partition_impl"}
     assert packed.model_to_string() == _train(lj, x, y,
@@ -136,9 +136,9 @@ def test_packing_with_efb_equals_jax():
     y = (num[:, 0] + blocks[1][:, 2] > 0.3).astype(np.float32)
     bt = _train(lt, x, y, BASE)
     inner = bt.inner
-    assert inner.meta.col is not None and inner.pack_plan is not None
-    assert inner.pack_plan.num_phys_cols == inner.bins.shape[1] == 6
-    assert inner.pack_plan.num_packed == 2
+    assert inner.meta.col is not None and inner.packed is not None
+    assert inner.packed.plan.num_phys_cols == inner.bins.shape[1] == 6
+    assert inner.packed.plan.num_packed == 2
     assert bt.model_to_string() == _train(lj, x, y, BASE).model_to_string()
 
 
@@ -146,7 +146,7 @@ def test_feature_learner_does_not_pack():
     x, y = _rank_like()
     p = dict(BASE, tree_learner="feature", mesh_shape="1x4", mesh_devices=4)
     bt = _train(lt, x, y, p)
-    assert bt.inner.parallel_impl == "gspmd" and bt.inner.pack_plan is None
+    assert bt.inner.parallel_impl == "gspmd" and bt.inner.packed is None
     assert bt.model_to_string() == _train(lj, x, y, BASE).model_to_string()
 
 
@@ -160,3 +160,24 @@ def test_ordered_bins_ignored_while_packing(caplog):
                                 enable_bin_packing=False))
     assert off.inner.grower_cfg.ordered_bins == "on"
     assert bt.model_to_string() == off.model_to_string()
+
+
+def test_pack_bins_carries_matrix_and_plan():
+    """``pack_bins``: the storage matrix beside its plan on the matrix's
+    device, read at width max(256, B) and unfolded as
+    ``unfold_packed_hist`` unfolds."""
+    col_bins = [255, 9, 16, 2, 255]
+    binned = torch.from_numpy(_binned(col_bins))
+    plan = tp.build_pack_plan(col_bins)
+    packed = tp.pack_bins(binned, plan)
+    assert torch.equal(packed.matrix, tp.pack_columns(binned, plan))
+    for f in ("byte_col", "shift", "is_packed"):
+        got = getattr(packed.plan, f)
+        assert isinstance(got, torch.Tensor)
+        np.testing.assert_array_equal(got.numpy(), getattr(plan, f))
+    assert packed.plan.num_packed == plan.num_packed == 2
+    assert packed.hist_width(255) == 256 and packed.hist_width(300) == 300
+    hist = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 50, (plan.num_storage_cols, 256, 3)).astype(np.float32))
+    assert torch.equal(packed.unfold(hist, 255),
+                       tp.unfold_packed_hist(hist, plan.to("cpu"), 255))
