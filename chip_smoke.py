@@ -84,9 +84,9 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    (1,000,000 x 28 float32, binary label from a fixed nonlinear rule plus
    noise, 100,000 held-out rows), ``train`` 10 rounds with 255 leaves and
    255 bins and ``partition_impl=scatter`` (the eager loop, one host read
-   a split), ``predict`` the held-out rows; the histogram kernel must have
-   launched once per tree plus once per split, the route kernel once per
-   split;
+   a split; not profiled), ``predict`` the held-out rows; the histogram
+   kernel must have launched once per tree plus once per split, the route
+   kernel once per split;
 3b. the same with ``partition_impl=auto``, which on a card is
    ``compact``: the split step is captured once and replayed as a CUDA
    graph.  A capture counts each kernel once without launching it and a
@@ -127,7 +127,8 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    within 1e-4 of phase 3's.  For one profiled tree: the runtime's launch
    calls, the busy share, the shard-local kernel's device ms and its
    calls by the kernel that did the work, and the route kernel's;
-6b. the same over a 2x2 mesh (14 columns a feature slice), 3 rounds;
+6b. the same over a 2x2 mesh (14 columns a feature slice), 3 rounds (not
+   profiled);
 6c. one tree under integer-valued gradients grown on both meshes and on
    a 1x3 mesh of uneven column slices (10, 9 and 9) by the data-parallel
    eager loop and graph loop (three replayed trees under
@@ -141,8 +142,8 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    identical field by field; the graph loop's trees after its capture run
    under ``torch.cuda.set_sync_debug_mode("error")``, so any read to the
    host but the counted stop reads raises; ms a tree in turns (graph,
-   eager, eager, graph), and one profiled tree of each loop: device-busy
-   share, launch calls, host reads.
+   eager), and one profiled tree of the graph loop: device-busy share,
+   launch calls, host reads.
 
 2h. (before phase 8, on its labels) the lambdarank kernel against its
    plain version on the card, float32: per document |dg| <= 1e-5 x the
@@ -164,7 +165,8 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    capture, held-out NDCG@1/3/5/10 above round 1's, the gradient's ms a
    round by the kernel and by the plain version on the card, and K1's
    bytes a tree.  Then the cut run (``enable_bin_packing=false``) on the
-   same Dataset, 10 rounds, with the same numbers: NDCG@10 within 1e-3,
+   same Dataset, 10 rounds, with the same numbers but the profiled
+   tree's: NDCG@10 within 1e-3,
    the first trees compared (identical, or where they first differ, by
    how much, and which choice has the higher float64 gain; a difference
    beyond the float32 rounding of its histogram subtraction chain fails,
@@ -183,7 +185,7 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 8c. one round of the data-parallel learner over 4x1 on the one card at
    the defaults (K3 reads each shard's packed slice, unfolded after the
    shard sum): held-out NDCG@10 within 1e-3 of phase 8's first round;
-8b. the card against the CPU on 200,000 rows of the same generator, 3
+8b. the card against the CPU on 200,000 rows of the same generator, 2
    rounds, at the defaults: the first tree identical in structure up to
    its first near-tie (the gradients are real-valued and the card adds
    them in another order, so a split whose float64 gain differs from the
@@ -207,8 +209,9 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    gradients identical in both layouts;
 9b. one round of ``multiclassova`` on the bundled Dataset (not
    profiled);
-9c. one round over the 4x1 data-parallel mesh on the one card, bundled:
-   held-out multi_logloss within 1e-4 of phase 9's first round;
+9c. one round over the 4x1 data-parallel mesh on the one card, bundled
+   (not profiled): held-out multi_logloss within 1e-4 of phase 9's first
+   round;
 9e. one integer-gradient tree over the 1x4 mesh of
    ``tree_learner=feature`` (three bundled columns a slice) by the eager
    and graph loops, identical to the serial tree, as phase 6c;
@@ -218,7 +221,7 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    the training scores within 1e-5 of ``predict(raw_score=True)`` (the
    out-of-bag rows and DART's re-scoring through the decoded
    ``trees_scores_binned``), every bag's root 232,404 rows;
-9d. the card against the CPU at 100,000 rows, 2 rounds, at the defaults:
+9d. the card against the CPU at 50,000 rows, 2 rounds, at the defaults:
    the first round's 7 trees identical in structure up to their first
    near-ties; and on the CPU's plain path, whose sums run in one fixed
    order, the bundled first round against the cut one's, compared as
@@ -232,7 +235,8 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    training rows within ``SCORE_LIMIT``; one profiled tree as in phase 3;
 10b. bagging by weights (0.8) with ``feature_fraction=0.8``, 10 rounds:
    the bags' sizes and each tree's feature mask redrawn on the host from
-   the seeds, every split inside its tree's mask, one capture;
+   the seeds, every split inside its tree's mask, one capture (phases 10b
+   to 13 not profiled);
 10c. (after phase 14) the Expo-shaped task's Dataset of phase 5 in the
    subset regime with ``ordered_bins=on``, 3 rounds: root counts of
    5,500,000, one capture, scores equal to predict;
@@ -255,14 +259,30 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    scores bit for bit, a custom binary log loss growing the built-in
    objective's first tree, and ``cv`` with 3 folds of 200,000 rows and
    early stopping (its means and deviations);
-14b. the card against the CPU on 200,000 rows, 3 rounds, for bagging,
+14b. the card against the CPU on 100,000 rows, 3 rounds, for bagging,
    GOSS (learning rate 0.5, so round 3 samples) and DART: the first tree
    identical up to a near-tie;
 15. the non-finite guard on 200,000 of those rows (L2 regression): each
    policy tripped once (``raise`` by a NaN label, ``rollback`` and
    ``clamp`` by a custom objective with one NaN gradient at its third
    call), a clean run tripping nothing; one capture and at most 8 host
-   reads a tree each.
+   reads a tree each;
+16. prediction breadth on phase 3b's, 5's and 9's models, read from their
+   model text, on held-out rows: leaf indices (Higgs 100,000 rows, Expo
+   10,000), margin early stopping (``pred_early_stop_freq=2`` and a
+   margin that stops some rows, Higgs 100,000 rows and Covertype 10,000,
+   the stopped share reported) and TreeSHAP contributions (10,000 rows of
+   each), every call held against the same call on the CPU: leaf indices
+   and early-stopped scores exactly, contributions within 1e-12 x (1 +
+   |value|) on their first 1,000 rows, and each row's contributions
+   summing to its raw score within 1e-9 x (1 + |raw|); the seconds of
+   each call;
+17. the Dataset inputs at the Higgs path's size (:func:`dataset_inputs`):
+   CSV with a header and a ``.weight`` side file, LibSVM, two-round
+   loading, the binary dataset file of the 1,000,000-row training
+   Dataset and a CSR matrix of 70 % zeros, each binned as the same rows
+   in memory, with the seconds of each parse, construction, save and
+   load.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
@@ -2027,8 +2047,8 @@ def graph_vs_eager(name, ds, y, dev_names, **cfg_kw):
     The graph loop's trees after its capture run under
     ``torch.cuda.set_sync_debug_mode("error")``, so any read back to the
     host but its counted stop reads (an event wait) raises.  Then ms a
-    tree in turns (graph, eager, eager, graph) and one profiled tree of
-    each loop: device-busy share, kernel and graph launch calls, host
+    tree in turns (graph, eager) and one profiled tree of
+    the graph loop: device-busy share, kernel and graph launch calls, host
     reads and the kernels' device ms."""
     import torch
     from lightgbm_tpu_torch.grower import (FeatureMeta, GrowerConfig,
@@ -2093,11 +2113,13 @@ def graph_vs_eager(name, ds, y, dev_names, **cfg_kw):
             fail(f"{name}: the {k} tree != the eager tree in "
                  f"{bad or 'num_leaves/row_leaf'}")
     ms = {"graph": [], "eager": []}
-    for loop in ("graph", "eager", "eager", "graph"):
+    for loop in ("graph", "eager"):
         ms[loop].append(grow(loop, sync_check=loop == "graph")[0])
     prof = {}
     fns = _kernel_wrappers()
-    for loop in ("graph", "eager"):
+    # the eager loop's profile (some 50,000 to 110,000 launches a tree)
+    # took most of this phase's time; its ms a tree are timed above
+    for loop in ("graph",):
         res, _, st0, missed = profile_checked(
             f"{name} {loop} loop", fns, lambda: grow(loop),
             lambda: stats[loop], loops[loop].graph_launches, dev_names)
@@ -3148,7 +3170,7 @@ def card_vs_cpu_trees(name, params, x, y, x_te, rounds, first_trees,
 
 def rank_card_vs_cpu(params, rng, run_dir, heldout):
     """Phase 8b: the MS-LTR-shaped generator at 200,000 rows (1,650
-    queries), 3 rounds on the card and on the CPU: the first tree
+    queries), 2 rounds on the card and on the CPU: the first tree
     identical in structure (up to a near-tie, :func:`card_vs_cpu_trees`),
     NDCG@1/3/5/10 within 1e-3 on phase 8's held-out queries ``heldout``
     (x, y, sizes: 6,000 queries, so that one query's reordered top
@@ -3159,7 +3181,7 @@ def rank_card_vs_cpu(params, rng, run_dir, heldout):
     sizes = query_sizes(1_650, 200_000, MSLR_LONGEST, rng)
     x, y = mslr_like(sizes, rng)
     n = int(sizes.sum())
-    out, same = card_vs_cpu_trees("rank_card_vs_cpu", params, x, y, x_te, 3,
+    out, same = card_vs_cpu_trees("rank_card_vs_cpu", params, x, y, x_te, 2,
                                   1, group=sizes)
     nd = {d: ndcg_at(out[d][1], y_te, sizes_te, MSLR_EVAL_AT) for d in out}
     gap = max(abs(a - b) for a, b in zip(nd["cpu"], nd["cuda"]))
@@ -3168,7 +3190,7 @@ def rank_card_vs_cpu(params, rng, run_dir, heldout):
     again = Booster(model_file=path, params={"device": "cuda"}).predict(x_te)
     os.remove(path)
     reload_same = bool(np.array_equal(again, out["cuda"][1]))
-    phase("rank_card_vs_cpu", rows=n, queries=len(sizes), rounds=3,
+    phase("rank_card_vs_cpu", rows=n, queries=len(sizes), rounds=2,
           heldout_queries=len(sizes_te), **same,
           ndcg_gap=f"{gap:.3e}", reload_predicts_same=reload_same,
           **{f"{d}_ndcg@{k}": f"{v:.6f}" for d in nd
@@ -3230,7 +3252,8 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     cut, cut_bst, _ = train_path(
         "mslr_cut", dict(rank_params, enable_bundle=False,
                          enable_bin_packing=False), x_tr, y_tr, x_te, y_te,
-        rounds, names, group=sizes, quality=mslr_quality(sizes_te), ds=ds)
+        rounds, names, group=sizes, quality=mslr_quality(sizes_te), ds=ds,
+        profile=False)
     if cut_bst.inner.packed is not None:
         fail("mslr_cut: packed with enable_bin_packing=false")
     cut_ds = {"storage_cols": ds.bins.shape[1],
@@ -3287,7 +3310,7 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     return rank, lam, (x_te, y_te, sizes_te)
 
 
-def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
+def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=50_000):
     """Phases 9 to 9g: the Covertype-shaped multiclass task (581,012 x 54,
     7 classes, an 80/20 split) at the defaults, where EFB bundles the 54
     features into 12 columns and nothing packs: 3 rounds of multiclass
@@ -3339,7 +3362,7 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
     # ---- phase 9, cut: no EFB, no packing, its own Dataset ----------------
     cut, cut_bst, cut_ds = train_path("covtype_cut", cut_params, x_tr,
                                       y_tr, x_te, y_te, 3, names,
-                                      quality=covtype_quality)
+                                      quality=covtype_quality, profile=False)
     cut.update(columns=cut_bst.inner.bins.shape[1],
                captures=one_capture("covtype_cut", cut_bst),
                k1_bytes_per_tree=k1_bytes_per_tree(cut_bst))
@@ -3363,6 +3386,7 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
     if gap > 1e-4:
         fail(f"covtype: held-out multi_logloss at the defaults is {gap} "
              f"from the cut run's (limit 1e-4)")
+    model = (bst.model_to_string(), x_te[:CONTRIB_ROWS].copy())
     del bst, cut_bst, cut_ds
     torch.cuda.empty_cache()
     # ---- phase 9b: multiclassova, 1 round ---------------------------------
@@ -3376,7 +3400,7 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
                           dict(cov_params, tree_learner="data",
                                mesh_devices=MESH_SLOTS, mesh_shape="4x1"),
                           x_tr, y_tr, x_te, y_te, 1, names,
-                          quality=covtype_quality, ds=ds)
+                          quality=covtype_quality, ds=ds, profile=False)
     gap = abs(float(dp["heldout_multi_logloss"])
               - float(cov["round1_multi_logloss"]))
     phase("covtype_dp_4x1", logloss_gap_vs_serial_round1=f"{gap:.3e}", **dp)
@@ -3433,7 +3457,7 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=100_000):
           cuda_multi_logloss=f"{ll['cuda']:.6f}")
     if cols != COVTYPE_COLS:
         fail(f"covtype card vs CPU: {cols} columns at the defaults")
-    return dict(cov, cut=cut)
+    return dict(cov, cut=cut), model
 
 
 # ---- phases 10 to 14b: sampling, the boosting variants, the training API --
@@ -3540,7 +3564,7 @@ def sampling_paths(params, names, x_tr, y_tr, x_te, y_te):
     p10b = dict(params, bagging_fraction=0.8, bagging_freq=1,
                 feature_fraction=0.8)
     res, bst10b, _ = train_path("bag_mask_ff", p10b, x_tr, y_tr, x_te, y_te,
-                                10, names, ds=ds)
+                                10, names, ds=ds, profile=False)
     roots = root_counts(bst10b)
     want = bag_counts(n, 0.8, 10)
     if roots != want:
@@ -3568,7 +3592,7 @@ def sampling_paths(params, names, x_tr, y_tr, x_te, y_te):
     res, bst, _ = train_path(
         "dp_bag_mask_ff", dict(p10b, tree_learner="data",
                                mesh_devices=MESH_SLOTS, mesh_shape="4x1"),
-        x_tr, y_tr, x_te, y_te, 3, names, ds=ds)
+        x_tr, y_tr, x_te, y_te, 3, names, ds=ds, profile=False)
     gap = abs(float(res["heldout_auc"]) - serial3)
     if bst.inner._subset is not None or root_counts(bst) != want[:3]:
         fail(f"dp_bag_mask_ff: not the serial path's bags "
@@ -3587,7 +3611,7 @@ def sampling_paths(params, names, x_tr, y_tr, x_te, y_te):
     # ---- phase 11: GOSS ---------------------------------------------------
     p11 = dict(params, boosting_type="goss", top_rate=0.2, other_rate=0.1)
     res, bst, _ = train_path("goss", p11, x_tr, y_tr, x_te, y_te, 13, names,
-                             ds=ds)
+                             ds=ds, profile=False)
     roots = root_counts(bst)
     top, other = int(n * 0.2), int(n * 0.1)
     if roots[:10] != [n] * 10 or not all(
@@ -3614,7 +3638,7 @@ def sampling_paths(params, names, x_tr, y_tr, x_te, y_te):
     res, bst, _ = train_path("dart", dict(params, boosting_type="dart",
                                           drop_seed=3),
                              x_tr, y_tr, x_te, y_te, 10, names, ds=ds,
-                             valid=True)
+                             valid=True, profile=False)
     weights = bst.inner.tree_weight
     out["12"] = dict(
         captures=one_capture("dart", bst),
@@ -3633,7 +3657,7 @@ def sampling_paths(params, names, x_tr, y_tr, x_te, y_te):
     p13 = dict(params, boosting_type="rf", bagging_fraction=0.5,
                bagging_freq=1, feature_fraction=0.6)
     res, bst, _ = train_path("rf", p13, x_tr, y_tr, x_te, y_te, 10, names,
-                             ds=ds)
+                             ds=ds, profile=False)
     from lightgbm_tpu_torch import Booster
     path = os.path.join(run_dir, "rf_model.txt.tmp")
     bst.save_model(path)
@@ -3755,7 +3779,7 @@ def expo_subset_path(params, names, ds, x_tr, y_tr, x_te, y_te):
 
 
 def sampling_card_vs_cpu(params, x, y, x_te, y_te):
-    """Phase 14b: the card against the CPU on 200,000 rows, 3 rounds, for
+    """Phase 14b: the card against the CPU on 100,000 rows, 3 rounds, for
     bagging (subset regime), GOSS (learning_rate 0.5, so round 3 samples)
     and DART: the same sampling streams on both, the first tree identical
     (round 1's gradients are +-0.5 and 0.25, whose sums are exact) up to a
@@ -3845,6 +3869,276 @@ def nonfinite_guard(params, x, y):
                      f"{bst.current_iteration()} iterations")
         phase("nonfinite_guard", **out)
     return ":".join(f"{k}={v}" for k, v in trips.items())
+
+
+# ---- phases 16 and 17: prediction breadth and the Dataset inputs ----------
+
+CONTRIB_ROWS = 10_000         # rows whose TreeSHAP contributions the card
+#                               computes a model
+CONTRIB_CPU_ROWS = 1_000      # of them, those the CPU computes again: the
+#                               recursion is the same host code on both, so
+#                               the comparison holds the go-left matrices,
+#                               and the CPU's binning takes its share
+
+
+def timed(fn):
+    """``fn()`` and its seconds, the card's queue drained on both ends."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def early_stop_margin(bst, x) -> float:
+    """A margin that stops some rows at the first check (2 iterations) and
+    not others: the median margin of the scores after 2 iterations (|s|
+    for one class, top1 - top2 for several)."""
+    raw = np.asarray(bst.predict(x, num_iteration=2, raw_score=True))
+    if raw.ndim == 1:
+        return float(np.median(np.abs(raw)))
+    top = np.sort(raw, axis=1)
+    return float(np.median(top[:, -1] - top[:, -2]))
+
+
+def prediction_breadth(models) -> dict:
+    """Phase 16: ``pred_leaf``, ``pred_early_stop`` and ``pred_contrib``
+    of phase 3b's, 5's and 9's models (from their model text) on held-out
+    rows, each call on the card held against the same call on the CPU:
+    leaf indices and early-stopped scores exactly, contributions within
+    1e-12 x (1 + |value|) on the first ``CONTRIB_CPU_ROWS`` rows, and every
+    row's contributions summing to its raw score within 1e-9 x (1 +
+    |raw|); the seconds of each call."""
+    from lightgbm_tpu_torch import Booster
+    out = {}
+    for name, (model_str, x, calls) in models.items():
+        card = Booster(model_str=model_str, params={"device": "cuda"})
+        cpu = Booster(model_str=model_str, params={"device": "cpu"})
+        k = card.inner.num_class
+        r = dict(rows=len(x), trees=card.num_trees(), classes=k)
+        if "leaf" in calls:
+            got, r["leaf_s"] = timed(lambda: card.predict(x, pred_leaf=True))
+            want, r["leaf_cpu_s"] = timed(lambda: cpu.predict(x,
+                                                              pred_leaf=True))
+            if got.shape != (len(x), card.num_trees()) or not \
+                    np.array_equal(got, want):
+                fail(f"{name}: leaf indices differ between the card and "
+                     f"the CPU")
+        if "early_stop" in calls:
+            margin = early_stop_margin(card, x)
+            kw = dict(raw_score=True, pred_early_stop=True, pred_parameter={
+                "pred_early_stop_freq": 2, "pred_early_stop_margin": margin})
+            got, r["early_stop_s"] = timed(lambda: card.predict(x, **kw))
+            want, r["early_stop_cpu_s"] = timed(lambda: cpu.predict(x, **kw))
+            full = card.predict(x, raw_score=True)
+            moved = (got != full).reshape(len(x), -1).any(1)
+            r.update(early_stop_freq=2, early_stop_margin=f"{margin:.6f}",
+                     stopped_share=f"{moved.mean():.4f}")
+            if not np.array_equal(got, want):
+                fail(f"{name}: early-stopped scores differ between the card "
+                     f"and the CPU")
+            if not 0 < moved.mean() < 1:
+                fail(f"{name}: the early-stop margin {margin} stopped "
+                     f"{moved.mean():.4f} of the rows, not some")
+        if "contrib" in calls:
+            rows = x[:CONTRIB_ROWS]
+            m = CONTRIB_CPU_ROWS
+            got, r["contrib_s"] = timed(lambda: card.predict(
+                rows, pred_contrib=True))
+            want, r["contrib_cpu_s"] = timed(lambda: cpu.predict(
+                rows[:m], pred_contrib=True))
+            raw = np.asarray(card.predict(rows, raw_score=True)).reshape(
+                len(rows), k)
+            sums = got.reshape(len(rows), k, -1).sum(-1)
+            err = float((np.abs(got[:m] - want) / (1 + np.abs(want))).max())
+            sum_err = float((np.abs(sums - raw) / (1 + np.abs(raw))).max())
+            r.update(contrib_rows=len(rows), contrib_cpu_rows=m,
+                     contrib_shape="x".join(map(str, got.shape)),
+                     contrib_rel_err_vs_cpu=f"{err:.3e}",
+                     contrib_sum_rel_err=f"{sum_err:.3e}")
+            if got.shape != (len(rows), k * (card.num_feature() + 1)):
+                fail(f"{name}: contributions of shape {got.shape}")
+            if not err <= 1e-12:
+                fail(f"{name}: contributions differ between the card and "
+                     f"the CPU by {err} of 1 + |value| (limit 1e-12)")
+            if not sum_err <= 1e-9:
+                fail(f"{name}: contributions sum to the raw score within "
+                     f"{sum_err} of 1 + |raw| (limit 1e-9)")
+        r = {key: (f"{v:.3f}" if key.endswith("_s") else v)
+             for key, v in r.items()}
+        phase(f"predict_breadth_{name}", **r)
+        out[name] = r
+    return out
+
+
+def csv_lines(x, y, header: bool) -> str:
+    """Rows as CSV, the label first, every value as the float64 that reads
+    back exactly."""
+    buf = [",".join(["label"] + [f"f{j}" for j in range(x.shape[1])])
+           ] if header else []
+    body = np.column_stack([y, x]).astype(np.float64)
+    buf += [",".join(map(repr, row)) for row in body.tolist()]
+    return "\n".join(buf) + "\n"
+
+
+def libsvm_lines(x, y) -> str:
+    out = []
+    for label, row in zip(y.tolist(), np.asarray(x, np.float64).tolist()):
+        out.append(" ".join([repr(label)] + [f"{j}:{v!r}" for j, v in
+                                             enumerate(row) if v != 0]))
+    return "\n".join(out) + "\n"
+
+
+def same_binned(name, a, b) -> None:
+    """Two Datasets' bins, labels and weights equal."""
+    ta, tb = a.constructed, b.constructed
+    if not np.array_equal(ta.binned, tb.binned):
+        fail(f"{name}: bins differ from those of the same rows in memory")
+    for field in ("label", "weight"):
+        va, vb = getattr(ta.metadata, field), getattr(tb.metadata, field)
+        if (va is None) != (vb is None) or (
+                va is not None and not np.array_equal(va, vb)):
+            fail(f"{name}: {field} differs from that of the rows in memory")
+
+
+def sixteenths_logloss(preds, data):
+    """The binary log loss's gradients and hessians rounded to multiples
+    of 1/16 (hessians at least 1/16): up to 2^20 rows of them sum in
+    float32 exactly, in any order."""
+    y = data.get_label()
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return (np.round((p - y) * 16) / 16,
+            np.maximum(np.round(p * (1 - p) * 16), 1) / 16)
+
+
+def dataset_inputs(params, higgs_model, x_tr, y_tr, x_te, y_te) -> dict:
+    """Phase 17: the Dataset inputs at the Higgs path's size, in a fresh
+    temporary directory: the 100,000 held-out rows as a CSV with a header
+    and a ``.weight`` side file, and as LibSVM, each a Dataset with the
+    training Dataset as reference, binned, labelled and weighted as the
+    same rows in memory; ``predict`` of the CSV's path equal bit for bit
+    to that of the matrix (phase 3b's model); the CSV read twice
+    (``use_two_round_loading``) against the rows in memory; the
+    1,000,000-row training Dataset saved as a binary file, loaded, and one
+    integer-gradient round on the loaded copy identical to one on the
+    original; and the training matrix with 70 % of its values set to zero
+    as a ``CsrMatrix``, binned as the dense matrix and trained 10 rounds
+    under exact-sum gradients (:func:`sixteenths_logloss`): the dense
+    run's trees, its held-out AUC within 1e-4 of the dense run's; with the
+    built-in objective, the CSR run's AUC beside the dense run's and a
+    dense rerun's.  The seconds of each parse, construction, save, load
+    and training."""
+    import tempfile
+    from lightgbm_tpu_torch import Booster, Dataset, train
+    from lightgbm_tpu_torch.data import CsrMatrix
+    tmp = tempfile.mkdtemp(prefix="lgbt_smoke_")
+    r = {}
+    try:
+        base, r["construct_train_s"] = timed(
+            lambda: Dataset(x_tr, y_tr, params=params).construct())
+        w = np.random.default_rng(SEED + 17).integers(1, 4, len(y_te))
+        mem, r["construct_heldout_s"] = timed(lambda: Dataset(
+            x_te, y_te, weight=w, reference=base, params=params).construct())
+        # ---- CSV with a header and a .weight side file, and LibSVM ------
+        csv = os.path.join(tmp, "heldout.csv")
+        svm = os.path.join(tmp, "heldout.svm")
+        t0 = time.perf_counter()
+        with open(csv, "w") as f:
+            f.write(csv_lines(x_te, y_te, header=True))
+        np.savetxt(csv + ".weight", w, fmt="%d")
+        r["write_csv_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(svm, "w") as f:
+            f.write(libsvm_lines(x_te, y_te))
+        np.savetxt(svm + ".weight", w, fmt="%d")
+        r["write_libsvm_s"] = time.perf_counter() - t0
+        for name, path, p in (("csv", csv, dict(params, header=True)),
+                              ("libsvm", svm, params)):
+            ds, r[f"{name}_parse_construct_s"] = timed(lambda: Dataset(
+                path, reference=base, params=p).construct())
+            same_binned(name, ds, mem)
+        bst = Booster(model_str=higgs_model,
+                      params={"device": "cuda", "header": True})
+        want = bst.predict(x_te)
+        got, r["csv_predict_s"] = timed(lambda: bst.predict(csv))
+        if not np.array_equal(got, want):
+            fail("csv: predict of the path differs from predict of the "
+                 "matrix")
+        # ---- two-round loading of the CSV -------------------------------
+        mem_own, r["construct_heldout_alone_s"] = timed(lambda: Dataset(
+            x_te, y_te, weight=w, params=params).construct())
+        two, r["csv_two_round_s"] = timed(lambda: Dataset(csv, params=dict(
+            params, header=True, use_two_round_loading=True)).construct())
+        same_binned("two-round csv", two, mem_own)
+        if two.raw is not None:
+            fail("two-round loading kept the file's float rows")
+        # ---- the binary file of the training Dataset --------------------
+        path = os.path.join(tmp, "train.bin")
+        _, r["save_binary_s"] = timed(lambda: base.save_binary(path))
+        r["binary_bytes"] = os.path.getsize(path)
+        loaded, r["load_binary_s"] = timed(lambda: Dataset.load_binary(path))
+        same_binned("binary file", loaded.construct(device="cuda"), base)
+        r["binary_integer_round_identical"] = integer_round_identical(
+            "binary file", [(params, base), (params, loaded)])
+        del loaded, base, mem, mem_own, two
+        # ---- a CSR matrix, 70 % zeros -------------------------------------
+        xs = np.where(np.random.default_rng(SEED + 18).random(x_tr.shape)
+                      < 0.7, np.float32(0), x_tr)
+        nz = xs != 0
+        rows, cols = np.nonzero(nz)
+        csr = CsrMatrix(np.concatenate([[0], np.cumsum(nz.sum(1))]), cols,
+                        xs[rows, cols], xs.shape[1])
+        del nz, rows, cols
+        sparse, r["csr_construct_s"] = timed(lambda: Dataset(
+            csr, y_tr, params=params).construct())
+        dense, r["dense_construct_s"] = timed(lambda: Dataset(
+            xs, y_tr, params=params).construct())
+        same_binned("csr", sparse, dense)
+        # 10 rounds on each under the log loss's gradients rounded to
+        # sixteenths, whose float32 sums are exact in any order: the card
+        # grows the same trees from the same bins, so the CSR run's model
+        # and held-out AUC are the dense run's.  Then the built-in
+        # objective on each, and on the dense Dataset again: its
+        # real-valued sums round in the card's order, which differs from
+        # run to run (the rerun is the witness)
+        texts, aucs = {}, {}
+        for name, ds, fobj in (("csr", sparse, sixteenths_logloss),
+                               ("dense", dense, sixteenths_logloss),
+                               ("csr_builtin", sparse, None),
+                               ("dense_builtin", dense, None),
+                               ("dense_builtin_rerun", dense, None)):
+            b, r[f"{name}_train_s"] = timed(lambda: train(
+                params, ds, num_boost_round=10, fobj=fobj,
+                verbose_eval=False))
+            texts[name] = b.model_to_string()
+            aucs[name] = auc(b.predict(x_te, raw_score=True), y_te)
+            del b
+        gap = abs(aucs["csr"] - aucs["dense"])
+        base_auc = aucs["dense_builtin"]
+        r.update(csr_nnz=csr.nnz,
+                 csr_model_identical=texts["csr"] == texts["dense"],
+                 **{f"{k}_auc": f"{v:.6f}" for k, v in aucs.items()},
+                 csr_auc_gap=f"{gap:.3e}",
+                 csr_builtin_auc_gap=(
+                     f"{abs(aucs['csr_builtin'] - base_auc):.3e}"),
+                 dense_builtin_rerun_auc_gap=(
+                     f"{abs(aucs['dense_builtin_rerun'] - base_auc):.3e}"))
+        if not r["csr_model_identical"]:
+            fail("csr: 10 rounds of exact sums grow other trees than on the "
+                 "dense matrix")
+        if gap > 1e-4:
+            fail(f"csr: held-out AUC {aucs['csr']} is more than 1e-4 from "
+                 f"the dense run's {aucs['dense']}")
+        if not 0.6 < aucs["csr_builtin"] <= 1.0:
+            fail(f"csr: held-out AUC {aucs['csr_builtin']} is not that of "
+                 f"a learned model")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r = {k: (f"{v:.3f}" if k.endswith("_s") else v) for k, v in r.items()}
+    phase("dataset_inputs", heldout_rows=len(y_te), train_rows=len(y_tr),
+          **r)
+    return r
 
 
 def multi_card(params) -> None:
@@ -3964,16 +4258,19 @@ def main() -> None:
     # scatter: the eager loop, one host read a split
     higgs, _, higgs_ds = train_path(
         "higgs", dict(params, partition_impl="scatter"), x_tr, y_tr, x_te,
-        y_te, 10, names)
+        y_te, 10, names, profile=False)
     phase("main_path", **higgs)
     higgs_launches = higgs["hist_window_launches"]
 
     # ---- phase 3b: the Higgs path through the partition kernel ------------
     # partition_impl=auto: compact on a card, the split step replayed as a
     # CUDA graph
-    compact, _, _ = train_path("higgs_compact", params, x_tr, y_tr, x_te,
-                               y_te, 10, names)
+    compact, bst, _ = train_path("higgs_compact", params, x_tr, y_tr, x_te,
+                                 y_te, 10, names)
     phase("main_path_compact", **compact)
+    # phases 16 and 17 predict with this model
+    higgs_model = bst.model_to_string()
+    del bst
     partition_ab(params, x_tr, y_tr)
     torch.cuda.empty_cache()
 
@@ -4001,7 +4298,7 @@ def main() -> None:
         fail(f"4x1 data-parallel AUC {dp['heldout_auc']} is more than 1e-4 "
              f"from the serial path's {higgs['heldout_auc']}")
     dp22, _, _ = train_path("dp_2x2", dict(dp_params, mesh_shape="2x2"),
-                            x_tr, y_tr, x_te, y_te, 3, names)
+                            x_tr, y_tr, x_te, y_te, 3, names, profile=False)
     phase("dp_path_2x2", **dp22)
     torch.cuda.empty_cache()
 
@@ -4049,6 +4346,8 @@ def main() -> None:
           peak_mem_bytes=expo["peak_mem_bytes"])
     expo_launches = {k: expo[f"{k}_launches"] for k in (
         "partition_window", "cat_group_accept", "route_window")}
+    # phase 16 predicts with this model
+    expo_model = (bst.model_to_string(), x_te[:CONTRIB_ROWS].copy())
     del bst
     torch.cuda.empty_cache()
 
@@ -4085,7 +4384,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phases 9-9g: multiclass on the Covertype-shaped task -------------
-    cov = covtype_path(params, names, np.random.default_rng(SEED + 9))
+    cov, cov_model = covtype_path(params, names,
+                                  np.random.default_rng(SEED + 9))
     torch.cuda.empty_cache()
 
     # ---- phases 10-14: sampling, the boosting variants, the training API --
@@ -4099,9 +4399,18 @@ def main() -> None:
     del expo_kept
     torch.cuda.empty_cache()
     # ---- phase 14b: card against CPU for bagging, GOSS and DART ----------
-    sampling_card_vs_cpu(params, x_tr[:200_000], y_tr[:200_000], x_te, y_te)
+    sampling_card_vs_cpu(params, x_tr[:100_000], y_tr[:100_000], x_te, y_te)
     # ---- phase 15: the non-finite guard, each policy tripped once ---------
     guard = nonfinite_guard(params, x_tr[:200_000], y_tr[:200_000])
+    torch.cuda.empty_cache()
+    # ---- phase 16: leaf indices, early stopping, contributions ------------
+    prediction_breadth({
+        "higgs": (higgs_model, x_te, ("leaf", "early_stop", "contrib")),
+        "expo": (*expo_model, ("leaf", "contrib")),
+        "covtype": (*cov_model, ("contrib", "early_stop"))})
+    del expo_model, cov_model
+    # ---- phase 17: files, the binary file, CSR, two-round loading ---------
+    dataset_inputs(params, higgs_model, x_tr, y_tr, x_te, y_te)
     del x_all, y_all, x_tr, y_tr, x_te, y_te
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}",
           higgs_ms_per_tree_scatter=higgs["ms_per_tree"],

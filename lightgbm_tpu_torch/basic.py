@@ -3,10 +3,16 @@ semantics, as in ``lightgbm_tpu/basic.py:76`` and :671).
 
 Both run on the CUDA device unless the caller passes ``device="cpu"``
 (as a keyword or in ``params``); with no card and no such request they
-raise.
+raise.  A Dataset takes a matrix, a :class:`~.data.CsrMatrix`, a pandas
+DataFrame (detected by its attributes; pandas is never imported here) or
+the path of a CSV, TSV or LibSVM file, of a binary dataset file, or of a
+text file with a ``<data>.bin`` cache beside it.
 """
 from __future__ import annotations
 
+import io
+import json
+import os
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -14,30 +20,84 @@ import torch
 
 from . import data as data_mod
 from .boosting import GBDT, create_boosting
-from .config import (Config, _parse_value, _unsupported, canonicalize_params,
+from .config import (Config, _parse_value, canonicalize_params,
                      config_from_params, resolve_device)
+from .data.binning import BinMapper
+from .data.bundling import BundleLayout
+from .data.parser import load_text_file, read_header_names
 from .objectives import create_objective
 from .utils import log
 
 
 def _to_matrix(data) -> np.ndarray:
-    if isinstance(data, (str, bytes)) or hasattr(data, "columns"):
-        _unsupported("file and pandas inputs",
-                     "checkpoints, serving, observability, CLI, sklearn and "
-                     "plotting")
     mat = np.asarray(data, dtype=np.float64)
     return mat.reshape(1, -1) if mat.ndim == 1 else mat
+
+
+def _is_path(data) -> bool:
+    return isinstance(data, (str, os.PathLike))
+
+
+def _is_frame(data) -> bool:
+    return hasattr(data, "columns") and hasattr(data, "dtypes")
+
+
+def _data_from_pandas(data, pandas_categorical):
+    """A DataFrame's ``category`` columns as their integer codes
+    (reference basic.py:225-263, ``lightgbm_tpu/basic.py:33``).  On the
+    training data ``pandas_categorical`` is None and each column's levels
+    are recorded; on other data the recorded levels realign the codes, so
+    that a level has one code everywhere.  Code -1 (NaN, or a level the
+    training data lacks) becomes NaN.
+
+    Returns (float64 matrix, category column names, pandas_categorical)."""
+    cat_cols = [c for c in data.columns
+                if str(data[c].dtype) == "category"]
+    if pandas_categorical is None:
+        pandas_categorical = [list(data[c].cat.categories) for c in cat_cols]
+    else:
+        if len(cat_cols) != len(pandas_categorical):
+            raise ValueError("train and valid dataset categorical_feature "
+                             "do not match.")
+        data = data.copy()
+        for col, cats in zip(cat_cols, pandas_categorical):
+            if list(data[col].cat.categories) != list(cats):
+                data[col] = data[col].cat.set_categories(cats)
+    if cat_cols:
+        data = data.copy()
+        for c in cat_cols:
+            codes = data[c].cat.codes.to_numpy().astype(np.float64)
+            codes[codes == -1] = np.nan
+            data[c] = codes
+    return (np.asarray(data.values, dtype=np.float64), cat_cols,
+            pandas_categorical)
+
+
+def _load_pandas_categorical(model_str: str):
+    """The last line ``pandas_categorical:<json>`` of a model file
+    (reference basic.py:277-289), or None."""
+    last = model_str.rstrip().rsplit("\n", 1)[-1]
+    if last.startswith("pandas_categorical:"):
+        return json.loads(last[len("pandas_categorical:"):])
+    return None
 
 
 class Dataset:
     """Lazily-constructed dataset: binned on the host, then moved to the
     device once."""
 
+    # the first bytes of a binary dataset file: the JAX package's token
+    # and npz + JSON layout (``lightgbm_tpu/basic.py:558``), loaded with
+    # allow_pickle=False, so a file either package writes loads in the
+    # other
+    BINARY_TOKEN = b"lightgbm_tpu.dataset.v2\n"
+
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = False, silent: bool = False):
         self.data = data
         self.label = label
         self.reference = reference
@@ -47,8 +107,11 @@ class Dataset:
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
+        self.free_raw_data = free_raw_data
         self.constructed: Optional[data_mod.TrainingData] = None
         self.bins: Optional[torch.Tensor] = None     # [N, F] uint8, on device
+        self.raw: Optional[np.ndarray] = None        # a parsed file's rows
+        self.pandas_categorical: Optional[List[List]] = None
 
     def _categorical_indices(self, cfg: Config,
                              names: Optional[List[str]]) -> List[int]:
@@ -69,6 +132,10 @@ class Dataset:
                 out.append(int(c))
         return out
 
+    def _names(self) -> Optional[List[str]]:
+        return (list(self.feature_name)
+                if isinstance(self.feature_name, (list, tuple)) else None)
+
     def construct(self, config: Optional[Config] = None,
                   device: Optional[str] = None) -> "Dataset":
         """Bin on the host (dataset.py:92 ``construct``) and move the bin
@@ -76,25 +143,143 @@ class Dataset:
         cfg = config or config_from_params(self.params)
         dev = resolve_device(device or cfg.device)
         if self.constructed is None:
-            ref = (self.reference.construct(cfg, str(dev)).constructed
-                   if self.reference is not None else None)
-            names = (list(self.feature_name)
-                     if isinstance(self.feature_name, (list, tuple)) else None)
-            self.constructed = data_mod.construct(
-                _to_matrix(self.data), cfg,
-                label=(None if self.label is None
-                       else np.asarray(self.label, np.float32).ravel()),
-                weight=(None if self.weight is None
-                        else np.asarray(self.weight)),
-                group=None if self.group is None else np.asarray(self.group),
-                init_score=(None if self.init_score is None
-                            else np.asarray(self.init_score)),
-                feature_names=names,
-                categorical_features=self._categorical_indices(cfg, names),
-                reference=ref)
+            self.constructed = self._build(cfg, str(dev))
         if self.bins is None or self.bins.device.type != dev.type:
             self.bins = torch.from_numpy(self.constructed.binned).to(dev)
         return self
+
+    def _build(self, cfg: Config, dev: str) -> data_mod.TrainingData:
+        """The host dataset, from whichever input this Dataset holds
+        (``lightgbm_tpu/basic.py:130-371``)."""
+        ref = (self.reference.construct(cfg, dev)
+               if self.reference is not None else None)
+        td_ref = None if ref is None else ref.constructed
+        path = str(self.data) if _is_path(self.data) else None
+        if path is not None and ref is None:
+            # CheckCanLoadFromBin (dataset_loader.cpp:980-1018): a
+            # "<data>.bin" cache beside the file first, then the file
+            # itself as a binary dataset file
+            for candidate in (path + ".bin", path):
+                if self._is_binary_cache(candidate):
+                    log.info("Loading dataset from binary cache %s",
+                             candidate)
+                    return self._from_binary(candidate)
+            if cfg.use_two_round_loading:
+                return self._from_file_two_round(path, cfg)
+        if isinstance(self.data, data_mod.CsrMatrix):
+            names = self._names()
+            td = data_mod.construct_csr(
+                self.data, cfg, **self._fields(),
+                feature_names=names,
+                categorical_features=self._categorical_indices(cfg, names),
+                reference=td_ref)
+            self._drop_raw()
+            return td
+        cat_idx: List[int] = []
+        if path is not None:
+            feats, labels, header = load_text_file(
+                path, has_header=cfg.has_header, label_idx=0)
+            if self.label is None:
+                self.label = labels
+            if header and self.feature_name == "auto":
+                self.feature_name = header
+            self._side_files(path, len(labels))
+            mat = feats
+        elif _is_frame(self.data):
+            # category columns become their codes, realigned on other data
+            # to the training data's levels
+            ref_pc = (ref.pandas_categorical if ref is not None
+                      else self.pandas_categorical)
+            mat, pd_cat_cols, self.pandas_categorical = _data_from_pandas(
+                self.data, ref_pc)
+            cols = [str(c) for c in self.data.columns]
+            if self.feature_name == "auto":
+                self.feature_name = cols
+            # category columns are categorical features whatever the
+            # explicit list says (reference basic.py:241-247)
+            cat_idx = [cols.index(str(c)) for c in pd_cat_cols]
+        else:
+            mat = _to_matrix(self.data)
+        names = self._names()
+        for c in self._categorical_indices(cfg, names):
+            if c not in cat_idx:
+                cat_idx.append(c)
+        td = data_mod.construct(mat, cfg, **self._fields(),
+                                feature_names=names,
+                                categorical_features=cat_idx,
+                                reference=td_ref)
+        # a parsed file's rows are kept (unless freed); a matrix or a
+        # DataFrame is converted again when asked for (ensure_raw)
+        self.raw = mat if path is not None and not self.free_raw_data else None
+        if path is not None and ref is None and cfg.is_save_binary_file:
+            self._save_binary_cache(td)
+        self._drop_raw()
+        return td
+
+    def _fields(self) -> Dict[str, Optional[np.ndarray]]:
+        return dict(
+            label=(None if self.label is None
+                   else np.asarray(self.label, np.float32).ravel()),
+            weight=None if self.weight is None else np.asarray(self.weight),
+            group=None if self.group is None else np.asarray(self.group),
+            init_score=(None if self.init_score is None
+                        else np.asarray(self.init_score)))
+
+    def _side_files(self, path: str, num_data: int) -> None:
+        """Weights, query sizes and init scores from ``<data>.weight``,
+        ``.query`` and ``.init``, where they were not given."""
+        side = data_mod.Metadata(num_data)
+        side.load_side_files(path)
+        if self.weight is None and side.weight is not None:
+            self.weight = side.weight
+        if self.group is None and side.query_boundaries is not None:
+            self.group = np.diff(side.query_boundaries)
+        if self.init_score is None and side.init_score is not None:
+            self.init_score = side.init_score
+
+    def _from_binary(self, path: str) -> data_mod.TrainingData:
+        """A binary dataset file; the fields given to this Dataset
+        override the file's."""
+        td = self._load_binary_training_data(path)
+        meta = td.metadata
+        if self.label is not None:
+            meta.set_label(np.asarray(self.label))
+        else:
+            self.label = meta.label
+        if self.weight is not None:
+            meta.set_weight(np.asarray(self.weight))
+        if self.group is not None:
+            meta.set_query(np.asarray(self.group))
+        if self.init_score is not None:
+            meta.set_init_score(np.asarray(self.init_score))
+        return td
+
+    def _from_file_two_round(self, path: str,
+                             cfg: Config) -> data_mod.TrainingData:
+        """``use_two_round_loading``: the file read twice, binned as it is
+        read (dataset_loader.cpp:181-207); no float matrix is kept."""
+        self._side_files(path, 0)
+        names = self._names() or (read_header_names(path, 0)
+                                  if cfg.has_header else None)
+        td = data_mod.construct_streamed(
+            path, cfg, **self._fields(), feature_names=names,
+            categorical_features=self._categorical_indices(cfg, names))
+        self.label = td.metadata.label
+        if cfg.is_save_binary_file:
+            self._save_binary_cache(td)
+        self._drop_raw()
+        return td
+
+    def _drop_raw(self) -> None:
+        if self.free_raw_data:
+            self.data = None
+
+    def _save_binary_cache(self, td: data_mod.TrainingData) -> None:
+        """``is_save_binary_file``: the "<data>.bin" cache beside the text
+        file (dataset_loader.cpp SaveBinaryFile)."""
+        bin_path = str(self.data) + ".bin"
+        self._write_binary(td, bin_path)
+        log.info("Saved binary dataset cache to %s", bin_path)
 
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
@@ -170,6 +355,84 @@ class Dataset:
             raise ValueError(f"Unknown field {field_name!r}")
         return getters[field_name]()
 
+    # -- names and the reference (lightgbm_tpu/basic.py:452-481) -------------
+
+    def _reset(self) -> None:
+        self.constructed = None
+        self.bins = None
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        if feature_name == "auto":     # the reference's sentinel: keep
+            return self
+        self.feature_name = list(feature_name)
+        if self.constructed is not None:
+            self.constructed.feature_names = list(feature_name)
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """A changed list resets construction: the Dataset is binned
+        anew."""
+        if (self.constructed is not None
+                and categorical_feature != self.categorical_feature):
+            log.warning("categorical_feature change after construction "
+                        "requires reconstructing the Dataset")
+            self._reset()
+        self.categorical_feature = categorical_feature
+        return self
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        """Another reference resets construction: the Dataset is binned
+        anew with its mappers."""
+        if self.constructed is not None and reference is not self.reference:
+            self._reset()
+        self.reference = reference
+        return self
+
+    def get_ref_chain(self, ref_limit: int = 100):
+        """The datasets reachable through reference links, this one
+        included."""
+        chain, cur = [], self
+        while cur is not None and len(chain) < ref_limit:
+            chain.append(cur)
+            cur = cur.reference
+        return set(chain)
+
+    def ensure_raw(self) -> Optional[np.ndarray]:
+        """The float rows for the consumers that need them (``cv``,
+        ``subset``, continued training): a parsed file's rows kept from
+        construction, the matrix, DataFrame or CSR matrix converted again,
+        or a text file parsed again (not a binary file, and only when its
+        row count agrees with the constructed one).  None when they are
+        gone (``free_raw_data``)."""
+        if self.raw is not None:
+            return self.raw
+        if self.data is None:
+            return None
+        if _is_frame(self.data):
+            return _data_from_pandas(self.data, self.pandas_categorical)[0]
+        if _is_path(self.data) and not self._is_binary_cache(str(self.data)):
+            cfg = config_from_params(self.params)
+            try:
+                feats, _, _ = load_text_file(str(self.data),
+                                             has_header=cfg.has_header)
+            except Exception as e:
+                log.warning("Could not recover raw data from %s: %s",
+                            self.data, e)
+                return None
+            if (self.constructed is not None
+                    and len(feats) != self.constructed.num_data):
+                log.warning("Raw file %s has %d rows but the constructed "
+                            "dataset has %d; refusing the mismatch",
+                            self.data, len(feats),
+                            self.constructed.num_data)
+                return None
+            self.raw = feats
+            return self.raw
+        if _is_path(self.data):
+            return None
+        # a matrix, or a CSR matrix densified chunk by chunk
+        return _to_matrix(self.data)
+
     def num_data(self) -> int:
         if self.constructed is None:
             self.construct()
@@ -187,7 +450,10 @@ class Dataset:
         its selected rows, the queries left empty dropped."""
         if self.constructed is None:
             self.construct()
-        raw = _to_matrix(self.data)
+        raw = self.ensure_raw()
+        if raw is None:
+            log.fatal("Cannot subset: raw data not in memory (construct "
+                      "with free_raw_data=False from an in-memory matrix)")
         idx = np.asarray(used_indices, dtype=np.int64)
         label, w = self.get_label(), self.get_weight()
         init, group = self.get_init_score(), self.get_group()
@@ -204,6 +470,114 @@ class Dataset:
                                    else np.asarray(init)[idx]),
                        reference=self, params=dict(params or self.params))
 
+    # -- binary dataset files (lightgbm_tpu/basic.py:556-669) ----------------
+
+    def save_binary(self, filename: str, compress: bool = True) -> "Dataset":
+        """Write the constructed dataset as a binary dataset file
+        (Dataset::SaveBinaryFile); ``compress=False`` skips zlib."""
+        if self.constructed is None:
+            self.construct()
+        self._write_binary(self.constructed, filename, compress)
+        return self
+
+    @staticmethod
+    def _write_binary(c: data_mod.TrainingData, filename: str,
+                      compress: bool = True) -> None:
+        mappers = [{
+            "num_bin": int(m.num_bin), "bin_type": int(m.bin_type),
+            "missing_type": int(m.missing_type),
+            "is_trivial": bool(m.is_trivial),
+            "bin_upper_bound": (None if m.bin_upper_bound is None
+                                else [float(x) for x in m.bin_upper_bound]),
+            "categorical_2_bin": (None if m.categorical_2_bin is None
+                                  else {str(k): int(v) for k, v
+                                        in m.categorical_2_bin.items()}),
+            "bin_2_categorical": (None if m.bin_2_categorical is None
+                                  else [int(x) for x in m.bin_2_categorical]),
+            "min_val": float(m.min_val), "max_val": float(m.max_val),
+            "default_bin": int(m.default_bin),
+        } for m in c.bin_mappers]
+        meta = {
+            "mappers": mappers,
+            "feature_names": list(c.feature_names or []),
+            "num_total_features": int(c.num_total_features),
+            "used_features": [int(x) for x in c.used_features],
+            "bundles": (None if c.layout is None
+                        else [[int(j) for j in b] for b in c.layout.bundles]),
+        }
+        arrays = {"binned": np.asarray(c.binned),
+                  "meta_json": np.frombuffer(
+                      json.dumps(meta).encode(), dtype=np.uint8).copy()}
+        for key, val in (("label", c.metadata.label),
+                         ("weight", c.metadata.weight),
+                         ("query_boundaries", c.metadata.query_boundaries),
+                         ("init_score", c.metadata.init_score)):
+            if val is not None:
+                arrays[key] = np.asarray(val)
+        buf = io.BytesIO()
+        (np.savez_compressed if compress else np.savez)(buf, **arrays)
+        with open(filename, "wb") as f:
+            f.write(Dataset.BINARY_TOKEN)
+            f.write(buf.getvalue())
+
+    @staticmethod
+    def _is_binary_cache(filename: str) -> bool:
+        try:
+            with open(filename, "rb") as f:
+                return f.read(len(Dataset.BINARY_TOKEN)) == \
+                    Dataset.BINARY_TOKEN
+        except OSError:
+            return False
+
+    @staticmethod
+    def _load_binary_training_data(filename: str) -> data_mod.TrainingData:
+        with open(filename, "rb") as f:
+            if f.read(len(Dataset.BINARY_TOKEN)) != Dataset.BINARY_TOKEN:
+                raise ValueError(f"{filename} is not a lightgbm_tpu binary "
+                                 "dataset cache")
+            npz = np.load(io.BytesIO(f.read()), allow_pickle=False)
+        meta = json.loads(bytes(npz["meta_json"]).decode())
+        td = data_mod.TrainingData()
+        td.binned = npz["binned"]
+        td.used_features = list(meta["used_features"])
+        td.feature_names = meta["feature_names"]
+        td.num_total_features = meta["num_total_features"]
+        td.num_data = len(td.binned)
+        for d in meta["mappers"]:
+            m = BinMapper()
+            m.num_bin = d["num_bin"]
+            m.bin_type = d["bin_type"]
+            m.missing_type = d["missing_type"]
+            m.is_trivial = d["is_trivial"]
+            m.bin_upper_bound = (None if d["bin_upper_bound"] is None else
+                                 np.asarray(d["bin_upper_bound"], np.float64))
+            m.categorical_2_bin = (None if d["categorical_2_bin"] is None
+                                   else {int(k): v for k, v
+                                         in d["categorical_2_bin"].items()})
+            m.bin_2_categorical = d["bin_2_categorical"]
+            m.min_val = d["min_val"]
+            m.max_val = d["max_val"]
+            m.default_bin = d["default_bin"]
+            td.bin_mappers.append(m)
+        if meta.get("bundles") is not None:
+            td.layout = BundleLayout(meta["bundles"], td.bin_mappers)
+        td.metadata = data_mod.Metadata(td.num_data)
+        td.metadata.set_label(npz["label"] if "label" in npz else None)
+        td.metadata.set_weight(npz["weight"] if "weight" in npz else None)
+        td.metadata.query_boundaries = (npz["query_boundaries"]
+                                        if "query_boundaries" in npz
+                                        else None)
+        td.metadata.set_init_score(npz["init_score"]
+                                   if "init_score" in npz else None)
+        return td
+
+    @staticmethod
+    def load_binary(filename: str) -> "Dataset":
+        """A Dataset of a binary dataset file, constructed on the host."""
+        ds = Dataset(None)
+        ds.constructed = Dataset._load_binary_training_data(filename)
+        return ds
+
 
 class Booster:
     """Training/prediction handle (basic.py:1213+ semantics, as
@@ -212,7 +586,7 @@ class Booster:
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
-                 model_str: Optional[str] = None):
+                 model_str: Optional[str] = None, silent: bool = False):
         self.params = dict(params or {})
         self.best_iteration = -1
         self.best_score: Dict = {}
@@ -223,20 +597,24 @@ class Booster:
         cfg = config_from_params(self.params)
         self.device = resolve_device(cfg.device)
         log.set_verbosity(cfg.verbose)
+        # category levels of a DataFrame's columns, from the training
+        # Dataset or the model text's last line
+        self.pandas_categorical: Optional[List[List]] = None
         if train_set is not None:
             train_set.construct(cfg, str(self.device))
+            self.pandas_categorical = train_set.pandas_categorical
             self.inner = create_boosting(cfg, train_set.constructed,
                                          create_objective(cfg),
                                          train_set.bins)
-        elif model_file is not None:
-            with open(model_file) as f:
-                self.inner = GBDT.load_from_string(f.read(), cfg)
-        elif model_str is not None:
-            self.inner = GBDT.load_from_string(model_str, cfg)
         else:
-            raise ValueError("Booster needs train_set, model_file or model_str")
-        self._predictor = None
-        self._predictor_key = None
+            if model_file is not None:
+                with open(model_file) as f:
+                    model_str = f.read()
+            elif model_str is None:
+                raise ValueError("Booster needs train_set, model_file or "
+                                 "model_str")
+            self.inner = GBDT.load_from_string(model_str, cfg)
+            self.pandas_categorical = _load_pandas_categorical(model_str)
 
     # -- training ------------------------------------------------------------
 
@@ -244,7 +622,7 @@ class Booster:
         data.construct(self.inner.config, str(self.device))
         self.inner.add_valid_set(
             data.constructed, data.bins, name,
-            _to_matrix(data.data) if self.inner.models else None)
+            data.ensure_raw() if self.inner.models else None)
         self._valid_datasets.append(data)
         return self
 
@@ -402,20 +780,41 @@ class Booster:
     # -- prediction and files ------------------------------------------------
 
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
-                device: Optional[str] = None) -> np.ndarray:
-        """Raw or transformed scores of ``data`` ``[N, F]``, computed on
-        ``device`` (default: this booster's): ``[N]``, or ``[N, K]`` for K
-        classes."""
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                pred_early_stop: bool = False,
+                pred_parameter: Optional[Dict[str, Any]] = None,
+                device: Optional[str] = None, **kwargs) -> np.ndarray:
+        """Scores of ``data`` (a matrix ``[N, F]``, a CSR matrix, a
+        DataFrame or a text file's path), computed on ``device`` (default:
+        this booster's): ``[N]``, or ``[N, K]`` for K classes; with
+        ``pred_leaf`` each tree's leaf ``[N, T]``; with ``pred_contrib``
+        the TreeSHAP contributions ``[N, K * (F + 1)]``.  Keys of
+        ``pred_parameter`` (``is_predict_raw_score``,
+        ``is_predict_leaf_index``, ``pred_early_stop`` and its
+        ``_freq`` and ``_margin``, or their aliases) override the keywords
+        (``lightgbm_tpu/basic.py:838``); other keywords are accepted and
+        not used."""
         dev = resolve_device(device) if device else self.device
+        if _is_path(data):
+            data = load_text_file(str(data),
+                                  has_header=self.inner.config.has_header)[0]
+        elif _is_frame(data):
+            data = _data_from_pandas(data, self.pandas_categorical)[0]
+        else:
+            data = _to_matrix(data)
         if num_iteration is None or num_iteration <= 0:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
-        key = (len(self.inner.models), self.inner.model_epoch, num_iteration,
-               str(dev))
-        if self._predictor_key != key:
-            self._predictor = self.inner.predictor(dev, num_iteration)
-            self._predictor_key = key
-        return self._predictor.predict(_to_matrix(data), raw_score=raw_score)
+        pp = {k: _parse_value(k, v) for k, v in
+              canonicalize_params(pred_parameter or {}).items()}
+        return self.inner.predict(
+            data, dev, num_iteration,
+            raw_score=pp.get("is_predict_raw_score", raw_score),
+            pred_leaf=pp.get("is_predict_leaf_index", pred_leaf),
+            pred_contrib=pred_contrib,
+            pred_early_stop=pp.get("pred_early_stop", pred_early_stop),
+            pred_early_stop_freq=pp.get("pred_early_stop_freq"),
+            pred_early_stop_margin=pp.get("pred_early_stop_margin"))
 
     def save_model(self, filename: str, num_iteration: int = -1) -> "Booster":
         with open(filename, "w") as f:
@@ -423,10 +822,17 @@ class Booster:
         return self
 
     def model_to_string(self, num_iteration: int = -1) -> str:
+        """The model text; with DataFrame categories, their levels as a
+        last ``pandas_categorical:`` line (reference
+        _save_pandas_categorical)."""
         if num_iteration is None or num_iteration <= 0:
             num_iteration = (self.best_iteration if self.best_iteration > 0
                              else -1)
-        return self.inner.save_model_to_string(num_iteration)
+        s = self.inner.save_model_to_string(num_iteration)
+        if self.pandas_categorical:
+            s += ("\npandas_categorical:"
+                  + json.dumps(self.pandas_categorical) + "\n")
+        return s
 
     # pickling goes through the model text
     def __getstate__(self):

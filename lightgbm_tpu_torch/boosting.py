@@ -50,7 +50,8 @@ from .metrics import Metric, create_metric, default_metric_for_objective
 from .objectives import Objective, parse_objective_string
 from .parallel import mesh as mesh_mod
 from .parallel.gspmd import GspmdGrower, resolve_gspmd_hist
-from .predictor import Predictor, predict_binned_leaf, trees_scores_binned
+from .predictor import (Predictor, SoABundle, predict_binned_leaf,
+                        trees_scores_binned)
 from .tree import Tree
 from .utils import log
 from .utils.random import make_rng, sample_k
@@ -148,6 +149,7 @@ class GBDT:
         # (rollback, merge, DART's normalisation, a leaf edit): a cached
         # predictor of the trees is stale then
         self.model_epoch = 0
+        self._bundle, self._bundle_key = None, None   # predictor()'s cache
         # the learner as resolved, and a record of a loud fallback to serial
         self.parallel_impl = "serial"
         self.gspmd_hist: Optional[str] = None
@@ -673,10 +675,50 @@ class GBDT:
         return self.models[:(num_iteration + (1 if self.boost_from_average_
                                               else 0)) * self.num_class]
 
-    def predictor(self, device: torch.device,
-                  num_iteration: int = -1) -> Predictor:
-        return Predictor(self._kept_trees(num_iteration), self.num_class,
-                         self.objective, device, self.average_output)
+    def predictor(self, device: torch.device, num_iteration: int = -1,
+                  pred_early_stop: bool = False,
+                  pred_early_stop_freq: Optional[int] = None,
+                  pred_early_stop_margin: Optional[float] = None
+                  ) -> Predictor:
+        """A predictor of the kept trees on ``device``; early stopping's
+        frequency and margin default to the config's
+        (``lightgbm_tpu/boosting.py:1793``).  The trees' device bundle is
+        built once for each model state, device and ``num_iteration``."""
+        key = (len(self.models), self.model_epoch, num_iteration,
+               str(device))
+        trees = self._kept_trees(num_iteration)
+        if self._bundle_key != key:
+            self._bundle = SoABundle(trees, device, self.num_class)
+            self._bundle_key = key
+        cfg = self.config
+        return Predictor(
+            trees, self.num_class, self.objective, device,
+            self.average_output, early_stop=pred_early_stop,
+            early_stop_freq=(cfg.pred_early_stop_freq
+                             if pred_early_stop_freq is None
+                             else pred_early_stop_freq),
+            early_stop_margin=(cfg.pred_early_stop_margin
+                               if pred_early_stop_margin is None
+                               else pred_early_stop_margin),
+            bundle=self._bundle)
+
+    def predict(self, x: np.ndarray, device: torch.device,
+                num_iteration: int = -1, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                pred_early_stop: bool = False,
+                pred_early_stop_freq: Optional[int] = None,
+                pred_early_stop_margin: Optional[float] = None):
+        """Scores, leaf indices (``pred_leaf``) or TreeSHAP contributions
+        (``pred_contrib``, over ``max_feature_idx + 1`` features) of the
+        raw rows ``x`` (``lightgbm_tpu/boosting.py:1812``)."""
+        if pred_contrib:
+            return self.predictor(device, num_iteration).predict_contrib(
+                x, num_features=self.max_feature_idx + 1)
+        p = self.predictor(device, num_iteration, pred_early_stop,
+                           pred_early_stop_freq, pred_early_stop_margin)
+        if pred_leaf:
+            return p.predict_leaf_index(x)
+        return p.predict(x, raw_score=raw_score)
 
     # ------------------------------------------------------------- model file
 

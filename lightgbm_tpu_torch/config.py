@@ -190,6 +190,21 @@ class Config:
     categorical_column: str = ""
     data_stream: str = "auto"
 
+    # data files (lightgbm_tpu/config.py:159-161): a header line, the
+    # "<data>.bin" cache written beside a text file, and two-round loading
+    # (the file binned as it is read; not data_stream=chunked)
+    has_header: bool = False
+    is_save_binary_file: bool = False
+    use_two_round_loading: bool = False
+
+    # prediction (lightgbm_tpu/config.py:198-202): the keys that
+    # Booster.predict's pred_parameter reads, and margin early stopping
+    is_predict_raw_score: bool = False
+    is_predict_leaf_index: bool = False
+    pred_early_stop: bool = False
+    pred_early_stop_freq: int = 10
+    pred_early_stop_margin: float = 10.0
+
     # objectives' knobs
     sigmoid: float = 1.0
     huber_delta: float = 1.0
@@ -256,7 +271,6 @@ TAKEN_AS_IS = frozenset((
     "pipeline_trees", "objective_seed"))
 
 # the ROADMAP.md port-queue items (their bold titles) of NOT_PORTED
-_PREDICT_API = "prediction and Dataset API breadth"
 _MULTI = "multi-device learners"
 _STREAM = "streamed out-of-core training"
 _SERVING = ("checkpoints, serving, observability, CLI, sklearn and "
@@ -270,8 +284,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "data": ("", _SERVING),
     "valid_data": ([], _SERVING),
     "config_file": ("", _SERVING),
-    "has_header": (False, _SERVING),
-    "use_two_round_loading": (False, _SERVING),
     "is_training_metric": (False, _SERVING),
     "output_freq": (1, _SERVING),
     "num_iteration_predict": (-1, _SERVING),
@@ -307,12 +319,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "drift_threshold": (0.2, _SERVING),
     "drift_window_rows": (4096, _SERVING),
     "serving_traversal": ("auto", _SERVING),
-    "is_save_binary_file": (False, _PREDICT_API),
-    "is_predict_raw_score": (False, _PREDICT_API),
-    "is_predict_leaf_index": (False, _PREDICT_API),
-    "pred_early_stop": (False, _PREDICT_API),
-    "pred_early_stop_freq": (10, _PREDICT_API),
-    "pred_early_stop_margin": (10.0, _PREDICT_API),
     "stream_chunk_rows": (0, _STREAM),
     "top_k": (20, _MULTI + " (the shard_map learners)"),
     "is_pre_partition": (False, _MULTI + " (multi-process over "

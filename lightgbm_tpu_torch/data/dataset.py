@@ -98,47 +98,154 @@ def construct(data: np.ndarray, config: Config,
     data = np.asarray(data)
     if data.ndim != 2:
         log.fatal("Training data must be 2-dimensional")
-    num_data, num_features = data.shape
+    ds = _new_dataset(*data.shape, feature_names)
+    if reference is not None:
+        _adopt_reference(ds, reference)
+    else:
+        idx = _sample_indices(config, ds.num_data)
+        sample = np.asarray(data if idx is None else data[idx],
+                            dtype=np.float64)
+        _fit_from_sample(ds, sample, config,
+                         set(int(c) for c in (categorical_features or [])))
+    ds.binned = _allocate_binned(ds)
+    _bin_rows(ds, data, ds.binned)
+    _set_metadata(ds, label, weight, group, init_score)
+    return ds
+
+
+def construct_streamed(path: str, config: Config,
+                       label: Optional[np.ndarray] = None,
+                       weight: Optional[np.ndarray] = None,
+                       group: Optional[np.ndarray] = None,
+                       init_score: Optional[np.ndarray] = None,
+                       feature_names: Optional[Sequence[str]] = None,
+                       categorical_features: Optional[Sequence[int]] = None,
+                       label_idx: int = 0,
+                       chunk_rows: int = 200_000) -> TrainingData:
+    """Two-round construction from a text file (``use_two_round_loading``,
+    dataset_loader.cpp:181-207 and 265+; ``lightgbm_tpu/data/dataset.py:
+    310``).  Round 1 reads the file once for the sampled rows (the same
+    indices as the in-memory path, so the mappers are identical) and all
+    labels; round 2 reads it again and bins each chunk straight into the
+    bin matrix.  The file's float64 matrix never exists whole."""
+    from .parser import count_data_rows, iter_parsed_chunks
+
+    num_data, num_features = count_data_rows(path, config.has_header,
+                                             label_idx)
+    ds = _new_dataset(num_data, num_features, feature_names)
+    idx = _sample_indices(config, num_data)
+    sample_idx = np.arange(num_data) if idx is None else idx
+
+    def chunks():
+        return iter_parsed_chunks(path, config.has_header, label_idx,
+                                  chunk_rows, ncol=num_features)
+
+    sample = np.empty((len(sample_idx), num_features), dtype=np.float64)
+    labels = np.empty(num_data, dtype=np.float32)
+    row0 = 0
+    for feats, labs in chunks():
+        row1 = row0 + len(labs)
+        labels[row0:row1] = labs
+        lo, hi = np.searchsorted(sample_idx, [row0, row1])
+        if hi > lo:
+            sample[lo:hi] = feats[sample_idx[lo:hi] - row0]
+        row0 = row1
+    if row0 != num_data:
+        log.fatal("Streamed loading row mismatch: counted %d, parsed %d",
+                  num_data, row0)
+    _fit_from_sample(ds, sample, config,
+                     set(int(c) for c in (categorical_features or [])))
+    del sample
+    ds.binned = _allocate_binned(ds)
+    row0 = 0
+    for feats, _ in chunks():
+        _bin_rows(ds, feats, ds.binned[row0:row0 + len(feats)])
+        row0 += len(feats)
+    _set_metadata(ds, labels if label is None else label, weight, group,
+                  init_score)
+    return ds
+
+
+def construct_csr(csr, config: Config,
+                  label: Optional[np.ndarray] = None,
+                  weight: Optional[np.ndarray] = None,
+                  group: Optional[np.ndarray] = None,
+                  init_score: Optional[np.ndarray] = None,
+                  feature_names: Optional[Sequence[str]] = None,
+                  categorical_features: Optional[Sequence[int]] = None,
+                  reference: Optional[TrainingData] = None) -> TrainingData:
+    """Construction from a host :class:`~.sparse.CsrMatrix` without
+    densifying it (``lightgbm_tpu/data/dataset.py:382``): only the sampled
+    rows are densified to fit the mappers (the same indices as the
+    in-memory path), then bounded dense chunks are binned straight into
+    the bin matrix.  The bins, and so the trees, are those of the dense
+    matrix."""
+    ds = _new_dataset(*csr.shape, feature_names)
+    if reference is not None:
+        _adopt_reference(ds, reference)
+    else:
+        idx = _sample_indices(config, ds.num_data)
+        _fit_from_sample(ds, csr.rows(np.arange(ds.num_data) if idx is None
+                                      else idx), config,
+                         set(int(c) for c in (categorical_features or [])))
+    ds.binned = _allocate_binned(ds)
+    for r0, block in csr.iter_dense_chunks():
+        _bin_rows(ds, block, ds.binned[r0:r0 + len(block)])
+    _set_metadata(ds, label, weight, group, init_score)
+    return ds
+
+
+def _new_dataset(num_data: int, num_features: int,
+                 feature_names: Optional[Sequence[str]]) -> TrainingData:
     ds = TrainingData()
     ds.num_data = num_data
     ds.num_total_features = num_features
     ds.feature_names = (list(feature_names) if feature_names
                         else [f"Column_{i}" for i in range(num_features)])
-    if reference is not None:
-        ds.bin_mappers = reference.bin_mappers
-        ds.used_features = reference.used_features
-        ds.feature_names = reference.feature_names
-        ds.layout = reference.layout
-        if num_features != reference.num_total_features:
-            log.fatal("Validation data has %d features, training data has %d",
-                      num_features, reference.num_total_features)
-    else:
-        sample_cnt = min(config.bin_construct_sample_cnt, num_data)
-        if sample_cnt < num_data:
-            rng = make_rng(config.data_random_seed)
-            sample = np.asarray(data[sample_k(rng, num_data, sample_cnt)],
-                                dtype=np.float64)
-        else:
-            sample = np.asarray(data, dtype=np.float64)
-        _fit_from_sample(ds, sample, config,
-                         set(int(c) for c in (categorical_features or [])))
+    return ds
+
+
+def _adopt_reference(ds: TrainingData, reference: TrainingData) -> None:
+    """A valid set or subset bins with its reference's mappers and
+    layout."""
+    if ds.num_total_features != reference.num_total_features:
+        log.fatal("Validation data has %d features, training data has %d",
+                  ds.num_total_features, reference.num_total_features)
+    ds.bin_mappers = reference.bin_mappers
+    ds.used_features = reference.used_features
+    ds.feature_names = reference.feature_names
+    ds.layout = reference.layout
+
+
+def _sample_indices(config: Config, num_data: int) -> Optional[np.ndarray]:
+    """The rows the mappers are fitted on: ``bin_construct_sample_cnt`` of
+    them drawn from ``data_random_seed``, or None for all rows."""
+    sample_cnt = min(config.bin_construct_sample_cnt, num_data)
+    if sample_cnt >= num_data:
+        return None
+    return sample_k(make_rng(config.data_random_seed), num_data, sample_cnt)
+
+
+def _allocate_binned(ds: TrainingData) -> np.ndarray:
+    """The ``[N, columns]`` uint8 bin matrix of the fitted layout."""
     if ds.max_num_bin() > 256:
         # a categorical column keeps categories past max_bin until they
         # cover 99 % of the rows; the bin matrix here is uint8
         _unsupported(f"a column of {ds.max_num_bin()} bins (> 256)",
                      "training breadth (uint16 bin matrix)")
-
     ncols = (ds.layout.num_columns if ds.bundled
              else len(ds.used_features))
-    ds.binned = np.empty((num_data, ncols), dtype=np.uint8)
-    _bin_rows(ds, data, ds.binned)
-    ds.metadata = Metadata(num_data)
+    return np.empty((ds.num_data, ncols), dtype=np.uint8)
+
+
+def _set_metadata(ds: TrainingData, label, weight, group,
+                  init_score) -> None:
+    ds.metadata = Metadata(ds.num_data)
     ds.metadata.set_label(label if label is not None
-                          else np.zeros(num_data, dtype=np.float32))
+                          else np.zeros(ds.num_data, dtype=np.float32))
     ds.metadata.set_weight(weight)
     ds.metadata.set_query(group)
     ds.metadata.set_init_score(init_score)
-    return ds
 
 
 def _columns_T(data: np.ndarray, cols, chunk_rows: int = 4096) -> np.ndarray:

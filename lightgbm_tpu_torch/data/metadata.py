@@ -1,11 +1,13 @@
 """Per-dataset metadata: labels, weights, query boundaries, init scores.
 
 The reference ``Metadata`` (``include/LightGBM/dataset.h:36-248``,
-``src/io/metadata.cpp``) from arrays, as the JAX package's
-``data/metadata.py:22-70`` keeps it (the side files are not ported).
+``src/io/metadata.cpp``) as the JAX package's ``data/metadata.py`` keeps
+it: from arrays, or from the ``.weight``, ``.query`` and ``.init`` side
+files beside a data file.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -68,3 +70,21 @@ class Metadata:
             return None
         sizes = np.diff(self.query_boundaries)
         return np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+
+    def load_side_files(self, data_path: str) -> None:
+        """The side files of ``data_path`` that exist: ``<data>.weight``,
+        ``<data>.query`` (each query's size) and ``<data>.init``
+        (metadata.cpp LoadWeights, LoadQueryBoundaries,
+        LoadInitialScore)."""
+        wpath = data_path + ".weight"
+        if os.path.exists(wpath):
+            self.set_weight(np.loadtxt(wpath, dtype=np.float64).ravel())
+            log.info("Loading weights from %s", wpath)
+        qpath = data_path + ".query"
+        if os.path.exists(qpath):
+            self.set_query(np.loadtxt(qpath, dtype=np.int64).ravel())
+            log.info("Loading query boundaries from %s", qpath)
+        ipath = data_path + ".init"
+        if os.path.exists(ipath):
+            self.set_init_score(np.loadtxt(ipath, dtype=np.float64).ravel())
+            log.info("Loading initial scores from %s", ipath)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from . import callback as callback_mod
-from .basic import Booster, Dataset, _to_matrix
+from .basic import Booster, Dataset
 from .config import _unsupported, canonicalize_params, config_from_params
 from .utils import log
 
@@ -64,8 +64,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
         prev = (init_model if isinstance(init_model, Booster)
                 else Booster(model_file=str(init_model), params=params))
         inner = booster.inner
-        raw = prev.inner.predictor(inner.device).predict_raw(
-            _to_matrix(train_set.data))
+        raw = train_set.ensure_raw()
+        if raw is None:
+            log.fatal("Continued training requires raw data "
+                      "(set free_raw_data=False)")
+        raw = prev.inner.predictor(inner.device).predict_raw(raw)
         inner.scores += torch.from_numpy(raw.astype(np.float32)).to(
             inner.device)
         inner.num_init_iteration = prev.inner.current_iteration()
@@ -223,7 +226,9 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
         stratified = False if params.get("objective") else stratified
 
     train_set.construct(device=config_from_params(params).device)
-    raw = _to_matrix(train_set.data)
+    raw = train_set.ensure_raw()
+    if raw is None:
+        log.fatal("cv requires raw data (set free_raw_data=False)")
     label = train_set.get_label()
     weight = train_set.get_weight()
     group = train_set.get_group()

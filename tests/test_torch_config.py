@@ -151,3 +151,27 @@ def test_categorical_params_divergence_from_jax():
     assert bt.inner.models[-1].num_cat > 0
     assert _first_tree(bt.model_to_string()) == \
         _first_tree(bj.model_to_string())
+
+
+# the keys that the prediction and Dataset API slice moved out of
+# NOT_PORTED
+MOVED = ("is_save_binary_file", "is_predict_raw_score",
+         "is_predict_leaf_index", "pred_early_stop", "pred_early_stop_freq",
+         "pred_early_stop_margin", "has_header", "use_two_round_loading")
+
+
+@pytest.mark.parametrize("key", sorted(
+    MOVED + tuple(a for a, k in jc.PARAM_ALIASES.items() if k in MOVED)))
+def test_prediction_and_file_keys_ported(key):
+    """Each moved key and alias is a field read as the JAX package reads
+    it, its default the JAX package's."""
+    name = tc.PARAM_ALIASES.get(key, key)
+    assert _outcome(key) == ["ported"]
+    assert getattr(tc.Config(), name) == _jax_default(name)
+    value = _other_value(_jax_default(name))
+    cfg = tc.config_from_params({key: value})
+    assert getattr(cfg, name) == value
+    assert getattr(cfg, name) == getattr(jc.config_from_params({key: value}),
+                                         name)
+    assert getattr(tc.config_from_params({key: str(value).lower()}),
+                   name) == value

@@ -53,6 +53,19 @@ def test_import_loads_no_jax_module():
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
 
 
+def test_import_loads_no_pandas_or_scipy():
+    """pandas is absent on the card's machine: the package imports
+    neither it nor scipy, and reads a DataFrame by its attributes."""
+    code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.data\n"
+            "print(repr(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('pandas', 'scipy'))))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
