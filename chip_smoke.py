@@ -29,9 +29,10 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    1,000,000 rows of a shuffled 1,000,000-row ``order`` with the
    ordered-mode payload of 28 bin columns, windows at the small launch's
    threshold and one either side, and the full root window of the
-   Expo-shaped path with its 20-byte payload; all left, all right and
-   random, with and without the payload, into a destination full of
-   garbage: window, payload and left count identical bit for bit, the
+   Expo-shaped path with its 20-byte payload (uint8 bins); all left, all
+   right and random, with and without the payload, into a destination
+   full of garbage: window, payload and left count identical bit for bit,
+   the
    destination outside the window and the source unchanged; with times
    over the grid of all rows (single call, back-to-back calls and the
    profiler's device time, beside a stable ``torch.sort`` of the 0/1 key
@@ -80,6 +81,18 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    the same splits as 2e's on the bundled Covertype layout (464,808 rows
    as four shards), from the root and from a leaf of about 4,000 rows,
    with times at both;
+2i. every kernel on a uint16 bin matrix (:func:`check_wide_kernels`):
+   K1 and K3 at 1,023, 4,097 (one column a block, in shared memory past
+   48 KB) and 20,000 bins (one column's bins in two slices), every
+   window and leaf in both regimes and the device regime, exact under
+   integer weights and within 1e-5 of sum |w| of the float64 sum under
+   float32; both route kernels bit for bit on 1,000,000 x 28 bins of
+   1,023 (numeric splits past bin 255, a categorical split whose bins
+   reach past it, and a bundled column) and on 11,000,000 x 8
+   leaf-ordered bins of 283; ``cat_group`` at 4,096 and 4,097
+   positions; K2 with the 28-byte payload of phase 19 over 11,000,000
+   rows at both parities; with times, byte bounds and the PyTorch
+   yardsticks;
 3. the Higgs path at full width: seeded synthetic Higgs-shaped data
    (1,000,000 x 28 float32, binary label from a fixed nonlinear rule plus
    noise, 100,000 held-out rows), ``train`` 10 rounds with 255 leaves and
@@ -185,8 +198,8 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 8c. one round of the data-parallel learner over 4x1 on the one card at
    the defaults (K3 reads each shard's packed slice, unfolded after the
    shard sum): held-out NDCG@10 within 1e-3 of phase 8's first round;
-8b. the card against the CPU on 200,000 rows of the same generator, 2
-   rounds, at the defaults: the first tree identical in structure up to
+8b. the card against the CPU on 200,000 rows of the same generator, 1
+   round, at the defaults: the first tree identical in structure up to
    its first near-tie (the gradients are real-valued and the card adds
    them in another order, so a split whose float64 gain differs from the
    other choice's by less than the float32 sums' rounding may go either
@@ -221,7 +234,7 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    the training scores within 1e-5 of ``predict(raw_score=True)`` (the
    out-of-bag rows and DART's re-scoring through the decoded
    ``trees_scores_binned``), every bag's root 232,404 rows;
-9d. the card against the CPU at 50,000 rows, 2 rounds, at the defaults:
+9d. the card against the CPU at 50,000 rows, 1 round, at the defaults:
    the first round's 7 trees identical in structure up to their first
    near-ties; and on the CPU's plain path, whose sums run in one fixed
    order, the bundled first round against the cut one's, compared as
@@ -269,9 +282,9 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    reads a tree each;
 16. prediction breadth on phase 3b's, 5's and 9's models, read from their
    model text, on held-out rows: leaf indices (Higgs 100,000 rows, Expo
-   10,000), margin early stopping (``pred_early_stop_freq=2`` and a
-   margin that stops some rows, Higgs 100,000 rows and Covertype 10,000,
-   the stopped share reported) and TreeSHAP contributions (10,000 rows of
+   4,000), margin early stopping (``pred_early_stop_freq=2`` and a
+   margin that stops some rows, Higgs 100,000 rows and Covertype 4,000,
+   the stopped share reported) and TreeSHAP contributions (4,000 rows of
    each), every call held against the same call on the CPU: leaf indices
    and early-stopped scores exactly, contributions within 1e-12 x (1 +
    |value|) on their first 1,000 rows, and each row's contributions
@@ -282,7 +295,18 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    loading, the binary dataset file of the 1,000,000-row training
    Dataset and a CSR matrix of 70 % zeros, each binned as the same rows
    in memory, with the seconds of each parse, construction, save and
-   load.
+   load;
+18. the Higgs-shaped task at ``max_bin=1023``, a uint16 bin matrix
+   (:func:`higgs_wide_path`): 10 rounds by the serial graph loop and by
+   the 4x1 data-parallel learner on the one card, the numbers of phase
+   3b for both; one integer-gradient round identical on the CPU, the
+   card and 4x1 at 50,000 rows and on the card and 4x1 at 1,000,000;
+   3 rounds against the CPU at 50,000 rows as phase 4;
+19. the Expo-shaped task over the full airport tail (Origin and Dest of
+   about 283 bins, a uint16 matrix; :func:`expo_wide_path`), 11,000,000
+   rows as phase 5, with the categorical splits that route a bin past
+   255 counted; the integer-gradient tree and 3 rounds against the CPU at
+   50,000 rows as phase 4b.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
@@ -474,13 +498,21 @@ def higgs_like(n: int, rng: np.random.Generator):
     return x, y
 
 
-def expo_like(n: int, rng: np.random.Generator):
+def expo_like(n: int, rng: np.random.Generator, full_tail: bool = False):
     """Expo-shaped synthetic task: the 8 columns of the airline-delay data
     (Month, DayofMonth, DayOfWeek, DepTime as hhmm, UniqueCarrier, Origin,
     Dest, Distance in miles), columns 0, 1, 2, 4, 5 and 6 categorical.
 
-    Origin and Dest are 300 airport codes whose 255 most frequent hold
-    99.7 % of the rows, so the binner keeps every column within 256 bins.
+    Origin and Dest are 300 airport codes drawn with weights
+    ``1 / (rank + 3) ** 1.1``.  By default the weights are cut at rank
+    255: the 255 most frequent hold 99.7 % of the rows, so the binner,
+    which keeps categories until they cover 99 % of the rows, keeps every
+    column within 256 bins and the bin matrix is uint8 (phase 5 and the
+    paths built on it keep this cut, so their numbers stay comparable
+    from PR to PR).  ``full_tail`` draws over all 300 airports at the
+    same weights, as the real airline data's long tail of small airports
+    does: 99 % coverage then takes about 283 bins, and the bin matrix is
+    uint16 (phase 19).
     The label, "departure delayed >= 15 min" at a 19 % rate, is a fixed
     rule: an hour-of-day effect, per-carrier, per-origin, weekday and
     month effects drawn from ``rng``, a distance effect and logistic
@@ -496,9 +528,13 @@ def expo_like(n: int, rng: np.random.Generator):
     carrier_w = 1.0 / np.arange(1, 23) ** 0.8
     carrier = rng.choice(22, n, p=carrier_w / carrier_w.sum())
     rank = np.arange(300)
-    ap_w = np.where(rank < 255, 1.0 / (rank + 3.0) ** 1.1, 0.0)
-    ap_w = 0.997 * ap_w / ap_w.sum()
-    ap_w[255:] = 0.003 / 45
+    if full_tail:
+        ap_w = 1.0 / (rank + 3.0) ** 1.1
+        ap_w /= ap_w.sum()
+    else:
+        ap_w = np.where(rank < 255, 1.0 / (rank + 3.0) ** 1.1, 0.0)
+        ap_w = 0.997 * ap_w / ap_w.sum()
+        ap_w[255:] = 0.003 / 45
     origin = rng.permutation(300)[rng.choice(300, n, p=ap_w)]
     dest = rng.permutation(300)[rng.choice(300, n, p=ap_w)]
     dist = np.clip(rng.lognormal(6.3, 0.6, n), 30.0, 5000.0)
@@ -1291,17 +1327,29 @@ def hist64(rows, bins, ws, num_bins, chunk=1 << 18):
     reference of a float32 check where a bin holds so many rows that a
     float32 plain sum's own rounding would exceed the tolerance."""
     import torch
+    from lightgbm_tpu_torch.ops.histogram import bin_rows
     f = bins.shape[1]
     out = torch.zeros((f * num_bins, 3), dtype=torch.float64,
                       device=bins.device)
     base = torch.arange(f, device=bins.device) * num_bins
     for a in range(0, rows.numel(), chunk):
         idx = rows[a:a + chunk].long()
-        flat = (bins.index_select(0, idx).long() + base).reshape(-1)
+        flat = (bin_rows(bins, idx) + base).reshape(-1)
         vals = torch.stack([w[idx].double() for w in ws], -1)
         out.index_add_(0, flat, vals[:, None, :].expand(-1, f, 3)
                        .reshape(-1, 3))
     return out.view(f, num_bins, 3)
+
+
+def packed_local_bound_ms(n_loc: int, cnt: int, cols: int,
+                          width: int) -> float:
+    """Least time of a shard-local histogram call on a matrix of ``cols``
+    1-byte columns at histogram width ``width``: row_leaf for every local
+    row, the ``cnt`` matching rows' bytes and three weights, the output
+    written, over the memory rate; or 3 x cols f32 adds a matching row."""
+    nbytes = 4 * n_loc + cnt * (cols + 12) + 4 + cols * width * 12
+    return max(nbytes / H100_BYTES_PER_S,
+               3 * cols * cnt / H100_F32_OPS_PER_S) * 1e3
 
 
 def check_hist_packed(inner, rng, window=4_000, shards=4):
@@ -1324,7 +1372,8 @@ def check_hist_packed(inner, rng, window=4_000, shards=4):
     in shard order and unfolded equal to the plain histogram of the
     unpacked bins, as the data-parallel learner unfolds after its shard
     sum.  With K1's times at both windows on the packed matrix and on the
-    unpacked bins."""
+    unpacked bins, and K3's (the device regime, as the 4x1 step calls it)
+    on the first shard at both leaves."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import (hist_local,
                                                   hist_local_plain,
@@ -1434,7 +1483,7 @@ def check_hist_packed(inner, rng, window=4_000, shards=4):
     leaf_map = np.zeros(n, np.int32)
     leaf_map[rng.choice(n_loc * shards, window, replace=False)] = 1
     leaf_map = put(leaf_map)
-    f32_err = 0.0
+    f32_err, k3_times = 0.0, {}
     for leaf in (0, 1):
         lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
         parts = []
@@ -1458,6 +1507,16 @@ def check_hist_packed(inner, rng, window=4_000, shards=4):
                                 leaf_rows=lrows if pname == "device"
                                 else None), want)
             parts.append(hist_local(rl, lid, m, *wi, W, leaf_rows=lrows))
+            if i == 0:      # K3 as the 4x1 step calls it, one shard
+                ub = bins[rows].contiguous()
+                k3_times[leaf] = (
+                    cuda_ms(lambda: hist_local(rl, lid, m, *wf, W,
+                                               leaf_rows=lrows)),
+                    cuda_ms(lambda: hist_local(rl, lid, ub, *wf, max_bin,
+                                               leaf_rows=lrows)),
+                    cnt, packed_local_bound_ms(n_loc, cnt, c, W),
+                    packed_local_bound_ms(n_loc, cnt, ub.shape[1], max_bin))
+                del ub
             idx = torch.nonzero(rl == leaf).view(-1)
             f32_err = max(f32_err, held(
                 f"K3 shard {i}, leaf {leaf}",
@@ -1473,7 +1532,13 @@ def check_hist_packed(inner, rng, window=4_000, shards=4):
     out.update(k3_shards=f"{shards}x{n_loc}x{c}",
                k3_leaf_rows=f"{n - window},{window}",
                k3_exact_int="own,small,large,device,shard_sum_unfolded",
-               k3_f32_max_abs_err=f"{f32_err:.3e}")
+               k3_f32_max_abs_err=f"{f32_err:.3e}",
+               **{f"k3_{w}_{k}": v for w, leaf in (("all_rows", 0),
+                                                   ("leaf", 1))
+                  for k, v in zip(("ms_packed", "ms_unpacked",
+                                   "shard0_leaf_rows", "bound_ms_packed",
+                                   "bound_ms_unpacked"),
+                                  k3_times[leaf])})
     phase("packed_hist_vs_plain", storage=f"{n}x{c}", width=W,
           packed_cols=packed.plan.num_packed,
           joint_bin_255_cells=joint255, **out)
@@ -2373,7 +2438,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
 def partition_ab(params, x, y):
     """Phase 3c: the Higgs path's ms per tree with the plain partition and
     with the kernel, in turns on one dataset (scatter, compact, compact,
-    scatter; 3 trees each): the host's noise between runs is larger than
+    scatter; 2 trees each): the host's noise between runs is larger than
     the difference, so only turns within one process compare."""
     import torch
     from lightgbm_tpu_torch import Dataset, train
@@ -2384,11 +2449,11 @@ def partition_ab(params, x, y):
                     verbose_eval=False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(2):
             bst.update()
         torch.cuda.synchronize()
-        ms[impl].append((time.perf_counter() - t0) * 1e3 / 3)
-    phase("partition_ab", trees_per_turn=3, **{
+        ms[impl].append((time.perf_counter() - t0) * 1e3 / 2)
+    phase("partition_ab", trees_per_turn=2, **{
         f"{k}_ms_per_tree": ",".join(f"{v:.2f}" for v in vals)
         for k, vals in ms.items()})
 
@@ -2422,7 +2487,7 @@ def card_vs_cpu(name, params, x, y, x_te, y_te, fields, max_pred_diff,
              f"{max_pred_diff}), AUC diff {adiff} (limit {max_auc_diff})")
 
 
-def grower_card_vs_cpu(params, x, y):
+def grower_card_vs_cpu(params, x, y, name="expo_grower_card_vs_cpu"):
     """The grower of the Expo-shaped path under integer-valued gradients
     and hessians, whose sums are exact in any order: the card's tree
     (histogram, partition and cat_group kernels, leaf-ordered mode) equals
@@ -2456,11 +2521,11 @@ def grower_card_vs_cpu(params, x, y):
                        row_leaf.cpu().numpy(), tree.num_leaves)
     (ac, rc, lc), (ag, rg, lg) = out["cpu"], out["cuda"]
     bad = [k for k in ac if not np.array_equal(ac[k], ag[k])]
-    phase("expo_grower_card_vs_cpu", rows=n, leaves=lg,
+    phase(name, rows=n, leaves=lg,
           categorical_nodes=int(ag["is_cat"].sum()),
           identical=not bad and lc == lg and np.array_equal(rc, rg))
     if bad or lc != lg or not np.array_equal(rc, rg):
-        fail(f"grower under integer weights: card != CPU in "
+        fail(f"{name}: grower under integer weights: card != CPU in "
              f"{bad or 'row_leaf'}")
 
 
@@ -3170,7 +3235,7 @@ def card_vs_cpu_trees(name, params, x, y, x_te, rounds, first_trees,
 
 def rank_card_vs_cpu(params, rng, run_dir, heldout):
     """Phase 8b: the MS-LTR-shaped generator at 200,000 rows (1,650
-    queries), 2 rounds on the card and on the CPU: the first tree
+    queries), 1 round on the card and on the CPU: the first tree
     identical in structure (up to a near-tie, :func:`card_vs_cpu_trees`),
     NDCG@1/3/5/10 within 1e-3 on phase 8's held-out queries ``heldout``
     (x, y, sizes: 6,000 queries, so that one query's reordered top
@@ -3181,7 +3246,7 @@ def rank_card_vs_cpu(params, rng, run_dir, heldout):
     sizes = query_sizes(1_650, 200_000, MSLR_LONGEST, rng)
     x, y = mslr_like(sizes, rng)
     n = int(sizes.sum())
-    out, same = card_vs_cpu_trees("rank_card_vs_cpu", params, x, y, x_te, 2,
+    out, same = card_vs_cpu_trees("rank_card_vs_cpu", params, x, y, x_te, 1,
                                   1, group=sizes)
     nd = {d: ndcg_at(out[d][1], y_te, sizes_te, MSLR_EVAL_AT) for d in out}
     gap = max(abs(a - b) for a, b in zip(nd["cpu"], nd["cuda"]))
@@ -3190,7 +3255,7 @@ def rank_card_vs_cpu(params, rng, run_dir, heldout):
     again = Booster(model_file=path, params={"device": "cuda"}).predict(x_te)
     os.remove(path)
     reload_same = bool(np.array_equal(again, out["cuda"][1]))
-    phase("rank_card_vs_cpu", rows=n, queries=len(sizes), rounds=2,
+    phase("rank_card_vs_cpu", rows=n, queries=len(sizes), rounds=1,
           heldout_queries=len(sizes_te), **same,
           ndcg_gap=f"{gap:.3e}", reload_predicts_same=reload_same,
           **{f"{d}_ndcg@{k}": f"{v:.6f}" for d in nd
@@ -3439,7 +3504,7 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=50_000):
     # ---- phase 9d: card against CPU, at the defaults ----------------------
     out, same = card_vs_cpu_trees("covtype_card_vs_cpu", cov_params,
                                   x_tr[:cpu_rows], y_tr[:cpu_rows], x_te,
-                                  2, 7)
+                                  1, 7)
     # the bundled-vs-cut comparison on the CPU's plain path, whose sums
     # run in one fixed order: its differences are the layouts' arithmetic
     # alone, without the card's atomics
@@ -3452,7 +3517,7 @@ def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=50_000):
     del cut_cpu
     ll = {d: multi_metrics(out[d][1], y_te)[0] for d in out}
     cols = out["cuda"][0].inner.bins.shape[1]
-    phase("covtype_card_vs_cpu", rows=cpu_rows, rounds=2, columns=cols,
+    phase("covtype_card_vs_cpu", rows=cpu_rows, rounds=1, columns=cols,
           **same, cpu_multi_logloss=f"{ll['cpu']:.6f}",
           cuda_multi_logloss=f"{ll['cuda']:.6f}")
     if cols != COVTYPE_COLS:
@@ -3873,7 +3938,7 @@ def nonfinite_guard(params, x, y):
 
 # ---- phases 16 and 17: prediction breadth and the Dataset inputs ----------
 
-CONTRIB_ROWS = 10_000         # rows whose TreeSHAP contributions the card
+CONTRIB_ROWS = 4_000          # rows whose TreeSHAP contributions the card
 #                               computes a model
 CONTRIB_CPU_ROWS = 1_000      # of them, those the CPU computes again: the
 #                               recursion is the same host code on both, so
@@ -4170,6 +4235,629 @@ def multi_card(params) -> None:
     phase("dp_path_4x1_four_cards", **dp)
 
 
+
+# ---- phase 2i: every kernel on a uint16 bin matrix -------------------------
+
+WIDE_BINS = 1023         # phase 18's max_bin: the Higgs path's histogram
+# the K1/K3 cases: 4-column groups (1,023 bins), one column a group in
+# shared memory past 48 KB (4,097), one column's bins in two slices
+# (20,000 bins: 240,000 bytes, past the 232,448 a block may opt into)
+WIDE_SHAPES = (WIDE_BINS, 4097, 20_000)
+EXPO_WIDE_BINS = 283     # the Expo tail's columns over 300 airports
+
+
+def wide_bound_ms(rows: int, cols: int, num_bins: int,
+                  scanned: int = 0) -> float:
+    """Least time of a uint16 histogram call: each of ``rows`` rows' bins
+    (2 B a column), three weights and its order entry (a window) read, or,
+    for a shard's masked scan, 4 B of row_leaf for each of ``scanned``
+    rows and no order entry; the [cols, num_bins, 3] f32 output written;
+    over the memory rate; or 3 x cols f32 adds a row over the f32 rate.
+    A window's bytes are rows x (2 x cols + 16) plus the output."""
+    nbytes = (rows * (2 * cols + 12) + (4 * scanned if scanned else 4 * rows)
+              + cols * num_bins * 12)
+    return max(nbytes / H100_BYTES_PER_S,
+               3 * cols * rows / H100_F32_OPS_PER_S) * 1e3
+
+
+def u16(a: np.ndarray, dev):
+    """A uint16 numpy array on the card (a byte copy: no PyTorch kernel of
+    the type runs)."""
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint16)).to(dev)
+
+
+def bits(x):
+    """A tensor's bytes, which any comparison on the card takes."""
+    import torch
+    return x.contiguous().view(torch.uint8)
+
+
+def check_wide_hist(dev, rng):
+    """Phase 2i, K1 and K3 on uint16 bins: every case of ``WIDE_SHAPES``
+    against the plain version, exact under integer weights in every plan
+    (small, large, the split steps' device regime) and within 1e-5 of a
+    float64 sum of |w| under float32 weights; times at phase 18's 1,023
+    bins (K1: the 1,000,000-row root and 4,097 rows; K3: a 250,000-row
+    shard, all rows and a leaf of about 1,000)."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (
+        bin_rows, hist_local, hist_local_plain, hist_window,
+        hist_window_plain, plan_device, plan_device_local, plan_launch,
+        sm_count)
+    sms = sm_count(torch.cuda.current_device())
+    n, f = N_ROWS, N_FEAT
+    order = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+    w_int = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-8, 9, n).astype(np.float32),
+        rng.integers(0, 5, n).astype(np.float32), np.ones(n, np.float32))]
+    w_f32 = [torch.from_numpy(a).to(dev) for a in (
+        rng.standard_normal(n).astype(np.float32),
+        rng.uniform(0.0, 0.25, n).astype(np.float32),
+        np.ones(n, np.float32))]
+    n_loc = n // 4
+    leaf_np = np.where(rng.random(n_loc) < 0.004, 1, 0).astype(np.int32)
+    row_leaf = torch.from_numpy(leaf_np).to(dev)
+    leaf_rows = torch.from_numpy(np.bincount(leaf_np, minlength=3).astype(
+        np.int32)).to(dev)
+    timing, max_err = {}, 0.0
+
+    def rel_err(k, rows, bins, nb):
+        ref = hist64(rows, bins, w_f32, nb)
+        mag = hist64(rows, bins, [w.abs() for w in w_f32], nb)
+        err = (k.double() - ref).abs()
+        return (err / mag.clamp(min=1e-30)).max().item(), err.max().item()
+
+    for nb in WIDE_SHAPES:
+        bins = u16(rng.integers(0, nb, (n, f)), dev)
+        plan = lambda bound, loc=None, **kw: plan_launch(
+            bound, f, nb, loc, num_sms=sms, bin_bytes=2, **kw)
+        for start, cnt in ((12345, 0), (777, 1), (5000, 511),
+                           (40000, 4097), (300000, 100000), (0, n)):
+            sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+            p_int = hist_window_plain(order, sc, bins, *w_int, nb)
+            plans = {"own": plan(cnt), "small": plan(cnt, small_max_rows=n),
+                     "large": plan(cnt, small_max_rows=-1),
+                     "device": plan_device(n, f, nb, num_sms=sms,
+                                           bin_bytes=2)}
+            for name, pl in plans.items():
+                k = hist_window(order, sc, bins, *w_int, nb, cnt, pl)
+                torch.cuda.synchronize()
+                if not torch.equal(k, p_int):
+                    fail(f"uint16 K1 != plain under integer weights at "
+                         f"{nb} bins, window ({start}, {cnt}), {name} plan "
+                         f"{pl}")
+            if cnt:
+                rel, err = rel_err(hist_window(order, sc, bins, *w_f32, nb,
+                                               cnt),
+                                   order[start:start + cnt], bins, nb)
+                if rel > 1e-5:
+                    fail(f"uint16 K1 beyond 1e-5 of the float64 sum of |w| "
+                         f"at {nb} bins, window ({start}, {cnt}): {rel}")
+                max_err = max(max_err, err)
+        # K3 on the first shard of the same bins
+        shard = bins[:n_loc]
+        ws = [w[:n_loc] for w in w_int]
+        for leaf in (0, 1, 2):
+            lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
+            p = hist_local_plain(row_leaf, lid, shard, *ws, nb)
+            for name, pl in (
+                    ("small", plan(n_loc, n_loc, small_max_rows=n_loc)),
+                    ("large", plan(n_loc, n_loc, small_max_rows=-1)),
+                    ("device", plan_device_local(n_loc, f, nb, num_sms=sms,
+                                                 bin_bytes=2))):
+                k = hist_local(row_leaf, lid, shard, *ws, nb, plan=pl,
+                               leaf_rows=leaf_rows)
+                torch.cuda.synchronize()
+                if not torch.equal(k, p):
+                    fail(f"uint16 K3 != plain under integer weights at {nb} "
+                         f"bins, leaf {leaf}, {name} plan {pl}")
+            lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
+            rows = torch.nonzero(row_leaf == leaf).view(-1)
+            if rows.numel():
+                rel, err = rel_err(hist_local(
+                    row_leaf, lid, shard, *[w[:n_loc] for w in w_f32], nb,
+                    leaf_rows=leaf_rows), rows, shard, nb)
+                if rel > 1e-5:
+                    fail(f"uint16 K3 beyond 1e-5 of the float64 sum of |w| "
+                         f"at {nb} bins, leaf {leaf}: {rel}")
+                max_err = max(max_err, err)
+        lp = plan(n, small_max_rows=-1)
+        phase("wide_hist_vs_plain", bins=nb, groups=lp.grid_y,
+              group_width=lp.group_width, bin_slices=lp.grid_z,
+              smem_bytes=lp.smem_bytes, exact_int=True,
+              f32_within_1e_5_of_sum_abs=True)
+        if nb != WIDE_BINS:
+            continue
+        for start, cnt in ((0, n), (40000, 4097)):
+            sc = torch.tensor([start, cnt], dtype=torch.int32, device=dev)
+            idx = order[start:start + cnt].long()
+            flat = (bin_rows(bins, idx) + torch.arange(f, device=dev) * nb
+                    ).reshape(-1)
+            vals = torch.stack([w[idx] for w in w_f32], -1)[:, None, :
+                                                            ].expand(
+                -1, f, 3).reshape(-1, 3).contiguous()
+            acc = torch.zeros((f * nb, 3), device=dev)
+            timing[("k1", cnt)] = t = time_kernel(
+                lambda: hist_window(order, sc, bins, *w_f32, nb, cnt),
+                lambda: hist_window_plain(order, sc, bins, *w_f32, nb),
+                lambda: acc.index_add_(0, flat, vals),
+                wide_bound_ms(cnt, f, nb),
+                lambda: hist_window(order, sc, bins, *w_f32, nb, cnt,
+                                    plan(n)))
+            phase("wide_hist_time", kernel="hist_window", bins=nb,
+                  window_rows=cnt, **{k_: f"{v:.4f}" for k_, v in t.items()
+                                      if isinstance(v, float)},
+                  bound_share=f"{t['bound_ms'] / t['device_ms']:.4f}"
+                  if t["device_ms"] else "not measured")
+        ws = [w[:n_loc] for w in w_f32]
+        for leaf in (0, 1):
+            lid = torch.tensor([leaf], dtype=torch.int32, device=dev)
+            rows = torch.nonzero(row_leaf == leaf).view(-1)
+            flat = (bin_rows(shard, rows) + torch.arange(f, device=dev) * nb
+                    ).reshape(-1)
+            vals = torch.stack([w[rows] for w in ws], -1)[:, None, :
+                                                          ].expand(
+                -1, f, 3).reshape(-1, 3).contiguous()
+            acc = torch.zeros((f * nb, 3), device=dev)
+            timing[("k3", leaf)] = t = time_kernel(
+                lambda: hist_local(row_leaf, lid, shard, *ws, nb,
+                                   leaf_rows=leaf_rows),
+                lambda: hist_local_plain(row_leaf, lid, shard, *ws, nb),
+                lambda: acc.index_add_(0, flat, vals),
+                wide_bound_ms(rows.numel(), f, nb, n_loc),
+                lambda: hist_local(row_leaf, lid, shard, *ws, nb,
+                                   plan=plan(n_loc, n_loc,
+                                             small_max_rows=-1)))
+            phase("wide_hist_time", kernel="hist_local", bins=nb,
+                  shard_rows=n_loc, leaf_rows=rows.numel(),
+                  **{k_: f"{v:.4f}" for k_, v in t.items()
+                     if isinstance(v, float)},
+                  bound_share=f"{t['bound_ms'] / t['device_ms']:.4f}"
+                  if t["device_ms"] else "not measured")
+        del flat, vals, acc
+    return timing, max_err
+
+
+def wide_route_meta(dev, f: int, nb: int, bundled: bool):
+    """The feature meta of a uint16 matrix of ``f`` columns of ``nb``
+    bins, missing types none, zero and NaN in turn; with ``bundled`` its
+    last column is an EFB bundle of two features of 100 and 150 bins
+    (slots 1-99 and 100-248), a bundle of 249 slots in a uint16 matrix."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta
+    e = f + 1 if bundled else f
+    num_bin = [nb] * f + ([150] if bundled else [])
+    if bundled:
+        num_bin[f - 1] = 100
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    meta = FeatureMeta(i32(num_bin), i32([k % 3 for k in range(e)]),
+                       i32([(37 * k) % b for k, b in enumerate(num_bin)]))
+    if not bundled:
+        return meta
+    return meta._replace(col=i32(list(range(f)) + [f - 1]),
+                         offset=i32([-1] * (f - 1) + [1, 100]))
+
+
+# pool rows of the wide route checks: (feature, threshold, default_left,
+# categorical) on columns of missing type none, zero and NaN past bin 255,
+# a categorical split whose bins-left row reaches past bin 255, and the two
+# features of the bundled column
+WIDE_SPLITS = [(0, 600, 1, False), (1, 300, 0, False), (2, 900, 1, False),
+               (4, 0, 0, True), (27, 50, 1, False), (28, 30, 0, False)]
+
+
+def check_wide_route(dev, rng):
+    """Phase 2i, both route kernels on uint16 bins, bit for bit against
+    their plain versions: ``route_window`` on the 1,000,000 x 28 matrix of
+    1,023 bins (its last column a bundle) gathered through either order
+    buffer, and on phase 19's 11,000,000 x 8 leaf-ordered matrix of 283
+    bins at the root, every split of ``WIDE_SPLITS``; ``route_rows`` on
+    the same 1,000,000 rows as four shards, each split's leaf routed
+    and counted.  Times at both roots."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import movable
+    from lightgbm_tpu_torch.ops.route import (route_rows, route_rows_plain,
+                                              route_window,
+                                              route_window_plain)
+    n, f = N_ROWS, N_FEAT
+    g_np = rng.integers(0, WIDE_BINS, (n, f))
+    g_np[:, f - 1] = rng.integers(0, 249, n)           # the bundle's slots
+    higgs = u16(g_np, dev)
+    meta_g = wide_route_meta(dev, f, WIDE_BINS, True)
+    si32 = torch.tensor([s[:3] for s in WIDE_SPLITS], dtype=torch.int32,
+                        device=dev)
+    scat = torch.tensor([s[3] for s in WIDE_SPLITS], device=dev)
+    scatb = torch.from_numpy(rng.random((len(WIDE_SPLITS), WIDE_BINS))
+                             < 0.5).to(dev)
+    orders = [torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+              for _ in range(2)]
+    fe = len(EXPO_CATEGORICAL) + 2
+    expo = [u16(rng.integers(0, EXPO_WIDE_BINS, (N_EXPO, fe)), dev)
+            for _ in range(2)]
+    meta_e = wide_route_meta(dev, fe, EXPO_WIDE_BINS, False)
+    # the Expo set's splits stay on its 8 columns; its categorical row is
+    # the first 283 bins of the wide one
+    si32_e = si32.clone()
+    si32_e[:, 0] = torch.tensor([0, 1, 2, 4, 5, 6], dtype=torch.int32)
+    si32_e[:, 1].clamp_(max=EXPO_WIDE_BINS - 2)
+    scatb_e = scatb[:, :EXPO_WIDE_BINS].contiguous()
+    sets = {"gathered_1023": (meta_g, si32, scatb, (higgs, higgs), orders,
+                              [(12345, 0), (777, 1), (40000, 4097),
+                               (300000, 100000), (0, n)]),
+            "expo_ordered_283": (meta_e, si32_e, scatb_e, expo, (None, None),
+                                 [(0, N_EXPO)])}
+    out = torch.empty(N_EXPO, dtype=torch.bool, device=dev)
+    ref = torch.empty_like(out)
+    checked = 0
+    for label, (meta, s32, sb, b2, o2, windows) in sets.items():
+        for start, cnt in windows:
+            sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
+            for par in (0, 1):
+                odd = torch.tensor([par], dtype=torch.int32, device=dev)
+                for leaf in range(len(WIDE_SPLITS)):
+                    lt = torch.tensor([leaf], device=dev)
+                    out.fill_(True)
+                    ref.fill_(True)
+                    route_window(sc, odd, lt, s32, scat, sb, meta, b2, o2,
+                                 out)
+                    route_window_plain(sc, odd, lt, s32, scat, sb, meta, b2,
+                                       o2, ref)
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, ref):
+                        fail(f"uint16 route kernel != plain at window "
+                             f"({start}, {cnt}) of {label}, buffer {par}, "
+                             f"split {WIDE_SPLITS[leaf]}")
+                    checked += 1
+    timing = {}
+    for label, (meta, s32, sb, b2, o2, _), cnt in (
+            ("expo_root", sets["expo_ordered_283"], N_EXPO),
+            ("gathered_root", sets["gathered_1023"], n)):
+        sc = torch.tensor([0, cnt], dtype=torch.int64, device=dev)
+        odd = torch.tensor([1], dtype=torch.int32, device=dev)
+        lt = torch.tensor([3], device=dev)         # the categorical split
+        gathered = o2[0] is not None
+        k = three_times(lambda: route_window(sc, odd, lt, s32, scat, sb,
+                                             meta, b2, o2, out))
+        p_ms = cuda_ms(lambda: route_window_plain(sc, odd, lt, s32, scat,
+                                                  sb, meta, b2, o2, ref),
+                       reps=3)
+        # each position's order entry (gathered), 2-byte bin and output
+        # byte; the window, parity, leaf, split and bins-left rows
+        nbytes = (cnt * ((4 if gathered else 0) + 3) + 16 + 4 + 8 + 12 + 1
+                  + sb.shape[1])
+        timing[label] = dict(k, plain_ms=p_ms,
+                             bound_ms=nbytes / H100_BYTES_PER_S * 1e3)
+    phase("wide_route_vs_plain", sets=",".join(sets), calls_checked=checked,
+          exact=True, **{f"{w}_{k_}": f"{v:.5f}" for w, d in timing.items()
+                         for k_, v in d.items() if isinstance(v, float)})
+    del expo, out, ref
+
+    # route_rows: the same rows as four shards, column-major
+    shards, n_loc = 4, n // 4
+    bins_t = movable(higgs).t().contiguous().view(torch.uint16)
+    leaves = len(WIDE_SPLITS) + 2
+    rl_np = rng.integers(0, len(WIDE_SPLITS), n).astype(np.int32)
+    counts_np = np.stack([np.bincount(rl_np[i * n_loc:(i + 1) * n_loc],
+                                      minlength=leaves) for i in
+                          range(shards)]).astype(np.int32)
+    new = torch.tensor([leaves - 1], device=dev)
+    si32_r = torch.cat([si32, torch.zeros((2, 3), dtype=torch.int32,
+                                          device=dev)])
+    scat_r = torch.cat([scat, torch.zeros(2, dtype=torch.bool, device=dev)])
+    scatb_r = torch.cat([scatb, torch.zeros((2, WIDE_BINS), dtype=torch.bool,
+                                            device=dev)])
+    for leaf in range(len(WIDE_SPLITS)):
+        lt = torch.tensor([leaf], device=dev)
+        rk, rp = (torch.from_numpy(rl_np).to(dev) for _ in range(2))
+        ck, cp = (torch.from_numpy(counts_np).to(dev) for _ in range(2))
+        route_rows(rk, bins_t, lt, new, si32_r, scat_r, scatb_r, meta_g, ck)
+        route_rows_plain(rp, bins_t, lt, new, si32_r, scat_r, scatb_r,
+                         meta_g, cp)
+        torch.cuda.synchronize()
+        if not (torch.equal(rk, rp) and torch.equal(ck, cp)):
+            fail(f"uint16 route_rows != plain on split {WIDE_SPLITS[leaf]}")
+    # timed with the new leaf = the leaf (the map stays as it is), as
+    # phase 2g times it; the bound counts the rows the split moves
+    lt = torch.tensor([3], device=dev)
+    rl = torch.from_numpy(rl_np).to(dev)
+    ck = torch.from_numpy(counts_np).to(dev)
+    probe = rl.clone()
+    route_rows_plain(probe, bins_t, lt, new, si32_r, scat_r, scatb_r,
+                     meta_g, ck.clone())
+    moved = int((probe != rl).sum())
+    leaf_rows = int((rl == 3).sum())
+    k = three_times(lambda: route_rows(rl, bins_t, lt, lt, si32_r, scat_r,
+                                       scatb_r, meta_g, ck))
+    p_ms = cuda_ms(lambda: route_rows_plain(rl, bins_t, lt, lt, si32_r,
+                                            scat_r, scatb_r, meta_g, ck),
+                   reps=3)
+    # each row's row_leaf entry, the leaf's 2-byte bins (a 32-byte sector
+    # a scattered row, at most the column), each moved row's entry; the
+    # leaf, new leaf, split and bins-left rows and the bundle maps
+    nbytes = (4 * n + min(32 * leaf_rows, 2 * n) + 4 * moved + 8 + 8 + 12
+              + 1 + WIDE_BINS + 8)
+    timing["rows_root"] = dict(k, plain_ms=p_ms,
+                               bound_ms=nbytes / H100_BYTES_PER_S * 1e3)
+    phase("wide_route_rows_vs_plain", rows=n, shards=shards,
+          splits=len(WIDE_SPLITS), exact=True,
+          **{k_: f"{v:.5f}" for k_, v in timing["rows_root"].items()
+             if isinstance(v, float)})
+    return timing
+
+
+def check_wide_cat_group(dev, rng, positions=4096):
+    """Phase 2i, ``cat_group`` at T = 4,096 positions (2 leaves x 8
+    features x 2 directions; a lane walked in three staged chunks) at
+    two count scales, and at 4,097 (a ragged last chunk): accepts
+    identical to the plain loop's.  Time at 4,096, with its byte
+    bound."""
+    import torch
+    from lightgbm_tpu_torch.ops.split import (cat_group_accept,
+                                              cat_group_accept_plain)
+    shape = (2, len(EXPO_CATEGORICAL) + 2, 2, positions)
+
+    def inputs(shape, mean_cnt):
+        step = torch.from_numpy(rng.poisson(mean_cnt, shape).astype(
+            np.float32)).to(dev)
+        ok = torch.from_numpy(rng.random(shape) < 0.8).to(dev)
+        rc = torch.from_numpy(rng.integers(0, 10 ** 6, shape).astype(
+            np.float32)).to(dev)
+        m0 = torch.from_numpy(np.maximum(1.0, np.floor(rng.integers(
+            1, 10 ** 6, shape[:-1]) / 64.0)).astype(np.float32)).to(dev)
+        return step, ok, rc, m0
+
+    cases = {"mean_count_40": inputs(shape, 40.0),
+             "mean_count_4000": inputs(shape, 4000.0),
+             "4097_positions": inputs(shape[:-1] + (positions + 1,), 400.0)}
+    for name, args in cases.items():
+        k = cat_group_accept(*args, 64)
+        p = cat_group_accept_plain(*args, 64)
+        torch.cuda.synchronize()
+        if k.dtype != torch.bool or not torch.equal(k, p):
+            fail(f"cat_group kernel != plain loop at {name}")
+    size = int(np.prod(shape))
+    bound_ms = (size * 10 + size // positions * 4) / H100_BYTES_PER_S * 1e3
+    args = cases["mean_count_4000"]
+    t = three_times(lambda: cat_group_accept(*args, 64))
+    p_ms = cuda_ms(lambda: cat_group_accept_plain(*args, 64), reps=1,
+                   warmup=0)
+    phase("wide_cat_group_vs_plain", shape="x".join(map(str, shape)),
+          cases=",".join(cases), exact=True,
+          **{k_: f"{v:.4f}" for k_, v in t.items() if v is not None},
+          plain_ms=f"{p_ms:.1f}", bound_ms=f"{bound_ms:.6f}")
+    return dict(t, plain_ms=p_ms, bound_ms=bound_ms)
+
+
+def check_wide_partition(dev, rng):
+    """Phase 2i, K2 with phase 19's ordered payload: order, 8 uint16 bin
+    columns and three f32 weights (2 x 8 + 12 = 28 bytes of payload, 32
+    with order), bit for bit against the plain version over the grid of
+    all 11,000,000 rows at both parities, on windows either side of the
+    small launch's limit; time at the root."""
+    import torch
+    from lightgbm_tpu_torch.ops.partition import (SMALL_MAX_ROWS,
+                                                  partition_scratch,
+                                                  partition_window,
+                                                  partition_window_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    n, fe = N_EXPO, len(EXPO_CATEGORICAL) + 2
+
+    def matrices():
+        return [torch.randperm(n, device=dev, generator=gen).int(),
+                u16(rng.integers(0, EXPO_WIDE_BINS, (n, fe)), dev),
+                *[torch.randn(n, device=dev, generator=gen)
+                  for _ in range(3)]]
+    pair = (matrices(), matrices())
+    widths = [x[0].numel() * x.element_size() for x in pair[0]]
+    scratch = partition_scratch(n, dev)
+    ref = [torch.empty_like(x) for x in pair[0]]
+    odd = [torch.tensor([p], dtype=torch.int32, device=dev) for p in (0, 1)]
+    checked = 0
+    for start, cnt in ((777, 1), (40000, 4097), (7, SMALL_MAX_ROWS),
+                       (101, SMALL_MAX_ROWS + 1), (0, n)):
+        sc = torch.tensor([start, cnt], dtype=torch.int64, device=dev)
+        w = slice(start, start + cnt)
+        gl = torch.rand(n, device=dev, generator=gen) < 0.43
+        for par in (0, 1):
+            src, dst = pair[par], pair[1 - par]
+            npl = partition_window_plain(src, ref, start, cnt, gl)
+            nk = partition_window(pair[0], pair[1], sc, gl, n, scratch,
+                                  odd[par])
+            torch.cuda.synchronize()
+            if not torch.equal(nk, npl) or not all(
+                    torch.equal(bits(a[w]), bits(b[w]))
+                    for a, b in zip(dst, ref)):
+                fail(f"partition kernel != plain with the 28-byte payload "
+                     f"at window ({start}, {cnt}), parity {par}")
+            checked += 1
+    sc = torch.tensor([0, n], dtype=torch.int64, device=dev)
+    gl = torch.rand(n, device=dev, generator=gen) < 0.43
+    key = (~gl).to(torch.uint8)
+    src, dst = pair
+    k = three_times(lambda: partition_window(src, dst, sc, gl, n, scratch))
+    lib = three_times(lambda: torch.sort(key, stable=True))
+    p_ms = cuda_ms(lambda: partition_window_plain(src, dst, 0, n, gl),
+                   reps=3)
+    nbytes = part_bound_bytes(n, widths)
+    t = dict(k, plain_ms=p_ms, library_ms=lib["ms"],
+             bound_ms=nbytes / H100_BYTES_PER_S * 1e3)
+    phase("wide_partition_vs_plain", rows=n, row_bytes=sum(widths),
+          calls_checked=checked, exact=True,
+          **{k_: f"{v:.4f}" for k_, v in t.items()
+             if isinstance(v, float) and k_ != "bound_ms"},
+          bound_bytes=nbytes, bound_ms=f"{t['bound_ms']:.5f}")
+    return t
+
+
+def check_wide_kernels(dev, rng):
+    """Phase 2i: every kernel of the uint16 paths against its plain
+    version on the card; returns their times for the kernels line."""
+    import torch
+    out = {}
+    out["hist"], out["hist_err"] = check_wide_hist(dev, rng)
+    torch.cuda.empty_cache()
+    out["route"] = check_wide_route(dev, rng)
+    torch.cuda.empty_cache()
+    out["cat_group"] = check_wide_cat_group(dev, rng)
+    out["partition"] = check_wide_partition(dev, rng)
+    torch.cuda.empty_cache()
+    return out
+
+
+
+# ---- phases 18 and 19: the uint16 bin matrix at full width -----------------
+
+def higgs_wide_path(params, names, x_tr, y_tr, x_te, y_te, sub=50_000):
+    """Phase 18: the Higgs-shaped task at ``max_bin=1023`` (a uint16 bin
+    matrix of 1,000,000 x 28, a histogram of 28 x 1,023 x 3 f32 a leaf),
+    10 rounds by the serial graph loop (``partition_impl=compact``) and by
+    the 4x1 data-parallel learner on the one card (K3, ``route_rows``).
+    Under integer-valued gradients (every sum exact in any order) one
+    round's tree on ``sub`` rows is the CPU port's, by the serial loop and
+    over 4x1, and on all rows the 4x1 tree is the serial tree; the
+    held-out AUC is within 1e-4 of the CPU port's on ``sub`` rows (3
+    rounds, as phase 4), and the 4x1 path's within 1e-4 of the serial
+    path's."""
+    import torch
+    from lightgbm_tpu_torch import Dataset
+    p18 = dict(params, max_bin=WIDE_BINS, partition_impl="compact")
+    dp_p = dict(p18, tree_learner="data", mesh_devices=MESH_SLOTS,
+                mesh_shape="4x1")
+    serial, _, ds = train_path("higgs_1023", p18, x_tr, y_tr, x_te, y_te,
+                               10, names)
+    if ds.bins.dtype != torch.uint16:
+        fail(f"phase 18: a {ds.bins.dtype} bin matrix at max_bin=1023")
+    phase("higgs_1023_path", max_num_bin=ds.constructed.max_num_bin(),
+          bin_matrix_bytes=ds.bins.numel() * ds.bins.element_size(),
+          **serial)
+    dp, _, _ = train_path("higgs_1023_dp_4x1", dp_p, x_tr, y_tr, x_te, y_te,
+                          10, names, ds=ds)
+    gap = abs(float(dp["heldout_auc"]) - float(serial["heldout_auc"]))
+    phase("higgs_1023_dp_4x1", auc_gap_vs_serial=f"{gap:.3e}", **dp)
+    if gap > 1e-4:
+        fail(f"phase 18: the 4x1 AUC {dp['heldout_auc']} is more than 1e-4 "
+             f"from the serial path's {serial['heldout_auc']}")
+    cpu_p = dict(p18, device="cpu")
+    small = Dataset(x_tr[:sub], y_tr[:sub], params=p18).construct()
+    integer_round_identical("higgs_1023_integer_trees", [
+        (cpu_p, Dataset(x_tr[:sub], y_tr[:sub], params=cpu_p).construct()),
+        (p18, small), (dp_p, small)])
+    integer_round_identical("higgs_1023_integer_trees_4x1",
+                            [(p18, ds), (dp_p, ds)])
+    phase("higgs_1023_integer_trees", cpu_serial_4x1_rows=sub,
+          serial_4x1_rows=len(y_tr), identical=True)
+    del small
+    card_vs_cpu("higgs_1023_card_vs_cpu", p18, x_tr[:sub], y_tr[:sub],
+                x_te[:sub], y_te[:sub], ("split_feature", "threshold"), 1e-4,
+                1e-4)
+    return serial, dp
+
+
+def cat_splits_past_255(bst, td) -> int:
+    """Categorical nodes of ``bst`` that route a bin past 255 left."""
+    out = 0
+    for tree in bst.inner.models:
+        for i in range(tree.num_leaves - 1):
+            if tree.is_categorical(i):
+                m = td.bin_mappers[int(tree.split_feature[i])]
+                out += bool(tree.cat_bin_mask(i, m, m.num_bin)[256:].any())
+    return out
+
+
+def expo_wide_path(params, names, sub=50_000):
+    """Phase 19: the Expo-shaped task over the full airport tail
+    (``expo_like(full_tail=True)``: Origin and Dest over about 283 bins,
+    a uint16 bin matrix), 11,000,000 rows and 100,000 held out, as phase 5
+    trains it (compact, ``ordered_bins=on``, 10 rounds): K1, K2 moving
+    2 x 8 + 12 = 28 bytes of payload a row, ``route_window`` on
+    categorical splits past bin 255, and ``cat_group``.  Under
+    integer-valued gradients the card's tree equals the CPU's on ``sub``
+    rows; the held-out AUC within 5e-3 of the CPU's there (3 rounds, as
+    phase 4b)."""
+    import torch
+    rng = np.random.default_rng(SEED + 13)
+    t0 = time.perf_counter()
+    x_all, y_all = expo_like(N_EXPO + N_HELDOUT, rng, full_tail=True)
+    t_gen = time.perf_counter() - t0
+    x_tr, y_tr = x_all[:N_EXPO], y_all[:N_EXPO]
+    x_te, y_te = x_all[N_EXPO:], y_all[N_EXPO:]
+    expo_params = dict(params, categorical_feature=EXPO_CATEGORICAL,
+                       partition_impl="compact", ordered_bins="on",
+                       enable_bundle=False, enable_bin_packing=False)
+    out, bst, ds = train_path("expo_wide", expo_params, x_tr, y_tr, x_te,
+                              y_te, 10, names)
+    td = ds.constructed
+    num_bins = [td.bin_mappers[j].num_bin for j in td.used_features]
+    if ds.bins.dtype != torch.uint16 or max(num_bins) <= 256:
+        fail(f"phase 19: a {ds.bins.dtype} bin matrix, columns of "
+             f"{num_bins} bins")
+    n_cat = sum(t.num_cat for t in bst.inner.models)
+    if n_cat == 0:
+        fail("phase 19: the model holds no categorical split")
+    payload = sum(x[0].numel() * x.element_size()
+                  for x in bst.inner._windows.bufs[0][1:])
+    phase("expo_wide_path", generate_s=f"{t_gen:.3f}",
+          num_bin=":".join(str(b) for b in num_bins),
+          categorical_splits=n_cat,
+          categorical_splits_past_bin_255=cat_splits_past_255(bst, td),
+          payload_bytes_a_row=payload, **out)
+    del bst, ds
+    torch.cuda.empty_cache()
+    grower_card_vs_cpu(expo_params, x_tr[:sub], y_tr[:sub],
+                       "expo_wide_grower_card_vs_cpu")
+    card_vs_cpu("expo_wide_card_vs_cpu", expo_params, x_tr[:sub], y_tr[:sub],
+                x_te[:sub], y_te[:sub],
+                ("split_feature", "threshold", "decision_type",
+                 "left_child", "right_child", "leaf_value",
+                 "cat_boundaries", "cat_threshold"), float("inf"), 5e-3)
+    return out
+
+
+def wide_kernel_fields(name: str, wide: dict, serial: dict, dp: dict,
+                       expo: dict) -> dict:
+    """The kernels line's uint16 fields of kernel ``name``: its launches
+    on phases 18 and 19 (their counts, as the main path's) and its times,
+    bound and PyTorch yardstick from phase 2i."""
+    h = wide["hist"]
+    if name == "hist_gather":
+        t, s = h[("k1", N_ROWS)], h[("k1", 4097)]
+        launches = (serial["hist_window_launches"]
+                    + expo["hist_window_launches"])
+        extra = dict(u16_ms_4097=s["ms"], u16_device_ms_4097=s["device_ms"],
+                     u16_bound_ms_4097=s["bound_ms"],
+                     u16_library_ms_4097=s["library_ms"],
+                     u16_max_abs_err=wide["hist_err"])
+    elif name == "hist_local":
+        t, s = h[("k3", 0)], h[("k3", 1)]
+        launches = 2 * dp["hist_local_launches"]
+        extra = dict(u16_ms_leaf=s["ms"], u16_device_ms_leaf=s["device_ms"],
+                     u16_bound_ms_leaf=s["bound_ms"],
+                     u16_library_ms_leaf=s["library_ms"])
+    elif name == "partition":
+        t, extra = wide["partition"], {}
+        launches = 3 * expo["partition_window_launches"]
+    elif name == "cat_group":
+        t, extra = wide["cat_group"], {"u16_positions": 4096}
+        launches = expo["cat_group_accept_launches"]
+    elif name == "route":
+        t = wide["route"]["expo_root"]
+        g = wide["route"]["gathered_root"]
+        launches = (serial["route_window_launches"]
+                    + expo["route_window_launches"])
+        extra = dict(u16_ms_gathered_root=g["ms"],
+                     u16_device_ms_gathered_root=g["device_ms"],
+                     u16_bound_ms_gathered_root=g["bound_ms"])
+    else:
+        t, extra = wide["route"]["rows_root"], {}
+        launches = dp["route_rows_launches"]
+    return dict(u16_launches=launches, u16_ms=t["ms"],
+                u16_device_ms=t["device_ms"], u16_plain_ms=t["plain_ms"],
+                u16_bound_ms=t["bound_ms"],
+                u16_library_ms=t.get("library_ms"), **extra)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4247,6 +4935,9 @@ def main() -> None:
     rows_timing = check_route_rows(dev, rng)
     rows_timing.update(check_route_rows_bundled(dev, rng))
     torch.cuda.empty_cache()
+
+    # ---- phase 2i: every kernel on a uint16 bin matrix --------------------
+    wide = check_wide_kernels(dev, rng)
 
     # ---- phase 3: the Higgs path at full width ----------------------------
     rng = np.random.default_rng(SEED + 1)
@@ -4411,7 +5102,14 @@ def main() -> None:
     del expo_model, cov_model
     # ---- phase 17: files, the binary file, CSR, two-round loading ---------
     dataset_inputs(params, higgs_model, x_tr, y_tr, x_te, y_te)
+    torch.cuda.empty_cache()
+    # ---- phase 18: the Higgs-shaped task at max_bin=1023 (uint16) ---------
+    wide_serial, wide_dp = higgs_wide_path(params, names, x_tr, y_tr, x_te,
+                                           y_te)
     del x_all, y_all, x_tr, y_tr, x_te, y_te
+    torch.cuda.empty_cache()
+    # ---- phase 19: the Expo-shaped task over the full airport tail --------
+    wide_expo = expo_wide_path(params, names)
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}",
           higgs_ms_per_tree_scatter=higgs["ms_per_tree"],
           higgs_ms_per_tree_compact=compact["ms_per_tree"],
@@ -4429,7 +5127,12 @@ def main() -> None:
           expo_bagging_subset_ms_per_tree=expo_bag["ms_per_tree"],
           **{f"phase_{k}_ms_per_tree": v["ms_per_tree"]
              for k, v in samp.items() if "ms_per_tree" in v},
-          training_api_ms_per_tree=samp["14"]["reset_ms_per_tree"])
+          training_api_ms_per_tree=samp["14"]["reset_ms_per_tree"],
+          higgs_1023_ms_per_tree=wide_serial["ms_per_tree"],
+          higgs_1023_dp_4x1_ms_per_tree=wide_dp["ms_per_tree"],
+          expo_wide_ms_per_tree=wide_expo["ms_per_tree"])
+    u16 = lambda name: wide_kernel_fields(name, wide, wide_serial, wide_dp,
+                                          wide_expo)
 
     root = timing[N_ROWS]
     proot = part_timing[N_EXPO]
@@ -4444,7 +5147,7 @@ def main() -> None:
         "ms": root["ms"], "plain_ms": root["plain_ms"],
         "bound_ms": root["bound_ms"], "bound_by": "bytes",
         "library_ms": root["library_ms"],
-        **small_window_fields(root, timing[4097])}, {
+        **small_window_fields(root, timing[4097]), **u16("hist_gather")}, {
         "name": "hist_local", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/hist_local.cu",
         "replaces": "lightgbm_tpu/ops/pallas_hist.py:284",
@@ -4458,7 +5161,7 @@ def main() -> None:
         # the host's plan at the leaf's count, for comparison
         **{f"{k}{w}": d[k] for w, d in (("", lroot), ("_small", lsmall))
            for k in ("host_plan_ms", "host_plan_ms_many",
-                     "host_plan_device_ms")}}, {
+                     "host_plan_device_ms")}, **u16("hist_local")}, {
         "name": "partition", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",
         "replaces": "lightgbm_tpu/ops/pallas_compact.py:98",
@@ -4471,7 +5174,8 @@ def main() -> None:
             "ms_many", "device_ms", "library_ms_many", "library_device_ms",
             "sort_form_ms", "sort_form_ms_many", "sort_form_device_ms",
             "launches_a_call")},
-        **{f"{k}_4097": v for k, v in part_timing[4097].items()}}, {
+        **{f"{k}_4097": v for k, v in part_timing[4097].items()},
+        **u16("partition")}, {
         "name": "cat_group", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/cat_group.cu",
         "replaces": "lightgbm_tpu/ops/split.py:300",
@@ -4483,7 +5187,8 @@ def main() -> None:
         "latency_bound_ms": group_timing["latency_bound_ms"],
         "max_accepts_a_lane": group_timing["max_accepts_a_lane"],
         "sass_cycles_per_add": group_lat.get("cycles_per_add"),
-        "sass_cycles_per_accept": group_lat.get("cycles_per_accept")}, {
+        "sass_cycles_per_accept": group_lat.get("cycles_per_accept"),
+        **u16("cat_group")}, {
         "name": "route", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/route.cu",
         "replaces": "lightgbm_tpu/grower.py:372",
@@ -4496,7 +5201,7 @@ def main() -> None:
         "replaced_device_ms": rroot["replaced_device_ms"],
         **{f"{k}_{w}": v for w in ("higgs_root", "higgs_4097",
                                    "bundled_root", "bundled_4000")
-           for k, v in route_timing[w].items()}}, {
+           for k, v in route_timing[w].items()}, **u16("route")}, {
         "name": "route_rows", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/route.cu",
         "replaces": "lightgbm_tpu/parallel/gspmd.py:305",
@@ -4508,7 +5213,7 @@ def main() -> None:
         "device_ms": rows_timing["root"]["device_ms"],
         **{f"{k}_{w}": v for w in ("leaf_1000", "bundled_root",
                                    "bundled_leaf_4000")
-           for k, v in rows_timing[w].items()}}, {
+           for k, v in rows_timing[w].items()}, **u16("route_rows")}, {
         "name": "lambdarank", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",
         "replaces": "lightgbm_tpu/objectives.py:405",

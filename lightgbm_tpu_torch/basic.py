@@ -109,7 +109,7 @@ class Dataset:
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self.constructed: Optional[data_mod.TrainingData] = None
-        self.bins: Optional[torch.Tensor] = None     # [N, F] uint8, on device
+        self.bins: Optional[torch.Tensor] = None     # [N, F] u8/u16, on device
         self.raw: Optional[np.ndarray] = None        # a parsed file's rows
         self.pandas_categorical: Optional[List[List]] = None
 

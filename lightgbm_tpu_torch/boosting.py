@@ -48,6 +48,7 @@ from .grower import (FeatureMeta, GrowerConfig, TreeArrays, WindowBuffers,
                      grow_tree, resolve_partition_impl)
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .objectives import Objective, parse_objective_string
+from .ops.histogram import movable
 from .parallel import mesh as mesh_mod
 from .parallel.gspmd import GspmdGrower, resolve_gspmd_hist
 from .predictor import (Predictor, SoABundle, predict_binned_leaf,
@@ -296,7 +297,8 @@ class GBDT:
         # rows padded to whole shards with zero weights (:1026-1031)
         self._row_pad = mesh_mod.pad_rows(self.num_data, d)
         pad = lambda t: (t if not self._row_pad or t is None else torch.cat(
-            [t, t.new_zeros((self._row_pad, t.shape[1]))]))
+            [movable(t), movable(t).new_zeros((self._row_pad, t.shape[1]))]
+        ).view(t.dtype))
         log.info("Using the data-parallel %s learner over a %dx%d (batch, "
                  "feature) mesh, %s histogram", cfg.tree_learner, d, fs,
                  gspmd_hist)
@@ -582,7 +584,8 @@ class GBDT:
             # compact, the split step captured at the first split
             self._windows = WindowBuffers(
                 *self.bins.shape, self.grower_cfg, self.device,
-                n_logical=self.meta.num_bin.numel(), packed=self.packed)
+                n_logical=self.meta.num_bin.numel(), packed=self.packed,
+                bin_dtype=self.bins.dtype)
         return grow_tree(self.bins, g, h, c, self.meta, self._feat_valid,
                          self.grower_cfg, self.stats, self._windows,
                          rows=rows)

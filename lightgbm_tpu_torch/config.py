@@ -512,10 +512,8 @@ def check_params(cfg: Config) -> None:
     if cfg.partition_impl not in ("auto", "scatter", "sort", "compact"):
         log.fatal("partition_impl must be auto, scatter, sort, or compact; "
                   "got %r", cfg.partition_impl)
-    if cfg.max_bin > 256:
-        # the bin matrix is uint8 and the histogram kernel is 256 bins wide
-        _unsupported(f"max_bin={cfg.max_bin} (> 256)",
-                     "training breadth (uint16 bin matrix)")
+    if cfg.max_bin > 65535:
+        log.fatal("max_bin too large (must fit uint16)")
     if cfg.num_leaves < 2:
         log.fatal("num_leaves must be >= 2; got %d", cfg.num_leaves)
     if cfg.saved_feature_importance_type not in (0, 1):

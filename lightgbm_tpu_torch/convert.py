@@ -19,7 +19,7 @@ import numpy as np
 from .basic import Booster, Dataset
 from .data.binning import BIN_TYPE_CATEGORICAL, BinMapper
 from .data.bundling import BundleLayout
-from .data.dataset import TrainingData
+from .data.dataset import TrainingData, bin_dtype
 from .data.metadata import Metadata
 from .tree import Tree
 
@@ -49,7 +49,9 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
                         ) -> Dataset:
     """A constructed port Dataset from the arrays of a constructed one.
 
-    ``binned`` is ``[N, F_used]`` uint8; the per-feature arrays describe
+    ``binned`` is ``[N, F_used]``, kept as the JAX package's type: uint8
+    when every column has at most 256 bins, else uint16
+    (``data.dataset.bin_dtype``); the per-feature arrays describe
     its columns, which are the original features ``used_features``
     (default: all of them) of ``num_total_features``.  ``min_max`` gives
     each used feature's (min, max) for the model's ``feature_infos``.
@@ -62,7 +64,7 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
     a physical column) marks ``binned`` as EFB-bundled: its columns are
     the bundles, and ``used_features`` must then list the features in
     bundle order, as the JAX dataset's ``used_features`` does."""
-    binned = np.ascontiguousarray(binned, dtype=np.uint8)
+    binned = np.asarray(binned)
     n, f = binned.shape
     if used_features is None:
         used_features = (range(f) if bundles is None
@@ -96,7 +98,8 @@ def dataset_from_arrays(binned: np.ndarray, num_bin: Sequence[int],
         if td.layout.sub_features != used or td.layout.num_columns != f:
             raise ValueError("bundles must cover used_features in bundle "
                              "order, one bundle a column of binned")
-    td.binned = binned
+    td.binned = np.ascontiguousarray(binned,
+                                     dtype=bin_dtype(td.max_num_bin()))
     td.feature_names = (list(feature_names) if feature_names
                         else [f"Column_{i}" for i in range(total)])
     td.metadata = Metadata(n)

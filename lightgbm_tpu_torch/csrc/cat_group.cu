@@ -36,6 +36,11 @@
 // branch, one branch a window, the window taken again after each accept),
 // and this walk with its next window and right counts loaded a window
 // ahead.
+// A lane holds T = min(max_cat_threshold, B) positions, past 256 only with
+// a uint16 bin matrix.  It is staged and walked a chunk of kChunk
+// positions at a time, the walk's state (count, groups left, minimum)
+// carried in the walking thread's registers from one chunk to the next:
+// the same accepts for any T, in at most 48 KB of shared memory.
 // ok and accept are 1-byte 0/1 (torch.bool) as the caller holds them; the
 // minimum group size mdpg0 may be given per run of `group` lanes (per leaf).
 //
@@ -67,7 +72,8 @@ namespace {
 
 constexpr int kLanes = 2;              // lanes (warps) a block
 constexpr int kWin = 8;                // positions a window
-constexpr int kMaxSmem = 48 * 1024;
+constexpr int kChunk = 1792;           // positions staged at once: the
+                                       // most that 48 KB holds for 2 lanes
 
 // Positions a lane's row holds in shared memory: T rounded up to whole
 // windows, so that a window's loads are 16-byte aligned.
@@ -94,73 +100,79 @@ __global__ void __launch_bounds__(32 * kLanes)
 lgbt_cat_group_kernel(Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int T = a.positions;
-  const int TP = padded(T);
+  const int TP = padded(T < kChunk ? T : kChunk);   // positions a chunk
   const int w = threadIdx.x >> 5;
   const int l = threadIdx.x & 31;
   const long long lane = (long long)blockIdx.x * kLanes + w;
   if (lane >= a.lanes) return;
-  // the warp's rows, padded to TP positions: step, gate, right_count (f32)
-  // and its accepts (u8)
+  // the warp's chunk, padded to TP positions: step, gate, right_count
+  // (f32) and its accepts (u8)
   float* st = reinterpret_cast<float*>(smem) + w * 3 * TP;
   float* gate = st + TP;
   float* rc = gate + TP;
   uint8_t* out = reinterpret_cast<uint8_t*>(smem) +
                  kLanes * 3 * TP * 4 + w * TP;
   const long long off = lane * T;
-  const float* gs = static_cast<const float*>(a.step) + off;
-  const float* gr = static_cast<const float*>(a.right_count) + off;
-  const uint8_t* gok = static_cast<const uint8_t*>(a.ok) + off;
-  // the gate is added to the count for the accept test only: 0 keeps the
-  // count (exactly), -inf fails the test.  Padding positions have step 0
-  // and gate -inf.
+  // the walk's state, in the walking thread (l == 0)
+  float cnt = 0.f;
+  float rest = a.max_cat_group;
+  float mdpg = static_cast<const float*>(a.mdpg0)[lane / a.group];
+  for (int c0 = 0; c0 < T; c0 += TP) {
+    const int n = min(TP, T - c0);     // real positions of the chunk
+    const float* gs = static_cast<const float*>(a.step) + off + c0;
+    const float* gr = static_cast<const float*>(a.right_count) + off + c0;
+    const uint8_t* gok = static_cast<const uint8_t*>(a.ok) + off + c0;
+    // the gate is added to the count for the accept test only: 0 keeps
+    // the count (exactly), -inf fails the test.  Padding positions have
+    // step 0 and gate -inf.
 #pragma unroll 8
-  for (int t = l; t < TP; t += 32) {
-    if (t < T) {
-      copy_async4(st + t, gs + t);
-      copy_async4(rc + t, gr + t);
-      gate[t] = __ldg(gok + t) ? 0.f : -INFINITY;
-    } else {
-      st[t] = 0.f;
-      gate[t] = -INFINITY;
+    for (int t = l; t < TP; t += 32) {
+      if (t < n) {
+        copy_async4(st + t, gs + t);
+        copy_async4(rc + t, gr + t);
+        gate[t] = __ldg(gok + t) ? 0.f : -INFINITY;
+      } else {
+        st[t] = 0.f;
+        gate[t] = -INFINITY;
+      }
+      out[t] = 0;   // no accepts
     }
-    out[t] = 0;   // no accepts
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncwarp();
-  if (l == 0) {
-    const float4* s4 = reinterpret_cast<const float4*>(st);
-    const float4* g4 = reinterpret_cast<const float4*>(gate);
-    float cnt = 0.f;
-    float rest = a.max_cat_group;
-    float mdpg = static_cast<const float*>(a.mdpg0)[lane / a.group];
-    for (int t0 = 0; t0 < TP; t0 += kWin) {
-      // a window's steps and gates in four 16-byte loads
-      const float4 sa = s4[t0 / 4], sb = s4[t0 / 4 + 1];
-      const float4 ga = g4[t0 / 4], gb = g4[t0 / 4 + 1];
-      const float sv[kWin] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z,
-                              sb.w};
-      const float gv[kWin] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z,
-                              gb.w};
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+    if (l == 0) {
+      const float4* s4 = reinterpret_cast<const float4*>(st);
+      const float4* g4 = reinterpret_cast<const float4*>(gate);
+      for (int t0 = 0; t0 < TP; t0 += kWin) {
+        // a window's steps and gates in four 16-byte loads
+        const float4 sa = s4[t0 / 4], sb = s4[t0 / 4 + 1];
+        const float4 ga = g4[t0 / 4], gb = g4[t0 / 4 + 1];
+        const float sv[kWin] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z,
+                                sb.w};
+        const float gv[kWin] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z,
+                                gb.w};
 #pragma unroll
-      for (int j = 0; j < kWin; ++j) {
-        cnt = __fadd_rn(cnt, sv[j]);
-        if (__fadd_rn(cnt, gv[j]) >= mdpg) {
-          out[t0 + j] = 1;
-          accept_at(rc[t0 + j], rest, mdpg);
-          cnt = 0.f;
+        for (int j = 0; j < kWin; ++j) {
+          cnt = __fadd_rn(cnt, sv[j]);
+          if (__fadd_rn(cnt, gv[j]) >= mdpg) {
+            out[t0 + j] = 1;
+            accept_at(rc[t0 + j], rest, mdpg);
+            cnt = 0.f;
+          }
         }
       }
     }
+    __syncwarp();
+    uint8_t* acc = static_cast<uint8_t*>(a.accept) + off + c0;
+    for (int t = l; t < n; t += 32) acc[t] = out[t];
+    __syncwarp();   // the chunk's rows are read before the next is staged
   }
-  __syncwarp();
-  uint8_t* acc = static_cast<uint8_t*>(a.accept) + off;
-  for (int t = l; t < T; t += 32) acc[t] = out[t];
 }
 
 // The kernel's shared memory: each warp's three padded float rows and
-// its accepts.
+// its accepts, for a chunk of at most kChunk positions.
 int smem_bytes(int positions) {
-  return kLanes * padded(positions) * (3 * 4 + 1);
+  return kLanes * padded(positions < kChunk ? positions : kChunk) *
+         (3 * 4 + 1);
 }
 
 }  // namespace
@@ -175,7 +187,6 @@ extern "C" int lgbt_cat_group(const Args* x) {
   if (a.group < 1 || a.lanes % a.group != 0)
     return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(a.positions);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   int prev = a.device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != a.device) err = cudaSetDevice(a.device);

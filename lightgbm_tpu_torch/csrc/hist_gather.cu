@@ -1,7 +1,9 @@
 // Gather-histogram kernel (K1) for Hopper (sm_90a).
 //
 // Replaces lightgbm_tpu/ops/pallas_hist.py:223 hist6_fused (the Pallas
-// kernel behind ops/histogram.py:subset_histogram_fused): the per-leaf
+// kernel behind ops/histogram.py:subset_histogram_fused, which stops at
+// 256 bins; past them the JAX grower takes subset_histogram_segment, a
+// scatter-add, and this kernel reads the uint16 bin matrix): the per-leaf
 // histogram of the rows order[start, start + cnt), out[f][b] = (sum g,
 // sum h, count) over the rows whose feature f falls in bin b, in full f32.
 // It computes the same function, not the same blocks: the TPU kernel
@@ -18,7 +20,9 @@
 //     group, statistic) with global reductions, the grid spread over the
 //     card;
 //   - the large regime above it: 4-column groups on blockIdx.y, each a
-//     12 KB shared-memory histogram, and slices of the window on
+//     12 KB shared-memory histogram at 255 bins (narrower groups, or one
+//     column's bins cut into slices on blockIdx.z, past 1,024 bins), and
+//     slices of the window on
 //     blockIdx.x, sized so that four blocks are resident on every SM.
 //     The true count is spread over all the blocks.
 // Inside the serial grower's captured split step the host holds no bound
@@ -53,23 +57,32 @@
 
 namespace {
 
+template <class T>
 __global__ void __launch_bounds__(hist::kThreads)
 hist_gather_small(hist::GatherRows rows, hist::Weights a) {
-  hist::small_gather(rows, a);
+  hist::small_gather<T>(rows, a);
 }
 
+template <class T>
 __global__ void __launch_bounds__(hist::kThreads)
 hist_gather_large(hist::GatherRows rows, hist::Weights a, int group_w) {
-  hist::large_groups(rows, a, group_w);
+  hist::large_groups<T>(rows, a, group_w);
 }
 
 }  // namespace
 
 // Zeroes out (n_feat * num_bins * 3 floats) and launches the plan on
-// stream x->stream of card x->device (hist_core.cuh: Args).  Returns the
+// stream x->stream of card x->device (hist_core.cuh: Args), with the
+// kernels of x->bin_bytes (1: uint8, 2: uint16) bins.  Returns the
 // cudaError_t (0 on success).
 extern "C" int lgbt_hist_gather(const hist::Args* x) {
+  // the cards on which each large kernel may take more than 48 KB
+  static bool done8[hist::kMaxDevices], done16[hist::kMaxDevices];
   const hist::GatherRows rows{(const int32_t*)x->rows_a,
                               (const int32_t*)x->rows_b, 0};
-  return hist::launch(hist_gather_small, hist_gather_large, rows, *x);
+  if (x->bin_bytes == 2)
+    return hist::launch(hist_gather_small<uint16_t>,
+                        hist_gather_large<uint16_t>, done16, rows, *x);
+  return hist::launch(hist_gather_small<uint8_t>, hist_gather_large<uint8_t>,
+                      done8, rows, *x);
 }

@@ -24,7 +24,9 @@
 //     columns with global reductions.  A block whose rows hold none of the
 //     leaf writes nothing; no block zeroes or flushes a histogram;
 //   - the large regime above it: 4-column groups on blockIdx.y, each a
-//     12 KB shared-memory histogram, and contiguous slices of the shard on
+//     12 KB shared-memory histogram at 255 bins (narrower groups, or one
+//     column's bins cut into slices on blockIdx.z, past 1,024 bins), and
+//     contiguous slices of the shard on
 //     blockIdx.x; a block whose slice holds no row of the leaf
 //     (__syncthreads_or over its slice of row_leaf) returns before zeroing.
 // The large regime keeps the feature groups, not the thread block cluster
@@ -46,25 +48,34 @@
 
 namespace {
 
+template <class T>
 __global__ void __launch_bounds__(hist::kThreads)
 hist_local_small(hist::MaskedRows rows, hist::Weights a) {
-  hist::small_scan(rows, a);
+  hist::small_scan<T>(rows, a);
 }
 
+template <class T>
 __global__ void __launch_bounds__(hist::kThreads)
 hist_local_large(hist::MaskedRows rows, hist::Weights a, int group_w) {
-  hist::large_groups(rows, a, group_w);
+  hist::large_groups<T>(rows, a, group_w);
 }
 
 }  // namespace
 
 // Zeroes out (n_feat * num_bins * 3 floats) and launches the plan on
 // stream x->stream of card x->device (hist_core.cuh: Args), over the
-// x->n_loc local rows.  Returns the cudaError_t (0 on success).
+// x->n_loc local rows, with the kernels of x->bin_bytes (1: uint8, 2:
+// uint16) bins.  Returns the cudaError_t (0 on success).
 extern "C" int lgbt_hist_local(const hist::Args* x) {
+  // the cards on which each large kernel may take more than 48 KB
+  static bool done8[hist::kMaxDevices], done16[hist::kMaxDevices];
   if (x->n_loc < 0) return (int)cudaErrorInvalidValue;
   const hist::MaskedRows rows{(const int32_t*)x->rows_a,
                               (const int32_t*)x->rows_b,
                               (const int32_t*)x->leaf_rows, x->n_loc, 0};
-  return hist::launch(hist_local_small, hist_local_large, rows, *x);
+  if (x->bin_bytes == 2)
+    return hist::launch(hist_local_small<uint16_t>,
+                        hist_local_large<uint16_t>, done16, rows, *x);
+  return hist::launch(hist_local_small<uint8_t>, hist_local_large<uint8_t>,
+                      done8, rows, *x);
 }

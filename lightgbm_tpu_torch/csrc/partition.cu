@@ -101,8 +101,10 @@ constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;   // 2,048 positions
 // staged rows a block holds at most (dynamic shared memory, 4-byte words):
-// the Expo-shaped path's 24-byte rows fit whole
-constexpr int kStageWords = 16384;         // 64 KB
+// the Expo-shaped path's rows fit whole, order and payload: 24 bytes with
+// uint8 bins (12,348 words a tile), 32 with uint16 bins (16,444 words);
+// a tile takes only the words its rows need
+constexpr int kStageWords = 20480;         // 80 KB
 constexpr int kRunPad = 12;               // words a matrix adds for shifts
 
 // Staged words of one matrix's n rows of wpr words: a multiple of 4, so

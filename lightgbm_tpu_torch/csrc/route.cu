@@ -30,9 +30,12 @@
 // (1 = left) for the window's positions p in [0, cnt).  The split column
 // is read from the leaf-ordered bins of the window's buffer
 // (ordered_bins=on: contiguous) or gathered through the buffer's `order`
-// from the natural bin matrix.  What bounds it on the H100: bytes, and
+// from the natural bin matrix.  Bins are uint8, or uint16 when a column
+// has more than 256 bins (both kernels are instantiated for each; a
+// categorical split's bins-left row is then as wide as the histogram).
+// What bounds it on the H100: bytes, and
 // their latency: per position the order entry (4 B, coalesced), one bin
-// byte (a random 32-byte sector when gathered) and the output byte; a
+// (a random 32-byte sector when gathered) and the output byte; a
 // bundled column adds two 4-byte reads a call (col and offset), none a
 // row.  A
 // window of zero positions (a step after the tree stopped) reads its
@@ -50,7 +53,8 @@
 // of `new` and takes them from that of `leaf` (counts, int32
 // [shards, leaves]) with one integer atomicAdd each: exact, whatever the
 // order, so every run gives the same counts.  What bounds it on the H100:
-// bytes, 4 of row_leaf a row read, the column read only at the leaf's rows
+// bytes, 4 of row_leaf a row read, the column (1 or 2 bytes a row) read
+// only at the leaf's rows
 // (a 32-byte sector each where they are scattered, the whole column at the
 // root) and 4 a moved row written (a bundled column adds two 4-byte reads
 // a call, none a row); after the tree's stop no row holds the sink leaf
@@ -82,7 +86,7 @@ __device__ __forceinline__ int decode_slot(int b, int off, int nb, int db) {
 }  // namespace
 
 // The argument block of lgbt_route, packed by the Python wrapper
-// (ops/route.py:_ARGS, struct format "@16Pq5iP").
+// (ops/route.py:_ARGS, struct format "@16Pq6iP").
 struct Args {
   const void* sc;          // int64[2] (start, cnt)
   const void* odd;         // int32[1]: the window's buffer, by parity
@@ -95,7 +99,7 @@ struct Args {
   const void* default_bin;
   const void* col;         // int32 [E]: the feature's column, or null
   const void* offset;      // int32 [E]: its first slot, or null
-  const void* bins[2];     // uint8 [rows, F] of buffer 0 and 1
+  const void* bins[2];     // uint8/uint16 [rows, F] of buffer 0 and 1
   const void* order[2];    // int32 [rows] of buffer 0 and 1, or null: the
                            // bins are the window's rows in order
   void* goes_left;         // uint8 [>= cnt]
@@ -105,11 +109,13 @@ struct Args {
   int cat_width;
   int grid;
   int device;
+  int bin_bytes;           // 1: uint8 bins, 2: uint16
   void* stream;
 };
 
 namespace {
 
+template <class T>
 __global__ void __launch_bounds__(kThreads) lgbt_route_kernel(Args a) {
   const long long* sc = static_cast<const long long*>(a.sc);
   const long long start = sc[0];
@@ -134,7 +140,7 @@ __global__ void __launch_bounds__(kThreads) lgbt_route_kernel(Args a) {
   const int mt = static_cast<const int32_t*>(a.missing_type)[feat];
   const int nb = static_cast<const int32_t*>(a.num_bin)[feat];
   const int db = static_cast<const int32_t*>(a.default_bin)[feat];
-  const uint8_t* bins = static_cast<const uint8_t*>(a.bins[par]) + c;
+  const T* bins = static_cast<const T*>(a.bins[par]) + c;
   const int32_t* order = static_cast<const int32_t*>(a.order[par]);
   uint8_t* out = static_cast<uint8_t*>(a.goes_left);
   const long long stride = (long long)gridDim.x * kThreads;
@@ -164,6 +170,7 @@ __global__ void __launch_bounds__(kThreads) lgbt_route_kernel(Args a) {
 extern "C" int lgbt_route(const Args* x) {
   const Args& a = *x;
   if (a.grid < 1 || a.n_feat < 1 || a.n_logical < 1 || a.rows < 0 ||
+      (a.bin_bytes != 1 && a.bin_bytes != 2) ||
       (a.col == nullptr) != (a.offset == nullptr) ||
       (a.split_cat != nullptr && (a.split_catb == nullptr ||
                                   a.cat_width < 1)) ||
@@ -174,7 +181,12 @@ extern "C" int lgbt_route(const Args* x) {
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != a.device) err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
-  lgbt_route_kernel<<<a.grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
+  if (a.bin_bytes == 2)
+    lgbt_route_kernel<uint16_t>
+        <<<a.grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
+  else
+    lgbt_route_kernel<uint8_t>
+        <<<a.grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
   const int rc = (int)cudaGetLastError();
   if (prev != a.device) {
     err = cudaSetDevice(prev);
@@ -184,10 +196,10 @@ extern "C" int lgbt_route(const Args* x) {
 }
 
 // The argument block of lgbt_route_rows, packed by the Python wrapper
-// (ops/route.py:_ROWS_ARGS, struct format "@13Pq7iP").
+// (ops/route.py:_ROWS_ARGS, struct format "@13Pq8iP").
 struct RowsArgs {
   void* row_leaf;          // int32 [shards * n_loc], updated in place
-  const void* bins_t;      // uint8 [F, shards * n_loc], column-major
+  const void* bins_t;      // uint8/uint16 [F, shards * n_loc], by column
   const void* leaf;        // int64[1]: the splitting leaf
   const void* new_leaf;    // int64[1]: the leaf its right rows move to
   const void* split_i32;   // int32 [leaves, 3]: feature, threshold, dleft
@@ -207,11 +219,13 @@ struct RowsArgs {
   int n_leaves;            // columns of counts: every leaf id, sinks too
   int grid_x;              // blocks a shard
   int device;
+  int bin_bytes;           // 1: uint8 bins, 2: uint16
   void* stream;
 };
 
 namespace {
 
+template <class T>
 __global__ void __launch_bounds__(kThreads) lgbt_route_rows_kernel(
     RowsArgs a) {
   __shared__ int warp_moved[kThreads / 32];
@@ -237,8 +251,8 @@ __global__ void __launch_bounds__(kThreads) lgbt_route_rows_kernel(
   const int shard = blockIdx.y;
   const long long base = (long long)shard * a.n_loc;
   int32_t* rl = static_cast<int32_t*>(a.row_leaf) + base;
-  const uint8_t* col = static_cast<const uint8_t*>(a.bins_t) +
-                       (long long)c * a.shards * a.n_loc + base;
+  const T* col = static_cast<const T*>(a.bins_t) +
+                 (long long)c * a.shards * a.n_loc + base;
   int moved = 0;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -284,6 +298,7 @@ extern "C" int lgbt_route_rows(const RowsArgs* x) {
   const RowsArgs& a = *x;
   if (a.grid_x < 1 || a.shards < 1 || a.shards > 65535 || a.n_feat < 1 ||
       a.n_logical < 1 || a.n_loc < 0 || a.n_leaves < 1 ||
+      (a.bin_bytes != 1 && a.bin_bytes != 2) ||
       (a.col == nullptr) != (a.offset == nullptr) ||
       (a.split_cat != nullptr && (a.split_catb == nullptr ||
                                   a.cat_width < 1)))
@@ -292,8 +307,13 @@ extern "C" int lgbt_route_rows(const RowsArgs* x) {
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != a.device) err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
-  lgbt_route_rows_kernel<<<dim3(a.grid_x, a.shards), kThreads, 0,
-                           (cudaStream_t)a.stream>>>(a);
+  const dim3 grid(a.grid_x, a.shards);
+  if (a.bin_bytes == 2)
+    lgbt_route_rows_kernel<uint16_t>
+        <<<grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
+  else
+    lgbt_route_rows_kernel<uint8_t>
+        <<<grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
   const int rc = (int)cudaGetLastError();
   if (prev != a.device) {
     err = cudaSetDevice(prev);

@@ -2,7 +2,7 @@
 
 The greedy conflict-bounded bundling of the reference (``FindGroups`` /
 ``FastFeatureBundling``, ``src/io/dataset.cpp:66-210``): mutually
-exclusive sparse features share ONE physical uint8 column, so the
+exclusive sparse features share ONE physical column, so the
 histogram's width follows the bundles, not the features.
 
 Layout of a bundle column:
@@ -14,11 +14,12 @@ Layout of a bundle column:
 
 Rows where two bundled features are both non-default are conflicts; the
 search bounds them by ``max_conflict_rate`` and a conflicting row takes
-the last feature's value.  Bundles cap at 256 slots, so the matrix stays
-uint8.  The split scan never sees a bundle column: the grower expands
-its histogram into one per feature (``grower.expand_bundle_hist``, the
-reference's ``FixHistogram``), and routing decodes the slot
-(``ops/route.py:decode_bundle_bin``).
+the last feature's value.  Bundles cap at 256 slots, so a bundle alone
+never makes the matrix uint16; it is written into a uint16 matrix when
+another column has more than 256 bins.  The split scan never sees a
+bundle column: the grower expands its histogram into one per feature
+(``grower.expand_bundle_hist``, the reference's ``FixHistogram``), and
+routing decodes the slot (``ops/route.py:decode_bundle_bin``).
 """
 from __future__ import annotations
 
@@ -128,8 +129,10 @@ class BundleLayout:
 def build_bundled_column(columns, bundle: List[int], mappers,
                          offsets: List[int],
                          out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Bin one bundle's features and merge them into one uint8 column
-    (``lightgbm_tpu/data/bundling.py:136-161``).  ``columns`` maps a
+    """Bin one bundle's features and merge them into one column of the
+    bin matrix's type, ``out``'s (uint8 when not given; a bundle's slots
+    stay within 256, but the matrix is uint16 when another column is
+    wide) (``lightgbm_tpu/data/bundling.py:136-161``).  ``columns`` maps a
     feature id to its float64 column; ``offsets[i]`` is the first slot of
     ``bundle[i]``; a conflicting row takes the LAST feature's value."""
     n = len(columns[bundle[0]])
@@ -141,5 +144,5 @@ def build_bundled_column(columns, bundle: List[int], mappers,
         b = m.value_to_bin(columns[j]).astype(np.int32)
         nondef = b != m.default_bin
         slot = off + b - (b > m.default_bin)
-        col[nondef] = slot[nondef].astype(np.uint8)
+        col[nondef] = slot[nondef].astype(col.dtype)
     return col

@@ -2,9 +2,11 @@
 
 The reference (``include/LightGBM/dataset.h:280-570``,
 ``src/io/dataset.cpp``) stores per-group ``Bin`` columns; the port keeps one
-dense row-major ``[N, F]`` uint8 matrix of bin indices (its GPU learner's
-``sparse_threshold=1`` recipe), built on the host and moved to the device
-once by :class:`~lightgbm_tpu_torch.basic.Dataset`.  With EFB
+dense row-major ``[N, F]`` matrix of bin indices (its GPU learner's
+``sparse_threshold=1`` recipe), uint8 when every column has at most 256
+bins and uint16 otherwise (:func:`bin_dtype`, the JAX package's rule),
+built on the host and moved to the device once by
+:class:`~lightgbm_tpu_torch.basic.Dataset`.  With EFB
 (``enable_bundle``, :mod:`.bundling`) a column is a bundle of mutually
 exclusive features; the logical features are then the used features in
 bundle order, and the meta carries each one's column and first slot.
@@ -20,7 +22,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..config import Config, _unsupported
+from ..config import Config
 from ..utils import log
 from ..utils.random import make_rng, sample_k
 from .binning import BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper
@@ -41,7 +43,7 @@ class TrainingData:
         self.bin_mappers: List[BinMapper] = []
         # original feature index per LOGICAL feature
         self.used_features: List[int] = []
-        self.binned: Optional[np.ndarray] = None   # [N, F_physical] uint8
+        self.binned: Optional[np.ndarray] = None   # [N, F_physical] u8/u16
         self.layout: Optional[BundleLayout] = None  # EFB (None: 1:1)
         self.metadata: Metadata = Metadata()
         self.feature_names: List[str] = []
@@ -226,16 +228,19 @@ def _sample_indices(config: Config, num_data: int) -> Optional[np.ndarray]:
     return sample_k(make_rng(config.data_random_seed), num_data, sample_cnt)
 
 
+def bin_dtype(max_num_bin: int):
+    """The bin matrix's type (``lightgbm_tpu/data/dataset.py:140``): uint8
+    when every column has at most 256 bins, else uint16.  A categorical
+    column keeps categories past ``max_bin`` until they cover 99 % of the
+    rows, so it may need uint16 at the default ``max_bin``."""
+    return np.uint8 if max_num_bin <= 256 else np.uint16
+
+
 def _allocate_binned(ds: TrainingData) -> np.ndarray:
-    """The ``[N, columns]`` uint8 bin matrix of the fitted layout."""
-    if ds.max_num_bin() > 256:
-        # a categorical column keeps categories past max_bin until they
-        # cover 99 % of the rows; the bin matrix here is uint8
-        _unsupported(f"a column of {ds.max_num_bin()} bins (> 256)",
-                     "training breadth (uint16 bin matrix)")
+    """The ``[N, columns]`` bin matrix of the fitted layout."""
     ncols = (ds.layout.num_columns if ds.bundled
              else len(ds.used_features))
-    return np.empty((ds.num_data, ncols), dtype=np.uint8)
+    return np.empty((ds.num_data, ncols), dtype=bin_dtype(ds.max_num_bin()))
 
 
 def _set_metadata(ds: TrainingData, label, weight, group,
@@ -325,7 +330,7 @@ def _bin_rows(ds: TrainingData, data: np.ndarray, out: np.ndarray) -> None:
             n_src += len(bundle)
         if cur:
             blocks.append(cur)
-        buf = np.empty(data.shape[0], dtype=np.uint8)
+        buf = np.empty(data.shape[0], dtype=out.dtype)
         for block in blocks:
             src = sorted({j for _, b in block for j in b})
             cols_t = _columns_T(data, src)

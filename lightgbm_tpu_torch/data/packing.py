@@ -3,9 +3,12 @@
 Two physical columns a (lo) and b (hi) of at most 16 bins each share one
 byte ``v = a | (b << 4)``.  The byte is the joint (a, b) bin over a 16 x 16
 grid, so the histogram kernels read the packed **storage** matrix as they
-read any uint8 matrix, at width 256, and the two 16-bin histograms fall out
-of the joint one by summing over each nibble (:func:`unfold_packed_hist`).
-A packed pair is one byte a row for the histogram instead of two.
+read any bin matrix, at width ``max(256, B)``, and the two 16-bin
+histograms fall out of the joint one by summing over each nibble
+(:func:`unfold_packed_hist`).  A packed pair is one storage entry a row for
+the histogram instead of two.  The storage matrix keeps the bin matrix's
+type (``lightgbm_tpu/data/packing.py:pack_columns``): a pair's joint bin
+lies below 256, but a uint16 matrix's wide columns pass through.
 
 The packed matrix is a second device copy beside the unpacked one, read
 only by the histogram; routing, the partition's payload and the binned
@@ -19,6 +22,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..ops.histogram import widen
 
 PACK_MAX_BIN = 16          # bins a nibble holds
 PACK_JOINT_BINS = 256      # the joint (lo, hi) bins of a packed byte
@@ -86,15 +91,18 @@ def build_pack_plan(col_num_bins) -> Optional[PackPlan]:
 
 
 def pack_columns(binned: torch.Tensor, plan: PackPlan) -> torch.Tensor:
-    """``[N, Fp]`` uint8 bins -> the ``[N, C]`` uint8 storage matrix, on
-    the device of ``binned``: nibble pairs merged, other columns copied."""
+    """``[N, Fp]`` bins -> the ``[N, C]`` storage matrix of the same type,
+    on the device of ``binned``: nibble pairs merged, other columns
+    copied.  The merge runs in int32 (PyTorch has no shift of uint16)."""
     out = torch.zeros((binned.shape[0], plan.num_storage_cols),
-                      dtype=torch.uint8, device=binned.device)
+                      dtype=torch.int32, device=binned.device)
     byte_col, shift = np.asarray(plan.byte_col), np.asarray(plan.shift)
     for f in range(plan.num_phys_cols):
         c = int(byte_col[f])
-        out[:, c] |= binned[:, f] << int(shift[f])
-    return out
+        out[:, c] |= widen(binned[:, f]).int() << int(shift[f])
+    if binned.dtype == torch.uint16:
+        return out.to(torch.int16).view(torch.uint16)
+    return out.to(binned.dtype)
 
 
 def unfold_packed_hist(hist_c: torch.Tensor, plan: PackPlan,
@@ -127,7 +135,8 @@ def unfold_packed_hist(hist_c: torch.Tensor, plan: PackPlan,
 
 
 class PackedBins(NamedTuple):
-    """The packed storage matrix ``[N, C]`` uint8 and its plan, whose
+    """The packed storage matrix ``[N, C]`` (the bin matrix's type) and
+    its plan, whose
     arrays are tensors on the matrix's device (:func:`pack_bins`): what a
     grower's histogram reads, at width ``max(256, B)``
     (:meth:`hist_width`), and how it unfolds the result."""

@@ -3,13 +3,13 @@
 The port's own copy of ``lightgbm_tpu/data/sparse.py:26-115``.  The
 device storage is dense binned columns (EFB re-compresses mutually
 exclusive sparse columns at construction), but getting from a sparse
-matrix to those uint8 columns must not materialize the full ``[nrow,
+matrix to those bin columns must not materialize the full ``[nrow,
 ncol]`` float64 matrix: an 8-byte-per-cell spike dwarfing both the
 nnz-sized source and the 1-byte-per-cell destination.
 :class:`CsrMatrix` keeps the copied CSR triplet on the host and densifies
 one bounded row chunk at a time (:data:`CSR_CHUNK_BUDGET_BYTES`), so
 dataset construction (``dataset.construct_csr`` bins each chunk straight
-into the final uint8 matrix) and prediction peak at one chunk's worth of
+into the final bin matrix) and prediction peak at one chunk's worth of
 dense float64, never the whole matrix.
 """
 from __future__ import annotations

@@ -67,7 +67,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from .data.packing import PackedBins
-from .ops.histogram import hist_window, plan_device, sm_count
+from .ops.histogram import hist_window, movable, plan_device, sm_count
 from .ops.partition import (partition_scratch, partition_window,
                             partition_window_plain, partition_window_sort)
 from .ops.route import route_window
@@ -600,7 +600,9 @@ class WindowBuffers(SplitLoop):
     bundled); ``packed`` the nibble-packed storage matrix of the ``rows``
     x ``n_feat`` bins with its plan (:class:`~.data.packing.PackedBins`),
     which the histogram then reads instead of the bins (not with
-    ``ordered_bins=on``).
+    ``ordered_bins=on``); ``bin_dtype`` the bins' type (uint8, or uint16
+    past 256 bins a column), which the ordered copies keep: their rows
+    are ``2 * n_feat + 12`` bytes of payload under uint16.
 
     :meth:`start` starts a tree and :meth:`run` takes its steps."""
 
@@ -609,7 +611,8 @@ class WindowBuffers(SplitLoop):
 
     def __init__(self, rows: int, n_feat: int, cfg: GrowerConfig, device,
                  n_logical: Optional[int] = None,
-                 packed: Optional[PackedBins] = None):
+                 packed: Optional[PackedBins] = None,
+                 bin_dtype: torch.dtype = torch.uint8):
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -623,7 +626,7 @@ class WindowBuffers(SplitLoop):
                 or packed.matrix.shape[0] != rows):
             raise ValueError("WindowBuffers: packed bins of rows x n_feat "
                              "columns, and not with ordered_bins=on")
-        self.packed = packed
+        self.packed, self.bin_dtype = packed, bin_dtype
         # the matrix the histogram reads: its columns and width
         self.hist_cols = (n_feat if packed is None
                           else packed.plan.num_storage_cols)
@@ -637,7 +640,7 @@ class WindowBuffers(SplitLoop):
             if not self.ordered:
                 return (torch.empty_like(self.iota),)
             return (torch.empty_like(self.iota),
-                    torch.empty((rows, n_feat), dtype=torch.uint8,
+                    torch.empty((rows, n_feat), dtype=bin_dtype,
                                 device=dev),
                     *[torch.empty(rows, dtype=torch.float32, device=dev)
                       for _ in range(3)])
@@ -655,17 +658,19 @@ class WindowBuffers(SplitLoop):
             torch.empty(rows, dtype=torch.float32, device=dev)
             for _ in range(3))
         self.hist_plan = (plan_device(rows, self.hist_cols, self.hist_width,
-                                      num_sms=sm_count(dev.index))
+                                      num_sms=sm_count(dev.index),
+                                      bin_bytes=bin_dtype.itemsize)
                           if cuda else None)
         self.bins = self.hist_bins = self.meta = self.bound = None
         self.route_bins = self.route_order = None
         self.reads = self.host_positions = 0
 
     def fits(self, rows: int, n_feat: int, cfg: GrowerConfig, device,
-             n_logical: int) -> bool:
+             n_logical: int, bin_dtype: torch.dtype = torch.uint8) -> bool:
         """Whether this state serves a tree of these shapes and ``cfg``."""
         return (rows == self.rows and n_feat == self.n_feat
                 and cfg == self.cfg and n_logical == self.pool.f
+                and bin_dtype == self.bin_dtype
                 and self.bufs[0][0].device == torch.device(device))
 
     def histogram(self, *args, **kwargs) -> torch.Tensor:
@@ -725,7 +730,8 @@ class WindowBuffers(SplitLoop):
             else:
                 idx = rows.long()
                 for dst, src in zip(b0[1:], (bins, gw, hw, cw)):
-                    torch.index_select(src, 0, idx, out=dst[:m])
+                    torch.index_select(movable(src), 0, idx,
+                                       out=movable(dst)[:m])
         else:
             for dst, src in zip(self.weights, (gw, hw, cw)):
                 dst.copy_(src)
@@ -838,7 +844,7 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               rows: Optional[torch.Tensor] = None):
     """Grow one tree.
 
-    bins ``[N, F]`` uint8 (F physical columns); gw/hw/cw ``[N]`` f32
+    bins ``[N, F]`` uint8 or uint16 (F physical columns); gw/hw/cw ``[N]`` f32
     (gradient, hessian, count weight); feat_valid ``[E]`` bool over the
     logical features of ``meta``.  Returns ``(TreeArrays, row_leaf [N]
     i32)``; the tree's split features are logical.
@@ -864,8 +870,9 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
         stats.setdefault(k, 0)
     e = meta.num_bin.numel()
     if buffers is None:
-        buffers = WindowBuffers(n, f, cfg, dev, n_logical=e)
-    elif not buffers.fits(n, f, cfg, dev, e):
+        buffers = WindowBuffers(n, f, cfg, dev, n_logical=e,
+                                bin_dtype=bins.dtype)
+    elif not buffers.fits(n, f, cfg, dev, e, bins.dtype):
         raise ValueError("grow_tree: the window buffers were made for other "
                          "shapes or another grower config")
     loop = buffers.loop(loop)

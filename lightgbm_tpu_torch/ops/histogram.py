@@ -4,9 +4,18 @@
 subset_histogram_fused`` (the Pallas kernel ``pallas_hist.py:hist6_fused``):
 given the leaf-contiguous ``order`` array and a device ``int32[2]`` holding
 (start, cnt), it returns the ``[F, B, 3]`` float32 histogram (Σg, Σh,
-count) of the rows ``order[start:start + cnt]`` of the ``[N, F]`` uint8 bin
+count) of the rows ``order[start:start + cnt]`` of the ``[N, F]`` bin
 matrix, each entry laid out like the reference ``HistogramBinEntry``
 (``include/LightGBM/bin.h:27-56``).
+
+The bin matrix is uint8, or uint16 when a column has more than 256 bins
+(``data/dataset.py:bin_dtype``).  It stays ``torch.uint16`` on the device,
+so its type says how the kernels read it (``uint16_t*``), but PyTorch
+implements few operations on that type (no comparison, arithmetic or
+index copy on the CPU): PyTorch code reads it only through :func:`widen`
+and :func:`bin_rows`,
+which widen the rows or columns it reads to int64, never the whole
+matrix, and moves it only through its int16 view (:func:`movable`).
 
 On a CUDA tensor it launches the hand-written kernel
 ``csrc/hist_gather.cu``; on a CPU tensor it runs :func:`hist_window_plain`,
@@ -55,7 +64,36 @@ from . import build
 
 NUM_STATS = 3        # (sum_grad, sum_hess, count)
 MAX_BINS = 256       # uint8 bins
+MAX_BINS_U16 = 65536  # uint16 bins
 SEGMENT_CHUNK = 2048  # rows per scatter-add chunk of the plain version
+
+
+def max_bins(bin_bytes: int) -> int:
+    """The widest histogram a bin matrix of ``bin_bytes``-byte bins takes."""
+    return MAX_BINS if bin_bytes == 1 else MAX_BINS_U16
+
+
+def movable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a type that every PyTorch operation takes on every device:
+    a uint16 bin tensor as int16, the same bytes (``.view(torch.uint16)``
+    turns a result back); other tensors as they are.  Copies, selections,
+    concatenations and transposes of a bin matrix go through it."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def widen(bins: torch.Tensor) -> torch.Tensor:
+    """int64 values of a uint8 or uint16 bin tensor, or of the int16 view
+    (:func:`movable`) of a uint16 one, masked back to 0..65535."""
+    if bins.dtype in (torch.uint16, torch.int16):
+        return bins.view(torch.int16).long() & 0xFFFF
+    return bins.long()
+
+
+def bin_rows(bins: torch.Tensor, idx: torch.Tensor, dim: int = 0
+             ) -> torch.Tensor:
+    """The int64 bins of rows (``dim`` 0) or columns (1) ``idx`` of a bin
+    matrix, selected on its :func:`movable` view, then :func:`widen`."""
+    return widen(movable(bins).index_select(dim, idx))
 
 
 def hist_window_plain(order: torch.Tensor, sc: torch.Tensor,
@@ -67,7 +105,7 @@ def hist_window_plain(order: torch.Tensor, sc: torch.Tensor,
     start, cnt = (int(v) for v in sc.tolist())
     f = bins.shape[1]
     idx = order[start:start + cnt].long()
-    rows = bins.index_select(0, idx).long()
+    rows = bin_rows(bins, idx)
     rows += torch.arange(f, device=bins.device) * num_bins
     w = torch.stack([gw[idx], hw[idx], cw[idx]], dim=-1)        # [M, 3]
     hist = torch.zeros((f * num_bins, NUM_STATS), dtype=torch.float32,
@@ -96,6 +134,7 @@ LARGE_BLOCKS_PER_SM = 4    # large-regime blocks the grid aims at per SM
 LARGE_MIN_ROWS = 1024      # positions a large-regime block takes at least
 SMALL_BLOCKS_PER_SM = 16   # small-regime grid; threads stride beyond it
 MAX_SMEM = 48 * 1024       # dynamic shared memory without an opt-in
+MAX_SMEM_OPTIN = 232_448   # the H100's opt-in limit a block (227 KB)
 MAX_GRID_Y = 65_535
 
 
@@ -109,6 +148,8 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int    # dynamic shared memory a block
     small_grid_x: int = 0   # device regime: the small kernel's blocks
     split_rows: int = 0     # device regime: the small kernel's largest count
+    grid_z: int = 1         # large regime: slices of a column's bins
+    slice_bins: int = 0     # bins a slice holds (0: all of them)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -117,7 +158,8 @@ def _cdiv(a: int, b: int) -> int:
 
 def plan_launch(bound: int, n_feat: int, num_bins: int,
                 n_loc: Optional[int] = None, *, num_sms: int,
-                small_max_rows: Optional[int] = None) -> LaunchPlan:
+                small_max_rows: Optional[int] = None,
+                bin_bytes: int = 1) -> LaunchPlan:
     """The launch of ``hist_window`` (``n_loc`` None: a window of at most
     ``bound`` rows) or of ``hist_local`` (a masked scan of ``n_loc`` local
     rows, at most ``bound`` of them in the leaf) on a card of ``num_sms``
@@ -131,11 +173,20 @@ def plan_launch(bound: int, n_feat: int, num_bins: int,
     memory.  More take the large regime: shared histograms of
     ``GROUP_COLS`` columns on ``grid_y``; ``grid_x`` aims at
     ``LARGE_BLOCKS_PER_SM`` blocks on each SM, each over at least
-    ``LARGE_MIN_ROWS`` positions."""
-    if (n_feat < 1 or not 1 <= num_bins <= MAX_BINS or bound < 0
+    ``LARGE_MIN_ROWS`` positions.
+
+    ``bin_bytes`` is the bin matrix's (1: uint8, up to 256 bins; 2:
+    uint16, up to 65,536).  The group's width comes from the bins: 4
+    columns up to 1,024 bins, fewer up to 4,096 (48 KB a block), then one
+    column, in dynamic shared memory above 48 KB (the kernel raises its
+    limit) up to ``MAX_SMEM_OPTIN``, and past that one column's bins cut
+    into ``grid_z`` slices of ``slice_bins``."""
+    if (n_feat < 1 or bin_bytes not in (1, 2)
+            or not 1 <= num_bins <= max_bins(bin_bytes) or bound < 0
             or num_sms < 1):
-        raise ValueError(f"plan_launch: {n_feat} columns, {num_bins} bins, "
-                         f"bound {bound}, {num_sms} SMs")
+        raise ValueError(f"plan_launch: {n_feat} columns, {num_bins} bins "
+                         f"of {bin_bytes} bytes, bound {bound}, {num_sms} "
+                         f"SMs")
     if n_loc is None:
         rows = positions = bound
         limit = SMALL_MAX_ROWS if small_max_rows is None else small_max_rows
@@ -149,44 +200,56 @@ def plan_launch(bound: int, n_feat: int, num_bins: int,
             positions * 3 * _cdiv(n_feat, 4))
         return LaunchPlan("small", max(1, min(
             _cdiv(work, THREADS), SMALL_BLOCKS_PER_SM * num_sms)), 1, 4, 0)
-    width = min(n_feat, max(GROUP_COLS,
-                            4 * _cdiv(_cdiv(n_feat, MAX_GRID_Y), 4)))
+    column = num_bins * NUM_STATS * 4      # one column's shared bytes
+    grid_z, slice_bins = 1, num_bins
+    if column * GROUP_COLS <= MAX_SMEM:
+        width = min(n_feat, max(GROUP_COLS,
+                                4 * _cdiv(_cdiv(n_feat, MAX_GRID_Y), 4)))
+    elif column <= MAX_SMEM:
+        width = min(n_feat, MAX_SMEM // column)
+    else:       # one column a group, its bins in slices past the opt-in
+        width = 1
+        grid_z = _cdiv(column, MAX_SMEM_OPTIN)
+        slice_bins = _cdiv(num_bins, grid_z)
     grid_y = _cdiv(n_feat, width)
-    smem = width * num_bins * NUM_STATS * 4
-    if smem > MAX_SMEM:
+    smem = width * slice_bins * NUM_STATS * 4
+    if (smem > (MAX_SMEM if grid_z == 1 and width > 1 else MAX_SMEM_OPTIN)
+            or grid_y > MAX_GRID_Y):
         raise ValueError(f"plan_launch: {n_feat} columns x {num_bins} bins "
                          f"need {smem} bytes of shared memory a block")
-    target = max(1, num_sms * LARGE_BLOCKS_PER_SM // grid_y)
+    target = max(1, num_sms * LARGE_BLOCKS_PER_SM // (grid_y * grid_z))
     grid_x = max(1, min(_cdiv(positions, LARGE_MIN_ROWS), target))
-    return LaunchPlan("large", grid_x, grid_y, width, smem)
+    return LaunchPlan("large", grid_x, grid_y, width, smem, grid_z=grid_z,
+                      slice_bins=slice_bins)
 
 
 def plan_device(bound: int, n_feat: int, num_bins: int, *,
-                num_sms: int) -> LaunchPlan:
+                num_sms: int, bin_bytes: int = 1) -> LaunchPlan:
     """The launch of ``hist_window`` over a window of at most ``bound``
     rows whose count only the device knows: the small kernel over the grid
     of a ``SMALL_MAX_WINDOW``-row window, taking counts up to it, and the
     large kernel over the grid of ``bound`` rows, taking the larger ones
     and spreading the true count over all its blocks."""
     large = plan_launch(bound, n_feat, num_bins, num_sms=num_sms,
-                        small_max_rows=-1)
+                        small_max_rows=-1, bin_bytes=bin_bytes)
     small = plan_launch(min(bound, SMALL_MAX_WINDOW), n_feat, num_bins,
-                        num_sms=num_sms, small_max_rows=SMALL_MAX_WINDOW)
+                        num_sms=num_sms, small_max_rows=SMALL_MAX_WINDOW,
+                        bin_bytes=bin_bytes)
     return large._replace(regime="device", small_grid_x=small.grid_x,
                           split_rows=SMALL_MAX_WINDOW)
 
 
 def plan_device_local(n_loc: int, n_feat: int, num_bins: int, *,
-                      num_sms: int) -> LaunchPlan:
+                      num_sms: int, bin_bytes: int = 1) -> LaunchPlan:
     """The launch of ``hist_local`` over a shard of ``n_loc`` rows whose
     leaf count only the device knows (``hist_local``'s ``leaf_rows``): the
     small kernel's scan takes counts up to ``SMALL_MAX_ROWS_LOCAL``, the
     large kernel, over the grid of a leaf of ``n_loc`` rows, the larger
     ones.  Both scan every local row, so the host's bound is ``n_loc``."""
     large = plan_launch(n_loc, n_feat, num_bins, n_loc, num_sms=num_sms,
-                        small_max_rows=-1)
+                        small_max_rows=-1, bin_bytes=bin_bytes)
     small = plan_launch(min(n_loc, SMALL_MAX_ROWS_LOCAL), n_feat, num_bins,
-                        n_loc, num_sms=num_sms)
+                        n_loc, num_sms=num_sms, bin_bytes=bin_bytes)
     return large._replace(regime="device", small_grid_x=small.grid_x,
                           split_rows=SMALL_MAX_ROWS_LOCAL)
 
@@ -206,36 +269,50 @@ def sm_count(device: int) -> int:
 
 # the C entry points' one argument (csrc/hist_core.cuh: Args): 7 pointers,
 # the selector and the 5 of the second set, the per-leaf rows, the local
-# rows, 10 ints (sizes, plan, card) and the stream, packed at once
-_ARGS = struct.Struct("@14Pq10iP")
-_ARG_TYPES = (torch.int32, torch.int32, torch.uint8, torch.float32,
-              torch.float32, torch.float32)
+# rows, 13 ints (sizes, plan, card, bin width) and the stream, packed at
+# once
+_ARGS = struct.Struct("@14Pq13iP")
+_ARG_TYPES = (torch.int32, torch.int32, None, torch.float32, torch.float32,
+              torch.float32)
+BIN_DTYPES = (torch.uint8, torch.uint16)
 _REGIMES = {"small": 0, "large": 1, "device": 2}
 _NO_ALT = (0,) * 6
 
 
 def _check_cuda_args(fn: str, names, tensors, num_bins: int) -> None:
     """Device, type and contiguity of a histogram kernel's arguments, the
-    two int32 index tensors then bins, gw, hw and cw, named ``names``; and
-    the shapes they share.  Messages are built only on failure: the
-    wrappers run once per split."""
+    two int32 index tensors then bins (uint8 or uint16), gw, hw and cw,
+    named ``names``; and the shapes they share.  Messages are built only
+    on failure: the wrappers run once per split."""
     bins = tensors[2]
     dev = bins.get_device()
     for name, t, dtype in zip(names, tensors, _ARG_TYPES):
         if t.get_device() != dev:
             raise ValueError(f"{fn}: {name} is on {t.device}, "
                              f"bins on {bins.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+        if (t.dtype not in BIN_DTYPES if dtype is None
+                else t.dtype != dtype):
+            raise TypeError(f"{fn}: {name} must be "
+                            f"{dtype or 'uint8 or uint16'}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
-    if bins.dim() != 2 or bins.shape[1] < 1 or not 1 <= num_bins <= MAX_BINS:
+    most = max_bins(bins.element_size())
+    if bins.dim() != 2 or bins.shape[1] < 1 or not 1 <= num_bins <= most:
         raise ValueError(f"{fn}: bins of shape {tuple(bins.shape)} x "
                          f"{num_bins} bins; the kernel takes [N, F >= 1] "
-                         f"and 1 to {MAX_BINS} bins")
+                         f"and 1 to {most} bins of {bins.dtype}")
     n = bins.shape[0]
     if any(w.numel() != n for w in tensors[3:]):
         raise ValueError(f"{fn}: weights must have one entry per row")
+
+
+def _plan_ints(plan: LaunchPlan, num_bins: int, bins: torch.Tensor,
+               dev: int):
+    """The 11 ints of ``_ARGS`` after the sizes, in ``Args`` order: the
+    plan, the card and the bin width."""
+    return (_REGIMES[plan.regime], *plan[1:5], dev, plan.small_grid_x,
+            plan.split_rows, plan.grid_z, plan.slice_bins or num_bins,
+            bins.element_size())
 
 
 _WINDOW_ARGS = ("order", "sc", "bins", "gw", "hw", "cw")
@@ -278,7 +355,8 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
     if alt is not None:
         _check_cuda_args("hist_window", _WINDOW_ARGS,
                          (alt[0], sc, *alt[1:]), num_bins)
-        if (alt[1].shape != bins.shape or alt[0].shape != order.shape
+        if (alt[1].shape != bins.shape or alt[1].dtype != bins.dtype
+                or alt[0].shape != order.shape
                 or sel.get_device() != bins.get_device()
                 or sel.dtype != torch.int32 or sel.numel() != 1):
             raise ValueError("hist_window: the second set must match the "
@@ -290,7 +368,7 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
     if plan is None:
         plan = _plan(n if rows_upper_bound is None
                      else int(rows_upper_bound), f, num_bins,
-                     num_sms=sm_count(dev))
+                     num_sms=sm_count(dev), bin_bytes=bins.element_size())
     out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
     alt_ptrs = (_NO_ALT if alt is None else
@@ -301,9 +379,8 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
                              order.data_ptr(), sc.data_ptr(), bins.data_ptr(),
                              gw.data_ptr(), hw.data_ptr(), cw.data_ptr(),
                              out.data_ptr(), *alt_ptrs, 0, n, f, num_bins,
-                             _REGIMES[plan.regime], *plan[1:5], dev,
-                             *plan[5:], torch._C._cuda_getCurrentRawStream(
-                                 dev)))
+                             *_plan_ints(plan, num_bins, bins, dev),
+                             torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"hist_gather kernel launch failed: CUDA error "
                            f"{err}")
@@ -323,7 +400,7 @@ def hist_flat(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
     """``[F, num_bins, 3]`` histogram of every row of ``bins`` in one
     unchunked scatter-add; the caller masks the weights to the leaf."""
     f = bins.shape[1]
-    idx = bins.long() + torch.arange(f, device=bins.device) * num_bins
+    idx = widen(bins) + torch.arange(f, device=bins.device) * num_bins
     vals = torch.stack([gw, hw, cw], dim=-1)[:, None, :].expand(-1, f,
                                                                 NUM_STATS)
     hist = torch.zeros((f * num_bins, NUM_STATS), dtype=torch.float32,
@@ -352,8 +429,9 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
                leaf_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[Fc, num_bins, 3]`` partial histogram of a shard's rows ``r``
     with ``row_leaf[r] == leaf_id``: row_leaf ``[n_loc]`` i32, leaf_id a
-    device ``int32[1]`` (no host read), bins ``[n_loc, Fc]`` uint8 (the
-    shard's column slice, any width), weights ``[n_loc]`` f32.
+    device ``int32[1]`` (no host read), bins ``[n_loc, Fc]`` uint8 or
+    uint16 (the shard's column slice, any width), weights ``[n_loc]``
+    f32.
 
     ``leaf_rows`` (int32, one entry per leaf id) holds every leaf's rows
     in the shard in device memory, as the data-parallel split step keeps
@@ -384,7 +462,8 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
         raise ValueError("hist_local: the device regime gates the leaf's "
                          "count in leaf_rows, which was not given")
     if plan is None:
-        plan = _plan_local(n, f, num_bins, num_sms=sm_count(dev))
+        plan = _plan_local(n, f, num_bins, num_sms=sm_count(dev),
+                           bin_bytes=bins.element_size())
     out = torch.empty(f, num_bins, NUM_STATS, dtype=torch.float32,
                       device=bins.device)
     # the C side makes the tensors' card current only if it is not
@@ -394,9 +473,8 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
                              bins.data_ptr(), gw.data_ptr(), hw.data_ptr(),
                              cw.data_ptr(), out.data_ptr(), *_NO_ALT,
                              0 if leaf_rows is None else leaf_rows.data_ptr(),
-                             n, f,
-                             num_bins, _REGIMES[plan.regime], *plan[1:5],
-                             dev, *plan[5:],
+                             n, f, num_bins,
+                             *_plan_ints(plan, num_bins, bins, dev),
                              torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"hist_local kernel launch failed: CUDA error "

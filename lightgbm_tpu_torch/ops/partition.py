@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from . import build
+from .histogram import movable
 
 MAX_MATS = 9          # matrices a call moves: order + 8 payload matrices
 # the small launch (each tile sums the window's mask itself) takes windows
@@ -69,6 +70,7 @@ def partition_window_plain(src: Sequence[torch.Tensor],
     c0 = torch.arange(1, cnt + 1, device=dev) - c1
     rank = torch.where(gl, c1 - 1, nl + c0 - 1)
     for s, d in zip(src, dst):
+        s, d = movable(s), movable(d)
         d[start:start + cnt].index_copy_(0, rank, s[start:start + cnt])
     return nl.int()
 
@@ -85,6 +87,7 @@ def partition_window_sort(src: Sequence[torch.Tensor],
     gl = goes_left[:cnt].bool()
     perm = torch.sort((~gl).to(torch.uint8), stable=True).indices
     for s, d in zip(src, dst):
+        s, d = movable(s), movable(d)
         torch.index_select(s[start:start + cnt], 0, perm,
                            out=d[start:start + cnt])
     return gl.sum(dtype=torch.int32).view(1)

@@ -38,7 +38,7 @@ from typing import Optional, Sequence
 import torch
 
 from . import build
-from .histogram import sm_count
+from .histogram import BIN_DTYPES, bin_rows, sm_count
 from .split import MISSING_NAN, MISSING_ZERO
 
 THREADS = 256           # threads a block (csrc/route.cu kThreads)
@@ -119,12 +119,12 @@ def route_window_plain(sc: torch.Tensor, odd: torch.Tensor,
     col = feature_column(meta, feat)
     f = bins[par].shape[1]
     if order[par] is None:      # the window's rows, in buffer order
-        binf = bins[par][start:start + cnt].index_select(1, col)[:, 0]
+        binf = bin_rows(bins[par][start:start + cnt], col, dim=1)[:, 0]
     else:
         win = order[par][start:start + cnt].long()
-        binf = bins[par].reshape(-1).index_select(0, win * f + col)
+        binf = bin_rows(bins[par].reshape(-1), win * f + col)
     out[:cnt] = route_goes_left(
-        binf.long(), meta, feat, split_i32[l, 1:2].long(),
+        binf, meta, feat, split_i32[l, 1:2].long(),
         split_i32[l, 2:3].bool(),
         split_cat[l:l + 1] if split_cat is not None else None,
         split_catb[l] if split_catb is not None else None)
@@ -132,8 +132,8 @@ def route_window_plain(sc: torch.Tensor, odd: torch.Tensor,
 
 
 # the C entry point's one argument (csrc/route.cu: Args): 16 pointers, the
-# rows, 5 ints and the stream
-_ARGS = struct.Struct("@16Pq5iP")
+# rows, 6 ints and the stream
+_ARGS = struct.Struct("@16Pq6iP")
 
 
 def _meta_tensors(meta):
@@ -187,7 +187,8 @@ def route_window(sc: torch.Tensor, odd: torch.Tensor, leaf: torch.Tensor,
             or leaf.dtype != torch.int64 or leaf.numel() != 1
             or split_i32.dtype != torch.int32 or split_i32.dim() != 2
             or split_i32.shape[1] != 3 or not _meta_ok(meta)
-            or any(b.dtype != torch.uint8 or b.shape != (rows, f)
+            or bins[0].dtype not in BIN_DTYPES
+            or any(b.dtype != bins[0].dtype or b.shape != (rows, f)
                    for b in bins)
             or (order[0] is None) != (order[1] is None)
             or any(o is not None and (o.dtype != torch.int32
@@ -202,7 +203,7 @@ def route_window(sc: torch.Tensor, odd: torch.Tensor, leaf: torch.Tensor,
         raise ValueError("route_window: contiguous tensors on one card: "
                          "sc int64[2], odd int32[1], leaf int64[1], "
                          "split_i32 int32 [leaves, 3], int32 meta (col "
-                         "and offset together), uint8 "
+                         "and offset together), uint8 or uint16 "
                          "bins [rows, F] for both buffers, int32 orders of "
                          "both or neither, bool split_cat and split_catb "
                          "together, and a 1-byte out over the bound")
@@ -219,7 +220,8 @@ def route_window(sc: torch.Tensor, odd: torch.Tensor, leaf: torch.Tensor,
                    bins[1].data_ptr(), ptr(order[0]), ptr(order[1]),
                    out.data_ptr(), rows, f, meta.num_bin.numel(),
                    0 if split_catb is None else split_catb.shape[1], grid,
-                   dev, torch._C._cuda_getCurrentRawStream(dev)))
+                   dev, bins[0].element_size(),
+                   torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"route kernel launch failed: CUDA error {err}")
     route_window.launches += 1
@@ -245,7 +247,7 @@ def route_rows_plain(row_leaf: torch.Tensor, bins_t: torch.Tensor,
     # row is in the sink leaf, so any feature routes the same
     feat = split[0:1].clamp(0, meta.num_bin.numel() - 1)
     goes_left = route_goes_left(
-        bins_t.index_select(0, feature_column(meta, feat))[0].long(), meta,
+        bin_rows(bins_t, feature_column(meta, feat))[0], meta,
         feat, split[1:2],
         split[2:3].bool(),
         split_cat.index_select(0, leaf) if split_cat is not None else None,
@@ -260,8 +262,8 @@ def route_rows_plain(row_leaf: torch.Tensor, bins_t: torch.Tensor,
 
 
 # the C entry point's one argument (csrc/route.cu: RowsArgs): 13 pointers,
-# the shard's rows, 7 ints and the stream
-_ROWS_ARGS = struct.Struct("@13Pq7iP")
+# the shard's rows, 8 ints and the stream
+_ROWS_ARGS = struct.Struct("@13Pq8iP")
 
 
 def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
@@ -280,12 +282,12 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
     ``leaf`` of the pool's ``split_i32`` (int32 ``[leaves, 3]``: feature,
     threshold, default_left) and, when the data has categorical columns,
     of ``split_cat`` (bool ``[leaves]``) and ``split_catb`` (bool
-    ``[leaves, B]``); ``bins_t`` is the column-major uint8 ``[F, S *
-    n_loc]`` copy of the device's rows; ``meta`` a ``grower.FeatureMeta``
-    of int32 tensors, whose EFB maps ``col`` and ``offset``, when given,
-    make the kernel read the feature's bundle column and decode its
-    slot.  A leaf that holds no row (the sink after the tree's
-    stop) moves nothing.  CPU tensors take the plain version; CUDA tensors
+    ``[leaves, B]``); ``bins_t`` is the column-major uint8 or uint16
+    ``[F, S * n_loc]`` copy of the device's rows; ``meta`` a
+    ``grower.FeatureMeta`` of int32 tensors, whose EFB maps ``col`` and
+    ``offset``, when given, make the kernel read the feature's bundle
+    column and decode its slot.  A leaf that holds no row (the sink after
+    the tree's stop) moves nothing.  CPU tensors take the plain version; CUDA tensors
     launch the kernel, on their own card, or raise."""
     if not row_leaf.is_cuda:
         if row_leaf.device.type == "cpu":
@@ -300,7 +302,7 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
                *[t for t in (split_cat, split_catb) if t is not None]]
     if (any(t.get_device() != dev or not t.is_contiguous() for t in tensors)
             or row_leaf.dtype != torch.int32 or row_leaf.dim() != 1
-            or bins_t.dtype != torch.uint8 or bins_t.dim() != 2
+            or bins_t.dtype not in BIN_DTYPES or bins_t.dim() != 2
             or bins_t.shape[1] != n
             or any(t.dtype != torch.int64 or t.numel() != 1
                    for t in (leaf, new))
@@ -313,7 +315,8 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
                 split_cat.dtype != torch.bool or split_catb.dtype != torch.bool
                 or split_catb.dim() != 2))):
         raise ValueError("route_rows: contiguous tensors on one card: int32 "
-                         "row_leaf [S * n_loc], uint8 bins_t [F, S * n_loc], "
+                         "row_leaf [S * n_loc], uint8 or uint16 bins_t "
+                         "[F, S * n_loc], "
                          "leaf and new int64[1], split_i32 int32 [leaves, "
                          "3], int32 meta (col and offset together), int32 "
                          "counts [S, leaves], and bool "
@@ -332,7 +335,7 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
                         ptr(meta.offset), counts.data_ptr(),
                         n_loc, shards, bins_t.shape[0], meta.num_bin.numel(),
                         0 if split_catb is None else split_catb.shape[1],
-                        counts.shape[1], grid, dev,
+                        counts.shape[1], grid, dev, bins_t.element_size(),
                         torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"route_rows kernel launch failed: CUDA error "

@@ -70,7 +70,7 @@ import torch
 from ..data.packing import PackedBins, unfold_packed_hist
 from ..grower import (FeatureMeta, GrowerConfig, LeafPool, SplitLoop,
                       _tensor_key)
-from ..ops.histogram import hist_flat, hist_local
+from ..ops.histogram import hist_flat, hist_local, movable
 from ..ops.route import route_rows
 from ..ops.split import cat_group_accept
 from .mesh import BATCH_AXIS, FEATURE_AXIS, Mesh
@@ -103,7 +103,8 @@ def _to(dev: torch.device, *ts):
 
 class GspmdGrower(SplitLoop):
     """Grows trees over ``mesh`` from the padded bin matrix ``bins``
-    ``[n_pad, F]`` uint8, ``n_pad`` a multiple of the batch extent.  Call
+    ``[n_pad, F]`` uint8 or uint16, ``n_pad`` a multiple of the batch
+    extent.  Call
     it with the global padded weights on ``mesh.primary``.  ``n_logical``
     is the features of the meta (F unless EFB bundled); ``packed`` the
     nibble-packed storage matrix of ``bins`` with its plan, which the
@@ -144,9 +145,10 @@ class GspmdGrower(SplitLoop):
         # row -> leaf map, counts and routing cover all of them at once
         self.held = {dv: [i for i in range(d) if dv in mesh.devices[i]]
                      for dv in dict.fromkeys(sum(mesh.devices, []))}
-        # column-major bins of each device's shards, for routing
-        self.route_bins = {dv: self._rows(bins, dv).t().contiguous().to(dv)
-                           for dv in self.held}
+        # column-major bins of each device's shards, for routing; copied
+        # through the int16 view of uint16 bins (ops/histogram.py:movable)
+        self.route_bins = {dv: movable(self._rows(bins, dv)).t().contiguous(
+                               ).to(dv).view(bins.dtype) for dv in self.held}
         self.row_leaf = {dv: torch.zeros(len(held) * n_loc,
                                          dtype=torch.int32, device=dv)
                          for dv, held in self.held.items()}
@@ -159,9 +161,9 @@ class GspmdGrower(SplitLoop):
                                   for _ in range(3))
                         for dv, held in self.held.items()}
         # each slot's shard cut to its column slice, for the histogram
-        self.slices = [[hsrc[i * n_loc:(i + 1) * n_loc,
-                             c.start:c.stop].contiguous().to(
-                                 mesh.devices[i][j])
+        self.slices = [[movable(hsrc)[i * n_loc:(i + 1) * n_loc,
+                                      c.start:c.stop].contiguous().to(
+                                          mesh.devices[i][j]).view(hsrc.dtype)
                         for j, c in enumerate(self.cols)] for i in range(d)]
         self.root_id = torch.zeros(1, dtype=torch.int32, device=self.device)
         # the histogram store, split pool and records, reset per tree
@@ -174,7 +176,8 @@ class GspmdGrower(SplitLoop):
         held, n = self.held[dv], self.n_loc
         if held == list(range(held[0], held[-1] + 1)):
             return t[held[0] * n:(held[-1] + 1) * n]
-        return torch.cat([t[i * n:(i + 1) * n] for i in held])
+        return torch.cat([movable(t)[i * n:(i + 1) * n]
+                          for i in held]).view(t.dtype)
 
     def _shard(self, t: torch.Tensor, i: int, dv: torch.device):
         """Batch shard ``i``'s part of a tensor over ``dv``'s rows."""

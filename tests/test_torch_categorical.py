@@ -118,13 +118,39 @@ def test_categorical_parameter_and_names_select_columns():
 
 def test_column_past_256_bins_raises():
     """A categorical column keeps categories past max_bin until they cover
-    99 % of the rows; past 256 bins that needs the uint16 matrix."""
+    99 % of the rows; past 256 bins that needs the uint16 matrix, which
+    the port once refused.  It no longer raises: the same 600-category
+    column bins into the JAX package's uint16 matrix, and trees grown
+    under integer-valued gradients (exact sums) give the JAX package's
+    model text."""
     n = 6000
-    x = np.arange(n, dtype=np.float64)[:, None] % 600
-    y = np.zeros(n, np.float32)
-    with pytest.raises(NotImplementedError, match="uint16"):
-        lt.Dataset(x, y, categorical_feature=[0],
-                   params=dict(COMMON, device="cpu")).construct()
+    cat = np.arange(n, dtype=np.float64) % 600
+    num = np.random.default_rng(3).standard_normal(n)
+    x = np.stack([cat, num], axis=1)
+    y = ((cat % 7 < 3) ^ (num > 1.0)).astype(np.float32)
+    p = dict(COMMON, num_leaves=15, min_data_in_leaf=5)
+    ref = lj.Dataset(x, y, categorical_feature=[0], params=p)
+    port = lt.Dataset(x, y, categorical_feature=[0],
+                      params=dict(p, device="cpu"))
+    a, b = port.construct().constructed, ref.construct().constructed
+    assert a.bin_mappers[0].num_bin == b.bin_mappers[0].num_bin > 256
+    assert a.binned.dtype == np.asarray(b.binned).dtype == np.uint16
+    np.testing.assert_array_equal(a.binned, b.binned)
+
+    def fobj(seed):
+        calls = [0]
+
+        def f(preds, data):
+            rng = np.random.default_rng(seed + calls[0])
+            calls[0] += 1
+            return (rng.integers(-3, 4, len(preds)).astype(np.float64),
+                    rng.integers(1, 4, len(preds)).astype(np.float64))
+        return f
+    bj = lj.train(p, ref, 3, fobj=fobj(5), verbose_eval=False)
+    bt = lt.train(dict(p, device="cpu"), port, 3, fobj=fobj(5),
+                  verbose_eval=False)
+    assert sum(t.num_cat for t in bt.inner.models) > 0
+    assert bt.model_to_string() == bj.model_to_string()
 
 
 # ---------------------------------------------------------------- the scan

@@ -106,9 +106,9 @@ def test_predict_raises_without_card(no_card):
     {"shard_axes": "batch,feature"},
     {"tree_learner": "voting"},
     {"tree_learner": "data", "mesh_devices": 2},
-    {"max_bin": 300},
+    {"stream_chunk_rows": 4096},
     {"data_stream": "chunked"},
-    {"max_bin": 511},
+    {"snapshot_freq": 5},
 ])
 def test_unsupported_params_raise(params):
     x, y = _small()
