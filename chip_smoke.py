@@ -93,6 +93,16 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    positions; K2 with the 28-byte payload of phase 19 over 11,000,000
    rows at both parities; with times, byte bounds and the PyTorch
    yardsticks;
+2j. ``route_rows`` on a row-major block, as the streamed grower passes it
+   (the ``[n, F]`` block's transpose, strides (1, F)), against its plain
+   version and the kernel on the column-major copy, bit for bit in the map
+   and exact in the counts (:func:`check_route_rows_block`): MS-LTR's
+   262,144 x 137 default block and its 173,144-row last one, a uint16
+   100,000 x 28 block at 1,023 bins and the bundled Covertype layout's
+   262,144 x 12; splits of each missing type and a categorical one, from
+   a leaf of many rows, of about 1,000 and the root, an absent leaf and
+   the sink; with times at MS-LTR's block beside the column-major form
+   and the sector bound;
 3. the Higgs path at full width: seeded synthetic Higgs-shaped data
    (1,000,000 x 28 float32, binary label from a fixed nonlinear rule plus
    noise, 100,000 held-out rows), ``train`` 10 rounds with 255 leaves and
@@ -198,7 +208,7 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 8c. one round of the data-parallel learner over 4x1 on the one card at
    the defaults (K3 reads each shard's packed slice, unfolded after the
    shard sum): held-out NDCG@10 within 1e-3 of phase 8's first round;
-8b. the card against the CPU on 200,000 rows of the same generator, 1
+8b. the card against the CPU on 100,000 rows of the same generator, 1
    round, at the defaults: the first tree identical in structure up to
    its first near-tie (the gradients are real-valued and the card adds
    them in another order, so a split whose float64 gain differs from the
@@ -272,7 +282,7 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    scores bit for bit, a custom binary log loss growing the built-in
    objective's first tree, and ``cv`` with 3 folds of 200,000 rows and
    early stopping (its means and deviations);
-14b. the card against the CPU on 100,000 rows, 3 rounds, for bagging,
+14b. the card against the CPU on 50,000 rows, 3 rounds, for bagging,
    GOSS (learning rate 0.5, so round 3 samples) and DART: the first tree
    identical up to a near-tie;
 15. the non-finite guard on 200,000 of those rows (L2 regression): each
@@ -307,6 +317,23 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    rows as phase 5, with the categorical splits that route a bin past
    255 counted; the integer-gradient tree and 3 rounds against the CPU at
    50,000 rows as phase 4b.
+20. streamed training (``data_stream=chunked``): the pinned
+   host-to-device rate of one 1 GiB copy, then (20a, after phase 6c)
+   one integer-gradient tree of the Higgs-shaped task streamed at
+   100,000 (10 blocks) and 333,334 rows (3, the last short), identical
+   to the resident graph loop's tree, one tree under
+   ``torch.cuda.set_sync_debug_mode("error")`` and one profiled; (20b,
+   after phase 8c) phase 8's MS-LTR Dataset streamed at the default
+   block size (9 blocks), 3 rounds, its packing turned off loudly,
+   NDCG@10 within 1e-3 of the cut run's at 3 rounds and its peak device
+   memory at least 200,000,000 bytes below it; (20c, last)
+   phase 5's Expo Dataset streamed (42 blocks), ``ordered_bins=on``
+   turned off loudly, the integer tree identical to the resident one, 3
+   rounds with AUC within 5e-3 of phase 5's model at 3 iterations.  Each
+   line: ms a tree, blocks, bytes and host reads a tree, ``route_rows``
+   and ``hist_local`` launches a tree held against the counts, the
+   link's bound and share of the wall, the device-busy share, and a
+   host-to-device copy overlapping a kernel in the profiled tree.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
@@ -564,6 +591,9 @@ def auc(score: np.ndarray, label: np.ndarray) -> float:
 
 
 MARKERS = 32          # spin kernels that open a profiled window
+MARKER_CYCLES = 20_000  # each spins about 10 µs: the window the profiler
+#                         can lose at its start is covered by time as well
+#                         as by records
 RUNTIME_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemsetAsync",
                  "cudaMemcpyAsync", "cudaEventSynchronize",
                  "cudaStreamSynchronize")
@@ -585,7 +615,7 @@ def device_ms(fn, names):
         # on the H100: a root histogram of a tree missing): spin kernels
         # take that place, and are left out of every number below
         for _ in range(MARKERS):
-            torch.cuda._sleep(100)
+            torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -1991,6 +2021,194 @@ def check_route_rows_bundled(dev, rng):
     return timing
 
 
+# the streamed paths' row-major blocks of phase 2j: MS-LTR's default block
+# (262,144 of its 2,270,296 x 137 rows) and its last, short block
+MSLR_BLOCK, MSLR_TAIL = 262_144, 173_144
+
+
+def route_sectors(rows, c: int, row_stride: int, col_stride: int,
+                  bin_bytes: int) -> int:
+    """The 32-byte sectors that hold column ``c``'s bins of ``rows`` (a
+    device tensor of row ids) in a layout of these strides (elements)."""
+    import torch
+    at = (c * col_stride + rows.long() * row_stride) * bin_bytes
+    return int(torch.unique(at // 32).numel())
+
+
+def route_block_bound_ms(n: int, sectors: int, moved: int, cat_width: int,
+                         bundled: bool = False) -> float:
+    """Least time of a route_rows call over ``n`` rows: each row's
+    row_leaf entry (4 B) read; the split column's ``sectors`` 32-byte
+    sectors that hold the leaf's rows' bins (a row-major block of 32 bytes
+    or more a row puts each row's bin in a sector of its own); each moved
+    row's entry written; the leaf, new leaf, split row and bins-left row
+    read (and, bundled, the feature's column and first slot)."""
+    return (4 * n + 32 * sectors + 4 * moved + 8 + 8 + 12 + 1 + cat_width
+            + (8 if bundled else 0)) / H100_BYTES_PER_S * 1e3
+
+
+def check_route_rows_block(dev, rng):
+    """Phase 2j: ``route_rows`` on a row-major block, as the streamed
+    grower passes it (``block.t()``, strides (1, F)), against its plain
+    version on the same view and against the kernel on the column-major
+    copy of the same rows: the map bit for bit and the counts exact.  On
+    MS-LTR's default block (262,144 x 137 uint8) and its short last block
+    (173,144 rows), a uint16 block of Higgs' 100,000 x 28 at 1,023 bins
+    (splits past bin 255, a categorical one whose row reaches past it),
+    and the Covertype layout's bundled 262,144 x 12; splits of each
+    missing type and a categorical one from a leaf of many rows, of about
+    1,000 and the root, an absent leaf and the sink, which move nothing.
+    Times at MS-LTR's block (root and the 1,000-row leaf, new = leaf so
+    that a call repeats) beside the column-major form at the same rows and
+    the sector bound."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta
+    from lightgbm_tpu_torch.ops.histogram import movable
+    from lightgbm_tpu_torch.ops.route import route_rows, route_rows_plain
+    L = 255
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def plain_meta(f, nb):
+        return FeatureMeta(i32([nb] * f), i32([k % 3 for k in range(f)]),
+                           i32([(37 * k) % nb for k in range(f)]))
+
+    def skewed_map(n):
+        p = 1.0 / np.arange(1, L - 1) ** 1.1
+        m = rng.choice(L - 2, n, p=p / p.sum()).astype(np.int32)
+        return m, np.bincount(m, minlength=L)
+
+    def counts_of(rl):
+        return torch.bincount(rl.long(), minlength=L + 1).int()[None]
+
+    def pool(split, leaf, width):
+        si = np.zeros((L + 1, 3), np.int32)
+        cat = np.zeros(L + 1, bool)
+        si[leaf], cat[leaf] = split[:3], split[3]
+        si[L] = (-1, 0, 0)
+        return (torch.from_numpy(si).to(dev), torch.from_numpy(cat).to(dev),
+                torch.from_numpy(rng.random((L + 1, width)) < 0.5).to(dev))
+
+    num_splits = {"none": (0, 100, 1, False), "zero": (1, 50, 0, False),
+                  "nan": (2, 200, 1, False), "categorical": (4, 0, 0, True)}
+    u16_splits = {f"u16_{i}": s for i, s in enumerate(WIDE_SPLITS[:4])}
+    sets = {
+        "mslr_block": (MSLR_BLOCK, 137, np.uint8, N_BINS, False, num_splits),
+        "mslr_tail": (MSLR_TAIL, 137, np.uint8, N_BINS, False, num_splits),
+        "higgs_block_u16": (100_000, N_FEAT, np.uint16, WIDE_BINS, False,
+                            u16_splits),
+        "covtype_bundled": (MSLR_BLOCK, COVTYPE_COLS, np.uint8, N_BINS,
+                            True, BUNDLED_SPLITS)}
+    checked = moved_total = 0
+    blocks = {}
+    for label, (n, f, dtype, nb, bundled, splits) in sets.items():
+        if bundled:
+            host = covtype_bundled_bins(n, rng)
+            meta = covtype_bundle_meta(dev)
+        else:
+            host = rng.integers(0, nb, (n, f)).astype(dtype)
+            meta = plain_meta(f, nb)
+        block = torch.from_numpy(host).to(dev)
+        col_major = movable(block).t().contiguous().view(block.dtype)
+        rows_t = block.t()
+        if rows_t.stride() != (1, f) or col_major.stride() != (n, 1):
+            fail(f"route_rows block layouts at {label}: {rows_t.stride()}, "
+                 f"{col_major.stride()}")
+        skewed, sizes = skewed_map(n)
+        small = int(np.argmin(np.abs(sizes - 1000)))
+        maps = {"skewed": torch.from_numpy(skewed).to(dev),
+                "root": torch.zeros(n, dtype=torch.int32, device=dev)}
+        cases = [(f"{name}_{where}", maps[m], leaf, new, split)
+                 for name, split in splits.items()
+                 for where, m, leaf, new in (("many", "skewed", 0, L - 1),
+                                             ("1000", "skewed", small, L - 1),
+                                             ("root", "root", 0, 1))]
+        first = next(iter(splits.values()))
+        cases += [("absent", maps["skewed"], L - 2, L - 1, first),
+                  ("sink", maps["skewed"], L, L, first)]
+        for case, rl0, leaf, new, split in cases:
+            si, cat, catb = pool(split, leaf, nb)
+            lt, nt = i32([leaf]).long(), i32([new]).long()
+            out = {}
+            for kind, fn, bins in (("kernel", route_rows, rows_t),
+                                   ("plain", route_rows_plain, rows_t),
+                                   ("column_major", route_rows, col_major)):
+                rl, cnt = rl0.clone(), counts_of(rl0)
+                fn(rl, bins, lt, nt, si, cat, catb, meta, cnt)
+                out[kind] = (rl, cnt)
+            torch.cuda.synchronize()
+            rk, ck = out["kernel"]
+            for other in ("plain", "column_major"):
+                ro, co = out[other]
+                if not (torch.equal(rk, ro) and torch.equal(ck, co)):
+                    fail(f"row-major route_rows != {other} at {label} "
+                         f"{case}: {int((rk != ro).sum())} rows differ")
+            if not torch.equal(ck, counts_of(rk)):
+                fail(f"row-major route_rows counts != the map's at {label} "
+                     f"{case}")
+            moved = int((rk != rl0).sum())
+            if (case in ("absent", "sink")) != (moved == 0):
+                fail(f"row-major route_rows moved {moved} rows at {label} "
+                     f"{case}")
+            moved_total += moved
+            checked += 1
+        if label == "mslr_block":
+            blocks[label] = (block, col_major, rows_t, maps, small, meta)
+        else:
+            del block, col_major, rows_t, maps
+    phase("route_rows_block_vs_plain", sets=",".join(sets),
+          shapes=",".join(f"{n}x{f}:{np.dtype(d).name}"
+                          for n, f, d, *_ in sets.values()),
+          cases=checked, rows_moved=moved_total, exact=True)
+
+    block, col_major, rows_t, maps, small, meta = blocks["mslr_block"]
+    n, f = block.shape
+    timing = {}
+    for label, m, leaf in (("root", "root", 0), ("leaf_1000", "skewed",
+                                                 small)):
+        rl = maps[m].clone()
+        si, cat, catb = pool(num_splits["nan"], leaf, N_BINS)
+        lt = i32([leaf]).long()
+        cnt = counts_of(rl)
+        leaf_idx = torch.nonzero(rl == leaf).view(-1)
+        probe = rl.clone()
+        route_rows_plain(probe, rows_t, lt, i32([L - 1]).long(), si, cat,
+                         catb, meta, cnt.clone())
+        moved = int((probe != rl).sum())
+        k = three_times(lambda: route_rows(rl, rows_t, lt, lt, si, cat, catb,
+                                           meta, cnt))
+        c = three_times(lambda: route_rows(rl, col_major, lt, lt, si, cat,
+                                           catb, meta, cnt))
+        p_ms = cuda_ms(lambda: route_rows_plain(rl, rows_t, lt, lt, si, cat,
+                                                catb, meta, cnt), reps=3)
+        if not torch.equal(rl, maps[m]) or not torch.equal(cnt,
+                                                           counts_of(rl)):
+            fail(f"row-major route_rows with new = leaf changed the map at "
+                 f"{label}")
+        col = num_splits["nan"][0]
+        sectors = route_sectors(leaf_idx, col, f, 1, 1)
+        col_sectors = route_sectors(leaf_idx, col, 1, n, 1)
+        bound_ms = route_block_bound_ms(n, sectors, moved, N_BINS)
+        timing[label] = dict(
+            k, plain_ms=p_ms, bound_ms=bound_ms, leaf_rows=len(leaf_idx),
+            moved=moved, sectors=sectors,
+            column_major_ms=c["ms"], column_major_ms_many=c["ms_many"],
+            column_major_device_ms=c["device_ms"],
+            column_major_bound_ms=route_block_bound_ms(n, col_sectors,
+                                                       moved, N_BINS))
+        phase("route_rows_block_time", leaf=label, block=f"{n}x{f}",
+              leaf_rows=len(leaf_idx), moved=moved, sectors=sectors,
+              column_major_sectors=col_sectors,
+              **{k_: f"{v:.4f}" for k_, v in timing[label].items()
+                 if isinstance(v, float) and "bound" not in k_},
+              bound_ms=f"{bound_ms:.5f}",
+              column_major_bound_ms=(
+                  f"{timing[label]['column_major_bound_ms']:.5f}"),
+              bound_share=f"{bound_ms / k['device_ms']:.3f}"
+              if k["device_ms"] else "not measured")
+    del blocks, block, col_major, rows_t, maps
+    return timing
+
+
 def empty_launch_cost(dev, rng):
     """Phase 2f: what the captured step's gated launches cost at the Expo
     path's 11,000,000 rows and 8 columns.  The step knows the window's
@@ -3234,7 +3452,7 @@ def card_vs_cpu_trees(name, params, x, y, x_te, rounds, first_trees,
 
 
 def rank_card_vs_cpu(params, rng, run_dir, heldout):
-    """Phase 8b: the MS-LTR-shaped generator at 200,000 rows (1,650
+    """Phase 8b: the MS-LTR-shaped generator at 100,000 rows (825
     queries), 1 round on the card and on the CPU: the first tree
     identical in structure (up to a near-tie, :func:`card_vs_cpu_trees`),
     NDCG@1/3/5/10 within 1e-3 on phase 8's held-out queries ``heldout``
@@ -3243,7 +3461,7 @@ def rank_card_vs_cpu(params, rng, run_dir, heldout):
     reloaded and predicting the same."""
     from lightgbm_tpu_torch import Booster
     x_te, y_te, sizes_te = heldout
-    sizes = query_sizes(1_650, 200_000, MSLR_LONGEST, rng)
+    sizes = query_sizes(825, 100_000, MSLR_LONGEST, rng)
     x, y = mslr_like(sizes, rng)
     n = int(sizes.sum())
     out, same = card_vs_cpu_trees("rank_card_vs_cpu", params, x, y, x_te, 1,
@@ -3267,13 +3485,16 @@ def rank_card_vs_cpu(params, rng, run_dir, heldout):
 
 
 def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
-              q_te=Q_MSLR_HELDOUT, n_te=N_MSLR_HELDOUT, rounds=10):
-    """Phases 2h, 8, 8a and 8c: the MS-LTR-shaped lambdarank task at full
-    width (2,270,296 x 137 in 18,919 queries, 750,000 held-out rows in
-    6,000), the lambdarank kernel checked on its labels first, K1 and K3
-    on the packed storage matrix after phase 8's training, the cut run and
-    the data-parallel learner on the same Dataset; returns phase 8's
-    numbers, phase 2h's timing and the held-out (x, y, query sizes)."""
+              q_te=Q_MSLR_HELDOUT, n_te=N_MSLR_HELDOUT, rounds=10,
+              rate=None):
+    """Phases 2h, 8, 8a, 8c and 20b: the MS-LTR-shaped lambdarank task at
+    full width (2,270,296 x 137 in 18,919 queries, 750,000 held-out rows
+    in 6,000), the lambdarank kernel checked on its labels first, K1 and
+    K3 on the packed storage matrix after phase 8's training, the cut run
+    and the data-parallel learner on the same Dataset, then the same
+    Dataset streamed (``rate`` the pinned host-to-device rate); returns
+    phase 8's numbers (20b's under ``streamed``), phase 2h's timing and
+    the held-out (x, y, query sizes)."""
     import torch
     from lightgbm_tpu_torch.ops.lambdarank import lambdarank_grad_plain
     t0 = time.perf_counter()
@@ -3368,11 +3589,101 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     if dp_gap > 1e-3:
         fail(f"mslr 4x1: held-out NDCG@10 is {dp_gap} from the serial "
              f"first round's (limit 1e-3)")
+    del bst, cut_bst
+    torch.cuda.empty_cache()
+    # ---- phase 20b: the same Dataset streamed, 3 rounds -------------------
+    streamed = mslr_streamed(rank_params, ds, x_te, y_te, sizes_te, rate)
     rank = dict(rank, **rank_ds, packed_check=packed_check,
-                cut=dict(cut, **cut_ds), dp_4x1=dp)
-    del bst, cut_bst, ds
+                cut=dict(cut, **cut_ds), dp_4x1=dp, streamed=streamed)
+    del ds
     torch.cuda.empty_cache()
     return rank, lam, (x_te, y_te, sizes_te)
+
+
+def mslr_streamed(rank_params, ds, x_te, y_te, sizes_te, rate,
+                  rounds=3) -> dict:
+    """Phase 20b: phase 8's Dataset with ``data_stream=chunked`` at the
+    default block size (9 blocks of 262,144 rows, the last 173,144), 3
+    rounds at the defaults, whose packing is turned off, loudly.  Beside
+    it the cut run (no EFB, no packing: the streamed run's layout) trains
+    3 rounds resident, its peak device memory taken alone from a reset,
+    as the streamed run's is after the matrix left the card: held-out
+    NDCG@10 within 1e-3 of the cut run's, and the peak at least
+    200,000,000 bytes below it (the matrix less two blocks is
+    239,203,096)."""
+    import torch
+    from lightgbm_tpu_torch import train
+    cut_params = dict(rank_params, enable_bundle=False,
+                      enable_bin_packing=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cut = train(cut_params, ds, num_boost_round=rounds, verbose_eval=False)
+    torch.cuda.synchronize()
+    cut_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    cut_peak = torch.cuda.max_memory_allocated()
+    cut_ndcg = ndcg_at(cut.predict(x_te), y_te, sizes_te, [10])[0]
+    del cut
+    # the streamed training never needs the Dataset's device copy
+    ds.bins = None
+    def quality(bst, pred, x, y):
+        return {"heldout_ndcg@10":
+                f"{ndcg_at(pred, y, sizes_te, [10])[0]:.6f}"}
+    out, bst = stream_train("mslr_streamed", rank_params, ds, x_te, y_te,
+                            rounds, quality, rate, 9, 173_144)
+    gap = abs(float(out["heldout_ndcg@10"]) - cut_ndcg)
+    saved = cut_peak - out["peak_mem_bytes"]
+    out.update(cut_heldout_ndcg10=f"{cut_ndcg:.6f}",
+               ndcg10_gap_vs_cut=f"{gap:.3e}", cut_ms_per_tree=f"{cut_ms:.2f}",
+               cut_peak_mem_bytes=cut_peak, peak_mem_saved_bytes=saved)
+    phase("mslr_streamed", **out)
+    if "enable_bin_packing=true" not in out["downgrades"]:
+        fail("mslr_streamed: the packing downgrade was not recorded")
+    if gap > 1e-3:
+        fail(f"mslr_streamed: held-out NDCG@10 is {gap} from the cut run's "
+             f"at {rounds} iterations (limit 1e-3)")
+    if saved < 200_000_000:
+        fail(f"mslr_streamed: peak device memory {out['peak_mem_bytes']} is "
+             f"only {saved} bytes below the cut run's {cut_peak}")
+    del bst
+    torch.cuda.empty_cache()
+    return out
+
+
+def expo_streamed(expo_params, ds, y_tr, x_te, y_te, model_str, rate,
+                  rounds=3) -> dict:
+    """Phase 20c (the last phase): phase 5's Expo-shaped Dataset
+    (11,000,000 x 8) with ``data_stream=chunked`` at the default block
+    size (42 blocks, the last 252,096 rows), ``ordered_bins=on`` turned
+    off, loudly: one
+    integer-gradient tree identical to the resident graph loop's
+    (:func:`streamed_tree_vs_resident`, one tree: 20a runs the sync check;
+    the training's third round is profiled), then 3 rounds with
+    the held-out AUC within 5e-3 of phase 5's model at 3 iterations."""
+    import torch
+    from lightgbm_tpu_torch import Booster
+    tree = streamed_tree_vs_resident("expo_streamed_tree", ds, y_tr,
+                                     (262_144,), rate, checks=False,
+                                     ordered_bins="on")
+    phase("expo_streamed_tree", **tree)
+    ds.bins = None
+    torch.cuda.empty_cache()
+    out, bst = stream_train("expo_streamed", expo_params, ds, x_te, y_te,
+                            rounds, auc_quality, rate, 42, 252_096)
+    ref = Booster(model_str=model_str, params={"device": "cuda"}).predict(
+        x_te, num_iteration=rounds)
+    gap = abs(float(out["heldout_auc"]) - auc(ref, y_te))
+    out.update(phase5_auc_at_3=f"{auc(ref, y_te):.6f}",
+               auc_gap_vs_phase5=f"{gap:.3e}")
+    phase("expo_streamed", **out)
+    if "ordered_bins=on" not in out["downgrades"]:
+        fail("expo_streamed: the ordered_bins downgrade was not recorded")
+    if gap > 5e-3:
+        fail(f"expo_streamed: held-out AUC is {gap} from phase 5's model at "
+             f"{rounds} iterations (limit 5e-3)")
+    del bst
+    torch.cuda.empty_cache()
+    return dict(out, tree=tree)
 
 
 def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=50_000):
@@ -3844,7 +4155,7 @@ def expo_subset_path(params, names, ds, x_tr, y_tr, x_te, y_te):
 
 
 def sampling_card_vs_cpu(params, x, y, x_te, y_te):
-    """Phase 14b: the card against the CPU on 100,000 rows, 3 rounds, for
+    """Phase 14b: the card against the CPU on 50,000 rows, 3 rounds, for
     bagging (subset regime), GOSS (learning_rate 0.5, so round 3 samples)
     and DART: the same sampling streams on both, the first tree identical
     (round 1's gradients are +-0.5 and 0.25, whose sums are exact) up to a
@@ -4815,6 +5126,375 @@ def expo_wide_path(params, names, sub=50_000):
     return out
 
 
+def h2d_rate(dev) -> float:
+    """The pinned host-to-device rate, bytes a second: one 1 GiB copy
+    from page-locked memory, alone on the card (the median of three)."""
+    import torch
+    size = 1 << 30
+    src = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(size, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), reps=3,
+                 warmup=1)
+    del src, dst
+    torch.cuda.empty_cache()
+    return size / (ms / 1e3)
+
+
+def merged(intervals) -> list:
+    """Sorted, disjoint union of ``(start, end)`` intervals."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def covered(iv, union, starts) -> float:
+    """How much of interval ``iv`` the disjoint sorted ``union`` (whose
+    intervals start at ``starts``) covers."""
+    import bisect
+    s, e = iv
+    total = 0.0
+    for i in range(max(0, bisect.bisect_right(starts, s) - 1), len(union)):
+        a, b = union[i]
+        if a >= e:
+            break
+        total += max(0.0, min(b, e) - max(a, s))
+    return total
+
+
+def kineto_span_us(e):
+    """A raw profiler record's (start, end) in µs."""
+    if hasattr(e, "end_ns"):
+        return e.start_ns() / 1e3, e.end_ns() / 1e3
+    return e.start_us(), e.start_us() + e.duration_us()
+
+
+def stream_profile(fn):
+    """Profile ``fn()`` (a streamed tree) under ``torch.profiler``: its
+    wall seconds; the device-busy share (the union of every kernel's and
+    copy's device interval over the wall); the kernels' union share; the
+    host-to-device copies, their device ms and how much of it a kernel
+    ran beside; the runtime's launch calls; and how many times each
+    kernel of :data:`KERNELS` ran."""
+    import torch
+    import torch.profiler as tp
+    # the card's activity and the runtime's calls only, read from the
+    # profiler's raw records: a streamed tree makes some 50,000 to 150,000
+    # launches, and the PyTorch ops' records and the processed events
+    # would take minutes
+    with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+        for _ in range(MARKERS):
+            torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [(e.name(), e.device_type(), *kineto_span_us(e))
+              for e in prof.profiler.kineto_results.events()]
+    dev = [(n, a, b) for n, d, a, b in events
+           if d == torch.autograd.DeviceType.CUDA and "spin_kernel" not in n]
+    copies = [(a, b) for n, a, b in dev if "HtoD" in n]
+    kernels = merged((a, b) for n, a, b in dev
+                     if "Memcpy" not in n and "Memset" not in n)
+    busy = sum(b - a for a, b in merged((a, b) for _, a, b in dev))
+    starts = [a for a, _ in kernels]
+    overlap = sum(covered(c, kernels, starts) for c in copies)
+    copy_us = sum(b - a for a, b in copies)
+    calls = {k: sum(1 for e in events if e[0] == k) for k in RUNTIME_CALLS}
+    calls["cudaLaunchKernel"] -= MARKERS
+    ran = {k: sum(1 for n, _, _ in dev if k in n)
+           for k in sum(KERNELS.values(), ())}
+    if not dev:
+        return wall, dict(device_busy_share="not measured",
+                          h2d_overlaps_kernel="not measured"), calls, ran
+    kernel_us = sum(b - a for a, b in kernels)
+    return wall, dict(
+        device_busy_share=f"{busy / (wall * 1e6):.4f}",
+        kernel_busy_share=f"{kernel_us / (wall * 1e6):.4f}",
+        h2d_copies=len(copies), h2d_device_ms=f"{copy_us / 1e3:.3f}",
+        h2d_overlapped_ms=f"{overlap / 1e3:.3f}",
+        h2d_overlapped_share=f"{overlap / copy_us:.4f}" if copy_us else 0,
+        h2d_overlaps_kernel=overlap > 0), calls, ran
+
+
+def streamed_launches(snap, fns) -> dict:
+    """Each wrapper's launches since ``snap`` (:func:`count_snapshot`)."""
+    return {k: fn.launches - snap[0][k] for k, fn in fns.items()}
+
+
+def stream_checked_profile(name, fns, grow_one, trees: int,
+                           tries: int = 2):
+    """:func:`stream_profile` of ``grow_one()`` (``trees`` trees), with the
+    kernels the profiler saw run held against those the counts give (the
+    profiler can lose records, so a call whose kernels differ is profiled
+    again, up to ``tries`` calls), and a host-to-device copy required to
+    overlap a kernel."""
+    missed = []
+    for _ in range(tries):
+        snap = count_snapshot(fns)
+        wall, prof, calls, ran = stream_profile(grow_one)
+        want = kernels_launched(fns, snap, 0, {})
+        if prof["h2d_overlaps_kernel"] == "not measured":
+            fail(f"{name}: the profiler saw no device event")
+        if ran == want:
+            break
+        missed.append({k: f"{ran[k]}/{v}" for k, v in want.items()
+                       if ran[k] != v})
+    else:
+        fail(f"{name}: in {tries} profiled calls the kernels that ran on "
+             f"the card differ from those the counts give (ran/counted): "
+             f"{missed}")
+    if not prof["h2d_overlaps_kernel"]:
+        fail(f"{name}: no host-to-device copy overlapped a kernel in the "
+             f"profiled tree: the double buffer overlaps nothing")
+    return dict(profiled_ms_per_tree=f"{wall * 1e3 / trees:.2f}", **prof,
+                trees_profiled_again=len(missed),
+                **{f"{k}_calls_per_tree": f"{v / trees:g}"
+                   for k, v in calls.items()})
+
+
+def link_fields(rate: float, passes: int, nbytes: int, trees: int,
+                ms_per_tree: float) -> dict:
+    """The host link's share of a streamed tree: every pass moves the
+    whole matrix, at the measured pinned rate."""
+    bound = passes / trees * nbytes / rate * 1e3
+    return dict(h2d_gb_per_s=f"{rate / 1e9:.3f}",
+                link_bound_ms_per_tree=f"{bound:.2f}",
+                link_share_of_wall=f"{bound / ms_per_tree:.4f}")
+
+
+def streamed_tree_vs_resident(name, ds, y, chunks, rate, checks=True,
+                              **cfg_kw):
+    """Phases 20a and 20c's tree: one tree under integer-valued gradients
+    (sums exact in any order) grown by the resident graph loop and by the
+    streamed grower over the Dataset's matrix in page-locked memory at
+    each block size of ``chunks``: identical field by field and in the
+    row -> leaf map.  With ``checks``, at the first block size a second
+    streamed tree runs under ``torch.cuda.set_sync_debug_mode("error")``
+    (its one host read a split is an event wait, which the mode does not
+    flag) and a third is profiled; ms a tree, blocks, bytes and host
+    reads a tree, and
+    ``route_rows`` and ``hist_local`` launches a tree held against the
+    splits and blocks."""
+    import torch
+    from lightgbm_tpu_torch.data.stream import (BlockStreamer,
+                                                HostBlockStore, pin_matrix)
+    from lightgbm_tpu_torch.grower import (FeatureMeta, GrowerConfig,
+                                           StreamedGrower, WindowBuffers,
+                                           grow_tree)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    td = ds.constructed
+    fm = td.feature_meta()
+    n, f = td.binned.shape
+    rng = np.random.default_rng(SEED + 6)
+    put = lambda a: torch.from_numpy(a).to(dev)
+    g = put((np.where(y > 0, -3, 2) + rng.integers(-2, 3, n)).astype(
+        np.float32))
+    h = put(rng.integers(1, 4, n).astype(np.float32))
+    c = torch.ones(n, dtype=torch.float32, device=dev)
+    meta = FeatureMeta(put(fm["num_bin"]), put(fm["missing_type"]),
+                       put(fm["default_bin"]), put(fm["is_categorical"]))
+    fv = torch.ones(f, dtype=torch.bool, device=dev)
+    cfg = GrowerConfig(
+        num_leaves=255, min_data_in_leaf=1, min_sum_hessian_in_leaf=10.0,
+        max_bin=td.max_num_bin(),
+        has_missing=bool((fm["missing_type"] != 0).any()),
+        has_categorical=bool(fm["is_categorical"].any()),
+        partition_impl="compact", **cfg_kw)
+    bins = (ds.bins if ds.bins is not None
+            else torch.from_numpy(td.binned).to(dev))
+    tree, rl = grow_tree(bins, g, h, c, meta, fv, cfg,
+                         buffers=WindowBuffers(n, f, cfg, dev), loop="graph")
+    del bins
+    host = lambda tr, r: ({k: v.cpu().numpy() for k, v in tr._asdict().items()
+                           if isinstance(v, torch.Tensor)}, r.cpu().numpy(),
+                          tr.num_leaves)
+    want = host(tree, rl)
+    splits = want[2] - 1
+    if splits < 1:
+        fail(f"{name}: the resident integer tree made no split")
+    pinned = pin_matrix(td.binned)
+    fns = _kernel_wrappers()
+    out = dict(rows=n, features=f, leaves=want[2])
+    for i, chunk in enumerate(chunks):
+        store = HostBlockStore(pinned, chunk)
+        nb = store.num_blocks
+        grower = StreamedGrower(cfg, BlockStreamer(store, dev))
+        stats = {}
+        runs = 3 if i == 0 and checks else 1
+        for run in range(runs):
+            snap = count_snapshot(fns)
+            before = stats.get("splits", 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if run == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            grown = None
+            try:
+                if run == 2:
+                    prof = stream_checked_profile(
+                        f"{name} chunk {chunk}", fns,
+                        lambda: grower(g, h, c, meta, fv, stats), 1)
+                else:
+                    grown = grower(g, h, c, meta, fv, stats)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = None if grown is None else host(*grown)
+            launches = streamed_launches(snap, fns)
+            # trees grown in this run: a profile taken again grows two
+            k = (stats["splits"] - before) // splits
+            expect = {key: 0 for key in launches}
+            expect.update(hist_local=k * (splits + 1) * nb,
+                          route_rows=k * splits * nb,
+                          cat_group_accept=(k * (splits + 1)
+                                            if cfg.has_categorical else 0))
+            if launches != expect:
+                fail(f"{name} chunk {chunk}: launches {launches}, expected "
+                     f"{expect}")
+            if got is None:
+                continue
+            bad = [k for k in want[0] if not np.array_equal(want[0][k],
+                                                            got[0][k])]
+            if bad or want[2] != got[2] or not np.array_equal(want[1],
+                                                              got[1]):
+                fail(f"{name}: the streamed tree at {chunk}-row blocks != "
+                     f"the resident graph loop's in "
+                     f"{bad or 'num_leaves/row_leaf'}")
+            if run == 0:
+                out[f"ms_per_tree_{nb}_blocks"] = f"{ms:.2f}"
+        trees = stats["splits"] // splits
+        if stats["host_syncs"] != trees * (splits + (splits < 254)):
+            fail(f"{name}: {stats['host_syncs']} host reads in {trees} "
+                 f"trees of {splits} splits")
+        if (stats["stream_blocks"] != trees * (splits + 1) * nb
+                or stats["stream_bytes"] != trees * (splits + 1)
+                * store.nbytes):
+            fail(f"{name}: streamed {stats['stream_blocks']} blocks, "
+                 f"{stats['stream_bytes']} bytes in {trees} trees")
+        ms_tree = float(out[f"ms_per_tree_{nb}_blocks"])
+        out.update({f"{k}_{nb}_blocks": v for k, v in dict(
+            block_rows=f"{store.chunk_rows}:{store.block_rows()[-1]}",
+            blocks_per_tree=(splits + 1) * nb,
+            bytes_per_tree=(splits + 1) * store.nbytes,
+            host_reads_per_tree=stats["host_syncs"] // trees,
+            route_rows_launches_per_tree=splits * nb,
+            hist_local_calls_per_tree=(splits + 1) * nb,
+            **link_fields(rate, splits + 1, store.nbytes, 1,
+                          ms_tree)).items()})
+        if i == 0 and checks:
+            out.update(sync_checked_trees=1, **prof)
+        del grower
+    out["identical_to_resident_graph"] = True
+    del pinned
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_train(name, params, ds, x_te, y_te, rounds, quality, rate,
+                 blocks: int, last_rows: int):
+    """Phases 20b and 20c's training: ``train`` with
+    ``data_stream=chunked`` at the default block size on a Dataset whose
+    matrix is not on the card, ``rounds - 1`` rounds timed with the kernel
+    counts set to 0 just before and read just after, then the last round
+    profiled (``Booster.update``) and the model held to ``quality``.
+    Held: the streamed grower ran (``blocks`` blocks, the last of
+    ``last_rows`` rows); the
+    matrix stayed off the card; ``hist_local`` launched once a block of
+    every pass (root and splits), ``route_rows`` once a block of every
+    split, ``cat_group`` once a tree and a split on categorical data, the
+    lambdarank kernel once a round, nothing else; one host read a split
+    (and one a tree that stopped early); every pass streamed every block;
+    a host-to-device copy overlapped a kernel.  Returns its numbers and
+    the booster."""
+    import torch
+    from lightgbm_tpu_torch import train
+    fns = _kernel_wrappers()
+    params = dict(params, data_stream="chunked")
+    if ds.bins is not None:
+        fail(f"{name}: the Dataset's matrix is on the card before training")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fns.values():
+        fn.launches = 0
+        for k in getattr(fn, "regime_launches", {}):
+            fn.regime_launches[k] = 0
+    t0 = time.perf_counter()
+    bst = train(params, ds, num_boost_round=rounds - 1, verbose_eval=False)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    raw = {k: fn.launches for k, fn in fns.items()}
+    inner = bst.inner
+    if (inner._streamed is None or ds.bins is not None
+            or inner.bins is not None):
+        fail(f"{name}: not streamed, or the matrix went to the card")
+    store = inner._streamer.store
+    if (store.num_blocks, store.block_rows()[-1]) != (blocks, last_rows):
+        fail(f"{name}: {store.num_blocks} blocks, the last of "
+             f"{store.block_rows()[-1]} rows; expected {blocks} and "
+             f"{last_rows}")
+    st = dict(inner.stats)
+    trees, splits, nb = st["trees"], st["splits"], store.num_blocks
+    K = inner.num_class
+    grown = inner.models[-trees:]
+    L = inner.grower_cfg.num_leaves
+    early = sum(1 for m in grown if m.num_leaves - 1 < L - 1)
+    categorical = bool(ds.constructed.feature_meta()["is_categorical"].any())
+    want = {k: 0 for k in raw}
+    want.update(hist_local=(trees + splits) * nb, route_rows=splits * nb,
+                cat_group_accept=trees + splits if categorical else 0,
+                lambdarank_grad=(rounds - 1 if params["objective"]
+                                 == "lambdarank" else 0))
+    if raw != want:
+        fail(f"{name}: kernel launches {raw}, expected {want}")
+    if fns["hist_local"].regime_launches["device"] != raw["hist_local"]:
+        fail(f"{name}: a hist_local call took a host-picked regime")
+    if st["host_syncs"] != splits + early:
+        fail(f"{name}: {st['host_syncs']} host reads for {splits} splits in "
+             f"{trees} trees ({early} stopped early)")
+    passes = trees + splits
+    if (st["stream_passes"] != passes or st["stream_blocks"] != passes * nb
+            or st["stream_bytes"] != passes * store.nbytes):
+        fail(f"{name}: {st['stream_passes']} passes, {st['stream_blocks']} "
+             f"blocks, {st['stream_bytes']} bytes for {passes} passes of "
+             f"{nb} blocks")
+    prof = stream_checked_profile(name, fns, bst.update, K)
+    pred = bst.predict(x_te, num_iteration=rounds)
+    if (pred.shape != ((len(y_te),) if K == 1 else (len(y_te), K))
+            or not np.isfinite(pred).all()
+            or bst.current_iteration() < rounds):
+        fail(f"{name}: held-out predictions are not finite of the expected "
+             f"shape after {rounds} rounds")
+    ms_tree = t_train * 1e3 / trees
+    out = dict(rows=store.num_rows, features=store.num_cols,
+               timed_trees=trees, rounds=rounds, splits=splits, blocks=nb,
+               route_rows_launches=raw["route_rows"],
+               hist_local_calls=raw["hist_local"],
+               block_rows=f"{store.chunk_rows}:{store.block_rows()[-1]}",
+               matrix_bytes=store.nbytes,
+               block_bytes=store.chunk_rows * store.num_cols
+               * store.matrix.dtype.itemsize,
+               ms_per_tree=f"{ms_tree:.2f}",
+               blocks_per_tree=f"{passes * nb / trees:g}",
+               bytes_per_tree=f"{passes * store.nbytes / trees:g}",
+               host_reads_per_tree=f"{st['host_syncs'] / trees:g}",
+               route_rows_launches_per_tree=f"{raw['route_rows'] / trees:g}",
+               hist_local_calls_per_tree=f"{raw['hist_local'] / trees:g}",
+               hist_local_launches_per_tree=(
+                   f"{2 * raw['hist_local'] / trees:g}"),
+               peak_mem_bytes=peak,
+               downgrades=";".join(d["requested"] for d in inner.downgrades),
+               **link_fields(rate, passes, store.nbytes, trees, ms_tree),
+               **quality(bst, pred, x_te, y_te), **prof)
+    return out, bst
+
+
 def wide_kernel_fields(name: str, wide: dict, serial: dict, dp: dict,
                        expo: dict) -> dict:
     """The kernels line's uint16 fields of kernel ``name``: its launches
@@ -4936,6 +5616,10 @@ def main() -> None:
     rows_timing.update(check_route_rows_bundled(dev, rng))
     torch.cuda.empty_cache()
 
+    # ---- phase 2j: data-parallel route kernel on a row-major block --------
+    block_timing = check_route_rows_block(dev, rng)
+    torch.cuda.empty_cache()
+
     # ---- phase 2i: every kernel on a uint16 bin matrix --------------------
     wide = check_wide_kernels(dev, rng)
 
@@ -4995,6 +5679,14 @@ def main() -> None:
 
     # ---- phase 6c: the data-parallel trees against the serial tree --------
     gspmd_trees_identical(higgs_ds, y_tr)
+    torch.cuda.empty_cache()
+
+    # ---- phase 20a: streamed trees of the Higgs path ----------------------
+    rate = h2d_rate(dev)
+    higgs_stream = streamed_tree_vs_resident(
+        "higgs_streamed", higgs_ds, y_tr, (100_000, 333_334), rate,
+        ordered_bins="off")
+    phase("higgs_streamed_trees", **higgs_stream)
     del higgs_ds
     flat_vs_fused(dict(dp_params, mesh_shape="4x1"), x_tr[:sub], y_tr[:sub],
                   x_te[:sub])
@@ -5066,7 +5758,7 @@ def main() -> None:
     # ---- phases 2h and 8: lambdarank on the MS-LTR-shaped task ------------
     rng = np.random.default_rng(SEED + 7)
     run_dir = os.path.dirname(os.path.abspath(__file__))
-    mslr, lam, heldout = rank_path(params, names, rng)
+    mslr, lam, heldout = rank_path(params, names, rng, rate=rate)
     # ---- phase 8b: card against CPU on the ranking task -------------------
     rank_card_vs_cpu(dict(params, objective="lambdarank", metric="ndcg",
                           ndcg_eval_at=list(MSLR_EVAL_AT)),
@@ -5087,10 +5779,16 @@ def main() -> None:
     samp = sampling_paths(params, names, x_tr, y_tr, x_te, y_te)
     # ---- phase 10c: the bagging subset regime on the Expo-shaped task ----
     expo_bag = expo_subset_path(expo_params, names, *expo_kept)
+    # phase 20c streams this Dataset last: its profiled tree's records (some
+    # 150,000 launches) are the largest of the run, and later profiled
+    # windows lost records after it
+    expo_stream_kept = (expo_kept[0], expo_kept[2], expo_kept[3],
+                        expo_kept[4], expo_model[0])
+    expo_kept[0].bins = None
     del expo_kept
     torch.cuda.empty_cache()
     # ---- phase 14b: card against CPU for bagging, GOSS and DART ----------
-    sampling_card_vs_cpu(params, x_tr[:100_000], y_tr[:100_000], x_te, y_te)
+    sampling_card_vs_cpu(params, x_tr[:50_000], y_tr[:50_000], x_te, y_te)
     # ---- phase 15: the non-finite guard, each policy tripped once ---------
     guard = nonfinite_guard(params, x_tr[:200_000], y_tr[:200_000])
     torch.cuda.empty_cache()
@@ -5110,6 +5808,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     # ---- phase 19: the Expo-shaped task over the full airport tail --------
     wide_expo = expo_wide_path(params, names)
+    torch.cuda.empty_cache()
+    # ---- phase 20c: the Expo-shaped task streamed -------------------------
+    expo_stream = expo_streamed(expo_params, *expo_stream_kept, rate)
+    del expo_stream_kept
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}",
           higgs_ms_per_tree_scatter=higgs["ms_per_tree"],
           higgs_ms_per_tree_compact=compact["ms_per_tree"],
@@ -5130,7 +5832,11 @@ def main() -> None:
           training_api_ms_per_tree=samp["14"]["reset_ms_per_tree"],
           higgs_1023_ms_per_tree=wide_serial["ms_per_tree"],
           higgs_1023_dp_4x1_ms_per_tree=wide_dp["ms_per_tree"],
-          expo_wide_ms_per_tree=wide_expo["ms_per_tree"])
+          expo_wide_ms_per_tree=wide_expo["ms_per_tree"],
+          higgs_streamed_ms_per_tree_10_blocks=higgs_stream[
+              "ms_per_tree_10_blocks"],
+          mslr_streamed_ms_per_tree=mslr["streamed"]["ms_per_tree"],
+          expo_streamed_ms_per_tree=expo_stream["ms_per_tree"])
     u16 = lambda name: wide_kernel_fields(name, wide, wide_serial, wide_dp,
                                           wide_expo)
 
@@ -5221,7 +5927,23 @@ def main() -> None:
         "max_abs_err": lam["max_abs_err"], "ms": lam["ms"],
         "plain_ms": lam["plain_ms"], "bound_ms": lam["bound_ms"],
         "bound_by": lam["bound_by"], "library_ms": None,
-        "ms_many": lam["ms_many"], "device_ms": lam["device_ms"]}]}),
+        "ms_many": lam["ms_many"], "device_ms": lam["device_ms"]}, {
+        "name": "route_rows_block", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/route.cu",
+        "replaces": "lightgbm_tpu/grower.py:1223",
+        # the MS-LTR streamed path's launches; the Expo path's beside it
+        "launches": mslr["streamed"]["route_rows_launches"],
+        "launches_expo_streamed": expo_stream["route_rows_launches"],
+        "max_abs_err": 0.0, "ms": block_timing["root"]["ms"],
+        "plain_ms": block_timing["root"]["plain_ms"],
+        "bound_ms": block_timing["root"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        **{k: v for k, v in block_timing["root"].items() if k in (
+            "ms_many", "device_ms", "column_major_ms",
+            "column_major_ms_many", "column_major_device_ms",
+            "column_major_bound_ms", "sectors")},
+        **{f"{k}_leaf_1000": v
+           for k, v in block_timing["leaf_1000"].items()}}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import data as data_mod
-from .boosting import GBDT, create_boosting
+from .boosting import GBDT, create_boosting, streams
 from .config import (Config, _parse_value, canonicalize_params,
                      config_from_params, resolve_device)
 from .data.binning import BinMapper
@@ -84,7 +84,8 @@ def _load_pandas_categorical(model_str: str):
 
 class Dataset:
     """Lazily-constructed dataset: binned on the host, then moved to the
-    device once."""
+    device once, unless a training streams it (``data_stream=chunked``):
+    its bin matrix then stays on the host."""
 
     # the first bytes of a binary dataset file: the JAX package's token
     # and npz + JSON layout (``lightgbm_tpu/basic.py:558``), loaded with
@@ -137,21 +138,26 @@ class Dataset:
                 if isinstance(self.feature_name, (list, tuple)) else None)
 
     def construct(self, config: Optional[Config] = None,
-                  device: Optional[str] = None) -> "Dataset":
-        """Bin on the host (dataset.py:92 ``construct``) and move the bin
-        matrix to ``device`` (default: ``params['device']``, else cuda)."""
+                  device: Optional[str] = None,
+                  on_device: bool = True) -> "Dataset":
+        """Bin on the host (dataset.py:92 ``construct``) and, unless
+        ``on_device`` is False (a training that streams the matrix), move
+        the bin matrix to ``device`` (default: ``params['device']``, else
+        cuda)."""
         cfg = config or config_from_params(self.params)
         dev = resolve_device(device or cfg.device)
         if self.constructed is None:
             self.constructed = self._build(cfg, str(dev))
-        if self.bins is None or self.bins.device.type != dev.type:
+        if on_device and (self.bins is None
+                          or self.bins.device.type != dev.type):
             self.bins = torch.from_numpy(self.constructed.binned).to(dev)
         return self
 
     def _build(self, cfg: Config, dev: str) -> data_mod.TrainingData:
         """The host dataset, from whichever input this Dataset holds
         (``lightgbm_tpu/basic.py:130-371``)."""
-        ref = (self.reference.construct(cfg, dev)
+        # the reference's host dataset: its bins stay where they are
+        ref = (self.reference.construct(cfg, dev, on_device=False)
                if self.reference is not None else None)
         td_ref = None if ref is None else ref.constructed
         path = str(self.data) if _is_path(self.data) else None
@@ -322,7 +328,7 @@ class Dataset:
 
     def _constructed_meta(self):
         if self.constructed is None:
-            self.construct()
+            self.construct(on_device=False)
         return self.constructed.metadata
 
     def get_label(self):
@@ -435,12 +441,12 @@ class Dataset:
 
     def num_data(self) -> int:
         if self.constructed is None:
-            self.construct()
+            self.construct(on_device=False)
         return self.constructed.num_data
 
     def num_feature(self) -> int:
         if self.constructed is None:
-            self.construct()
+            self.construct(on_device=False)
         return self.constructed.num_total_features
 
     def subset(self, used_indices, params=None) -> "Dataset":
@@ -449,7 +455,7 @@ class Dataset:
         scores follow their rows, and with query groups each query keeps
         its selected rows, the queries left empty dropped."""
         if self.constructed is None:
-            self.construct()
+            self.construct(on_device=False)
         raw = self.ensure_raw()
         if raw is None:
             log.fatal("Cannot subset: raw data not in memory (construct "
@@ -476,7 +482,7 @@ class Dataset:
         """Write the constructed dataset as a binary dataset file
         (Dataset::SaveBinaryFile); ``compress=False`` skips zlib."""
         if self.constructed is None:
-            self.construct()
+            self.construct(on_device=False)
         self._write_binary(self.constructed, filename, compress)
         return self
 
@@ -601,11 +607,14 @@ class Booster:
         # Dataset or the model text's last line
         self.pandas_categorical: Optional[List[List]] = None
         if train_set is not None:
-            train_set.construct(cfg, str(self.device))
+            # a streamed training's matrix never lands on the device
+            streamed = streams(cfg)
+            train_set.construct(cfg, str(self.device),
+                                on_device=not streamed)
             self.pandas_categorical = train_set.pandas_categorical
             self.inner = create_boosting(cfg, train_set.constructed,
                                          create_objective(cfg),
-                                         train_set.bins)
+                                         None if streamed else train_set.bins)
         else:
             if model_file is not None:
                 with open(model_file) as f:
@@ -680,6 +689,7 @@ class Booster:
         inner.train_set = None
         inner.valid_sets = []
         inner.bins = None
+        inner._streamer = inner._streamed = None
         inner.scores = None
         inner._subset = None
         inner._score_stash = None

@@ -31,6 +31,15 @@ storage matrix beside it feeds the histogram kernels only
 (``nonfinite_policy``, ``lightgbm_tpu/boosting.py:1566-1621``) checks the
 gradients, hessians and leaf values on the device and reads its flags
 with each tree's copy to the host.
+
+With ``data_stream=chunked`` on the serial learner the bin matrix never
+lands on the device (``lightgbm_tpu/boosting.py:772-829``): it stays in
+page-locked host memory, and the streamed grower
+(``grower.StreamedGrower``) moves it through the card block by block,
+one pass a split; every other use of the training bins (the rollback's
+re-scoring, the out-of-bag rows) goes through the same blocks
+(:meth:`GBDT._over_train_bins`).  Packing, ``ordered_bins=on`` and the
+bagging subset regime are turned off for it, each loudly.
 """
 from __future__ import annotations
 
@@ -41,11 +50,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import Config, _unsupported
+from .config import Config, _unsupported, resolve_device
 from .data.dataset import TrainingData
 from .data.packing import PackedBins, build_pack_plan, pack_bins
-from .grower import (FeatureMeta, GrowerConfig, TreeArrays, WindowBuffers,
-                     grow_tree, resolve_partition_impl)
+from .data.stream import BlockStreamer
+from .grower import (FeatureMeta, GrowerConfig, StreamedGrower, TreeArrays,
+                     WindowBuffers, grow_tree, resolve_partition_impl)
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .objectives import Objective, parse_objective_string
 from .ops.histogram import movable
@@ -56,6 +66,30 @@ from .predictor import (Predictor, SoABundle, predict_binned_leaf,
 from .tree import Tree
 from .utils import log
 from .utils.random import make_rng, sample_k
+
+
+def training_device(cfg: Config) -> torch.device:
+    """The device training runs on, from the config: ``cuda`` (the current
+    card) unless ``device="cpu"`` (``config.resolve_device``)."""
+    dev = resolve_device(cfg.device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def streams(cfg: Config) -> bool:
+    """Whether training keeps its bin matrix on the host and streams it:
+    ``data_stream=chunked`` on the serial learner.  A data-parallel
+    learner (a parallel ``tree_learner`` over more than one mesh slot,
+    as ``GBDT._setup_device`` resolves it) does not read ``data_stream``,
+    as in the JAX package (``lightgbm_tpu/boosting.py:444-445``, :566),
+    and ``auto`` stays resident (its capacity walk needs the memory
+    planner)."""
+    if cfg.data_stream != "chunked":
+        return False
+    return cfg.tree_learner == "serial" or cfg.mesh_devices == 1 or len(
+        mesh_mod.mesh_slots(cfg.mesh_devices, training_device(cfg))) <= 1
+
 
 class NonFiniteError(RuntimeError):
     """A gradient, hessian or leaf value went non-finite and the
@@ -162,6 +196,10 @@ class GBDT:
         self._gspmd: Optional[GspmdGrower] = None
         # the serial grower's device state, made at the first tree
         self._windows: Optional[WindowBuffers] = None
+        # data_stream=chunked: the pipeline of the host bin matrix and the
+        # streamed grower, made once per training
+        self._streamer: Optional[BlockStreamer] = None
+        self._streamed: Optional[StreamedGrower] = None
         self._row_pad = 0
         # nibble packing: the packed storage matrix the histogram reads,
         # with its plan (None: the histogram reads the bins)
@@ -175,20 +213,27 @@ class GBDT:
 
     # ------------------------------------------------------------------ setup
 
-    def _setup_device(self, train: TrainingData, bins: torch.Tensor) -> None:
+    def _setup_device(self, train: TrainingData,
+                      bins: Optional[torch.Tensor]) -> None:
         """The device state of training (boosting.py:216 ``_setup_device``,
-        serial single-device subset): the bin matrix, feature metadata,
-        grower config, objective state, scores and sampling state."""
+        serial single-device subset): the bin matrix (None when it is
+        streamed), feature metadata, grower config, objective state,
+        scores and sampling state."""
         cfg = self.config
-        self.device = bins.device
+        self.device = training_device(cfg)
         self.bins = bins
         fm = train.feature_meta()
         # the learner (boosting.py:443-445): distributed when a parallel
         # tree_learner has more than one mesh slot
-        slots = (mesh_mod.mesh_slots(cfg.mesh_devices, bins.device)
-                 if cfg.tree_learner != "serial" else [bins.device])
+        slots = (mesh_mod.mesh_slots(cfg.mesh_devices, self.device)
+                 if cfg.tree_learner != "serial" else [self.device])
         use_dist = cfg.tree_learner != "serial" and (
             cfg.mesh_devices != 1 and len(slots) > 1)
+        streamed = cfg.data_stream == "chunked" and not use_dist
+        if streamed != (bins is None):
+            raise ValueError("the bin matrix must be on the device unless "
+                             "training streams it (data_stream=chunked on "
+                             "the serial learner), and absent when it does")
         # nibble packing over the physical columns (boosting.py:497-528);
         # the feature-sliced learners keep the 1:1 layout
         ordered = "off" if cfg.ordered_bins == "auto" else cfg.ordered_bins
@@ -196,6 +241,28 @@ class GBDT:
         if cfg.enable_bin_packing and not (
                 use_dist and cfg.tree_learner in ("feature", "data_feature")):
             plan = build_pack_plan(train.col_num_bins())
+        if plan is not None and streamed:
+            # boosting.py:781-792
+            log.warning("nibble bin packing is ignored under "
+                        "data_stream=chunked (the packed histogram copy "
+                        "is a second resident copy of exactly the matrix "
+                        "streaming exists to keep off-device); streaming "
+                        "the raw 1:1 bin layout")
+            self.downgrades.append({
+                "requested": "enable_bin_packing=true",
+                "resolved": "unpacked",
+                "reason": "streamed blocks keep the raw 1:1 bin layout"})
+            plan = None
+        if streamed and ordered == "on":
+            # boosting.py:806-815
+            log.warning("ordered_bins=on is ignored under "
+                        "data_stream=chunked (leaf-ordered storage "
+                        "assumes the resident row layout); using the "
+                        "direct layout")
+            self.downgrades.append({
+                "requested": "ordered_bins=on", "resolved": "off",
+                "reason": "streamed blocks keep source row order"})
+            ordered = "off"
         if plan is not None:
             if ordered == "on":
                 log.warning("ordered_bins=on is ignored while nibble bin "
@@ -257,14 +324,18 @@ class GBDT:
         self._bagging_on = False
         self._bag_rng = make_rng(cfg.bagging_seed)
         self._feat_rng = make_rng(cfg.feature_fraction_seed)
-        # a bag as the root window: the serial learner only (:554)
-        self._can_subset = not use_dist
+        # a bag as the root window: the serial learner only (:554); under
+        # streaming bagging keeps the weight-mask form (:816-818)
+        self._can_subset = not use_dist and not streamed
         self.metric_names = (cfg.metric
                              or [default_metric_for_objective(cfg.objective)])
         self.train_metrics = self._make_metrics(train)
         if use_dist:
             self._setup_gspmd(cfg, slots)
-        elif cfg.tree_learner != "serial":      # loud fallback (:555-565)
+        elif streamed:
+            self._setup_streamed(cfg, train)
+        if not use_dist and cfg.tree_learner != "serial":
+            # loud fallback (:555-565)
             log.warning(f"tree_learner={cfg.tree_learner} requested but only "
                         f"one mesh slot is in use (slots={len(slots)}, "
                         f"mesh_devices={cfg.mesh_devices}); falling back to "
@@ -272,6 +343,33 @@ class GBDT:
             self.downgrades.append({
                 "requested": f"tree_learner={cfg.tree_learner}",
                 "resolved": "serial", "reason": "only one device is in use"})
+
+    def _setup_streamed(self, cfg: Config, train: TrainingData) -> None:
+        """``data_stream=chunked`` (lightgbm_tpu/boosting.py:772-829): the
+        bin matrix cut into host row blocks of ``stream_chunk_rows``
+        (``parallel/mesh.default_chunk_rows``), page-locked on a card, and
+        the streamed grower over their pipeline.  Packing and
+        ``ordered_bins=on`` were turned off above."""
+        chunk = mesh_mod.default_chunk_rows(train.num_data,
+                                            cfg.stream_chunk_rows)
+        store = train.to_blocks(chunk, pin=self.device.type == "cuda")
+        self._streamer = BlockStreamer(store, self.device)
+        self._streamed = StreamedGrower(self.grower_cfg, self._streamer,
+                                        n_logical=self.meta.num_bin.numel())
+        log.info("Using streamed serial tree learner: %d blocks of %d "
+                 "rows, double-buffered", store.num_blocks,
+                 store.chunk_rows)
+
+    def _over_train_bins(self, fn) -> torch.Tensor:
+        """``fn(bins)`` (a ``[..., rows]`` result on the device) over the
+        training bin matrix: on the device matrix, or, when it is
+        streamed, block by block through the pipeline, concatenated in row
+        order (the JAX package uploads a cached whole copy instead,
+        ``lightgbm_tpu/boosting.py:1503-1512``)."""
+        if self._streamer is None:
+            return fn(self.bins)
+        return torch.cat([fn(block) for _, _, _, block
+                          in self._streamer.blocks()], dim=-1)
 
     def _setup_gspmd(self, cfg: Config, slots) -> None:
         """The data-parallel learner (lightgbm_tpu/boosting.py:830-1049,
@@ -499,8 +597,9 @@ class GBDT:
             if self._subset is not None:
                 # the out-of-bag rows need scores too (UpdateScoreOutOfBag,
                 # gbdt.cpp:452-463): every row routed through the tree
-                row_leaf = predict_binned_leaf(self.bins, arrays, self.meta,
-                                               depth)
+                row_leaf = self._over_train_bins(
+                    lambda b: predict_binned_leaf(b, arrays, self.meta,
+                                                  depth))
             self.scores[k] = (self.scores[k]
                               + lr_t * arrays.leaf_value[row_leaf.long()])
             for vs in self.valid_sets:
@@ -572,6 +671,9 @@ class GBDT:
         """One tree from gradients ``g``, hessians ``h`` and count weights
         ``c`` ``[N]`` (of the bag ``rows`` only, when given):
         ``(TreeArrays, row_leaf [N])``."""
+        if self._streamed is not None:
+            return self._streamed(g, h, c, self.meta, self._feat_valid,
+                                  self.stats)
         if self._gspmd is not None:
             arrays, row_leaf = self._gspmd(
                 self._dist_row_vec(g), self._dist_row_vec(h),
@@ -611,7 +713,8 @@ class GBDT:
         tree = self.models.pop()
         if tree.num_leaves > 1:
             tree.shrink(-1.0)
-            self.scores[k] += self._trees_scores([tree], self.bins)[0]
+            self.scores[k] += self._over_train_bins(
+                lambda b: self._trees_scores([tree], b))[0]
             for vs in self.valid_sets:
                 vs.scores[k] += self._trees_scores([tree], vs.bins)[0]
 
@@ -893,9 +996,9 @@ class DART(GBDT):
         pairs = [(i, k) for i in self._drop_index
                  for k in range(self.num_class)]
         if pairs:
-            contribs = self._trees_scores(
-                [self.models[self._model_index(i, k)] for i, k in pairs],
-                self.bins)
+            trees = [self.models[self._model_index(i, k)] for i, k in pairs]
+            contribs = self._over_train_bins(
+                lambda b: self._trees_scores(trees, b))
             for t, (i, k) in enumerate(pairs):
                 self._drop_train_contrib[(i, k)] = contribs[t]
                 self.scores[k] -= contribs[t]

@@ -188,7 +188,10 @@ class Config:
     enable_bin_packing: bool = True
     max_conflict_rate: float = 0.0
     categorical_column: str = ""
+    # streamed out-of-core training (lightgbm_tpu/config.py:302-318):
+    # auto | resident | chunked, and the block size (0: default_chunk_rows)
     data_stream: str = "auto"
+    stream_chunk_rows: int = 0
 
     # data files (lightgbm_tpu/config.py:159-161): a header line, the
     # "<data>.bin" cache written beside a text file, and two-round loading
@@ -272,7 +275,6 @@ TAKEN_AS_IS = frozenset((
 
 # the ROADMAP.md port-queue items (their bold titles) of NOT_PORTED
 _MULTI = "multi-device learners"
-_STREAM = "streamed out-of-core training"
 _SERVING = ("checkpoints, serving, observability, CLI, sklearn and "
             "plotting")
 
@@ -319,7 +321,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "drift_threshold": (0.2, _SERVING),
     "drift_window_rows": (4096, _SERVING),
     "serving_traversal": ("auto", _SERVING),
-    "stream_chunk_rows": (0, _STREAM),
     "top_k": (20, _MULTI + " (the shard_map learners)"),
     "is_pre_partition": (False, _MULTI + " (multi-process over "
                          "torch.distributed)"),
@@ -503,9 +504,21 @@ def check_params(cfg: Config) -> None:
             log.fatal("Random forest needs bagging (bagging_freq > 0 and "
                       "0 < bagging_fraction < 1)")
     _check_distributed(cfg)
-    if cfg.data_stream not in ("auto", "resident"):
-        _unsupported(f"data_stream={cfg.data_stream}",
-                     "streamed out-of-core training")
+    # lightgbm_tpu/config.py:769-781; data_stream=auto stays resident
+    # (the capacity walk's chunked rung needs the memory planner)
+    if cfg.data_stream not in ("auto", "resident", "chunked"):
+        log.fatal("data_stream must be auto, resident, or chunked; got %r",
+                  cfg.data_stream)
+    if cfg.stream_chunk_rows < 0:
+        log.fatal("stream_chunk_rows must be >= 0 rows (0 = auto block "
+                  "size); got %r", cfg.stream_chunk_rows)
+    if cfg.data_stream == "chunked" \
+            and cfg.boosting_type in ("dart", "goss"):
+        log.fatal("data_stream=chunked is incompatible with "
+                  "boosting_type=%s: dart's drop/rescale and goss's top-k "
+                  "sampling assume the resident row layout; use "
+                  "data_stream=resident or boosting_type=gbdt",
+                  cfg.boosting_type)
     if cfg.ordered_bins not in ("auto", "on", "off"):
         log.fatal("ordered_bins must be auto, on, or off; got %r",
                   cfg.ordered_bins)

@@ -43,22 +43,28 @@
 // caller can pass with a grid-stride loop, so a small window leaves most
 // blocks idle at once.
 //
-// lgbt_route_rows (the data-parallel learner) updates a device's row ->
-// leaf map in place: every row r of its held row shards with
+// lgbt_route_rows (the data-parallel learner and the streamed grower)
+// updates a row -> leaf map in place: every row r of its row shards with
 // row_leaf[r] == leaf that goes right gets row_leaf[r] = new, a second
-// int64[1].  The split column is one row of the column-major bins of
-// those rows, so a warp reads 32 neighbouring bytes.  blockIdx.y is the
-// shard; each block counts the rows it moved, sums them over the block
-// (warp shuffles, then shared memory) and adds them to the shard's count
-// of `new` and takes them from that of `leaf` (counts, int32
-// [shards, leaves]) with one integer atomicAdd each: exact, whatever the
-// order, so every run gives the same counts.  What bounds it on the H100:
-// bytes, 4 of row_leaf a row read, the column (1 or 2 bytes a row) read
-// only at the leaf's rows
-// (a 32-byte sector each where they are scattered, the whole column at the
-// root) and 4 a moved row written (a bundled column adds two 4-byte reads
-// a call, none a row); after the tree's stop no row holds the sink leaf
-// and nothing is written.
+// int64[1].  The bins are read through two strides, in elements: column
+// c of row r is bins[c * col_stride + r * row_stride].  The data-parallel
+// learner passes a column-major copy of a device's rows (col_stride the
+// rows, row_stride 1), so a warp reads 32 neighbouring bins of the split
+// column; the streamed grower passes the block as it arrived from the
+// host, the row-major [n, F] slice of the bin matrix (col_stride 1,
+// row_stride F), so each row's bin lies in a sector of its own once a
+// row is 32 bytes or more.  blockIdx.y is the shard; each block counts
+// the rows it moved, sums them over the block (warp shuffles, then shared
+// memory) and adds them to the shard's count of `new` and takes them from
+// that of `leaf` (counts, int32 [shards, leaves]) with one integer
+// atomicAdd each: exact, whatever the order, so every run gives the same
+// counts.  What bounds it on the H100: bytes, 4 of row_leaf a row read,
+// the column's bin read only at the leaf's rows (1 or 2 bytes a row
+// column-major, where a warp's rows share sectors at the root; a 32-byte
+// sector a row row-major once F bins are 32 bytes or more; a sector each
+// wherever the leaf's rows are scattered) and 4 a moved row written (a
+// bundled column adds two 4-byte reads a call, none a row); after the
+// tree's stop no row holds the sink leaf and nothing is written.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (lightgbm_tpu_torch/ops/build.py does this).
@@ -196,10 +202,11 @@ extern "C" int lgbt_route(const Args* x) {
 }
 
 // The argument block of lgbt_route_rows, packed by the Python wrapper
-// (ops/route.py:_ROWS_ARGS, struct format "@13Pq8iP").
+// (ops/route.py:_ROWS_ARGS, struct format "@13P3q8iP").
 struct RowsArgs {
   void* row_leaf;          // int32 [shards * n_loc], updated in place
-  const void* bins_t;      // uint8/uint16 [F, shards * n_loc], by column
+  const void* bins;        // uint8/uint16: column c of row r at
+                           // c * col_stride + r * row_stride
   const void* leaf;        // int64[1]: the splitting leaf
   const void* new_leaf;    // int64[1]: the leaf its right rows move to
   const void* split_i32;   // int32 [leaves, 3]: feature, threshold, dleft
@@ -212,6 +219,8 @@ struct RowsArgs {
   const void* offset;      // int32 [E]: its first slot, or null
   void* counts;            // int32 [shards, n_leaves]: rows of each leaf
   long long n_loc;         // rows of a shard
+  long long row_stride;    // elements from a row to the next
+  long long col_stride;    // elements from a column to the next
   int shards;
   int n_feat;              // physical columns F
   int n_logical;           // logical features E (F when unbundled)
@@ -251,14 +260,14 @@ __global__ void __launch_bounds__(kThreads) lgbt_route_rows_kernel(
   const int shard = blockIdx.y;
   const long long base = (long long)shard * a.n_loc;
   int32_t* rl = static_cast<int32_t*>(a.row_leaf) + base;
-  const T* col = static_cast<const T*>(a.bins_t) +
-                 (long long)c * a.shards * a.n_loc + base;
+  const T* col = static_cast<const T*>(a.bins) + (long long)c * a.col_stride +
+                 base * a.row_stride;
   int moved = 0;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
        p < a.n_loc; p += stride) {
     if (rl[p] != l) continue;
-    const int b = decode_slot(__ldg(col + p), off, nb, db);
+    const int b = decode_slot(__ldg(col + p * a.row_stride), off, nb, db);
     bool left;
     if (is_cat) {
       left = __ldg(cat_row + min(b, a.cat_width - 1)) != 0;
@@ -298,6 +307,7 @@ extern "C" int lgbt_route_rows(const RowsArgs* x) {
   const RowsArgs& a = *x;
   if (a.grid_x < 1 || a.shards < 1 || a.shards > 65535 || a.n_feat < 1 ||
       a.n_logical < 1 || a.n_loc < 0 || a.n_leaves < 1 ||
+      a.row_stride < 1 || a.col_stride < 1 ||
       (a.bin_bytes != 1 && a.bin_bytes != 2) ||
       (a.col == nullptr) != (a.offset == nullptr) ||
       (a.split_cat != nullptr && (a.split_catb == nullptr ||

@@ -77,6 +77,21 @@ class TrainingData:
             return list(self.layout.col_num_bin)
         return [self.bin_mappers[i].num_bin for i in self.used_features]
 
+    def to_blocks(self, chunk_rows: int, pin: bool = False):
+        """The bin matrix as host row blocks for streamed training
+        (``data_stream=chunked``, ``lightgbm_tpu/data/dataset.py:70``),
+        which :class:`~.stream.BlockStreamer` moves through the device.
+        ``pin`` (a card) first moves the matrix into page-locked memory
+        for good: this dataset keeps that copy instead of its pageable
+        one."""
+        from .stream import make_block_store, pin_matrix
+        if self.binned is None:
+            log.fatal("Cannot build streamed blocks: dataset has no "
+                      "binned matrix")
+        if pin:
+            self.binned = pin_matrix(self.binned)
+        return make_block_store(self.binned, chunk_rows)
+
     def max_num_bin(self) -> int:
         """Histogram width: max bins over the PHYSICAL columns."""
         if self.bundled:

@@ -225,7 +225,8 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
                                                 "multiclassova"):
         stratified = False if params.get("objective") else stratified
 
-    train_set.construct(device=config_from_params(params).device)
+    train_set.construct(device=config_from_params(params).device,
+                        on_device=False)
     raw = train_set.ensure_raw()
     if raw is None:
         log.fatal("cv requires raw data (set free_raw_data=False)")

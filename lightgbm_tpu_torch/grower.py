@@ -57,7 +57,10 @@ All per-tree state (the histogram store, the split pool, the node records
 and the topology) is a :class:`LeafPool` of device tensors.  The loop
 itself (the leaf choice and the stop flag, the capture, the replays and
 the counter reads) is a :class:`SplitLoop`, which the data-parallel
-learner (``parallel/gspmd.py``) shares with its own step.
+learner (``parallel/gspmd.py``) and the streamed grower
+(:class:`StreamedGrower`, ``data_stream=chunked``: the bin matrix stays
+on the host and every split streams it through the card) share with
+their own steps.
 """
 from __future__ import annotations
 
@@ -67,10 +70,11 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from .data.packing import PackedBins
-from .ops.histogram import hist_window, movable, plan_device, sm_count
+from .ops.histogram import (hist_local, hist_window, movable, plan_device,
+                            sm_count)
 from .ops.partition import (partition_scratch, partition_window,
                             partition_window_plain, partition_window_sort)
-from .ops.route import route_window
+from .ops.route import route_rows, route_window
 from .ops.split import (SplitConfig, SplitResult, best_split,
                         cat_group_accept, leaf_output, make_fused_ctx)
 
@@ -893,3 +897,144 @@ def grow_tree(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
         buffers.lsc[:splits + 1, 0], buffers.lsc[:splits + 1, 1],
         (pool.leaf_depth[:splits + 1] & 1) == 1, n, m)
     return pool.tree(splits), row_leaf
+
+
+class StreamedGrower(SplitLoop):
+    """The serial learner over a bin matrix that stays on the host
+    (``data_stream=chunked``): the port of ``lightgbm_tpu/grower.py:1162
+    StreamedGrower``, built on the :class:`LeafPool` as the data-parallel
+    learner builds its step (``parallel/gspmd.py:GspmdGrower``).
+
+    The state lives across trees, made once per training for
+    ``streamer`` (a :class:`~.data.stream.BlockStreamer`): one ``row_leaf
+    [N]`` int32 map, ``counts [blocks, L + 1]`` int32 (every leaf's rows
+    in each block, as the data-parallel learner keeps them per shard),
+    the weights, copied in per tree, and the pool.  Each split is one
+    pass over every block, in block order (:meth:`_measure`): block k's
+    part of ``row_leaf`` is routed on the pending split by
+    ``route_rows`` (reading the row-major block through its strides,
+    which also moves the leaf's count in ``counts[k]``), then the
+    smaller child's partial histogram is taken by ``hist_local`` (K3 in
+    its device regime, the block a shard whose leaf count it reads from
+    ``counts[k]``) and added to the pass's sum.  The root pass routes
+    nothing: every row is in leaf 0.  Under integer-valued weights, whose
+    sums are exact in any order, its trees are the resident grower's and
+    the JAX package's streamed grower's.
+
+    A pass streams the whole matrix, so the loop reads the ``active``
+    flag before each one, right after :meth:`SplitLoop.pick`: one host
+    read a split (and one for the stop), as the JAX loop reads ``cont``
+    (:1540); a step after the stop would otherwise stream every block for
+    nothing.  Nothing else in a pass waits on the host.  The pass runs
+    eagerly."""
+
+    wrappers = (hist_local, route_rows, cat_group_accept)
+
+    def __init__(self, cfg: GrowerConfig, streamer,
+                 n_logical: Optional[int] = None):
+        # counters: splits made, the active flag
+        super().__init__(cfg, streamer.device, 2)
+        store, self.streamer = streamer.store, streamer
+        dev, n, L = self.device, store.num_rows, cfg.num_leaves
+        self.row_leaf = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.counts = torch.zeros((store.num_blocks, L + 1),
+                                  dtype=torch.int32, device=dev)
+        self.block_rows = torch.tensor(store.block_rows(), dtype=torch.int32,
+                                       device=dev)
+        self.weights = tuple(torch.empty(n, dtype=torch.float32, device=dev)
+                             for _ in range(3))
+        self.root_id = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.pool = LeafPool(cfg, store.num_cols, dev, n_logical=n_logical)
+        self.meta: Optional[FeatureMeta] = None
+        self.reads = 0
+        # each block's views of the map, the weights and its counts (as
+        # route_rows' [1, L + 1] and K3's [L + 1]), made once: a pass of
+        # many blocks is host-bound
+        self.views = [(self.row_leaf[lo:hi],
+                       *(w[lo:hi] for w in self.weights),
+                       self.counts[k:k + 1], self.counts[k])
+                      for k, (lo, hi) in enumerate(map(
+                          store.bounds, range(store.num_blocks)))]
+
+    def _measure(self, leaf_id: torch.Tensor, split=None) -> torch.Tensor:
+        """One pass over the blocks: ``split`` (``(leaf, new)``, device
+        ``int64[1]``) routed first in each block, when given, then the
+        ``[F, B, 3]`` histogram of leaf ``leaf_id`` (an int32[1]) summed
+        over the blocks in block order."""
+        pool, B = self.pool, self.cfg.max_bin
+        acc = None
+        for k, _, _, block in self.streamer.blocks():
+            rl, gw, hw, cw, route_counts, counts = self.views[k]
+            if split is not None:
+                route_rows(rl, block.t(), *split, pool.si32, pool.scat,
+                           pool.scatb, self.meta, route_counts)
+            part = hist_local(rl, leaf_id, block, gw, hw, cw, B,
+                              leaf_rows=counts)
+            acc = part if acc is None else acc + part
+        return acc
+
+    def start(self, gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
+              meta: FeatureMeta, feat_valid: torch.Tensor) -> None:
+        """Start a tree: the weights copied in, every row in leaf 0 and
+        every block's rows counted there, the counters cleared, and the
+        pool reset with the root's histogram (the root pass)."""
+        self.meta = meta
+        for dst, src in zip(self.weights, (gw, hw, cw)):
+            dst.copy_(src)
+        self.row_leaf.zero_()
+        self.counts.zero_()
+        self.counts[:, 0].copy_(self.block_rows)
+        self.start_counters()
+        self.pool.reset(meta, feat_valid, self._measure(self.root_id),
+                        gw.sum(), hw.sum(), cw.sum())
+
+    def step(self) -> bool:
+        """One split, unless the tree has stopped: the leaf chosen on the
+        device, the ``active`` flag read back (the loop's one host read),
+        and on a live step the pass that routes the split and measures the
+        smaller child; the pool then records the node and derives both
+        children.  Returns whether the step split."""
+        pool = self.pool
+        act, l, new, node = self.pick(pool)
+        self.reads += 1
+        if not self.read_counters()[1]:
+            return False
+        irow, frow, route = pool.split_args(l)
+        small_left = frow[2] <= frow[5]
+        small_id = torch.where(small_left, l, new).int()
+        hist_small = self._measure(small_id, (l, new))
+        child_depth = pool.record(l, new, node, irow, frow, route[3],
+                                  route[4])
+        pool.children(l, new, frow, small_left, hist_small, child_depth)
+        self.end_step(act)
+        return True
+
+    def __call__(self, gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
+                 meta: FeatureMeta, feat_valid: torch.Tensor,
+                 stats: Optional[Dict[str, int]] = None):
+        """Grow one tree from the weights ``[N]`` f32 on the device.
+        Returns ``(TreeArrays, row_leaf [N] i32)``.  ``stats`` counts
+        ``host_syncs`` (reads of the ``active`` flag), ``splits``,
+        ``steps`` (the splits: no step runs after the stop),
+        ``stream_passes``, ``stream_blocks`` and ``stream_bytes``."""
+        stats = stats if stats is not None else {}
+        for k in ("host_syncs", "splits", "steps", "stream_passes",
+                  "stream_blocks", "stream_bytes"):
+            stats.setdefault(k, 0)
+        sm = self.streamer
+        before = (sm.passes, sm.blocks_streamed, sm.bytes_streamed)
+        self.reads = splits = 0
+        with (torch.cuda.device(self.device) if self.device.type == "cuda"
+              else nullcontext()):
+            self.start(gw, hw, cw, meta, feat_valid)
+            while splits < self.cfg.num_leaves - 1 and self.step():
+                splits += 1
+        stats["host_syncs"] += self.reads
+        stats["splits"] += splits
+        stats["steps"] += splits
+        for key, b, a in zip(("stream_passes", "stream_blocks",
+                              "stream_bytes"), before,
+                             (sm.passes, sm.blocks_streamed,
+                              sm.bytes_streamed)):
+            stats[key] += a - b
+        return self.pool.tree(splits), self.row_leaf.clone()

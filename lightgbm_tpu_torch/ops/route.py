@@ -18,16 +18,21 @@ hand-written kernel ``csrc/route.cu``; on a CPU tensor it runs
 :func:`route_window_plain`, the plain PyTorch version (a slice of the
 window, a gather of the split column and :func:`route_goes_left`).
 
-:func:`route_rows` is the data-parallel learner's routing
-(``lightgbm_tpu/parallel/gspmd.py:305-320``): one update in place of a
-device's row -> leaf map over the row shards it holds, the rows of the
-leaf that go right moving to the new leaf, with the split read through
-the leaf from the pool and the column from column-major bins.  It also
-moves those rows' counts in a per-shard count of every leaf, which the
-shard-local histogram's device regime reads.  On a CUDA tensor it
-launches the second kernel of ``csrc/route.cu``; on a CPU tensor it runs
-:func:`route_rows_plain` (:func:`route_goes_left`, ``masked_fill_`` and a
-per-shard ``sum``).  Neither reads anything back to the host.
+:func:`route_rows` is the routing of the data-parallel learner
+(``lightgbm_tpu/parallel/gspmd.py:305-320``) and of the streamed grower
+(``lightgbm_tpu/grower.py:1223 block_step``): one update in place of a
+row -> leaf map over some row shards (a device's, or one streamed
+block), the rows of the leaf that go right moving to the new leaf, with
+the split read through the leaf from the pool.  The bins come as an ``[F, n]``
+tensor in either of two layouts, which the wrapper reads from its
+strides: a column-major copy (the data-parallel learner's), or the
+transpose of a row-major ``[n, F]`` block as it arrived from the host
+(the streamed grower's).  It also moves those rows' counts in a
+per-shard count of every leaf, which the shard-local histogram's device
+regime reads.  On a CUDA tensor it launches the second kernel of
+``csrc/route.cu``; on a CPU tensor it runs :func:`route_rows_plain`
+(:func:`route_goes_left`, ``masked_fill_`` and a per-shard ``sum``).
+Neither reads anything back to the host.
 """
 from __future__ import annotations
 
@@ -262,8 +267,8 @@ def route_rows_plain(row_leaf: torch.Tensor, bins_t: torch.Tensor,
 
 
 # the C entry point's one argument (csrc/route.cu: RowsArgs): 13 pointers,
-# the shard's rows, 8 ints and the stream
-_ROWS_ARGS = struct.Struct("@13Pq8iP")
+# the shard's rows, the row and column strides, 8 ints and the stream
+_ROWS_ARGS = struct.Struct("@13P3q8iP")
 
 
 def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
@@ -282,13 +287,21 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
     ``leaf`` of the pool's ``split_i32`` (int32 ``[leaves, 3]``: feature,
     threshold, default_left) and, when the data has categorical columns,
     of ``split_cat`` (bool ``[leaves]``) and ``split_catb`` (bool
-    ``[leaves, B]``); ``bins_t`` is the column-major uint8 or uint16
-    ``[F, S * n_loc]`` copy of the device's rows; ``meta`` a
-    ``grower.FeatureMeta`` of int32 tensors, whose EFB maps ``col`` and
-    ``offset``, when given, make the kernel read the feature's bundle
-    column and decode its slot.  A leaf that holds no row (the sink after
-    the tree's stop) moves nothing.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel, on their own card, or raise."""
+    ``[leaves, B]``); ``meta`` a ``grower.FeatureMeta`` of int32 tensors,
+    whose EFB maps ``col`` and ``offset``, when given, make the kernel
+    read the feature's bundle column and decode its slot.  A leaf that
+    holds no row (the sink after the tree's stop) moves nothing.
+
+    ``bins_t`` is a uint8 or uint16 ``[F, S * n_loc]`` tensor of the
+    rows' bins in one of two layouts, taken from its strides: the
+    contiguous column-major copy (strides ``(S * n_loc, 1)``: a warp
+    reads neighbouring bins of the split column), or ``block.t()`` of a
+    contiguous row-major ``[S * n_loc, F]`` block (strides ``(1, F)``:
+    each row's bin a row apart).  The kernel reads column c of row r at
+    ``c * stride(0) + r * stride(1)``; the plain version selects the same
+    column of the same view.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel, on their own card, or raise.  The launch
+    counter counts each launch once, in either layout."""
     if not row_leaf.is_cuda:
         if row_leaf.device.type == "cpu":
             return route_rows_plain(row_leaf, bins_t, leaf, new, split_i32,
@@ -297,13 +310,14 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
     dev = row_leaf.get_device()
     n = row_leaf.numel()
     shards = counts.shape[0] if counts.dim() == 2 else 0
-    tensors = [row_leaf, bins_t, leaf, new, split_i32, *_meta_tensors(meta),
-               counts,
+    tensors = [row_leaf, leaf, new, split_i32, *_meta_tensors(meta), counts,
                *[t for t in (split_cat, split_catb) if t is not None]]
     if (any(t.get_device() != dev or not t.is_contiguous() for t in tensors)
             or row_leaf.dtype != torch.int32 or row_leaf.dim() != 1
+            or bins_t.get_device() != dev
             or bins_t.dtype not in BIN_DTYPES or bins_t.dim() != 2
             or bins_t.shape[1] != n
+            or not (bins_t.is_contiguous() or bins_t.t().is_contiguous())
             or any(t.dtype != torch.int64 or t.numel() != 1
                    for t in (leaf, new))
             or split_i32.dtype != torch.int32 or split_i32.dim() != 2
@@ -316,7 +330,8 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
                 or split_catb.dim() != 2))):
         raise ValueError("route_rows: contiguous tensors on one card: int32 "
                          "row_leaf [S * n_loc], uint8 or uint16 bins_t "
-                         "[F, S * n_loc], "
+                         "[F, S * n_loc] (column-major, or the transpose "
+                         "of a row-major block), "
                          "leaf and new int64[1], split_i32 int32 [leaves, "
                          "3], int32 meta (col and offset together), int32 "
                          "counts [S, leaves], and bool "
@@ -333,7 +348,8 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
                         meta.missing_type.data_ptr(),
                         meta.default_bin.data_ptr(), ptr(meta.col),
                         ptr(meta.offset), counts.data_ptr(),
-                        n_loc, shards, bins_t.shape[0], meta.num_bin.numel(),
+                        n_loc, bins_t.stride(1), bins_t.stride(0),
+                        shards, bins_t.shape[0], meta.num_bin.numel(),
                         0 if split_catb is None else split_catb.shape[1],
                         counts.shape[1], grid, dev, bins_t.element_size(),
                         torch._C._cuda_getCurrentRawStream(dev)))

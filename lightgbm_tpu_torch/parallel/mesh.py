@@ -1,9 +1,10 @@
 """The (batch, feature) device mesh of the data-parallel learner.
 
 The port of the subset of ``lightgbm_tpu/parallel/mesh.py`` that the
-GSPMD learner uses: the axis names (:20-26), ``make_named_mesh`` (:65),
-``MeshPlanError`` (:90), ``parse_mesh_shape`` (:377) and ``pad_rows``
-(:609).  A :class:`Mesh` is a
+GSPMD learner and the streamed grower use: the axis names (:20-26),
+``make_named_mesh`` (:65), ``MeshPlanError`` (:90),
+``default_chunk_rows`` (:244), ``parse_mesh_shape`` (:377) and
+``pad_rows`` (:609).  A :class:`Mesh` is a
 ``(data, feature)`` grid of ``torch.device``s: rows shard over ``batch``,
 the histogram's columns over ``feature``.
 
@@ -122,6 +123,18 @@ def parse_mesh_shape(spec: str, n_devices: int):
         raise ValueError(f"mesh_shape {d}x{f} needs {d * f} devices; only "
                          f"{n_devices} available")
     return (d, f)
+
+
+def default_chunk_rows(rows: int, requested: int = 0) -> int:
+    """Streamed block size (``data_stream=chunked``): the explicit
+    ``stream_chunk_rows`` when given (clamped to the row count), else
+    262,144 rows capped at ``ceil(rows / 2)``, so that even a small
+    dataset streams at least two blocks: the double buffer is pointless
+    with one."""
+    rows = max(1, int(rows))
+    if requested and int(requested) > 0:
+        return min(int(requested), rows)
+    return max(1, min(262144, -(-rows // 2)))
 
 
 def pad_rows(n: int, shards: int) -> int:

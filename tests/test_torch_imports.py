@@ -106,8 +106,8 @@ def test_predict_raises_without_card(no_card):
     {"shard_axes": "batch,feature"},
     {"tree_learner": "voting"},
     {"tree_learner": "data", "mesh_devices": 2},
-    {"stream_chunk_rows": 4096},
-    {"data_stream": "chunked"},
+    {"hbm_budget": 1e9},
+    {"telemetry": True},
     {"snapshot_freq": 5},
 ])
 def test_unsupported_params_raise(params):
