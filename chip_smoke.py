@@ -335,9 +335,30 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    link's bound and share of the wall, the device-busy share, and a
    host-to-device copy overlapping a kernel in the profiled tree.
 
+21. the voting learner (``tree_learner=voting``, ``top_k=20``) over the
+   4x1 mesh of the one card on the graph loop: (21a, after phase 6c) one
+   integer-gradient tree of the Higgs path, where every feature is voted,
+   identical to the data-parallel learner's tree (replays under the sync
+   check), then 3 rounds of the path; (21b, after phase 8c) phase 8's
+   MS-LTR Dataset, packed, by the voting and the data-parallel learner over
+   4x1, 3 rounds each, held-out NDCG@10 within 5e-3, with ms a tree, the
+   histogram bytes a split sums and the peak memory of each;
+22. two processes on the one card (after 21a): this script started twice
+   with ``--worker`` over a loopback machine list, ranks of a gloo group
+   carrying CUDA tensors (NCCL refuses two ranks on a card), each holding
+   half of phase 3's rows (all of them for the feature learner): the data
+   learner's integer tree equal to the serial tree on all rows, 3 rounds
+   byte-identical on both ranks with AUC within 1e-4 of the serial
+   learner's; the voting learner's model texts identical on both ranks; the
+   feature learner's integer tree equal to the serial one; the distributed
+   FindBin's mappers equal to the serial fit of 200,000 rows both hold; ms
+   a tree and the collectives' share of a timed tree.
+
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
-and 3 rounds of phase 6's path.
+and 3 rounds of phase 6's path; then four processes, one a card, over
+NCCL, phase 22's data learner: the integer tree equal to the serial tree
+and 3 rounds identical on every rank.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -2521,7 +2542,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
     # the shard-local kernel; the serial grower with the gather kernel
     mesh = bst.inner.mesh
     shards = 0 if mesh is None else len(sum(mesh.devices, []))
-    if (bst.inner.parallel_impl == "gspmd") != (
+    if (bst.inner.parallel_impl in ("gspmd", "shardmap")) != (
             params.get("tree_learner", "serial") != "serial"):
         fail(f"{name}: learner resolved to {bst.inner.parallel_impl}")
     # on a card gspmd_hist=auto is the shard-local kernel
@@ -2653,14 +2674,14 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
     return out, bst, ds
 
 
-def partition_ab(params, x, y):
+def partition_ab(params, ds):
     """Phase 3c: the Higgs path's ms per tree with the plain partition and
-    with the kernel, in turns on one dataset (scatter, compact, compact,
-    scatter; 2 trees each): the host's noise between runs is larger than
-    the difference, so only turns within one process compare."""
+    with the kernel, in turns on one dataset (phase 3's; scatter, compact,
+    compact, scatter; 2 trees each): the host's noise between runs is
+    larger than the difference, so only turns within one process
+    compare."""
     import torch
-    from lightgbm_tpu_torch import Dataset, train
-    ds = Dataset(x, y, params=params).construct()
+    from lightgbm_tpu_torch import train
     ms = {"scatter": [], "compact": []}
     for impl in ("scatter", "compact", "compact", "scatter"):
         bst = train(dict(params, partition_impl=impl), ds, num_boost_round=1,
@@ -3561,6 +3582,10 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     dp_gap = abs(float(dp["heldout_ndcg@10"])
                  - float(rank["round1_ndcg@10"]))
     del dp_bst
+    # ---- phase 21b: the voting learner over 4x1 on the same Dataset -------
+    voting = mslr_voting(rank_params, ds, x_tr, y_tr, x_te, y_te, sizes_te,
+                         names)
+    torch.cuda.empty_cache()
     same["integer_round_identical"] = integer_round_identical(
         "mslr_packed_vs_cut", [(rank_params, ds), (dict(
             rank_params, enable_bin_packing=False), ds), (dp_params, ds)])
@@ -3594,7 +3619,8 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     # ---- phase 20b: the same Dataset streamed, 3 rounds -------------------
     streamed = mslr_streamed(rank_params, ds, x_te, y_te, sizes_te, rate)
     rank = dict(rank, **rank_ds, packed_check=packed_check,
-                cut=dict(cut, **cut_ds), dp_4x1=dp, streamed=streamed)
+                cut=dict(cut, **cut_ds), dp_4x1=dp, streamed=streamed,
+                voting=voting)
     del ds
     torch.cuda.empty_cache()
     return rank, lam, (x_te, y_te, sizes_te)
@@ -4399,7 +4425,7 @@ def dataset_inputs(params, higgs_model, x_tr, y_tr, x_te, y_te) -> dict:
     1,000,000-row training Dataset saved as a binary file, loaded, and one
     integer-gradient round on the loaded copy identical to one on the
     original; and the training matrix with 70 % of its values set to zero
-    as a ``CsrMatrix``, binned as the dense matrix and trained 10 rounds
+    as a ``CsrMatrix``, binned as the dense matrix and trained 3 rounds
     under exact-sum gradients (:func:`sixteenths_logloss`): the dense
     run's trees, its held-out AUC within 1e-4 of the dense run's; with the
     built-in objective, the CSR run's AUC beside the dense run's and a
@@ -4471,7 +4497,7 @@ def dataset_inputs(params, higgs_model, x_tr, y_tr, x_te, y_te) -> dict:
         dense, r["dense_construct_s"] = timed(lambda: Dataset(
             xs, y_tr, params=params).construct())
         same_binned("csr", sparse, dense)
-        # 10 rounds on each under the log loss's gradients rounded to
+        # 3 rounds on each under the log loss's gradients rounded to
         # sixteenths, whose float32 sums are exact in any order: the card
         # grows the same trees from the same bins, so the CSR run's model
         # and held-out AUC are the dense run's.  Then the built-in
@@ -4485,7 +4511,7 @@ def dataset_inputs(params, higgs_model, x_tr, y_tr, x_te, y_te) -> dict:
                                ("dense_builtin", dense, None),
                                ("dense_builtin_rerun", dense, None)):
             b, r[f"{name}_train_s"] = timed(lambda: train(
-                params, ds, num_boost_round=10, fobj=fobj,
+                params, ds, num_boost_round=3, fobj=fobj,
                 verbose_eval=False))
             texts[name] = b.model_to_string()
             aucs[name] = auc(b.predict(x_te, raw_score=True), y_te)
@@ -4501,7 +4527,7 @@ def dataset_inputs(params, higgs_model, x_tr, y_tr, x_te, y_te) -> dict:
                  dense_builtin_rerun_auc_gap=(
                      f"{abs(aucs['dense_builtin_rerun'] - base_auc):.3e}"))
         if not r["csr_model_identical"]:
-            fail("csr: 10 rounds of exact sums grow other trees than on the "
+            fail("csr: 3 rounds of exact sums grow other trees than on the "
                  "dense matrix")
         if gap > 1e-4:
             fail(f"csr: held-out AUC {aucs['csr']} is more than 1e-4 from "
@@ -4522,8 +4548,11 @@ def multi_card(params) -> None:
     on four cards (slot s on card s) instead of one, so its split step
     runs eagerly, the split row copied to each card and the partials to
     the first: phase 6c's integer-gradient trees against the serial tree,
-    and the 4x1 path for 3 rounds with its launch count.  Needs four
-    cards."""
+    and the 4x1 path for 3 rounds with its launch count.  Then four
+    processes, one a card, over NCCL (phase 22's workers with
+    ``tree_learner=data``): the integer tree equal to the serial tree, 3
+    rounds identical on every rank, ms a tree and the collectives' share.
+    Needs four cards."""
     import torch
     if torch.cuda.device_count() < MESH_SLOTS:
         fail(f"--multi-card needs {MESH_SLOTS} cards; "
@@ -4544,6 +4573,37 @@ def multi_card(params) -> None:
     if len(cards) != MESH_SLOTS:
         fail(f"the 4x1 mesh sits on cards {sorted(cards)}, not on four")
     phase("dp_path_4x1_four_cards", **dp)
+    del bst
+    torch.cuda.empty_cache()
+    # four processes, one a card, over NCCL: the integer tree equal to the
+    # serial one, 3 rounds identical on every rank
+    from lightgbm_tpu_torch import train
+    g_all, h_all = integer_gradients(y_tr)
+    serial_int = train(params, ds, 1, fobj=lambda preds, data: (g_all, h_all),
+                       verbose_eval=False).model_to_string()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(MESH_SLOTS, dict(params=params,
+                                         learners={"data": (True, 3)},
+                                         findbin=0))
+    checks = {"integer_tree_equals_serial": all(
+                  r["data_integer_model"] == serial_int for r in ranks),
+              "models_identical": all(r["data_model"] == ranks[0]["data_model"]
+                                      for r in ranks)}
+    r0 = ranks[0]
+    phase("four_processes_four_cards", backend=r0["backend"],
+          processes=r0["process_count"],
+          devices=",".join(r["device"] for r in ranks),
+          spawn_to_exit_s=f"{time.perf_counter() - t0:.1f}",
+          integer_ms=r0["data_integer_ms"],
+          ms_per_tree=r0["data_ms_per_tree"],
+          timed_tree_ms=r0["data_timed_tree_ms"],
+          collective_ms=r0["data_collective_ms"],
+          collective_share=r0["data_collective_share"],
+          hist_local_launches=r0["data_launches"]["hist_local"],
+          route_rows_launches=r0["data_launches"]["route_rows"], **checks)
+    bad = [k for k, v in checks.items() if not v]
+    if bad or r0["backend"] != "nccl":
+        fail(f"four processes on four cards: {bad}, backend {r0['backend']}")
 
 
 
@@ -5538,11 +5598,382 @@ def wide_kernel_fields(name: str, wide: dict, serial: dict, dp: dict,
                 u16_library_ms=t.get("library_ms"), **extra)
 
 
+# ---- phases 21 and 22: the voting learner, training over processes ---------
+
+VOTE_TOP_K = 20     # LightGBM's default top_k
+
+
+def voting_tree_vs_data(ds, y) -> dict:
+    """Phase 21a: one tree of the Higgs path under integer-valued gradients
+    and hessians grown by the voting learner over the 4x1 mesh of the one
+    card with ``top_k=20`` (28 features: each of the 4 voters votes 20, the
+    top 40 votes name every feature that any voter voted), and by the
+    data-parallel learner over the same mesh (phase 6's tree), both on the
+    graph loop: identical field by field, row -> leaf maps too; the voting
+    loop's replays under ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta, GrowerConfig
+    from lightgbm_tpu_torch.parallel.gspmd import GspmdGrower
+    from lightgbm_tpu_torch.parallel.mesh import make_named_mesh, mesh_slots
+    dev = ds.bins.device
+    td = ds.constructed
+    fm = td.feature_meta()
+    n = len(y)
+    g, h = (torch.from_numpy(a).to(dev) for a in integer_gradients(y))
+    c = torch.ones(n, dtype=torch.float32, device=dev)
+    put = lambda a: torch.from_numpy(a).to(dev)
+    meta = FeatureMeta(put(fm["num_bin"]), put(fm["missing_type"]),
+                       put(fm["default_bin"]), put(fm["is_categorical"]))
+    fv = torch.ones(len(fm["num_bin"]), dtype=torch.bool, device=dev)
+    cfg = GrowerConfig(num_leaves=255, min_data_in_leaf=1,
+                       min_sum_hessian_in_leaf=10.0, max_bin=td.max_num_bin(),
+                       has_missing=bool((fm["missing_type"] != 0).any()))
+    mesh = make_named_mesh(MESH_SLOTS, 1, mesh_slots(MESH_SLOTS, dev))
+    out, trees = {}, {}
+    for name, top_k in (("data", None), ("voting", VOTE_TOP_K)):
+        grower = GspmdGrower(cfg, mesh, ds.bins, top_k=top_k)
+        stats, ms = {}, []
+        for k in range(3):      # the capture, then two replayed trees
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if k:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                tree, row_leaf = grower(g, h, c, meta, fv, stats, "graph")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        trees[name] = ({k: v.cpu().numpy() for k, v in tree._asdict().items()
+                        if isinstance(v, torch.Tensor)},
+                       row_leaf.cpu().numpy(), tree.num_leaves)
+        out[f"{name}_ms_per_tree"] = ",".join(f"{v:.2f}" for v in ms[1:])
+        out[f"{name}_host_reads_per_tree"] = f"{stats['host_syncs'] / 3:.3f}"
+        if grower.graph is None or grower.captures != 1:
+            fail(f"voting_tree_vs_data: the {name} learner captured "
+                 f"{grower.captures} steps")
+        del grower
+    want, got = trees["data"], trees["voting"]
+    bad = [k for k in want[0] if not np.array_equal(want[0][k], got[0][k])]
+    if want[2] != got[2] or not np.array_equal(want[1], got[1]):
+        bad.append("num_leaves/row_leaf")
+    out.update(leaves=want[2], identical=not bad, top_k=VOTE_TOP_K,
+               voters=MESH_SLOTS, sync_checked_replay_trees=2)
+    phase("voting_tree_vs_data_4x1", **out)
+    if bad:
+        fail(f"the voting learner's integer tree (top_k={VOTE_TOP_K}, every "
+             f"feature voted) != the data-parallel tree: {bad[:5]}")
+    return out
+
+
+def integer_gradients(y: np.ndarray):
+    """Integer-valued gradients and hessians of the Higgs path's rows, the
+    same in every process (phase 6c's): exact sums in any order."""
+    rng = np.random.default_rng(SEED + 5)
+    g = (np.where(y > 0, -3, 2) + rng.integers(-2, 3, len(y))).astype(
+        np.float32)
+    return g, rng.integers(1, 4, len(y)).astype(np.float32)
+
+
+def summed_bytes_per_split(inner) -> int:
+    """The histogram bytes a split sums across the voters or shards: the
+    data-parallel learner every shard's partial of the smaller child (its
+    storage columns at the histogram's width); the voting learner, for
+    both children, each voter's vote (``k`` gains and features) and its
+    histograms of the ``2k`` voted features."""
+    gr = inner._gspmd
+    shards = len(gr.mesh.devices)
+    cols = sum(len(c) for c in gr.cols)
+    if not gr.voting:
+        return shards * cols * gr.hist_width * 3 * 4
+    k = min(gr.pool.top_k, gr.pool.f)
+    return 2 * shards * (k * 2 * 4 + 2 * k * gr.cfg.max_bin * 3 * 4)
+
+
+def mslr_voting(rank_params, ds, x_tr, y_tr, x_te, y_te, sizes_te,
+                names) -> dict:
+    """Phase 21b: phase 8's Dataset (packed at the defaults) by the
+    voting learner over 4x1 on the one card with ``top_k=20`` (40 of 137
+    features voted a leaf) and by the data-parallel learner over the same
+    mesh, 3 rounds each: held-out NDCG@10 within 5e-3 (the bound of
+    tests/test_parallel.py:124-133 for the approximate voting learner), ms
+    a tree, the histogram bytes a split sums, the peak device memory (set
+    up's in both runs: the slots' copies of the bins) and the pool's
+    histogram store of each."""
+    quality = lambda b, pred, x, y: {
+        "heldout_ndcg@10": f"{ndcg_at(pred, y, sizes_te, [10])[0]:.6f}"}
+    out = {}
+    for name, learner in (("data", "data"), ("voting", "voting")):
+        p = dict(rank_params, tree_learner=learner, top_k=VOTE_TOP_K,
+                 mesh_devices=MESH_SLOTS, mesh_shape="4x1")
+        res, bst, _ = train_path(f"mslr_{name}_4x1", p, x_tr, y_tr, x_te,
+                                 y_te, 3, names, quality=quality, ds=ds,
+                                 profile=False)
+        if bst.inner.packed is None:
+            fail(f"mslr {name} 4x1: the storage matrix did not pack")
+        pool = bst.inner._gspmd.pool.hist_store
+        out[name] = dict(res, summed_bytes_per_split=summed_bytes_per_split(
+            bst.inner), parallel_impl=bst.inner.parallel_impl,
+            pool_bytes=pool.numel() * pool.element_size())
+        del bst
+    gap = abs(float(out["voting"]["heldout_ndcg@10"])
+              - float(out["data"]["heldout_ndcg@10"]))
+    phase("mslr_voting_4x1", top_k=VOTE_TOP_K, voted_features=2 * VOTE_TOP_K,
+          ndcg10_gap_vs_data=f"{gap:.3e}",
+          data_ms_per_tree=out["data"]["ms_per_tree"],
+          data_summed_bytes_per_split=out["data"]["summed_bytes_per_split"],
+          data_peak_mem_bytes=out["data"]["peak_mem_bytes"],
+          data_pool_bytes=out["data"]["pool_bytes"], **out["voting"])
+    if gap > 5e-3:
+        fail(f"mslr voting: held-out NDCG@10 {gap} from the data-parallel "
+             f"run's (limit 5e-3)")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn_ranks(world: int, spec: dict, timeout: float = 600.0) -> list:
+    """This script again as ``world`` worker processes, ranks 0 to world - 1
+    of a process group over a loopback machine list (``--worker``, read
+    :func:`process_worker`): waits for them all, stops them all if one
+    fails or outlives ``timeout`` seconds, and returns each rank's
+    results."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="lgbt_ranks_")
+    try:
+        mlist = os.path.join(tmp, "mlist.txt")
+        with open(mlist, "w") as f:
+            f.write("".join(f"127.0.0.1 {_free_port()}\n"
+                            for _ in range(world)))
+        spec = dict(spec, world=world, mlist=mlist, dir=tmp)
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        procs = []
+        for rank in range(world):
+            env = dict(os.environ, LGBM_TPU_RANK=str(rank),
+                       GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 spec_path], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + timeout
+        outs = [None] * world
+        try:
+            for rank, p in enumerate(procs):
+                outs[rank] = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or text is None:
+                fail(f"rank {rank} of {world} exited with {p.returncode}:\n"
+                     f"{(text or '')[-4000:]}")
+        res = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                res.append(json.load(f))
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def process_worker(spec_path: str) -> None:
+    """One rank of phase 22 (or of ``--multi-card``'s four): phase 3's
+    Higgs-shaped rows, this rank's share of them (a ``subset`` of the
+    whole set's Dataset, so every rank bins with the serial fit's mappers),
+    trained over the process group of ``spec["mlist"]``: for each learner
+    of ``spec["learners"]`` (name: (integer tree or not, rounds)), one
+    integer-gradient tree and that many rounds of the binary objective,
+    their model texts, ms a tree, the collectives of one more tree timed,
+    and the kernels' launches; with ``spec["findbin"]``, the mappers that the distributed
+    FindBin fits to rows every rank holds.  Results go to
+    ``<dir>/rank<r>.json``."""
+    import torch
+    from lightgbm_tpu_torch import Dataset, train
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.data.dataset import construct
+    from lightgbm_tpu_torch.parallel import sync
+    from lightgbm_tpu_torch.parallel.mesh import shutdown_distributed
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, world = int(os.environ["LGBM_TPU_RANK"]), spec["world"]
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1)
+    x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
+    x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
+    del x_all, y_all
+    g_all, h_all = integer_gradients(y_tr)
+    lo, hi = rank * N_ROWS // world, (rank + 1) * N_ROWS // world
+    params = spec["params"]
+    # the serial fit's mappers, before the process group is up
+    union = Dataset(x_tr, y_tr, params=params).construct()
+    share = union.subset(np.arange(lo, hi)).construct()
+    dist = dict(params, num_machines=world,
+                machine_list_file=spec["mlist"])
+    fns = _kernel_wrappers()
+    out = {"rank": rank, "rows": hi - lo,
+           "setup_s": f"{time.perf_counter() - t_start:.3f}"}
+    for learner, (integer, rounds) in spec["learners"].items():
+        full = learner == "feature"      # every rank holds every row
+        ds, a, b = (union, 0, N_ROWS) if full else (share, lo, hi)
+        p = dict(dist, tree_learner=learner, top_k=VOTE_TOP_K)
+        for fn in fns.values():
+            fn.launches = 0
+        if integer:
+            t0 = time.perf_counter()
+            bst = train(p, ds, 1, fobj=lambda preds, data: (g_all[a:b],
+                                                            h_all[a:b]),
+                        verbose_eval=False)
+            torch.cuda.synchronize()
+            out[f"{learner}_integer_ms"] = (
+                f"{(time.perf_counter() - t0) * 1e3:.2f}")
+            out[f"{learner}_integer_model"] = bst.model_to_string()
+        if rounds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst = train(p, ds, rounds, verbose_eval=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out[f"{learner}_ms_per_tree"] = (
+                f"{wall * 1e3 / bst.inner.stats['trees']:.2f}")
+            out[f"{learner}_model"] = bst.model_to_string()
+            # one more tree with the collectives timed between syncs
+            coll = bst.inner._gspmd.coll_stats
+            coll.clear()
+            coll["timed"] = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            tree_ms = (time.perf_counter() - t0) * 1e3
+            out[f"{learner}_timed_tree_ms"] = f"{tree_ms:.2f}"
+            out[f"{learner}_collective_ms"] = (
+                f"{coll.get('collective_s', 0.0) * 1e3:.2f}")
+            out[f"{learner}_collective_share"] = (
+                f"{coll.get('collective_s', 0.0) * 1e3 / tree_ms:.4f}")
+            out[f"{learner}_collective_calls"] = coll.get(
+                "collective_calls", 0)
+            out[f"{learner}_collective_bytes"] = coll.get(
+                "collective_bytes", 0)
+        out[f"{learner}_launches"] = {k: fn.launches
+                                      for k, fn in fns.items()}
+        out["backend"] = bst.inner.dist_backend
+        out["process_count"] = sync.process_count()
+        out["device"] = str(bst.inner.device)
+        del bst
+    if spec.get("findbin"):
+        # every rank holds the same rows: the distributed fit (rank r fits
+        # features j = r mod P) equals the serial fit of those rows
+        rows = x_tr[:spec["findbin"]]
+        td = construct(rows, config_from_params(dist), label=y_tr[:len(rows)])
+        out["findbin_mappers"] = [m.feature_info_str()
+                                  for m in td.bin_mappers]
+    out["seconds"] = f"{time.perf_counter() - t_start:.3f}"
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    # the group torn down before the interpreter exits, so that no
+    # collective thread outlives it
+    shutdown_distributed()
+
+
+def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
+                  findbin_rows: int = 200_000) -> dict:
+    """Phase 22: two processes on the one card (gloo carrying CUDA tensors:
+    NCCL refuses two ranks on one card), each holding half of phase 3's
+    rows (the data and voting learners) or all of them (the feature
+    learner).  Held: the data learner's integer tree equal to the serial
+    tree on all rows, its 3 rounds byte-identical on both ranks and their
+    AUC within 1e-4 of the serial learner's; the voting learner's 3 rounds
+    identical on both ranks; the feature learner's integer tree equal to
+    the serial one and its round identical on both ranks; the distributed
+    FindBin's mappers equal to the
+    serial fit of the same rows.  Reported: ms a tree, the collectives'
+    share of a timed tree, the kernels' launches in the workers."""
+    from lightgbm_tpu_torch import train
+    from lightgbm_tpu_torch.data.dataset import construct
+    from lightgbm_tpu_torch.config import config_from_params
+    g_all, h_all = integer_gradients(y_tr)
+    serial_int = train(params, ds, 1, fobj=lambda preds, data: (g_all, h_all),
+                       verbose_eval=False).model_to_string()
+    serial = train(params, ds, 3, verbose_eval=False)
+    serial_auc = auc(serial.predict(x_te), y_te)
+    mappers = [m.feature_info_str() for m in construct(
+        x_tr[:findbin_rows], config_from_params(params),
+        label=y_tr[:findbin_rows]).bin_mappers]
+    t0 = time.perf_counter()
+    # the voting learner's check is across the ranks; the feature
+    # learner's the integer tree, with one round for the timed tree
+    ranks = spawn_ranks(2, dict(params=params, learners={
+        "data": (True, 3), "voting": (False, 3), "feature": (True, 1)},
+        findbin=findbin_rows))
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    from lightgbm_tpu_torch import Booster
+    data_auc = auc(Booster(model_str=r0["data_model"], params=dict(
+        device=params["device"])).predict(x_te), y_te)
+    checks = {
+        "data_integer_tree_equals_serial":
+            r0["data_integer_model"] == r1["data_integer_model"] == serial_int,
+        "data_models_identical": r0["data_model"] == r1["data_model"],
+        "voting_models_identical": r0["voting_model"] == r1["voting_model"],
+        "feature_integer_tree_equals_serial":
+            r0["feature_integer_model"] == r1["feature_integer_model"]
+            == serial_int,
+        "feature_models_identical": r0["feature_model"] == r1["feature_model"],
+        "findbin_equals_serial":
+            r0["findbin_mappers"] == r1["findbin_mappers"] == mappers}
+    gap = abs(data_auc - serial_auc)
+    out = dict(backend=r0["backend"], processes=r0["process_count"],
+               devices=f"{r0['device']},{r1['device']}",
+               rows=f"{r0['rows']},{r1['rows']}", spawn_to_exit_s=f"{wall:.1f}",
+               worker_setup_s=f"{r0['setup_s']},{r1['setup_s']}",
+               serial_auc=f"{serial_auc:.6f}", data_auc=f"{data_auc:.6f}",
+               data_auc_gap=f"{gap:.3e}", **checks)
+    for learner in ("data", "voting", "feature"):
+        for k in ("integer_ms", "ms_per_tree", "timed_tree_ms",
+                  "collective_ms", "collective_share", "collective_calls",
+                  "collective_bytes"):
+            if f"{learner}_{k}" in r0:
+                out[f"{learner}_{k}"] = r0[f"{learner}_{k}"]
+        for k, v in r0[f"{learner}_launches"].items():
+            if v:
+                out[f"{learner}_{k}_launches"] = v
+    phase("two_processes_one_card", **out)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"two processes on one card: {bad}")
+    if gap > 1e-4:
+        fail(f"two processes: data-parallel AUC {data_auc} is {gap} from the "
+             f"serial learner's {serial_auc} (limit 1e-4)")
+    if r0["backend"] != "gloo":
+        fail(f"two ranks on one card took backend {r0['backend']}, not gloo")
+    for learner in ("data", "voting", "feature"):
+        got = r0[f"{learner}_launches"]
+        if not (got["hist_local"] and got["route_rows"]):
+            fail(f"two processes, {learner}: kernel launches {got}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
+    if sys.argv[1:2] == ["--worker"] and len(sys.argv) == 3:
+        # a rank that phase 22 or --multi-card started
+        process_worker(sys.argv[2])
+        return
     multi = sys.argv[1:] == ["--multi-card"]
     if sys.argv[1:] and not multi:
         fail(f"unknown arguments {sys.argv[1:]}; the one option is "
@@ -5641,12 +6072,12 @@ def main() -> None:
     # partition_impl=auto: compact on a card, the split step replayed as a
     # CUDA graph
     compact, bst, _ = train_path("higgs_compact", params, x_tr, y_tr, x_te,
-                                 y_te, 10, names)
+                                 y_te, 10, names, ds=higgs_ds)
     phase("main_path_compact", **compact)
     # phases 16 and 17 predict with this model
     higgs_model = bst.model_to_string()
     del bst
-    partition_ab(params, x_tr, y_tr)
+    partition_ab(params, higgs_ds)
     torch.cuda.empty_cache()
 
     # ---- phase 7: the graph loop against the eager loop, Higgs ------------
@@ -5679,6 +6110,18 @@ def main() -> None:
 
     # ---- phase 6c: the data-parallel trees against the serial tree --------
     gspmd_trees_identical(higgs_ds, y_tr)
+    torch.cuda.empty_cache()
+
+    # ---- phase 21a: the voting learner over 4x1 on the one card ----------
+    vote_tree = voting_tree_vs_data(higgs_ds, y_tr)
+    vote, _, _ = train_path("voting_4x1", dict(
+        dp_params, tree_learner="voting", top_k=VOTE_TOP_K, mesh_shape="4x1"),
+        x_tr, y_tr, x_te, y_te, 3, names, ds=higgs_ds, profile=False)
+    phase("voting_path_4x1", top_k=VOTE_TOP_K, **vote)
+    torch.cuda.empty_cache()
+
+    # ---- phase 22: two processes on the one card ---------------------------
+    procs = two_processes(params, higgs_ds, x_tr, y_tr, x_te, y_te)
     torch.cuda.empty_cache()
 
     # ---- phase 20a: streamed trees of the Higgs path ----------------------
@@ -5836,7 +6279,14 @@ def main() -> None:
           higgs_streamed_ms_per_tree_10_blocks=higgs_stream[
               "ms_per_tree_10_blocks"],
           mslr_streamed_ms_per_tree=mslr["streamed"]["ms_per_tree"],
-          expo_streamed_ms_per_tree=expo_stream["ms_per_tree"])
+          expo_streamed_ms_per_tree=expo_stream["ms_per_tree"],
+          voting_integer_ms_per_tree=vote_tree["voting_ms_per_tree"],
+          voting_4x1_ms_per_tree=vote["ms_per_tree"],
+          mslr_voting_ms_per_tree=mslr["voting"]["voting"]["ms_per_tree"],
+          mslr_data_4x1_ms_per_tree=mslr["voting"]["data"]["ms_per_tree"],
+          two_processes_data_ms_per_tree=procs["data_ms_per_tree"],
+          two_processes_voting_ms_per_tree=procs["voting_ms_per_tree"],
+          two_processes_feature_ms_per_tree=procs["feature_ms_per_tree"])
     u16 = lambda name: wide_kernel_fields(name, wide, wide_serial, wide_dp,
                                           wide_expo)
 
@@ -5860,6 +6310,11 @@ def main() -> None:
         # every call of the path takes the device regime: two kernels
         "launches": 2 * dp["hist_local_launches"],
         "calls": dp["hist_local_launches"], "max_abs_err": local_err,
+        # the voting path's (phase 21a) and rank 0's of phase 22
+        "launches_voting_4x1": 2 * vote["hist_local_launches"],
+        **{f"launches_two_processes_{k}_rank0": 2 * procs.get(
+            f"{k}_hist_local_launches", 0)
+           for k in ("data", "voting", "feature")},
         "ms": lroot["ms"], "plain_ms": lroot["plain_ms"],
         "bound_ms": lroot["bound_ms"], "bound_by": "bytes",
         "library_ms": lroot["library_ms"],
@@ -5912,6 +6367,10 @@ def main() -> None:
         "source": "lightgbm_tpu_torch/csrc/route.cu",
         "replaces": "lightgbm_tpu/parallel/gspmd.py:305",
         "launches": dp["route_rows_launches"], "max_abs_err": 0.0,
+        "launches_voting_4x1": vote["route_rows_launches"],
+        **{f"launches_two_processes_{k}_rank0": procs.get(
+            f"{k}_route_rows_launches", 0)
+           for k in ("data", "voting", "feature")},
         "ms": rows_timing["root"]["ms"],
         "plain_ms": rows_timing["root"]["plain_ms"],
         "bound_ms": rows_timing["root"]["bound_ms"], "bound_by": "bytes",

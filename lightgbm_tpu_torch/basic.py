@@ -26,7 +26,10 @@ from .data.binning import BinMapper
 from .data.bundling import BundleLayout
 from .data.parser import load_text_file, read_header_names
 from .objectives import create_objective
+from .parallel import sync
+from .parallel.mesh import init_distributed_from_config
 from .utils import log
+from .utils.random import make_rng
 
 
 def _to_matrix(data) -> np.ndarray:
@@ -113,6 +116,9 @@ class Dataset:
         self.bins: Optional[torch.Tensor] = None     # [N, F] u8/u16, on device
         self.raw: Optional[np.ndarray] = None        # a parsed file's rows
         self.pandas_categorical: Optional[List[List]] = None
+        # a text file's rows: whether they were read from a file, their
+        # labels too, and whether this process kept only its share of them
+        self._from_file = self._label_from_file = self._dist_sharded = False
 
     def _categorical_indices(self, cfg: Config,
                              names: Optional[List[str]]) -> List[int]:
@@ -146,25 +152,82 @@ class Dataset:
         cuda)."""
         cfg = config or config_from_params(self.params)
         dev = resolve_device(device or cfg.device)
+        # the training file of several processes that share it
+        # (lightgbm_tpu/basic.py:130-200): each keeps its share of the
+        # rows; validation data stays whole on every process
+        dist_rows = (cfg.num_machines > 1 and not cfg.is_pre_partition
+                     and cfg.tree_learner in ("data", "voting")
+                     and self.reference is None)
+        if (self.constructed is not None and dist_rows and self._from_file
+                and not self._dist_sharded):
+            # built before the parallel parameters (num_data() before
+            # train()): every process would hold every row
+            if not _is_path(self.data):
+                log.fatal("Dataset was constructed without distributed row "
+                          "partitioning and the raw file reference was "
+                          "freed; pass the num_machines/tree_learner params "
+                          "to the Dataset or construct it inside train()")
+            log.warning("Reconstructing dataset with distributed row "
+                        "partitioning (it was first constructed without "
+                        "the parallel params)")
+            self.constructed = self.bins = None
+            if self._label_from_file:
+                self.label = None
         if self.constructed is None:
-            self.constructed = self._build(cfg, str(dev))
+            self.constructed = self._build(cfg, str(dev),
+                                           dist_rows and _is_path(self.data))
         if on_device and (self.bins is None
                           or self.bins.device.type != dev.type):
             self.bins = torch.from_numpy(self.constructed.binned).to(dev)
         return self
 
-    def _build(self, cfg: Config, dev: str) -> data_mod.TrainingData:
+    def _distributed_row_selection(self, cfg: Config,
+                                   n_rows: int) -> np.ndarray:
+        """This process's rows of a file that several processes share
+        (``lightgbm_tpu/basic.py:100``, the reference's
+        LoadTextDataToMemory, dataset_loader.cpp:563-607): one draw of
+        ``make_rng(data_random_seed)``, the same on every process, assigns
+        each row (each query, when there are queries) to a process."""
+        nm, rank = sync.process_count(), sync.process_index()
+        rng = make_rng(cfg.data_random_seed)
+        if self.group is not None:
+            counts = np.asarray(self.group, dtype=np.int64)
+            assign = rng.integers(0, nm, size=len(counts))
+            row_q = np.repeat(np.arange(len(counts)), counts)
+            sel = np.flatnonzero(assign[row_q] == rank)
+            self.group = counts[assign == rank]
+        else:
+            assign = rng.integers(0, nm, size=n_rows)
+            sel = np.flatnonzero(assign == rank)
+        log.info("Distributed loading: rank %d keeps %d of %d rows",
+                 rank, len(sel), n_rows)
+        return sel
+
+    def _build(self, cfg: Config, dev: str,
+               dist_rows: bool = False) -> data_mod.TrainingData:
         """The host dataset, from whichever input this Dataset holds
-        (``lightgbm_tpu/basic.py:130-371``)."""
+        (``lightgbm_tpu/basic.py:130-371``); ``dist_rows``: a training
+        file shared by several processes, of which this one keeps its
+        share."""
         # the reference's host dataset: its bins stay where they are
         ref = (self.reference.construct(cfg, dev, on_device=False)
                if self.reference is not None else None)
         td_ref = None if ref is None else ref.constructed
         path = str(self.data) if _is_path(self.data) else None
-        if path is not None and ref is None:
+        if dist_rows:
+            # the group first, so that an early construct() shards as the
+            # one inside train() does
+            init_distributed_from_config(cfg)
+            if cfg.use_two_round_loading:
+                log.warning("use_two_round_loading falls back to in-memory "
+                            "loading when rows are distributed across "
+                            "machines (set pre_partition=true to stream "
+                            "per-machine files)")
+        elif path is not None and ref is None:
             # CheckCanLoadFromBin (dataset_loader.cpp:980-1018): a
             # "<data>.bin" cache beside the file first, then the file
             # itself as a binary dataset file
+            self._from_file = True
             for candidate in (path + ".bin", path):
                 if self._is_binary_cache(candidate):
                     log.info("Loading dataset from binary cache %s",
@@ -182,15 +245,22 @@ class Dataset:
             self._drop_raw()
             return td
         cat_idx: List[int] = []
+        sel = None
         if path is not None:
             feats, labels, header = load_text_file(
                 path, has_header=cfg.has_header, label_idx=0)
             if self.label is None:
                 self.label = labels
+                self._label_from_file = True
             if header and self.feature_name == "auto":
                 self.feature_name = header
             self._side_files(path, len(labels))
             mat = feats
+            self._from_file = True
+            if dist_rows:
+                sel = self._distributed_row_selection(cfg, len(mat))
+                mat = self._keep_rows(mat, sel, cfg)
+            self._dist_sharded = sel is not None
         elif _is_frame(self.data):
             # category columns become their codes, realigned on other data
             # to the training data's levels
@@ -217,10 +287,31 @@ class Dataset:
         # a parsed file's rows are kept (unless freed); a matrix or a
         # DataFrame is converted again when asked for (ensure_raw)
         self.raw = mat if path is not None and not self.free_raw_data else None
-        if path is not None and ref is None and cfg.is_save_binary_file:
+        if (path is not None and ref is None and cfg.is_save_binary_file
+                and sel is None):
             self._save_binary_cache(td)
         self._drop_raw()
         return td
+
+    def _keep_rows(self, mat: np.ndarray, sel: np.ndarray,
+                   cfg: Config) -> np.ndarray:
+        """``mat``'s rows ``sel``, and the labels, weights and init scores
+        of those rows (the query sizes were cut with the draw)."""
+        n_full = len(mat)
+        if self.label is not None:
+            self.label = np.asarray(self.label)[sel]
+        if self.weight is not None:
+            self.weight = np.asarray(self.weight)[sel]
+        if self.init_score is not None:
+            init = np.asarray(self.init_score)
+            k = max(int(cfg.num_class or 1), 1)
+            if k > 1 and init.size == k * n_full:
+                # [num_class, N] flattened: the rows within each class
+                init = init.reshape(k, n_full)[:, sel].ravel()
+            else:
+                init = init[sel]
+            self.init_score = init
+        return mat[sel]
 
     def _fields(self) -> Dict[str, Optional[np.ndarray]]:
         return dict(

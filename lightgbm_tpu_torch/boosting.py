@@ -5,8 +5,9 @@ variants DART, GOSS and RF (``dart.hpp``, ``goss.hpp``, ``rf.hpp``), as
 Boost-from-average init tree, init scores, gradients (or the caller's),
 row sampling (bagging, GOSS), a feature mask drawn per tree, K trees per
 iteration (one per class, tree k from ``g[k]``, ``h[k]``) through the
-serial grower or the data-parallel learner (``parallel/gspmd.py``) over a
-mesh of device slots, shrinkage, the O(N) training-score update through the
+serial grower or the data-parallel learners (``parallel/gspmd.py``, the
+voting one in ``parallel/learner.py``) over a mesh of device slots, in
+one process or several (``num_machines``), shrinkage, the O(N) training-score update through the
 grower's ``row_leaf`` map, valid-set scores by routing their binned rows
 through the fresh tree on the device, the rollback of an iteration, and
 the model text of the reference (``SaveModelToString``, gbdt.cpp:948-997)
@@ -32,6 +33,13 @@ storage matrix beside it feeds the histogram kernels only
 gradients, hessians and leaf values on the device and reads its flags
 with each tree's copy to the host.
 
+Over several processes every decision that one rank could take alone is
+taken from values all ranks hold: the trees from all-reduced histograms,
+``boost_from_average`` from the ranks' summed label statistics (when each
+holds its own rows), the non-finite guard from the minimum of the ranks'
+flags; bagging, GOSS, DART and RF draw over each rank's own rows, as the
+JAX package's do.
+
 With ``data_stream=chunked`` on the serial learner the bin matrix never
 lands on the device (``lightgbm_tpu/boosting.py:772-829``): it stays in
 page-locked host memory, and the streamed grower
@@ -45,6 +53,7 @@ from __future__ import annotations
 
 import copy
 import io
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -60,7 +69,8 @@ from .metrics import Metric, create_metric, default_metric_for_objective
 from .objectives import Objective, parse_objective_string
 from .ops.histogram import movable
 from .parallel import mesh as mesh_mod
-from .parallel.gspmd import GspmdGrower, resolve_gspmd_hist
+from .parallel import sync
+from .parallel.gspmd import GspmdGrower, Procs, resolve_gspmd_hist
 from .predictor import (Predictor, SoABundle, predict_binned_leaf,
                         trees_scores_binned)
 from .tree import Tree
@@ -88,7 +98,37 @@ def streams(cfg: Config) -> bool:
     if cfg.data_stream != "chunked":
         return False
     return cfg.tree_learner == "serial" or cfg.mesh_devices == 1 or len(
-        mesh_mod.mesh_slots(cfg.mesh_devices, training_device(cfg))) <= 1
+        mesh_mod.mesh_slots(cfg.mesh_devices, training_device(cfg))
+    ) * sync.process_count() <= 1
+
+
+def resolve_parallel_impl(cfg: Config, procs: int):
+    """``parallel_impl`` as the JAX package resolves it
+    (``lightgbm_tpu/boosting.py:453-497``): ``gspmd`` becomes ``shardmap``
+    for the voting learner and for the feature learner over several
+    processes, each loudly, and ``auto`` is ``shardmap`` for those and
+    ``gspmd`` otherwise.  Returns ``(impl, downgrades)``.  The port has
+    one learner, which sums the shards' partials by hand, the shard_map
+    choreography; both names run it."""
+    impl, downgrades = cfg.parallel_impl, []
+    cases = ((procs > 1 and cfg.tree_learner == "feature",
+              "multi-process tree_learner=feature (the "
+              "full-data-everywhere replication contract)",
+              "multi-process feature-parallel replicates the full dataset"),
+             (cfg.tree_learner == "voting",
+              "tree_learner=voting (PV-tree vote compression IS call-site "
+              "collective machinery)",
+              "voting learner needs explicit vote collectives"))
+    for hit, what, reason in cases:
+        if impl == "gspmd" and hit:
+            log.warning("parallel_impl=gspmd is unavailable for %s; "
+                        "falling back to shard_map", what)
+            downgrades.append({"requested": "parallel_impl=gspmd",
+                               "resolved": "shardmap", "reason": reason})
+            impl = "shardmap"
+    if impl == "auto":
+        impl = "shardmap" if any(hit for hit, _, _ in cases) else "gspmd"
+    return impl, downgrades
 
 
 class NonFiniteError(RuntimeError):
@@ -186,7 +226,9 @@ class GBDT:
         self.model_epoch = 0
         self._bundle, self._bundle_key = None, None   # predictor()'s cache
         # the learner as resolved, and a record of a loud fallback to serial
+        # or to shard_map; the tensors' backend under several processes
         self.parallel_impl = "serial"
+        self.dist_backend: Optional[str] = None
         self.gspmd_hist: Optional[str] = None
         self.mesh: Optional[mesh_mod.Mesh] = None
         self.downgrades: List[Dict[str, str]] = []
@@ -224,11 +266,19 @@ class GBDT:
         self.bins = bins
         fm = train.feature_meta()
         # the learner (boosting.py:443-445): distributed when a parallel
-        # tree_learner has more than one mesh slot
+        # tree_learner has more than one mesh slot over all processes
+        procs = sync.process_count()
         slots = (mesh_mod.mesh_slots(cfg.mesh_devices, self.device)
                  if cfg.tree_learner != "serial" else [self.device])
         use_dist = cfg.tree_learner != "serial" and (
-            cfg.mesh_devices != 1 and len(slots) > 1)
+            cfg.mesh_devices != 1 and len(slots) * procs > 1)
+        if procs > 1 and not use_dist:
+            log.fatal("num_machines > 1 requires tree_learner=data, voting "
+                      "(per-process row partitions) or feature (full data "
+                      "on every process) over >1 devices; a serial learner "
+                      "would silently train per-partition models")
+        if procs > 1:
+            self.dist_backend = torch.distributed.get_backend()
         streamed = cfg.data_stream == "chunked" and not use_dist
         if streamed != (bins is None):
             raise ValueError("the bin matrix must be on the device unless "
@@ -238,7 +288,7 @@ class GBDT:
         # the feature-sliced learners keep the 1:1 layout
         ordered = "off" if cfg.ordered_bins == "auto" else cfg.ordered_bins
         plan = None
-        if cfg.enable_bin_packing and not (
+        if cfg.enable_bin_packing and procs == 1 and not (
                 use_dist and cfg.tree_learner in ("feature", "data_feature")):
             plan = build_pack_plan(train.col_num_bins())
         if plan is not None and streamed:
@@ -331,7 +381,7 @@ class GBDT:
                              or [default_metric_for_objective(cfg.objective)])
         self.train_metrics = self._make_metrics(train)
         if use_dist:
-            self._setup_gspmd(cfg, slots)
+            self._setup_gspmd(cfg, slots, procs)
         elif streamed:
             self._setup_streamed(cfg, train)
         if not use_dist and cfg.tree_learner != "serial":
@@ -371,40 +421,63 @@ class GBDT:
         return torch.cat([fn(block) for _, _, _, block
                           in self._streamer.blocks()], dim=-1)
 
-    def _setup_gspmd(self, cfg: Config, slots) -> None:
-        """The data-parallel learner (lightgbm_tpu/boosting.py:830-1049,
-        single-process with an explicit mesh): resolve the histogram
-        formulation, size the mesh, pad the rows to whole shards and build
-        the grower.  ``parallel_impl`` auto resolves to gspmd; shardmap and
-        voting raise in the config checks."""
+    def _setup_gspmd(self, cfg: Config, slots, procs: int) -> None:
+        """The data-parallel learners (lightgbm_tpu/boosting.py:443-500,
+        :600-716, :830-1049, with an explicit mesh): resolve
+        ``parallel_impl`` and the histogram formulation, size this
+        process's mesh, pad its rows to whole shards and build the
+        grower, which votes under ``tree_learner=voting``.  Over several
+        processes the data and voting learners extend the batch axis (each
+        process holds its own rows), the feature learner the feature axis
+        (each holds every row, which the ranks check)."""
+        impl, downgrades = resolve_parallel_impl(cfg, procs)
+        self.downgrades.extend(downgrades)
         gspmd_hist = resolve_gspmd_hist(cfg.gspmd_hist, self.device)
         explicit = mesh_mod.parse_mesh_shape(cfg.mesh_shape, len(slots))
-        if explicit is None:
+        if explicit is None and len(slots) > 1:
             _unsupported("mesh_shape=auto over more than one mesh slot",
                          "multi-device learners (the memory-driven mesh "
                          "planner)")
-        d, fs = explicit
+        # one slot of this process (several processes): a 1x1 mesh
+        d, fs = explicit or (1, 1)
         if cfg.ordered_bins == "on" or cfg.partition_impl not in ("auto",
                                                                   "scatter"):
             log.warning("ordered_bins and partition_impl act on the serial "
                         "grower's order window; the data-parallel learner "
                         "keeps a row -> leaf map and ignores them")
-        self.parallel_impl = "gspmd"
+        self.parallel_impl = impl
         self.gspmd_hist = gspmd_hist
         self.mesh = mesh_mod.make_named_mesh(d, fs, slots)
+        axis = (mesh_mod.FEATURE_AXIS if cfg.tree_learner == "feature"
+                else mesh_mod.BATCH_AXIS)
+        if procs > 1 and axis == mesh_mod.FEATURE_AXIS:
+            # the replication contract (:676-692): every process feeds the
+            # same full matrix
+            binned = self.train_set.binned
+            sig = (tuple(binned.shape),
+                   zlib.crc32(np.ascontiguousarray(binned)))
+            sigs = sync.allgather_object(sig)
+            if any(x != sig for x in sigs):
+                log.fatal("feature-parallel multi-process training "
+                          "requires the FULL identical dataset on every "
+                          "process (got differing data signatures %s); "
+                          "per-process row partitions need "
+                          "tree_learner=data or voting", sigs)
         # rows padded to whole shards with zero weights (:1026-1031)
         self._row_pad = mesh_mod.pad_rows(self.num_data, d)
         pad = lambda t: (t if not self._row_pad or t is None else torch.cat(
             [movable(t), movable(t).new_zeros((self._row_pad, t.shape[1]))]
         ).view(t.dtype))
         log.info("Using the data-parallel %s learner over a %dx%d (batch, "
-                 "feature) mesh, %s histogram", cfg.tree_learner, d, fs,
-                 gspmd_hist)
+                 "feature) mesh of %d process(es) (%s), %s histogram",
+                 cfg.tree_learner, d, fs, procs, impl, gspmd_hist)
         packed = (None if self.packed is None else
                   self.packed._replace(matrix=pad(self.packed.matrix)))
-        self._gspmd = GspmdGrower(self.grower_cfg, self.mesh, pad(self.bins),
-                                  gspmd_hist, self.meta.num_bin.numel(),
-                                  packed)
+        self._gspmd = GspmdGrower(
+            self.grower_cfg, self.mesh, pad(self.bins), gspmd_hist,
+            self.meta.num_bin.numel(), packed,
+            top_k=cfg.top_k if cfg.tree_learner == "voting" else None,
+            procs=Procs(procs, sync.process_index(), axis))
 
     def _dist_row_vec(self, x: torch.Tensor) -> torch.Tensor:
         """A per-row vector ``[N]`` -> the learner's ``[N + pad]``, the
@@ -440,9 +513,22 @@ class GBDT:
 
     # --------------------------------------------------------------- training
 
+    def _rows_partitioned(self) -> bool:
+        """Whether each process holds its own rows: the data and voting
+        learners over several processes."""
+        return (self._gspmd is not None and self._gspmd.procs is not None
+                and self._gspmd.procs.axis == mesh_mod.BATCH_AXIS)
+
     def _boost_from_average(self) -> None:
-        """gbdt.cpp:407-480: constant init tree from the label average."""
+        """gbdt.cpp:407-480: constant init tree from the label average;
+        with each process holding its own rows, from the processes'
+        ``(num, den)`` summed in rank order (GlobalSyncUpByMean,
+        lightgbm_tpu/boosting.py:1103-1120)."""
         num, den = self.objective.average_stats()
+        if self._rows_partitioned():
+            parts = sync.allgather_object((num, den))
+            num = sum(p[0] for p in parts)
+            den = sum(p[1] for p in parts)
         init = self.objective.init_from_average(num / max(den, 1e-300))
         tree = Tree(1)
         tree.leaf_value[0] = init
@@ -580,10 +666,16 @@ class GBDT:
                     g[k] if bw is None else g[k] * bw,
                     h[k] if bw is None else h[k] * bw, cnt)
             self.stats["trees"] += 1
-            # the flags ride the tree's one copy to the host
+            # the flags ride the tree's one copy to the host; over several
+            # processes every rank acts on their minimum (the gradients
+            # are each rank's own)
             host, (tree_ok, grads_ok) = _tree_to_host(
                 arrays, gh_ok & torch.isfinite(arrays.leaf_value).all(),
                 gh_ok)
+            if sync.process_count() > 1:
+                tree_ok, grads_ok = (bool(v) for v in sync.all_reduce(
+                    torch.tensor([tree_ok, grads_ok], dtype=torch.int32),
+                    "min", "nonfinite_flags", host=True))
             if not tree_ok and self._handle_nonfinite(k, grads_ok):
                 return False    # the iteration rolled back; retried next
             tree = Tree.from_arrays(host, self.train_set.used_features,

@@ -165,12 +165,21 @@ class Config:
     #                                replayed as a CUDA graph) | auto (=
     #                                compact on a card, scatter on the CPU)
 
-    # distributed: the data-parallel learner over a (batch, feature) mesh
-    # of device slots (parallel/mesh.py)
+    # distributed: the data-parallel learners over a (batch, feature) mesh
+    # of device slots (parallel/mesh.py), in one process or several
     num_machines: int = 1
+    machine_list_file: str = ""    # "ip port" a line; machine 0 rendezvous
+    is_pre_partition: bool = False  # each process holds its own rows; else
+    #                                a shared file is split over them
+    collective_timeout: float = 120.0   # seconds a collective may take
+    top_k: int = 20                # features each voter votes (voting)
     mesh_devices: int = 0          # mesh slots; 0 = one per visible card
-    #                                (cuda) or one (cpu)
-    parallel_impl: str = "auto"    # auto (= gspmd) | gspmd | shardmap
+    #                                (cuda; one a process under several) or
+    #                                one (cpu)
+    parallel_impl: str = "auto"    # auto | gspmd | shardmap, resolved as
+    #                                the JAX package resolves it
+    #                                (boosting.py:resolve_parallel_impl);
+    #                                both run the one learner
     mesh_shape: str = "auto"       # DxF | data | feature | auto (planner)
     shard_axes: str = "auto"       # auto | batch | batch,feature
     gspmd_hist: str = "auto"       # fused (the shard-local kernel) | flat
@@ -321,15 +330,8 @@ NOT_PORTED: Dict[str, tuple] = {
     "drift_threshold": (0.2, _SERVING),
     "drift_window_rows": (4096, _SERVING),
     "serving_traversal": ("auto", _SERVING),
-    "top_k": (20, _MULTI + " (the shard_map learners)"),
-    "is_pre_partition": (False, _MULTI + " (multi-process over "
-                         "torch.distributed)"),
-    "machine_list_file": ("", _MULTI + " (multi-process over "
-                          "torch.distributed)"),
-    "collective_timeout": (120.0, _MULTI + " (multi-process over "
-                           "torch.distributed)"),
-    "collective_retries": (2, _MULTI + " (multi-process over "
-                           "torch.distributed)"),
+    "collective_retries": (2, _SERVING + " (the supervisor's retry "
+                           "ladder)"),
     "hbm_budget": (0.0, _MULTI + " (the memory-driven mesh planner)"),
 }
 
@@ -440,10 +442,11 @@ def _unsupported(what: str, item: str) -> None:
 
 
 def _check_distributed(cfg: Config) -> None:
-    """The distributed knobs (lightgbm_tpu/config.py:653-711): syntax
-    checks, and a raise for every value outside the ported data-parallel
-    learner.  ``mesh_shape=auto`` raises later, at learner setup, where
-    the number of mesh slots is known."""
+    """The distributed knobs (lightgbm_tpu/config.py:653-711, :782):
+    syntax checks, and a raise for the one value outside the ported
+    learners (block-sharded bins).  ``mesh_shape=auto`` over more than
+    one mesh slot raises later, at learner setup, where the number of
+    slots is known."""
     if cfg.tree_learner not in ("serial", "feature", "data", "voting",
                                 "data_feature"):
         log.fatal("Unknown tree learner type %s", cfg.tree_learner)
@@ -467,16 +470,16 @@ def _check_distributed(cfg: Config) -> None:
                   cfg.gspmd_hist)
     if cfg.mesh_devices < 0:
         log.fatal("mesh_devices must be >= 0; got %d", cfg.mesh_devices)
-    if cfg.tree_learner == "voting":
-        _unsupported("tree_learner=voting",
-                     "multi-device learners (the shard_map learners)")
-    if cfg.parallel_impl == "shardmap":
-        _unsupported("parallel_impl=shardmap",
-                     "multi-device learners (the shard_map learners)")
-    if cfg.num_machines > 1:
-        _unsupported(f"num_machines={cfg.num_machines}",
-                     "multi-device learners (multi-process over "
-                     "torch.distributed)")
+    if cfg.tree_learner == "data_feature" and cfg.num_machines > 1:
+        # lightgbm_tpu/config.py:686-691
+        log.fatal("tree_learner=data_feature is single-process (it shards "
+                  "data x feature over one process's device mesh); use "
+                  "data, voting, or feature across machines")
+    if cfg.collective_timeout <= 0:
+        log.fatal("collective_timeout must be positive; got %r",
+                  cfg.collective_timeout)
+    if cfg.top_k <= 0:
+        log.fatal("top_k must be positive; got %d", cfg.top_k)
     if sa in ("batch,feature", "feature,batch"):
         _unsupported(f"shard_axes={cfg.shard_axes}",
                      "multi-device learners (block-sharded bins)")

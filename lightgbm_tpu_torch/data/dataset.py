@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..config import Config
+from ..parallel import sync
 from ..utils import log
 from ..utils.random import make_rng, sample_k
 from .binning import BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper
@@ -284,40 +285,55 @@ def _fit_from_sample(ds: TrainingData, sample: np.ndarray,
                      config: Config, cat_set) -> None:
     """Fit per-feature BinMappers from the sampled rows, filter trivial
     features (FindBin) and decide the EFB layout (FindGroups,
-    ``lightgbm_tpu/data/dataset.py:216-290``)."""
+    ``lightgbm_tpu/data/dataset.py:180-290``).  Over several processes
+    (the reference's distributed FindBin, dataset_loader.cpp:737-816)
+    process p fits the features j = p (mod P) from its own sample, the
+    fitted mappers are allgathered, and process 0 decides the bundles,
+    which it broadcasts."""
     num_features = ds.num_total_features
+    n_proc, rank = sync.process_count(), sync.process_index()
+    mine = [j for j in range(num_features)
+            if n_proc == 1 or j % n_proc == rank]
     min_split_data = int(config.min_data_in_leaf * len(sample)
                          / max(ds.num_data, 1))
-    mappers: List[BinMapper] = []
-    for b0 in range(0, num_features, _COL_BLOCK):
-        cols_t = _columns_T(sample, range(b0, min(num_features,
-                                                  b0 + _COL_BLOCK)))
-        for k, col in enumerate(cols_t):
+    fitted: Dict[int, BinMapper] = {}
+    for b0 in range(0, len(mine), _COL_BLOCK):
+        chunk = mine[b0:b0 + _COL_BLOCK]
+        for j, col in zip(chunk, _columns_T(sample, chunk)):
             # sparse convention: pass non-zero values; zeros implied by total count
             nz = col[(col != 0) | np.isnan(col)]
-            mappers.append(BinMapper.fit(
+            fitted[j] = BinMapper.fit(
                 nz, total_sample_cnt=len(col), max_bin=config.max_bin,
                 min_data_in_bin=config.min_data_in_bin,
                 min_split_data=min_split_data,
-                bin_type=(BIN_TYPE_CATEGORICAL if b0 + k in cat_set
+                bin_type=(BIN_TYPE_CATEGORICAL if j in cat_set
                           else BIN_TYPE_NUMERICAL),
                 use_missing=config.use_missing,
-                zero_as_missing=config.zero_as_missing))
+                zero_as_missing=config.zero_as_missing)
+    if n_proc > 1:
+        for part in sync.allgather_object(fitted):
+            fitted.update(part)
+    mappers = [fitted[j] for j in range(num_features)]
     ds.bin_mappers = mappers
     ds.used_features = [j for j, m in enumerate(mappers) if not m.is_trivial]
     if not ds.used_features:
         log.fatal("Cannot construct Dataset: all features are trivial (constant)")
     if config.enable_bundle and len(ds.used_features) > 1:
-        bs = sample[:min(len(sample), 20000)]
-        nonzero = np.zeros((bs.shape[0], len(ds.used_features)), dtype=bool)
-        for b0 in range(0, len(ds.used_features), _COL_BLOCK):
-            chunk = ds.used_features[b0:b0 + _COL_BLOCK]
-            cols_t = _columns_T(bs, chunk)
-            nonzero[:, b0:b0 + len(chunk)] = ((cols_t != 0)
-                                              | np.isnan(cols_t)).T
-        bundles = find_bundles(
-            nonzero, [mappers[j].num_bin for j in ds.used_features],
-            config.max_conflict_rate)
+        bundles = None      # rank 0 decides, every other rank receives
+        if n_proc == 1 or rank == 0:
+            bs = sample[:min(len(sample), 20000)]
+            nonzero = np.zeros((bs.shape[0], len(ds.used_features)),
+                               dtype=bool)
+            for b0 in range(0, len(ds.used_features), _COL_BLOCK):
+                chunk = ds.used_features[b0:b0 + _COL_BLOCK]
+                cols_t = _columns_T(bs, chunk)
+                nonzero[:, b0:b0 + len(chunk)] = ((cols_t != 0)
+                                                  | np.isnan(cols_t)).T
+            bundles = find_bundles(
+                nonzero, [mappers[j].num_bin for j in ds.used_features],
+                config.max_conflict_rate)
+        if n_proc > 1:
+            bundles = sync.broadcast_object(bundles)
         layout = BundleLayout([[ds.used_features[k] for k in b]
                                for b in bundles], mappers)
         if layout.has_bundles:

@@ -15,6 +15,7 @@ import torch
 from . import callback as callback_mod
 from .basic import Booster, Dataset
 from .config import _unsupported, canonicalize_params, config_from_params
+from .parallel.mesh import init_distributed_from_config
 from .utils import log
 
 
@@ -48,6 +49,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
                      "checkpoints, serving, observability, CLI, sklearn and "
                      "plotting")
     params = canonicalize_params(params)
+    # several processes (lightgbm_tpu/engine.py:106-135): the process
+    # group comes up before the Dataset is built, with its timeout
+    cfg = config_from_params(params)
+    if cfg.num_machines > 1:
+        init_distributed_from_config(cfg)
     if "num_iterations" in params:
         num_boost_round = int(params.pop("num_iterations"))
     if params.get("early_stopping_round"):
@@ -215,6 +221,11 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     ``init_model``, ``feature_name``, ``categorical_feature`` and
     ``callbacks`` are accepted and not used."""
     params = canonicalize_params(params)
+    # several processes (lightgbm_tpu/engine.py:106-135): the process
+    # group comes up before the Dataset is built, with its timeout
+    cfg = config_from_params(params)
+    if cfg.num_machines > 1:
+        init_distributed_from_config(cfg)
     if "num_iterations" in params:
         num_boost_round = int(params.pop("num_iterations"))
     if metrics is not None:

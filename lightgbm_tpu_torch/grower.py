@@ -270,8 +270,11 @@ class LeafPool:
 
     def __init__(self, cfg: GrowerConfig, n_feat: int, device,
                  dtype: torch.dtype = torch.float32,
-                 n_logical: Optional[int] = None):
-        # histograms of n_feat physical columns; the scan's flags and the
+                 n_logical: Optional[int] = None,
+                 slots: Optional[int] = None):
+        # histograms of n_feat physical columns, or with ``slots`` each
+        # leaf's histograms of that many row shards (the voting learner's
+        # local store, parallel/learner.py); the scan's flags and the
         # feature mask over n_logical features (n_feat unless bundled)
         L, B = cfg.num_leaves, cfg.max_bin
         f = n_feat if n_logical is None else n_logical
@@ -282,7 +285,8 @@ class LeafPool:
         def z(*shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=device)
 
-        self.hist_store = z(L + 1, n_feat, B, 3)
+        self.hist_store = z(L + 1, *(() if slots is None else (slots,)),
+                            n_feat, B, 3)
         self.feat_ok = z(L + 1, f, dt=torch.bool)
         self.sgain = z(L + 1)
         self.sf32 = z(L + 1, 8)
@@ -317,11 +321,9 @@ class LeafPool:
                          else make_expand_maps(meta, self.cfg.max_bin))
             self.meta_key = key
         self.feat_valid = feat_valid
-        res, fok = best_split(
-            self.scan_hist(hist_root[None], root_g.reshape(1),
-                           root_h.reshape(1), root_c.reshape(1)),
-            root_g.reshape(1), root_h.reshape(1), root_c.reshape(1),
-            feat_valid[None], self.scfg, self.ctx)
+        res, fok = self.find(hist_root[None], root_g.reshape(1),
+                             root_h.reshape(1), root_c.reshape(1),
+                             feat_valid[None])
         self.hist_store[0] = hist_root
         self.feat_ok[0] = fok[0]
         self.sgain.fill_(float("-inf"))
@@ -345,6 +347,15 @@ class LeafPool:
         if self.maps is None:
             return hist
         return expand_bundle_hist(hist, pg, ph, pc, self.maps)
+
+    def find(self, hist: torch.Tensor, pg: torch.Tensor, ph: torch.Tensor,
+             pc: torch.Tensor, feat_valid: torch.Tensor):
+        """The best splits of K leaves from their stored histograms
+        ``[K, ...]``, sums ``[K]`` and feature masks ``[K, F]``: returns
+        ``(SplitResult, feat_ok [K, F])``.  Here one batched scan; the
+        voting learner votes first (``parallel/learner.py``)."""
+        return best_split(self.scan_hist(hist, pg, ph, pc), pg, ph, pc,
+                          feat_valid, self.scfg, self.ctx)
 
     def split_args(self, l: torch.Tensor):
         """The pooled split of leaf ``l``: its int and float rows, and
@@ -408,11 +419,9 @@ class LeafPool:
         fok_parent = self.feat_ok.index_select(0, l)
         lr3 = frow[:6].view(2, 3)
         sl3 = torch.where(small_left, lr3, lr3.flip(0))
-        res2, fok2 = best_split(self.scan_hist(hist2, sl3[:, 0], sl3[:, 1],
-                                               sl3[:, 2]),
-                                sl3[:, 0], sl3[:, 1], sl3[:, 2],
-                                (self.feat_valid & fok_parent).expand(
-                                    2, self.f), self.scfg, self.ctx)
+        res2, fok2 = self.find(hist2, sl3[:, 0], sl3[:, 1], sl3[:, 2],
+                               (self.feat_valid & fok_parent).expand(
+                                   2, self.f))
         res2 = _depth_gate(res2, child_depth.expand(2), self.cfg.max_depth)
         self.feat_ok.index_copy_(0, pair, fok2 & fok_parent)
         self.sgain.index_copy_(0, pair, res2.gain)

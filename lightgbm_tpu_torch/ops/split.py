@@ -257,31 +257,20 @@ def _constants(cfg: SplitConfig):
             float("-inf"))
 
 
-def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
-               parent_h: torch.Tensor, parent_c: torch.Tensor,
-               feat_valid: torch.Tensor, cfg: SplitConfig,
-               ctx: FusedSplitCtx):
-    """Best split of K leaves (split.py:609 with ``split_find=fused``):
-    numerical, or categorical when ``cfg.has_categorical`` and ``ctx``
-    flags categorical features.
-
-    hist ``[K, F, B, 3]`` (sum_g, sum_h, count); parent_g/h/c ``[K]``;
-    feat_valid ``[K, F]`` bool.  Returns ``(SplitResult, feat_ok [K, F])``
-    where feat_ok flags the features that produced any candidate beating
-    the gain shift (the reference's subtree feature pruning,
-    serial_tree_learner.cpp:406-417)."""
-    k, f, b, _ = hist.shape
-    dev = hist.device
-    pg = parent_g.view(k, 1, 1)
-    pc = parent_c.view(k, 1, 1)
+def _numerical_scan(hist: torch.Tensor, pg: torch.Tensor, ph: torch.Tensor,
+                    pc: torch.Tensor, num_valid: torch.Tensor,
+                    cfg: SplitConfig, ctx: FusedSplitCtx):
+    """Both scan directions of the numerical features: each feature's best
+    candidate gain (not yet reduced by the shift) and its position, with
+    the left sums of every candidate.  The parent sums ``pg``, ``ph``,
+    ``pc`` are ``[K, 1, 1]``, a leaf's, or ``[K, F, 1]``, one a feature
+    (the voting learner's local sums).  Returns ``(gm, jm, lg_m1, lh_m1,
+    lc_m1)`` and, with missing values, ``(gp, jp, lg_p1, lh_p1, lc_p1)``
+    after them."""
+    k, f = hist.shape[:2]
     l1, l2, min_data, min_hess, neg_inf = _constants(cfg)
-    tot_h_k = parent_h + 2.0 * K_EPSILON                       # [K]
-    tot_h = tot_h_k.view(k, 1, 1)
-    min_gain_shift_k = (leaf_split_gain(parent_g, tot_h_k, l1, l2)
-                        + cfg.min_gain_to_split)               # [K]
-    min_gain_shift = min_gain_shift_k.view(k, 1, 1)
-    use_cat = cfg.has_categorical and ctx.is_cat is not None
-    num_valid = feat_valid & ~ctx.is_cat if use_cat else feat_valid
+    tot_h = ph + 2.0 * K_EPSILON
+    min_gain_shift = leaf_split_gain(pg, tot_h, l1, l2) + cfg.min_gain_to_split
     valid = num_valid.view(k, f, 1)
 
     def eval_gains(left_g, left_h, left_c, cand):
@@ -306,20 +295,84 @@ def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     gains_m1 = eval_gains(lg_m1, lh_m1, lc_m1, valid & ctx.cand_m1[None])
     # largest threshold first: the first max over the REVERSED gains
     flipped_m1 = torch.flip(gains_m1, dims=[2])
-    gm = torch.amax(flipped_m1, dim=2)                         # [K, F]
-    jm = torch.argmax(flipped_m1, dim=2)
+    out = (torch.amax(flipped_m1, dim=2), torch.argmax(flipped_m1, dim=2),
+           lg_m1, lh_m1, lc_m1)
+    if not cfg.has_missing:
+        return out
+    # ---- dir = +1: accumulate from the left; missing defaults RIGHT ----
+    kept = torch.where(ctx.keep_p1[None, :, :, None], hist, 0.0)
+    left_p1 = torch.cumsum(kept, dim=2)
+    lg_p1 = left_p1[..., 0]
+    lh_p1 = left_p1[..., 1] + K_EPSILON
+    lc_p1 = left_p1[..., 2]
+    gains_p1 = eval_gains(lg_p1, lh_p1, lc_p1, valid & ctx.cand_p1[None])
+    return out + (torch.amax(gains_p1, dim=2), torch.argmax(gains_p1, dim=2),
+                  lg_p1, lh_p1, lc_p1)
 
+
+def select_ctx(ctx: FusedSplitCtx, idx: torch.Tensor) -> FusedSplitCtx:
+    """The scan's masks of the features ``idx`` (in that order), as
+    :func:`make_fused_ctx` would build them for those features alone."""
+    return FusedSplitCtx(*[None if t is None else t.index_select(0, idx)
+                           for t in ctx])
+
+
+def per_feature_best_gain(hist: torch.Tensor, parent_g: torch.Tensor,
+                          parent_h: torch.Tensor, parent_c: torch.Tensor,
+                          feat_valid: torch.Tensor, cfg: SplitConfig,
+                          ctx: FusedSplitCtx) -> torch.Tensor:
+    """Each feature's best gain less its shift, ``-inf`` where none
+    (``lightgbm_tpu/ops/split.py:705``): the voting learner's local vote
+    (``voting_parallel_tree_learner.cpp:255-330``).  hist ``[K, F, B,
+    3]``; the parent sums ``[K, F]``, one a feature; feat_valid ``[K,
+    F]``."""
+    k, f = hist.shape[:2]
+    l1, l2 = float(cfg.lambda_l1), float(cfg.lambda_l2)
+    use_cat = cfg.has_categorical and ctx.is_cat is not None
+    num_valid = feat_valid & ~ctx.is_cat if use_cat else feat_valid
+    pg, ph, pc = (p.view(k, f, 1) for p in (parent_g, parent_h, parent_c))
+    scan = _numerical_scan(hist, pg, ph, pc, num_valid, cfg, ctx)
+    best = torch.maximum(scan[0], scan[5]) if cfg.has_missing else scan[0]
+    shift = (leaf_split_gain(parent_g, parent_h + 2.0 * K_EPSILON, l1, l2)
+             + cfg.min_gain_to_split)
+    neg_inf = float("-inf")
+    out = torch.where(best > neg_inf, best - shift, neg_inf)
+    if not use_cat:
+        return out
+    gain2, c_shift = _categorical_gains(hist, parent_g, parent_h, parent_c,
+                                        feat_valid, cfg, ctx)[:2]
+    cbest = gain2.reshape(k, f, -1).amax(dim=2)
+    return torch.maximum(out, torch.where(cbest > neg_inf, cbest - c_shift,
+                                          neg_inf))
+
+
+def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
+               parent_h: torch.Tensor, parent_c: torch.Tensor,
+               feat_valid: torch.Tensor, cfg: SplitConfig,
+               ctx: FusedSplitCtx):
+    """Best split of K leaves (split.py:609 with ``split_find=fused``):
+    numerical, or categorical when ``cfg.has_categorical`` and ``ctx``
+    flags categorical features.
+
+    hist ``[K, F, B, 3]`` (sum_g, sum_h, count); parent_g/h/c ``[K]``;
+    feat_valid ``[K, F]`` bool.  Returns ``(SplitResult, feat_ok [K, F])``
+    where feat_ok flags the features that produced any candidate beating
+    the gain shift (the reference's subtree feature pruning,
+    serial_tree_learner.cpp:406-417)."""
+    k, f, b, _ = hist.shape
+    dev = hist.device
+    l1, l2, min_data, min_hess, neg_inf = _constants(cfg)
+    tot_h_k = parent_h + 2.0 * K_EPSILON                       # [K]
+    min_gain_shift_k = (leaf_split_gain(parent_g, tot_h_k, l1, l2)
+                        + cfg.min_gain_to_split)               # [K]
+    use_cat = cfg.has_categorical and ctx.is_cat is not None
+    num_valid = feat_valid & ~ctx.is_cat if use_cat else feat_valid
+    scan = _numerical_scan(hist, parent_g.view(k, 1, 1),
+                           parent_h.view(k, 1, 1), parent_c.view(k, 1, 1),
+                           num_valid, cfg, ctx)
+    gm, jm, lg_m1, lh_m1, lc_m1 = scan[:5]
     if cfg.has_missing:
-        # ---- dir = +1: accumulate from the left; missing defaults RIGHT
-        kept = torch.where(ctx.keep_p1[None, :, :, None], hist, 0.0)
-        left_p1 = torch.cumsum(kept, dim=2)
-        lg_p1 = left_p1[..., 0]
-        lh_p1 = left_p1[..., 1] + K_EPSILON
-        lc_p1 = left_p1[..., 2]
-        gains_p1 = eval_gains(lg_p1, lh_p1, lc_p1,
-                              valid & ctx.cand_p1[None])
-        gp = torch.amax(gains_p1, dim=2)
-        jp = torch.argmax(gains_p1, dim=2)
+        gp, jp, lg_p1, lh_p1, lc_p1 = scan[5:]
         best_f = torch.maximum(gm, gp)          # per feature, dir=-1 first
     else:
         best_f = gm
@@ -388,23 +441,22 @@ def best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     return res, torch.where(ctx.is_cat[None], cat_ok, num_ok)
 
 
-def _categorical_best(hist, parent_g, parent_h, parent_c, feat_valid,
-                      cfg: SplitConfig, ctx: FusedSplitCtx):
-    """Best categorical split of K leaves (split.py:188 candidates, :557
-    result): returns ``(SplitResult, cat_ok [K, F])``.
-
-    Candidate order per feature: dir=+1 positions ascending, then dir=-1
-    positions ascending (the reference's ``dirs = {1, -1}`` loop); the
-    first maximum wins."""
+def _categorical_gains(hist, parent_g, parent_h, parent_c, feat_valid,
+                       cfg: SplitConfig, ctx: FusedSplitCtx):
+    """Every categorical candidate's gain, ``[K, F, 2, T]`` (split.py:188):
+    returns ``(gain2, min_gain_shift, order, lg2, lh2, lc2, tot_h)``.
+    The parent sums are ``[K]``, a leaf's, or ``[K, F]``, one a feature
+    (the voting learner's local sums); ``min_gain_shift`` and ``tot_h``
+    are ``[K, 1]`` or ``[K, F]`` then."""
     k, f, b, _ = hist.shape
     dev = hist.device
     t_max = min(int(cfg.max_cat_threshold), b)
     l1, l2, min_data, min_hess, neg_inf = _constants(cfg)
     used_bin = ctx.cat_used_bin                                 # [F]
-    pg = parent_g.view(k, 1)
-    ph = parent_h.view(k, 1)
-    pc = parent_c.view(k, 1)
-    tot_h = ph + 2.0 * K_EPSILON                                # [K, 1]
+    pg = parent_g.view(k, -1)
+    ph = parent_h.view(k, -1)
+    pc = parent_c.view(k, -1)
+    tot_h = ph + 2.0 * K_EPSILON                                # [K, 1|F]
     min_gain_shift = leaf_split_gain(pg, tot_h, l1, l2) + cfg.min_gain_to_split
 
     # smoothing (feature_histogram.hpp:122-126)
@@ -454,9 +506,9 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, feat_valid,
     step_c = torch.stack([step_p1, step_m1], dim=2)
     valid2 = torch.stack([base_valid,
                           base_valid & ctx.cat_dir_m1[None, :, None]], dim=2)
-    rg2 = pg.view(k, 1, 1, 1) - lg2
-    rh2 = tot_h.view(k, 1, 1, 1) - lh2
-    rc2 = pc.view(k, 1, 1, 1) - lc2
+    rg2 = pg[:, :, None, None] - lg2
+    rh2 = tot_h[:, :, None, None] - lh2
+    rc2 = pc[:, :, None, None] - lc2
     cont_ok = (lc2 >= min_data) & (lh2 >= min_hess)
     right_ok = (rc2 >= min_data) & (rh2 >= min_hess)
 
@@ -464,15 +516,35 @@ def _categorical_best(hist, parent_g, parent_h, parent_c, feat_valid,
     # positions (feature_histogram.hpp:142-147,169-177)
     both_ok = cont_ok & right_ok
     mdpg0 = torch.clamp(torch.floor(pc / cfg.max_cat_group),
-                        min=1.0)[..., None]                     # [K, 1, 1]
+                        min=1.0)[..., None]                 # [K, 1|F, 1]
     accept = cat_group_accept(step_c, both_ok, rc2, mdpg0,
                               cfg.max_cat_group)
 
     gain2 = (leaf_split_gain(lg2, lh2, l1, l2)
              + leaf_split_gain(rg2, rh2, l1, l2))
     ok = (valid2 & both_ok & accept
-          & (gain2 > min_gain_shift.view(k, 1, 1, 1)))
-    gain2 = torch.where(ok, gain2, neg_inf)
+          & (gain2 > min_gain_shift[:, :, None, None]))
+    return (torch.where(ok, gain2, neg_inf), min_gain_shift, order, lg2,
+            lh2, lc2, tot_h)
+
+
+def _categorical_best(hist, parent_g, parent_h, parent_c, feat_valid,
+                      cfg: SplitConfig, ctx: FusedSplitCtx):
+    """Best categorical split of K leaves (split.py:188 candidates, :557
+    result): returns ``(SplitResult, cat_ok [K, F])``.
+
+    Candidate order per feature: dir=+1 positions ascending, then dir=-1
+    positions ascending (the reference's ``dirs = {1, -1}`` loop); the
+    first maximum wins."""
+    k, f, b, _ = hist.shape
+    dev = hist.device
+    t_max = min(int(cfg.max_cat_threshold), b)
+    l1, l2 = float(cfg.lambda_l1), float(cfg.lambda_l2)
+    neg_inf = float("-inf")
+    used_bin = ctx.cat_used_bin
+    bins = torch.arange(b, device=dev)
+    gain2, min_gain_shift, order, lg2, lh2, lc2, tot_h = _categorical_gains(
+        hist, parent_g, parent_h, parent_c, feat_valid, cfg, ctx)
     flat = gain2.reshape(k, -1)
     idx = torch.argmax(flat, dim=1)                             # [K]
     ar = torch.arange(k, device=dev)

@@ -46,14 +46,29 @@ insert the collectives; here the split step itself walks the shards of a
   the summed, concatenated histogram is unfolded into physical columns
   (:238) before the pool sees it; routing reads the unpacked bins.
 
+* under ``tree_learner=voting`` each batch shard's histogram stays its
+  own (concatenated over its column slices): the pool keeps them per
+  shard and votes (``parallel/learner.py``, the JAX package's shard_map
+  ``VotingStrategy``);
+* over several processes (:class:`Procs`) the data and voting learners
+  extend the batch axis, each process over its own rows: the root's sums
+  and each measured histogram (under voting, the votes and the voted
+  features' histograms) are all-reduced, so every process holds the same
+  bits and grows the same tree.  The feature learner extends the feature
+  axis: every process holds every row, measures its own column slices
+  and gathers the rest (a zeroed full histogram, its slices written in,
+  all-reduced).  The root's sums are each shard's, added in shard order,
+  in one process as across several.
+
 The loop is the JAX package's ``lax.while_loop`` (:404, ``cond`` :284,
 ``body`` :289) as the serial grower runs it (``grower.SplitLoop``): one
 split is one step over fixed-shape device tensors that reads the chosen
 leaf, the step counter and the ``active`` flag from device memory, and
 after the stop writes only to the pool's sink rows and moves no row.
-With every mesh slot on one card and ``hist="fused"`` the step is
-captured once per training as a CUDA graph and replayed; elsewhere (the
-CPU, ``hist="flat"``, slots on several cards) it runs eagerly, the split
+With every mesh slot on one card, ``hist="fused"`` and one process the
+step is captured once per training as a CUDA graph and replayed;
+elsewhere (the CPU, ``hist="flat"``, slots on several cards, several
+processes, whose collectives are not captured) it runs eagerly, the split
 row copied to each card and the partials to the primary device, device
 to device.  Either way the host reads the counters once every
 ``STOP_CHECK_STEPS`` steps and nothing else.  The learner's state lives
@@ -62,7 +77,7 @@ across trees, allocated once per training.
 from __future__ import annotations
 
 from contextlib import nullcontext
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,6 +88,8 @@ from ..grower import (FeatureMeta, GrowerConfig, LeafPool, SplitLoop,
 from ..ops.histogram import hist_flat, hist_local, movable
 from ..ops.route import route_rows
 from ..ops.split import cat_group_accept
+from . import sync
+from .learner import VotingPool
 from .mesh import BATCH_AXIS, FEATURE_AXIS, Mesh
 
 
@@ -97,6 +114,19 @@ def column_slices(n_cols: int, feature_shards: int) -> List[range]:
     return [range(int(a), int(b)) for a, b in zip(edges[:-1], edges[1:])]
 
 
+class Procs(NamedTuple):
+    """The processes a learner spans (``num_machines > 1``): their
+    ``count``, this one's ``index``, and the mesh ``axis`` they extend.
+    ``batch``: each process holds its own rows, its batch shards follow
+    those of the processes before it, and the partial histograms are
+    all-reduced.  ``feature`` (the feature learner): every process holds
+    every row and measures its own column slices, which are gathered into
+    the full histogram."""
+    count: int
+    index: int
+    axis: str = BATCH_AXIS
+
+
 def _to(dev: torch.device, *ts):
     return [None if t is None else t.to(dev) for t in ts]
 
@@ -117,7 +147,9 @@ class GspmdGrower(SplitLoop):
 
     def __init__(self, cfg: GrowerConfig, mesh: Mesh, bins: torch.Tensor,
                  hist: str = "fused", n_logical: Optional[int] = None,
-                 packed: Optional[PackedBins] = None):
+                 packed: Optional[PackedBins] = None,
+                 top_k: Optional[int] = None,
+                 procs: Optional[Procs] = None):
         if hist not in ("fused", "flat"):
             raise ValueError(f"hist must be fused or flat; got {hist!r}")
         d, fs = mesh.shape[BATCH_AXIS], mesh.shape[FEATURE_AXIS]
@@ -139,7 +171,20 @@ class GspmdGrower(SplitLoop):
         hsrc = bins if packed is None else packed.matrix
         self.hist_width = (cfg.max_bin if packed is None
                            else packed.hist_width(cfg.max_bin))
-        self.cols = column_slices(hsrc.shape[1], fs)
+        # the processes: this one's slices of the feature axis when it
+        # spans them, and the collectives' counts (stats["timed"] adds
+        # their seconds, parallel/sync.py:all_reduce)
+        self.procs = procs if procs is not None and procs.count > 1 \
+            else None
+        self.coll_stats: Dict[str, float] = {}
+        p, r = ((1, 0) if self.procs is None
+                else (self.procs.count, self.procs.index))
+        self.n_cols = hsrc.shape[1]
+        if self.procs is not None and self.procs.axis == FEATURE_AXIS:
+            self.cols = column_slices(self.n_cols, fs * p)[r * fs:
+                                                          (r + 1) * fs]
+        else:
+            self.cols = column_slices(self.n_cols, fs)
         L = cfg.num_leaves
         # the batch shards each device holds, in shard order; a device's
         # row -> leaf map, counts and routing cover all of them at once
@@ -166,8 +211,16 @@ class GspmdGrower(SplitLoop):
                                           mesh.devices[i][j]).view(hsrc.dtype)
                         for j, c in enumerate(self.cols)] for i in range(d)]
         self.root_id = torch.zeros(1, dtype=torch.int32, device=self.device)
-        # the histogram store, split pool and records, reset per tree
-        self.pool = LeafPool(cfg, f, self.device, n_logical=n_logical)
+        # the histogram store, split pool and records, reset per tree; the
+        # voting learner's keeps each batch shard's (parallel/learner.py),
+        # its voters counted over the processes
+        self.voting = top_k is not None
+        if self.voting:
+            self.pool = VotingPool(cfg, f, self.device, d, top_k,
+                                   n_logical=n_logical, voters=d * p,
+                                   first=r * d, reduce=self._reduce)
+        else:
+            self.pool = LeafPool(cfg, f, self.device, n_logical=n_logical)
         self.metas: Optional[Dict[torch.device, FeatureMeta]] = None
         self.bound = None
 
@@ -184,11 +237,31 @@ class GspmdGrower(SplitLoop):
         k = self.held[dv].index(i) * self.n_loc
         return t[k:k + self.n_loc]
 
+    def _reduce(self, t: torch.Tensor, what: str) -> torch.Tensor:
+        """``t`` summed in place across the processes."""
+        return sync.all_reduce(t, "sum", what, self.coll_stats)
+
+    def _unfold(self, hist: torch.Tensor) -> torch.Tensor:
+        """Packed storage columns unfolded into physical ones: ``[C, Bj,
+        3]``, or ``[shards, C, Bj, 3]`` (the voters') as ``3 x shards``
+        channels of one unfold."""
+        if self.pack is None:
+            return hist
+        mb = self.cfg.max_bin
+        if hist.dim() == 3:
+            return unfold_packed_hist(hist, self.pack, mb)
+        d, c, bj, s = hist.shape
+        out = unfold_packed_hist(hist.permute(1, 2, 0, 3).reshape(
+            c, bj, d * s), self.pack, mb)
+        return out.view(out.shape[0], mb, d, s).permute(2, 0, 1, 3)
+
     def _measure(self, leaf_id: torch.Tensor) -> torch.Tensor:
         """The leaf's ``[F, B, 3]`` histogram on the primary device:
         per-slot partials, summed over the batch shards in shard order,
-        column slices concatenated, packed columns unfolded.  ``leaf_id``
-        is an int32[1] on the primary device."""
+        column slices concatenated, then summed (or, when the processes
+        span the feature axis, gathered) across the processes, packed
+        columns unfolded.  Under voting, each batch shard's own ``[shards,
+        F, B, 3]``.  ``leaf_id`` is an int32[1] on the primary device."""
         B = self.hist_width
         leaf_on = {dv: leaf_id.to(dv) for dv in self.held}
         w = self.weights
@@ -196,9 +269,8 @@ class GspmdGrower(SplitLoop):
             w = {dv: [x * m for x in w[dv]] for dv, m in (
                 (dv, (self.row_leaf[dv] == leaf_on[dv]).to(torch.float32))
                 for dv in self.held)}
-        cols = []
+        parts = [[] for _ in self.mesh.devices]
         for j in range(len(self.cols)):
-            acc = None
             for i, devs in enumerate(self.mesh.devices):
                 dv = devs[j]
                 gw, hw, cw = (self._shard(x, i, dv) for x in w[dv])
@@ -209,13 +281,38 @@ class GspmdGrower(SplitLoop):
                         leaf_rows=self.counts[dv][self.held[dv].index(i)])
                 else:
                     part = hist_flat(self.slices[i][j], gw, hw, cw, B)
-                part = part.to(self.device)
-                acc = part if acc is None else acc + part
+                parts[i].append(part.to(self.device))
+        cat = lambda ps: ps[0] if len(ps) == 1 else torch.cat(ps)
+        if self.voting:
+            return self._unfold(torch.stack([cat(ps) for ps in parts]))
+        cols = []
+        for j in range(len(self.cols)):
+            acc = parts[0][j]
+            for i in range(1, len(parts)):
+                acc = acc + parts[i][j]
             cols.append(acc)
-        hist = cols[0] if len(cols) == 1 else torch.cat(cols)
-        if self.pack is None:
-            return hist
-        return unfold_packed_hist(hist, self.pack, self.cfg.max_bin)
+        hist = cat(cols)
+        if self.procs is not None and self.procs.axis == FEATURE_AXIS:
+            full = hist.new_zeros((self.n_cols, *hist.shape[1:]))
+            full[self.cols[0].start:self.cols[-1].stop] = hist
+            hist = self._reduce(full, "gather_columns")
+        elif self.procs is not None:
+            hist = self._reduce(hist, "hist")
+        return self._unfold(hist)
+
+    def _root_sums(self, gw: torch.Tensor, hw: torch.Tensor,
+                   cw: torch.Tensor):
+        """The root's sums: each batch shard's, added in shard order, then
+        across the processes that hold rows of their own; so one process
+        of two shards and two processes of one each add the same sums."""
+        n, acc = self.n_loc, None
+        for i in range(len(self.mesh.devices)):
+            part = torch.stack([x[i * n:(i + 1) * n].sum()
+                                for x in (gw, hw, cw)])
+            acc = part if acc is None else acc + part
+        if self.procs is not None and self.procs.axis == BATCH_AXIS:
+            acc = self._reduce(acc, "root_sums")
+        return acc[0], acc[1], acc[2]
 
     def start(self, gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
               meta: FeatureMeta, feat_valid: torch.Tensor) -> None:
@@ -238,7 +335,7 @@ class GspmdGrower(SplitLoop):
             self.counts[dv][:, 0].fill_(self.n_loc)
         self.start_counters()
         self.pool.reset(meta, feat_valid, self._measure(self.root_id),
-                        gw.sum(), hw.sum(), cw.sum())
+                        *self._root_sums(gw, hw, cw))
 
     def step(self) -> bool:
         """One split: the body of ``make_gspmd_grower``'s loop (:289) over
@@ -264,12 +361,13 @@ class GspmdGrower(SplitLoop):
 
     def loop(self, loop: Optional[str]) -> str:
         """The split loop a tree takes: ``graph`` (every mesh slot on one
-        card, ``hist="fused"``) or ``eager``; None takes the graph where
-        it can."""
+        card, ``hist="fused"``, one process: gloo's collectives cannot be
+        captured) or ``eager``; None takes the graph where it can."""
         return self.choose_loop(
             loop, self.device.type == "cuda" and len(self.held) == 1
-            and self.hist == "fused",
-            "with every mesh slot on one card and gspmd_hist=fused")
+            and self.hist == "fused" and self.procs is None,
+            "in one process with every mesh slot on one card and "
+            "gspmd_hist=fused")
 
     def __call__(self, gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
                  meta: FeatureMeta, feat_valid: torch.Tensor,

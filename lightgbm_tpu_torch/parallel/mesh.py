@@ -4,7 +4,8 @@ The port of the subset of ``lightgbm_tpu/parallel/mesh.py`` that the
 GSPMD learner and the streamed grower use: the axis names (:20-26),
 ``make_named_mesh`` (:65), ``MeshPlanError`` (:90),
 ``default_chunk_rows`` (:244), ``parse_mesh_shape`` (:377) and
-``pad_rows`` (:609).  A :class:`Mesh` is a
+``pad_rows`` (:609); and the bring-up of a training over several
+processes (:29, :430-580; below).  A :class:`Mesh` is a
 ``(data, feature)`` grid of ``torch.device``s: rows shard over ``batch``,
 the histogram's columns over ``feature``.
 
@@ -24,14 +25,32 @@ So ``mesh_devices=8, device=cpu`` is the stand-in for the JAX suite's
 eight virtual devices, and ``mesh_devices=4`` on one card puts four row
 shards on that card.  This is the only place the port departs from the
 JAX meaning of ``mesh_devices``, which caps the real devices used.
+
+**Several processes** (``num_machines > 1``, the reference's
+``machine_list_file`` of ``ip port`` lines): each process is one rank of a
+``torch.distributed`` process group at ``tcp://<machine 0's ip>:<its
+port>`` (:func:`init_distributed_from_config`), and holds its own mesh of
+slots, the same shape on every rank.  Its slots start at card
+``local_rank % cards`` (``local_rank``: the ranks before it on its host),
+and ``mesh_devices=0`` is one slot a process there.  The backend follows
+the layout and is never a fallback: gloo for CPU tensors; NCCL when every
+rank of a host has a card of its own; gloo carrying CUDA tensors when
+ranks share a card, which NCCL refuses.  Host objects always ride a gloo
+group (``parallel/sync.py``).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import datetime
+import os
+import socket
+from collections import Counter
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..utils import log
+from . import sync
 
 # GSPMD mesh axes: rows shard over ``batch``, the histogram pool over
 # ``feature``
@@ -59,17 +78,22 @@ class Mesh:
 
 
 def mesh_slots(mesh_devices: int, device: torch.device) -> List[torch.device]:
-    """The mesh slots for ``device``'s type (module docstring)."""
+    """This process's mesh slots for ``device``'s type (module
+    docstring): under several processes they start at the process's own
+    card, and ``mesh_devices=0`` is that one card."""
     if device.type == "cpu":
         return [torch.device("cpu")] * max(1, mesh_devices)
     cards = torch.cuda.device_count()
     if cards < 1:
         raise RuntimeError("no CUDA card is visible for the mesh")
-    k = mesh_devices or cards
+    # init_distributed_from_config made the process's card current
+    multi = sync.process_count() > 1
+    first = torch.cuda.current_device() if multi else 0
+    k = mesh_devices or (1 if multi else cards)
     if k > cards:
         log.warning("mesh_devices=%d over %d visible card(s): %d mesh "
                     "slots share each card", k, cards, -(-k // cards))
-    return [torch.device("cuda", s % cards) for s in range(k)]
+    return [torch.device("cuda", (first + s) % cards) for s in range(k)]
 
 
 def make_named_mesh(data: int, feature: int,
@@ -140,3 +164,105 @@ def default_chunk_rows(rows: int, requested: int = 0) -> int:
 def pad_rows(n: int, shards: int) -> int:
     """Rows padded so every shard gets an equal slice."""
     return (-n) % shards
+
+
+# ---- several processes (lightgbm_tpu/parallel/mesh.py:29, :430-580) ------
+
+
+def distributed_is_initialized() -> bool:
+    """Whether this process's group is up (:29)."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def shutdown_distributed() -> None:
+    """Tear the process group down (idempotent, :430)."""
+    if distributed_is_initialized():
+        dist.destroy_process_group()
+    sync.unbind()
+
+
+def parse_machine_list(path: str) -> List[Tuple[str, int]]:
+    """The reference's machine list (``src/network/linkers.cpp``): one
+    ``ip port`` pair a line (:482)."""
+    machines = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                machines.append((parts[0], int(parts[1])))
+    return machines
+
+
+def _local_rank(machines) -> Optional[int]:
+    """This process's rank in the machine list (:523): ``LGBM_TPU_RANK``
+    if set, else the one entry whose address is this host's (the
+    reference's rank discovery); None when several entries are."""
+    env = os.environ.get("LGBM_TPU_RANK")
+    if env is not None:
+        return int(env)
+    try:
+        local = {"127.0.0.1", "localhost", socket.gethostname(),
+                 socket.gethostbyname(socket.gethostname())}
+    except OSError:
+        local = {"127.0.0.1", "localhost"}
+    matches = [i for i, (ip, _) in enumerate(machines) if ip in local]
+    if len(matches) > 1:
+        return None
+    return matches[0] if matches else None
+
+
+def choose_backend(machines, rank: int, device: torch.device):
+    """``(backend, local_rank)`` for the layout (module docstring):
+    ``local_rank`` counts the ranks listed before this one on its host,
+    and NCCL is chosen only when every host lists no more ranks than this
+    host has cards, so each rank has a card of its own."""
+    ip = machines[rank][0]
+    local_rank = sum(1 for m_ip, _ in machines[:rank] if m_ip == ip)
+    if device.type == "cpu":
+        return "gloo", local_rank
+    per_host = max(Counter(m_ip for m_ip, _ in machines).values())
+    if per_host <= torch.cuda.device_count():
+        return "nccl", local_rank
+    return "gloo", local_rank
+
+
+def init_distributed_from_config(cfg) -> Optional[str]:
+    """Bring the process group up from ``num_machines`` and
+    ``machine_list_file`` (:545, the reference CLI's network bring-up):
+    machine 0's address and port are the rendezvous, the rank is
+    :func:`_local_rank`'s, the timeout ``collective_timeout``.  A card
+    training makes its card current first (``local_rank % cards``).
+    Returns the tensors' backend, or None with one machine; within a
+    process a second call returns the running group's backend."""
+    if cfg.num_machines <= 1:
+        return None
+    if distributed_is_initialized():
+        return dist.get_backend()
+    if not cfg.machine_list_file:
+        log.fatal("num_machines=%d but no machine_list_file given",
+                  cfg.num_machines)
+    machines = parse_machine_list(cfg.machine_list_file)[:cfg.num_machines]
+    if len(machines) < cfg.num_machines:
+        log.fatal("machine_list_file lists %d machines, num_machines=%d",
+                  len(machines), cfg.num_machines)
+    rank = _local_rank(machines)
+    if rank is None:
+        log.fatal("cannot determine this machine's rank: no local address "
+                  "in %s (set LGBM_TPU_RANK)", cfg.machine_list_file)
+    device = torch.device("cpu" if cfg.device == "cpu" else "cuda")
+    backend, local_rank = choose_backend(machines, rank, device)
+    if device.type == "cuda":
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+    address = f"tcp://{machines[0][0]}:{machines[0][1]}"
+    timeout = datetime.timedelta(seconds=float(cfg.collective_timeout))
+    log.info("Initializing process group: %d machines, rank %d (local rank "
+             "%d), %s, backend %s", len(machines), rank, local_rank, address,
+             backend)
+    sync.bind(None, cfg.collective_timeout)
+    sync._run("init_process_group", lambda: dist.init_process_group(
+        backend, init_method=address, world_size=len(machines), rank=rank,
+        timeout=timeout))
+    if backend != "gloo":
+        sync.bind(dist.new_group(backend="gloo", timeout=timeout),
+                  cfg.collective_timeout)
+    return backend

@@ -175,3 +175,44 @@ def test_prediction_and_file_keys_ported(key):
                                          name)
     assert getattr(tc.config_from_params({key: str(value).lower()}),
                    name) == value
+
+
+# the keys that the multi-process slice moved out of NOT_PORTED
+MOVED_MULTI = ("top_k", "is_pre_partition", "machine_list_file",
+               "collective_timeout")
+
+
+@pytest.mark.parametrize("key", sorted(
+    MOVED_MULTI + tuple(a for a, k in jc.PARAM_ALIASES.items()
+                        if k in MOVED_MULTI)))
+def test_multi_process_keys_ported(key):
+    """Each key of the voting and multi-process slice, and its alias, is
+    a field read as the JAX package reads it, its default the JAX
+    package's; ``collective_retries`` stays not ported, with the
+    supervisor (ROADMAP.md §1.6)."""
+    _check_ported(key)
+    assert tc.NOT_PORTED["collective_retries"][1].startswith(tc._SERVING)
+
+
+def _check_ported(key):
+    name = tc.PARAM_ALIASES.get(key, key)
+    assert _outcome(key) == ["ported"]
+    assert getattr(tc.Config(), name) == _jax_default(name)
+    value = _other_value(_jax_default(name))
+    cfg = tc.config_from_params({key: value})
+    assert getattr(cfg, name) == value
+    assert getattr(cfg, name) == getattr(jc.config_from_params({key: value}),
+                                         name)
+
+
+@pytest.mark.parametrize("params,message", [
+    ({"tree_learner": "data_feature", "num_machines": 2},
+     "data_feature is single-process"),
+    ({"collective_timeout": 0}, "collective_timeout must be positive"),
+    ({"tree_learner": "voting", "top_k": 0}, "top_k must be positive"),
+])
+def test_multi_process_values_checked(params, message):
+    """lightgbm_tpu/config.py:686-691 and :782, and a vote of at least one
+    feature."""
+    with pytest.raises(RuntimeError, match=message):
+        tc.config_from_params(params)

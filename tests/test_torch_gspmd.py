@@ -27,7 +27,8 @@ on the JAX side, ``mesh_devices=8`` CPU slots on the port's.
   evenly over the feature shards stay on the fused histogram (the JAX
   package downgrades them to flat; its TPU layout needs equal slices)
   and agree with the JAX learner, one slot falls back to serial with a
-  warning, and every value outside the slice raises NotImplementedError.
+  warning, and every value outside the slice (block-sharded bins, the
+  planner's ``mesh_shape=auto``) raises NotImplementedError.
 """
 import numpy as np
 import pytest
@@ -633,12 +634,9 @@ def test_one_slot_falls_back_to_serial(caplog):
 
 
 @pytest.mark.parametrize("params", [
-    dict(tree_learner="voting"),
-    dict(parallel_impl="shardmap"),
-    dict(num_machines=2),
     dict(shard_axes="batch,feature"),
     dict(mesh_shape="auto"),
-], ids=["voting", "shardmap", "num_machines", "block-shard", "mesh-auto"])
+], ids=["block-shard", "mesh-auto"])
 def test_values_outside_the_slice_raise(params):
     x, y = _task(n=500)
     with pytest.raises(NotImplementedError, match="multi-device learners"):

@@ -101,10 +101,10 @@ def test_predict_raises_without_card(no_card):
 
 
 @pytest.mark.parametrize("params", [
-    {"parallel_impl": "shardmap"},
-    {"tree_learner": "data", "num_machines": 2},
+    {"collective_retries": 5},
+    {"tree_learner": "voting", "mesh_devices": 2},
     {"shard_axes": "batch,feature"},
-    {"tree_learner": "voting"},
+    {"elastic_resume": True},
     {"tree_learner": "data", "mesh_devices": 2},
     {"hbm_budget": 1e9},
     {"telemetry": True},
