@@ -674,6 +674,7 @@ KERNELS = {"hist_window": ("hist_gather_small", "hist_gather_large"),
                                 "lgbt_partition_write"),
            "route_window": ("lgbt_route_kernel",),
            "route_rows": ("lgbt_route_rows",),
+           "route_rows_block": ("lgbt_block_route",),
            "cat_group_accept": ("lgbt_cat_group",)}
 
 
@@ -2230,6 +2231,188 @@ def check_route_rows_block(dev, rng):
     return timing
 
 
+# phase 2k's splits on the uint16 Higgs matrix: (feature, threshold,
+# default_left, categorical) on columns of each feature shard, past bin 255
+BLOCK_U16_SPLITS = {"c0": (0, 600, 1, False), "c9": (9, 300, 0, False),
+                    "c15": (15, 900, 1, False), "c22": (22, 50, 1, False),
+                    "c27_categorical": (27, 0, 0, True)}
+
+
+def block_table(bins, shape, dev):
+    """The block-sharded layout of ``bins`` (``[n, F]`` on the card) over
+    a ``(data, feature)`` cut, as one card holds every slot: each slot's
+    row-major slice and the route table (``ops/route.py:BlockBins``)."""
+    from lightgbm_tpu_torch.ops.histogram import movable
+    from lightgbm_tpu_torch.ops.route import make_block_bins
+    from lightgbm_tpu_torch.parallel.gspmd import column_slices
+    d, fs = shape
+    n, f = bins.shape
+    n_loc = n // d
+    cols = column_slices(f, fs)
+    slices = [[movable(bins)[i * n_loc:(i + 1) * n_loc, c.start:c.stop]
+               .contiguous().view(bins.dtype) for c in cols]
+              for i in range(d)]
+    return make_block_bins(slices, [c.start for c in cols] + [f], dev), cols
+
+
+def block_sectors(rl, leaf, cols, c, d, n_loc, bin_bytes) -> int:
+    """The 32-byte sectors of column ``c``'s bins at the rows of ``leaf``
+    in the slices that own it (each slot's row-major slice, ``w_j`` bins a
+    row)."""
+    j = next(k for k, r in enumerate(cols) if c in r)
+    total = 0
+    for i in range(d):
+        rows = (rl[i * n_loc:(i + 1) * n_loc] == leaf).nonzero().view(-1)
+        total += route_sectors(rows, c - cols[j].start, len(cols[j]), 1,
+                               bin_bytes)
+    return total
+
+
+def check_block_route(dev, rng):
+    """Phase 2k: the block-sharded form of ``route_rows``
+    (``route_rows_block``, ``csrc/route.cu`` lgbt_block_route) against
+    its plain version on the same slices, bit for bit (map and counts),
+    and against the counts of the map it leaves.  At a 2x2 and a 1x4 cut
+    of 1,000,000 x 28: uint8 bins with a split on every column (so the
+    column owned by each feature shard in turn, every missing type), a
+    uint16 matrix of 1,023 bins with splits past bin 255 on columns of
+    each shard and a categorical one, and the Covertype layout's bundled
+    12 columns (bundle slots decoded); from a leaf of many rows, the root,
+    an absent leaf and the sink, which move nothing.  Times at the 2x2
+    cut (the root, and a leaf of about 1,000 rows; new = leaf so that a
+    call repeats) beside the plain version, with the sector bound."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta
+    from lightgbm_tpu_torch.ops.route import (route_rows_block,
+                                              route_rows_block_plain)
+    L = 255
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def plain_meta(f, nb):
+        return FeatureMeta(i32([nb] * f), i32([k % 3 for k in range(f)]),
+                           i32([(37 * k) % nb for k in range(f)]))
+
+    def counts_of(rl, d):
+        return torch.stack([torch.bincount(r.long(), minlength=L + 1).int()
+                            for r in rl.view(d, -1)])
+
+    def pool(split, leaf, width):
+        si = np.zeros((L + 1, 3), np.int32)
+        cat = np.zeros(L + 1, bool)
+        si[leaf], cat[leaf] = split[:3], split[3]
+        si[L] = (-1, 0, 0)
+        return (torch.from_numpy(si).to(dev), torch.from_numpy(cat).to(dev),
+                torch.from_numpy(rng.random((L + 1, width)) < 0.5).to(dev))
+
+    every_col = {f"c{c}": (c, 40 + 7 * c, c % 2, False)
+                 for c in range(N_FEAT)}
+    sets = {
+        "higgs_u8": (N_FEAT, np.uint8, N_BINS, False, every_col),
+        "higgs_u16": (N_FEAT, np.uint16, WIDE_BINS, False,
+                      BLOCK_U16_SPLITS),
+        "covtype_bundled": (COVTYPE_COLS, np.uint8, N_BINS, True,
+                            BUNDLED_SPLITS)}
+    checked = moved_total = 0
+    kept = None
+    for label, (f, dtype, nb, bundled, splits) in sets.items():
+        if bundled:
+            host = covtype_bundled_bins(N_ROWS, rng)
+            meta = covtype_bundle_meta(dev)
+        else:
+            host = rng.integers(0, nb, (N_ROWS, f)).astype(dtype)
+            meta = plain_meta(f, nb)
+        bins = torch.from_numpy(host).to(dev)
+        del host
+        skewed = torch.from_numpy(rng.integers(0, 4, N_ROWS).astype(
+            np.int32)).to(dev)
+        root = torch.zeros(N_ROWS, dtype=torch.int32, device=dev)
+        for shape in ((2, 2), (1, 4)):
+            d, set_moved = shape[0], 0
+            block, cols = block_table(bins, shape, dev)
+            cases = [(f"{name}_{where}", m, leaf, new, split)
+                     for k, (name, split) in enumerate(splits.items())
+                     for where, m, leaf, new in (
+                         ("many", skewed, k % 4, L - 1), ("root", root, 0, 1))]
+            first = next(iter(splits.values()))
+            cases += [("absent", skewed, L - 2, L - 1, first),
+                      ("sink", skewed, L, L, first)]
+            for case, rl0, leaf, new, split in cases:
+                si, cat, catb = pool(split, leaf, nb)
+                lt, nt = i32([leaf]).long(), i32([new]).long()
+                out = {}
+                for kind, fn in (("kernel", route_rows_block),
+                                 ("plain", route_rows_block_plain)):
+                    rl, cnt = rl0.clone(), counts_of(rl0, d)
+                    fn(rl, block, lt, nt, si, cat, catb, meta, cnt)
+                    out[kind] = (rl, cnt)
+                torch.cuda.synchronize()
+                (rk, ck), (rp, cp) = out["kernel"], out["plain"]
+                if not (torch.equal(rk, rp) and torch.equal(ck, cp)):
+                    fail(f"route_rows_block != plain at {label} {shape} "
+                         f"{case}: {int((rk != rp).sum())} rows differ")
+                if not torch.equal(ck, counts_of(rk, d)):
+                    fail(f"route_rows_block counts != the map's at {label} "
+                         f"{shape} {case}")
+                moved = int((rk != rl0).sum())
+                if case in ("absent", "sink") and moved:
+                    fail(f"route_rows_block moved {moved} rows at {label} "
+                         f"{shape} {case}")
+                moved_total += moved
+                set_moved += moved
+                checked += 1
+            if not set_moved:
+                fail(f"route_rows_block moved no row at {label} {shape}")
+            if label == "higgs_u8" and shape == (2, 2):
+                kept = (bins, block, cols, skewed, meta)
+        del bins, skewed, root
+    phase("block_route_vs_plain", sets=",".join(sets), cuts="2x2,1x4",
+          rows=N_ROWS, cases=checked, rows_moved=moved_total, exact=True)
+
+    bins, block, cols, skewed, meta = kept
+    n, f = bins.shape
+    d = 2
+    sizes = np.bincount(skewed.cpu().numpy(), minlength=4)
+    small_map = skewed.clone()
+    # a leaf of about 1,000 rows: 1,000 rows of leaf 0 moved to leaf 5
+    idx = torch.nonzero(small_map == 0).view(-1)[::max(1, int(
+        sizes[0]) // 1000)][:1000]
+    small_map[idx] = 5
+    split = every_col["c20"]
+    timing = {}
+    for label, m, leaf in (("root", torch.zeros_like(skewed), 0),
+                           ("leaf_1000", small_map, 5)):
+        rl = m.clone()
+        si, cat, catb = pool(split, leaf, N_BINS)
+        lt = i32([leaf]).long()
+        cnt = counts_of(rl, d)
+        probe = rl.clone()
+        route_rows_block_plain(probe, block, lt, i32([L - 1]).long(), si,
+                               cat, catb, meta, cnt.clone())
+        moved = int((probe != rl).sum())
+        k = three_times(lambda: route_rows_block(rl, block, lt, lt, si, cat,
+                                                 catb, meta, cnt))
+        p_ms = cuda_ms(lambda: route_rows_block_plain(
+            rl, block, lt, lt, si, cat, catb, meta, cnt), reps=3)
+        if not torch.equal(rl, m):
+            fail(f"route_rows_block with new = leaf changed the map at "
+                 f"{label}")
+        sectors = block_sectors(rl, leaf, cols, split[0], d, n // d, 1)
+        bound_ms = route_block_bound_ms(n, sectors, moved, N_BINS)
+        timing[label] = dict(k, plain_ms=p_ms, bound_ms=bound_ms,
+                             leaf_rows=int((rl == leaf).sum()), moved=moved,
+                             sectors=sectors)
+        phase("block_route_time", leaf=label, cut=f"2x2 of {n}x{f}",
+              leaf_rows=timing[label]["leaf_rows"], moved=moved,
+              sectors=sectors,
+              **{k_: f"{v:.4f}" for k_, v in timing[label].items()
+                 if isinstance(v, float) and "bound" not in k_},
+              bound_ms=f"{bound_ms:.5f}",
+              bound_share=f"{bound_ms / k['device_ms']:.3f}"
+              if k["device_ms"] else "not measured")
+    del kept, bins, block
+    return timing
+
+
 def empty_launch_cost(dev, rng):
     """Phase 2f: what the captured step's gated launches cost at the Expo
     path's 11,000,000 rows and 8 columns.  The step knows the window's
@@ -2464,11 +2647,13 @@ def _kernel_wrappers():
     from lightgbm_tpu_torch.ops.histogram import hist_local, hist_window
     from lightgbm_tpu_torch.ops.lambdarank import lambdarank_grad
     from lightgbm_tpu_torch.ops.partition import partition_window
-    from lightgbm_tpu_torch.ops.route import route_rows, route_window
+    from lightgbm_tpu_torch.ops.route import (route_rows, route_rows_block,
+                                              route_window)
     from lightgbm_tpu_torch.ops.split import cat_group_accept
     return {f.__name__: f for f in (hist_window, hist_local, partition_window,
                                     route_window, route_rows,
-                                    cat_group_accept, lambdarank_grad)}
+                                    route_rows_block, cat_group_accept,
+                                    lambdarank_grad)}
 
 
 def auc_quality(bst, pred, x_te, y_te) -> dict:
@@ -2510,6 +2695,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
     if valid:
         kw["valid_sets"] = [ds.create_valid(x_te, y_te)]
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     for fn in fns.values():
         fn.launches = 0
         for k in getattr(fn, "regime_launches", {}):
@@ -2552,6 +2738,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
     # the graph loop: the serial grower's with compact, the data-parallel
     # learner's with the shard-local kernel and every slot on one card
     holders = len(bst.inner._gspmd.held) if shards else 0
+    block = bool(shards) and bst.inner._gspmd.block is not None
     can_graph = (compact if not shards else
                  bst.inner.gspmd_hist == "fused" and holders == 1)
     if graph != can_graph:
@@ -2570,7 +2757,8 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
                            if bst.inner.gspmd_hist == "fused" else 0),
             "partition_window": steps if compact and not shards else 0,
             "route_window": 0 if shards else steps,
-            "route_rows": holders * steps,
+            "route_rows": 0 if block else holders * steps,
+            "route_rows_block": holders * steps if block else 0,
             "cat_group_accept": trees + steps if categorical else 0,
             "lambdarank_grad": (rounds_run if params["objective"]
                                 == "lambdarank" else 0)}
@@ -2610,7 +2798,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
                host_syncs_per_split=f"{stats['host_syncs'] / splits:.4f}",
                host_syncs_per_tree=f"{syncs_per_tree:.3f}",
                peak_mem_bytes=peak, predict_s=f"{t_pred:.3f}",
-               **held_out)
+               **memory_fields(bst, peak, base), **held_out)
     if not profile:
         return out, bst, ds
 
@@ -2672,6 +2860,251 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
     out["device_busy_share"] = (f"{all_ms / (wall * 1e3):.4f}" if all_ms
                                 else "not measured")
     return out, bst, ds
+
+
+def memory_fields(bst, peak: int, base: int) -> dict:
+    """The memory model (``obs/memory.py``) against the card for a
+    training just run: the prediction at the layout it planned, with its
+    valid sets, beside the training's own peak, ``max_memory_allocated``
+    since the reset (``peak``) less what was allocated at the reset
+    (``base``: earlier phases' tensors) plus the Dataset's matrix, which
+    was on the card before the reset and which the model counts; and the
+    census of the resident terms' tensors against the model's resident
+    bytes, term by term."""
+    from lightgbm_tpu_torch.obs import memory
+    from lightgbm_tpu_torch.parallel import mesh as mesh_mod
+    inner = bst.inner
+    layout = dict(inner.plan.layout, valid_rows=sum(
+        vs.data.num_data for vs in inner.valid_sets))
+    pred = mesh_mod.predict_hbm(**layout)
+    census = memory.live_census(bst)
+    own = (inner.bins.numel() * inner.bins.element_size()
+           if inner.bins is not None and inner.bins.is_cuda else 0)
+    measured = peak - base + own
+    return dict(
+        mem_training_peak_bytes=measured,
+        mem_predicted_peak_bytes=pred["peak_bytes"],
+        mem_ratio=f"{pred['peak_bytes'] / max(measured, 1):.4f}",
+        mem_predicted_resident_bytes=pred["resident_bytes"],
+        mem_census_bytes=sum(census.values()),
+        mem_census_equal=census == pred["residents"],
+        mem_census_diff=";".join(
+            f"{k}:{census.get(k, 0)}/{v}" for k, v in
+            {**{k: 0 for k in census}, **pred["residents"]}.items()
+            if census.get(k, 0) != v) or "none",
+        mem_transients=";".join(f"{k}:{v}" for k, v in
+                                pred["transients"].items()),
+        mem_base_bytes=base, mem_layout=(
+            f"{inner.plan.learner}:{layout.get('data_shards', 1)}x"
+            f"{layout.get('feature_shards', 1)}"
+            + (":block" if layout.get("block_shard_bins") else "")
+            + (f":chunk{layout['stream_chunk_rows']}"
+               if layout.get("stream_chunk_rows") else "")))
+
+
+# phase 23a's paths: (label, phase, where its numbers are in ``runs``)
+MODEL_PATHS = ("3b higgs_compact", "5 expo", "6 dp_4x1", "8 mslr_packed",
+               "9 covtype_bundled", "18 higgs_1023", "18 higgs_1023_dp_4x1",
+               "19 expo_wide", "20b mslr_streamed", "21b mslr_data_4x1",
+               "21b mslr_voting_4x1")
+# the band phase 23a holds the predicted peak to, over the measured
+MODEL_BAND = (1.0, 1.3)
+
+
+def model_vs_card(runs: dict) -> dict:
+    """Phase 23a: for every path the smoke profiles, the memory model's
+    predicted peak against the training's measured peak
+    (:func:`memory_fields`, taken when the path ran: no new training),
+    their ratio held to :data:`MODEL_BAND`, and the census of the resident
+    terms' tensors equal to the model's resident bytes."""
+    bad = []
+    out = {}
+    for label in MODEL_PATHS:
+        r = runs[label]
+        ratio = float(r["mem_ratio"])
+        phase("model_vs_card", path=label.replace(" ", ":"),
+              layout=r["mem_layout"],
+              predicted_peak_bytes=r["mem_predicted_peak_bytes"],
+              measured_peak_bytes=r["mem_training_peak_bytes"],
+              max_memory_allocated=r["peak_mem_bytes"],
+              allocated_at_reset=r["mem_base_bytes"], ratio=r["mem_ratio"],
+              predicted_resident_bytes=r["mem_predicted_resident_bytes"],
+              census_bytes=r["mem_census_bytes"],
+              census_equal=r["mem_census_equal"],
+              census_diff=r["mem_census_diff"],
+              transients=r["mem_transients"])
+        out[label] = ratio
+        if not MODEL_BAND[0] <= ratio <= MODEL_BAND[1]:
+            bad.append(f"{label}: predicted/measured {ratio}")
+        if not r["mem_census_equal"]:
+            bad.append(f"{label}: census != resident terms "
+                       f"({r['mem_census_diff']})")
+    if bad:
+        fail(f"the memory model against the card: {bad}")
+    return out
+
+
+def planned_layout(params, ds) -> dict:
+    """The memory model's keywords of a training of ``params`` on ``ds``,
+    as ``train`` plans it on the card (``boosting.plan_training``), with
+    no training and nothing moved to the card."""
+    from lightgbm_tpu_torch.boosting import plan_training
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.objectives import create_objective
+    cfg = config_from_params(params)
+    return dict(plan_training(cfg, ds.constructed,
+                              create_objective(cfg)).layout)
+
+
+def chunked_rung(params, ds, y, tree20a) -> dict:
+    """Phase 23b: the Higgs Dataset (1,000,000 x 28, its matrix off the
+    card) by ``data_stream=auto`` with ``hbm_budget`` halfway between the
+    model's resident peak and its streamed peak at the default block, 3
+    rounds: the walk chooses the streamed rung at the default block, the
+    training's peak stays under the budget, and the streamed grower it
+    built grows phase 20a's integer-gradient tree, field by field and in
+    the row -> leaf map."""
+    import torch
+    from lightgbm_tpu_torch import train
+    from lightgbm_tpu_torch.parallel import mesh as mesh_mod
+    p = dict(params, min_sum_hessian_in_leaf=10.0, ordered_bins="off")
+    ds.bins = None
+    layout = planned_layout(p, ds)
+    chunk = mesh_mod.default_chunk_rows(len(y))
+    res = mesh_mod.predict_hbm(**layout)["peak_bytes"]
+    streamed = mesh_mod.predict_hbm(**dict(
+        layout, stream_chunk_rows=chunk))["peak_bytes"]
+    budget = (res + streamed) // 2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bst = train(dict(p, data_stream="auto", hbm_budget=budget), ds,
+                num_boost_round=3, verbose_eval=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    peak = torch.cuda.max_memory_allocated() - base
+    inner = bst.inner
+    pl = inner.placement
+    out = dict(budget_bytes=budget, resident_predicted_bytes=res,
+               streamed_predicted_bytes=streamed, mode=pl.mode,
+               chunk_rows=pl.chunk_rows, reason=repr(pl.reason),
+               measured_peak_bytes=peak, ms_per_tree=f"{ms:.2f}")
+    if pl.mode != "chunked" or pl.chunk_rows != chunk \
+            or inner._streamed is None or ds.bins is not None:
+        fail(f"chunked rung: the walk chose {pl.mode} ({pl.reason})")
+    if peak > budget:
+        fail(f"chunked rung: measured peak {peak} over hbm_budget {budget}")
+    g, h, c, meta, fv, want = tree20a
+    tree, rl = inner._streamed(g, h, c, inner.meta, fv, {})
+    got = {k: v.cpu().numpy() for k, v in tree._asdict().items()
+           if isinstance(v, torch.Tensor)}
+    bad = [k for k in want[0] if not np.array_equal(want[0][k], got[k])]
+    if bad or tree.num_leaves != want[2] or not np.array_equal(
+            rl.cpu().numpy(), want[1]):
+        fail(f"chunked rung: the integer tree != phase 20a's in "
+             f"{bad or 'num_leaves/row_leaf'}")
+    out["tree_identical_to_20a"] = True
+    phase("chunked_rung", **out)
+    del bst
+    torch.cuda.empty_cache()
+    return out
+
+
+def planner_rung(rank_params, ds, x_tr, y_tr, x_te, y_te, sizes_te,
+                 names) -> dict:
+    """Phase 23c: phase 8's Dataset unpacked (``enable_bin_packing=false``:
+    2,270,296 x 137 uint8) by ``mesh_shape=auto`` over 4 mesh slots on the
+    one card, 3 rounds through :func:`train_path` (kernel counts and
+    launch checks), with ``hbm_budget`` halfway between the model's 2x2
+    replicated and 2x2 block-sharded peaks of the card.  The learner is
+    ``data_feature``, whose walk starts at the square 2x2 (``prefer``
+    square): under ``tree_learner=data`` the walk starts at 4x1, whose one
+    copy of the bins (its column-major route copy) is as large as the
+    block-sharded slices and fits that budget first, as the plan printed
+    beside shows.  The walk chooses 2x2 with block-sharded bins, no card
+    holds a route copy, the measured peak stays under the budget, and the
+    held-out NDCG@1/3/5/10 are printed."""
+    import torch
+    from lightgbm_tpu_torch.parallel import mesh as mesh_mod
+    p = dict(rank_params, tree_learner="data_feature",
+             mesh_devices=MESH_SLOTS, mesh_shape="auto",
+             enable_bin_packing=False)
+    layout = planned_layout(dict(p, mesh_shape="2x2"), ds)
+    for k in ("data_shards", "feature_shards", "block_shard_bins"):
+        layout.pop(k)
+    peak = lambda d, f, b: mesh_mod.predict_hbm(**dict(
+        layout, data_shards=d, feature_shards=f,
+        block_shard_bins=b))["peak_bytes"]
+    repl, block = peak(2, 2, False), peak(2, 2, True)
+    budget = (repl + block) // 2
+    as_data = mesh_mod.plan_mesh(MESH_SLOTS, capacity=budget,
+                                 prefer="data", **layout)
+    quality = lambda b, pred, x, y: {
+        f"heldout_ndcg@{k}": f"{v:.6f}" for k, v in zip(
+            MSLR_EVAL_AT, ndcg_at(pred, y, sizes_te, list(MSLR_EVAL_AT)))}
+    torch.cuda.empty_cache()
+    res, bst, _ = train_path("mslr_planner", dict(p, hbm_budget=budget),
+                             x_tr, y_tr, x_te, y_te, 3, names,
+                             quality=quality, ds=ds, profile=False)
+    plan = bst.inner.mesh_plan
+    g = bst.inner._gspmd
+    measured = res["mem_training_peak_bytes"]
+    out = dict(budget_bytes=budget, predicted_2x2_replicated_bytes=repl,
+               predicted_2x2_block_bytes=block,
+               predicted_4x1_bytes=peak(4, 1, False),
+               plan=f"{plan.data}x{plan.feature}"
+               + (":block" if plan.block_shard_bins else ""),
+               reason=repr(plan.reason),
+               tree_learner_data_plan=f"{as_data.data}x{as_data.feature}"
+               + (":block" if as_data.block_shard_bins else ""),
+               measured_peak_bytes=measured,
+               route_copy=g.route_bins is not None,
+               **{k: v for k, v in res.items() if k in (
+                   "ms_per_tree", "loop", "route_rows_block_launches",
+                   "route_rows_launches", "hist_local_launches",
+                   "mem_predicted_peak_bytes", "mem_ratio",
+                   "mem_census_equal") or k.startswith("heldout_ndcg")})
+    phase("planner_rung", **out)
+    if (plan.data, plan.feature, plan.block_shard_bins) != (2, 2, True) \
+            or g.route_bins is not None:
+        fail(f"planner rung: the walk chose {out['plan']} ({plan.reason})")
+    if measured > budget:
+        fail(f"planner rung: measured peak {measured} over hbm_budget "
+             f"{budget}")
+    if not res["route_rows_block_launches"]:
+        fail("planner rung: the block route was launched no time")
+    del bst, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def refused_walk(params, ds) -> dict:
+    """Phase 23e: a budget below every rung of the walk (resident, every
+    streamed block size, the meshes over 4 slots): ``MeshPlanError`` is
+    raised before the Dataset's matrix reaches the card, so
+    ``memory_allocated`` is the same before and after the call."""
+    import torch
+    from lightgbm_tpu_torch import train
+    from lightgbm_tpu_torch.parallel.mesh import MeshPlanError
+    ds.bins = None
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    msg = None
+    try:
+        train(dict(params, hbm_budget=1_000_000, mesh_devices=MESH_SLOTS),
+              ds, num_boost_round=1, verbose_eval=False)
+    except MeshPlanError as e:
+        msg = str(e)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    out = dict(raised=msg is not None, allocated_before=before,
+               allocated_after=after, message=repr((msg or "")[:160]))
+    phase("refused_walk", **out)
+    if msg is None or after != before or ds.bins is not None:
+        fail(f"refused walk: raised={msg is not None}, memory_allocated "
+             f"{before} -> {after}")
+    return out
 
 
 def partition_ab(params, ds):
@@ -2769,7 +3202,8 @@ def grower_card_vs_cpu(params, x, y, name="expo_grower_card_vs_cpu"):
 
 
 def gspmd_trees_identical(ds, y, graph: bool = True,
-                          shapes=((4, 1), (2, 2), (1, 3))):
+                          shapes=((4, 1), (2, 2), (1, 3)),
+                          block: bool = False):
     """Phase 6c: one tree of the Higgs path under integer-valued gradients
     and hessians, whose sums are exact in any order, grown on the 4x1, 2x2
     and 1x3 meshes (1x3: uneven slices of 10, 9 and 9 columns) with the
@@ -2781,7 +3215,12 @@ def gspmd_trees_identical(ds, y, graph: bool = True,
     three trees after its capture run under
     ``torch.cuda.set_sync_debug_mode("error")``, so any read to the host
     but the counted stop reads raises, and are timed beside two eager
-    trees (in turns: eager, graph x 3, eager)."""
+    trees (in turns: eager, graph x 3, eager).  Phase 23d runs it with
+    ``block`` (``shard_axes=batch,feature``: each slot holds only its
+    column slice, routing reads the owner's through ``route_rows_block``)
+    over 2x2, and profiles one more graph tree: the block route's
+    launches on the card, one a step, and its device ms a tree.  Returns
+    the last shape's numbers."""
     import torch
     from lightgbm_tpu_torch.grower import FeatureMeta, GrowerConfig, grow_tree
     from lightgbm_tpu_torch.parallel.gspmd import GspmdGrower
@@ -2817,7 +3256,7 @@ def gspmd_trees_identical(ds, y, graph: bool = True,
     for shape in shapes:
         mesh = make_named_mesh(*shape, slots)
         growers = {loop: GspmdGrower(cfg, mesh, ds.bins,
-                                     n_logical=n_logical)
+                                     n_logical=n_logical, block_shard=block)
                    for loop in (("eager", "graph") if graph else ("eager",))}
         stats = {loop: {} for loop in growers}
         ms = {loop: [] for loop in growers}
@@ -2870,7 +3309,36 @@ def gspmd_trees_identical(ds, y, graph: bool = True,
                      f"host reads in {len(ms[loop])} trees")
         if graph and growers["graph"].graph is None:
             fail(f"{shape}: the graph loop captured no step")
+        if block:
+            # one more graph tree under the profiler: the block route runs
+            # once a step taken, and the column-major route never
+            st = stats["graph"]
+            steps0 = st["steps"]
+            wall, per, all_ms, _, _, ran = device_ms(
+                lambda: growers["graph"](g, h, c, meta, fv, st, "graph"),
+                ("lgbt_block_route",))
+            steps = st["steps"] - steps0
+            out.update(block=True, route_copy=growers["graph"].route_bins
+                       is not None, profiled_steps=steps,
+                       block_route_launches_per_tree=ran["lgbt_block_route"],
+                       route_rows_launches_per_tree=ran["lgbt_route_rows"],
+                       block_route_device_ms_per_tree=(
+                           f"{per['lgbt_block_route']:.3f}"),
+                       device_ms_per_tree=f"{all_ms:.3f}",
+                       profiled_ms_per_tree=f"{wall * 1e3:.2f}")
+            if (ran["lgbt_block_route"] != steps or ran["lgbt_route_rows"]
+                    or out["route_copy"]):
+                fail(f"{shape} block-sharded: {ran['lgbt_block_route']} "
+                     f"block route launches for {steps} steps, "
+                     f"{ran['lgbt_route_rows']} column-major ones")
+            phase("block_route_tree", **{k: out[k] for k in (
+                "mesh", "route_copy", "profiled_steps",
+                "block_route_launches_per_tree",
+                "route_rows_launches_per_tree",
+                "block_route_device_ms_per_tree", "device_ms_per_tree",
+                "profiled_ms_per_tree")})
         del growers
+    return out
 
 
 def flat_vs_fused(params, x, y, x_te):
@@ -3586,6 +4054,9 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     voting = mslr_voting(rank_params, ds, x_tr, y_tr, x_te, y_te, sizes_te,
                          names)
     torch.cuda.empty_cache()
+    # ---- phase 23c: the mesh planner at full width -------------------------
+    planner = planner_rung(rank_params, ds, x_tr, y_tr, x_te, y_te, sizes_te,
+                           names)
     same["integer_round_identical"] = integer_round_identical(
         "mslr_packed_vs_cut", [(rank_params, ds), (dict(
             rank_params, enable_bin_packing=False), ds), (dp_params, ds)])
@@ -3620,7 +4091,7 @@ def rank_path(params, names, rng, q_train=Q_MSLR, n_train=N_MSLR,
     streamed = mslr_streamed(rank_params, ds, x_te, y_te, sizes_te, rate)
     rank = dict(rank, **rank_ds, packed_check=packed_check,
                 cut=dict(cut, **cut_ds), dp_4x1=dp, streamed=streamed,
-                voting=voting)
+                voting=voting, planner=planner)
     del ds
     torch.cuda.empty_cache()
     return rank, lam, (x_te, y_te, sizes_te)
@@ -5328,12 +5799,13 @@ def link_fields(rate: float, passes: int, nbytes: int, trees: int,
 
 
 def streamed_tree_vs_resident(name, ds, y, chunks, rate, checks=True,
-                              **cfg_kw):
+                              keep=None, **cfg_kw):
     """Phases 20a and 20c's tree: one tree under integer-valued gradients
     (sums exact in any order) grown by the resident graph loop and by the
     streamed grower over the Dataset's matrix in page-locked memory at
     each block size of ``chunks``: identical field by field and in the
-    row -> leaf map.  With ``checks``, at the first block size a second
+    row -> leaf map (its gradients, meta, mask and tree appended to
+    ``keep`` when given).  With ``checks``, at the first block size a second
     streamed tree runs under ``torch.cuda.set_sync_debug_mode("error")``
     (its one host read a split is an event wait, which the mode does not
     flag) and a third is profiled; ms a tree, blocks, bytes and host
@@ -5451,6 +5923,9 @@ def streamed_tree_vs_resident(name, ds, y, chunks, rate, checks=True,
             out.update(sync_checked_trees=1, **prof)
         del grower
     out["identical_to_resident_graph"] = True
+    if keep is not None:
+        # phase 23b grows this tree again by the placement's streamed rung
+        keep.extend([g, h, c, meta, fv, want])
     del pinned
     torch.cuda.empty_cache()
     return out
@@ -5480,6 +5955,7 @@ def stream_train(name, params, ds, x_te, y_te, rounds, quality, rate,
         fail(f"{name}: the Dataset's matrix is on the card before training")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     for fn in fns.values():
         fn.launches = 0
         for k in getattr(fn, "regime_launches", {}):
@@ -5548,7 +6024,7 @@ def stream_train(name, params, ds, x_te, y_te, rounds, quality, rate,
                hist_local_calls_per_tree=f"{raw['hist_local'] / trees:g}",
                hist_local_launches_per_tree=(
                    f"{2 * raw['hist_local'] / trees:g}"),
-               peak_mem_bytes=peak,
+               peak_mem_bytes=peak, **memory_fields(bst, peak, base),
                downgrades=";".join(d["requested"] for d in inner.downgrades),
                **link_fields(rate, passes, store.nbytes, trees, ms_tree),
                **quality(bst, pred, x_te, y_te), **prof)
@@ -6051,6 +6527,10 @@ def main() -> None:
     block_timing = check_route_rows_block(dev, rng)
     torch.cuda.empty_cache()
 
+    # ---- phase 2k: the block-sharded route kernel -------------------------
+    sharded_timing = check_block_route(dev, rng)
+    torch.cuda.empty_cache()
+
     # ---- phase 2i: every kernel on a uint16 bin matrix --------------------
     wide = check_wide_kernels(dev, rng)
 
@@ -6060,7 +6540,8 @@ def main() -> None:
     x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
     x_te, y_te = x_all[N_ROWS:], y_all[N_ROWS:]
     names = ("hist_gather", "hist_local", "lgbt_partition", "lgbt_cat_group",
-             "lgbt_route_kernel", "lgbt_route_rows", "lgbt_lambdarank")
+             "lgbt_route_kernel", "lgbt_route_rows", "lgbt_block_route",
+             "lgbt_lambdarank")
     # scatter: the eager loop, one host read a split
     higgs, _, higgs_ds = train_path(
         "higgs", dict(params, partition_impl="scatter"), x_tr, y_tr, x_te,
@@ -6126,10 +6607,22 @@ def main() -> None:
 
     # ---- phase 20a: streamed trees of the Higgs path ----------------------
     rate = h2d_rate(dev)
+    tree20a = []
     higgs_stream = streamed_tree_vs_resident(
         "higgs_streamed", higgs_ds, y_tr, (100_000, 333_334), rate,
-        ordered_bins="off")
+        ordered_bins="off", keep=tree20a)
     phase("higgs_streamed_trees", **higgs_stream)
+    torch.cuda.empty_cache()
+
+    # ---- phase 23d: block-sharded bins on the graph loop, 2x2 -------------
+    block_tree = gspmd_trees_identical(higgs_ds, y_tr, shapes=((2, 2),),
+                                       block=True)
+    torch.cuda.empty_cache()
+    # ---- phase 23b: the placement walk's streamed rung ---------------------
+    chunked = chunked_rung(params, higgs_ds, y_tr, tree20a)
+    del tree20a
+    # ---- phase 23e: a budget below every rung ------------------------------
+    refused_walk(params, higgs_ds)
     del higgs_ds
     flat_vs_fused(dict(dp_params, mesh_shape="4x1"), x_tr[:sub], y_tr[:sub],
                   x_te[:sub])
@@ -6255,6 +6748,14 @@ def main() -> None:
     # ---- phase 20c: the Expo-shaped task streamed -------------------------
     expo_stream = expo_streamed(expo_params, *expo_stream_kept, rate)
     del expo_stream_kept
+    # ---- phase 23a: the memory model against the card ---------------------
+    model_vs_card({
+        "3b higgs_compact": compact, "5 expo": expo, "6 dp_4x1": dp,
+        "8 mslr_packed": mslr, "9 covtype_bundled": cov,
+        "18 higgs_1023": wide_serial, "18 higgs_1023_dp_4x1": wide_dp,
+        "19 expo_wide": wide_expo, "20b mslr_streamed": mslr["streamed"],
+        "21b mslr_data_4x1": mslr["voting"]["data"],
+        "21b mslr_voting_4x1": mslr["voting"]["voting"]})
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}",
           higgs_ms_per_tree_scatter=higgs["ms_per_tree"],
           higgs_ms_per_tree_compact=compact["ms_per_tree"],
@@ -6286,7 +6787,10 @@ def main() -> None:
           mslr_data_4x1_ms_per_tree=mslr["voting"]["data"]["ms_per_tree"],
           two_processes_data_ms_per_tree=procs["data_ms_per_tree"],
           two_processes_voting_ms_per_tree=procs["voting_ms_per_tree"],
-          two_processes_feature_ms_per_tree=procs["feature_ms_per_tree"])
+          two_processes_feature_ms_per_tree=procs["feature_ms_per_tree"],
+          block_sharded_graph_ms_per_tree=block_tree["graph_ms_per_tree"],
+          chunked_rung_ms_per_tree=chunked["ms_per_tree"],
+          planner_rung_ms_per_tree=mslr["planner"]["ms_per_tree"])
     u16 = lambda name: wide_kernel_fields(name, wide, wide_serial, wide_dp,
                                           wide_expo)
 
@@ -6402,7 +6906,24 @@ def main() -> None:
             "column_major_ms_many", "column_major_device_ms",
             "column_major_bound_ms", "sectors")},
         **{f"{k}_leaf_1000": v
-           for k, v in block_timing["leaf_1000"].items()}}]}),
+           for k, v in block_timing["leaf_1000"].items()}}, {
+        "name": "route_rows_block_sharded", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/route.cu",
+        "replaces": "lightgbm_tpu/parallel/gspmd.py:305",
+        # phase 23c's planned training (MS-LTR over 2x2, block-sharded);
+        # phase 23d's profiled graph tree beside it
+        "launches": mslr["planner"]["route_rows_block_launches"],
+        "launches_23d_profiled_tree": block_tree[
+            "block_route_launches_per_tree"],
+        "max_abs_err": 0.0, "ms": sharded_timing["root"]["ms"],
+        "plain_ms": sharded_timing["root"]["plain_ms"],
+        "bound_ms": sharded_timing["root"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        **{k: v for k, v in sharded_timing["root"].items() if k in (
+            "ms_many", "device_ms", "sectors", "moved", "leaf_rows")},
+        "device_ms_per_tree": block_tree["block_route_device_ms_per_tree"],
+        **{f"{k}_leaf_1000": v
+           for k, v in sharded_timing["leaf_1000"].items()}}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import data as data_mod
-from .boosting import GBDT, create_boosting, streams
+from .boosting import GBDT, create_boosting, plan_training
 from .config import (Config, _parse_value, canonicalize_params,
                      config_from_params, resolve_device)
 from .data.binning import BinMapper
@@ -698,14 +698,20 @@ class Booster:
         # Dataset or the model text's last line
         self.pandas_categorical: Optional[List[List]] = None
         if train_set is not None:
-            # a streamed training's matrix never lands on the device
-            streamed = streams(cfg)
+            # the learner, placement and mesh are planned from the host
+            # Dataset, and held to the memory budget, before its bins are
+            # copied to the card; a streamed training's never are
+            objective = create_objective(cfg)
+            train_set.construct(cfg, str(self.device), on_device=False)
+            plan = plan_training(cfg, train_set.constructed, objective)
+            streamed = plan.learner == "streamed"
             train_set.construct(cfg, str(self.device),
                                 on_device=not streamed)
             self.pandas_categorical = train_set.pandas_categorical
             self.inner = create_boosting(cfg, train_set.constructed,
-                                         create_objective(cfg),
-                                         None if streamed else train_set.bins)
+                                         objective,
+                                         None if streamed else train_set.bins,
+                                         plan)
         else:
             if model_file is not None:
                 with open(model_file) as f:

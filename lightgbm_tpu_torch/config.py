@@ -185,6 +185,10 @@ class Config:
     gspmd_hist: str = "auto"       # fused (the shard-local kernel) | flat
     #                                (masked scatter-add) | auto (= fused
     #                                on a card, flat on the CPU)
+    hbm_budget: float = 0.0        # device-memory budget in bytes of the
+    #                                pre-flight and the planner (0: the
+    #                                card's memory, warn only;
+    #                                obs/memory.py)
 
     # binning
     max_bin: int = 255
@@ -283,7 +287,6 @@ TAKEN_AS_IS = frozenset((
     "pipeline_trees", "objective_seed"))
 
 # the ROADMAP.md port-queue items (their bold titles) of NOT_PORTED
-_MULTI = "multi-device learners"
 _SERVING = ("checkpoints, serving, observability, CLI, sklearn and "
             "plotting")
 
@@ -332,7 +335,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "serving_traversal": ("auto", _SERVING),
     "collective_retries": (2, _SERVING + " (the supervisor's retry "
                            "ladder)"),
-    "hbm_budget": (0.0, _MULTI + " (the memory-driven mesh planner)"),
 }
 
 
@@ -442,11 +444,10 @@ def _unsupported(what: str, item: str) -> None:
 
 
 def _check_distributed(cfg: Config) -> None:
-    """The distributed knobs (lightgbm_tpu/config.py:653-711, :782):
-    syntax checks, and a raise for the one value outside the ported
-    learners (block-sharded bins).  ``mesh_shape=auto`` over more than
-    one mesh slot raises later, at learner setup, where the number of
-    slots is known."""
+    """The distributed knobs (lightgbm_tpu/config.py:653-711, :765-768,
+    :782): syntax checks.  ``mesh_shape=auto`` over more than one mesh
+    slot is sized at learner setup, where the number of slots is known
+    (``parallel/mesh.py:plan_mesh``)."""
     if cfg.tree_learner not in ("serial", "feature", "data", "voting",
                                 "data_feature"):
         log.fatal("Unknown tree learner type %s", cfg.tree_learner)
@@ -480,9 +481,10 @@ def _check_distributed(cfg: Config) -> None:
                   cfg.collective_timeout)
     if cfg.top_k <= 0:
         log.fatal("top_k must be positive; got %d", cfg.top_k)
-    if sa in ("batch,feature", "feature,batch"):
-        _unsupported(f"shard_axes={cfg.shard_axes}",
-                     "multi-device learners (block-sharded bins)")
+    if cfg.hbm_budget < 0:
+        log.fatal("hbm_budget must be >= 0 bytes (0 = warn-only pre-flight "
+                  "against the detected device capacity); got %r",
+                  cfg.hbm_budget)
 
 
 def check_params(cfg: Config) -> None:
@@ -507,8 +509,8 @@ def check_params(cfg: Config) -> None:
             log.fatal("Random forest needs bagging (bagging_freq > 0 and "
                       "0 < bagging_fraction < 1)")
     _check_distributed(cfg)
-    # lightgbm_tpu/config.py:769-781; data_stream=auto stays resident
-    # (the capacity walk's chunked rung needs the memory planner)
+    # lightgbm_tpu/config.py:769-781; data_stream=auto is the capacity
+    # walk (parallel/mesh.py:resolve_placement)
     if cfg.data_stream not in ("auto", "resident", "chunked"):
         log.fatal("data_stream must be auto, resident, or chunked; got %r",
                   cfg.data_stream)

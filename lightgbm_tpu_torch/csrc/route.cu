@@ -66,6 +66,26 @@
 // bundled column adds two 4-byte reads a call, none a row); after the
 // tree's stop no row holds the sink leaf and nothing is written.
 //
+// lgbt_block_route (the data-parallel learner with block-sharded
+// bins, shard_axes=batch,feature) is lgbt_route_rows over bins that no
+// tensor holds whole: each (batch shard i, feature shard j) slot keeps
+// only its row-major [n_loc, w_j] column slice of its batch shard.  The
+// kernel gets a table of the slots' base addresses, int64 [shards, fs]
+// (0 where another card holds the slot), and the slices' first columns,
+// int32 [fs + 1].  It maps the split's logical feature to its physical
+// column c (through col/offset when bundled), finds the feature shard j
+// with first[j] <= c < first[j + 1], and reads row r's bin at
+// base[i][j] + r * w_j + (c - first[j]).  A shard whose owning slot is not
+// on this card is left as it is (the eager loop over several cards takes
+// the owner's rows afterwards, parallel/gspmd.py).  Everything else is
+// lgbt_route_rows: uint8 and uint16, the bundle decode, the per-shard
+// counts.  Not a TPU kernel: the JAX package's block-sharded route is the
+// same XLA code over a P(batch, feature) matrix, the partitioner reading
+// the column across the feature axis (lightgbm_tpu/parallel/gspmd.py:89,
+// :305-320).  What bounds it on the H100: bytes, as the row-major block's
+// route: 4 of row_leaf a row, a 32-byte sector a row of the leaf once a
+// slice row is 32 bytes or more, and 4 a moved row written.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (lightgbm_tpu_torch/ops/build.py does this).
 
@@ -323,6 +343,141 @@ extern "C" int lgbt_route_rows(const RowsArgs* x) {
         <<<grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
   else
     lgbt_route_rows_kernel<uint8_t>
+        <<<grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
+  const int rc = (int)cudaGetLastError();
+  if (prev != a.device) {
+    err = cudaSetDevice(prev);
+    if (rc == 0 && err != cudaSuccess) return (int)err;
+  }
+  return rc;
+}
+
+// The argument block of lgbt_block_route, packed by the Python wrapper
+// (ops/route.py:_BLOCK_ARGS, struct format "@14Pq8iP").
+struct BlockArgs {
+  void* row_leaf;          // int32 [shards * n_loc], updated in place
+  const void* ptrs;        // int64 [shards, fs]: slot (i, j)'s slice, or 0
+  const void* first;       // int32 [fs + 1]: the slices' column edges
+  const void* leaf;        // int64[1]: the splitting leaf
+  const void* new_leaf;    // int64[1]: the leaf its right rows move to
+  const void* split_i32;   // int32 [leaves, 3]: feature, threshold, dleft
+  const void* split_cat;   // bool [leaves], or null
+  const void* split_catb;  // bool [leaves, cat_width], or null
+  const void* num_bin;     // int32 [E]
+  const void* missing_type;
+  const void* default_bin;
+  const void* col;         // int32 [E]: the feature's column, or null
+  const void* offset;      // int32 [E]: its first slot, or null
+  void* counts;            // int32 [shards, n_leaves]: rows of each leaf
+  long long n_loc;         // rows of a shard
+  int shards;
+  int fs;                  // feature shards: the table's columns
+  int n_logical;           // logical features E
+  int cat_width;
+  int n_leaves;            // columns of counts: every leaf id, sinks too
+  int grid_x;              // blocks a shard
+  int device;
+  int bin_bytes;           // 1: uint8 bins, 2: uint16
+  void* stream;
+};
+
+namespace {
+
+template <class T>
+__global__ void __launch_bounds__(kThreads) lgbt_block_route_kernel(
+    BlockArgs a) {
+  __shared__ int warp_moved[kThreads / 32];
+  const long long l = *static_cast<const long long*>(a.leaf);
+  const int32_t nw = (int32_t)*static_cast<const long long*>(a.new_leaf);
+  if (l < 0 || l >= a.n_leaves) return;
+  const int32_t* sp = static_cast<const int32_t*>(a.split_i32) + 3 * l;
+  const int feat = sp[0];
+  if (feat < 0 || feat >= a.n_logical) return;
+  const int c = a.col ? static_cast<const int32_t*>(a.col)[feat] : feat;
+  const int off = a.col ? static_cast<const int32_t*>(a.offset)[feat] : -1;
+  const int32_t* first = static_cast<const int32_t*>(a.first);
+  if (c < first[0] || c >= first[a.fs]) return;
+  int j = 0;
+  while (j + 1 < a.fs && first[j + 1] <= c) ++j;
+  const int shard = blockIdx.y;
+  const T* base = reinterpret_cast<const T*>(
+      static_cast<const long long*>(a.ptrs)[(long long)shard * a.fs + j]);
+  if (base == nullptr) return;   // the owning slot lies on another card
+  const long long width = first[j + 1] - first[j];
+  const T* colp = base + (c - first[j]);
+  const int thr = sp[1];
+  const bool dleft = sp[2] != 0;
+  const bool is_cat =
+      a.split_cat != nullptr && static_cast<const bool*>(a.split_cat)[l];
+  const uint8_t* cat_row =
+      is_cat ? static_cast<const uint8_t*>(a.split_catb) + l * a.cat_width
+             : nullptr;
+  const int mt = static_cast<const int32_t*>(a.missing_type)[feat];
+  const int nb = static_cast<const int32_t*>(a.num_bin)[feat];
+  const int db = static_cast<const int32_t*>(a.default_bin)[feat];
+  int32_t* rl = static_cast<int32_t*>(a.row_leaf) + (long long)shard * a.n_loc;
+  int moved = 0;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
+       p < a.n_loc; p += stride) {
+    if (rl[p] != l) continue;
+    const int b = decode_slot(__ldg(colp + p * width), off, nb, db);
+    bool left;
+    if (is_cat) {
+      left = __ldg(cat_row + min(b, a.cat_width - 1)) != 0;
+    } else {
+      const bool missing = (mt == kMissingNan && b == nb - 1) ||
+                           (mt == kMissingZero && b == db);
+      left = missing ? dleft : b <= thr;
+    }
+    if (!left) {
+      rl[p] = nw;
+      ++moved;
+    }
+  }
+  moved = __reduce_add_sync(0xffffffffu, moved);
+  if ((threadIdx.x & 31) == 0) warp_moved[threadIdx.x >> 5] = moved;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_moved[w];
+    if (total) {
+      int* cn = static_cast<int*>(a.counts) + (long long)shard * a.n_leaves;
+      atomicAdd(cn + nw, total);
+      atomicAdd(cn + l, -total);
+    }
+  }
+}
+
+}  // namespace
+
+// Routes the rows of x->leaf in every shard of x->row_leaf whose owning
+// slot's slice x->ptrs lists, on the split that x->leaf holds in the pool,
+// moving its right rows to x->new_leaf and their counts with them: one
+// launch of (x->grid_x, x->shards) blocks on stream x->stream of card
+// x->device, made current only if it is not.  Returns the cudaError_t (0
+// on success).
+extern "C" int lgbt_block_route(const BlockArgs* x) {
+  const BlockArgs& a = *x;
+  if (a.grid_x < 1 || a.shards < 1 || a.shards > 65535 || a.fs < 1 ||
+      a.n_logical < 1 || a.n_loc < 0 || a.n_leaves < 1 ||
+      a.ptrs == nullptr || a.first == nullptr ||
+      (a.bin_bytes != 1 && a.bin_bytes != 2) ||
+      (a.col == nullptr) != (a.offset == nullptr) ||
+      (a.split_cat != nullptr && (a.split_catb == nullptr ||
+                                  a.cat_width < 1)))
+    return (int)cudaErrorInvalidValue;
+  int prev = a.device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != a.device) err = cudaSetDevice(a.device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.grid_x, a.shards);
+  if (a.bin_bytes == 2)
+    lgbt_block_route_kernel<uint16_t>
+        <<<grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
+  else
+    lgbt_block_route_kernel<uint8_t>
         <<<grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
   const int rc = (int)cudaGetLastError();
   if (prev != a.device) {

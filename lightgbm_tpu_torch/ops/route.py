@@ -33,12 +33,22 @@ regime reads.  On a CUDA tensor it launches the second kernel of
 ``csrc/route.cu``; on a CPU tensor it runs :func:`route_rows_plain`
 (:func:`route_goes_left`, ``masked_fill_`` and a per-shard ``sum``).
 Neither reads anything back to the host.
+
+:func:`route_rows_block` is :func:`route_rows` over block-sharded bins
+(``shard_axes=batch,feature``, ``lightgbm_tpu/parallel/gspmd.py:89``):
+no tensor holds a shard's every column; each (batch shard, feature
+shard) slot holds its row-major column slice (:class:`BlockBins`), and
+the split column is read from the slice that owns it.  On a CUDA tensor
+it launches the third kernel of ``csrc/route.cu`` over a device table of
+the slices' addresses; on a CPU tensor it runs
+:func:`route_rows_block_plain`.
 """
 from __future__ import annotations
 
+import bisect
 import ctypes
 import struct
-from typing import Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -362,3 +372,163 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
 
 # kernel launches, counted where the kernel is launched and nowhere else
 route_rows.launches = 0
+
+
+class BlockBins(NamedTuple):
+    """Block-sharded bins as one device holds them: ``slices[k][j]`` is
+    the row-major ``[n_loc, w_j]`` slice of the device's k-th batch shard
+    over feature shard j's columns ``[edges[j], edges[j + 1])``, or None
+    where another device holds that slot.  ``ptrs`` (int64 ``[S * fs]``,
+    the slices' addresses, 0 for None) and ``first`` (int32 ``[fs + 1]``,
+    the edges) are the kernel's table, on the slices' device
+    (:func:`make_block_bins`)."""
+    slices: List[List[Optional[torch.Tensor]]]
+    edges: tuple
+    ptrs: torch.Tensor
+    first: torch.Tensor
+
+
+def make_block_bins(slices, edges, device) -> BlockBins:
+    """The :class:`BlockBins` of ``slices`` (a device's batch shards, each
+    a list over the feature shards) cut at column ``edges``, its table
+    made once on ``device``."""
+    ptrs = torch.tensor([[0 if t is None else t.data_ptr() for t in row]
+                         for row in slices], dtype=torch.int64).reshape(-1)
+    return BlockBins([list(row) for row in slices], tuple(int(e) for e in edges),
+                     ptrs.to(device),
+                     torch.tensor(edges, dtype=torch.int32, device=device))
+
+
+def route_rows_block_plain(row_leaf: torch.Tensor, block: BlockBins,
+                           leaf: torch.Tensor, new: torch.Tensor,
+                           split_i32: torch.Tensor,
+                           split_cat: Optional[torch.Tensor],
+                           split_catb: Optional[torch.Tensor], meta,
+                           counts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`route_rows_block`: the split's
+    physical column read back to the host, its feature shard found in the
+    edges, and each shard whose owning slice is here routed as
+    :func:`route_rows_plain` routes it, from that slice's column."""
+    split = split_i32.index_select(0, leaf)[0].long()
+    # the sink row of a step after the stop may hold no valid feature; no
+    # row is in the sink leaf, so any feature routes the same
+    feat = split[0:1].clamp(0, meta.num_bin.numel() - 1)
+    col = feature_column(meta, feat)
+    c = int(col)
+    edges = block.edges
+    j = min(max(bisect.bisect_right(edges, c) - 1, 0), len(edges) - 2)
+    n_loc = row_leaf.numel() // len(block.slices)
+    cat = (split_cat.index_select(0, leaf) if split_cat is not None
+           else None)
+    catb = (split_catb.index_select(0, leaf)[0] if split_catb is not None
+            else None)
+    for k, row in enumerate(block.slices):
+        sl = row[j]
+        if sl is None:
+            continue
+        binf = bin_rows(sl, col - edges[j], dim=1)[:, 0]
+        goes_left = route_goes_left(binf, meta, feat, split[1:2],
+                                    split[2:3].bool(), cat, catb)
+        rl = row_leaf[k * n_loc:(k + 1) * n_loc]
+        right = (rl == leaf) & ~goes_left
+        rl.masked_fill_(right, new.to(rl.dtype).view(()))
+        moved = right.sum(dtype=counts.dtype).reshape(1)
+        counts[k].index_add_(0, new, moved)
+        counts[k].index_add_(0, leaf, -moved)
+    return row_leaf
+
+
+# the C entry point's one argument (csrc/route.cu: BlockArgs): 14 pointers,
+# the shard's rows, 8 ints and the stream
+_BLOCK_ARGS = struct.Struct("@14Pq8iP")
+
+
+def route_rows_block(row_leaf: torch.Tensor, block: BlockBins,
+                     leaf: torch.Tensor, new: torch.Tensor,
+                     split_i32: torch.Tensor,
+                     split_cat: Optional[torch.Tensor],
+                     split_catb: Optional[torch.Tensor], meta,
+                     counts: torch.Tensor) -> torch.Tensor:
+    """:func:`route_rows` over block-sharded bins: route leaf ``leaf``'s
+    rows of a device's row -> leaf map (int32 ``[S * n_loc]``, its ``S``
+    batch shards in order) in place and move their counts in ``counts``
+    (int32 ``[S, leaves]``), reading the split column from ``block``'s
+    slice that owns it (:class:`BlockBins`).  A shard whose owning slice
+    another device holds is left as it is.  The other arguments are
+    :func:`route_rows`'s.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel, on their own card, or raise.  The launch
+    counter counts each launch once."""
+    if not row_leaf.is_cuda:
+        if row_leaf.device.type == "cpu":
+            return route_rows_block_plain(row_leaf, block, leaf, new,
+                                          split_i32, split_cat, split_catb,
+                                          meta, counts)
+        raise ValueError(f"route_rows_block: unsupported device "
+                         f"{row_leaf.device}")
+    dev = row_leaf.get_device()
+    shards = len(block.slices)
+    fs = len(block.edges) - 1
+    n = row_leaf.numel()
+    n_loc = n // max(shards, 1)
+    held = [t for row in block.slices for t in row if t is not None]
+    tensors = [row_leaf, leaf, new, split_i32, *_meta_tensors(meta), counts,
+               block.ptrs, block.first, *held,
+               *[t for t in (split_cat, split_catb) if t is not None]]
+    if (any(t.get_device() != dev or not t.is_contiguous() for t in tensors)
+            or not held or shards < 1 or n % shards
+            or any(len(row) != fs for row in block.slices)
+            or row_leaf.dtype != torch.int32 or row_leaf.dim() != 1
+            or any(t.dtype != held[0].dtype for t in held)
+            or held[0].dtype not in BIN_DTYPES
+            or any(t is not None and t.shape != (
+                n_loc, block.edges[j + 1] - block.edges[j])
+                for row in block.slices for j, t in enumerate(row))
+            or block.ptrs.dtype != torch.int64
+            or block.ptrs.numel() != shards * fs
+            or block.first.dtype != torch.int32
+            or block.first.numel() != fs + 1
+            or any(t.dtype != torch.int64 or t.numel() != 1
+                   for t in (leaf, new))
+            or split_i32.dtype != torch.int32 or split_i32.dim() != 2
+            or split_i32.shape[1] != 3 or not _meta_ok(meta)
+            or counts.dtype != torch.int32 or counts.dim() != 2
+            or counts.shape[0] != shards
+            or counts.shape[1] != split_i32.shape[0]
+            or (split_cat is None) != (split_catb is None)
+            or (split_cat is not None and (
+                split_cat.dtype != torch.bool or split_catb.dtype != torch.bool
+                or split_catb.dim() != 2))):
+        raise ValueError("route_rows_block: contiguous tensors on one card: "
+                         "int32 row_leaf [S * n_loc], S rows of fs uint8 or "
+                         "uint16 slices [n_loc, w_j] (or None) with their "
+                         "int64 address table and int32 edges, leaf and "
+                         "new int64[1], split_i32 int32 [leaves, 3], int32 "
+                         "meta (col and offset together), int32 counts [S, "
+                         "leaves], and bool split_cat and split_catb "
+                         "together")
+    grid = max(1, min(-(-n_loc // THREADS),
+                      MAX_BLOCKS_PER_SM * sm_count(dev) // shards))
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    err = build.function("route", "lgbt_block_route",
+                         [ctypes.c_char_p])(
+        _BLOCK_ARGS.pack(row_leaf.data_ptr(), block.ptrs.data_ptr(),
+                         block.first.data_ptr(), leaf.data_ptr(),
+                         new.data_ptr(), split_i32.data_ptr(),
+                         ptr(split_cat), ptr(split_catb),
+                         meta.num_bin.data_ptr(),
+                         meta.missing_type.data_ptr(),
+                         meta.default_bin.data_ptr(), ptr(meta.col),
+                         ptr(meta.offset), counts.data_ptr(), n_loc, shards,
+                         fs, meta.num_bin.numel(),
+                         0 if split_catb is None else split_catb.shape[1],
+                         counts.shape[1], grid, dev, held[0].element_size(),
+                         torch._C._cuda_getCurrentRawStream(dev)))
+    if err != 0:
+        raise RuntimeError(f"route_rows_block kernel launch failed: CUDA "
+                           f"error {err}")
+    route_rows_block.launches += 1
+    return row_leaf
+
+
+# kernel launches, counted where the kernel is launched and nowhere else
+route_rows_block.launches = 0

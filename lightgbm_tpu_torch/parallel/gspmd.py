@@ -45,6 +45,23 @@ insert the collectives; here the split step itself walks the shards of a
   its shard of the packed storage matrix at width ``max(256, B)``, and
   the summed, concatenated histogram is unfolded into physical columns
   (:238) before the pool sees it; routing reads the unpacked bins.
+* with block-sharded bins (``block_shard``, ``shard_axes=batch,feature``
+  or the planner's choice; :89, :177-178) no device holds the
+  column-major copy: each slot holds only its column slice of its batch
+  shard, and routing reads the split column from the slice that owns it
+  (``ops/route.py:route_rows_block``, through a device table of the
+  slices' addresses, so the graph loop stays fixed-shape).  Unpacked,
+  the histogram's slices are those slices; packed, the histogram keeps
+  its packed slices and routing reads unpacked column slices beside
+  them (the JAX package keeps the packed copy ``P(batch, None)``,
+  :181-184).  With slots on several cards, the card that owns a shard's
+  split column routes it, and that shard's map and counts then go to
+  the other cards of its batch row (:meth:`GspmdGrower._merge_routes`):
+  the copy that stands in for the collective XLA inserts for the
+  column's read, its bytes counted in ``coll_stats``.  Over several
+  processes block-sharding is refused (``boosting.plan_training``): a
+  process's mesh covers only its own rows, and a split column another
+  process held would need a collective in the route;
 
 * under ``tree_learner=voting`` each batch shard's histogram stays its
   own (concatenated over its column slices): the pool keeps them per
@@ -86,7 +103,7 @@ from ..data.packing import PackedBins, unfold_packed_hist
 from ..grower import (FeatureMeta, GrowerConfig, LeafPool, SplitLoop,
                       _tensor_key)
 from ..ops.histogram import hist_flat, hist_local, movable
-from ..ops.route import route_rows
+from ..ops.route import make_block_bins, route_rows, route_rows_block
 from ..ops.split import cat_group_accept
 from . import sync
 from .learner import VotingPool
@@ -143,13 +160,14 @@ class GspmdGrower(SplitLoop):
     counts and weights, the :class:`LeafPool`, the counters) and, once a
     tree has taken the graph loop, the captured step."""
 
-    wrappers = (hist_local, route_rows, cat_group_accept)
+    wrappers = (hist_local, route_rows, route_rows_block, cat_group_accept)
 
     def __init__(self, cfg: GrowerConfig, mesh: Mesh, bins: torch.Tensor,
                  hist: str = "fused", n_logical: Optional[int] = None,
                  packed: Optional[PackedBins] = None,
                  top_k: Optional[int] = None,
-                 procs: Optional[Procs] = None):
+                 procs: Optional[Procs] = None,
+                 block_shard: bool = False):
         if hist not in ("fused", "flat"):
             raise ValueError(f"hist must be fused or flat; got {hist!r}")
         d, fs = mesh.shape[BATCH_AXIS], mesh.shape[FEATURE_AXIS]
@@ -190,10 +208,9 @@ class GspmdGrower(SplitLoop):
         # row -> leaf map, counts and routing cover all of them at once
         self.held = {dv: [i for i in range(d) if dv in mesh.devices[i]]
                      for dv in dict.fromkeys(sum(mesh.devices, []))}
-        # column-major bins of each device's shards, for routing; copied
-        # through the int16 view of uint16 bins (ops/histogram.py:movable)
-        self.route_bins = {dv: movable(self._rows(bins, dv)).t().contiguous(
-                               ).to(dv).view(bins.dtype) for dv in self.held}
+        if block_shard and self.procs is not None:
+            raise ValueError("GspmdGrower: block-sharded bins are "
+                             "single-process")
         self.row_leaf = {dv: torch.zeros(len(held) * n_loc,
                                          dtype=torch.int32, device=dv)
                          for dv, held in self.held.items()}
@@ -206,10 +223,26 @@ class GspmdGrower(SplitLoop):
                                   for _ in range(3))
                         for dv, held in self.held.items()}
         # each slot's shard cut to its column slice, for the histogram
-        self.slices = [[movable(hsrc)[i * n_loc:(i + 1) * n_loc,
-                                      c.start:c.stop].contiguous().to(
-                                          mesh.devices[i][j]).view(hsrc.dtype)
-                        for j, c in enumerate(self.cols)] for i in range(d)]
+        self.slices = self._cut(hsrc, self.cols)
+        # routing: block-sharded, each device's table of the slots it
+        # holds (the histogram's slices, or unpacked slices beside packed
+        # ones); else the column-major bins of each device's shards, copied
+        # through the int16 view of uint16 bins (ops/histogram.py:movable)
+        self.route_bins = self.route_slices = self.block = None
+        if block_shard:
+            rcols = column_slices(f, fs)
+            if packed is not None:
+                self.route_slices = self._cut(bins, rcols)
+            rs = self.route_slices or self.slices
+            edges = [c.start for c in rcols] + [f]
+            self.block = {dv: make_block_bins(
+                [[rs[i][j] if mesh.devices[i][j] == dv else None
+                  for j in range(fs)] for i in held], edges, dv)
+                for dv, held in self.held.items()}
+        else:
+            self.route_bins = {
+                dv: movable(self._rows(bins, dv)).t().contiguous().to(
+                    dv).view(bins.dtype) for dv in self.held}
         self.root_id = torch.zeros(1, dtype=torch.int32, device=self.device)
         # the histogram store, split pool and records, reset per tree; the
         # voting learner's keeps each batch shard's (parallel/learner.py),
@@ -223,6 +256,16 @@ class GspmdGrower(SplitLoop):
             self.pool = LeafPool(cfg, f, self.device, n_logical=n_logical)
         self.metas: Optional[Dict[torch.device, FeatureMeta]] = None
         self.bound = None
+
+    def _cut(self, src: torch.Tensor, cols: List[range]):
+        """Each slot's batch shard of ``src`` cut to its column slice of
+        ``cols``, on the slot's device (a view where the slice is the
+        whole width on ``src``'s device)."""
+        n = self.n_loc
+        return [[movable(src)[i * n:(i + 1) * n, c.start:c.stop].contiguous(
+                 ).to(self.mesh.devices[i][j]).view(src.dtype)
+                 for j, c in enumerate(cols)]
+                for i in range(len(self.mesh.devices))]
 
     def _rows(self, t: torch.Tensor, dv: torch.device) -> torch.Tensor:
         """The rows of ``t`` (global order) that ``dv``'s shards hold."""
@@ -346,10 +389,19 @@ class GspmdGrower(SplitLoop):
         pool = self.pool
         act, l, new, node = self.pick(pool)
         irow, frow, route = pool.split_args(l)
+        merge = self.block is not None and len(self.held) > 1
+        before = ({dv: c.clone() for dv, c in self.counts.items()}
+                  if merge else None)
         for dv, rl in self.row_leaf.items():
-            route_rows(rl, self.route_bins[dv],
-                       *_to(dv, l, new, pool.si32, pool.scat, pool.scatb),
-                       self.metas[dv], self.counts[dv])
+            args = _to(dv, l, new, pool.si32, pool.scat, pool.scatb)
+            if self.block is None:
+                route_rows(rl, self.route_bins[dv], *args, self.metas[dv],
+                           self.counts[dv])
+            else:
+                route_rows_block(rl, self.block[dv], *args, self.metas[dv],
+                                 self.counts[dv])
+        if merge:
+            self._merge_routes(before)
         child_depth = pool.record(l, new, node, irow, frow, route[3],
                                   route[4])
         small_left = frow[2] <= frow[5]
@@ -358,6 +410,41 @@ class GspmdGrower(SplitLoop):
                       child_depth)
         self.end_step(act)
         return True
+
+    def _merge_routes(self, before: Dict[torch.device, torch.Tensor]
+                      ) -> None:
+        """Block-sharded bins with slots on several cards: each batch
+        shard was routed only on the card that holds the slot owning the
+        split column; give its routed map and counts to every card that
+        holds the shard.  A route moves rows from the leaf to the new
+        leaf, whose id is larger than every other, and leaves the other
+        cards' copies as they were, so the routed map is the element-wise
+        maximum of the copies and the routed counts are the copies' common
+        start (``before``) plus the sum of their changes.  No host read.
+        The bytes copied between cards are counted in ``coll_stats``."""
+        n, moved = self.n_loc, 0
+        for i in range(len(self.mesh.devices)):
+            cards = [dv for dv in self.held if i in self.held[dv]]
+            if len(cards) < 2:
+                continue
+            home, k0 = cards[0], self.held[cards[0]].index(i)
+            rl = self._shard(self.row_leaf[home], i, home)
+            delta = self.counts[home][k0] - before[home][k0]
+            for dv in cards[1:]:
+                k = self.held[dv].index(i)
+                torch.maximum(rl, self._shard(self.row_leaf[dv], i,
+                                              dv).to(home), out=rl)
+                delta += (self.counts[dv][k] - before[dv][k]).to(home)
+            self.counts[home][k0] = before[home][k0] + delta
+            for dv in cards[1:]:
+                k = self.held[dv].index(i)
+                self._shard(self.row_leaf[dv], i, dv).copy_(rl)
+                self.counts[dv][k].copy_(self.counts[home][k0])
+            moved += 2 * (len(cards) - 1) * (
+                n * 4 + self.counts[home].shape[1] * 4)
+        self.coll_stats["block_route_bytes"] = (
+            self.coll_stats.get("block_route_bytes", 0) + moved)
+        self.coll_stats["block_route_bytes_per_split"] = moved
 
     def loop(self, loop: Optional[str]) -> str:
         """The split loop a tree takes: ``graph`` (every mesh slot on one

@@ -4,7 +4,10 @@ The port of the subset of ``lightgbm_tpu/parallel/mesh.py`` that the
 GSPMD learner and the streamed grower use: the axis names (:20-26),
 ``make_named_mesh`` (:65), ``MeshPlanError`` (:90),
 ``default_chunk_rows`` (:244), ``parse_mesh_shape`` (:377) and
-``pad_rows`` (:609); and the bring-up of a training over several
+``pad_rows`` (:609); the memory-driven planner (``MeshPlan``,
+``plan_mesh``, :98-228) and the placement walk (``PlacementPlan``,
+``resolve_placement``, :231-374), costed by the port's memory model
+(``obs/memory.py``); and the bring-up of a training over several
 processes (:29, :430-580; below).  A :class:`Mesh` is a
 ``(data, feature)`` grid of ``torch.device``s: rows shard over ``batch``,
 the histogram's columns over ``feature``.
@@ -44,11 +47,12 @@ import datetime
 import os
 import socket
 from collections import Counter
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from ..obs import memory
 from ..utils import log
 from . import sync
 
@@ -59,7 +63,9 @@ FEATURE_AXIS = "feature"
 
 
 class MeshPlanError(RuntimeError):
-    """A mesh shape that the available slots cannot serve."""
+    """A mesh shape that the available slots cannot serve, or no mesh
+    shape or placement whose predicted peak fits the budget (the message
+    names the best candidate's largest components)."""
 
 
 class Mesh:
@@ -159,6 +165,251 @@ def default_chunk_rows(rows: int, requested: int = 0) -> int:
     if requested and int(requested) > 0:
         return min(int(requested), rows)
     return max(1, min(262144, -(-rows // 2)))
+
+
+# ---- the memory-driven planner (lightgbm_tpu/parallel/mesh.py:98-374) ----
+#
+# Both walks take their cost from the port's memory model through this
+# module attribute, which a test may replace by another cost function of
+# the same keywords (the JAX package's, in tests/test_torch_planner.py).
+predict_hbm = memory.predict_hbm
+
+
+class MeshPlan(NamedTuple):
+    """One planner decision (:func:`plan_mesh`, :98): mesh extents,
+    whether the bin matrix is block-sharded over ``feature`` (each slot
+    holding only its column slice of its batch shard) or replicated along
+    it, and the evidence backing the choice."""
+    data: int                  # batch-axis extent
+    feature: int               # feature-axis extent
+    block_shard_bins: bool     # bins cut over both axes vs over batch
+    per_device_bytes: int      # predicted peak of the busiest card
+    capacity: Optional[int]    # budget the plan was judged against
+    components: dict           # top components {name: bytes}
+    reason: str                # human-readable decision trail
+
+
+def _mesh_factorizations(n: int):
+    """(data, feature) candidates over exactly ``n`` slots, data-major
+    first (:111)."""
+    return [(d, n // d) for d in range(n, 0, -1) if n % d == 0]
+
+
+def mesh_shape_fits_processes(data: int, feature: int, procs: int,
+                              local_devices: int) -> Optional[str]:
+    """Whether a ``(data, feature)`` mesh lays out so that every process's
+    local slots tile whole batch rows (:119): None when it does, else the
+    refusal."""
+    procs = max(1, int(procs))
+    if procs == 1:
+        return None
+    if data % procs != 0:
+        return (f"batch extent {data} does not divide over {procs} "
+                "processes (each rank's row partition needs whole "
+                "batch-axis rows)")
+    if local_devices and local_devices % feature != 0:
+        return (f"{local_devices} local device(s) per process cannot "
+                f"tile {feature} feature shard(s) per batch row")
+    return None
+
+
+def plan_mesh(n_devices: int, rows: int, features: int, bins: int = 255,
+              leaves: int = 31, num_class: int = 1,
+              bin_bytes: Optional[int] = None, packed_cols: int = 0,
+              valid_rows: int = 0, capacity: Optional[int] = None,
+              prefer: str = "data", procs: int = 1, local_devices: int = 0,
+              **model) -> MeshPlan:
+    """The memory-driven planner (``mesh_shape=auto``, :141-228): the
+    first ``(data, feature)`` factorization of ``n_devices`` slots, in
+    order of preference, whose predicted peak fits ``capacity``.
+    ``prefer="data"`` walks from pure data-parallel toward feature-heavy
+    shapes, ``"feature"`` the other way, ``"square"`` from the most
+    balanced; each shape is tried with the bins replicated along
+    ``feature`` first and block-sharded only if that does not fit.  With
+    no capacity (the CPU) the preferred shape wins.  Over several
+    processes, shapes that would split a rank's rows across processes are
+    skipped.  ``model`` goes to the cost function as it is (the port's
+    layout: ``slots_per_card``, ``voting``, ...).  Raises
+    :class:`MeshPlanError` when nothing fits."""
+    n_devices = max(int(n_devices), 1)
+    cands = _mesh_factorizations(n_devices)
+    if procs > 1:
+        fits = [(d, f) for d, f in cands
+                if mesh_shape_fits_processes(d, f, procs,
+                                             local_devices) is None]
+        if not fits:
+            raise MeshPlanError(
+                f"no factorization of {n_devices} device(s) lays out over "
+                f"{procs} processes x {local_devices or '?'} local "
+                "device(s): every candidate leaves some rank's row "
+                "partition straddling another process's devices")
+        cands = fits
+    if prefer == "feature":
+        cands = cands[::-1]
+    elif prefer == "square":
+        cands.sort(key=lambda df: (abs(df[0] - df[1]), -df[0]))
+
+    best = None            # smallest-peak candidate, for the error message
+    for d, f in cands:
+        for block in (False, True) if f > 1 else (False,):
+            p = predict_hbm(rows=rows, features=features, bins=bins,
+                            leaves=leaves, num_class=num_class,
+                            bin_bytes=bin_bytes, packed_cols=packed_cols,
+                            valid_rows=valid_rows, data_shards=d,
+                            feature_shards=f, block_shard_bins=block,
+                            **model)
+            peak, comps = int(p["peak_bytes"]), memory.top_terms(p, 4)
+            if best is None or peak < best[3]:
+                best = (d, f, block, peak, comps)
+            if capacity is None or peak <= capacity:
+                why = (f"{d}x{f} mesh"
+                       + (", bins block-sharded" if block
+                          else (", bins replicated over feature"
+                                if f > 1 else ""))
+                       + (f": predicted per-device peak "
+                          f"{peak / 1e9:.2f} GB fits capacity "
+                          f"{capacity / 1e9:.2f} GB"
+                          if capacity is not None else
+                          ": no capacity signal, preferred shape"))
+                return MeshPlan(d, f, block, peak, capacity, comps, why)
+    d, f, block, peak, comps = best
+    detail = ", ".join(f"{k}={v / 1e9:.2f} GB" for k, v in comps.items())
+    raise MeshPlanError(
+        f"no mesh shape over {n_devices} device(s) fits: best candidate "
+        f"{d}x{f}{' (bins block-sharded)' if block else ''} still needs "
+        f"{peak / 1e9:.2f} GB per device vs capacity "
+        f"{(capacity or 0) / 1e9:.2f} GB (top components: {detail}) — "
+        f"shrink the shape (num_leaves/max_bin/rows), add devices, or "
+        f"raise hbm_budget")
+
+
+class PlacementPlan(NamedTuple):
+    """One data-placement decision (:func:`resolve_placement`, :231):
+    where the bin matrix lives for this run and the evidence backing the
+    choice."""
+    mode: str                  # resident | chunked | sharded
+    chunk_rows: int            # streamed block size (0 unless chunked)
+    mesh: Optional[MeshPlan]   # the mesh plan when mode == "sharded"
+    peak_bytes: int            # predicted peak at the chosen placement
+    capacity: Optional[int]    # budget the plan was judged against
+    components: dict           # top predicted components {name: bytes}
+    reason: str                # human-readable decision trail
+
+
+# the smallest block the chunked rung halves down to (:327)
+MIN_CHUNK_ROWS = 4096
+
+
+def resolve_placement(rows: int, features: int, bins: int = 255,
+                      leaves: int = 31, num_class: int = 1,
+                      bin_bytes: Optional[int] = None,
+                      packed_cols: int = 0, valid_rows: int = 0,
+                      capacity: Optional[int] = None,
+                      data_stream: str = "auto",
+                      stream_chunk_rows: int = 0,
+                      n_devices: int = 1, prefer: str = "data",
+                      procs: int = 1, local_devices: int = 0,
+                      mesh_model: Optional[dict] = None,
+                      **model) -> PlacementPlan:
+    """The capacity walk (``data_stream=auto``, :255-374): where the bin
+    matrix lives, decided before it is copied to the card, by the
+    predicted peak of each rung in turn:
+
+    1. **resident**: the whole matrix on the card;
+    2. **chunked**: streamed row blocks (``data/stream.py``), the
+       requested (or default) block size first, then halving blocks down
+       to :data:`MIN_CHUNK_ROWS`;
+    3. **sharded**: the shape :func:`plan_mesh` finds over ``n_devices``
+       slots, when there are more than one.
+
+    ``data_stream=resident`` or ``chunked`` pins its rung (the pre-flight
+    still holds it to the budget later); an explicit
+    ``stream_chunk_rows`` pins the chunked rung's block size.  ``model``
+    goes to the cost function on every rung, ``mesh_model`` besides it on
+    the sharded rung.  Raises :class:`MeshPlanError` naming the best
+    candidate of each rung when nothing fits."""
+
+    def predict(chunk):
+        p = predict_hbm(rows=rows, features=features, bins=bins,
+                        leaves=leaves, num_class=num_class,
+                        bin_bytes=bin_bytes, packed_cols=packed_cols,
+                        valid_rows=valid_rows, stream_chunk_rows=chunk,
+                        **model)
+        return int(p["peak_bytes"]), memory.top_terms(p, 4)
+
+    def decide(plan: PlacementPlan) -> PlacementPlan:
+        log.info("Placement: %s (%s)", plan.mode, plan.reason)
+        return plan
+
+    res_peak, res_comps = predict(0)
+    if data_stream == "resident":
+        return decide(PlacementPlan(
+            "resident", 0, None, res_peak, capacity, res_comps,
+            "data_stream=resident pinned by config"))
+    if data_stream == "auto" and (capacity is None
+                                  or res_peak <= capacity):
+        why = ("resident: no capacity signal" if capacity is None else
+               f"resident: predicted peak {res_peak / 1e9:.2f} GB fits "
+               f"capacity {capacity / 1e9:.2f} GB")
+        return decide(PlacementPlan("resident", 0, None, res_peak,
+                                    capacity, res_comps, why))
+
+    forced_chunk = data_stream == "chunked"
+    best_stream = None
+    chunk = default_chunk_rows(rows, stream_chunk_rows)
+    while True:
+        peak, comps = predict(chunk)
+        if best_stream is None or peak < best_stream[1]:
+            best_stream = (chunk, peak, comps)
+        if forced_chunk and stream_chunk_rows:
+            # an explicit block size is a pin, not a starting point
+            break
+        if capacity is not None and peak > capacity \
+                and chunk > MIN_CHUNK_ROWS:
+            chunk = max(MIN_CHUNK_ROWS, chunk // 2)
+            continue
+        break
+    chunk, peak, comps = best_stream
+    if forced_chunk or capacity is None or peak <= capacity:
+        why = (f"chunked: {chunk}-row blocks, predicted peak "
+               f"{peak / 1e9:.2f} GB"
+               + (" pinned by data_stream=chunked" if forced_chunk else
+                  (f" fits capacity {capacity / 1e9:.2f} GB (resident "
+                   f"needs {res_peak / 1e9:.2f} GB)"
+                   if capacity is not None else "")))
+        return decide(PlacementPlan("chunked", chunk, None, peak,
+                                    capacity, comps, why))
+
+    if n_devices > 1:
+        try:
+            mp = plan_mesh(n_devices, rows, features, bins=bins,
+                           leaves=leaves, num_class=num_class,
+                           bin_bytes=bin_bytes, packed_cols=packed_cols,
+                           valid_rows=valid_rows, capacity=capacity,
+                           prefer=prefer, procs=procs,
+                           local_devices=local_devices,
+                           **{**model, **(mesh_model or {})})
+        except MeshPlanError:
+            mp = None
+        if mp is not None:
+            return decide(PlacementPlan(
+                "sharded", 0, mp, mp.per_device_bytes, capacity,
+                mp.components,
+                f"sharded: {mp.reason} (resident needs "
+                f"{res_peak / 1e9:.2f} GB, best streamed "
+                f"{peak / 1e9:.2f} GB)"))
+
+    detail = ", ".join(f"{k}={v / 1e9:.2f} GB" for k, v in comps.items())
+    raise MeshPlanError(
+        f"no data placement fits capacity "
+        f"{(capacity or 0) / 1e9:.2f} GB: resident needs "
+        f"{res_peak / 1e9:.2f} GB, best streamed candidate "
+        f"({chunk}-row blocks) still needs {peak / 1e9:.2f} GB "
+        f"(top components: {detail})"
+        + ("" if n_devices > 1 else ", and only 1 device is available "
+           "for sharding") +
+        " — shrink the shape (num_leaves/max_bin), lower "
+        "stream_chunk_rows, add devices, or raise hbm_budget")
 
 
 def pad_rows(n: int, shards: int) -> int:

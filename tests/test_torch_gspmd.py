@@ -27,8 +27,8 @@ on the JAX side, ``mesh_devices=8`` CPU slots on the port's.
   evenly over the feature shards stay on the fused histogram (the JAX
   package downgrades them to flat; its TPU layout needs equal slices)
   and agree with the JAX learner, one slot falls back to serial with a
-  warning, and every value outside the slice (block-sharded bins, the
-  planner's ``mesh_shape=auto``) raises NotImplementedError.
+  warning; block-sharded bins and the planner's ``mesh_shape=auto``,
+  which raised before they were ported, train.
 """
 import numpy as np
 import pytest
@@ -638,9 +638,21 @@ def test_one_slot_falls_back_to_serial(caplog):
     dict(mesh_shape="auto"),
 ], ids=["block-shard", "mesh-auto"])
 def test_values_outside_the_slice_raise(params):
+    """The two values that were outside the slice and raised now train:
+    block-sharded bins hold no full-width route copy and give the
+    replicated layout's model; ``mesh_shape=auto`` is planned (with no
+    capacity on the CPU, the preferred pure data-parallel shape)."""
     x, y = _task(n=500)
-    with pytest.raises(NotImplementedError, match="multi-device learners"):
-        _train_port(x, y, rounds=1, **params)
+    bst = _train_port(x, y, rounds=1, **params)
+    plan = bst.inner.mesh_plan
+    if "shard_axes" in params:
+        assert plan.block_shard_bins and bst.inner._gspmd.route_bins is None
+        want = _train_port(x, y, rounds=1, shard_axes="batch")
+        assert bst.model_to_string() == want.model_to_string()
+    else:
+        assert (plan.data, plan.feature, plan.block_shard_bins) == (8, 1,
+                                                                    False)
+        assert "no capacity signal" in plan.reason
 
 
 def test_mesh_helpers():

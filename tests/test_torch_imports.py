@@ -102,11 +102,7 @@ def test_predict_raises_without_card(no_card):
 
 @pytest.mark.parametrize("params", [
     {"collective_retries": 5},
-    {"tree_learner": "voting", "mesh_devices": 2},
-    {"shard_axes": "batch,feature"},
     {"elastic_resume": True},
-    {"tree_learner": "data", "mesh_devices": 2},
-    {"hbm_budget": 1e9},
     {"telemetry": True},
     {"snapshot_freq": 5},
 ])
@@ -115,6 +111,33 @@ def test_unsupported_params_raise(params):
     p = dict({"objective": "binary", "device": "cpu"}, **params)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         lt.train(p, lt.Dataset(x, y, params=p), 1)
+
+
+@pytest.mark.parametrize("params", [
+    {"tree_learner": "voting", "mesh_devices": 2},
+    {"shard_axes": "batch,feature"},
+    {"tree_learner": "data", "mesh_devices": 2},
+    {"hbm_budget": 1e9},
+])
+def test_formerly_unsupported_params_train(params):
+    """Values that raised until the planner was ported: two mesh slots at
+    ``mesh_shape=auto`` are planned (2x1, with no capacity on the CPU),
+    ``shard_axes`` leaves the serial learner as it is, and ``hbm_budget``
+    holds the placement walk and the pre-flight to its bytes."""
+    x, y = _small()
+    p = dict({"objective": "binary", "device": "cpu", "verbose": -1},
+             **params)
+    inner = lt.train(p, lt.Dataset(x, y, params=p), 1).inner
+    if "mesh_devices" in params:
+        plan = inner.mesh_plan
+        assert (plan.data, plan.feature) == (2, 1) and inner._gspmd
+        assert "no capacity signal" in plan.reason
+    else:
+        assert inner.plan.learner == "serial" and inner.mesh_plan is None
+        assert inner.placement.mode == "resident"
+    if "hbm_budget" in params:
+        assert inner.placement.capacity == 10 ** 9
+        assert inner.plan.prediction["peak_bytes"] <= 10 ** 9
 
 
 @pytest.mark.parametrize("params,message", [
