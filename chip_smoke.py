@@ -352,13 +352,31 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    learner's; the voting learner's model texts identical on both ranks; the
    feature learner's integer tree equal to the serial one; the distributed
    FindBin's mappers equal to the serial fit of 200,000 rows both hold; ms
-   a tree and the collectives' share of a timed tree.
+   a tree and the collectives' share of a timed tree; the data learner's
+   5 rounds under score-following integer gradients identical on both
+   ranks (phase 24c's reference).
+24. checkpoints (after phase 22): (24a) phase 3's Dataset on the serial
+   graph loop, 8 rounds with a snapshot every 2, under integer gradients
+   and then the binary objective: uninterrupted, crashed by
+   ``torn_checkpoint@6``, resumed (the torn 6 skipped, resumed at 4): the
+   integer model byte-identical, the binary one's restored trees exact
+   and its AUC within 1e-4, 8 host reads and 254 graph launches a tree
+   kept on every iteration after the first, no snapshot read between
+   snapshots; the snapshot's bytes and write seconds; (24b) this script
+   started with ``--worker`` trains with ``preempt_signal=sigterm``, gets
+   SIGTERM after its second tree, checkpoints and exits 0, and this
+   process resumes it to the integer model of 24a; (24c) the supervisor
+   runs two ``--worker`` ranks on the card over gloo,
+   ``rank_crash@3:rank=1`` kills rank 1, the group is torn down,
+   relaunched and resumed from the committed set: the model identical on
+   both ranks and to phase 22's; the restart's seconds by leg.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
 and 3 rounds of phase 6's path; then four processes, one a card, over
 NCCL, phase 22's data learner: the integer tree equal to the serial tree
-and 3 rounds identical on every rank.
+and 3 rounds identical on every rank, and a snapshot set written every 2
+rounds and resumed from at 2, byte-identical on every rank.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -5022,8 +5040,10 @@ def multi_card(params) -> None:
     and the 4x1 path for 3 rounds with its launch count.  Then four
     processes, one a card, over NCCL (phase 22's workers with
     ``tree_learner=data``): the integer tree equal to the serial tree, 3
-    rounds identical on every rank, ms a tree and the collectives' share.
-    Needs four cards."""
+    rounds identical on every rank, ms a tree and the collectives' share;
+    4 rounds of the score-following integer gradients with a snapshot set
+    every 2 rounds, and a resume from the set at 2 byte-identical on every
+    rank.  Needs four cards."""
     import torch
     if torch.cuda.device_count() < MESH_SLOTS:
         fail(f"--multi-card needs {MESH_SLOTS} cards; "
@@ -5055,11 +5075,15 @@ def multi_card(params) -> None:
     t0 = time.perf_counter()
     ranks = spawn_ranks(MESH_SLOTS, dict(params=params,
                                          learners={"data": (True, 3)},
-                                         findbin=0))
+                                         findbin=0, score_rounds=4,
+                                         resume_check=True))
     checks = {"integer_tree_equals_serial": all(
                   r["data_integer_model"] == serial_int for r in ranks),
               "models_identical": all(r["data_model"] == ranks[0]["data_model"]
-                                      for r in ranks)}
+                                      for r in ranks),
+              "group_resume_identical": all(
+                  r["resume_identical"] and r["data_score_model"]
+                  == ranks[0]["data_score_model"] for r in ranks)}
     r0 = ranks[0]
     phase("four_processes_four_cards", backend=r0["backend"],
           processes=r0["process_count"],
@@ -5071,7 +5095,8 @@ def multi_card(params) -> None:
           collective_ms=r0["data_collective_ms"],
           collective_share=r0["data_collective_share"],
           hist_local_launches=r0["data_launches"]["hist_local"],
-          route_rows_launches=r0["data_launches"]["route_rows"], **checks)
+          route_rows_launches=r0["data_launches"]["route_rows"],
+          resume_s=r0["resume_s"], shard_bytes=r0["shard_bytes"], **checks)
     bad = [k for k, v in checks.items() if not v]
     if bad or r0["backend"] != "nccl":
         fail(f"four processes on four cards: {bad}, backend {r0['backend']}")
@@ -6348,6 +6373,33 @@ def process_worker(spec_path: str) -> None:
         out["process_count"] = sync.process_count()
         out["device"] = str(bst.inner.device)
         del bst
+    if spec.get("score_rounds"):
+        # phase 24c's unsupervised reference: the data learner under the
+        # score-following integer gradients; with --multi-card, a snapshot
+        # set every 2 rounds and a resume from the set at 2 (the group
+        # protocol over NCCL), byte-identical
+        from lightgbm_tpu_torch import checkpoint
+        rounds = spec["score_rounds"]
+        p = dict(dist, tree_learner="data")
+        fobj = score_integer_fobj(y_tr[lo:hi])
+        t0 = time.perf_counter()
+        bst = train(p, share, rounds, fobj=fobj, verbose_eval=False)
+        out["data_score_model"] = bst.model_to_string()
+        out["data_score_s"] = f"{time.perf_counter() - t0:.3f}"
+        if spec.get("resume_check"):
+            snap = os.path.join(spec["dir"], "snap", "m.txt")
+            ps = dict(p, snapshot_freq=2, output_model=snap)
+            a = train(ps, share, rounds, fobj=fobj, verbose_eval=False)
+            t0 = time.perf_counter()
+            b = train(ps, share, rounds, fobj=fobj, verbose_eval=False,
+                      resume=checkpoint.shard_path(snap, 2, rank))
+            out["resume_s"] = f"{time.perf_counter() - t0:.3f}"
+            out["resume_identical"] = (a.model_to_string()
+                                       == b.model_to_string()
+                                       == out["data_score_model"])
+            out["shard_bytes"] = os.path.getsize(
+                checkpoint.shard_path(snap, 2, rank))
+        del bst
     if spec.get("findbin"):
         # every rank holds the same rows: the distributed fit (rank r fits
         # features j = r mod P) equals the serial fit of those rows
@@ -6374,8 +6426,11 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
     identical on both ranks; the feature learner's integer tree equal to
     the serial one and its round identical on both ranks; the distributed
     FindBin's mappers equal to the
-    serial fit of the same rows.  Reported: ms a tree, the collectives'
-    share of a timed tree, the kernels' launches in the workers."""
+    serial fit of the same rows; the data learner's ``SUP_ROUNDS`` rounds
+    under the score-following integer gradients identical on both ranks
+    (phase 24c's unsupervised reference, returned with the numbers).
+    Reported: ms a tree, the collectives' share of a timed tree, the
+    kernels' launches in the workers."""
     from lightgbm_tpu_torch import train
     from lightgbm_tpu_torch.data.dataset import construct
     from lightgbm_tpu_torch.config import config_from_params
@@ -6392,7 +6447,7 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
     # learner's the integer tree, with one round for the timed tree
     ranks = spawn_ranks(2, dict(params=params, learners={
         "data": (True, 3), "voting": (False, 3), "feature": (True, 1)},
-        findbin=findbin_rows))
+        findbin=findbin_rows, score_rounds=SUP_ROUNDS))
     wall = time.perf_counter() - t0
     r0, r1 = ranks
     from lightgbm_tpu_torch import Booster
@@ -6408,14 +6463,17 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
             == serial_int,
         "feature_models_identical": r0["feature_model"] == r1["feature_model"],
         "findbin_equals_serial":
-            r0["findbin_mappers"] == r1["findbin_mappers"] == mappers}
+            r0["findbin_mappers"] == r1["findbin_mappers"] == mappers,
+        "score_models_identical":
+            r0["data_score_model"] == r1["data_score_model"]}
     gap = abs(data_auc - serial_auc)
     out = dict(backend=r0["backend"], processes=r0["process_count"],
                devices=f"{r0['device']},{r1['device']}",
                rows=f"{r0['rows']},{r1['rows']}", spawn_to_exit_s=f"{wall:.1f}",
                worker_setup_s=f"{r0['setup_s']},{r1['setup_s']}",
                serial_auc=f"{serial_auc:.6f}", data_auc=f"{data_auc:.6f}",
-               data_auc_gap=f"{gap:.3e}", **checks)
+               data_auc_gap=f"{gap:.3e}", data_score_s=r0["data_score_s"],
+               **checks)
     for learner in ("data", "voting", "feature"):
         for k in ("integer_ms", "ms_per_tree", "timed_tree_ms",
                   "collective_ms", "collective_share", "collective_calls",
@@ -6438,7 +6496,513 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
         got = r0[f"{learner}_launches"]
         if not (got["hist_local"] and got["route_rows"]):
             fail(f"two processes, {learner}: kernel launches {got}")
+    return out, r0["data_score_model"]
+
+
+# ---- phases 24a-24c: checkpoints, preemption and the supervisor ----------
+
+CKPT_ROUNDS, CKPT_FREQ = 8, 2     # 24a/24b: rounds, a snapshot every 2
+SUP_ROUNDS = 5                    # 24c: rounds of the supervised group
+
+
+def score_integer_fobj(y: np.ndarray):
+    """Integer-valued gradients and hessians that follow the scores
+    (phases 22, 24a-24c, ``--multi-card``): the label's -3 or 2 plus a
+    step of the score, 1 to 3 for the hessian.  Every sum is exact in any
+    order, so a tree on the card is the same in every run, and a resumed
+    run, whose scores come back bit for bit, draws the uninterrupted run's
+    gradients."""
+    base = np.where(np.asarray(y) > 0, -3.0, 2.0)
+
+    def fobj(preds, data):
+        q = np.floor(np.asarray(preds, dtype=np.float64) * 8.0)
+        return base + np.mod(q, 5.0) - 2.0, 1.0 + np.mod(q, 3.0)
+    return fobj
+
+
+def model_trees(text: str) -> list:
+    """The ``Tree=`` blocks of a model text, in order, each stripped of
+    the blank lines and sections after it."""
+    for tail in ("end of trees", "feature importances:"):
+        text = text.split(tail)[0]
+    return [("Tree=" + b).strip() for b in text.split("Tree=")[1:]]
+
+
+def iteration_recorder(rows: list):
+    """A before-iteration callback that appends the booster's counters at
+    the start of each iteration to ``rows``."""
+    def record(env):
+        rows.append(dict(env.model.inner.stats))
+    record.before_iteration = True
+    return record
+
+
+def per_iteration(rows: list, final: dict) -> list:
+    """Each iteration's counters: its tree and the snapshot after it."""
+    marks = rows + [final]
+    return [{k: b[k] - a.get(k, 0) for k in b}
+            for a, b in zip(marks, marks[1:])]
+
+
+class TimedWrites:
+    """Times every single-file snapshot the engine writes while active
+    (``checkpoint.write_snapshot``, which the engine calls through its
+    module)."""
+
+    def __enter__(self):
+        from lightgbm_tpu_torch import checkpoint
+        self.mod, self.real, self.seconds = (checkpoint,
+                                             checkpoint.write_snapshot, [])
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            self.real(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+        checkpoint.write_snapshot = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.write_snapshot = self.real
+
+
+def checkpoint_resume(params, ds, y_tr, x_te, y_te) -> dict:
+    """Phase 24a: phase 3's Dataset on the serial graph loop (compact),
+    trained 8 rounds with a snapshot every 2, under the score-following
+    integer gradients and then the binary objective: uninterrupted; again
+    with ``fault_inject=torn_checkpoint@6`` (``SimulatedCrash``, the torn
+    file at the final path); then ``train(resume=True)``, which must skip
+    the torn 6 and resume at 4.  Held: the integer model byte-identical to
+    the uninterrupted one; the binary run's first 4 trees byte-identical
+    to those of the snapshot it resumed from and its held-out AUC within
+    1e-4 of the uninterrupted run's (K1's float atomics make two runs on
+    the card differ in the last bits, so its trees are compared with the
+    uninterrupted run's and reported, not held); the data fingerprint of
+    the card's bins equal to the host matrix's; on the binary runs
+    (gradients from the card, no ``fobj`` read), every iteration after the
+    first keeps 8 host reads and 254 graph launches a tree, those without
+    a snapshot no snapshot read; the resumed runs launch K1, K2 and the
+    route kernel.  Reported: the snapshot's bytes and write seconds."""
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch import checkpoint, train
+    from lightgbm_tpu_torch.obs.counters import counters
+    from lightgbm_tpu_torch.utils.faults import SimulatedCrash
+    fns = _kernel_wrappers()
+    tmp = tempfile.mkdtemp(prefix="lgbt_ckpt_")
+    torn_at, resume_at = CKPT_ROUNDS - 2, CKPT_ROUNDS - 4
+    out = {}
+    try:
+        for kind, fobj in (("integer", score_integer_fobj(y_tr)),
+                           ("binary", None)):
+            prefix = lambda run: os.path.join(tmp, kind, run, "m.txt")
+            p = dict(params, snapshot_freq=CKPT_FREQ)
+            rows = []
+            with TimedWrites() as writes:
+                t0 = time.perf_counter()
+                ref = train(dict(p, output_model=prefix("ref")), ds,
+                            CKPT_ROUNDS, fobj=fobj, verbose_eval=False,
+                            callbacks=[iteration_recorder(rows)])
+                torch.cuda.synchronize()
+                ref_s = time.perf_counter() - t0
+            its = per_iteration(rows, dict(ref.inner.stats))
+            ref_text = ref.model_to_string()
+            # the fingerprint of the bins on the card is the host matrix's
+            td = ds.constructed
+            fp_same = ref.inner.data_fingerprint() == \
+                checkpoint.data_fingerprint(td.binned, td.num_data)
+            ref_auc = auc(ref.predict(x_te), y_te)
+            init = int(ref.inner.boost_from_average_)
+            crash = prefix("crash")
+            try:
+                train(dict(p, output_model=crash,
+                           fault_inject=f"torn_checkpoint@{torn_at}"),
+                      ds, CKPT_ROUNDS, fobj=fobj, verbose_eval=False)
+            except SimulatedCrash:
+                pass
+            else:
+                fail(f"24a {kind}: torn_checkpoint@{torn_at} did not crash "
+                     f"the run")
+            try:
+                checkpoint.load_snapshot(checkpoint.snapshot_path(crash,
+                                                                  torn_at))
+                fail(f"24a {kind}: snapshot {torn_at} is not torn")
+            except checkpoint.CheckpointError:
+                pass
+            counters.reset()
+            for fn in fns.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = train(dict(p, output_model=crash), ds, CKPT_ROUNDS,
+                        fobj=fobj, verbose_eval=False, resume=True)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            launches = real_launches(
+                {k: fn.launches for k, fn in fns.items()},
+                loop_state(res.inner), res.inner.stats["graph_replays"], 1)
+            resumed = [e["iteration"]
+                       for e in counters.events("checkpoint_resume")]
+            skipped = [e["iteration"]
+                       for e in counters.events("checkpoint_skipped")]
+            snap_text, _ = checkpoint.load_snapshot(
+                checkpoint.snapshot_path(crash, resume_at))
+            first = init + resume_at
+            got = model_trees(res.model_to_string())
+            restored = got[:first] == model_trees(snap_text)[:first]
+            first_equal = got[:first] == model_trees(ref_text)[:first]
+            res_auc = auc(res.predict(x_te), y_te)
+            same = res.model_to_string() == ref_text
+            size = os.path.getsize(checkpoint.snapshot_path(prefix("ref"),
+                                                            CKPT_ROUNDS))
+            out[kind] = {
+                "snapshot_bytes": size,
+                "write_s": ",".join(f"{t:.3f}" for t in writes.seconds),
+                "uninterrupted_s": f"{ref_s:.3f}",
+                "resumed_s": f"{resume_s:.3f}",
+                "resumed_at": ",".join(map(str, resumed)),
+                "skipped": ",".join(map(str, skipped)),
+                "fingerprint_card_equals_host": fp_same,
+                "model_identical": same, "restored_trees_exact": restored,
+                "first_trees_equal_uninterrupted": first_equal,
+                "auc": f"{ref_auc:.6f}", "resumed_auc": f"{res_auc:.6f}",
+                **{f"{k}_launches": launches[k] for k in (
+                    "hist_window", "partition_window", "route_window")}}
+            if resumed != [resume_at] or torn_at not in skipped:
+                fail(f"24a {kind}: resumed at {resumed}, skipped {skipped}")
+            if not restored or not fp_same:
+                fail(f"24a {kind}: the resumed model's first {resume_at} "
+                     f"trees the snapshot's: {restored}; the fingerprint "
+                     f"of the card's bins the host's: {fp_same}")
+            if kind == "integer" and not same:
+                fail("24a: the resumed integer model differs from the "
+                     "uninterrupted one")
+            if abs(res_auc - ref_auc) > 1e-4:
+                fail(f"24a: resumed AUC {res_auc} is {abs(res_auc - ref_auc)}"
+                     f" from the uninterrupted {ref_auc} (limit 1e-4)")
+            for k in ("hist_window", "partition_window", "route_window"):
+                if not launches[k]:
+                    fail(f"24a {kind}: the resumed run launched no {k}")
+            if kind == "binary":
+                # iteration 0 holds the capture; a snapshot follows every
+                # second iteration
+                snap = [d for i, d in enumerate(its)
+                        if i and (i + 1) % CKPT_FREQ == 0]
+                plain = [d for i, d in enumerate(its)
+                         if i and (i + 1) % CKPT_FREQ]
+                for name, group in (("snapshot", snap), ("plain", plain)):
+                    out[kind][f"{name}_iteration_host_reads"] = ",".join(
+                        str(d["host_syncs"]) for d in group)
+                    out[kind][f"{name}_iteration_graph_launches"] = ",".join(
+                        str(d["graph_replays"]) for d in group)
+                    out[kind][f"{name}_iteration_snapshot_reads"] = ",".join(
+                        str(d["snapshot_host_reads"]) for d in group)
+                bad = [d for d in snap + plain
+                       if d["host_syncs"] != 8 or d["graph_replays"] != 254]
+                bad += [d for d in plain if d["snapshot_host_reads"]]
+                if bad:
+                    fail(f"24a: iterations off 8 host reads and 254 graph "
+                         f"launches a tree: {bad}")
+            phase(f"checkpoint_resume_{kind}", **out[kind])
+            if kind == "integer":      # phase 24b's reference
+                out["integer_model"] = ref_text
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def preempt_worker(spec: dict) -> None:
+    """Phase 24b's process: phase 3's Dataset trained on the card with
+    ``preempt_signal=sigterm`` under the score-following integer
+    gradients; after its second tree it tells the parent (``ready``) and
+    waits for the parent's SIGTERM (``sent``), then the engine writes its
+    checkpoint at the next boundary and leaves the loop."""
+    from lightgbm_tpu_torch import Dataset, train
+    rng = np.random.default_rng(SEED + 1)
+    x_tr, y_tr = higgs_like(N_ROWS + N_HELDOUT, rng)
+    x_tr, y_tr = x_tr[:N_ROWS], y_tr[:N_ROWS]
+    ds = Dataset(x_tr, y_tr, params=spec["params"]).construct()
+    ready = os.path.join(spec["dir"], "ready")
+    sent = os.path.join(spec["dir"], "sent")
+
+    def gate(env):
+        if env.iteration == 1:
+            open(ready, "w").close()
+            deadline = time.monotonic() + 120
+            while not os.path.exists(sent) and time.monotonic() < deadline:
+                time.sleep(0.01)
+
+    bst = train(dict(spec["params"], preempt_signal="sigterm",
+                     output_model=os.path.join(spec["dir"], "m.txt")),
+                ds, spec["rounds"], fobj=score_integer_fobj(y_tr),
+                verbose_eval=False, callbacks=[gate])
+    with open(os.path.join(spec["dir"], "result.json"), "w") as f:
+        json.dump({"iteration": bst.current_iteration()}, f)
+
+
+def preempt_sigterm(params, ds, y_tr, ref_text: str) -> dict:
+    """Phase 24b: a real SIGTERM.  This script started with ``--worker``
+    trains on the card (:func:`preempt_worker`); after its second tree the
+    parent sends it SIGTERM; it must write its checkpoint at iteration 2
+    and exit 0.  This process then resumes from that checkpoint (the
+    Dataset built again in another process: the data fingerprint must
+    agree) and finishes: the integer model byte-identical to 24a's."""
+    import signal
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch import checkpoint, train
+    from lightgbm_tpu_torch.obs.counters import counters
+    tmp = tempfile.mkdtemp(prefix="lgbt_preempt_")
+    try:
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(dict(mode="preempt", params=params, dir=tmp,
+                           rounds=CKPT_ROUNDS), f)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             spec_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        ready, deadline = os.path.join(tmp, "ready"), time.monotonic() + 300
+        while not os.path.exists(ready):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                proc.kill()
+                fail(f"24b: the worker never reached its second tree:\n"
+                     f"{proc.communicate()[0][-4000:]}")
+            time.sleep(0.02)
+        t_ready = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        open(os.path.join(tmp, "sent"), "w").close()
+        try:
+            text = proc.communicate(timeout=300)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail("24b: the worker outlived SIGTERM by 300 s")
+        t_exit = time.perf_counter()
+        if proc.returncode != 0:
+            fail(f"24b: the worker exited {proc.returncode} after SIGTERM:\n"
+                 f"{text[-4000:]}")
+        with open(os.path.join(tmp, "result.json")) as f:
+            stopped = json.load(f)["iteration"]
+        snap = os.path.join(tmp, "m.txt")
+        if stopped != 2 or not os.path.exists(
+                checkpoint.snapshot_path(snap, 2)):
+            fail(f"24b: the worker stopped at {stopped}, snapshots "
+                 f"{checkpoint.list_snapshots(snap)}")
+        counters.reset()
+        t0r = time.perf_counter()
+        bst = train(dict(params, preempt_signal="sigterm",
+                         output_model=snap), ds, CKPT_ROUNDS,
+                    fobj=score_integer_fobj(y_tr), verbose_eval=False,
+                    resume=True)
+        torch.cuda.synchronize()
+        t_res = time.perf_counter() - t0r
+        resumed = [e["iteration"]
+                   for e in counters.events("checkpoint_resume")]
+        same = bst.model_to_string() == ref_text
+        out = dict(worker_spawn_to_second_tree_s=f"{t_ready - t0:.3f}",
+                   sigterm_to_exit_s=f"{t_exit - t_ready:.3f}",
+                   stopped_at=stopped, resumed_at=",".join(map(str, resumed)),
+                   resume_to_end_s=f"{t_res:.3f}", model_identical=same)
+        phase("preempt_sigterm", **out)
+        if resumed != [2] or not same:
+            fail(f"24b: resumed at {resumed}; model identical {same}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def supervised_worker(spec: dict) -> None:
+    """One rank of phase 24c, started by the supervisor: phase 22's rows
+    and learner (its share of the rows, binned with the whole set's
+    mappers) over a gloo group on the one card, ``SUP_ROUNDS`` rounds of
+    the score-following integer gradients with a snapshot every round,
+    ``resume=True``; the first incarnation carries the fault.  It writes
+    its model, the times of its legs and its launches to
+    ``<dir>/rank<r>.attempt<a>.json``."""
+    t_start = time.time()
+    import torch
+    from lightgbm_tpu_torch import Dataset, train
+    from lightgbm_tpu_torch.obs.counters import counters
+    from lightgbm_tpu_torch.parallel.mesh import shutdown_distributed
+    rank = int(os.environ["LGBM_TPU_RANK"])
+    attempt = int(os.environ["LGBM_TPU_SUPERVISOR_ATTEMPT"])
+    world = spec["world"]
+    rng = np.random.default_rng(SEED + 1)
+    x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
+    x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
+    del x_all, y_all
+    lo, hi = rank * N_ROWS // world, (rank + 1) * N_ROWS // world
+    union = Dataset(x_tr, y_tr, params=spec["params"]).construct()
+    share = union.subset(np.arange(lo, hi)).construct()
+    t_data = time.time()
+    p = dict(spec["params"], tree_learner="data", num_machines=world,
+             machine_list_file=spec["mlist"], snapshot_freq=1,
+             output_model=spec["snap"], heartbeat_interval=0.5)
+    if attempt == 0:
+        p["fault_inject"] = spec["fault"]
+    marks = {}
+
+    def first(env):
+        marks.setdefault("t_first_iteration", time.time())
+        marks.setdefault("start_iteration", env.iteration)
+    first.before_iteration = True
+    fns = _kernel_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    t_train = time.time()
+    bst = train(p, share, spec["rounds"], fobj=score_integer_fobj(y_tr[lo:hi]),
+                verbose_eval=False, resume=True, callbacks=[first])
+    torch.cuda.synchronize()
+    out = dict(rank=rank, attempt=attempt, t_start=t_start, t_data=t_data,
+               t_train=t_train, t_end=time.time(), **marks,
+               model=bst.model_to_string(),
+               resumed=[e["iteration"]
+                        for e in counters.events("checkpoint_resume")],
+               launches={k: fn.launches for k, fn in fns.items()},
+               backend=bst.inner.dist_backend)
+    with open(os.path.join(spec["dir"],
+                           f"rank{rank}.attempt{attempt}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown_distributed()
+
+
+def supervised_restart(params, ref_text: str, fault="rank_crash@3:rank=1",
+                       deadline_s: float = 420.0) -> dict:
+    """Phase 24c: the supervisor runs two ranks of :func:`supervised_worker`
+    that share the card over gloo; ``rank_crash@3:rank=1`` kills rank 1
+    hard at iteration 3, before its snapshot.  The supervisor sees the
+    death, tears rank 0 down (SIGTERM), relaunches both, and they resume
+    from the set committed at 2 (or 3).  Held: one restart, both ranks
+    resumed at the same committed set, the final integer model
+    byte-identical on both ranks and to phase 22's unsupervised
+    two-process run's.  Reported: the restart's wall seconds, split into
+    detection to teardown, teardown to relaunch (triage, backoff, sweep,
+    spawn) and relaunch to the first resumed iteration (the processes'
+    start, the Dataset, the process group, the resume barrier and the
+    restore), and each rank's legs of that last one."""
+    import tempfile
+    import threading
+    from lightgbm_tpu_torch.obs.counters import counters
+    from lightgbm_tpu_torch.parallel.mesh import refresh_local_ports
+    from lightgbm_tpu_torch.supervisor import Supervisor
+
+    legs = []
+
+    class TimedSupervisor(Supervisor):
+        """The supervisor with the wall clock of its restart's legs."""
+
+        def _check(self):
+            verdict = super()._check()
+            if verdict not in (None, "done"):
+                legs.append(("detected", time.time()))
+            return verdict
+
+        def _teardown(self):
+            super()._teardown()
+            legs.append(("torn_down", time.time()))
+
+        def _launch(self):
+            super()._launch()
+            legs.append(("launched", time.time()))
+
+    tmp = tempfile.mkdtemp(prefix="lgbt_sup_")
+    try:
+        mlist = os.path.join(tmp, "mlist.txt")
+        with open(mlist, "w") as f:
+            f.write("127.0.0.1 0\n127.0.0.1 0\n")
+        snap = os.path.join(tmp, "snap", "m.txt")
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(dict(mode="supervised", params=params, world=2,
+                           mlist=mlist, snap=snap, dir=tmp, fault=fault,
+                           rounds=SUP_ROUNDS), f)
+        counters.reset()
+        sup = TimedSupervisor(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             spec_path], snap, 2, heartbeat_interval=0.5, hang_timeout=300,
+            restart_limit=1, restart_backoff=0.5, term_grace=10.0,
+            poll_interval=0.05,
+            env=dict(GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo"),
+            prelaunch=lambda s: refresh_local_ports(mlist))
+        box = []
+        t0 = time.time()
+        th = threading.Thread(target=lambda: box.append(sup.run()),
+                              daemon=True)
+        th.start()
+        th.join(deadline_s)
+        if th.is_alive():
+            sup.restart_limit = 0
+            for rk in list(sup._ranks):
+                rk.proc.kill()
+            th.join(60)
+        logs = ""
+        for r in range(2):
+            path = f"{snap}.rank_{r}.log"
+            if os.path.exists(path):
+                with open(path, errors="replace") as f:
+                    logs += f"--- rank {r}\n{f.read()[-3000:]}\n"
+        if box != [0]:
+            fail(f"24c: the supervisor returned {box} after "
+                 f"{time.time() - t0:.1f} s:\n{logs}")
+        res = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.attempt1.json")) as f:
+                res.append(json.load(f))
+        dead = counters.events("rank_dead")
+        restarts = counters.events("group_restart")
+        at = dict(legs)
+        first = max(r["t_first_iteration"] for r in res)
+        out = dict(
+            supervised_wall_s=f"{time.time() - t0:.1f}",
+            rank_dead=",".join(f"{e['rank']}:{e['exit_code']}" for e in dead),
+            restarts=len(restarts),
+            resume_iteration=",".join(str(r["resumed"]) for r in res),
+            detected_to_torn_down_s=f"{at['torn_down'] - at['detected']:.3f}",
+            torn_down_to_relaunched_s=(
+                f"{legs[-1][1] - at['torn_down']:.3f}"),
+            relaunched_to_resumed_s=f"{first - legs[-1][1]:.3f}",
+            **{f"rank{r['rank']}_{k}": v for r in res for k, v in (
+                ("start_s", f"{r['t_start'] - legs[-1][1]:.3f}"),
+                ("data_s", f"{r['t_data'] - r['t_start']:.3f}"),
+                ("group_and_restore_s",
+                 f"{r['t_first_iteration'] - r['t_train']:.3f}"),
+                ("rounds_s", f"{r['t_end'] - r['t_first_iteration']:.3f}"))},
+            backend=res[0]["backend"],
+            models_identical=res[0]["model"] == res[1]["model"],
+            equals_unsupervised=res[0]["model"] == ref_text,
+            hist_local_launches_rank0=res[0]["launches"]["hist_local"],
+            route_rows_launches_rank0=res[0]["launches"]["route_rows"])
+        phase("supervised_restart", **out)
+        if not (dead and dead[0]["rank"] == 1 and dead[0]["exit_code"] == 70
+                and len(restarts) == 1):
+            fail(f"24c: deaths {dead}, restarts {restarts}")
+        if res[0]["resumed"] != res[1]["resumed"] or \
+                res[0]["resumed"][0] not in (2, 3):
+            fail(f"24c: the ranks resumed at {res[0]['resumed']} and "
+                 f"{res[1]['resumed']}")
+        if not (out["models_identical"] and out["equals_unsupervised"]):
+            fail("24c: the supervised model differs across ranks or from "
+                 "the unsupervised two-process run's")
+        if not (res[0]["launches"]["hist_local"]
+                and res[0]["launches"]["route_rows"]):
+            fail(f"24c: rank 0's launches {res[0]['launches']}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def worker(spec_path: str) -> None:
+    """A process this script started: phase 22's and ``--multi-card``'s
+    ranks, 24b's preempted training or 24c's supervised ranks."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mode = spec.get("mode", "ranks")
+    if mode == "preempt":
+        preempt_worker(spec)
+    elif mode == "supervised":
+        supervised_worker(spec)
+    else:
+        process_worker(spec_path)
 
 
 def main() -> None:
@@ -6447,8 +7011,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
     if sys.argv[1:2] == ["--worker"] and len(sys.argv) == 3:
-        # a rank that phase 22 or --multi-card started
-        process_worker(sys.argv[2])
+        # a process that phase 22, 24b, 24c or --multi-card started
+        worker(sys.argv[2])
         return
     multi = sys.argv[1:] == ["--multi-card"]
     if sys.argv[1:] and not multi:
@@ -6602,7 +7166,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phase 22: two processes on the one card ---------------------------
-    procs = two_processes(params, higgs_ds, x_tr, y_tr, x_te, y_te)
+    procs, procs_score_model = two_processes(params, higgs_ds, x_tr, y_tr,
+                                             x_te, y_te)
+    torch.cuda.empty_cache()
+
+    # ---- phases 24a-24c: checkpoints, a real SIGTERM, the supervisor ------
+    ckpt = checkpoint_resume(params, higgs_ds, y_tr, x_te, y_te)
+    torch.cuda.empty_cache()
+    preempt = preempt_sigterm(params, higgs_ds, y_tr, ckpt["integer_model"])
+    sup = supervised_restart(params, procs_score_model)
     torch.cuda.empty_cache()
 
     # ---- phase 20a: streamed trees of the Higgs path ----------------------
@@ -6790,7 +7362,11 @@ def main() -> None:
           two_processes_feature_ms_per_tree=procs["feature_ms_per_tree"],
           block_sharded_graph_ms_per_tree=block_tree["graph_ms_per_tree"],
           chunked_rung_ms_per_tree=chunked["ms_per_tree"],
-          planner_rung_ms_per_tree=mslr["planner"]["ms_per_tree"])
+          planner_rung_ms_per_tree=mslr["planner"]["ms_per_tree"],
+          snapshot_bytes=ckpt["binary"]["snapshot_bytes"],
+          snapshot_write_s=ckpt["binary"]["write_s"],
+          sigterm_to_exit_s=preempt["sigterm_to_exit_s"],
+          supervised_wall_s=sup["supervised_wall_s"])
     u16 = lambda name: wide_kernel_fields(name, wide, wide_serial, wide_dp,
                                           wide_expo)
 
@@ -6807,6 +7383,9 @@ def main() -> None:
         "ms": root["ms"], "plain_ms": root["plain_ms"],
         "bound_ms": root["bound_ms"], "bound_by": "bytes",
         "library_ms": root["library_ms"],
+        # phase 24a's resumed runs (integer, binary), graph loop
+        **{f"launches_24a_resumed_{k}": ckpt[k]["hist_window_launches"]
+           for k in ("integer", "binary")},
         **small_window_fields(root, timing[4097]), **u16("hist_gather")}, {
         "name": "hist_local", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/hist_local.cu",
@@ -6819,6 +7398,8 @@ def main() -> None:
         **{f"launches_two_processes_{k}_rank0": 2 * procs.get(
             f"{k}_hist_local_launches", 0)
            for k in ("data", "voting", "feature")},
+        # phase 24c's resumed incarnation, rank 0
+        "launches_24c_supervised_rank0": 2 * sup["hist_local_launches_rank0"],
         "ms": lroot["ms"], "plain_ms": lroot["plain_ms"],
         "bound_ms": lroot["bound_ms"], "bound_by": "bytes",
         "library_ms": lroot["library_ms"],
@@ -6832,6 +7413,8 @@ def main() -> None:
         "replaces": "lightgbm_tpu/ops/pallas_compact.py:98",
         "launches": LAUNCHES * expo_launches["partition_window"],
         "calls": expo_launches["partition_window"], "max_abs_err": 0.0,
+        **{f"launches_24a_resumed_{k}": LAUNCHES * ckpt[k][
+            "partition_window_launches"] for k in ("integer", "binary")},
         "ms": proot["ms"], "plain_ms": proot["plain_ms"],
         "bound_ms": proot["bound_ms"], "bound_by": "bytes",
         "library_ms": proot["library_ms"],
@@ -6858,6 +7441,8 @@ def main() -> None:
         "source": "lightgbm_tpu_torch/csrc/route.cu",
         "replaces": "lightgbm_tpu/grower.py:372",
         "launches": expo_launches["route_window"], "max_abs_err": 0.0,
+        **{f"launches_24a_resumed_{k}": ckpt[k]["route_window_launches"]
+           for k in ("integer", "binary")},
         "ms": rroot["ms"], "plain_ms": rroot["plain_ms"],
         "bound_ms": rroot["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "ms_many": rroot["ms_many"],
@@ -6875,6 +7460,7 @@ def main() -> None:
         **{f"launches_two_processes_{k}_rank0": procs.get(
             f"{k}_route_rows_launches", 0)
            for k in ("data", "voting", "feature")},
+        "launches_24c_supervised_rank0": sup["route_rows_launches_rank0"],
         "ms": rows_timing["root"]["ms"],
         "plain_ms": rows_timing["root"]["plain_ms"],
         "bound_ms": rows_timing["root"]["bound_ms"], "bound_by": "bytes",

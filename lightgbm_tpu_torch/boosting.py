@@ -80,7 +80,9 @@ from .parallel import sync
 from .parallel.gspmd import GspmdGrower, Procs, resolve_gspmd_hist
 from .predictor import (Predictor, SoABundle, predict_binned_leaf,
                         trees_scores_binned)
+from . import checkpoint as checkpoint_mod
 from .tree import Tree
+from .utils import faults as faults_mod
 from .utils import log
 from .utils.random import make_rng, sample_k
 
@@ -373,11 +375,13 @@ class GBDT:
                                 if train_set else 0)
         self.feature_infos = ""      # a loaded model's feature_infos line
         # per-training counters: host reads of the grow loop, splits, trees,
-        # the host reads of row sampling (GOSS: one a sampled iteration) and
-        # the non-finite guard's trips
+        # the host reads of row sampling (GOSS: one a sampled iteration), the
+        # non-finite guard's trips and the copies a snapshot reads from the
+        # device (checkpoint_state)
         self.stats: Dict[str, int] = {"host_syncs": 0, "splits": 0,
                                       "trees": 0, "sample_host_reads": 0,
-                                      "nonfinite_trips": 0}
+                                      "nonfinite_trips": 0,
+                                      "snapshot_host_reads": 0}
         # (iteration, training scores, valid scores) cloned at the start of
         # the last iteration: its rollback restores them bit for bit
         self._score_stash = None
@@ -801,6 +805,16 @@ class GBDT:
             g, h = self.objective.get_gradients(self.scores)
         else:
             g, h = self._custom_gradients(grad, hess)
+        fi = faults_mod.get_faults()
+        if fi.enabled:
+            # the fault points beside the guard (boosting.py:1294-1299); a
+            # copy, so that RF's gradients of the zero score stay clean
+            if fi.fire("nan_grad", int(self.iter_)):
+                g = g.clone()
+                g[0, 0].fill_(float("nan"))
+            if fi.fire("inf_hess", int(self.iter_)):
+                h = h.clone()
+                h[0, 0].fill_(float("inf"))
         # the guard's flag on the device (boosting.py:1298-1306), read with
         # the tree's copy to the host; clamp sanitizes g -> 0, h -> 1
         gh_ok = torch.isfinite(g).all() & torch.isfinite(h).all()
@@ -994,6 +1008,116 @@ class GBDT:
                 self._pop_tree_and_revert(k)
         self._score_stash = None
         self.iter_ -= 1
+
+    # ------------------------------------------------------------ checkpoint
+
+    def data_fingerprint(self) -> int:
+        """Identity of this process's training rows (boosting.py:1637):
+        shape, type and a strided sample of the bin matrix where the
+        training holds it — on the device, or in page-locked host memory
+        when streamed.  The same integer on the CPU and on the card for the
+        same Dataset, so a snapshot taken on one resumes on the other."""
+        ts = self.train_set
+        binned = (self.bins if self.bins is not None
+                  else None if ts is None else ts.binned)
+        return checkpoint_mod.data_fingerprint(
+            binned, 0 if ts is None else ts.num_data)
+
+    def checkpoint_state(self) -> dict:
+        """Everything ``train_one_iter`` reads that the config and the
+        Dataset do not give (boosting.py:1648): the trees, the iteration
+        counts, the training and valid scores, the bagging and feature
+        streams, the live bag and the learning rate.  The device tensors
+        are copied to the host here, at a snapshot only; the iterations
+        between snapshots read nothing more."""
+        def host(t):
+            if t is None:
+                return None
+            self.stats["snapshot_host_reads"] += 1
+            return t.cpu().numpy()
+
+        if self.bins is not None:     # the fingerprint's sample of the bins
+            self.stats["snapshot_host_reads"] += 1
+        return {
+            "data_fingerprint": self.data_fingerprint(),
+            "kind": self.sub_model_name,
+            "models": list(self.models),
+            "iter_": self.iter_,
+            "num_init_iteration": self.num_init_iteration,
+            "boost_from_average_": self.boost_from_average_,
+            "scores": host(self.scores),
+            "valid_scores": [host(vs.scores) for vs in self.valid_sets],
+            "bag_rng": self._bag_rng.bit_generator.state,
+            "feat_rng": self._feat_rng.bit_generator.state,
+            "bagging_on": self._bagging_on,
+            "bag_weight": host(self._bag_weight),
+            # the count weights when they are not all 1 or the bag weights
+            "bag_cnt": (None if self._bag_cnt is self._ones
+                        or self._bag_cnt is self._bag_weight
+                        else host(self._bag_cnt)),
+            "subset": (None if self._subset is None else
+                       {"idx": host(self._subset[0]),
+                        "w": host(self._subset[1])}),
+            "learning_rate": self.config.learning_rate,
+        }
+
+    def load_checkpoint_state(self, st: dict) -> None:
+        """Inverse of :meth:`checkpoint_state` (boosting.py:1672), on a
+        booster of the same Dataset and parameters: a fingerprint of other
+        data raises :class:`~.checkpoint.CheckpointError`.  It runs before
+        the first tree, so before any capture, and writes the scores into
+        the existing tensors in place (``copy_``); the tensors a captured
+        split step reads (bins, metadata, the feature mask, the grower's
+        own buffers) are never replaced, so a graph captured earlier stays
+        valid."""
+        fp = st.get("data_fingerprint")
+        if fp is not None and int(fp) != self.data_fingerprint():
+            raise checkpoint_mod.CheckpointError(
+                "checkpoint dataset-partition fingerprint does not match "
+                "the training data this booster holds — resuming would "
+                "silently diverge (did the row shard or binning change?)")
+        scores = np.asarray(st["scores"])
+        if tuple(scores.shape) != tuple(self.scores.shape):
+            raise checkpoint_mod.CheckpointError(
+                f"checkpoint scores of shape {scores.shape} do not fit "
+                f"this booster's {tuple(self.scores.shape)}")
+        dev = self.device
+        put = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+        self.models = list(st["models"])
+        self.iter_ = int(st["iter_"])
+        self.num_init_iteration = int(st["num_init_iteration"])
+        self.boost_from_average_ = bool(st["boost_from_average_"])
+        self.scores.copy_(torch.from_numpy(scores))
+        for vs, sc in zip(self.valid_sets, st["valid_scores"]):
+            vs.scores.copy_(torch.from_numpy(np.asarray(sc)))
+        self._bag_rng = make_rng(0)
+        self._bag_rng.bit_generator.state = st["bag_rng"]
+        self._feat_rng = make_rng(0)
+        self._feat_rng.bit_generator.state = st["feat_rng"]
+        self._bagging_on = bool(st["bagging_on"])
+        self._bag_weight = (None if st["bag_weight"] is None
+                            else put(st["bag_weight"]))
+        self._bag_cnt = (put(st["bag_cnt"]) if st["bag_cnt"] is not None
+                         else self._bag_weight
+                         if self._bag_weight is not None and self._bagging_on
+                         else self._ones)
+        if st["subset"] is not None and self._streamer is not None:
+            log.fatal("checkpoint carries a bagged-subset gather state but "
+                      "this booster streams its binned data "
+                      "(data_stream=chunked keeps no device row matrix to "
+                      "gather from); resume with data_stream=resident")
+        if st["subset"] is not None:
+            w = put(st["subset"]["w"])
+            self._subset = (put(st["subset"]["idx"]), w)
+            self._bag_cnt = (w > 0).float()
+        else:
+            self._subset = None
+        self.config.learning_rate = float(st["learning_rate"])
+        # the next tree draws and copies its feature mask afresh
+        self._feat_sampled = True
+        self._score_stash = None
+        self._nf_event_iter = self._nf_rolled_iter = None
+        self.model_epoch += 1
 
     def merge_from(self, other: "GBDT") -> None:
         """GBDT::MergeFrom (gbdt.h:47-66, boosting.py:1867): the other
@@ -1267,6 +1391,26 @@ class DART(GBDT):
 
     def _shrinkage_rate(self) -> float:
         return self._shrinkage
+
+    def checkpoint_state(self) -> dict:
+        """With DART's drop stream, tree weights and shrinkage
+        (boosting.py:2132)."""
+        st = super().checkpoint_state()
+        st["dart"] = {"drop_rng": self._drop_rng.bit_generator.state,
+                      "tree_weight": list(self.tree_weight),
+                      "sum_weight": self.sum_weight,
+                      "shrinkage": self._shrinkage}
+        return st
+
+    def load_checkpoint_state(self, st: dict) -> None:
+        super().load_checkpoint_state(st)
+        d = st.get("dart") or {}
+        if "drop_rng" in d:
+            self._drop_rng = make_rng(0)
+            self._drop_rng.bit_generator.state = d["drop_rng"]
+        self.tree_weight = list(d.get("tree_weight", []))
+        self.sum_weight = float(d.get("sum_weight", 0.0))
+        self._shrinkage = float(d.get("shrinkage", self.config.learning_rate))
 
     def _normalize(self) -> None:
         """dart.hpp:141-180 (boosting.py:2150)."""

@@ -86,11 +86,14 @@ def reset_parameter(**kwargs) -> Callable:
 def early_stopping(stopping_rounds: int, verbose: bool = True) -> Callable:
     """Stop when no metric improved for ``stopping_rounds`` iterations.  A
     NaN value never counts as an improvement (every comparison with NaN is
-    false), so the best score stays the last finite one."""
+    false), so the best score stays the last finite one.  The callback's
+    ``checkpoint_state()`` and ``restore_state(state)`` carry its bests
+    through a snapshot (``lightgbm_tpu/callback.py:140-150``)."""
     best_score: List[float] = []
     best_iter: List[int] = []
     best_score_list: List = []
     cmp_op: List[Callable] = []
+    pending_restore: List[Dict] = []
 
     def _init(env: CallbackEnv) -> None:
         if not env.evaluation_result_list:
@@ -112,6 +115,11 @@ def early_stopping(stopping_rounds: int, verbose: bool = True) -> Callable:
     def _callback(env: CallbackEnv) -> None:
         if not cmp_op:
             _init(env)
+        if pending_restore:
+            st = pending_restore.pop()
+            best_score[:] = st["best_score"]
+            best_iter[:] = st["best_iter"]
+            best_score_list[:] = st["best_score_list"]
         for i, item in enumerate(env.evaluation_result_list):
             score = item[2]
             if cmp_op[i](score, best_score[i]):
@@ -123,5 +131,17 @@ def early_stopping(stopping_rounds: int, verbose: bool = True) -> Callable:
                     log.info("Early stopping, best iteration is: [%d]",
                              best_iter[i] + 1)
                 raise EarlyStopException(best_iter[i], best_score_list[i])
+
+    def _checkpoint_state() -> Dict:
+        return {"best_score": list(best_score),
+                "best_iter": list(best_iter),
+                "best_score_list": list(best_score_list)}
+
+    def _restore_state(state: Dict) -> None:
+        # applied at the next call, after _init sized the lists
+        pending_restore[:] = [dict(state)]
+
     _callback.order = 30
+    _callback.checkpoint_state = _checkpoint_state
+    _callback.restore_state = _restore_state
     return _callback

@@ -247,6 +247,29 @@ class Config:
     # (lightgbm_tpu/boosting.py:1566-1621): raise | rollback | clamp
     nonfinite_policy: str = "raise"
 
+    # checkpoints, preemption and the supervisor's liveness
+    # (lightgbm_tpu/config.py:205-215, :323-368, :491; checkpoint.py,
+    # supervisor.py): snapshots <output_model>.snapshot_iter_N every
+    # snapshot_freq iterations (-1: none), the snapshot_keep newest kept
+    # (-1: all), snapshot_resume from the newest valid one
+    output_model: str = "LightGBM_model.txt"
+    snapshot_freq: int = -1
+    snapshot_keep: int = -1
+    snapshot_resume: bool = False
+    fault_inject: str = ""         # utils/faults.py spec, e.g. nan_grad@3
+    heartbeat_interval: float = 0.0  # seconds between liveness stamps
+    #                                  (<output_model>.heartbeat.rank_R);
+    #                                  0 = off
+    hang_timeout: float = 0.0      # the supervisor's hang verdict (0 = its
+    #                                default, 300 s)
+    restart_limit: int = 3         # restarts without forward progress
+    restart_backoff: float = 1.0   # seconds before the first relaunch;
+    #                                doubles a restart
+    preempt_signal: str = ""       # sigterm and/or sigint: a checkpoint at
+    #                                the next iteration boundary, then a
+    #                                clean exit ("" = off)
+    collective_retries: int = 2    # the host-object collectives' retries
+
     def copy(self) -> "Config":
         return dataclasses.replace(self)
 
@@ -301,13 +324,9 @@ NOT_PORTED: Dict[str, tuple] = {
     "is_training_metric": (False, _SERVING),
     "output_freq": (1, _SERVING),
     "num_iteration_predict": (-1, _SERVING),
-    "output_model": ("LightGBM_model.txt", _SERVING),
     "input_model": ("", _SERVING),
     "output_result": ("LightGBM_predict_result.txt", _SERVING),
     "convert_model": ("gbdt_prediction.cpp", _SERVING),
-    "snapshot_freq": (-1, _SERVING),
-    "snapshot_keep": (-1, _SERVING),
-    "snapshot_resume": (False, _SERVING),
     "profile_dir": ("", _SERVING),
     "device_profile": (False, _SERVING),
     "profile_iters": (2, _SERVING),
@@ -316,13 +335,7 @@ NOT_PORTED: Dict[str, tuple] = {
     "metrics_port": (0, _SERVING),
     "obs_stream_path": ("", _SERVING),
     "model_quality": ("auto", _SERVING),
-    "fault_inject": ("", _SERVING),
     "straggler_factor": (4.0, _SERVING),
-    "heartbeat_interval": (0.0, _SERVING),
-    "hang_timeout": (0.0, _SERVING),
-    "restart_limit": (3, _SERVING),
-    "restart_backoff": (1.0, _SERVING),
-    "preempt_signal": ("", _SERVING),
     "elastic_resume": (False, _SERVING),
     "elastic_min_ranks": (1, _SERVING),
     "world_shrink_after": (2, _SERVING),
@@ -333,8 +346,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "drift_threshold": (0.2, _SERVING),
     "drift_window_rows": (4096, _SERVING),
     "serving_traversal": ("auto", _SERVING),
-    "collective_retries": (2, _SERVING + " (the supervisor's retry "
-                           "ladder)"),
 }
 
 
@@ -540,6 +551,51 @@ def check_params(cfg: Config) -> None:
     if cfg.nonfinite_policy not in ("raise", "rollback", "clamp"):
         log.fatal("nonfinite_policy must be raise, rollback, or clamp; "
                   "got %r", cfg.nonfinite_policy)
+    _check_robustness(cfg)
+
+
+def _check_robustness(cfg: Config) -> None:
+    """The checkpoint and liveness keys (lightgbm_tpu/config.py:739-799,
+    :825-829): the fault spec parses, its rank qualifiers name ranks of
+    ``num_machines``, ``preempt_signal`` names sigterm and/or sigint, and
+    the liveness knobs are in range."""
+    if cfg.fault_inject:
+        # fail at parse time with the real cause, not at the fault point
+        from .utils.faults import parse_spec
+        try:
+            entries = parse_spec(cfg.fault_inject)
+        except ValueError as e:
+            log.fatal("%s", e)
+        world = max(1, cfg.num_machines)
+        for e in entries:
+            if e.rank is not None and e.rank >= world:
+                log.fatal("fault_inject: rank=%d targets a rank this job "
+                          "does not run (num_machines=%d)", e.rank, world)
+    if cfg.preempt_signal:
+        for tok in str(cfg.preempt_signal).replace(",", " ").split():
+            if tok.strip().lower() not in ("sigterm", "sigint", "term",
+                                           "int"):
+                log.fatal("preempt_signal must name sigterm and/or sigint "
+                          "(comma-separated); got %r", cfg.preempt_signal)
+    if cfg.collective_retries < 0:
+        log.fatal("collective_retries must be >= 0; got %d",
+                  cfg.collective_retries)
+    if cfg.heartbeat_interval < 0:
+        log.fatal("heartbeat_interval must be >= 0 seconds (0 = off); "
+                  "got %r", cfg.heartbeat_interval)
+    if cfg.hang_timeout < 0:
+        log.fatal("hang_timeout must be >= 0 seconds (0 = the supervisor "
+                  "default); got %r", cfg.hang_timeout)
+    if cfg.hang_timeout and cfg.heartbeat_interval \
+            and cfg.hang_timeout <= cfg.heartbeat_interval:
+        log.fatal("hang_timeout (%g s) must exceed heartbeat_interval "
+                  "(%g s): every rank would look hung between two stamps",
+                  cfg.hang_timeout, cfg.heartbeat_interval)
+    if cfg.restart_limit < 0:
+        log.fatal("restart_limit must be >= 0; got %d", cfg.restart_limit)
+    if cfg.restart_backoff < 0:
+        log.fatal("restart_backoff must be >= 0 seconds; got %r",
+                  cfg.restart_backoff)
 
 
 def resolve_device(name: Optional[str]) -> torch.device:

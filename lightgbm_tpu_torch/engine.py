@@ -2,20 +2,32 @@
 engine.py:18-460, as ``lightgbm_tpu/engine.py`` writes them): the
 callback-driven boosting loop with custom objectives and metrics
 (``fobj``, ``feval``), a learning-rate schedule, early stopping and
-evaluation records, continued training from ``init_model``, and
-cross-validation over stratified, shuffled or query-grouped folds."""
+evaluation records, continued training from ``init_model``,
+cross-validation over stratified, shuffled or query-grouped folds, and
+the robustness of ``lightgbm_tpu/engine.py:100-135, :233-400``: resumable
+snapshots (``snapshot_freq``, ``snapshot_keep``, ``snapshot_resume`` /
+``resume=``; one file alone, the coordinated shard set over processes),
+preemption safety (``preempt_signal``), liveness heartbeats and crash
+reports for the supervisor (``heartbeat_interval``), and the fault points
+of the iteration boundary (``rank_crash``, ``rank_hang``, ``preempt``)."""
 from __future__ import annotations
 
 import collections
+import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from . import callback as callback_mod
+from . import checkpoint as checkpoint_mod
 from .basic import Booster, Dataset
-from .config import _unsupported, canonicalize_params, config_from_params
+from .config import canonicalize_params, config_from_params
+from .obs.counters import counters
+from .parallel import sync
 from .parallel.mesh import init_distributed_from_config
+from .utils import faults as faults_mod
 from .utils import log
 
 
@@ -43,15 +55,47 @@ def train(params: Dict[str, Any], train_set: Dataset,
     model file) continues training (``lightgbm_tpu/engine.py:145-157``):
     its raw predictions of the training rows are added to the training
     scores, its trees come first in the model and its iterations count as
-    done.  ``resume`` (snapshots) is not ported."""
-    if resume:
-        _unsupported("resume= (training snapshots)",
-                     "checkpoints, serving, observability, CLI, sklearn and "
-                     "plotting")
+    done.  ``resume`` (also the ``snapshot_resume`` param): ``True`` finds
+    the newest valid ``<output_model>.snapshot_iter_N`` (a torn file falls
+    back to the one before; over processes, the newest set valid on every
+    rank) and continues from it with the training state restored bit for
+    bit; a string resumes from that snapshot file."""
     params = canonicalize_params(params)
+    cfg = config_from_params(params)
+    # a fault plan of the params is this training's; one armed from the
+    # environment stays the process's
+    prev_faults = faults_mod.get_faults()
+    if cfg.fault_inject:
+        faults_mod.install(cfg.fault_inject)
+    try:
+        return _train(params, cfg, train_set, num_boost_round, valid_sets,
+                      valid_names, fobj, feval, init_model, feature_name,
+                      categorical_feature, early_stopping_rounds,
+                      evals_result, verbose_eval, learning_rates, callbacks,
+                      resume)
+    finally:
+        if cfg.fault_inject:
+            faults_mod.restore(prev_faults)
+
+
+def _resume_flag(resume):
+    """``resume`` as True, False or a snapshot path."""
+    if isinstance(resume, str):
+        s = resume.strip().lower()
+        if s in ("false", "0", "no", "off", "-", ""):
+            return False
+        if s in ("true", "1", "yes", "on", "+", "auto"):
+            return True
+    return resume
+
+
+def _train(params, cfg, train_set, num_boost_round, valid_sets, valid_names,
+           fobj, feval, init_model, feature_name, categorical_feature,
+           early_stopping_rounds, evals_result, verbose_eval, learning_rates,
+           callbacks, resume) -> Booster:
+    sync.configure(retries=cfg.collective_retries)
     # several processes (lightgbm_tpu/engine.py:106-135): the process
     # group comes up before the Dataset is built, with its timeout
-    cfg = config_from_params(params)
     if cfg.num_machines > 1:
         init_distributed_from_config(cfg)
     if "num_iterations" in params:
@@ -112,33 +156,159 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                                     False)),
                    key=lambda cb: getattr(cb, "order", 0))
 
-    for i in range(num_boost_round):
-        for cb in before:
-            cb(callback_mod.CallbackEnv(
-                model=booster, params=params, iteration=i, begin_iteration=0,
-                end_iteration=num_boost_round, evaluation_result_list=None))
-        finished = booster.update(fobj=fobj)
-        results = []
-        if valid_sets:
-            if contains_train:
-                results.extend((train_name, m, v, hib)
-                               for (_, m, v, hib) in booster.eval_train(feval))
-            results.extend(booster.eval_valid(feval))
-        try:
-            for cb in after:
+    snapshot_out = cfg.output_model
+    world = sync.process_count()
+    # alone, the rank of LGBM_TPU_RANK: a supervisor may run independent
+    # single-process workers under one prefix, whose liveness files stay
+    # apart
+    rank = sync.process_index() if world > 1 else faults_mod.current_rank()
+    single = world == 1
+    ckpt_callbacks = before + after     # a fixed capture/restore order
+
+    def write_checkpoint(iteration: int) -> None:
+        """One atomic snapshot at an iteration boundary: the single file
+        alone, the shard set (shards, the CRC barrier, rank 0's manifest)
+        over processes."""
+        if single:
+            checkpoint_mod.write_snapshot(
+                checkpoint_mod.snapshot_path(snapshot_out, iteration),
+                booster, iteration, ckpt_callbacks, evals_result)
+            if cfg.snapshot_keep > 0:
+                checkpoint_mod.prune_snapshots(snapshot_out,
+                                               cfg.snapshot_keep)
+            return
+        state = checkpoint_mod.capture_state(booster, iteration,
+                                             ckpt_callbacks, evals_result)
+        checkpoint_mod.write_group_snapshot(
+            snapshot_out, iteration,
+            booster.model_to_string(-1) if rank == 0 else "", state,
+            rank=rank, world=world,
+            fingerprint=state["booster"]["data_fingerprint"])
+        if cfg.snapshot_keep > 0 and rank == 0:
+            # after the manifest's commit, which every shard preceded
+            checkpoint_mod.prune_snapshots(snapshot_out, cfg.snapshot_keep)
+
+    # ---- resume from the newest valid snapshot ----
+    resume = _resume_flag(cfg.snapshot_resume if resume is None else resume)
+    start_iter = 0
+    if resume:
+        pinned = isinstance(resume, str)
+        if single and pinned:
+            _, state = checkpoint_mod.load_snapshot(resume)
+            found = (int(state["iteration"]), resume, state)
+        elif single:
+            found = checkpoint_mod.find_latest_valid(snapshot_out)
+        else:
+            # the resume barrier: the newest set valid on every rank; a
+            # topology or data mismatch raises on every rank together
+            found = checkpoint_mod.find_latest_valid_group(
+                snapshot_out, rank=rank, world=world,
+                fingerprint=booster.inner.data_fingerprint(),
+                only_iteration=(checkpoint_mod.iteration_from_path(resume)
+                                if pinned else None))
+        if found is None:
+            log.info("snapshot_resume: no valid snapshot for %s; "
+                     "training from scratch", snapshot_out)
+        else:
+            _, ck_path, state = found
+            start_iter = checkpoint_mod.restore_state(
+                booster, state, ckpt_callbacks, evals_result)
+            counters.event("checkpoint_resume", iteration=start_iter,
+                           path=ck_path, kind="single" if single else "group")
+            log.info("Resumed training from %s (continuing at iteration %d)",
+                     ck_path, start_iter)
+
+    # preemption: the handlers are installed right before the try whose
+    # finally restores them
+    preempt_watch = checkpoint_mod.PreemptionWatch(cfg.preempt_signal).install()
+    preempt_armed = (preempt_watch.armed
+                     or faults_mod.get_faults().has_point("preempt"))
+    heartbeat = None
+    if cfg.heartbeat_interval > 0:
+        heartbeat = checkpoint_mod.Heartbeat(
+            checkpoint_mod.heartbeat_path(snapshot_out, rank),
+            cfg.heartbeat_interval)
+        heartbeat.stamp(start_iter, force=True)
+
+    def boundary_liveness(iteration: int) -> None:
+        """Once an iteration boundary: the supervisor's fault points (a
+        hard death, a wedged rank), then the heartbeat."""
+        fi = faults_mod.get_faults()
+        if fi.enabled and fi.fire("rank_crash", iteration):
+            log.warning("rank_crash fault: rank %d dying hard at iteration "
+                        "%d (os._exit, no checkpoint)", rank, iteration)
+            os._exit(70)
+        if fi.enabled and fi.fire("rank_hang", iteration):
+            log.warning("rank_hang fault: rank %d wedging at iteration %d "
+                        "(heartbeats stop now)", rank, iteration)
+            while True:      # only SIGKILL, or the supervisor, ends this
+                time.sleep(3600)
+        if heartbeat is not None:
+            heartbeat.stamp(iteration)
+
+    try:
+        for i in range(start_iter, num_boost_round):
+            for cb in before:
                 cb(callback_mod.CallbackEnv(
                     model=booster, params=params, iteration=i,
                     begin_iteration=0, end_iteration=num_boost_round,
-                    evaluation_result_list=results))
-        except callback_mod.EarlyStopException as es:
-            booster.best_iteration = es.best_iteration + 1
-            for item in es.best_score or []:
-                booster.best_score.setdefault(item[0], {})[item[1]] = item[2]
-            break
-        if finished:
-            break
-    if booster.best_iteration <= 0:
-        booster.best_iteration = booster.current_iteration()
+                    evaluation_result_list=None))
+            finished = booster.update(fobj=fobj)
+            results = []
+            if valid_sets:
+                if contains_train:
+                    results.extend((train_name, m, v, hib) for (_, m, v, hib)
+                                   in booster.eval_train(feval))
+                results.extend(booster.eval_valid(feval))
+            try:
+                for cb in after:
+                    cb(callback_mod.CallbackEnv(
+                        model=booster, params=params, iteration=i,
+                        begin_iteration=0, end_iteration=num_boost_round,
+                        evaluation_result_list=results))
+            except callback_mod.EarlyStopException as es:
+                booster.best_iteration = es.best_iteration + 1
+                for item in es.best_score or []:
+                    booster.best_score.setdefault(item[0], {})[item[1]] = \
+                        item[2]
+                break
+            # before the snapshot: a death at boundary K loses the
+            # iterations since the last committed snapshot, as a real one
+            boundary_liveness(i + 1)
+            wrote = False
+            if cfg.snapshot_freq > 0 and (i + 1) % cfg.snapshot_freq == 0:
+                # after the callbacks, so the captured state is iteration i's
+                write_checkpoint(i + 1)
+                wrote = True
+            if preempt_armed:
+                fi = faults_mod.get_faults()
+                want = preempt_watch.requested or (
+                    fi.enabled and fi.fire("preempt", i + 1))
+                if not single:
+                    # a notice may reach one rank only: the group agrees
+                    want = any(sync.allgather_object(bool(want)))
+                if want:
+                    if not wrote:
+                        write_checkpoint(i + 1)
+                    counters.event("preempt_checkpoint", iteration=i + 1)
+                    log.info("Preemption requested: checkpoint written at "
+                             "iteration %d; leaving the training loop "
+                             "(snapshot_resume continues from here)", i + 1)
+                    break
+            if finished:
+                break
+        if booster.best_iteration <= 0:
+            booster.best_iteration = booster.current_iteration()
+        if heartbeat is not None:
+            heartbeat.stamp(booster.current_iteration(), force=True)
+    except BaseException as e:
+        # a supervised rank (heartbeats on) leaves a crash report: the
+        # exception, every thread's stack, the event ring's tail
+        if heartbeat is not None:
+            checkpoint_mod.write_crash_report(snapshot_out, rank, exc=e)
+        raise
+    finally:
+        preempt_watch.restore()
     return booster
 
 

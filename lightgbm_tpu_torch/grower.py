@@ -70,8 +70,8 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from .data.packing import PackedBins
-from .ops.histogram import (hist_local, hist_window, movable, plan_device,
-                            sm_count)
+from .ops.histogram import (hist_local, hist_window, maybe_hist_fault,
+                            movable, plan_device, sm_count)
 from .ops.partition import (partition_scratch, partition_window,
                             partition_window_plain, partition_window_sort)
 from .ops.route import route_rows, route_window
@@ -552,10 +552,14 @@ class SplitLoop:
         self.captures += 1
 
     def replay(self) -> None:
-        """One step of the graph loop."""
+        """One step of the graph loop.  The ``hist_fail`` fault point is
+        checked at the start of each replayed step: the wrappers' own check
+        runs only where their Python does, at the warm-up and the capture
+        (``ops.histogram.maybe_hist_fault``)."""
         if self.graph is None:
             self.capture()
             return
+        maybe_hist_fault("replayed split step")
         self.graph.replay()
         self.replays += 1
 

@@ -1,1 +1,2 @@
-"""Observability of the port: for now the TreeSHAP contributions."""
+"""Observability of the port: TreeSHAP contributions, the memory model
+and the counter/event registry."""

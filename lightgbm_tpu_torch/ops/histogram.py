@@ -60,6 +60,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import faults as faults_mod
 from . import build
 
 NUM_STATS = 3        # (sum_grad, sum_hess, count)
@@ -324,6 +325,23 @@ def _pick(sel: Optional[torch.Tensor], first, alt):
     return first if sel is None or not int(sel.reshape(-1)[0]) & 1 else alt
 
 
+def maybe_hist_fault(site: str, t: Optional[torch.Tensor] = None) -> None:
+    """The ``hist_fail`` fault point (``lightgbm_tpu/ops/histogram.py:47``):
+    raises :class:`~..utils.faults.InjectedFault` when armed.  A wrapper
+    checks it when it is called, unless its tensor ``t`` is on a card whose
+    stream is being captured: a captured wrapper's Python runs once for
+    every replay, so the graph loop checks it at the start of each replayed
+    step instead (``grower.SplitLoop.replay``)."""
+    fi = faults_mod.get_faults()
+    if not fi.enabled:
+        return
+    if t is not None and t.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    if fi.fire("hist_fail"):
+        raise faults_mod.InjectedFault(
+            f"hist_fail: injected histogram dispatch failure (site={site})")
+
+
 def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
                 gw: torch.Tensor, hw: torch.Tensor, cw: torch.Tensor,
                 num_bins: int, rows_upper_bound: Optional[int] = None,
@@ -344,6 +362,7 @@ def hist_window(order: torch.Tensor, sc: torch.Tensor, bins: torch.Tensor,
     raise."""
     if (alt is None) != (sel is None):
         raise ValueError("hist_window: alt and sel go together")
+    maybe_hist_fault("hist_window", bins)
     if not bins.is_cuda:
         if bins.device.type == "cpu":
             return hist_window_plain(
@@ -399,6 +418,7 @@ def hist_flat(bins: torch.Tensor, gw: torch.Tensor, hw: torch.Tensor,
               cw: torch.Tensor, num_bins: int) -> torch.Tensor:
     """``[F, num_bins, 3]`` histogram of every row of ``bins`` in one
     unchunked scatter-add; the caller masks the weights to the leaf."""
+    maybe_hist_fault("hist_flat", bins)
     f = bins.shape[1]
     idx = widen(bins) + torch.arange(f, device=bins.device) * num_bins
     vals = torch.stack([gw, hw, cw], dim=-1)[:, None, :].expand(-1, f,
@@ -441,6 +461,7 @@ def hist_local(row_leaf: torch.Tensor, leaf_id: torch.Tensor,
     other); a device-regime plan needs ``leaf_rows``.  CPU tensors take
     the plain version, which needs neither; CUDA tensors launch the
     kernel, on their own card, or raise."""
+    maybe_hist_fault("hist_local", bins)
     if not bins.is_cuda:
         if bins.device.type == "cpu":
             return hist_local_plain(row_leaf, leaf_id, bins, gw, hw, cw,

@@ -444,6 +444,22 @@ def parse_machine_list(path: str) -> List[Tuple[str, int]]:
     return machines
 
 
+def refresh_local_ports(path: str) -> None:
+    """Point every loopback entry of a machine list at a port just bound
+    and released (:502): a group relaunched on one host reuses its list,
+    and the dead group's ports may linger.  Other entries stay."""
+    out = []
+    for ip, port in parse_machine_list(path):
+        if ip in ("127.0.0.1", "localhost"):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+            s.close()
+        out.append(f"{ip} {port}\n")
+    with open(path, "w") as f:
+        f.write("".join(out))
+
+
 def _local_rank(machines) -> Optional[int]:
     """This process's rank in the machine list (:523): ``LGBM_TPU_RANK``
     if set, else the one entry whose address is this host's (the
@@ -484,9 +500,28 @@ def init_distributed_from_config(cfg) -> Optional[str]:
     :func:`_local_rank`'s, the timeout ``collective_timeout``.  A card
     training makes its card current first (``local_rank % cards``).
     Returns the tensors' backend, or None with one machine; within a
-    process a second call returns the running group's backend."""
+    process a second call returns the running group's backend.
+
+    The rendezvous is fenced (:567-578): when a supervisor has stamped the
+    group's incarnation epoch beside ``output_model``
+    (``checkpoint.group_epoch_path``) and it is newer than the epoch this
+    process was launched under, the process is a straggler of a dead
+    incarnation and raises :class:`~.sync.StaleEpochError` before it
+    touches the rendezvous."""
     if cfg.num_machines <= 1:
         return None
+    from ..checkpoint import group_epoch, read_group_epoch_file
+    mine = group_epoch()
+    stamped = read_group_epoch_file(cfg.output_model)
+    if stamped is not None and stamped > mine:
+        from ..obs.counters import counters
+        counters.event("stale_epoch_rejected", op="distributed_init",
+                       frame_epoch=mine, group_epoch=stamped)
+        raise sync.StaleEpochError(
+            f"startup barrier refused: this process was launched under "
+            f"epoch {mine} but the group is at epoch {stamped} — a stale "
+            f"incarnation must not join the new rendezvous",
+            frame_epoch=mine, group_epoch=stamped)
     if distributed_is_initialized():
         return dist.get_backend()
     if not cfg.machine_list_file:

@@ -188,10 +188,11 @@ MOVED_MULTI = ("top_k", "is_pre_partition", "machine_list_file",
 def test_multi_process_keys_ported(key):
     """Each key of the voting and multi-process slice, and its alias, is
     a field read as the JAX package reads it, its default the JAX
-    package's; ``collective_retries`` stays not ported, with the
-    supervisor (ROADMAP.md §1.6)."""
+    package's; ``collective_retries`` came with the supervisor (ROADMAP.md
+    §1.6), which made it a field too."""
     _check_ported(key)
-    assert tc.NOT_PORTED["collective_retries"][1].startswith(tc._SERVING)
+    assert "collective_retries" not in tc.NOT_PORTED
+    _check_ported_as(("collective_retries", 5))
 
 
 def _check_ported(key):
@@ -203,6 +204,42 @@ def _check_ported(key):
     assert getattr(cfg, name) == value
     assert getattr(cfg, name) == getattr(jc.config_from_params({key: value}),
                                          name)
+
+
+def _check_ported_as(case):
+    """A key and a value that passes both packages' checks: a field of
+    the port, the JAX default as its default, read as the JAX package
+    reads it."""
+    key, value = case
+    name = tc.PARAM_ALIASES.get(key, key)
+    assert _outcome(key) == ["ported"]
+    assert getattr(tc.Config(), name) == _jax_default(name)
+    got = getattr(tc.config_from_params({key: value}), name)
+    assert got == getattr(jc.config_from_params({key: value}), name)
+    assert got != _jax_default(name)
+
+
+# the keys that the checkpoint slice moved out of NOT_PORTED, each with a
+# value other than its default that both packages accept
+MOVED_CHECKPOINT = (
+    ("output_model", "m.txt"), ("model_output", "m.txt"),
+    ("model_out", "m.txt"), ("snapshot_freq", 3), ("snapshot_keep", 2),
+    ("snapshot_resume", True), ("fault_inject", "nan_grad@3,hist_fail_once"),
+    ("heartbeat_interval", 0.5), ("hang_timeout", 30.0),
+    ("restart_limit", 5), ("restart_backoff", 2.5),
+    ("preempt_signal", "sigterm,sigint"), ("collective_retries", 0))
+
+
+@pytest.mark.parametrize("case", MOVED_CHECKPOINT, ids=lambda c: str(c[0]))
+def test_checkpoint_keys_ported(case):
+    """Each key of the checkpoint and supervisor slice, and the aliases of
+    ``output_model``: a field read as the JAX package reads it, its default
+    the JAX package's; the elastic, straggler and observability keys stay
+    not ported."""
+    _check_ported_as(case)
+    for key in ("elastic_resume", "elastic_min_ranks", "world_shrink_after",
+                "straggler_factor", "telemetry"):
+        assert key in tc.NOT_PORTED
 
 
 @pytest.mark.parametrize("params,message", [

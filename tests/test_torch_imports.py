@@ -101,10 +101,10 @@ def test_predict_raises_without_card(no_card):
 
 
 @pytest.mark.parametrize("params", [
-    {"collective_retries": 5},
+    {"elastic_min_ranks": 2},
     {"elastic_resume": True},
     {"telemetry": True},
-    {"snapshot_freq": 5},
+    {"straggler_factor": 5.0},
 ])
 def test_unsupported_params_raise(params):
     x, y = _small()
@@ -118,12 +118,16 @@ def test_unsupported_params_raise(params):
     {"shard_axes": "batch,feature"},
     {"tree_learner": "data", "mesh_devices": 2},
     {"hbm_budget": 1e9},
+    {"collective_retries": 5},
+    {"snapshot_freq": 5},
 ])
 def test_formerly_unsupported_params_train(params):
     """Values that raised until the planner was ported: two mesh slots at
     ``mesh_shape=auto`` are planned (2x1, with no capacity on the CPU),
     ``shard_axes`` leaves the serial learner as it is, and ``hbm_budget``
-    holds the placement walk and the pre-flight to its bytes."""
+    holds the placement walk and the pre-flight to its bytes; the
+    collectives' retries and the snapshot cadence (checkpoints) are read,
+    a one-round training writing no snapshot."""
     x, y = _small()
     p = dict({"objective": "binary", "device": "cpu", "verbose": -1},
              **params)

@@ -174,12 +174,19 @@ def test_feval_on_training_data_in_valid_sets():
     assert list(ev["train"]) == ["binary_logloss", "auc", "my_error"]
 
 
-def test_resume_names_its_roadmap_item():
+def test_resume_names_its_roadmap_item(tmp_path):
+    """``resume=True`` with no snapshot trains from scratch (checkpoints
+    are ported); the elastic resume across process counts is not, and
+    names its roadmap item."""
     x, y = _data(10, 200)
-    p = _cpu(BASE)
+    p = _cpu(dict(BASE, output_model=str(tmp_path / "m.txt")))
+    fresh = lt.train(p, lt.Dataset(x, y, params=p), 1, resume=True)
+    assert fresh.model_to_string() == lt.train(
+        p, lt.Dataset(x, y, params=p), 1).model_to_string()
     with pytest.raises(NotImplementedError,
                        match="checkpoints, serving, observability"):
-        lt.train(p, lt.Dataset(x, y, params=p), 1, resume=True)
+        lt.train(dict(p, elastic_resume=True), lt.Dataset(x, y, params=p),
+                 1, resume=True)
 
 
 # ---- cv ----------------------------------------------------------------------
