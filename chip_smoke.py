@@ -370,6 +370,33 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    ``rank_crash@3:rank=1`` kills rank 1, the group is torn down,
    relaunched and resumed from the committed set: the model identical on
    both ranks and to phase 22's; the restart's seconds by leg.
+25. elastic groups and the observability plane (after 24c): (25a) the
+   supervisor runs two ``--worker`` ranks with ``elastic_resume``;
+   ``host_lost@3:rank=1`` kills rank 1 at 3 and at every startup after;
+   after two startup failures the supervisor evicts it and relaunches
+   rank 0 alone, which resumes elastically from the two-rank set: the
+   model byte-identical to phase 22's, the supervisor's ``/metrics``
+   scraped before and after the shrink (``world_size`` 2 -> 1,
+   ``rank_evicted_total`` 0 -> 1), the shrink's seconds by leg; (25b)
+   4 rounds of phase 3's Dataset on the serial graph loop and on the data
+   learner over 4x1, disarmed then armed (``trace_path``,
+   ``obs_stream_path``, ``metrics_port``, ``model_quality=on``): the same
+   host reads and graph launches a tree (8 and 254 on the serial loop), a
+   live scrape that parses, a trace that ``obs/report.py`` renders, one
+   flight progress record an iteration; ms a tree armed and disarmed;
+   (25c) ``device_profile`` over 2 windows of 3 rounds: the kernels it
+   saw held against the wrappers' counts (a window that lost profiler
+   records is run again, a miscount fails), its idle gap beside the
+   device-busy share of one more tree under the profiler.
+
+Every profiled window that checks kernels against the counts (phases 3,
+7, 20, 23d, 25c) tells a window that lost records from a miscount: a
+window that saw no kernel more often than counted, missed none outright
+and is short by no more than the records the profiler lost (kineto's
+report of dropped records on stderr, or the window's correlation ids) is
+profiled again; any other difference fails at once.
+
+``--phase-25`` runs the build, phase 3's Dataset and phase 25 alone.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
@@ -384,6 +411,7 @@ card's ``nvidia-smi`` name and power limit; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -629,27 +657,97 @@ def auc(score: np.ndarray, label: np.ndarray) -> float:
     return m.eval(np.asarray(score, np.float64)[None], None)[0]
 
 
-MARKERS = 32          # spin kernels that open a profiled window
-MARKER_CYCLES = 20_000  # each spins about 10 µs: the window the profiler
-#                         can lose at its start is covered by time as well
-#                         as by records
+MARKERS = 256         # spin kernels that open and close a profiled window
+MARKER_CYCLES = 20_000  # each spins about 10 µs: the records the profiler
+#                         can lose at a window's start and end (up to 44
+#                         at the start, the last 20 of 210 at the end:
+#                         scripts/torch_profiler_loss.py) fall on them
 RUNTIME_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemsetAsync",
                  "cudaMemcpyAsync", "cudaEventSynchronize",
                  "cudaStreamSynchronize")
 
 
-def device_ms(fn, names):
+# kineto's own report of the records CUPTI dropped for want of buffer
+# space (written to stderr when the profiler stops)
+KINETO_DROPPED = re.compile(
+    r"[Dd]ropped\D{0,40}?(\d+)|(\d+)\s+(?:activity\s+)?records?\s+"
+    r"(?:were\s+)?dropped")
+
+
+@contextlib.contextmanager
+def stderr_into(box: dict):
+    """File descriptor 2 (the C++ libraries' stderr) into a file for the
+    block; its text goes to ``box["stderr"]`` and back out to stderr."""
+    import tempfile
+    sys.stderr.flush()
+    saved = os.dup(2)
+    tmp = tempfile.TemporaryFile()
+    os.dup2(tmp.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+        tmp.seek(0)
+        box["stderr"] = tmp.read().decode(errors="replace")
+        tmp.close()
+        if box["stderr"]:
+            sys.stderr.write(box["stderr"])
+            sys.stderr.flush()
+
+
+def records_lost(prof, box: dict) -> int:
+    """The records a profiled window lost, into ``box``: what kineto says
+    it dropped (``kineto_dropped``, from its stderr), and what the
+    window's correlation ids show (``correlation_lost``: a launch with no
+    kernel record, a kernel with no launch, a graph launch short of the
+    window's fullest, ``obs/devprof.py:records_lost``).  Returns the
+    larger."""
+    import torch
+    from lightgbm_tpu_torch.obs.devprof import lost_records
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        dev = e.device_type() == cuda
+        kernel = dev and "Memcpy" not in name and "Memset" not in name
+        evs.append({"ph": "X", "name": name,
+                    "cat": "kernel" if kernel else
+                    "gpu" if dev else "cuda_runtime",
+                    "args": {"correlation": e.correlation_id()}})
+    box["correlation_lost_by"] = lost_records(evs)
+    box["correlation_lost"] = sum(box["correlation_lost_by"].values())
+    # where in the window the kernel launches that lost their kernel
+    # record were: their places among the window's launches, in order
+    from lightgbm_tpu_torch.obs.devprof import KERNEL_LAUNCHES
+    seen = {e["args"]["correlation"] for e in evs if e["cat"] == "kernel"}
+    starts = sorted((kineto_span_us(e)[0], e.correlation_id())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name() in KERNEL_LAUNCHES)
+    places = [i for i, (_, c) in enumerate(starts) if c not in seen]
+    box["lost_launch_places"] = (f"{places[0]}-{places[-1]}/{len(starts)}"
+                                 if places else f"none/{len(starts)}")
+    box["kineto_dropped"] = sum(
+        int(a or b) for a, b in KINETO_DROPPED.findall(box.get("stderr", "")))
+    return max(box["correlation_lost"], box["kineto_dropped"])
+
+
+def device_ms(fn, names, loss=None):
     """Run ``fn`` under ``torch.profiler``; returns its wall seconds, the
     device ms of kernels whose name holds each of ``names``, the device ms
     of every kernel and copy (device-side events only: CPU ops would count
     their kernels' time a second time), the five host operations with the
     most self CPU ms, the calls of each of ``RUNTIME_CALLS``, and how
     many times each kernel of :data:`KERNELS` ran on the card (those of a
-    replayed CUDA graph among them)."""
+    replayed CUDA graph among them).  ``loss``, a dict, gets the records
+    the window lost (:func:`records_lost`, its ``lost`` key)."""
     import torch
     import torch.profiler as tp
-    with tp.profile(activities=[tp.ProfilerActivity.CPU,
-                                tp.ProfilerActivity.CUDA]) as prof:
+    box = {}
+    with stderr_into(box), tp.profile(
+            activities=[tp.ProfilerActivity.CPU,
+                        tp.ProfilerActivity.CUDA]) as prof:
         # the profiler can lose the first kernel records of a window (seen
         # on the H100: a root histogram of a tree missing): spin kernels
         # take that place, and are left out of every number below
@@ -660,6 +758,15 @@ def device_ms(fn, names):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        for _ in range(MARKERS):
+            torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+    if loss is not None:
+        loss["lost"] = records_lost(prof, box)
+        loss.update({k: box[k] for k in ("kineto_dropped",
+                                         "correlation_lost",
+                                         "correlation_lost_by",
+                                         "lost_launch_places")})
     events = prof.key_averages()
     dev_us = {e.key: (getattr(e, "self_device_time_total", 0)
                       or getattr(e, "self_cuda_time_total", 0))
@@ -674,7 +781,7 @@ def device_ms(fn, names):
                   reverse=True)[:5]
     calls = {k: sum(e.count for e in events if e.key == k)
              for k in RUNTIME_CALLS}
-    calls["cudaLaunchKernel"] -= MARKERS
+    calls["cudaLaunchKernel"] -= 2 * MARKERS
     ran = {n: sum(e.count for e in events if n in e.key and e.device_type
                   == torch.autograd.DeviceType.CUDA)
            for n in sum(KERNELS.values(), ())}
@@ -725,28 +832,57 @@ def kernels_launched(fns, snap, replays: int, per_step: dict) -> dict:
     return out
 
 
+def lossy_window(name: str, ran: dict, want: dict, loss: dict) -> dict:
+    """Tell a window that lost profiler records from a miscount.  A lossy
+    window saw no kernel more often than counted, missed no counted
+    kernel outright (none of a kernel's records seen, though there were
+    more of them than the records lost), and is short by no more than the
+    records the profiler lost (:func:`records_lost`).  Anything else is a
+    miscount, and fails at once.  Returns the window's shortfall by
+    kernel, with the records lost, and prints it."""
+    short = {k: v - ran[k] for k, v in want.items() if ran[k] != v}
+    over = {k: f"{ran[k]}/{v}" for k, v in want.items() if ran[k] > v}
+    gone = {k: v for k, v in want.items()
+            if v and not ran[k] and v > loss["lost"]}
+    total = sum(short.values())
+    out = dict(short=short, short_total=total, lost=loss["lost"],
+               kineto_dropped=loss["kineto_dropped"],
+               correlation_lost=loss["correlation_lost"],
+               correlation_lost_by=loss.get("correlation_lost_by", {}),
+               lost_launch_places=loss.get("lost_launch_places", "-"))
+    phase("profiled_window_lost_records", window=repr(name), **{
+        k: (repr(v) if isinstance(v, dict) else v) for k, v in out.items()})
+    if over or gone or total > loss["lost"]:
+        fail(f"{name}: the kernels the profiler saw differ from the counts "
+             f"(a miscount, not a lossy window: over {over}, missing "
+             f"outright {gone}, short {total} against {loss['lost']} "
+             f"records lost)")
+    return out
+
+
 def profile_checked(name, fns, grow_one, stats, per_step, dev_names,
-                    tries: int = 2):
+                    tries: int = 3):
     """Profile one tree, ``grow_one()``, with :func:`device_ms`, and hold
     the kernels that the profiler saw run on the card against those that
     the counts give (:func:`kernels_launched`; ``stats()`` returns the
     grower's stats so far, ``per_step`` is the captured step's counts).
-    The profiler can lose a record, so a tree whose kernels differ is
-    profiled again, up to ``tries`` trees; the run fails if each of them
-    differs.  Returns the last tree's :func:`device_ms` result, the
-    counts and the stats before it, and the trees that differed."""
+    A window whose kernels differ fails at once unless it lost profiler
+    records (:func:`lossy_window`); a lossy window is profiled again, up
+    to ``tries`` trees, and the run fails if none of them is whole.
+    Returns the last tree's :func:`device_ms` result, the counts and the
+    stats before it, and the lossy windows."""
     missed = []
     for _ in range(tries):
         snap, st0 = count_snapshot(fns), dict(stats())
-        res = device_ms(grow_one, dev_names)
+        loss = {}
+        res = device_ms(grow_one, dev_names, loss=loss)
         want = kernels_launched(fns, snap, stats().get("graph_replays", 0)
                                 - st0.get("graph_replays", 0), per_step)
         if res[5] == want:
             return res, snap, st0, missed
-        missed.append({k: f"{res[5][k]}/{v}" for k, v in want.items()
-                       if res[5][k] != v})
-    fail(f"{name}: in {tries} profiled trees the kernels that ran on the "
-         f"card differ from those the counts give (ran/counted): {missed}")
+        missed.append(lossy_window(name, res[5], want, loss))
+    fail(f"{name}: in {tries} profiled trees every window lost records "
+         f"(ran/counted short by kernel, records lost): {missed}")
 
 
 def part_bound_bytes(cnt: int, widths) -> int:
@@ -5728,7 +5864,7 @@ def kineto_span_us(e):
     return e.start_us(), e.start_us() + e.duration_us()
 
 
-def stream_profile(fn):
+def stream_profile(fn, loss=None):
     """Profile ``fn()`` (a streamed tree) under ``torch.profiler``: its
     wall seconds; the device-busy share (the union of every kernel's and
     copy's device interval over the wall); the kernels' union share; the
@@ -5741,7 +5877,9 @@ def stream_profile(fn):
     # profiler's raw records: a streamed tree makes some 50,000 to 150,000
     # launches, and the PyTorch ops' records and the processed events
     # would take minutes
-    with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+    box = {}
+    with stderr_into(box), \
+            tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
         for _ in range(MARKERS):
             torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
@@ -5749,6 +5887,15 @@ def stream_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        for _ in range(MARKERS):
+            torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+    if loss is not None:
+        loss["lost"] = records_lost(prof, box)
+        loss.update({k: box[k] for k in ("kineto_dropped",
+                                         "correlation_lost",
+                                         "correlation_lost_by",
+                                         "lost_launch_places")})
     events = [(e.name(), e.device_type(), *kineto_span_us(e))
               for e in prof.profiler.kineto_results.events()]
     dev = [(n, a, b) for n, d, a, b in events
@@ -5761,7 +5908,7 @@ def stream_profile(fn):
     overlap = sum(covered(c, kernels, starts) for c in copies)
     copy_us = sum(b - a for a, b in copies)
     calls = {k: sum(1 for e in events if e[0] == k) for k in RUNTIME_CALLS}
-    calls["cudaLaunchKernel"] -= MARKERS
+    calls["cudaLaunchKernel"] -= 2 * MARKERS
     ran = {k: sum(1 for n, _, _ in dev if k in n)
            for k in sum(KERNELS.values(), ())}
     if not dev:
@@ -5783,27 +5930,26 @@ def streamed_launches(snap, fns) -> dict:
 
 
 def stream_checked_profile(name, fns, grow_one, trees: int,
-                           tries: int = 2):
+                           tries: int = 3):
     """:func:`stream_profile` of ``grow_one()`` (``trees`` trees), with the
-    kernels the profiler saw run held against those the counts give (the
-    profiler can lose records, so a call whose kernels differ is profiled
-    again, up to ``tries`` calls), and a host-to-device copy required to
-    overlap a kernel."""
+    kernels the profiler saw run held against those the counts give (a
+    miscount fails at once; a window that lost profiler records,
+    :func:`lossy_window`, is profiled again, up to ``tries`` calls), and a
+    host-to-device copy required to overlap a kernel."""
     missed = []
     for _ in range(tries):
         snap = count_snapshot(fns)
-        wall, prof, calls, ran = stream_profile(grow_one)
+        loss = {}
+        wall, prof, calls, ran = stream_profile(grow_one, loss=loss)
         want = kernels_launched(fns, snap, 0, {})
         if prof["h2d_overlaps_kernel"] == "not measured":
             fail(f"{name}: the profiler saw no device event")
         if ran == want:
             break
-        missed.append({k: f"{ran[k]}/{v}" for k, v in want.items()
-                       if ran[k] != v})
+        missed.append(lossy_window(name, ran, want, loss))
     else:
-        fail(f"{name}: in {tries} profiled calls the kernels that ran on "
-             f"the card differ from those the counts give (ran/counted): "
-             f"{missed}")
+        fail(f"{name}: in {tries} profiled calls every window lost records "
+             f"(ran/counted short by kernel, records lost): {missed}")
     if not prof["h2d_overlaps_kernel"]:
         fail(f"{name}: no host-to-device copy overlapped a kernel in the "
              f"profiled tree: the double buffer overlaps nothing")
@@ -6991,9 +7137,444 @@ def supervised_restart(params, ref_text: str, fault="rank_crash@3:rank=1",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phases 25a-25c: elastic groups and the observability plane ----------
+
+ELASTIC_SHRINK_AFTER = 2           # 25a: startup failures before a shrink
+TELE_ROUNDS = 6                    # 25b: rounds armed and disarmed
+DEVPROF_ROUNDS, DEVPROF_ITERS = 3, 2   # 25c: rounds, profiled windows
+
+
+def elastic_worker(spec: dict) -> None:
+    """One rank of phase 25a, started by the supervisor: phase 24c's rows,
+    learner and gradients at the world the supervisor gives
+    (``LGBM_TPU_WORLD``: 2, then 1 after the shrink), with
+    ``elastic_resume`` and the ``host_lost`` fault in every incarnation
+    (a lost rank dies at 3 and again at every startup).  Its rows are
+    phase 3's Dataset's share of this rank at this world, saved by the
+    parent as a binary dataset file (the bins and labels, not binned
+    again).  It writes its model, its marks and its launches to
+    ``<dir>/rank<r>.attempt<a>.json``."""
+    t_start = time.time()
+    import torch
+    from lightgbm_tpu_torch import Dataset, train
+    from lightgbm_tpu_torch.obs.counters import counters
+    from lightgbm_tpu_torch.parallel.mesh import shutdown_distributed
+    rank = int(os.environ["LGBM_TPU_RANK"])
+    attempt = int(os.environ["LGBM_TPU_SUPERVISOR_ATTEMPT"])
+    world = int(os.environ.get("LGBM_TPU_WORLD") or spec["world"])
+    share = Dataset(spec["data"][f"{world}.{rank}"],
+                    params=spec["params"]).construct()
+    t_data = time.time()
+    # num_machines is the launch topology; the engine cuts it to the world
+    p = dict(spec["params"], tree_learner="data", num_machines=spec["world"],
+             is_pre_partition=True, machine_list_file=spec["mlist"],
+             snapshot_freq=1,
+             output_model=spec["snap"], heartbeat_interval=0.5,
+             elastic_resume=True, world_shrink_after=ELASTIC_SHRINK_AFTER,
+             fault_inject=spec["fault"])
+    marks = {}
+
+    def first(env):
+        marks.setdefault("t_first_iteration", time.time())
+        marks.setdefault("start_iteration", env.iteration)
+    first.before_iteration = True
+    fns = _kernel_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    t_train = time.time()
+    bst = train(p, share, spec["rounds"],
+                fobj=score_integer_fobj(np.asarray(share.get_label())),
+                verbose_eval=False, resume=True, callbacks=[first])
+    torch.cuda.synchronize()
+    out = dict(rank=rank, attempt=attempt, world=world, t_start=t_start,
+               t_data=t_data, t_train=t_train, t_end=time.time(), **marks,
+               model=bst.model_to_string(),
+               elastic=[{k: e[k] for k in ("iteration", "kind", "old_world",
+                                           "new_world", "rows")}
+                        for e in counters.events("elastic_resume")],
+               launches={k: fn.launches for k, fn in fns.items()},
+               learner=bst.inner.plan.learner,
+               graph=getattr(loop_state(bst.inner), "graph", None)
+               is not None)
+    with open(os.path.join(spec["dir"],
+                           f"rank{rank}.attempt{attempt}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown_distributed()
+
+
+def scrape(port: int) -> dict:
+    """One ``GET /metrics`` of an exporter on this host, parsed."""
+    import urllib.request
+    from lightgbm_tpu_torch.obs.metrics import parse_prometheus
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as r:
+        return parse_prometheus(r.read().decode())
+
+
+def elastic_shrink(params, ds, ref_text: str, fault="host_lost@3:rank=1",
+                   deadline_s: float = 420.0) -> dict:
+    """Phase 25a: the supervisor runs two ranks of :func:`elastic_worker`
+    on the card over gloo with ``elastic_resume``.  Rank 1's host is lost
+    at iteration 3 (before that snapshot) and its relaunches die at
+    startup; after ``world_shrink_after`` of those the supervisor evicts
+    it, pre-flights one rank, and relaunches rank 0 alone, which resumes
+    elastically from the two-rank set at 2 over all the rows (one process
+    over one mesh slot: the serial learner).  Held: the evicted rank is 1,
+    the group one rank, the resume a two-rank set reassembled at one rank
+    over rows [0, N), the model byte-identical to phase 22's uninterrupted
+    two-process model, the graph loop run, and
+    the supervisor's ``/metrics`` scraped once before the shrink and once
+    after it: ``world_size`` 2 -> 1, ``rank_evicted_total`` 0 -> 1.
+    Reported: the shrink's seconds by leg."""
+    import tempfile
+    import threading
+    import torch
+    from lightgbm_tpu_torch.obs.counters import counters
+    from lightgbm_tpu_torch.parallel.mesh import refresh_local_ports
+    from lightgbm_tpu_torch.supervisor import Supervisor
+
+    port = _free_port()
+    scrapes = []
+    marks = {}
+
+    class ShrinkSupervisor(Supervisor):
+        """The supervisor with its /metrics scraped around the shrink."""
+
+        def _shrink(self, rank, reason, detail, t_detect):
+            scrapes.append(scrape(port))
+            rc = super()._shrink(rank, reason, detail, t_detect)
+            marks["relaunched"] = time.time()
+            scrapes.append(scrape(port))
+            return rc
+
+    tmp = tempfile.mkdtemp(prefix="lgbt_elastic_")
+    try:
+        mlist = os.path.join(tmp, "mlist.txt")
+        with open(mlist, "w") as f:
+            f.write("127.0.0.1 0\n127.0.0.1 0\n")
+        snap = os.path.join(tmp, "snap", "m.txt")
+        # each rank's share at each world, as 24c's workers cut them
+        data = {}
+        for world, rank in ((2, 0), (2, 1), (1, 0)):
+            lo, hi = rank * N_ROWS // world, (rank + 1) * N_ROWS // world
+            data[f"{world}.{rank}"] = os.path.join(tmp, f"w{world}r{rank}.bin")
+            ds.subset(np.arange(lo, hi)).construct().save_binary(
+                data[f"{world}.{rank}"], compress=False)
+        torch.cuda.empty_cache()
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(dict(mode="elastic", params=params, world=2,
+                           mlist=mlist, snap=snap, dir=tmp, fault=fault,
+                           rounds=SUP_ROUNDS, data=data), f)
+        counters.reset()
+        sup = ShrinkSupervisor(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             spec_path], snap, 2, heartbeat_interval=0.5, hang_timeout=300,
+            restart_limit=2, restart_backoff=0.2, term_grace=10.0,
+            poll_interval=0.05,
+            env=dict(GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo"),
+            prelaunch=lambda s: refresh_local_ports(mlist),
+            metrics_port=port, elastic_resume=True, elastic_min_ranks=1,
+            world_shrink_after=ELASTIC_SHRINK_AFTER, machine_list_file=mlist)
+        box = []
+        t0 = time.time()
+        th = threading.Thread(target=lambda: box.append(sup.run()),
+                              daemon=True)
+        th.start()
+        th.join(deadline_s)
+        if th.is_alive():
+            sup.restart_limit = 0
+            for rk in list(sup._ranks):
+                rk.proc.kill()
+            th.join(60)
+        logs = ""
+        for r in range(2):
+            path = f"{snap}.rank_{r}.log"
+            if os.path.exists(path):
+                with open(path, errors="replace") as f:
+                    logs += f"--- rank {r}\n{f.read()[-3000:]}\n"
+        if box != [0]:
+            fail(f"25a: the supervisor returned {box} after "
+                 f"{time.time() - t0:.1f} s:\n{logs}")
+        evicted = counters.events("rank_evicted")
+        resize = counters.events("world_resize")
+        with open(os.path.join(tmp, f"rank0.attempt{sup.attempt}.json")) as f:
+            res = json.load(f)
+        with open(mlist) as f:
+            mlist_after = len(f.read().split("\n")) - 1
+        el = res["elastic"]
+        first = res["t_first_iteration"]
+        out = dict(
+            supervised_wall_s=f"{time.time() - t0:.1f}",
+            attempts=sup.attempt + 1,
+            rank_dead=",".join(f"{e['rank']}:{e['exit_code']}"
+                               for e in counters.events("rank_dead")),
+            evicted=",".join(str(e["rank"]) for e in evicted),
+            world_after=res["world"], machine_list_after=mlist_after,
+            elastic_resume=repr(el),
+            model_equals_phase22=res["model"] == ref_text,
+            learner=res["learner"], graph_loop=res["graph"],
+            **{f"shrink_{k}_s": f"{v:.3f}"
+               for k, v in sup.shrink_seconds.items()},
+            relaunched_to_resumed_s=f"{first - marks['relaunched']:.3f}",
+            resumed_rank_start_s=f"{res['t_start'] - marks['relaunched']:.3f}",
+            resumed_rank_data_s=f"{res['t_data'] - res['t_start']:.3f}",
+            resumed_rank_restore_s=(
+                f"{res['t_first_iteration'] - res['t_train']:.3f}"),
+            resumed_rounds_s=f"{res['t_end'] - res['t_first_iteration']:.3f}",
+            **{f"scrape_{i}_{k}": int(sc.get(f"lgbm_tpu_{k}", -1))
+               for i, sc in enumerate(scrapes)
+               for k in ("world_size", "rank_evicted_total")},
+            **{f"{k}_launches": v for k, v in res["launches"].items()
+               if v})
+        phase("elastic_shrink", **out)
+        if [e["rank"] for e in evicted] != [1] or len(resize) != 1 \
+                or res["world"] != 1 or mlist_after != 1:
+            fail(f"25a: evicted {evicted}, resized {resize}, world "
+                 f"{res['world']}, machine list of {mlist_after}:\n{logs}")
+        if not (len(el) == 1 and el[0]["old_world"] == 2
+                and el[0]["new_world"] == 1 and el[0]["kind"] == "group"
+                and el[0]["rows"] == [0, N_ROWS]
+                and el[0]["iteration"] in (2, 3)):
+            fail(f"25a: the elastic resume {el}:\n{logs}")
+        if not out["model_equals_phase22"]:
+            fail("25a: the shrunk group's integer model differs from phase "
+                 "22's uninterrupted two-process model")
+        want = [(2, 0), (1, 1)]
+        got = [(int(sc.get("lgbm_tpu_world_size", -1)),
+                int(sc.get("lgbm_tpu_rank_evicted_total", -1)))
+               for sc in scrapes]
+        if got != want:
+            fail(f"25a: /metrics (world_size, rank_evicted_total) around "
+                 f"the shrink {got}, not {want}")
+        if not ((res["launches"]["hist_window"]
+                 or res["launches"]["hist_local"]) and res["graph"]):
+            fail(f"25a: the resumed rank's launches {res['launches']}, "
+                 f"graph loop {res['graph']}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def timed_iterations(rows: list):
+    """A before-iteration callback appending (the booster's counters, the
+    time after the card finished the last iteration's work) at the start
+    of each iteration to ``rows``."""
+    import torch
+
+    def record(env):
+        torch.cuda.synchronize()
+        rows.append((dict(env.model.inner.stats), time.perf_counter()))
+    record.before_iteration = True
+    return record
+
+
+def telemetry_armed(name: str, params, ds, rounds: int = TELE_ROUNDS,
+                    exact: bool = True) -> dict:
+    """Phase 25b on one learner: ``rounds`` rounds disarmed, then armed
+    with ``trace_path``, ``obs_stream_path``, ``metrics_port`` and
+    ``model_quality=on``, on the same Dataset.  Held: every iteration after
+    the capture makes the same host reads and graph launches armed as
+    disarmed (with ``exact``, 8 and 254 a tree: the Higgs serial graph
+    loop); a live scrape
+    during the armed run parses and holds the booster's families; the
+    trace renders (``obs/report.py``) with one iteration span and one
+    flight progress record an iteration, each record's fields present.
+    Reported: ms a tree armed and disarmed (the median of the iterations
+    after the first), and the progress record's fields."""
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch import train
+    from lightgbm_tpu_torch.obs import flight, report
+    tmp = tempfile.mkdtemp(prefix="lgbt_tele_")
+    try:
+        runs = {}
+        scraped = {}
+        port = _free_port()
+
+        def scrape_once(env):
+            if env.iteration == 1:
+                scraped.update(scrape(port))
+        scrape_once.before_iteration = True
+        for arm in ("disarmed", "armed"):
+            p = dict(params)
+            cbs = []
+            if arm == "armed":
+                p.update(trace_path=os.path.join(tmp, "t.json"),
+                         obs_stream_path=os.path.join(tmp, "fl"),
+                         metrics_port=port, model_quality="on")
+                cbs = [scrape_once]
+            rows = []
+            torch.cuda.synchronize()
+            bst = train(p, ds, rounds, verbose_eval=False,
+                        callbacks=cbs + [timed_iterations(rows)])
+            torch.cuda.synchronize()
+            rows.append((dict(bst.inner.stats), time.perf_counter()))
+            its = [{k: b[0][k] - a[0].get(k, 0) for k in b[0]}
+                   for a, b in zip(rows, rows[1:])]
+            secs = [b[1] - a[1] for a, b in zip(rows, rows[1:])]
+            runs[arm] = dict(its=its, ms=1e3 * statistics.median(secs[1:]),
+                             trees=bst.inner.stats["trees"])
+        text = report.render(os.path.join(tmp, "t.json"))
+        recs = [r for r in flight.read_stream(
+            flight.stream_path(os.path.join(tmp, "fl"), 0))
+            if r["event"] == "progress"]
+        its_a, its_d = runs["armed"]["its"], runs["disarmed"]["its"]
+        keys = ("host_syncs", "graph_replays")
+        same = [tuple(d[k] for k in keys) for d in its_a[1:]] == \
+            [tuple(d[k] for k in keys) for d in its_d[1:]]
+        out = dict(
+            ms_per_tree_disarmed=f"{runs['disarmed']['ms']:.2f}",
+            ms_per_tree_armed=f"{runs['armed']['ms']:.2f}",
+            armed_over_disarmed=(
+                f"{runs['armed']['ms'] / runs['disarmed']['ms']:.4f}"),
+            host_reads_armed=",".join(str(d["host_syncs"]) for d in its_a),
+            host_reads_disarmed=",".join(str(d["host_syncs"])
+                                         for d in its_d),
+            graph_launches_armed=",".join(str(d["graph_replays"])
+                                          for d in its_a),
+            graph_launches_disarmed=",".join(str(d["graph_replays"])
+                                             for d in its_d),
+            progress_records=len(recs),
+            progress_fields=",".join(sorted(recs[-1])) if recs else "",
+            scraped_samples=len(scraped),
+            report_lines=len(text.splitlines()))
+        phase(f"telemetry_armed_{name}", **out)
+        if not same or exact and any(
+                d["host_syncs"] != 8 or d["graph_replays"] != 254
+                for d in its_a[1:]):
+            fail(f"25b {name}: armed iterations off the disarmed ones or "
+                 f"off 8 host reads and 254 graph launches a tree: armed "
+                 f"{its_a}, disarmed {its_d}")
+        if [r["iteration"] for r in recs] != list(range(1, rounds + 1)) \
+                or any(k not in recs[-1] for k in (
+                    "seconds", "trees_per_sec", "ms_per_leaf", "kernel",
+                    "hbm_peak_bytes")):
+            fail(f"25b {name}: flight progress records {recs}")
+        if "lgbm_tpu_train_iterations" not in scraped or not any(
+                k.startswith("lgbm_tpu_phase_seconds_total") for k in scraped):
+            fail(f"25b {name}: the live scrape {sorted(scraped)[:20]}")
+        if "| iteration | " + str(rounds) + " |" not in text:
+            fail(f"25b {name}: the report renders no {rounds} iteration "
+                 f"spans:\n{text[:2000]}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def devprof_armed(params, ds, names, tries: int = 3) -> dict:
+    """Phase 25c: ``device_profile=true, profile_iters=2`` over
+    ``DEVPROF_ROUNDS`` rounds of the Higgs graph loop: the first iteration
+    (the capture) unprofiled, the next two each a ``torch.profiler``
+    window.  The kernels devprof saw over its windows (``op_counts``) are
+    held against the wrappers' counts over those iterations, with
+    :func:`lossy_window`'s handling (a lossy run is trained again, a
+    miscount fails).  Then one more tree of the same booster under
+    :func:`device_ms`: its device-busy share beside devprof's idle gap."""
+    import torch
+    from lightgbm_tpu_torch import train
+    from lightgbm_tpu_torch.obs import devprof
+    fns = _kernel_wrappers()
+    missed = []
+    for _ in range(tries):
+        snap = {}
+
+        def mark(env):
+            if env.iteration == 1:
+                snap["counts"] = count_snapshot(fns)
+                snap["replays"] = env.model.inner.stats.get(
+                    "graph_replays", 0)
+        mark.before_iteration = True
+        t0 = time.perf_counter()
+        bst = train(dict(params, device_profile=True,
+                         profile_iters=DEVPROF_ITERS), ds, DEVPROF_ROUNDS,
+                    verbose_eval=False, callbacks=[mark])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dp = devprof.last_summary()
+        state = loop_state(bst.inner)
+        want = kernels_launched(
+            fns, snap["counts"],
+            bst.inner.stats["graph_replays"] - snap["replays"],
+            state.graph_launches)
+        ran = {k: sum(v for n, v in dp["op_counts"].items() if k in n)
+               for k in want}
+        if dp["captured_iterations"] != DEVPROF_ITERS:
+            fail(f"25c: devprof profiled {dp['captured_iterations']} "
+                 f"windows, not {DEVPROF_ITERS}")
+        if ran == want:
+            break
+        missed.append(lossy_window("25c devprof windows", ran, want, dict(
+            lost=dp["records_lost"], kineto_dropped=0,
+            correlation_lost=dp["records_lost"], correlation_lost_by={
+                k: sum(it["records_lost_by"][k] for it in dp["iterations"])
+                for k in ("launches", "kernels", "graph_kernels")})))
+    else:
+        fail(f"25c: in {tries} devprof runs every window lost records: "
+             f"{missed}")
+    res = device_ms(bst.update, names)
+    busy = res[2] / (res[0] * 1e3)
+    gaps = [it["idle_gap_fraction"] for it in dp["iterations"]]
+    out = dict(
+        train_s=f"{wall:.3f}", windows=dp["captured_iterations"],
+        idle_gap_fraction=",".join(f"{g:.4f}" for g in gaps),
+        window_host_ms=",".join(f"{it['host_ms']:.3f}"
+                                for it in dp["iterations"]),
+        window_device_busy_ms=",".join(f"{it['device_busy_ms']:.3f}"
+                                       for it in dp["iterations"]),
+        device_ms_idle_share=f"{1 - busy:.4f}",
+        device_ms_busy_share=f"{busy:.4f}",
+        attributed_fraction=dp["attributed_fraction"],
+        phase_device_ms=repr(dp["phase_device_ms"]),
+        records_lost=dp["records_lost"],
+        records_lost_by=repr([it["records_lost_by"]
+                              for it in dp["iterations"]]),
+        runs_again=len(missed),
+        **{f"{k}_ran": v for k, v in ran.items() if v})
+    phase("devprof_armed", **out)
+    if dp["attributed_fraction"] is None or dp["attributed_fraction"] < 0.99:
+        fail(f"25c: devprof attributed {dp['attributed_fraction']} of the "
+             f"card's op time to phases")
+    if not (ran["hist_gather_large"] and ran["lgbt_route_kernel"]):
+        fail(f"25c: devprof saw no K1 or route kernel: {ran}")
+    return out
+
+
+def phase_25(params, dp_params, ds, ref_text: str, names):
+    """Phases 25a-25c on phase 3's Dataset: the elastic shrink against
+    ``ref_text`` (phase 22's two-process model), telemetry armed on the
+    serial graph loop and on the data learner over 4x1, and devprof."""
+    elastic = elastic_shrink(params, ds, ref_text)
+    tele = {"serial": telemetry_armed("higgs_graph", params, ds),
+            "dp_4x1": telemetry_armed(
+                "higgs_dp_4x1", dict(dp_params, mesh_shape="4x1"), ds,
+                exact=False)}
+    dprof = devprof_armed(params, ds, names)
+    return elastic, tele, dprof
+
+
+def phase_25_alone(params) -> None:
+    """``--phase-25``: phase 3's Dataset and phase 25 alone, with the serial
+    learner's score-following integer model standing for phase 22's (the
+    sums are exact, so the two are the same model)."""
+    import torch
+    from lightgbm_tpu_torch import Dataset, train
+    rng = np.random.default_rng(SEED + 1)
+    x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
+    x_tr, y_tr = x_all[:N_ROWS], y_all[:N_ROWS]
+    ds = Dataset(x_tr, y_tr, params=params).construct()
+    ref = train(params, ds, SUP_ROUNDS, fobj=score_integer_fobj(y_tr),
+                verbose_eval=False).model_to_string()
+    torch.cuda.synchronize()
+    names = ("hist_gather", "hist_local", "lgbt_partition", "lgbt_route")
+    phase_25(params, dict(params, tree_learner="data",
+                          mesh_devices=MESH_SLOTS), ds, ref, names)
+
+
 def worker(spec_path: str) -> None:
     """A process this script started: phase 22's and ``--multi-card``'s
-    ranks, 24b's preempted training or 24c's supervised ranks."""
+    ranks, 24b's preempted training, or 24c's and 25a's supervised
+    ranks."""
     with open(spec_path) as f:
         spec = json.load(f)
     mode = spec.get("mode", "ranks")
@@ -7001,6 +7582,8 @@ def worker(spec_path: str) -> None:
         preempt_worker(spec)
     elif mode == "supervised":
         supervised_worker(spec)
+    elif mode == "elastic":
+        elastic_worker(spec)
     else:
         process_worker(spec_path)
 
@@ -7015,9 +7598,10 @@ def main() -> None:
         worker(sys.argv[2])
         return
     multi = sys.argv[1:] == ["--multi-card"]
-    if sys.argv[1:] and not multi:
-        fail(f"unknown arguments {sys.argv[1:]}; the one option is "
-             f"--multi-card")
+    only25 = sys.argv[1:] == ["--phase-25"]
+    if sys.argv[1:] and not (multi or only25):
+        fail(f"unknown arguments {sys.argv[1:]}; the options are "
+             f"--multi-card and --phase-25")
     from lightgbm_tpu_torch.ops import build
     from lightgbm_tpu_torch.ops.partition import LAUNCHES
 
@@ -7048,8 +7632,11 @@ def main() -> None:
     params = dict(objective="binary", num_leaves=255, max_bin=N_BINS,
                   min_data_in_leaf=1, min_sum_hessian_in_leaf=100,
                   learning_rate=0.1, verbose=0, device="cuda")
-    if multi:
-        multi_card(params)
+    if multi or only25:
+        if multi:
+            multi_card(params)
+        else:
+            phase_25_alone(params)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -7175,6 +7762,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     preempt = preempt_sigterm(params, higgs_ds, y_tr, ckpt["integer_model"])
     sup = supervised_restart(params, procs_score_model)
+    torch.cuda.empty_cache()
+
+    # ---- phases 25a-25c: elastic groups, the observability plane ---------
+    elastic, tele, dprof = phase_25(params, dp_params, higgs_ds,
+                                    procs_score_model, names)
     torch.cuda.empty_cache()
 
     # ---- phase 20a: streamed trees of the Higgs path ----------------------
@@ -7366,7 +7958,12 @@ def main() -> None:
           snapshot_bytes=ckpt["binary"]["snapshot_bytes"],
           snapshot_write_s=ckpt["binary"]["write_s"],
           sigterm_to_exit_s=preempt["sigterm_to_exit_s"],
-          supervised_wall_s=sup["supervised_wall_s"])
+          supervised_wall_s=sup["supervised_wall_s"],
+          elastic_shrink_wall_s=elastic["supervised_wall_s"],
+          telemetry_armed_ms_per_tree=tele["serial"]["ms_per_tree_armed"],
+          telemetry_disarmed_ms_per_tree=tele["serial"][
+              "ms_per_tree_disarmed"],
+          devprof_idle_gap=dprof["idle_gap_fraction"])
     u16 = lambda name: wide_kernel_fields(name, wide, wide_serial, wide_dp,
                                           wide_expo)
 

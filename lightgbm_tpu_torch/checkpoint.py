@@ -1,6 +1,4 @@
-"""Atomic, resumable training checkpoints (``lightgbm_tpu/checkpoint.py``
-:1-962: everything but the elastic reassembly, which waits for elastic
-groups, ROADMAP.md §1.6).
+"""Atomic, resumable training checkpoints (``lightgbm_tpu/checkpoint.py``).
 
 * **File format**: the snapshot file starts with the ordinary model text
   (so ``Booster(model_file=snapshot)`` keeps working), followed by one
@@ -31,6 +29,19 @@ rank demotes the whole group to the previous set
 (:func:`find_latest_valid_group`); a manifest of another process count or
 data fingerprint raises :class:`CheckpointError`.
 
+**Elastic groups** (``elastic_resume``, :963-1277): every shard ships its
+row count, its valid sets' row counts and its summand of a
+topology-independent global fingerprint through the commit barrier, and
+the manifest records the global row boundaries
+(``partition_rows``, ...).  :func:`find_latest_valid_elastic` agrees on
+the newest set (or single-process snapshot, a one-rank set) that every
+rank of a group of any other size can reassemble its rows from, splices
+each rank's state at the new boundaries
+(:func:`_reassemble_elastic_state`) and re-verifies the global
+fingerprint.  The files are the JAX package's: a set written by either
+package at k processes resumes in the other at m (the state's trees are
+read into the reading package's own ``Tree``, :func:`decode`).
+
 The ``torn_checkpoint``, ``torn_shard_rank``, ``torn_manifest`` and
 ``rank_crash_in_barrier`` fault points
 (:mod:`lightgbm_tpu_torch.utils.faults`) leave a half file at the final
@@ -42,6 +53,7 @@ from __future__ import annotations
 import base64
 import copy
 import glob
+import io
 import os
 import pickle
 import re
@@ -121,6 +133,28 @@ def encode(model_str: str, state: Dict[str, Any]) -> bytes:
     return payload + f"{_CRC_PREFIX}{zlib.crc32(payload):08x}\n".encode()
 
 
+_JAX_PKG = "lightgbm_tpu"
+
+
+class _Unpickler(pickle.Unpickler):
+    """Reads a state written by either package: a class of the JAX
+    package (its ``tree.Tree``, whose attributes are the port's) is read
+    as the port's class of the same module and name, so the JAX package
+    is never imported."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == _JAX_PKG:
+            import importlib
+            mod = importlib.import_module(
+                __package__ + module[len(_JAX_PKG):])
+            if not hasattr(mod, name):
+                raise CheckpointError(
+                    f"checkpoint state holds {module}.{name}, which the "
+                    "port has no counterpart of")
+            return getattr(mod, name)
+        return super().find_class(module, name)
+
+
 def decode(data: bytes) -> Tuple[str, Dict[str, Any]]:
     """Validate CRC footer and return ``(model_str, state)``.
 
@@ -148,8 +182,8 @@ def decode(data: bytes) -> Tuple[str, Dict[str, Any]]:
     if state_line is None:
         raise CheckpointError("no checkpoint state line in file")
     try:
-        state = pickle.loads(zlib.decompress(
-            base64.b64decode(state_line[len(_STATE_PREFIX):])))
+        state = _Unpickler(io.BytesIO(zlib.decompress(
+            base64.b64decode(state_line[len(_STATE_PREFIX):])))).load()
     except Exception as e:
         raise CheckpointError(f"undecodable checkpoint state: {e}")
     model_str = text[:text.rindex(_STATE_PREFIX)]
@@ -425,7 +459,8 @@ def _stamped_epoch(path: str) -> int:
 
 def sweep_stale_tmp(output_model: str, crash_reports: bool = False,
                     heartbeats: bool = False, *,
-                    current_epoch: Optional[int] = None) -> List[str]:
+                    current_epoch: Optional[int] = None,
+                    flight_base: str = "") -> List[str]:
     """Startup hygiene for crashed ranks: remove ``.tmp.r<rank>.<pid>``
     atomic-write leftovers whose writer pid is dead (a SIGKILLed rank's
     half-written tmp otherwise lives forever on a shared filesystem), and
@@ -435,8 +470,9 @@ def sweep_stale_tmp(output_model: str, crash_reports: bool = False,
     as a ``stale_sweep`` obs event so the cleanup is observable.
 
     ``current_epoch`` (keyword-only; the supervisor's launch counter)
-    also sweeps heartbeat and crash-report files stamped with an OLDER
-    epoch: a dead incarnation's files are never taken for the live
+    also sweeps heartbeat, crash-report and flight-stream files stamped
+    with an OLDER epoch (``flight_base`` names the ``obs_stream_path``
+    prefix): a dead incarnation's files are never taken for the live
     group's.  ``None`` sweeps by pid and the two flags only."""
     from .obs.counters import counters
     base = os.path.basename(output_model)
@@ -460,6 +496,8 @@ def sweep_stale_tmp(output_model: str, crash_reports: bool = False,
         epoch_files = (
             glob.glob(glob.escape(output_model) + ".heartbeat.rank_*")
             + glob.glob(glob.escape(output_model) + ".crash.rank_*"))
+        if flight_base:
+            epoch_files += glob.glob(glob.escape(flight_base) + ".rank_*")
         for p in epoch_files:
             ep = _stamped_epoch(p)
             if ep < int(current_epoch):
@@ -701,6 +739,36 @@ def data_fingerprint(binned, num_data: int) -> int:
     return crc
 
 
+ELASTIC_FP_STRIDE = 64
+
+
+def elastic_fingerprint_partial(binned, num_data: int, global_offset: int,
+                                stride: int = ELASTIC_FP_STRIDE) -> int:
+    """This rank's summand of the global dataset fingerprint (the JAX
+    package's integer): ``sum over sampled global rows g of crc32(row) *
+    (g + 1) mod 2**64``, every ``stride``-th global row.  Addressed by
+    global row, the ranks' partials sum to the same value however the rows
+    are cut.  ``binned`` is the host matrix or a tensor; only the sampled
+    rows are copied to the host."""
+    import numpy as np
+    if binned is None or num_data <= 0:
+        return 0
+    start = (-int(global_offset)) % int(stride)
+    if isinstance(binned, np.ndarray):
+        sample = binned[start:int(num_data):int(stride)]
+    else:
+        from .ops.histogram import movable
+        dtype = np.dtype(str(binned.dtype).replace("torch.", ""))
+        sample = movable(binned)[start:int(num_data):int(stride)] \
+            .cpu().numpy().view(dtype)
+    total = 0
+    for k in range(len(sample)):
+        g = int(global_offset) + start + k * int(stride)
+        total = (total + zlib.crc32(np.ascontiguousarray(sample[k])
+                                    .tobytes()) * (g + 1)) % (1 << 64)
+    return total
+
+
 def _default_gather():
     from .parallel.sync import allgather_object
     return allgather_object
@@ -708,13 +776,24 @@ def _default_gather():
 
 def write_group_snapshot(output_model: str, iteration: int, model_str: str,
                          state: Dict[str, Any], *, rank: int, world: int,
-                         fingerprint: int, gather=None) -> None:
+                         fingerprint: int, gather=None,
+                         elastic_meta: Optional[Dict[str, Any]] = None
+                         ) -> None:
     """One rank's half of the coordinated snapshot protocol.
 
     Shard write (atomic, every rank) -> barrier (allgather of shard CRCs
     through the hardened collective ladder) -> manifest write (rank 0, the
     commit point).  A crash at ANY instant leaves either the previous
-    committed set or the new one: shards without a manifest never existed."""
+    committed set or the new one: shards without a manifest never existed.
+
+    ``elastic_meta`` (from ``engine.train``) rides the same barrier and
+    puts the global row boundaries into the manifest (``partition_rows``,
+    ``valid_partition_rows``, ``num_data_global``, ``global_fingerprint``,
+    ``num_features``, ``num_class``, ``num_leaves``, ``max_bin``): what
+    :func:`find_latest_valid_elastic` reads at another process count.
+    Keys: ``num_data``, ``valid_num_data``, ``fp_partial``
+    (:func:`elastic_fingerprint_partial` at this rank's global offset),
+    ``num_features``, ``num_class``, ``num_leaves``, ``max_bin``."""
     gather = gather or _default_gather()
     fi = faults_mod.get_faults()
     spath = shard_path(output_model, iteration, rank)
@@ -734,6 +813,8 @@ def write_group_snapshot(output_model: str, iteration: int, model_str: str,
     # barrier + CRC exchange: nobody commits until every shard is durable
     info = {"rank": rank, "crc": zlib.crc32(data),
             "fingerprint": int(fingerprint)}
+    if elastic_meta is not None:
+        info["elastic"] = dict(elastic_meta)
     infos = gather(info)
     if rank != 0:
         return
@@ -746,6 +827,24 @@ def write_group_snapshot(output_model: str, iteration: int, model_str: str,
         "data_fingerprint": [int(by_rank[r]["fingerprint"])
                              for r in range(world)],
     }
+    metas = {r: by_rank[r].get("elastic") for r in range(world)
+             if r in by_rank}
+    if len(metas) == world and all(metas[r] for r in range(world)):
+        # every rank shipped its partition: commit the global boundaries
+        manifest["partition_rows"] = [int(metas[r]["num_data"])
+                                      for r in range(world)]
+        manifest["valid_partition_rows"] = [
+            [int(v) for v in metas[r].get("valid_num_data", [])]
+            for r in range(world)]
+        manifest["num_data_global"] = sum(manifest["partition_rows"])
+        manifest["global_fingerprint"] = (
+            sum(int(metas[r].get("fp_partial", 0)) for r in range(world))
+            % (1 << 64))
+        manifest["num_features"] = int(metas[0].get("num_features", 0))
+        manifest["num_class"] = int(metas[0].get("num_class", 1))
+        # what the supervisor's mesh pre-flight of a shrunk world reads
+        manifest["num_leaves"] = int(metas[0].get("num_leaves", 31) or 31)
+        manifest["max_bin"] = int(metas[0].get("max_bin", 255) or 255)
     mdata = encode("", manifest)
     mpath = manifest_path(output_model, iteration)
     if fi.enabled and fi.fire("torn_manifest", iteration):
@@ -787,11 +886,12 @@ def _local_valid_group_iters(output_model: str, rank: int, world: int,
             fatal = (f"checkpoint set at iteration {it} was written by "
                      f"{manifest.get('process_count')} process(es) but this "
                      f"job runs {world} — resuming across a topology change "
-                     "would silently diverge; candidate set "
+                     "would silently diverge in strict mode; candidate set "
                      f"{os.path.basename(manifest_path(output_model, it))} "
-                     f"(shards rank_0..rank_{max(0, old_world - 1)}): "
-                     "restart from scratch or rerun with the original "
-                     "process count (elastic resume is not ported)")
+                     f"(shards rank_0..rank_{max(0, old_world - 1)}) can "
+                     "only be accepted elastically: set elastic_resume=true "
+                     f"to reassemble it at {world} rank(s), or restart from "
+                     "scratch / rerun with the original process count")
             break
         if int(manifest["data_fingerprint"][rank]) != int(fingerprint):
             fatal = (f"checkpoint set at iteration {it}: rank {rank}'s "
@@ -871,3 +971,313 @@ def find_latest_valid_group(output_model: str, *, rank: int, world: int,
                     "rank(s) %s)", local_best, best, bad_ranks)
     _, state = load_snapshot(shard_path(output_model, best, rank))
     return best, shard_path(output_model, best, rank), state
+
+
+# --------------------------- elastic (topology-change) resume protocol
+
+def _offsets(parts: List[int]) -> List[int]:
+    out, acc = [], 0
+    for p in parts:
+        out.append(acc)
+        acc += int(p)
+    return out
+
+
+def _overlapping(parts: List[int], lo: int, hi: int) -> List[int]:
+    offs = _offsets(parts)
+    return [r for r in range(len(parts))
+            if offs[r] < hi and offs[r] + int(parts[r]) > lo]
+
+
+def _scores_rows(a) -> int:
+    import numpy as np
+    return int(np.asarray(a).shape[1])
+
+
+def _elastic_local_candidates(output_model: str, rank: int,
+                              lo: int, hi: int, new_total: int,
+                              valid_totals: List[int],
+                              valid_ranges: List[Tuple[int, int]]):
+    """Every committed artifact under the prefix that this rank could load
+    elastically, newest first, as ``[(iteration, kind), ...]``
+    (``lightgbm_tpu/checkpoint.py:977``): kind ``"group"`` (a set whose
+    manifest carries partition boundaries) or ``"plain"`` (a
+    single-process snapshot, a one-rank set: the 1->W direction).  A
+    candidate holds when its global row totals are this job's and every
+    old shard overlapping this rank's new train and valid rows checks out
+    (CRC against the manifest, and decodes).  A candidate that does not is
+    skipped with a ``checkpoint_skipped`` event, never fatal."""
+    ok: List[Tuple[int, str]] = []
+    for it in sorted(list_snapshot_sets(output_model), reverse=True):
+        try:
+            manifest = load_manifest(output_model, it)
+        except CheckpointError as e:
+            _skip_event(it, manifest_path(output_model, it), str(e))
+            log.warning("Skipping snapshot set iter %d: %s", it, e)
+            continue
+        parts = manifest.get("partition_rows")
+        if not parts:
+            _skip_event(it, manifest_path(output_model, it),
+                        "pre-elastic manifest carries no partition "
+                        "boundaries")
+            log.warning("Skipping snapshot set iter %d for elastic resume: "
+                        "its manifest predates partition boundaries", it)
+            continue
+        vparts = manifest.get("valid_partition_rows") or []
+        old_world = len(parts)
+        old_valid_totals = [sum(int(vparts[r][v]) for r in range(old_world))
+                            for v in range(len(vparts[0]) if vparts
+                                           and vparts[0] is not None else 0)]
+        if int(manifest.get("num_data_global", -1)) != int(new_total) \
+                or old_valid_totals != [int(v) for v in valid_totals]:
+            _skip_event(it, manifest_path(output_model, it),
+                        f"global row totals mismatch (set: "
+                        f"{manifest.get('num_data_global')} train rows, "
+                        f"{old_valid_totals} valid; job: {new_total}, "
+                        f"{list(valid_totals)})")
+            log.warning("Skipping snapshot set iter %d for elastic resume: "
+                        "its global row totals do not match this job", it)
+            continue
+        need = set(_overlapping([int(p) for p in parts], lo, hi))
+        for v, (vlo, vhi) in enumerate(valid_ranges):
+            need |= set(_overlapping(
+                [int(vparts[r][v]) for r in range(old_world)], vlo, vhi))
+        bad = None
+        for r in sorted(need):
+            spath = shard_path(output_model, it, r)
+            try:
+                with open(spath, "rb") as f:
+                    data = f.read()
+                want = int(manifest["shard_crc32"][r])
+                got = zlib.crc32(data)
+                if got != want:
+                    raise CheckpointError(
+                        f"shard CRC mismatch vs manifest (manifest "
+                        f"{want:08x}, file {got:08x})")
+                decode(data)
+            except (OSError, CheckpointError) as e:
+                bad = (spath, f"old rank {r}: {e}")
+                break
+        if bad is not None:
+            _skip_event(it, bad[0], bad[1])
+            log.warning("Snapshot set iter %d invalid for elastic resume "
+                        "on rank %d (%s); demoting to an older candidate",
+                        it, rank, bad[1])
+            continue
+        ok.append((it, "group"))
+    for it, path in reversed(list_snapshots(output_model)):
+        try:
+            _, state = load_snapshot(path)
+            bst = state["booster"]
+            n = _scores_rows(bst["scores"])
+            vns = [_scores_rows(s) for s in bst.get("valid_scores", [])]
+        except (CheckpointError, KeyError, IndexError) as e:
+            _skip_event(it, path, f"elastic scan: {e}")
+            log.warning("Skipping invalid snapshot %s: %s", path, e)
+            continue
+        if n != int(new_total) or vns != [int(v) for v in valid_totals]:
+            _skip_event(it, path,
+                        f"global row totals mismatch (snapshot: {n} train "
+                        f"rows, {vns} valid; job: {new_total}, "
+                        f"{list(valid_totals)})")
+            log.warning("Skipping snapshot %s for elastic resume: its row "
+                        "totals do not match this job", path)
+            continue
+        ok.append((it, "plain"))
+    ok.sort(key=lambda c: (c[0], c[1] == "group"), reverse=True)
+    return ok
+
+
+def _splice_rows(arrays: List[Any], parts: List[int], lo: int, hi: int,
+                 axis: int):
+    """The global rows ``[lo, hi)`` out of row-partitioned arrays
+    (``arrays[i]`` holds old rank i's ``parts[i]`` rows along ``axis``);
+    None when the overlapping ranks hold none (the port keeps no bag
+    vector while bagging is off)."""
+    import numpy as np
+    offs = _offsets(parts)
+    over = _overlapping(parts, lo, hi)
+    if all(arrays[r] is None for r in over):
+        return None
+    pieces = []
+    for r in over:
+        a = np.asarray(arrays[r])
+        s = max(lo - offs[r], 0)
+        e = min(hi, offs[r] + int(parts[r])) - offs[r]
+        pieces.append(a[:, s:e] if axis == 1 else a[s:e])
+    return np.concatenate(pieces, axis=axis)
+
+
+# replicated booster state every rank of a deterministic group holds alike
+_REPLICATED = ("kind", "models", "iter_", "num_init_iteration",
+               "boost_from_average_", "best_iteration", "bag_rng",
+               "feat_rng", "bagging_on", "learning_rate", "dart")
+
+
+def _reassemble_elastic_state(shard_states: Dict[int, Dict[str, Any]],
+                              parts: List[int], vparts: List[List[int]],
+                              lo: int, hi: int,
+                              valid_ranges: List[Tuple[int, int]]
+                              ) -> Dict[str, Any]:
+    """One new rank's state spliced out of the old group's shards
+    (``lightgbm_tpu/checkpoint.py:1093``).  ``shard_states`` maps old rank
+    -> that shard's state (every old rank overlapping the new train and
+    valid rows).  Row-partitioned state (the score matrices, the bag
+    weight and count vectors, the bag subset's rows) is cut at global row
+    boundaries; replicated state (the trees, the iteration counts, the RNG
+    streams) comes from the lowest overlapping shard; the per-partition
+    ``data_fingerprint`` is cleared (the global fingerprint is checked
+    instead)."""
+    import numpy as np
+    train_ranks = _overlapping(parts, lo, hi)
+    base = shard_states[train_ranks[0]]
+    bs = {r: shard_states[r]["booster"] for r in shard_states}
+    b0 = bs[train_ranks[0]]
+    offs = _offsets(parts)
+    iparts = [int(p) for p in parts]
+
+    def train_cut(key, axis):
+        return _splice_rows([bs[r].get(key) if r in bs else None
+                             for r in range(len(parts))],
+                            iparts, lo, hi, axis)
+
+    booster = {"data_fingerprint": None}
+    booster.update({k: b0[k] for k in _REPLICATED if k in b0})
+    booster["models"] = list(b0["models"])
+    booster["scores"] = train_cut("scores", axis=1)
+    booster["bag_weight"] = train_cut("bag_weight", axis=0)
+    booster["bag_cnt"] = train_cut("bag_cnt", axis=0)
+    vscores = []
+    for v, (vlo, vhi) in enumerate(valid_ranges):
+        vp = [int(vparts[r][v]) for r in range(len(parts))]
+        vscores.append(_splice_rows(
+            [bs[r].get("valid_scores", [None] * (v + 1))[v]
+             if r in bs else None for r in range(len(parts))],
+            vp, vlo, vhi, axis=1))
+    booster["valid_scores"] = vscores
+    if any(bs[r].get("subset") is not None for r in train_ranks):
+        idx_parts, w_parts = [], []
+        for r in train_ranks:
+            sub = bs[r].get("subset")
+            if sub is None:
+                continue
+            g = np.asarray(sub["idx"], np.int64) + offs[r]
+            keep = (g >= lo) & (g < hi)
+            idx_parts.append(g[keep] - lo)
+            w_parts.append(np.asarray(sub["w"])[keep])
+        booster["subset"] = {
+            "idx": np.concatenate(idx_parts) if idx_parts
+            else np.zeros(0, np.int64),
+            "w": np.concatenate(w_parts) if w_parts
+            else np.zeros(0, np.float32)}
+    else:
+        booster["subset"] = None
+    return {
+        "version": base["version"],
+        "iteration": base["iteration"],
+        "booster": booster,
+        "best_iteration": base["best_iteration"],
+        "best_score": copy.deepcopy(base["best_score"]),
+        "evals_result": copy.deepcopy(base.get("evals_result")),
+        "callback_states": copy.deepcopy(base.get("callback_states")),
+    }
+
+
+def find_latest_valid_elastic(output_model: str, *, rank: int, world: int,
+                              num_data: int, valid_num_data=(),
+                              fingerprint_partial_fn=None, gather=None,
+                              only_iteration: Optional[int] = None):
+    """The elastic resume barrier (``elastic_resume=true``,
+    ``lightgbm_tpu/checkpoint.py:1172``): agree on the newest committed
+    artifact (a set of any process count, or a single-process snapshot)
+    that every rank of this group can reassemble its rows from, then
+    splice each rank's state at the new row boundaries.  Three
+    rendezvous go through the collectives' ladder (each a no-op alone):
+    the partition exchange, the candidate agreement and the global
+    fingerprint audit (the :func:`elastic_fingerprint_partial` summands
+    over the new partition must sum to the manifest's
+    ``global_fingerprint``: the same rows, cut anyhow).  Returns
+    ``(iteration, path, state)`` or None."""
+    gather = gather or _default_gather()
+    sweep_stale_tmp(output_model)
+    me = {"rank": int(rank), "num_data": int(num_data),
+          "valid": [int(v) for v in valid_num_data]}
+    parts_view = sorted(gather(me), key=lambda p: int(p["rank"]))
+    new_parts = [int(p["num_data"]) for p in parts_view]
+    new_total = sum(new_parts)
+    offs = _offsets(new_parts)
+    lo, hi = offs[rank], offs[rank] + int(num_data)
+    valid_totals = [sum(int(p["valid"][v]) for p in parts_view)
+                    for v in range(len(me["valid"]))]
+    valid_ranges: List[Tuple[int, int]] = []
+    for v in range(len(me["valid"])):
+        voffs = _offsets([int(p["valid"][v]) for p in parts_view])
+        valid_ranges.append((voffs[rank], voffs[rank] + int(me["valid"][v])))
+    ok = _elastic_local_candidates(output_model, rank, lo, hi, new_total,
+                                   valid_totals, valid_ranges)
+    views = gather({"rank": rank, "ok": [list(c) for c in ok]})
+    cand_sets = [set((int(i), str(k)) for i, k in v["ok"]) for v in views]
+    agreed = set.intersection(*cand_sets) if cand_sets else set()
+    if only_iteration is not None:
+        agreed = {c for c in agreed if c[0] == int(only_iteration)}
+        if not agreed:
+            raise CheckpointError(
+                f"snapshot set at iteration {only_iteration} of "
+                f"{output_model} is not elastically loadable on every rank")
+    if not agreed:
+        return None
+    best_it, best_kind = max(agreed, key=lambda c: (c[0], c[1] == "group"))
+    local_best = ok[0][0] if ok else None
+    if local_best is not None and best_it != local_best:
+        bad_ranks = [int(v["rank"]) for v in views
+                     if not any(c[0] == local_best for c in v["ok"])]
+        _skip_event(local_best, manifest_path(output_model, local_best),
+                    f"demoted to iteration {best_it}: rank(s) {bad_ranks} "
+                    "hold no elastically loadable candidate")
+        log.warning("Elastic candidate iter %d demoted to iter %d (not "
+                    "loadable on rank(s) %s)", local_best, best_it,
+                    bad_ranks)
+    if best_kind == "plain":
+        path = snapshot_path(output_model, best_it)
+        _, state = load_snapshot(path)
+        parts = [_scores_rows(state["booster"]["scores"])]
+        vparts = [[_scores_rows(s)
+                   for s in state["booster"].get("valid_scores", [])]]
+        shard_states = {0: state}
+        gfp = None
+    else:
+        path = manifest_path(output_model, best_it)
+        manifest = load_manifest(output_model, best_it)
+        parts = [int(p) for p in manifest["partition_rows"]]
+        vparts = manifest.get("valid_partition_rows") or \
+            [[] for _ in parts]
+        need = set(_overlapping(parts, lo, hi))
+        for v, (vlo, vhi) in enumerate(valid_ranges):
+            need |= set(_overlapping(
+                [int(vparts[r][v]) for r in range(len(parts))], vlo, vhi))
+        shard_states = {}
+        for r in sorted(need):
+            _, shard_states[r] = load_snapshot(
+                shard_path(output_model, best_it, r))
+        gfp = manifest.get("global_fingerprint")
+    state = _reassemble_elastic_state(shard_states, parts, vparts, lo, hi,
+                                      valid_ranges)
+    if gfp is not None and fingerprint_partial_fn is not None:
+        fps = gather({"rank": rank, "fp": int(fingerprint_partial_fn(lo))})
+        total_fp = sum(int(p["fp"]) for p in fps) % (1 << 64)
+        if total_fp != int(gfp):
+            raise CheckpointError(
+                f"elastic resume at iteration {best_it}: the group's "
+                f"global dataset fingerprint ({total_fp}) does not match "
+                f"the manifest's ({int(gfp)}) — the rows this {world}-rank "
+                "group holds are not the rows the checkpoint was taken "
+                "over (re-partitioned or re-binned data?)")
+    from .obs.counters import counters
+    counters.event("elastic_resume", iteration=int(best_it),
+                   kind=best_kind, old_world=len(parts), new_world=world,
+                   rank=rank, rows=[lo, hi])
+    log.info("Elastic resume: reassembled iteration %d from a %d-rank %s "
+             "at world=%d (rank %d rows [%d, %d))", best_it, len(parts),
+             "snapshot" if best_kind == "plain" else "set", world, rank,
+             lo, hi)
+    return best_it, path, state

@@ -18,6 +18,7 @@ Unknown parameters are rejected as the reference rejects them.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -269,6 +270,31 @@ class Config:
     #                                the next iteration boundary, then a
     #                                clean exit ("" = off)
     collective_retries: int = 2    # the host-object collectives' retries
+    # elastic groups (lightgbm_tpu/config.py:369-393): accept a committed
+    # set written by another process count, each rank reassembling its
+    # rows at global row boundaries; the supervisor's shrink after
+    # world_shrink_after startup failures of a rank, never below
+    # elastic_min_ranks
+    elastic_resume: bool = False
+    elastic_min_ranks: int = 1
+    world_shrink_after: int = 2
+    # observability (lightgbm_tpu/config.py:216-272; obs/): a Chrome-trace
+    # span file (trace_path, implies telemetry), counters and spans without
+    # a file (telemetry), a torch.profiler trace of the boosting loop
+    # (profile_dir), device-time attribution over profile_iters
+    # steady-state iterations (device_profile, implies telemetry), the
+    # /metrics exporter at metrics_port + rank (0 = off), the per-rank
+    # flight recorder <obs_stream_path>.rank_R, the model-quality plane
+    # (auto follows telemetry) and the supervisor's straggler factor
+    profile_dir: str = ""
+    device_profile: bool = False
+    profile_iters: int = 2
+    trace_path: str = ""
+    telemetry: bool = False
+    metrics_port: int = 0
+    obs_stream_path: str = ""
+    model_quality: str = "auto"
+    straggler_factor: float = 4.0
 
     def copy(self) -> "Config":
         return dataclasses.replace(self)
@@ -327,18 +353,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "input_model": ("", _SERVING),
     "output_result": ("LightGBM_predict_result.txt", _SERVING),
     "convert_model": ("gbdt_prediction.cpp", _SERVING),
-    "profile_dir": ("", _SERVING),
-    "device_profile": (False, _SERVING),
-    "profile_iters": (2, _SERVING),
-    "trace_path": ("", _SERVING),
-    "telemetry": (False, _SERVING),
-    "metrics_port": (0, _SERVING),
-    "obs_stream_path": ("", _SERVING),
-    "model_quality": ("auto", _SERVING),
-    "straggler_factor": (4.0, _SERVING),
-    "elastic_resume": (False, _SERVING),
-    "elastic_min_ranks": (1, _SERVING),
-    "world_shrink_after": (2, _SERVING),
     "latency_budget_ms": (2.0, _SERVING),
     "serving_buckets": ("1,8,64,512,4096", _SERVING),
     "model_watch": ("", _SERVING),
@@ -568,7 +582,10 @@ def _check_robustness(cfg: Config) -> None:
             log.fatal("%s", e)
         world = max(1, cfg.num_machines)
         for e in entries:
-            if e.rank is not None and e.rank >= world:
+            # a spec written for the launch topology may name a rank that
+            # an elastic relaunch (LGBM_TPU_WORLD, a shrunk world) evicted
+            if e.rank is not None and e.rank >= world \
+                    and "LGBM_TPU_WORLD" not in os.environ:
                 log.fatal("fault_inject: rank=%d targets a rank this job "
                           "does not run (num_machines=%d)", e.rank, world)
     if cfg.preempt_signal:
@@ -596,6 +613,36 @@ def _check_robustness(cfg: Config) -> None:
     if cfg.restart_backoff < 0:
         log.fatal("restart_backoff must be >= 0 seconds; got %r",
                   cfg.restart_backoff)
+    if cfg.elastic_min_ranks < 1:
+        log.fatal("elastic_min_ranks must be >= 1; got %d",
+                  cfg.elastic_min_ranks)
+    if cfg.world_shrink_after < 1:
+        log.fatal("world_shrink_after must be >= 1 consecutive startup "
+                  "failures; got %d", cfg.world_shrink_after)
+    _check_observability(cfg)
+
+
+def _check_observability(cfg: Config) -> None:
+    """The telemetry keys (lightgbm_tpu/config.py:718-720, :799-814)."""
+    if cfg.model_quality not in ("auto", "on", "off"):
+        log.fatal("model_quality must be auto, on, or off; got %r",
+                  cfg.model_quality)
+    if cfg.metrics_port < 0 or cfg.metrics_port > 65535:
+        log.fatal("metrics_port must be in [0, 65535] (0 = off); got %d",
+                  cfg.metrics_port)
+    if cfg.profile_iters < 1:
+        log.fatal("profile_iters must be >= 1 (steady-state iterations "
+                  "the device_profile plane captures); got %d",
+                  cfg.profile_iters)
+    if cfg.device_profile and cfg.profile_dir:
+        log.fatal("device_profile cannot be combined with profile_dir: "
+                  "both arm the one process-wide torch.profiler session; "
+                  "use device_profile for attributed per-phase accounting "
+                  "or profile_dir for a raw whole-run trace")
+    if cfg.straggler_factor <= 1:
+        log.fatal("straggler_factor must be > 1 (a rank is a straggler "
+                  "when its progress rate falls that factor behind the "
+                  "group median); got %r", cfg.straggler_factor)
 
 
 def resolve_device(name: Optional[str]) -> torch.device:

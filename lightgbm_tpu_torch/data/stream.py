@@ -24,6 +24,15 @@ differs from the JAX package:
   the copy into a buffer waiting on the event recorded after the last
   kernel that read it.  Nothing in a pass waits on the host.
 
+**Waits** (``stream_wait_ms``, :meth:`BlockStreamer.take_wait_ms`): the
+JAX package times the host's wait for each block.  Here the host never
+waits; the compute stream does, on the copy event.  With ``timed`` set
+(the flight recorder armed), a pair of timing events brackets each of
+those waits on the compute stream, and :meth:`take_wait_ms` sums their
+elapsed times after the tree's host read has passed them: the card's
+time stalled on the link, read without a wait of its own.  A block whose
+wait passes :data:`STALL_THRESHOLD_MS` counts as a ``stream_stall``.
+
 uint16 bins move through their int16 view (``ops/histogram.py:movable``).
 On the CPU the streamer hands out the host slices themselves.
 """
@@ -35,7 +44,11 @@ import numpy as np
 import torch
 
 from ..ops.histogram import movable
+from ..obs.counters import counters
 from ..utils import log
+
+# a block's wait past this is a stall (lightgbm_tpu/data/stream.py:40)
+STALL_THRESHOLD_MS = 1.0
 
 
 def pin_matrix(binned: np.ndarray) -> np.ndarray:
@@ -89,6 +102,10 @@ class BlockStreamer:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.store, self.device = store, dev
         self.blocks_streamed = self.bytes_streamed = self.passes = 0
+        # the waits' timing (module docstring): off unless asked for
+        self.timed = False
+        self._wait_ev: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        self._waits = 0          # pairs recorded since the last take
         host = torch.from_numpy(store.matrix)
         self.dtype = host.dtype
         bounds = [store.bounds(k) for k in range(store.num_blocks)]
@@ -138,7 +155,17 @@ class BlockStreamer:
             self.blocks_streamed += 1
             self.bytes_streamed += block.numel() * block.element_size()
             if cuda:
+                if self.timed:
+                    if self._waits == len(self._wait_ev):
+                        self._wait_ev.append(
+                            (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True)))
+                    pair = self._wait_ev[self._waits]
+                    self._waits += 1
+                    pair[0].record(cur)
                 cur.wait_event(self._copied[k % 2])
+                if self.timed:
+                    pair[1].record(cur)
                 # started as late as it may be, so that block k's first
                 # kernel follows it closely: a copy overlaps the kernels
                 # that are launched while it runs
@@ -148,6 +175,29 @@ class BlockStreamer:
             if cuda:
                 self._consumed[k % 2].record(cur)
         self.passes += 1
+
+    def take_wait_ms(self) -> float:
+        """The compute stream's waits on the copies since the last take,
+        in ms (0 off a card or untimed), each block's counted into
+        ``stream_wait_ms`` and, past :data:`STALL_THRESHOLD_MS`, into
+        ``stream_stalls`` with a ``stream_stall`` event.  Called after the
+        tree's host read, when every recorded event has completed."""
+        total = 0.0
+        for k in range(self._waits):
+            a, b = self._wait_ev[k]
+            ms = a.elapsed_time(b)
+            total += ms
+            if ms > STALL_THRESHOLD_MS:
+                counters.inc("stream_stalls")
+                counters.event("stream_stall",
+                               block=k % max(1, self.store.num_blocks),
+                               wait_ms=round(ms, 3),
+                               pass_index=self.passes,
+                               chunk_rows=self.store.chunk_rows)
+        self._waits = 0
+        if total:
+            counters.inc("stream_wait_ms", total)
+        return total
 
 
 def make_block_store(binned: np.ndarray, chunk_rows: int) -> HostBlockStore:

@@ -4,15 +4,27 @@ callback-driven boosting loop with custom objectives and metrics
 (``fobj``, ``feval``), a learning-rate schedule, early stopping and
 evaluation records, continued training from ``init_model``,
 cross-validation over stratified, shuffled or query-grouped folds, and
-the robustness of ``lightgbm_tpu/engine.py:100-135, :233-400``: resumable
+the robustness of ``lightgbm_tpu/engine.py:85-410``: resumable
 snapshots (``snapshot_freq``, ``snapshot_keep``, ``snapshot_resume`` /
-``resume=``; one file alone, the coordinated shard set over processes),
-preemption safety (``preempt_signal``), liveness heartbeats and crash
-reports for the supervisor (``heartbeat_interval``), and the fault points
-of the iteration boundary (``rank_crash``, ``rank_hang``, ``preempt``)."""
+``resume=``; one file alone, the coordinated shard set over processes,
+and with ``elastic_resume`` a set of another process count), preemption
+safety (``preempt_signal``), liveness heartbeats and crash reports for
+the supervisor (``heartbeat_interval``), the elastic relaunch's world
+override (``LGBM_TPU_WORLD``), and the fault points of the iteration
+boundary (``rank_crash``, ``host_lost``, ``rank_hang``, ``preempt``).
+
+The observability plane is armed and disarmed here, scoped to one
+training (``lightgbm_tpu/engine.py:57-67, :200-226, :410-540``): the
+trace and the memory monitor (``trace_path`` / ``telemetry``), device-time
+attribution (``device_profile``), a ``torch.profiler`` trace of the loop
+(``profile_dir``), the flight recorder (``obs_stream_path``), the
+``/metrics`` exporter (``metrics_port``) and the model-quality plane
+(``model_quality``).  Each is a host-side observer: arming any but
+devprof and ``profile_dir`` adds no device read and no collective."""
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Union
@@ -24,11 +36,20 @@ from . import callback as callback_mod
 from . import checkpoint as checkpoint_mod
 from .basic import Booster, Dataset
 from .config import canonicalize_params, config_from_params
+from .obs import devprof as obs_devprof
+from .obs import flight as obs_flight
+from .obs import memory as obs_memory
+from .obs import metrics as obs_metrics
+from .obs import model_quality as obs_model_quality
+from .obs import trace as obs_trace
 from .obs.counters import counters
 from .parallel import sync
 from .parallel.mesh import init_distributed_from_config
 from .utils import faults as faults_mod
 from .utils import log
+
+# the world a supervisor's elastic relaunch runs at (supervisor.py)
+WORLD_ENV = "LGBM_TPU_WORLD"
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
@@ -58,24 +79,107 @@ def train(params: Dict[str, Any], train_set: Dataset,
     done.  ``resume`` (also the ``snapshot_resume`` param): ``True`` finds
     the newest valid ``<output_model>.snapshot_iter_N`` (a torn file falls
     back to the one before; over processes, the newest set valid on every
-    rank) and continues from it with the training state restored bit for
-    bit; a string resumes from that snapshot file."""
+    rank; with ``elastic_resume``, the newest artifact of any process count
+    this group can reassemble) and continues from it with the training
+    state restored bit for bit; a string resumes from that snapshot
+    file."""
     params = canonicalize_params(params)
+    # the elastic relaunch's world (lightgbm_tpu/engine.py:117-132): the
+    # supervisor stamps the current world into LGBM_TPU_WORLD; num_machines
+    # still names the launch topology, so it is cut here (a world of 1
+    # then skips the distributed bring-up and its dead peer's rendezvous)
+    env_world = os.environ.get(WORLD_ENV, "").strip()
+    if env_world:
+        try:
+            w = int(env_world)
+        except ValueError:
+            w = 0
+        if w >= 1 and w != int(params.get("num_machines", 1) or 1):
+            log.info("%s=%d overrides num_machines=%s (elastic relaunch at "
+                     "a shrunk world)", WORLD_ENV, w,
+                     params.get("num_machines", 1))
+            params["num_machines"] = w
     cfg = config_from_params(params)
     # a fault plan of the params is this training's; one armed from the
     # environment stays the process's
     prev_faults = faults_mod.get_faults()
     if cfg.fault_inject:
         faults_mod.install(cfg.fault_inject)
+    tele = _Telemetry(cfg)
     try:
-        return _train(params, cfg, train_set, num_boost_round, valid_sets,
-                      valid_names, fobj, feval, init_model, feature_name,
-                      categorical_feature, early_stopping_rounds,
-                      evals_result, verbose_eval, learning_rates, callbacks,
-                      resume)
+        return _train(params, cfg, tele, train_set, num_boost_round,
+                      valid_sets, valid_names, fobj, feval, init_model,
+                      feature_name, categorical_feature,
+                      early_stopping_rounds, evals_result, verbose_eval,
+                      learning_rates, callbacks, resume)
     finally:
+        tele.disarm()
         if cfg.fault_inject:
             faults_mod.restore(prev_faults)
+
+
+class _Telemetry:
+    """The observability plane of one training: armed in two steps
+    (:meth:`arm` before the booster is made, :meth:`arm_rank` once the
+    rank is known) and disarmed in the JAX package's order
+    (:meth:`disarm`, ``lightgbm_tpu/engine.py:488-540``)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.devprof = bool(cfg.device_profile)
+        # device attribution reads the tracer's phase windows: it implies
+        # telemetry, as a trace file does
+        self.on = bool(cfg.trace_path) or self.devprof or bool(cfg.telemetry)
+        self.flight = self.exporter = self.mq = False
+        self.booster = None
+        if self.on:
+            # a training's evidence is its own
+            counters.reset()
+            obs_trace.start(cfg.trace_path or None)
+            obs_memory.start()
+        if self.devprof:
+            obs_devprof.start(profile_iters=cfg.profile_iters)
+
+    def arm_rank(self, booster, rank: int) -> None:
+        """The flight recorder at ``<obs_stream_path>.rank_R``, the
+        exporter at ``metrics_port + R`` and the model-quality plane."""
+        cfg = self.cfg
+        self.booster = booster
+        if cfg.obs_stream_path:
+            obs_flight.start(obs_flight.stream_path(cfg.obs_stream_path,
+                                                    rank), rank=rank)
+            self.flight = True
+        if cfg.metrics_port > 0:
+            obs_metrics.start_exporter(cfg.metrics_port + rank)
+            self.exporter = True
+        if obs_model_quality.resolve_armed(cfg.model_quality, self.on):
+            obs_model_quality.start(list(booster.inner.feature_names))
+            self.mq = True
+
+    def disarm(self) -> None:
+        if self.devprof:
+            # before the trace is written, which carries the block
+            dp = obs_devprof.stop()
+            if dp is not None:
+                obs_trace.get_tracer().summary("device_profile", dp)
+        if self.on:
+            obs_memory.stop()
+            if self.mq:
+                obs_trace.get_tracer().summary(
+                    "model_quality",
+                    obs_model_quality.get_tracker().summary())
+            obs_trace.stop()
+        if self.mq:
+            # the training distribution, made while the plane is armed,
+            # stays on the booster for every later save
+            if self.booster is not None:
+                self.booster.inner._training_distribution()
+            obs_model_quality.stop()
+        if self.exporter:
+            obs_metrics.stop_exporter()
+        if self.flight:
+            # last: the teardown's own events still stream
+            obs_flight.stop()
 
 
 def _resume_flag(resume):
@@ -89,10 +193,32 @@ def _resume_flag(resume):
     return resume
 
 
-def _train(params, cfg, train_set, num_boost_round, valid_sets, valid_names,
-           fobj, feval, init_model, feature_name, categorical_feature,
-           early_stopping_rounds, evals_result, verbose_eval, learning_rates,
-           callbacks, resume) -> Booster:
+def _host_lost_at_startup() -> None:
+    """``host_lost``'s startup leg (lightgbm_tpu/engine.py:85-105): in a
+    relaunched incarnation the lost rank dies again before its first
+    heartbeat, the repeatable startup failure the supervisor's
+    ``world_shrink_after`` counts.  ``targets()``, not ``fire()``, so that
+    the ``@K`` pin stays armed for attempt 0's death mid-run."""
+    try:
+        attempt = int(os.environ.get("LGBM_TPU_SUPERVISOR_ATTEMPT", "0")
+                      or 0)
+    except ValueError:
+        attempt = 0
+    if attempt <= 0:
+        return
+    fi = faults_mod.get_faults()
+    if fi.enabled and fi.targets("host_lost", faults_mod.current_rank()):
+        log.warning("host_lost fault: rank %d's host never comes back — "
+                    "dying at startup of attempt %d (before the first "
+                    "heartbeat)", faults_mod.current_rank(), attempt)
+        os._exit(70)
+
+
+def _train(params, cfg, tele, train_set, num_boost_round, valid_sets,
+           valid_names, fobj, feval, init_model, feature_name,
+           categorical_feature, early_stopping_rounds, evals_result,
+           verbose_eval, learning_rates, callbacks, resume) -> Booster:
+    _host_lost_at_startup()
     sync.configure(retries=cfg.collective_retries)
     # several processes (lightgbm_tpu/engine.py:106-135): the process
     # group comes up before the Dataset is built, with its timeout
@@ -164,6 +290,36 @@ def _train(params, cfg, train_set, num_boost_round, valid_sets, valid_names,
     rank = sync.process_index() if world > 1 else faults_mod.current_rank()
     single = world == 1
     ckpt_callbacks = before + after     # a fixed capture/restore order
+    tele.arm_rank(booster, rank)
+    ts = booster.inner.train_set
+    elastic_cache: List[Optional[Dict[str, Any]]] = [None]
+
+    def elastic_meta() -> Dict[str, Any]:
+        """What each shard ships through the commit barrier so that the
+        manifest carries global row boundaries (lightgbm_tpu/engine.py:
+        228): made once a training, its offset exchange one allgather."""
+        if elastic_cache[0] is None:
+            n_local = int(ts.num_data)
+            views = sorted(sync.allgather_object({"rank": rank,
+                                                  "num_data": n_local}),
+                           key=lambda v: int(v["rank"]))
+            off = sum(int(v["num_data"]) for v in views
+                      if int(v["rank"]) < rank)
+            elastic_cache[0] = {
+                "num_data": n_local,
+                "valid_num_data": [int(vs.data.num_data)
+                                   for vs in booster.inner.valid_sets],
+                "fp_partial": checkpoint_mod.elastic_fingerprint_partial(
+                    _fingerprint_bins(booster), n_local, off),
+                "num_features": int(ts.binned.shape[1]
+                                    if ts.binned is not None
+                                    else booster.inner.bins.shape[1]),
+                "num_class": int(booster.inner.num_class),
+                # the supervisor's mesh pre-flight of a shrunk world
+                "num_leaves": int(cfg.num_leaves),
+                "max_bin": int(cfg.max_bin),
+            }
+        return elastic_cache[0]
 
     def write_checkpoint(iteration: int) -> None:
         """One atomic snapshot at an iteration boundary: the single file
@@ -183,7 +339,8 @@ def _train(params, cfg, train_set, num_boost_round, valid_sets, valid_names,
             snapshot_out, iteration,
             booster.model_to_string(-1) if rank == 0 else "", state,
             rank=rank, world=world,
-            fingerprint=state["booster"]["data_fingerprint"])
+            fingerprint=state["booster"]["data_fingerprint"],
+            elastic_meta=elastic_meta())
         if cfg.snapshot_keep > 0 and rank == 0:
             # after the manifest's commit, which every shard preceded
             checkpoint_mod.prune_snapshots(snapshot_out, cfg.snapshot_keep)
@@ -193,7 +350,21 @@ def _train(params, cfg, train_set, num_boost_round, valid_sets, valid_names,
     start_iter = 0
     if resume:
         pinned = isinstance(resume, str)
-        if single and pinned:
+        if cfg.elastic_resume:
+            # the elastic barrier: the newest artifact of any process count
+            # this group can reassemble (W -> 1 and 1 -> W included)
+            found = checkpoint_mod.find_latest_valid_elastic(
+                snapshot_out, rank=rank, world=world,
+                num_data=int(ts.num_data),
+                valid_num_data=[int(vs.data.num_data)
+                                for vs in booster.inner.valid_sets],
+                fingerprint_partial_fn=lambda off: (
+                    checkpoint_mod.elastic_fingerprint_partial(
+                        _fingerprint_bins(booster), int(ts.num_data),
+                        int(off))),
+                only_iteration=(checkpoint_mod.iteration_from_path(resume)
+                                if pinned else None))
+        elif single and pinned:
             _, state = checkpoint_mod.load_snapshot(resume)
             found = (int(state["iteration"]), resume, state)
         elif single:
@@ -218,6 +389,20 @@ def _train(params, cfg, train_set, num_boost_round, valid_sets, valid_names,
             log.info("Resumed training from %s (continuing at iteration %d)",
                      ck_path, start_iter)
 
+    # profile_dir: a torch.profiler trace of the boosting loop, one Chrome
+    # trace a rank (the JAX package's jax.profiler.trace)
+    profile_ctx = contextlib.nullcontext()
+    if cfg.profile_dir:
+        import torch.profiler as tp
+        acts = [tp.ProfilerActivity.CPU]
+        if booster.inner.device.type == "cuda":
+            acts.append(tp.ProfilerActivity.CUDA)
+        out = os.path.join(cfg.profile_dir, f"trace.rank_{rank}.json")
+        os.makedirs(cfg.profile_dir, exist_ok=True)
+        profile_ctx = tp.profile(
+            activities=acts,
+            on_trace_ready=lambda prof: prof.export_chrome_trace(out))
+
     # preemption: the handlers are installed right before the try whose
     # finally restores them
     preempt_watch = checkpoint_mod.PreemptionWatch(cfg.preempt_signal).install()
@@ -232,11 +417,17 @@ def _train(params, cfg, train_set, num_boost_round, valid_sets, valid_names,
 
     def boundary_liveness(iteration: int) -> None:
         """Once an iteration boundary: the supervisor's fault points (a
-        hard death, a wedged rank), then the heartbeat."""
+        hard death, a lost host, a wedged rank), then the heartbeat."""
         fi = faults_mod.get_faults()
         if fi.enabled and fi.fire("rank_crash", iteration):
             log.warning("rank_crash fault: rank %d dying hard at iteration "
                         "%d (os._exit, no checkpoint)", rank, iteration)
+            os._exit(70)
+        if fi.enabled and fi.fire("host_lost", iteration):
+            log.warning("host_lost fault: rank %d dying hard at iteration "
+                        "%d, and its host will not come back (every "
+                        "relaunched incarnation dies again at startup)",
+                        rank, iteration)
             os._exit(70)
         if fi.enabled and fi.fire("rank_hang", iteration):
             log.warning("rank_hang fault: rank %d wedging at iteration %d "
@@ -246,59 +437,67 @@ def _train(params, cfg, train_set, num_boost_round, valid_sets, valid_names,
         if heartbeat is not None:
             heartbeat.stamp(iteration)
 
+    train_span = obs_trace.get_tracer().span(
+        "train", num_boost_round=num_boost_round)
     try:
-        for i in range(start_iter, num_boost_round):
-            for cb in before:
-                cb(callback_mod.CallbackEnv(
-                    model=booster, params=params, iteration=i,
-                    begin_iteration=0, end_iteration=num_boost_round,
-                    evaluation_result_list=None))
-            finished = booster.update(fobj=fobj)
-            results = []
-            if valid_sets:
-                if contains_train:
-                    results.extend((train_name, m, v, hib) for (_, m, v, hib)
-                                   in booster.eval_train(feval))
-                results.extend(booster.eval_valid(feval))
-            try:
-                for cb in after:
+        with profile_ctx, train_span:
+            for i in range(start_iter, num_boost_round):
+                for cb in before:
                     cb(callback_mod.CallbackEnv(
                         model=booster, params=params, iteration=i,
                         begin_iteration=0, end_iteration=num_boost_round,
-                        evaluation_result_list=results))
-            except callback_mod.EarlyStopException as es:
-                booster.best_iteration = es.best_iteration + 1
-                for item in es.best_score or []:
-                    booster.best_score.setdefault(item[0], {})[item[1]] = \
-                        item[2]
-                break
-            # before the snapshot: a death at boundary K loses the
-            # iterations since the last committed snapshot, as a real one
-            boundary_liveness(i + 1)
-            wrote = False
-            if cfg.snapshot_freq > 0 and (i + 1) % cfg.snapshot_freq == 0:
-                # after the callbacks, so the captured state is iteration i's
-                write_checkpoint(i + 1)
-                wrote = True
-            if preempt_armed:
-                fi = faults_mod.get_faults()
-                want = preempt_watch.requested or (
-                    fi.enabled and fi.fire("preempt", i + 1))
-                if not single:
-                    # a notice may reach one rank only: the group agrees
-                    want = any(sync.allgather_object(bool(want)))
-                if want:
-                    if not wrote:
-                        write_checkpoint(i + 1)
-                    counters.event("preempt_checkpoint", iteration=i + 1)
-                    log.info("Preemption requested: checkpoint written at "
-                             "iteration %d; leaving the training loop "
-                             "(snapshot_resume continues from here)", i + 1)
+                        evaluation_result_list=None))
+                finished = booster.update(fobj=fobj)
+                results = []
+                if valid_sets:
+                    if contains_train:
+                        results.extend((train_name, m, v, hib)
+                                       for (_, m, v, hib)
+                                       in booster.eval_train(feval))
+                    results.extend(booster.eval_valid(feval))
+                try:
+                    for cb in after:
+                        cb(callback_mod.CallbackEnv(
+                            model=booster, params=params, iteration=i,
+                            begin_iteration=0, end_iteration=num_boost_round,
+                            evaluation_result_list=results))
+                except callback_mod.EarlyStopException as es:
+                    booster.best_iteration = es.best_iteration + 1
+                    for item in es.best_score or []:
+                        booster.best_score.setdefault(item[0], {})[
+                            item[1]] = item[2]
                     break
-            if finished:
-                break
+                # before the snapshot: a death at boundary K loses the
+                # iterations since the last committed snapshot, as a real
+                # one
+                boundary_liveness(i + 1)
+                wrote = False
+                if cfg.snapshot_freq > 0 and (i + 1) % cfg.snapshot_freq == 0:
+                    # after the callbacks, so the captured state is
+                    # iteration i's
+                    write_checkpoint(i + 1)
+                    wrote = True
+                if preempt_armed:
+                    fi = faults_mod.get_faults()
+                    want = preempt_watch.requested or (
+                        fi.enabled and fi.fire("preempt", i + 1))
+                    if not single:
+                        # a notice may reach one rank only: the group agrees
+                        want = any(sync.allgather_object(bool(want)))
+                    if want:
+                        if not wrote:
+                            write_checkpoint(i + 1)
+                        counters.event("preempt_checkpoint", iteration=i + 1)
+                        log.info("Preemption requested: checkpoint written "
+                                 "at iteration %d; leaving the training "
+                                 "loop (snapshot_resume continues from "
+                                 "here)", i + 1)
+                        break
+                if finished:
+                    break
         if booster.best_iteration <= 0:
             booster.best_iteration = booster.current_iteration()
+        booster.inner.timers.report("training phase timers")
         if heartbeat is not None:
             heartbeat.stamp(booster.current_iteration(), force=True)
     except BaseException as e:
@@ -310,6 +509,14 @@ def _train(params, cfg, train_set, num_boost_round, valid_sets, valid_names,
     finally:
         preempt_watch.restore()
     return booster
+
+
+def _fingerprint_bins(booster):
+    """The bins the global fingerprint samples: the host matrix where the
+    training keeps one, else the device matrix (only its sampled rows are
+    read)."""
+    ts = booster.inner.train_set
+    return ts.binned if ts.binned is not None else booster.inner.bins
 
 
 class CVBooster:

@@ -70,6 +70,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from .data.packing import PackedBins
+from .obs import trace as obs_trace
 from .ops.histogram import (hist_local, hist_window, maybe_hist_fault,
                             movable, plan_device, sm_count)
 from .ops.partition import (partition_scratch, partition_window,
@@ -353,9 +354,15 @@ class LeafPool:
         """The best splits of K leaves from their stored histograms
         ``[K, ...]``, sums ``[K]`` and feature masks ``[K, F]``: returns
         ``(SplitResult, feat_ok [K, F])``.  Here one batched scan; the
-        voting learner votes first (``parallel/learner.py``)."""
-        return best_split(self.scan_hist(hist, pg, ph, pc), pg, ph, pc,
-                          feat_valid, self.scfg, self.ctx)
+        voting learner votes first (``parallel/learner.py``).  The
+        ``split_find`` span (``lightgbm_tpu/grower.py:660``,
+        ``lightgbm_tpu/parallel/gspmd.py:136``) fires where this Python
+        runs: at each eager step, and at the warm-up and the capture of
+        the graph loop, never at a replay (``traced``)."""
+        with obs_trace.get_tracer().span("split_find", traced=True,
+                                         impl="fused"):
+            return best_split(self.scan_hist(hist, pg, ph, pc), pg, ph, pc,
+                              feat_valid, self.scfg, self.ctx)
 
     def split_args(self, l: torch.Tensor):
         """The pooled split of leaf ``l``: its int and float rows, and

@@ -1,4 +1,5 @@
-"""The port's device-memory model, its pre-flight and its census.
+"""The port's device-memory model, its pre-flight, its census and the
+live memory monitor.
 
 The counterpart of ``lightgbm_tpu/obs/memory.py:322 predict_hbm``, over
 the port's own allocations instead of XLA's layout (sentinel staging, pow2
@@ -31,15 +32,27 @@ set from ``max_memory_allocated`` on an H100 (``chip_smoke.py`` phase
 
 :func:`preflight` holds a prediction to ``hbm_budget`` (raise) or to the
 card's capacity (warn), as ``lightgbm_tpu/obs/memory.py:511`` does.
+
+**Live accounting** (``lightgbm_tpu/obs/memory.py:62-272``):
+:class:`MemoryMonitor`, armed with telemetry (:func:`start` /
+:func:`stop`), samples the card's allocator at every iteration and phase
+(:func:`device_memory_stats`, over ``torch.cuda.memory_stats``: a host
+read of the caching allocator's counters, never a wait on the card).
+On the CPU, which has no allocator statistics, it sums :func:`live_census`
+over the boosters registered with :func:`register_residents`: the same
+census the tests hold the model to, not a second one.  Disarmed, the
+active monitor is the shared :data:`NULL_MEMORY` no-op.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..utils import log
+from .counters import counters
 
 # the partition kernel's positions a status word (ops/partition.py TILE)
 PARTITION_TILE = 2048
@@ -464,3 +477,181 @@ def live_census(booster, device=None) -> Dict[str, int]:
         if total:
             out[term] = total
     return out
+
+
+# ---- live accounting --------------------------------------------------------
+
+
+def device_memory_stats(device=None) -> Optional[Dict[str, int]]:
+    """The card's allocator statistics under the JAX package's keys
+    (``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``,
+    ``num_allocs``), or None off a card.  Host reads of the caching
+    allocator's counters: nothing waits on the card."""
+    dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type != "cuda":
+        return None
+    if not torch.cuda.is_available():
+        return None
+    if dev is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    st = torch.cuda.memory_stats(dev)
+    if not st:
+        return None
+    return {"bytes_in_use": int(st.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(st.get("allocated_bytes.all.peak", 0)),
+            "bytes_limit": int(torch.cuda.get_device_properties(
+                dev).total_memory),
+            "num_allocs": int(st.get("allocation.all.current", 0))}
+
+
+# the boosters (GBDTs) whose residents the CPU census sums, weakly held:
+# registered at set-up, gone with their booster
+_boosters: List[Any] = []
+
+
+def register_residents(booster) -> None:
+    """Register a booster for the monitor's census (held through a weak
+    reference, so it never keeps the booster alive)."""
+    _boosters.append(weakref.ref(booster))
+
+
+def resident_census() -> Dict[str, Any]:
+    """:func:`live_census` summed over the registered boosters: total bytes
+    and bytes by resident term."""
+    live, by_tag = [], {}
+    for ref in _boosters:
+        booster = ref()
+        if booster is None:
+            continue
+        live.append(ref)
+        for tag, b in live_census(booster).items():
+            by_tag[tag] = by_tag.get(tag, 0) + b
+    _boosters[:] = live
+    return {"total_bytes": sum(by_tag.values()), "by_tag": by_tag}
+
+
+class NullMemoryMonitor:
+    """Disarmed monitor: every operation a constant no-op, shared
+    process-wide."""
+    enabled = False
+    source = None
+
+    def sample(self, site: str = "") -> Optional[int]:
+        return None
+
+    def annotate(self, span) -> None:
+        pass
+
+    def measured_peak(self) -> int:
+        return 0
+
+    def baseline(self) -> int:
+        return 0
+
+    def top_residents(self, k: int = 6) -> List[Dict[str, Any]]:
+        return []
+
+    def summary(self) -> Dict[str, Any]:
+        return {}
+
+
+NULL_MEMORY = NullMemoryMonitor()
+
+
+class MemoryMonitor:
+    """Armed monitor.  ``source`` names the evidence: ``memory_stats`` (the
+    card's allocator, which counts the split step's private pool too) or
+    ``live_census`` (the CPU: the registered boosters' resident tensors)."""
+    enabled = True
+
+    def __init__(self):
+        self._peak = 0
+        self._flight_mark = 0
+        self._last_census: Optional[Dict[str, Any]] = None
+        stats = device_memory_stats()
+        self.source = "memory_stats" if stats else "live_census"
+        self._baseline = (stats["bytes_in_use"] if stats
+                          else resident_census()["total_bytes"])
+        counters.gauge("memory_baseline_bytes", self._baseline)
+
+    def sample(self, site: str = "") -> Optional[int]:
+        """Record the current occupancy; returns the sampled bytes."""
+        stats = device_memory_stats() if self.source == "memory_stats" \
+            else None
+        if stats:
+            in_use = stats["bytes_in_use"]
+            peak = stats["peak_bytes_in_use"]
+        else:
+            self._last_census = resident_census()
+            in_use = peak = self._last_census["total_bytes"]
+        self._peak = max(self._peak, peak)
+        counters.gauge("memory_bytes_in_use", in_use)
+        counters.gauge("memory_peak_bytes", self._peak)
+        if self._peak > self._flight_mark * 1.1:
+            # the peak grew more than 10 % past its last streamed mark
+            self._flight_mark = self._peak
+            from .flight import get_flight
+            get_flight().record("hbm_peak", peak_bytes=int(self._peak),
+                                site=site, source=self.source)
+        return in_use
+
+    def annotate(self, span) -> None:
+        """Attach the peak to a recording tracer span (the phase timers'
+        hook); a ``NULL_SPAN`` has no ``_args`` and is skipped."""
+        args = getattr(span, "_args", None)
+        if args is None:
+            return
+        if self.sample(site="phase") is not None:
+            args["peak_bytes"] = int(self._peak)
+
+    def measured_peak(self) -> int:
+        return self._peak
+
+    def baseline(self) -> int:
+        return self._baseline
+
+    def top_residents(self, k: int = 6) -> List[Dict[str, Any]]:
+        """The largest resident terms of the latest census (taken now when
+        the monitor reads the allocator)."""
+        census = self._last_census or resident_census()
+        tags = sorted(census["by_tag"].items(), key=lambda kv: -kv[1])
+        return [{"tag": t, "bytes": b} for t, b in tags[:k]]
+
+    def summary(self) -> Dict[str, Any]:
+        return {"source": self.source,
+                "baseline_bytes": self._baseline,
+                "measured_peak_bytes": self._peak,
+                "top_residents": self.top_residents()}
+
+
+_active: Any = NULL_MEMORY
+
+
+def get_memory():
+    """The process-wide active monitor (NULL_MEMORY when disarmed)."""
+    return _active
+
+
+def start() -> MemoryMonitor:
+    """Arm a recording monitor as the process-wide active one."""
+    global _active
+    _active = MemoryMonitor()
+    return _active
+
+
+def stop() -> Dict[str, Any]:
+    """Disarm; the final summary goes into the counter registry (one
+    ``memory_summary`` event and the ``memory_measured_peak_bytes``
+    gauge), so that a trace written afterwards carries it."""
+    global _active
+    mon, _active = _active, NULL_MEMORY
+    if not mon.enabled:
+        return {}
+    mon.sample(site="final")
+    summ = mon.summary()
+    counters.gauge("memory_measured_peak_bytes", summ["measured_peak_bytes"])
+    counters.event("memory_summary", **{
+        k: v for k, v in summ.items() if k != "top_residents"},
+        top_residents=[f"{r['tag']}={r['bytes']}"
+                       for r in summ["top_residents"]])
+    return summ

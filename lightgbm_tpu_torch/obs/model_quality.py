@@ -1,30 +1,276 @@
-"""TreeSHAP feature contributions (``pred_contrib``).
+"""The model-quality plane (``lightgbm_tpu/obs/model_quality.py``).
 
-The port's own copy of the TreeSHAP part of
-``lightgbm_tpu/obs/model_quality.py`` (:237-481): the exact
-Lundberg/Lee path-attribution recursion (the reference's
-tree.cpp:TreeSHAP), vectorized over rows, float64 on the host.  The
-recursion's structure (node visit order, path features, cover fractions,
-the unwinds of a feature met twice) depends only on the tree; only the
-hot-child indicators and path weights depend on the row, so one pass a
-tree carries ``[N]`` vectors instead of recursing once a row.  A path
-element carries (feature, zero_fraction, one_fraction, pweight); every
-branch on ``one_fraction != 0`` becomes a masked ``np.where`` with
-guarded denominators.  The go-left decisions come from the device
-(``predictor.SoABundle.go_matrix``); :func:`contribs_oracle`, the literal
-per-row recursion on raw values, is the parity twin the tests hold it
-against.
+* **Split audit** (:class:`ModelQualityTracker`, :75-200): every tree the
+  trainer copies to the host is folded into per-feature cumulative gain
+  and split counts (the ``feature_gain`` / ``feature_split`` metric
+  families) and, with the flight recorder armed, one ``split_audit``
+  record a split.  It reads the host tree the loop already made: no
+  device read, no collective.
+* **The training distribution** (:func:`training_bin_distribution`,
+  :func:`format_distribution`, :func:`parse_distribution`, :484-550):
+  each numerical feature's ``(value, count)`` histogram of the training
+  bins, written into the model text as its ``feature_distribution:``
+  section at save when the tracker is armed, for the serving drift
+  monitor.  Computed once, from bincounts over the binned matrix.
+* **TreeSHAP** feature contributions (``pred_contrib``, :237-481): the
+  exact Lundberg/Lee path-attribution recursion (the reference's
+  tree.cpp:TreeSHAP), vectorized over rows, float64 on the host.  The
+  recursion's structure (node visit order, path features, cover
+  fractions, the unwinds of a feature met twice) depends only on the
+  tree; only the hot-child indicators and path weights depend on the
+  row, so one pass a tree carries ``[N]`` vectors instead of recursing
+  once a row.  A path element carries (feature, zero_fraction,
+  one_fraction, pweight); every branch on ``one_fraction != 0`` becomes a
+  masked ``np.where`` with guarded denominators.  The go-left decisions
+  come from the device (``predictor.SoABundle.go_matrix``);
+  :func:`contribs_oracle`, the literal per-row recursion on raw values,
+  is the parity twin the tests hold it against.
+
+``DriftMonitor`` and ``psi`` come with serving (ROADMAP.md §1.6).
+Armed by the ``model_quality`` key (``auto`` follows ``telemetry``).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK
+from . import flight as obs_flight
+from . import metrics as obs_metrics
 
 MISSING_ZERO, MISSING_NAN = 1, 2
 ZERO_RANGE = 1e-20           # kZeroAsMissingValueRange (reference meta.h:22)
+
+
+def _feature_name(names: Optional[Sequence[str]], idx: int) -> str:
+    if names is not None and 0 <= idx < len(names):
+        return str(names[idx])
+    return f"Column_{idx}"
+
+
+# ---------------------------------------------------------------- split audit
+
+
+class NullModelQuality:
+    """Disarmed tracker (the shared no-op)."""
+    enabled = False
+
+    def observe_tree(self, iteration: int, tree_index: int, tree) -> None:
+        pass
+
+    def note_eval(self, dataset: str, metric: str, value: float) -> None:
+        pass
+
+    def eval_fields(self) -> Dict[str, float]:
+        return {}
+
+    def metrics_samples(self) -> list:
+        return []
+
+    def summary(self, top_k: int = 10) -> Dict[str, Any]:
+        return {}
+
+
+NULL_MODEL_QUALITY = NullModelQuality()
+
+
+class ModelQualityTracker:
+    """Training-side split auditor: folds each host tree into per-feature
+    gain and split-count accumulators, streams one ``split_audit`` record
+    a split into the flight recorder, and keeps the latest evaluation
+    values for the next ``progress`` record."""
+
+    enabled = True
+
+    def __init__(self, feature_names: Optional[Sequence[str]] = None):
+        self.feature_names = list(feature_names) if feature_names else None
+        self._gain: Dict[int, float] = {}
+        self._splits: Dict[int, int] = {}
+        # the gain-decay curve: each iteration's total split gain
+        self._iter_gain: Dict[int, float] = {}
+        self._evals: Dict[str, float] = {}
+        self.trees_seen = 0
+        obs_metrics.register_source(self.metrics_samples)
+
+    def observe_tree(self, iteration: int, tree_index: int, tree) -> None:
+        n = tree.num_leaves - 1
+        self.trees_seen += 1
+        if n <= 0:
+            return
+        feats = np.asarray(tree.split_feature[:n], np.int64)
+        gains = np.asarray(tree.split_gain[:n], np.float64)
+        for f in np.unique(feats):
+            sel = feats == f
+            self._gain[int(f)] = self._gain.get(int(f), 0.0) \
+                + float(gains[sel].sum())
+            self._splits[int(f)] = self._splits.get(int(f), 0) \
+                + int(sel.sum())
+        self._iter_gain[int(iteration)] = \
+            self._iter_gain.get(int(iteration), 0.0) + float(gains.sum())
+        fl = obs_flight.get_flight()
+        if not fl.enabled:
+            return
+        lc = tree.left_child[:n]
+        rc = tree.right_child[:n]
+        child_count = np.where(
+            lc < 0, tree.leaf_count[~np.minimum(lc, -1)],
+            tree.internal_count[np.maximum(lc, 0)])
+        rchild_count = np.where(
+            rc < 0, tree.leaf_count[~np.minimum(rc, -1)],
+            tree.internal_count[np.maximum(rc, 0)])
+        # one write for the tree's records (the JAX package's lines)
+        fl.records("split_audit", (dict(
+            iteration=int(iteration), tree=int(tree_index), node=i,
+            feature=_feature_name(self.feature_names, int(feats[i])),
+            bin_threshold=int(tree.threshold_bin[i]),
+            threshold=float(tree.threshold[i]), gain=float(gains[i]),
+            left_count=int(child_count[i]),
+            right_count=int(rchild_count[i]),
+            default_left=bool(tree.decision_type[i] & K_DEFAULT_LEFT_MASK),
+            categorical=bool(tree.decision_type[i] & K_CATEGORICAL_MASK))
+            for i in range(n)))
+
+    def note_eval(self, dataset: str, metric: str, value: float) -> None:
+        self._evals[f"{dataset}:{metric}"] = float(value)
+
+    def eval_fields(self) -> Dict[str, float]:
+        """The latest value of each evaluated metric, for the progress
+        record."""
+        return dict(self._evals)
+
+    def metrics_samples(self) -> list:
+        out = []
+        for f, g in sorted(self._gain.items()):
+            name = _feature_name(self.feature_names, f)
+            out.append(("feature_gain", {"feature": name}, g, "counter"))
+            out.append(("feature_split", {"feature": name},
+                        self._splits.get(f, 0), "counter"))
+        return out
+
+    def summary(self, top_k: int = 10) -> Dict[str, Any]:
+        order = sorted(self._gain, key=lambda f: -self._gain[f])
+        return {
+            "trees_seen": self.trees_seen,
+            "top_features": [
+                {"feature": _feature_name(self.feature_names, f),
+                 "gain": self._gain[f], "splits": self._splits.get(f, 0)}
+                for f in order[:top_k]],
+            "gain_curve": [[it, self._iter_gain[it]]
+                           for it in sorted(self._iter_gain)],
+        }
+
+
+_active: Any = NULL_MODEL_QUALITY
+
+
+def get_tracker():
+    """The process-wide active tracker (the no-op when disarmed)."""
+    return _active
+
+
+def start(feature_names: Optional[Sequence[str]] = None
+          ) -> ModelQualityTracker:
+    global _active
+    _active = ModelQualityTracker(feature_names)
+    return _active
+
+
+def stop():
+    """Disarm; returns the retired tracker."""
+    global _active
+    t, _active = _active, NULL_MODEL_QUALITY
+    return t
+
+
+def resolve_armed(model_quality: str, telemetry_on: bool) -> bool:
+    """The ``model_quality`` key: ``auto`` follows telemetry."""
+    if model_quality == "on":
+        return True
+    if model_quality == "off":
+        return False
+    return telemetry_on
+
+
+# ------------------------------------------------- the training distribution
+
+
+def training_bin_distribution(train_set, bins=None
+                              ) -> Dict[int, List[Tuple[float, int]]]:
+    """Each numerical feature's ``(representative value, count)`` histogram
+    of the training bins, by original feature index
+    (``lightgbm_tpu/obs/model_quality.py:484``): NaN bins at 0.0; bundled
+    (EFB) layouts and categorical features are skipped.  The counts are
+    bincounts over the host bin matrix, or, when the training holds its
+    bins on the device only, over ``bins`` (one read, at save)."""
+    out: Dict[int, List[Tuple[float, int]]] = {}
+    if train_set is None:
+        return out
+    if getattr(train_set, "bundled", False):
+        return out
+    binned = train_set.binned
+    dev = None
+    if binned is None:
+        if bins is None:
+            return out
+        dev = bins
+    for j, f in enumerate(train_set.used_features):
+        m = train_set.bin_mappers[f]
+        if getattr(m, "bin_2_categorical", None):
+            continue
+        if dev is None:
+            cnt = np.bincount(np.asarray(binned[:, j], np.int64),
+                              minlength=m.num_bin)
+        else:
+            import torch
+            cnt = torch.bincount(dev[:, j].long(),
+                                 minlength=m.num_bin).cpu().numpy()
+        pairs: List[Tuple[float, int]] = []
+        nan_bin = m.num_bin - 1 if m.missing_type == MISSING_NAN else -1
+        for b in range(m.num_bin):
+            if cnt[b] == 0:
+                continue
+            v = 0.0 if b == nan_bin else float(m.bin_to_value(b))
+            pairs.append((v, int(cnt[b])))
+        if pairs:
+            out[int(f)] = pairs
+    return out
+
+
+def format_distribution(dist: Dict[int, List[Tuple[float, int]]]) -> str:
+    """The model file's ``feature_distribution:`` section."""
+    lines = ["feature_distribution:"]
+    for f in sorted(dist):
+        body = " ".join(f"{v:.17g}:{c}" for v, c in dist[f])
+        lines.append(f"{f}={body}")
+    return "\n".join(lines) + "\n"
+
+
+def parse_distribution(lines: Sequence[str]
+                       ) -> Dict[int, List[Tuple[float, int]]]:
+    """Inverse of :func:`format_distribution` over a model file's lines."""
+    out: Dict[int, List[Tuple[float, int]]] = {}
+    it = iter(lines)
+    for line in it:
+        if line.strip() == "feature_distribution:":
+            break
+    else:
+        return out
+    for line in it:
+        s = line.strip()
+        if not s or "=" not in s:
+            break
+        f, body = s.split("=", 1)
+        try:
+            pairs = [(float(p.split(":")[0]), int(p.split(":")[1]))
+                     for p in body.split()]
+        except (ValueError, IndexError):
+            continue
+        out[int(f)] = pairs
+    return out
+
+
+# ------------------------------------------------------------------ TreeSHAP
 
 
 def expected_value(tree) -> float:

@@ -444,6 +444,14 @@ def parse_machine_list(path: str) -> List[Tuple[str, int]]:
     return machines
 
 
+def write_machine_list(path: str, machines) -> None:
+    """Inverse of :func:`parse_machine_list` (:494): the supervisor's
+    shrink drops an evicted rank's entry."""
+    with open(path, "w") as f:
+        for ip, port in machines:
+            f.write(f"{ip} {port}\n")
+
+
 def refresh_local_ports(path: str) -> None:
     """Point every loopback entry of a machine list at a port just bound
     and released (:502): a group relaunched on one host reuses its list,

@@ -6,7 +6,9 @@ The port of ``lightgbm_tpu/parallel/sync.py``: ``process_count`` and
 and CRC check, ``CollectiveError`` (:72), the retry ladder (:229-253,
 ``configure`` :128, ``collective_retries``), the fault points
 ``collective_fail`` and ``collective_corrupt`` (:256-272) and the
-incarnation epoch fence (``StaleEpochError``, :76-127).  The JAX package
+incarnation epoch fence (``StaleEpochError``, :76-127) with its
+``stale_rejoin`` fault point (:119).  Every host-object collective is
+counted by :func:`~..obs.collectives.note_collective`.  The JAX package
 moves host objects through its distributed runtime; here they ride a gloo
 group that :func:`~.mesh.init_distributed_from_config` always makes,
 whatever backend carries the tensors (:func:`bind`).
@@ -205,11 +207,19 @@ def _maybe_corrupt(frames: list) -> list:
     return frames
 
 
-def _note(op: str, nbytes: int) -> None:
-    from ..obs.counters import counters
-    counters.inc("collective_calls", op=op, site="parallel/sync")
-    counters.inc("collective_bytes", value=nbytes, op=op,
-                 site="parallel/sync")
+def _note(op: str, payload: bytes) -> None:
+    from ..obs.collectives import note_collective
+    note_collective(op, payload, None, "parallel/sync")
+
+
+def _maybe_stale_rejoin(what: str) -> None:
+    """``stale_rejoin`` (``lightgbm_tpu/parallel/sync.py:119``): one frame
+    of the previous incarnation arrives at this collective, which the
+    fence must reject.  Checked before the one-process short cut, so
+    that the fence is testable with no peers."""
+    fi = faults_mod.get_faults()
+    if fi.enabled and fi.fire("stale_rejoin"):
+        _check_frame_epoch(_group_epoch() - 1, what, peer="injected-stale")
 
 
 def _frame(obj: Any):
@@ -236,13 +246,14 @@ def allgather_object(obj: Any) -> List[Any]:
 
     def attempt() -> List[Any]:
         _maybe_inject("allgather_object")
+        _maybe_stale_rejoin("allgather_object")
         if process_count() == 1:
             return [obj]
         frame = _frame(obj)
         out: List[Any] = [None] * process_count()
         _run("allgather_object", lambda: dist.all_gather_object(
             out, frame, group=_host_group))
-        _note("allgather_object", frame[0])
+        _note("allgather_object", frame[3])
         return [_unframe(f, "allgather_object", i)
                 for i, f in enumerate(_maybe_corrupt(out))]
 
@@ -254,12 +265,13 @@ def broadcast_object(obj: Any = None) -> Any:
 
     def attempt() -> Any:
         _maybe_inject("broadcast_object")
+        _maybe_stale_rejoin("broadcast_object")
         if process_count() == 1:
             return obj
         box = [_frame(obj) if process_index() == 0 else None]
         _run("broadcast_object", lambda: dist.broadcast_object_list(
             box, src=0, group=_host_group))
-        _note("broadcast_object", box[0][0])
+        _note("broadcast_object", box[0][3])
         return _unframe(_maybe_corrupt(box)[0], "broadcast_object", 0)
 
     return _retrying("broadcast_object", attempt)

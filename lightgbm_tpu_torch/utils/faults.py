@@ -47,8 +47,14 @@ in both packages (unknown names are rejected at parse time):
                      (``os._exit(70)``)
 ``rank_hang``        the process wedges at an iteration boundary
 ``slow_heartbeat``   heartbeat writes silently never land
-``host_lost``        parsed; fires nowhere until elastic groups are ported
-``stale_rejoin``     parsed; fires nowhere until elastic groups are ported
+``host_lost``        a host that never comes back: the rank dies hard
+                     (``os._exit(70)``) at an iteration boundary, and
+                     every relaunched incarnation of that rank dies again
+                     at startup, before its first heartbeat (the
+                     supervisor's ``world_shrink_after`` counts these)
+``stale_rejoin``     one frame of the previous incarnation epoch reaches a
+                     host-object collective; the epoch fence rejects it
+                     with ``StaleEpochError``
 ===================  ========================================================
 
 When no spec is installed the active plan is the shared

@@ -234,12 +234,13 @@ MOVED_CHECKPOINT = (
 def test_checkpoint_keys_ported(case):
     """Each key of the checkpoint and supervisor slice, and the aliases of
     ``output_model``: a field read as the JAX package reads it, its default
-    the JAX package's; the elastic, straggler and observability keys stay
-    not ported."""
+    the JAX package's; the elastic, straggler and observability keys are
+    ported too (fields of the Config, no longer in ``NOT_PORTED``)."""
     _check_ported_as(case)
     for key in ("elastic_resume", "elastic_min_ranks", "world_shrink_after",
                 "straggler_factor", "telemetry"):
-        assert key in tc.NOT_PORTED
+        assert key not in tc.NOT_PORTED
+        assert key in {f.name for f in dataclasses.fields(tc.Config)}
 
 
 @pytest.mark.parametrize("params,message", [

@@ -101,10 +101,10 @@ def test_predict_raises_without_card(no_card):
 
 
 @pytest.mark.parametrize("params", [
-    {"elastic_min_ranks": 2},
-    {"elastic_resume": True},
-    {"telemetry": True},
-    {"straggler_factor": 5.0},
+    {"latency_budget_ms": 5.0},
+    {"serving_buckets": "1,8"},
+    {"drift_threshold": 0.5},
+    {"task": "predict"},
 ])
 def test_unsupported_params_raise(params):
     x, y = _small()

@@ -176,17 +176,16 @@ def test_feval_on_training_data_in_valid_sets():
 
 def test_resume_names_its_roadmap_item(tmp_path):
     """``resume=True`` with no snapshot trains from scratch (checkpoints
-    are ported); the elastic resume across process counts is not, and
-    names its roadmap item."""
+    are ported), and so does the elastic resume across process counts
+    (elastic groups are ported too): both give the fresh run's model."""
     x, y = _data(10, 200)
     p = _cpu(dict(BASE, output_model=str(tmp_path / "m.txt")))
     fresh = lt.train(p, lt.Dataset(x, y, params=p), 1, resume=True)
     assert fresh.model_to_string() == lt.train(
         p, lt.Dataset(x, y, params=p), 1).model_to_string()
-    with pytest.raises(NotImplementedError,
-                       match="checkpoints, serving, observability"):
-        lt.train(dict(p, elastic_resume=True), lt.Dataset(x, y, params=p),
-                 1, resume=True)
+    elastic = lt.train(dict(p, elastic_resume=True),
+                       lt.Dataset(x, y, params=p), 1, resume=True)
+    assert elastic.model_to_string() == fresh.model_to_string()
 
 
 # ---- cv ----------------------------------------------------------------------
