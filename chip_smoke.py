@@ -244,7 +244,7 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    the training scores within 1e-5 of ``predict(raw_score=True)`` (the
    out-of-bag rows and DART's re-scoring through the decoded
    ``trees_scores_binned``), every bag's root 232,404 rows;
-9d. the card against the CPU at 50,000 rows, 1 round, at the defaults:
+9d. the card against the CPU at 25,000 rows, 1 round, at the defaults:
    the first round's 7 trees identical in structure up to their first
    near-ties; and on the CPU's plain path, whose sums run in one fixed
    order, the bundled first round against the cut one's, compared as
@@ -300,9 +300,10 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    |value|) on their first 1,000 rows, and each row's contributions
    summing to its raw score within 1e-9 x (1 + |raw|); the seconds of
    each call;
-17. the Dataset inputs at the Higgs path's size (:func:`dataset_inputs`):
+17. the Dataset inputs at 250,000 of the Higgs path's training rows and
+   50,000 held-out rows (:func:`dataset_inputs`):
    CSV with a header and a ``.weight`` side file, LibSVM, two-round
-   loading, the binary dataset file of the 1,000,000-row training
+   loading, the binary dataset file of the 250,000-row training
    Dataset and a CSR matrix of 70 % zeros, each binned as the same rows
    in memory, with the seconds of each parse, construction, save and
    load;
@@ -347,7 +348,7 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    with ``--worker`` over a loopback machine list, ranks of a gloo group
    carrying CUDA tensors (NCCL refuses two ranks on a card), each holding
    half of phase 3's rows (all of them for the feature learner): the data
-   learner's integer tree equal to the serial tree on all rows, 3 rounds
+   learner's integer tree equal to the serial tree on all rows, 2 rounds
    byte-identical on both ranks with AUC within 1e-4 of the serial
    learner's; the voting learner's model texts identical on both ranks; the
    feature learner's integer tree equal to the serial one; the distributed
@@ -389,6 +390,27 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    records is run again, a miscount fails), its idle gap beside the
    device-busy share of one more tree under the profiler.
 
+26. serving, after phase 25, on phase 3's Dataset: (26a) a 100-round,
+   255-leaf model trained on the graph loop; ``lgbt_traverse`` (both node
+   layouts) and ``lgbt_margin`` held bit for bit against their plain
+   versions on the card, at every bucket of the ladder and at 100,000
+   rows with NaN and zero values, on it and on a stumps-only model (after
+   phase 16, on phase 5's Expo and phase 9's Covertype models too); both
+   kernels' times (single, back-to-back, device) at 1, 64 and 4,096 rows
+   beside the plain versions, the margin's ``gather`` + ``sum`` and the
+   byte bounds of what the rows touch, both node layouts;
+   ``Booster.predict`` of 100,000 rows through the kernels and through
+   their plain versions (the eager loop), in turns; the engine's two
+   two paths (microbatches, row passes) at 4,096 and 100,000 rows;
+   (26b) a ModelServer answering 2,000 requests of mixed sizes from 8
+   clients, every answer ``Booster.predict``'s bits, no buffer set
+   allocated after the prewarm, p50 and p99 for each bucket and QPS;
+   (26c) a hot swap while a trainer commits a snapshot every 2 rounds:
+   no failed or torn request, no buffer set allocated by a dispatch, the
+   seconds from commit to the first answer of each model; (26d) a ``model_quality=on`` model's drift alarm,
+   silent on held-out rows and raised on shifted ones; (26e) the HTTP
+   front (``/predict``, ``/healthz``, a ``/metrics`` scrape).
+
 Every profiled window that checks kernels against the counts (phases 3,
 7, 20, 23d, 25c) tells a window that lost records from a miscount: a
 window that saw no kernel more often than counted, missed none outright
@@ -396,7 +418,9 @@ and is short by no more than the records the profiler lost (kineto's
 report of dropped records on stderr, or the window's correlation ids) is
 profiled again; any other difference fails at once.
 
-``--phase-25`` runs the build, phase 3's Dataset and phase 25 alone.
+``--phase-25`` runs the build, phase 3's Dataset and phase 25 alone;
+``--phase-26`` the build, phase 3's Dataset and phase 26 alone (without
+the Expo and Covertype models' checks).
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
@@ -413,6 +437,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import re
@@ -2854,6 +2879,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
         fn.launches = 0
         for k in getattr(fn, "regime_launches", {}):
             fn.regime_launches[k] = 0
+    reset_predict_counts()
     t0 = time.perf_counter()
     bst = train(params, ds, num_boost_round=rounds, verbose_eval=False, **kw)
     torch.cuda.synchronize()
@@ -2872,6 +2898,10 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
     t0 = time.perf_counter()
     pred = bst.predict(x_te)
     t_pred = time.perf_counter() - t0
+    # the prediction's kernels (training launches none of them)
+    served = predict_counts()
+    if not served["traverse_launches"] or not served["margin_launches"]:
+        fail(f"{name}: predict launched the serving kernels {served}")
     trees, splits = stats["trees"], stats["splits"]
     K = bst.inner.num_class
     rounds_run = trees // K
@@ -2951,7 +2981,7 @@ def train_path(name, params, x_tr, y_tr, x_te, y_te, rounds, dev_names,
                ms_per_tree=f"{t_train * 1e3 / trees:.2f}",
                host_syncs_per_split=f"{stats['host_syncs'] / splits:.4f}",
                host_syncs_per_tree=f"{syncs_per_tree:.3f}",
-               peak_mem_bytes=peak, predict_s=f"{t_pred:.3f}",
+               peak_mem_bytes=peak, predict_s=f"{t_pred:.3f}", **served,
                **memory_fields(bst, peak, base), **held_out)
     if not profile:
         return out, bst, ds
@@ -4337,7 +4367,7 @@ def expo_streamed(expo_params, ds, y_tr, x_te, y_te, model_str, rate,
     return dict(out, tree=tree)
 
 
-def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=50_000):
+def covtype_path(params, names, rng, n=N_COVTYPE, cpu_rows=25_000):
     """Phases 9 to 9g: the Covertype-shaped multiclass task (581,012 x 54,
     7 classes, an 80/20 split) at the defaults, where EFB bundles the 54
     features into 12 columns and nothing packs: 3 rounds of multiclass
@@ -5039,15 +5069,21 @@ def sixteenths_logloss(preds, data):
             np.maximum(np.round(p * (1 - p) * 16), 1) / 16)
 
 
+INPUT_ROWS, INPUT_HELDOUT = 250_000, 50_000   # phase 17's cut of the Higgs
+#                                               path's training and held-out
+#                                               rows
+
+
 def dataset_inputs(params, higgs_model, x_tr, y_tr, x_te, y_te) -> dict:
-    """Phase 17: the Dataset inputs at the Higgs path's size, in a fresh
-    temporary directory: the 100,000 held-out rows as a CSV with a header
+    """Phase 17: the Dataset inputs at ``INPUT_ROWS`` and ``INPUT_HELDOUT``
+    of the Higgs path's rows, in a fresh temporary directory: the held-out
+    rows as a CSV with a header
     and a ``.weight`` side file, and as LibSVM, each a Dataset with the
     training Dataset as reference, binned, labelled and weighted as the
     same rows in memory; ``predict`` of the CSV's path equal bit for bit
     to that of the matrix (phase 3b's model); the CSV read twice
     (``use_two_round_loading``) against the rows in memory; the
-    1,000,000-row training Dataset saved as a binary file, loaded, and one
+    training Dataset saved as a binary file, loaded, and one
     integer-gradient round on the loaded copy identical to one on the
     original; and the training matrix with 70 % of its values set to zero
     as a ``CsrMatrix``, binned as the dense matrix and trained 3 rounds
@@ -6567,8 +6603,8 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
     NCCL refuses two ranks on one card), each holding half of phase 3's
     rows (the data and voting learners) or all of them (the feature
     learner).  Held: the data learner's integer tree equal to the serial
-    tree on all rows, its 3 rounds byte-identical on both ranks and their
-    AUC within 1e-4 of the serial learner's; the voting learner's 3 rounds
+    tree on all rows, its 2 rounds byte-identical on both ranks and their
+    AUC within 1e-4 of the serial learner's; the voting learner's 2 rounds
     identical on both ranks; the feature learner's integer tree equal to
     the serial one and its round identical on both ranks; the distributed
     FindBin's mappers equal to the
@@ -6583,7 +6619,7 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
     g_all, h_all = integer_gradients(y_tr)
     serial_int = train(params, ds, 1, fobj=lambda preds, data: (g_all, h_all),
                        verbose_eval=False).model_to_string()
-    serial = train(params, ds, 3, verbose_eval=False)
+    serial = train(params, ds, 2, verbose_eval=False)
     serial_auc = auc(serial.predict(x_te), y_te)
     mappers = [m.feature_info_str() for m in construct(
         x_tr[:findbin_rows], config_from_params(params),
@@ -6592,7 +6628,7 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
     # the voting learner's check is across the ranks; the feature
     # learner's the integer tree, with one round for the timed tree
     ranks = spawn_ranks(2, dict(params=params, learners={
-        "data": (True, 3), "voting": (False, 3), "feature": (True, 1)},
+        "data": (True, 2), "voting": (False, 2), "feature": (True, 1)},
         findbin=findbin_rows, score_rounds=SUP_ROUNDS))
     wall = time.perf_counter() - t0
     r0, r1 = ranks
@@ -7571,6 +7607,637 @@ def phase_25_alone(params) -> None:
                           mesh_devices=MESH_SLOTS), ds, ref, names)
 
 
+# ---- phase 26: serving -------------------------------------------------------
+
+SERVE_ROUNDS = 100              # 26a: the 100-tree, 255-leaf Higgs model
+SERVE_BUCKETS = (1, 8, 64, 512, 4096)   # the engine's default ladder
+SERVE_CHECK_ROWS = 100_000      # 26a: rows of the largest check, phase 3's
+#                                 held-out count
+SERVE_TIMED_ROWS = (1, 64, 4096)
+SERVE_REQUESTS = 2_000          # 26b: requests of the replay
+SERVE_CLIENTS = 8               # 26b: clients, each waiting for its answer
+SINGLE_REQUESTS = 200           # 26b: lone 1-row requests, one at a time
+SERVE_SIZES = (1, 1, 3, 8, 17, 64, 200, 512, 1500, 4096)   # the request
+#                                 sizes of lightgbm_tpu/serving.py:517-518
+SWAP_ROUNDS, SWAP_FREQ = 6, 2   # 26c: a trainer committing every 2 rounds
+DRIFT_WINDOW = 4096             # 26d: served rows a PSI window
+
+
+def _predict_wrappers():
+    from lightgbm_tpu_torch.ops.traverse import margin, traverse
+    return {"traverse": traverse, "margin": margin}
+
+
+def reset_predict_counts() -> None:
+    for fn in _predict_wrappers().values():
+        fn.launches = 0
+    layouts = _predict_wrappers()["traverse"].layout_launches
+    for k in layouts:
+        layouts[k] = 0
+
+
+def predict_counts() -> dict:
+    fns = _predict_wrappers()
+    return {"traverse_launches": fns["traverse"].launches,
+            "margin_launches": fns["margin"].launches,
+            **{f"traverse_{k}_launches": v for k, v in
+               fns["traverse"].layout_launches.items()}}
+
+
+def stumps_model(features: int = N_FEAT) -> str:
+    """A model text of stumps only (one leaf a tree, no used column)."""
+    from lightgbm_tpu_torch.tree import Tree
+    head = ("tree\nnum_class=1\nnum_tree_per_iteration=1\nlabel_index=0\n"
+            f"max_feature_idx={features - 1}\nobjective=binary sigmoid:1\n"
+            "feature_names=" + " ".join(f"Column_{i}"
+                                        for i in range(features)) +
+            "\nfeature_infos=" + " ".join(["none"] * features) + "\n\n")
+    trees = []
+    for i, v in enumerate((0.125, -0.3, 1e-3 / 3, 0.7, -2.5e-5)):
+        t = Tree(1)
+        t.leaf_value[0] = v
+        trees.append(t.to_string(i))
+    return head + "".join(trees) + "\nfeature importances:\n"
+
+
+def nan_zero_rows(x: np.ndarray, rng) -> np.ndarray:
+    """``x`` with a tenth of its values NaN and a tenth exact zeros."""
+    x = np.array(x, np.float64)
+    x[rng.random(x.shape) < 0.1] = np.nan
+    x[rng.random(x.shape) < 0.1] = 0.0
+    return x
+
+
+def visited_nodes(trees, leaf) -> list:
+    """Each tree's internal nodes on the paths to the leaves ``leaf``
+    (int32 ``[T, B]`` on the host) reached: the nodes these rows' descent
+    read, as ascending node indices."""
+    out = []
+    for t, tree in enumerate(trees):
+        nn = tree.num_leaves - 1
+        if nn <= 0:
+            out.append(np.zeros(0, np.int64))
+            continue
+        up_leaf = np.zeros(nn + 1, np.int64)
+        up_node = np.full(nn, -1, np.int64)
+        for i in range(nn):
+            for c in (int(tree.left_child[i]), int(tree.right_child[i])):
+                if c < 0:
+                    up_leaf[~c] = i
+                else:
+                    up_node[c] = i
+        seen = set()
+        for lf in np.unique(leaf[t]):
+            i = int(up_leaf[lf])
+            while i >= 0 and i not in seen:
+                seen.add(i)
+                i = int(up_node[i])
+        out.append(np.asarray(sorted(seen), np.int64))
+    return out
+
+
+def traverse_bound_ms(bundle, trees, leaf, layout: str) -> tuple:
+    """The traversal's byte bound for these rows (the operations, one
+    compare a visited node, take less): each node record the rows' paths
+    visit read once (``xla``: children, column, missing type and
+    categorical flag, a numerical node's threshold rank and, where its
+    missing type reads a mask, its default-left flag, a categorical node's
+    mask row and its index; ``packed``: the two node words; a stump's
+    children), each column those nodes read read once for every row (the
+    ranks or data words, a categorical column's values, a NaN mask where a
+    node's missing type is NaN, a zero mask where it is zero), the leaves
+    written once.  Returns (ms, bytes)."""
+    lf = leaf.cpu().numpy()
+    t_count, n = lf.shape
+    feat, miss, is_cat = (a.cpu().numpy() for a in (
+        bundle.feat, bundle.miss, bundle.is_cat))
+    width = bundle.cat_mask.shape[1]
+    nbytes = t_count * n * 4
+    num_cols, cat_cols, nan_cols, zero_cols = set(), set(), set(), set()
+    for t, nodes in enumerate(visited_nodes(trees, lf)):
+        if not len(nodes):
+            nbytes += 8                   # a stump's node 0: its children
+            continue
+        f, mt, ic = feat[t, nodes], miss[t, nodes], is_cat[t, nodes]
+        if layout == "packed":
+            nbytes += 8 * len(nodes)
+        else:
+            nbytes += (len(nodes) * (4 * 4 + 1)
+                       + int((~ic).sum()) * 4 + int(((~ic) & (mt != 0))
+                                                    .sum())
+                       + int(ic.sum()) * (4 + width))
+        num_cols.update(f[~ic].tolist())
+        cat_cols.update(f[ic].tolist())
+        nan_cols.update(f[mt == 2].tolist())
+        zero_cols.update(f[(~ic) & (mt == 1)].tolist())
+    if layout == "packed":
+        nbytes += len(num_cols) * n * 4
+    else:
+        nbytes += (len(num_cols) + len(cat_cols)) * n * 4 \
+            + (len(nan_cols) + len(zero_cols)) * n
+    return nbytes / H100_BYTES_PER_S * 1e3, nbytes
+
+
+def margin_bound_ms(leaf, num_class: int) -> tuple:
+    """The margin's byte bound for these rows (its T x B float64 adds take
+    less): the leaves read once, the leaf values these leaves name read
+    once (each distinct (tree, leaf)), the scores read and written once.
+    Returns (ms, bytes)."""
+    t_count, n = leaf.shape
+    distinct = int(np.unique(leaf.cpu().numpy().astype(np.int64)
+                             + np.arange(t_count)[:, None] * (1 << 20))
+                   .size)
+    nbytes = t_count * n * 4 + distinct * 8 + 2 * num_class * n * 8
+    return nbytes / H100_BYTES_PER_S * 1e3, nbytes
+
+
+def serving_kernels_vs_plain(name: str, model_str: str, x: np.ndarray,
+                             row_counts, timed_rows=()) -> dict:
+    """Phase 26a on one model: both kernels against their plain versions
+    on the card, bit for bit (leaves; the scores' float64 bits), in every
+    layout the model has, at each row count of ``row_counts`` (rows of
+    ``x``, cycled past its end); at ``timed_rows`` the kernels' and the
+    plain versions' times (single, back-to-back, device), the margin's
+    one-call yardstick (a ``gather`` and a ``sum`` of the leaf values, not
+    the same order and so not the same bits) and the bounds, each layout's
+    traversal beside the other; the kernels line reads the serving path's
+    layout (``serving_layout``)."""
+    import torch
+    from lightgbm_tpu_torch import Booster
+    from lightgbm_tpu_torch.ops.traverse import (
+        margin, margin_plain, pack_data, traverse, traverse_packed_plain,
+        traverse_plain)
+    bst = Booster(model_str=model_str, params={"device": "cuda"})
+    engine = bst.inner.predict_engine()
+    bundle, main, trees = engine.bundle, engine.traversal, bst.inner.models
+    k = bundle.num_class
+    lv = bundle.leaf_value
+    layouts = ("xla", "packed") if bundle.packed else ("xla",)
+    out = {"trees": bundle.num_trees, "classes": k,
+           "max_depth": bundle.max_depth, "used_columns": bundle.num_cols,
+           "layouts": "+".join(layouts), "serving_layout": main,
+           "checks": 0}
+    for n in row_counts:
+        rows = x[np.arange(n) % len(x)]
+        binned = bundle.bin_rows(rows)
+        data = pack_data(binned[0], binned[2], binned[3])
+        leaves = {}
+        for layout in layouts:
+            b_in = (data,) if layout == "packed" else binned
+            nodes = bundle.nodes(layout)
+            got = traverse(b_in, nodes, layout)
+            want = (traverse_plain(*binned, *nodes) if layout == "xla"
+                    else traverse_packed_plain(data, *nodes))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"26a {name}: lgbt_traverse ({layout}) differs from "
+                     f"its plain version at {n} rows")
+            s_got = torch.zeros((k, n), dtype=torch.float64, device=lv.device)
+            s_want = torch.zeros_like(s_got)
+            margin(got, lv, k, s_got)
+            margin_plain(want, lv, k, s_want)
+            torch.cuda.synchronize()
+            if not torch.equal(s_got.view(torch.int64),
+                               s_want.view(torch.int64)):
+                fail(f"26a {name}: lgbt_margin ({layout}) differs from its "
+                     f"plain version at {n} rows")
+            leaves[layout] = got
+            out["checks"] += 1
+        if len(leaves) == 2 and not torch.equal(leaves["xla"],
+                                                leaves["packed"]):
+            fail(f"26a {name}: the two layouts' leaves differ at {n} rows")
+        if n not in timed_rows:
+            continue
+        tag = f"_{n}"
+        leaf = leaves["xla"]
+        for layout in layouts:
+            b_in = (data,) if layout == "packed" else binned
+            nodes = bundle.nodes(layout)
+            plain = ((lambda: traverse_plain(*binned, *nodes))
+                     if layout == "xla" else
+                     (lambda: traverse_packed_plain(data, *nodes)))
+            t_k = three_times(lambda: traverse(b_in, nodes, layout,
+                                               out=leaf))
+            bound, nbytes = traverse_bound_ms(bundle, trees, leaf, layout)
+            pre = f"traverse_{layout}_"
+            out.update({f"{pre}ms{tag}": t_k["ms"],
+                        f"{pre}ms_many{tag}": t_k["ms_many"],
+                        f"{pre}device_ms{tag}": t_k["device_ms"],
+                        f"{pre}plain_ms{tag}": cuda_ms(plain, reps=3),
+                        f"{pre}bound_ms{tag}": bound,
+                        f"{pre}bound_bytes{tag}": nbytes})
+        # the serving path's layout (inference.py: packed where the model
+        # has the node words) under the kernels line's names
+        for key in ("ms", "ms_many", "device_ms", "plain_ms", "bound_ms",
+                    "bound_bytes"):
+            out[f"traverse_{key}{tag}"] = out[
+                f"traverse_{main}_{key}{tag}"]
+        s = torch.zeros((k, n), dtype=torch.float64, device=lv.device)
+        m_k = three_times(lambda: margin(leaf, lv, k, s))
+        bound, nbytes = margin_bound_ms(leaf, k)
+        out.update({
+            f"margin_ms{tag}": m_k["ms"],
+            f"margin_ms_many{tag}": m_k["ms_many"],
+            f"margin_device_ms{tag}": m_k["device_ms"],
+            f"margin_plain_ms{tag}": cuda_ms(
+                lambda: margin_plain(leaf, lv, k, s), reps=3),
+            f"margin_library_ms{tag}": cuda_ms(
+                lambda: lv.gather(1, leaf.long()).view(-1, k, n).sum(0)),
+            f"margin_bound_ms{tag}": bound,
+            f"margin_bound_bytes{tag}": nbytes})
+    if timed_rows and 1 in timed_rows:
+        # the latency chain: two dependent loads a level (the node record,
+        # then the row's word of its column) down the deepest path; the
+        # device time of one row over it is the time a chain load took
+        chain = 2 * bundle.max_depth
+        out["latency_chain_loads"] = chain
+        out["device_ns_per_chain_load_1"] = \
+            out["traverse_device_ms_1"] * 1e6 / chain
+    phase(f"serving_kernels_{name}", **out)
+    return out
+
+
+def eager_predict_s(bst, x) -> tuple:
+    """``bst.predict(x)`` through the kernels and through their plain
+    versions on the card (the eager loop the kernels replaced), in turns
+    (plain, kernel, kernel, plain), each call's seconds; the scores must
+    be the same bits."""
+    import lightgbm_tpu_torch.predictor as predictor
+    from lightgbm_tpu_torch.ops import traverse as ops
+    plain = {"traverse": lambda binned, nodes, layout="xla", out=None: (
+             ops.traverse_plain if layout == "xla"
+             else ops.traverse_packed_plain)(*binned, *nodes),
+             "margin": ops.margin_plain}
+    kernel = {"traverse": predictor.traverse, "margin": predictor.margin}
+    times = {"plain": [], "kernel": []}
+    preds = {}
+    try:
+        for which in ("plain", "kernel", "kernel", "plain"):
+            for attr, fn in (plain if which == "plain" else kernel).items():
+                setattr(predictor, attr, fn)
+            pred, s = timed(lambda: bst.predict(x))
+            times[which].append(s)
+            preds[which] = pred
+    finally:
+        for attr, fn in kernel.items():
+            setattr(predictor, attr, fn)
+    if not np.array_equal(preds["plain"].view(np.uint64),
+                          preds["kernel"].view(np.uint64)):
+        fail("26a: Booster.predict through the kernels differs from the "
+             "eager loop's")
+    return min(times["kernel"]), min(times["plain"])
+
+
+def predict_path_times(bst, x) -> dict:
+    """The engine's two predict paths on each side of its threshold (the
+    largest bucket, 4,096 rows): at 4,096 rows and at all of ``x``'s, the scores
+    through microbatches of the largest bucket and through row passes, in
+    turns (microbatches, passes, passes, microbatches), each call's
+    fastest seconds; both give the same bits."""
+    engine = bst.inner.predict_engine(prewarm=True)
+    xc = engine._columns(x)
+    mb, total = engine.max_bucket, engine.bundle.num_trees
+    out = {"threshold_rows": mb}
+    for n in (mb, len(xc)):
+        rows = xc[:n]
+
+        def micro():
+            return np.concatenate([engine._run_bucket(rows[lo:lo + mb],
+                                                      total, True)
+                                   for lo in range(0, n, mb)], axis=1)
+
+        def passes():
+            return engine.bundle.pass_scores(rows, total,
+                                             **engine._pass_kw())
+        times = {"microbatch": [], "pass": []}
+        got = {}
+        for which in ("microbatch", "pass", "pass", "microbatch"):
+            got[which], sec = timed(micro if which == "microbatch"
+                                    else passes)
+            times[which].append(sec)
+        if not np.array_equal(got["microbatch"].view(np.uint64),
+                              got["pass"].view(np.uint64)):
+            fail(f"26a: the engine's two paths differ at {n} rows")
+        for which, sec in times.items():
+            out[f"{which}_s_{n}"] = f"{min(sec):.5f}"
+    phase("serving_paths", **out)
+    return out
+
+
+def serve_replay(bst, model_str: str, n_feat: int) -> dict:
+    """Phase 26b: a ModelServer of ``bst`` (prewarmed) answers
+    ``SERVE_REQUESTS`` requests of the sizes of ``SERVE_SIZES`` from
+    ``SERVE_CLIENTS`` clients, each sending its next request once the last
+    is answered; every answer is ``Booster.predict``'s of another booster
+    of the same model text (all the rows at once: the engine's row
+    passes), bit for bit; no buffer set is allocated or freed after the
+    prewarm; the kernels' counts are read around the replay."""
+    import threading
+    import torch
+    from lightgbm_tpu_torch import Booster
+    from lightgbm_tpu_torch.inference import jit_entries
+    from lightgbm_tpu_torch.serving import ModelServer
+    srv = ModelServer(booster=bst, params={"device": "cuda", "verbose": -1})
+    entries = jit_entries()
+    rng = np.random.default_rng(SEED + 26)
+    sizes = rng.choice(SERVE_SIZES, size=SERVE_REQUESTS)
+    x_all = nan_zero_rows(rng.standard_normal((int(sizes.sum()), n_feat)),
+                          rng)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    answers = [None] * SERVE_REQUESTS
+    errors = []
+
+    def client(c):
+        for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+            try:
+                answers[i] = srv.predict(x_all[starts[i]:starts[i + 1]])
+            except Exception as e:          # a failed request fails 26b
+                errors.append(f"request {i}: {e!r}")
+
+    torch.cuda.synchronize()
+    reset_predict_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    counts = predict_counts()
+    stats = srv.stop()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"26b: failed requests {errors[:3]}")
+    if jit_entries() != entries or stats["predict_jit_entries"] != entries:
+        fail(f"26b: the buffer sets moved from {entries} to {jit_entries()}")
+    if stats["dispatch_allocs"]:
+        fail(f"26b: the dispatcher allocated {stats['dispatch_allocs']} "
+             f"buffer sets")
+    want = Booster(model_str=model_str,
+                   params={"device": "cuda"}).predict(x_all)
+    got = np.concatenate(answers)
+    if not np.array_equal(got.view(np.uint64), want.view(np.uint64)):
+        fail(f"26b: {int((got != want).sum())} served answers differ from "
+             f"Booster.predict")
+    if not counts["traverse_launches"] or not counts["margin_launches"]:
+        fail(f"26b: the replay launched the kernels {counts}")
+    out = dict(requests=stats["requests"], rows=stats["rows"],
+               batches=stats["batches"], clients=SERVE_CLIENTS,
+               wall_s=f"{wall:.3f}", qps=f"{SERVE_REQUESTS / wall:.1f}",
+               rows_per_s=f"{stats['rows'] / wall:.1f}",
+               predict_jit_entries=entries, **counts)
+    for b, rec in stats["buckets"].items():
+        out[f"bucket_{b}"] = (f"n={rec['count']},p50={rec['p50_ms']}ms,"
+                              f"p99={rec['p99_ms']}ms")
+    out.update(one_row_latency(bst, x_all[:1]))
+    phase("serving_replay", **out)
+    return out
+
+
+def one_row_latency(bst, x1, n: int = SINGLE_REQUESTS) -> dict:
+    """A lone 1-row request's latency, ``n`` requests one after another:
+    the engine's microbatch alone (its launches and its two copies), and
+    through a server at the default 2 ms budget (its wait included) and
+    at 0; p50 and p99 in ms."""
+    from lightgbm_tpu_torch.serving import ModelServer
+    engine = bst.inner.predict_engine()
+
+    def p50_p99(name, fn) -> dict:
+        lat = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return {f"one_row_{name}_p50_ms": f"{np.percentile(lat, 50):.3f}",
+                f"one_row_{name}_p99_ms": f"{np.percentile(lat, 99):.3f}"}
+
+    out = p50_p99("engine", lambda: engine.raw_scores(x1))
+    for budget in (2.0, 0.0):
+        srv = ModelServer(booster=bst, params={
+            "device": "cuda", "verbose": -1, "latency_budget_ms": budget})
+        out.update(p50_p99(f"server_budget_{budget:g}ms",
+                           lambda: srv.predict(x1)))
+        srv.stop()
+    return out
+
+
+def hot_swap(params, ds, x_te) -> dict:
+    """Phase 26c: a trainer (phase 3's Dataset, the eager loop, so that no
+    graph capture meets the server's launches from another thread)
+    commits a snapshot every ``SWAP_FREQ`` rounds while clients stream
+    requests to a server watching its prefix: at least one swap, no failed
+    request, every answer one committed model's, an answer of an older
+    model never after one of a newer, no buffer set allocated by a
+    dispatch (each model's engine allocates its sets at its prewarm,
+    before its swap), the live sets back to one ladder's once the old
+    engines are collected, and the seconds from each commit (its
+    snapshot's time) to the first answer of that model."""
+    import tempfile
+    import threading
+    from lightgbm_tpu_torch import Booster, train
+    from lightgbm_tpu_torch import checkpoint as ckpt
+    from lightgbm_tpu_torch.inference import jit_entries
+    from lightgbm_tpu_torch.serving import ModelServer
+    tmp = tempfile.mkdtemp()
+    prefix = os.path.join(tmp, "swap.txt")
+    p = dict(params, num_leaves=31, partition_impl="scatter",
+             output_model=prefix, snapshot_freq=SWAP_FREQ)
+    train(p, ds, SWAP_FREQ, verbose_eval=False)
+    srv = ModelServer(params={"device": "cuda", "verbose": -1,
+                              "model_watch": prefix,
+                              "model_watch_interval": 0.05})
+    gc.collect()
+    entries = jit_entries()
+    xq = x_te[:64]
+    got, errors, stop = [], [], threading.Event()
+
+    def client():
+        while not stop.is_set():
+            try:
+                got.append((time.time(), srv.predict(xq)))
+            except Exception as e:
+                errors.append(repr(e))
+
+    clients = [threading.Thread(target=client) for _ in range(2)]
+    for t in clients:
+        t.start()
+    try:
+        train(dict(p, snapshot_resume=True), ds, SWAP_ROUNDS,
+              verbose_eval=False)
+        deadline = time.time() + 60
+        while srv.loaded_iteration != SWAP_ROUNDS and time.time() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(timeout=60)
+    stats = srv.stop()
+    gc.collect()
+    live = jit_entries()
+    committed = {}
+    for it in range(SWAP_FREQ, SWAP_ROUNDS + 1, SWAP_FREQ):
+        path = ckpt.snapshot_path(prefix, it)
+        text, _ = ckpt.load_snapshot(path)
+        committed[it] = (os.path.getmtime(path), Booster(
+            model_str=text, params={"device": "cuda"}).predict(xq))
+    shutil.rmtree(tmp, ignore_errors=True)
+    if errors:
+        fail(f"26c: failed requests {errors[:3]}")
+    if stats["swaps"] < 1:
+        fail("26c: the server swapped no model in")
+    first, last = {}, 0
+    for t, ans in got:
+        hit = [it for it, (_, want) in committed.items()
+               if np.array_equal(ans.view(np.uint64), want.view(np.uint64))]
+        if len(hit) != 1:
+            fail("26c: an answer equal to no single committed model (torn)")
+        if hit[0] < last:
+            fail(f"26c: an answer of iteration {hit[0]} after one of {last}")
+        last = hit[0]
+        first.setdefault(hit[0], t)
+    lag = {it: first[it] - committed[it][0] for it in first
+           if it != SWAP_FREQ}
+    if stats["dispatch_allocs"]:
+        fail(f"26c: the dispatcher allocated {stats['dispatch_allocs']} "
+             f"buffer sets")
+    if live != entries:
+        fail(f"26c: {live} live buffer sets after the swaps, {entries} "
+             f"before")
+    out = dict(answers=len(got), swaps=stats["swaps"],
+               models_answered=",".join(str(i) for i in sorted(first)),
+               predict_jit_entries=entries, dispatch_allocs=0,
+               **{f"commit_to_first_answer_s_iter{it}": f"{s:.3f}"
+                  for it, s in sorted(lag.items())})
+    phase("serving_hot_swap", **out)
+    return out
+
+
+def drift_alarm(params, ds, x_te) -> dict:
+    """Phase 26d: a model trained with ``model_quality=on`` carries its
+    training distribution; served held-out rows raise no
+    ``feature_drift``, the same rows with every column shifted by 3 raise
+    it."""
+    from lightgbm_tpu_torch import train
+    from lightgbm_tpu_torch.obs.counters import counters
+    from lightgbm_tpu_torch.serving import ModelServer
+    text = train(dict(params, num_leaves=31, model_quality="on"), ds, 3,
+                 verbose_eval=False).model_to_string()
+    if "feature_distribution:" not in text:
+        fail("26d: a model_quality=on model text carries no distribution")
+    out = {}
+    for name, shift in (("unshifted", 0.0), ("shifted", 3.0)):
+        srv = ModelServer(model_str=text, params={
+            "device": "cuda", "verbose": -1,
+            "drift_window_rows": DRIFT_WINDOW})
+        counters.reset()
+        x = np.array(x_te[:3 * DRIFT_WINDOW]) + shift
+        for lo in range(0, len(x), 512):
+            srv.predict(x[lo:lo + 512])
+        st = srv.stop()["drift"]
+        events = counters.events("feature_drift")
+        out[f"{name}_windows"] = st["windows"]
+        out[f"{name}_events"] = len(events)
+        out[f"{name}_max_psi"] = f"{max(st['psi'].values()):.4f}"
+        if st["windows"] != 3:
+            fail(f"26d: {st['windows']} drift windows of {name} rows")
+    if out["unshifted_events"] or not out["shifted_events"]:
+        fail(f"26d: feature_drift {out}")
+    phase("serving_drift", **out)
+    return out
+
+
+def http_front(bst, x_te) -> dict:
+    """Phase 26e: the HTTP front on a free port of this host: POST
+    /predict answers ``Booster.predict``'s bits, GET /healthz is ok, a
+    GET /metrics scrape parses and holds the serving families."""
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch import serving
+    srv = serving.ModelServer(booster=bst, params={"device": "cuda",
+                                                   "verbose": -1})
+    httpd = serving._http_server(srv, 0)
+    port = httpd.server_address[1]
+    t = threading.Thread(target=httpd.serve_forever)
+    t.start()
+    try:
+        rows = x_te[:16]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/predict",
+            data=json.dumps({"data": rows.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as r:
+            pred = np.asarray(json.loads(r.read())["predictions"])
+        post_ms = (time.perf_counter() - t0) * 1e3
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        samples = scrape(port)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+        srv.stop()
+    if not np.array_equal(pred, bst.predict(rows)):
+        fail("26e: POST /predict differs from Booster.predict")
+    if health.get("ok") is not True:
+        fail(f"26e: /healthz {health}")
+    fams = {k.split("{")[0] for k in samples}
+    need = {"lgbm_tpu_serving_latency_ms_bucket", "lgbm_tpu_serving_rows_total",
+            "lgbm_tpu_predict_dispatch_total", "lgbm_tpu_serving_jit_entries"}
+    if not need <= fams:
+        fail(f"26e: /metrics lacks {sorted(need - fams)}")
+    out = dict(post_ms=f"{post_ms:.2f}", metrics_samples=len(samples),
+               serving_families=len([f for f in fams if "serving" in f]))
+    phase("serving_http", **out)
+    return out
+
+
+def phase_26(params, ds, x_te, y_te) -> dict:
+    """Phases 26a-26e on phase 3's Dataset: the 100-tree, 255-leaf model
+    (graph loop), both kernels against their plain versions on it and on a
+    stumps-only model, ``Booster.predict`` through the kernels against the
+    eager loop, the replay, the hot swap, drift and the HTTP front."""
+    import torch
+    from lightgbm_tpu_torch import train
+    rng = np.random.default_rng(SEED + 260)
+    bst, t_train = timed(lambda: train(params, ds, SERVE_ROUNDS,
+                                       verbose_eval=False))
+    text = bst.model_to_string()
+    x = nan_zero_rows(x_te, rng)
+    rows = SERVE_BUCKETS + (SERVE_CHECK_ROWS,)
+    kernels = serving_kernels_vs_plain("higgs_100", text, x, rows,
+                                       SERVE_TIMED_ROWS)
+    serving_kernels_vs_plain("stumps", stumps_model(), x, rows)
+    kernel_s, eager_s = eager_predict_s(bst, x_te)
+    phase("serving_predict_100k", model_trees=bst.num_trees(),
+          train_s=f"{t_train:.3f}", rows=len(x_te),
+          predict_s=f"{kernel_s:.4f}", eager_predict_s=f"{eager_s:.4f}")
+    paths = predict_path_times(bst, x_te)
+    torch.cuda.empty_cache()
+    replay = serve_replay(bst, text, x_te.shape[1])
+    swap = hot_swap(params, ds, x_te)
+    drift = drift_alarm(params, ds, x_te)
+    http = http_front(bst, x_te)
+    del bst
+    torch.cuda.empty_cache()
+    return dict(kernels=kernels, replay=replay, swap=swap, drift=drift,
+                http=http, predict_s=kernel_s, eager_predict_s=eager_s,
+                paths=paths)
+
+
+def phase_26_alone(params) -> None:
+    """``--phase-26``: phase 3's Dataset and phase 26 alone (the Expo and
+    Covertype models' kernel checks come with their paths in the full
+    run)."""
+    from lightgbm_tpu_torch import Dataset
+    rng = np.random.default_rng(SEED + 1)
+    x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
+    ds = Dataset(x_all[:N_ROWS], y_all[:N_ROWS], params=params).construct()
+    phase_26(params, ds, x_all[N_ROWS:], y_all[N_ROWS:])
+
+
 def worker(spec_path: str) -> None:
     """A process this script started: phase 22's and ``--multi-card``'s
     ranks, 24b's preempted training, or 24c's and 25a's supervised
@@ -7599,9 +8266,10 @@ def main() -> None:
         return
     multi = sys.argv[1:] == ["--multi-card"]
     only25 = sys.argv[1:] == ["--phase-25"]
-    if sys.argv[1:] and not (multi or only25):
+    only26 = sys.argv[1:] == ["--phase-26"]
+    if sys.argv[1:] and not (multi or only25 or only26):
         fail(f"unknown arguments {sys.argv[1:]}; the options are "
-             f"--multi-card and --phase-25")
+             f"--multi-card, --phase-25 and --phase-26")
     from lightgbm_tpu_torch.ops import build
     from lightgbm_tpu_torch.ops.partition import LAUNCHES
 
@@ -7632,11 +8300,13 @@ def main() -> None:
     params = dict(objective="binary", num_leaves=255, max_bin=N_BINS,
                   min_data_in_leaf=1, min_sum_hessian_in_leaf=100,
                   learning_rate=0.1, verbose=0, device="cuda")
-    if multi or only25:
+    if multi or only25 or only26:
         if multi:
             multi_card(params)
-        else:
+        elif only25:
             phase_25_alone(params)
+        else:
+            phase_26_alone(params)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -7769,6 +8439,9 @@ def main() -> None:
                                     procs_score_model, names)
     torch.cuda.empty_cache()
 
+    # ---- phases 26a-26e: serving ------------------------------------------
+    serving = phase_26(params, higgs_ds, x_te, y_te)
+
     # ---- phase 20a: streamed trees of the Higgs path ----------------------
     rate = h2d_rate(dev)
     tree20a = []
@@ -7897,9 +8570,15 @@ def main() -> None:
         "higgs": (higgs_model, x_te, ("leaf", "early_stop", "contrib")),
         "expo": (*expo_model, ("leaf", "contrib")),
         "covtype": (*cov_model, ("contrib", "early_stop"))})
+    # ---- phase 26a: the serving kernels on the Expo and Covertype models --
+    for name, (model_str, rows) in (("expo", expo_model),
+                                    ("covtype", cov_model)):
+        serving_kernels_vs_plain(name, model_str, rows,
+                                 SERVE_BUCKETS + (SERVE_CHECK_ROWS,))
     del expo_model, cov_model
     # ---- phase 17: files, the binary file, CSR, two-round loading ---------
-    dataset_inputs(params, higgs_model, x_tr, y_tr, x_te, y_te)
+    dataset_inputs(params, higgs_model, x_tr[:INPUT_ROWS], y_tr[:INPUT_ROWS],
+                   x_te[:INPUT_HELDOUT], y_te[:INPUT_HELDOUT])
     torch.cuda.empty_cache()
     # ---- phase 18: the Higgs-shaped task at max_bin=1023 (uint16) ---------
     wide_serial, wide_dp = higgs_wide_path(params, names, x_tr, y_tr, x_te,
@@ -8106,7 +8785,36 @@ def main() -> None:
             "ms_many", "device_ms", "sectors", "moved", "leaf_rows")},
         "device_ms_per_tree": block_tree["block_route_device_ms_per_tree"],
         **{f"{k}_leaf_1000": v
-           for k, v in sharded_timing["leaf_1000"].items()}}]}),
+           for k, v in sharded_timing["leaf_1000"].items()}}, {
+        "name": "lgbt_traverse", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/traverse.cu",
+        "replaces": "lightgbm_tpu/inference.py:317",
+        # phase 3's predict; the serving replay's (26b) beside it
+        "launches": higgs["traverse_launches"], "max_abs_err": 0.0,
+        "launches_26b_replay": serving["replay"]["traverse_launches"],
+        **{k.replace("traverse_", ""): v for k, v in serving[
+            "kernels"].items() if k.startswith("traverse_")},
+        "ms": serving["kernels"]["traverse_ms_4096"],
+        "plain_ms": serving["kernels"]["traverse_plain_ms_4096"],
+        "bound_ms": serving["kernels"]["traverse_bound_ms_4096"],
+        "bound_by": "bytes", "library_ms": None,
+        "layout": serving["kernels"]["serving_layout"],
+        # not in bound_ms: the chain of dependent loads down the deepest
+        # path, and the device time of one row over it
+        **{k: serving["kernels"][k] for k in (
+            "latency_chain_loads", "device_ns_per_chain_load_1")}}, {
+        "name": "lgbt_margin", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/traverse.cu",
+        "replaces": "lightgbm_tpu/inference.py:826",
+        "launches": higgs["margin_launches"], "max_abs_err": 0.0,
+        "launches_26b_replay": serving["replay"]["margin_launches"],
+        **{k.replace("margin_", ""): v for k, v in serving[
+            "kernels"].items() if k.startswith("margin_")},
+        "ms": serving["kernels"]["margin_ms_4096"],
+        "plain_ms": serving["kernels"]["margin_plain_ms_4096"],
+        "bound_ms": serving["kernels"]["margin_bound_ms_4096"],
+        "bound_by": "bytes",
+        "library_ms": serving["kernels"]["margin_library_ms_4096"]}]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -923,6 +923,14 @@ class Booster:
             pred_early_stop_freq=pp.get("pred_early_stop_freq"),
             pred_early_stop_margin=pp.get("pred_early_stop_margin"))
 
+    def predict_engine(self, prewarm: bool = True, buckets=None):
+        """The cached serving engine of this model on this booster's
+        device (``lightgbm_tpu/basic.py:869``): the flatten, the tables
+        and the buckets' buffers, made once at model load and reused by
+        every later ``predict`` through the booster's predictor."""
+        return self.inner.predict_engine(prewarm=prewarm, buckets=buckets,
+                                         device=self.device)
+
     def save_model(self, filename: str, num_iteration: int = -1) -> "Booster":
         with open(filename, "w") as f:
             f.write(self.model_to_string(num_iteration))

@@ -65,7 +65,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import Config, resolve_device
+from .config import Config, parse_serving_buckets, resolve_device
 from .data.dataset import TrainingData
 from .data.packing import PackedBins, build_pack_plan, pack_bins
 from .data.stream import BlockStreamer
@@ -86,7 +86,7 @@ from .ops.lambdarank import default_label_gain
 from .parallel import mesh as mesh_mod
 from .parallel import sync
 from .parallel.gspmd import GspmdGrower, Procs, resolve_gspmd_hist
-from .predictor import (Predictor, SoABundle, predict_binned_leaf,
+from .predictor import (Predictor, predict_binned_leaf,
                         trees_scores_binned)
 from . import checkpoint as checkpoint_mod
 from .tree import Tree
@@ -406,7 +406,7 @@ class GBDT:
         # (rollback, merge, DART's normalisation, a leaf edit): a cached
         # predictor of the trees is stale then
         self.model_epoch = 0
-        self._bundle, self._bundle_key = None, None   # predictor()'s cache
+        self._pred_engine, self._pred_engine_key = None, None
         # the learner as resolved, and a record of a loud fallback to serial
         # or to shard_map; the tensors' backend under several processes
         self.parallel_impl = "serial"
@@ -1275,21 +1275,59 @@ class GBDT:
         return self.models[:(num_iteration + (1 if self.boost_from_average_
                                               else 0)) * self.num_class]
 
+    def _drop_serving_caches(self) -> None:
+        """Forget the serving engine: a change of the stored trees other
+        than appending one (which the length catches) must call this
+        (``lightgbm_tpu/boosting.py:1757``)."""
+        self._pred_engine, self._pred_engine_key = None, None
+
+    def predict_engine(self, prewarm: bool = False, buckets=None,
+                       build: bool = True, backend: str = "auto",
+                       traversal: Optional[str] = None, device=None):
+        """The cached serving engine of the current model
+        (``inference.PredictEngine``; ``lightgbm_tpu/boosting.py:1766``)
+        on ``device`` (the config's when None), with the ladder
+        ``buckets`` (the engine's default when None) and ``traversal``
+        (the config's ``serving_traversal`` when None): built at most once
+        for each model state and these three, so the flatten and the
+        tables serve every later predict call; appended trees rebuild it.
+        ``build=False`` only returns an engine that is already fresh."""
+        from .inference import DEFAULT_BUCKETS, PredictEngine
+        dev = device if isinstance(device, torch.device) else \
+            resolve_device(self.config.device if device is None else device)
+        ladder = parse_serving_buckets(DEFAULT_BUCKETS if buckets is None
+                                       else buckets)
+        if traversal is None:
+            traversal = self.config.serving_traversal
+        key = (len(self.models), self.model_epoch, str(dev), ladder,
+               traversal, backend)
+        eng = self._pred_engine
+        fresh = eng is not None and self._pred_engine_key == key
+        if not fresh:
+            if not build:
+                return None
+            eng = PredictEngine(self.models, self.num_class, buckets=ladder,
+                                prewarm=prewarm, backend=backend,
+                                traversal=traversal, device=dev)
+            self._pred_engine, self._pred_engine_key = eng, key
+        elif prewarm and not eng._warmed:
+            eng.prewarm()
+        return eng
+
     def predictor(self, device: torch.device, num_iteration: int = -1,
                   pred_early_stop: bool = False,
                   pred_early_stop_freq: Optional[int] = None,
-                  pred_early_stop_margin: Optional[float] = None
-                  ) -> Predictor:
+                  pred_early_stop_margin: Optional[float] = None,
+                  engine=None) -> Predictor:
         """A predictor of the kept trees on ``device``; early stopping's
         frequency and margin default to the config's
-        (``lightgbm_tpu/boosting.py:1793``).  The trees' device bundle is
-        built once for each model state, device and ``num_iteration``."""
-        key = (len(self.models), self.model_epoch, num_iteration,
-               str(device))
+        (``lightgbm_tpu/boosting.py:1793``).  It predicts through
+        ``engine`` (an engine of all the current trees on ``device``),
+        else through the cached engine of this model state on ``device``
+        (:meth:`predict_engine`)."""
         trees = self._kept_trees(num_iteration)
-        if self._bundle_key != key:
-            self._bundle = SoABundle(trees, device, self.num_class)
-            self._bundle_key = key
+        if engine is None:
+            engine = self.predict_engine(device=device)
         cfg = self.config
         return Predictor(
             trees, self.num_class, self.objective, device,
@@ -1300,7 +1338,7 @@ class GBDT:
             early_stop_margin=(cfg.pred_early_stop_margin
                                if pred_early_stop_margin is None
                                else pred_early_stop_margin),
-            bundle=self._bundle)
+            engine=engine)
 
     def predict(self, x: np.ndarray, device: torch.device,
                 num_iteration: int = -1, raw_score: bool = False,

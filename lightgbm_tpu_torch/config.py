@@ -295,6 +295,18 @@ class Config:
     obs_stream_path: str = ""
     model_quality: str = "auto"
     straggler_factor: float = 4.0
+    # serving (lightgbm_tpu/config.py:396-434; inference.py, serving.py):
+    # the dispatcher's coalescing window, the microbatch ladder, the
+    # checkpoint prefix a server hot-swaps from and its poll interval, the
+    # drift alarm's PSI threshold and window, and the engine's traversal
+    # layout (auto | xla | packed)
+    latency_budget_ms: float = 2.0
+    serving_buckets: str = "1,8,64,512,4096"
+    model_watch: str = ""
+    model_watch_interval: float = 1.0
+    drift_threshold: float = 0.2
+    drift_window_rows: int = 4096
+    serving_traversal: str = "auto"
 
     def copy(self) -> "Config":
         return dataclasses.replace(self)
@@ -353,13 +365,6 @@ NOT_PORTED: Dict[str, tuple] = {
     "input_model": ("", _SERVING),
     "output_result": ("LightGBM_predict_result.txt", _SERVING),
     "convert_model": ("gbdt_prediction.cpp", _SERVING),
-    "latency_budget_ms": (2.0, _SERVING),
-    "serving_buckets": ("1,8,64,512,4096", _SERVING),
-    "model_watch": ("", _SERVING),
-    "model_watch_interval": (1.0, _SERVING),
-    "drift_threshold": (0.2, _SERVING),
-    "drift_window_rows": (4096, _SERVING),
-    "serving_traversal": ("auto", _SERVING),
 }
 
 
@@ -643,6 +648,45 @@ def _check_observability(cfg: Config) -> None:
         log.fatal("straggler_factor must be > 1 (a rank is a straggler "
                   "when its progress rate falls that factor behind the "
                   "group median); got %r", cfg.straggler_factor)
+    _check_serving(cfg)
+
+
+def _check_serving(cfg: Config) -> None:
+    """The serving keys (lightgbm_tpu/config.py:715-723, :815-824)."""
+    if cfg.serving_traversal not in ("auto", "xla", "packed"):
+        log.fatal("serving_traversal must be auto, xla, or packed; got %r",
+                  cfg.serving_traversal)
+    if cfg.drift_window_rows <= 0:
+        log.fatal("drift_window_rows must be > 0 serving rows per PSI "
+                  "window; got %d", cfg.drift_window_rows)
+    if cfg.latency_budget_ms < 0:
+        log.fatal("latency_budget_ms must be >= 0 (0 = dispatch "
+                  "immediately); got %r", cfg.latency_budget_ms)
+    if cfg.model_watch_interval <= 0:
+        log.fatal("model_watch_interval must be positive seconds; got %r",
+                  cfg.model_watch_interval)
+    try:
+        parse_serving_buckets(cfg.serving_buckets)
+    except ValueError as e:
+        log.fatal("%s", e)
+
+
+def parse_serving_buckets(spec) -> tuple:
+    """``serving_buckets`` ("1,8,64,512,4096") -> ascending int tuple;
+    raises ValueError on empty, non-positive or non-ascending specs
+    (lightgbm_tpu/config.py:836)."""
+    if isinstance(spec, (tuple, list)):
+        vals = [int(v) for v in spec]
+    else:
+        vals = [int(v) for v in str(spec).replace(",", " ").split()]
+    if not vals:
+        raise ValueError("serving_buckets must name at least one batch size")
+    if any(v <= 0 for v in vals):
+        raise ValueError(f"serving_buckets must be positive; got {vals}")
+    if sorted(vals) != vals or len(set(vals)) != len(vals):
+        raise ValueError(
+            f"serving_buckets must be strictly ascending; got {vals}")
+    return tuple(vals)
 
 
 def resolve_device(name: Optional[str]) -> torch.device:

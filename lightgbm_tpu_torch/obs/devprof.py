@@ -58,12 +58,16 @@ KERNEL_PHASES = (
     ("lgbt_block_route", "partition"),  # route_rows_block
     ("lgbt_cat_group", "split_find"),   # csrc/cat_group.cu
     ("lgbt_lambdarank", "boosting"),    # csrc/lambdarank.cu
+    ("lgbt_traverse", "traverse"),      # csrc/traverse.cu, the JAX
+    #                                     engine's named_scope("traverse")
+    ("lgbt_margin", "predict_margin"),  # csrc/traverse.cu
 )
 # where a PyTorch kernel launched by a replayed split step goes
 GRAPH_PHASE = "split_find"
 # host phase windows the tracer mirrors into every capture
 HOST_PHASES = ("histogram", "split_find", "partition", "boosting",
-               "bagging", "tree", "score", "metric")
+               "bagging", "tree", "score", "metric", "predict_bin",
+               "predict_traverse", "predict_margin", "serving_batch")
 # the Chrome-trace categories of the card's activity in a torch.profiler
 # export
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

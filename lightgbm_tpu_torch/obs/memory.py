@@ -46,7 +46,7 @@ active monitor is the shared :data:`NULL_MEMORY` no-op.
 from __future__ import annotations
 
 import weakref
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -167,8 +167,15 @@ def predict_hbm(rows: int, features: int, bins: int = 255, leaves: int = 31,
                 categorical: bool = False, compact: bool = True,
                 cuda: bool = True, rollback: bool = True,
                 objective_bytes: Optional[int] = None,
-                objective_work: Optional[int] = None) -> Dict[str, Any]:
-    """Predicted bytes of one training on its primary card.
+                objective_work: Optional[int] = None,
+                serving_trees: int = 0, serving_nodes: int = 0,
+                serving_cols: int = 0, serving_bins: int = 0,
+                serving_buckets: Sequence[int] = (),
+                serving_classes: int = 1, serving_cat_rows: int = 1,
+                serving_cat_width: int = 1, serving_packed: bool = False,
+                serving_layout: str = "xla") -> Dict[str, Any]:
+    """Predicted bytes of one training on its primary card, or of one
+    serving engine.
 
     The JAX signature where it applies: ``rows`` and ``features``
     (physical columns, after EFB), ``bins`` (the widest column's bins),
@@ -194,8 +201,29 @@ def predict_hbm(rows: int, features: int, bins: int = 255, leaves: int = 31,
     None) and ``objective_work`` (:func:`objective_work_bytes`; binary's
     when None).
 
+    With ``serving_buckets`` non-empty the prediction is one serving
+    engine's (``lightgbm_tpu/obs/memory.py:468-480``, from the port's own
+    tables: :func:`serving_terms`), and the training arguments are not
+    read (the engine passes ``rows=0``, as the JAX engine does).
+
     Returns ``residents`` and ``transients`` ({term: bytes}), their sums
     ``resident_bytes`` and ``transient_bytes``, and ``peak_bytes``."""
+    if serving_buckets:
+        model, batches = serving_terms(
+            serving_trees, serving_nodes, serving_cols, serving_bins,
+            serving_buckets, serving_classes, serving_cat_rows,
+            serving_cat_width, serving_packed, serving_layout)
+        return {"inputs": {"serving_trees": int(serving_trees),
+                           "serving_nodes": int(serving_nodes),
+                           "serving_cols": int(serving_cols),
+                           "serving_bins": int(serving_bins),
+                           "serving_buckets": list(serving_buckets),
+                           "serving_classes": int(serving_classes),
+                           "serving_layout": serving_layout},
+                "residents": {"serving_model": model},
+                "transients": {"serving_batches": batches},
+                "resident_bytes": model, "transient_bytes": batches,
+                "peak_bytes": model + batches}
     N, F = int(rows), int(features)
     B, L, K = int(bins), int(leaves), int(num_class)
     bb = int(bin_bytes) if bin_bytes else (1 if B <= 256 else 2)
@@ -334,6 +362,31 @@ def predict_hbm(rows: int, features: int, bins: int = 255, leaves: int = 31,
         "transient_bytes": transient_bytes,
         "peak_bytes": resident_bytes + transient_bytes,
     }
+
+
+def serving_terms(trees: int, nodes: int, cols: int, bins: int,
+                  buckets: Sequence[int], classes: int = 1,
+                  cat_rows: int = 1, cat_width: int = 1,
+                  packed: bool = False, layout: str = "xla"):
+    """``(serving_model, serving_batches)`` bytes of one serving engine
+    (``inference.py:PredictEngine``): the bundle's tensors
+    (``predictor.py:SoABundle``: the float64 threshold table ``[max(Fc,
+    1), bins]``, six int32 and two bool ``[T, P]`` node tables, the bool
+    ``[C, W]`` category mask, the float64 leaf values ``[T, P + 1]`` and,
+    ``packed``, the two int32 node words) and, summed over the ladder,
+    each bucket's device buffers (``inference.py:_BucketBuffers``: the
+    rows in float64, their int32 ranks and categories, two bool masks and,
+    under the ``packed`` layout, the int32 data words, ``[Fc, b]`` each;
+    the int32 leaves ``[T, b]`` and float64 scores ``[K, b]``).  Every
+    bucket's buffers are allocated at prewarm and kept, so the sum is the
+    engine's and not a bound."""
+    t, p, fc = int(trees), max(int(nodes), 1), int(cols)
+    model = (max(fc, 1) * int(bins) * 8 + t * p * (6 * 4 + 2)
+             + int(cat_rows) * int(cat_width) + t * (p + 1) * 8
+             + (t * p * 8 if packed else 0))
+    per_row = (fc * (8 + 4 + 4 + 1 + 1 + (4 if layout == "packed" else 0))
+               + 4 * t + 8 * int(classes))
+    return model, sum(int(b) * per_row for b in buckets)
 
 
 def device_capacity(device=None) -> Optional[int]:

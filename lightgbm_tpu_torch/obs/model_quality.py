@@ -26,18 +26,27 @@
   :func:`contribs_oracle`, the literal per-row recursion on raw values,
   is the parity twin the tests hold it against.
 
-``DriftMonitor`` and ``psi`` come with serving (ROADMAP.md §1.6).
+* **Serving drift** (:func:`psi`, :class:`DriftMonitor`, :551-669): the
+  served rows' per-feature threshold-rank histograms, folded on the
+  device from each microbatch's binned rows, held by the population
+  stability index against the training distribution every
+  ``drift_window_rows`` rows; ``feature_drift`` events past
+  ``drift_threshold`` and ``feature_drift`` gauges.
+
 Armed by the ``model_quality`` key (``auto`` follows ``telemetry``).
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK
 from . import flight as obs_flight
 from . import metrics as obs_metrics
+from .counters import counters
 
 MISSING_ZERO, MISSING_NAN = 1, 2
 ZERO_RANGE = 1e-20           # kZeroAsMissingValueRange (reference meta.h:22)
@@ -268,6 +277,145 @@ def parse_distribution(lines: Sequence[str]
             continue
         out[int(f)] = pairs
     return out
+
+
+# -------------------------------------------------------------- serving drift
+
+
+def psi(p_counts: np.ndarray, q_counts: np.ndarray,
+        eps: float = 1e-6) -> float:
+    """Population stability index between two count histograms
+    (``lightgbm_tpu/obs/model_quality.py:551``)."""
+    ps = p_counts.sum()
+    qs = q_counts.sum()
+    if ps <= 0 or qs <= 0:
+        return 0.0
+    p = np.maximum(p_counts / ps, eps)
+    q = np.maximum(q_counts / qs, eps)
+    return float(np.sum((p - q) * np.log(p / q)))
+
+
+class DriftMonitor:
+    """Serving-side train-against-serve distribution watchdog
+    (``lightgbm_tpu/obs/model_quality.py:563``).
+
+    Attached to an ``inference.PredictEngine``: every microbatch's binned
+    rows fold into per-feature threshold-rank histograms on the device
+    (:meth:`add_device_bins`, one scatter-add over ranks the engine made
+    anyway, no host read).  Once a window holds ``window_rows`` served rows
+    its histograms come to the host, each feature's PSI against the
+    stored training distribution is computed, features past ``threshold``
+    fire one ``feature_drift`` event each, and every feature exports a
+    ``feature_drift`` gauge.  Windows, events and gauges are the JAX
+    package's for the same rows and microbatches."""
+
+    def __init__(self, bundle, distribution: Dict[int, List[Tuple[float,
+                                                                  int]]],
+                 feature_names: Optional[Sequence[str]] = None,
+                 threshold: float = 0.2, window_rows: int = 4096):
+        self.threshold = float(threshold)
+        self.window_rows = max(int(window_rows), 1)
+        self.feature_names = list(feature_names) if feature_names else None
+        nb1 = bundle.num_bins + 1
+        self.cols = np.asarray(bundle.cols, np.int64)
+        # the training distribution in THIS bundle's rank space: rank =
+        # searchsorted(thr64, value), the left-side rank the serving
+        # binning gives the raw value
+        self.ref = np.zeros((len(self.cols), nb1), np.float64)
+        self.active = np.zeros(len(self.cols), bool)
+        for i, f in enumerate(self.cols):
+            pairs = distribution.get(int(f))
+            u = bundle.thr64[i]
+            if not pairs or not len(u):
+                continue
+            vals = np.asarray([v for v, _ in pairs], np.float64)
+            cnts = np.asarray([c for _, c in pairs], np.float64)
+            ranks = np.searchsorted(u, vals, side="left")
+            np.add.at(self.ref[i], ranks, cnts)
+            self.active[i] = True
+        self._dev = None              # the window's counts on the device
+        self.rows_in_window = 0
+        self.rows_total = 0
+        self.windows = 0
+        self.last_psi = np.zeros(len(self.cols), np.float64)
+        self.events_fired = 0
+        # the window is folded, evaluated and read under one lock
+        self._lock = threading.Lock()
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.active.any())
+
+    def _name(self, col: int) -> str:
+        return _feature_name(self.feature_names, int(self.cols[col]))
+
+    def add_device_bins(self, bins, rows: int) -> None:
+        """Fold one microbatch's int32 ranks ``[Fc, rows]`` (a tensor on
+        the engine's device) into the window's counts there; a full
+        window is evaluated."""
+        if not self.enabled or rows <= 0:
+            return
+        with self._lock:
+            self._fold(bins, rows)
+
+    def _fold(self, bins, rows: int) -> None:
+        if self._dev is None or self._dev.device != bins.device:
+            self._dev = torch.zeros(self.ref.shape, dtype=torch.float64,
+                                    device=bins.device)
+        self._dev.scatter_add_(1, bins.long(), torch.ones(
+            bins.shape, dtype=torch.float64, device=bins.device))
+        self.rows_in_window += int(rows)
+        self.rows_total += int(rows)
+        if self.rows_in_window >= self.window_rows:
+            self._evaluate()
+
+    def _evaluate(self) -> None:
+        """The window's one host read: its counts, then each active
+        feature's PSI and the events past the threshold."""
+        obs = self._dev.cpu().numpy()     # a view of the counts on the CPU
+        self.windows += 1
+        for i in range(len(self.cols)):
+            if not self.active[i]:
+                continue
+            self.last_psi[i] = psi(self.ref[i], obs[i])
+            if self.threshold > 0 and self.last_psi[i] > self.threshold:
+                self.events_fired += 1
+                counters.event(
+                    "feature_drift", feature=self._name(i),
+                    psi=round(self.last_psi[i], 6),
+                    threshold=self.threshold,
+                    window_rows=self.rows_in_window, window=self.windows)
+        self._dev.zero_()
+        self.rows_in_window = 0
+
+    def samples(self) -> list:
+        """The live ``/metrics`` rows (the ModelServer folds these into
+        its registered source)."""
+        out = []
+        with self._lock:
+            for i in range(len(self.cols)):
+                if self.active[i]:
+                    out.append(("feature_drift", {"feature": self._name(i)},
+                                float(self.last_psi[i]), "gauge"))
+            out.append(("drift_windows", {}, float(self.windows),
+                        "counter"))
+        return out
+
+    def stats(self) -> Dict[str, Any]:
+        """The ``GET /stats`` drift block."""
+        with self._lock:
+            return self._stats()
+
+    def _stats(self) -> Dict[str, Any]:
+        return {
+            "rows_seen": self.rows_total,
+            "windows": self.windows,
+            "window_rows": self.window_rows,
+            "threshold": self.threshold,
+            "events_fired": self.events_fired,
+            "psi": {self._name(i): round(float(self.last_psi[i]), 6)
+                    for i in range(len(self.cols)) if self.active[i]},
+        }
 
 
 # ------------------------------------------------------------------ TreeSHAP

@@ -216,7 +216,7 @@ def _serving_lines(events: List[dict],
         (f" — rank {rank}" if rank is not None else "")
     lines = ["", title, ""]
     for k, v in sorted(jit_gauge.items()):
-        lines.append(f"- `{k}` = {int(v)} compiled microbatch signature(s)")
+        lines.append(f"- `{k}` = {int(v)} live per-bucket buffer set(s)")
     if dispatch:
         lines += ["", "Microbatch dispatches by (bucket, input path, "
                       "executable identity) — a warmed ladder must only "

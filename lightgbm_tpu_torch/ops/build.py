@@ -29,6 +29,7 @@ KERNEL_SOURCES: Dict[str, str] = {
     "cat_group": "csrc/cat_group.cu",
     "route": "csrc/route.cu",
     "lambdarank": "csrc/lambdarank.cu",
+    "traverse": "csrc/traverse.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

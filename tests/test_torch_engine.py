@@ -132,8 +132,8 @@ def test_jax_booster_carried_across(trained):
     want = bj.predict(xv, raw_score=True)
     by_text = convert.booster_from_arrays(
         model_str=bj.model_to_string(), params={"device": "cpu"})
-    np.testing.assert_allclose(by_text.predict(xv, raw_score=True), want,
-                               rtol=1e-6, atol=1e-12)
+    # the same sequential float64 sums on the same leaves: the same bits
+    np.testing.assert_array_equal(by_text.predict(xv, raw_score=True), want)
     trees = [{k: getattr(t, k) for k in (
         "num_leaves", "split_feature", "split_gain", "threshold",
         "decision_type", "left_child", "right_child", "leaf_parent",
@@ -142,8 +142,8 @@ def test_jax_booster_carried_across(trained):
     by_fields = convert.booster_from_arrays(
         trees=trees, objective=bj.inner.objective.to_string(),
         max_feature_idx=F - 1, params={"device": "cpu"})
-    np.testing.assert_allclose(by_fields.predict(xv, raw_score=True), want,
-                               rtol=1e-6, atol=1e-12)
+    np.testing.assert_array_equal(by_fields.predict(xv, raw_score=True),
+                                  want)
     if obj == "binary":
         np.testing.assert_allclose(by_fields.predict(xv), bj.predict(xv),
                                    rtol=1e-6)

@@ -101,9 +101,9 @@ def test_predict_raises_without_card(no_card):
 
 
 @pytest.mark.parametrize("params", [
-    {"latency_budget_ms": 5.0},
-    {"serving_buckets": "1,8"},
-    {"drift_threshold": 0.5},
+    {"input_model": "model.txt"},
+    {"convert_model": "model.cpp"},
+    {"output_result": "out.txt"},
     {"task": "predict"},
 ])
 def test_unsupported_params_raise(params):
@@ -111,6 +111,63 @@ def test_unsupported_params_raise(params):
     p = dict({"objective": "binary", "device": "cpu"}, **params)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         lt.train(p, lt.Dataset(x, y, params=p), 1)
+
+
+@pytest.mark.parametrize("params", [
+    {"latency_budget_ms": 5.0},
+    {"serving_buckets": "1,8"},
+    {"drift_threshold": 0.5},
+])
+def test_serving_params_train(params):
+    """The serving keys, which raised until the serving slice, train and
+    are read into the config."""
+    x, y = _small()
+    p = dict({"objective": "binary", "device": "cpu", "verbose": -1},
+             **params)
+    cfg = lt.train(p, lt.Dataset(x, y, params=p), 1).inner.config
+    for key, value in params.items():
+        assert getattr(cfg, key) == value
+
+
+SERVING_MODULES = ("inference.py", "serving.py", "pmml.py",
+                   os.path.join("ops", "traverse.py"))
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_checked(module):
+    """The serving slice's modules are among the sources checked above and
+    import neither JAX nor the JAX package."""
+    path = os.path.join(PKG, module)
+    assert path in _port_sources()
+    with open(path) as f:
+        assert not _FORBIDDEN.search(f.read())
+
+
+def _model_text():
+    x, y = _small()
+    params = {"objective": "binary", "device": "cpu", "verbose": -1}
+    return lt.train(params, lt.Dataset(x, y, params=params),
+                    2).model_to_string()
+
+
+def test_serving_entry_points_raise_without_card(no_card, tmp_path):
+    """The engine, the server and ``python -m lightgbm_tpu_torch.serving``
+    run on the card unless asked for the CPU, and raise without one."""
+    from lightgbm_tpu_torch import serving
+    from lightgbm_tpu_torch.boosting import GBDT
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.inference import PredictEngine
+    text = _model_text()
+    trees = GBDT.load_from_string(text, Config()).models
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PredictEngine(trees)
+    assert PredictEngine(trees, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.ModelServer(model_str=text, autostart=False)
+    path = tmp_path / "m.txt"
+    path.write_text(text)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.main(["--model", str(path), "--replay", "2"])
 
 
 @pytest.mark.parametrize("params", [
