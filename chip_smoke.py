@@ -2,6 +2,7 @@
 """Smoke run of lightgbm_tpu_torch on one CUDA card (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase-27       # the build and phase 27 alone
     python3 chip_smoke.py --multi-card     # on a machine with four cards
 
 Phases, each printing one line of numbers; any failure exits non-zero:
@@ -208,7 +209,7 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 8c. one round of the data-parallel learner over 4x1 on the one card at
    the defaults (K3 reads each shard's packed slice, unfolded after the
    shard sum): held-out NDCG@10 within 1e-3 of phase 8's first round;
-8b. the card against the CPU on 100,000 rows of the same generator, 1
+8b. the card against the CPU on 50,000 rows of the same generator, 1
    round, at the defaults: the first tree identical in structure up to
    its first near-tie (the gradients are real-valued and the card adds
    them in another order, so a split whose float64 gain differs from the
@@ -292,12 +293,12 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    reads a tree each;
 16. prediction breadth on phase 3b's, 5's and 9's models, read from their
    model text, on held-out rows: leaf indices (Higgs 100,000 rows, Expo
-   4,000), margin early stopping (``pred_early_stop_freq=2`` and a
-   margin that stops some rows, Higgs 100,000 rows and Covertype 4,000,
-   the stopped share reported) and TreeSHAP contributions (4,000 rows of
+   2,000), margin early stopping (``pred_early_stop_freq=2`` and a
+   margin that stops some rows, Higgs 100,000 rows and Covertype 2,000,
+   the stopped share reported) and TreeSHAP contributions (2,000 rows of
    each), every call held against the same call on the CPU: leaf indices
    and early-stopped scores exactly, contributions within 1e-12 x (1 +
-   |value|) on their first 1,000 rows, and each row's contributions
+   |value|) on their first 500 rows, and each row's contributions
    summing to its raw score within 1e-9 x (1 + |raw|); the seconds of
    each call;
 17. the Dataset inputs at 250,000 of the Higgs path's training rows and
@@ -410,6 +411,37 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    seconds from commit to the first answer of each model; (26d) a ``model_quality=on`` model's drift alarm,
    silent on held-out rows and raised on shifted ones; (26e) the HTTP
    front (``/predict``, ``/healthz``, a ``/metrics`` scrape).
+27. the CLI, the supervisor's ``main``, the C ABI, the host predictor and
+   the estimators, after phase 26, on the Higgs-shaped task at full width
+   (10 rounds); the text files are phase 17's cut, label first: (27a)
+   ``cli.main`` in process, ``task=train`` from a config file with one key
+   overridden on the command line, ``valid_data`` and
+   ``is_training_metric``: the model loads, its held-out AUC within 1e-4
+   of ``train``'s on the same file, the eval lines in the R package's
+   patterns, the launches of K1, K2 and ``route_window``; (27b) ``python
+   -m lightgbm_tpu_torch.cli task=predict`` as three subprocesses
+   (probabilities, raw scores, leaf indices), each output file
+   ``Booster.predict``'s bits, and an in-process ``task=predict``'s
+   ``lgbt_traverse`` and ``lgbt_margin`` launches; (27c)
+   ``task=convert_model`` compiled with ``g++``, its ``PredictRawAll``
+   within 1e-12 of the raw predict, and ``task=dump_model``'s JSON of 10
+   trees; (27d) ``python -m lightgbm_tpu_torch.supervisor`` over the same
+   arguments, started before 27a and run beside it, ``snapshot_freq=2``,
+   a ``rank_crash`` at iteration 5 in the first incarnation's config
+   file: one restart, the resume from iteration 4, the held-out AUC
+   within 1e-4 of 27a's, the supervisor's legs in seconds; (27e) the
+   training C ABI through ``ctypes`` on phase 3's arrays with no
+   ``device`` key: 10 rounds of score-following integer gradients, the
+   model text ``train``'s on phase 3's Dataset byte for byte, then 10
+   rounds under ``binary``, the held-out AUC within 1e-4 of ``train``'s
+   and ``GBTN_BoosterPredictForMat`` ``Booster.predict``'s bits; (27f)
+   the host library's predictor and ``PredictEngine(backend="native")``
+   on 27a's model at 100,000 rows: raw margins the kernels' bit for bit,
+   leaf indices equal, host seconds beside the card's; (27g)
+   ``LGBMRegressor`` (L2) on phase 3's arrays with ``eval_set`` and early
+   stopping: ``best_iteration_`` ``train``'s, predictions within
+   ``SCORE_LIMIT`` (``LGBMClassifier`` and plotting need scikit-learn
+   and matplotlib, which the card's machine lacks: CPU tests only).
 
 Every profiled window that checks kernels against the counts (phases 3,
 7, 20, 23d, 25c) tells a window that lost records from a miscount: a
@@ -420,7 +452,8 @@ profiled again; any other difference fails at once.
 
 ``--phase-25`` runs the build, phase 3's Dataset and phase 25 alone;
 ``--phase-26`` the build, phase 3's Dataset and phase 26 alone (without
-the Expo and Covertype models' checks).
+the Expo and Covertype models' checks); ``--phase-27`` the build, phase
+3's Dataset and phase 27 alone.
 
 With ``--multi-card`` it runs only the build and, with the four mesh
 slots on four cards (where the split step runs eagerly), phase 6c's trees
@@ -4125,8 +4158,9 @@ def card_vs_cpu_trees(name, params, x, y, x_te, rounds, first_trees,
 
 
 def rank_card_vs_cpu(params, rng, run_dir, heldout):
-    """Phase 8b: the MS-LTR-shaped generator at 100,000 rows (825
-    queries), 1 round on the card and on the CPU: the first tree
+    """Phase 8b: the MS-LTR-shaped generator at 50,000 rows (412 queries;
+    100,000 until phase 27 took the smoke past 1,000 s), 1 round on the
+    card and on the CPU: the first tree
     identical in structure (up to a near-tie, :func:`card_vs_cpu_trees`),
     NDCG@1/3/5/10 within 1e-3 on phase 8's held-out queries ``heldout``
     (x, y, sizes: 6,000 queries, so that one query's reordered top
@@ -4134,7 +4168,7 @@ def rank_card_vs_cpu(params, rng, run_dir, heldout):
     reloaded and predicting the same."""
     from lightgbm_tpu_torch import Booster
     x_te, y_te, sizes_te = heldout
-    sizes = query_sizes(825, 100_000, MSLR_LONGEST, rng)
+    sizes = query_sizes(412, 50_000, MSLR_LONGEST, rng)
     x, y = mslr_like(sizes, rng)
     n = int(sizes.sum())
     out, same = card_vs_cpu_trees("rank_card_vs_cpu", params, x, y, x_te, 1,
@@ -4930,9 +4964,10 @@ def nonfinite_guard(params, x, y):
 
 # ---- phases 16 and 17: prediction breadth and the Dataset inputs ----------
 
-CONTRIB_ROWS = 4_000          # rows whose TreeSHAP contributions the card
-#                               computes a model
-CONTRIB_CPU_ROWS = 1_000      # of them, those the CPU computes again: the
+CONTRIB_ROWS = 2_000          # rows whose TreeSHAP contributions the card
+#                               computes a model (4,000 until phase 27
+#                               took the smoke past 1,000 s)
+CONTRIB_CPU_ROWS = 500        # of them, those the CPU computes again: the
 #                               recursion is the same host code on both, so
 #                               the comparison holds the go-left matrices,
 #                               and the CPU's binning takes its share
@@ -8238,6 +8273,612 @@ def phase_26_alone(params) -> None:
     phase_26(params, ds, x_all[N_ROWS:], y_all[N_ROWS:])
 
 
+# ---- phase 27: the CLI, the supervisor's main, the C ABI, the estimators ----
+
+CLI_ROUNDS = 10                 # 27a-27e: rounds of every training
+CLI_FAULT_AT = 5                # 27d: the rank_crash fault's iteration
+CLI_SNAPSHOT_FREQ = 2           # 27d: a snapshot every 2 iterations
+NATIVE_ROWS = 100_000           # 27f: rows of the host predictor's check
+SK_ROUNDS, SK_STOP = 30, 3      # 27g: the estimator's rounds, early stop
+
+
+def cli_launches() -> dict:
+    """The training wrappers' and the predict wrappers' counts."""
+    fns = _kernel_wrappers()
+    out = {k: fns[k].launches for k in ("hist_window", "partition_window",
+                                        "route_window")}
+    p = _predict_wrappers()
+    out.update(traverse=p["traverse"].launches, margin=p["margin"].launches)
+    return out
+
+
+def reset_cli_launches() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+    reset_predict_counts()
+
+
+def need_launches(leg: str, counts: dict, names) -> None:
+    missing = [k for k in names if not counts[k]]
+    if missing:
+        fail(f"{leg}: no launch of {missing} (counts {counts})")
+
+
+def r_eval_patterns(run_dir: str) -> tuple:
+    """The R package's eval-log regexes (``R-package/R/utils.R``), the
+    contract of the CLI's eval lines: the iteration and its parts, and a
+    part's data name, metric and value."""
+    with open(os.path.join(run_dir, "R-package", "R", "utils.R")) as f:
+        src = f.read()
+    pats = [p.replace("\\\\", "\\")
+            for p in re.findall(r'regexec\("((?:[^"\\]|\\.)*)"', src)]
+    return pats[0], pats[1]
+
+
+def eval_lines_ok(lines, run_dir: str, names, metrics, rounds: int) -> int:
+    """The CLI's eval lines (captured log records) hold the R patterns:
+    one line an iteration 1..rounds, each part a known data name and
+    metric with a float value; returns the parts read."""
+    iter_pat, part_pat = r_eval_patterns(run_dir)
+    seen, parts = [], 0
+    for ln in lines:
+        m = re.search(iter_pat, ln)
+        if not m:
+            continue
+        seen.append(int(m.group(1)))
+        for part in m.group(2).split("\t"):
+            pm = re.match(part_pat, part)
+            if not pm or pm.group(1) not in names \
+                    or pm.group(2) not in metrics:
+                fail(f"27a: eval-log part {part!r} of {ln!r} is not the "
+                     f"JAX CLI's format")
+            float(pm.group(3))
+            parts += 1
+    if seen != list(range(1, rounds + 1)):
+        fail(f"27a: eval-log iterations {seen}")
+    return parts
+
+
+class _LogLines:
+    """The port logger's records while a leg runs."""
+
+    def __enter__(self):
+        import logging
+
+        class H(logging.Handler):
+            def __init__(self):
+                super().__init__()
+                self.lines = []
+
+            def emit(self, record):
+                self.lines.append(record.getMessage())
+        self.h = H()
+        logging.getLogger("lightgbm_tpu_torch").addHandler(self.h)
+        return self.h.lines
+
+    def __exit__(self, *exc):
+        import logging
+        logging.getLogger("lightgbm_tpu_torch").removeHandler(self.h)
+
+
+def supervisor_leg(run_dir: str, conf: str, common: str, argv: list,
+                   out: str) -> dict:
+    """27d: ``python -m lightgbm_tpu_torch.supervisor`` over ``argv``,
+    started at once: the first incarnation reads ``rank_crash@5`` from its
+    config file, which a watcher thread rewrites without the fault as soon
+    as the rank's log shows the death (the restart backoff is 2 s), so the
+    relaunch resumes from the iteration-4 snapshot.  Returns the process,
+    its start time and the watcher's marks; :func:`supervisor_done`
+    collects it."""
+    import threading
+    with open(conf, "w") as f:
+        f.write(common + f"fault_inject=rank_crash@{CLI_FAULT_AT}\n")
+    log_path = out + ".rank_0.log"
+    env = dict(os.environ, PYTHONPATH=run_dir + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    # a session of its own: a failed phase kills the supervisor and its
+    # ranks together (stop_started)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch.supervisor", *argv],
+        cwd=run_dir, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    marks = {}
+
+    def text():
+        try:
+            with open(log_path) as f:
+                return f.read()
+        except OSError:
+            return ""
+
+    def watch():
+        while proc.poll() is None and "rank_crash fault" not in text():
+            time.sleep(0.02)
+        marks["crash_s"] = time.perf_counter() - t0
+        with open(conf, "w") as f:
+            f.write(common)
+        while proc.poll() is None and "continuing at iteration" not in text():
+            time.sleep(0.02)
+        marks["resumed_s"] = time.perf_counter() - t0
+        while proc.poll() is None:
+            time.sleep(0.02)
+        marks["exit_s"] = time.perf_counter() - t0
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return dict(proc=proc, t0=t0, marks=marks, watcher=watcher, out=out,
+                log_path=log_path)
+
+
+def supervisor_done(leg: dict, timeout: float = 240.0) -> dict:
+    proc = leg["proc"]
+    try:
+        output, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        output, _ = proc.communicate()
+        fail(f"27d: the supervisor outlived {timeout} s:\n{output[-3000:]}")
+    leg["watcher"].join(10)
+    with open(leg["log_path"]) as f:
+        rank_log = f.read()
+    restarts = sum("'event': 'group_restart'" in ln
+                   for ln in output.splitlines())
+    deaths = sum("'event': 'rank_dead'" in ln for ln in output.splitlines())
+    if proc.returncode != 0:
+        fail(f"27d: the supervisor exited {proc.returncode}:\n"
+             f"{output[-3000:]}\n{rank_log[-3000:]}")
+    resumed = f"continuing at iteration {CLI_FAULT_AT - 1}"
+    if restarts != 1 or deaths != 1 or resumed not in rank_log:
+        fail(f"27d: {deaths} deaths, {restarts} restarts, resumed "
+             f"{resumed in rank_log} (want 1, 1, True):\n{output[-3000:]}")
+    m = leg["marks"]
+    wall = m["exit_s"]
+    return dict(supervised_wall_s=f"{wall:.3f}",
+                crash_seen_s=f"{m['crash_s']:.3f}",
+                resumed_s=f"{m['resumed_s']:.3f}",
+                restart_to_resume_s=f"{m['resumed_s'] - m['crash_s']:.3f}",
+                resume_to_exit_s=f"{wall - m['resumed_s']:.3f}",
+                restarts=restarts)
+
+
+def stop_started(procs) -> None:
+    """Kill what phase 27 started and is still running: each process, and
+    the supervisor's session with its ranks."""
+    import signal
+    for proc in procs:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                proc.kill()
+            proc.wait()
+
+
+def cpp_predict_raw_all(so: str, x: np.ndarray) -> np.ndarray:
+    """``PredictRawAll`` of a compiled ``convert_model`` over the rows."""
+    import ctypes
+    lib = ctypes.CDLL(so)
+    lib.PredictRawAll.restype = None
+    x = np.ascontiguousarray(x, np.float64)
+    out = np.zeros(len(x))
+    step = x.strides[0]
+    base = x.ctypes.data
+    o = out.ctypes.data
+    fn = lib.PredictRawAll
+    for i in range(len(x)):
+        fn(ctypes.c_void_p(base + i * step), ctypes.c_void_p(o + 8 * i))
+    return out
+
+
+def capi_leg(params, ds, x_tr, y_tr, x_te, y_te) -> dict:
+    """27e: the training C ABI through ``ctypes`` on phase 3's arrays,
+    with no ``device`` key, so on the card.  One ABI Dataset; 10 rounds of
+    ``GBTN_BoosterUpdateOneIterCustom`` with :func:`score_integer_fobj`'s
+    gradients of the scores ``GBTN_BoosterGetPredict`` returns (under
+    ``objective=regression``, which converts nothing): exact sums, so the
+    model text is that of ``train`` on phase 3's Dataset with the same
+    objective, byte for byte.  Then 10 rounds of
+    ``GBTN_BoosterUpdateOneIter`` under ``binary``: the held-out AUC
+    within 1e-4 of ``train``'s, and ``GBTN_BoosterPredictForMat`` equal to
+    ``Booster.predict`` of the ABI's model text bit for bit."""
+    import ctypes
+
+    import torch
+    from lightgbm_tpu_torch import Booster, native, train
+    lib = native.get_lib()
+    c_dp = ctypes.POINTER(ctypes.c_double)
+    c_fp = ctypes.POINTER(ctypes.c_float)
+
+    def ok(rc, what):
+        if rc != 0:
+            fail(f"27e: {what}: {lib.GBTN_GetLastError().decode()}")
+
+    def kv(p):
+        return " ".join(f"{k}={','.join(map(str, v)) if isinstance(v, list) else v}"
+                        for k, v in p.items() if k != "device")
+
+    int_params = dict(params, objective="regression",
+                      boost_from_average=False)
+    r = {}
+    xm = np.ascontiguousarray(x_tr, np.float64)
+    ym = np.ascontiguousarray(y_tr, np.float32)
+    n, f = xm.shape
+    reset_cli_launches()
+    h_ds = ctypes.c_void_p()
+    t0 = time.perf_counter()
+    ok(lib.GBTN_DatasetCreateFromMat(xm.ctypes.data_as(c_dp), n, f,
+                                     kv(params).encode(),
+                                     ym.ctypes.data_as(c_fp), None,
+                                     ctypes.byref(h_ds)), "DatasetCreateFromMat")
+    del xm
+
+    def model_text(h):
+        need = ctypes.c_longlong()
+        ok(lib.GBTN_BoosterSaveModelToString(h, -1, 0, ctypes.byref(need),
+                                             None), "SaveModelToString")
+        buf = ctypes.create_string_buffer(need.value)
+        ok(lib.GBTN_BoosterSaveModelToString(h, -1, need.value,
+                                             ctypes.byref(need), buf),
+           "SaveModelToString")
+        return buf.value.decode()
+
+    # ---- integer gradients that follow the scores ----------------------
+    fobj = score_integer_fobj(y_tr)
+    h_int = ctypes.c_void_p()
+    ok(lib.GBTN_BoosterCreate(h_ds, kv(int_params).encode(),
+                              ctypes.byref(h_int)), "BoosterCreate")
+    fin = ctypes.c_int()
+    scores = np.zeros(n)
+    n_out = ctypes.c_longlong()
+    for _ in range(CLI_ROUNDS):
+        ok(lib.GBTN_BoosterGetPredict(h_int, 0, ctypes.byref(n_out),
+                                      scores.ctypes.data_as(c_dp)),
+           "GetPredict")
+        g, h = fobj(scores, None)
+        g, h = (np.ascontiguousarray(a, np.float32) for a in (g, h))
+        ok(lib.GBTN_BoosterUpdateOneIterCustom(
+            h_int, g.ctypes.data_as(c_fp), h.ctypes.data_as(c_fp), n,
+            ctypes.byref(fin)), "UpdateOneIterCustom")
+    torch.cuda.synchronize()
+    r["integer_s"] = time.perf_counter() - t0
+    counts = cli_launches()
+    abi_int = model_text(h_int)
+    lib.GBTN_BoosterFree(h_int)
+    ref_int = train(int_params, ds, CLI_ROUNDS, fobj=fobj,
+                    verbose_eval=False).model_to_string()
+    r["integer_model_identical"] = abi_int == ref_int
+    if not r["integer_model_identical"]:
+        fail("27e: the C ABI's integer-gradient model text differs from "
+             "train's on phase 3's Dataset")
+    # ---- the built-in binary objective ---------------------------------
+    reset_cli_launches()
+    t0 = time.perf_counter()
+    h_bin = ctypes.c_void_p()
+    ok(lib.GBTN_BoosterCreate(h_ds, kv(params).encode(),
+                              ctypes.byref(h_bin)), "BoosterCreate")
+    for _ in range(CLI_ROUNDS):
+        ok(lib.GBTN_BoosterUpdateOneIter(h_bin, ctypes.byref(fin)),
+           "UpdateOneIter")
+    torch.cuda.synchronize()
+    r["binary_s"] = time.perf_counter() - t0
+    xt = np.ascontiguousarray(x_te, np.float64)
+    pred = np.zeros(len(xt))
+    t0 = time.perf_counter()
+    ok(lib.GBTN_BoosterPredictForMat(h_bin, xt.ctypes.data_as(c_dp),
+                                     len(xt), f, pred.ctypes.data_as(c_dp)),
+       "PredictForMat")
+    r["predict_for_mat_s"] = time.perf_counter() - t0
+    counts = {k: v + counts[k] for k, v in cli_launches().items()}
+    need_launches("27e", counts, counts)
+    text = model_text(h_bin)
+    lib.GBTN_BoosterFree(h_bin)
+    lib.GBTN_DatasetFree(h_ds)
+    want = Booster(model_str=text, params={"device": "cuda"}).predict(x_te)
+    r["predict_bitwise"] = bool((pred.view(np.int64)
+                                 == np.asarray(want).view(np.int64)).all())
+    if not r["predict_bitwise"]:
+        fail("27e: GBTN_BoosterPredictForMat differs from Booster.predict")
+    ref = train(params, ds, CLI_ROUNDS, verbose_eval=False)
+    ref_auc = auc(ref.predict(x_te, raw_score=True), y_te)
+    abi_auc = auc(pred, y_te)
+    del ref
+    r.update(auc=f"{abi_auc:.6f}", train_auc=f"{ref_auc:.6f}",
+             auc_gap=f"{abs(abi_auc - ref_auc):.3e}",
+             **{f"{k}_launches": v for k, v in counts.items()})
+    if abs(abi_auc - ref_auc) > 1e-4:
+        fail(f"27e: the C ABI's held-out AUC {abi_auc} is more than 1e-4 "
+             f"from train's {ref_auc}")
+    return r
+
+
+def native_leg(model_file: str, x: np.ndarray) -> dict:
+    """27f: the host library's predictor and ``PredictEngine(backend=
+    "native")`` on 27a's model against the kernels' engine on the card:
+    raw margins bit for bit, leaf indices equal; host seconds beside the
+    card's."""
+    from lightgbm_tpu_torch.boosting import GBDT
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.inference import PredictEngine
+    from lightgbm_tpu_torch.native import NativePredictor
+    with open(model_file) as f:
+        text = f.read()
+    trees = GBDT.load_from_string(text, Config()).models
+    card = PredictEngine(trees, 1, device="cuda", prewarm=True)
+    host = PredictEngine(trees, 1, device="cuda", backend="native",
+                         model_str=text)
+    pred = NativePredictor(model_str=text)
+    card.raw_scores(x[:4096])
+    reset_predict_counts()
+    want, card_s = timed(lambda: card.raw_scores(x))
+    counts = predict_counts()
+    got, host_s = timed(lambda: host.raw_scores(x))
+    raw, pred_s = timed(lambda: pred.predict(x, raw_score=True))
+    leaves, card_leaf_s = timed(lambda: card.leaves(x))
+    host_leaves, host_leaf_s = timed(lambda: pred.predict_leaf(x))
+    bits = lambda a: np.ascontiguousarray(a, np.float64).view(np.int64)
+    same = ((bits(got) == bits(want)).all()
+            and (bits(raw[None]) == bits(want)).all())
+    if not same:
+        fail("27f: the host predictor's raw margins differ from the "
+             "kernels' bit for bit")
+    if not np.array_equal(host_leaves, leaves.T):
+        fail("27f: the host predictor's leaf indices differ from the "
+             "kernels'")
+    return dict(rows=len(x), raw_bitwise=True, leaves_equal=True,
+                card_s=f"{card_s:.4f}", engine_native_s=f"{host_s:.4f}",
+                host_predictor_s=f"{pred_s:.4f}",
+                card_leaf_s=f"{card_leaf_s:.4f}",
+                host_leaf_s=f"{host_leaf_s:.4f}",
+                **{k: v for k, v in counts.items()})
+
+
+def estimator_leg(params, ds, x_tr, y_tr, x_te, y_te) -> dict:
+    """27g: ``LGBMRegressor`` (L2, on the card) on phase 3's arrays with
+    the held-out rows as ``eval_set`` and early stopping, against
+    ``train`` with the same parameters on phase 3's Dataset ``ds`` (the
+    same bins: binning does not read the objective): the same
+    ``best_iteration_`` and predictions within ``SCORE_LIMIT``.  ``LGBMClassifier`` and plotting
+    need scikit-learn and matplotlib: they are held on the CPU only
+    (``tests/test_torch_sklearn.py``, ``tests/test_torch_plotting.py``)."""
+    from lightgbm_tpu_torch import sklearn as sk
+    from lightgbm_tpu_torch import train
+    from lightgbm_tpu_torch.sklearn import LGBMRegressor
+    kw = dict(num_leaves=params["num_leaves"], max_bin=params["max_bin"],
+              min_child_samples=params["min_data_in_leaf"],
+              min_child_weight=params["min_sum_hessian_in_leaf"],
+              learning_rate=0.5, n_estimators=SK_ROUNDS)
+    est, est_s = timed(lambda: LGBMRegressor(**kw).fit(
+        x_tr, y_tr, eval_set=[(x_te, y_te)],
+        early_stopping_rounds=SK_STOP))
+    p = dict(objective="regression", num_leaves=kw["num_leaves"],
+             max_bin=kw["max_bin"], min_data_in_leaf=kw["min_child_samples"],
+             min_sum_hessian_in_leaf=kw["min_child_weight"],
+             learning_rate=0.5, verbose=-1)
+    bst, train_s = timed(lambda: train(
+        p, ds, SK_ROUNDS, valid_sets=[ds.create_valid(x_te, y_te)],
+        early_stopping_rounds=SK_STOP, verbose_eval=False))
+    got, want = est.predict(x_te), bst.predict(x_te)
+    diff = float(np.max(np.abs(got - want)))
+    r = dict(sklearn_installed=sk._SKLEARN_INSTALLED,
+             best_iteration=est.best_iteration_,
+             train_best_iteration=bst.best_iteration,
+             max_pred_diff=f"{diff:.3e}", fit_s=f"{est_s:.3f}",
+             train_s=f"{train_s:.3f}",
+             cpu_only="LGBMClassifier,plotting")
+    if est.best_iteration_ != bst.best_iteration:
+        fail(f"27g: LGBMRegressor's best_iteration_ {est.best_iteration_} "
+             f"is not train's {bst.best_iteration}")
+    if diff > SCORE_LIMIT:
+        fail(f"27g: LGBMRegressor's predictions are {diff} from train's "
+             f"(limit {SCORE_LIMIT})")
+    return r
+
+
+def phase_27(params, ds, x_tr, y_tr, x_te, y_te) -> dict:
+    """Phases 27a-27g: the CLI (train in process, predict as subprocesses,
+    convert_model and dump_model), the supervisor over the CLI, the C ABI,
+    the host predictor and the estimators, at full width on the
+    Higgs-shaped task (10 rounds).  The text files are phase 17's cut of
+    phase 3's rows, label first, in a fresh temporary directory; 27d runs
+    beside 27a-27c in processes of its own."""
+    import tempfile
+
+    import torch
+    from lightgbm_tpu_torch import Booster, Dataset, cli, train
+    from lightgbm_tpu_torch.native import parse_file
+    t_phase = time.perf_counter()
+    run_dir = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="lgbt_smoke27_")
+    out, started = {}, []
+    try:
+        # ---- the text files ------------------------------------------------
+        t0 = time.perf_counter()
+        tr, te = (os.path.join(tmp, n) for n in ("train.tsv", "heldout.tsv"))
+        for path, x, y in ((tr, x_tr[:INPUT_ROWS], y_tr[:INPUT_ROWS]),
+                           (te, x_te[:INPUT_HELDOUT], y_te[:INPUT_HELDOUT])):
+            np.savetxt(path, np.column_stack([y, x]).astype(np.float32),
+                       fmt="%.9g", delimiter="\t")
+        write_s = time.perf_counter() - t0
+        keys = dict(objective="binary", num_leaves=params["num_leaves"],
+                    max_bin=params["max_bin"],
+                    min_data_in_leaf=params["min_data_in_leaf"],
+                    min_sum_hessian_in_leaf=params[
+                        "min_sum_hessian_in_leaf"],
+                    learning_rate=params["learning_rate"],
+                    metric="auc,binary_logloss", num_trees=2 * CLI_ROUNDS,
+                    verbose=1)
+        common = "".join(f"{k}={v}\n" for k, v in keys.items())
+        conf_a = os.path.join(tmp, "train.conf")
+        with open(conf_a, "w") as f:
+            f.write("# phase 27a: the CLI's training\ntask=train\n" + common)
+        args = [f"data={tr}", f"valid_data={te}", "is_training_metric=true",
+                f"num_trees={CLI_ROUNDS}"]       # over the file's 20
+        # ---- 27d starts first: its workers run beside 27a-27c -----------
+        sup_dir = os.path.join(tmp, "supervised")
+        os.makedirs(sup_dir)
+        sup_model = os.path.join(sup_dir, "model.txt")
+        sup = supervisor_leg(
+            run_dir, os.path.join(tmp, "supervised.conf"),
+            "task=train\n" + common,
+            [f"config={os.path.join(tmp, 'supervised.conf')}", *args,
+             f"output_model={sup_model}",
+             f"snapshot_freq={CLI_SNAPSHOT_FREQ}", "restart_backoff=2"],
+            sup_model)
+        started.append(sup["proc"])
+        # ---- 27a: cli.main, task=train ------------------------------------
+        model = os.path.join(tmp, "model.txt")
+        reset_cli_launches()
+        with _LogLines() as lines:
+            _, cli_s = timed(lambda: cli.main(
+                [f"config={conf_a}", *args, f"output_model={model}"]))
+        counts_a = cli_launches()
+        need_launches("27a", counts_a, ("hist_window", "partition_window",
+                                        "route_window"))
+        parts = eval_lines_ok(lines, run_dir, ("training", "valid_1"),
+                              ("auc", "binary_logloss"), CLI_ROUNDS)
+        xh, yh = parse_file(te, False, 0)
+        xt_file, yt_file = parse_file(tr, False, 0)
+        bst = Booster(model_file=model, params={"device": "cuda"})
+        if bst.num_trees() != CLI_ROUNDS:
+            fail(f"27a: the CLI's model holds {bst.num_trees()} trees")
+        cli_auc = auc(bst.predict(xh, raw_score=True), yh)
+        p_ref = {k: v for k, v in keys.items() if k != "num_trees"}
+        dref = Dataset(xt_file, yt_file, params=p_ref)
+        ref, ref_s = timed(lambda: train(p_ref, dref, CLI_ROUNDS,
+                                         verbose_eval=False))
+        ref_auc = auc(ref.predict(xh, raw_score=True), yh)
+        del ref, dref, xt_file, yt_file
+        out["27a"] = dict(train_rows=INPUT_ROWS, heldout_rows=INPUT_HELDOUT,
+                          write_s=f"{write_s:.3f}", cli_train_s=f"{cli_s:.3f}",
+                          in_process_train_s=f"{ref_s:.3f}",
+                          auc=f"{cli_auc:.6f}", train_auc=f"{ref_auc:.6f}",
+                          auc_gap=f"{abs(cli_auc - ref_auc):.3e}",
+                          eval_parts=parts,
+                          **{f"{k}_launches": v for k, v in counts_a.items()})
+        phase("cli_train", **out["27a"])
+        if not 0.6 < cli_auc <= 1.0:
+            fail(f"27a: held-out AUC {cli_auc} is not that of a learned "
+                 f"model")
+        if abs(cli_auc - ref_auc) > 1e-4:
+            fail(f"27a: the CLI's held-out AUC {cli_auc} is more than 1e-4 "
+                 f"from train's on the same file, {ref_auc}")
+        # ---- 27c: convert_model, compiled in the background --------------
+        cpp, so = (os.path.join(tmp, n) for n in ("model.cpp", "model.so"))
+        _, convert_s = timed(lambda: cli.main(
+            ["task=convert_model", f"input_model={model}",
+             f"convert_model={cpp}", "verbose=-1"]))
+        gxx = subprocess.Popen(["g++", "-O2", "-shared", "-fPIC", "-o", so,
+                                cpp], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True,
+                               start_new_session=True)
+        started.append(gxx)
+        t_gxx = time.perf_counter()
+        # ---- 27b: python -m lightgbm_tpu_torch.cli task=predict -----------
+        env = dict(os.environ, PYTHONPATH=run_dir + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        kinds = {"prob": [], "raw": ["is_predict_raw_score=true"],
+                 "leaf": ["is_predict_leaf_index=true"]}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch.cli", "task=predict",
+             f"data={te}", f"input_model={model}", "verbose=-1",
+             f"output_result={os.path.join(tmp, k + '.txt')}", *flags],
+            cwd=run_dir, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+            for k, flags in kinds.items()}
+        started += list(procs.values())
+        reset_cli_launches()
+        _, in_process_s = timed(lambda: cli.main(
+            ["task=predict", f"data={te}", f"input_model={model}",
+             "verbose=-1", f"output_result={os.path.join(tmp, 'ip.txt')}"]))
+        counts_b = cli_launches()
+        need_launches("27b", counts_b, ("traverse", "margin"))
+        r_b = dict(rows=INPUT_HELDOUT, in_process_predict_s=f"{in_process_s:.3f}",
+                   traverse_launches=counts_b["traverse"],
+                   margin_launches=counts_b["margin"])
+        for k, proc in procs.items():
+            log_text, _ = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"27b: python -m lightgbm_tpu_torch.cli task=predict "
+                     f"({k}) exited {proc.returncode}:\n{log_text[-3000:]}")
+            got = np.loadtxt(os.path.join(tmp, k + ".txt"), ndmin=2)
+            want = np.asarray(bst.predict(xh, raw_score=k == "raw",
+                                          pred_leaf=k == "leaf"))
+            want = want.reshape(len(xh), -1).astype(np.float64)
+            if got.shape != want.shape or not (
+                    got.view(np.int64) == want.view(np.int64)).all():
+                fail(f"27b: the CLI's {k} predictions differ from "
+                     f"Booster.predict bit for bit")
+        r_b["subprocesses_s"] = f"{time.perf_counter() - t0:.3f}"
+        out["27b"] = r_b
+        phase("cli_predict", kinds="prob,raw,leaf", bitwise=True, **r_b)
+        # ---- 27c: the compiled model, and the JSON dump -------------------
+        gxx_log, _ = gxx.communicate(timeout=300)
+        if gxx.returncode != 0:
+            fail(f"27c: g++ failed on the converted model:\n{gxx_log[-3000:]}")
+        gxx_s = time.perf_counter() - t_gxx
+        raw = bst.predict(xh, raw_score=True)
+        cpp_raw, cpp_s = timed(lambda: cpp_predict_raw_all(so, xh))
+        cpp_diff = float(np.max(np.abs(cpp_raw - raw)))
+        if not np.allclose(cpp_raw, raw, rtol=1e-12, atol=1e-12):
+            fail(f"27c: the compiled model's PredictRawAll is {cpp_diff} "
+                 f"from the raw predict")
+        dump = os.path.join(tmp, "model.json")
+        cli.main(["task=dump_model", f"input_model={model}",
+                  f"convert_model={dump}", "verbose=-1"])
+        with open(dump) as f:
+            n_json = len(json.load(f)["tree_info"])
+        if n_json != CLI_ROUNDS:
+            fail(f"27c: the dumped JSON holds {n_json} trees")
+        out["27c"] = dict(convert_s=f"{convert_s:.3f}",
+                          cpp_bytes=os.path.getsize(cpp),
+                          gxx_s=f"{gxx_s:.3f}", cpp_predict_s=f"{cpp_s:.3f}",
+                          cpp_max_abs_diff=f"{cpp_diff:.3e}",
+                          json_trees=n_json)
+        phase("cli_convert_dump", **out["27c"])
+        del bst
+        torch.cuda.empty_cache()
+        # ---- 27e, 27f, 27g, while 27d's ranks run ------------------------
+        out["27e"] = capi_leg(params, ds, x_tr, y_tr, x_te, y_te)
+        phase("capi", rounds=CLI_ROUNDS, **{
+            k: (f"{v:.3f}" if k.endswith("_s") else v)
+            for k, v in out["27e"].items()})
+        torch.cuda.empty_cache()
+        out["27f"] = native_leg(model, x_te[:NATIVE_ROWS])
+        phase("native_predict", **out["27f"])
+        out["27g"] = estimator_leg(params, ds, x_tr, y_tr, x_te, y_te)
+        phase("sklearn_regressor", **out["27g"])
+        # ---- 27d: the supervised run's end --------------------------------
+        r_d = supervisor_done(sup)
+        sup_auc = auc(Booster(model_file=sup_model, params={
+            "device": "cuda"}).predict(xh, raw_score=True), yh)
+        r_d.update(auc=f"{sup_auc:.6f}",
+                   auc_gap_vs_27a=f"{abs(sup_auc - cli_auc):.3e}")
+        out["27d"] = r_d
+        phase("cli_supervised", fault=f"rank_crash@{CLI_FAULT_AT}",
+              snapshot_freq=CLI_SNAPSHOT_FREQ, **r_d)
+        if abs(sup_auc - cli_auc) > 1e-4:
+            fail(f"27d: the resumed model's held-out AUC {sup_auc} is more "
+                 f"than 1e-4 from 27a's {cli_auc}")
+    finally:
+        stop_started(started)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("phase_27", seconds=f"{out['seconds']:.1f}")
+    return out
+
+
+def phase_27_alone(params) -> None:
+    """``--phase-27``: phase 3's arrays and Dataset and phase 27 alone."""
+    from lightgbm_tpu_torch import Dataset
+    rng = np.random.default_rng(SEED + 1)
+    x_all, y_all = higgs_like(N_ROWS + N_HELDOUT, rng)
+    ds = Dataset(x_all[:N_ROWS], y_all[:N_ROWS], params=params).construct()
+    phase_27(params, ds, x_all[:N_ROWS], y_all[:N_ROWS], x_all[N_ROWS:],
+             y_all[N_ROWS:])
+
+
 def worker(spec_path: str) -> None:
     """A process this script started: phase 22's and ``--multi-card``'s
     ranks, 24b's preempted training, or 24c's and 25a's supervised
@@ -8267,9 +8908,13 @@ def main() -> None:
     multi = sys.argv[1:] == ["--multi-card"]
     only25 = sys.argv[1:] == ["--phase-25"]
     only26 = sys.argv[1:] == ["--phase-26"]
-    if sys.argv[1:] and not (multi or only25 or only26):
+    only27 = sys.argv[1:] == ["--phase-27"]
+    if sys.argv[1:] and not (multi or only25 or only26 or only27):
         fail(f"unknown arguments {sys.argv[1:]}; the options are "
-             f"--multi-card, --phase-25 and --phase-26")
+             f"--multi-card, --phase-25, --phase-26 and --phase-27")
+    import concurrent.futures
+
+    from lightgbm_tpu_torch import native
     from lightgbm_tpu_torch.ops import build
     from lightgbm_tpu_torch.ops.partition import LAUNCHES
 
@@ -8289,24 +8934,33 @@ def main() -> None:
     t_start = time.perf_counter()
 
     # ---- phase 1: build ---------------------------------------------------
+    # the kernels (one nvcc a source) and, beside them, the native host
+    # library (one g++)
     t0 = time.perf_counter()
-    logs = build.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.build)
+        logs = build.build_all()
+        host_lib = host_lib.result()
     for name in build.KERNEL_SOURCES:
         build.load(name)
+    native.get_lib()
     ptxas = " | ".join(line.strip() for text in logs.values()
                        for line in text.splitlines() if "Used" in line)
     phase("build", seconds=f"{time.perf_counter() - t0:.3f}",
-          kernels=",".join(build.KERNEL_SOURCES), ptxas=repr(ptxas))
+          kernels=",".join(build.KERNEL_SOURCES),
+          native=os.path.basename(host_lib), ptxas=repr(ptxas))
     params = dict(objective="binary", num_leaves=255, max_bin=N_BINS,
                   min_data_in_leaf=1, min_sum_hessian_in_leaf=100,
                   learning_rate=0.1, verbose=0, device="cuda")
-    if multi or only25 or only26:
+    if multi or only25 or only26 or only27:
         if multi:
             multi_card(params)
         elif only25:
             phase_25_alone(params)
-        else:
+        elif only26:
             phase_26_alone(params)
+        else:
+            phase_27_alone(params)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -8441,6 +9095,10 @@ def main() -> None:
 
     # ---- phases 26a-26e: serving ------------------------------------------
     serving = phase_26(params, higgs_ds, x_te, y_te)
+
+    # ---- phases 27a-27g: the CLI, the supervisor's main, the C ABI -------
+    cli27 = phase_27(params, higgs_ds, x_tr, y_tr, x_te, y_te)
+    torch.cuda.empty_cache()
 
     # ---- phase 20a: streamed trees of the Higgs path ----------------------
     rate = h2d_rate(dev)
@@ -8642,7 +9300,8 @@ def main() -> None:
           telemetry_armed_ms_per_tree=tele["serial"]["ms_per_tree_armed"],
           telemetry_disarmed_ms_per_tree=tele["serial"][
               "ms_per_tree_disarmed"],
-          devprof_idle_gap=dprof["idle_gap_fraction"])
+          devprof_idle_gap=dprof["idle_gap_fraction"],
+          phase_27_s=f"{cli27['seconds']:.1f}")
     u16 = lambda name: wide_kernel_fields(name, wide, wide_serial, wide_dp,
                                           wide_expo)
 
@@ -8662,6 +9321,9 @@ def main() -> None:
         # phase 24a's resumed runs (integer, binary), graph loop
         **{f"launches_24a_resumed_{k}": ckpt[k]["hist_window_launches"]
            for k in ("integer", "binary")},
+        # phase 27: the CLI's training (27a) and the C ABI's two (27e)
+        "launches_27a_cli": cli27["27a"]["hist_window_launches"],
+        "launches_27e_capi": cli27["27e"]["hist_window_launches"],
         **small_window_fields(root, timing[4097]), **u16("hist_gather")}, {
         "name": "hist_local", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/hist_local.cu",
@@ -8691,6 +9353,8 @@ def main() -> None:
         "calls": expo_launches["partition_window"], "max_abs_err": 0.0,
         **{f"launches_24a_resumed_{k}": LAUNCHES * ckpt[k][
             "partition_window_launches"] for k in ("integer", "binary")},
+        **{f"launches_27{leg}": LAUNCHES * cli27["27" + leg[0]][
+            "partition_window_launches"] for leg in ("a_cli", "e_capi")},
         "ms": proot["ms"], "plain_ms": proot["plain_ms"],
         "bound_ms": proot["bound_ms"], "bound_by": "bytes",
         "library_ms": proot["library_ms"],
@@ -8719,6 +9383,8 @@ def main() -> None:
         "launches": expo_launches["route_window"], "max_abs_err": 0.0,
         **{f"launches_24a_resumed_{k}": ckpt[k]["route_window_launches"]
            for k in ("integer", "binary")},
+        **{f"launches_27{leg}": cli27["27" + leg[0]]["route_window_launches"]
+           for leg in ("a_cli", "e_capi")},
         "ms": rroot["ms"], "plain_ms": rroot["plain_ms"],
         "bound_ms": rroot["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "ms_many": rroot["ms_many"],
@@ -8792,6 +9458,11 @@ def main() -> None:
         # phase 3's predict; the serving replay's (26b) beside it
         "launches": higgs["traverse_launches"], "max_abs_err": 0.0,
         "launches_26b_replay": serving["replay"]["traverse_launches"],
+        # phase 27: the CLI's predict (27b), the C ABI's (27e), the card
+        # engine beside the host predictor (27f)
+        "launches_27b_cli": cli27["27b"]["traverse_launches"],
+        "launches_27e_capi": cli27["27e"]["traverse_launches"],
+        "launches_27f_engine": cli27["27f"]["traverse_launches"],
         **{k.replace("traverse_", ""): v for k, v in serving[
             "kernels"].items() if k.startswith("traverse_")},
         "ms": serving["kernels"]["traverse_ms_4096"],
@@ -8808,6 +9479,9 @@ def main() -> None:
         "replaces": "lightgbm_tpu/inference.py:826",
         "launches": higgs["margin_launches"], "max_abs_err": 0.0,
         "launches_26b_replay": serving["replay"]["margin_launches"],
+        "launches_27b_cli": cli27["27b"]["margin_launches"],
+        "launches_27e_capi": cli27["27e"]["margin_launches"],
+        "launches_27f_engine": cli27["27f"]["margin_launches"],
         **{k.replace("margin_", ""): v for k, v in serving[
             "kernels"].items() if k.startswith("margin_")},
         "ms": serving["kernels"]["margin_ms_4096"],

@@ -1306,9 +1306,11 @@ class GBDT:
         if not fresh:
             if not build:
                 return None
-            eng = PredictEngine(self.models, self.num_class, buckets=ladder,
-                                prewarm=prewarm, backend=backend,
-                                traversal=traversal, device=dev)
+            eng = PredictEngine(
+                self.models, self.num_class, buckets=ladder,
+                prewarm=prewarm, backend=backend, traversal=traversal,
+                device=dev, model_str=(self.save_model_to_string(-1)
+                                       if backend == "native" else None))
             self._pred_engine, self._pred_engine_key = eng, key
         elif prewarm and not eng._warmed:
             eng.prewarm()

@@ -3,17 +3,16 @@
 The reference's config surface (``include/LightGBM/config.h``) as one flat
 dataclass, cut to the fields this port reads.  The alias table
 (``config.h:353-483``) is the JAX package's, and every key of the JAX
-package's ``Config`` gets exactly one of three outcomes:
+package's ``Config`` gets exactly one of two outcomes:
 
 * **ported**: a field of :class:`Config`, read by the port;
 * **taken as-is** (:data:`TAKEN_AS_IS`): accepted with any value and
   dropped, because the JAX package reads it nowhere, or only to pick TPU
-  machinery that the port does not have;
-* **not ported** (:data:`NOT_PORTED`): a value other than the JAX
-  package's default raises ``NotImplementedError`` naming the ROADMAP.md
-  port-queue item that brings it, instead of being ignored.
+  machinery that the port does not have.
 
 Unknown parameters are rejected as the reference rejects them.
+:func:`parse_config_file` reads the CLI's ``key=value`` files
+(``cli.py``).
 """
 from __future__ import annotations
 
@@ -116,6 +115,7 @@ PARAM_ALIASES: Dict[str, str] = {
 class Config:
     """Flat parameter set with reference defaults (config.h:94-295)."""
 
+    task: str = "train"            # the CLI's task (cli.py)
     device: str = "cuda"           # cuda | cpu; cpu only when asked for
     verbose: int = 1
 
@@ -239,6 +239,8 @@ class Config:
     ndcg_eval_at: List[int] = dataclasses.field(
         default_factory=lambda: [1, 2, 3, 4, 5])
     early_stopping_round: int = 0
+    is_training_metric: bool = False
+    output_freq: int = 1
 
     # model text: the importance written to its "feature importances:"
     # section, 0 = split counts, 1 = total gain (lightgbm_tpu/boosting.py:
@@ -308,12 +310,24 @@ class Config:
     drift_window_rows: int = 4096
     serving_traversal: str = "auto"
 
+    # the CLI's files (lightgbm_tpu/config.py:197, :206-207, :276, :554-557;
+    # cli.py): the training and validation data, the config file, the
+    # model predicted with, the prediction output, the last iteration
+    # predicted with (-1: all) and the convert_model task's output
+    data: str = ""
+    valid_data: List[str] = dataclasses.field(default_factory=list)
+    config_file: str = ""
+    input_model: str = ""
+    output_result: str = "LightGBM_predict_result.txt"
+    num_iteration_predict: int = -1
+    convert_model: str = "gbdt_prediction.cpp"
+
     def copy(self) -> "Config":
         return dataclasses.replace(self)
 
 
 _FIELD_TYPES = {f.name: f.type for f in dataclasses.fields(Config)}
-_LIST_FIELDS = {"metric", "ndcg_eval_at", "label_gain"}
+_LIST_FIELDS = {"metric", "ndcg_eval_at", "valid_data", "label_gain"}
 _BOOL_TRUE = {"true", "1", "yes", "on", "+"}
 _BOOL_FALSE = {"false", "0", "no", "off", "-"}
 
@@ -346,47 +360,6 @@ TAKEN_AS_IS = frozenset((
     "pallas_row_tile", "pallas_bucket_min_log2", "pallas_fused",
     "gather_words", "gather_panel", "bucket_scheme", "split_find",
     "pipeline_trees", "objective_seed"))
-
-# the ROADMAP.md port-queue items (their bold titles) of NOT_PORTED
-_SERVING = ("checkpoints, serving, observability, CLI, sklearn and "
-            "plotting")
-
-# Keys of the JAX package's Config that the port does not honour yet: the
-# JAX package's default, and the port-queue item that brings the key.  A
-# value other than the default raises.
-NOT_PORTED: Dict[str, tuple] = {
-    "task": ("train", _SERVING),
-    "data": ("", _SERVING),
-    "valid_data": ([], _SERVING),
-    "config_file": ("", _SERVING),
-    "is_training_metric": (False, _SERVING),
-    "output_freq": (1, _SERVING),
-    "num_iteration_predict": (-1, _SERVING),
-    "input_model": ("", _SERVING),
-    "output_result": ("LightGBM_predict_result.txt", _SERVING),
-    "convert_model": ("gbdt_prediction.cpp", _SERVING),
-}
-
-
-def _is_default(value: Any, default: Any) -> bool:
-    """Whether a raw value of a not-ported key parses to its default."""
-    if isinstance(default, list):
-        if isinstance(value, str):
-            value = [p for p in value.replace(",", " ").split() if p]
-        return list(value or []) == default
-    if isinstance(default, bool):
-        if isinstance(value, bool):
-            return value == default
-        s = str(value).strip().lower()
-        return (s in _BOOL_TRUE) == default and (s in _BOOL_TRUE
-                                                 or s in _BOOL_FALSE)
-    if isinstance(default, (int, float)):
-        try:
-            return float(value) == default
-        except (TypeError, ValueError):
-            return False
-    return str(value) == default
-
 
 def _parse_value(name: str, value: Any) -> Any:
     """Coerce a raw (possibly string) value to the field's declared type."""
@@ -442,11 +415,6 @@ def canonicalize_params(params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
         k = PARAM_ALIASES.get(k, k)
         if k in TAKEN_AS_IS:
             continue
-        if k in NOT_PORTED:
-            default, item = NOT_PORTED[k]
-            if not _is_default(value, default):
-                _unsupported(f"{key}={value!r}", item)
-            continue
         if k not in _FIELD_TYPES:
             raise ValueError(f"Unknown parameter: {key}")
         if k != key.strip().lower():
@@ -465,12 +433,6 @@ def config_from_params(params: Optional[Dict[str, Any]] = None,
         setattr(cfg, k, _parse_value(k, v))
     check_params(cfg)
     return cfg
-
-
-def _unsupported(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to lightgbm_tpu_torch yet "
-        f"(ROADMAP.md, port queue: {item})")
 
 
 def _check_distributed(cfg: Config) -> None:
@@ -702,3 +664,17 @@ def resolve_device(name: Optional[str]) -> torch.device:
             "lightgbm_tpu_torch runs on a CUDA device by default and none "
             "is available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def parse_config_file(path: str) -> Dict[str, str]:
+    """A ``key=value`` config file, ``#`` comments
+    (``lightgbm_tpu/config.py:854``, application.cpp:48-104)."""
+    params: Dict[str, str] = {}
+    with open(path, "r") as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line or "=" not in line:
+                continue
+            k, v = line.split("=", 1)
+            params[k.strip()] = v.strip()
+    return params

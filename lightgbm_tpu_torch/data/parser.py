@@ -1,7 +1,8 @@
 """Text data parsers: CSV / TSV / LibSVM with format auto-detection.
 
-The port's own copy of ``lightgbm_tpu/data/parser.py`` (its numpy path;
-the JAX package's native parser is not ported).  Mirrors the reference
+The port's own copy of ``lightgbm_tpu/data/parser.py``'s numpy path; the
+host library's parser (``native.parse_file``) reads the same formats to
+the same bits.  Mirrors the reference
 parser surface (``src/io/parser.{hpp,cpp}``): the format is sniffed from
 the first lines (``CreateParser``), labels sit in a configurable column,
 LibSVM rows are ``label idx:val ...`` sparse pairs.  Implemented with
@@ -72,8 +73,8 @@ def _sniff_format(lines: List[str]) -> Tuple[str, int]:
 
 def _delimiter(fmt: str, lines: List[str]) -> Optional[str]:
     """``genfromtxt``'s delimiter: a comma, a tab where the data lines hold
-    tabs (so that an empty cell stays a cell, as the JAX package's native
-    parser reads it), else any whitespace."""
+    tabs (so that an empty cell stays a cell, as the native parser reads
+    it), else any whitespace."""
     if fmt == "csv":
         return ","
     return "\t" if any("\t" in line for line in lines) else None

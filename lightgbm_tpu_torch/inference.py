@@ -133,8 +133,13 @@ class PredictEngine:
     card raises).  ``raw_scores`` is bit-identical to the JAX package's
     engine.
 
-    ``backend``: ``auto`` and ``xla`` serve through the kernels;
-    ``native`` (the JAX package's OpenMP C++ predictor) is not ported.
+    ``backend``: ``auto`` and ``xla`` serve through the kernels (on the
+    CPU, their plain versions); ``native`` serves margin requests from the
+    host library's OpenMP predictor (``native.NativePredictor``) of
+    ``model_str``, its raw margins the kernels' bit for bit (both add each
+    class's trees oldest first in float64), and leaf indices still from
+    the kernels.  Unlike the JAX engine's, ``auto`` never takes the host
+    predictor (README "Parity notes").
     ``traversal``: ``xla`` (the node tables), ``packed`` (the node words;
     a bundle that has none degrades loudly to ``xla``) or ``auto``
     (``packed`` wherever the bundle has the words, else ``xla``).
@@ -146,17 +151,18 @@ class PredictEngine:
                  model_str: Optional[str] = None,
                  traversal: str = "auto", device=None,
                  bundle: Optional[SoABundle] = None):
-        del model_str           # the JAX package's native backend reads it
         if backend not in ("auto", "xla", "native"):
             raise ValueError(f"predict engine backend must be auto, xla, or "
                              f"native; got {backend!r}")
-        if backend == "native":
-            raise NotImplementedError(
-                "predict engine backend=native is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP.md, port queue: The native "
-                "host library and training C ABI)")
-        self.backend = "xla"
         self.device = _resolve(device)
+        self._native = None
+        if backend == "native":
+            if model_str is None:
+                raise ValueError("predict engine backend=native needs the "
+                                 "model_str")
+            from .native import NativePredictor
+            self._native = NativePredictor(model_str=model_str)
+        self.backend = "native" if self._native is not None else "xla"
         self.bundle = bundle if bundle is not None else SoABundle(
             list(trees), self.device, num_class)
         self.buckets = parse_serving_buckets(buckets)
@@ -398,9 +404,30 @@ class PredictEngine:
         bundle = self.bundle
         total = (bundle.num_trees if num_trees is None or num_trees < 0
                  else min(num_trees, bundle.num_trees))
+        if self._native is not None:
+            return self._native_raw(X, total)
         xc = self._columns(X)
         if xc.shape[0] == 0:
             return np.zeros((self.num_class, 0), np.float64)
         if xc.shape[0] <= self.max_bucket:
             return self._run_bucket(xc, total, True)
         return bundle.pass_scores(xc, total, **self._pass_kw())
+
+    def _native_raw(self, X, total: int) -> np.ndarray:
+        """``backend="native"``: the host predictor's raw scores ``[K, N]``
+        of the first ``total`` trees (whole iterations), one
+        ``predict_dispatch`` (``path=native``); the drift monitor gets the
+        rows binned on the device, in the rank space of the traversal
+        (``lightgbm_tpu/inference.py:805-824``)."""
+        x = np.atleast_2d(np.asarray(X, np.float64))
+        with self.timers.phase("predict_traverse"):
+            if self.drift is not None and len(self.bundle.cols) and len(x):
+                bins = self.bundle.bin_used(self._columns(x))[0]
+                self.drift.add_device_bins(bins, x.shape[0])
+            out = self._native.predict(x, num_iteration=total //
+                                       self.num_class, raw_score=True)
+            out = (out[None, :] if out.ndim == 1
+                   else np.ascontiguousarray(out.T))
+        obs_counters.inc("predict_dispatch", bucket=x.shape[0],
+                         path="native", exec=self.bundle.exec_id())
+        return out

@@ -58,12 +58,17 @@ Every decision is an event of :mod:`~lightgbm_tpu_torch.obs.counters`:
 ``rank_dead``, ``rank_hang``, ``group_restart``,
 ``restart_budget_exhausted``, ``crash_report``, ``stale_sweep``,
 ``rank_evicted``, ``world_resize``, ``mesh_plan_failed`` and
-``rank_straggler``.  ``python -m`` comes with the CLI (ROADMAP.md §1.6).
+``rank_straggler``.
+
+:func:`main` (``python -m lightgbm_tpu_torch.supervisor <cli args>``)
+supervises the same arguments' ``python -m lightgbm_tpu_torch.cli``
+training (``lightgbm_tpu/supervisor.py:588-644``).
 """
 from __future__ import annotations
 
 import os
 import subprocess
+import sys
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -550,3 +555,65 @@ class Supervisor:
                            bytes=os.path.getsize(path))
             log.warning("Supervisor: rank %d left a crash report: %s",
                         r, path)
+
+
+# ------------------------------------------------------------------ CLI
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m lightgbm_tpu_torch.supervisor <cli args>``: supervise
+    the ``python -m lightgbm_tpu_torch.cli`` training of the same
+    arguments.  The worker command is that argument list plus
+    ``snapshot_resume=true`` (every incarnation resumes from the newest
+    set valid everywhere; a first launch with no snapshots trains from
+    scratch) and the effective ``heartbeat_interval``; with
+    ``metrics_port`` P the supervisor serves P and the ranks P + 1 + rank.
+    The workers' device is the arguments' (``cuda`` unless ``device=cpu``):
+    without a card the supervisor raises before it launches any."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    from .cli import parse_cli
+    from .config import config_from_params, resolve_device
+    params = parse_cli(argv)
+    cfg = config_from_params(params)
+    log.set_verbosity(cfg.verbose)
+    resolve_device(cfg.device)
+    heartbeat = cfg.heartbeat_interval if cfg.heartbeat_interval > 0 else 1.0
+    worker_argv = ([sys.executable, "-m", "lightgbm_tpu_torch.cli"] + argv +
+                   [f"heartbeat_interval={heartbeat}",
+                    "snapshot_resume=true"])
+    if cfg.metrics_port > 0:
+        worker_argv.append(f"metrics_port={cfg.metrics_port + 1}")
+    prelaunch = None
+    if cfg.num_machines > 1 and cfg.machine_list_file:
+        from .parallel import mesh
+
+        def prelaunch(sup, _path=cfg.machine_list_file):
+            # a group on one host: the dead coordinator's port can linger
+            # in TIME_WAIT, so the loopback entries get fresh ports each
+            # incarnation (other entries are left as they are)
+            mesh.refresh_local_ports(_path)
+    sup = Supervisor(
+        worker_argv, cfg.output_model, cfg.num_machines,
+        heartbeat_interval=heartbeat, hang_timeout=cfg.hang_timeout,
+        restart_limit=cfg.restart_limit,
+        restart_backoff=cfg.restart_backoff,
+        collective_timeout=cfg.collective_timeout,
+        collective_retries=cfg.collective_retries, prelaunch=prelaunch,
+        obs_stream=cfg.obs_stream_path,
+        straggler_factor=cfg.straggler_factor,
+        metrics_port=cfg.metrics_port,
+        elastic_resume=cfg.elastic_resume,
+        elastic_min_ranks=cfg.elastic_min_ranks,
+        world_shrink_after=cfg.world_shrink_after,
+        machine_list_file=cfg.machine_list_file,
+        hbm_budget=cfg.hbm_budget)
+    rc = sup.run()
+    for name in ("rank_dead", "rank_hang", "group_restart",
+                 "restart_budget_exhausted", "rank_straggler",
+                 "rank_evicted", "world_resize", "mesh_plan_failed"):
+        for e in counters.events(name):
+            log.info("supervisor event: %s", e)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,11 +2,9 @@
 one recorded divergence in how the two read parameters.
 
 Every field and alias of ``lightgbm_tpu.config.Config`` gets exactly one
-outcome in the port: ported (a field of the port's ``Config``), taken
-as-is (accepted with any value and dropped), or not ported (a value other
-than the JAX package's default raises ``NotImplementedError`` naming a
-port-queue item whose bold title is in ROADMAP.md).  Unknown keys still
-raise ``Unknown parameter``.
+outcome in the port: ported (a field of the port's ``Config``) or taken
+as-is (accepted with any value and dropped).  Unknown keys still raise
+``Unknown parameter``.
 
 ``categorical_feature`` given in ``params``: the port reads it, as
 LightGBM does and as both alias tables declare; the JAX package declares
@@ -14,7 +12,6 @@ it and reads it nowhere, so the same script trains categorical splits on
 the port and numerical ones on the JAX package.  Through the Dataset
 argument both train the same trees."""
 import dataclasses
-import os
 
 import numpy as np
 import pytest
@@ -24,21 +21,15 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu import config as jc
 from lightgbm_tpu_torch import config as tc
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_FIELDS = {f.name: f for f in dataclasses.fields(jc.Config)}
 PORT_FIELDS = {f.name for f in dataclasses.fields(tc.Config)}
-
-
-def _has_bold_title(title):
-    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
-        return f"**{title}**".lower() in f.read().lower()
 
 
 def _outcome(key):
     key = tc.PARAM_ALIASES.get(key, key)
     return [name for name, hit in (
-        ("ported", key in PORT_FIELDS), ("as-is", key in tc.TAKEN_AS_IS),
-        ("not ported", key in tc.NOT_PORTED)) if hit]
+        ("ported", key in PORT_FIELDS), ("as-is", key in tc.TAKEN_AS_IS))
+        if hit]
 
 
 def _jax_default(name):
@@ -77,18 +68,6 @@ def test_taken_as_is_accepts_any_value(key):
     value = _other_value(_jax_default(key))
     cfg = tc.config_from_params({key: value})
     assert not hasattr(cfg, key)
-
-
-@pytest.mark.parametrize("key", sorted(tc.NOT_PORTED))
-def test_not_ported_raises_naming_its_queue_item(key):
-    default, item = tc.NOT_PORTED[key]
-    assert default == _jax_default(key)
-    title = item.split(" (")[0].lower()
-    assert _has_bold_title(title), item
-    tc.config_from_params({key: default})          # the default passes
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        tc.config_from_params({key: _other_value(default)})
-    assert item in str(e.value)
 
 
 def test_ported_keys_read_as_jax():
@@ -191,7 +170,7 @@ def test_multi_process_keys_ported(key):
     package's; ``collective_retries`` came with the supervisor (ROADMAP.md
     §1.6), which made it a field too."""
     _check_ported(key)
-    assert "collective_retries" not in tc.NOT_PORTED
+    assert "collective_retries" in PORT_FIELDS
     _check_ported_as(("collective_retries", 5))
 
 
@@ -235,11 +214,10 @@ def test_checkpoint_keys_ported(case):
     """Each key of the checkpoint and supervisor slice, and the aliases of
     ``output_model``: a field read as the JAX package reads it, its default
     the JAX package's; the elastic, straggler and observability keys are
-    ported too (fields of the Config, no longer in ``NOT_PORTED``)."""
+    ported too (fields of the Config)."""
     _check_ported_as(case)
     for key in ("elastic_resume", "elastic_min_ranks", "world_shrink_after",
                 "straggler_factor", "telemetry"):
-        assert key not in tc.NOT_PORTED
         assert key in {f.name for f in dataclasses.fields(tc.Config)}
 
 
@@ -268,9 +246,24 @@ MOVED_SERVING = (
 @pytest.mark.parametrize("case", MOVED_SERVING, ids=lambda c: str(c[0]))
 def test_serving_keys_ported(case):
     """Each serving key: a field read as the JAX package reads it, its
-    default the JAX package's; the CLI keys stay not ported, under the
-    item whose bold title ROADMAP.md keeps."""
+    default the JAX package's."""
     _check_ported_as(case)
-    for key in ("task", "data", "input_model", "convert_model"):
-        assert tc.NOT_PORTED[key][1] == tc._SERVING
-    assert _has_bold_title(tc._SERVING)
+
+
+# the ten keys of the CLI, the last that the port had not read, each with a
+# value other than its default that both packages accept
+CLI_KEYS = (
+    ("task", "predict"), ("data", "train.txt"),
+    ("valid_data", "a.txt,b.txt"), ("config_file", "train.conf"),
+    ("is_training_metric", True), ("output_freq", 5),
+    ("num_iteration_predict", 10), ("input_model", "m.txt"),
+    ("output_result", "p.txt"), ("convert_model", "m.cpp"))
+
+
+@pytest.mark.parametrize("case", CLI_KEYS, ids=lambda c: str(c[0]))
+def test_cli_keys_ported(case):
+    """Each CLI key: a field read as the JAX package reads it, its
+    default the JAX package's; with them every JAX key is ported or taken
+    as-is."""
+    _check_ported_as(case)
+    assert not hasattr(tc, "NOT_PORTED")

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no JAX, nothing of lightgbm_tpu; its
-entry points run on the card unless asked for the CPU, and parameters
-outside the ported slice raise instead of being ignored."""
+entry points run on the card unless asked for the CPU, and every
+parameter of the JAX package is read or taken as-is, while unknown ones
+raise."""
 import os
 import re
 import subprocess
@@ -19,10 +20,16 @@ _FORBIDDEN = re.compile(
     re.MULTILINE)
 
 
+# a JAX package module named in the text of the native library's sources
+# (the embedded interpreter imports by name)
+_NAMES_JAX_MODULE = re.compile(r"\blightgbm_tpu\.")
+
+
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PKG):
-        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+        out += [os.path.join(d, f) for f in files
+                if f.endswith((".py", ".cpp"))]
     return sorted(out)
 
 
@@ -30,8 +37,12 @@ def test_sources_import_no_jax():
     bad = []
     for path in _port_sources():
         with open(path) as f:
-            for m in _FORBIDDEN.finditer(f.read()):
-                bad.append(f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}")
+            text = f.read()
+        for m in _FORBIDDEN.finditer(text):
+            bad.append(f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}")
+        if path.endswith(".cpp") or path.endswith("capi_bridge.py"):
+            bad += [f"{os.path.relpath(path, ROOT)}: {m.group(0)}"
+                    for m in _NAMES_JAX_MODULE.finditer(text)]
     assert not bad, bad
 
 
@@ -107,10 +118,14 @@ def test_predict_raises_without_card(no_card):
     {"task": "predict"},
 ])
 def test_unsupported_params_raise(params):
+    """The CLI keys, which raised until the CLI was ported, train and are
+    read into the config; no key of the JAX package raises any more."""
     x, y = _small()
-    p = dict({"objective": "binary", "device": "cpu"}, **params)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lt.train(p, lt.Dataset(x, y, params=p), 1)
+    p = dict({"objective": "binary", "device": "cpu", "verbose": -1},
+             **params)
+    cfg = lt.train(p, lt.Dataset(x, y, params=p), 1).inner.config
+    for key, value in params.items():
+        assert getattr(cfg, key) == value
 
 
 @pytest.mark.parametrize("params", [
@@ -130,17 +145,72 @@ def test_serving_params_train(params):
 
 
 SERVING_MODULES = ("inference.py", "serving.py", "pmml.py",
-                   os.path.join("ops", "traverse.py"))
+                   os.path.join("ops", "traverse.py"), "cli.py", "sklearn.py",
+                   "plotting.py", os.path.join("native", "__init__.py"),
+                   os.path.join("native", "capi_bridge.py"),
+                   os.path.join("native", "gbt_native.cpp"),
+                   os.path.join("native", "gbt_capi_train.cpp"))
 
 
 @pytest.mark.parametrize("module", SERVING_MODULES)
 def test_serving_modules_checked(module):
-    """The serving slice's modules are among the sources checked above and
-    import neither JAX nor the JAX package."""
+    """The serving slice's and the CLI slice's modules (and the native
+    library's C++) are among the sources checked above and import neither
+    JAX nor the JAX package."""
     path = os.path.join(PKG, module)
     assert path in _port_sources()
     with open(path) as f:
-        assert not _FORBIDDEN.search(f.read())
+        text = f.read()
+    assert not _FORBIDDEN.search(text)
+    if module.startswith("native"):
+        assert not _NAMES_JAX_MODULE.search(text)
+
+
+def _text_files(tmp_path):
+    x, y = _small()
+    path = tmp_path / "train.tsv"
+    np.savetxt(path, np.column_stack([y, x]), delimiter="\t")
+    return str(path)
+
+
+def test_cli_slice_entry_points_raise_without_card(no_card, tmp_path):
+    """The CLI's ``task=train``, ``supervisor.main`` (before it launches a
+    worker), the C ABI's ``GBTN_BoosterCreate`` and an estimator's ``fit``
+    run on the card unless asked for the CPU, and raise without one."""
+    import ctypes
+
+    from lightgbm_tpu_torch import cli, native, supervisor
+    from lightgbm_tpu_torch.sklearn import LGBMRegressor
+    data = _text_files(tmp_path)
+    out = str(tmp_path / "m.txt")
+    argv = ["task=train", f"data={data}", "objective=binary",
+            f"output_model={out}", "num_trees=1", "verbose=-1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        supervisor.main(argv)
+    assert not os.path.exists(out + ".rank_0.log")
+    assert cli.main(argv + ["device=cpu"]) == 0
+    lib = native.get_lib()
+    x, y = _small()
+    x = np.ascontiguousarray(x)
+    y = y.astype(np.float32)
+    ds, bst = ctypes.c_void_p(), ctypes.c_void_p()
+    assert lib.GBTN_DatasetCreateFromMat(
+        x.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), len(x), 4,
+        b"objective=binary", y.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        None, ctypes.byref(ds)) == 0
+    assert lib.GBTN_BoosterCreate(ds, b"objective=binary",
+                                  ctypes.byref(bst)) != 0
+    assert b"CUDA" in lib.GBTN_GetLastError()
+    assert lib.GBTN_BoosterCreate(ds, b"objective=binary device=cpu",
+                                  ctypes.byref(bst)) == 0
+    lib.GBTN_BoosterFree(bst)
+    lib.GBTN_DatasetFree(ds)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LGBMRegressor(n_estimators=1).fit(x, y)
+    assert LGBMRegressor(n_estimators=1, device="cpu").fit(x, y).predict(
+        x).shape == (len(x),)
 
 
 def _model_text():

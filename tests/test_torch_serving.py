@@ -511,10 +511,36 @@ def test_early_stop_via_engine_bitwise_jax(binary_text, test_rows):
         assert (_bits(p.predict_raw(test_rows)) == _bits(want)).all()
 
 
-def test_native_backend_names_its_queue_item(binary_text):
-    tg = _port_gbdt(binary_text)
-    with pytest.raises(NotImplementedError, match="native host library"):
-        t_inference.PredictEngine(tg.models, 1, backend="native",
+@pytest.mark.parametrize("which", ["binary", "multiclass", "categorical"])
+def test_native_backend_names_its_queue_item(binary_text, test_rows, which):
+    """The host library's item is done: ``backend="native"`` serves raw
+    margins from the host predictor bit for bit the kernels' (plain
+    versions on the CPU) and the JAX engine's, prefixes of the trees
+    included, and its leaf indices from the kernels; it needs the model
+    text, and ``auto`` never takes it."""
+    text, rows = {
+        "binary": (binary_text, test_rows),
+        "multiclass": (_multiclass_text(), np.random.RandomState(3).randn(
+            90, 8)),
+        "categorical": (_categorical_text(), _categorical_rows())}[which]
+    tg = _port_gbdt(text)
+    k = tg.num_class
+    nat = t_inference.PredictEngine(tg.models, k, backend="native",
+                                    model_str=text, device="cpu")
+    assert nat.backend == "native"
+    xla = t_inference.PredictEngine(tg.models, k, device="cpu")
+    assert xla.backend == "xla"
+    jg = JGBDT.load_from_string(text)
+    want = j_inference.PredictEngine(jg.models, k, buckets=BUCKETS,
+                                     backend="xla").raw_scores(rows)
+    for trees in (-1, k):
+        got = nat.raw_scores(rows, num_trees=trees)
+        assert (_bits(got) == _bits(xla.raw_scores(rows,
+                                                    num_trees=trees))).all()
+    assert (_bits(nat.raw_scores(rows)) == _bits(want)).all()
+    np.testing.assert_array_equal(nat.leaves(rows), xla.leaves(rows))
+    with pytest.raises(ValueError, match="model_str"):
+        t_inference.PredictEngine(tg.models, k, backend="native",
                                   device="cpu")
 
 

@@ -432,6 +432,62 @@ def test_supervisor_restart_budget_exhausted(tmp_path):
     assert ckpt.read_group_epoch_file(out) == 1
 
 
+def test_supervisor_main_restarts_the_cli_once(tmp_path, monkeypatch):
+    """``supervisor.main`` over the CLI's arguments (``python -m
+    lightgbm_tpu_torch.cli`` workers): the first incarnation carries a
+    ``rank_crash`` at iteration 5 in its config file (a watcher takes it
+    out once the death is seen, before the relaunch), the supervisor
+    restarts the rank once, it resumes from the iteration-4 snapshot, and
+    the model is an uninterrupted CLI run's, byte for byte, under integer
+    labels."""
+    from lightgbm_tpu_torch import cli
+    counters.reset()
+    for k, v in ENV.items():
+        monkeypatch.setenv(k, v)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((400, 5))
+    data = tmp_path / "train.tsv"
+    np.savetxt(data, np.column_stack([np.round(x @ rng.standard_normal(5)),
+                                      x]), delimiter="\t")
+    conf = tmp_path / "train.conf"
+    common = ("task=train\nobjective=regression\nnum_leaves=7\n"
+              "min_data_in_leaf=5\nnum_trees=8\nverbose=-1\n"
+              "device=cpu\n")
+    conf.write_text(common + "fault_inject=rank_crash@5\n")
+    out = str(tmp_path / "run" / "m.txt")
+    os.makedirs(os.path.dirname(out))
+    argv = [f"config={conf}", f"data={data}", f"output_model={out}",
+            "snapshot_freq=2", "restart_backoff=2", "heartbeat_interval=0.2",
+            "verbose=1"]
+
+    def watch():
+        while not counters.events("rank_dead"):
+            if done.is_set():
+                return
+            threading.Event().wait(0.02)
+        conf.write_text(common)
+
+    done = threading.Event()
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    rc = []
+    runner = threading.Thread(target=lambda: rc.append(sup_mod.main(argv)),
+                              daemon=True)
+    runner.start()
+    runner.join(240)
+    done.set()
+    assert rc == [0], open(out + ".rank_0.log").read()[-2000:]
+    (dead,) = counters.events("rank_dead")
+    assert dead["exit_code"] == 70          # the fault's os._exit
+    assert len(counters.events("group_restart")) == 1
+    log_text = open(out + ".rank_0.log").read()
+    assert "rank_crash fault" in log_text
+    assert "(continuing at iteration 4)" in log_text
+    ref = str(tmp_path / "ref.txt")
+    assert cli.main(argv[:2] + [f"output_model={ref}", "verbose=-1"]) == 0
+    assert open(out).read() == open(ref).read()
+
+
 def test_supervisor_startup_sweep_is_orphan_free(tmp_path):
     counters.reset()
     out = str(tmp_path / "m.txt")
