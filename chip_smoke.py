@@ -352,7 +352,11 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    learner's integer tree equal to the serial tree on all rows, 2 rounds
    byte-identical on both ranks with AUC within 1e-4 of the serial
    learner's; the voting learner's model texts identical on both ranks; the
-   feature learner's integer tree equal to the serial one; the distributed
+   feature learner's integer tree equal to the serial one; the data
+   learner with block-sharded bins (two slots a rank, ``mesh_shape=2x2``
+   over both processes, each rank a 1x2 mesh of its own rows) held as the
+   data learner is, with ``route_rows_block`` and ``hist_local`` launched
+   in both workers and ``route_rows`` not; the distributed
    FindBin's mappers equal to the serial fit of 200,000 rows both hold; ms
    a tree and the collectives' share of a timed tree; the data learner's
    5 rounds under score-following integer gradients identical on both
@@ -468,6 +472,7 @@ card's ``nvidia-smi`` name and power limit; the last line is
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import functools
 import gc
@@ -5807,7 +5812,7 @@ def higgs_wide_path(params, names, x_tr, y_tr, x_te, y_te, sub=50_000):
           bin_matrix_bytes=ds.bins.numel() * ds.bins.element_size(),
           **serial)
     dp, _, _ = train_path("higgs_1023_dp_4x1", dp_p, x_tr, y_tr, x_te, y_te,
-                          10, names, ds=ds)
+                          10, names, ds=ds, profile=False)
     gap = abs(float(dp["heldout_auc"]) - float(serial["heldout_auc"]))
     phase("higgs_1023_dp_4x1", auc_gap_vs_serial=f"{gap:.3e}", **dp)
     if gap > 1e-4:
@@ -5861,7 +5866,7 @@ def expo_wide_path(params, names, sub=50_000):
                        partition_impl="compact", ordered_bins="on",
                        enable_bundle=False, enable_bin_packing=False)
     out, bst, ds = train_path("expo_wide", expo_params, x_tr, y_tr, x_te,
-                              y_te, 10, names)
+                              y_te, 10, names, profile=False)
     td = ds.constructed
     num_bins = [td.bin_mappers[j].num_bin for j in td.used_features]
     if ds.bins.dtype != torch.uint16 or max(num_bins) <= 256:
@@ -6542,10 +6547,13 @@ def process_worker(spec_path: str) -> None:
     fns = _kernel_wrappers()
     out = {"rank": rank, "rows": hi - lo,
            "setup_s": f"{time.perf_counter() - t_start:.3f}"}
-    for learner, (integer, rounds) in spec["learners"].items():
+    for name, entry in spec["learners"].items():
+        # (integer tree or not, rounds[, tree_learner, its parameters])
+        integer, rounds = entry[:2]
+        learner, extra = entry[2:] if len(entry) > 2 else (name, {})
         full = learner == "feature"      # every rank holds every row
         ds, a, b = (union, 0, N_ROWS) if full else (share, lo, hi)
-        p = dict(dist, tree_learner=learner, top_k=VOTE_TOP_K)
+        p = dict(dist, tree_learner=learner, top_k=VOTE_TOP_K, **extra)
         for fn in fns.values():
             fn.launches = 0
         if integer:
@@ -6554,18 +6562,18 @@ def process_worker(spec_path: str) -> None:
                                                             h_all[a:b]),
                         verbose_eval=False)
             torch.cuda.synchronize()
-            out[f"{learner}_integer_ms"] = (
+            out[f"{name}_integer_ms"] = (
                 f"{(time.perf_counter() - t0) * 1e3:.2f}")
-            out[f"{learner}_integer_model"] = bst.model_to_string()
+            out[f"{name}_integer_model"] = bst.model_to_string()
         if rounds:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             bst = train(p, ds, rounds, verbose_eval=False)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            out[f"{learner}_ms_per_tree"] = (
+            out[f"{name}_ms_per_tree"] = (
                 f"{wall * 1e3 / bst.inner.stats['trees']:.2f}")
-            out[f"{learner}_model"] = bst.model_to_string()
+            out[f"{name}_model"] = bst.model_to_string()
             # one more tree with the collectives timed between syncs
             coll = bst.inner._gspmd.coll_stats
             coll.clear()
@@ -6575,17 +6583,21 @@ def process_worker(spec_path: str) -> None:
             bst.update()
             torch.cuda.synchronize()
             tree_ms = (time.perf_counter() - t0) * 1e3
-            out[f"{learner}_timed_tree_ms"] = f"{tree_ms:.2f}"
-            out[f"{learner}_collective_ms"] = (
+            out[f"{name}_timed_tree_ms"] = f"{tree_ms:.2f}"
+            out[f"{name}_collective_ms"] = (
                 f"{coll.get('collective_s', 0.0) * 1e3:.2f}")
-            out[f"{learner}_collective_share"] = (
+            out[f"{name}_collective_share"] = (
                 f"{coll.get('collective_s', 0.0) * 1e3 / tree_ms:.4f}")
-            out[f"{learner}_collective_calls"] = coll.get(
+            out[f"{name}_collective_calls"] = coll.get(
                 "collective_calls", 0)
-            out[f"{learner}_collective_bytes"] = coll.get(
+            out[f"{name}_collective_bytes"] = coll.get(
                 "collective_bytes", 0)
-        out[f"{learner}_launches"] = {k: fn.launches
-                                      for k, fn in fns.items()}
+        out[f"{name}_launches"] = {k: fn.launches for k, fn in fns.items()}
+        plan, grower = bst.inner.mesh_plan, bst.inner._gspmd
+        out[f"{name}_mesh"] = dict(
+            plan=[plan.data, plan.feature, plan.block_shard_bins],
+            local=[grower.mesh.shape["batch"], grower.mesh.shape["feature"]],
+            cols=[[c.start, c.stop] for c in grower.cols])
         out["backend"] = bst.inner.dist_backend
         out["process_count"] = sync.process_count()
         out["device"] = str(bst.inner.device)
@@ -6639,11 +6651,14 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
     rows (the data and voting learners) or all of them (the feature
     learner).  Held: the data learner's integer tree equal to the serial
     tree on all rows, its 2 rounds byte-identical on both ranks and their
-    AUC within 1e-4 of the serial learner's; the voting learner's 2 rounds
+    AUC within 1e-4 of the serial learner's; the voting learner's round
     identical on both ranks; the feature learner's integer tree equal to
-    the serial one and its round identical on both ranks; the distributed
-    FindBin's mappers equal to the
-    serial fit of the same rows; the data learner's ``SUP_ROUNDS`` rounds
+    the serial one and its round identical on both ranks; the data
+    learner with block-sharded bins (``block``: two slots a rank on the
+    card, ``mesh_shape=2x2`` over both processes, each rank a 1x2 mesh of
+    its own rows) held as the data learner is, having launched
+    ``route_rows_block`` and ``hist_local`` and no ``route_rows``; the
+    distributed FindBin's mappers equal to the serial fit of the same rows; the data learner's ``SUP_ROUNDS`` rounds
     under the score-following integer gradients identical on both ranks
     (phase 24c's unsupervised reference, returned with the numbers).
     Reported: ms a tree, the collectives' share of a timed tree, the
@@ -6663,17 +6678,30 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
     # the voting learner's check is across the ranks; the feature
     # learner's the integer tree, with one round for the timed tree
     ranks = spawn_ranks(2, dict(params=params, learners={
-        "data": (True, 2), "voting": (False, 2), "feature": (True, 1)},
+        "data": (True, 2), "voting": (False, 1), "feature": (True, 1),
+        "block": (True, 2, "data", dict(mesh_devices=2, mesh_shape="2x2",
+                                        shard_axes="batch,feature"))},
         findbin=findbin_rows, score_rounds=SUP_ROUNDS))
     wall = time.perf_counter() - t0
     r0, r1 = ranks
     from lightgbm_tpu_torch import Booster
-    data_auc = auc(Booster(model_str=r0["data_model"], params=dict(
+    data_auc, block_auc = (auc(Booster(model_str=r0[f"{k}_model"], params=dict(
         device=params["device"])).predict(x_te), y_te)
+        for k in ("data", "block"))
+    from lightgbm_tpu_torch.parallel.gspmd import column_slices
+    cols = column_slices(ds.constructed.binned.shape[1], 2)
+    block_mesh = dict(plan=[2, 2, True], local=[1, 2],
+                      cols=[[c.start, c.stop] for c in cols])
     checks = {
         "data_integer_tree_equals_serial":
             r0["data_integer_model"] == r1["data_integer_model"] == serial_int,
         "data_models_identical": r0["data_model"] == r1["data_model"],
+        "block_integer_tree_equals_serial":
+            r0["block_integer_model"] == r1["block_integer_model"]
+            == serial_int,
+        "block_models_identical": r0["block_model"] == r1["block_model"],
+        "block_mesh_2x2_as_1x2_a_rank":
+            r0["block_mesh"] == r1["block_mesh"] == block_mesh,
         "voting_models_identical": r0["voting_model"] == r1["voting_model"],
         "feature_integer_tree_equals_serial":
             r0["feature_integer_model"] == r1["feature_integer_model"]
@@ -6684,14 +6712,16 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
         "score_models_identical":
             r0["data_score_model"] == r1["data_score_model"]}
     gap = abs(data_auc - serial_auc)
+    block_gap = abs(block_auc - serial_auc)
     out = dict(backend=r0["backend"], processes=r0["process_count"],
                devices=f"{r0['device']},{r1['device']}",
                rows=f"{r0['rows']},{r1['rows']}", spawn_to_exit_s=f"{wall:.1f}",
                worker_setup_s=f"{r0['setup_s']},{r1['setup_s']}",
                serial_auc=f"{serial_auc:.6f}", data_auc=f"{data_auc:.6f}",
-               data_auc_gap=f"{gap:.3e}", data_score_s=r0["data_score_s"],
-               **checks)
-    for learner in ("data", "voting", "feature"):
+               data_auc_gap=f"{gap:.3e}", block_auc=f"{block_auc:.6f}",
+               block_auc_gap=f"{block_gap:.3e}",
+               data_score_s=r0["data_score_s"], **checks)
+    for learner in ("data", "voting", "feature", "block"):
         for k in ("integer_ms", "ms_per_tree", "timed_tree_ms",
                   "collective_ms", "collective_share", "collective_calls",
                   "collective_bytes"):
@@ -6704,15 +6734,22 @@ def two_processes(params, ds, x_tr, y_tr, x_te, y_te,
     bad = [k for k, v in checks.items() if not v]
     if bad:
         fail(f"two processes on one card: {bad}")
-    if gap > 1e-4:
-        fail(f"two processes: data-parallel AUC {data_auc} is {gap} from the "
-             f"serial learner's {serial_auc} (limit 1e-4)")
+    for name, a, g in (("data-parallel", data_auc, gap),
+                       ("block-sharded", block_auc, block_gap)):
+        if g > 1e-4:
+            fail(f"two processes: {name} AUC {a} is {g} from the serial "
+                 f"learner's {serial_auc} (limit 1e-4)")
     if r0["backend"] != "gloo":
         fail(f"two ranks on one card took backend {r0['backend']}, not gloo")
     for learner in ("data", "voting", "feature"):
         got = r0[f"{learner}_launches"]
         if not (got["hist_local"] and got["route_rows"]):
             fail(f"two processes, {learner}: kernel launches {got}")
+    for r in (r0, r1):
+        got = r["block_launches"]
+        if not (got["hist_local"] and got["route_rows_block"]) \
+                or got["route_rows"]:
+            fail(f"two processes, block-sharded: kernel launches {got}")
     return out, r0["data_score_model"]
 
 
@@ -8061,8 +8098,10 @@ def hot_swap(params, ds, x_te) -> dict:
     graph capture meets the server's launches from another thread)
     commits a snapshot every ``SWAP_FREQ`` rounds while clients stream
     requests to a server watching its prefix: at least one swap, no failed
-    request, every answer one committed model's, an answer of an older
-    model never after one of a newer, no buffer set allocated by a
+    request, every answer one committed model's, no request sent after
+    an answer of a newer model came back answered by an older model (the
+    order a client can observe: two clients' concurrent requests may
+    record their answers in either order), no buffer set allocated by a
     dispatch (each model's engine allocates its sets at its prewarm,
     before its swap), the live sets back to one ladder's once the old
     engines are collected, and the seconds from each commit (its
@@ -8089,7 +8128,9 @@ def hot_swap(params, ds, x_te) -> dict:
     def client():
         while not stop.is_set():
             try:
-                got.append((time.time(), srv.predict(xq)))
+                sent = time.time()
+                ans = srv.predict(xq)
+                got.append((sent, time.time(), ans))
             except Exception as e:
                 errors.append(repr(e))
 
@@ -8121,16 +8162,23 @@ def hot_swap(params, ds, x_te) -> dict:
         fail(f"26c: failed requests {errors[:3]}")
     if stats["swaps"] < 1:
         fail("26c: the server swapped no model in")
-    first, last = {}, 0
-    for t, ans in got:
+    first, answered = {}, []
+    for sent, t, ans in got:
         hit = [it for it, (_, want) in committed.items()
                if np.array_equal(ans.view(np.uint64), want.view(np.uint64))]
         if len(hit) != 1:
             fail("26c: an answer equal to no single committed model (torn)")
-        if hit[0] < last:
-            fail(f"26c: an answer of iteration {hit[0]} after one of {last}")
-        last = hit[0]
-        first.setdefault(hit[0], t)
+        answered.append((sent, t, hit[0]))
+        first[hit[0]] = min(t, first.get(hit[0], t))
+    # in the order the answers came back: each request against the newest
+    # model of the answers back before it was sent
+    done = sorted((t, it) for _, t, it in answered)
+    newest = np.maximum.accumulate([it for _, it in done])
+    for sent, _, it in answered:
+        k = bisect.bisect_left(done, (sent, -1))
+        if k and it < newest[k - 1]:
+            fail(f"26c: a request sent after an answer of iteration "
+                 f"{newest[k - 1]} was answered by iteration {it}")
     lag = {it: first[it] - committed[it][0] for it in first
            if it != SWAP_FREQ}
     if stats["dispatch_allocs"]:
@@ -9289,6 +9337,9 @@ def main() -> None:
           two_processes_data_ms_per_tree=procs["data_ms_per_tree"],
           two_processes_voting_ms_per_tree=procs["voting_ms_per_tree"],
           two_processes_feature_ms_per_tree=procs["feature_ms_per_tree"],
+          two_processes_block_ms_per_tree=procs["block_ms_per_tree"],
+          two_processes_block_collective_share=procs[
+              "block_collective_share"],
           block_sharded_graph_ms_per_tree=block_tree["graph_ms_per_tree"],
           chunked_rung_ms_per_tree=chunked["ms_per_tree"],
           planner_rung_ms_per_tree=mslr["planner"]["ms_per_tree"],
@@ -9335,7 +9386,7 @@ def main() -> None:
         "launches_voting_4x1": 2 * vote["hist_local_launches"],
         **{f"launches_two_processes_{k}_rank0": 2 * procs.get(
             f"{k}_hist_local_launches", 0)
-           for k in ("data", "voting", "feature")},
+           for k in ("data", "voting", "feature", "block")},
         # phase 24c's resumed incarnation, rank 0
         "launches_24c_supervised_rank0": 2 * sup["hist_local_launches_rank0"],
         "ms": lroot["ms"], "plain_ms": lroot["plain_ms"],
@@ -9443,6 +9494,9 @@ def main() -> None:
         "launches": mslr["planner"]["route_rows_block_launches"],
         "launches_23d_profiled_tree": block_tree[
             "block_route_launches_per_tree"],
+        # phase 22's block-sharded learner over two processes, rank 0
+        "launches_two_processes_block_rank0": procs.get(
+            "block_route_rows_block_launches", 0),
         "max_abs_err": 0.0, "ms": sharded_timing["root"]["ms"],
         "plain_ms": sharded_timing["root"]["plain_ms"],
         "bound_ms": sharded_timing["root"]["bound_ms"], "bound_by": "bytes",

@@ -109,9 +109,10 @@ class TrainingPlan(NamedTuple):
     """Where one training runs, decided from the host Dataset's shapes
     before its bin matrix is copied to the card (:func:`plan_training`):
     the ``learner`` (``serial``, ``streamed`` or ``gspmd``), its mesh
-    ``slots``, the placement walk's decision (``data_stream=auto`` on the
-    serial learner) and the mesh plan (the data-parallel learners, or the
-    walk's sharded rung), and ``layout``, the memory model's keywords of
+    ``slots`` (this process's), the placement walk's decision
+    (``data_stream=auto`` on the serial learner) and the mesh plan (the
+    data-parallel learners, or the walk's sharded rung; its extents over
+    every process's slots), and ``layout``, the memory model's keywords of
     the chosen layout, whose prediction (``prediction``) the pre-flight
     held to the budget."""
     learner: str
@@ -168,6 +169,96 @@ def _model_layout(cfg: Config, train: TrainingData, objective: Objective,
                                                    train.num_data, K))
 
 
+def _plan_parallel_mesh(cfg: Config, train: TrainingData, layout: dict,
+                        slots: list, procs: int, capacity):
+    """The data-parallel learners' mesh plan, its extents global over
+    every process's slots (``lightgbm_tpu/boosting.py:887-961``), and the
+    layout the pre-flight prices, with its mesh keywords.
+
+    * Over several processes the voting learner, and the feature learner,
+      take the JAX package's shard_map learners, whose mesh is 1-D over
+      every process's slots (:595-613): ``mesh_shape`` and ``shard_axes``
+      are not read there, and a value that would change the mesh is
+      ignored with a warning.
+    * Otherwise an explicit ``mesh_shape`` names the global extents, and
+      over several processes a shape that does not lay out over them is
+      refused (``parallel/mesh.global_mesh_shape``, :905-912); ``auto``
+      with one slot a process is the ``P x 1`` data mesh, and with more
+      the planner walks the global slot count with ``procs``,
+      ``local_devices`` and the global row count, allgathered from the
+      processes (:913-925, :952-956).  ``shard_axes`` then says whether
+      the bins are block-sharded (:957-961).
+
+    Each process runs :func:`parallel.mesh.local_extents` of the plan
+    over its own slots.  Over several processes of the batch axis the
+    layout is priced from the global rows and mesh (``obs/memory.py:
+    predict_hbm``'s ``processes``)."""
+    prefer = {"data": "data", "feature": "feature",
+              "data_feature": "square"}.get(cfg.tree_learner, "data")
+    sa = str(cfg.shard_axes).strip().lower().replace(" ", "")
+    block = sa in ("batch,feature", "feature,batch")
+    s = len(slots)
+    if procs > 1 and cfg.tree_learner in ("voting", "feature"):
+        ignored = [f"{k}={v}" for k, v, off in (
+            ("mesh_shape", cfg.mesh_shape, ("", "auto")),
+            ("shard_axes", cfg.shard_axes, ("", "auto", "batch")))
+            if str(v).strip().lower().replace(" ", "") not in off]
+        if ignored:
+            log.warning("%s ignored: tree_learner=%s over %d processes "
+                        "runs the shard_map learner over a 1-D mesh of "
+                        "every process's %d slot(s)", ", ".join(ignored),
+                        cfg.tree_learner, procs, s)
+        d, fs = ((s * procs, 1) if cfg.tree_learner == "voting"
+                 else (1, s * procs))
+        if cfg.tree_learner == "voting":
+            layout = dict(layout, rows=_global_rows(train, s),
+                          processes=procs, data_shards=d, feature_shards=fs)
+        else:
+            layout = dict(layout, data_shards=1, feature_shards=s)
+        layout["block_shard_bins"] = False
+        pred = mesh_mod.predict_hbm(**layout)
+        return mesh_mod.MeshPlan(
+            d, fs, False, int(pred["peak_bytes"]), capacity,
+            memory.top_terms(pred, 4),
+            f"shard_map learner: 1-D mesh over {procs} processes"), layout
+    explicit = mesh_mod.global_mesh_shape(cfg.mesh_shape, s, procs)
+    if procs > 1:
+        layout = dict(layout, rows=_global_rows(train, s), processes=procs)
+    if explicit is not None or s == 1:
+        # one slot a process (several processes): the P x 1 data mesh
+        d, fs = explicit or (procs, 1)
+        pred = mesh_mod.predict_hbm(data_shards=d, feature_shards=fs,
+                                    block_shard_bins=block, **layout)
+        plan = mesh_mod.MeshPlan(
+            d, fs, block, int(pred["peak_bytes"]), capacity,
+            memory.top_terms(pred, 4),
+            f"explicit mesh_shape={cfg.mesh_shape}"
+            if explicit is not None else "one mesh slot a process")
+    else:
+        plan = mesh_mod.plan_mesh(s * procs, capacity=capacity,
+                                  prefer=prefer, procs=procs,
+                                  local_devices=s, **layout)
+    if sa == "batch":
+        plan = plan._replace(block_shard_bins=False)
+    elif block:
+        plan = plan._replace(block_shard_bins=True)
+    return plan, dict(layout, data_shards=plan.data,
+                      feature_shards=plan.feature,
+                      block_shard_bins=plan.block_shard_bins)
+
+
+def _global_rows(train: TrainingData, slots: int) -> int:
+    """The rows of every process, allgathered with their slot counts,
+    which must agree: every process runs the same local mesh."""
+    counts = sync.allgather_object((int(train.num_data), int(slots)))
+    if any(c[1] != slots for c in counts):
+        raise mesh_mod.MeshPlanError(
+            f"mesh_devices differs across processes (slots "
+            f"{[c[1] for c in counts]}): every process must run the same "
+            f"local mesh")
+    return sum(c[0] for c in counts)
+
+
 def plan_training(cfg: Config, train: TrainingData, objective: Objective,
                   device: Optional[torch.device] = None) -> TrainingPlan:
     """Decide the learner, the placement and the mesh from the host
@@ -178,9 +269,12 @@ def plan_training(cfg: Config, train: TrainingData, objective: Objective,
 
     * A parallel ``tree_learner`` over more than one mesh slot (of all
       processes) is the data-parallel learner: an explicit ``mesh_shape``
-      is priced as it is, ``auto`` over several slots is sized by
+      names the extents over every process's slots and is priced as it
+      is, ``auto`` over several slots is sized by
       ``parallel/mesh.plan_mesh`` (``prefer`` from the learner), and
-      ``shard_axes`` then overrides whether the bins are block-sharded.
+      ``shard_axes`` then overrides whether the bins are block-sharded
+      (:func:`_plan_parallel_mesh`; block-sharded bins over several
+      processes too, each routing its own rows over its own slices).
     * Otherwise the serial learner walks ``resolve_placement``:
       resident, then streamed blocks, then, past both, the mesh the
       planner sizes over the mesh slots, handed to the data-parallel
@@ -230,42 +324,14 @@ def plan_training(cfg: Config, train: TrainingData, objective: Objective,
                         placement.mesh.feature)
             learner, mesh_plan = "gspmd", placement.mesh
             slots = mesh_mod.mesh_slots(cfg.mesh_devices, device)
-            layout = _model_layout(cfg, train, objective, device, slots,
-                                   True)
+            layout = dict(_model_layout(cfg, train, objective, device,
+                                        slots, True),
+                          data_shards=mesh_plan.data,
+                          feature_shards=mesh_plan.feature,
+                          block_shard_bins=mesh_plan.block_shard_bins)
     else:
-        prefer = {"data": "data", "feature": "feature",
-                  "data_feature": "square"}.get(cfg.tree_learner, "data")
-        explicit = mesh_mod.parse_mesh_shape(cfg.mesh_shape, len(slots))
-        sa = str(cfg.shard_axes).strip().lower().replace(" ", "")
-        if explicit is not None or len(slots) == 1:
-            # one slot of this process (several processes): a 1x1 mesh
-            d, fs = explicit or (1, 1)
-            block = sa in ("batch,feature", "feature,batch")
-            pred = mesh_mod.predict_hbm(data_shards=d, feature_shards=fs,
-                                        block_shard_bins=block, **layout)
-            mesh_plan = mesh_mod.MeshPlan(
-                d, fs, block, int(pred["peak_bytes"]), capacity,
-                memory.top_terms(pred, 4),
-                f"explicit mesh_shape={cfg.mesh_shape}"
-                if explicit is not None else "one mesh slot a process")
-        else:
-            mesh_plan = mesh_mod.plan_mesh(len(slots), capacity=capacity,
-                                           prefer=prefer, **layout)
-        if sa == "batch":
-            mesh_plan = mesh_plan._replace(block_shard_bins=False)
-        elif sa in ("batch,feature", "feature,batch"):
-            mesh_plan = mesh_plan._replace(block_shard_bins=True)
-        if procs > 1 and mesh_plan.block_shard_bins:
-            # each process routes its own rows over its own slices; a
-            # split column another process holds would need a collective
-            # in the route, which the port does not have
-            log.fatal("block-sharded bins (shard_axes=batch,feature or the "
-                      "planner's choice) are single-process; use "
-                      "shard_axes=batch across processes")
-    if mesh_plan is not None:
-        layout.update(data_shards=mesh_plan.data,
-                      feature_shards=mesh_plan.feature,
-                      block_shard_bins=mesh_plan.block_shard_bins)
+        mesh_plan, layout = _plan_parallel_mesh(cfg, train, layout, slots,
+                                                procs, capacity)
     pred = mesh_mod.predict_hbm(**layout)
     memory.preflight(pred, cfg.hbm_budget,
                      f"{train.num_data} rows x {train.binned.shape[1]} "
@@ -637,8 +703,11 @@ class GBDT:
         impl, downgrades = resolve_parallel_impl(cfg, procs)
         self.downgrades.extend(downgrades)
         gspmd_hist = resolve_gspmd_hist(cfg.gspmd_hist, self.device)
-        # the shape plan_training chose: explicit, or the planner's
-        d, fs = self.mesh_plan.data, self.mesh_plan.feature
+        # this process's part of the global shape plan_training chose
+        axis = (mesh_mod.FEATURE_AXIS if cfg.tree_learner == "feature"
+                else mesh_mod.BATCH_AXIS)
+        d, fs = mesh_mod.local_extents(self.mesh_plan.data,
+                                       self.mesh_plan.feature, procs, axis)
         if cfg.ordered_bins == "on" or cfg.partition_impl not in ("auto",
                                                                   "scatter"):
             log.warning("ordered_bins and partition_impl act on the serial "
@@ -647,8 +716,6 @@ class GBDT:
         self.parallel_impl = impl
         self.gspmd_hist = gspmd_hist
         self.mesh = mesh_mod.make_named_mesh(d, fs, slots)
-        axis = (mesh_mod.FEATURE_AXIS if cfg.tree_learner == "feature"
-                else mesh_mod.BATCH_AXIS)
         if procs > 1 and axis == mesh_mod.FEATURE_AXIS:
             # the replication contract (:676-692): every process feeds the
             # same full matrix
@@ -668,8 +735,10 @@ class GBDT:
             [movable(t), movable(t).new_zeros((self._row_pad, t.shape[1]))]
         ).view(t.dtype))
         log.info("Using the data-parallel %s learner over a %dx%d (batch, "
-                 "feature) mesh of %d process(es) (%s), %s histogram, bins "
-                 "%s (%s)", cfg.tree_learner, d, fs, procs, impl, gspmd_hist,
+                 "feature) mesh of %d process(es), %dx%d in this one (%s), "
+                 "%s histogram, bins %s (%s)", cfg.tree_learner,
+                 self.mesh_plan.data, self.mesh_plan.feature, procs, d, fs,
+                 impl, gspmd_hist,
                  "block-sharded" if self.mesh_plan.block_shard_bins
                  else "replicated over feature", self.mesh_plan.reason)
         packed = (None if self.packed is None else

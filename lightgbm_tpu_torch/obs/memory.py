@@ -173,7 +173,8 @@ def predict_hbm(rows: int, features: int, bins: int = 255, leaves: int = 31,
                 serving_buckets: Sequence[int] = (),
                 serving_classes: int = 1, serving_cat_rows: int = 1,
                 serving_cat_width: int = 1, serving_packed: bool = False,
-                serving_layout: str = "xla") -> Dict[str, Any]:
+                serving_layout: str = "xla",
+                processes: int = 1) -> Dict[str, Any]:
     """Predicted bytes of one training on its primary card, or of one
     serving engine.
 
@@ -199,7 +200,12 @@ def predict_hbm(rows: int, features: int, bins: int = 255, leaves: int = 31,
     ``rollback`` (the scores cloned at each iteration's start; not DART),
     ``objective_bytes`` (:func:`objective_device_bytes`; binary's when
     None) and ``objective_work`` (:func:`objective_work_bytes`; binary's
-    when None).
+    when None).  ``processes`` > 1 prices one process of the batch-axis
+    learner over several processes from the global mesh, as the planner
+    walks it (``parallel/mesh.py:plan_mesh``): ``rows`` and
+    ``data_shards`` are the global ones, and the process holds its even
+    share of them, ``ceil(rows / processes)`` rows over ``data_shards /
+    processes`` batch shards.
 
     With ``serving_buckets`` non-empty the prediction is one serving
     engine's (``lightgbm_tpu/obs/memory.py:468-480``, from the port's own
@@ -225,13 +231,15 @@ def predict_hbm(rows: int, features: int, bins: int = 255, leaves: int = 31,
                 "resident_bytes": model, "transient_bytes": batches,
                 "peak_bytes": model + batches}
     N, F = int(rows), int(features)
+    d, fs = max(int(data_shards), 1), max(int(feature_shards), 1)
+    dist = d * fs > 1
+    if processes > 1:
+        N, d = -(-N // int(processes)), max(d // int(processes), 1)
     B, L, K = int(bins), int(leaves), int(num_class)
     bb = int(bin_bytes) if bin_bytes else (1 if B <= 256 else 2)
     E = int(bundled) or F
     C = int(packed_cols)
     Nv = int(valid_rows)
-    d, fs = max(int(data_shards), 1), max(int(feature_shards), 1)
-    dist = d * fs > 1
     chunk = min(int(stream_chunk_rows), N) if stream_chunk_rows and not dist \
         else 0
     obj = (objective_bytes if objective_bytes is not None
@@ -355,7 +363,8 @@ def predict_hbm(rows: int, features: int, bins: int = 255, leaves: int = 31,
                    "ordered_bins": bool(ordered_bins), "voting": int(voting),
                    "bundled": int(bundled), "gspmd_fused": bool(gspmd_fused),
                    "categorical": bool(categorical), "compact": bool(compact),
-                   "cuda": bool(cuda), "rollback": bool(rollback)},
+                   "cuda": bool(cuda), "rollback": bool(rollback),
+                   "processes": int(processes)},
         "residents": {k: v for k, v in r.items() if v},
         "transients": t,
         "resident_bytes": resident_bytes,

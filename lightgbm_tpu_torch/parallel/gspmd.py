@@ -59,9 +59,13 @@ insert the collectives; here the split step itself walks the shards of a
   the other cards of its batch row (:meth:`GspmdGrower._merge_routes`):
   the copy that stands in for the collective XLA inserts for the
   column's read, its bytes counted in ``coll_stats``.  Over several
-  processes block-sharding is refused (``boosting.plan_training``): a
-  process's mesh covers only its own rows, and a split column another
-  process held would need a collective in the route;
+  processes each process's slots tile whole batch rows of the global
+  mesh over its full feature extent (``parallel/mesh.py:
+  mesh_shape_fits_processes``), so every split column of a process's
+  rows lies in its own slices: it builds its table over its own slots
+  and routes its own rows, and no collective enters the route; the
+  histogram is summed over its shards, its slices concatenated and then
+  all-reduced, as with replicated bins;
 
 * under ``tree_learner=voting`` each batch shard's histogram stays its
   own (concatenated over its column slices): the pool keeps them per
@@ -208,9 +212,6 @@ class GspmdGrower(SplitLoop):
         # row -> leaf map, counts and routing cover all of them at once
         self.held = {dv: [i for i in range(d) if dv in mesh.devices[i]]
                      for dv in dict.fromkeys(sum(mesh.devices, []))}
-        if block_shard and self.procs is not None:
-            raise ValueError("GspmdGrower: block-sharded bins are "
-                             "single-process")
         self.row_leaf = {dv: torch.zeros(len(held) * n_loc,
                                          dtype=torch.int32, device=dv)
                          for dv, held in self.held.items()}

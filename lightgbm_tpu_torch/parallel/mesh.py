@@ -33,7 +33,10 @@ JAX meaning of ``mesh_devices``, which caps the real devices used.
 ``machine_list_file`` of ``ip port`` lines): each process is one rank of a
 ``torch.distributed`` process group at ``tcp://<machine 0's ip>:<its
 port>`` (:func:`init_distributed_from_config`), and holds its own mesh of
-slots, the same shape on every rank.  Its slots start at card
+slots, the same shape on every rank: its part of the global mesh that
+``mesh_shape`` names over every process's slots, as the JAX package
+names it over every process's devices (:func:`global_mesh_shape`,
+:func:`local_extents`).  Its slots start at card
 ``local_rank % cards`` (``local_rank``: the ranks before it on its host),
 and ``mesh_devices=0`` is one slot a process there.  The backend follows
 the layout and is never a fallback: gloo for CPU tensors; NCCL when every
@@ -153,6 +156,36 @@ def parse_mesh_shape(spec: str, n_devices: int):
         raise ValueError(f"mesh_shape {d}x{f} needs {d * f} devices; only "
                          f"{n_devices} available")
     return (d, f)
+
+
+def global_mesh_shape(spec: str, local_slots: int, procs: int):
+    """``mesh_shape`` over ``procs`` processes of ``local_slots`` slots
+    each, read as the JAX package reads it (``lightgbm_tpu/boosting.py:
+    887-912``): the global ``(data, feature)`` extents over every
+    process's slots, or None for ``auto``.  Raises ValueError when the
+    slots cannot serve the shape (:func:`parse_mesh_shape`) and
+    :class:`MeshPlanError` with :func:`mesh_shape_fits_processes`'s words
+    when it does not lay out over the processes."""
+    explicit = parse_mesh_shape(spec, local_slots * procs)
+    if explicit is not None and procs > 1:
+        refusal = mesh_shape_fits_processes(explicit[0], explicit[1], procs,
+                                            local_slots)
+        if refusal is not None:
+            raise MeshPlanError(f"mesh_shape={spec} cannot serve {procs}-"
+                                f"process training: {refusal}")
+    return explicit
+
+
+def local_extents(data: int, feature: int, procs: int,
+                  axis: str = BATCH_AXIS) -> Tuple[int, int]:
+    """The ``(data, feature)`` mesh of one process's slots in a global
+    ``data x feature`` mesh over ``procs`` processes that extend ``axis``
+    (the batch axis: each process holds whole batch rows of its own; the
+    feature axis: every row, and its own column slices)."""
+    procs = max(1, int(procs))
+    if axis == FEATURE_AXIS:
+        return data, feature // procs
+    return data // procs, feature
 
 
 def default_chunk_rows(rows: int, requested: int = 0) -> int:

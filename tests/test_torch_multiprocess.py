@@ -9,6 +9,18 @@ package's, each one rank.
   whose two partial sums are the ranks' all-reduced pair; the data
   learner's predictions within 1e-3 of the JAX package's serial model on
   the union (tests/test_multiprocess.py's bound).
+* Block-sharded bins (``mode=block``: two CPU slots a rank, the global
+  ``mesh_shape=2x2``, ``shard_axes=batch,feature``, each rank a 1x2 mesh
+  of its own rows): identical on both ranks, with even halves and with
+  1,400 and 1,600 rows; byte-identical to the in-process block-sharded and
+  replicated 2x2 models, and under integer gradients to the serial one;
+  predictions within 1e-4 of the JAX package's block-sharded 2x2 learner
+  on the union; ``mesh_shape=auto`` under a budget from the port's
+  ``predict_hbm`` plans the block-sharded 2x2 mesh.
+* ``mesh_shape`` over two processes of two slots each resolves, or is
+  refused, as the JAX package decides (no process spawned), and the
+  voting and feature learners over processes take the 1-D mesh whatever
+  ``mesh_shape`` and ``shard_axes`` say (in the spawned runs too).
 * A regression run's ``boost_from_average`` (the processes' label sums
   added) is the same on both ranks, and its predictions within 1e-5 of
   the in-process learner's, whose one label sum rounds otherwise.
@@ -77,12 +89,36 @@ def done():
     sys.exit(0)
 
 
+def int_fobj(preds, data):
+    # integer-valued gradients and hessians that follow the scores: every
+    # sum is exact in any order
+    q = np.floor(np.asarray(preds, np.float64) * 8.0)
+    return (np.where(data.get_label() > 0, -3.0, 2.0) + np.mod(q, 5.0) - 2.0,
+            1.0 + np.mod(q, 3.0))
+
+
+def mesh_of(bst):
+    plan, g = bst.inner.mesh_plan, bst.inner._gspmd
+    return dict(plan=[plan.data, plan.feature, plan.block_shard_bins],
+                local=[g.mesh.shape["batch"], g.mesh.shape["feature"]],
+                block=g.block is not None, route_bins=g.route_bins is not None,
+                cols=[[c.start, c.stop] for c in g.cols],
+                pad=bst.inner._row_pad)
+
+
 if mode in ("data", "voting"):
     p = dict(base, tree_learner=mode, top_k=3)
     bst = lt.train(p, lt.Dataset(X[lo:hi], y[lo:hi], params=p), 5)
     assert sync.process_count() == 2 and bst.inner.dist_backend == "gloo"
     assert bst.inner._gspmd.procs.count == 2
     bst.save_model(out)
+    if mode == "voting":
+        # the shard_map learner's 1-D mesh: neither key is read
+        pb = dict(p, mesh_shape="2x2", shard_axes="batch,feature")
+        b2 = lt.train(pb, lt.Dataset(X[lo:hi], y[lo:hi], params=pb), 5)
+        m = mesh_of(b2)
+        assert m["plan"] == [2, 1, False] and not m["block"], m
+        assert b2.model_to_string() == bst.model_to_string()
     yr = (X @ w).astype(np.float32) + np.linspace(0, 3, n, dtype=np.float32)
     pr = dict(p, objective="regression", num_leaves=7)
     lt.train(pr, lt.Dataset(X[lo:hi], yr[lo:hi], params=pr), 2).save_model(
@@ -95,6 +131,59 @@ if mode == "feature":
     assert bst.inner.parallel_impl == "shardmap"
     assert bst.inner._gspmd.procs.axis == "feature"
     bst.save_model(out)
+    # the shard_map learner's 1-D mesh: neither key is read
+    pb = dict(p, mesh_shape="2x2", shard_axes="batch,feature")
+    b2 = lt.train(pb, lt.Dataset(X, y, params=pb), 5)
+    m = mesh_of(b2)
+    assert m["plan"] == [1, 2, False] and not m["block"], m
+    assert b2.model_to_string() == bst.model_to_string()
+    done()
+
+if mode == "block":
+    # two CPU slots a process and the global 2x2 mesh, block-sharded:
+    # each rank a 1x2 mesh over its own rows; over even halves, then over
+    # ranks of 1,400 and 1,600 rows; then mesh_shape=auto under a budget
+    # that only the block-sharded 2x2 layout meets
+    import json
+    from lightgbm_tpu_torch.boosting import _model_layout
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.obs.memory import predict_hbm
+    from lightgbm_tpu_torch.parallel.mesh import mesh_slots
+    p = dict(base, tree_learner="data", mesh_devices=2, mesh_shape="2x2",
+             shard_axes="batch,feature")
+    res = {}
+    for tag, (a, b) in (("even", (lo, hi)),
+                        ("uneven", (0, 1400) if rank == 0 else (1400, n))):
+        ds = lt.Dataset(X[a:b], y[a:b], params=p)
+        bst = lt.train(p, ds, 5)
+        res[tag] = dict(mesh_of(bst), model=bst.model_to_string(),
+                        integer=lt.train(p, ds, 3, fobj=int_fobj)
+                        .model_to_string())
+    # the auto run holds the first 2,998 rows: in the memory model a 4x1
+    # mesh over even shards costs what the block-sharded 2x2 does, and
+    # the data learner's walk takes 4x1 first; 1,499 rows a rank pad the
+    # 4x1 mesh's two local shards, whose padded copy makes it dearer
+    n2 = 2998
+    a, b = (0, n2 // 2) if rank == 0 else (n2 // 2, n2)
+    pa = dict(base, tree_learner="data", mesh_devices=2)
+    cfg = config_from_params(pa)
+    ds = lt.Dataset(X[a:b], y[a:b], params=pa)
+    ds.construct(cfg, "cpu", on_device=False)
+    cpu = torch.device("cpu")
+    layout = dict(_model_layout(cfg, ds.constructed, create_objective(cfg),
+                                cpu, mesh_slots(2, cpu), True),
+                  rows=n2, processes=2)
+    peak = lambda d, f, blk: predict_hbm(
+        data_shards=d, feature_shards=f, block_shard_bins=blk,
+        **layout)["peak_bytes"]
+    budget = peak(2, 2, True)
+    assert budget < min(peak(4, 1, False), peak(2, 2, False)), (
+        budget, peak(4, 1, False), peak(2, 2, False))
+    bst = lt.train(dict(pa, hbm_budget=budget), ds, 5)
+    res["auto"] = dict(mesh_of(bst), model=bst.model_to_string(),
+                       budget=int(budget), reason=bst.inner.mesh_plan.reason)
+    with open(out, "w") as f:
+        json.dump(res, f)
     done()
 
 if mode == "feature_bad":
@@ -286,6 +375,92 @@ def test_feature_learner_agrees_across_ranks_and_with_one_process(
     assert m0 == _in_process("feature", "1x2").model_to_string()
 
 
+@pytest.fixture(scope="module")
+def block_runs(tmp_path_factory):
+    """The two ranks of the block-sharded worker (mode ``block``): each
+    rank's results, by run (``even``, ``uneven``, ``auto``)."""
+    import json
+    paths = _run_workers(tmp_path_factory.mktemp("block"), "block")
+    return [json.loads(p.read_text()) for p in paths]
+
+
+@pytest.fixture(scope="module")
+def block_in_process():
+    """The port's in-process 2x2 learner over four CPU slots, block-sharded
+    and replicated, under the binary objective and integer gradients, and
+    the serial learner under the integer gradients."""
+    x, y, _ = _grid_problem()
+    p = dict(BASE, tree_learner="data", mesh_devices=4, mesh_shape="2x2",
+             device="cpu")
+    out = {}
+    pa = dict(p, shard_axes="batch,feature")
+    out["auto"] = lt.train(pa, lt.Dataset(x[:2998], y[:2998], params=pa),
+                           5).model_to_string()
+    for sa in ("batch,feature", "batch"):
+        ps = dict(p, shard_axes=sa)
+        ds = lt.Dataset(x, y, params=ps)
+        out[sa] = lt.train(ps, ds, 5).model_to_string()
+        out[sa + ":integer"] = lt.train(ps, ds, 3,
+                                        fobj=_int_fobj).model_to_string()
+    ps = dict(BASE, device="cpu")
+    out["serial:integer"] = lt.train(ps, lt.Dataset(x, y, params=ps), 3,
+                                     fobj=_int_fobj).model_to_string()
+    return out
+
+
+def _int_fobj(preds, data):
+    """The worker's integer gradients (``int_fobj``)."""
+    q = np.floor(np.asarray(preds, np.float64) * 8.0)
+    return (np.where(data.get_label() > 0, -3.0, 2.0) + np.mod(q, 5.0) - 2.0,
+            1.0 + np.mod(q, 3.0))
+
+
+@pytest.mark.parametrize("run", ["even", "uneven", "auto"])
+def test_block_sharded_ranks_agree(block_runs, run):
+    """Each rank a 1x2 mesh of the global block-sharded 2x2 one, routing
+    its own rows over its own slices; the ranks' column slices line up and
+    their models are identical, also with 1,400 and 1,600 rows."""
+    r0, r1 = (r[run] for r in block_runs)
+    for r in (r0, r1):
+        assert r["plan"] == [2, 2, True], r["plan"]
+        assert r["local"] == [1, 2] and r["block"] and not r["route_bins"]
+    assert r0["cols"] == r1["cols"] == [[0, 4], [4, 8]]
+    assert r0["model"] == r1["model"]
+    if run != "auto":
+        assert r0["integer"] == r1["integer"]
+
+
+def test_block_sharded_equals_one_process(block_runs, block_in_process):
+    """Byte for byte: the two processes' model equals the in-process
+    block-sharded and replicated 2x2 models; under integer gradients, the
+    serial model too, with even and uneven ranks; and ``mesh_shape=auto``
+    under the budget planned the block-sharded 2x2 mesh and trained the
+    same model as the in-process 2x2 block-sharded learner over the same
+    2,998 rows."""
+    r0 = block_runs[0]
+    ref = block_in_process
+    assert r0["even"]["model"] == ref["batch,feature"] == ref["batch"]
+    assert r0["auto"]["model"] == ref["auto"]
+    assert "bins block-sharded" in r0["auto"]["reason"]
+    for run in ("even", "uneven"):
+        assert r0[run]["integer"] == ref["batch,feature:integer"] \
+            == ref["batch:integer"] == ref["serial:integer"], run
+
+
+def test_block_sharded_predicts_as_the_jax_package(block_runs):
+    """The two processes' predictions within 1e-4 of the JAX package's
+    block-sharded 2x2 learner on the union, over four of the 8 virtual CPU
+    devices (test_torch_block_shard.py's tolerance)."""
+    x, y, _ = _grid_problem()
+    pj = dict(BASE, tree_learner="data", mesh_devices=4, mesh_shape="2x2",
+              shard_axes="batch,feature")
+    bj = lj.train(pj, lj.Dataset(x, y, params=pj), 5, verbose_eval=False)
+    for run in ("even", "uneven"):
+        got = lt.Booster(model_str=block_runs[0][run]["model"],
+                         params=dict(device="cpu")).predict(x)
+        np.testing.assert_allclose(got, bj.predict(x), rtol=0, atol=1e-4)
+
+
 def test_feature_learner_rejects_rows_of_their_own(tmp_path):
     _run_workers(tmp_path, "feature_bad")
 
@@ -315,6 +490,66 @@ def test_nonfinite_on_one_rank_trips_both(tmp_path):
 
 def test_timed_out_collective_names_the_operation(tmp_path):
     _run_workers(tmp_path, "timeout")
+
+
+def _planned(monkeypatch, **params):
+    """``boosting.plan_training``'s mesh for the first half of the grid
+    rows as one of two processes of two CPU slots each, with no process
+    spawned: the process count is 2 and the allgather returns this
+    process's values twice.  A refusal is ``(its type, its words)``."""
+    from lightgbm_tpu_torch.boosting import plan_training
+    from lightgbm_tpu_torch.config import config_from_params
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.parallel import sync
+    from lightgbm_tpu_torch.parallel.mesh import MeshPlanError
+    x, y, _ = _grid_problem()
+    p = dict(BASE, mesh_devices=2, device="cpu", **params)
+    cfg = config_from_params(p)
+    ds = lt.Dataset(x[:1500], y[:1500], params=p)
+    ds.construct(cfg, "cpu", on_device=False)
+    monkeypatch.setattr(sync, "process_count", lambda: 2)
+    monkeypatch.setattr(sync, "allgather_object", lambda obj: [obj, obj])
+    try:
+        return plan_training(cfg, ds.constructed, create_objective(cfg),
+                             torch.device("cpu")).mesh
+    except (ValueError, MeshPlanError) as e:
+        return (type(e).__name__, str(e))
+
+
+@pytest.mark.parametrize("spec", ["2x2", "4x1", "2x1", "1x4", "data",
+                                  "feature", "1x2", "4x2"])
+def test_mesh_shape_reads_over_every_process(monkeypatch, spec):
+    """``mesh_shape`` over two processes of two slots each names the global
+    extents, or is refused, as the JAX package decides
+    (``lightgbm_tpu/boosting.py:887-912``: ``parse_mesh_shape`` over every
+    process's devices, then ``mesh_shape_fits_processes``)."""
+    from lightgbm_tpu.parallel import mesh as jax_mesh
+    try:
+        want = jax_mesh.parse_mesh_shape(spec, 4, "data")
+        refusal = jax_mesh.mesh_shape_fits_processes(*want, 2, 2)
+        if refusal is not None:
+            want = ("MeshPlanError", f"mesh_shape={spec} cannot serve "
+                    f"2-process training: {refusal}")
+    except ValueError as e:
+        want = ("ValueError", str(e))
+    got = _planned(monkeypatch, tree_learner="data", mesh_shape=spec,
+                   shard_axes="batch,feature")
+    if isinstance(want, tuple) and isinstance(want[0], str):
+        assert got == want
+        return
+    assert (got.data, got.feature, got.block_shard_bins) == (*want, True)
+
+
+@pytest.mark.parametrize("learner,shape", [("voting", (4, 1)),
+                                           ("feature", (1, 4))])
+def test_shard_map_learners_take_the_1d_mesh(monkeypatch, learner, shape):
+    """Over several processes the voting and feature learners are the JAX
+    package's shard_map learners, whose mesh is 1-D over every process's
+    devices: ``mesh_shape`` and ``shard_axes=batch,feature`` change
+    nothing."""
+    got = _planned(monkeypatch, tree_learner=learner, mesh_shape="2x2",
+                   shard_axes="batch,feature")
+    assert (got.data, got.feature, got.block_shard_bins) == (*shape, False)
 
 
 def test_bring_up_helpers(tmp_path, monkeypatch):
