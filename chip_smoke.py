@@ -172,10 +172,14 @@ Phases, each printing one line of numbers; any failure exits non-zero:
 2h. (before phase 8, on its labels) the lambdarank kernel against its
    plain version on the card, float32: per document |dg| <= 1e-5 x the
    sum of |lam| over its pairs + 1e-7, and the same for h with |hes|, on
-   queries of 1, 2, 31, 120, 1,251 and 10,000 documents (the last past the
-   kernel's shared-memory staging), all-equal scores, all-zero labels and
-   tied scores, with and without weights, and on the whole MS-LTR-shaped
-   training set at random scores; with its times there (single,
+   queries at every boundary of the kernel's schedule (1, 2, 31, 32 and
+   33 documents; 256, the most a warp takes, and 257; 512, the most a
+   block item holds, and 513; 1,251, 2,048, 2,049 and 10,000, cut into a
+   prefix and tiles), all-equal scores in a warp's, a block's and a long
+   query, all-zero labels, one, two and all five label groups, scores
+   tied within and across label groups, with and without weights, and
+   on the whole MS-LTR-shaped training set at random scores, where two
+   launches give identical bits; with its times there (single,
    back-to-back, device), the plain version's, and the bound (bytes, or
    each pair's exp and reciprocals at the special-function rate);
 8. the MS-LTR-shaped lambdarank task at full width and at the defaults:
@@ -1814,13 +1818,18 @@ def check_hist_packed(inner, rng, window=4_000, shards=4):
     return out
 
 
-def route_bound_ms(cnt: int, gathered: bool, bundled: bool = False) -> float:
-    """Least time of a route call: each window position's order entry
-    (4 B, gathered windows only), its bin byte and its output byte, and the
-    window, parity, leaf and split row (and, on a bundled column, the
-    feature's column and first slot), over the memory rate."""
-    nbytes = (cnt * ((4 if gathered else 0) + 2) + 16 + 4 + 8 + 12 + 1
-              + N_BINS + (8 if bundled else 0))
+def route_bound_ms(cnt: int, gathered: bool, row_bytes: int,
+                   bundled: bool = False, cat_width: int = N_BINS) -> float:
+    """Least time of a route call over the memory rate, counted in the
+    32-byte sectors that the window's rows touch, as ``route_rows``' bound
+    counts them: a gathered row's split-column bin in a sector of its own
+    (and its 4-byte order entry), an ordered window's rows whole,
+    ``row_bytes`` each up to a sector a row; each position's output byte;
+    the window, parity, leaf and split row and the split's category row
+    (and, on a bundled column, the feature's column and first slot)."""
+    per_row = 4 + 32 if gathered else min(row_bytes, 32)
+    nbytes = (cnt * (per_row + 1) + 16 + 4 + 8 + 12 + 1 + cat_width
+              + (8 if bundled else 0))
     return nbytes / H100_BYTES_PER_S * 1e3
 
 
@@ -1924,7 +1933,7 @@ def check_route(dev, rng):
         p_ms = cuda_ms(lambda: route_window_plain(sc, odd, lt, si32, scat,
                                                   scatb, meta, b2, o2, ref),
                        reps=3)
-        bound_ms = route_bound_ms(cnt, gathered)
+        bound_ms = route_bound_ms(cnt, gathered, f)
         timing[label] = dict(k, plain_ms=p_ms, replaced_ms=old["ms"],
                              replaced_ms_many=old["ms_many"],
                              replaced_device_ms=old["device_ms"],
@@ -2161,7 +2170,7 @@ def check_route_bundled(dev, rng):
         args = (sc, odd, soil, si32, scat, scatb, meta, (bins, bins), orders)
         k = three_times(lambda: route_window(*args, out))
         p_ms = cuda_ms(lambda: route_window_plain(*args, ref), reps=3)
-        bound_ms = route_bound_ms(cnt, True, bundled=True)
+        bound_ms = route_bound_ms(cnt, True, bins.shape[1], bundled=True)
         timing[label] = dict(k, plain_ms=p_ms, bound_ms=bound_ms)
         phase("route_time", window=label, rows=cnt,
               **{k_: f"{v:.4f}" for k_, v in timing[label].items()
@@ -3709,16 +3718,22 @@ def lambdarank_bound_ms(y, bounds, degenerate, weighted: bool):
 def check_lambdarank(dev, rng, mslr_x_y=None):
     """Phase 2h: the lambdarank kernel against its plain version on the
     card, float32.  Per document |dg| <= 1e-5 * (its pairs' sum of |lam|)
-    + 1e-7, and the same for h with |hes|, over: queries of 1, 2, 31, 120
-    and 1,251 documents and one of 10,000 (past the kernel's shared-memory
-    staging), all-equal scores (degenerate), all-zero labels (inverse max
-    DCG 0), tied scores, with and without weights; and the whole MS-LTR
-    training set at random scores.  Times of the whole set: single, b2b,
-    device, the plain version's, and the bound."""
+    + 1e-7, and the same for h with |hes|, over queries at each boundary
+    of the kernel's schedule: one masked tile (1, 2, 31, 32 documents), a
+    warp's rectangles (33, 120, ``WARP_QUERY_MAX`` = 256), a block's
+    (``WARP_QUERY_MAX`` + 1, ``ITEM_DOCS``), a long query's prefix and tiles
+    (``ITEM_DOCS`` + 1, 1,251, 2,048, 2,049, 10,000); all-equal scores
+    (degenerate) in each kind, all-zero labels (inverse max DCG 0), one,
+    two and all five label groups, scores tied within and across label
+    groups; with and without weights; and the whole MS-LTR training set at
+    random scores, launched twice for identical bits.  Times of the whole
+    set: single, b2b, device, the plain version's, and the bound."""
     import torch
-    from lightgbm_tpu_torch.ops.lambdarank import (STAGE_MAX,
+    from lightgbm_tpu_torch.ops.lambdarank import (ITEM_DOCS, TILE,
+                                                   WARP_QUERY_MAX,
                                                    lambdarank_grad,
                                                    lambdarank_grad_plain,
+                                                   lambdarank_schedule,
                                                    lambdarank_tables)
 
     def case(sizes, y, s, w=None):
@@ -3728,10 +3743,14 @@ def check_lambdarank(dev, rng, mslr_x_y=None):
         args = (put(s.astype(np.float32)), put(y.astype(np.int32)),
                 put(bounds), put(inv), put(gains), put(disc), 1.0)
         wt = None if w is None else put(w.astype(np.float32))
-        return args, wt, int(np.max(sizes)), bounds
+        t0 = time.perf_counter()
+        sched = lambdarank_schedule(y, bounds, gains).to(dev)
+        return args, wt, int(np.max(sizes)), bounds, sched, (
+            time.perf_counter() - t0)
 
-    def held(label, args, wt, max_len):
-        g, h = lambdarank_grad(*args, max_len=max_len, weight=wt)
+    def held(label, args, wt, max_len, sched):
+        g, h = lambdarank_grad(*args, max_len=max_len, weight=wt,
+                               schedule=sched)
         pg, ph, la, ha = lambdarank_grad_plain(*args, weight=wt,
                                                abs_sums=True)
         torch.cuda.synchronize()
@@ -3743,32 +3762,59 @@ def check_lambdarank(dev, rng, mslr_x_y=None):
         if not ok or not torch.isfinite(g).all() or not torch.isfinite(h).all():
             fail(f"lambdarank kernel vs plain ({label}): beyond |d| <= 1e-5 "
                  f"* sum|lam| + 1e-7, max abs err {err}")
-        return err, g
+        return err, g, h
 
-    sizes = np.asarray([1, 2, 31, 120, MSLR_LONGEST, 10_000, 50, 40, 200])
+    # (documents, what is special): a warp's, a block's and long queries
+    spec = [(1, ""), (2, ""), (31, ""), (32, ""), (33, ""), (120, ""),
+            (WARP_QUERY_MAX, ""), (WARP_QUERY_MAX + 1, ""),
+            (ITEM_DOCS, ""), (ITEM_DOCS + 1, ""), (MSLR_LONGEST, ""),
+            (2048, ""), (2049, ""), (10_000, ""),
+            (12, "flat"), (50, "flat"), (700, "flat"),
+            (40, "zero"), (60, "one_group"), (70, "two_groups"),
+            (300, "five_groups"), (200, "tied"), (24, "tied_across"),
+            (600, "tied_across"), (2049, "tied_across")]
+    sizes = np.asarray([m for m, _ in spec])
     n = int(sizes.sum())
     y = rng.integers(0, 5, n).astype(np.float32)
     s = rng.standard_normal(n).astype(np.float32)
     b = np.concatenate([[0], np.cumsum(sizes)])
-    s[b[6]:b[7]] = 0.375                       # all-equal scores
-    y[b[7]:b[8]] = 0                           # all-zero labels
-    s[b[8]:b[9]] = np.round(s[b[8]:b[9]] * 2) / 2   # tied scores
-    w = rng.uniform(0.5, 2.0, n)
-    if sizes.max() <= STAGE_MAX:
-        fail("lambdarank: no case past the shared-memory staging")
+    zero = []
+    for q, (m, what) in enumerate(spec):
+        sl = slice(b[q], b[q + 1])
+        if what == "flat":
+            s[sl] = 0.375
+        elif what in ("zero", "one_group"):
+            y[sl] = 0 if what == "zero" else 2
+            zero.append(sl)
+        elif what == "two_groups":
+            y[sl] = rng.integers(1, 3, m)
+        elif what == "five_groups":
+            y[sl] = np.arange(m) % 5
+        elif what == "tied":
+            s[sl] = np.round(s[sl] * 2) / 2
+        elif what == "tied_across":    # a few values over every label
+            s[sl] = np.round(s[sl])
+    if sizes.max() <= ITEM_DOCS:
+        fail("lambdarank: no case past a block item's documents")
     errs = {}
-    for label, wt_host in (("cases", None), ("cases_weighted", w)):
-        args, wt, max_len, bounds = case(sizes, y, s, wt_host)
-        errs[label], g = held(label, args, wt, max_len)
+    for label, wt_host in (("cases", None),
+                           ("cases_weighted", rng.uniform(0.5, 2.0, n))):
+        args, wt, max_len, bounds, sched, _ = case(sizes, y, s, wt_host)
+        errs[label], g, _ = held(label, args, wt, max_len, sched)
         gq = g.cpu().numpy()
-        if gq[0] != 0 or gq[b[7]:b[8]].any():
-            fail("lambdarank: a lone or all-zero-label document has a "
-                 "gradient")
+        if gq[0] != 0 or any(gq[sl].any() for sl in zero):
+            fail("lambdarank: a lone document, an all-zero-label or "
+                 "one-label query has a gradient")
     x_, y_all, sizes_all = mslr_x_y
     s_all = rng.standard_normal(len(y_all)).astype(np.float32)
-    args, wt, max_len, bounds = case(sizes_all, y_all, s_all)
-    errs["mslr_train"], _ = held("mslr_train", args, None, max_len)
-    kernel = lambda: lambdarank_grad(*args, max_len=max_len)
+    args, wt, max_len, bounds, sched, sched_s = case(sizes_all, y_all, s_all)
+    errs["mslr_train"], g1, h1 = held("mslr_train", args, None, max_len,
+                                      sched)
+    g2, h2 = lambdarank_grad(*args, max_len=max_len, schedule=sched)
+    same = bool(torch.equal(g1, g2) and torch.equal(h1, h2))
+    if not same:
+        fail("lambdarank: two launches on the same scores differ")
+    kernel = lambda: lambdarank_grad(*args, max_len=max_len, schedule=sched)
     dev_ms, _ = profiled_ms(kernel, calls=20)
     out = dict(ms=cuda_ms(kernel), ms_many=cuda_ms_many(kernel, calls=50),
                device_ms=dev_ms,
@@ -3779,11 +3825,17 @@ def check_lambdarank(dev, rng, mslr_x_y=None):
     out["bound_ms"], out["bound_by"] = lambdarank_bound_ms(
         y_all, bounds, sizes_all < 2, False)
     phase("lambdarank_vs_plain", cases=":".join(map(str, sizes)),
-          stage_max=STAGE_MAX, tolerance="1e-5*sum|lam|+1e-7",
+          warp_docs=WARP_QUERY_MAX, item_docs=ITEM_DOCS, tile=TILE,
+          tolerance="1e-5*sum|lam|+1e-7",
           mslr_rows=len(y_all), mslr_queries=len(sizes_all),
+          mslr_items=int(sched.items.shape[0]),
+          mslr_split_queries=int(sched.tickets.numel()),
+          schedule_s=f"{sched_s:.3f}", repeat_bit_identical=same,
+          share_of_bound=(f"{out['bound_ms'] / dev_ms:.4f}" if dev_ms
+                          else "not measured"),
           **{f"max_abs_err_{k}": f"{v:.3e}" for k, v in errs.items()},
           **{k: (f"{v:.4f}" if isinstance(v, float) else v)
-             for k, v in out.items()})
+             for k, v in out.items() if k != "max_abs_err"})
     return out
 
 
@@ -5601,12 +5653,8 @@ def check_wide_route(dev, rng):
         p_ms = cuda_ms(lambda: route_window_plain(sc, odd, lt, s32, scat,
                                                   sb, meta, b2, o2, ref),
                        reps=3)
-        # each position's order entry (gathered), 2-byte bin and output
-        # byte; the window, parity, leaf, split and bins-left rows
-        nbytes = (cnt * ((4 if gathered else 0) + 3) + 16 + 4 + 8 + 12 + 1
-                  + sb.shape[1])
-        timing[label] = dict(k, plain_ms=p_ms,
-                             bound_ms=nbytes / H100_BYTES_PER_S * 1e3)
+        timing[label] = dict(k, plain_ms=p_ms, bound_ms=route_bound_ms(
+            cnt, gathered, 2 * b2[1].shape[1], cat_width=sb.shape[1]))
     phase("wide_route_vs_plain", sets=",".join(sets), calls_checked=checked,
           exact=True, **{f"{w}_{k_}": f"{v:.5f}" for w, d in timing.items()
                          for k_, v in d.items() if isinstance(v, float)})

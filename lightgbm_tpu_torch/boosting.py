@@ -164,7 +164,8 @@ def _model_layout(cfg: Config, train: TrainingData, objective: Objective,
         rollback=cfg.boosting_type != "dart",
         objective_bytes=memory.objective_device_bytes(
             objective.name, train.num_data, K, md.weight is not None,
-            md.query_boundaries, gains),
+            md.query_boundaries, gains,
+            md.label if device.type == "cuda" else None),
         objective_work=memory.objective_work_bytes(objective.name,
                                                    train.num_data, K))
 

@@ -23,7 +23,8 @@ import torch
 from .config import Config
 from .data.metadata import Metadata
 from .ops.lambdarank import (default_label_gain, lambdarank_grad,
-                             lambdarank_tables, plain_chunks)
+                             lambdarank_schedule, lambdarank_tables,
+                             plain_chunks)
 from .utils import log
 
 _GAUSS_C_MIN = 1.0e-10
@@ -337,7 +338,8 @@ class CrossEntropyLambda(Objective):
 class LambdarankNDCG(Objective):
     """rank_objective.hpp:19-245, as ``lightgbm_tpu/objectives.py:353-463``
     computes it: the host builds each query's inverse max DCG, the gains
-    and the discounts once; every iteration's gradients are one call of
+    and the discounts once, and on a card the kernel's schedule (labels
+    grouped, work items); every iteration's gradients are one call of
     :func:`~.ops.lambdarank.lambdarank_grad` (the kernel on a card)."""
     name = "lambdarank"
 
@@ -359,14 +361,19 @@ class LambdarankNDCG(Objective):
         self._inv_max_dcg, self._gains, self._discount = (
             put(inv), put(gains), put(disc))
         self._max_len = len(disc)
-        # the plain version's chunks, on the CPU only
-        self._chunks = plain_chunks(bounds) if device.type == "cpu" else None
+        # the plain version's chunks on the CPU, the kernel's schedule on
+        # a card
+        cpu = device.type == "cpu"
+        self._chunks = plain_chunks(bounds) if cpu else None
+        self._schedule = (None if cpu else lambdarank_schedule(
+            label, bounds, gains).to(device))
 
     def get_gradients(self, score):
         g, h = lambdarank_grad(
             score[0].contiguous(), self._label_i32, self._bounds,
             self._inv_max_dcg, self._gains, self._discount,
-            self.config.sigmoid, self._max_len, self.weights, self._chunks)
+            self.config.sigmoid, self._max_len, self.weights, self._chunks,
+            self._schedule)
         return g[None], h[None]
 
 

@@ -51,6 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.lambdarank import LambdarankSchedule, schedule_bytes
 from ..utils import log
 from .counters import counters
 
@@ -109,12 +110,15 @@ def pool_bytes(leaves: int, features: int, bins: int, logical: int,
 def objective_device_bytes(objective: str, rows: int, num_class: int = 1,
                            weighted: bool = False,
                            query_boundaries: Optional[np.ndarray] = None,
-                           label_gain: int = 0) -> int:
+                           label_gain: int = 0,
+                           label: Optional[np.ndarray] = None) -> int:
     """The bytes an objective's ``init`` puts on the device
     (``objectives.py``; ``objective`` its ``name``): the f32 labels (and
     weights), plus binary's sign and weight, the multiclass objectives'
     ``[K, N]`` one-hot or sign, or lambdarank's int32 labels, query bounds
-    and its three f32 tables (``label_gain`` entries of gains)."""
+    and its three f32 tables (``label_gain`` entries of gains) and, on a
+    card (``label`` given), its kernel's schedule
+    (``ops/lambdarank.py:schedule_bytes``)."""
     n = int(rows)
     out = 4 * n + (4 * n if weighted else 0)
     if objective == "binary":
@@ -126,6 +130,8 @@ def objective_device_bytes(objective: str, rows: int, num_class: int = 1,
         q = len(sizes)
         longest = int(sizes.max()) if q else 1
         out += 4 * n + 4 * (q + 1) + 4 * q + 4 * label_gain + 4 * longest
+        if label is not None:
+            out += schedule_bytes(label, query_boundaries)
     return out
 
 
@@ -484,8 +490,10 @@ def _named(inner) -> Dict[str, list]:
         "GBDT._score_stash": [inner._score_stash],
         "GBDT._ones": [inner._ones],
         "GBDT.meta": [inner.meta, inner._feat_valid],
-        "Objective": [v for v in vars(inner.objective).values()
-                      if isinstance(v, torch.Tensor)],
+        "Objective": [t for v in vars(inner.objective).values()
+                      for t in ([v] if isinstance(v, torch.Tensor) else
+                                v.tensors() if isinstance(
+                                    v, LambdarankSchedule) else [])],
         "_ValidSet.bins": [vs.bins for vs in inner.valid_sets],
         "_ValidSet.scores": [vs.scores for vs in inner.valid_sets],
         "WindowBuffers.iota": g(win, "iota"),
