@@ -71,7 +71,8 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    path's size: the partition over the grid of all rows and the
    histogram's device regime, against the partition over the window's own
    tiles and the histogram's host-picked plan, at an empty window, 4,097
-   and 1,000,000 rows;
+   and 1,000,000 rows; and ``route_rows``' launch floor (a map of no
+   rows), printed beside 2g's and 2j's bounds;
 2g. the data-parallel route kernel (a device's row -> leaf map updated in
    place, and each row shard's count of every leaf) against its plain
    version, bit for bit in the map and exact in the counts: 1,000,000
@@ -81,7 +82,9 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    times at the root and the 1,000-row leaf beside the byte bound.  Then
    the same splits as 2e's on the bundled Covertype layout (464,808 rows
    as four shards), from the root and from a leaf of about 4,000 rows,
-   with times at both;
+   with times at both.  Then 1,000,003 rows padded to four shards of
+   250,001 (each shard's first row at another residue of a 16-byte
+   boundary), uint8 and uint16, every split kind and the sink;
 2i. every kernel on a uint16 bin matrix (:func:`check_wide_kernels`):
    K1 and K3 at 1,023, 4,097 (one column a block, in shared memory past
    48 KB) and 20,000 bins (one column's bins in two slices), every
@@ -405,9 +408,11 @@ Phases, each printing one line of numbers; any failure exits non-zero:
    versions on the card, at every bucket of the ladder and at 100,000
    rows with NaN and zero values, on it and on a stumps-only model (after
    phase 16, on phase 5's Expo and phase 9's Covertype models too); both
-   kernels' times (single, back-to-back, device) at 1, 64 and 4,096 rows
-   beside the plain versions, the margin's ``gather`` + ``sum`` and the
-   byte bounds of what the rows touch, both node layouts;
+   kernels' times (single, back-to-back, device) at 1, 64, 4,096 and
+   65,536 rows beside the plain versions, the margin's ``gather`` +
+   ``sum``, the byte bounds of what the rows touch and the traversal's
+   issue bound, both node layouts; synthetic ensembles past the
+   traversal's shared-memory stage, bit for bit;
    ``Booster.predict`` of 100,000 rows through the kernels and through
    their plain versions (the eager loop), in turns; the engine's two
    two paths (microbatches, row passes) at 4,096 and 100,000 rows;
@@ -493,6 +498,9 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12    # float32 outside the tensor cores
+H100_THREAD_INSTR_PER_S = 132 * 4 * 32 * 1.98e9   # thread instructions a second:
+#   132 SMs x 4 warp schedulers, each issuing one warp instruction (32
+#   threads) a clock, at the 1.98 GHz boost clock
 N_ROWS, N_FEAT, N_BINS = 1_000_000, 28, 255
 N_HELDOUT = 100_000
 N_EXPO = 11_000_000           # training rows of the Expo-shaped path
@@ -1962,7 +1970,7 @@ def route_rows_bound_ms(n: int, leaf_rows: int, moved: int,
             + (8 if bundled else 0)) / H100_BYTES_PER_S * 1e3
 
 
-def check_route_rows(dev, rng):
+def check_route_rows(dev, rng, floor_ms=None):
     """Phase 2g: the data-parallel routing kernel against its plain
     version, bit for bit in the row -> leaf map and exact in the
     per-shard counts: 1,000,000 rows of the Higgs path's 28 columns held
@@ -1972,7 +1980,8 @@ def check_route_rows(dev, rng):
     rows and of about 1,000; the root (every row in leaf 0); and the sink
     after the tree's stop, which moves nothing.  Times at the root and at
     the 1,000-row leaf, where new = leaf makes a call repeatable (the
-    same reads and writes, the counts unchanged)."""
+    same reads and writes, the counts unchanged), each beside phase 2f's
+    launch floor ``floor_ms`` (not folded into the bound)."""
     import torch
     from lightgbm_tpu_torch.grower import FeatureMeta
     from lightgbm_tpu_torch.ops.route import route_rows, route_rows_plain
@@ -2064,15 +2073,138 @@ def check_route_rows(dev, rng):
             fail(f"route_rows with new = leaf changed the map at {label}")
         bound_ms = route_rows_bound_ms(n, leaf_rows, moved)
         timing[label] = dict(k, plain_ms=p_ms, bound_ms=bound_ms,
-                             leaf_rows=leaf_rows, moved=moved)
-        phase("route_rows_time", leaf=label, rows=n,
-              leaf_rows=timing[label]["leaf_rows"], moved=moved,
-              **{k_: f"{v:.4f}" for k_, v in timing[label].items()
-                 if isinstance(v, float) and k_ != "bound_ms"},
-              bound_ms=f"{bound_ms:.5f}",
-              bound_share=f"{bound_ms / k['device_ms']:.3f}"
-              if k["device_ms"] else "not measured")
+                             launch_floor_ms=floor_ms, leaf_rows=leaf_rows,
+                             moved=moved)
+        rows_time_line(label, n, timing[label])
     del bins_t, maps
+    return timing
+
+
+def rows_time_line(label: str, n: int, t: dict, **extra) -> None:
+    """A ``route_rows_time`` line: the times, the bound and its share of
+    the device time, and phase 2f's launch floor beside them."""
+    phase("route_rows_time", leaf=label, rows=n, leaf_rows=t["leaf_rows"],
+          moved=t["moved"], **extra,
+          **{k_: f"{v:.4f}" for k_, v in t.items()
+             if isinstance(v, float) and "bound" not in k_
+             and k_ != "launch_floor_ms"},
+          bound_ms=f"{t['bound_ms']:.5f}",
+          bound_share=f"{t['bound_ms'] / t['device_ms']:.3f}"
+          if t["device_ms"] else "not measured",
+          launch_floor_ms=f"{t['launch_floor_ms']:.4f}"
+          if t.get("launch_floor_ms") else "not measured")
+
+
+# phase 2g's ragged case: the Higgs path's rows plus 3, padded to four
+# equal shards as GspmdGrower pads them (250,001 rows a shard: each
+# shard's first row at another residue mod 4)
+N_RAGGED = N_ROWS + 3
+
+
+def check_route_rows_ragged(dev, rng, floor_ms=None):
+    """Phase 2g with shards of a row count that is no multiple of 4:
+    1,000,003 rows padded to 4 x 250,001 (the pad rows in a leaf of their
+    own), so that the shards' first rows lie at every residue of a
+    16-byte boundary and the column's 4-row words are aligned in shard 0
+    only; uint8 and uint16 (1,023 bins) column-major bins, splits of each
+    missing type and a categorical one from a leaf of many rows, of about
+    1,000 and the root, and the sink: the map bit for bit against the
+    plain version and the counts exact.  Times at the uint8 root."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta
+    from lightgbm_tpu_torch.ops.histogram import movable
+    from lightgbm_tpu_torch.ops.route import route_rows, route_rows_plain
+    shards, L = MESH_SLOTS, 255
+    n_loc = -(-N_RAGGED // shards)
+    n = n_loc * shards
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    p = 1.0 / np.arange(1, L - 1) ** 1.1
+    skewed = rng.choice(L - 2, n, p=p / p.sum()).astype(np.int32)
+    skewed[N_RAGGED:] = L - 2              # the pad rows: a leaf of their own
+    sizes = np.bincount(skewed, minlength=L)
+    small = int(np.argmin(np.abs(sizes - 1000)))
+    root = np.zeros(n, np.int32)
+    root[N_RAGGED:] = L - 2
+    maps = {"skewed": torch.from_numpy(skewed).to(dev),
+            "root": torch.from_numpy(root).to(dev)}
+
+    def counts_of(rl):
+        return torch.stack([torch.bincount(r.long(), minlength=L + 1)
+                            for r in rl.view(shards, -1)]).int()
+
+    checked = moved_total = 0
+    timing = {}
+    for dtype, nb, splits in (
+            (np.uint8, N_BINS, {"none": (0, 100, 1, False),
+                                "zero": (1, 50, 0, False),
+                                "nan": (2, 200, 1, False),
+                                "categorical": (4, 0, 0, True)}),
+            (np.uint16, WIDE_BINS, {f"u16_{i}": sp for i, sp in
+                                    enumerate(WIDE_SPLITS[:4])})):
+        meta = FeatureMeta(i32([nb] * N_FEAT),
+                           i32([k % 3 for k in range(N_FEAT)]),
+                           i32([(37 * k) % nb for k in range(N_FEAT)]))
+        block = torch.from_numpy(rng.integers(0, nb, (n, N_FEAT)).astype(
+            dtype)).to(dev)
+        bins_t = movable(block).t().contiguous().view(block.dtype)
+        del block
+        catb = torch.from_numpy(rng.random((L + 1, nb)) < 0.5).to(dev)
+        cases = [(f"{name}_{where}", maps[m], leaf, new, split)
+                 for name, split in splits.items()
+                 for where, m, leaf, new in (("many", "skewed", 0, L - 1),
+                                             ("1000", "skewed", small, L - 1),
+                                             ("root", "root", 0, 1))]
+        cases.append(("sink", maps["skewed"], L, L, next(iter(
+            splits.values()))))
+        for case, rl0, leaf, new, split in cases:
+            si = np.zeros((L + 1, 3), np.int32)
+            cat = np.zeros(L + 1, bool)
+            si[leaf], cat[leaf] = split[:3], split[3]
+            si[L] = (-1, 0, 0)
+            si, cat = (torch.from_numpy(a).to(dev) for a in (si, cat))
+            lt, nt = i32([leaf]).long(), i32([new]).long()
+            out = {}
+            for kind, fn in (("kernel", route_rows),
+                             ("plain", route_rows_plain)):
+                rl, cnt = rl0.clone(), counts_of(rl0)
+                fn(rl, bins_t, lt, nt, si, cat, catb, meta, cnt)
+                out[kind] = (rl, cnt)
+            torch.cuda.synchronize()
+            (rk, ck), (rp, cp) = out["kernel"], out["plain"]
+            if not (torch.equal(rk, rp) and torch.equal(ck, cp)
+                    and torch.equal(ck, counts_of(rk))):
+                fail(f"route_rows != plain on {n_loc}-row shards "
+                     f"({np.dtype(dtype).name}) at {case}: "
+                     f"{int((rk != rp).sum())} rows differ")
+            moved = int((rk != rl0).sum())
+            if (case == "sink") != (moved == 0):
+                fail(f"route_rows moved {moved} rows at {case} on "
+                     f"{n_loc}-row shards")
+            moved_total += moved
+            checked += 1
+        if dtype is np.uint8:
+            rl = maps["root"].clone()
+            si = torch.zeros((L + 1, 3), dtype=torch.int32, device=dev)
+            si[0] = i32(list(splits["nan"][:3]))
+            cat = torch.zeros(L + 1, dtype=torch.bool, device=dev)
+            lt = i32([0]).long()
+            cnt = counts_of(rl)
+            probe = rl.clone()
+            route_rows_plain(probe, bins_t, lt, i32([L - 1]).long(), si, cat,
+                             catb, meta, cnt.clone())
+            moved = int((probe != rl).sum())
+            k = three_times(lambda: route_rows(rl, bins_t, lt, lt, si, cat,
+                                               catb, meta, cnt))
+            timing["ragged_root"] = dict(
+                k, bound_ms=route_rows_bound_ms(n, N_RAGGED, moved),
+                launch_floor_ms=floor_ms, leaf_rows=N_RAGGED, moved=moved)
+            rows_time_line("ragged_root", n, timing["ragged_root"],
+                           rows_a_shard=n_loc)
+        del bins_t
+    phase("route_rows_vs_plain", set="ragged", rows=n, rows_a_shard=n_loc,
+          shards=shards, dtypes="uint8,uint16", cases=checked,
+          rows_moved=moved_total, exact=True)
+    del maps
     return timing
 
 
@@ -2182,7 +2314,7 @@ def check_route_bundled(dev, rng):
     return timing
 
 
-def check_route_rows_bundled(dev, rng):
+def check_route_rows_bundled(dev, rng, floor_ms=None):
     """Phase 2g on a bundled column: the data-parallel route kernel
     against its plain version, bit for bit in the map and exact in the
     counts, on the Covertype layout's bundled bins (464,808 rows as four
@@ -2257,14 +2389,9 @@ def check_route_rows_bundled(dev, rng):
                                                 scatb, meta, cnt), reps=3)
         bound_ms = route_rows_bound_ms(n, leaf_rows, moved, bundled=True)
         timing[label] = dict(k, plain_ms=p_ms, bound_ms=bound_ms,
-                             leaf_rows=leaf_rows, moved=moved)
-        phase("route_rows_time", leaf=label, rows=n, leaf_rows=leaf_rows,
-              moved=moved,
-              **{k_: f"{v:.4f}" for k_, v in timing[label].items()
-                 if isinstance(v, float) and k_ != "bound_ms"},
-              bound_ms=f"{bound_ms:.5f}",
-              bound_share=f"{bound_ms / k['device_ms']:.3f}"
-              if k["device_ms"] else "not measured")
+                             launch_floor_ms=floor_ms, leaf_rows=leaf_rows,
+                             moved=moved)
+        rows_time_line(label, n, timing[label])
     del bins_t, maps
     return timing
 
@@ -2295,7 +2422,7 @@ def route_block_bound_ms(n: int, sectors: int, moved: int, cat_width: int,
             + (8 if bundled else 0)) / H100_BYTES_PER_S * 1e3
 
 
-def check_route_rows_block(dev, rng):
+def check_route_rows_block(dev, rng, floor_ms=None):
     """Phase 2j: ``route_rows`` on a row-major block, as the streamed
     grower passes it (``block.t()``, strides (1, F)), against its plain
     version on the same view and against the kernel on the column-major
@@ -2437,8 +2564,8 @@ def check_route_rows_block(dev, rng):
         col_sectors = route_sectors(leaf_idx, col, 1, n, 1)
         bound_ms = route_block_bound_ms(n, sectors, moved, N_BINS)
         timing[label] = dict(
-            k, plain_ms=p_ms, bound_ms=bound_ms, leaf_rows=len(leaf_idx),
-            moved=moved, sectors=sectors,
+            k, plain_ms=p_ms, bound_ms=bound_ms, launch_floor_ms=floor_ms,
+            leaf_rows=len(leaf_idx), moved=moved, sectors=sectors,
             column_major_ms=c["ms"], column_major_ms_many=c["ms_many"],
             column_major_device_ms=c["device_ms"],
             column_major_bound_ms=route_block_bound_ms(n, col_sectors,
@@ -2447,8 +2574,11 @@ def check_route_rows_block(dev, rng):
               leaf_rows=len(leaf_idx), moved=moved, sectors=sectors,
               column_major_sectors=col_sectors,
               **{k_: f"{v:.4f}" for k_, v in timing[label].items()
-                 if isinstance(v, float) and "bound" not in k_},
+                 if isinstance(v, float) and "bound" not in k_
+                 and k_ != "launch_floor_ms"},
               bound_ms=f"{bound_ms:.5f}",
+              launch_floor_ms=f"{floor_ms:.4f}" if floor_ms
+              else "not measured",
               column_major_bound_ms=(
                   f"{timing[label]['column_major_bound_ms']:.5f}"),
               bound_share=f"{bound_ms / k['device_ms']:.3f}"
@@ -2690,7 +2820,28 @@ def empty_launch_cost(dev, rng):
             if out[(name, cnt)][k] is not None else "not measured"
             for name in cases for k in ("ms_many", "device_ms")})
     del src, dst, scratch, gl, iota
+    out["route_rows_floor"] = route_rows_floor(dev)
+    phase("route_rows_launch_floor", **{
+        k: f"{v:.4f}" if v is not None else "not measured"
+        for k, v in out["route_rows_floor"].items()})
     return out
+
+
+def route_rows_floor(dev) -> dict:
+    """The launch floor of ``route_rows``: a call on a map of no rows
+    (one block that finds no row and returns, the leaf and the split
+    still read), single, back to back and device."""
+    import torch
+    from lightgbm_tpu_torch.grower import FeatureMeta
+    from lightgbm_tpu_torch.ops.route import route_rows
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    meta = FeatureMeta(i32([N_BINS]), i32([0]), i32([0]))
+    rl = torch.empty(0, dtype=torch.int32, device=dev)
+    bins_t = torch.empty((1, 0), dtype=torch.uint8, device=dev)
+    lt = torch.zeros(1, dtype=torch.int64, device=dev)
+    si32, cnt = i32([[0, 100, 1]]), i32([[0]])
+    return three_times(lambda: route_rows(rl, bins_t, lt, lt, si32, None,
+                                          None, meta, cnt))
 
 
 def loop_state(inner):
@@ -7733,7 +7884,8 @@ SERVE_ROUNDS = 100              # 26a: the 100-tree, 255-leaf Higgs model
 SERVE_BUCKETS = (1, 8, 64, 512, 4096)   # the engine's default ladder
 SERVE_CHECK_ROWS = 100_000      # 26a: rows of the largest check, phase 3's
 #                                 held-out count
-SERVE_TIMED_ROWS = (1, 64, 4096)
+SERVE_PASS_ROWS = 1 << 16       # 26a: a row pass (predictor.ROWS_PER_PASS)
+SERVE_TIMED_ROWS = (1, 64, 4096, SERVE_PASS_ROWS)
 SERVE_REQUESTS = 2_000          # 26b: requests of the replay
 SERVE_CLIENTS = 8               # 26b: clients, each waiting for its answer
 SINGLE_REQUESTS = 200           # 26b: lone 1-row requests, one at a time
@@ -7871,6 +8023,113 @@ def margin_bound_ms(leaf, num_class: int) -> tuple:
     return nbytes / H100_BYTES_PER_S * 1e3, nbytes
 
 
+def leaf_levels(lc: np.ndarray, rc: np.ndarray) -> np.ndarray:
+    """The levels of each leaf's descent, int64 ``[T, P + 1]``, from the
+    children tables (a leaf encoded ``~leaf``): the internal nodes on its
+    path from node 0, a stump's node 0 (its two children one leaf)
+    counting one, as the kernel's loop steps through it."""
+    t_count, p = lc.shape
+    out = np.zeros((t_count, p + 1), np.int64)
+    for t in range(t_count):
+        todo = [(0, 1)]
+        while todo:
+            node, depth = todo.pop()
+            for c in (int(lc[t, node]), int(rc[t, node])):
+                if c < 0:
+                    out[t, ~c] = depth
+                else:
+                    todo.append((c, depth + 1))
+    return out
+
+
+_LOAD = re.compile(r"^(?:@!?P\w+\s+)?LD[GS]?(?:\.|\s)")
+
+
+def level_paths(ins, staging=re.compile(r"(?:^|\s)(?:LDGSTS|STS)\b")):
+    """The level loop of a function's listing (:func:`sass_instructions`)
+    and the SASS instructions a pass through it issues: the level loop is
+    the largest innermost loop (a backward branch whose body holds no
+    other backward branch) that neither copies nor stores into shared
+    memory (the staging loops do); the branch to itself that ends every
+    kernel is no loop.  A pass runs from the loop's first instruction to
+    its backward branch, each forward branch inside taken or not (an
+    unconditional one always taken); predicated instructions issue
+    either way.  Returns (least, row, loop): the fewest instructions of
+    any pass (a stump's node 0, passed without reading the row), the
+    fewest of a pass that loads more than that one does (a level that
+    reads the row: its node's decision), and the loop's length; (0, 0, 0)
+    where the listing has no such loop."""
+    addr = [a for a, _, _ in ins]
+    target = lambda op: re.search(
+        r"\bBRA\S*\s+(?:!?U?P\w+,\s*)?`?\(?(0x[0-9a-f]+)", op)
+    back = []
+    for i, (a, op, _) in enumerate(ins):
+        m = target(op)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in addr:
+            back.append((addr.index(int(m.group(1), 16)), i))
+    loops = [(lo, hi) for lo, hi in back
+             if not any(lo <= j < hi for _, j in back)
+             and not any(staging.search(ins[j][1])
+                         for j in range(lo, hi + 1))]
+    if not loops:
+        return 0, 0, 0
+    lo, hi = max(loops, key=lambda l: l[1] - l[0])
+    # paths[j]: {loads: fewest instructions} of the passes reaching j
+    paths = {lo: {0: 0}}
+    done = {}
+    for j in range(lo, hi + 1):
+        here = paths.pop(j, None)
+        if here is None:
+            continue
+        op = ins[j][1]
+        step = {k + bool(_LOAD.match(op)): n + 1 for k, n in here.items()}
+        if j == hi:
+            done = step
+            break
+        m = target(op)
+        nxt = []
+        if m and ins[j][0] < int(m.group(1), 16) <= ins[hi][0]:
+            nxt.append(addr.index(int(m.group(1), 16)))
+            if op.startswith("@"):
+                nxt.append(j + 1)
+        elif not (m and not op.startswith("@")) and not op.startswith(
+                "EXIT"):
+            nxt.append(j + 1)
+        for t in nxt:
+            into = paths.setdefault(t, {})
+            for k, n in step.items():
+                into[k] = min(n, into.get(k, n))
+    if not done:
+        return 0, 0, hi + 1 - lo
+    least = min(done.values())
+    fewest = min(k for k, n in done.items() if n == least)
+    row = [n for k, n in done.items() if k > fewest]
+    return least, min(row) if row else least, hi + 1 - lo
+
+
+_TRAVERSE_SASS = {}
+
+
+def level_instructions(layout: str, stage: int) -> tuple:
+    """(least, row, loop) SASS instructions a level of the
+    ``lgbt_traverse`` instantiation of this layout and stage issues, read
+    from the built library (``cuobjdump -sass``, :func:`level_paths`): a
+    stump's pass-through level, a level that reads the row (whichever
+    arm its decision takes), and the level loop's length.  NaN where the
+    listing has no level loop."""
+    from lightgbm_tpu_torch.ops import build
+    if "text" not in _TRAVERSE_SASS:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        _TRAVERSE_SASS["text"] = subprocess.run(
+            [tool, "-sass", build.library_path("traverse")],
+            capture_output=True, text=True, timeout=120).stdout \
+            if os.path.exists(tool) else ""
+    symbol = "lgbt_traverse_kernelILi{}ELi{}E".format(
+        1 if layout == "packed" else 0, stage)
+    got = level_paths(sass_instructions(_TRAVERSE_SASS["text"], symbol))
+    return got if got[0] else (float("nan"),) * 3
+
+
 def serving_kernels_vs_plain(name: str, model_str: str, x: np.ndarray,
                              row_counts, timed_rows=()) -> dict:
     """Phase 26a on one model: both kernels against their plain versions
@@ -7881,18 +8140,27 @@ def serving_kernels_vs_plain(name: str, model_str: str, x: np.ndarray,
     one-call yardstick (a ``gather`` and a ``sum`` of the leaf values, not
     the same order and so not the same bits) and the bounds, each layout's
     traversal beside the other; the kernels line reads the serving path's
-    layout (``serving_layout``)."""
+    layout (``serving_layout``).  The traversal's bound is the larger of
+    its byte bound and its issue bound: the levels these rows' descents
+    take (:func:`leaf_levels`), each times the fewest SASS instructions
+    such a level issues in the instantiation the call's plan picks (one
+    that reads the row; a stump's node 0, fewer:
+    :func:`level_instructions`), over the card's issue rate, each bound
+    checked to lie below the device time (``bound_below_time``)."""
     import torch
     from lightgbm_tpu_torch import Booster
     from lightgbm_tpu_torch.ops.traverse import (
-        margin, margin_plain, pack_data, traverse, traverse_packed_plain,
-        traverse_plain)
+        call_plan, margin, margin_plain, pack_data, traverse,
+        traverse_packed_plain, traverse_plain)
     bst = Booster(model_str=model_str, params={"device": "cuda"})
     engine = bst.inner.predict_engine()
     bundle, main, trees = engine.bundle, engine.traversal, bst.inner.models
     k = bundle.num_class
     lv = bundle.leaf_value
     layouts = ("xla", "packed") if bundle.packed else ("xla",)
+    lc, rc = bundle.left.cpu().numpy(), bundle.right.cpu().numpy()
+    depths = leaf_levels(lc, rc)
+    stumps = int((lc[:, 0] == rc[:, 0]).sum())   # node 0 read no row
     out = {"trees": bundle.num_trees, "classes": k,
            "max_depth": bundle.max_depth, "used_columns": bundle.num_cols,
            "layouts": "+".join(layouts), "serving_layout": main,
@@ -7938,18 +8206,42 @@ def serving_kernels_vs_plain(name: str, model_str: str, x: np.ndarray,
                      (lambda: traverse_packed_plain(data, *nodes)))
             t_k = three_times(lambda: traverse(b_in, nodes, layout,
                                                out=leaf))
-            bound, nbytes = traverse_bound_ms(bundle, trees, leaf, layout)
+            byte_ms, nbytes = traverse_bound_ms(bundle, trees, leaf, layout)
+            plan = call_plan(b_in, nodes, layout)
+            levels = int(np.take_along_axis(
+                depths, leaf.cpu().numpy().astype(np.int64), 1).sum())
+            stump_ins, per_level, loop_len = level_instructions(
+                layout, plan.stage)
+            issue_ms = ((levels - stumps * n) * per_level + stumps * n
+                        * stump_ins) / H100_THREAD_INSTR_PER_S * 1e3
+            bound = max(byte_ms, issue_ms)
             pre = f"traverse_{layout}_"
             out.update({f"{pre}ms{tag}": t_k["ms"],
                         f"{pre}ms_many{tag}": t_k["ms_many"],
                         f"{pre}device_ms{tag}": t_k["device_ms"],
                         f"{pre}plain_ms{tag}": cuda_ms(plain, reps=3),
                         f"{pre}bound_ms{tag}": bound,
-                        f"{pre}bound_bytes{tag}": nbytes})
+                        f"{pre}bound_by{tag}": "operations"
+                        if issue_ms > byte_ms else "bytes",
+                        f"{pre}byte_bound_ms{tag}": byte_ms,
+                        f"{pre}issue_bound_ms{tag}": issue_ms,
+                        f"{pre}bound_share{tag}": bound / t_k["device_ms"]
+                        if t_k["device_ms"] else None,
+                        f"{pre}bound_bytes{tag}": nbytes,
+                        f"{pre}levels{tag}": levels,
+                        f"{pre}level_instructions{tag}": per_level,
+                        f"{pre}loop_instructions{tag}": loop_len,
+                        f"{pre}bound_below_time{tag}": bound <= t_k[
+                            "device_ms"] if t_k["device_ms"] else None,
+                        f"{pre}plan{tag}": f"G{plan.group}_R{plan.rows_tile}"
+                                           f"_stage{plan.stage}"})
         # the serving path's layout (inference.py: packed where the model
         # has the node words) under the kernels line's names
         for key in ("ms", "ms_many", "device_ms", "plain_ms", "bound_ms",
-                    "bound_bytes"):
+                    "bound_by", "byte_bound_ms", "issue_bound_ms",
+                    "bound_share", "bound_bytes", "levels",
+                    "level_instructions", "loop_instructions",
+                    "bound_below_time", "plan"):
             out[f"traverse_{key}{tag}"] = out[
                 f"traverse_{main}_{key}{tag}"]
         s = torch.zeros((k, n), dtype=torch.float64, device=lv.device)
@@ -7974,6 +8266,118 @@ def serving_kernels_vs_plain(name: str, model_str: str, x: np.ndarray,
         out["device_ns_per_chain_load_1"] = \
             out["traverse_device_ms_1"] * 1e6 / chain
     phase(f"serving_kernels_{name}", **out)
+    return out
+
+
+def synthetic_tables(rng, t_count: int, leaves: int, fc: int, nb: int,
+                     cat_rows: int = 0):
+    """Random trees' node tables in the SoA layout (numpy), from ``rng``:
+    node 0 the root, each further node hung under a random open child
+    slot of an earlier one, the slots left over the leaves (``~leaf``); a
+    random column, threshold rank below ``nb``, missing type and default
+    side a node; with ``cat_rows``, a tenth of the nodes categorical, each
+    on a random row of the ``[cat_rows, 64]`` mask."""
+    p = leaves - 1
+    feat = rng.integers(0, fc, (t_count, p)).astype(np.int32)
+    thr = rng.integers(0, nb, (t_count, p)).astype(np.int32)
+    dl = rng.random((t_count, p)) < 0.5
+    miss = rng.integers(0, 3, (t_count, p)).astype(np.int32)
+    lc = np.full((t_count, p), -1, np.int32)
+    rc = np.full((t_count, p), -1, np.int32)
+    for t in range(t_count):
+        slots = [(0, 0), (0, 1)]
+        pick = rng.integers(0, 1 << 30, p)
+        for i in range(1, p):
+            j = int(pick[i]) % len(slots)
+            slots[j], slots[-1] = slots[-1], slots[j]
+            node, side = slots.pop()
+            (lc if side == 0 else rc)[t, node] = i
+            slots += [(i, 0), (i, 1)]
+        for leaf, (node, side) in enumerate(slots):
+            (lc if side == 0 else rc)[t, node] = ~leaf
+    ic = (rng.random((t_count, p)) < 0.1) if cat_rows else np.zeros(
+        (t_count, p), bool)
+    cref = np.where(ic, rng.integers(0, max(cat_rows, 1), (t_count, p)),
+                    0).astype(np.int32)
+    cmask = rng.random((max(cat_rows, 1), 64)) < 0.5
+    return feat, thr, dl, miss, lc, rc, ic, cref, cmask
+
+
+def synthetic_rows(rng, fc: int, n: int, nb: int):
+    """Binned rows for :func:`synthetic_tables`: int32 ``[fc, n]`` ranks
+    in ``[0, nb]`` and categories in ``[-3, 70)`` (some past a 64-wide
+    mask, some negative), a tenth NaN and a tenth zero."""
+    return (rng.integers(0, nb + 1, (fc, n)).astype(np.int32),
+            rng.integers(-3, 70, (fc, n)).astype(np.int32),
+            rng.random((fc, n)) < 0.1, rng.random((fc, n)) < 0.1)
+
+
+# 26a past the stage: (label, trees, leaves, columns, categorical mask
+# rows, the stage the plan must pick for the packed words at 4,096 rows)
+PAST_STAGE = (("nodes_16384_leaves", 6, 16_384, 28, 0, "none"),
+              ("categorical_16384_leaves", 6, 16_384, 28, 2_000, "none"),
+              ("columns_300", 64, 255, 300, 0, "none"))
+
+
+def traverse_past_stage(dev, rng, rows=(1, 64, 4096)) -> dict:
+    """Phase 26a past the shared-memory stage: synthetic ensembles (node
+    tables made from the seed, no training, :data:`PAST_STAGE`) whose
+    plans stage less than everything, the traversal in both layouts bit
+    for bit against the plain versions at each row count of ``rows``:
+    trees of 16,384 leaves (131 KB of packed nodes a tree: nothing
+    staged, the walk from global memory), numerical and with categorical
+    nodes over a 2,000 x 64 mask (node tables); 64 trees of 255 leaves
+    over 300 columns (at 4,096 rows the tile's data words do not fit
+    beside the nodes: nothing staged, both from global memory).
+    Times each set's packed (else node-table) call at 4,096 rows."""
+    import torch
+    from lightgbm_tpu_torch.ops.traverse import (
+        STAGE_ALL, STAGE_NONE, call_plan, pack_data, pack_nodes, traverse,
+        traverse_packed_plain, traverse_plain)
+    stages = {"none": STAGE_NONE, "all": STAGE_ALL}
+    out = {}
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for label, t_count, leaves, fc, cat_rows, want in PAST_STAGE:
+        tables = [put(a) for a in synthetic_tables(rng, t_count, leaves, fc,
+                                                   200, cat_rows)]
+        packable = not cat_rows
+        words = pack_nodes(*tables[:6]) if packable else None
+        for n in rows:
+            binned = tuple(put(a) for a in synthetic_rows(rng, fc, n, 200))
+            got = traverse(binned, tables, "xla")
+            ref = traverse_plain(*binned, *tables)
+            calls = [("xla", got, ref, call_plan(binned, tables, "xla"))]
+            if packable:
+                data = pack_data(binned[0], binned[2], binned[3])
+                calls.append(("packed", traverse((data,), words, "packed"),
+                              traverse_packed_plain(data, *words),
+                              call_plan((data,), words, "packed")))
+            torch.cuda.synchronize()
+            for layout, k, p, plan in calls:
+                if not torch.equal(k, p):
+                    fail(f"26a past the stage: lgbt_traverse ({layout}) "
+                         f"differs from its plain version on {label} at "
+                         f"{n} rows")
+                if (n == 4096 and layout == "packed"
+                        and plan.stage != stages[want]):
+                    fail(f"26a past the stage: {label}'s plan stages "
+                         f"{plan.stage}, not {want}")
+                out[f"{label}_{layout}_plan_{n}"] = (
+                    f"G{plan.group}_R{plan.rows_tile}_stage{plan.stage}")
+            if packable and not torch.equal(calls[0][1], calls[1][1]):
+                fail(f"26a past the stage: the layouts' leaves differ on "
+                     f"{label} at {n} rows")
+            if n == 4096:
+                layout = "packed" if packable else "xla"
+                b_in = (data,) if packable else binned
+                nodes = words if packable else tables
+                t = three_times(lambda: traverse(b_in, nodes, layout))
+                out.update({f"{label}_{layout}_{k}_4096": v
+                            for k, v in t.items()})
+        out[f"{label}_max_depth"] = int(leaf_levels(
+            tables[4].cpu().numpy(), tables[5].cpu().numpy()).max())
+    phase("serving_kernels_past_stage", sets=len(PAST_STAGE),
+          rows=",".join(map(str, rows)), exact=True, **out)
     return out
 
 
@@ -8338,9 +8742,13 @@ def phase_26(params, ds, x_te, y_te) -> dict:
     text = bst.model_to_string()
     x = nan_zero_rows(x_te, rng)
     rows = SERVE_BUCKETS + (SERVE_CHECK_ROWS,)
-    kernels = serving_kernels_vs_plain("higgs_100", text, x, rows,
-                                       SERVE_TIMED_ROWS)
+    kernels = serving_kernels_vs_plain(
+        "higgs_100", text, x, SERVE_BUCKETS + (SERVE_PASS_ROWS,
+                                              SERVE_CHECK_ROWS),
+        SERVE_TIMED_ROWS)
     serving_kernels_vs_plain("stumps", stumps_model(), x, rows)
+    kernels["past_stage"] = traverse_past_stage(
+        torch.device("cuda"), np.random.default_rng(SEED + 261))
     kernel_s, eager_s = eager_predict_s(bst, x_te)
     phase("serving_predict_100k", model_trees=bst.num_trees(),
           train_s=f"{t_train:.3f}", rows=len(x_te),
@@ -9086,16 +9494,19 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phase 2f: the cost of the split step's gated launches ------------
-    empty_launch_cost(dev, rng)
+    floor_ms = empty_launch_cost(dev, rng)["route_rows_floor"]["device_ms"]
     torch.cuda.empty_cache()
 
     # ---- phase 2g: data-parallel route kernel vs plain on the card --------
-    rows_timing = check_route_rows(dev, rng)
-    rows_timing.update(check_route_rows_bundled(dev, rng))
+    rows_timing = check_route_rows(dev, rng, floor_ms)
+    rows_timing.update(check_route_rows_bundled(dev, rng, floor_ms))
+    # its own generator: the phases after it keep their data
+    rows_timing.update(check_route_rows_ragged(
+        dev, np.random.default_rng(SEED + 27), floor_ms))
     torch.cuda.empty_cache()
 
     # ---- phase 2j: data-parallel route kernel on a row-major block --------
-    block_timing = check_route_rows_block(dev, rng)
+    block_timing = check_route_rows_block(dev, rng, floor_ms)
     torch.cuda.empty_cache()
 
     # ---- phase 2k: the block-sharded route kernel -------------------------
@@ -9507,8 +9918,9 @@ def main() -> None:
         "bound_ms": rows_timing["root"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "ms_many": rows_timing["root"]["ms_many"],
         "device_ms": rows_timing["root"]["device_ms"],
+        "launch_floor_ms": floor_ms,
         **{f"{k}_{w}": v for w in ("leaf_1000", "bundled_root",
-                                   "bundled_leaf_4000")
+                                   "bundled_leaf_4000", "ragged_root")
            for k, v in rows_timing[w].items()}, **u16("route_rows")}, {
         "name": "lambdarank", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",
@@ -9570,12 +9982,15 @@ def main() -> None:
         "ms": serving["kernels"]["traverse_ms_4096"],
         "plain_ms": serving["kernels"]["traverse_plain_ms_4096"],
         "bound_ms": serving["kernels"]["traverse_bound_ms_4096"],
-        "bound_by": "bytes", "library_ms": None,
+        "bound_by": serving["kernels"]["traverse_bound_by_4096"],
+        "library_ms": None,
         "layout": serving["kernels"]["serving_layout"],
         # not in bound_ms: the chain of dependent loads down the deepest
         # path, and the device time of one row over it
         **{k: serving["kernels"][k] for k in (
-            "latency_chain_loads", "device_ns_per_chain_load_1")}}, {
+            "latency_chain_loads", "device_ns_per_chain_load_1")},
+        **{f"past_stage_{k}": v for k, v in serving["kernels"][
+            "past_stage"].items()}}, {
         "name": "lgbt_margin", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/traverse.cu",
         "replaces": "lightgbm_tpu/inference.py:826",

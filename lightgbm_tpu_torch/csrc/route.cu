@@ -49,10 +49,9 @@
 // int64[1].  The bins are read through two strides, in elements: column
 // c of row r is bins[c * col_stride + r * row_stride].  The data-parallel
 // learner passes a column-major copy of a device's rows (col_stride the
-// rows, row_stride 1), so a warp reads 32 neighbouring bins of the split
-// column; the streamed grower passes the block as it arrived from the
-// host, the row-major [n, F] slice of the bin matrix (col_stride 1,
-// row_stride F), so each row's bin lies in a sector of its own once a
+// rows, row_stride 1); the streamed grower passes the block as it arrived
+// from the host, the row-major [n, F] slice of the bin matrix (col_stride
+// 1, row_stride F), so each row's bin lies in a sector of its own once a
 // row is 32 bytes or more.  blockIdx.y is the shard; each block counts
 // the rows it moved, sums them over the block (warp shuffles, then shared
 // memory) and adds them to the shard's count of `new` and takes them from
@@ -64,7 +63,31 @@
 // sector a row row-major once F bins are 32 bytes or more; a sector each
 // wherever the leaf's rows are scattered) and 4 a moved row written (a
 // bundled column adds two 4-byte reads a call, none a row); after the
-// tree's stop no row holds the sink leaf and nothing is written.
+// tree's stop no row holds the sink leaf and nothing is written.  At a
+// million rows those bytes take about a microsecond, so what a call costs
+// is latency and fixed work.  Column-major (kColumn), the design goes
+// after those:
+//   - one wave: the grid (ops/route.py:rows_grid) gives a thread
+//     kRowsUnroll vectors of 4 rows and is capped at one wave, so that
+//     every block is resident at once (kRowsBlocksPerSm blocks an SM,
+//     held by __launch_bounds__) and pays its prologue once;
+//   - the split-independent loads first: a thread issues its first
+//     round of row_leaf loads before it resolves the split chain (leaf ->
+//     split row -> column and offset -> the feature's bin count, missing
+//     type and default bin), so the chain's latency hides behind them;
+//   - row_leaf in 16-byte vectors of 4 rows, kRowsUnroll of them in flight
+//     a thread, with the streaming cache hint; the rows before the
+//     shard's first 16-byte boundary (its base is shard * n_loc, any
+//     residue mod 4) and after its last whole vector go one row a thread
+//     in block 0;
+//   - the bins of a 4-row group are read as one 4-byte (uint8) or 8-byte
+//     (uint16) word, and only for a group that holds a row of the leaf
+//     (one bin a leaf row where the shard's column is not aligned to the
+//     word);
+//   - a group with a moved row is written back as one 16-byte store.
+// Row-major, one row a thread over a grid-stride loop, the split chain
+// resolved first, one bin a leaf row: the vector design measured slower
+// there (PERF.md §6), at the root and most at a leaf of a thousand rows.
 //
 // lgbt_block_route (the data-parallel learner with block-sharded
 // bins, shard_axes=batch,feature) is lgbt_route_rows over bins that no
@@ -254,12 +277,69 @@ struct RowsArgs {
 
 namespace {
 
-template <class T>
-__global__ void __launch_bounds__(kThreads) lgbt_route_rows_kernel(
-    RowsArgs a) {
+constexpr int kRowsUnroll = 4;       // ops/route.py ROWS_UNROLL: 16-byte
+                                     // row_leaf vectors in flight a thread
+constexpr int kRowsBlocksPerSm = 4;  // ops/route.py ROWS_BLOCKS_PER_SM
+
+// The bins of the 4-row group whose first bin is at col (aligned to the
+// word): one 4-byte (uint8) or 8-byte (uint16) load, little-endian.
+__device__ __forceinline__ void group_word(const uint8_t* col, int b[4]) {
+  const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(col));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b[i] = (w >> (8 * i)) & 0xff;
+}
+
+__device__ __forceinline__ void group_word(const uint16_t* col, int b[4]) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(col));
+  b[0] = w.x & 0xffff;
+  b[1] = w.x >> 16;
+  b[2] = w.y & 0xffff;
+  b[3] = w.y >> 16;
+}
+
+// kColumn: the bins' row stride is 1 (the column-major copy of the
+// data-parallel learner): row_leaf in 4-row vectors, loaded before the
+// split chain, and a 4-row group's bins read as one word.  Otherwise (the
+// streamed grower's row-major block) one row a thread, grid-stride, the
+// split chain first: that loop measured faster there (PERF.md §6).
+template <class T, bool kColumn>
+__global__ void __launch_bounds__(kThreads, kRowsBlocksPerSm)
+lgbt_route_rows_kernel(RowsArgs a) {
   __shared__ int warp_moved[kThreads / 32];
   const long long l = *static_cast<const long long*>(a.leaf);
   const int32_t nw = (int32_t)*static_cast<const long long*>(a.new_leaf);
+  const int shard = blockIdx.y;
+  const long long n = a.n_loc;
+  const long long base = (long long)shard * n;
+  int32_t* rl = static_cast<int32_t*>(a.row_leaf) + base;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  // column-major, the shard's rows: a head up to the first 16-byte
+  // boundary of row_leaf, vectors of 4 rows, a tail after the last whole
+  // vector; the head and tail rows go one a thread to block 0
+  long long head = 0, nvec = 0, solo = -1;
+  int solo_leaf = -1;
+  int4 v[kRowsUnroll];
+  int4* vec = nullptr;
+  if constexpr (kColumn) {
+    head = min((long long)((4 - (((uintptr_t)rl >> 2) & 3)) & 3), n);
+    nvec = (n - head) >> 2;
+    const long long tail0 = head + 4 * nvec;
+    vec = reinterpret_cast<int4*>(rl + head);
+    if (blockIdx.x == 0) {
+      if (threadIdx.x < head)
+        solo = threadIdx.x;
+      else if (threadIdx.x >= 32 && threadIdx.x - 32 < n - tail0)
+        solo = tail0 + threadIdx.x - 32;
+    }
+    // the first round's row_leaf loads go out before the split chain
+    solo_leaf = solo >= 0 ? __ldcs(rl + solo) : -1;
+#pragma unroll
+    for (int k = 0; k < kRowsUnroll; ++k) {
+      const long long j = g + k * stride;
+      v[k] = j < nvec ? __ldcs(vec + j) : make_int4(-1, -1, -1, -1);
+    }
+  }
   if (l < 0 || l >= a.n_leaves) return;
   const int32_t* sp = static_cast<const int32_t*>(a.split_i32) + 3 * l;
   const int feat = sp[0];
@@ -277,17 +357,10 @@ __global__ void __launch_bounds__(kThreads) lgbt_route_rows_kernel(
   const int mt = static_cast<const int32_t*>(a.missing_type)[feat];
   const int nb = static_cast<const int32_t*>(a.num_bin)[feat];
   const int db = static_cast<const int32_t*>(a.default_bin)[feat];
-  const int shard = blockIdx.y;
-  const long long base = (long long)shard * a.n_loc;
-  int32_t* rl = static_cast<int32_t*>(a.row_leaf) + base;
   const T* col = static_cast<const T*>(a.bins) + (long long)c * a.col_stride +
                  base * a.row_stride;
-  int moved = 0;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
-       p < a.n_loc; p += stride) {
-    if (rl[p] != l) continue;
-    const int b = decode_slot(__ldg(col + p * a.row_stride), off, nb, db);
+  auto goes_right = [&](int raw) {
+    const int b = decode_slot(raw, off, nb, db);
     bool left;
     if (is_cat) {
       left = __ldg(cat_row + min(b, a.cat_width - 1)) != 0;
@@ -296,9 +369,64 @@ __global__ void __launch_bounds__(kThreads) lgbt_route_rows_kernel(
                            (mt == kMissingZero && b == db);
       left = missing ? dleft : b <= thr;
     }
-    if (!left) {
-      rl[p] = nw;
+    return !left;
+  };
+  int moved = 0;
+  if constexpr (kColumn) {
+    // whether this shard's groups of 4 bins start on a word boundary
+    const bool words =
+        ((uintptr_t)(col + head) & (4 * sizeof(T) - 1)) == 0;
+    if (solo_leaf == l && goes_right(__ldg(col + solo))) {
+      rl[solo] = nw;
       ++moved;
+    }
+    for (long long j0 = g; j0 < nvec;) {
+      // every group's bins first (only where the group holds a leaf
+      // row), then the decisions
+      int b[kRowsUnroll][4];
+#pragma unroll
+      for (int k = 0; k < kRowsUnroll; ++k) {
+        const int r[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+        const long long p = head + 4 * (j0 + k * stride);
+        const bool any = r[0] == l || r[1] == l || r[2] == l || r[3] == l;
+        if (any && words) {
+          group_word(col + p, b[k]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            b[k][i] = r[i] == l ? __ldg(col + p + i) : 0;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRowsUnroll; ++k) {
+        int r[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+        int here = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (r[i] == l && goes_right(b[k][i])) {
+            r[i] = nw;
+            ++here;
+          }
+        }
+        if (here) {
+          vec[j0 + k * stride] = make_int4(r[0], r[1], r[2], r[3]);
+          moved += here;
+        }
+      }
+      j0 += kRowsUnroll * stride;
+#pragma unroll
+      for (int k = 0; k < kRowsUnroll; ++k) {
+        const long long j = j0 + k * stride;
+        v[k] = j < nvec ? __ldcs(vec + j) : make_int4(-1, -1, -1, -1);
+      }
+    }
+  } else {
+    for (long long p = g; p < n; p += stride) {
+      if (rl[p] != l) continue;
+      if (goes_right(__ldg(col + p * a.row_stride))) {
+        rl[p] = nw;
+        ++moved;
+      }
     }
   }
   moved = __reduce_add_sync(0xffffffffu, moved);
@@ -309,9 +437,9 @@ __global__ void __launch_bounds__(kThreads) lgbt_route_rows_kernel(
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) total += warp_moved[w];
     if (total) {
-      int* c = static_cast<int*>(a.counts) + (long long)shard * a.n_leaves;
-      atomicAdd(c + nw, total);
-      atomicAdd(c + l, -total);
+      int* cn = static_cast<int*>(a.counts) + (long long)shard * a.n_leaves;
+      atomicAdd(cn + nw, total);
+      atomicAdd(cn + l, -total);
     }
   }
 }
@@ -338,12 +466,18 @@ extern "C" int lgbt_route_rows(const RowsArgs* x) {
   if (err == cudaSuccess && prev != a.device) err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.grid_x, a.shards);
-  if (a.bin_bytes == 2)
-    lgbt_route_rows_kernel<uint16_t>
-        <<<grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
-  else
-    lgbt_route_rows_kernel<uint8_t>
-        <<<grid, kThreads, 0, (cudaStream_t)a.stream>>>(a);
+  cudaStream_t stream = (cudaStream_t)a.stream;
+  if (a.bin_bytes == 2) {
+    if (a.row_stride == 1)
+      lgbt_route_rows_kernel<uint16_t, true><<<grid, kThreads, 0, stream>>>(a);
+    else
+      lgbt_route_rows_kernel<uint16_t, false><<<grid, kThreads, 0, stream>>>(a);
+  } else {
+    if (a.row_stride == 1)
+      lgbt_route_rows_kernel<uint8_t, true><<<grid, kThreads, 0, stream>>>(a);
+    else
+      lgbt_route_rows_kernel<uint8_t, false><<<grid, kThreads, 0, stream>>>(a);
+  }
   const int rc = (int)cudaGetLastError();
   if (prev != a.device) {
     err = cudaSetDevice(prev);

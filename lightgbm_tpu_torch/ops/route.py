@@ -30,8 +30,11 @@ transpose of a row-major ``[n, F]`` block as it arrived from the host
 (the streamed grower's).  It also moves those rows' counts in a
 per-shard count of every leaf, which the shard-local histogram's device
 regime reads.  On a CUDA tensor it launches the second kernel of
-``csrc/route.cu``; on a CPU tensor it runs :func:`route_rows_plain`
-(:func:`route_goes_left`, ``masked_fill_`` and a per-shard ``sum``).
+``csrc/route.cu`` over the grid of :func:`rows_grid` (column-major: a
+wave at most, each thread ``ROWS_UNROLL`` 4-row vectors of ``row_leaf``;
+row-major: one row a thread); on a CPU tensor it runs
+:func:`route_rows_plain` (:func:`route_goes_left`, ``masked_fill_`` and a
+per-shard ``sum``).
 Neither reads anything back to the host.
 
 :func:`route_rows_block` is :func:`route_rows` over block-sharded bins
@@ -58,6 +61,11 @@ from .split import MISSING_NAN, MISSING_ZERO
 
 THREADS = 256           # threads a block (csrc/route.cu kThreads)
 MAX_BLOCKS_PER_SM = 16  # the grid's cap; threads stride beyond it
+ROWS_UNROLL = 4         # route_rows, column-major: 4-row vectors in
+#                         flight a thread (csrc/route.cu kRowsUnroll)
+ROWS_BLOCKS_PER_SM = 4  # route_rows, column-major: resident blocks an SM,
+#                         held by the kernel's launch bounds
+#                         (kRowsBlocksPerSm)
 
 
 def decode_slot(raw: torch.Tensor, off: torch.Tensor, nb: torch.Tensor,
@@ -276,6 +284,23 @@ def route_rows_plain(row_leaf: torch.Tensor, bins_t: torch.Tensor,
     return row_leaf
 
 
+def rows_grid(n_loc: int, shards: int, sms: int, column: bool) -> int:
+    """Blocks a shard of the ``route_rows`` kernel on a card of ``sms``
+    SMs.  Column-major bins (``column``, a row stride of 1): enough
+    blocks to give each thread ``ROWS_UNROLL`` vectors of 4 rows, and no
+    more than one wave over all ``shards`` (``ROWS_BLOCKS_PER_SM``
+    resident blocks an SM), past which a thread takes them round after
+    round.  Row-major: one row a thread, at most ``MAX_BLOCKS_PER_SM``
+    blocks an SM over the shards, the threads striding beyond."""
+    if column:
+        need = -(-(n_loc // 4 + 1) // (THREADS * ROWS_UNROLL))
+        cap = ROWS_BLOCKS_PER_SM * sms // shards
+    else:
+        need = -(-n_loc // THREADS)
+        cap = MAX_BLOCKS_PER_SM * sms // shards
+    return max(1, min(need, cap))
+
+
 # the C entry point's one argument (csrc/route.cu: RowsArgs): 13 pointers,
 # the shard's rows, the row and column strides, 8 ints and the stream
 _ROWS_ARGS = struct.Struct("@13P3q8iP")
@@ -347,8 +372,8 @@ def route_rows(row_leaf: torch.Tensor, bins_t: torch.Tensor,
                          "counts [S, leaves], and bool "
                          "split_cat and split_catb together")
     n_loc = n // shards
-    grid = max(1, min(-(-n_loc // THREADS),
-                      MAX_BLOCKS_PER_SM * sm_count(dev) // shards))
+    grid = rows_grid(n_loc, shards, sm_count(dev),
+                     bins_t.stride(1) == 1)
     ptr = lambda t: 0 if t is None else t.data_ptr()
     err = build.function("route", "lgbt_route_rows", [ctypes.c_char_p])(
         _ROWS_ARGS.pack(row_leaf.data_ptr(), bins_t.data_ptr(),

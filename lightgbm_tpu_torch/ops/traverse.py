@@ -24,24 +24,94 @@ On a CUDA tensor each wrapper launches its kernel, ``csrc/traverse.cu``
 a CPU tensor it runs the plain PyTorch version beside it
 (:func:`traverse_plain`, :func:`traverse_packed_plain`,
 :func:`margin_plain`).  Each wrapper counts its launches.
+:func:`traverse_plan` lays a traversal over the kernel's blocks: each a
+group of trees and a tile of rows, a packed layout's node words and the
+tile's data words staged in shared memory where they fit.
 """
 from __future__ import annotations
 
 import ctypes
 import struct
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from . import build
+from .histogram import sm_count
 
 MISSING_NONE, MISSING_ZERO, MISSING_NAN = 0, 1, 2
 LAYOUTS = ("xla", "packed")
 
 # the C entry points' one argument each (csrc/traverse.cu TraverseArgs,
 # MarginArgs): pointers, ints and the stream
-_TRAVERSE_ARGS = struct.Struct("@17P6iP")
+_TRAVERSE_ARGS = struct.Struct("@17P10iP")
 _MARGIN_ARGS = struct.Struct("@3P5iP")
+
+ROWS_TILE = 128            # rows a traversal block at most (kMaxRows)
+GROUP_MAX = 8              # trees a traversal block at most
+# blocks an SM that a plan's tree groups leave: a packed group shares one
+# staged copy of its nodes, so groups form at half a card of 128-thread
+# blocks; node tables stage nothing and group only past a full card (at
+# 4,096 rows a group of three lost to one, PERF.md §6)
+PACKED_BLOCKS_PER_SM = 8
+SOA_BLOCKS_PER_SM = 16
+STAGE_NONE, STAGE_ALL = 0, 1   # csrc/traverse.cu kStage*
+STAGE_BYTES = 96 * 1024    # a block's staged node words and data words
+#                            (kMaxSmem)
+
+
+class TraversePlan(NamedTuple):
+    """How ``lgbt_traverse`` lays a traversal over its blocks: block ``i``
+    walks trees ``[g * group, (g + 1) * group)`` (``g = i // tiles``) one
+    after another over rows ``[(i % tiles) * rows_tile, ...)``, one thread
+    a row (``threads`` a block); ``stage`` says whether a packed layout's
+    block first copies its group's node words and its tile's data words
+    into ``smem`` bytes of shared memory."""
+    rows_tile: int
+    threads: int
+    group: int
+    stage: int
+    smem: int
+    tiles: int
+    groups: int
+
+
+def traverse_plan(t_count: int, rows: int, nodes: int, cols: int,
+                  layout: str, sms: int) -> TraversePlan:
+    """The plan of a traversal of ``t_count`` trees of ``nodes`` node
+    slots over ``rows`` rows of ``cols`` binned columns on a card of
+    ``sms`` SMs.  Rows go in tiles of up to ``ROWS_TILE`` (a power of 2,
+    at least the rows when fewer).  Trees go in groups of as many as
+    leave ``PACKED_BLOCKS_PER_SM`` blocks an SM (packed) or
+    ``SOA_BLOCKS_PER_SM`` (node tables), at most ``GROUP_MAX`` (one at a
+    few rows, over every SM).  The packed layout stages the group's node
+    words beside the tile's data words where both fit ``STAGE_BYTES``, and
+    nothing where they do not (many columns, or a tree of more than
+    ``STAGE_BYTES`` of nodes).  The SoA layout stages nothing."""
+    rows_tile = min(ROWS_TILE, 1 << max(rows - 1, 0).bit_length())
+    tiles = -(-rows // rows_tile)
+    per_sm = PACKED_BLOCKS_PER_SM if layout == "packed" else \
+        SOA_BLOCKS_PER_SM
+    group = max(1, min(GROUP_MAX, t_count,
+                       t_count * tiles // (per_sm * sms)))
+    node_b = 8 * nodes * group
+    data_b = 4 * cols * rows_tile
+    if layout == "packed" and node_b + data_b <= STAGE_BYTES:
+        stage, smem = STAGE_ALL, node_b + data_b
+    else:
+        stage, smem = STAGE_NONE, 0
+    return TraversePlan(rows_tile, max(32, rows_tile), group, stage, smem,
+                        tiles, -(-t_count // group))
+
+
+def call_plan(binned: Sequence[torch.Tensor], nodes: Sequence[torch.Tensor],
+              layout: str) -> TraversePlan:
+    """The plan of ``traverse(binned, nodes, layout)`` on the card that
+    holds ``binned``."""
+    fc, n = binned[0].shape
+    t_count, p = nodes[0].shape
+    return traverse_plan(t_count, n, p, fc, layout,
+                         sm_count(binned[0].get_device()))
 
 
 def go_left(b, c, isnan, iszero, mt, dl, thr, ic, cref, cat_mask):
@@ -202,10 +272,12 @@ def traverse(binned: Sequence[torch.Tensor], nodes: Sequence[torch.Tensor],
                          f"the shapes in the module docstring")
     if t_count == 0 or n == 0:
         return out
+    plan = call_plan(binned, nodes, layout)
     err = build.function("traverse", "lgbt_traverse", [ctypes.c_char_p])(
         _TRAVERSE_ARGS.pack(*(0 if t is None else t.data_ptr()
                               for t in ptrs),
                             t_count, n, p, width, LAYOUTS.index(layout), dev,
+                            fc, plan.rows_tile, plan.group, plan.stage,
                             torch._C._cuda_getCurrentRawStream(dev)))
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error "

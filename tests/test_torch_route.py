@@ -10,7 +10,16 @@ captured step holds them; on the CPU it takes the plain version.
 learner's update of its row -> leaf map (``lightgbm_tpu/parallel/
 gspmd.py:305-320``): ``jnp.where(row_leaf == l, jnp.where(goes_left, l,
 new), row_leaf)``, equal row for row, rows of other leaves untouched, and
-each shard's count of every leaf moved exactly."""
+each shard's count of every leaf moved exactly.
+
+The ``route_rows`` kernel's grid (``rows_grid``): column-major, at most
+one wave over the shards; and the kernel's column-major layout of a
+shard's rows over its threads (``_rows_layout``, the kernel's indexing
+written out in numpy): every row of every shard taken by one thread, the
+4-row vectors on 16-byte boundaries of ``row_leaf`` whatever the shard's
+first row's residue, and the map walked as it lays the rows out equal to
+the JAX learner's update.  The kernel itself is held to that indexing on
+the card (``chip_smoke.py`` phase 2g's shards of 250,001 rows)."""
 import numpy as np
 import pytest
 import torch
@@ -20,9 +29,12 @@ import jax.numpy as jnp
 from lightgbm_tpu.grower import FeatureMeta as JaxMeta
 from lightgbm_tpu.grower import route_goes_left as jax_route_goes_left
 from lightgbm_tpu_torch.grower import FeatureMeta
-from lightgbm_tpu_torch.ops.route import (route_goes_left, route_rows,
-                                          route_rows_plain, route_window,
-                                          route_window_plain)
+from lightgbm_tpu_torch.ops.route import (MAX_BLOCKS_PER_SM,
+                                          ROWS_BLOCKS_PER_SM, ROWS_UNROLL,
+                                          THREADS, route_goes_left,
+                                          route_rows, route_rows_plain,
+                                          route_window, route_window_plain,
+                                          rows_grid)
 
 N, F, B = 3000, 5, 40
 # column metadata: no missing, zero as missing, NaN as missing, and a
@@ -255,3 +267,115 @@ def test_route_rows_kernel_matches_plain_on_card():
         route_rows_plain(*p)
         torch.cuda.synchronize()
         assert torch.equal(k[0], p[0]) and torch.equal(k[-1], p[-1]), split
+
+
+# ---- the route_rows kernel's plan ------------------------------------------
+
+def _rows_layout(n_loc: int, grid_x: int, lead: int) -> np.ndarray:
+    """The column-major rows of a shard as the ``route_rows`` kernel lays
+    them over its ``grid_x`` blocks: int64 ``[n_loc]``, the global thread
+    id (block * ``THREADS`` + thread) that takes each row.  ``lead`` is
+    the shard's first row's place in ``row_leaf`` mod 4 (its element
+    offset from a 16-byte boundary).  The rows before the first 16-byte
+    boundary (the head) go one a thread to block 0's threads 0, 1, 2;
+    then vector j (rows ``head + 4j`` to ``head + 4j + 3``) to thread
+    ``j mod (grid_x * THREADS)``, rounds of ``ROWS_UNROLL`` vectors a
+    thread; the rows after the last whole vector (the tail) to block 0's
+    threads 32, 33, 34."""
+    head = min((4 - lead % 4) % 4, n_loc)
+    nvec = (n_loc - head) // 4
+    tail0 = head + 4 * nvec
+    owner = np.empty(n_loc, np.int64)
+    owner[:head] = np.arange(head)
+    owner[head:tail0] = np.repeat(np.arange(nvec) % (grid_x * THREADS), 4)
+    owner[tail0:] = 32 + np.arange(n_loc - tail0)
+    return owner
+
+
+@pytest.mark.parametrize("column", [True, False])
+@pytest.mark.parametrize("n_loc,shards", [
+    (0, 1), (3, 4), (250_000, 4), (250_001, 4), (567_574, 4),
+    (2_750_000, 4), (11_000_000, 1), (1_000, 700)])
+def test_rows_grid_is_one_wave(n_loc, shards, column):
+    """Column-major: the blocks of all shards fit one wave of a 132-SM
+    card (unless the shards alone outnumber it), and a thread takes one
+    round of ``ROWS_UNROLL`` vectors unless the wave is full.  Row-major:
+    one row a thread up to ``MAX_BLOCKS_PER_SM`` blocks an SM."""
+    sms = 132
+    grid = rows_grid(n_loc, shards, sms, column)
+    assert grid >= 1
+    if not column:
+        assert grid == max(1, min(-(-n_loc // THREADS),
+                                  MAX_BLOCKS_PER_SM * sms // shards))
+        return
+    wave = ROWS_BLOCKS_PER_SM * sms
+    if shards <= wave:
+        assert grid * shards <= wave
+    rounds = -(-(n_loc // 4 + 1) // (grid * THREADS * ROWS_UNROLL))
+    assert rounds <= 1 or grid == wave // shards
+    if grid > 1:
+        assert (grid - 1) * THREADS * ROWS_UNROLL < n_loc // 4 + 1
+
+
+@pytest.mark.parametrize("lead", range(4))
+@pytest.mark.parametrize("n_loc", [0, 1, 2, 3, 4, 5, 7, 8, 1_001, 250_001])
+def test_rows_plan_covers_every_row_once(n_loc, lead):
+    """Every row has one thread of the grid; the rows before the first
+    16-byte boundary and after the last whole vector (at most 3 each) go
+    to distinct threads of block 0; each vector is 4 rows from a 16-byte
+    boundary, all 4 with one thread, vector j with thread j mod the
+    grid's threads (several rounds on a 2-SM card); a thread may take a
+    head or tail row besides its vectors."""
+    grid = rows_grid(n_loc, 1, 2, True)
+    owner = _rows_layout(n_loc, grid, lead)
+    assert owner.shape == (n_loc,)
+    assert ((owner >= 0) & (owner < grid * THREADS)).all()
+    head = min((4 - lead) % 4, n_loc)
+    nvec = (n_loc - head) // 4
+    starts = head + 4 * np.arange(nvec)
+    assert ((lead + starts) % 4 == 0).all()
+    for i in range(1, 4):
+        np.testing.assert_array_equal(owner[starts + i], owner[starts])
+    np.testing.assert_array_equal(owner[starts],
+                                  np.arange(nvec) % (grid * THREADS))
+    solo = np.r_[0:head, head + 4 * nvec:n_loc]
+    assert head <= 3 and n_loc - head - 4 * nvec <= 3
+    assert len(set(owner[solo])) == len(solo)
+    assert (owner[solo] < THREADS).all()
+
+
+@pytest.mark.parametrize("lead", range(4))
+@pytest.mark.parametrize("split", ["numerical", "missing_zero_right",
+                                   "missing_nan_left", "categorical"])
+def test_route_rows_plan_walk_matches_the_jax_update(split, lead):
+    """Three shards of 999 rows (each shard's first row at another
+    residue mod 4, past ``lead``) walked thread by thread as the plan lays
+    them out, each row routed by the JAX package's ``route_goes_left``:
+    every row taken once, the map the JAX learner's update, and the rows
+    moved a shard summed over its threads."""
+    leaf, new, shards, n_loc = 4, 3, 3, 999
+    bins, row_leaf, _, _, scatb, _ = _rows_case(12, split)
+    n = shards * n_loc
+    bins, row_leaf = bins[:n], row_leaf[:n]
+    feat, thr, dleft, is_cat = SPLITS[split]
+    left = _jax_left(bins[:, feat], feat, thr, bool(dleft), is_cat,
+                     scatb[leaf])
+    want = np.asarray(jnp.where(
+        jnp.asarray(row_leaf) == leaf,
+        jnp.where(jnp.asarray(left), leaf, new), jnp.asarray(row_leaf)))
+    got, taken = row_leaf.copy(), np.zeros(n, np.int64)
+    moved = np.zeros(shards, np.int64)
+    grid = rows_grid(n_loc, shards, 1, True)
+    for s in range(shards):
+        owner = _rows_layout(n_loc, grid, lead + s * n_loc)
+        for th in np.unique(owner):
+            rows = s * n_loc + np.flatnonzero(owner == th)
+            taken[rows] += 1
+            right = rows[(got[rows] == leaf) & ~left[rows]]
+            got[right] = new
+            moved[s] += len(right)
+    assert (taken == 1).all()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        moved, (want != row_leaf).reshape(shards, -1).sum(1))
+    assert moved.sum() > 0

@@ -11,7 +11,10 @@ with ``backend="xla"`` and small buckets, so its compiles stay cheap.
   traversals; the packed layout's loud degrade on a categorical model.
 * The kernels' modules: the plain traversal of either layout against the
   JAX package's ``_traverse``/``_traverse_packed``, the plain margin
-  against the JAX engine's host loop, bit for bit.
+  against the JAX engine's host loop, bit for bit; the traversal kernel's
+  plan (``traverse_plan``: tree groups, row tiles, what a block stages)
+  within its budget, and the tables cut into its groups and tiles walked
+  by the plain traversal equal to the JAX traversals.
 * The rest of the slice: ``serving_buckets`` validation, the memory term
   against the engine's own tensors, the ModelServer's coalescing, hot
   swaps (the port trainer's snapshots, JAX-written snapshots and shard
@@ -328,6 +331,123 @@ def test_plain_traversal_categorical_equals_jax():
     bundle = lt.predictor.SoABundle(tb.models, torch.device("cpu"))
     got = t_traverse.traverse(bundle.bin_rows(Xt), bundle.nodes("xla"))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("layout", ["packed", "xla"])
+@pytest.mark.parametrize("rows", [1, 64, 300, 4096, 65536])
+@pytest.mark.parametrize("nodes", [254, 16383])
+def test_traverse_plan_stages_within_the_budget(rows, nodes, layout):
+    """The kernel's plan for 100 trees over 28 columns on a 132-SM card:
+    row tiles and tree groups cover every (tree, row) once; at a few rows
+    one tree a block (every SM takes part), at many no more than
+    ``GROUP_MAX`` and eight blocks an SM (packed; node tables sixteen,
+    and no group up to 4,096 rows); the packed layout's shared
+    memory is what its stage holds, within the budget, a tree past it
+    (16,383 nodes: 131 KB) walked from global memory; node tables staged
+    nowhere."""
+    sms, t_count, cols = 132, 100, 28
+    p = t_traverse.traverse_plan(t_count, rows, nodes, cols, layout, sms)
+    assert p.rows_tile & (p.rows_tile - 1) == 0
+    assert p.rows_tile <= t_traverse.ROWS_TILE
+    assert p.threads == max(32, p.rows_tile)
+    assert 1 <= p.group <= t_traverse.GROUP_MAX
+    assert (p.tiles - 1) * p.rows_tile < rows <= p.tiles * p.rows_tile
+    assert (p.groups - 1) * p.group < t_count <= p.groups * p.group
+    if rows <= 64 or (layout == "xla" and rows <= 4096):
+        assert p.group == 1 and p.groups == t_count
+    if p.group > 1:
+        per_sm = (t_traverse.PACKED_BLOCKS_PER_SM if layout == "packed"
+                  else t_traverse.SOA_BLOCKS_PER_SM)
+        assert p.tiles * p.groups >= per_sm * sms
+    node_b = 8 * nodes * p.group
+    data_b = 4 * cols * p.rows_tile
+    want = {t_traverse.STAGE_NONE: 0,
+            t_traverse.STAGE_ALL: node_b + data_b}[p.stage]
+    assert p.smem == want <= t_traverse.STAGE_BYTES
+    if layout == "xla" or node_b + data_b > t_traverse.STAGE_BYTES:
+        assert p.stage == t_traverse.STAGE_NONE
+    else:
+        assert p.stage == t_traverse.STAGE_ALL
+
+
+def _walk_blocks(plan, binned, nodes, layout):
+    """The traversal walked block by block as the plan lays it out: each
+    block's tree group (the node rows it stages) over its tile of rows
+    (the columns' words it stages), by the plain traversal."""
+    t_count, n = nodes[0].shape[0], binned[0].shape[1]
+    out = torch.full((t_count, n), -1, dtype=torch.int32)
+    for i in range(plan.tiles * plan.groups):
+        g, tile = divmod(i, plan.tiles)
+        ts = slice(g * plan.group, min(t_count, (g + 1) * plan.group))
+        rs = slice(tile * plan.rows_tile, min(n, (tile + 1) * plan.rows_tile))
+        staged = tuple(b[:, rs].contiguous() for b in binned)
+        group = tuple(t[ts].contiguous() for t in nodes[:8]) + nodes[8:]
+        assert (out[ts, rs] == -1).all()
+        out[ts, rs] = t_traverse.traverse(staged, group, layout)
+    assert (out >= 0).all()
+    return out
+
+
+@pytest.mark.parametrize("sms", [1, 4, 132])
+def test_staged_groups_walk_equals_jax_traversals(sms):
+    """Random trees' tables cut into the plan's tree groups and row tiles
+    (groups of several trees on small cards) and walked group by group
+    with the plain traversal: the leaves of ``_traverse`` and
+    ``_traverse_packed``."""
+    rng = np.random.RandomState(3)
+    feat, thr, dl, miss, lc, rc = _random_tables(rng, t_count=21, leaves=31)
+    t_count, p = feat.shape
+    n, fc = 300, 5
+    bins = rng.randint(0, 21, (n, fc)).astype(np.int32)
+    nanm = rng.rand(n, fc) < 0.2
+    zerom = rng.rand(n, fc) < 0.2
+    cats = np.zeros((n, fc), np.int32)
+    ic = np.zeros((t_count, p), bool)
+    cref = np.zeros((t_count, p), np.int32)
+    cmask = np.zeros((1, 1), bool)
+    want = np.asarray(jax.jit(j_inference._traverse)(
+        bins, cats, nanm, zerom, feat, thr, dl, miss, lc, rc, ic, cref,
+        cmask))
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    binned = (T(bins.T), T(cats.T), T(nanm.T), T(zerom.T))
+    nodes = tuple(T(a) for a in (feat, thr, dl, miss, lc, rc, ic, cref,
+                                 cmask))
+    plan = t_traverse.traverse_plan(t_count, n, p, fc, "xla", sms)
+    if sms == 1:
+        assert plan.group > 1 and plan.tiles > 1
+    np.testing.assert_array_equal(
+        _walk_blocks(plan, binned, nodes, "xla").numpy(), want)
+    w0, w1 = t_traverse.pack_nodes(*nodes[:6])
+    data = t_traverse.pack_data(binned[0], binned[2], binned[3])
+    want_p = np.asarray(jax.jit(j_inference._traverse_packed)(
+        np.asarray(j_inference._pack_data_words(bins, nanm, zerom)),
+        w0.numpy(), w1.numpy(), p))
+    plan = t_traverse.traverse_plan(t_count, n, p, fc, "packed", sms)
+    np.testing.assert_array_equal(
+        _walk_blocks(plan, (data,), (w0, w1), "packed").numpy(), want_p)
+    np.testing.assert_array_equal(want_p, want)
+
+
+def test_staged_groups_walk_categorical_equals_jax():
+    """A categorical model's node tables cut into the plan's groups and
+    tiles on a 1-SM card (enough rows that node tables form groups): the
+    leaves of ``_traverse``."""
+    text = _categorical_text()
+    Xt = _categorical_rows(512, seed=9)
+    jg = JGBDT.load_from_string(text)
+    jb = j_inference.SoABundle.build(jg.models, 1)
+    want = np.asarray(jax.jit(j_inference._traverse)(
+        *jb.bin_host(Xt[:, jb.cols]), *jb.device_args()))[:jb.num_trees]
+    bundle = lt.predictor.SoABundle(_port_gbdt(text).models,
+                                    torch.device("cpu"))
+    binned = bundle.bin_rows(Xt)
+    nodes = bundle.nodes("xla")
+    plan = t_traverse.traverse_plan(
+        bundle.num_trees, len(Xt), nodes[0].shape[1], binned[0].shape[0],
+        "xla", 1)
+    assert plan.group > 1 and plan.stage == t_traverse.STAGE_NONE
+    np.testing.assert_array_equal(
+        _walk_blocks(plan, binned, nodes, "xla").numpy(), want)
 
 
 @pytest.mark.parametrize("k", [1, 3])
